@@ -1,0 +1,135 @@
+"""Paged KV cache: the host-side page allocator (port of
+deepspeed_tpu/inference/kv_cache.py without the memory-ledger wiring
+and the speculative draft pool, which come with later slices).
+
+One preallocated pool of fixed-size pages
+
+    k_pool / v_pool : [n_layer, num_pages, page_size, n_head, head_dim]
+
+is shared by every request (the tensors live in the engine's state);
+each request slot owns a page-table row, and positions map to
+(physical page, offset) by index math on the device. Physical page 0
+is a reserved scratch page: masked writes (inactive decode slots) go
+there instead of being predicated away.
+
+Allocation is host-side and happens only at serving fences. Admission
+reserves a request's worst-case page count up front (`can_admit`), so
+an admitted request never fails an allocation mid-flight; pages are
+still assigned incrementally as the sequence grows.
+"""
+
+import numpy as np
+
+
+class PagedKVCache:
+    """Host-side page allocator + pool geometry for one engine. The page
+    tables (`tables`, numpy) are the source of truth that the engine
+    uploads after fence-side mutations (`table_version` bumps on every
+    mutation)."""
+
+    def __init__(self, n_layer, n_head, head_dim, num_pages, page_size,
+                 max_slots, max_pages_per_slot):
+        if max_pages_per_slot < 1:
+            raise ValueError(
+                f"max_pages_per_slot must be >= 1, got {max_pages_per_slot}")
+        if num_pages < 2:
+            raise ValueError(
+                f"num_pages must be >= 2 (page 0 is the reserved scratch "
+                f"page), got {num_pages}")
+        self.n_layer = int(n_layer)
+        self.n_head = int(n_head)
+        self.head_dim = int(head_dim)
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.max_slots = int(max_slots)
+        self.max_pages_per_slot = int(max_pages_per_slot)
+        # page 0 = scratch; pages 1..num_pages-1 allocatable (LIFO free
+        # list: recently freed pages are re-assigned first)
+        self._free = list(range(self.num_pages - 1, 0, -1))
+        self._reserved = {}        # slot -> reserved page credit (int)
+        self._pages = {}           # slot -> [physical page ids]
+        self.tables = np.zeros((self.max_slots, self.max_pages_per_slot),
+                               np.int32)
+        self.table_version = 0
+
+    # -- accounting -----------------------------------------------------
+    def pages_for_tokens(self, n_tokens):
+        """Pages needed to hold positions [0, n_tokens)."""
+        return -(-int(n_tokens) // self.page_size)
+
+    def free_pages(self):
+        return len(self._free)
+
+    def reserved_unallocated(self):
+        """Pages promised to admitted requests but not yet assigned."""
+        return sum(max(self._reserved[s] - len(p), 0)
+                   for s, p in self._pages.items())
+
+    def slots(self):
+        """Admitted slot ids (live requests)."""
+        return list(self._pages)
+
+    def reserved_tokens(self, slot):
+        """Token capacity of `slot`'s admission reservation."""
+        return self._reserved.get(slot, 0) * self.page_size
+
+    def allocated_pages(self, slot):
+        return len(self._pages.get(slot, ()))
+
+    def pages_in_use(self):
+        """Pages currently assigned to live requests."""
+        return sum(len(p) for p in self._pages.values())
+
+    # -- admission / growth / release -----------------------------------
+    def can_admit(self, n_tokens_worst_case):
+        """True when a request that may grow to n_tokens_worst_case
+        positions fits: its worst-case pages AND every other live
+        request's still-unassigned reservation must be coverable by the
+        free list."""
+        need = self.pages_for_tokens(n_tokens_worst_case)
+        if need > self.max_pages_per_slot:
+            return False
+        return need + self.reserved_unallocated() <= len(self._free)
+
+    def admit(self, slot, n_tokens_worst_case):
+        """Reserve worst-case capacity for `slot` (no pages assigned
+        yet)."""
+        if slot in self._pages or slot in self._reserved:
+            raise ValueError(f"slot {slot} is already admitted")
+        if not self.can_admit(n_tokens_worst_case):
+            raise RuntimeError(
+                f"kv cache cannot admit {n_tokens_worst_case} tokens: "
+                f"{len(self._free)} free pages, "
+                f"{self.reserved_unallocated()} already reserved "
+                "(raise inference.kv_cache.num_pages)")
+        self._reserved[slot] = self.pages_for_tokens(n_tokens_worst_case)
+        self._pages[slot] = []
+
+    def ensure(self, slot, n_tokens):
+        """Assign pages so `slot` can hold positions [0, n_tokens).
+        Within the admission reservation this cannot fail; beyond it,
+        it raises."""
+        if slot not in self._pages:
+            raise ValueError(f"slot {slot} is not admitted")
+        need = self.pages_for_tokens(n_tokens)
+        pages = self._pages[slot]
+        if need > self._reserved[slot]:
+            raise RuntimeError(
+                f"slot {slot}: {n_tokens} tokens exceeds the admission "
+                f"reservation of {self._reserved[slot]} pages")
+        while len(pages) < need:
+            phys = self._free.pop()
+            pages.append(phys)
+            self.tables[slot, len(pages) - 1] = phys
+            self.table_version += 1
+        return pages
+
+    def free(self, slot):
+        """Return `slot`'s pages to the free list, drop its reservation
+        and reset its table row to the scratch page."""
+        pages = self._pages.pop(slot, [])
+        self._free.extend(reversed(pages))
+        self._reserved.pop(slot, None)
+        self.tables[slot, :] = 0
+        self.table_version += 1
+        return len(pages)

@@ -1,0 +1,240 @@
+"""Continuous batching over the sync-free dispatch loop (port of
+deepspeed_tpu/inference/scheduler.py without the serving tracker, the
+monitor events and the speculative hooks, which come with later
+slices).
+
+The unit of scheduling is one **serving iteration**:
+
+  1. admission — queued requests whose arrival time has passed take
+     free decode slots, IF the paged cache can cover their worst case;
+  2. chunked prefill — every admitted-but-not-yet-live slot advances
+     by ONE prompt chunk, so a long prompt shares the loop with the
+     decode batch instead of stalling it; a slot whose prompt is fully
+     cached flips live;
+  3. decode block — `sync_every` single-token decode steps for the
+     whole slot batch, enqueued with no host sync;
+  4. the fence — ONE device->host copy (engine.fetch_state) reads
+     every slot's progress; finished requests (EOS / max-tokens,
+     decided on the device) are evicted and their pages freed.
+"""
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request. `tokens` is the int32 prompt;
+    `arrival_time` is seconds after the loop's clock zero (0 = already
+    waiting). Result fields are filled by the loop."""
+    rid: Any
+    tokens: np.ndarray
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    top_k: int = 0
+    eos_token_id: Optional[int] = None
+    arrival_time: float = 0.0
+    # -- results ----------------------------------------------------
+    out_tokens: Optional[np.ndarray] = None
+    finish_reason: Optional[str] = None
+    admitted_at: Optional[float] = None
+    live_at: Optional[float] = None     # prompt fully cached, decoding
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+
+
+class ServingLoop:
+    """Drives one InferenceEngine; owns the request queue, the slot
+    table, and the serving fence."""
+
+    def __init__(self, engine):
+        self._infer = engine
+        self.queue = deque()
+        self.live = {}        # slot -> Request (decoding)
+        self.prefilling = {}  # slot -> [Request, next_prefill_pos]
+        self.results = []
+        self._t0 = None
+        s = engine.config.max_slots
+        self._last_n_gen = np.zeros((s,), np.int64)
+        # host mirror of each live slot's position as of the last fence
+        self._last_pos = np.zeros((s,), np.int64)
+
+    # -- submission -----------------------------------------------------
+    def submit(self, req):
+        req.tokens = np.asarray(req.tokens, np.int32).reshape(-1)
+        if len(req.tokens) < 1:
+            raise ValueError(f"request {req.rid!r}: empty prompt")
+        if req.eos_token_id is None:
+            req.eos_token_id = self._infer.config.eos_token_id
+        total = len(req.tokens) + req.max_new_tokens
+        if total > self._infer.max_seq_len:
+            raise ValueError(
+                f"request {req.rid!r}: prompt ({len(req.tokens)}) + "
+                f"max_new_tokens ({req.max_new_tokens}) exceeds "
+                f"max_seq_len {self._infer.max_seq_len}")
+        if req.max_new_tokens > self._infer.config.max_new_tokens:
+            raise ValueError(
+                f"request {req.rid!r}: max_new_tokens "
+                f"{req.max_new_tokens} exceeds the engine buffer width "
+                f"inference.max_new_tokens="
+                f"{self._infer.config.max_new_tokens}")
+        cache = self._infer.cache
+        usable = min(cache.max_pages_per_slot, cache.num_pages - 1)
+        if cache.pages_for_tokens(total) > usable:
+            # a request that can NEVER fit the pool is rejected here:
+            # admission would wait forever for an eviction that cannot
+            # help, starving everything queued behind it
+            raise ValueError(
+                f"request {req.rid!r}: worst case "
+                f"{cache.pages_for_tokens(total)} pages exceeds the "
+                f"pool's {usable} usable pages "
+                "(raise inference.kv_cache.num_pages)")
+        if req.top_k > self._infer.config.top_k_max:
+            raise ValueError(
+                f"request {req.rid!r}: top_k {req.top_k} exceeds the "
+                "sampling cap inference.top_k_max="
+                f"{self._infer.config.top_k_max}")
+        self.queue.append(req)
+
+    def serve(self, requests, clock_zero=None):
+        """Submit `requests` and run until everything finished.
+        Returns them in completion order (each with results filled)."""
+        for r in requests:
+            self.submit(r)
+        self.run(clock_zero=clock_zero)
+        return self.results
+
+    # -- the loop -------------------------------------------------------
+    def _now(self):
+        return time.monotonic() - self._t0
+
+    def run(self, clock_zero=None):
+        self._t0 = clock_zero if clock_zero is not None \
+            else time.monotonic()
+        while self.queue or self.live or self.prefilling:
+            if not self.step():
+                # idle: everything queued is in the future
+                time.sleep(0.0005)
+
+    def step(self):
+        """One serving iteration (admit -> prefill chunk -> decode
+        block -> fence). Returns False when there was nothing to do
+        but wait for arrivals."""
+        self._admit(self._now())
+        self._prefill_turn()
+        if not self.live and not self.prefilling:
+            return False
+        if self.live:
+            iters = self._infer.config.sync_every
+            for slot in self.live:
+                self._infer.ensure_decode_capacity(
+                    slot, int(self._last_pos[slot]), iters)
+            self._infer.push_tables()
+            self._infer.decode_block(iters)
+        self._fence()
+        return True
+
+    # -- phases ---------------------------------------------------------
+    def _free_slots(self):
+        busy = set(self.live) | set(self.prefilling)
+        return [s for s in range(self._infer.config.max_slots)
+                if s not in busy]
+
+    def _admit(self, now):
+        """FIFO admission over the ARRIVED requests: not-yet-arrived
+        entries are skipped, but a ready request the cache cannot cover
+        yet blocks the ready ones behind it (head-of-line FIFO
+        fairness)."""
+        free = self._free_slots()
+        future = []
+        while free and self.queue:
+            req = self.queue.popleft()
+            if req.arrival_time > now:
+                future.append(req)
+                continue
+            worst = len(req.tokens) + req.max_new_tokens
+            if not self._infer.cache.can_admit(worst):
+                # pages exhausted: wait for an eviction
+                self.queue.appendleft(req)
+                break
+            slot = free.pop(0)
+            self._infer.cache.admit(slot, worst)
+            req.admitted_at = now
+            self.prefilling[slot] = [req, 0]
+        # not-yet-arrived requests go back in their original order
+        for req in reversed(future):
+            self.queue.appendleft(req)
+
+    def _prefill_turn(self):
+        """ONE chunk per prefilling slot, then flip completed slots
+        live."""
+        chunk = self._infer.config.prefill_chunk
+        for slot in list(self.prefilling):
+            req, start = self.prefilling[slot]
+            t = len(req.tokens)
+            n_prefill = t - 1
+            if start < n_prefill:
+                end = min(start + chunk, n_prefill)
+                # prefill reads its table ROW from the host copy
+                self._infer.cache.ensure(slot, end)
+                self._infer.prefill_chunk(slot, req.tokens[start:end],
+                                          start)
+                self.prefilling[slot][1] = end
+                start = end
+            if start >= n_prefill:
+                # decode writes the last prompt token's KV at t-1
+                self._infer.cache.ensure(slot, max(t - 1, 1))
+                self._infer.activate_slot(
+                    slot, req.tokens[-1], t - 1, req.max_new_tokens,
+                    req.temperature, req.top_k, req.eos_token_id)
+                req.live_at = self._now()
+                self.live[slot] = req
+                self._last_pos[slot] = t - 1
+                del self.prefilling[slot]
+
+    def _fence(self):
+        """The serving rendezvous: one fetch_state, then eviction."""
+        snap = self._infer.fetch_state()
+        now = self._now()
+        for slot, req in list(self.live.items()):
+            gen = int(snap["n_gen"][slot])
+            if gen > self._last_n_gen[slot] and req.first_token_at is None:
+                req.first_token_at = now
+            self._last_pos[slot] = int(snap["pos"][slot])
+            self._last_n_gen[slot] = gen
+            if not snap["active"][slot]:
+                self._finish(slot, req, snap, now)
+
+    def _finish(self, slot, req, snap, now):
+        gen = int(snap["n_gen"][slot])
+        req.out_tokens = np.asarray(
+            snap["out_tokens"][slot][:gen], np.int32)
+        req.finish_reason = "eos" if snap["finished_eos"][slot] \
+            else "max_tokens"
+        req.finished_at = now
+        del self.live[slot]
+        self._last_n_gen[slot] = 0
+        self._last_pos[slot] = 0
+        self._infer.cache.free(slot)
+        self.results.append(req)
+
+
+def serve_sequential(engine, requests, clock_zero=None):
+    """Request-at-a-time baseline: each request is served alone
+    (admitted no earlier than its arrival time, run to completion
+    before the next is looked at) on the SAME engine and cache. This
+    is what continuous batching replaces."""
+    loop = ServingLoop(engine)
+    loop._t0 = clock_zero if clock_zero is not None \
+        else time.monotonic()
+    for req in sorted(requests, key=lambda r: r.arrival_time):
+        while loop._now() < req.arrival_time:
+            time.sleep(0.0005)
+        loop.submit(req)
+        while loop.queue or loop.live or loop.prefilling:
+            loop.step()
+    return loop

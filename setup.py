@@ -29,6 +29,8 @@ setup(
     description="TPU-native training framework with DeepSpeed's "
                 "capabilities (JAX/XLA/Pallas)",
     packages=find_packages(include=["deepspeed_tpu*", "op_builder*"]),
+    # the PyTorch port's CUDA kernel sources, compiled at first use
+    package_data={"deepspeed_tpu_torch": ["ops/csrc/*.cu"]},
     scripts=["bin/dstpu", "bin/ds_report", "bin/ds_elastic",
              "bin/ds_trace", "bin/ds_lint"],
     install_requires=["jax", "flax", "optax", "numpy"],

@@ -58,6 +58,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (deselect with -m 'not slow' "
                    "for the <3 min fast tier)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA "
+                   "kernels); skips inside the test where "
+                   "torch.cuda.is_available() is False")
 
 
 # Heaviest tests by measured duration (cold-cache full-suite run); the

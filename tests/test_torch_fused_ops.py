@@ -1,0 +1,143 @@
+"""PyTorch port: fused epilogues (kernels K3-fwd, K4-fwd) against the
+JAX package.
+
+On the CPU the port's wrappers run their plain twins; these tests hold
+the twins against deepspeed_tpu's fused ops run both as the Pallas
+kernel in interpret mode (impl="interpret") and as the XLA formulation
+(impl="xla"), on the same inputs made from a numpy seed. The CUDA
+kernels are held against the twins on the card in
+tests/test_torch_cuda.py.
+
+Tolerances: fp32 outputs agree to float roundoff (the reductions run
+in another order): atol = rtol = 1e-5. bf16 outputs come from the same
+fp32 chain rounded once, so a value that straddles a rounding point may
+land one bf16 ulp (2^-7 relative at worst) away: atol = rtol = 1e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deepspeed_tpu.ops.transformer import fused_ops as jfo
+from deepspeed_tpu_torch.ops.transformer import fused_ops as tfo
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(arr, dt):
+    """The same values as a JAX array and a torch tensor of dtype dt."""
+    jdt, tdt = DTYPES[dt]
+    return jnp.asarray(arr, jdt), torch.from_numpy(arr).to(tdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _close(got, ref, dt):
+    np.testing.assert_allclose(_np(got), _np(ref),
+                               **(F32_TOL if dt == "fp32" else BF16_TOL))
+
+
+def _ln_inputs(n, h, seed):
+    r = np.random.RandomState(seed)
+    return (r.randn(n, h).astype(np.float32),
+            (0.1 * r.randn(h)).astype(np.float32),
+            r.randn(n, h).astype(np.float32),
+            (1.0 + 0.1 * r.randn(h)).astype(np.float32),
+            (0.1 * r.randn(h)).astype(np.float32))
+
+
+@pytest.mark.parametrize("impl", ["interpret", "xla"])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("h", [64, 100])
+def test_bias_residual_layernorm_matches_jax(h, dt, impl):
+    """out and resid_sum, in the model's dtype pairing (rows and outputs
+    in the compute dtype, fp32 vectors); H=100 exercises the lane mask
+    of the TPU kernel."""
+    y, bias, res, gamma, beta = _ln_inputs(12, h, seed=h)
+    jy, ty = _both(y, dt)
+    jr, tr = _both(res, dt)
+    jdt, tdt = DTYPES[dt]
+    ref_out, ref_s = jfo.fused_bias_residual_layernorm(
+        jy, bias, jr, gamma, beta, eps=1e-5, out_dtype=jdt, sum_dtype=jdt,
+        impl=impl)
+    out, s = tfo.fused_bias_residual_layernorm(
+        ty, torch.from_numpy(bias), tr, torch.from_numpy(gamma),
+        torch.from_numpy(beta), eps=1e-5, out_dtype=tdt, sum_dtype=tdt)
+    assert out.dtype == tdt and s.dtype == tdt
+    _close(out, ref_out, dt)
+    _close(s, ref_s, dt)
+
+
+@pytest.mark.parametrize("impl", ["interpret", "xla"])
+@pytest.mark.parametrize("h", [64, 100])
+def test_ln_f_form_matches_jax(h, impl):
+    """The ln_f form: bf16 rows, fp32 output, no sum returned."""
+    y, bias, res, gamma, beta = _ln_inputs(12, h, seed=10 + h)
+    jy, ty = _both(y, "bf16")
+    jr, tr = _both(res, "bf16")
+    ref = jfo.fused_bias_residual_layernorm(
+        jy, bias, jr, gamma, beta, eps=1e-5, out_dtype=jnp.float32,
+        return_sum=False, impl=impl)
+    got = tfo.fused_bias_residual_layernorm(
+        ty, torch.from_numpy(bias), tr, torch.from_numpy(gamma),
+        torch.from_numpy(beta), eps=1e-5, out_dtype=torch.float32,
+        return_sum=False)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
+    _close(got, ref, "fp32")
+
+
+@pytest.mark.parametrize("impl", ["interpret", "xla"])
+@pytest.mark.parametrize("approximate", [True, False],
+                         ids=["tanh", "erf"])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("w", [64, 100])
+def test_bias_gelu_matches_jax(w, dt, approximate, impl):
+    r = np.random.RandomState(w)
+    x = (2.0 * r.randn(12, w)).astype(np.float32)
+    bias = (0.1 * r.randn(w)).astype(np.float32)
+    jx, tx = _both(x, dt)
+    ref = jfo.fused_bias_gelu(jx, bias, approximate=approximate,
+                              impl=impl)
+    out, s = tfo.fused_bias_gelu_with_sum(tx, torch.from_numpy(bias),
+                                          approximate=approximate)
+    assert out.dtype == tx.dtype and s.dtype == tx.dtype
+    _close(out, ref, dt)
+    _close(s, _np(jx) + bias, dt)
+    # the public single-output form is the same function
+    assert torch.equal(tfo.fused_bias_gelu(
+        tx, torch.from_numpy(bias), approximate=approximate), out)
+
+
+def test_resolve_fused_ops_matches_jax_where_defined():
+    for mode in ("on", "off", True, False, None, 0, 1):
+        assert tfo.resolve_fused_ops(mode) == jfo.resolve_fused_ops(mode)
+    with pytest.raises(ValueError):
+        tfo.resolve_fused_ops("on", dropout_inactive=False)
+    with pytest.raises(ValueError):
+        tfo.resolve_fused_ops("sometimes")
+    # "auto" keys on the device, as the JAX package keys on the backend
+    assert tfo.resolve_fused_ops("auto", device="cpu") is False
+    assert tfo.resolve_fused_ops("auto", device="cuda") is True
+    assert tfo.resolve_fused_ops("auto", False, device="cuda") is False
+
+
+def test_cpu_tensors_take_the_twins_and_count_no_launch():
+    tfo.reset_launch_counts()
+    y, bias, res, gamma, beta = (torch.from_numpy(a)
+                                 for a in _ln_inputs(4, 64, seed=0))
+    out, s = tfo.fused_bias_residual_layernorm(y, bias, res, gamma, beta)
+    ref_out, ref_s = tfo._ln_fwd_math(y, bias, res, gamma, beta, 1e-5)
+    assert torch.equal(out, ref_out) and torch.equal(s, ref_s)
+    g = tfo.fused_bias_gelu(y, bias, approximate=True)
+    assert torch.equal(g, tfo._gelu_fwd_math(y, bias, True)[0])
+    assert tfo.fused_bias_residual_layernorm.launches == 0
+    assert tfo.fused_bias_gelu.launches == 0
