@@ -3,11 +3,14 @@
 The JAX model (deepspeed_tpu/models/gpt2.py) keeps wte/wpe, ln_f and a
 single scanned child under "h" whose leaves carry a leading [n_layer]
 axis. That child is named "GPT2Block_0" without remat and
-"CheckpointGPT2Block_0" with it (same leaves either way). Dense
-kernels are [in, out] in both packages, so conversion is an unstack:
-no transpose. The tree comes in as nested dicts of numpy arrays (e.g.
-`jax.tree_util.tree_map(np.asarray, params)`); this module imports no
-JAX.
+"CheckpointGPT2Block_0" with it (same leaves either way; the training
+trees of the flagship are remat trees). Dense kernels are [in, out] in
+both packages, so conversion is an unstack: no transpose. The tree
+comes in as nested dicts of numpy arrays (e.g.
+`jax.tree_util.tree_map(np.asarray, params)`); a bf16 training tree's
+leaves are numpy's `bfloat16` extension dtype, which torch cannot wrap,
+so they go through fp32 (exact) to torch.bfloat16. This module imports
+no JAX.
 """
 
 import numpy as np
@@ -33,7 +36,11 @@ def params_from_jax(tree, dtype=None):
     "ln_f.bias"} -> CPU torch tensors (dtype: keep the tree's, or cast
     to the given torch dtype)."""
     def tensor(x):
-        t = torch.from_numpy(np.array(x))
+        arr = np.array(x)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
         return t.to(dtype) if dtype is not None else t
 
     out = {"wte": tensor(tree["wte"]), "wpe": tensor(tree["wpe"])}
@@ -41,7 +48,7 @@ def params_from_jax(tree, dtype=None):
     n_layer = None
     for module, leaves in stacked.items():
         for leaf, value in leaves.items():
-            arr = np.asarray(value)
+            arr = np.array(value)
             if n_layer is None:
                 n_layer = arr.shape[0]
             elif arr.shape[0] != n_layer:

@@ -10,8 +10,9 @@ the time of every fresh run on the card. The first call builds every
 source at once, one `nvcc` per source, all started together.
 
 Libraries land in `build/torch_kernels/` at the repository root (git
-ignores `build/`), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads from the cache.
+ignores `build/`), named by a hash of the source, the shared headers
+(`ops/csrc/*.cuh`) and the flags, so an edited source or header
+rebuilds and an unchanged one loads from the cache.
 
 Each C entry point returns `cudaGetLastError()` after its launch;
 `check()` turns a non-zero code into a RuntimeError, so a launch the
@@ -38,7 +39,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the kernel sources, by library name
-SOURCES = ("flash_attention_fwd", "fused_ln_fwd", "fused_gelu_fwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ln_fwd",
+           "fused_ln_bwd", "fused_gelu_fwd", "fused_gelu_bwd")
 
 _lock = threading.Lock()
 _libs = {}
@@ -62,8 +64,12 @@ def _nvcc():
 def _lib_path(name):
     src = os.path.join(CSRC, name + ".cu")
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    # the source and every shared header under csrc/ (a source may
+    # include any of them)
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -1,12 +1,18 @@
-"""Flash attention, forward half (kernel K1-fwd).
+"""Flash attention: forward (kernel K1-fwd) and backward (kernel K2).
 
 Port of deepspeed_tpu/ops/transformer/flash_attention.py. The Pallas
-forward kernels `_fwd_kernel` and `_fwd_kernel_packed` become one
-hand-written CUDA kernel, `ops/csrc/flash_attention_fwd.cu`; the plain
-PyTorch twin `_flash_fwd_plain` below runs the same tiled online
-softmax (log2 space, -1e30 masking, causal tiles above the diagonal
-skipped) and is what CPU tensors take. The backward (K2) and the
-ring-merge mode (K5) come with later slices.
+forward kernels `_fwd_kernel` / `_fwd_kernel_packed` become the
+hand-written CUDA kernel `ops/csrc/flash_attention_fwd.cu`, and the
+backward kernels (`_bwd_dkv_kernel`, `_bwd_dq_kernel`,
+`_bwd_fused_kernel` and their packed twins) become
+`ops/csrc/flash_attention_bwd.cu`. The plain PyTorch twins
+`_flash_fwd_plain` / `_flash_bwd_plain` below run the same 64x64 tiled
+algorithms (log2 space, -1e30 masking, causal tiles above the diagonal
+skipped) and are what CPU tensors take. A `torch.autograd.Function`
+joins the two halves, so `flash_attention` and
+`flash_attention_with_lse` are differentiable in every output (the lse
+cotangent enters the backward as a shift of delta, as in the JAX
+package). The ring-merge mode (K5) comes with a later slice.
 
 Layout: [B, T, H, D] at every public function, as in the JAX package.
 The lse is returned as [B, H, T, 1] in LOG2 space (m + log2(l) over
@@ -35,13 +41,28 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
     [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
+    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float] + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def dense_attention(q, k, v, causal=False, sm_scale=None):
+def dropout(x, rate, generator):
+    """flax nn.Dropout: keep each element with probability 1 - rate,
+    scaled by 1 / (1 - rate), from `generator`'s uniform draws (a
+    torch.Generator on x's device; the draws are torch's, not JAX's)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def dense_attention(q, k, v, causal=False, sm_scale=None, dropout_rate=0.0,
+                    dropout_gen=None):
     """Dense attention over [B, T, H, D]: the reference path for the
     flash kernel and the route where flash does not apply. fp32
     softmax. The score product comes out in the input dtype and is then
-    widened, as the JAX einsum does."""
+    widened, as the JAX einsum does. With a `dropout_gen` and a rate
+    > 0, dropout applies to the probabilities (the JAX package's
+    attention dropout)."""
     if sm_scale is None:
         sm_scale = 1.0 / np.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
@@ -53,8 +74,10 @@ def dense_attention(q, k, v, causal=False, sm_scale=None):
         scores = torch.where(tri[None, None], scores,
                              torch.tensor(NEG_INF, dtype=torch.float32,
                                           device=q.device))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_gen is not None and dropout_rate > 0.0:
+        probs = dropout(probs, dropout_rate, dropout_gen)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
 def _fit_block(block, t):
@@ -104,7 +127,7 @@ def _resolve_head_packing(head_packing, d):
 
 
 # ----------------------------------------------------------------------
-# plain twin: the kernel's tiled online softmax in PyTorch
+# plain twins: the kernels' tiled algorithms in PyTorch
 # ----------------------------------------------------------------------
 def _flash_fwd_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
     """(out [B,T,H,D] in q.dtype, lse [B,H,T] fp32 log2 space) by the
@@ -150,25 +173,82 @@ def _flash_fwd_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
     return out.permute(0, 2, 1, 3), lse
 
 
-# ----------------------------------------------------------------------
-# kernel launcher
-# ----------------------------------------------------------------------
-def _flash_fwd_launch(q, k, v, sm_scale, causal):
-    from deepspeed_tpu_torch.ops import _build
+def _flash_bwd_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
+                     block=KERNEL_BLOCK):
+    """(dq, dk, dv) [B,T,H,D] in the input dtype by the kernel's
+    algorithm: delta = rowsum(dO * O) - log2(e) * dlse; per (q tile,
+    k tile) pair at or below the diagonal, P = exp2(S - lse) from the
+    log2(e)-scaled scores (masked at -1e30), dP = dO V^T,
+    dS = P (dP - delta) sm_scale; dV += P^T dO with P in dO's dtype,
+    dK += dS^T Q and dQ += dS K with dS in q's dtype, fp32 sums. `lse`
+    and `dlse` (or None) are [B, H, T] fp32."""
     b, t, h, d = q.shape
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.shape != q.shape:
-            raise ValueError(f"{name} shape {tuple(x.shape)} != "
-                             f"q shape {tuple(q.shape)}")
-        if x.dtype != q.dtype or x.device != q.device:
-            raise ValueError("q, k, v must share dtype and device")
-        if x.stride(3) != 1:
-            raise ValueError(f"{name}: head dim must be contiguous")
-        itemsize = x.element_size()
-        if x.data_ptr() % 16 or any((x.stride(i) * itemsize) % 16
-                                    for i in range(3)):
-            raise ValueError(f"{name}: base and (b, t, h) strides must be "
-                             "16-byte aligned for the kernel's loads")
+    f32 = torch.float32
+    scale = float(sm_scale * LOG2E)
+    qh, kh, vh, gh = (x.permute(0, 2, 1, 3).to(f32) for x in (q, k, v, g))
+    delta = (g.to(f32) * out.to(f32)).sum(dim=-1).permute(0, 2, 1)
+    if dlse is not None:
+        delta = delta - LOG2E * dlse.to(f32)
+    dq = torch.zeros((b, h, t, d), dtype=f32, device=q.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    nblk = t // block
+    for qi in range(nblk):
+        rows = slice(qi * block, (qi + 1) * block)
+        qt, gt = qh[:, :, rows], gh[:, :, rows]
+        lse_t = lse[:, :, rows, None].to(f32)
+        delta_t = delta[:, :, rows, None]
+        for ki in range(qi + 1 if causal else nblk):
+            cols = slice(ki * block, (ki + 1) * block)
+            kt, vt = kh[:, :, cols], vh[:, :, cols]
+            s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+            if causal:
+                qpos = torch.arange(qi * block, (qi + 1) * block,
+                                    device=q.device)
+                kpos = torch.arange(ki * block, (ki + 1) * block,
+                                    device=q.device)
+                s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+            p = torch.exp2(s - lse_t)
+            dp = torch.matmul(gt, vt.transpose(-1, -2))
+            ds = p * (dp - delta_t) * sm_scale
+            p_c = p.to(g.dtype).to(f32)
+            ds_c = ds.to(q.dtype).to(f32)
+            dv[:, :, cols] += torch.matmul(p_c.transpose(-1, -2), gt)
+            dk[:, :, cols] += torch.matmul(ds_c.transpose(-1, -2), qt)
+            dq[:, :, rows] += torch.matmul(ds_c, kt)
+    return tuple(x.to(dtype).permute(0, 2, 1, 3)
+                 for x, dtype in ((dq, q.dtype), (dk, k.dtype),
+                                  (dv, v.dtype)))
+
+
+# ----------------------------------------------------------------------
+# kernel launchers
+# ----------------------------------------------------------------------
+def _kernel_readable(x):
+    """Whether the kernels' 16-byte row loads can read the [B, T, H, D]
+    tensor x in place: a contiguous head dim and 16-byte aligned base and
+    (b, t, h) strides."""
+    itemsize = x.element_size()
+    return x.stride(3) == 1 and not x.data_ptr() % 16 and not any(
+        (x.stride(i) * itemsize) % 16 for i in range(3))
+
+
+def _check_kernel_operand(name, x, like):
+    """`like`'s shape, dtype and device, and readable in place."""
+    if x.shape != like.shape:
+        raise ValueError(f"{name} shape {tuple(x.shape)} != "
+                         f"q shape {tuple(like.shape)}")
+    if x.dtype != like.dtype or x.device != like.device:
+        raise ValueError(f"{name}: q, k, v (and out, dout) must share "
+                         "dtype and device")
+    if not _kernel_readable(x):
+        raise ValueError(f"{name}: head dim must be contiguous, base and "
+                         "(b, t, h) strides 16-byte aligned for the "
+                         "kernel's loads")
+
+
+def _check_kernel_shape(q):
+    b, t, h, d = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernel: dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
@@ -180,22 +260,108 @@ def _flash_fwd_launch(q, k, v, sm_scale, causal):
                          f"{KERNEL_BLOCK}")
     if b * h > 65535:
         raise ValueError(f"flash kernel: B*H={b * h} exceeds 65535")
+
+
+def _strides(*tensors):
+    vals = [x.stride(i) for x in tensors for i in range(3)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _flash_fwd_launch(q, k, v, sm_scale, causal):
+    from deepspeed_tpu_torch.ops import _build
+    b, t, h, d = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_operand(name, x, q)
+    _check_kernel_shape(q)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 9)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2))
     fn = _build.function("flash_attention_fwd", "ds_flash_attn_fwd",
                          _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), b, t, h, d, strides,
+             lse.data_ptr(), b, t, h, d, _strides(q, k, v),
              float(sm_scale * LOG2E), int(bool(causal)),
              _DTYPE_CODE[q.dtype], q.device.index or 0,
              _build.stream_ptr(q))
     _build.check(err, "flash_attention kernel")
     flash_attention_with_lse.launches += 1
     return out, lse
+
+
+def _flash_bwd_launch(q, k, v, out, lse, g, dlse, sm_scale, causal):
+    from deepspeed_tpu_torch.ops import _build
+    b, t, h, d = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", g)):
+        _check_kernel_operand(name, x, q)
+    _check_kernel_shape(q)
+    for name, x in (("lse", lse), ("dlse", dlse)):
+        if x is not None and (x.shape != (b, h, t) or
+                              x.dtype != torch.float32 or
+                              not x.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous fp32 "
+                             f"[{b}, {h}, {t}] tensor")
+    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_attention_bwd", "ds_flash_attn_bwd",
+                         _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             g.data_ptr(), lse.data_ptr(),
+             dlse.data_ptr() if dlse is not None else None,
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+             b, t, h, d, _strides(q, k, v, out, g),
+             float(sm_scale * LOG2E), float(sm_scale), int(bool(causal)),
+             _DTYPE_CODE[q.dtype], q.device.index or 0,
+             _build.stream_ptr(q))
+    _build.check(err, "flash_attention backward kernel")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, dlse=None,
+                             sm_scale=None, causal=True):
+    """(dq, dk, dv) of flash attention from the forward's (out, lse)
+    (lse [B, H, T] fp32 in log2 space, as `_flash_fwd_launch` and
+    `_flash_fwd_plain` write it), the output cotangent `dout` and an
+    optional lse cotangent `dlse` [B, H, T]. CUDA tensors launch kernel
+    K2; CPU tensors take the plain twin."""
+    if sm_scale is None:
+        sm_scale = 1.0 / np.sqrt(q.shape[-1])
+    if dlse is not None:
+        dlse = dlse.to(torch.float32).contiguous()
+    if q.is_cuda:
+        if not _kernel_readable(dout):
+            dout = dout.contiguous()
+        return _flash_bwd_launch(q, k, v, out, lse, dout, dlse,
+                                 float(sm_scale), causal)
+    return _flash_bwd_plain(q, k, v, out, lse, dout, dlse, float(sm_scale),
+                            causal)
+
+
+flash_attention_backward.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse [B, H, T]) = flash attention of (q, k, v): the forward
+    kernel (or twin), and the backward kernel (or twin) off the saved
+    (q, k, v, out, lse) — the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, causal):
+        out, lse = _flash_forward(q, k, v, sm_scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, g_out, g_lse, ctx.sm_scale, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 # ----------------------------------------------------------------------
@@ -211,20 +377,27 @@ def _normalize_flash_args(q, k, v, causal, sm_scale, head_packing):
     return float(sm_scale), bool(causal)
 
 
+def _flash_forward(q, k, v, sm_scale, causal):
+    if q.is_cuda:
+        return _flash_fwd_launch(q, k, v, sm_scale, causal)
+    if q.shape[1] % KERNEL_BLOCK:
+        raise ValueError(f"flash attention: T={q.shape[1]} is no "
+                         f"multiple of {KERNEL_BLOCK}")
+    return _flash_fwd_plain(q, k, v, sm_scale, causal)
+
+
 def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
                              head_packing="auto"):
     """Flash attention returning (out [B,T,H,D], lse [B,H,T,1]), lse in
-    LOG2 space. CUDA tensors launch kernel K1-fwd; CPU tensors take the
-    plain twin (T must be a multiple of 64 on either)."""
+    LOG2 space, differentiable in both. CUDA tensors launch kernels
+    K1-fwd (and K2 in the backward); CPU tensors take the plain twins
+    (T must be a multiple of 64 on either)."""
     sm_scale, causal = _normalize_flash_args(q, k, v, causal, sm_scale,
                                              head_packing)
-    if q.is_cuda:
-        out, lse = _flash_fwd_launch(q, k, v, sm_scale, causal)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out, lse = _FlashAttention.apply(q, k, v, sm_scale, causal)
     else:
-        if q.shape[1] % KERNEL_BLOCK:
-            raise ValueError(f"flash attention: T={q.shape[1]} is no "
-                             f"multiple of {KERNEL_BLOCK}")
-        out, lse = _flash_fwd_plain(q, k, v, sm_scale, causal)
+        out, lse = _flash_forward(q, k, v, sm_scale, causal)
     return out, lse[..., None]
 
 
@@ -240,4 +413,6 @@ def flash_attention(q, k, v, causal=True, sm_scale=None,
 
 
 def reset_launch_count():
+    """Zero the forward (K1) and backward (K2) launch counters."""
     flash_attention_with_lse.launches = 0
+    flash_attention_backward.launches = 0

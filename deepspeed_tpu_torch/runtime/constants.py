@@ -1,7 +1,83 @@
 """Config keys and defaults (trimmed copy of
-deepspeed_tpu/runtime/constants.py: the `inference` block, and the
-`monitor` switch the serving engine checks). Values are identical to
-the JAX package's; tests/test_torch_inference.py holds them equal."""
+deepspeed_tpu/runtime/constants.py: the training keys the engine reads,
+the `inference` block, and the switches of the blocks that later slices
+port). Values are identical to the JAX package's;
+tests/test_torch_inference.py and tests/test_torch_engine.py hold them
+equal."""
+
+#############################################
+# Batch size
+#############################################
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_BATCH_SIZE_DEFAULT = None
+
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT = None
+
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
+
+#############################################
+# Optimizer and lr scheduler
+#############################################
+OPTIMIZER = "optimizer"
+OPTIMIZER_TYPE_DEFAULT = None
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+SCHEDULER = "scheduler"
+SCHEDULER_TYPE_DEFAULT = None
+SCHEDULER_PARAMS = "params"
+
+ADAM_OPTIMIZER = "adam"
+ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+SGD_OPTIMIZER = "sgd"
+DEEPSPEED_OPTIMIZERS = [
+    ADAM_OPTIMIZER,
+    ADAMW_OPTIMIZER,
+    LAMB_OPTIMIZER,
+    ONEBIT_ADAM_OPTIMIZER,
+    SGD_OPTIMIZER,
+]
+
+#############################################
+# Precision
+#############################################
+FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+
+BFLOAT16 = "bf16"
+BFLOAT16_ALIAS = "bfloat16"
+BFLOAT16_ENABLED = "enabled"
+BFLOAT16_ENABLED_DEFAULT = False
+# master_weights=false drops the fp32 master copy AND fp32 Adam moments
+# for bf16 state + stochastic-rounded updates (runtime/bf16_optimizer.py)
+BFLOAT16_MASTER_WEIGHTS = "master_weights"
+BFLOAT16_MASTER_WEIGHTS_DEFAULT = True
+
+#############################################
+# Gradient handling
+#############################################
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+
+#############################################
+# Logging
+#############################################
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+
+#############################################
+# Blocks of later slices (the switches only)
+#############################################
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_ENABLED = "enabled"
+PLD_ENABLED_DEFAULT = False
+PIPELINE = "pipeline"
+MOE = "moe"
+QUANTIZED_COMPUTE = "quantized_compute"
 
 #############################################
 # Monitor (only the switch: the monitor itself is a later slice)

@@ -123,8 +123,10 @@ def test_out_of_slice_options_raise():
     ids = np.zeros((1, 8), np.int64)
     with pytest.raises(NotImplementedError):
         model.apply(model.params(), ids, deterministic=False)
+    # training is ported (slice 2); its later-slice options still raise
     with pytest.raises(NotImplementedError):
-        model.loss_fn(None, {"input_ids": ids})
+        model.loss_fn(model.params(), {"input_ids": ids},
+                      layer_keep_prob=0.5)
 
 
 def test_default_device_raises_without_cuda():
