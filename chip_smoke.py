@@ -37,13 +37,28 @@ Phases, each printing one JSON line:
      each must be > 0), and a torch.profiler window over 2 steps;
   8. training oracle: 2 layers at gpt2-1.5b width, bf16, micro batch 11,
      seq 1024, loss and every gradient through the kernels against the
-     plain-torch route.
-Phase 3 holds the forward kernels at the serving and the training
-shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at the training
-shapes, against their twins, with fp32 cases, SDPA's causal backward as
-K2's yardstick, and two launches of each deterministic backward
-compared bit for bit; each kernel is timed at the shapes of the paths
-that run it.
+     plain-torch route;
+  9. MoE training: gpt2-350m-moe8 (gpt2-350m at full width and depth,
+     8 experts, top-2, capacity factor 1.25, every other layer) through
+     initialize -> train_batch with bench.py's bench_gpt2_350m config
+     (micro batch 16, seq 1024, bf16 with fp32 master weights, ZeRO-0,
+     AdamW, full-block remat) and the `moe` block: as phase 7, plus the
+     router's drop fraction and per-expert load at every step; every
+     kernel must have launched, K8 (dispatch, combine) and the grouped
+     K4 included;
+ 10. MoE oracle: 4 layers (2 MoE) at that width and batch, the kernel
+     route against the plain-torch route (einsum dispatch/combine) with
+     the routing held equal, after counting the assignments the plain
+     route would choose differently on its own.
+Phase 3 holds the forward kernels at the serving, the training and the
+MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
+both training shapes, against their twins, with fp32 cases, SDPA's
+causal backward as K2's yardstick, two launches of each deterministic
+backward compared bit for bit, K4 in its grouped (expert) form and K8
+at the MoE shape (N 16,384 tokens, 8 x 5,120 slots, H 1024) in bf16
+and fp32, k 1 and 2, with empty slots and dropped assignments
+(`torch.index_select` on the padded tokens is dispatch's yardstick);
+each kernel is timed at the shapes of the paths that run it.
 Then the `kernels` summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises and the script
 exits non-zero without printing a result. It needs a CUDA device and
@@ -192,6 +207,8 @@ def kernel_flash(peaks, gen):
          64, torch.bfloat16, True, "training"),
         ("bf16 causal B1 T384 H25 D64 (oracle shape)", 1, 384, 25, 64,
          torch.bfloat16, True, None),
+        ("bf16 causal B16 T1024 H16 D64 (MoE training shape)", 16, 1024,
+         16, 64, torch.bfloat16, True, "moe_training"),
         ("fp32 non-causal B4 T256 H25 D64", 4, 256, 25, 64,
          torch.float32, False, None),
     )
@@ -243,9 +260,11 @@ def kernel_ln(peaks, gen):
         ("N11264 H1600 bf16 out+sum (training shape)", 11264, bf16, bf16,
          "training"),
         ("N11264 H1600 ln_f form (training shape)", 11264, f32, None, None),
+        ("N16384 H1024 bf16 out+sum (MoE training shape)", 16384, bf16,
+         bf16, "moe_training"),
     )
-    h = 1600
     for label, n, out_dt, sum_dt, timed in cases:
+        h = 1024 if "H1024" in label else 1600
         y = torch.randn((n, h), generator=gen, device="cuda").to(bf16)
         res = torch.randn((n, h), generator=gen, device="cuda").to(bf16)
         bias, gamma, beta = (0.1 * torch.randn(
@@ -290,15 +309,20 @@ def kernel_gelu(peaks, gen):
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     checks, out = [], {}
     bf16 = torch.bfloat16
-    w = 6400
-    cases = (  # (label, N, tanh form, timed as)
-        ("N4096 W6400 bf16 tanh", 4096, True, "serving"),
-        ("N4096 W6400 bf16 erf", 4096, False, None),
-        ("N4 W6400 bf16 tanh (decode shape)", 4, True, None),
-        ("N11264 W6400 bf16 tanh (training shape)", 11264, True, "training"))
-    for label, n, approx, timed in cases:
+    cases = (  # (label, N, W, bias groups, tanh form, timed as)
+        ("N4096 W6400 bf16 tanh", 4096, 6400, 1, True, "serving"),
+        ("N4096 W6400 bf16 erf", 4096, 6400, 1, False, None),
+        ("N4 W6400 bf16 tanh (decode shape)", 4, 6400, 1, True, None),
+        ("N11264 W6400 bf16 tanh (training shape)", 11264, 6400, 1, True,
+         "training"),
+        ("N16384 W4096 bf16 tanh (MoE dense blocks)", 16384, 4096, 1, True,
+         None),
+        ("G8 x 5120 x W4096 bf16 tanh, bias [8, 4096] (MoE experts)",
+         8 * 5120, 4096, 8, True, "moe_training"))
+    for label, n, w, groups, approx, timed in cases:
         x = torch.randn((n, w), generator=gen, device="cuda").to(bf16)
-        bias = 0.1 * torch.randn((w,), generator=gen, device="cuda")
+        bias = 0.1 * torch.randn((groups, w) if groups > 1 else (w,),
+                                 generator=gen, device="cuda")
 
         def run():
             return fo.fused_bias_gelu_with_sum(x, bias, approximate=approx,
@@ -314,7 +338,7 @@ def kernel_gelu(peaks, gen):
             # read x, write out and sum (bf16), the bias row once; fp32
             # arithmetic of the tanh form: 10 operations and a tanh
             # (counted as one) per element
-            nbytes = n * w * (2 + 2 + 2) + w * 4
+            nbytes = n * w * (2 + 2 + 2) + groups * w * 4
             bound_ms, bound_by = bound(11 * n * w, peaks["fp32"], nbytes,
                                        peaks)
             out[timed] = dict(
@@ -350,7 +374,8 @@ def torch_isfinite(x):
 
 def kernel_flash_bwd(peaks, gen):
     """K2 at the training flagship's shape (B11 T1024 H25 D64 bf16
-    causal, q/k/v column slices of one qkv tensor), plus fp32 and
+    causal, q/k/v column slices of one qkv tensor) and the MoE training
+    shape (B16 T1024 H16 D64), plus fp32 and
     d=128 cases, against `_flash_bwd_plain` on the forward kernel's own
     (out, lse). The library yardstick is SDPA's causal backward (its
     forward + backward, minus its forward)."""
@@ -359,17 +384,20 @@ def kernel_flash_bwd(peaks, gen):
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     checks, out = [], {}
     cases = (
-        # (label, B, T, H, D, dtype, causal, flagship)
+        # (label, B, T, H, D, dtype, causal, timed as)
         ("bf16 causal B11 T1024 H25 D64", 11, 1024, 25, 64,
-         torch.bfloat16, True, True),
+         torch.bfloat16, True, "training"),
+        ("bf16 causal B16 T1024 H16 D64 (MoE training shape)", 16, 1024, 16,
+         64, torch.bfloat16, True, "moe_training"),
         ("bf16 non-causal B2 T256 H4 D128", 2, 256, 4, 128,
-         torch.bfloat16, False, False),
+         torch.bfloat16, False, None),
         ("fp32 causal B2 T256 H25 D64", 2, 256, 25, 64, torch.float32,
-         True, False),
+         True, None),
         ("fp32 non-causal B2 T256 H4 D128", 2, 256, 4, 128,
-         torch.float32, False, False),
+         torch.float32, False, None),
     )
-    for label, b, t, h, d, dtype, causal, flagship in cases:
+    for label, b, t, h, d, dtype, causal, timed in cases:
+        timed_case = timed is not None
         c = h * d
         qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda",
                           dtype=torch.float32).to(dtype)
@@ -378,7 +406,7 @@ def kernel_flash_bwd(peaks, gen):
         lse = lse[..., 0].contiguous()
         dout = torch.randn((b, t, h, d), generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
-        dlse = None if flagship else torch.randn(
+        dlse = None if timed_case else torch.randn(
             (b, h, t), generator=gen, device="cuda")
         sm = 1.0 / d ** 0.5
 
@@ -392,7 +420,7 @@ def kernel_flash_bwd(peaks, gen):
         tol = GRAD_TOL_BF16 if dtype == torch.bfloat16 else GRAD_TOL_F32
         errs = [check_rel(f"flash bwd d{n}, {label}", x, y, tol, checks)
                 for n, x, y in zip("qkv", got, ref)]
-        if flagship:
+        if timed_case:
             itemsize = q.element_size()
             pairs = t * (t + 1) // 2 if causal else t * t
             # five products per visible (q, k) pair: S, dP, dV, dK, dQ
@@ -412,7 +440,7 @@ def kernel_flash_bwd(peaks, gen):
             def sdpa_fwd_bwd():
                 torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
 
-            out["training"] = dict(
+            out[timed] = dict(
                 max_abs_err=max(errs), ms=time_ms(run),
                 plain_ms=time_ms(lambda: fa._flash_bwd_plain(
                     q, k, v, o, lse, dout, dlse, sm, causal), iters=3,
@@ -425,21 +453,23 @@ def kernel_flash_bwd(peaks, gen):
 
 def kernel_ln_bwd(peaks, gen):
     """K3-bwd at the training flagship's shape (N = 11 x 1024 rows,
-    H 1600): the block form (bf16 rows, sum cotangent) and the ln_f
+    H 1600) and the MoE training shape (N 16,384, H 1024): the block form (bf16 rows, sum cotangent) and the ln_f
     form (fp32 dout, no sum cotangent), plus an fp32 case."""
     import torch
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     checks, out = [], {}
     bf16, f32 = torch.bfloat16, torch.float32
-    h = 1600
     cases = (
-        # (label, N, s dtype, dout dtype, with dsum, flagship)
-        ("N11264 H1600 bf16 with dsum", 11264, bf16, bf16, True, True),
+        # (label, N, s dtype, dout dtype, with dsum, timed as)
+        ("N11264 H1600 bf16 with dsum", 11264, bf16, bf16, True, "training"),
         ("N11264 H1600 ln_f form (fp32 dout, no dsum)", 11264, bf16, f32,
-         False, False),
-        ("N1024 H1600 fp32 with dsum", 1024, f32, f32, True, False),
+         False, None),
+        ("N1024 H1600 fp32 with dsum", 1024, f32, f32, True, None),
+        ("N16384 H1024 bf16 with dsum (MoE training shape)", 16384, bf16,
+         bf16, True, "moe_training"),
     )
-    for label, n, s_dt, d_dt, with_dsum, flagship in cases:
+    for label, n, s_dt, d_dt, with_dsum, timed in cases:
+        h = 1024 if "H1024" in label else 1600
         s = (2.0 * torch.randn((n, h), generator=gen, device="cuda")) \
             .to(s_dt)
         gamma = 1.0 + 0.1 * torch.randn((h,), generator=gen, device="cuda")
@@ -463,13 +493,13 @@ def kernel_ln_bwd(peaks, gen):
         again = run()
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise AssertionError(f"ln bwd {label}: two launches differ")
-        if flagship:
+        if timed:
             # read s, dout, dsum, write dx (bf16), gamma and the three
             # sums once; fp32 arithmetic ~22 operations per element
             nbytes = n * h * (2 + 2 + 2 + 2) + 4 * h * 4
             bound_ms, bound_by = bound(22 * n * h, peaks["fp32"], nbytes,
                                        peaks)
-            out["training"] = dict(
+            out[timed] = dict(
                 max_abs_err=errs[0], ms=time_ms(run),
                 plain_ms=time_ms(lambda: fo._ln_bwd_math(
                     s, gamma, dout, dsum, 1e-5)),
@@ -480,44 +510,143 @@ def kernel_ln_bwd(peaks, gen):
 
 def kernel_gelu_bwd(peaks, gen):
     """K4-bwd at the training flagship's shape (N = 11 x 1024 rows,
-    W 6400), both GeLU forms, plus an fp32 case."""
+    W 6400), both GeLU forms, plus an fp32 case; at the MoE training
+    shapes, the dense blocks' N 16,384 x W 4096 and the experts' grouped
+    form (8 groups of 5,120 rows, dbias [8, 4096])."""
     import torch
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     checks, out = [], {}
     bf16, f32 = torch.bfloat16, torch.float32
-    w = 6400
-    cases = (("N11264 W6400 bf16 tanh", 11264, bf16, True, True),
-             ("N11264 W6400 bf16 erf", 11264, bf16, False, False),
-             ("N1024 W6400 fp32 tanh", 1024, f32, True, False))
-    for label, n, dt, approx, flagship in cases:
+    cases = (  # (label, N, W, bias groups or None, dtype, tanh, timed as)
+        ("N11264 W6400 bf16 tanh", 11264, 6400, None, bf16, True,
+         "training"),
+        ("N11264 W6400 bf16 erf", 11264, 6400, None, bf16, False, None),
+        ("N1024 W6400 fp32 tanh", 1024, 6400, None, f32, True, None),
+        ("N16384 W4096 bf16 tanh (MoE dense blocks)", 16384, 4096, None,
+         bf16, True, None),
+        ("G8 x 5120 x W4096 bf16 tanh, dbias [8, 4096] (MoE experts)",
+         8 * 5120, 4096, 8, bf16, True, "moe_training"))
+    for label, n, w, groups, dt, approx, timed in cases:
         s = (2.0 * torch.randn((n, w), generator=gen, device="cuda")).to(dt)
         dout = torch.randn((n, w), generator=gen, device="cuda").to(dt)
 
         def run():
-            return fo.fused_bias_gelu_backward(s, dout, approximate=approx)
+            return fo.fused_bias_gelu_backward(s, dout, approximate=approx,
+                                               groups=groups)
 
         dx, dbias = run()
         torch.cuda.synchronize()
         ref = fo._gelu_bwd_math(s, dout, approx)
+        ref_dbias = ref.sum(0) if groups is None else \
+            ref.reshape(groups, -1, w).sum(1)
         tol = GRAD_TOL_BF16 if dt == bf16 else GRAD_TOL_F32
         err = check_rel(f"gelu bwd dx, {label}", dx, ref.to(dt), tol, checks)
-        check_rel(f"gelu bwd dbias, {label}", dbias, ref.sum(0),
+        check_rel(f"gelu bwd dbias, {label}", dbias, ref_dbias,
                   GRAD_TOL_F32 * 10, checks)
         again = run()
         if not (torch.equal(dx, again[0]) and torch.equal(dbias, again[1])):
             raise AssertionError(f"gelu bwd {label}: two launches differ")
-        if flagship:
+        if timed:
             # read s and dout, write dx (bf16), dbias once; fp32
             # arithmetic of the tanh form: ~18 operations and a tanh
-            nbytes = n * w * (2 + 2 + 2) + w * 4
+            nbytes = n * w * (2 + 2 + 2) + (groups or 1) * w * 4
             bound_ms, bound_by = bound(19 * n * w, peaks["fp32"], nbytes,
                                        peaks)
-            out["training"] = dict(
+            out[timed] = dict(
                 max_abs_err=err, ms=time_ms(run),
                 plain_ms=time_ms(lambda: fo._gelu_bwd_math(s, dout, approx)),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 shape=label)
     return out, checks
+
+
+# the MoE training cell (gpt2-350m-moe8): micro batch 16 x seq 1024
+# tokens, 8 experts, top-2, capacity factor 1.25, every other layer
+MOE_BATCH, MOE_SEQ, MOE_EXPERTS, MOE_TOP_K, MOE_CF = 16, 1024, 8, 2, 1.25
+# K8 against its twin: dispatch copies rows (exact); combine adds k
+# products in fp32 in the twin's order and rounds once, so it matches to
+# the last bit, and the bound is one rounding: one bf16 ulp (at most
+# 2^-7 relative) or 1e-6 in fp32
+TOL_K8_BF16 = dict(atol=1e-6, rtol=2 ** -7)
+TOL_K8_F32 = dict(atol=1e-6, rtol=1e-6)
+
+
+def moe_routing(gen, n, k, skew):
+    """Routing of n tokens over MOE_EXPERTS experts (the port's router on
+    random logits; `skew` added to expert 0's logit overfills it, so
+    assignments drop), its slot maps, capacity and kept count."""
+    import torch
+    from deepspeed_tpu_torch.moe import (router_capacity, routing_slots,
+                                         top_k_gating_indexed)
+    logits = torch.randn((n, MOE_EXPERTS), generator=gen, device="cuda")
+    logits[:, 0] += skew
+    cap = router_capacity(n, MOE_EXPERTS, k, MOE_CF)
+    routing, stats = top_k_gating_indexed(logits, k, cap)
+    src, dest = routing_slots(routing, MOE_EXPERTS, cap)
+    return routing, stats, src, dest, cap
+
+
+def kernel_moe(peaks, gen):
+    """K8 at the MoE training shape (N 16,384 tokens, E 8, C 5,120, H
+    1024), bf16 and fp32, k = 1 and 2, with empty slots and dropped
+    assignments: both gathers against their twins. Returns the dispatch
+    and combine results (each timed at the bf16 k = 2 case, the path's)."""
+    import importlib
+    import torch
+    fd = importlib.import_module("deepspeed_tpu_torch.moe.fused_dispatch")
+    checks, disp, comb = [], {}, {}
+    n, h = MOE_BATCH * MOE_SEQ, 1024
+    cases = (  # (label, dtype, k, logit skew of expert 0, timed)
+        ("bf16 k2 N16384 H1024 E8 C5120", torch.bfloat16, 2, 1.0, True),
+        ("fp32 k2 N16384 H1024 E8 C5120", torch.float32, 2, 1.0, False),
+        ("bf16 k1 N16384 H1024 E8", torch.bfloat16, 1, 1.0, False),
+        ("fp32 k1 N16384 H1024 E8", torch.float32, 1, 1.0, False))
+    for label, dtype, k, skew, timed in cases:
+        routing, stats, src, dest, cap = moe_routing(gen, n, k, skew)
+        ec = MOE_EXPERTS * cap
+        occupied = int((src < n).sum())
+        kept = int(routing["keep"].sum())
+        if not (occupied < ec and kept < n * k):
+            raise AssertionError(f"{label}: no empty slot or no drop")
+        x = torch.randn((n, h), generator=gen, device="cuda").to(dtype)
+        ye = torch.randn((ec, h), generator=gen, device="cuda").to(dtype)
+        cw = (routing["keep"] * routing["w"]).float().contiguous()
+        xe = fd.gather_rows(x, src)
+        y = fd.combine_rows(ye, dest, cw)
+        torch.cuda.synchronize()
+        exact = torch.equal(xe, fd._gather_rows_plain(x, src))
+        checks.append({"check": f"dispatch, {label}", "exact": exact,
+                       "occupied_slots": occupied, "slots": ec,
+                       "dropped_fraction": float(stats[-2])})
+        if not exact:
+            raise AssertionError(f"dispatch {label}: differs from the twin")
+        tol = TOL_K8_BF16 if dtype == torch.bfloat16 else TOL_K8_F32
+        err = check(f"combine, {label}", y,
+                    fd._combine_rows_plain(ye, dest, cw), tol, checks)
+        if not timed:
+            continue
+        esize = x.element_size()
+        # dispatch: read each occupied slot's token row and the slot map,
+        # write every slot row; combine: read the kept assignments' rows,
+        # dest and cw, write every token row; no arithmetic to speak of
+        d_bound, d_by = bound(0, peaks["bf16"], (occupied + ec) * h * esize
+                              + ec * 4, peaks)
+        c_bound, c_by = bound(2 * kept * h, peaks["fp32"],
+                              (kept + n) * h * esize + n * k * 8, peaks)
+        xp = torch.cat([x, x.new_zeros((1, h))])
+        srcl = src.long()
+        disp = dict(max_abs_err=0.0, ms=time_ms(lambda: fd.gather_rows(x, src)),
+                    plain_ms=time_ms(lambda: fd._gather_rows_plain(x, src)),
+                    bound_ms=d_bound, bound_by=d_by,
+                    library_ms=time_ms(lambda: xp.index_select(0, srcl)),
+                    shape=label)
+        comb = dict(max_abs_err=err,
+                    ms=time_ms(lambda: fd.combine_rows(ye, dest, cw)),
+                    plain_ms=time_ms(lambda: fd._combine_rows_plain(
+                        ye, dest, cw)),
+                    bound_ms=c_bound, bound_by=c_by, library_ms=None,
+                    shape=label)
+    return {"moe_training": disp}, {"moe_training": comb}, checks
 
 
 # ----------------------------------------------------------------------
@@ -782,7 +911,8 @@ def training_oracle(seed, n_layer=2):
     finite = all(torch_isfinite(g) for g in gk)
     # the kernel route must have run every kernel
     ok = finite and loss_err <= TOL_TRAIN_LOSS and \
-        errs[worst] <= TOL_TRAIN_GRAD and min(launched.values()) > 0
+        errs[worst] <= TOL_TRAIN_GRAD and \
+        all(launched[k] > 0 for k in TRAINING_KERNELS)
     emit({"phase": "training_oracle", "n_layer": n_layer, "batch": batch,
           "seq": seq, "loss_kernels": lk, "loss_plain": lp,
           "loss_rel_err": loss_err, "tol_loss": TOL_TRAIN_LOSS,
@@ -796,6 +926,203 @@ def training_oracle(seed, n_layer=2):
                              "the plain-torch route")
 
 
+# ----------------------------------------------------------------------
+# phases 9-10: MoE training and its oracle
+# ----------------------------------------------------------------------
+def moe_ds_config():
+    """bench.py's bench_gpt2_350m ds_config (micro batch 16, bf16 with
+    fp32 master weights, ZeRO-0, AdamW) with the `moe` block of
+    bench_moe_vs_dense (8 experts, top-2, capacity factor 1.25, every
+    other layer)."""
+    return {
+        "train_micro_batch_size_per_gpu": MOE_BATCH,
+        "gradient_accumulation_steps": 1,
+        "steps_per_print": 1000,
+        "bf16": {"enabled": True},
+        "zero_optimization": {"stage": 0},
+        "optimizer": {"type": "AdamW",
+                      "params": {"lr": 1e-4, "weight_decay": 0.01}},
+        "moe": {"enabled": True, "num_experts": MOE_EXPERTS,
+                "top_k": MOE_TOP_K, "capacity_factor": MOE_CF,
+                "every_n_layers": 2},
+    }
+
+
+def moe_config(**overrides):
+    """gpt2-350m (24 layers, n_embd 1024, 16 heads) with MoEConfig's
+    defaults every other layer, bf16, full-block remat, dropout 0."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_config
+    from deepspeed_tpu_torch.moe import MoEConfig
+    moe = MoEConfig(num_experts=MOE_EXPERTS, top_k=MOE_TOP_K,
+                    capacity_factor=MOE_CF, every_n_layers=2).validate()
+    return gpt2_config("gpt2-350m", n_positions=MOE_SEQ, dropout=0.0,
+                       dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                       remat=True, remat_policy=None, moe=moe, **overrides)
+
+
+def moe_train_and_check(seed, card, warmup=2, steps=6):
+    """Phase 9: gpt2-350m-moe8 through initialize (with the moe block)
+    -> train_batch on one fixed batch repeated: step ms, tokens/s, peak
+    memory, losses (finite, falling), the router's drop fraction and
+    per-expert load at every step (the stats of the loss the engine
+    differentiates, kept as device tensors until the end), launches per
+    step, a profile. Returns the launch counts of its steps."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.moe import STAT_DROP, router_capacity
+
+    cfg = moe_config()
+    t0 = time.perf_counter()
+    model = GPT2ForCausalLM(cfg)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in params.values())
+    router_stats = []
+    loss_fn = model.loss_fn
+
+    def recording_loss_fn(p, batch, rngs=None, deterministic=False):
+        loss, stats = loss_fn(p, batch, rngs=rngs,
+                              deterministic=deterministic,
+                              return_router_stats=True)
+        router_stats.append(stats.detach())
+        return loss
+
+    model.loss_fn = recording_loss_fn
+    engine, _, _, _ = dst.initialize(model=model, model_parameters=params,
+                                     config=moe_ds_config())
+    del params
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, MOE_BATCH, MOE_SEQ)).astype(np.int32)
+    staged = engine.stage_batch({"input_ids": ids})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        losses.append(engine.train_batch(batch=staged))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(engine.train_batch(batch=staged))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss_vals = [float(x) for x in torch.stack(losses).float().cpu()]
+    stats = torch.stack(router_stats).float().cpu()
+    profile = profile_steps(
+        lambda: [engine.train_batch(batch=staged) for _ in range(2)], 2)
+    ok = all(np.isfinite(loss_vals)) and loss_vals[-1] < loss_vals[0]
+    tokens = MOE_BATCH * MOE_SEQ
+    emit({"phase": "moe_training", "model": "gpt2-350m-moe8",
+          "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+          "n_head": cfg.n_head, "vocab": cfg.vocab_size,
+          "moe": {"num_experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
+                  "capacity_factor": MOE_CF, "every_n_layers": 2,
+                  "moe_layers": cfg.moe_cells,
+                  "capacity": router_capacity(tokens, MOE_EXPERTS,
+                                              MOE_TOP_K, MOE_CF)},
+          "params": n_params, "micro_batch": MOE_BATCH, "seq": MOE_SEQ,
+          "dtype": "bf16 compute and params, fp32 master weights and "
+                   "moments",
+          "zero_stage": 0, "remat": "full block", "setup_s": setup_s,
+          "warmup_steps": warmup, "warmup_s": warm_s, "steps": steps,
+          "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+          "max_memory_allocated_gib": peak / 2 ** 30,
+          "losses": loss_vals, "loss_falls": ok,
+          "router_drop_fraction": [float(r[STAT_DROP]) for r in stats],
+          "router_load": [[round(float(v), 5) for v in r[:MOE_EXPERTS]]
+                          for r in stats],
+          "launches_per_step": {k: v / (warmup + steps)
+                                for k, v in counts.items()},
+          "card": card})
+    emit({"phase": "moe_training_profile", **profile, "card": card})
+    if not ok:
+        raise AssertionError(f"MoE training losses {loss_vals}: not finite "
+                             "or not falling on the repeated batch")
+    del engine, model, staged
+    return counts
+
+
+def moe_oracle(seed, n_layer=4):
+    """Phase 10: gpt2-350m-moe8 at full width, `n_layer` layers (two MoE
+    layers), bf16, micro batch 16, seq 1024, one set of weights and one
+    batch through two routes: the kernels (K8 dispatch/combine, grouped
+    K4, flash, the fused epilogues) and plain torch (the one-hot einsum
+    pair, fused_ops "off", dense attention). Routing is discontinuous:
+    one bf16 ulp upstream can send a token to another expert. So the
+    phase reports how many (token, choice) assignments the plain route
+    chooses differently on its own, then runs the plain route again with
+    the kernel route's choices forced (`MoEMLP.route_override`; the gate
+    values still come from its own router), and holds the loss within
+    TOL_TRAIN_LOSS and every gradient within TOL_TRAIN_GRAD relative L2
+    of the kernel route: the same bf16 roundings as `training_oracle`,
+    plus the einsum route's bf16 combine weights (one more rounding)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.moe import MoEMLP
+
+    cfg = moe_config(n_layer=n_layer)
+    kernel = GPT2ForCausalLM(cfg)
+    params = kernel.init(seed)
+    plain = GPT2ForCausalLM(dataclasses.replace(
+        cfg, fused_ops="off", attention_impl="xla",
+        moe=dataclasses.replace(cfg.moe, fused_dispatch="off")))
+    ids = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ)), device="cuda")
+
+    def mlps(model):
+        return [m for m in model.module.modules() if isinstance(m, MoEMLP)]
+
+    def loss_and_grads(model):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = model.loss_fn(p, {"input_ids": ids}, deterministic=True)
+        return float(loss.detach()), torch.autograd.grad(loss,
+                                                         list(p.values()))
+
+    reset_counts()
+    lk, gk = loss_and_grads(kernel)
+    launched = read_counts()
+    chosen = [m.last_expert_idx for m in mlps(kernel)]
+    with torch.no_grad():
+        plain.loss_fn(params, {"input_ids": ids}, deterministic=True)
+    own = [m.last_expert_idx for m in mlps(plain)]
+    differ = [int((a != b).sum()) for a, b in zip(chosen, own)]
+    for m, c in zip(mlps(plain), chosen):
+        m.route_override = c
+    lp, gp = loss_and_grads(plain)
+    torch.cuda.synchronize()
+    loss_err = abs(lk - lp) / abs(lp)
+    errs = {name: rel_l2(a, b) for name, a, b in zip(params, gk, gp)}
+    worst = max(errs, key=errs.get)
+    finite = all(torch_isfinite(g) for g in gk)
+    missing = [k for k in MOE_KERNELS if launched[k] <= 0]
+    ok = finite and loss_err <= TOL_TRAIN_LOSS and \
+        errs[worst] <= TOL_TRAIN_GRAD and not missing
+    emit({"phase": "moe_oracle", "n_layer": n_layer,
+          "moe_layers": cfg.moe_cells, "batch": MOE_BATCH, "seq": MOE_SEQ,
+          "assignments_per_layer": MOE_BATCH * MOE_SEQ * MOE_TOP_K,
+          "assignments_chosen_differently_by_plain_route": differ,
+          "loss_kernels": lk, "loss_plain_same_routing": lp,
+          "loss_rel_err": loss_err, "tol_loss": TOL_TRAIN_LOSS,
+          "grads": len(errs), "worst_grad": worst,
+          "worst_grad_rel_l2": errs[worst],
+          "median_grad_rel_l2": float(np.median(list(errs.values()))),
+          "tol_grad_rel_l2": TOL_TRAIN_GRAD,
+          "kernel_route_launches": launched, "ok": ok})
+    if not ok:
+        raise AssertionError("MoE kernel-route loss/gradients disagree with "
+                             f"the plain-torch route (missing: {missing})")
+
+
 # device-time groups of the profiles, by kernel-name substring
 KERNEL_GROUPS = (
     ("port kernels: attention", ("flash_fwd_kernel", "flash_bwd_",
@@ -803,6 +1130,8 @@ KERNEL_GROUPS = (
     ("port kernels: epilogues", ("ln_fwd_kernel", "ln_bwd_rows_kernel",
                                  "gelu_fwd_kernel", "gelu_bwd_rows_kernel",
                                  "col_reduce_kernel")),
+    ("port kernels: MoE dispatch/combine", ("gather_rows_kernel",
+                                            "combine_rows_kernel")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
     ("casts and copies", ("copy_kernel",)),
     ("elementwise and reductions", ("elementwise", "reduce_kernel")),
@@ -851,17 +1180,25 @@ def profile_steps(run, steps):
                         for e in top]}
 
 
+def _moe_kernels():
+    import importlib
+    return importlib.import_module("deepspeed_tpu_torch.moe.fused_dispatch")
+
+
 def reset_counts():
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     fa.reset_launch_count()
     fo.reset_launch_counts()
+    _moe_kernels().reset_launch_counts()
 
 
 def read_counts():
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
-    return {"flash_attention_fwd": fa.flash_attention_with_lse.launches,
+    fd = _moe_kernels()
+    return {"moe_dispatch": fd.gather_rows.launches,
+            "moe_combine": fd.combine_rows.launches,"flash_attention_fwd": fa.flash_attention_with_lse.launches,
             "flash_attention_bwd": fa.flash_attention_backward.launches,
             "fused_bias_residual_layernorm_fwd":
                 fo.fused_bias_residual_layernorm.launches,
@@ -891,10 +1228,20 @@ KERNELS = (
     ("fused_bias_gelu_bwd",
      "deepspeed_tpu_torch/ops/csrc/fused_gelu_bwd.cu",
      "deepspeed_tpu/ops/transformer/fused_ops.py:288", kernel_gelu_bwd),
+    # K8: one phase (kernel_moe) checks and times both gathers
+    ("moe_dispatch", "deepspeed_tpu_torch/ops/csrc/moe_dispatch.cu",
+     "deepspeed_tpu/moe/fused_dispatch.py:115", None),
+    ("moe_combine", "deepspeed_tpu_torch/ops/csrc/moe_dispatch.cu",
+     "deepspeed_tpu/moe/fused_dispatch.py:183", None),
 )
-# the forward kernels the serving path runs; the training path runs all
+# the kernels each path runs: serving the forward ones, dense training
+# K1-K4, MoE training all of them
 SERVING_KERNELS = ("flash_attention_fwd", "fused_bias_residual_layernorm_fwd",
                    "fused_bias_gelu_fwd")
+TRAINING_KERNELS = SERVING_KERNELS + (
+    "flash_attention_bwd", "fused_bias_residual_layernorm_bwd",
+    "fused_bias_gelu_bwd")
+MOE_KERNELS = TRAINING_KERNELS + ("moe_dispatch", "moe_combine")
 
 
 def main(argv=None):
@@ -938,10 +1285,19 @@ def main(argv=None):
     gen.manual_seed(args.seed)
     results = {}
     for kname, _, _, fn in KERNELS:
+        if fn is None:
+            continue
         res, checks = fn(peaks, gen)
         results[kname] = res
         emit({"phase": "kernel", "name": kname, "checks": checks,
               "timed_by_path": res, "card": card})
+    disp, comb, checks = kernel_moe(peaks, gen)
+    results["moe_dispatch"], results["moe_combine"] = disp, comb
+    emit({"phase": "kernel", "name": "moe_dispatch and moe_combine",
+          "checks": checks, "timed_by_path": {"moe_dispatch": disp,
+                                              "moe_combine": comb},
+          "card": card})
+    torch.cuda.empty_cache()
 
     # 4-6: the serving path, with launch counts zeroed right before it
     serve_and_check(args.seed, card)
@@ -957,25 +1313,39 @@ def main(argv=None):
     # steps), then 8: its oracle
     training = train_and_check(args.seed, card)
     emit({"phase": "launch_counts", "path": "training", **training})
-    missing = [k for k, n in training.items() if n <= 0]
+    missing = [k for k in TRAINING_KERNELS if training[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the training "
                              f"path: {missing}")
     torch.cuda.empty_cache()
     training_oracle(args.seed)
+    torch.cuda.empty_cache()
+
+    # 9: the MoE training path (counts zeroed inside, right before its
+    # steps), then 10: its oracle
+    moe = moe_train_and_check(args.seed, card)
+    emit({"phase": "launch_counts", "path": "moe_training", **moe})
+    missing = [k for k in MOE_KERNELS if moe[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the MoE training "
+                             f"path: {missing}")
+    torch.cuda.empty_cache()
+    moe_oracle(args.seed)
 
     rows = []
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the serving shape where the kernel serves
-        # (as in earlier runs), else at the training shape; both shapes
-        # under "timed_by_path"
+        # (as in earlier runs), else at the training shape, else at the
+        # MoE training shape; every path's under "timed_by_path"
         by_path = results[kname]
-        r = by_path.get("serving") or by_path["training"]
+        r = by_path.get("serving") or by_path.get("training") or \
+            by_path["moe_training"]
+        paths = {"serving": serving[kname], "training": training[kname],
+                 "moe_training": moe[kname]}
         rows.append({"name": kname, "route": "cuda", "source": src_file,
                      "replaces": replaces,
-                     "launches": serving[kname] + training[kname],
-                     "launches_by_path": {"serving": serving[kname],
-                                          "training": training[kname]},
+                     "launches": sum(paths.values()),
+                     "launches_by_path": paths,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -4,7 +4,10 @@ The JAX model (deepspeed_tpu/models/gpt2.py) keeps wte/wpe, ln_f and a
 single scanned child under "h" whose leaves carry a leading [n_layer]
 axis. That child is named "GPT2Block_0" without remat and
 "CheckpointGPT2Block_0" with it (same leaves either way; the training
-trees of the flagship are remat trees). Dense kernels are [in, out] in
+trees of the flagship are remat trees). An MoE tree scans super-cells
+instead: dense children "GPT2Block_{j}" (j < every_n_layers - 1) and one
+"MoEGPT2Block_0", each with a leading [cells] axis, and "Checkpoint"
+before each name under remat. Dense kernels are [in, out] in
 both packages, so conversion is an unstack: no transpose. The tree
 comes in as nested dicts of numpy arrays (e.g.
 `jax.tree_util.tree_map(np.asarray, params)`); a bf16 training tree's
@@ -17,24 +20,59 @@ import numpy as np
 import torch
 
 _BLOCK_CHILDREN = ("GPT2Block_0", "CheckpointGPT2Block_0")
+_MOE_CHILDREN = ("MoEGPT2Block_0", "CheckpointMoEGPT2Block_0")
 
 
-def _stacked_child(h):
-    if len(h) != 1:
-        raise ValueError(f'expected one scanned child under "h", got '
-                         f"{sorted(h)}")
-    (name, stacked), = h.items()
-    if name not in _BLOCK_CHILDREN:
-        raise ValueError(f'unexpected child {name!r} under "h" (expected '
-                         f"one of {_BLOCK_CHILDREN}; MoE trees are a "
-                         "later slice)")
-    return stacked
+def _dense_index(name):
+    """j of a dense child "GPT2Block_{j}" / "CheckpointGPT2Block_{j}",
+    else None."""
+    for prefix in ("GPT2Block_", "CheckpointGPT2Block_"):
+        rest = name[len(prefix):]
+        if name.startswith(prefix) and rest.isdigit():
+            return int(rest)
+    return None
+
+
+def _layer_children(h):
+    """[(first layer, layer stride, stacked subtree)] of the scanned
+    children under "h": the dense model's one block child, or an MoE
+    tree's cell of (every_n_layers - 1) dense children and one MoE
+    child, whose cell c holds layers c * every .. c * every + every - 1
+    (the MoE block last)."""
+    names = sorted(h)
+    moe = [n for n in names if n in _MOE_CHILDREN]
+    dense = {n: _dense_index(n) for n in names if n not in _MOE_CHILDREN}
+    bad = [n for n, j in dense.items() if j is None]
+    if bad or len(moe) > 1 or (not moe and len(names) != 1) or \
+            (not moe and names[0] not in _BLOCK_CHILDREN):
+        raise ValueError(f'unexpected children {names} under "h" '
+                         f"(expected one of {_BLOCK_CHILDREN}, or dense "
+                         f"block children and one of {_MOE_CHILDREN})")
+    if not moe:
+        return [(0, 1, h[names[0]])]
+    every = len(dense) + 1
+    if sorted(dense.values()) != list(range(every - 1)):
+        raise ValueError(f'dense children under "h" are not numbered '
+                         f"0..{every - 2}: {sorted(dense)}")
+    out = [(j, every, h[n]) for n, j in dense.items()]
+    return out + [(every - 1, every, h[moe[0]])]
+
+
+def _leaves(tree, prefix=""):
+    """(dotted path, array) of every leaf of a nested dict."""
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            yield from _leaves(value, path + ".")
+        else:
+            yield path, value
 
 
 def params_from_jax(tree, dtype=None):
     """{"wte", "wpe", "h.{i}.<module>.<leaf>", "ln_f.scale",
     "ln_f.bias"} -> CPU torch tensors (dtype: keep the tree's, or cast
-    to the given torch dtype)."""
+    to the given torch dtype). MoE trees give "h.{i}.moe_mlp.wg" and
+    "h.{i}.moe_mlp.experts.{wi,bi,wo,bo}" for their MoE layers."""
     def tensor(x):
         arr = np.array(x)
         if arr.dtype.name == "bfloat16":
@@ -44,18 +82,17 @@ def params_from_jax(tree, dtype=None):
         return t.to(dtype) if dtype is not None else t
 
     out = {"wte": tensor(tree["wte"]), "wpe": tensor(tree["wpe"])}
-    stacked = _stacked_child(tree["h"])
-    n_layer = None
-    for module, leaves in stacked.items():
-        for leaf, value in leaves.items():
+    cells = None
+    for first, stride, stacked in _layer_children(tree["h"]):
+        for path, value in _leaves(stacked):
             arr = np.array(value)
-            if n_layer is None:
-                n_layer = arr.shape[0]
-            elif arr.shape[0] != n_layer:
-                raise ValueError(f"{module}.{leaf}: layer axis "
-                                 f"{arr.shape[0]} != {n_layer}")
-            for i in range(n_layer):
-                out[f"h.{i}.{module}.{leaf}"] = tensor(arr[i])
+            if cells is None:
+                cells = arr.shape[0]
+            elif arr.shape[0] != cells:
+                raise ValueError(f"{path}: layer axis {arr.shape[0]} != "
+                                 f"{cells}")
+            for c in range(cells):
+                out[f"h.{first + c * stride}.{path}"] = tensor(arr[c])
     out["ln_f.scale"] = tensor(tree["ln_f"]["scale"])
     out["ln_f.bias"] = tensor(tree["ln_f"]["bias"])
     return out

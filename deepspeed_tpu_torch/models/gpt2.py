@@ -25,14 +25,24 @@ projections (the unfused path, as in JAX), drawn from per-layer
 recompute draws the same masks; and the chunked tied-head
 cross-entropy, whose [B, T, vocab] logits never exist.
 
+Mixture-of-experts (`GPT2Config(moe=MoEConfig(...))`, the JAX MoE
+model): every `every_n_layers`-th layer is a `MoEGPT2Block` (the
+attention half of a block with plain LayerNorms and Dense projections,
+then `moe/layer.py`'s MoEMLP), the others dense `GPT2Block`s called
+without the boundary carry, as the JAX super-cell scan calls them. The
+router stats of the MoE layers are summed and divided by their count;
+`loss_fn` adds aux_loss_weight * stats[STAT_AUX] to the cross-entropy.
+
 Parameters keep flax's names and layouts, flattened: "wte", "wpe",
 "h.{i}.{c_attn,c_proj,c_fc,mlp_c_proj}.{kernel,bias}" with [in, out]
-kernels, "h.{i}.{ln_1,ln_2}.{scale,bias}", "ln_f.{scale,bias}".
-`models/convert.py` turns a JAX tree into this form.
+kernels, "h.{i}.{ln_1,ln_2}.{scale,bias}", "ln_f.{scale,bias}"; an MoE
+layer has "h.{i}.moe_mlp.wg" and "h.{i}.moe_mlp.experts.{wi,bi,wo,bo}"
+in place of c_fc/mlp_c_proj. `models/convert.py` turns a JAX tree into
+this form.
 
 Out of this slice (each raises NotImplementedError naming its slice):
-named remat policies, progressive layer drop, mixture-of-experts, int8
-quantized compute, sequence parallelism.
+named remat policies, progressive layer drop, int8 quantized compute
+(and quantized experts), sequence parallelism.
 """
 
 import dataclasses
@@ -43,6 +53,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.moe.layer import MoEConfig, MoEMLP
+from deepspeed_tpu_torch.moe.router import STAT_AUX
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     dense_attention, dropout, flash_attention, flash_attention_usable)
 from deepspeed_tpu_torch.ops.transformer.fused_ops import (
@@ -92,6 +104,24 @@ class GPT2Config:
                              f"n_head {self.n_head}")
         return self.n_embd // self.n_head
 
+    @property
+    def moe_cells(self):
+        """Number of MoE layers (the JAX super-cell count): each cell is
+        every_n_layers - 1 dense blocks and one MoE block."""
+        if self.moe is None:
+            raise ValueError("moe_cells needs GPT2Config(moe=...)")
+        every = self.moe.every_n_layers
+        if self.n_layer % every:
+            raise ValueError(
+                f"moe.every_n_layers={every} must divide n_layer="
+                f"{self.n_layer}")
+        return self.n_layer // every
+
+    def is_moe_layer(self, i):
+        """Whether layer i is the MoE block of its cell."""
+        return self.moe is not None and \
+            (i + 1) % self.moe.every_n_layers == 0
+
 
 GPT2_SIZES = {
     "gpt2-tiny": dict(n_layer=2, n_embd=64, n_head=4, vocab_size=512,
@@ -121,10 +151,14 @@ def tiny_gpt2_config(**overrides):
 
 
 def check_supported(cfg: GPT2Config):
-    """Raise for the options whose code paths are later slices."""
+    """Raise for the options whose code paths are later slices, and
+    for an `moe` that is no MoEConfig."""
     if cfg.moe is not None:
-        raise NotImplementedError(
-            "mixture-of-experts GPT-2 is ported in the MoE slice")
+        if not isinstance(cfg.moe, MoEConfig):
+            raise TypeError(f"GPT2Config.moe must be a moe.MoEConfig or "
+                            f"None, got {type(cfg.moe).__name__}")
+        cfg.moe.validate()
+        cfg.moe_cells   # every_n_layers must divide n_layer
     if cfg.quantized_compute not in ("off", False, 0, None):
         raise NotImplementedError(
             "int8 quantized compute (kernel K6) is ported in the "
@@ -273,6 +307,51 @@ class GPT2Block(nn.Module):
         return hidden + y
 
 
+class MoEGPT2Block(nn.Module):
+    """Pre-LN block whose MLP is MoEMLP (the JAX MoEGPT2Block): the
+    attention half with plain LayerNorms (flax numerics, fp32) and Dense
+    c_attn/c_proj under the dense block's names, then router + dispatch
+    + experts + combine. Returns (hidden, stats [E+2]). Dropout draws
+    from the generator of `dropout_seed`'s stream 0, router jitter from
+    its stream 1."""
+
+    def __init__(self, config: GPT2Config):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        c, pd = cfg.n_embd, cfg.param_dtype
+        eps = cfg.layer_norm_epsilon
+        self.ln_1 = LayerNorm(c, pd, eps)
+        self.c_attn = Dense(c, 3 * c, cfg.dtype, pd)
+        self.c_proj = Dense(c, c, cfg.dtype, pd)
+        self.ln_2 = LayerNorm(c, pd, eps)
+        self.moe_mlp = MoEMLP(cfg.moe, c, 4 * c, cfg.dtype, pd)
+
+    def forward(self, hidden, deterministic=True, dropout_seed=None):
+        cfg = self.config
+        b, t, c = hidden.shape
+        h, d = cfg.n_head, cfg.head_dim
+        drop = not deterministic and cfg.dropout > 0.0
+        gen = _generator(dropout_seed, 0, hidden.device) if drop else None
+        jitter = None
+        if not deterministic and cfg.moe.jitter_eps > 0.0 and \
+                dropout_seed is not None:
+            jitter = _generator(dropout_seed, 1, hidden.device)
+
+        x = self.ln_1(hidden).to(cfg.dtype)
+        qkv = self.c_attn(x)
+        q, k, v = (part.view(b, t, h, d) for part in qkv.split(c, dim=-1))
+        attn = self.c_proj(_attention(cfg, q, k, v, gen).reshape(b, t, c))
+        if drop:
+            attn = dropout(attn, cfg.dropout, gen)
+        hidden = hidden + attn
+        y = self.ln_2(hidden).to(cfg.dtype)
+        y, stats = self.moe_mlp(y, deterministic, jitter)
+        if drop:
+            y = dropout(y, cfg.dropout, gen)
+        return hidden + y, stats
+
+
 def _block_call(block, params, *args):
     return torch.func.functional_call(block, params, args)
 
@@ -304,11 +383,16 @@ class GPT2LMHeadModel(nn.Module):
                                             dtype=pd))
         self.wpe = nn.Parameter(torch.empty((cfg.n_positions, cfg.n_embd),
                                             dtype=pd))
-        self.h = nn.ModuleList(GPT2Block(cfg) for _ in range(cfg.n_layer))
+        self.h = nn.ModuleList(
+            MoEGPT2Block(cfg) if cfg.is_moe_layer(i) else GPT2Block(cfg)
+            for i in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, pd, cfg.layer_norm_epsilon)
 
     def forward(self, input_ids, deterministic=True, return_hidden=False,
                 dropout_seed=None):
+        """Logits, or with `return_hidden` (final hidden, wte); an MoE
+        model returns (that, router stats [E+2] averaged over its MoE
+        layers)."""
         cfg = self.config
         drop = not deterministic and cfg.dropout > 0.0
         if drop and dropout_seed is None:
@@ -320,11 +404,18 @@ class GPT2LMHeadModel(nn.Module):
         if drop:
             hidden = dropout(hidden, cfg.dropout,
                              _generator(dropout_seed, 0, hidden.device))
+        # router jitter, like dropout, draws from the step's seed
+        stochastic = not deterministic and dropout_seed is not None and (
+            drop or (cfg.moe is not None and cfg.moe.jitter_eps > 0.0))
 
         def seed(i):
             # block i's stream: a seed of its own, drawn again on recompute
-            return _generator_seed(dropout_seed, i + 1) if drop else None
+            return _generator_seed(dropout_seed, i + 1) if stochastic \
+                else None
 
+        if cfg.moe is not None:
+            return self._moe_forward(hidden, remat, deterministic, seed,
+                                     return_hidden)
         if resolve_fused_ops(cfg.fused_ops, not drop, hidden.device):
             # boundary fusion: the zero first boundary's bias takes
             # wte's dtype, as in the JAX model's carry0
@@ -348,6 +439,30 @@ class GPT2LMHeadModel(nn.Module):
             return hidden.to(cfg.dtype), self.wte
         return torch.matmul(hidden.to(cfg.dtype),
                             self.wte.to(cfg.dtype).t())
+
+    def _moe_forward(self, hidden, remat, deterministic, seed,
+                     return_hidden):
+        """The MoE stack: dense blocks without the boundary carry (the
+        JAX super-cell calls them so), MoE blocks returning router stats,
+        which sum over the MoE layers and divide by their count; then a
+        plain ln_f."""
+        cfg = self.config
+        stats = torch.zeros((cfg.moe.num_experts + 2,), dtype=torch.float32,
+                            device=hidden.device)
+        for i, block in enumerate(self.h):
+            if cfg.is_moe_layer(i):
+                hidden, s = _run_block(block, remat, hidden, deterministic,
+                                       seed(i))
+                stats = stats + s
+            else:
+                hidden = _run_block(block, remat, hidden, None, False,
+                                    deterministic, seed(i))
+        stats = stats / float(cfg.moe_cells)
+        hidden = self.ln_f(hidden)
+        if return_hidden:
+            return (hidden.to(cfg.dtype), self.wte), stats
+        return torch.matmul(hidden.to(cfg.dtype),
+                            self.wte.to(cfg.dtype).t()), stats
 
 
 class _TiedHeadLogits(torch.autograd.Function):
@@ -429,8 +544,11 @@ def cross_entropy_loss(logits, labels, ignore_index=-100):
 def _init_std(cfg, name):
     """Per-leaf init std of the JAX model (None = constant init)."""
     leaf = name.rsplit(".", 1)[-1]
-    if name in ("wte", "wpe"):
+    if name in ("wte", "wpe") or leaf in ("wg", "wi"):
         return cfg.initializer_range
+    if leaf == "wo":
+        # the experts' down projection: the residual-scaled init
+        return cfg.initializer_range / np.sqrt(2 * cfg.n_layer)
     if leaf == "kernel":
         if ".c_proj." in name or ".mlp_c_proj." in name:
             # GPT-2's residual-scaling trick: proj init scaled by depth
@@ -513,8 +631,11 @@ class GPT2ForCausalLM:
         if layer_keep_prob is not None:
             raise NotImplementedError(PLD_SLICE)
         with torch.no_grad():
-            return torch.func.functional_call(self.module, params,
-                                              (self._ids(input_ids),))
+            out = torch.func.functional_call(self.module, params,
+                                             (self._ids(input_ids),))
+        if self.config.moe is not None:
+            out, _stats = out   # logits only; the stats ride loss_fn
+        return out
 
     @staticmethod
     def _shifted_labels(batch):
@@ -536,9 +657,13 @@ class GPT2ForCausalLM:
         step's dropout when `deterministic` is False and dropout > 0.
         Under `remat` every block runs under full-block remat."""
         cfg = self.config
+        if layer_keep_prob is not None and cfg.moe is not None:
+            raise ValueError(
+                "progressive_layer_drop is not supported with "
+                "mixture-of-experts (no per-cell keep-prob gate)")
         if layer_keep_prob is not None:
             raise NotImplementedError(PLD_SLICE)
-        if return_router_stats:
+        if return_router_stats and cfg.moe is None:
             raise ValueError(
                 "return_router_stats requires a model built with "
                 "GPT2Config(moe=...)")
@@ -549,8 +674,72 @@ class GPT2ForCausalLM:
         input_ids, labels = self._shifted_labels(
             {k: self._ids(v) for k, v in batch.items()})
         seed = (rngs or {}).get("dropout")
-        hidden, wte = torch.func.functional_call(
+        out = torch.func.functional_call(
             self.module, params, (input_ids,),
             {"deterministic": deterministic, "return_hidden": True,
              "dropout_seed": seed})
-        return chunked_tied_head_loss(hidden, wte, labels)
+        if cfg.moe is None:
+            return chunked_tied_head_loss(*out, labels)
+        (hidden, wte), stats = out
+        loss = chunked_tied_head_loss(hidden, wte, labels) + \
+            float(cfg.moe.aux_loss_weight) * stats[STAT_AUX]
+        return (loss, stats) if return_router_stats else loss
+
+    # -- mixture-of-experts hooks ----------------------------------------
+    def moe_info(self):
+        """Engine-facing MoE summary (None for a dense model)."""
+        moe = self.config.moe
+        if moe is None:
+            return None
+        return dict(num_experts=moe.num_experts, top_k=moe.top_k,
+                    capacity_factor=moe.capacity_factor,
+                    aux_loss_weight=moe.aux_loss_weight,
+                    every_n_layers=moe.every_n_layers,
+                    jitter_eps=moe.jitter_eps,
+                    width=self.config.n_embd,
+                    moe_layers=self.config.moe_cells)
+
+    def configure_moe(self, mesh=None, num_experts=None,
+                      every_n_layers=None, top_k=None,
+                      capacity_factor=None, aux_loss_weight=None,
+                      jitter_eps=None, fused_dispatch=None):
+        """Engine hook for the `moe` config block. The structural keys
+        (num_experts, every_n_layers) are verified against the built
+        model; the router knobs are applied to the model's MoE layers in
+        place (the parameters stay). `mesh` must be None: expert meshes
+        need world size > 1."""
+        moe = self.config.moe
+        if moe is None:
+            raise ValueError(
+                "moe config block is enabled but the model was built "
+                "without MoE structure; construct it with "
+                "GPT2Config(moe=MoEConfig(...)) so the parameters carry "
+                "the expert leaves")
+        for key, want in (("num_experts", num_experts),
+                          ("every_n_layers", every_n_layers)):
+            have = getattr(moe, key)
+            if want is not None and int(want) != have:
+                raise ValueError(
+                    f"moe.{key}={want} does not match the model's built "
+                    f"structure ({have}); structural keys cannot be "
+                    "reconfigured after init")
+        updates = {}
+        if mesh is not None:
+            updates["mesh"] = mesh
+        if top_k is not None:
+            updates["top_k"] = int(top_k)
+        if capacity_factor is not None:
+            updates["capacity_factor"] = float(capacity_factor)
+        if aux_loss_weight is not None:
+            updates["aux_loss_weight"] = float(aux_loss_weight)
+        if jitter_eps is not None:
+            updates["jitter_eps"] = float(jitter_eps)
+        if fused_dispatch is not None:
+            updates["fused_dispatch"] = fused_dispatch
+        moe = dataclasses.replace(moe, **updates).validate()
+        self.config = dataclasses.replace(self.config, moe=moe)
+        for module in self.module.modules():
+            if isinstance(module, MoEMLP):
+                module.moe = moe
+            elif hasattr(module, "config"):
+                module.config = self.config

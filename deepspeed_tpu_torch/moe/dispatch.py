@@ -1,0 +1,41 @@
+"""Dispatch/combine as one-hot einsums (port of
+deepspeed_tpu/moe/dispatch.py at world size 1).
+
+The `fused_dispatch: "off"` route, and the route `moe_mlp_reference`
+takes: [N, H] tokens -> [E, C, H] buffers through the [N, E, C] dispatch
+mask, and back through the combine weights. In the JAX package these
+carry sharding constraints that XLA lowers to the all-to-alls of an
+expert-parallel mesh; the port runs on one device, where the einsums
+are the whole of it (the expert mesh, its all-to-all over NCCL and the
+`moe_dispatch` ledger accounting come with world size > 1).
+"""
+
+import torch
+
+
+def dispatch_tokens(x, dispatch_mask):
+    """[N, H] tokens -> [E, C, H] per-expert buffers."""
+    return torch.einsum("nec,nh->ech", dispatch_mask.to(x.dtype), x)
+
+
+def combine_tokens(ye, combine_weights):
+    """[E, C, H] expert outputs -> [N, H], weighted by the gate probs;
+    dropped tokens get zeros (their residual carries them)."""
+    return torch.einsum("nec,ech->nh", combine_weights.to(ye.dtype), ye)
+
+
+def replicate_stats(stats, mesh=None):
+    """The identity: without an expert mesh the stats vector is whole."""
+    return stats
+
+
+def dispatch_buffer_nbytes(num_experts, capacity, width, dtype, mesh=None):
+    """Bytes of one MoE layer's dispatch buffers: the [E, C, H] send
+    tensor and the [E, C, H] expert-output tensor (one device holds both
+    at world size 1)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "expert-parallel meshes come with world size > 1 (ROADMAP "
+            "Queue 1 item 5)")
+    return 2 * int(num_experts) * int(capacity) * int(width) * \
+        dtype.itemsize

@@ -7,6 +7,10 @@
 //   out = s * (0.5 * (1 + tanh(sqrt(2/pi) * (s + 0.044715 * s^3))))  tanh
 //   out = s * (erf(s / sqrt(2)) + 1) / 2                             erf
 // with the JAX association, and writes out (out_dtype) and s (sum_dtype).
+// With `groups` G > 1 the N rows split into G equal groups (an expert's
+// capacity rows each: the JAX package vmaps the kernel over the expert
+// dimension) and bias is [G, W]: row r adds bias row r / (N / G).
+// G = 1 is the dense form.
 //
 // Bound on the H100: bytes. A pure elementwise pass (read x, write out
 // and s: 6 bytes per element in bf16 against ~15 flops and one
@@ -45,13 +49,15 @@ __device__ __forceinline__ void store_from_float(void* p, int dt,
 __global__ void __launch_bounds__(kThreads)
 gelu_fwd_kernel(const void* __restrict__ x, const float* __restrict__ bias,
                 void* __restrict__ out, void* __restrict__ sum,
-                long long total, int w, int x_dt, int out_dt, int sum_dt,
-                int approximate) {
+                long long total, int w, long long group_elems, int x_dt,
+                int out_dt, int sum_dt, int approximate) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < total; i += stride) {
-    const float s = load_as_float(x, x_dt, i) + bias[i % w];
+    const long long b = group_elems > 0 ? (i / group_elems) * w + i % w
+                                        : i % w;
+    const float s = load_as_float(x, x_dt, i) + bias[b];
     float o;
     if (approximate) {
       const float cdf =
@@ -68,9 +74,10 @@ gelu_fwd_kernel(const void* __restrict__ x, const float* __restrict__ bias,
 
 }  // namespace
 
-// Launch over n rows of width w on `stream`. Returns cudaGetLastError().
+// Launch over n rows of width w, in `groups` equal groups of rows with
+// one bias row [w] each, on `stream`. Returns cudaGetLastError().
 extern "C" int ds_fused_gelu_fwd(const void* x, const void* bias, void* out,
-                                 void* sum, int n, int w, int x_dt,
+                                 void* sum, int n, int w, int groups, int x_dt,
                                  int out_dt, int sum_dt, int approximate,
                                  int device, void* stream) {
   cudaSetDevice(device);
@@ -83,7 +90,8 @@ extern "C" int ds_fused_gelu_fwd(const void* x, const void* bias, void* out,
     if (blocks > cap) blocks = cap;
     gelu_fwd_kernel<<<static_cast<int>(blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        x, static_cast<const float*>(bias), out, sum, total, w, x_dt,
+        x, static_cast<const float*>(bias), out, sum, total, w,
+        groups > 1 ? static_cast<long long>(n / groups) * w : 0LL, x_dt,
         out_dt, sum_dt, approximate);
   }
   return static_cast<int>(cudaGetLastError());

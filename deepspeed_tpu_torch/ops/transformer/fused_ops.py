@@ -13,6 +13,12 @@ sum (and gamma), recomputes the row statistics, returns each cotangent
 in its operand's dtype, and the ln_f form (`return_sum=False`) has no
 sum cotangent at all.
 
+Bias + GeLU also takes a grouped bias [G, W] (the expert form,
+`moe/experts.py`: the JAX package vmaps the kernel over the expert
+dimension): the rows split into G equal groups, group g adds bias row
+g, and the backward's dbias is [G, W]. One launch covers all groups;
+G = 1 is the dense form, bit for bit.
+
 Dispatch: a wrapper takes the plain twin for tensors on the CPU and
 launches the kernel for tensors on CUDA. There is no fallback from a
 CUDA tensor to the twin. Each wrapper counts its kernel launches in a
@@ -35,13 +41,14 @@ _INV_SQRT_2PI = 0.3989422804014327     # 1/sqrt(2*pi)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_GELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+_GELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
 _LN_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_GELU_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
+_GELU_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
 _GRID_ARGTYPES = [ctypes.c_int, ctypes.c_int]
+_GRID_GROUPS_ARGTYPES = [ctypes.c_int] * 3
 
 
 def resolve_fused_ops(mode, dropout_inactive=True, device=None):
@@ -91,9 +98,19 @@ def _ln_fwd_math(y, bias, residual, gamma, beta, eps):
     return out, s
 
 
+def _grouped(x, groups):
+    """[..., W] rows as [G, rows / G, W]."""
+    return x.reshape(groups, -1, x.shape[-1])
+
+
 def _gelu_fwd_math(x, bias, approximate):
     """fp32 s = x + bias; out = gelu(s), erf exact or tanh approximate,
-    with jax.nn.gelu's association (s * cdf)."""
+    with jax.nn.gelu's association (s * cdf). A bias [G, W] adds its row
+    g to the g-th of G equal groups of rows."""
+    if bias.dim() == 2:
+        out, s = _gelu_fwd_math(_grouped(x, bias.shape[0]), bias[:, None],
+                                approximate)
+        return out.reshape(x.shape), s.reshape(x.shape)
     s = x.to(torch.float32) + bias.to(torch.float32)
     if approximate:
         cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI *
@@ -152,11 +169,12 @@ def _check_rows(name, t, width):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _vector(t, width, device):
-    """[H] parameter vector as the kernels take it: fp32, contiguous,
-    on the rows' device."""
-    if t.shape != (width,):
-        raise ValueError(f"vector shape {tuple(t.shape)} != ({width},)")
+def _vector(t, width, device, groups=None):
+    """[H] parameter vector (or [groups, H] rows of them) as the kernels
+    take it: fp32, contiguous, on the rows' device."""
+    want = (width,) if groups is None else (groups, width)
+    if tuple(t.shape) != want:
+        raise ValueError(f"vector shape {tuple(t.shape)} != {want}")
     if t.device != device:
         raise ValueError(f"vector on {t.device}, rows on {device}")
     return t.to(torch.float32).contiguous()
@@ -194,6 +212,18 @@ def _ln_fwd_launch(y, bias, residual, gamma, beta, eps, out_dtype,
     return out, s
 
 
+def _bias_groups(bias, n):
+    """The group count G of a bias [W] (1) or [G, W], checked against
+    the n rows it adds to."""
+    if bias.dim() == 1:
+        return 1
+    groups = bias.shape[0]
+    if bias.dim() != 2 or groups < 1 or n % groups:
+        raise ValueError(f"grouped bias {tuple(bias.shape)}: {n} rows do "
+                         "not split into that many equal groups")
+    return groups
+
+
 def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
     from deepspeed_tpu_torch.ops import _build
     w = x.shape[-1]
@@ -201,14 +231,15 @@ def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
     for dt in (out_dtype, sum_dtype):
         if dt not in _DTYPE_CODE:
             raise TypeError(f"output dtype {dt} not supported")
-    bias = _vector(bias, w, x.device)
+    n = x.numel() // w if w else 0
+    groups = _bias_groups(bias, n)
+    bias = _vector(bias, w, x.device, None if bias.dim() == 1 else groups)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     s = torch.empty(x.shape, dtype=sum_dtype, device=x.device)
-    n = x.numel() // w if w else 0
     fn = _build.function("fused_gelu_fwd", "ds_fused_gelu_fwd",
                          _GELU_ARGTYPES)
     err = fn(x.data_ptr(), bias.data_ptr(), out.data_ptr(), s.data_ptr(),
-             n, w, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+             n, w, groups, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
              _DTYPE_CODE[sum_dtype], int(bool(approximate)),
              x.device.index or 0, _build.stream_ptr(x))
     _build.check(err, "fused_bias_gelu kernel")
@@ -255,7 +286,7 @@ def _ln_bwd_launch(s2, gamma, dout2, dsum2, eps, dx_dtype):
     return dx, sums[0], sums[1], sums[2]
 
 
-def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype):
+def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype, groups=None):
     from deepspeed_tpu_torch.ops import _build
     n, w = s2.shape
     _check_rows("s", s2, w)
@@ -268,23 +299,26 @@ def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype):
     if w * 4 > 227 * 1024:
         raise ValueError(f"fused GeLU backward kernel: W={w} exceeds the "
                          "shared memory of one CTA")
+    grouped, groups = groups is not None, groups or 1
+    if n % groups:
+        raise ValueError(f"{n} rows do not split into {groups} equal groups")
     dev = s2.device.index or 0
-    grid = _build.function("fused_gelu_bwd", "ds_partials_grid",
-                           _GRID_ARGTYPES)(n, dev)
+    grid = _build.function("fused_gelu_bwd", "ds_partials_grid_groups",
+                           _GRID_GROUPS_ARGTYPES)(n // groups, groups, dev)
     dx = torch.empty((n, w), dtype=dx_dtype, device=s2.device)
-    dbias = torch.empty((w,), dtype=torch.float32, device=s2.device)
-    work = torch.empty((max(grid, 1), w), dtype=torch.float32,
+    dbias = torch.empty((groups, w), dtype=torch.float32, device=s2.device)
+    work = torch.empty((max(grid * groups, 1), w), dtype=torch.float32,
                        device=s2.device)
     fn = _build.function("fused_gelu_bwd", "ds_fused_gelu_bwd",
                          _GELU_BWD_ARGTYPES)
     err = fn(s2.data_ptr(), dout2.data_ptr(), dx.data_ptr(),
-             dbias.data_ptr(), work.data_ptr(), n, w,
+             dbias.data_ptr(), work.data_ptr(), n, w, groups,
              _DTYPE_CODE[s2.dtype], _DTYPE_CODE[dout2.dtype],
              _DTYPE_CODE[dx_dtype], int(bool(approximate)), dev,
              _build.stream_ptr(s2))
     _build.check(err, "fused_bias_gelu backward kernel")
     fused_bias_gelu_backward.launches += 1
-    return dx, dbias
+    return dx, (dbias if grouped else dbias[0])
 
 
 # ----------------------------------------------------------------------
@@ -336,20 +370,25 @@ def fused_bias_residual_layernorm_backward(s, gamma, d_out, d_sum=None, *,
 fused_bias_residual_layernorm_backward.launches = 0
 
 
-def fused_bias_gelu_backward(s, d_out, *, approximate=False, dx_dtype=None):
+def fused_bias_gelu_backward(s, d_out, *, approximate=False, dx_dtype=None,
+                             groups=None):
     """Backward of gelu(x + bias) off the forward's saved sum `s`
     [..., W]: (dx [..., W] in dx_dtype, default s.dtype; dbias [W] fp32,
-    the sum of dx over every row). CUDA tensors launch kernel K4-bwd;
-    CPU tensors take the plain twin."""
+    the sum of dx over every row). With `groups` G (the grouped bias
+    [G, W]) dbias is [G, W], each row the sum over one of G equal groups
+    of rows. CUDA tensors launch kernel K4-bwd; CPU tensors take the
+    plain twin."""
     dx_dtype = dx_dtype if dx_dtype is not None else s.dtype
     s2 = _flat_rows(s)
     dout2 = _flat_rows(d_out).contiguous()
     if s.is_cuda:
         dx2, dbias = _gelu_bwd_launch(s2.contiguous(), dout2,
-                                      bool(approximate), dx_dtype)
+                                      bool(approximate), dx_dtype, groups)
     else:
         d = _gelu_bwd_math(s2, dout2, bool(approximate))
-        dx2, dbias = d.to(dx_dtype), d.sum(dim=0)
+        dx2 = d.to(dx_dtype)
+        dbias = d.sum(dim=0) if groups is None else \
+            _grouped(d, groups).sum(dim=1)
     return dx2.reshape(s.shape), dbias
 
 
@@ -399,6 +438,7 @@ class _FusedGelu(torch.autograd.Function):
         out, s = _gelu_forward(x, bias, approximate, out_dtype)
         ctx.save_for_backward(s)
         ctx.approximate = approximate
+        ctx.groups = bias.shape[0] if bias.dim() == 2 else None
         ctx.dtypes = (x.dtype, bias.dtype)
         ctx.mark_non_differentiable(s)
         return out, s
@@ -408,7 +448,8 @@ class _FusedGelu(torch.autograd.Function):
         (s,) = ctx.saved_tensors
         x_dt, bias_dt = ctx.dtypes
         dx, dbias = fused_bias_gelu_backward(
-            s, d_out, approximate=ctx.approximate, dx_dtype=x_dt)
+            s, d_out, approximate=ctx.approximate, dx_dtype=x_dt,
+            groups=ctx.groups)
         return dx, dbias.to(bias_dt), None, None
 
 
@@ -451,7 +492,9 @@ fused_bias_residual_layernorm.launches = 0
 
 def fused_bias_gelu(x, bias, *, approximate=False, out_dtype=None):
     """gelu(x + bias) as one launch; exact-erf by default, and
-    `approximate=True` for the tanh form GPT-2 uses. Returns the output
+    `approximate=True` for the tanh form GPT-2 uses. `bias` is [W], or
+    [G, W] for G equal groups of rows (the experts' form, one launch for
+    all of them). Returns the output
     (out_dtype, default x.dtype); the kernel also writes the bias+input
     sum in x.dtype, the backward's only residual, which
     `fused_bias_gelu_with_sum` returns.

@@ -1,21 +1,23 @@
 """DeepSpeedConfig: JSON config parsing and batch-triple resolution
 (trimmed port of deepspeed_tpu/runtime/config.py).
 
-What the training slice reads: the batch triple (train_batch_size =
+What the training slices read: the batch triple (train_batch_size =
 micro batch x gradient accumulation x data-parallel world size; any two
 determine the third), the `bf16` block with `master_weights`,
 `zero_optimization.stage`, the `optimizer` and `scheduler` blocks,
-`gradient_clipping` and `steps_per_print`.
+`gradient_clipping`, `steps_per_print` and the `moe` block
+(`get_moe_config`, validated as the JAX package validates it).
 
 The blocks of later slices raise NotImplementedError naming the ROADMAP
 item that ports them: fp16 and loss scaling, ZeRO offload, pipeline,
-MoE, quantized compute, the monitor and progressive layer drop.
+quantized compute, the monitor and progressive layer drop.
 """
 
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config_utils import (get_scalar_param,
                                                       load_config_dict)
 from deepspeed_tpu_torch.runtime.zero import config as Z
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 class DeepSpeedConfigError(Exception):
@@ -68,6 +70,78 @@ def get_zero_config(param_dict):
     return stage, bool(offload)
 
 
+def _is_int(v):
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _is_number(v):
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def get_moe_config(param_dict):
+    """Validated `moe` block -> dict(enabled, num_experts, top_k,
+    capacity_factor, aux_loss_weight, every_n_layers, jitter_eps,
+    fused_dispatch). The engine verifies the structural keys
+    (num_experts, every_n_layers) against the built model through its
+    configure_moe hook and applies the router knobs."""
+    block = param_dict.get(C.MOE, {})
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(f'"moe" must be a dict, got {block!r}')
+    enabled = bool(get_scalar_param(block, C.MOE_ENABLED,
+                                    C.MOE_ENABLED_DEFAULT))
+    num_experts = get_scalar_param(block, C.MOE_NUM_EXPERTS,
+                                   C.MOE_NUM_EXPERTS_DEFAULT)
+    if not _is_int(num_experts) or num_experts < 2:
+        raise DeepSpeedConfigError(
+            f"moe.num_experts must be an int >= 2, got {num_experts!r}")
+    top_k = get_scalar_param(block, C.MOE_TOP_K, C.MOE_TOP_K_DEFAULT)
+    if not _is_int(top_k) or not 1 <= top_k <= num_experts:
+        raise DeepSpeedConfigError(
+            f"moe.top_k must be an int in [1, num_experts="
+            f"{num_experts}], got {top_k!r}")
+    cf = get_scalar_param(block, C.MOE_CAPACITY_FACTOR,
+                          C.MOE_CAPACITY_FACTOR_DEFAULT)
+    if not _is_number(cf) or cf <= 0:
+        raise DeepSpeedConfigError(
+            f"moe.capacity_factor must be > 0, got {cf!r}")
+    aux = get_scalar_param(block, C.MOE_AUX_LOSS_WEIGHT,
+                           C.MOE_AUX_LOSS_WEIGHT_DEFAULT)
+    if not _is_number(aux) or aux < 0:
+        raise DeepSpeedConfigError(
+            f"moe.aux_loss_weight must be >= 0, got {aux!r}")
+    every = get_scalar_param(block, C.MOE_EVERY_N_LAYERS,
+                             C.MOE_EVERY_N_LAYERS_DEFAULT)
+    if not _is_int(every) or every < 1:
+        raise DeepSpeedConfigError(
+            f"moe.every_n_layers must be an int >= 1, got {every!r}")
+    jitter = get_scalar_param(block, C.MOE_JITTER_EPS,
+                              C.MOE_JITTER_EPS_DEFAULT)
+    if not _is_number(jitter) or jitter < 0:
+        raise DeepSpeedConfigError(
+            f"moe.jitter_eps must be >= 0, got {jitter!r}")
+    fused = get_scalar_param(block, C.MOE_FUSED_DISPATCH,
+                             C.MOE_FUSED_DISPATCH_DEFAULT)
+    if fused is True:
+        fused = "on"
+    elif fused is False:
+        fused = "off"
+    if fused not in C.MOE_FUSED_DISPATCH_VALID:
+        raise DeepSpeedConfigError(
+            "moe.fused_dispatch must be one of "
+            f"{list(C.MOE_FUSED_DISPATCH_VALID)}, got {fused!r}")
+    known = {C.MOE_ENABLED, C.MOE_NUM_EXPERTS, C.MOE_TOP_K,
+             C.MOE_CAPACITY_FACTOR, C.MOE_AUX_LOSS_WEIGHT,
+             C.MOE_EVERY_N_LAYERS, C.MOE_JITTER_EPS, C.MOE_FUSED_DISPATCH}
+    unknown = set(block) - known
+    if unknown:
+        logger.warning(f"moe: ignoring unknown key(s) {sorted(unknown)}; "
+                       f"known keys: {sorted(known)}")
+    return {"enabled": enabled, "num_experts": num_experts,
+            "top_k": top_k, "capacity_factor": float(cf),
+            "aux_loss_weight": float(aux), "every_n_layers": every,
+            "jitter_eps": float(jitter), "fused_dispatch": fused}
+
+
 def _block_type_and_params(param_dict, key):
     block = param_dict.get(key) or {}
     name = block.get(C.TYPE) if isinstance(block, dict) else None
@@ -92,8 +166,6 @@ class DeepSpeedConfig:
             raise _later("progressive layer drop", 10)
         if d.get(C.PIPELINE):
             raise _later("pipeline parallelism", 5)
-        if _block_enabled(d, C.MOE):
-            raise _later("mixture-of-experts", 8)
         qc = d.get(C.QUANTIZED_COMPUTE)
         if qc and (not isinstance(qc, dict) or
                    qc.get("mode", "off") not in ("off", False, 0, None)):
@@ -130,6 +202,7 @@ class DeepSpeedConfig:
             self.optimizer_name = self.optimizer_name.lower()
         self.scheduler_name, self.scheduler_params = \
             _block_type_and_params(d, C.SCHEDULER)
+        self.moe = get_moe_config(d)
 
     def _set_batch_related_parameters(self):
         train_batch = self.train_batch_size

@@ -1,7 +1,7 @@
 """Config keys and defaults (trimmed copy of
 deepspeed_tpu/runtime/constants.py: the training keys the engine reads,
-the `inference` block, and the switches of the blocks that later slices
-port). Values are identical to the JAX package's;
+the `inference` block, the `moe` block, and the switches of the blocks
+that later slices port). Values are identical to the JAX package's;
 tests/test_torch_inference.py and tests/test_torch_engine.py hold them
 equal."""
 
@@ -76,8 +76,29 @@ PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 PLD_ENABLED = "enabled"
 PLD_ENABLED_DEFAULT = False
 PIPELINE = "pipeline"
-MOE = "moe"
 QUANTIZED_COMPUTE = "quantized_compute"
+
+#############################################
+# Mixture-of-experts (deepspeed_tpu_torch/moe/)
+#############################################
+MOE = "moe"
+MOE_ENABLED = "enabled"
+MOE_ENABLED_DEFAULT = False
+MOE_NUM_EXPERTS = "num_experts"
+MOE_NUM_EXPERTS_DEFAULT = 8
+MOE_TOP_K = "top_k"
+MOE_TOP_K_DEFAULT = 2
+MOE_CAPACITY_FACTOR = "capacity_factor"
+MOE_CAPACITY_FACTOR_DEFAULT = 1.25
+MOE_AUX_LOSS_WEIGHT = "aux_loss_weight"
+MOE_AUX_LOSS_WEIGHT_DEFAULT = 0.01
+MOE_EVERY_N_LAYERS = "every_n_layers"
+MOE_EVERY_N_LAYERS_DEFAULT = 1
+MOE_JITTER_EPS = "jitter_eps"
+MOE_JITTER_EPS_DEFAULT = 0.0
+MOE_FUSED_DISPATCH = "fused_dispatch"
+MOE_FUSED_DISPATCH_DEFAULT = "auto"
+MOE_FUSED_DISPATCH_VALID = ("on", "off", "auto")
 
 #############################################
 # Monitor (only the switch: the monitor itself is a later slice)

@@ -24,6 +24,10 @@ the device from the device step counter (`device_schedule_fn`), the
 clip factor stays a device scalar, and the loss comes back as a device
 tensor. A host-side mirror of the step count serves logging.
 
+An `moe` block is wired into the model through its `configure_moe`
+hook before the state is built (`_init_moe`): the structural keys are
+verified against the model, the router knobs applied.
+
 ZeRO stages 0, 1 and 2 at data-parallel world size 1 compute the
 unpartitioned update, as the JAX engine does on one chip. World size
 > 1, stage 3 and offload raise NotImplementedError naming ROADMAP Queue
@@ -110,6 +114,7 @@ class DeepSpeedEngine:
 
         self.collate_fn = collate_fn
         self._resolve_model(model, model_parameters)
+        self._init_moe()
         self.device = resolve_device(
             device if device is not None else getattr(model, "device",
                                                       "cuda"))
@@ -163,6 +168,41 @@ class DeepSpeedEngine:
             raise ValueError("model_parameters (the parameter dict) is "
                              "required")
         self._initial_params = dict(model_parameters)
+
+    def _init_moe(self):
+        """Wire the `moe` config block into the model: call its
+        `configure_moe` hook with the router knobs (the structural keys
+        are verified against the built parameters there). At world size
+        1 there is no expert mesh axis, so every expert count divides
+        it. The `moe` monitor event and the router stats at fences come
+        with the monitor (ROADMAP Queue 1 item 3)."""
+        mc = self._config.moe
+        self._moe_active = False
+        if not mc["enabled"]:
+            return
+        hook = getattr(self.module, "configure_moe", None)
+        if hook is None:
+            logger.warning(
+                "moe.enabled is set but the model "
+                f"({type(self.module).__name__}) exposes no configure_moe "
+                "hook; the moe block has no effect on this model")
+            return
+        expert_axis = 1
+        if mc["num_experts"] % expert_axis:
+            raise ValueError(
+                f"moe.num_experts={mc['num_experts']} must divide by the "
+                f"expert axis ({expert_axis})")
+        hook(mesh=None, num_experts=mc["num_experts"],
+             every_n_layers=mc["every_n_layers"], top_k=mc["top_k"],
+             capacity_factor=mc["capacity_factor"],
+             aux_loss_weight=mc["aux_loss_weight"],
+             jitter_eps=mc["jitter_eps"],
+             fused_dispatch=mc["fused_dispatch"])
+        self._moe_active = True
+        logger.info(
+            f"MoE: {mc['num_experts']} experts (top_k={mc['top_k']}, "
+            f"cf={mc['capacity_factor']}, every_n_layers="
+            f"{mc['every_n_layers']}) over expert axis {expert_axis}")
 
     # ------------------------------------------------------------------
     # config accessors

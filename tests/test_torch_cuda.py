@@ -1,5 +1,5 @@
 """PyTorch port: the CUDA kernels on the card (kernels K1-fwd, K2,
-K3-fwd, K3-bwd, K4-fwd, K4-bwd) against their plain PyTorch twins, the
+K3-fwd, K3-bwd, K4-fwd, K4-bwd, K8) against their plain PyTorch twins, the
 serving engine against the kernel-driven forward, and a training step
 on the kernels against the plain-torch route.
 
@@ -18,6 +18,8 @@ each output, plus the bf16 rounding of P and dS inside attention, which
 may flip by one ulp where the kernel's and the twin's fp32 scores differ
 in the last bit).
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -279,3 +281,177 @@ def test_tied_head_logits_keep_the_fp32_accumulator(dev):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert got.dtype == torch.float32
     assert _rel_l2(got, ref) <= 1e-4
+
+
+# ----------------------------------------------------------------------
+# MoE: kernel K8 (dispatch and combine gathers), the grouped K4
+# ----------------------------------------------------------------------
+def _routing(dev, n, e, k, cf, seed):
+    from deepspeed_tpu_torch.moe import (router_capacity, routing_slots,
+                                         top_k_gating_indexed)
+    g = _gen(dev, seed)
+    logits = torch.randn((n, e), generator=g, device=dev)
+    cap = router_capacity(n, e, k, cf)
+    routing, stats = top_k_gating_indexed(logits, k, cap)
+    src, dest = routing_slots(routing, e, cap)
+    return routing, stats, src, dest, cap
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [1024, 1600, 100])
+@pytest.mark.parametrize("k,cf", [(2, 1.25), (2, 0.5), (1, 1.25)])
+def test_moe_dispatch_combine_kernels_match_twins(dev, dtype, h, k, cf):
+    """K8 against its twins: dispatch exactly, combine within one bf16
+    ulp (bf16) or 1e-6 (fp32), with empty slots (cf 1.25) and dropped
+    assignments (cf 0.5, every slot full); H 1600 is no multiple of 128, H 100 (200
+    bytes in bf16) takes the scalar path."""
+    tfd = importlib.import_module("deepspeed_tpu_torch.moe.fused_dispatch")
+    n, e = 512, 8
+    routing, stats, src, dest, cap = _routing(dev, n, e, k, cf, 8)
+    if cf < 1:
+        assert float(stats[-2]) > 0               # drops present
+    else:
+        assert bool((src == n).any())             # empty slots present
+    g = _gen(dev, 9)
+    x = torch.randn((n, h), generator=g, device=dev).to(dtype)
+    before = (tfd.gather_rows.launches, tfd.combine_rows.launches)
+    xe = tfd.gather_rows(x, src)
+    assert torch.equal(xe, tfd._gather_rows_plain(x, src))
+    ye = torch.randn((e * cap, h), generator=g, device=dev).to(dtype)
+    cw = (routing["keep"] * routing["w"]).float()
+    y = tfd.combine_rows(ye, dest, cw)
+    ref = tfd._combine_rows_plain(ye, dest, cw)
+    torch.cuda.synchronize()
+    assert (tfd.gather_rows.launches, tfd.combine_rows.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert y.dtype == dtype
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y.float(), ref.float(), atol=1e-30,
+                                   rtol=2 ** -8)
+    else:
+        torch.testing.assert_close(y, ref, atol=1e-6, rtol=1e-6)
+    sw = torch.rand((e * cap,), generator=g, device=dev)
+    assert torch.equal(tfd.gather_rows(x, src, sw),
+                       tfd._gather_rows_plain(x, src, sw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_fused_autograd_matches_einsum_route(dev, dtype):
+    """Forward and backward of fused_dispatch/fused_combine (K8 in both
+    directions) against the one-hot einsum pair on the same routing:
+    gradients to the tokens and to the router weights."""
+    tfd = importlib.import_module("deepspeed_tpu_torch.moe.fused_dispatch")
+    from deepspeed_tpu_torch.moe.router import (_dense_masks, _gating_core,
+                                                _index_routing,
+                                                router_capacity)
+    n, e, k, h = 384, 8, 2, 256
+    g = _gen(dev, 10)
+    x0 = torch.randn((n, h), generator=g, device=dev).to(dtype)
+    wg0 = 0.1 * torch.randn((h, e), generator=g, device=dev)
+    scale = 1.0 + 0.25 * torch.randn((e, 1, 1), generator=g, device=dev)
+    r = torch.randn((n, h), generator=g, device=dev)
+    cap = router_capacity(n, e, k, 0.75)
+    outs = []
+    for fused in (True, False):
+        x = x0.clone().requires_grad_(True)
+        wg = wg0.clone().requires_grad_(True)
+        core = _gating_core(x.float() @ wg, k, cap, None, 0.0)
+        if fused:
+            routing = _index_routing(*core[:4])
+            src, dest = tfd.routing_slots(routing, e, cap)
+            xe = tfd.fused_dispatch(x, src, dest, routing["keep"])
+            ye = (xe.reshape(e, cap, h).float() * scale).to(dtype)
+            y = tfd.fused_combine(ye.reshape(e * cap, h), dest,
+                                  routing["keep"], routing["w"])
+        else:
+            dispatch, combine = _dense_masks(cap, core[0], core[2], core[3])
+            xe = torch.einsum("nec,nh->ech", dispatch, x.float())
+            y = torch.einsum("nec,ech->nh", combine, xe * scale)
+        loss = (y.float() * r).sum()
+        outs.append((y.float(), *torch.autograd.grad(loss, (x, wg))))
+    tol = GRAD_TOL[dtype] if dtype == torch.float32 else 2e-2
+    for a, b in zip(outs[0], outs[1]):
+        assert _rel_l2(a, b) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_gelu_kernels_match_twins(dev, dtype):
+    """K4 forward and backward with a grouped bias [G, W] (the experts'
+    form) against the twins, and G = 1 through the grouped entry point
+    equal bit for bit to the dense form."""
+    g = _gen(dev, 11)
+    groups, rows, w = 8, 160, 4096
+    x = torch.randn((groups, rows, w), generator=g, device=dev).to(dtype)
+    bias = 0.1 * torch.randn((groups, w), generator=g, device=dev)
+    out, s = tfo.fused_bias_gelu_with_sum(x, bias, approximate=True)
+    ref, ref_s = tfo._gelu_fwd_math(x, bias, True)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(out.float(), ref.to(dtype).float(), **tol)
+    torch.testing.assert_close(s.float(), ref_s.to(dtype).float(), **tol)
+    dout = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+    dx, dbias = tfo.fused_bias_gelu_backward(s, dout, approximate=True,
+                                             groups=groups)
+    d = tfo._gelu_bwd_math(s, dout, True)
+    assert dbias.shape == (groups, w)
+    assert _rel_l2(dx, d.to(dtype)) <= GRAD_TOL[dtype]
+    assert _rel_l2(dbias, d.sum(1)) <= GRAD_TOL[torch.float32] * 10
+    again = tfo.fused_bias_gelu_backward(s, dout, approximate=True,
+                                         groups=groups)
+    assert torch.equal(dx, again[0]) and torch.equal(dbias, again[1])
+    x1 = x.reshape(-1, w)
+    dense = tfo.fused_bias_gelu_with_sum(x1, bias[0], approximate=True)
+    one = tfo.fused_bias_gelu_with_sum(x1, bias[:1], approximate=True)
+    assert torch.equal(dense[0], one[0]) and torch.equal(dense[1], one[1])
+    torch.cuda.synchronize()
+
+
+def test_moe_training_step_matches_plain_route(dev):
+    """A 2-layer MoE model (one MoE layer, 8 experts, top-2) at
+    gpt2-125m width, bf16: loss and every gradient through the kernels
+    (K8, grouped K4, flash, fused epilogues) against the plain route
+    (einsum dispatch/combine, fused_ops off, dense attention) with the
+    kernel route's expert choices forced on it; then one engine step
+    with the moe block, which launches K8."""
+    import dataclasses
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.moe import MoEConfig, MoEMLP
+    tfd = importlib.import_module("deepspeed_tpu_torch.moe.fused_dispatch")
+    moe = MoEConfig(num_experts=8, top_k=2, every_n_layers=2).validate()
+    cfg = tgpt2.gpt2_config("gpt2-125m", n_layer=2, vocab_size=1024,
+                            n_positions=256, dropout=0.0,
+                            param_dtype=torch.bfloat16, moe=moe)
+    model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+    params = model.init(seed=0)
+    plain = tgpt2.GPT2ForCausalLM(dataclasses.replace(
+        cfg, fused_ops="off", attention_impl="xla",
+        moe=dataclasses.replace(moe, fused_dispatch="off")), device=dev)
+    ids = torch.randint(0, 1024, (2, 256), generator=_gen(dev, 12),
+                        device=dev)
+    results = []
+    for m in (model, plain):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = m.loss_fn(p, {"input_ids": ids}, deterministic=True)
+        results.append((loss, torch.autograd.grad(loss, list(p.values()))))
+        if m is model:
+            chosen = [x.last_expert_idx for x in m.module.modules()
+                      if isinstance(x, MoEMLP)]
+            for x, c in zip((x for x in plain.module.modules()
+                             if isinstance(x, MoEMLP)), chosen):
+                x.route_override = c
+    (lk, gk), (lp, gp) = results
+    torch.cuda.synchronize()
+    assert abs(float(lk) - float(lp)) <= 1e-2 * abs(float(lp))
+    for name, a, b in zip(params, gk, gp):
+        assert _rel_l2(a, b) <= 5e-2, name
+    engine, _, _, _ = dst.initialize(
+        model=model, model_parameters=params,
+        config={"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                "moe": {"enabled": True, "num_experts": 8,
+                        "every_n_layers": 2}})
+    before = (tfd.gather_rows.launches, tfd.combine_rows.launches)
+    loss = engine.train_batch(batch={"input_ids": ids[None]})
+    assert bool(torch.isfinite(loss))
+    # forward, remat recompute and backward each launch both gathers once
+    assert tfd.gather_rows.launches - before[0] == 3
+    assert tfd.combine_rows.launches - before[1] == 3

@@ -114,11 +114,16 @@ def test_init_follows_the_jax_per_leaf_scheme():
 
 def test_out_of_slice_options_raise():
     cfg = tgpt2.tiny_gpt2_config()
-    for bad in (dict(moe=object()), dict(quantized_compute="on"),
+    for bad in (dict(quantized_compute="on"),
                 dict(sequence_parallel="ring")):
         with pytest.raises(NotImplementedError):
             tgpt2.GPT2ForCausalLM(dataclasses.replace(cfg, **bad),
                                   device="cpu")
+    # mixture-of-experts is ported (slice 3); its config must be an
+    # MoEConfig
+    with pytest.raises(TypeError, match="MoEConfig"):
+        tgpt2.GPT2ForCausalLM(dataclasses.replace(cfg, moe=object()),
+                              device="cpu")
     model = tgpt2.GPT2ForCausalLM(cfg, device="cpu")
     ids = np.zeros((1, 8), np.int64)
     with pytest.raises(NotImplementedError):
