@@ -38,7 +38,16 @@ Phases, each printing one JSON line:
   8. training oracle: 2 layers at gpt2-1.5b width, bf16, micro batch 11,
      seq 1024, loss and every gradient through the kernels against the
      plain-torch route;
-  9. MoE training: gpt2-350m-moe8 (gpt2-350m at full width and depth,
+  9. quantized training: phase 7 again with the quantized_compute block
+     ({"enabled": true, "mode": "on", "block": 128}), so all four
+     projections of every block run the int8 GEMM K6; the same numbers
+     and profile, K6's launches per step, and each step's loss within
+     0.2 of phase 7's at the same step (same weights, batch and seed);
+ 10. quantized oracle: 2 layers at gpt2-1.5b width, the kernel route
+     (K6 and K1-K4) against the plain route (K6's twin, fused ops off,
+     dense attention), after counting the int8 activation entries the
+     two routes round differently at each projection;
+ 11. MoE training: gpt2-350m-moe8 (gpt2-350m at full width and depth,
      8 experts, top-2, capacity factor 1.25, every other layer) through
      initialize -> train_batch with bench.py's bench_gpt2_350m config
      (micro batch 16, seq 1024, bf16 with fp32 master weights, ZeRO-0,
@@ -46,10 +55,13 @@ Phases, each printing one JSON line:
      router's drop fraction and per-expert load at every step; every
      kernel must have launched, K8 (dispatch, combine) and the grouped
      K4 included;
- 10. MoE oracle: 4 layers (2 MoE) at that width and batch, the kernel
+ 12. MoE oracle: 4 layers (2 MoE) at that width and batch, the kernel
      route against the plain-torch route (einsum dispatch/combine) with
      the routing held equal, after counting the assignments the plain
-     route would choose differently on its own.
+     route would choose differently on its own;
+ 13. quantized MoE training: phase 11 with quantized experts and the
+     quantized_compute block (K6 for c_attn/c_proj of every block, the
+     dense blocks' MLPs and, grouped over the 8 experts, wi and wo).
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -57,8 +69,11 @@ causal backward as K2's yardstick, two launches of each deterministic
 backward compared bit for bit, K4 in its grouped (expert) form and K8
 at the MoE shape (N 16,384 tokens, 8 x 5,120 slots, H 1024) in bf16
 and fp32, k 1 and 2, with empty slots and dropped assignments
-(`torch.index_select` on the padded tokens is dispatch's yardstick);
-each kernel is timed at the shapes of the paths that run it.
+(`torch.index_select` on the padded tokens is dispatch's yardstick),
+and K6 at the projection shapes of the flagship and of gpt2-350m-moe8
+and the experts' two grouped shapes (torch._int_mm and the bf16 matmul
+as its yardsticks); each kernel is timed at the shapes of the paths
+that run it.
 Then the `kernels` summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises and the script
 exits non-zero without printing a result. It needs a CUDA device and
@@ -73,12 +88,13 @@ import sys
 import time
 
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
-# fp32 CUDA-core FLOP/s, HBM bytes/s. Matched against the card's name.
+# int8 tensor-core OP/s, fp32 CUDA-core FLOP/s, HBM bytes/s. Matched
+# against the card's name.
 PEAKS = (
-    ("H100 PCIe", dict(bf16=756e12, fp32=51e12, hbm=2.0e12)),
-    ("H100 NVL", dict(bf16=835e12, fp32=60e12, hbm=3.9e12)),
-    ("H200", dict(bf16=989e12, fp32=67e12, hbm=4.8e12)),
-    ("H100", dict(bf16=989e12, fp32=67e12, hbm=3.35e12)),
+    ("H100 PCIe", dict(bf16=756e12, int8=1513e12, fp32=51e12, hbm=2.0e12)),
+    ("H100 NVL", dict(bf16=835e12, int8=1671e12, fp32=60e12, hbm=3.9e12)),
+    ("H200", dict(bf16=989e12, int8=1979e12, fp32=67e12, hbm=4.8e12)),
+    ("H100", dict(bf16=989e12, int8=1979e12, fp32=67e12, hbm=3.35e12)),
 )
 
 # tolerances (max |kernel - twin|, same inputs on the card)
@@ -165,6 +181,17 @@ def bound(flops, flops_peak, nbytes, peaks):
     t_bytes = nbytes / peaks["hbm"] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def release():
+    """Free what the last phase left before the next one measures its
+    peak memory: an engine holds a reference cycle (`engine.optimizer` is
+    the engine), so `del` alone leaves its state on the card until the
+    garbage collector runs."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def sync(device):
@@ -649,6 +676,120 @@ def kernel_moe(peaks, gen):
     return {"moe_training": disp}, {"moe_training": comb}, checks
 
 
+# K6 against its twin: both take exact integer block partials, scale and
+# add them in the same order with no fused multiply-add, and round the
+# output once, so they agree bit for bit; the bound is one rounding of
+# the output (one bf16 ulp, 2^-7 relative; 1e-6 relative in fp32)
+TOL_K6_BF16 = dict(atol=1e-6, rtol=2 ** -7)
+TOL_K6_F32 = dict(atol=1e-6, rtol=1e-6)
+QUANT_BLOCK = 128
+
+
+def _qmm():
+    import importlib
+    return importlib.import_module(
+        "deepspeed_tpu_torch.ops.transformer.quantized_matmul")
+
+
+def kernel_qmm(peaks, gen):
+    """K6 at the shapes of the quantized paths: the flagship's four
+    projections (M = 11 x 1024 tokens; K/N 1600/4800, 1600/1600,
+    1600/6400, 6400/1600; K = 1600 pads to 13 blocks of 128), the four
+    ungrouped projections of gpt2-350m-moe8 (M = 16 x 1024; K/N
+    1024/3072, 1024/1024, 1024/4096, 4096/1024: c_attn and c_proj of
+    every block, the dense blocks' MLPs) and its experts' two grouped
+    projections (G 8, C 5,120; 1024/4096 and 4096/1024), bf16 output,
+    each timed; plus fp32 output and a ragged M. Operands are quantized
+    as the path quantizes them. Yardsticks, never called by the port:
+    torch._int_mm on the same padded int8 operands (the int8 product
+    without per-block scales) and the bf16 matmul the quantized path
+    replaces."""
+    import torch
+    qm = _qmm()
+    checks, out = [], {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    flag_m = TRAIN_BATCH * TRAIN_SEQ
+    moe_m = MOE_BATCH * MOE_SEQ
+    cases = (
+        # (label, G, M, K, N, out dtype, timed as)
+        ("c_attn M11264 K1600 N4800", 1, flag_m, 1600, 4800, bf16,
+         "quant_training:c_attn"),
+        ("c_proj M11264 K1600 N1600", 1, flag_m, 1600, 1600, bf16,
+         "quant_training:c_proj"),
+        ("c_fc M11264 K1600 N6400", 1, flag_m, 1600, 6400, bf16,
+         "quant_training:c_fc"),
+        ("mlp_c_proj M11264 K6400 N1600", 1, flag_m, 6400, 1600, bf16,
+         "quant_training:mlp_c_proj"),
+        ("c_attn M16384 K1024 N3072", 1, moe_m, 1024, 3072, bf16,
+         "moe_quant_training:c_attn"),
+        ("c_proj M16384 K1024 N1024", 1, moe_m, 1024, 1024, bf16,
+         "moe_quant_training:c_proj"),
+        ("c_fc M16384 K1024 N4096", 1, moe_m, 1024, 4096, bf16,
+         "moe_quant_training:c_fc"),
+        ("mlp_c_proj M16384 K4096 N1024", 1, moe_m, 4096, 1024, bf16,
+         "moe_quant_training:mlp_c_proj"),
+        ("experts wi G8 C5120 K1024 N4096", MOE_EXPERTS, 5120, 1024, 4096,
+         bf16, "moe_quant_training:wi"),
+        ("experts wo G8 C5120 K4096 N1024", MOE_EXPERTS, 5120, 4096, 1024,
+         bf16, "moe_quant_training:wo"),
+        ("c_proj fp32 out", 1, flag_m, 1600, 1600, f32, None),
+        ("c_attn ragged M11227 (M % 128 = 91)", 1, flag_m - 37, 1600, 4800,
+         bf16, None),
+        ("experts G8 ragged C77 K1024 N4096 fp32 out", MOE_EXPERTS, 77, 1024,
+         4096, f32, None),
+    )
+    for label, g, m, k, n, out_dt, timed in cases:
+        x = torch.randn((g, m, k), generator=gen, device="cuda").to(bf16)
+        w = (0.02 * torch.randn((g, k, n), generator=gen, device="cuda")) \
+            .to(bf16)
+        wq, sw = qm.quantize_kernel_int8(w, QUANT_BLOCK)
+        xq, sx = qm.quantize_rows_int8(x)
+        kp = wq.shape[-2]
+        xq = torch.nn.functional.pad(xq, (0, kp - k)).contiguous()
+
+        def run():
+            return qm._qmm_launch(xq, wq, sx, sw, QUANT_BLOCK, out_dt)
+
+        got = run()
+        torch.cuda.synchronize()
+        ref = qm._qmm_plain(xq, wq, sx, sw, QUANT_BLOCK, out_dt)
+        tol = TOL_K6_BF16 if out_dt == bf16 else TOL_K6_F32
+        err = check(f"qmm, {label}", got, ref, tol, checks)
+        checks[-1]["exact"] = bool(torch.equal(got, ref))
+        del got, ref
+        if not timed:
+            continue
+        nb = kp // QUANT_BLOCK
+        # 2 operations per int8 product; read xq, wq, sx, sw once, write
+        # the bf16 output once
+        flops = 2.0 * g * m * kp * n
+        nbytes = g * (m * kp + kp * n + m * 4 + nb * n * 4 + m * n * 2)
+        bound_ms, bound_by = bound(flops, peaks["int8"], nbytes, peaks)
+        wqt_t = [wq[i].t().contiguous().t() for i in range(g)]  # [Kp, N]
+        try:
+            int_mm_ms = time_ms(lambda: [torch._int_mm(xq[i], wqt_t[i])
+                                         for i in range(g)])
+        except RuntimeError as exc:    # a yardstick only
+            int_mm_ms = None
+            checks.append({"check": f"torch._int_mm, {label}",
+                           "unavailable": str(exc)[:200]})
+        xb = x if g > 1 else x[0]
+        wb = w if g > 1 else w[0]
+        out[timed] = dict(
+            max_abs_err=err, ms=time_ms(run),
+            plain_ms=time_ms(lambda: qm._qmm_plain(xq, wq, sx, sw,
+                                                   QUANT_BLOCK, out_dt),
+                             iters=3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=int_mm_ms,
+            library_call=("torch._int_mm on the padded int8 operands, no "
+                          "per-block scales" + (f", {g} calls" if g > 1
+                                                else "")),
+            bf16_matmul_ms=time_ms(lambda: torch.matmul(xb, wb)),
+            shape=label)
+        del x, w, wq, sw, xq, sx, wqt_t
+    return out, checks
+
+
 # ----------------------------------------------------------------------
 # phases 4-5: serving and the oracle
 # ----------------------------------------------------------------------
@@ -781,7 +922,7 @@ def serve_and_check(seed, card, device="cuda", n_layer=None):
 
 
 # ----------------------------------------------------------------------
-# phases 7-8: training and the training oracle
+# phases 7-10: training, its oracle, quantized training, its oracle
 # ----------------------------------------------------------------------
 def flagship_ds_config(micro_batch):
     """bench.py's bench_gpt2_15b ds_config (the JAX package's training
@@ -799,6 +940,12 @@ def flagship_ds_config(micro_batch):
 
 # the training flagship's shape (bench_gpt2_15b)
 TRAIN_BATCH, TRAIN_SEQ = 11, 1024
+# the quantized_compute block of the quantized paths
+QUANT_BLOCK_CONFIG = {"enabled": True, "mode": "on", "block": QUANT_BLOCK}
+# quant_training against the unquantized training phase, step by step
+# (same weights, batch and seed): the JAX package's bound on its
+# quantized_matmul leg (bench.py:2926-2930)
+TOL_QUANT_LOSS = 0.2
 
 
 def train_config(**overrides):
@@ -809,12 +956,14 @@ def train_config(**overrides):
                        remat=True, remat_policy=None, **overrides)
 
 
-def train_and_check(seed, card, warmup=2, steps=6):
+def train_and_check(seed, card, warmup=2, steps=6, quantized=False):
     """Phase 7: the JAX package's training flagship (bench_gpt2_15b:
     gpt2-1.5b, micro batch 11, seq 1024, bf16 without master weights,
     ZeRO-2, AdamW, full-block remat, dropout 0) through initialize ->
     train_batch, on one fixed batch repeated, so the loss must fall.
-    Returns the launch counts of its steps."""
+    With `quantized` (phase `quant_training`) the ds_config carries the
+    quantized_compute block, so every projection runs K6. Returns the
+    launch counts of its steps and the losses."""
     import numpy as np
     import torch
     import deepspeed_tpu_torch as dst
@@ -822,11 +971,14 @@ def train_and_check(seed, card, warmup=2, steps=6):
 
     batch, seq = TRAIN_BATCH, TRAIN_SEQ
     cfg = train_config()
+    ds_config = flagship_ds_config(batch)
+    if quantized:
+        ds_config["quantized_compute"] = dict(QUANT_BLOCK_CONFIG)
     t0 = time.perf_counter()
     model = GPT2ForCausalLM(cfg)
     engine, _, _, _ = dst.initialize(model=model,
                                      model_parameters=model.init(seed),
-                                     config=flagship_ds_config(batch))
+                                     config=ds_config)
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, batch, seq)).astype(np.int32)
     staged = engine.stage_batch({"input_ids": ids})
@@ -852,12 +1004,17 @@ def train_and_check(seed, card, warmup=2, steps=6):
     profile = profile_steps(
         lambda: [engine.train_batch(batch=staged) for _ in range(2)], 2)
     ok = all(np.isfinite(loss_vals)) and loss_vals[-1] < loss_vals[0]
-    emit({"phase": "training", "model": "gpt2-1.5b", "n_layer": cfg.n_layer,
+    phase = "quant_training" if quantized else "training"
+    emit({"phase": phase, "model": "gpt2-1.5b", "n_layer": cfg.n_layer,
           "n_embd": cfg.n_embd, "n_head": cfg.n_head,
           "vocab": cfg.vocab_size, "micro_batch": batch, "seq": seq,
           "dtype": "bf16 params and moments (master_weights false), "
                    "stochastic rounding",
-          "zero_stage": 2, "remat": "full block", "setup_s": setup_s,
+          "zero_stage": 2, "remat": "full block",
+          "quantized_compute": ds_config.get("quantized_compute"),
+          "quantized_projections": type(
+              engine.module.module.h[0].c_fc).__name__,
+          "setup_s": setup_s,
           "warmup_steps": warmup, "warmup_s": warm_s, "steps": steps,
           "step_ms": step_s * 1e3,
           "tokens_per_s": batch * seq / step_s,
@@ -866,12 +1023,12 @@ def train_and_check(seed, card, warmup=2, steps=6):
           "launches_per_step": {k: v / (warmup + steps)
                                 for k, v in counts.items()},
           "card": card})
-    emit({"phase": "training_profile", **profile, "card": card})
+    emit({"phase": phase + "_profile", **profile, "card": card})
     if not ok:
-        raise AssertionError(f"training losses {loss_vals}: not finite or "
+        raise AssertionError(f"{phase} losses {loss_vals}: not finite or "
                              "not falling on the repeated batch")
     del engine, model, staged
-    return counts
+    return counts, loss_vals
 
 
 def training_oracle(seed, n_layer=2):
@@ -926,8 +1083,91 @@ def training_oracle(seed, n_layer=2):
                              "the plain-torch route")
 
 
+def quant_oracle(seed, n_layer=2):
+    """Phase 10: quantized compute at gpt2-1.5b width, `n_layer` layers,
+    bf16, micro batch 11, seq 1024: the kernel route (K6 and K1-K4, under
+    remat) against the plain route (fused_ops "off", dense attention and
+    K6's twin for every quantized product). int8 rounding is
+    discontinuous: the routes' bf16 roundings differ upstream, so some
+    activations land on the neighbouring int8 value. The phase counts,
+    at each projection of the forward, the activation entries whose int8
+    value differs between the routes, then holds the loss within
+    TOL_TRAIN_LOSS and every gradient within TOL_TRAIN_GRAD relative L2,
+    as training_oracle does."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    qm = _qmm()
+
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    cfg = train_config(n_layer=n_layer, quantized_compute="on",
+                       quant_block=QUANT_BLOCK)
+    kernel = GPT2ForCausalLM(cfg)
+    params = kernel.init(seed)
+    plain = GPT2ForCausalLM(dataclasses.replace(
+        cfg, fused_ops="off", attention_impl="xla"))
+    ids = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (batch, seq)), device="cuda")
+    n_proj = 4 * n_layer
+    quantize_rows, qmm = qm.quantize_rows_int8, qm._qmm
+
+    def run(model, recorded):
+        def recording(x, gen=None, values_dtype=torch.int8):
+            q, s = quantize_rows(x, gen, values_dtype)
+            if len(recorded) < n_proj:      # the forward's, not remat's
+                recorded.append(q)
+            return q, s
+        qm.quantize_rows_int8 = recording
+        try:
+            p = {k: v.clone().requires_grad_(True)
+                 for k, v in params.items()}
+            loss = model.loss_fn(p, {"input_ids": ids}, deterministic=True)
+            grads = torch.autograd.grad(loss, list(p.values()))
+        finally:
+            qm.quantize_rows_int8 = quantize_rows
+        return float(loss.detach()), grads
+
+    reset_counts()
+    q_kernel, q_plain = [], []
+    lk, gk = run(kernel, q_kernel)
+    launched = read_counts()
+    qm._qmm = qm._qmm_plain          # the plain route: K6's twin
+    try:
+        lp, gp = run(plain, q_plain)
+    finally:
+        qm._qmm = qmm
+    torch.cuda.synchronize()
+    names = ("c_attn", "c_proj", "c_fc", "mlp_c_proj")
+    flips = {f"h.{i // 4}.{names[i % 4]}": int((a != b).sum())
+             for i, (a, b) in enumerate(zip(q_kernel, q_plain))}
+    entries = {f"h.{i // 4}.{names[i % 4]}": a.numel()
+               for i, a in enumerate(q_kernel)}
+    del q_kernel, q_plain
+    loss_err = abs(lk - lp) / abs(lp)
+    errs = {name: rel_l2(a, b) for name, a, b in zip(params, gk, gp)}
+    worst = max(errs, key=errs.get)
+    finite = all(torch_isfinite(g) for g in gk)
+    missing = [k for k in QUANT_KERNELS if launched[k] <= 0]
+    ok = finite and loss_err <= TOL_TRAIN_LOSS and \
+        errs[worst] <= TOL_TRAIN_GRAD and not missing
+    emit({"phase": "quant_oracle", "n_layer": n_layer, "batch": batch,
+          "seq": seq, "int8_activation_entries_differing": flips,
+          "int8_activation_entries": entries,
+          "loss_kernels": lk, "loss_plain": lp,
+          "loss_rel_err": loss_err, "tol_loss": TOL_TRAIN_LOSS,
+          "grads": len(errs), "worst_grad": worst,
+          "worst_grad_rel_l2": errs[worst],
+          "median_grad_rel_l2": float(np.median(list(errs.values()))),
+          "tol_grad_rel_l2": TOL_TRAIN_GRAD,
+          "kernel_route_launches": launched, "ok": ok})
+    if not ok:
+        raise AssertionError("quantized kernel-route loss/gradients disagree "
+                             f"with the plain route (missing: {missing})")
+
+
 # ----------------------------------------------------------------------
-# phases 9-10: MoE training and its oracle
+# phases 11-13: MoE training, its oracle, quantized MoE training
 # ----------------------------------------------------------------------
 def moe_ds_config():
     """bench.py's bench_gpt2_350m ds_config (micro batch 16, bf16 with
@@ -948,33 +1188,41 @@ def moe_ds_config():
     }
 
 
-def moe_config(**overrides):
+def moe_config(quantized_experts="off", **overrides):
     """gpt2-350m (24 layers, n_embd 1024, 16 heads) with MoEConfig's
     defaults every other layer, bf16, full-block remat, dropout 0."""
     import torch
     from deepspeed_tpu_torch.models.gpt2 import gpt2_config
     from deepspeed_tpu_torch.moe import MoEConfig
     moe = MoEConfig(num_experts=MOE_EXPERTS, top_k=MOE_TOP_K,
-                    capacity_factor=MOE_CF, every_n_layers=2).validate()
+                    capacity_factor=MOE_CF, every_n_layers=2,
+                    quantized_experts=quantized_experts,
+                    quant_block=QUANT_BLOCK).validate()
     return gpt2_config("gpt2-350m", n_positions=MOE_SEQ, dropout=0.0,
                        dtype=torch.bfloat16, param_dtype=torch.bfloat16,
                        remat=True, remat_policy=None, moe=moe, **overrides)
 
 
-def moe_train_and_check(seed, card, warmup=2, steps=6):
-    """Phase 9: gpt2-350m-moe8 through initialize (with the moe block)
+def moe_train_and_check(seed, card, warmup=2, steps=6, quantized=False):
+    """Phase 11: gpt2-350m-moe8 through initialize (with the moe block)
     -> train_batch on one fixed batch repeated: step ms, tokens/s, peak
     memory, losses (finite, falling), the router's drop fraction and
     per-expert load at every step (the stats of the loss the engine
     differentiates, kept as device tensors until the end), launches per
-    step, a profile. Returns the launch counts of its steps."""
+    step, a profile. With `quantized` (phase `moe_quant_training`) the
+    model's experts are quantized (MoEConfig(quantized_experts="on")) and
+    the ds_config carries the quantized_compute block, so every
+    projection runs K6. Returns the launch counts of its steps."""
     import numpy as np
     import torch
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
     from deepspeed_tpu_torch.moe import STAT_DROP, router_capacity
 
-    cfg = moe_config()
+    cfg = moe_config(quantized_experts="on" if quantized else "off")
+    ds_config = moe_ds_config()
+    if quantized:
+        ds_config["quantized_compute"] = dict(QUANT_BLOCK_CONFIG)
     t0 = time.perf_counter()
     model = GPT2ForCausalLM(cfg)
     params = model.init(seed)
@@ -991,7 +1239,7 @@ def moe_train_and_check(seed, card, warmup=2, steps=6):
 
     model.loss_fn = recording_loss_fn
     engine, _, _, _ = dst.initialize(model=model, model_parameters=params,
-                                     config=moe_ds_config())
+                                     config=ds_config)
     del params
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, MOE_BATCH, MOE_SEQ)).astype(np.int32)
@@ -1020,14 +1268,17 @@ def moe_train_and_check(seed, card, warmup=2, steps=6):
         lambda: [engine.train_batch(batch=staged) for _ in range(2)], 2)
     ok = all(np.isfinite(loss_vals)) and loss_vals[-1] < loss_vals[0]
     tokens = MOE_BATCH * MOE_SEQ
-    emit({"phase": "moe_training", "model": "gpt2-350m-moe8",
+    phase = "moe_quant_training" if quantized else "moe_training"
+    emit({"phase": phase, "model": "gpt2-350m-moe8",
           "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
           "n_head": cfg.n_head, "vocab": cfg.vocab_size,
           "moe": {"num_experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
                   "capacity_factor": MOE_CF, "every_n_layers": 2,
                   "moe_layers": cfg.moe_cells,
+                  "quantized_experts": cfg.moe.quantized_experts,
                   "capacity": router_capacity(tokens, MOE_EXPERTS,
                                               MOE_TOP_K, MOE_CF)},
+          "quantized_compute": ds_config.get("quantized_compute"),
           "params": n_params, "micro_batch": MOE_BATCH, "seq": MOE_SEQ,
           "dtype": "bf16 compute and params, fp32 master weights and "
                    "moments",
@@ -1042,16 +1293,16 @@ def moe_train_and_check(seed, card, warmup=2, steps=6):
           "launches_per_step": {k: v / (warmup + steps)
                                 for k, v in counts.items()},
           "card": card})
-    emit({"phase": "moe_training_profile", **profile, "card": card})
+    emit({"phase": phase + "_profile", **profile, "card": card})
     if not ok:
-        raise AssertionError(f"MoE training losses {loss_vals}: not finite "
+        raise AssertionError(f"{phase} losses {loss_vals}: not finite "
                              "or not falling on the repeated batch")
     del engine, model, staged
     return counts
 
 
 def moe_oracle(seed, n_layer=4):
-    """Phase 10: gpt2-350m-moe8 at full width, `n_layer` layers (two MoE
+    """Phase 12: gpt2-350m-moe8 at full width, `n_layer` layers (two MoE
     layers), bf16, micro batch 16, seq 1024, one set of weights and one
     batch through two routes: the kernels (K8 dispatch/combine, grouped
     K4, flash, the fused epilogues) and plain torch (the one-hot einsum
@@ -1132,6 +1383,7 @@ KERNEL_GROUPS = (
                                  "col_reduce_kernel")),
     ("port kernels: MoE dispatch/combine", ("gather_rows_kernel",
                                             "combine_rows_kernel")),
+    ("port kernels: int8 GEMM (K6)", ("qmm_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
     ("casts and copies", ("copy_kernel",)),
     ("elementwise and reductions", ("elementwise", "reduce_kernel")),
@@ -1191,6 +1443,7 @@ def reset_counts():
     fa.reset_launch_count()
     fo.reset_launch_counts()
     _moe_kernels().reset_launch_counts()
+    _qmm().reset_launch_count()
 
 
 def read_counts():
@@ -1205,7 +1458,8 @@ def read_counts():
             "fused_bias_residual_layernorm_bwd":
                 fo.fused_bias_residual_layernorm_backward.launches,
             "fused_bias_gelu_fwd": fo.fused_bias_gelu.launches,
-            "fused_bias_gelu_bwd": fo.fused_bias_gelu_backward.launches}
+            "fused_bias_gelu_bwd": fo.fused_bias_gelu_backward.launches,
+            "quantized_matmul": _qmm().quantized_matmul.launches}
 
 
 KERNELS = (
@@ -1233,15 +1487,19 @@ KERNELS = (
      "deepspeed_tpu/moe/fused_dispatch.py:115", None),
     ("moe_combine", "deepspeed_tpu_torch/ops/csrc/moe_dispatch.cu",
      "deepspeed_tpu/moe/fused_dispatch.py:183", None),
+    ("quantized_matmul", "deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu",
+     "deepspeed_tpu/ops/transformer/quantized_matmul.py:207", kernel_qmm),
 )
 # the kernels each path runs: serving the forward ones, dense training
-# K1-K4, MoE training all of them
+# K1-K4, MoE training K1-K4 and K8; the quantized paths add K6
 SERVING_KERNELS = ("flash_attention_fwd", "fused_bias_residual_layernorm_fwd",
                    "fused_bias_gelu_fwd")
 TRAINING_KERNELS = SERVING_KERNELS + (
     "flash_attention_bwd", "fused_bias_residual_layernorm_bwd",
     "fused_bias_gelu_bwd")
 MOE_KERNELS = TRAINING_KERNELS + ("moe_dispatch", "moe_combine")
+QUANT_KERNELS = TRAINING_KERNELS + ("quantized_matmul",)
+MOE_QUANT_KERNELS = MOE_KERNELS + ("quantized_matmul",)
 
 
 def main(argv=None):
@@ -1297,7 +1555,7 @@ def main(argv=None):
           "checks": checks, "timed_by_path": {"moe_dispatch": disp,
                                               "moe_combine": comb},
           "card": card})
-    torch.cuda.empty_cache()
+    release()
 
     # 4-6: the serving path, with launch counts zeroed right before it
     serve_and_check(args.seed, card)
@@ -1307,41 +1565,64 @@ def main(argv=None):
     if missing:
         raise AssertionError(f"kernels never launched on the serving "
                              f"path: {missing}")
-    torch.cuda.empty_cache()
+    release()
+
+    def path_counts(path, counts, kernels):
+        emit({"phase": "launch_counts", "path": path, **counts})
+        missing = [k for k in kernels if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {missing}")
+        release()
+        return counts
 
     # 7: the training path (counts zeroed inside, right before its
     # steps), then 8: its oracle
-    training = train_and_check(args.seed, card)
-    emit({"phase": "launch_counts", "path": "training", **training})
-    missing = [k for k in TRAINING_KERNELS if training[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the training "
-                             f"path: {missing}")
-    torch.cuda.empty_cache()
+    training, losses = train_and_check(args.seed, card)
+    path_counts("training", training, TRAINING_KERNELS)
     training_oracle(args.seed)
-    torch.cuda.empty_cache()
+    release()
 
-    # 9: the MoE training path (counts zeroed inside, right before its
-    # steps), then 10: its oracle
-    moe = moe_train_and_check(args.seed, card)
-    emit({"phase": "launch_counts", "path": "moe_training", **moe})
-    missing = [k for k in MOE_KERNELS if moe[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the MoE training "
-                             f"path: {missing}")
-    torch.cuda.empty_cache()
+    # 9: the quantized training path, the same weights, batch and seed
+    # as 7 with the quantized_compute block, held to 7's losses; then 10:
+    # its oracle
+    quant, quant_losses = train_and_check(args.seed, card, quantized=True)
+    path_counts("quant_training", quant, QUANT_KERNELS)
+    gaps = [abs(a - b) for a, b in zip(quant_losses, losses)]
+    emit({"phase": "quant_vs_unquantized_losses", "quant": quant_losses,
+          "unquantized": losses, "abs_gap": gaps, "tol": TOL_QUANT_LOSS,
+          "k6_launches_per_step": quant["quantized_matmul"] / len(losses),
+          "ok": max(gaps) <= TOL_QUANT_LOSS})
+    if not max(gaps) <= TOL_QUANT_LOSS:
+        raise AssertionError(f"quant_training losses {quant_losses} stray "
+                             f"more than {TOL_QUANT_LOSS} from {losses}")
+    quant_oracle(args.seed)
+    release()
+
+    # 11: the MoE training path (counts zeroed inside, right before its
+    # steps), then 12: its oracle, then 13: the quantized MoE path
+    moe = path_counts("moe_training", moe_train_and_check(args.seed, card),
+                      MOE_KERNELS)
     moe_oracle(args.seed)
+    release()
+    moe_quant = path_counts(
+        "moe_quant_training",
+        moe_train_and_check(args.seed, card, quantized=True),
+        MOE_QUANT_KERNELS)
 
     rows = []
+    counts_by_path = {"serving": serving, "training": training,
+                      "quant_training": quant, "moe_training": moe,
+                      "moe_quant_training": moe_quant}
     for kname, src_file, replaces, _ in KERNELS:
-        # the row's numbers at the serving shape where the kernel serves
-        # (as in earlier runs), else at the training shape, else at the
-        # MoE training shape; every path's under "timed_by_path"
+        # the row's numbers at the kernel's first timed shape (the
+        # serving shape where the kernel serves, as in earlier runs);
+        # every path's under "timed_by_path"
         by_path = results[kname]
-        r = by_path.get("serving") or by_path.get("training") or \
-            by_path["moe_training"]
-        paths = {"serving": serving[kname], "training": training[kname],
-                 "moe_training": moe[kname]}
+        r = next(iter(by_path.values()))
+        paths = {p: c[kname] for p, c in counts_by_path.items()}
+        extra = {k: r[k] for k in ("library_call", "bf16_matmul_ms")
+                 if k in r}
         rows.append({"name": kname, "route": "cuda", "source": src_file,
                      "replaces": replaces,
                      "launches": sum(paths.values()),
@@ -1350,7 +1631,7 @@ def main(argv=None):
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"],
-                     "timed_by_path": by_path})
+                     **extra, "timed_by_path": by_path})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -25,6 +25,16 @@ projections (the unfused path, as in JAX), drawn from per-layer
 recompute draws the same masks; and the chunked tied-head
 cross-entropy, whose [B, T, vocab] logits never exist.
 
+Quantized compute (`quantized_compute` "on"/"auto", or the engine's
+`quantized_compute` block through `configure_quantized_compute`): the
+four projections of a dense block, and c_attn/c_proj of an MoE block,
+are `QuantizedDense`s, the int8 forward of kernel K6 with the
+straight-through backward; "auto" quantizes on CUDA only. With
+`quant_stochastic_rounding` each projection rounds stochastically from
+its own stream of `rngs["quant"]` (the step's seed, then the layer,
+then the projection), so a block's remat recompute and the backward
+see the forward's noise. The parameter tree is the same either way.
+
 Mixture-of-experts (`GPT2Config(moe=MoEConfig(...))`, the JAX MoE
 model): every `every_n_layers`-th layer is a `MoEGPT2Block` (the
 attention half of a block with plain LayerNorms and Dense projections,
@@ -41,8 +51,7 @@ in place of c_fc/mlp_c_proj. `models/convert.py` turns a JAX tree into
 this form.
 
 Out of this slice (each raises NotImplementedError naming its slice):
-named remat policies, progressive layer drop, int8 quantized compute
-(and quantized experts), sequence parallelism.
+named remat policies, progressive layer drop, sequence parallelism.
 """
 
 import dataclasses
@@ -59,9 +68,12 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     dense_attention, dropout, flash_attention, flash_attention_usable)
 from deepspeed_tpu_torch.ops.transformer.fused_ops import (
     fused_bias_gelu, fused_bias_residual_layernorm, resolve_fused_ops)
+from deepspeed_tpu_torch.ops.transformer.quantized_matmul import \
+    resolve_quantized_compute
 from deepspeed_tpu_torch.ops.transformer.transformer import (
-    Dense, LayerNorm, SplitDense, plain_layernorm)
+    Dense, LayerNorm, QuantizedDense, SplitDense, plain_layernorm)
 from deepspeed_tpu_torch.utils.device import resolve_device
+from deepspeed_tpu_torch.utils.rng import stream_generator, stream_seed
 
 REMAT_POLICY_SLICE = ("named remat policies (the save_fused_epilogues "
                       "and save_only_these_names forms) come with the "
@@ -159,10 +171,9 @@ def check_supported(cfg: GPT2Config):
                             f"None, got {type(cfg.moe).__name__}")
         cfg.moe.validate()
         cfg.moe_cells   # every_n_layers must divide n_layer
-    if cfg.quantized_compute not in ("off", False, 0, None):
-        raise NotImplementedError(
-            "int8 quantized compute (kernel K6) is ported in the "
-            "quantized-compute slice")
+    resolve_quantized_compute(cfg.quantized_compute)   # ValueError if bad
+    if cfg.quant_block <= 0:
+        raise ValueError(f"quant_block must be > 0, got {cfg.quant_block}")
     if cfg.sequence_parallel:
         raise NotImplementedError(
             "sequence parallelism (ring/ulysses, kernel K5) is ported in "
@@ -188,19 +199,27 @@ def _attention(cfg, q, k, v, dropout_gen=None):
                            dropout_gen=dropout_gen)
 
 
-def _generator_seed(seed, index):
-    """The seed of dropout stream `index` (0: the embedding, i + 1:
-    block i) of one step's `seed`."""
-    return (int(seed) * 1000003 + index) % (1 << 63)
+def _project(proj, x, seed, index):
+    """`proj(x)`; a QuantizedDense also takes stream `index` of the
+    block's quant `seed` for its stochastic rounding."""
+    if isinstance(proj, QuantizedDense):
+        return proj(x, stream_seed(seed, index))
+    return proj(x)
 
 
-def _generator(seed, index, device):
-    """A fresh torch.Generator on `device` for stream `index` of
-    `seed`: a remat recompute of a block builds it again and draws the
-    same masks."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_generator_seed(seed, index))
-    return gen
+def _projection(cfg: GPT2Config, in_features, features, split=False):
+    """A block projection: Dense (SplitDense with `split`), or
+    QuantizedDense when quantized compute is configured (it resolves
+    "auto" per call, on the input's device). The parameters are the
+    same either way."""
+    if cfg.quantized_compute != "auto" and \
+            not resolve_quantized_compute(cfg.quantized_compute):
+        return (SplitDense if split else Dense)(in_features, features,
+                                                cfg.dtype, cfg.param_dtype)
+    return QuantizedDense(in_features, features, cfg.dtype, cfg.param_dtype,
+                          mode=cfg.quantized_compute, block=cfg.quant_block,
+                          stochastic_rounding=cfg.quant_stochastic_rounding,
+                          split=split)
 
 
 def embed_tokens(cfg: GPT2Config, wte, wpe, input_ids):
@@ -232,7 +251,8 @@ class GPT2Block(nn.Module):
     the next block (or the model's fused ln_f). Both need the fused
     path. With `deterministic=False` and dropout > 0 the block draws its
     masks from a generator seeded by `dropout_seed`, on the unfused path
-    (dropout sits inside the fused chains)."""
+    (dropout sits inside the fused chains). `quant_seed` seeds the
+    projections' stochastic rounding (projection j its stream j)."""
 
     def __init__(self, config: GPT2Config):
         super().__init__()
@@ -241,20 +261,21 @@ class GPT2Block(nn.Module):
         c, pd = cfg.n_embd, cfg.param_dtype
         eps = cfg.layer_norm_epsilon
         self.ln_1 = LayerNorm(c, pd, eps)
-        self.c_attn = Dense(c, 3 * c, cfg.dtype, pd)
-        self.c_proj = SplitDense(c, c, cfg.dtype, pd)
+        self.c_attn = _projection(cfg, c, 3 * c)
+        self.c_proj = _projection(cfg, c, c, split=True)
         self.ln_2 = LayerNorm(c, pd, eps)
-        self.c_fc = SplitDense(c, 4 * c, cfg.dtype, pd)
-        self.mlp_c_proj = SplitDense(4 * c, c, cfg.dtype, pd)
+        self.c_fc = _projection(cfg, c, 4 * c, split=True)
+        self.mlp_c_proj = _projection(cfg, 4 * c, c, split=True)
 
     def forward(self, hidden, boundary=None, return_boundary=False,
-                deterministic=True, dropout_seed=None):
+                deterministic=True, dropout_seed=None, quant_seed=None):
         cfg = self.config
         b, t, c = hidden.shape
         h, d = cfg.n_head, cfg.head_dim
         eps = cfg.layer_norm_epsilon
         drop = not deterministic and cfg.dropout > 0.0
-        gen = _generator(dropout_seed, 0, hidden.device) if drop else None
+        gen = stream_generator(dropout_seed, 0, hidden.device) if drop \
+            else None
         use_fused = resolve_fused_ops(cfg.fused_ops, not drop,
                                       hidden.device)
         if (boundary is not None or return_boundary) and not use_fused:
@@ -274,21 +295,21 @@ class GPT2Block(nn.Module):
                                 eps).to(cfg.dtype)
         else:
             x = self.ln_1(hidden).to(cfg.dtype)
-        qkv = self.c_attn(x)
+        qkv = _project(self.c_attn, x, quant_seed, 0)
         # column slices of qkv, viewed [B, T, H, D] in place (no copy)
         q, k, v = (part.view(b, t, h, d) for part in qkv.split(c, dim=-1))
         attn = _attention(cfg, q, k, v, gen).reshape(b, t, c)
-        attn_y, attn_b = self.c_proj(attn)
+        attn_y, attn_b = _project(self.c_proj, attn, quant_seed, 1)
         if use_fused:
             # one launch: c_proj bias + residual + ln_2
             y, hidden = fused_bias_residual_layernorm(
                 attn_y, attn_b, hidden, self.ln_2.scale, self.ln_2.bias,
                 eps=eps, out_dtype=cfg.dtype, sum_dtype=sum_dtype)
-            fc_y, fc_b = self.c_fc(y)
+            fc_y, fc_b = _project(self.c_fc, y, quant_seed, 2)
             # one launch: c_fc bias + tanh GeLU (GPT-2's approximation)
             y = fused_bias_gelu(fc_y, fc_b, approximate=True,
                                 out_dtype=cfg.dtype)
-            mlp_y, mlp_b = self.mlp_c_proj(y)
+            mlp_y, mlp_b = _project(self.mlp_c_proj, y, quant_seed, 3)
             if return_boundary:
                 return hidden, (mlp_y, mlp_b)
             return hidden + (mlp_y + mlp_b.to(cfg.dtype))
@@ -297,10 +318,10 @@ class GPT2Block(nn.Module):
             attn = dropout(attn, cfg.dropout, gen)
         hidden = hidden + attn
         y = self.ln_2(hidden).to(cfg.dtype)
-        fc_y, fc_b = self.c_fc(y)
+        fc_y, fc_b = _project(self.c_fc, y, quant_seed, 2)
         y = nn.functional.gelu(fc_y + fc_b.to(cfg.dtype),
                                approximate="tanh")
-        mlp_y, mlp_b = self.mlp_c_proj(y)
+        mlp_y, mlp_b = _project(self.mlp_c_proj, y, quant_seed, 3)
         y = mlp_y + mlp_b.to(cfg.dtype)
         if drop:
             y = dropout(y, cfg.dropout, gen)
@@ -313,7 +334,8 @@ class MoEGPT2Block(nn.Module):
     c_attn/c_proj under the dense block's names, then router + dispatch
     + experts + combine. Returns (hidden, stats [E+2]). Dropout draws
     from the generator of `dropout_seed`'s stream 0, router jitter from
-    its stream 1."""
+    its stream 1; `quant_seed` seeds c_attn/c_proj's stochastic
+    rounding (the experts round to nearest, as in the JAX model)."""
 
     def __init__(self, config: GPT2Config):
         super().__init__()
@@ -322,26 +344,30 @@ class MoEGPT2Block(nn.Module):
         c, pd = cfg.n_embd, cfg.param_dtype
         eps = cfg.layer_norm_epsilon
         self.ln_1 = LayerNorm(c, pd, eps)
-        self.c_attn = Dense(c, 3 * c, cfg.dtype, pd)
-        self.c_proj = Dense(c, c, cfg.dtype, pd)
+        self.c_attn = _projection(cfg, c, 3 * c)
+        self.c_proj = _projection(cfg, c, c)
         self.ln_2 = LayerNorm(c, pd, eps)
         self.moe_mlp = MoEMLP(cfg.moe, c, 4 * c, cfg.dtype, pd)
 
-    def forward(self, hidden, deterministic=True, dropout_seed=None):
+    def forward(self, hidden, deterministic=True, dropout_seed=None,
+                quant_seed=None):
         cfg = self.config
         b, t, c = hidden.shape
         h, d = cfg.n_head, cfg.head_dim
         drop = not deterministic and cfg.dropout > 0.0
-        gen = _generator(dropout_seed, 0, hidden.device) if drop else None
+        gen = stream_generator(dropout_seed, 0, hidden.device) if drop \
+            else None
         jitter = None
         if not deterministic and cfg.moe.jitter_eps > 0.0 and \
                 dropout_seed is not None:
-            jitter = _generator(dropout_seed, 1, hidden.device)
+            jitter = stream_generator(dropout_seed, 1, hidden.device)
 
         x = self.ln_1(hidden).to(cfg.dtype)
-        qkv = self.c_attn(x)
+        qkv = _project(self.c_attn, x, quant_seed, 0)
         q, k, v = (part.view(b, t, h, d) for part in qkv.split(c, dim=-1))
-        attn = self.c_proj(_attention(cfg, q, k, v, gen).reshape(b, t, c))
+        attn = _project(self.c_proj,
+                        _attention(cfg, q, k, v, gen).reshape(b, t, c),
+                        quant_seed, 1)
         if drop:
             attn = dropout(attn, cfg.dropout, gen)
         hidden = hidden + attn
@@ -389,10 +415,11 @@ class GPT2LMHeadModel(nn.Module):
         self.ln_f = LayerNorm(cfg.n_embd, pd, cfg.layer_norm_epsilon)
 
     def forward(self, input_ids, deterministic=True, return_hidden=False,
-                dropout_seed=None):
+                dropout_seed=None, quant_seed=None):
         """Logits, or with `return_hidden` (final hidden, wte); an MoE
         model returns (that, router stats [E+2] averaged over its MoE
-        layers)."""
+        layers). `quant_seed` seeds the quantized projections' stochastic
+        rounding, block i from its stream i + 1."""
         cfg = self.config
         drop = not deterministic and cfg.dropout > 0.0
         if drop and dropout_seed is None:
@@ -403,19 +430,21 @@ class GPT2LMHeadModel(nn.Module):
         hidden = embed_tokens(cfg, self.wte, self.wpe, input_ids)
         if drop:
             hidden = dropout(hidden, cfg.dropout,
-                             _generator(dropout_seed, 0, hidden.device))
+                             stream_generator(dropout_seed, 0, hidden.device))
         # router jitter, like dropout, draws from the step's seed
         stochastic = not deterministic and dropout_seed is not None and (
             drop or (cfg.moe is not None and cfg.moe.jitter_eps > 0.0))
 
         def seed(i):
             # block i's stream: a seed of its own, drawn again on recompute
-            return _generator_seed(dropout_seed, i + 1) if stochastic \
-                else None
+            return stream_seed(dropout_seed, i + 1) if stochastic else None
+
+        def qseed(i):
+            return stream_seed(quant_seed, i + 1)
 
         if cfg.moe is not None:
             return self._moe_forward(hidden, remat, deterministic, seed,
-                                     return_hidden)
+                                     qseed, return_hidden)
         if resolve_fused_ops(cfg.fused_ops, not drop, hidden.device):
             # boundary fusion: the zero first boundary's bias takes
             # wte's dtype, as in the JAX model's carry0
@@ -425,7 +454,7 @@ class GPT2LMHeadModel(nn.Module):
                                 device=hidden.device))
             for i, block in enumerate(self.h):
                 hidden, prev = _run_block(block, remat, hidden, prev, True,
-                                          deterministic, seed(i))
+                                          deterministic, seed(i), qseed(i))
             hidden = fused_bias_residual_layernorm(
                 prev[0], prev[1], hidden, self.ln_f.scale, self.ln_f.bias,
                 eps=cfg.layer_norm_epsilon, out_dtype=torch.float32,
@@ -433,14 +462,14 @@ class GPT2LMHeadModel(nn.Module):
         else:
             for i, block in enumerate(self.h):
                 hidden = _run_block(block, remat, hidden, None, False,
-                                    deterministic, seed(i))
+                                    deterministic, seed(i), qseed(i))
             hidden = self.ln_f(hidden)
         if return_hidden:
             return hidden.to(cfg.dtype), self.wte
         return torch.matmul(hidden.to(cfg.dtype),
                             self.wte.to(cfg.dtype).t())
 
-    def _moe_forward(self, hidden, remat, deterministic, seed,
+    def _moe_forward(self, hidden, remat, deterministic, seed, qseed,
                      return_hidden):
         """The MoE stack: dense blocks without the boundary carry (the
         JAX super-cell calls them so), MoE blocks returning router stats,
@@ -452,11 +481,11 @@ class GPT2LMHeadModel(nn.Module):
         for i, block in enumerate(self.h):
             if cfg.is_moe_layer(i):
                 hidden, s = _run_block(block, remat, hidden, deterministic,
-                                       seed(i))
+                                       seed(i), qseed(i))
                 stats = stats + s
             else:
                 hidden = _run_block(block, remat, hidden, None, False,
-                                    deterministic, seed(i))
+                                    deterministic, seed(i), qseed(i))
         stats = stats / float(cfg.moe_cells)
         hidden = self.ln_f(hidden)
         if return_hidden:
@@ -654,7 +683,9 @@ class GPT2ForCausalLM:
         """Mean next-token cross-entropy of `batch` ({"input_ids" [B,T],
         optional "labels" [B,T]}) under `params`, differentiable in
         every parameter. `rngs={"dropout": seed}` (an int) seeds the
-        step's dropout when `deterministic` is False and dropout > 0.
+        step's dropout when `deterministic` is False and dropout > 0;
+        `rngs["quant"]` (an int) seeds the quantized projections'
+        stochastic rounding when `quant_stochastic_rounding` is on.
         Under `remat` every block runs under full-block remat."""
         cfg = self.config
         if layer_keep_prob is not None and cfg.moe is not None:
@@ -673,11 +704,12 @@ class GPT2ForCausalLM:
                 "remat_policy=None (full-block remat) is supported")
         input_ids, labels = self._shifted_labels(
             {k: self._ids(v) for k, v in batch.items()})
-        seed = (rngs or {}).get("dropout")
+        rngs = rngs or {}
         out = torch.func.functional_call(
             self.module, params, (input_ids,),
             {"deterministic": deterministic, "return_hidden": True,
-             "dropout_seed": seed})
+             "dropout_seed": rngs.get("dropout"),
+             "quant_seed": rngs.get("quant")})
         if cfg.moe is None:
             return chunked_tied_head_loss(*out, labels)
         (hidden, wte), stats = out
@@ -743,3 +775,26 @@ class GPT2ForCausalLM:
                 module.moe = moe
             elif hasattr(module, "config"):
                 module.config = self.config
+
+    def configure_quantized_compute(self, mode, block=None,
+                                    stochastic_rounding=None):
+        """Engine hook for the `quantized_compute` config block: rebuild
+        the module with the int8 quantized-compute projections switched
+        to `mode` ("off" | "on" | "auto"), the quantization `block` and
+        `stochastic_rounding` where given. The parameter tree is the
+        same either way: the rebuilt module adopts the current parameter
+        tensors (no copy), so `params()` and converted trees stay
+        valid."""
+        resolve_quantized_compute(mode)   # ValueError on a bad mode
+        updates = {"quantized_compute": mode}
+        if block is not None:
+            updates["quant_block"] = int(block)
+        if stochastic_rounding is not None:
+            updates["quant_stochastic_rounding"] = bool(stochastic_rounding)
+        config = dataclasses.replace(self.config, **updates)
+        check_supported(config)
+        with torch.device("meta"):
+            module = GPT2LMHeadModel(config)
+        module.load_state_dict(self.module.state_dict(), assign=True)
+        module.train(self.module.training)
+        self.config, self.module = config, module

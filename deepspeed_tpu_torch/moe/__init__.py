@@ -7,11 +7,12 @@
                      atomic-free backward passes
   dispatch.py        the one-hot einsum pair (fused_dispatch "off")
   experts.py         grouped-GEMM expert FFNs, one grouped K4 launch for
-                     all experts' bias + GeLU
+                     all experts' bias + GeLU; quantized experts as one
+                     grouped K6 launch per projection
   layer.py           `MoEMLP`, `MoEConfig`, `moe_mlp_reference`
 
 Expert-parallel meshes and their all-to-all, the ZeRO-3 scheduled MoE
-path, the dispatch-byte ledger and quantized experts are later slices.
+path and the dispatch-byte ledger are later slices.
 """
 
 from deepspeed_tpu_torch.moe.dispatch import (combine_tokens,

@@ -11,6 +11,12 @@ the TPU matrix unit's 128-wide lanes and has no purpose on the card, so
 launch of kernel K4 with a grouped bias [E, F] (`fused_bias_gelu`), where
 the JAX package vmaps the fused kernel over the expert dimension; its
 backward is one K4-bwd launch with dbias [E, F].
+
+Quantized experts (`quantized="on"`, or "auto" on CUDA): each of the two
+projections is one grouped `quantized_dense` (kernel K6 with the expert
+as the group, its straight-through backward), where the JAX package
+vmaps `quantized_dense` over the experts; weights cast to the compute
+dtype first and rounded to nearest, as there.
 """
 
 import numpy as np
@@ -18,10 +24,8 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_bias_gelu
-
-QUANTIZED_SLICE = ("quantized experts (int8 quantized compute, kernel K6) "
-                   "come with the quantized-compute slice (ROADMAP Queue 1 "
-                   "item 7)")
+from deepspeed_tpu_torch.ops.transformer.quantized_matmul import (
+    DEFAULT_QUANT_BLOCK, quantized_dense, resolve_quantized_compute)
 
 
 def grouped_gemm(x, w, *, pack=True):
@@ -54,12 +58,12 @@ class ExpertFFN(nn.Module):
     wi [E, H, F], bi [E, F], wo [E, F, H], bo [E, H]."""
 
     def __init__(self, num_experts, d_model, d_ff, dtype, param_dtype,
-                 pack=False, quantized="off"):
+                 pack=False, quantized="off", quant_block=DEFAULT_QUANT_BLOCK):
         super().__init__()
-        if quantized not in ("off", False, 0, None):
-            raise NotImplementedError(QUANTIZED_SLICE)
+        resolve_quantized_compute(quantized)   # ValueError on a bad mode
         self.num_experts, self.d_model, self.d_ff = num_experts, d_model, d_ff
         self.dtype, self.pack = dtype, pack
+        self.quantized, self.quant_block = quantized, int(quant_block)
         e = num_experts
         self.wi = nn.Parameter(torch.empty((e, d_model, d_ff),
                                            dtype=param_dtype))
@@ -74,11 +78,18 @@ class ExpertFFN(nn.Module):
             raise ValueError(f"ExpertFFN expects [E={self.num_experts}, C, "
                              f"H={self.d_model}], got {tuple(xe.shape)}")
         dt = self.dtype
-        yi = grouped_gemm(xe.to(dt), self.wi.to(dt), pack=self.pack)
+        if resolve_quantized_compute(self.quantized, xe.device):
+            def gemm(x, w):
+                return quantized_dense(x, w.to(dt), block=self.quant_block,
+                                       out_dtype=dt)
+        else:
+            def gemm(x, w):
+                return grouped_gemm(x, w.to(dt), pack=self.pack)
+        yi = gemm(xe.to(dt), self.wi)
         # one grouped launch: expert g's rows add bias row g
         act = fused_bias_gelu(yi, self.bi.to(dt), approximate=True,
                               out_dtype=dt)
-        yo = grouped_gemm(act, self.wo.to(dt), pack=self.pack)
+        yo = gemm(act, self.wo)
         return yo + self.bo.to(dt)[:, None, :]
 
 

@@ -143,7 +143,8 @@ class MoEMLP(nn.Module):
         self.experts = ExpertFFN(moe.num_experts, d_model, d_ff, dtype,
                                  param_dtype,
                                  pack=resolve_pack_experts(moe.pack_experts),
-                                 quantized=moe.quantized_experts)
+                                 quantized=moe.quantized_experts,
+                                 quant_block=moe.quant_block)
         self.route_override = None
         self.last_expert_idx = None
 

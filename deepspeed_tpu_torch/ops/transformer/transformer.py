@@ -1,7 +1,8 @@
 """Parameter modules of the GPT-2 block (port of
 deepspeed_tpu/ops/transformer/transformer.py:35-147: SplitDense,
-LNParams, plain_layernorm), plus the torch counterparts of the two flax
-layers the JAX block applies directly (nn.Dense and nn.LayerNorm).
+QuantizedDense, LNParams, plain_layernorm), plus the torch counterparts
+of the two flax layers the JAX block applies directly (nn.Dense and
+nn.LayerNorm).
 
 Dense kernels keep flax's [in, out] layout (`x @ kernel`), so a JAX
 parameter tree converts by a plain unstack (models/convert.py) and the
@@ -11,6 +12,11 @@ parity tests compare like with like. Parameters are created empty;
 
 import torch
 from torch import nn
+
+from deepspeed_tpu_torch.ops.transformer.quantized_matmul import (
+    DEFAULT_QUANT_BLOCK, bf16_fallback_matmul, quantized_dense,
+    resolve_quantized_compute)
+from deepspeed_tpu_torch.utils.rng import stream_generator
 
 
 class Dense(nn.Module):
@@ -39,6 +45,49 @@ class SplitDense(Dense):
     def forward(self, x):
         y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
         return y, self.bias
+
+
+class QuantizedDense(Dense):
+    """Dense/SplitDense parameters (the same "kernel"/"bias", so a tree
+    loads either way) whose product runs the int8 quantized-compute
+    family (ops/transformer/quantized_matmul.py) when `mode` resolves on
+    for the input's device: weights quantized per (K-block, column) in
+    every call, activations per row, kernel K6 on CUDA, the
+    straight-through backward in the compute dtype.
+
+    When `mode` resolves off, the product is `bf16_fallback_matmul` (the
+    JAX package's sr_fallback=True): with `stochastic_rounding` and a
+    quant seed its bf16 operand casts round stochastically, otherwise it
+    is bit for bit Dense/SplitDense. Stochastic rounding engages only
+    when the caller passes a `quant_seed`; without one, rounding is to
+    nearest. `split=True` returns `(x @ kernel, bias)` for the fused
+    epilogues, as SplitDense does."""
+
+    def __init__(self, in_features, features, dtype, param_dtype, *,
+                 mode="on", block=DEFAULT_QUANT_BLOCK,
+                 stochastic_rounding=False, split=False):
+        super().__init__(in_features, features, dtype, param_dtype)
+        resolve_quantized_compute(mode)   # ValueError on a bad mode
+        self.mode, self.block = mode, int(block)
+        self.stochastic_rounding = bool(stochastic_rounding)
+        self.split = split
+
+    def forward(self, x, quant_seed=None):
+        x = x.to(self.dtype)
+        seed = quant_seed if self.stochastic_rounding else None
+        if resolve_quantized_compute(self.mode, x.device):
+            y = quantized_dense(x, self.kernel, block=self.block,
+                                out_dtype=self.dtype,
+                                stochastic_rounding=self.stochastic_rounding,
+                                seed=seed)
+        else:
+            y = bf16_fallback_matmul(
+                x, self.kernel, out_dtype=self.dtype,
+                stochastic_rounding=self.stochastic_rounding,
+                gen=stream_generator(seed, 0, x.device))
+        if self.split:
+            return y, self.bias
+        return y + self.bias.to(self.dtype)
 
 
 class LNParams(nn.Module):

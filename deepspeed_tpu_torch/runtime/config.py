@@ -5,12 +5,14 @@ What the training slices read: the batch triple (train_batch_size =
 micro batch x gradient accumulation x data-parallel world size; any two
 determine the third), the `bf16` block with `master_weights`,
 `zero_optimization.stage`, the `optimizer` and `scheduler` blocks,
-`gradient_clipping`, `steps_per_print` and the `moe` block
-(`get_moe_config`, validated as the JAX package validates it).
+`gradient_clipping`, `steps_per_print`, the `moe` block
+(`get_moe_config`) and the `quantized_compute` block
+(`get_quantized_compute_config`), both validated as the JAX package
+validates them.
 
 The blocks of later slices raise NotImplementedError naming the ROADMAP
 item that ports them: fp16 and loss scaling, ZeRO offload, pipeline,
-quantized compute, the monitor and progressive layer drop.
+the monitor and progressive layer drop.
 """
 
 from deepspeed_tpu_torch.runtime import constants as C
@@ -142,6 +144,35 @@ def get_moe_config(param_dict):
             "jitter_eps": float(jitter), "fused_dispatch": fused}
 
 
+def get_quantized_compute_config(param_dict):
+    """Validated `quantized_compute` block -> dict(enabled, mode,
+    block, stochastic_rounding)."""
+    block = param_dict.get(C.QUANTIZED_COMPUTE, {})
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f'"quantized_compute" must be a dict, got {block!r}')
+    enabled = bool(get_scalar_param(
+        block, C.QUANTIZED_COMPUTE_ENABLED,
+        C.QUANTIZED_COMPUTE_ENABLED_DEFAULT))
+    mode = get_scalar_param(block, C.QUANTIZED_COMPUTE_MODE,
+                            C.QUANTIZED_COMPUTE_MODE_DEFAULT)
+    if mode not in C.QUANTIZED_COMPUTE_MODE_VALID:
+        raise DeepSpeedConfigError(
+            f"quantized_compute.mode must be one of "
+            f"{list(C.QUANTIZED_COMPUTE_MODE_VALID)}, got {mode!r}")
+    qblock = get_scalar_param(block, C.QUANTIZED_COMPUTE_BLOCK,
+                              C.QUANTIZED_COMPUTE_BLOCK_DEFAULT)
+    if not _is_int(qblock) or qblock < 1:
+        raise DeepSpeedConfigError(
+            f"quantized_compute.block must be an int >= 1, got "
+            f"{qblock!r}")
+    sr = bool(get_scalar_param(
+        block, C.QUANTIZED_COMPUTE_STOCHASTIC_ROUNDING,
+        C.QUANTIZED_COMPUTE_STOCHASTIC_ROUNDING_DEFAULT))
+    return {"enabled": enabled, "mode": mode, "block": qblock,
+            "stochastic_rounding": sr}
+
+
 def _block_type_and_params(param_dict, key):
     block = param_dict.get(key) or {}
     name = block.get(C.TYPE) if isinstance(block, dict) else None
@@ -166,10 +197,6 @@ class DeepSpeedConfig:
             raise _later("progressive layer drop", 10)
         if d.get(C.PIPELINE):
             raise _later("pipeline parallelism", 5)
-        qc = d.get(C.QUANTIZED_COMPUTE)
-        if qc and (not isinstance(qc, dict) or
-                   qc.get("mode", "off") not in ("off", False, 0, None)):
-            raise _later("int8 quantized compute (kernel K6)", 7)
         if _block_enabled(d, C.MONITOR, C.MONITOR_ENABLED):
             raise _later("the monitor block", 3)
 
@@ -203,6 +230,7 @@ class DeepSpeedConfig:
         self.scheduler_name, self.scheduler_params = \
             _block_type_and_params(d, C.SCHEDULER)
         self.moe = get_moe_config(d)
+        self.quantized_compute = get_quantized_compute_config(d)
 
     def _set_batch_related_parameters(self):
         train_batch = self.train_batch_size

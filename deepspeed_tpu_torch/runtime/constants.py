@@ -1,6 +1,7 @@
 """Config keys and defaults (trimmed copy of
 deepspeed_tpu/runtime/constants.py: the training keys the engine reads,
-the `inference` block, the `moe` block, and the switches of the blocks
+the `inference` block, the `moe` and `quantized_compute` blocks, and
+the switches of the blocks
 that later slices port). Values are identical to the JAX package's;
 tests/test_torch_inference.py and tests/test_torch_engine.py hold them
 equal."""
@@ -76,7 +77,31 @@ PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 PLD_ENABLED = "enabled"
 PLD_ENABLED_DEFAULT = False
 PIPELINE = "pipeline"
+
+#############################################
+# Quantized compute (ops/transformer/quantized_matmul.py, kernel K6):
+#   {"quantized_compute": {"enabled": true, "mode": "auto",
+#                          "block": 128, "stochastic_rounding": false}}
+# enabled: wire the family into the model at engine init (its
+#   configure_quantized_compute hook; a model without it warns).
+# mode: "auto" quantizes on CUDA only; "on" anywhere (the plain twin on
+#   the CPU); "off" parks the block.
+# block: quantization block along the contraction dim (a multiple of
+#   128 on the kernel path).
+# stochastic_rounding: round the int8 quantization stochastically from
+#   the engine's per-step "quant" seed; with mode resolved off, the
+#   bf16 operand casts round stochastically instead.
+#############################################
 QUANTIZED_COMPUTE = "quantized_compute"
+QUANTIZED_COMPUTE_ENABLED = "enabled"
+QUANTIZED_COMPUTE_ENABLED_DEFAULT = False
+QUANTIZED_COMPUTE_MODE = "mode"
+QUANTIZED_COMPUTE_MODE_DEFAULT = "auto"
+QUANTIZED_COMPUTE_MODE_VALID = ("auto", "on", "off")
+QUANTIZED_COMPUTE_BLOCK = "block"
+QUANTIZED_COMPUTE_BLOCK_DEFAULT = 128
+QUANTIZED_COMPUTE_STOCHASTIC_ROUNDING = "stochastic_rounding"
+QUANTIZED_COMPUTE_STOCHASTIC_ROUNDING_DEFAULT = False
 
 #############################################
 # Mixture-of-experts (deepspeed_tpu_torch/moe/)

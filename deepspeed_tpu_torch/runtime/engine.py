@@ -26,7 +26,15 @@ tensor. A host-side mirror of the step count serves logging.
 
 An `moe` block is wired into the model through its `configure_moe`
 hook before the state is built (`_init_moe`): the structural keys are
-verified against the model, the router knobs applied.
+verified against the model, the router knobs applied. A
+`quantized_compute` block goes through the model's
+`configure_quantized_compute` hook the same way
+(`_init_quantized_compute`).
+
+Each microbatch draws two host-side seeds, so no step reads the device:
+`rngs["dropout"]` from the engine's seed and `rngs["quant"]`, the
+stochastic-rounding stream of the quantized projections, from a second
+generator keyed by the same seed (the JAX engine's fold_in(rng, 0x51)).
 
 ZeRO stages 0, 1 and 2 at data-parallel world size 1 compute the
 unpartitioned update, as the JAX engine does on one chip. World size
@@ -54,6 +62,8 @@ from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
 
 # the seed of the stochastic-rounding stream (the JAX engine's PRNGKey(17))
 SR_SEED = 17
+# the key of the per-step quant stream (the JAX engine's fold_in(rng, 0x51))
+QUANT_STREAM = 0x51
 
 
 def _later(what, item):
@@ -115,6 +125,7 @@ class DeepSpeedEngine:
         self.collate_fn = collate_fn
         self._resolve_model(model, model_parameters)
         self._init_moe()
+        self._init_quantized_compute()
         self.device = resolve_device(
             device if device is not None else getattr(model, "device",
                                                       "cuda"))
@@ -141,8 +152,10 @@ class DeepSpeedEngine:
         self._pending = None       # (loss, grads) of forward()
         self._ready_grads = None   # gas = 1: backward()'s grads for step()
         self.losses = None
-        # per-step dropout seeds: host-side, so no step reads the device
+        # per-step dropout and quant seeds: host-side, so no step reads
+        # the device
         self._rng = np.random.default_rng(rng_seed)
+        self._quant_rng = np.random.default_rng([rng_seed, QUANT_STREAM])
         self._sr_gen = None
         if self.bf16_sr_mode:
             self._sr_gen = torch.Generator(device=self.device)
@@ -203,6 +216,27 @@ class DeepSpeedEngine:
             f"MoE: {mc['num_experts']} experts (top_k={mc['top_k']}, "
             f"cf={mc['capacity_factor']}, every_n_layers="
             f"{mc['every_n_layers']}) over expert axis {expert_axis}")
+
+    def _init_quantized_compute(self):
+        """Wire the `quantized_compute` config block into the model:
+        call its `configure_quantized_compute` hook with the configured
+        mode, block and stochastic_rounding, or warn when the model has
+        no such hook (the block then has no effect). The JAX engine also
+        emits a `quantized_matmul` monitor event here; that comes with
+        the monitor (ROADMAP Queue 1 item 3)."""
+        qc = self._config.quantized_compute
+        if not qc["enabled"]:
+            return
+        hook = getattr(self.module, "configure_quantized_compute", None)
+        if hook is None:
+            logger.warning(
+                "quantized_compute.enabled is set but the model "
+                f"({type(self.module).__name__}) exposes no "
+                "configure_quantized_compute hook; forward matmuls stay "
+                "unquantized")
+            return
+        hook(qc["mode"], block=qc["block"],
+             stochastic_rounding=qc["stochastic_rounding"])
 
     # ------------------------------------------------------------------
     # config accessors
@@ -316,16 +350,18 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def _next_seed(self):
-        return int(self._rng.integers(1 << 62))
+    def _next_rngs(self):
+        """One microbatch's seeds: {"dropout": int, "quant": int}."""
+        return {"dropout": int(self._rng.integers(1 << 62)),
+                "quant": int(self._quant_rng.integers(1 << 62))}
 
-    def _micro_grad(self, batch, seed):
+    def _micro_grad(self, batch, rngs):
         """(raw loss, grads) of one microbatch; the loss is divided by
         gas before differentiation, so accumulated grads are the mean."""
         params = self.state.params
         gas = self.gradient_accumulation_steps()
         with torch.enable_grad():
-            loss = self._loss_fn(params, batch, rngs={"dropout": seed},
+            loss = self._loss_fn(params, batch, rngs=rngs,
                                  deterministic=False)
             scaled = loss * (1.0 / gas) if gas > 1 else loss
             leaves = list(params.values())
@@ -416,12 +452,12 @@ class DeepSpeedEngine:
         lr = self._step_lr()
         if gas == 1:
             loss, grads = self._micro_grad(
-                {k: v[0] for k, v in batch.items()}, self._next_seed())
+                {k: v[0] for k, v in batch.items()}, self._next_rngs())
         else:
             losses = []
             for i in range(gas):
                 loss_i, g = self._micro_grad(
-                    {k: v[i] for k, v in batch.items()}, self._next_seed())
+                    {k: v[i] for k, v in batch.items()}, self._next_rngs())
                 with torch.no_grad():
                     for a, gi in zip(self.state.acc_grads, g):
                         a.add_(gi)
@@ -452,7 +488,7 @@ class DeepSpeedEngine:
         """Loss of one microbatch dict; its gradients are computed here
         too and cached for `backward`."""
         batch = self.stage_batch(batch)
-        loss, grads = self._micro_grad(batch, self._next_seed())
+        loss, grads = self._micro_grad(batch, self._next_rngs())
         self._pending = (loss, grads)
         return loss
 

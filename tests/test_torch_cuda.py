@@ -1,5 +1,5 @@
 """PyTorch port: the CUDA kernels on the card (kernels K1-fwd, K2,
-K3-fwd, K3-bwd, K4-fwd, K4-bwd, K8) against their plain PyTorch twins, the
+K3-fwd, K3-bwd, K4-fwd, K4-bwd, K6, K8) against their plain PyTorch twins, the
 serving engine against the kernel-driven forward, and a training step
 on the kernels against the plain-torch route.
 
@@ -455,3 +455,184 @@ def test_moe_training_step_matches_plain_route(dev):
     # forward, remat recompute and backward each launch both gathers once
     assert tfd.gather_rows.launches - before[0] == 3
     assert tfd.combine_rows.launches - before[1] == 3
+
+
+# ----------------------------------------------------------------------
+# quantized compute: kernel K6 (int8 GEMM, per-block dequant epilogue)
+# ----------------------------------------------------------------------
+def _qm():
+    return importlib.import_module(
+        "deepspeed_tpu_torch.ops.transformer.quantized_matmul")
+
+
+@pytest.mark.parametrize("g,m,k,n,out_dtype", [
+    (1, 300, 1600, 520, torch.bfloat16),    # partial last block, ragged
+    (1, 128, 256, 128, torch.float32),
+    (3, 77, 384, 200, torch.bfloat16),      # grouped, ragged M and N
+    (2, 64, 6400, 48, torch.float32),
+])
+def test_quantized_matmul_kernel_matches_twin(dev, g, m, k, n, out_dtype):
+    """K6 equals its twin bit for bit: both sum exact int32 block
+    partials and scale/add them in the same fp32 order, no FMA."""
+    qm = _qm()
+    gen = _gen(dev, 13)
+    x = torch.randn((g, m, k), generator=gen, device=dev) * 3.0
+    w = torch.randn((g, k, n), generator=gen, device=dev) * 0.05
+    wq, sw = qm.quantize_kernel_int8(w, 128)
+    xq, sx = qm.quantize_rows_int8(x)
+    xq = torch.nn.functional.pad(xq, (0, wq.shape[-2] - k)).contiguous()
+    before = qm.quantized_matmul.launches
+    got = qm._qmm(xq, wq, sx, sw, 128, out_dtype)
+    torch.cuda.synchronize()
+    assert qm.quantized_matmul.launches == before + 1
+    ref = qm._qmm_plain(xq, wq, sx, sw, 128, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (g, m, n)
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
+    # the wrapper: quantizes x itself and pads K, the same numbers
+    y = qm.quantized_matmul(x if g > 1 else x[0], wq if g > 1 else wq[0],
+                            sw if g > 1 else sw[0], block=128,
+                            out_dtype=out_dtype)
+    assert torch.equal(y, got if g > 1 else got[0])
+
+
+def test_quantized_matmul_kernel_raises_on_what_it_does_not_take(dev):
+    qm = _qm()
+    xq = torch.zeros((1, 64, 256), dtype=torch.int8, device=dev)
+    wq = torch.zeros((1, 256, 64), dtype=torch.int8, device=dev)
+    sx = torch.ones((1, 64, 1), device=dev)
+    sw = torch.ones((1, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        qm._qmm(xq, wq, sx, torch.ones((1, 4, 64), device=dev), 64,
+                torch.float32)
+    with pytest.raises(TypeError):
+        qm._qmm(xq.float(), wq, sx, sw, 128, torch.float32)
+    with pytest.raises(TypeError):
+        qm._qmm(xq, wq, sx, sw, 128, torch.float16)
+    with pytest.raises(ValueError):
+        qm._qmm(xq, wq[:, :128], sx, sw, 128, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        qm.quantized_dense(torch.zeros((4, 128), device=dev),
+                           torch.zeros((128, 8), device=dev), block=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_dense_autograd_matches_the_cpu_twin(dev, dtype):
+    """quantized_dense on the card (K6 forward, STE backward) against
+    the same call on CPU copies (the twin): the forward equal to one
+    rounding of the output; dx and dW to fp32 GEMM roundoff (fp32), or
+    to one bf16 rounding (bf16: dW is one bf16 GEMM with an fp32 output
+    on the card, the fp32 GEMM of the same products on the CPU)."""
+    qm = _qm()
+    gen = _gen(dev, 14)
+    x = (torch.randn((4, 96, 1600), generator=gen, device=dev)).to(dtype)
+    w = (0.02 * torch.randn((1600, 384), generator=gen, device=dev)).to(dtype)
+    dy = torch.randn((4, 96, 384), generator=gen, device=dev).to(dtype)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        xd = x.to(d).requires_grad_(True)
+        wd = w.to(d).requires_grad_(True)
+        y = qm.quantized_dense(xd, wd, block=128)
+        outs.append((y.detach().cpu(),) + tuple(
+            t.cpu() for t in torch.autograd.grad(y, (xd, wd), dy.to(d))))
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for a, b in zip(outs[0], outs[1]):
+        assert a.dtype == b.dtype == dtype
+        assert _rel_l2(a, b) <= tol
+
+
+def test_straight_through_dw_matches_the_fp32_gemm(dev):
+    """The STE backward's dW in bf16 compute (one bf16 GEMM with an fp32
+    output, then bf16) against the JAX package's arithmetic (the fp32
+    GEMM of the same values, TF32 off, then bf16), at the gpt2-1.5b
+    mlp_c_proj shape. The products are the same, only the summation
+    order differs: within 1e-4 relative L2 before the rounding to bf16;
+    after it, an entry differs by at most one bf16 ulp (2^-8 relative),
+    so within 1e-3. Prints the measured gaps (`pytest -s`)."""
+    qm = _qm()
+    gen = _gen(dev, 16)
+    m, k, n = 11 * 1024, 6400, 1600
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    g = (1e-3 * torch.randn((m, n), generator=gen, device=dev)) \
+        .to(torch.bfloat16)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref32 = x.float().t() @ g.float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got32 = torch.mm(x.t(), g, out_dtype=torch.float32)
+    got, ref = qm._dw(x, g, torch.bfloat16), ref32.to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(
+        got, got32.to(torch.bfloat16))
+    gaps = {"fp32_rel_l2": _rel_l2(got32, ref32),
+            "bf16_rel_l2": _rel_l2(got, ref),
+            "bf16_entries_differing": float((got != ref).float().mean())}
+    print("dw gap", gaps)
+    assert gaps["fp32_rel_l2"] <= 1e-4 and gaps["bf16_rel_l2"] <= 1e-3
+
+
+def test_stochastic_rounding_distribution_on_the_card(dev):
+    """SR on the card: floor or ceil only, unbiased, keyed by the
+    generator's seed."""
+    qm = _qm()
+    w = torch.full((256, 64), 0.1, device=dev)
+    w[0] = 0.3
+    q1, s = qm.quantize_kernel_int8(w, 256, gen=_gen(dev, 1))
+    q2, _ = qm.quantize_kernel_int8(w, 256, gen=_gen(dev, 2))
+    q1b, _ = qm.quantize_kernel_int8(w, 256, gen=_gen(dev, 1))
+    vals = q1[1:].float()
+    assert set(vals.unique().tolist()) <= {42.0, 43.0}
+    assert abs(float(vals.mean()) * float(s[0, 0]) - 0.1) < 0.001
+    assert torch.equal(q1, q1b) and not torch.equal(q1, q2)
+
+
+def test_quantized_training_step_on_the_kernels(dev):
+    """A 2-layer gpt2-125m-wide bf16 model with quantized compute: the
+    kernel route (K6 and K1-K4) against the plain route (fused ops off,
+    dense attention, K6's twin) within the training oracle's bounds,
+    then an engine step through the quantized_compute block ("auto": on
+    on the card): 16 K6 launches (4 projections x 2 layers, forward and
+    remat recompute; the straight-through backward runs none)."""
+    import dataclasses
+    import deepspeed_tpu_torch as dst
+    qm = _qm()
+    cfg = tgpt2.gpt2_config("gpt2-125m", n_layer=2, vocab_size=1024,
+                            n_positions=256, dropout=0.0,
+                            param_dtype=torch.bfloat16,
+                            quantized_compute="on")
+    model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+    params = model.init(seed=0)
+    plain = tgpt2.GPT2ForCausalLM(dataclasses.replace(
+        cfg, fused_ops="off", attention_impl="xla"), device=dev)
+    ids = torch.randint(0, 1024, (2, 256), generator=_gen(dev, 15),
+                        device=dev)
+    results = []
+    qmm = qm._qmm
+    for m in (model, plain):
+        if m is plain:
+            qm._qmm = qm._qmm_plain
+        try:
+            p = {k: v.clone().requires_grad_(True)
+                 for k, v in params.items()}
+            loss = m.loss_fn(p, {"input_ids": ids}, deterministic=True)
+            results.append((loss, torch.autograd.grad(loss,
+                                                      list(p.values()))))
+        finally:
+            qm._qmm = qmm
+    (lk, gk), (lp, gp) = results
+    torch.cuda.synchronize()
+    assert abs(float(lk) - float(lp)) <= 1e-2 * abs(float(lp))
+    for name, a, b in zip(params, gk, gp):
+        assert _rel_l2(a, b) <= 5e-2, name
+    base = tgpt2.GPT2ForCausalLM(dataclasses.replace(
+        cfg, quantized_compute="off"), device=dev)
+    engine, _, _, _ = dst.initialize(
+        model=base, model_parameters=params,
+        config={"train_micro_batch_size_per_gpu": 2,
+                "bf16": {"enabled": True, "master_weights": False},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                "quantized_compute": {"enabled": True, "mode": "auto"}})
+    before = qm.quantized_matmul.launches
+    loss = engine.train_batch(batch={"input_ids": ids[None]})
+    assert bool(torch.isfinite(loss))
+    assert qm.quantized_matmul.launches - before == 16

@@ -203,7 +203,7 @@ def test_constants_equal_jax(mine, ref):
     ({"zero_optimization": {"stage": 3}}, "stage 3"),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "Offload"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
-    ({"quantized_compute": {"mode": "on"}}, "quantized"),
+    ({"optimizer": {"type": "OneBitAdam"}}, "onebitadam"),
     ({"monitor": {"enabled": True}}, "monitor"),
     ({"progressive_layer_drop": {"enabled": True}}, "layer drop"),
     ({"optimizer": {"type": "Lamb"}}, "lamb"),

@@ -114,11 +114,14 @@ def test_init_follows_the_jax_per_leaf_scheme():
 
 def test_out_of_slice_options_raise():
     cfg = tgpt2.tiny_gpt2_config()
-    for bad in (dict(quantized_compute="on"),
-                dict(sequence_parallel="ring")):
-        with pytest.raises(NotImplementedError):
-            tgpt2.GPT2ForCausalLM(dataclasses.replace(cfg, **bad),
-                                  device="cpu")
+    with pytest.raises(NotImplementedError):
+        tgpt2.GPT2ForCausalLM(dataclasses.replace(cfg,
+                                                  sequence_parallel="ring"),
+                              device="cpu")
+    # quantized compute is ported (slice 4); its mode must be valid
+    with pytest.raises(ValueError, match="quantized_compute"):
+        tgpt2.GPT2ForCausalLM(dataclasses.replace(
+            cfg, quantized_compute="sometimes"), device="cpu")
     # mixture-of-experts is ported (slice 3); its config must be an
     # MoEConfig
     with pytest.raises(TypeError, match="MoEConfig"):

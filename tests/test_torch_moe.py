@@ -258,8 +258,10 @@ def test_expert_ffn_matches_jax_and_reference(pack):
     loop = tex.expert_ffn_reference(params, x)
     np.testing.assert_allclose(loop.detach().numpy(), ref, atol=1e-5,
                                rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tex.ExpertFFN(e, h, f, torch.float32, torch.float32, quantized="on")
+    # quantized experts are ported (K6); a mode outside auto/on/off raises
+    with pytest.raises(ValueError, match="quantized_compute"):
+        tex.ExpertFFN(e, h, f, torch.float32, torch.float32,
+                      quantized="sometimes")
 
 
 # ----------------------------------------------------------------------
