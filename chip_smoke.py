@@ -61,7 +61,25 @@ Phases, each printing one JSON line:
      route would choose differently on its own;
  13. quantized MoE training: phase 11 with quantized experts and the
      quantized_compute block (K6 for c_attn/c_proj of every block, the
-     dense blocks' MLPs and, grouped over the 8 experts, wi and wo).
+     dense blocks' MLPs and, grouped over the 8 experts, wi and wo);
+ 14. kernel_sparse: the four K7 kernels (block-sparse attention) against
+     their twins at bench.py's sparse_attention_16k shape ([1, 16384,
+     16, 64] bf16, block 256, causal; BSLongformer w4 and Fixed l4 g1 on
+     K7-band, BigBird on K7-fwd, K7-dkv/K7-dq under all three), timed
+     beside a bound over the visible scores, the twin, SDPA with the
+     expanded boolean layout mask and the dense K1/K2; checks at the
+     paths' other shapes ([2, 32768] BSLongformer and Fixed, BERT's
+     default Fixed at block 128, bidirectional), at block 32 (fp32,
+     bf16) and on per-head layouts at D 128;
+ 15. sparse_attention: the bench leg through SparseSelfAttention(...)
+     (q, q, q, causal=True), forward + backward, BSLongformer and Fixed
+     at [1, 16384] and [2, 32768], BigBird at [1, 16384]: ms (CUDA
+     events, allocator warm), the ratio to dense K1/K2, peak memory;
+     every K7 kernel must have launched;
+ 16. bert_sparse: BertSparseSelfAttention(1024, 16) (default Fixed,
+     bidirectional) on [1, 16384, 1024] bf16, forward + backward finite;
+ 17. sparse_oracle: the kernel route against the dense masked fallback
+     at T 4096, outputs and dQ/dK/dV by relative L2, fp32 and bf16.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -1374,6 +1392,395 @@ def moe_oracle(seed, n_layer=4):
                              f"the plain-torch route (missing: {missing})")
 
 
+# ----------------------------------------------------------------------
+# block-sparse attention (K7): kernels, the bench leg's path, BERT, oracle
+# ----------------------------------------------------------------------
+SPARSE_H, SPARSE_D, SPARSE_BLOCK = 16, 64, 256
+# bench.py's sparse_attention_16k leg: (pattern, batch, seq) at H16 D64
+# bf16, block 256, causal; BigBird is the table kernel's layout
+SPARSE_PATH = (("bslongformer", 1, 16384), ("fixed", 1, 16384),
+               ("bigbird", 1, 16384), ("bslongformer", 2, 32768),
+               ("fixed", 2, 32768))
+# the oracle: kernel route against the dense masked fallback at T 4096.
+# fp32: both routes compute exact fp32 products (the kernel on the CUDA
+# cores), summed in another order: reduction roundoff. bf16: the
+# fallback rounds its score product to bf16 (as the JAX einsum does) and
+# the kernel rounds p before P.V, each ~2^-9 relative, so outputs and
+# gradients differ by ~0.5% and stay under 3% relative L2.
+SPARSE_ORACLE_T = 4096
+TOL_SPARSE_ORACLE = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _sparse():
+    import importlib
+    return importlib.import_module(
+        "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention")
+
+
+def sparse_config(pattern, h=SPARSE_H, block=SPARSE_BLOCK):
+    """The bench leg's SparsityConfigs (bench.py:415-422) and BigBird
+    (random 1, window 3, global 1), by name."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    if pattern == "bslongformer":
+        return sa.BSLongformerSparsityConfig(num_heads=h, block=block,
+                                             num_sliding_window_blocks=4)
+    if pattern == "fixed":
+        return sa.FixedSparsityConfig(num_heads=h, block=block,
+                                      num_local_blocks=4, num_global_blocks=1)
+    return sa.BigBirdSparsityConfig(num_heads=h, block=block,
+                                    num_random_blocks=1,
+                                    num_sliding_window_blocks=3,
+                                    num_global_blocks=1)
+
+
+def visible_scores(layout, block, causal):
+    """Visible (query, key) pairs summed over heads: the work a
+    block-sparse kernel must do (causal: only keys at or before the
+    query)."""
+    import numpy as np
+    lay = np.asarray(layout) != 0
+    if not causal:
+        return int(lay.sum()) * block * block
+    diag = np.einsum("hii->", lay.astype(np.int64))
+    below = int(np.tril(lay, -1).sum())
+    return below * block * block + int(diag) * block * (block + 1) // 2
+
+
+def kernel_sparse(peaks, gen):
+    """K7 at the bench leg's shape ([1, 16384, 16, 64] bf16, block 256,
+    causal): K7-band under BSLongformer (w 4, sliding) and Fixed (l 4,
+    g 1, aligned), K7-fwd under BigBird, K7-dkv and K7-dq under all
+    three, each against its twin, timed beside its bound (the visible
+    scores only), its twin, SDPA with the expanded boolean layout mask
+    (the library yardstick, never called by the port) and the dense
+    K1/K2 at the same shape; then checks, untimed, at the paths' other
+    shapes (BSLongformer and Fixed at [2, 32768]; BERT's default Fixed,
+    block 128, bidirectional, at [1, 16384]), at block 32 (T 2048, fp32
+    and bf16, non-causal) and on per-head layouts. Returns {kernel:
+    {case: numbers}} and the checks."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    bsa = _sparse()
+    checks = []
+    res = {"block_sparse_fwd": {}, "block_sparse_band_fwd": {},
+           "block_sparse_bwd_dkv": {}, "block_sparse_bwd_dq": {}}
+
+    def one(label, layout, block, causal, dtype, b, t, h, d, timed):
+        qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda",
+                          dtype=torch.float32).to(dtype)
+        q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+        dout = torch.randn((b, t, h, d), generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+        plan = bsa._plan(layout, causal, block, bsa.TILE, q.device)
+        sm = d ** -0.5
+        if plan.band is not None:
+            fwd_name = "block_sparse_band_fwd"
+            launch, plain = bsa._band_fwd_launch, bsa._band_fwd_plain
+        else:
+            fwd_name = "block_sparse_fwd"
+            launch, plain = bsa._bs_fwd_launch, bsa._bs_fwd_plain
+        out, lse = launch(q, k, v, plan, sm)
+        dk, dv, delta = bsa._bs_bwd_dkv_launch(q, k, v, out, lse, dout,
+                                               plan, sm)
+        dq = bsa._bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm)
+        torch.cuda.synchronize()
+        ref, ref_lse = plain(q, k, v, plan, sm)
+        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        gtol = GRAD_TOL_BF16 if dtype == torch.bfloat16 else GRAD_TOL_F32
+        err_fwd = check(f"{fwd_name} out, {label}", out, ref, tol, checks)
+        check(f"{fwd_name} log2-lse, {label}", lse, ref_lse, TOL_F32, checks)
+        ref_dq, ref_dk, ref_dv = bsa._bs_bwd_plain(q, k, v, out, lse, dout,
+                                                   plan, sm)
+        err_dkv = max(check_rel(f"block_sparse_bwd_dkv d{n}, {label}", x, y,
+                                gtol, checks)
+                      for n, x, y in (("k", dk, ref_dk), ("v", dv, ref_dv)))
+        err_dq = check_rel(f"block_sparse_bwd_dq dq, {label}", dq, ref_dq,
+                           gtol, checks)
+        del ref, ref_lse, ref_dq, ref_dk, ref_dv
+        if not timed:
+            return
+        # the work of the visible (causal) scores only: 2 products of
+        # 2*d flops per score forward (S, P.V); dK/dV recomputes S and dP
+        # and adds dV, dK (4 products), dQ recomputes S and dP and adds
+        # dQ (3 products); bytes each input read once, output written once
+        nvis = b * visible_scores(layout, block, causal)
+        el = q.element_size()
+        row = b * t * h * d * el
+        lse_b = b * h * t * 4
+        f_bound, f_by = bound(4.0 * d * nvis, peaks["bf16"],
+                              4 * row + lse_b, peaks)
+        kv_bound, kv_by = bound(8.0 * d * nvis, peaks["bf16"],
+                                7 * row + lse_b, peaks)
+        q_bound, q_by = bound(6.0 * d * nvis, peaks["bf16"],
+                              5 * row + 2 * lse_b, peaks)
+        # SDPA with the expanded [T, T] boolean layout mask, broadcast
+        # over batch and heads (the layout is one per head here)
+        mask = torch.as_tensor(bsa.layout_to_dense_mask(layout[:1], t,
+                                                        block)[0],
+                               device="cuda")
+        if causal:
+            mask &= torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
+        qt_, kt_, vt_, dt_ = (x.transpose(1, 2).detach().clone()
+                              for x in (q, k, v, dout))
+        for x in (qt_, kt_, vt_):
+            x.requires_grad_(True)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt_, kt_, vt_,
+                                                  attn_mask=mask[None, None])
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qt_, kt_, vt_), dt_)
+
+        try:
+            sdpa_f = time_ms(sdpa_fwd, iters=5, warmup=1)
+            sdpa_fb = time_ms(sdpa_fwd_bwd, iters=5, warmup=1)
+        except torch.cuda.OutOfMemoryError:
+            sdpa_f = sdpa_fb = None
+        del mask, qt_, kt_, vt_, dt_
+        release()
+        o_d, lse_d = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        lse_d = lse_d[..., 0].contiguous()
+        dense = {"k1_fwd_ms": time_ms(lambda: fa.flash_attention_with_lse(
+                     q, k, v, causal=causal), iters=5),
+                 "k2_bwd_ms": time_ms(lambda: fa.flash_attention_backward(
+                     q, k, v, o_d, lse_d, dout, None, sm, causal), iters=5)}
+        del o_d, lse_d
+        common = {"shape": label, "visible_scores": nvis,
+                  "density": nvis / (b * h * (t * (t + 1) // 2 if causal
+                                              else t * t)),
+                  "sdpa_masked_fwd_ms": sdpa_f,
+                  "sdpa_masked_fwd_bwd_ms": sdpa_fb, "dense": dense}
+        res[fwd_name][label] = dict(
+            max_abs_err=err_fwd, ms=time_ms(lambda: launch(q, k, v, plan,
+                                                           sm)),
+            plain_ms=time_ms(lambda: plain(q, k, v, plan, sm), iters=3,
+                             warmup=1),
+            bound_ms=f_bound, bound_by=f_by, library_ms=sdpa_f, **common)
+        twin_bwd = time_ms(lambda: bsa._bs_bwd_plain(
+            q, k, v, out, lse, dout, plan, sm), iters=2, warmup=1)
+        res["block_sparse_bwd_dkv"][label] = dict(
+            max_abs_err=err_dkv,
+            ms=time_ms(lambda: bsa._bs_bwd_dkv_launch(q, k, v, out, lse,
+                                                      dout, plan, sm)),
+            plain_ms=twin_bwd, plain_is="the whole backward twin",
+            bound_ms=kv_bound, bound_by=kv_by, library_ms=None, **common)
+        res["block_sparse_bwd_dq"][label] = dict(
+            max_abs_err=err_dq,
+            ms=time_ms(lambda: bsa._bs_bwd_dq_launch(q, k, v, out, lse, dout,
+                                                     delta, plan, sm)),
+            plain_ms=twin_bwd, plain_is="the whole backward twin",
+            bound_ms=q_bound, bound_by=q_by, library_ms=None, **common)
+
+    h, d = SPARSE_H, SPARSE_D
+    for pattern in ("bslongformer", "fixed", "bigbird"):
+        layout = sparse_config(pattern).make_layout(16384)
+        one(f"{pattern} bf16 causal B1 T16384 H16 D64 block 256", layout,
+            SPARSE_BLOCK, True, torch.bfloat16, 1, 16384, h, d, True)
+        release()
+    # the other shapes the sparse_attention and bert_sparse paths give
+    # the kernels, checked, not timed: [2, 32768] (512 tiles per row;
+    # Fixed's 32 global columns) and BertSparseSelfAttention's default
+    # Fixed (block 128, bidirectional) at [1, 16384]
+    for pattern in ("bslongformer", "fixed"):
+        one(f"{pattern} bf16 causal B2 T32768 H16 D64 block 256",
+            sparse_config(pattern).make_layout(32768), SPARSE_BLOCK, True,
+            torch.bfloat16, 2, 32768, h, d, False)
+        release()
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    one("bert default fixed bf16 non-causal B1 T16384 H16 D64 block 128",
+        sa.FixedSparsityConfig(num_heads=h).make_layout(16384), 128, False,
+        torch.bfloat16, 1, 16384, h, d, False)
+    release()
+    for pattern in ("bslongformer", "fixed", "bigbird"):
+        layout = sparse_config(pattern, h=4, block=32).make_layout(2048)
+        for dtype in (torch.float32, torch.bfloat16):
+            one(f"{pattern} {str(dtype)[6:]} non-causal B2 T2048 H4 D64 "
+                "block 32", layout, 32, False, dtype, 2, 2048, 4, 64, False)
+    per_head = sa.VariableSparsityConfig(
+        num_heads=4, block=32, different_layout_per_head=True,
+        num_random_blocks=2, local_window_blocks=[2, 4],
+        global_block_indices=[0]).make_layout(2048)
+    for dtype in (torch.float32, torch.bfloat16):
+        one(f"per-head variable {str(dtype)[6:]} causal B2 T2048 H4 D128 "
+            "block 32", per_head, 32, True, dtype, 2, 2048, 4, 128, False)
+    return res, checks
+
+
+def sparse_attention_path(seed, card):
+    """The bench leg (bench.py:370-470) through the port's entry point:
+    SparseSelfAttention(config)(q, q, q, causal=True), forward and the
+    backward of the output's sum, under BSLongformer and Fixed at
+    [1, 16384] and [2, 32768] and BigBird at [1, 16384] (H16 D64 bf16,
+    block 256), against dense flash attention (K1/K2) on the same q.
+    Launch counts are zeroed right before the path and read after one
+    pass of each configuration. Then each is timed by CUDA events over
+    10 passes after a warm-up, with the cache allocator warm, beside its
+    peak memory and one pass timed right after `torch.cuda.empty_cache()`
+    (that pass pays cudaMalloc again for every buffer). Returns the
+    counts."""
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    qs = {(b, t): torch.randn((b, t, SPARSE_H, SPARSE_D), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+          for b, t in {(b, t) for _, b, t in SPARSE_PATH}}
+    mods = {p: sa.SparseSelfAttention(sparse_config(p), max_seq_length=t)
+            for p, _, t in SPARSE_PATH}
+
+    def fwd_bwd(fn, q):
+        x = q.detach().requires_grad_(True)
+        out = fn(x)
+        out.float().sum().backward()
+        return out, x.grad
+
+    def sparse_fn(pattern):
+        return lambda x: mods[pattern](x, x, x, causal=True)
+
+    def dense_fn(x):
+        return fa.flash_attention(x, x, x, causal=True)
+
+    reset_counts()
+    for pattern, b, t in SPARSE_PATH:
+        out, grad = fwd_bwd(sparse_fn(pattern), qs[(b, t)])
+        torch.cuda.synchronize()
+        if not (torch_isfinite(out) and torch_isfinite(grad)):
+            raise AssertionError(f"sparse path {pattern} B{b} T{t}: "
+                                 "non-finite output or gradient")
+        del out, grad
+    counts = read_counts()
+
+    def timed(fn, q):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        cold = time_ms(lambda: fwd_bwd(fn, q), iters=1, warmup=0)
+        ms = time_ms(lambda: fwd_bwd(fn, q), iters=10, warmup=1)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30, cold
+
+    rows = []
+    dense = {}
+    for pattern, b, t in SPARSE_PATH:
+        if (b, t) not in dense:
+            dense[(b, t)] = timed(dense_fn, qs[(b, t)])
+        ms, peak, cold = timed(sparse_fn(pattern), qs[(b, t)])
+        layout = mods[pattern].get_layout(t)
+        nvis = b * visible_scores(layout, SPARSE_BLOCK, True)
+        rows.append({"pattern": pattern, "batch": b, "seq": t,
+                     "fwd_bwd_ms": ms, "peak_gib": peak,
+                     "first_pass_after_empty_cache_ms": cold,
+                     "dense_flash_fwd_bwd_ms": dense[(b, t)][0],
+                     "dense_flash_peak_gib": dense[(b, t)][1],
+                     "dense_flash_first_pass_after_empty_cache_ms":
+                         dense[(b, t)][2],
+                     "speedup_vs_dense_flash": dense[(b, t)][0] / ms,
+                     "visible_scores": nvis,
+                     "us_per_visible_block": ms * 1e3 / (
+                         nvis / SPARSE_BLOCK ** 2)})
+    emit({"phase": "sparse_attention", "card": card,
+          "config": "bench.py sparse_attention_16k: H16 D64 bf16 block 256 "
+                    "causal, fwd + bwd of sum(out)",
+          "timing": "CUDA events, mean of 10 passes after 1 warm-up",
+          "rows": rows, "launches": {k: counts[k] for k in SPARSE_KERNELS}})
+    release()
+    return counts
+
+
+def bert_sparse(seed, card):
+    """BertSparseSelfAttention(hidden_size=1024, num_attention_heads=16)
+    (BERT-large's attention width; the default FixedSparsityConfig:
+    block 128, 4 local blocks, 1 global, bidirectional) on
+    [1, 16384, 1024] bf16 hidden states, weights from the seed: forward
+    and backward of the mean square of the output; the loss and every
+    gradient finite."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        BertSparseSelfAttention
+    torch.manual_seed(seed)
+    mod = BertSparseSelfAttention(1024, 16, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((1, 16384, 1024), generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_(True)
+
+    def step():
+        mod.zero_grad()
+        x.grad = None
+        loss = mod(x).float().pow(2).mean()
+        loss.backward()
+        return loss
+
+    bsa = _sparse()
+    before = read_counts()
+    loss = step()
+    torch.cuda.synchronize()
+    launched = {k: read_counts()[k] - before[k] for k in SPARSE_KERNELS}
+    grads = [x.grad] + [p.grad for p in mod.parameters()]
+    ok = torch_isfinite(loss) and all(torch_isfinite(g) for g in grads) \
+        and all(launched[k] == 1 for k in SPARSE_KERNELS[1:])
+    ms = time_ms(step, iters=10, warmup=0)
+    plan = bsa._plan(mod.sparse_attn.get_layout(16384), False, 128,
+                     bsa.TILE, x.device)
+    emit({"phase": "bert_sparse", "card": card,
+          "config": "BertSparseSelfAttention(1024, 16), default Fixed "
+                    "(block 128, l4 g1, bidirectional), [1, 16384, 1024] "
+                    "bf16", "band": list(plan.band[:2]) if plan.band
+          else None, "loss": loss.item(), "fwd_bwd_ms": ms,
+          "timing": "CUDA events, mean of 10 steps after 1",
+          "launches": launched,
+          "finite": ok})
+    if not ok:
+        raise AssertionError("bert_sparse: non-finite loss or gradient, "
+                             f"or launches {launched} are not one each of "
+                             "K7-band, K7-dkv and K7-dq")
+    release()
+
+
+def sparse_oracle(seed):
+    """The kernel route (block_sparse_attention on the card: K7-band or
+    K7-fwd, then K7-dkv and K7-dq) against the dense masked fallback
+    (block_sparse_attention_dense_fallback: plain torch over the
+    expanded [T, T] mask) at T 4096 (the fallback's fp32 scores at 16k
+    would take ~17 GB), H16 D64 block 256 causal, for the three
+    patterns, fp32 and bf16: outputs and dQ/dK/dV by relative L2."""
+    import torch
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    bsa = _sparse()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t = SPARSE_ORACLE_T
+    rows, ok = [], True
+    for pattern in ("bslongformer", "fixed", "bigbird"):
+        layout = sparse_config(pattern).make_layout(t)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (torch.randn((1, t, SPARSE_H, SPARSE_D),
+                                         generator=gen, device="cuda")
+                             .to(dtype) for _ in range(4))
+            results = []
+            for fn in (sa.block_sparse_attention,
+                       bsa.block_sparse_attention_dense_fallback):
+                xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                out = fn(*xs, layout, SPARSE_BLOCK, causal=True)
+                results.append([out] + list(torch.autograd.grad(out, xs,
+                                                                dout)))
+            tol = TOL_SPARSE_ORACLE[str(dtype)[6:]]
+            errs = {n: rel_l2(a, b) for n, a, b in
+                    zip(("out", "dq", "dk", "dv"), *results)}
+            good = all(e <= tol for e in errs.values()) and \
+                all(torch_isfinite(x) for x in results[0])
+            ok = ok and good
+            rows.append({"pattern": pattern, "dtype": str(dtype)[6:],
+                         "rel_l2": errs, "tol": tol, "ok": good})
+            del results
+            release()
+    emit({"phase": "sparse_oracle", "seq": t, "rows": rows, "ok": ok})
+    if not ok:
+        raise AssertionError("sparse kernel route disagrees with the dense "
+                             "masked fallback")
+
+
 # device-time groups of the profiles, by kernel-name substring
 KERNEL_GROUPS = (
     ("port kernels: attention", ("flash_fwd_kernel", "flash_bwd_",
@@ -1384,6 +1791,9 @@ KERNEL_GROUPS = (
     ("port kernels: MoE dispatch/combine", ("gather_rows_kernel",
                                             "combine_rows_kernel")),
     ("port kernels: int8 GEMM (K6)", ("qmm_kernel",)),
+    ("port kernels: block-sparse attention (K7)", ("bs_fwd_kernel",
+                                                   "band_fwd_kernel",
+                                                   "bs_bwd_")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
     ("casts and copies", ("copy_kernel",)),
     ("elementwise and reductions", ("elementwise", "reduce_kernel")),
@@ -1444,14 +1854,17 @@ def reset_counts():
     fo.reset_launch_counts()
     _moe_kernels().reset_launch_counts()
     _qmm().reset_launch_count()
+    _sparse().reset_launch_counts()
 
 
 def read_counts():
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     fd = _moe_kernels()
+    bsa = _sparse()
     return {"moe_dispatch": fd.gather_rows.launches,
-            "moe_combine": fd.combine_rows.launches,"flash_attention_fwd": fa.flash_attention_with_lse.launches,
+            "moe_combine": fd.combine_rows.launches,
+            "flash_attention_fwd": fa.flash_attention_with_lse.launches,
             "flash_attention_bwd": fa.flash_attention_backward.launches,
             "fused_bias_residual_layernorm_fwd":
                 fo.fused_bias_residual_layernorm.launches,
@@ -1459,7 +1872,11 @@ def read_counts():
                 fo.fused_bias_residual_layernorm_backward.launches,
             "fused_bias_gelu_fwd": fo.fused_bias_gelu.launches,
             "fused_bias_gelu_bwd": fo.fused_bias_gelu_backward.launches,
-            "quantized_matmul": _qmm().quantized_matmul.launches}
+            "quantized_matmul": _qmm().quantized_matmul.launches,
+            "block_sparse_fwd": bsa._bs_fwd_launch.launches,
+            "block_sparse_band_fwd": bsa._band_fwd_launch.launches,
+            "block_sparse_bwd_dkv": bsa._bs_bwd_dkv_launch.launches,
+            "block_sparse_bwd_dq": bsa._bs_bwd_dq_launch.launches}
 
 
 KERNELS = (
@@ -1489,6 +1906,23 @@ KERNELS = (
      "deepspeed_tpu/moe/fused_dispatch.py:183", None),
     ("quantized_matmul", "deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu",
      "deepspeed_tpu/ops/transformer/quantized_matmul.py:207", kernel_qmm),
+    # K7: one phase (kernel_sparse) checks and times all four
+    ("block_sparse_fwd",
+     "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:160",
+     None),
+    ("block_sparse_band_fwd",
+     "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:552",
+     None),
+    ("block_sparse_bwd_dkv",
+     "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:229",
+     None),
+    ("block_sparse_bwd_dq",
+     "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:279",
+     None),
 )
 # the kernels each path runs: serving the forward ones, dense training
 # K1-K4, MoE training K1-K4 and K8; the quantized paths add K6
@@ -1500,6 +1934,8 @@ TRAINING_KERNELS = SERVING_KERNELS + (
 MOE_KERNELS = TRAINING_KERNELS + ("moe_dispatch", "moe_combine")
 QUANT_KERNELS = TRAINING_KERNELS + ("quantized_matmul",)
 MOE_QUANT_KERNELS = MOE_KERNELS + ("quantized_matmul",)
+SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_band_fwd",
+                  "block_sparse_bwd_dkv", "block_sparse_bwd_dq")
 
 
 def main(argv=None):
@@ -1610,10 +2046,25 @@ def main(argv=None):
         moe_train_and_check(args.seed, card, quantized=True),
         MOE_QUANT_KERNELS)
 
+    # 14: the K7 kernels against their twins; 15: the sparse attention
+    # path (counts zeroed inside, right before it); 16: BERT-large's
+    # sparse self-attention block; 17: the oracle
+    sparse_res, checks = kernel_sparse(peaks, gen)
+    results.update(sparse_res)
+    emit({"phase": "kernel_sparse", "checks": checks,
+          "timed_by_path": sparse_res, "card": card})
+    release()
+    sparse = path_counts("sparse_attention",
+                         sparse_attention_path(args.seed, card),
+                         SPARSE_KERNELS)
+    bert_sparse(args.seed, card)
+    sparse_oracle(args.seed)
+
     rows = []
     counts_by_path = {"serving": serving, "training": training,
                       "quant_training": quant, "moe_training": moe,
-                      "moe_quant_training": moe_quant}
+                      "moe_quant_training": moe_quant,
+                      "sparse_attention": sparse}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);
@@ -1621,7 +2072,10 @@ def main(argv=None):
         by_path = results[kname]
         r = next(iter(by_path.values()))
         paths = {p: c[kname] for p, c in counts_by_path.items()}
-        extra = {k: r[k] for k in ("library_call", "bf16_matmul_ms")
+        extra = {k: r[k] for k in ("library_call", "bf16_matmul_ms",
+                                   "plain_is", "sdpa_masked_fwd_ms",
+                                   "sdpa_masked_fwd_bwd_ms", "dense",
+                                   "visible_scores", "density")
                  if k in r}
         rows.append({"name": kname, "route": "cuda", "source": src_file,
                      "replaces": replaces,

@@ -14,6 +14,10 @@ comes in as nested dicts of numpy arrays (e.g.
 leaves are numpy's `bfloat16` extension dtype, which torch cannot wrap,
 so they go through fp32 (exact) to torch.bfloat16. This module imports
 no JAX.
+
+`bert_sparse_params_from_jax` carries a `BertSparseSelfAttention` tree
+(query/key/value nn.Dense: kernel [in, out], bias) into the port
+module's state dict (nn.Linear: weight [out, in], bias).
 """
 
 import numpy as np
@@ -68,18 +72,22 @@ def _leaves(tree, prefix=""):
             yield path, value
 
 
+def _tensor(x, dtype=None):
+    arr = np.array(x)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(dtype) if dtype is not None else t
+
+
 def params_from_jax(tree, dtype=None):
     """{"wte", "wpe", "h.{i}.<module>.<leaf>", "ln_f.scale",
     "ln_f.bias"} -> CPU torch tensors (dtype: keep the tree's, or cast
     to the given torch dtype). MoE trees give "h.{i}.moe_mlp.wg" and
     "h.{i}.moe_mlp.experts.{wi,bi,wo,bo}" for their MoE layers."""
     def tensor(x):
-        arr = np.array(x)
-        if arr.dtype.name == "bfloat16":
-            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        return t.to(dtype) if dtype is not None else t
+        return _tensor(x, dtype)
 
     out = {"wte": tensor(tree["wte"]), "wpe": tensor(tree["wpe"])}
     cells = None
@@ -95,4 +103,18 @@ def params_from_jax(tree, dtype=None):
                 out[f"h.{first + c * stride}.{path}"] = tensor(arr[c])
     out["ln_f.scale"] = tensor(tree["ln_f"]["scale"])
     out["ln_f.bias"] = tensor(tree["ln_f"]["bias"])
+    return out
+
+
+def bert_sparse_params_from_jax(tree, dtype=None):
+    """A flax `BertSparseSelfAttention` tree ({"query", "key", "value"},
+    each {"kernel" [in, out], "bias"}, optionally under "params") ->
+    the port module's state dict {"query.weight" [out, in],
+    "query.bias", ...} as CPU tensors (for `load_state_dict`)."""
+    tree = tree.get("params", tree)
+    out = {}
+    for name in ("query", "key", "value"):
+        out[f"{name}.weight"] = _tensor(tree[name]["kernel"], dtype).t() \
+            .contiguous()
+        out[f"{name}.bias"] = _tensor(tree[name]["bias"], dtype)
     return out

@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 # the kernel sources, by library name
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ln_fwd",
            "fused_ln_bwd", "fused_gelu_fwd", "fused_gelu_bwd",
-           "moe_dispatch", "quantized_matmul")
+           "moe_dispatch", "quantized_matmul", "block_sparse_attention")
 
 _lock = threading.Lock()
 _libs = {}

@@ -1,0 +1,410 @@
+// K7: block-sparse flash attention, for Hopper (sm_90a).
+//
+// Replaces the four Pallas kernels of
+// deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py, one
+// __global__ entry point each:
+//   bs_fwd_kernel      <- _bs_fwd_kernel (:160), the table forward
+//   band_fwd_kernel    <- _band_fwd_kernel (:552), the band + global forward
+//   bs_bwd_dkv_kernel  <- _bs_bwd_dkv_kernel (:229), dK and dV
+//   bs_bwd_dq_kernel   <- _bs_bwd_dq_kernel (:279), dQ
+// They compute attention over [B, T, H, D] restricted to a block layout
+// [H, T/block, T/block] (and the causal triangle, element by element,
+// when causal), with the online softmax in log2 space as K1/K2 do, and
+// write out [B, T, H, D] in the input dtype and lse [B*H, T] (fp32, log2
+// space; +inf for a row that sees nothing, so the backward's P is 0).
+//
+// Bound on the H100: the work scales with the visible score entries, not
+// T^2. At the bench shapes (T 16384, H16, D64, bf16, block 256) a
+// 64 x 64 tile does 64 flops per byte of K/V it loads, far under the
+// card's ~295 balance point: a tile walk that reloads K/V per q tile is
+// bound by L2 and latency first, and a fast kernel keeps several q tiles
+// on one K/V tile. This first kernel is the simple one: the tile bodies
+// of K1/K2 (attention_tiles.cuh: WMMA 16x16x16 bf16 with fp32
+// accumulation, a CUDA-core fp32 path, no TMA, no wgmma, no pipelining)
+// over walks that visit only the visible tiles.
+//
+// What the design does about the TPU kernel's shape:
+// - The Pallas grid's super-rows (qt layout rows) and head groups (g)
+//   amortised grid-step overhead; here every CTA is one (64-row tile,
+//   b*h) and loops over its own visible list, so neither is carried over.
+// - Layout blocks of 16 and 32 put several blocks in one 64-row tile: the
+//   host tables are built per tile with a bit mask of visible sub-blocks,
+//   bit (i * rr + j) for q sub-row i and k sub-column j of the tile (rr =
+//   64 / sub-block size; blocks >= 64 give rr = 1 and one bit), the
+//   generalisation of the TPU kernel's per-member-row `kmask` bits.
+// - The band kernel's host-side gather of the global K/V columns (:703)
+//   existed for regular Pallas tiles; here the kernel reads those tiles
+//   in place from an index list, in ascending position order with the
+//   closed-form band span: globals before the span, the span, globals
+//   after it. A global tile inside the span is visited once, as part of
+//   the span, so no score is counted twice; causally dead global tiles
+//   (first key after the tile's last query) are not visited at all.
+// - The backward is K2's atomic-free two sweeps over the tables: dK/dV
+//   per k tile over the transpose table, dQ per q tile over the forward
+//   table, after K2's delta pre-pass (rowsum(dO * O)).
+#include "attention_tiles.cuh"
+
+namespace {
+
+using namespace attn;
+
+// score (row, col) of a tile pair is visible when its sub-block's bit
+// is set and, if causal, the key does not follow the query
+struct MaskVis {
+  int bits, sub_shift, rr, q0, k0, causal;
+  __device__ __forceinline__ bool operator()(int row, int col) const {
+    return ((bits >> ((row >> sub_shift) * rr + (col >> sub_shift))) & 1) &&
+           (!causal || k0 + col <= q0 + row);
+  }
+};
+
+// one row of a visible-tile table: tiles idx[0 .. n) with their masks
+struct TableWalk {
+  const int* idx;
+  const int* mask;
+  int n, sub_shift, rr, causal;
+  __device__ __forceinline__ int count() const { return n; }
+  __device__ __forceinline__ int tile(int s) const { return idx[s]; }
+  __device__ __forceinline__ MaskVis vis(int s, int q0, int k0) const {
+    return MaskVis{mask[s], sub_shift, rr, q0, k0, causal};
+  }
+};
+
+// the table row of (head h of unique layout head_map[h], tile)
+__device__ __forceinline__ TableWalk table_row(const int* head_map,
+                                               const int* idx,
+                                               const int* cnt,
+                                               const int* mask, int maxn,
+                                               int heads, int bh, int tile,
+                                               int nt, int sub_shift, int rr,
+                                               int causal) {
+  const long long row =
+      static_cast<long long>(head_map[bh % heads]) * nt + tile;
+  return TableWalk{idx + row * maxn, mask + row * maxn, cnt[row], sub_shift,
+                   rr, causal};
+}
+
+// The band + global layout of `_band_decompose`: key block kb is visible
+// from query block qb when it lies in the band (sliding: |kb - qb| < w,
+// only kb <= qb when causal; aligned: the same w-block window) or is a
+// global column; causal masks element by element.
+struct BandVis {
+  int q0, k0, bshift, w, aligned, causal, in_band, gbits, sub_shift;
+  __device__ __forceinline__ bool operator()(int row, int col) const {
+    const int qp = q0 + row, kp = k0 + col;
+    if (causal && kp > qp) return false;
+    if ((gbits >> (col >> sub_shift)) & 1) return true;
+    if (!in_band) return false;
+    const int qb = qp >> bshift, kb = kp >> bshift;
+    if (aligned) return kb / w == qb / w;
+    return kb >= qb - (w - 1) && kb <= qb + (w - 1);
+  }
+};
+
+// The walk of q tile qt in the band kernel, ascending in position:
+// global tiles before the band span [lo, hi], the span, global tiles
+// after it (causal: only those at or before the diagonal). gtiles lists
+// the tiles holding a global column, ascending; gbits[kt] marks the
+// global sub-blocks of tile kt.
+struct BandWalk {
+  const int* gtiles;
+  const int* gbits;
+  int lo, nband, a, b, bshift, w, aligned, causal, sub_shift, n;
+
+  __device__ __forceinline__ int count() const { return n; }
+  __device__ __forceinline__ int tile(int s) const {
+    if (s < a) return gtiles[s];
+    if (s < a + nband) return lo + (s - a);
+    return gtiles[b + (s - a - nband)];
+  }
+  __device__ __forceinline__ BandVis vis(int s, int q0, int k0) const {
+    const int in_band = s >= a && s < a + nband;
+    return BandVis{q0, k0, bshift, w, aligned, causal, in_band,
+                   gbits[k0 / kB], sub_shift};
+  }
+};
+
+__device__ __forceinline__ BandWalk band_walk(int qt, int nb, int bshift,
+                                              int w, int aligned, int causal,
+                                              const int* gtiles, int ng,
+                                              const int* gbits,
+                                              int sub_shift) {
+  // the band span in layout blocks, then in tiles (as _band_walks)
+  const int qb_lo = (qt * kB) >> bshift;
+  const int qb_hi = (qt * kB + kB - 1) >> bshift;
+  int kb_lo, kb_hi;
+  if (aligned) {
+    kb_lo = qb_lo / w * w;
+    kb_hi = qb_hi / w * w + w - 1;
+  } else {
+    kb_lo = qb_lo - (w - 1);
+    kb_hi = qb_hi + (w - 1);
+  }
+  if (causal) kb_hi = min(kb_hi, qb_hi);
+  kb_lo = max(kb_lo, 0);
+  kb_hi = min(kb_hi, nb - 1);
+  const int lo = (kb_lo << bshift) / kB;
+  int hi = (((kb_hi + 1) << bshift) - 1) / kB;
+  if (causal) hi = min(hi, qt);
+  int a = 0, b = 0, c = 0;
+  for (int i = 0; i < ng; ++i) {
+    const int g = gtiles[i];
+    a += g < lo;
+    b += g <= hi;
+    c += !causal || g <= qt;
+  }
+  const int nband = hi - lo + 1;
+  return BandWalk{gtiles, gbits, lo, nband, a, b, bshift, w, aligned,
+                  causal, sub_shift, a + nband + (c - b)};
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ lse, int seq, int heads, Strides st,
+              float scale_log2, int causal, const int* __restrict__ head_map,
+              const int* __restrict__ kidx, const int* __restrict__ kcnt,
+              const int* __restrict__ kmask, int kmax, int sub_shift,
+              int rr) {
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const TableWalk walk = table_row(head_map, kidx, kcnt, kmask, kmax, heads,
+                                   bh, qt, seq / kB, sub_shift, rr, causal);
+  fwd_body<T, D>(q, k, v, out, lse, seq, heads, st, scale_log2, qt, bh,
+                 walk);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+band_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ out,
+                float* __restrict__ lse, int seq, int heads, Strides st,
+                float scale_log2, int causal, int bshift, int w, int aligned,
+                const int* __restrict__ gtiles, int ng,
+                const int* __restrict__ gbits, int sub_shift) {
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const BandWalk walk = band_walk(qt, seq >> bshift, bshift, w, aligned,
+                                  causal, gtiles, ng, gbits, sub_shift);
+  fwd_body<T, D>(q, k, v, out, lse, seq, heads, st, scale_log2, qt, bh,
+                 walk);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bs_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dk,
+                  T* __restrict__ dv, int seq, int heads, Strides st,
+                  float scale_log2, float sm_scale, int causal,
+                  const int* __restrict__ head_map,
+                  const int* __restrict__ qidx, const int* __restrict__ qcnt,
+                  const int* __restrict__ qmask, int qmax, int sub_shift,
+                  int rr) {
+  const int kt = blockIdx.x, bh = blockIdx.y;
+  const TableWalk walk = table_row(head_map, qidx, qcnt, qmask, qmax, heads,
+                                   bh, kt, seq / kB, sub_shift, rr, causal);
+  dkv_body<T, D>(q, k, v, dout, lse, delta, dk, dv, seq, heads, st,
+                 scale_log2, sm_scale, kt, bh, walk);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bs_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq,
+                 int seq, int heads, Strides st, float scale_log2,
+                 float sm_scale, int causal, const int* __restrict__ head_map,
+                 const int* __restrict__ kidx, const int* __restrict__ kcnt,
+                 const int* __restrict__ kmask, int kmax, int sub_shift,
+                 int rr) {
+  const int qt = blockIdx.x, bh = blockIdx.y;
+  const TableWalk walk = table_row(head_map, kidx, kcnt, kmask, kmax, heads,
+                                   bh, qt, seq / kB, sub_shift, rr, causal);
+  dq_body<T, D>(q, k, v, dout, lse, delta, dq, seq, heads, st, scale_log2,
+                sm_scale, qt, bh, walk);
+}
+
+Strides strides_of(const long long* s, bool with_dout) {
+  return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+                 with_dout ? s[12] : 0, with_dout ? s[13] : 0,
+                 with_dout ? s[14] : 0};
+}
+
+// a table: head_map [H], idx/mask [U * nt * maxn], cnt [U * nt]
+struct Table {
+  const int* head_map;
+  const int* idx;
+  const int* cnt;
+  const int* mask;
+  int maxn;
+};
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, int batch, int seq, int heads,
+               const long long* s, float scale_log2, int causal, Table tab,
+               int sub_shift, int rr, cudaStream_t stream) {
+  auto kern = bs_fwd_kernel<T, D>;
+  allow_smem(kern, FwdLayout<T, D>::bytes);
+  dim3 grid(seq / kB, batch * heads);
+  kern<<<grid, kThreads, FwdLayout<T, D>::bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, seq, heads,
+      strides_of(s, false), scale_log2, causal, tab.head_map, tab.idx,
+      tab.cnt, tab.mask, tab.maxn, sub_shift, rr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_band(const void* q, const void* k, const void* v, void* out,
+                float* lse, int batch, int seq, int heads,
+                const long long* s, float scale_log2, int causal, int bshift,
+                int w, int aligned, const int* gtiles, int ng,
+                const int* gbits, int sub_shift, cudaStream_t stream) {
+  auto kern = band_fwd_kernel<T, D>;
+  allow_smem(kern, FwdLayout<T, D>::bytes);
+  dim3 grid(seq / kB, batch * heads);
+  kern<<<grid, kThreads, FwdLayout<T, D>::bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, seq, heads,
+      strides_of(s, false), scale_log2, causal, bshift, w, aligned, gtiles,
+      ng, gbits, sub_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* delta, void* dk,
+               void* dv, int batch, int seq, int heads, const long long* s,
+               float scale_log2, float sm_scale, int causal, Table tab,
+               int sub_shift, int rr, cudaStream_t stream) {
+  launch_delta<T, D>(out, dout, nullptr, delta, batch, seq, heads, s + 9,
+                     s + 12, stream);
+  auto kern = bs_bwd_dkv_kernel<T, D>;
+  allow_smem(kern, BwdLayout<T, D>::bytes);
+  dim3 grid(seq / kB, batch * heads);
+  kern<<<grid, kThreads, BwdLayout<T, D>::bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), seq, heads,
+      strides_of(s, true), scale_log2, sm_scale, causal, tab.head_map,
+      tab.idx, tab.cnt, tab.mask, tab.maxn, sub_shift, rr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int batch,
+              int seq, int heads, const long long* s, float scale_log2,
+              float sm_scale, int causal, Table tab, int sub_shift, int rr,
+              cudaStream_t stream) {
+  auto kern = bs_bwd_dq_kernel<T, D>;
+  allow_smem(kern, BwdLayout<T, D>::bytes);
+  dim3 grid(seq / kB, batch * heads);
+  kern<<<grid, kThreads, BwdLayout<T, D>::bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), seq, heads, strides_of(s, true), scale_log2,
+      sm_scale, causal, tab.head_map, tab.idx, tab.cnt, tab.mask, tab.maxn,
+      sub_shift, rr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each entry point instantiates its launcher for (T, D) from dtype (0 =
+// float32, 1 = bfloat16) and head_dim (64 or 128), and returns
+// cudaGetLastError(), or -1 for an unsupported pair.
+#define DS_DISPATCH(dtype, head_dim, LAUNCH, ...)                       \
+  if ((dtype) == 1 && (head_dim) == 64) return LAUNCH<bf16, 64>(__VA_ARGS__); \
+  if ((dtype) == 1 && (head_dim) == 128)                                \
+    return LAUNCH<bf16, 128>(__VA_ARGS__);                              \
+  if ((dtype) == 0 && (head_dim) == 64)                                 \
+    return LAUNCH<float, 64>(__VA_ARGS__);                              \
+  if ((dtype) == 0 && (head_dim) == 128)                                \
+    return LAUNCH<float, 128>(__VA_ARGS__);                             \
+  return -1
+
+// Strides are in elements, (b, t, h) of q, k, v (9 values) for the
+// forwards, of q, k, v, out, dout (15 values) for the backwards; every
+// head dim is contiguous. out, dq, dk, dv are contiguous [B, T, H, D];
+// lse and delta [B*H, T] fp32. Tables (int32, on the device): head_map
+// [H] -> unique layout u; idx/mask [U, T/64, maxn] and cnt [U, T/64],
+// the forward table (visible k tiles per q tile) for the forward and dQ,
+// the transpose table (visible q tiles per k tile) for dK/dV; mask bit
+// (i * rr + j) for q sub-row i and k sub-column j of 2^sub_shift rows.
+extern "C" int ds_bs_attn_fwd(const void* q, const void* k, const void* v,
+                              void* out, float* lse, int batch, int seq,
+                              int heads, int head_dim,
+                              const long long* strides, float scale_log2,
+                              int causal, const int* head_map,
+                              const int* kidx, const int* kcnt,
+                              const int* kmask, int kmax, int sub_shift,
+                              int rr, int dtype, int device, void* stream) {
+  cudaSetDevice(device);
+  if (batch * seq == 0) return 0;
+  const Table tab{head_map, kidx, kcnt, kmask, kmax};
+  DS_DISPATCH(dtype, head_dim, launch_fwd, q, k, v, out, lse, batch, seq,
+              heads, strides, scale_log2, causal, tab, sub_shift, rr,
+              static_cast<cudaStream_t>(stream));
+}
+
+// The band + global forward: layout blocks of 2^bshift rows, band width w
+// blocks (aligned windows when `aligned`), gtiles [ng] the ascending tiles
+// that hold a global column, gbits [T/64] their global sub-blocks (of
+// 2^sub_shift rows).
+extern "C" int ds_bs_attn_band_fwd(const void* q, const void* k,
+                                   const void* v, void* out, float* lse,
+                                   int batch, int seq, int heads,
+                                   int head_dim, const long long* strides,
+                                   float scale_log2, int causal, int bshift,
+                                   int w, int aligned, const int* gtiles,
+                                   int ng, const int* gbits, int sub_shift,
+                                   int dtype, int device, void* stream) {
+  cudaSetDevice(device);
+  if (batch * seq == 0) return 0;
+  DS_DISPATCH(dtype, head_dim, launch_band, q, k, v, out, lse, batch, seq,
+              heads, strides, scale_log2, causal, bshift, w, aligned, gtiles,
+              ng, gbits, sub_shift, static_cast<cudaStream_t>(stream));
+}
+
+// dK, dV, after writing delta = rowsum(dO * O) (which dQ then reads)
+extern "C" int ds_bs_attn_bwd_dkv(const void* q, const void* k,
+                                  const void* v, const void* out,
+                                  const void* dout, const float* lse,
+                                  float* delta, void* dk, void* dv, int batch,
+                                  int seq, int heads, int head_dim,
+                                  const long long* strides, float scale_log2,
+                                  float sm_scale, int causal,
+                                  const int* head_map, const int* qidx,
+                                  const int* qcnt, const int* qmask,
+                                  int qmax, int sub_shift, int rr, int dtype,
+                                  int device, void* stream) {
+  cudaSetDevice(device);
+  if (batch * seq == 0) return 0;
+  const Table tab{head_map, qidx, qcnt, qmask, qmax};
+  DS_DISPATCH(dtype, head_dim, launch_dkv, q, k, v, out, dout, lse, delta,
+              dk, dv, batch, seq, heads, strides, scale_log2, sm_scale,
+              causal, tab, sub_shift, rr,
+              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ds_bs_attn_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const float* lse,
+                                 const float* delta, void* dq, int batch,
+                                 int seq, int heads, int head_dim,
+                                 const long long* strides, float scale_log2,
+                                 float sm_scale, int causal,
+                                 const int* head_map, const int* kidx,
+                                 const int* kcnt, const int* kmask, int kmax,
+                                 int sub_shift, int rr, int dtype, int device,
+                                 void* stream) {
+  cudaSetDevice(device);
+  if (batch * seq == 0) return 0;
+  const Table tab{head_map, kidx, kcnt, kmask, kmax};
+  DS_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, delta, dq,
+              batch, seq, heads, strides, scale_log2, sm_scale, causal, tab,
+              sub_shift, rr, static_cast<cudaStream_t>(stream));
+}

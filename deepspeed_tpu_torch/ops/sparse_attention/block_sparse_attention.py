@@ -1,0 +1,762 @@
+"""Block-sparse flash attention (kernels K7-fwd, K7-band, K7-dkv, K7-dq).
+
+Port of deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py.
+The four Pallas kernels become the four entry points of the hand-written
+CUDA source `ops/csrc/block_sparse_attention.cu`:
+
+  K7-fwd   `_bs_fwd_kernel`      the table forward (BigBird, per-head
+                                 layouts, any layout `_band_decompose`
+                                 rejects)
+  K7-band  `_band_fwd_kernel`    the band + global forward (BSLongformer,
+                                 Fixed)
+  K7-dkv   `_bs_bwd_dkv_kernel`  dK and dV over the transpose table
+  K7-dq    `_bs_bwd_dq_kernel`   dQ over the forward table
+
+The backward always runs the table kernels, whatever the forward took,
+as in the JAX package. The host code is the JAX package's, copied:
+`_build_tables`, `_band_decompose`, `layout_to_dense_mask` and the
+validations of `block_sparse_attention`. The kernels walk 64-row tiles
+(`TILE`), so their tables are `_build_tables` at tile granularity
+(`_tile_tables`): a layout block of 16 or 32 puts several blocks in one
+tile, and each table entry carries a bit mask of the visible sub-blocks
+of its tile pair. The TPU launcher's super-rows (`qt`) and head groups
+(`g`) amortised its grid-step overhead and have no counterpart here.
+
+The plain twins `_bs_fwd_plain`, `_band_fwd_plain` and `_bs_bwd_plain`
+run the kernels' algorithms in PyTorch: the same tile walks (all tiles of
+a walk step at once), the online softmax in log2 space with masked
+scores at -1e30, fp32 sums, p and dS rounded to the input dtype before
+their products. A CPU tensor takes the twins; a CUDA tensor launches the
+kernels or raises on what they do not take (T not a multiple of 64, a
+head dim other than 64 or 128, a block other than 16-256, fp16). The
+twins also take those shapes: their tile is the layout block where 64
+does not fit or the block is under 16.
+
+Built tables and their device copies are cached by (layout bytes,
+causal, block, tile, device), so the host work and the copy to the card
+happen once per layout, not once per call.
+"""
+
+import ctypes
+import threading
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.ops.transformer.flash_attention import (
+    _DTYPE_CODE, _KERNEL_HEAD_DIMS, LOG2E, NEG_INF, _check_kernel_operand,
+    _kernel_readable, _strides, dense_attention)
+
+# the kernels' tile: 64 query rows x 64 key rows per step
+TILE = 64
+_KERNEL_BLOCKS = (16, 32, 64, 128, 256)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
+_FWD_ARGTYPES = [_P] * 5 + [_I] * 4 + [_LL, _F, _I] + [_P] * 4 + \
+    [_I] * 3 + [_I, _I, _P]
+_BAND_ARGTYPES = [_P] * 5 + [_I] * 4 + [_LL, _F, _I] + [_I] * 3 + \
+    [_P, _I, _P, _I] + [_I, _I, _P]
+_DKV_ARGTYPES = [_P] * 9 + [_I] * 4 + [_LL, _F, _F, _I] + [_P] * 4 + \
+    [_I] * 3 + [_I, _I, _P]
+_DQ_ARGTYPES = [_P] * 7 + [_I] * 4 + [_LL, _F, _F, _I] + [_P] * 4 + \
+    [_I] * 3 + [_I, _I, _P]
+
+
+# ----------------------------------------------------------------------
+# layout -> visible-tile tables (the JAX package's host code)
+# ----------------------------------------------------------------------
+def _visible_lists(bits):
+    """[U, R, C] int bit masks -> (idx [U, R, m], cnt [U, R],
+    mask [U, R, m], m): per row, the columns whose mask is nonzero in
+    ascending order, padded with column 0 and mask 0 (m >= 1)."""
+    nz = bits != 0
+    cnt = nz.sum(axis=2).astype(np.int32)
+    m = max(1, int(cnt.max()))
+    # a stable sort on "is zero" puts the nonzero columns first, in order
+    order = np.argsort(~nz, axis=2, kind="stable")[:, :, :m]
+    live = np.arange(m)[None, None, :] < cnt[..., None]
+    idx = np.where(live, order, 0).astype(np.int32)
+    mask = np.where(live, np.take_along_axis(bits, order, axis=2), 0)
+    return idx, cnt, mask.astype(np.int32), m
+
+
+def _build_tables(layout, causal, qt, kt=1):
+    """Concrete [H, nq, nk] layout -> visible-block index tables over
+    SUPER-ROWS of `qt` consecutive layout rows and super-columns of `kt`
+    layout columns (the JAX package's tables are kt = 1):
+
+      head_map [H]            head -> unique-layout index u
+      kidx [U*nqs*kmax]       visible key super-columns per q super-row
+      kcnt [U*nqs]            count per q super-row
+      kmask [U*nqs*kmax]      per-entry bit mask, bit (i * kt + j) set
+                              when member row i sees member column j
+      qidx/qcnt/qmask         the transpose (visible q super-rows per
+                              key super-column) for the dK/dV sweep
+
+    Causality is folded in at block granularity (column <= row), so the
+    kernels visit only tiles that hold a visible score. Padding repeats
+    index 0 with an all-zero mask. The JAX package's head-group size `g`
+    is a TPU grid device and is not built."""
+    lay = np.asarray(layout, np.int32)
+    unique, inverse = np.unique(lay, axis=0, return_inverse=True)
+    U, nq, nk = unique.shape
+    assert nq % qt == 0 and nk % kt == 0
+    vis = unique != 0
+    if causal:
+        vis = vis & np.tril(np.ones((nq, nk), bool))[None]
+    shift = np.arange(qt)[:, None] * kt + np.arange(kt)[None, :]
+    bits = (vis.reshape(U, nq // qt, qt, nk // kt, kt).astype(np.int64) <<
+            shift[None, None, :, None, :]).sum(axis=(2, 4))
+    kidx, kcnt, kmask, kmax = _visible_lists(bits)
+    qidx, qcnt, qmask, qmax = _visible_lists(bits.transpose(0, 2, 1))
+    return (np.asarray(inverse, np.int32).reshape(-1), kidx.reshape(-1),
+            kcnt.reshape(-1), kmask.reshape(-1), qidx.reshape(-1),
+            qcnt.reshape(-1), qmask.reshape(-1), kmax, qmax)
+
+
+def _tile_tables(layout, causal, block, tile=TILE):
+    """`_build_tables` over `tile`-row tiles: the layout is taken to
+    sub-blocks of min(block, tile) rows (a block larger than the tile
+    repeats over its tiles), and each tile holds rr x rr sub-blocks
+    (rr = tile // sub-block), mask bit (i * rr + j) for q sub-row i and
+    k sub-column j."""
+    lay = np.asarray(layout, np.int32)
+    if block > tile:
+        e = block // tile
+        lay = lay.repeat(e, axis=1).repeat(e, axis=2)
+    rr = tile // min(block, tile)
+    if rr > 4:
+        raise ValueError(f"block {block} in a {tile}-row tile needs "
+                         f"{rr * rr} sub-block mask bits; the tables hold 16")
+    return _build_tables(lay, causal, rr, rr)
+
+
+def _band_decompose(layout, causal, max_globals=64, max_band_blocks=64):
+    """Causal-folded layout -> ("sliding"|"aligned", w, global_cols)
+    when it is EXACTLY a width-w block window (sliding band, or
+    window-ALIGNED block-diagonal groups — the reference Fixed
+    pattern's "local" attention, `sparsity_config.py:94`) plus a set
+    of globally-visible block columns; None otherwise (BigBird random
+    blocks, per-head layouts).
+
+    BSLongformer decomposes as sliding, Fixed as aligned; the band
+    forward then walks one closed-form band/window span per q tile plus
+    the global columns instead of a visible-block table."""
+    lay = np.asarray(layout, np.int32)
+    if lay.ndim == 3:
+        if not (lay == lay[:1]).all():
+            return None            # per-head layouts: table path
+        lay = lay[0]
+    vis = lay != 0
+    nq = vis.shape[0]
+    if causal:
+        vis = vis & np.tril(np.ones_like(vis, dtype=bool))
+    rows_i, cols_j = np.nonzero(vis)
+    # global columns: visible from EVERY (causal-)eligible row
+    gcols = []
+    for j in range(nq):
+        rows_seeing = vis[:, j]
+        expect = np.arange(nq) >= j if causal else np.ones(nq, bool)
+        if (rows_seeing == expect).all():
+            gcols.append(j)
+    gset = set(gcols)
+    if len(gcols) > max_globals:
+        return None
+    off_band = [(i, j) for i, j in zip(rows_i, cols_j) if j not in gset]
+    ii = np.arange(nq)[:, None]
+    jj = np.arange(nq)[None, :]
+    tril = np.tril(np.ones_like(vis, dtype=bool))
+
+    def matches(base):
+        expected = base.copy()
+        for j in gcols:
+            expected[:, j] |= (np.arange(nq) >= j) if causal else True
+        if causal:
+            expected &= tril
+        return np.array_equal(vis, expected)
+
+    # (a) sliding band of width w
+    w = max((i - j + 1 for i, j in off_band), default=1)
+    if w <= max_band_blocks:
+        band = (jj <= ii) & (jj >= ii - w + 1) if causal else \
+            (np.abs(ii - jj) < w)
+        if matches(band):
+            return "sliding", int(w), tuple(int(j) for j in gcols)
+    # (b) window-aligned block-diagonal of width w: row i sees cols of
+    # its own window floor(i/w) (the Fixed pattern's local part). The
+    # minimal candidate w comes from the same max-offset statistic.
+    for wa in range(max(w, 1), max_band_blocks + 1):
+        aligned = (ii // wa) == (jj // wa)
+        if matches(aligned):
+            return "aligned", int(wa), tuple(int(j) for j in gcols)
+    return None
+
+
+def _band_span(band, block, nb, causal, tile, qt):
+    """[lo, hi], in tiles, of the band span of q tiles `qt` (an int
+    array): the union over their rows of the band/window key blocks
+    (the band kernel's `band_walk` computes the same per CTA)."""
+    kind, w, _ = band
+    qb_lo = qt * tile // block
+    qb_hi = (qt * tile + tile - 1) // block
+    if kind == "aligned":
+        kb_lo = qb_lo // w * w
+        kb_hi = qb_hi // w * w + w - 1
+    else:
+        kb_lo = qb_lo - (w - 1)
+        kb_hi = qb_hi + (w - 1)
+    if causal:
+        kb_hi = np.minimum(kb_hi, qb_hi)
+    kb_lo = np.maximum(kb_lo, 0)
+    kb_hi = np.minimum(kb_hi, nb - 1)
+    lo = kb_lo * block // tile
+    hi = ((kb_hi + 1) * block - 1) // tile
+    if causal:
+        hi = np.minimum(hi, qt)
+    return lo, hi
+
+
+def _band_globals(band, block, t, tile):
+    """(gtiles [ng], gbits [t/tile]) of the global columns: the tiles
+    that hold one, ascending, and per tile the bit mask of its global
+    sub-blocks (min(block, tile) rows each)."""
+    sub = min(block, tile)
+    gbits = np.zeros(t // tile, np.int32)
+    for j in band[2]:
+        for sb in range(j * block // sub, (j + 1) * block // sub):
+            gbits[sb * sub // tile] |= 1 << (sb % (tile // sub))
+    return np.nonzero(gbits)[0].astype(np.int32), gbits
+
+
+def _band_walks(band, block, t, causal, tile):
+    """The band kernel's walk of every q tile, padded to one length:
+    (kt [nt, n] key tiles, in_band [nt, n], valid [nt, n]). Each q tile
+    visits, in ascending order, the global tiles before its band span,
+    the span, and the global tiles after it (causal: up to its own
+    tile); a global tile inside the span is visited once, in the span."""
+    nt = t // tile
+    gtiles, _ = _band_globals(band, block, t, tile)
+    walks = []
+    for qt in range(nt):
+        lo, hi = (int(x) for x in _band_span(band, block, t // block,
+                                              causal, tile, np.int64(qt)))
+        before = [(int(g), False) for g in gtiles if g < lo]
+        after = [(int(g), False) for g in gtiles
+                 if g > hi and (not causal or g <= qt)]
+        walks.append(before + [(kt, True) for kt in range(lo, hi + 1)] +
+                     after)
+    n = max(len(wk) for wk in walks)
+    kt = np.zeros((nt, n), np.int64)
+    in_band = np.zeros((nt, n), bool)
+    valid = np.zeros((nt, n), bool)
+    for qt, wk in enumerate(walks):
+        for s, (tile_idx, band_step) in enumerate(wk):
+            kt[qt, s], in_band[qt, s], valid[qt, s] = tile_idx, band_step, 1
+    return kt, in_band, valid
+
+
+def layout_to_dense_mask(layout, seq_len, block):
+    """[H, nq, nk] block layout -> [H, T, T] boolean mask (the dense
+    fallback's mask and the ground truth for kernel tests)."""
+    lay = np.asarray(layout, bool)
+    return np.kron(lay, np.ones((block, block), dtype=bool))
+
+
+# ----------------------------------------------------------------------
+# the cached tables of one (layout, causal, block, tile, device)
+# ----------------------------------------------------------------------
+class _Plan:
+    """Host tables of one layout and their int32 copies on `device`.
+
+    For the table kernels the forward table (visible k tiles per q tile)
+    and the transpose table (visible q tiles per k tile) with their sub-
+    block masks; for a layout `_band_decompose` accepts, the band and its
+    global tiles. The twins read the per-head numpy views (`*_h`)."""
+
+    def __init__(self, layout, causal, block, tile, device):
+        nb = layout.shape[1]
+        self.block, self.tile, self.causal = block, tile, causal
+        self.sub = min(block, tile)
+        self.rr = tile // self.sub
+        self.sub_shift = self.sub.bit_length() - 1
+        self.nt = nb * block // tile
+        (hm, kidx, kcnt, kmask, qidx, qcnt, qmask, self.kmax,
+         self.qmax) = _tile_tables(layout, causal, block, tile)
+        nt = self.nt
+
+        def per_head(a, width):
+            return a.reshape(-1, nt, width)[hm]
+
+        self.kidx_h, self.kmask_h = (per_head(a, self.kmax)
+                                     for a in (kidx, kmask))
+        self.qidx_h, self.qmask_h = (per_head(a, self.qmax)
+                                     for a in (qidx, qmask))
+        self.band = _band_decompose(layout, causal)
+        self.gtiles = self.gbits = self.walks = None
+        if self.band is not None:
+            self.gtiles, self.gbits = _band_globals(self.band, block,
+                                                    nb * block, tile)
+            self.walks = _band_walks(self.band, block, nb * block, causal,
+                                     tile)
+        self.dev = None
+        if device.type == "cuda":
+            def on(a):
+                return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                       device=device)
+            self.dev = {name: on(a) for name, a in (
+                ("head_map", hm), ("kidx", kidx), ("kcnt", kcnt),
+                ("kmask", kmask), ("qidx", qidx), ("qcnt", qcnt),
+                ("qmask", qmask))}
+            if self.band is not None:
+                self.dev["gtiles"] = on(self.gtiles)
+                self.dev["gbits"] = on(self.gbits)
+
+
+_PLAN_CACHE_SIZE = 32
+_plans = OrderedDict()
+_plans_lock = threading.Lock()
+
+
+def _plan(layout, causal, block, tile, device):
+    """The cached `_Plan` of these arguments (least recently used out)."""
+    key = (layout.tobytes(), layout.shape, layout.dtype.str, bool(causal),
+           int(block), int(tile), str(device))
+    with _plans_lock:
+        plan = _plans.get(key)
+        if plan is not None:
+            _plans.move_to_end(key)
+            return plan
+    plan = _Plan(layout, bool(causal), int(block), int(tile), device)
+    with _plans_lock:
+        _plans[key] = plan
+        while len(_plans) > _PLAN_CACHE_SIZE:
+            _plans.popitem(last=False)
+    return plan
+
+
+# ----------------------------------------------------------------------
+# plain twins: the kernels' tile walks in PyTorch
+# ----------------------------------------------------------------------
+def _tiles(x, tile):
+    """[B, T, H, D] -> [B, H, T/tile, tile, D] in fp32."""
+    b, t, h, d = x.shape
+    return x.permute(0, 2, 1, 3).to(torch.float32).reshape(
+        b, h, t // tile, tile, d)
+
+
+def _gather(x_tiles, idx):
+    """x_tiles [B, H, n, tile, D], idx [H or 1, m] tile indices ->
+    [B, H, m, tile, D]."""
+    h = x_tiles.shape[1]
+    heads = torch.arange(h, device=idx.device)[:, None]
+    return x_tiles[:, heads, idx.expand(h, -1)]
+
+
+def _mask_vis(bits, q_tiles, k_tiles, plan, device):
+    """[H, m, tile, tile] visibility of table entries with sub-block
+    masks `bits` [H, m] between q tiles and k tiles ([H, m] each, or
+    broadcastable)."""
+    tile = plan.tile
+    sub_of = torch.arange(tile, device=device) // plan.sub
+    bitpos = sub_of[:, None] * plan.rr + sub_of[None, :]
+    vis = ((bits[..., None, None] >> bitpos) & 1) != 0
+    if plan.causal:
+        pos = torch.arange(tile, device=device)
+        qp = q_tiles[..., None, None] * tile + pos[:, None]
+        kp = k_tiles[..., None, None] * tile + pos[None, :]
+        vis = vis & (kp <= qp)
+    return vis
+
+
+def _table_steps(plan, transpose, device):
+    """The table walk, step by step: (tile index along the walk [H, nt],
+    visibility [H, nt, tile, tile]) for s = 0 .. max - 1. The forward
+    table walks k tiles for every q tile; the transpose table q tiles for
+    every k tile. Past a row's count the mask is 0: a no-op step."""
+    idx_h, mask_h = (plan.qidx_h, plan.qmask_h) if transpose else \
+        (plan.kidx_h, plan.kmask_h)
+    own = torch.arange(plan.nt, device=device)[None, :]
+    for s in range(idx_h.shape[2]):
+        idx = torch.as_tensor(idx_h[:, :, s], dtype=torch.long, device=device)
+        bits = torch.as_tensor(mask_h[:, :, s], dtype=torch.long,
+                               device=device)
+        if transpose:
+            yield idx, _mask_vis(bits, idx, own, plan, device)
+        else:
+            yield idx, _mask_vis(bits, own, idx, plan, device)
+
+
+def _band_steps(plan, device):
+    """The band kernel's walk (`_band_walks`), step by step: (k tiles
+    [1, nt], visibility [1, nt, tile, tile]) from the closed-form band
+    test and the global sub-block bits."""
+    kind, w, _ = plan.band
+    tile, block = plan.tile, plan.block
+    kt_np, in_band_np, valid_np = plan.walks
+    gbits = torch.as_tensor(plan.gbits, dtype=torch.long, device=device)
+    pos = torch.arange(tile, device=device)
+    qp = torch.arange(plan.nt, device=device)[:, None, None] * tile + \
+        pos[:, None]                                          # [nt, tile, 1]
+    qb = qp // block
+    for s in range(kt_np.shape[1]):
+        kt = torch.as_tensor(kt_np[:, s], device=device)
+        kp = kt[:, None, None] * tile + pos[None, None, :]    # [nt, 1, tile]
+        kb = kp // block
+        glob = ((gbits[kt][:, None, None] >> (pos // plan.sub)[None, None, :])
+                & 1) != 0
+        if kind == "aligned":
+            in_band = kb // w == qb // w
+        else:
+            in_band = (kb >= qb - (w - 1)) & (kb <= qb + (w - 1))
+        in_band = in_band & torch.as_tensor(
+            in_band_np[:, s], device=device)[:, None, None]
+        vis = (glob | in_band) & torch.as_tensor(
+            valid_np[:, s], device=device)[:, None, None]
+        if plan.causal:
+            vis = vis & (kp <= qp)
+        yield kt[None, :], vis[None]
+
+
+def _walk_fwd_plain(q, k, v, steps, tile, sm_scale):
+    """(out [B, T, H, D] in q.dtype, lse [B*H, T] fp32 log2 space): the
+    forward kernels' online softmax over `steps`, all q tiles at once."""
+    b, t, h, d = q.shape
+    f32 = torch.float32
+    scale = float(sm_scale * LOG2E)
+    qt, kt, vt = (_tiles(x, tile) for x in (q, k, v))
+    m = torch.full((b, h, t // tile, tile, 1), NEG_INF, dtype=f32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qt)
+    for idx, vis in steps:
+        s = torch.matmul(qt, _gather(kt, idx).transpose(-1, -2)) * scale
+        s = s.masked_fill(~vis, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = m_new.clamp(min=NEG_INF / 2)
+        p = torch.exp2(s - m_safe)
+        alpha = torch.exp2((m - m_safe).clamp(max=0.0))
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        pv = torch.matmul(p.to(v.dtype).to(f32), _gather(vt, idx))
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / l.clamp(min=1e-30)
+    lse = torch.where(l > 0, m + torch.log2(l.clamp(min=1e-30)),
+                      torch.full_like(l, float("inf")))
+    out = out.reshape(b, h, t, d).permute(0, 2, 1, 3).to(q.dtype)
+    return out, lse.reshape(b * h, t)
+
+
+def _bs_fwd_plain(q, k, v, plan, sm_scale):
+    """K7-fwd's algorithm: the forward-table walk."""
+    return _walk_fwd_plain(q, k, v, _table_steps(plan, False, q.device),
+                           plan.tile, sm_scale)
+
+
+def _band_fwd_plain(q, k, v, plan, sm_scale):
+    """K7-band's algorithm: the band + global walk."""
+    return _walk_fwd_plain(q, k, v, _band_steps(plan, q.device), plan.tile,
+                           sm_scale)
+
+
+def _bs_bwd_plain(q, k, v, out, lse, dout, plan, sm_scale):
+    """(dq, dk, dv) [B, T, H, D] by K7-dkv's and K7-dq's algorithms:
+    delta = rowsum(dO * O); P = exp2(S - lse) over the visible scores,
+    dP = dO V^T, dS = P (dP - delta) sm_scale; dV += P^T dO with P in
+    dO's dtype and dK += dS^T Q over the transpose table, dQ += dS K
+    over the forward table, dS in q's dtype, fp32 sums."""
+    b, t, h, d = q.shape
+    tile, nt = plan.tile, plan.nt
+    f32 = torch.float32
+    scale = float(sm_scale * LOG2E)
+    qt, kt, vt, dot = (_tiles(x, tile) for x in (q, k, v, dout))
+    delta = (dout.to(f32) * out.to(f32)).sum(dim=-1).permute(0, 2, 1)
+    lse_t = lse.reshape(b, h, nt, tile, 1)
+    delta_t = delta.reshape(b, h, nt, tile, 1)
+
+    def p_and_ds(qs, ks, vs, dos, lse_s, delta_s, vis):
+        s = torch.matmul(qs, ks.transpose(-1, -2)) * scale
+        p = torch.exp2(s.masked_fill(~vis, NEG_INF) - lse_s)
+        dp = torch.matmul(dos, vs.transpose(-1, -2))
+        ds = p * (dp - delta_s) * sm_scale
+        return p.to(dout.dtype).to(f32), ds.to(q.dtype).to(f32)
+
+    dq = torch.zeros_like(qt)
+    for idx, vis in _table_steps(plan, False, q.device):
+        _, ds = p_and_ds(qt, _gather(kt, idx), _gather(vt, idx), dot, lse_t,
+                         delta_t, vis)
+        dq = dq + torch.matmul(ds, _gather(kt, idx))
+    dk = torch.zeros_like(kt)
+    dv = torch.zeros_like(vt)
+    for idx, vis in _table_steps(plan, True, q.device):
+        qs, dos = _gather(qt, idx), _gather(dot, idx)
+        p, ds = p_and_ds(qs, kt, vt, dos, _gather(lse_t, idx),
+                         _gather(delta_t, idx), vis)
+        dv = dv + torch.matmul(p.transpose(-1, -2), dos)
+        dk = dk + torch.matmul(ds.transpose(-1, -2), qs)
+    return tuple(x.reshape(b, h, t, d).permute(0, 2, 1, 3).to(dtype)
+                 for x, dtype in ((dq, q.dtype), (dk, k.dtype),
+                                  (dv, v.dtype)))
+
+
+# ----------------------------------------------------------------------
+# kernel launchers
+# ----------------------------------------------------------------------
+def _check_kernel_args(q, block, *others):
+    b, t, h, d = q.shape
+    if q.dtype == torch.float16:
+        raise NotImplementedError(
+            "block-sparse attention kernels: float16 is not in the port "
+            "yet (ROADMAP Queue 1 item 10); use bfloat16 or float32")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"block-sparse kernel: dtype {q.dtype} not "
+                        "supported (float32 or bfloat16)")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"block-sparse kernel: head_dim {d} not in "
+                         f"{_KERNEL_HEAD_DIMS}")
+    if t % TILE:
+        raise ValueError(f"block-sparse kernel: T={t} is no multiple of "
+                         f"{TILE}")
+    if block not in _KERNEL_BLOCKS:
+        raise ValueError(f"block-sparse kernel: block {block} not in "
+                         f"{_KERNEL_BLOCKS}")
+    if b * h > 65535:
+        raise ValueError(f"block-sparse kernel: B*H={b * h} exceeds 65535")
+    for name, x in others:
+        _check_kernel_operand(name, x, q)
+
+
+def _fwd_outputs(q):
+    b, t, h, d = q.shape
+    return (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device),
+            torch.empty((b * h, t), dtype=torch.float32, device=q.device))
+
+
+def _bs_fwd_launch(q, k, v, plan, sm_scale):
+    """K7-fwd on the card: (out, lse [B*H, T] log2 space)."""
+    from deepspeed_tpu_torch.ops import _build
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v))
+    out, lse = _fwd_outputs(q)
+    t = plan.dev
+    fn = _build.function("block_sparse_attention", "ds_bs_attn_fwd",
+                         _FWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), *q.shape, _strides(q, k, v),
+             float(sm_scale * LOG2E), int(plan.causal),
+             t["head_map"].data_ptr(), t["kidx"].data_ptr(),
+             t["kcnt"].data_ptr(), t["kmask"].data_ptr(), plan.kmax,
+             plan.sub_shift, plan.rr, _DTYPE_CODE[q.dtype],
+             q.device.index or 0, _build.stream_ptr(q))
+    _build.check(err, "block-sparse forward kernel")
+    _bs_fwd_launch.launches += 1
+    return out, lse
+
+
+_bs_fwd_launch.launches = 0
+
+
+def _band_fwd_launch(q, k, v, plan, sm_scale):
+    """K7-band on the card: (out, lse [B*H, T] log2 space)."""
+    from deepspeed_tpu_torch.ops import _build
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v))
+    out, lse = _fwd_outputs(q)
+    kind, w, _ = plan.band
+    fn = _build.function("block_sparse_attention", "ds_bs_attn_band_fwd",
+                         _BAND_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), *q.shape, _strides(q, k, v),
+             float(sm_scale * LOG2E), int(plan.causal),
+             plan.block.bit_length() - 1, w, int(kind == "aligned"),
+             plan.dev["gtiles"].data_ptr(), len(plan.gtiles),
+             plan.dev["gbits"].data_ptr(), plan.sub_shift,
+             _DTYPE_CODE[q.dtype], q.device.index or 0,
+             _build.stream_ptr(q))
+    _build.check(err, "block-sparse band forward kernel")
+    _band_fwd_launch.launches += 1
+    return out, lse
+
+
+_band_fwd_launch.launches = 0
+
+
+def _bs_bwd_dkv_launch(q, k, v, out, lse, dout, plan, sm_scale):
+    """K7-dkv on the card, after its delta pre-pass: (dk, dv, delta)."""
+    from deepspeed_tpu_torch.ops import _build
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
+                       ("out", out), ("dout", dout))
+    b, t, h, d = q.shape
+    dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    tab = plan.dev
+    fn = _build.function("block_sparse_attention", "ds_bs_attn_bwd_dkv",
+                         _DKV_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, t, h, d,
+             _strides(q, k, v, out, dout), float(sm_scale * LOG2E),
+             float(sm_scale), int(plan.causal), tab["head_map"].data_ptr(),
+             tab["qidx"].data_ptr(), tab["qcnt"].data_ptr(),
+             tab["qmask"].data_ptr(), plan.qmax, plan.sub_shift, plan.rr,
+             _DTYPE_CODE[q.dtype], q.device.index or 0,
+             _build.stream_ptr(q))
+    _build.check(err, "block-sparse dK/dV kernel")
+    _bs_bwd_dkv_launch.launches += 1
+    return dk, dv, delta
+
+
+_bs_bwd_dkv_launch.launches = 0
+
+
+def _bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm_scale):
+    """K7-dq on the card, reading the delta the dK/dV launch wrote."""
+    from deepspeed_tpu_torch.ops import _build
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
+                       ("out", out), ("dout", dout))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    tab = plan.dev
+    fn = _build.function("block_sparse_attention", "ds_bs_attn_bwd_dq",
+                         _DQ_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *q.shape,
+             _strides(q, k, v, out, dout), float(sm_scale * LOG2E),
+             float(sm_scale), int(plan.causal), tab["head_map"].data_ptr(),
+             tab["kidx"].data_ptr(), tab["kcnt"].data_ptr(),
+             tab["kmask"].data_ptr(), plan.kmax, plan.sub_shift, plan.rr,
+             _DTYPE_CODE[q.dtype], q.device.index or 0,
+             _build.stream_ptr(q))
+    _build.check(err, "block-sparse dQ kernel")
+    _bs_bwd_dq_launch.launches += 1
+    return dq
+
+
+_bs_bwd_dq_launch.launches = 0
+
+
+def reset_launch_counts():
+    """Zero the four K7 launch counters."""
+    for fn in (_bs_fwd_launch, _band_fwd_launch, _bs_bwd_dkv_launch,
+               _bs_bwd_dq_launch):
+        fn.launches = 0
+
+
+# ----------------------------------------------------------------------
+# routing and autograd
+# ----------------------------------------------------------------------
+def _forward(q, k, v, plan, sm_scale):
+    """(out, lse): the band kernel where the layout decomposes, else the
+    table kernel; the twins for CPU tensors."""
+    if plan.band is not None:
+        launch, plain = _band_fwd_launch, _band_fwd_plain
+    else:
+        launch, plain = _bs_fwd_launch, _bs_fwd_plain
+    if q.is_cuda:
+        return launch(q, k, v, plan, sm_scale)
+    return plain(q, k, v, plan, sm_scale)
+
+
+def _backward(q, k, v, out, lse, dout, plan, sm_scale):
+    """(dq, dk, dv): the table kernels (K7-dkv, then K7-dq on its
+    delta); the twin for CPU tensors."""
+    if not q.is_cuda:
+        return _bs_bwd_plain(q, k, v, out, lse, dout, plan, sm_scale)
+    if not _kernel_readable(dout):
+        dout = dout.contiguous()
+    dk, dv, delta = _bs_bwd_dkv_launch(q, k, v, out, lse, dout, plan,
+                                       sm_scale)
+    dq = _bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm_scale)
+    return dq, dk, dv
+
+
+class _BlockSparseAttention(torch.autograd.Function):
+    """out = block-sparse attention of (q, k, v) under `plan`: the
+    forward kernel (or twin), and the backward kernels (or twin) off the
+    saved (q, k, v, out, lse) — the JAX package's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plan, sm_scale):
+        out, lse = _forward(q, k, v, plan, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.plan, ctx.sm_scale = plan, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, g, ctx.plan, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+# ----------------------------------------------------------------------
+# public API
+# ----------------------------------------------------------------------
+def _tile_for(t, block):
+    """The kernels' 64-row tile where it fits the sequence and the
+    block; else (the twins only) the block itself. Blocks under 16 take
+    their own tile: 64 rows of them would need rr * rr >= 64 sub-block
+    mask bits, more than the int32 tables hold."""
+    if t % TILE == 0 and (block % TILE == 0 or block in _KERNEL_BLOCKS):
+        return TILE
+    return block
+
+
+def block_sparse_attention(q, k, v, layout, block, causal=False,
+                           sm_scale=None, head_packing="auto"):
+    """Block-sparse attention over [B, T, H, D]; returns [B, T, H, D].
+
+    layout: [H, T/block, T/block] 0/1 matrix from a SparsityConfig
+    (concrete: it is compiled into visible-tile tables on the host).
+    CUDA tensors launch kernel K7-band (layouts `_band_decompose`
+    accepts) or K7-fwd, and K7-dkv/K7-dq in the backward; CPU tensors
+    take the plain twins.
+
+    head_packing: accepted for signature parity with the dense flash
+    kernel ("auto"|"packed"|"off"), but the sparse kernels always run
+    unpacked — the visible-tile tables are per head, so pairing two
+    heads into one contraction would force both onto the union of their
+    layouts. "auto"/"off" take the unpacked kernels; "packed" raises.
+    """
+    b, t, h, d = q.shape
+    if head_packing in ("packed", True, 1):
+        raise ValueError(
+            "head_packing='packed' is not supported by the block-sparse "
+            "kernels (per-head visible-block tables don't pair); use "
+            "'auto'/'off', or the dense flash kernel for packed "
+            "attention")
+    if head_packing not in ("auto", "off", None, False, 0):
+        raise ValueError(
+            f"head_packing={head_packing!r}: expected 'auto' or 'off'")
+    layout = np.asarray(layout)
+    if layout.shape != (h, t // block, t // block) or t % block:
+        raise ValueError(f"layout shape {layout.shape} != "
+                         f"{(h, t // block, t // block)} (T={t}, "
+                         f"block={block})")
+    # every query block must see at least one key block (the diagonal in
+    # all shipped patterns) or its softmax is over the empty set
+    if causal:
+        diag = layout[:, np.arange(t // block), np.arange(t // block)]
+        if not diag.all():
+            raise ValueError("causal layouts must include the diagonal")
+    elif not (layout.sum(-1) > 0).all():
+        raise ValueError("every query block needs >= 1 visible key block")
+    if not (q.shape == k.shape == v.shape):
+        raise ValueError(f"q/k/v shapes differ: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / np.sqrt(d)
+    plan = _plan(layout, causal, block, _tile_for(t, block), q.device)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _BlockSparseAttention.apply(q, k, v, plan, float(sm_scale))
+    return _forward(q, k, v, plan, float(sm_scale))[0]
+
+
+def block_sparse_attention_dense_fallback(q, k, v, layout, block,
+                                          causal=False, sm_scale=None):
+    """Dense reference: same math via an expanded additive mask."""
+    t = q.shape[1]
+    mask = layout_to_dense_mask(layout, t, block)         # [H, T, T]
+    additive = torch.where(torch.as_tensor(mask, device=q.device),
+                           torch.zeros((), device=q.device),
+                           torch.full((), NEG_INF, device=q.device))
+    return dense_attention(q, k, v, mask=additive[None], causal=causal,
+                           sm_scale=sm_scale)

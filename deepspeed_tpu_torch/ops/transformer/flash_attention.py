@@ -55,14 +55,15 @@ def dropout(x, rate, generator):
                                                            device=x.device))
 
 
-def dense_attention(q, k, v, causal=False, sm_scale=None, dropout_rate=0.0,
-                    dropout_gen=None):
+def dense_attention(q, k, v, mask=None, causal=False, sm_scale=None,
+                    dropout_rate=0.0, dropout_gen=None):
     """Dense attention over [B, T, H, D]: the reference path for the
     flash kernel and the route where flash does not apply. fp32
     softmax. The score product comes out in the input dtype and is then
-    widened, as the JAX einsum does. With a `dropout_gen` and a rate
-    > 0, dropout applies to the probabilities (the JAX package's
-    attention dropout)."""
+    widened, as the JAX einsum does. `mask` is additive, broadcastable
+    to [B, H, Tq, Tk], and applies after the causal mask. With a
+    `dropout_gen` and a rate > 0, dropout applies to the probabilities
+    (the JAX package's attention dropout)."""
     if sm_scale is None:
         sm_scale = 1.0 / np.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
@@ -74,6 +75,8 @@ def dense_attention(q, k, v, causal=False, sm_scale=None, dropout_rate=0.0,
         scores = torch.where(tri[None, None], scores,
                              torch.tensor(NEG_INF, dtype=torch.float32,
                                           device=q.device))
+    if mask is not None:
+        scores = scores + mask.to(torch.float32)
     probs = torch.softmax(scores, dim=-1)
     if dropout_gen is not None and dropout_rate > 0.0:
         probs = dropout(probs, dropout_rate, dropout_gen)

@@ -6,9 +6,10 @@ micro batch x gradient accumulation x data-parallel world size; any two
 determine the third), the `bf16` block with `master_weights`,
 `zero_optimization.stage`, the `optimizer` and `scheduler` blocks,
 `gradient_clipping`, `steps_per_print`, the `moe` block
-(`get_moe_config`) and the `quantized_compute` block
-(`get_quantized_compute_config`), both validated as the JAX package
-validates them.
+(`get_moe_config`), the `quantized_compute` block
+(`get_quantized_compute_config`) and the `sparse_attention` block
+(`get_sparse_attention`), each validated as the JAX package validates
+it.
 
 The blocks of later slices raise NotImplementedError naming the ROADMAP
 item that ports them: fp16 and loss scaling, ZeRO offload, pipeline,
@@ -173,6 +174,32 @@ def get_quantized_compute_config(param_dict):
             "stochastic_rounding": sr}
 
 
+def get_sparse_attention(param_dict):
+    """The `sparse_attention` block with `mode` validated and resolved
+    and unknown keys dropped with a warning (the block passes through
+    wholesale to the SparsityConfig constructors), or None without one."""
+    if C.SPARSE_ATTENTION in param_dict:
+        sparsity = param_dict[C.SPARSE_ATTENTION]
+        mode = get_scalar_param(sparsity, C.SPARSE_MODE, C.SPARSE_MODE_DEFAULT)
+        if mode not in C.SPARSE_MODE_VALID:
+            raise DeepSpeedConfigError(
+                f"sparse_attention.mode must be one of "
+                f"{list(C.SPARSE_MODE_VALID)}, got {mode!r}")
+        # an unknown key would otherwise surface as a TypeError deep
+        # inside ops/sparse_attention
+        unknown = set(sparsity) - set(C.SPARSE_ATTENTION_KEYS)
+        if unknown:
+            logger.warning(
+                f"sparse_attention: ignoring unknown key(s) "
+                f"{sorted(unknown)}; known keys: "
+                f"{list(C.SPARSE_ATTENTION_KEYS)}")
+        sparsity = {k: v for k, v in sparsity.items()
+                    if k in C.SPARSE_ATTENTION_KEYS}
+        sparsity[C.SPARSE_MODE] = mode
+        return sparsity
+    return None
+
+
 def _block_type_and_params(param_dict, key):
     block = param_dict.get(key) or {}
     name = block.get(C.TYPE) if isinstance(block, dict) else None
@@ -231,6 +258,7 @@ class DeepSpeedConfig:
             _block_type_and_params(d, C.SCHEDULER)
         self.moe = get_moe_config(d)
         self.quantized_compute = get_quantized_compute_config(d)
+        self.sparse_attention = get_sparse_attention(d)
 
     def _set_batch_related_parameters(self):
         train_batch = self.train_batch_size

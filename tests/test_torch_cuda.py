@@ -1,5 +1,5 @@
 """PyTorch port: the CUDA kernels on the card (kernels K1-fwd, K2,
-K3-fwd, K3-bwd, K4-fwd, K4-bwd, K6, K8) against their plain PyTorch twins, the
+K3-fwd, K3-bwd, K4-fwd, K4-bwd, K6, K7, K8) against their plain PyTorch twins, the
 serving engine against the kernel-driven forward, and a training step
 on the kernels against the plain-torch route.
 
@@ -29,6 +29,11 @@ from deepspeed_tpu_torch.inference import InferenceEngine
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.ops.transformer import flash_attention as tfa
 from deepspeed_tpu_torch.ops.transformer import fused_ops as tfo
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+# the package exports a function under the module's name
+tbsa = importlib.import_module(
+    "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention")
 
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -636,3 +641,127 @@ def test_quantized_training_step_on_the_kernels(dev):
     loss = engine.train_batch(batch={"input_ids": ids[None]})
     assert bool(torch.isfinite(loss))
     assert qm.quantized_matmul.launches - before == 16
+
+
+# ----------------------------------------------------------------------
+# K7: block-sparse attention
+# ----------------------------------------------------------------------
+def _sparse_layouts(h, t, block, causal):
+    """Three layouts per (block, causal): Fixed (the band kernel,
+    aligned windows), BSLongformer (the band kernel, sliding, when
+    causal; the table kernel when not: its global row does not
+    decompose) and BigBird (the table kernel)."""
+    attention = "unidirectional" if causal else "bidirectional"
+    cfgs = (tsa.FixedSparsityConfig(num_heads=h, block=block,
+                                    num_local_blocks=2, attention=attention),
+            tsa.BSLongformerSparsityConfig(num_heads=h, block=block,
+                                           num_sliding_window_blocks=3),
+            tsa.BigBirdSparsityConfig(num_heads=h, block=block))
+    return [c.make_layout(t) for c in cfgs]
+
+
+def _k7_case(dev, layout, block, causal, dtype, d, seed):
+    """Each K7 kernel the layout routes to, against its twin on the same
+    inputs (q/k/v as column slices of one qkv tensor): the forward's out
+    and lse, then dq/dk/dv from the kernel's own (out, lse)."""
+    g = _gen(dev, seed)
+    h, nb, _ = layout.shape
+    b, t = 2, nb * block
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(dtype)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    dout = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    plan = tbsa._plan(layout, causal, block, tbsa.TILE, q.device)
+    sm = d ** -0.5
+    if plan.band is not None:
+        launch, plain = tbsa._band_fwd_launch, tbsa._band_fwd_plain
+    else:
+        launch, plain = tbsa._bs_fwd_launch, tbsa._bs_fwd_plain
+    before = (launch.launches, tbsa._bs_bwd_dkv_launch.launches,
+              tbsa._bs_bwd_dq_launch.launches)
+    out, lse = launch(q, k, v, plan, sm)
+    dk, dv, delta = tbsa._bs_bwd_dkv_launch(q, k, v, out, lse, dout, plan,
+                                            sm)
+    dq = tbsa._bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm)
+    ref, ref_lse = plain(q, k, v, plan, sm)
+    ref_grads = tbsa._bs_bwd_plain(q, k, v, out, lse, dout, plan, sm)
+    torch.cuda.synchronize()
+    assert (launch.launches, tbsa._bs_bwd_dkv_launch.launches,
+            tbsa._bs_bwd_dq_launch.launches) == tuple(x + 1 for x in before)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+    for name, x, y in zip("qkv", (dq, dk, dv), ref_grads):
+        assert x.dtype == dtype and x.shape == (b, t, h, d)
+        assert _rel_l2(x, y) <= GRAD_TOL[dtype], name
+    return plan
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
+def test_block_sparse_kernels_match_twins(dev, block, causal, dtype):
+    """K7-band, K7-fwd, K7-dkv and K7-dq against their twins at every
+    block size the kernels take (16 and 32 put several layout blocks in
+    one 64-row tile), causal and not, fp32 and bf16."""
+    t = max(512, 8 * block)
+    routes = set()
+    for i, layout in enumerate(_sparse_layouts(4, t, block, causal)):
+        plan = _k7_case(dev, layout, block, causal, dtype, 64, seed=i)
+        routes.add(plan.band is not None)
+    assert routes == {True, False}      # both forward kernels ran
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_sparse_kernels_per_head_layouts_and_d128(dev, dtype):
+    """Per-head layouts (different_layout_per_head, random blocks: the
+    table kernels with a head map over unique layouts) at head dims 64
+    and 128."""
+    for d, block in ((64, 32), (128, 64)):
+        cfg = tsa.VariableSparsityConfig(
+            num_heads=4, block=block, different_layout_per_head=True,
+            num_random_blocks=2, local_window_blocks=[2, 3],
+            global_block_indices=[1])
+        layout = cfg.make_layout(512)
+        assert len(np.unique(layout, axis=0)) > 1
+        for causal in (True, False):
+            plan = _k7_case(dev, layout, block, causal, dtype, d, seed=d)
+            assert plan.band is None
+
+
+def test_block_sparse_autograd_matches_dense_fallback(dev):
+    """The public route on the card (K7-band forward, K7-dkv/K7-dq
+    backward) against the dense masked attention, fp32."""
+    g = _gen(dev, 21)
+    layout = tsa.BSLongformerSparsityConfig(
+        num_heads=4, block=64, num_sliding_window_blocks=4).make_layout(1024)
+    q, k, v = (torch.randn((1, 1024, 4, 64), generator=g, device=dev)
+               .requires_grad_(True) for _ in range(3))
+    before = tbsa._band_fwd_launch.launches
+    out = tsa.block_sparse_attention(q, k, v, layout, 64, causal=True)
+    ref = tbsa.block_sparse_attention_dense_fallback(q, k, v, layout, 64,
+                                                     causal=True)
+    dout = torch.randn(out.shape, generator=g, device=dev)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    assert tbsa._band_fwd_launch.launches == before + 1
+    torch.testing.assert_close(out, ref, **F32_TOL)
+    for x, y in zip(got, want):
+        assert _rel_l2(x, y) <= GRAD_TOL[torch.float32]
+
+
+def test_block_sparse_kernels_raise_on_what_they_do_not_take(dev):
+    layout = tsa.FixedSparsityConfig(num_heads=2, block=32).make_layout(256)
+    for shape, dtype, err in (((1, 256, 2, 32), torch.bfloat16, ValueError),
+                              ((1, 256, 2, 64), torch.float16,
+                               NotImplementedError)):
+        q = torch.zeros(shape, device=dev, dtype=dtype)
+        with pytest.raises(err):
+            tsa.block_sparse_attention(q, q, q, layout, 32)
+    layout = tsa.FixedSparsityConfig(num_heads=2, block=32).make_layout(96)
+    q = torch.zeros((1, 96, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):          # T not a multiple of 64
+        tsa.block_sparse_attention(q, q, q, layout, 32)
+    layout = tsa.DenseSparsityConfig(num_heads=2, block=8).make_layout(256)
+    q = torch.zeros((1, 256, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):          # block 8
+        tsa.block_sparse_attention(q, q, q, layout, 8)

@@ -303,6 +303,10 @@ def test_port_imports_load_no_jax():
         "import deepspeed_tpu_torch.models.gpt2\n"
         "import deepspeed_tpu_torch.models.convert\n"
         "import deepspeed_tpu_torch.ops._build\n"
+        "import deepspeed_tpu_torch.ops.sparse_attention\n"
+        "import deepspeed_tpu_torch.moe\n"
+        "import deepspeed_tpu_torch.runtime.engine\n"
+        "import deepspeed_tpu_torch.ops.transformer.quantized_matmul\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepspeed_tpu'))\n"
         "print(bad)\n"

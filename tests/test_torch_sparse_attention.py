@@ -1,0 +1,414 @@
+"""PyTorch port: block-sparse attention (kernels K7) against the JAX
+package.
+
+On the CPU the port's `block_sparse_attention` runs its plain twins (the
+K7 kernels' tile walks in PyTorch); these tests hold them against
+deepspeed_tpu's `block_sparse_attention` (the Pallas kernels in
+interpret mode, as the JAX package's own tests run them) on the same
+numpy-seeded inputs, forward and dQ/dK/dV, for the sliding-band, the
+aligned-window and the table routes, causal and bidirectional. They also
+hold the host code (layouts, tables, band decomposition), the
+SparseSelfAttention / BertSparseSelfAttention modules, the utils, the
+`sparse_attention` config block and `dense_attention(mask=...)` against
+their JAX counterparts. The CUDA kernels are held against the twins on
+the card in tests/test_torch_cuda.py.
+
+Tolerances, fp32: outputs atol = rtol = 2e-5 and gradients 1e-4: the
+twin walks 64-row tiles in log2 space, the JAX kernel super-rows of up
+to 4 layout blocks with natural exp, so the online-softmax sums and the
+gradient sums run in another order (the JAX package's own kernel tests
+hold the kernel to its dense fallback at 2e-5 and 5e-4). Layouts, tables
+and config blocks are compared exactly.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops import sparse_attention as jsa
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
+
+# the packages export functions under the module names
+jbsa = importlib.import_module(
+    "deepspeed_tpu.ops.sparse_attention.block_sparse_attention")
+tbsa = importlib.import_module(
+    "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention")
+jfa = importlib.import_module("deepspeed_tpu.ops.transformer.flash_attention")
+tfa = importlib.import_module(
+    "deepspeed_tpu_torch.ops.transformer.flash_attention")
+
+OUT_TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _configs(pkg, h, block):
+    """The same configurations built from either package."""
+    return [
+        pkg.DenseSparsityConfig(num_heads=h, block=block),
+        pkg.FixedSparsityConfig(num_heads=h, block=block, num_local_blocks=2),
+        pkg.FixedSparsityConfig(num_heads=h, block=block, num_local_blocks=4,
+                                attention="unidirectional"),
+        pkg.FixedSparsityConfig(num_heads=h, block=block, num_local_blocks=4,
+                                horizontal_global_attention=True),
+        pkg.FixedSparsityConfig(num_heads=h, block=block, num_local_blocks=4,
+                                different_layout_per_head=True,
+                                num_different_global_patterns=2),
+        pkg.VariableSparsityConfig(num_heads=h, block=block,
+                                   local_window_blocks=[1, 2],
+                                   global_block_indices=[0]),
+        pkg.VariableSparsityConfig(num_heads=h, block=block,
+                                   num_random_blocks=2,
+                                   local_window_blocks=[2, 3],
+                                   global_block_indices=[1, 4],
+                                   global_block_end_indices=[2, 6],
+                                   attention="unidirectional",
+                                   different_layout_per_head=True),
+        pkg.BigBirdSparsityConfig(num_heads=h, block=block),
+        pkg.BigBirdSparsityConfig(num_heads=h, block=block,
+                                  num_random_blocks=2,
+                                  attention="unidirectional",
+                                  different_layout_per_head=True),
+        pkg.BSLongformerSparsityConfig(num_heads=h, block=block),
+        pkg.BSLongformerSparsityConfig(num_heads=h, block=block,
+                                       num_sliding_window_blocks=5,
+                                       global_block_indices=[0, 3],
+                                       global_block_end_indices=[1, 5],
+                                       attention="unidirectional"),
+    ]
+
+
+CONFIG_IDS = ["dense", "fixed", "fixed-uni", "fixed-horizontal",
+              "fixed-per-head", "variable", "variable-random-uni-per-head",
+              "bigbird", "bigbird-uni-per-head", "bslongformer",
+              "bslongformer-uni-ranges"]
+
+
+@pytest.mark.parametrize("i", range(len(CONFIG_IDS)), ids=CONFIG_IDS)
+@pytest.mark.parametrize("t,block", [(512, 32), (512, 128)])
+def test_layouts_match_jax(i, t, block):
+    got = _configs(tsa, 4, block)[i].make_layout(t)
+    want = _configs(jsa, 4, block)[i].make_layout(t)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_layout_seq_len_must_divide():
+    with pytest.raises(ValueError):
+        tsa.FixedSparsityConfig(num_heads=2, block=32).make_layout(100)
+
+
+@pytest.mark.parametrize("i", range(len(CONFIG_IDS)), ids=CONFIG_IDS)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tables_and_band_decomposition_match_jax(i, causal):
+    layout = _configs(jsa, 4, 32)[i].make_layout(512)
+    for qt in (1, 2, 4):
+        got = tbsa._build_tables(layout, causal, qt)
+        want = jbsa._build_tables(layout, causal, qt)
+        for a, b in zip(got, want[:9]):      # JAX's last entry is g
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert tbsa._band_decompose(layout, causal) == \
+        jbsa._band_decompose(layout, causal)
+    np.testing.assert_array_equal(
+        tbsa.layout_to_dense_mask(layout, 512, 32),
+        jbsa.layout_to_dense_mask(layout, 512, 32))
+
+
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tile_walks_visit_every_visible_score_once(block, causal):
+    """The kernels' walks (forward table, transpose table and, where the
+    layout decomposes, the band walk) cover exactly the layout's visible
+    scores (element-level causal), each once."""
+    t = 512
+    for cfg in (tsa.FixedSparsityConfig(num_heads=1, block=block,
+                                        num_local_blocks=3),
+                tsa.BSLongformerSparsityConfig(
+                    num_heads=1, block=block, num_sliding_window_blocks=4,
+                    attention="unidirectional"),
+                tsa.BigBirdSparsityConfig(num_heads=1, block=block)):
+        layout = cfg.make_layout(t)
+        plan = tbsa._Plan(layout, causal, block, tbsa.TILE,
+                          torch.device("cpu"))
+        want = torch.as_tensor(tbsa.layout_to_dense_mask(layout, t,
+                                                         block)[0])
+        if causal:
+            want &= torch.ones((t, t), dtype=torch.bool).tril()
+        walks = [(tbsa._table_steps(plan, False, "cpu"), False),
+                 (tbsa._table_steps(plan, True, "cpu"), True)]
+        if plan.band is not None:
+            walks.append((tbsa._band_steps(plan, "cpu"), False))
+        for steps, transpose in walks:
+            seen = torch.zeros((t, t), dtype=torch.long)
+            for idx, vis in steps:
+                for own in range(plan.nt):
+                    other = int(idx[0, own])
+                    rows, cols = (other, own) if transpose else (own, other)
+                    seen[rows * 64:(rows + 1) * 64,
+                         cols * 64:(cols + 1) * 64] += vis[0, own].long()
+            assert torch.equal(seen, want.long())
+
+
+def _qkv(b, t, h, d, seed):
+    r = np.random.RandomState(seed)
+    return [r.randn(b, t, h, d).astype(np.float32) for _ in range(4)]
+
+
+def _jax_fwd_bwd(q, k, v, g, layout, block, causal):
+    def f(q, k, v):
+        return jbsa.block_sparse_attention(q, k, v, layout, block,
+                                           causal=causal, interpret=True)
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(x) for x in (out, *vjp(jnp.asarray(g)))]
+
+
+def _torch_fwd_bwd(q, k, v, g, layout, block, causal):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    out = tsa.block_sparse_attention(qt, kt, vt, layout, block,
+                                     causal=causal)
+    grads = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(g))
+    return [x.detach().numpy() for x in (out, *grads)]
+
+
+ROUTES = [
+    # (id, config, T, H, block, causal, expected band kind or None)
+    ("sliding-b32", lambda h, b: jsa.BSLongformerSparsityConfig(
+        num_heads=h, block=b, num_sliding_window_blocks=3), 256, 2, 32,
+     True, "sliding"),
+    ("sliding-b64", lambda h, b: jsa.BSLongformerSparsityConfig(
+        num_heads=h, block=b, num_sliding_window_blocks=4), 512, 2, 64,
+     True, "sliding"),
+    ("aligned-b32-full", lambda h, b: jsa.FixedSparsityConfig(
+        num_heads=h, block=b, num_local_blocks=2), 256, 2, 32, False,
+     "aligned"),
+    ("aligned-b64-causal", lambda h, b: jsa.FixedSparsityConfig(
+        num_heads=h, block=b, num_local_blocks=4), 512, 2, 64, True,
+     "aligned"),
+    ("table-bigbird-causal", lambda h, b: jsa.BigBirdSparsityConfig(
+        num_heads=h, block=b), 256, 2, 32, True, None),
+    ("table-bigbird-full-b64", lambda h, b: jsa.BigBirdSparsityConfig(
+        num_heads=h, block=b), 512, 2, 64, False, None),
+    ("table-per-head", lambda h, b: jsa.VariableSparsityConfig(
+        num_heads=h, block=b, num_random_blocks=1,
+        local_window_blocks=[2], different_layout_per_head=True), 256, 2,
+     32, False, None),
+    ("lse2d-eight-heads", lambda h, b: jsa.FixedSparsityConfig(
+        num_heads=h, block=b, num_local_blocks=2, num_global_blocks=1),
+     256, 8, 32, True, "sliding"),
+    # blocks under 16 take no kernel: the twins walk tiles of one block
+    ("sliding-b8-twin-only", lambda h, b: jsa.BSLongformerSparsityConfig(
+        num_heads=h, block=b, num_sliding_window_blocks=3), 128, 2, 8,
+     True, "sliding"),
+    ("table-b8-twin-only", lambda h, b: jsa.BigBirdSparsityConfig(
+        num_heads=h, block=b), 128, 2, 8, False, None),
+]
+
+
+@pytest.mark.parametrize("name,make,t,h,block,causal,kind", ROUTES,
+                         ids=[r[0] for r in ROUTES])
+def test_twin_forward_and_grads_match_jax(name, make, t, h, block, causal,
+                                          kind):
+    layout = make(h, block).make_layout(t)
+    band = tbsa._band_decompose(layout, causal)
+    assert (band[0] if band else None) == kind
+    q, k, v, g = _qkv(1, t, h, 32, seed=t + h + block + causal)
+    want = _jax_fwd_bwd(q, k, v, g, layout, block, causal)
+    got = _torch_fwd_bwd(q, k, v, g, layout, block, causal)
+    np.testing.assert_allclose(got[0], want[0], **OUT_TOL)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a, b, **GRAD_TOL)
+
+
+def test_twins_match_the_dense_fallback_at_blocks_16_and_256():
+    """Blocks the JAX tests do not reach: 16 (four sub-blocks per 64-row
+    tile side, 16-bit masks) and 256 (one block over four tiles)."""
+    for block, t in ((16, 256), (256, 512)):
+        cfg = tsa.BSLongformerSparsityConfig(num_heads=2, block=block,
+                                             num_sliding_window_blocks=3)
+        layout = cfg.make_layout(t)
+        q, k, v, g = (torch.from_numpy(x).requires_grad_(True)
+                      for x in _qkv(1, t, 2, 32, seed=block))
+        for causal in (True, False):
+            out = tsa.block_sparse_attention(q, k, v, layout, block,
+                                             causal=causal)
+            ref = tbsa.block_sparse_attention_dense_fallback(
+                q, k, v, layout, block, causal=causal)
+            torch.testing.assert_close(out, ref, **OUT_TOL)
+            for a, b in zip(torch.autograd.grad(out, (q, k, v), g),
+                            torch.autograd.grad(ref, (q, k, v), g)):
+                torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def test_dense_attention_mask_matches_jax():
+    q, k, v, _ = _qkv(2, 64, 2, 16, seed=3)
+    mask = np.where(np.random.RandomState(4).rand(2, 1, 64, 64) < 0.3,
+                    -1e30, 0.0).astype(np.float32)
+    for causal in (True, False):
+        want = jfa.dense_attention(q, k, v, mask=jnp.asarray(mask),
+                                   causal=causal)
+        got = tfa.dense_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  mask=torch.from_numpy(mask),
+                                  causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
+
+
+def test_sparse_self_attention_with_and_without_masks_matches_jax():
+    """Both mask modes of both masks; the attention mask hides one whole
+    query row, which both packages then spread evenly over every key."""
+    h, t, block = 2, 256, 32
+    q, k, v, _ = _qkv(1, t, h, 32, seed=5)
+    r = np.random.RandomState(6)
+    kpm_add = np.where(np.arange(t) >= t // 2, -1e9, 0.0)[None].astype(
+        np.float32)
+    kpm_mul = (kpm_add == 0).astype(np.float32)
+    am = (r.rand(t, t) < 0.9).astype(np.float32)
+    am[7] = 0.0
+    rpe = r.randn(1, h, t, t).astype(np.float32) * 0.1
+    cases = [("add", "mul", dict()),
+             ("add", "mul", dict(key_padding_mask=kpm_add)),
+             ("add", "mul", dict(attn_mask=am)),
+             ("add", "mul", dict(rpe=rpe, key_padding_mask=kpm_add,
+                                 attn_mask=am)),
+             ("mul", "add", dict(rpe=rpe, key_padding_mask=kpm_mul,
+                                 attn_mask=np.log(am + 1e-3)))]
+    for causal in (False, True):
+        for kp_mode, am_mode, kw in cases:
+            modes = dict(key_padding_mask_mode=kp_mode,
+                         attn_mask_mode=am_mode)
+            jmod = jsa.SparseSelfAttention(jsa.FixedSparsityConfig(
+                num_heads=h, block=block, num_local_blocks=2), **modes)
+            tmod = tsa.SparseSelfAttention(tsa.FixedSparsityConfig(
+                num_heads=h, block=block, num_local_blocks=2), **modes)
+            want = jmod(*(jnp.asarray(x) for x in (q, k, v)), causal=causal,
+                        **{n: jnp.asarray(x) for n, x in kw.items()})
+            got = tmod(*(torch.from_numpy(x) for x in (q, k, v)),
+                       causal=causal,
+                       **{n: torch.from_numpy(x) for n, x in kw.items()})
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       **OUT_TOL)
+
+
+def test_bert_sparse_self_attention_matches_jax_with_carried_params():
+    from deepspeed_tpu_torch.models.convert import \
+        bert_sparse_params_from_jax
+    hid, nh, t = 64, 2, 256
+    x = np.random.RandomState(7).randn(1, t, hid).astype(np.float32)
+    mask = (np.random.RandomState(8).rand(t, t) < 0.95).astype(np.float32)
+    jmod = jsa.BertSparseSelfAttention(
+        hidden_size=hid, num_attention_heads=nh,
+        sparsity_config=jsa.FixedSparsityConfig(num_heads=nh, block=32,
+                                                num_local_blocks=2))
+    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    tmod = tsa.BertSparseSelfAttention(
+        hidden_size=hid, num_attention_heads=nh,
+        sparsity_config=tsa.FixedSparsityConfig(num_heads=nh, block=32,
+                                                num_local_blocks=2),
+        device="cpu")
+    tmod.load_state_dict(bert_sparse_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    for attn_mask in (None, mask):
+        def loss(p):
+            return jnp.sum(jmod.apply(p, jnp.asarray(x), attn_mask if
+                                      attn_mask is None else
+                                      jnp.asarray(attn_mask)) ** 2)
+        want_loss, want_grads = jax.value_and_grad(loss)(params)
+        tmod.zero_grad()
+        out = tmod(torch.from_numpy(x), None if attn_mask is None else
+                   torch.from_numpy(attn_mask))
+        got_loss = (out ** 2).sum()
+        got_loss.backward()
+        np.testing.assert_allclose(got_loss.item(), float(want_loss),
+                                   rtol=1e-5)
+        got_grads = bert_sparse_params_from_jax(jax.tree_util.tree_map(
+            np.asarray, want_grads))
+        for name, p in tmod.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(),
+                                       got_grads[name].numpy(), **GRAD_TOL)
+
+
+def test_sparse_attention_utils_match_jax():
+    ids = np.arange(200).reshape(2, 100).astype(np.int64)
+    mask = np.ones((2, 100), np.int64)
+    emb = np.random.RandomState(9).randn(2, 100, 8).astype(np.float32)
+    table = np.random.RandomState(10).randn(16, 8).astype(np.float32)
+    want = jsa.SparseAttentionUtils.pad_to_block_size(
+        64, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask),
+        inputs_embeds=jnp.asarray(emb), pad_token_id=9,
+        model_embeddings=jnp.asarray(table))
+    got = tsa.SparseAttentionUtils.pad_to_block_size(
+        64, input_ids=torch.from_numpy(ids),
+        attention_mask=torch.from_numpy(mask),
+        inputs_embeds=torch.from_numpy(emb), pad_token_id=9,
+        model_embeddings=torch.from_numpy(table))
+    assert got[0] == want[0] == 28
+    for a, b in zip(got[1:], want[1:]):
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    out = tsa.SparseAttentionUtils.unpad_sequence_output(
+        28, torch.zeros((2, 128, 8)))
+    assert out.shape == (2, 100, 8)
+    pe = np.random.RandomState(11).randn(128, 16).astype(np.float32)
+    np.testing.assert_array_equal(
+        tsa.SparseAttentionUtils.extend_position_embedding(
+            torch.from_numpy(pe), 300).numpy(),
+        np.asarray(jsa.SparseAttentionUtils.extend_position_embedding(
+            pe, 300)))
+
+
+@pytest.mark.parametrize("block", [
+    {"mode": "bigbird", "block": 32, "num_random_blocks": 2},
+    {"mode": "bslongformer", "num_sliding_window_blocks": 5, "bogus": 1},
+    {"block": 64},
+])
+def test_sparse_attention_config_block_matches_jax(block):
+    from deepspeed_tpu.runtime.config import \
+        get_sparse_attention as jget
+    from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
+                                                    get_sparse_attention)
+    d = {"train_batch_size": 2, "sparse_attention": block}
+    assert get_sparse_attention(d) == jget(d)
+    assert DeepSpeedConfig(d).sparse_attention == jget(d)
+    assert get_sparse_attention({}) is None
+
+
+def test_sparse_attention_config_rejects_unknown_mode():
+    from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfigError,
+                                                    get_sparse_attention)
+    with pytest.raises(DeepSpeedConfigError):
+        get_sparse_attention({"sparse_attention": {"mode": "random"}})
+
+
+def test_block_sparse_attention_validates_as_jax():
+    layout = tsa.FixedSparsityConfig(num_heads=2, block=32).make_layout(256)
+    q = torch.zeros((1, 256, 2, 32))
+    with pytest.raises(ValueError):
+        tsa.block_sparse_attention(q, q, q, layout, 32,
+                                   head_packing="packed")
+    with pytest.raises(ValueError):
+        tsa.block_sparse_attention(q, q, q, layout, 32, head_packing="x")
+    with pytest.raises(ValueError):           # layout shape
+        tsa.block_sparse_attention(q, q, q, layout[:1], 32)
+    no_diag = layout.copy()
+    no_diag[:, 3, 3] = 0
+    with pytest.raises(ValueError):
+        tsa.block_sparse_attention(q, q, q, no_diag, 32, causal=True)
+    empty_row = layout.copy()
+    empty_row[:, 2] = 0
+    with pytest.raises(ValueError):
+        tsa.block_sparse_attention(q, q, q, empty_row, 32)
+    out = tsa.block_sparse_attention(q, q, q, layout, 32, head_packing="off")
+    assert out.shape == q.shape
+
+
+def test_tables_are_built_once_per_layout():
+    layout = tsa.BigBirdSparsityConfig(num_heads=2, block=32).make_layout(256)
+    a = tbsa._plan(layout, True, 32, 64, torch.device("cpu"))
+    b = tbsa._plan(layout.copy(), True, 32, 64, torch.device("cpu"))
+    c = tbsa._plan(layout, False, 32, 64, torch.device("cpu"))
+    assert a is b and a is not c
