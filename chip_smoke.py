@@ -79,7 +79,23 @@ Phases, each printing one JSON line:
  16. bert_sparse: BertSparseSelfAttention(1024, 16) (default Fixed,
      bidirectional) on [1, 16384, 1024] bf16, forward + backward finite;
  17. sparse_oracle: the kernel route against the dense masked fallback
-     at T 4096, outputs and dQ/dK/dV by relative L2, fp32 and bf16.
+     at T 4096, outputs and dQ/dK/dV by relative L2, fp32 and bf16;
+ 18. kernel_merge: K5 (flash attention merged with a prior softmax
+     partial in its epilogue) against its twin at the ring leg's
+     [1, 8192, 4, 64] (bf16 causal and full, fp32) and the sp_training
+     shape, with a prior partial from K1 over a disjoint block whose
+     first rows are empty; timed there and at [1, 32768, 16, 64] against
+     K1 on the same q, beside its bound, the twin and SDPA's forward;
+     K2's given-delta entry (K5's backward) against its twin;
+ 19. sequence_parallel: bench.py's ring leg in a one-rank NCCL group
+     (file:// rendezvous): ring_attention (flash and fallback bodies)
+     and ulysses_attention, forward + backward, each held to K1, timed;
+     then four ranks' ring folds played in one process on chunks of
+     [1, 32768, 16, 64] and [1, 8192, 4, 64], held to K1/K2 on the whole
+     sequence with exactly 10 K5 and 10 K2 launches per pass;
+ 20. sp_training: phase 7 with sequence_parallel="ring" in the one-rank
+     group (2 warm-up and 4 timed steps), each step's loss within 1e-2
+     of phase 7's, K5 on every layer.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -184,7 +200,7 @@ def max_err(got, ref, atol, rtol):
     """(max abs error, max error / (atol + rtol*|ref|)); the check
     passes when the second is <= 1."""
     import torch
-    g, r = got.float(), ref.float()
+    g, r = got.detach().float(), ref.detach().float()
     if not bool(torch.isfinite(g).all()):
         return float("inf"), float("inf")
     diff = (g - r).abs()
@@ -256,6 +272,11 @@ def kernel_flash(peaks, gen):
          16, 64, torch.bfloat16, True, "moe_training"),
         ("fp32 non-causal B4 T256 H25 D64", 4, 256, 25, 64,
          torch.float32, False, None),
+        # the wide head dims (the tile body's two column halves)
+        ("bf16 causal B11 T1024 H4 D256 (head dim 256)", 11, 1024, 4, 256,
+         torch.bfloat16, True, "head_dim_256"),
+        ("fp32 non-causal B2 T512 H3 D192", 2, 512, 3, 192, torch.float32,
+         False, None),
     )
     for label, b, t, h, d, dtype, causal, timed in cases:
         q, k, v = qkv_views(b, t, h, d, dtype)
@@ -396,14 +417,15 @@ def kernel_gelu(peaks, gen):
 
 def rel_l2(got, ref):
     """||got - ref|| / ||ref|| in fp32."""
-    got, ref = got.float(), ref.float()
+    got, ref = got.detach().float(), ref.detach().float()
     return float((got - ref).norm() / ref.norm().clamp(min=1e-30))
 
 
 def check_rel(label, got, ref, tol, checks):
     """A gradient check by relative L2 error; returns the max abs error."""
     err = rel_l2(got, ref)
-    abs_err = float((got.float() - ref.float()).abs().max())
+    abs_err = float((got.detach().float() - ref.detach().float())
+                    .abs().max())
     checks.append({"check": label, "rel_l2": err, "tol_rel_l2": tol,
                    "max_abs_err": abs_err})
     if not (err <= tol and torch_isfinite(got)):
@@ -420,8 +442,9 @@ def torch_isfinite(x):
 def kernel_flash_bwd(peaks, gen):
     """K2 at the training flagship's shape (B11 T1024 H25 D64 bf16
     causal, q/k/v column slices of one qkv tensor) and the MoE training
-    shape (B16 T1024 H16 D64), plus fp32 and
-    d=128 cases, against `_flash_bwd_plain` on the forward kernel's own
+    shape (B16 T1024 H16 D64), plus fp32 and d=128 cases and the wide
+    head dims (192, 256; D256 timed), against `_flash_bwd_plain` on the
+    forward kernel's own
     (out, lse). The library yardstick is SDPA's causal backward (its
     forward + backward, minus its forward)."""
     import torch
@@ -440,6 +463,10 @@ def kernel_flash_bwd(peaks, gen):
          True, None),
         ("fp32 non-causal B2 T256 H4 D128", 2, 256, 4, 128,
          torch.float32, False, None),
+        ("bf16 causal B11 T1024 H4 D256 (head dim 256)", 11, 1024, 4, 256,
+         torch.bfloat16, True, "head_dim_256"),
+        ("fp32 causal B2 T256 H3 D192", 2, 256, 3, 192, torch.float32, True,
+         None),
     )
     for label, b, t, h, d, dtype, causal, timed in cases:
         timed_case = timed is not None
@@ -974,21 +1001,24 @@ def train_config(**overrides):
                        remat=True, remat_policy=None, **overrides)
 
 
-def train_and_check(seed, card, warmup=2, steps=6, quantized=False):
+def train_and_check(seed, card, warmup=2, steps=6, quantized=False,
+                    sequence_parallel=None):
     """Phase 7: the JAX package's training flagship (bench_gpt2_15b:
     gpt2-1.5b, micro batch 11, seq 1024, bf16 without master weights,
     ZeRO-2, AdamW, full-block remat, dropout 0) through initialize ->
     train_batch, on one fixed batch repeated, so the loss must fall.
     With `quantized` (phase `quant_training`) the ds_config carries the
-    quantized_compute block, so every projection runs K6. Returns the
-    launch counts of its steps and the losses."""
+    quantized_compute block, so every projection runs K6. With
+    `sequence_parallel` (phase `sp_training`) the model attends through
+    ring or Ulysses attention over the default process group. Returns
+    the launch counts of its steps and the losses."""
     import numpy as np
     import torch
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
 
     batch, seq = TRAIN_BATCH, TRAIN_SEQ
-    cfg = train_config()
+    cfg = train_config(sequence_parallel=sequence_parallel)
     ds_config = flagship_ds_config(batch)
     if quantized:
         ds_config["quantized_compute"] = dict(QUANT_BLOCK_CONFIG)
@@ -1022,13 +1052,15 @@ def train_and_check(seed, card, warmup=2, steps=6, quantized=False):
     profile = profile_steps(
         lambda: [engine.train_batch(batch=staged) for _ in range(2)], 2)
     ok = all(np.isfinite(loss_vals)) and loss_vals[-1] < loss_vals[0]
-    phase = "quant_training" if quantized else "training"
+    phase = "quant_training" if quantized else \
+        "sp_training" if sequence_parallel else "training"
     emit({"phase": phase, "model": "gpt2-1.5b", "n_layer": cfg.n_layer,
           "n_embd": cfg.n_embd, "n_head": cfg.n_head,
           "vocab": cfg.vocab_size, "micro_batch": batch, "seq": seq,
           "dtype": "bf16 params and moments (master_weights false), "
                    "stochastic rounding",
           "zero_stage": 2, "remat": "full block",
+          "sequence_parallel": sequence_parallel,
           "quantized_compute": ds_config.get("quantized_compute"),
           "quantized_projections": type(
               engine.module.module.h[0].c_fc).__name__,
@@ -1781,6 +1813,361 @@ def sparse_oracle(seed):
                              "masked fallback")
 
 
+# ----------------------------------------------------------------------
+# phases 18-20: K5 and sequence parallelism
+# ----------------------------------------------------------------------
+# the JAX package's ring leg (bench.py bench_ring_attention): [B, T, H, D]
+SP_SHAPE_8K = (1, 8192, 4, 64)
+SP_SHAPE_32K = (1, 32768, 16, 64)
+# the emulated ring's rank count, and its K5 (and K2) launches per pass:
+# rank r folds r + 1 blocks
+SP_RANKS = 4
+SP_FOLDS = SP_RANKS * (SP_RANKS + 1) // 2
+# ring gradients against K2 on the whole sequence, by relative L2: the
+# merge backward hands K2 a dO rounded to bf16 at every fold (the
+# kernel's dO type), on top of GRAD_TOL_BF16's roundings
+TOL_SP_GRAD = 1e-2
+# the fallback ring body rounds its score product to bf16 (the JAX
+# body's einsum does the same): against K1 by relative L2
+TOL_SP_FALLBACK = 1e-2
+# sp_training against training, step by step (same weights, batch and
+# seed): K5 against an empty carry is K1's acc / l to fp32 rounding
+TOL_SP_LOSS = 1e-2
+
+
+def merge_bound(peaks, b, t, h, d, itemsize, causal):
+    """K5's bound: K1's score work over the visible pairs; bytes of q, k,
+    v read, prev_out read and out written in fp32, prev_lse read and
+    lse, lse_n written."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 4.0 * b * h * d * pairs
+    nbytes = (3 * itemsize + 8) * b * t * h * d + 12 * b * h * t
+    peak = peaks["bf16"] if itemsize == 2 else peaks["fp32"]
+    return bound(flops, peak, nbytes, peaks)
+
+
+def kernel_merge(peaks, gen):
+    """Phase 18: K5 against its twin at the ring leg's 8k shape
+    ([1, 8192, 4, 64], bf16 causal and full, fp32 causal) and at the
+    sp_training shape ([11, 1024, 25, 64] bf16 causal, an empty carry),
+    with a prior partial from K1 over a disjoint key block whose first
+    rows are an empty partial: out, lse and lse_n. Timed at those shapes
+    beside its bound, the twin and SDPA's forward (the yardstick, never
+    called by the port), and at [1, 32768, 16, 64] bf16 causal against
+    K1 on the same q (the difference is the merge's cost). Then K2's
+    given-delta entry (K5's backward) against the twin at the 8k shape,
+    bf16, and at [2, 1024, 4, 64] fp32, timed at the 8k shape. Returns
+    (K5's timed_by_path, K2's given-delta entries, checks)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    bf16, f32 = torch.bfloat16, torch.float32
+    checks, out, k2 = [], {}, {}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def inputs(shape, dtype, empty_carry=False):
+        q, k, v = (randn(shape, dtype) for _ in range(3))
+        b, t, h, d = shape
+        if empty_carry:
+            return q, k, v, torch.zeros(shape, device="cuda"), torch.full(
+                (b, h, t), fa.NEG_INF, device="cuda")
+        prev, prev_lse = fa.flash_attention_with_lse(
+            q, randn(shape, dtype), randn(shape, dtype), causal=False)
+        prev, prev_lse = prev.float(), prev_lse[..., 0].contiguous()
+        prev[:, :7] = 0.0
+        prev_lse[:, :, :7] = fa.NEG_INF
+        return q, k, v, prev, prev_lse
+
+    cases = (
+        # (label, shape, dtype, causal, empty carry, timed as)
+        ("bf16 causal [1, 8192, 4, 64] (ring leg)", SP_SHAPE_8K, bf16, True,
+         False, "sequence_parallel"),
+        ("bf16 causal [11, 1024, 25, 64] empty carry (sp_training)",
+         (TRAIN_BATCH, TRAIN_SEQ, 25, 64), bf16, True, True, "sp_training"),
+        ("bf16 full [1, 8192, 4, 64]", SP_SHAPE_8K, bf16, False, False,
+         None),
+        ("fp32 causal [1, 8192, 4, 64]", SP_SHAPE_8K, f32, True, False,
+         None),
+        ("fp32 full [2, 1024, 4, 128]", (2, 1024, 4, 128), f32, False,
+         False, None),
+    )
+    for label, shape, dtype, causal, empty, timed in cases:
+        q, k, v, prev, plse = inputs(shape, dtype, empty)
+        sm = shape[-1] ** -0.5
+        got = fa._flash_merge_launch(q, k, v, prev, plse, sm, causal)
+        torch.cuda.synchronize()
+        ref = fa._flash_merge_plain(q, k, v, prev, plse, sm, causal)
+        tol = TOL_BF16 if dtype == bf16 else TOL_F32
+        err = check(f"merge out, {label}", got[0], ref[0], tol, checks)
+        check(f"merge lse, {label}", got[1], ref[1], TOL_F32, checks)
+        check(f"merge lse_n, {label}", got[2], ref[2], TOL_F32, checks)
+        if empty:
+            k1_out, k1_lse = fa.flash_attention_with_lse(q, k, v,
+                                                         causal=causal)
+            check(f"merge out against K1, {label}", got[0], k1_out.float(),
+                  TOL_BF16, checks)
+            check(f"merge lse against K1, {label}", got[1], k1_lse[..., 0],
+                  TOL_F32, checks)
+        del got, ref
+        if timed:
+            b, t, h, d = shape
+            bound_ms, bound_by = merge_bound(peaks, b, t, h, d,
+                                             q.element_size(), causal)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out[timed] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: fa._flash_merge_launch(
+                    q, k, v, prev, plse, sm, causal)),
+                plain_ms=time_ms(lambda: fa._flash_merge_plain(
+                    q, k, v, prev, plse, sm, causal), iters=1, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal)),
+                k1_ms=time_ms(lambda: fa.flash_attention_with_lse(
+                    q, k, v, causal=causal)),
+                shape=label)
+        del q, k, v, prev, plse
+        release()
+
+    # the long leg: K5 against K1 on the same q; the twin runs at T <= 8k
+    b, t, h, d = SP_SHAPE_32K
+    q, k, v, prev, plse = inputs(SP_SHAPE_32K, bf16)
+    sm = d ** -0.5
+    bound_ms, bound_by = merge_bound(peaks, b, t, h, d, 2, True)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = time_ms(lambda: fa._flash_merge_launch(q, k, v, prev, plse, sm,
+                                                True), iters=5)
+    k1_ms = time_ms(lambda: fa.flash_attention_with_lse(q, k, v,
+                                                        causal=True), iters=5)
+    got = fa._flash_merge_launch(q, k, v, prev, plse, sm, True)
+    torch.cuda.synchronize()
+    if not torch_isfinite(got[0]):
+        raise AssertionError("K5 at [1, 32768, 16, 64]: non-finite output")
+    out["sequence_parallel_32k"] = dict(
+        max_abs_err="not measured (the twin runs at T <= 8192)",
+        ms=ms, k1_ms=k1_ms, merge_cost_ms=ms - k1_ms,
+        plain_ms="not measured (the twin runs at T <= 8192)",
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=5),
+        shape="bf16 causal [1, 32768, 16, 64] (ring leg, 32k)")
+    del q, k, v, prev, plse, got, qt, kt, vt
+    release()
+
+    # K2's given-delta entry against the twin
+    for label, shape, dtype, timed in (
+            ("bf16 causal [1, 8192, 4, 64] given delta", SP_SHAPE_8K, bf16,
+             "sequence_parallel"),
+            ("fp32 causal [2, 1024, 4, 64] given delta", (2, 1024, 4, 64),
+             f32, None)):
+        b, t, h, d = shape
+        q, k, v, dout = (randn(shape, dtype) for _ in range(4))
+        _, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        lse = lse[..., 0].contiguous()
+        delta, dlse = (torch.randn((b, h, t), generator=gen, device="cuda")
+                       for _ in range(2))
+        keep = delta.clone()
+        sm = d ** -0.5
+
+        def run():
+            return fa.flash_attention_backward(q, k, v, None, lse, dout,
+                                               dlse, sm, True, delta=delta)
+
+        got = run()
+        torch.cuda.synchronize()
+        if not torch.equal(delta, keep):
+            raise AssertionError("the given-delta K2 wrote the caller's "
+                                 "delta")
+        ref = fa._flash_bwd_plain(q, k, v, None, lse, dout, dlse, sm, True,
+                                  delta=delta)
+        tol = GRAD_TOL_BF16 if dtype == bf16 else GRAD_TOL_F32
+        errs = [check_rel(f"flash bwd d{n}, {label}", x, y, tol, checks)
+                for n, x, y in zip("qkv", got, ref)]
+        if timed:
+            pairs = t * (t + 1) // 2
+            nbytes = 7 * b * t * h * d * q.element_size() + 12 * b * h * t
+            bound_ms, bound_by = bound(10.0 * b * h * d * pairs,
+                                       peaks["bf16"], nbytes, peaks)
+            qt, kt, vt, dt = (x.transpose(1, 2).detach().clone()
+                              for x in (q, k, v, dout))
+            for x in (qt, kt, vt):
+                x.requires_grad_(True)
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
+
+            k2[timed] = dict(
+                max_abs_err=max(errs), ms=time_ms(run),
+                plain_ms=time_ms(lambda: fa._flash_bwd_plain(
+                    q, k, v, None, lse, dout, dlse, sm, True, delta=delta),
+                    iters=1, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
+                shape=label)
+        release()
+    return out, k2, checks
+
+
+def init_sp_group():
+    """The one-rank NCCL process group of phases 19 and 20, with a
+    `file://` rendezvous under build/ (git-ignored)."""
+    import torch
+    import deepspeed_tpu_torch as dst
+    path = os.path.join(ROOT, "build", f"sp-rendezvous-{os.getpid()}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.set_device(0)
+    dst.init_distributed("nccl", init_method="file://" + path, rank=0,
+                         world_size=1, verbose=False)
+    return path
+
+
+def emulated_ring(q, k, v, p):
+    """P ranks' ring folds played in one process: rank r's chunk of q
+    folds the K/V chunks r, r - 1, ..., 0 through flash_attention_merge
+    (K5), its own chunk causal and the lower ones full (a higher rank's
+    chunk is skipped, as on the ring); the chunks are slices of one k
+    and one v, so autograd takes the place of the rotation."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    b, t, h, d = q.shape
+    tl = t // p
+    outs = []
+    for r in range(p):
+        o = torch.zeros((b, tl, h, d), dtype=torch.float32, device=q.device)
+        lse = torch.full((b, h, tl, 1), fa.NEG_INF, device=q.device)
+        for src in range(r, -1, -1):
+            rows = slice(src * tl, (src + 1) * tl)
+            o, lse = fa.flash_attention_merge(
+                q[:, r * tl:(r + 1) * tl], k[:, rows], v[:, rows], o, lse,
+                causal=src == r)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def sequence_parallel_path(seed, card):
+    """Phase 19: the JAX package's ring leg (bench.py
+    bench_ring_attention) through the port's entry points in the
+    one-rank NCCL group: forward + backward of sum(out.float()) with
+    q = k = v, causal, bf16: ring_attention at [1, 8192, 4, 64] with the
+    flash body and with the fallback body, at [1, 32768, 16, 64] with the
+    flash body, and ulysses_attention at [1, 32768, 16, 64]; each output
+    held to K1 on the same q. Launch counts are zeroed right before the
+    leg's passes and read after them; then each is timed (CUDA events).
+    Then the emulated ring: SP_RANKS ranks' folds in one process at both
+    shapes, outputs held to K1 on the whole sequence and dQ/dK/dV to K2,
+    SP_FOLDS launches of K5 and of K2 per pass. Returns the leg's
+    counts."""
+    import torch
+    from deepspeed_tpu_torch.ops.sequence import (ring_attention,
+                                                  ulysses_attention)
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    qs = {shape: torch.randn(shape, generator=gen, device="cuda")
+          .to(torch.bfloat16) for shape in (SP_SHAPE_8K, SP_SHAPE_32K)}
+
+    def fwd_bwd(fn, q):
+        x = q.detach().requires_grad_(True)
+        out = fn(x)
+        out.float().sum().backward()
+        return out, x.grad
+
+    legs = (
+        ("ring flash", SP_SHAPE_8K, lambda x: ring_attention(
+            x, x, x, causal=True, use_flash=True), TOL_BF16),
+        ("ring fallback", SP_SHAPE_8K, lambda x: ring_attention(
+            x, x, x, causal=True, use_flash=False), None),
+        ("ring flash", SP_SHAPE_32K, lambda x: ring_attention(
+            x, x, x, causal=True, use_flash=True), TOL_BF16),
+        ("ulysses", SP_SHAPE_32K, lambda x: ulysses_attention(
+            x, x, x, causal=True), TOL_BF16),
+    )
+    checks = []
+    reset_counts()
+    results = [fwd_bwd(fn, qs[shape]) for _, shape, fn, _ in legs]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for (name, shape, _, tol), (out, grad) in zip(legs, results):
+        label = f"{name} {list(shape)}"
+        if not (torch_isfinite(out) and torch_isfinite(grad)):
+            raise AssertionError(f"sequence_parallel {label}: non-finite "
+                                 "output or gradient")
+        ref = fa.flash_attention(qs[shape], qs[shape], qs[shape],
+                                 causal=True)
+        if tol is None:
+            check_rel(f"{label} against K1", out, ref, TOL_SP_FALLBACK,
+                      checks)
+        else:
+            check(f"{label} against K1", out, ref, tol, checks)
+    del results
+    release()
+    rows = []
+    for name, shape, fn, _ in legs:
+        ms = time_ms(lambda: fwd_bwd(fn, qs[shape]), iters=5, warmup=2)
+        rows.append({"leg": name, "shape": list(shape), "fwd_bwd_ms": ms,
+                     "tokens_per_s": shape[1] / (ms / 1e3)})
+    release()
+
+    # the emulated ring against K1/K2 on the whole sequence
+    emulated = []
+    for shape in (SP_SHAPE_32K, SP_SHAPE_8K):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16).requires_grad_(True)
+                   for _ in range(3))
+        reset_counts()
+        out = emulated_ring(q, k, v, SP_RANKS)
+        grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+        torch.cuda.synchronize()
+        n = read_counts()
+        label = f"emulated {SP_RANKS}-rank ring {list(shape)}"
+        if (n["flash_attention_merge"], n["flash_attention_bwd"]) != \
+                (SP_FOLDS, SP_FOLDS):
+            raise AssertionError(
+                f"{label}: {n['flash_attention_merge']} K5 and "
+                f"{n['flash_attention_bwd']} K2 launches, expected "
+                f"{SP_FOLDS} each")
+        ref = fa.flash_attention(q, k, v, causal=True)
+        ref_grads = torch.autograd.grad(ref.float().sum(), (q, k, v))
+        err = check(f"{label} out against K1", out, ref, TOL_BF16, checks)
+        gerr = [check_rel(f"{label} d{x} against K2", a, b, TOL_SP_GRAD,
+                          checks)
+                for x, a, b in zip("qkv", grads, ref_grads)]
+
+        def ring_pass():
+            o = emulated_ring(q, k, v, SP_RANKS)
+            torch.autograd.grad(o.float().sum(), (q, k, v))
+
+        def dense_pass():
+            o = fa.flash_attention(q, k, v, causal=True)
+            torch.autograd.grad(o.float().sum(), (q, k, v))
+
+        emulated.append({"shape": list(shape), "ranks": SP_RANKS,
+                         "k5_launches": n["flash_attention_merge"],
+                         "k2_launches": n["flash_attention_bwd"],
+                         "max_abs_err_out": err, "max_abs_err_grads": gerr,
+                         "fwd_bwd_ms": time_ms(ring_pass, iters=3),
+                         "k1_k2_fwd_bwd_ms": time_ms(dense_pass, iters=3)})
+        del q, k, v, out, grads, ref, ref_grads
+        release()
+    emit({"phase": "sequence_parallel", "card": card,
+          "group": "one-rank NCCL (file:// rendezvous)",
+          "config": "bench.py bench_ring_attention: causal bf16, q = k = v, "
+                    "fwd + bwd of sum(out.float())",
+          "timing": "CUDA events, mean of 5 passes after 2 warm-ups",
+          "legs": rows, "emulated_ring": emulated, "checks": checks,
+          "launches": {k: counts[k] for k in SEQUENCE_PARALLEL_KERNELS}})
+    release()
+    return counts
+
+
 # device-time groups of the profiles, by kernel-name substring
 KERNEL_GROUPS = (
     ("port kernels: attention", ("flash_fwd_kernel", "flash_bwd_",
@@ -1866,6 +2253,7 @@ def read_counts():
             "moe_combine": fd.combine_rows.launches,
             "flash_attention_fwd": fa.flash_attention_with_lse.launches,
             "flash_attention_bwd": fa.flash_attention_backward.launches,
+            "flash_attention_merge": fa.flash_attention_merge.launches,
             "fused_bias_residual_layernorm_fwd":
                 fo.fused_bias_residual_layernorm.launches,
             "fused_bias_residual_layernorm_bwd":
@@ -1923,6 +2311,11 @@ KERNELS = (
      "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
      "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:279",
      None),
+    # K5: the forward kernels' merge mode (packed twin :337); kernel_merge
+    # checks and times it
+    ("flash_attention_merge",
+     "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:262", None),
 )
 # the kernels each path runs: serving the forward ones, dense training
 # K1-K4, MoE training K1-K4 and K8; the quantized paths add K6
@@ -1936,6 +2329,13 @@ QUANT_KERNELS = TRAINING_KERNELS + ("quantized_matmul",)
 MOE_QUANT_KERNELS = MOE_KERNELS + ("quantized_matmul",)
 SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_band_fwd",
                   "block_sparse_bwd_dkv", "block_sparse_bwd_dq")
+# the ring leg: K5 and K2 (the flash ring), K1 and K2 (Ulysses); GPT-2
+# under the ring: training's kernels with K5 in K1's place
+SEQUENCE_PARALLEL_KERNELS = ("flash_attention_merge", "flash_attention_bwd",
+                             "flash_attention_fwd")
+SP_TRAINING_KERNELS = tuple(k for k in TRAINING_KERNELS
+                            if k != "flash_attention_fwd") + \
+    ("flash_attention_merge",)
 
 
 def main(argv=None):
@@ -2059,12 +2459,52 @@ def main(argv=None):
                          SPARSE_KERNELS)
     bert_sparse(args.seed, card)
     sparse_oracle(args.seed)
+    release()
+
+    # 18: K5 and K2's given-delta entry against their twins; 19: the ring
+    # leg in a one-rank NCCL group (counts zeroed inside, right before
+    # it) and the emulated four-rank ring; 20: the training flagship
+    # under the ring, held to 7's losses
+    merge_res, k2_res, checks = kernel_merge(peaks, gen)
+    results["flash_attention_merge"] = merge_res
+    results["flash_attention_bwd"].update(k2_res)
+    emit({"phase": "kernel_merge", "checks": checks,
+          "timed_by_path": {"flash_attention_merge": merge_res,
+                            "flash_attention_bwd": k2_res}, "card": card})
+    release()
+    rendezvous = init_sp_group()
+    try:
+        sp_path = path_counts("sequence_parallel",
+                              sequence_parallel_path(args.seed, card),
+                              SEQUENCE_PARALLEL_KERNELS)
+        sp_train, sp_losses = train_and_check(
+            args.seed, card, steps=4, sequence_parallel="ring")
+        path_counts("sp_training", sp_train, SP_TRAINING_KERNELS)
+    finally:
+        torch.distributed.destroy_process_group()
+        if os.path.exists(rendezvous):
+            os.remove(rendezvous)
+    gaps = [abs(a - b) for a, b in zip(sp_losses, losses)]
+    n_steps = len(sp_losses)
+    k5_per_step = sp_train["flash_attention_merge"] / n_steps
+    emit({"phase": "sp_vs_training_losses", "sp": sp_losses,
+          "training": losses[:n_steps], "abs_gap": gaps, "tol": TOL_SP_LOSS,
+          "k5_launches_per_step": k5_per_step,
+          "n_layer": train_config().n_layer})
+    if not max(gaps) <= TOL_SP_LOSS:
+        raise AssertionError(f"sp_training losses {sp_losses} stray more "
+                             f"than {TOL_SP_LOSS} from {losses}")
+    if k5_per_step < train_config().n_layer:
+        raise AssertionError(f"sp_training: {k5_per_step} K5 launches per "
+                             "step, fewer than the layers")
 
     rows = []
     counts_by_path = {"serving": serving, "training": training,
                       "quant_training": quant, "moe_training": moe,
                       "moe_quant_training": moe_quant,
-                      "sparse_attention": sparse}
+                      "sparse_attention": sparse,
+                      "sequence_parallel": sp_path,
+                      "sp_training": sp_train}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);
@@ -2075,7 +2515,7 @@ def main(argv=None):
         extra = {k: r[k] for k in ("library_call", "bf16_matmul_ms",
                                    "plain_is", "sdpa_masked_fwd_ms",
                                    "sdpa_masked_fwd_bwd_ms", "dense",
-                                   "visible_scores", "density")
+                                   "visible_scores", "density", "k1_ms")
                  if k in r}
         rows.append({"name": kname, "route": "cuda", "source": src_file,
                      "replaces": replaces,

@@ -12,18 +12,21 @@ kernel or raises.
 Slice 1: GPT-2 inference — the model forward (`models/gpt2.py`) and the
 paged-KV serving engine (`inference/`). Slice 2: GPT-2 training —
 `initialize()` -> `DeepSpeedEngine` (`runtime/`) with the model's
-`loss_fn`, the backward kernels and remat.
+`loss_fn`, the backward kernels and remat. Later slices: MoE,
+quantized compute, block-sparse attention, and sequence parallelism
+(`ops/sequence/`, over the process groups `init_distributed` sets up).
 """
 
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 from deepspeed_tpu_torch.utils.device import resolve_device
+from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.logging import logger
 
 __version__ = "0.1.0"
 
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
-           "resolve_device", "logger", "__version__"]
+           "init_distributed", "resolve_device", "logger", "__version__"]
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

@@ -18,7 +18,11 @@ no JAX.
 `bert_sparse_params_from_jax` carries a `BertSparseSelfAttention` tree
 (query/key/value nn.Dense: kernel [in, out], bias) into the port
 module's state dict (nn.Linear: weight [out, in], bias).
+
+`config_from_jax` carries a JAX `GPT2Config` into the port's.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -118,3 +122,34 @@ def bert_sparse_params_from_jax(tree, dtype=None):
             .contiguous()
         out[f"{name}.bias"] = _tensor(tree[name]["bias"], dtype)
     return out
+
+
+def _torch_dtype(dtype):
+    """A jnp/numpy dtype (or dtype class) -> the torch dtype of its
+    name."""
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def config_from_jax(jcfg, sp_group=None, **overrides):
+    """The port's `GPT2Config` for a JAX `GPT2Config`: every field carried
+    across by name, jnp dtypes as torch's, the `MoEConfig` rebuilt in the
+    port without its mesh, and `sequence_parallel` kept with `sp_group` (a
+    torch.distributed process group, None for WORLD) in place of the
+    JAX `sp_mesh` and `sp_axis`. `overrides` replace fields after that."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from deepspeed_tpu_torch.moe.layer import MoEConfig
+    fields = {}
+    for f in dataclasses.fields(GPT2Config):
+        if f.name == "sp_group" or not hasattr(jcfg, f.name):
+            continue
+        value = getattr(jcfg, f.name)
+        if f.name in ("dtype", "param_dtype"):
+            value = _torch_dtype(value)
+        elif f.name == "moe" and value is not None:
+            value = MoEConfig(**{g.name: getattr(value, g.name)
+                                 for g in dataclasses.fields(MoEConfig)
+                                 if g.name != "mesh"})
+        fields[f.name] = value
+    fields["sp_group"] = sp_group
+    fields.update(overrides)
+    return GPT2Config(**fields)

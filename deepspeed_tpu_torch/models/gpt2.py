@@ -50,8 +50,19 @@ layer has "h.{i}.moe_mlp.wg" and "h.{i}.moe_mlp.experts.{wi,bi,wo,bo}"
 in place of c_fc/mlp_c_proj. `models/convert.py` turns a JAX tree into
 this form.
 
+Sequence parallelism (`sequence_parallel` "ring" or "ulysses", over the
+process group `sp_group`, None for WORLD; the JAX model's `sp_mesh` and
+`sp_axis`): every rank of the group holds the whole batch and the same
+parameters, as the JAX model on a data=1, model=P mesh does. Attention
+takes the rank's T chunk of q/k/v (`scatter_sequence`, whose backward
+all-gathers the chunks' gradients), runs `ring_attention` or
+`ulysses_attention` over the group, and all-gathers the output chunks
+(`gather_sequence`), so every rank computes the same loss and the same
+gradients. Attention dropout under sequence parallelism raises, as in
+JAX.
+
 Out of this slice (each raises NotImplementedError naming its slice):
-named remat policies, progressive layer drop, sequence parallelism.
+named remat policies, progressive layer drop.
 """
 
 import dataclasses
@@ -64,6 +75,8 @@ from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.moe.layer import MoEConfig, MoEMLP
 from deepspeed_tpu_torch.moe.router import STAT_AUX
+from deepspeed_tpu_torch.ops.sequence import (
+    gather_sequence, ring_attention, scatter_sequence, ulysses_attention)
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     dense_attention, dropout, flash_attention, flash_attention_usable)
 from deepspeed_tpu_torch.ops.transformer.fused_ops import (
@@ -77,9 +90,10 @@ from deepspeed_tpu_torch.utils.rng import stream_generator, stream_seed
 
 REMAT_POLICY_SLICE = ("named remat policies (the save_fused_epilogues "
                       "and save_only_these_names forms) come with the "
-                      "memory slice of the port (ROADMAP Queue 1 item 5)")
-PLD_SLICE = ("progressive layer drop comes with the remainder slice of "
-             "the port (ROADMAP Queue 1 item 10)")
+                      "rest of the single-card engine (ROADMAP Queue 1 "
+                      "item 4)")
+PLD_SLICE = ("progressive layer drop comes with the rest of the "
+             "single-card engine (ROADMAP Queue 1 item 4)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,9 +117,8 @@ class GPT2Config:
     quantized_compute: str = "off"
     quant_block: int = 128
     quant_stochastic_rounding: bool = False
-    sequence_parallel: Optional[str] = None
-    sp_mesh: Any = None
-    sp_axis: str = "model"
+    sequence_parallel: Optional[str] = None   # None | "ring" | "ulysses"
+    sp_group: Any = None    # torch.distributed process group; None = WORLD
     moe: Any = None
     initializer_range: float = 0.02
 
@@ -174,20 +187,49 @@ def check_supported(cfg: GPT2Config):
     resolve_quantized_compute(cfg.quantized_compute)   # ValueError if bad
     if cfg.quant_block <= 0:
         raise ValueError(f"quant_block must be > 0, got {cfg.quant_block}")
-    if cfg.sequence_parallel:
-        raise NotImplementedError(
-            "sequence parallelism (ring/ulysses, kernel K5) is ported in "
-            "the sequence-parallel slice")
+    if cfg.sequence_parallel and cfg.sequence_parallel not in SP_IMPLS:
+        raise ValueError(
+            f"sequence_parallel={cfg.sequence_parallel!r}; valid values: "
+            f"{sorted(SP_IMPLS)} or None")
     if cfg.attention_impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"attention_impl={cfg.attention_impl!r}: "
                          "expected 'auto', 'pallas' or 'xla'")
+
+
+SP_IMPLS = {"ring": ring_attention, "ulysses": ulysses_attention}
+
+
+def _sp_attention(cfg, q, k, v):
+    """Causal attention of the replicated [B, T, H, D] q/k/v over the
+    sequence-parallel group: the rank's chunk in, the chosen body, the
+    whole output back on every rank."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "sequence_parallel requires an initialized torch.distributed "
+            "process group (deepspeed_tpu_torch.init_distributed; "
+            "GPT2Config.sp_group, None for WORLD), as the JAX model "
+            "requires sp_mesh")
+    group = cfg.sp_group
+    ql, kl, vl = (scatter_sequence(x, group) for x in (q, k, v))
+    out = SP_IMPLS[cfg.sequence_parallel](
+        ql, kl, vl, group=group, causal=True,
+        head_packing=cfg.attention_head_packing)
+    return gather_sequence(out, group)
 
 
 def _attention(cfg, q, k, v, dropout_gen=None):
     """Causal attention over [B, T, H, D]: flash (kernel K1 on CUDA, its
     plain twin on the CPU) where usable, dense attention elsewhere;
     attention_impl="pallas" insists on flash, "xla" on dense. Dropout
-    (a `dropout_gen`) keeps to dense attention, as in the JAX model."""
+    (a `dropout_gen`) keeps to dense attention, as in the JAX model.
+    With `sequence_parallel`, ring or Ulysses attention over the group
+    (`_sp_attention`)."""
+    if cfg.sequence_parallel:
+        if dropout_gen is not None:
+            raise ValueError("attention dropout is not supported under "
+                             "sequence parallelism")
+        return _sp_attention(cfg, q, k, v)
     if cfg.attention_impl in ("pallas", "auto"):
         if flash_attention_usable(q, dropout_gen is None):
             return flash_attention(q, k, v, causal=True,

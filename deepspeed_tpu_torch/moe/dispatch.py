@@ -36,6 +36,6 @@ def dispatch_buffer_nbytes(num_experts, capacity, width, dtype, mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "expert-parallel meshes come with world size > 1 (ROADMAP "
-            "Queue 1 item 5)")
+            "Queue 1 item 6)")
     return 2 * int(num_experts) * int(capacity) * int(width) * \
         dtype.itemsize

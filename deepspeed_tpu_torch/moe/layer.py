@@ -37,7 +37,7 @@ from deepspeed_tpu_torch.moe.router import (_dense_masks, _gating_core,
                                             top_k_gating)
 
 EXPERT_MESH_SLICE = ("expert-parallel meshes come with world size > 1 "
-                     "(ROADMAP Queue 1 item 5)")
+                     "(ROADMAP Queue 1 item 6)")
 
 
 @dataclasses.dataclass(frozen=True)

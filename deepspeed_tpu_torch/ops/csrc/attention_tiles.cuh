@@ -1,5 +1,5 @@
-// Tiles and kernel bodies shared by the attention kernels: K1-fwd
-// (flash_attention_fwd.cu), K2 (flash_attention_bwd.cu) and K7
+// Tiles and kernel bodies shared by the attention kernels: K1-fwd and
+// K5 (flash_attention_fwd.cu), K2 (flash_attention_bwd.cu) and K7
 // (block_sparse_attention.cu).
 //
 // Every kernel works on 64-row tiles of one (batch, head) with 4 warps,
@@ -21,11 +21,20 @@
 //   Vis vis(int s, int q0, int k0) const
 // where Vis is a functor, bool operator()(int row, int col), for score
 // (row, col) of the 64 x 64 tile pair starting at positions (q0, k0).
+//
+// Head dims 64 and 128 keep whole rows in shared memory. Head dims 192
+// and 256 (dense flash only) take the "wide" bodies, which hold the rows
+// in two column halves of D / 2: the score products accumulate over the
+// halves, and the backward runs one CTA per output half, so that its
+// register accumulators are those of a D / 2 head (the scores are
+// computed by both halves' CTAs).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <type_traits>
 
 namespace attn {
 
@@ -100,14 +109,21 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int t0,
 }
 
 // s[16 rows, 0:64] = a[16 rows, :D] b[0:64, :D]^T (unscaled, fp32): the
-// 16 rows of one warp (a and s point at the warp's first row).
-template <int D>
+// 16 rows of one warp (a and s point at the warp's first row). With
+// Accumulate the product adds to what s holds (a second column half).
+template <int D, bool Accumulate = false>
 __device__ __forceinline__ void scores(const bf16* a, const bf16* b,
                                        float* s, int lane) {
   using L = Ld<bf16, D>;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kB / 16];
 #pragma unroll
-  for (int j = 0; j < kB / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+  for (int j = 0; j < kB / 16; ++j) {
+    if constexpr (Accumulate)
+      wmma::load_matrix_sync(acc[j], s + j * 16, L::LDS,
+                             wmma::mem_row_major);
+    else
+      wmma::fill_fragment(acc[j], 0.f);
+  }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
@@ -125,13 +141,20 @@ __device__ __forceinline__ void scores(const bf16* a, const bf16* b,
     wmma::store_matrix_sync(s + j * 16, acc[j], L::LDS, wmma::mem_row_major);
 }
 
-template <int D>
+template <int D, bool Accumulate = false>
 __device__ __forceinline__ void scores(const float* a, const float* b,
                                        float* s, int lane) {
   using L = Ld<float, D>;
   float acc[16][2];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int r = 0; r < 16; ++r) {
+    if constexpr (Accumulate) {
+      acc[r][0] = s[r * L::LDS + lane];
+      acc[r][1] = s[r * L::LDS + lane + 32];
+    } else {
+      acc[r][0] = acc[r][1] = 0.f;
+    }
+  }
   for (int d = 0; d < D; ++d) {
     const float b0 = b[lane * L::LD + d];
     const float b1 = b[(lane + 32) * L::LD + d];
@@ -412,24 +435,131 @@ struct BwdLayout : Ld<T, D> {
   static constexpr size_t bytes = stage_off + sizeof(float) * 4 * 256;
 };
 
+// Shared-memory layout of the wide forward (D 192, 256): Q and the fp32
+// O accumulator in two column halves of D / 2, one K or V half tile.
+template <typename T, int D>
+struct WideFwdLayout {
+  static constexpr int DC = D / 2;
+  using L = Ld<T, DC>;
+  static constexpr size_t tile = sizeof(T) * kB * L::LD;
+  static constexpr size_t q_off = 0;  // two halves
+  static constexpr size_t kv_off = q_off + 2 * tile;
+  static constexpr size_t s_off = kv_off + tile;
+  static constexpr size_t p_off = s_off + sizeof(float) * kB * L::LDS;
+  static constexpr size_t o_off = p_off + sizeof(T) * kB * L::LDP;
+  static constexpr size_t o_half = sizeof(float) * kB * L::LDO;
+  static constexpr size_t bytes = o_off + 2 * o_half;
+};
+
+// K5's operands: the prior softmax partial, prev_out fp32 [B, T, H, D]
+// read through its (b, t, h) strides and prev_lse [B*H, T] (log2 space,
+// -1e30 = an empty partial), and the block's own lse_n [B*H, T] that
+// the merge writes for the backward.
+struct MergeIn {
+  const float* prev_out;
+  long long pb, pt, ph;
+  const float* prev_lse;
+  float* lse_n;
+};
+
+// the forward's output type: K1 writes the input dtype, K5 fp32
+template <bool Merge, typename T>
+using FwdOut = std::conditional_t<Merge, float, T>;
+
+// The epilogue of one output row t of head (b, h), with the walk's
+// running max m and sum l and acc(c), the unnormalised fp32 accumulator
+// of column c. K1 writes out = acc / l and lse = m + log2(l); a row
+// that saw nothing (l = 0) writes out = 0 and lse = +inf, so that the
+// backward's exp2(s - lse) is 0. K5 folds the prior partial in:
+//   lse_n = m + log2(l),  mm = max(lse_n, lse_p)
+//   out = (prev * 2^(lse_p - mm) + acc * 2^(m - mm))
+//         / (2^(lse_p - mm) + 2^(lse_n - mm))
+//   lse = mm + log2(2^(lse_p - mm) + 2^(lse_n - mm))
+// (the 1/l folded into acc's weight 2^(m - mm)), and writes lse_n. A row
+// that saw nothing merges as an empty partial (lse_n = -inf: out = prev,
+// lse = lse_p) and keeps +inf in the lse_n the backward reads.
+template <typename T, int D, bool Merge, typename Acc>
+__device__ __forceinline__ void fwd_store_row(const Acc& acc, float m,
+                                              float l, int b, int h, int t,
+                                              int bh, int seq, int heads,
+                                              FwdOut<Merge, T>* out,
+                                              float* lse, const MergeIn& mg,
+                                              int lane) {
+  const float inf = __int_as_float(0x7f800000);
+  const long long row = static_cast<long long>(bh) * seq + t;
+  FwdOut<Merge, T>* orow =
+      out + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
+  if constexpr (!Merge) {
+    const float l_safe = fmaxf(l, 1e-30f);
+    for (int c = lane; c < D; c += 32)
+      orow[c] = from_float<T>(acc(c) / l_safe);
+    if (lane == 0) lse[row] = l > 0.f ? m + log2f(l) : inf;
+  } else {
+    const float lse_n = l > 0.f ? m + log2f(l) : -inf;
+    const float plse = mg.prev_lse[row];
+    const float mm = fmaxf(lse_n, plse);
+    const float w_p = exp2f(plse - mm);
+    const float w_sum = w_p + exp2f(lse_n - mm);
+    const float w_acc = exp2f(m - mm);
+    const float* prow = mg.prev_out + b * mg.pb + t * mg.pt + h * mg.ph;
+    for (int c = lane; c < D; c += 32)
+      orow[c] = (prow[c] * w_p + acc(c) * w_acc) / w_sum;
+    if (lane == 0) {
+      lse[row] = mm + log2f(w_sum);
+      mg.lse_n[row] = l > 0.f ? lse_n : inf;
+    }
+  }
+}
+
+// The online-softmax update of the warp's 16 rows for one tile pair:
+// reads the raw scores of sSw, writes p (value dtype) into sPw, updates
+// the running (m, l) and calls rescale(r, alpha) for the accumulator of
+// row r. Masked scores are -1e30. A row that has seen nothing visible
+// yet keeps m = -1e30 and its exponents use -5e29 instead, which sends
+// every masked p to exactly 0.
+template <typename T, typename Vis, typename Rescale>
+__device__ __forceinline__ void softmax_rows(const float* sSw, T* sPw,
+                                             float* m_r, float* l_r,
+                                             const Vis& vis, int row0,
+                                             int lane, float scale_log2,
+                                             const Rescale& rescale) {
+  using L = Ld<T, 64>;  // LDS and LDP do not depend on the head dim
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    float s0 = sSw[r * L::LDS + lane] * scale_log2;
+    float s1 = sSw[r * L::LDS + lane + 32] * scale_log2;
+    if (!vis(row0 + r, lane)) s0 = kNegInf;
+    if (!vis(row0 + r, lane + 32)) s1 = kNegInf;
+    const float m_new = fmaxf(m_r[r], warp_max(fmaxf(s0, s1)));
+    const float m_safe = fmaxf(m_new, 0.5f * kNegInf);
+    const float p0 = exp2f(s0 - m_safe);
+    const float p1 = exp2f(s1 - m_safe);
+    const float alpha = exp2f(fminf(m_r[r] - m_safe, 0.f));
+    l_r[r] = alpha * l_r[r] + warp_sum(p0 + p1);
+    m_r[r] = m_new;
+    // the P·V product takes p in the value dtype, the row sum in fp32
+    sPw[r * L::LDP + lane] = from_float<T>(p0);
+    sPw[r * L::LDP + lane + 32] = from_float<T>(p1);
+    rescale(r, alpha);
+  }
+}
+
 // Forward of one 64-row q tile of head (b, h): the online softmax in
 // log2 space over the walk's K/V tiles, the running max m and sum l of
 // each row in registers, the fp32 output accumulator in shared memory
-// (the rescale by alpha must know which element is which row). Masked
-// scores are -1e30. A row that has seen nothing visible yet keeps
-// m = -1e30 and its exponents use -5e29 instead, which sends every
-// masked p to exactly 0; a row whose whole walk saw nothing writes
-// out = 0 and lse = +inf, so that the backward's exp2(s - lse) is 0.
-// Writes out [B, T, H, D] and lse [B*H, T] (m + log2(l)).
-template <typename T, int D, typename Walk>
+// (the rescale by alpha must know which element is which row). Writes
+// out [B, T, H, D] and lse [B*H, T] through `fwd_store_row` (with Merge,
+// K5's merged out, lse and lse_n).
+template <typename T, int D, typename Walk, bool Merge = false>
 __device__ __forceinline__ void fwd_body(const T* __restrict__ q,
                                          const T* __restrict__ k,
                                          const T* __restrict__ v,
-                                         T* __restrict__ out,
+                                         FwdOut<Merge, T>* __restrict__ out,
                                          float* __restrict__ lse, int seq,
                                          int heads, const Strides& st,
                                          float scale_log2, int qt, int bh,
-                                         const Walk& walk) {
+                                         const Walk& walk,
+                                         const MergeIn& mg = MergeIn{}) {
   using L = FwdLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::q_off);
@@ -469,24 +599,11 @@ __device__ __forceinline__ void fwd_body(const T* __restrict__ q,
 
     scores<D>(sQw, sK, sSw, lane);
     __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      float s0 = sSw[r * L::LDS + lane] * scale_log2;
-      float s1 = sSw[r * L::LDS + lane + 32] * scale_log2;
-      if (!vis(row0 + r, lane)) s0 = kNegInf;
-      if (!vis(row0 + r, lane + 32)) s1 = kNegInf;
-      const float m_new = fmaxf(m_r[r], warp_max(fmaxf(s0, s1)));
-      const float m_safe = fmaxf(m_new, 0.5f * kNegInf);
-      const float p0 = exp2f(s0 - m_safe);
-      const float p1 = exp2f(s1 - m_safe);
-      const float alpha = exp2f(fminf(m_r[r] - m_safe, 0.f));
-      l_r[r] = alpha * l_r[r] + warp_sum(p0 + p1);
-      m_r[r] = m_new;
-      // the P·V product takes p in the value dtype, the row sum in fp32
-      sPw[r * L::LDP + lane] = from_float<T>(p0);
-      sPw[r * L::LDP + lane + 32] = from_float<T>(p1);
-      for (int c = lane; c < D; c += 32) sOw[r * L::LDO + c] *= alpha;
-    }
+    softmax_rows<T>(sSw, sPw, m_r, l_r, vis, row0, lane, scale_log2,
+                    [&](int r, float alpha) {
+                      for (int c = lane; c < D; c += 32)
+                        sOw[r * L::LDO + c] *= alpha;
+                    });
     __syncwarp();
     accumulate_pv<D>(sPw, sV, sOw, lane);
     __syncwarp();
@@ -495,15 +612,93 @@ __device__ __forceinline__ void fwd_body(const T* __restrict__ q,
 
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    const int t = qt * kB + row0 + r;
-    T* orow = out + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
-    const float l_safe = fmaxf(l_r[r], 1e-30f);
-    for (int c = lane; c < D; c += 32)
-      orow[c] = from_float<T>(sOw[r * L::LDO + c] / l_safe);
-    if (lane == 0)
-      lse[static_cast<long long>(bh) * seq + t] =
-          l_r[r] > 0.f ? m_r[r] + log2f(l_r[r])
-                       : __int_as_float(0x7f800000);  // +inf
+    const float* orow = sOw + r * L::LDO;
+    fwd_store_row<T, D, Merge>([&](int c) { return orow[c]; }, m_r[r],
+                               l_r[r], b, h, qt * kB + row0 + r, bh, seq,
+                               heads, out, lse, mg, lane);
+  }
+}
+
+// fwd_body for D 192 and 256: Q and the O accumulator in two column
+// halves (WideFwdLayout), the K tile loaded half by half with the score
+// product accumulating over the halves, then the V tile half by half,
+// each half's P·V into its own half of O.
+template <typename T, int D, typename Walk, bool Merge = false>
+__device__ __forceinline__ void fwd_body_wide(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, FwdOut<Merge, T>* __restrict__ out,
+    float* __restrict__ lse, int seq, int heads, const Strides& st,
+    float scale_log2, int qt, int bh, const Walk& walk,
+    const MergeIn& mg = MergeIn{}) {
+  constexpr int DC = D / 2;
+  using W = WideFwdLayout<T, D>;
+  using L = Ld<T, DC>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem + W::q_off);  // half c at c * kB * LD
+  T* sKV = reinterpret_cast<T*>(smem + W::kv_off);
+  float* sS = reinterpret_cast<float*>(smem + W::s_off);
+  T* sP = reinterpret_cast<T*>(smem + W::p_off);
+  float* sO = reinterpret_cast<float*>(smem + W::o_off);  // c * kB * LDO
+
+  const int b = bh / heads, h = bh % heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  const T* qh = q + b * st.qb + h * st.qh;
+  const T* kh = k + b * st.kb + h * st.kh;
+  const T* vh = v + b * st.vb + h * st.vh;
+
+  for (int c = 0; c < 2; ++c)
+    load_tile<T, DC>(sQ + c * kB * L::LD, qh + c * DC, qt * kB, st.qt);
+  for (int i = threadIdx.x; i < 2 * kB * L::LDO; i += kThreads) sO[i] = 0.f;
+  float* sSw = sS + row0 * L::LDS;
+  T* sPw = sP + row0 * L::LDP;
+  float* sOw0 = sO + row0 * L::LDO;
+  float* sOw1 = sO + kB * L::LDO + row0 * L::LDO;
+
+  float m_r[16], l_r[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    m_r[r] = kNegInf;
+    l_r[r] = 0.f;
+  }
+  const int n = walk.count();
+  for (int s = 0; s < n; ++s) {
+    const int kt = walk.tile(s);
+    const auto vis = walk.vis(s, qt * kB, kt * kB);
+    __syncthreads();  // every warp is done with the previous V half
+    load_tile<T, DC>(sKV, kh, kt * kB, st.kt);
+    __syncthreads();
+    scores<DC>(sQ + row0 * L::LD, sKV, sSw, lane);
+    __syncthreads();  // every warp is done with the first K half
+    load_tile<T, DC>(sKV, kh + DC, kt * kB, st.kt);
+    __syncthreads();
+    scores<DC, true>(sQ + kB * L::LD + row0 * L::LD, sKV, sSw, lane);
+    __syncwarp();
+    softmax_rows<T>(sSw, sPw, m_r, l_r, vis, row0, lane, scale_log2,
+                    [&](int r, float alpha) {
+                      for (int c = lane; c < DC; c += 32) {
+                        sOw0[r * L::LDO + c] *= alpha;
+                        sOw1[r * L::LDO + c] *= alpha;
+                      }
+                    });
+    __syncwarp();
+    for (int c = 0; c < 2; ++c) {
+      __syncthreads();  // every warp is done with the K or V half held
+      load_tile<T, DC>(sKV, vh + c * DC, kt * kB, st.vt);
+      __syncthreads();
+      accumulate_pv<DC>(sPw, sKV, c == 0 ? sOw0 : sOw1, lane);
+    }
+    __syncwarp();
+  }
+  __syncthreads();  // the zeroed O is in place even after an empty walk
+
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const float* o0 = sOw0 + r * L::LDO;
+    const float* o1 = sOw1 + r * L::LDO;
+    fwd_store_row<T, D, Merge>(
+        [&](int c) { return c < DC ? o0[c] : o1[c - DC]; }, m_r[r], l_r[r],
+        b, h, qt * kB + row0 + r, bh, seq, heads, out, lse, mg, lane);
   }
 }
 
@@ -668,11 +863,190 @@ __device__ __forceinline__ void dq_body(
   acc_dq.store(dq + first, row_stride, stage + warp * 256, lane);
 }
 
+// The backward of D 192 and 256: one CTA per 64-row tile and column
+// half `half` (DC = D / 2) of its output. BwdLayout<T, DC> holds Q, dO,
+// K and V one column half at a time; S = Q K^T and dP = dO V^T
+// accumulate over the two halves, the CTA's own half loaded last so
+// that its Q and dO (dK/dV) or K (dQ) are in place for the products,
+// and WarpAcc<T, DC> keeps the accumulators of a DC-wide head.
+template <typename T, int D>
+__device__ __forceinline__ void wide_scores(
+    const T* qh, const T* dh, const T* kh, const T* vh, const Strides& st,
+    int qt, int kt, int half, T* sQ, T* sdO, T* sK, T* sV, float* sS,
+    float* sdP, int warp, int lane) {
+  constexpr int DC = D / 2;
+  using L = BwdLayout<T, DC>;
+  for (int i = 0; i < 2; ++i) {
+    const int c = i == 0 ? 1 - half : half;
+    __syncthreads();  // every warp is done with the halves held
+    load_tile<T, DC>(sQ, qh + c * DC, qt * kB, st.qt);
+    load_tile<T, DC>(sdO, dh + c * DC, qt * kB, st.dt);
+    load_tile<T, DC>(sK, kh + c * DC, kt * kB, st.kt);
+    load_tile<T, DC>(sV, vh + c * DC, kt * kB, st.vt);
+    __syncthreads();
+    float* s = sS + warp * 16 * L::LDS;
+    float* dp = sdP + warp * 16 * L::LDS;
+    if (i == 0) {
+      scores<DC>(sQ + warp * 16 * L::LD, sK, s, lane);
+      scores<DC>(sdO + warp * 16 * L::LD, sV, dp, lane);
+    } else {
+      scores<DC, true>(sQ + warp * 16 * L::LD, sK, s, lane);
+      scores<DC, true>(sdO + warp * 16 * L::LD, sV, dp, lane);
+    }
+  }
+}
+
+template <typename T, int D, typename Walk>
+__device__ __forceinline__ void dkv_body_wide(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, int seq, int heads,
+    const Strides& st, float scale_log2, float sm_scale, int kt, int bh,
+    int half, const Walk& walk) {
+  constexpr int DC = D / 2;
+  using L = BwdLayout<T, DC>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem + L::q_off);
+  T* sdO = reinterpret_cast<T*>(smem + L::do_off);
+  T* sK = reinterpret_cast<T*>(smem + L::k_off);
+  T* sV = reinterpret_cast<T*>(smem + L::v_off);
+  float* sS = reinterpret_cast<float*>(smem + L::s_off);
+  float* sdP = reinterpret_cast<float*>(smem + L::dp_off);
+  T* sP = reinterpret_cast<T*>(smem + L::p_off);
+  T* sdS = reinterpret_cast<T*>(smem + L::ds_off);
+  float* sL = reinterpret_cast<float*>(smem + L::lse_off);
+  float* sDl = reinterpret_cast<float*>(smem + L::delta_off);
+  float* stage = reinterpret_cast<float*>(smem + L::stage_off);
+
+  const int b = bh / heads, h = bh % heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* qh = q + b * st.qb + h * st.qh;
+  const T* dh = dout + b * st.db + h * st.dh;
+  const T* kh = k + b * st.kb + h * st.kh;
+  const T* vh = v + b * st.vb + h * st.vh;
+  const float* lse_h = lse + static_cast<long long>(bh) * seq;
+  const float* delta_h = delta + static_cast<long long>(bh) * seq;
+  WarpAcc<T, DC> acc_dk, acc_dv;
+  acc_dk.zero();
+  acc_dv.zero();
+
+  const int n = walk.count();
+  for (int s = 0; s < n; ++s) {
+    const int qt = walk.tile(s);
+    const auto vis = walk.vis(s, qt * kB, kt * kB);
+    __syncthreads();  // every warp is done with the previous lse/delta
+    for (int i = threadIdx.x; i < kB; i += kThreads) {
+      sL[i] = lse_h[qt * kB + i];
+      sDl[i] = delta_h[qt * kB + i];
+    }
+    wide_scores<T, D>(qh, dh, kh, vh, st, qt, kt, half, sQ,
+                                     sdO, sK, sV, sS, sdP, warp, lane);
+    __syncwarp();
+    p_and_ds<T, DC>(sS, sdP, sP, sdS, sL, sDl, warp, lane, scale_log2,
+                    sm_scale, vis);
+    __syncthreads();  // every query row's P and dS is in place
+    acc_dv.mma_cols(sP + warp * 16, L::LDP, sdO, L::LD, lane);
+    acc_dk.mma_cols(sdS + warp * 16, L::LDP, sQ, L::LD, lane);
+  }
+
+  const long long row_stride = static_cast<long long>(heads) * D;
+  const long long first =
+      (static_cast<long long>(b) * seq + kt * kB + warp * 16) * row_stride +
+      static_cast<long long>(h) * D + half * DC;
+  acc_dk.store(dk + first, row_stride, stage + warp * 256, lane);
+  acc_dv.store(dv + first, row_stride, stage + warp * 256, lane);
+}
+
+template <typename T, int D, typename Walk>
+__device__ __forceinline__ void dq_body_wide(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dq, int seq, int heads, const Strides& st,
+    float scale_log2, float sm_scale, int qt, int bh, int half,
+    const Walk& walk) {
+  constexpr int DC = D / 2;
+  using L = BwdLayout<T, DC>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem + L::q_off);
+  T* sdO = reinterpret_cast<T*>(smem + L::do_off);
+  T* sK = reinterpret_cast<T*>(smem + L::k_off);
+  T* sV = reinterpret_cast<T*>(smem + L::v_off);
+  float* sS = reinterpret_cast<float*>(smem + L::s_off);
+  float* sdP = reinterpret_cast<float*>(smem + L::dp_off);
+  T* sdS = reinterpret_cast<T*>(smem + L::ds_off);
+  float* sL = reinterpret_cast<float*>(smem + L::lse_off);
+  float* sDl = reinterpret_cast<float*>(smem + L::delta_off);
+  float* stage = reinterpret_cast<float*>(smem + L::stage_off);
+
+  const int b = bh / heads, h = bh % heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* qh = q + b * st.qb + h * st.qh;
+  const T* dh = dout + b * st.db + h * st.dh;
+  const T* kh = k + b * st.kb + h * st.kh;
+  const T* vh = v + b * st.vb + h * st.vh;
+  const float* lse_h = lse + static_cast<long long>(bh) * seq;
+  const float* delta_h = delta + static_cast<long long>(bh) * seq;
+  for (int i = threadIdx.x; i < kB; i += kThreads) {
+    sL[i] = lse_h[qt * kB + i];
+    sDl[i] = delta_h[qt * kB + i];
+  }
+  WarpAcc<T, DC> acc_dq;
+  acc_dq.zero();
+
+  const int n = walk.count();
+  for (int s = 0; s < n; ++s) {
+    const int kt = walk.tile(s);
+    const auto vis = walk.vis(s, qt * kB, kt * kB);
+    wide_scores<T, D>(qh, dh, kh, vh, st, qt, kt, half, sQ,
+                                     sdO, sK, sV, sS, sdP, warp, lane);
+    __syncwarp();
+    p_and_ds<T, DC>(sS, sdP, static_cast<T*>(nullptr), sdS, sL, sDl, warp,
+                    lane, scale_log2, sm_scale, vis);
+    __syncwarp();
+    // dQ += dS K over the warp's own 16 query rows, K's own half
+    acc_dq.mma_rows(sdS + warp * 16 * L::LDP, L::LDP, sK, L::LD, lane);
+    __syncwarp();
+  }
+
+  const long long row_stride = static_cast<long long>(heads) * D;
+  const long long first =
+      (static_cast<long long>(b) * seq + qt * kB + warp * 16) * row_stride +
+      static_cast<long long>(h) * D + half * DC;
+  acc_dq.store(dq + first, row_stride, stage + warp * 256, lane);
+}
+
 // Raise a kernel's dynamic shared-memory limit to its layout's size.
 template <typename Kernel>
 void allow_smem(Kernel kernel, size_t bytes) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(bytes));
+}
+
+// (input dtype, head dim) as types, for `dispatch_dense`
+template <typename T_, int D_>
+struct Kind {
+  using T = T_;
+  static constexpr int D = D_;
+};
+
+// fn(Kind<T, D>{}) for dtype (0 = float32, 1 = bfloat16) and the dense
+// kernels' head dims 64, 128, 192, 256; -1 for anything else.
+template <typename Fn>
+int dispatch_dense(int dtype, int head_dim, Fn&& fn) {
+  if (dtype == 1) {
+    if (head_dim == 64) return fn(Kind<bf16, 64>{});
+    if (head_dim == 128) return fn(Kind<bf16, 128>{});
+    if (head_dim == 192) return fn(Kind<bf16, 192>{});
+    if (head_dim == 256) return fn(Kind<bf16, 256>{});
+  } else if (dtype == 0) {
+    if (head_dim == 64) return fn(Kind<float, 64>{});
+    if (head_dim == 128) return fn(Kind<float, 128>{});
+    if (head_dim == 192) return fn(Kind<float, 192>{});
+    if (head_dim == 256) return fn(Kind<float, 256>{});
+  }
+  return -1;
 }
 
 }  // namespace attn

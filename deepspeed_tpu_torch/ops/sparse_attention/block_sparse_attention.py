@@ -27,10 +27,14 @@ run the kernels' algorithms in PyTorch: the same tile walks (all tiles of
 a walk step at once), the online softmax in log2 space with masked
 scores at -1e30, fp32 sums, p and dS rounded to the input dtype before
 their products. A CPU tensor takes the twins; a CUDA tensor launches the
-kernels or raises on what they do not take (T not a multiple of 64, a
-head dim other than 64 or 128, a block other than 16-256, fp16). The
-twins also take those shapes: their tile is the layout block where 64
-does not fit or the block is under 16.
+kernels or raises on what they do not take (a head dim above 128, a
+block other than 16-256, fp16). On the card, `block_sparse_attention`
+pads a T that is no multiple of 64 with layout blocks that no row sees
+and whose rows see nothing, and a head dim under 128 with zeros to 64 or
+128 (sm_scale from the true head dim); the padding is sliced off the
+output and so off dQ/dK/dV. The twins take those shapes as they are:
+their tile is the layout block where 64 does not fit or the block is
+under 16.
 
 Built tables and their device copies are cached by (layout bytes,
 causal, block, tile, device), so the host work and the copy to the card
@@ -45,11 +49,12 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
-    _DTYPE_CODE, _KERNEL_HEAD_DIMS, LOG2E, NEG_INF, _check_kernel_operand,
-    _kernel_readable, _strides, dense_attention)
+    _DTYPE_CODE, LOG2E, NEG_INF, _check_kernel_operand, _kernel_readable,
+    _strides, dense_attention)
 
 # the kernels' tile: 64 query rows x 64 key rows per step
 TILE = 64
+_KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_BLOCKS = (16, 32, 64, 128, 256)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.POINTER(ctypes.c_longlong)
@@ -507,7 +512,7 @@ def _check_kernel_args(q, block, *others):
     if q.dtype == torch.float16:
         raise NotImplementedError(
             "block-sparse attention kernels: float16 is not in the port "
-            "yet (ROADMAP Queue 1 item 10); use bfloat16 or float32")
+            "yet (ROADMAP Queue 1 item 4); use bfloat16 or float32")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"block-sparse kernel: dtype {q.dtype} not "
                         "supported (float32 or bfloat16)")
@@ -700,6 +705,28 @@ def _tile_for(t, block):
     return block
 
 
+def _pad_for_kernel(q, k, v, layout, block):
+    """The kernels' shapes for a call on the card: T padded up to a
+    multiple of TILE with layout blocks that no row sees and whose rows
+    see nothing (zero rows and columns of the layout), D padded with
+    zeros up to 64 or 128. Shapes the kernels reject otherwise (a head
+    dim above 128, a block they do not take) are left for the launch to
+    raise on."""
+    b, t, h, d = q.shape
+    if block not in _KERNEL_BLOCKS or d > max(_KERNEL_HEAD_DIMS):
+        return q, k, v, layout
+    tp = -(-t // TILE) * TILE
+    dp = next(x for x in _KERNEL_HEAD_DIMS if x >= d)
+    if (tp, dp) == (t, d):
+        return q, k, v, layout
+    q, k, v = (torch.nn.functional.pad(x, (0, dp - d, 0, 0, 0, tp - t))
+               for x in (q, k, v))
+    nb, nbp = layout.shape[-1], tp // block
+    padded = np.zeros((layout.shape[0], nbp, nbp), layout.dtype)
+    padded[:, :nb, :nb] = layout
+    return q, k, v, padded
+
+
 def block_sparse_attention(q, k, v, layout, block, causal=False,
                            sm_scale=None, head_packing="auto"):
     """Block-sparse attention over [B, T, H, D]; returns [B, T, H, D].
@@ -744,10 +771,15 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if sm_scale is None:
         sm_scale = 1.0 / np.sqrt(d)
-    plan = _plan(layout, causal, block, _tile_for(t, block), q.device)
+    if q.is_cuda:
+        q, k, v, layout = _pad_for_kernel(q, k, v, layout, block)
+    plan = _plan(layout, causal, block, _tile_for(q.shape[1], block),
+                 q.device)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _BlockSparseAttention.apply(q, k, v, plan, float(sm_scale))
-    return _forward(q, k, v, plan, float(sm_scale))[0]
+        out = _BlockSparseAttention.apply(q, k, v, plan, float(sm_scale))
+    else:
+        out = _forward(q, k, v, plan, float(sm_scale))[0]
+    return out[:, :t, :, :d] if out.shape != (b, t, h, d) else out
 
 
 def block_sparse_attention_dense_fallback(q, k, v, layout, block,

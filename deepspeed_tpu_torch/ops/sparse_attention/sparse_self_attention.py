@@ -113,10 +113,14 @@ class BertSparseSelfAttention(nn.Module):
     (ref `bert_sparse_self_attention.py:9`): `query`/`key`/`value`
     projections (nn.Linear, fp32 parameters on `device`, computed in
     `dtype` as flax's nn.Dense(dtype=...) does), then SparseSelfAttention
-    with the attention mask in "mul" mode."""
+    with the attention mask in "mul" mode. The projections start as
+    flax's nn.Dense does: lecun-normal weights (a normal truncated at two
+    standard deviations, variance 1 / fan_in) and zero biases, drawn from
+    a torch generator seeded with `seed` (torch's draws, not JAX's)."""
 
     def __init__(self, hidden_size, num_attention_heads,
-                 sparsity_config=None, dtype=torch.float32, device="cuda"):
+                 sparsity_config=None, dtype=torch.float32, device="cuda",
+                 seed=0):
         super().__init__()
         if hidden_size % num_attention_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
@@ -128,6 +132,16 @@ class BertSparseSelfAttention(nn.Module):
         self.query, self.key, self.value = (
             nn.Linear(hidden_size, hidden_size, device=dev)
             for _ in range(3))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        # flax's truncated_normal(-2, 2) scaled so the variance is
+        # 1 / fan_in: its std divided by the truncated unit normal's std
+        std = (1.0 / hidden_size) ** 0.5 / 0.87962566103423978
+        with torch.no_grad():
+            for lin in (self.query, self.key, self.value):
+                nn.init.trunc_normal_(lin.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=gen)
+                lin.bias.zero_()
         self.sparse_attn = SparseSelfAttention(
             sparsity_config=sparsity_config or
             FixedSparsityConfig(num_heads=num_attention_heads),

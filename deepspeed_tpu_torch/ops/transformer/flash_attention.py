@@ -1,18 +1,22 @@
-"""Flash attention: forward (kernel K1-fwd) and backward (kernel K2).
+"""Flash attention: forward (kernel K1-fwd), backward (kernel K2) and
+the forward merged with a prior softmax partial (kernel K5).
 
 Port of deepspeed_tpu/ops/transformer/flash_attention.py. The Pallas
 forward kernels `_fwd_kernel` / `_fwd_kernel_packed` become the
-hand-written CUDA kernel `ops/csrc/flash_attention_fwd.cu`, and the
-backward kernels (`_bwd_dkv_kernel`, `_bwd_dq_kernel`,
+hand-written CUDA kernel `ops/csrc/flash_attention_fwd.cu` (K1-fwd, and
+K5 in their merge mode: `flash_attention_merge`, the ring-attention
+step), and the backward kernels (`_bwd_dkv_kernel`, `_bwd_dq_kernel`,
 `_bwd_fused_kernel` and their packed twins) become
-`ops/csrc/flash_attention_bwd.cu`. The plain PyTorch twins
-`_flash_fwd_plain` / `_flash_bwd_plain` below run the same 64x64 tiled
-algorithms (log2 space, -1e30 masking, causal tiles above the diagonal
-skipped) and are what CPU tensors take. A `torch.autograd.Function`
-joins the two halves, so `flash_attention` and
-`flash_attention_with_lse` are differentiable in every output (the lse
-cotangent enters the backward as a shift of delta, as in the JAX
-package). The ring-merge mode (K5) comes with a later slice.
+`ops/csrc/flash_attention_bwd.cu` (K2, with a given-delta entry for
+K5's backward). The plain PyTorch twins `_flash_fwd_plain`,
+`_flash_merge_plain` and `_flash_bwd_plain` below run the same 64x64
+tiled algorithms (log2 space, -1e30 masking, causal tiles above the
+diagonal skipped) and are what CPU tensors take. `torch.autograd.
+Function`s join the halves, so `flash_attention`,
+`flash_attention_with_lse` and `flash_attention_merge` are
+differentiable in every input and output (the lse cotangent enters the
+backward as a shift of delta, as in the JAX package). The kernels take
+head dims 64, 128, 192 and 256.
 
 Layout: [B, T, H, D] at every public function, as in the JAX package.
 The lse is returned as [B, H, T, 1] in LOG2 space (m + log2(l) over
@@ -35,10 +39,14 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 # the CUDA kernel's tile: 64 query rows x 64 key rows per step
 KERNEL_BLOCK = 64
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+LN2 = 0.6931471805599453
 _DEFAULT_BLOCK = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
+    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_MERGE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
     [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
@@ -132,20 +140,20 @@ def _resolve_head_packing(head_packing, d):
 # ----------------------------------------------------------------------
 # plain twins: the kernels' tiled algorithms in PyTorch
 # ----------------------------------------------------------------------
-def _flash_fwd_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
-    """(out [B,T,H,D] in q.dtype, lse [B,H,T] fp32 log2 space) by the
-    kernel's algorithm: per q tile, walk the k tiles (causal: up to the
-    diagonal) carrying the running max m, sum l and fp32 accumulator;
-    scores are fp32 products scaled by sm_scale*log2(e) with masked
-    entries at -1e30; the P·V product takes p in v's dtype."""
+def _flash_tiles_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
+    """The kernel's walk, one q tile at a time: yields (rows, m, l, acc)
+    with the running max m and sum l [B, H, block, 1] and the fp32
+    accumulator [B, H, block, D] after the tile's last k tile (causal:
+    up to the diagonal). Scores are fp32 products scaled by
+    sm_scale*log2(e) with masked entries at -1e30, the exponents of a
+    row that has seen nothing visible use -5e29 (so masked p are 0),
+    and the P·V product takes p in v's dtype."""
     b, t, h, d = q.shape
     f32 = torch.float32
     scale = float(sm_scale * LOG2E)
     qh = q.permute(0, 2, 1, 3)                    # [B, H, T, D]
     kh = k.permute(0, 2, 1, 3)
     vh = v.permute(0, 2, 1, 3)
-    out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, t), dtype=f32, device=q.device)
     nblk = t // block
     for qi in range(nblk):
         rows = slice(qi * block, (qi + 1) * block)
@@ -165,31 +173,82 @@ def _flash_fwd_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
                                     device=q.device)
                 s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            p = torch.exp2(s - m_new)
-            alpha = torch.exp2(m - m_new)
+            m_safe = m_new.clamp(min=NEG_INF / 2)
+            p = torch.exp2(s - m_safe)
+            alpha = torch.exp2((m - m_safe).clamp(max=0.0))
             l = alpha * l + p.sum(dim=-1, keepdim=True)
             pv = torch.matmul(p.to(v.dtype).to(f32), vh[:, :, cols].to(f32))
             acc = acc * alpha + pv
             m = m_new
+        yield rows, m, l, acc
+
+
+def _flash_fwd_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
+    """(out [B,T,H,D] in q.dtype, lse [B,H,T] fp32 log2 space) by the
+    kernel's algorithm (`_flash_tiles_plain`): out = acc / l,
+    lse = m + log2(l)."""
+    b, t, h, d = q.shape
+    out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    for rows, m, l, acc in _flash_tiles_plain(q, k, v, sm_scale, causal,
+                                              block):
         out[:, :, rows] = (acc / l).to(q.dtype)
         lse[:, :, rows] = (m + torch.log2(l))[..., 0]
     return out.permute(0, 2, 1, 3), lse
 
 
+def _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale, causal,
+                       block=KERNEL_BLOCK):
+    """K5's algorithm: (out fp32 [B,T,H,D], lse [B,H,T], lse_n [B,H,T])
+    of flash attention over (k, v) merged with the prior partial
+    (prev_out [B,T,H,D], prev_lse [B,H,T] log2 space, -1e30 = empty) in
+    the epilogue, as the JAX kernel's merge mode computes it: with the
+    block's lse_n = m + log2(l) and mm = max(lse_n, prev_lse),
+    out = (prev * 2^(prev_lse - mm) + acc * 2^(m - mm))
+          / (2^(prev_lse - mm) + 2^(lse_n - mm)),
+    lse = mm + log2(the denominator). A row of the block that saw
+    nothing merges as an empty partial (lse_n = -inf) and returns
+    lse_n = +inf, the kernel's mark for the backward."""
+    b, t, h, d = q.shape
+    f32 = torch.float32
+    inf = torch.tensor(float("inf"), dtype=f32, device=q.device)
+    prev = prev_out.to(f32).permute(0, 2, 1, 3)   # [B, H, T, D]
+    out = torch.empty((b, h, t, d), dtype=f32, device=q.device)
+    lse = torch.empty((b, h, t), dtype=f32, device=q.device)
+    lse_n = torch.empty((b, h, t), dtype=f32, device=q.device)
+    for rows, m, l, acc in _flash_tiles_plain(q, k, v, sm_scale, causal,
+                                              block):
+        ln = torch.where(l > 0, m + torch.log2(l), -inf)
+        plse = prev_lse[:, :, rows, None].to(f32)
+        mm = torch.maximum(ln, plse)
+        w_p = torch.exp2(plse - mm)
+        w_sum = w_p + torch.exp2(ln - mm)
+        out[:, :, rows] = (prev[:, :, rows] * w_p +
+                           acc * torch.exp2(m - mm)) / w_sum
+        lse[:, :, rows] = (mm + torch.log2(w_sum))[..., 0]
+        lse_n[:, :, rows] = torch.where(l > 0, ln, inf)[..., 0]
+    return out.permute(0, 2, 1, 3), lse, lse_n
+
+
 def _flash_bwd_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
-                     block=KERNEL_BLOCK):
+                     block=KERNEL_BLOCK, delta=None):
     """(dq, dk, dv) [B,T,H,D] in the input dtype by the kernel's
     algorithm: delta = rowsum(dO * O) - log2(e) * dlse; per (q tile,
     k tile) pair at or below the diagonal, P = exp2(S - lse) from the
     log2(e)-scaled scores (masked at -1e30), dP = dO V^T,
     dS = P (dP - delta) sm_scale; dV += P^T dO with P in dO's dtype,
     dK += dS^T Q and dQ += dS K with dS in q's dtype, fp32 sums. `lse`
-    and `dlse` (or None) are [B, H, T] fp32."""
+    and `dlse` (or None) are [B, H, T] fp32. A given `delta` [B, H, T]
+    (the given-delta entry: out may be None) takes the place of
+    rowsum(dO * O)."""
     b, t, h, d = q.shape
     f32 = torch.float32
     scale = float(sm_scale * LOG2E)
     qh, kh, vh, gh = (x.permute(0, 2, 1, 3).to(f32) for x in (q, k, v, g))
-    delta = (g.to(f32) * out.to(f32)).sum(dim=-1).permute(0, 2, 1)
+    if delta is None:
+        delta = (g.to(f32) * out.to(f32)).sum(dim=-1).permute(0, 2, 1)
+    else:
+        delta = delta.to(f32)
     if dlse is not None:
         delta = delta - LOG2E * dlse.to(f32)
     dq = torch.zeros((b, h, t, d), dtype=f32, device=q.device)
@@ -257,7 +316,8 @@ def _check_kernel_shape(q):
                         "(float32 or bfloat16)")
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel: head_dim {d} not in "
-                         f"{_KERNEL_HEAD_DIMS}")
+                         f"{_KERNEL_HEAD_DIMS} (the CUDA kernels' head "
+                         "dims; the CPU twins take any)")
     if t % KERNEL_BLOCK:
         raise ValueError(f"flash kernel: T={t} is no multiple of "
                          f"{KERNEL_BLOCK}")
@@ -290,44 +350,87 @@ def _flash_fwd_launch(q, k, v, sm_scale, causal):
     return out, lse
 
 
-def _flash_bwd_launch(q, k, v, out, lse, g, dlse, sm_scale, causal):
+def _check_lse(name, x, b, h, t):
+    if x is not None and (x.shape != (b, h, t) or
+                          x.dtype != torch.float32 or not x.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous fp32 "
+                         f"[{b}, {h}, {t}] tensor")
+
+
+def _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale, causal):
+    """K5 on the card: (out fp32 [B,T,H,D], lse, lse_n [B,H,T])."""
     from deepspeed_tpu_torch.ops import _build
     b, t, h, d = q.shape
-    for name, x in (("q", q), ("k", k), ("v", v), ("out", out),
-                    ("dout", g)):
+    for name, x in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, x, q)
     _check_kernel_shape(q)
-    for name, x in (("lse", lse), ("dlse", dlse)):
-        if x is not None and (x.shape != (b, h, t) or
-                              x.dtype != torch.float32 or
-                              not x.is_contiguous()):
-            raise ValueError(f"{name}: expected a contiguous fp32 "
-                             f"[{b}, {h}, {t}] tensor")
-    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-                  for _ in range(3))
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_attention_bwd", "ds_flash_attn_bwd",
-                         _BWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             g.data_ptr(), lse.data_ptr(),
-             dlse.data_ptr() if dlse is not None else None,
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-             b, t, h, d, _strides(q, k, v, out, g),
-             float(sm_scale * LOG2E), float(sm_scale), int(bool(causal)),
+    if prev_out.shape != q.shape or prev_out.dtype != torch.float32 or \
+            prev_out.device != q.device or prev_out.stride(3) != 1:
+        raise ValueError("prev_out: expected an fp32 [B, T, H, D] tensor "
+                         "on q's device with a contiguous head dim")
+    _check_lse("prev_lse", prev_lse, b, h, t)
+    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    lse, lse_n = (torch.empty((b, h, t), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    fn = _build.function("flash_attention_fwd", "ds_flash_attn_fwd_merge",
+                         _MERGE_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), prev_out.data_ptr(),
+             prev_lse.data_ptr(), out.data_ptr(), lse.data_ptr(),
+             lse_n.data_ptr(), b, t, h, d, _strides(q, k, v, prev_out),
+             float(sm_scale * LOG2E), int(bool(causal)),
              _DTYPE_CODE[q.dtype], q.device.index or 0,
              _build.stream_ptr(q))
+    _build.check(err, "flash_attention merge kernel")
+    flash_attention_merge.launches += 1
+    return out, lse, lse_n
+
+
+def _flash_bwd_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
+                      delta=None):
+    from deepspeed_tpu_torch.ops import _build
+    b, t, h, d = q.shape
+    operands = [("q", q), ("k", k), ("v", v), ("dout", g)]
+    if delta is None:
+        operands.append(("out", out))
+    for name, x in operands:
+        _check_kernel_operand(name, x, q)
+    _check_kernel_shape(q)
+    for name, x in (("lse", lse), ("dlse", dlse), ("delta", delta)):
+        _check_lse(name, x, b, h, t)
+    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    work = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    dlse_ptr = dlse.data_ptr() if dlse is not None else None
+    tail = (b, t, h, d, _strides(q, k, v, g if out is None else out, g),
+            float(sm_scale * LOG2E), float(sm_scale), int(bool(causal)),
+            _DTYPE_CODE[q.dtype], q.device.index or 0, _build.stream_ptr(q))
+    if delta is None:
+        fn = _build.function("flash_attention_bwd", "ds_flash_attn_bwd",
+                             _BWD_ARGTYPES)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 g.data_ptr(), lse.data_ptr(), dlse_ptr, dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), work.data_ptr(), *tail)
+    else:
+        fn = _build.function("flash_attention_bwd", "ds_flash_attn_bwd_delta",
+                             _BWD_ARGTYPES)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 lse.data_ptr(), dlse_ptr, delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), work.data_ptr(), *tail)
     _build.check(err, "flash_attention backward kernel")
     flash_attention_backward.launches += 1
     return dq, dk, dv
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, dlse=None,
-                             sm_scale=None, causal=True):
+                             sm_scale=None, causal=True, delta=None):
     """(dq, dk, dv) of flash attention from the forward's (out, lse)
     (lse [B, H, T] fp32 in log2 space, as `_flash_fwd_launch` and
     `_flash_fwd_plain` write it), the output cotangent `dout` and an
-    optional lse cotangent `dlse` [B, H, T]. CUDA tensors launch kernel
-    K2; CPU tensors take the plain twin."""
+    optional lse cotangent `dlse` [B, H, T]. With `delta` [B, H, T]
+    given (K5's backward), out is not read and may be None. CUDA tensors
+    launch kernel K2; CPU tensors take the plain twin."""
+    if out is None and delta is None:
+        raise ValueError("flash_attention_backward needs out or delta")
     if sm_scale is None:
         sm_scale = 1.0 / np.sqrt(q.shape[-1])
     if dlse is not None:
@@ -336,9 +439,9 @@ def flash_attention_backward(q, k, v, out, lse, dout, dlse=None,
         if not _kernel_readable(dout):
             dout = dout.contiguous()
         return _flash_bwd_launch(q, k, v, out, lse, dout, dlse,
-                                 float(sm_scale), causal)
+                                 float(sm_scale), causal, delta)
     return _flash_bwd_plain(q, k, v, out, lse, dout, dlse, float(sm_scale),
-                            causal)
+                            causal, delta=delta)
 
 
 flash_attention_backward.launches = 0
@@ -367,6 +470,70 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _merge_forward(q, k, v, prev_out, prev_lse, sm_scale, causal):
+    if q.is_cuda:
+        return _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale,
+                                   causal)
+    if q.shape[1] % KERNEL_BLOCK:
+        raise ValueError(f"flash attention: T={q.shape[1]} is no "
+                         f"multiple of {KERNEL_BLOCK}")
+    return _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale, causal)
+
+
+class _FlashMerge(torch.autograd.Function):
+    """(out, lse [B, H, T]) = flash attention of (q, k, v) merged with
+    (prev_out, prev_lse [B, H, T]): K5 (or its twin) forward, and the JAX
+    package's `_flash_merge_bwd` backward. With the merge weights
+    a_p = 2^(lse_p - lse), a_n = 2^(lse_n - lse) and the row sums
+    R_x = sum_d(g_out * o_x):
+        d prev_out = g_out a_p,          d o_n = g_out a_n
+        d prev_lse = ln2 a_p (R_p - R_m) + g_lse a_p
+        d lse_n    = ln2 a_p (R_m - R_p) + g_lse a_n
+        delta_n    = R_m - a_p R_p
+    from the saved tensors only (the block's own partial o_n is never
+    rebuilt), then K2 (or its twin) on (d o_n, lse_n, d lse_n) with
+    delta_n given. d o_n enters K2 in q's dtype, the kernel's dO type."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prev_out, prev_lse, sm_scale, causal):
+        out, lse, lse_n = _merge_forward(q, k, v, prev_out, prev_lse,
+                                         sm_scale, causal)
+        ctx.save_for_backward(q, k, v, prev_out, prev_lse, out, lse, lse_n)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, prev_out, prev_lse, out_m, lse_m, lse_n = ctx.saved_tensors
+        f32 = torch.float32
+        go = torch.zeros_like(out_m) if g_out is None else g_out.to(f32)
+        gl = torch.zeros_like(lse_m) if g_lse is None else g_lse.to(f32)
+        # an empty row of the block (lse_n = +inf, K2's mark) has a_n = 0
+        ln = torch.where(torch.isposinf(lse_n),
+                         torch.full_like(lse_n, float("-inf")), lse_n)
+        a_p = torch.exp2(prev_lse.to(f32) - lse_m)          # [B, H, T]
+        a_n = torch.exp2(ln - lse_m)
+
+        def rowsum(x, y):       # [B,T,H,D] x [B,T,H,D] -> [B,H,T]
+            return (x * y.to(f32)).sum(dim=-1).transpose(1, 2)
+
+        def per_row(x):         # [B,H,T] -> [B,T,H,1]
+            return x.transpose(1, 2)[..., None]
+
+        r_m = rowsum(go, out_m)
+        r_p = rowsum(go, prev_out)
+        d_prev_out = go * per_row(a_p)
+        d_o_n = (go * per_row(a_n)).to(q.dtype)
+        d_prev_lse = LN2 * a_p * (r_p - r_m) + gl * a_p
+        d_lse_n = LN2 * a_p * (r_m - r_p) + gl * a_n
+        delta_n = (r_m - a_p * r_p).contiguous()
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, None, lse_n, d_o_n, d_lse_n, ctx.sm_scale, ctx.causal,
+            delta=delta_n)
+        return dq, dk, dv, d_prev_out, d_prev_lse, None, None
+
+
 # ----------------------------------------------------------------------
 # public API
 # ----------------------------------------------------------------------
@@ -389,6 +556,10 @@ def _flash_forward(q, k, v, sm_scale, causal):
     return _flash_fwd_plain(q, k, v, sm_scale, causal)
 
 
+def _needs_grad(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
                              head_packing="auto"):
     """Flash attention returning (out [B,T,H,D], lse [B,H,T,1]), lse in
@@ -397,7 +568,7 @@ def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
     (T must be a multiple of 64 on either)."""
     sm_scale, causal = _normalize_flash_args(q, k, v, causal, sm_scale,
                                              head_packing)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+    if _needs_grad(q, k, v):
         out, lse = _FlashAttention.apply(q, k, v, sm_scale, causal)
     else:
         out, lse = _flash_forward(q, k, v, sm_scale, causal)
@@ -415,7 +586,42 @@ def flash_attention(q, k, v, causal=True, sm_scale=None,
                                     head_packing=head_packing)[0]
 
 
+def flash_attention_merge(q, k, v, prev_out, prev_lse, causal=True,
+                          sm_scale=None, head_packing="auto"):
+    """Flash attention over one K/V block, merged in the kernel's
+    epilogue with a prior softmax partial over a disjoint key set (the
+    JAX package's `flash_attention_merge`, the ring-attention step).
+
+    prev_out [B,T,H,D] (any float dtype; promoted to fp32) and prev_lse
+    [B,H,T,1] (log2 space, -1e30 rows = an empty partial) are the running
+    carry; returns the merged (out fp32 [B,T,H,D], lse [B,H,T,1]),
+    differentiable in q, k, v, prev_out and prev_lse. CUDA tensors launch
+    kernel K5 (and K2 in the backward), which raises on a prev_lse whose
+    [B,H,T] view is not contiguous; CPU tensors take the plain twins."""
+    sm_scale, causal = _normalize_flash_args(q, k, v, causal, sm_scale,
+                                             head_packing)
+    b, t, h, _ = q.shape
+    if prev_out.shape != q.shape or prev_lse.shape != (b, h, t, 1):
+        raise ValueError(f"prev_out {tuple(prev_out.shape)} / prev_lse "
+                         f"{tuple(prev_lse.shape)}: expected {tuple(q.shape)}"
+                         f" / {(b, h, t, 1)}")
+    prev_out = prev_out.to(torch.float32)
+    prev_lse = prev_lse.to(torch.float32)[..., 0]
+    if _needs_grad(q, k, v, prev_out, prev_lse):
+        out, lse = _FlashMerge.apply(q, k, v, prev_out, prev_lse, sm_scale,
+                                     causal)
+    else:
+        out, lse, _ = _merge_forward(q, k, v, prev_out, prev_lse, sm_scale,
+                                     causal)
+    return out, lse[..., None]
+
+
+flash_attention_merge.launches = 0
+
+
 def reset_launch_count():
-    """Zero the forward (K1) and backward (K2) launch counters."""
+    """Zero the forward (K1), backward (K2) and merge (K5) launch
+    counters."""
     flash_attention_with_lse.launches = 0
     flash_attention_backward.launches = 0
+    flash_attention_merge.launches = 0

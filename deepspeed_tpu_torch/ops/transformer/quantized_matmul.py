@@ -4,7 +4,7 @@ training family built on them.
 
 Port of deepspeed_tpu/ops/transformer/quantized_matmul.py (its training
 half; the weight-only serving epilogue `int8_matmul` comes with int8
-serving, ROADMAP Queue 1 item 3). The scale layout is the JAX package's:
+serving, ROADMAP Queue 1 item 7). The scale layout is the JAX package's:
 
     weights:      one fp32 scale per (K-block, output column)
                   -> scales [.., nb, N], nb = ceil(K / block)

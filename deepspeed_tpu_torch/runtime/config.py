@@ -207,10 +207,27 @@ def _block_type_and_params(param_dict, key):
     return name, params
 
 
+def get_amp_config(param_dict):
+    """(enabled, other params) of the "amp" block, as the JAX package
+    reads it: a non-dict block raises, and amp together with fp16
+    fails."""
+    amp = param_dict.get(C.AMP)
+    if amp is not None and not isinstance(amp, dict):
+        raise DeepSpeedConfigError(
+            f'"amp" must be a dict like {{"enabled": true}}, got {amp!r}')
+    amp = amp or {}
+    enabled = bool(amp.get(C.AMP_ENABLED, C.AMP_ENABLED_DEFAULT))
+    if enabled and _block_enabled(param_dict, C.FP16, C.FP16_ENABLED):
+        raise DeepSpeedConfigError(
+            "amp and fp16 modes cannot be simultaneously enabled")
+    return enabled, {k: v for k, v in amp.items() if k != C.AMP_ENABLED}
+
+
 class DeepSpeedConfig:
     def __init__(self, json_file_or_dict, world_size=1):
         self._param_dict = load_config_dict(json_file_or_dict)
         self.world_size = world_size
+        self.amp_enabled, self.amp_params = get_amp_config(self._param_dict)
         self._check_later_slices(self._param_dict)
         self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
@@ -219,13 +236,15 @@ class DeepSpeedConfig:
     def _check_later_slices(d):
         if _block_enabled(d, C.FP16, C.FP16_ENABLED):
             raise _later("fp16 with loss scaling "
-                         "(runtime/fp16/loss_scaler.py); use bf16", 10)
+                         "(runtime/fp16/loss_scaler.py); use bf16", 4)
         if _block_enabled(d, C.PROGRESSIVE_LAYER_DROP, C.PLD_ENABLED):
-            raise _later("progressive layer drop", 10)
+            raise _later("progressive layer drop", 4)
         if d.get(C.PIPELINE):
-            raise _later("pipeline parallelism", 5)
+            raise _later("pipeline parallelism", 6)
         if _block_enabled(d, C.MONITOR, C.MONITOR_ENABLED):
-            raise _later("the monitor block", 3)
+            raise _later("the monitor block", 8)
+        if _block_enabled(d, C.ELASTICITY, C.ELASTICITY_ENABLED):
+            raise _later("elasticity (elastic batch resolution)", 9)
 
     def _initialize_params(self, d):
         self.train_batch_size = get_scalar_param(
@@ -245,6 +264,12 @@ class DeepSpeedConfig:
 
         self.bfloat16_enabled = get_bfloat16_enabled(d)
         self.bfloat16_master_weights = get_bfloat16_master_weights(d)
+        if self.amp_enabled:
+            # Apex AMP does not exist here: amp means bf16 mixed
+            # precision, as in the JAX package
+            logger.warning("amp.enabled maps to bf16 mixed precision; amp "
+                           f"params {list(self.amp_params)} are ignored")
+            self.bfloat16_enabled = True
 
         self.gradient_clipping = get_scalar_param(
             d, C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT)

@@ -57,6 +57,10 @@ BFLOAT16_ENABLED_DEFAULT = False
 # for bf16 state + stochastic-rounded updates (runtime/bf16_optimizer.py)
 BFLOAT16_MASTER_WEIGHTS = "master_weights"
 BFLOAT16_MASTER_WEIGHTS_DEFAULT = True
+# Apex AMP, accepted for parity: "amp": {"enabled": true} maps to bf16
+AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
 
 #############################################
 # Gradient handling
@@ -131,6 +135,10 @@ MOE_FUSED_DISPATCH_VALID = ("on", "off", "auto")
 MONITOR = "monitor"
 MONITOR_ENABLED = "enabled"
 MONITOR_ENABLED_DEFAULT = False
+
+# Elasticity (only the switch: elastic batch resolution is a later slice)
+ELASTICITY = "elasticity"
+ELASTICITY_ENABLED = "enabled"
 
 #############################################
 # Inference/serving engine

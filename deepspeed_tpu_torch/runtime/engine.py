@@ -38,9 +38,9 @@ generator keyed by the same seed (the JAX engine's fold_in(rng, 0x51)).
 
 ZeRO stages 0, 1 and 2 at data-parallel world size 1 compute the
 unpartitioned update, as the JAX engine does on one chip. World size
-> 1, stage 3 and offload raise NotImplementedError naming ROADMAP Queue
-1 item 5; checkpoints (item 4), fp16 loss scaling, LAMB, SGD and 1-bit
-Adam (item 10) raise too.
+> 1 and stage 3 raise NotImplementedError naming ROADMAP Queue 1 item 6,
+offload item 5; checkpoints (item 2), fp16 loss scaling, client
+optimizer objects, LAMB, SGD and 1-bit Adam (item 4) raise too.
 """
 
 from typing import Any, NamedTuple
@@ -94,7 +94,7 @@ class DeepSpeedEngine:
       device: where the state lives (default: the model's `device`,
         else "cuda").
     The optimizer and the LR schedule come from the config; a client
-    optimizer or scheduler object raises (ROADMAP Queue 1 item 10).
+    optimizer or scheduler object raises (ROADMAP Queue 1 item 4).
     """
 
     def __init__(self, args=None, model=None, optimizer=None,
@@ -112,15 +112,15 @@ class DeepSpeedEngine:
         world = mpu.get_data_parallel_world_size() if mpu is not None \
             else _world_size()
         if world > 1:
-            raise _later(f"data-parallel training (world size {world})", 5)
+            raise _later(f"data-parallel training (world size {world})", 6)
         if optimizer is not None or lr_scheduler is not None:
-            raise _later("client optimizer and lr_scheduler objects", 10)
+            raise _later("client optimizer and lr_scheduler objects", 4)
         self._config = DeepSpeedConfig(load_config_dict(config),
                                        world_size=1)
         if self._config.zero_cpu_offload:
             raise _later("ZeRO-Offload (zero_optimization.cpu_offload)", 5)
         if self._config.zero_optimization_stage == 3:
-            raise _later("ZeRO stage 3", 5)
+            raise _later("ZeRO stage 3", 6)
 
         self.collate_fn = collate_fn
         self._resolve_model(model, model_parameters)
@@ -188,7 +188,7 @@ class DeepSpeedEngine:
         are verified against the built parameters there). At world size
         1 there is no expert mesh axis, so every expert count divides
         it. The `moe` monitor event and the router stats at fences come
-        with the monitor (ROADMAP Queue 1 item 3)."""
+        with the monitor (ROADMAP Queue 1 item 8)."""
         mc = self._config.moe
         self._moe_active = False
         if not mc["enabled"]:
@@ -223,7 +223,7 @@ class DeepSpeedEngine:
         mode, block and stochastic_rounding, or warn when the model has
         no such hook (the block then has no effect). The JAX engine also
         emits a `quantized_matmul` monitor event here; that comes with
-        the monitor (ROADMAP Queue 1 item 3)."""
+        the monitor (ROADMAP Queue 1 item 8)."""
         qc = self._config.quantized_compute
         if not qc["enabled"]:
             return
@@ -278,7 +278,7 @@ class DeepSpeedEngine:
         self._base_lr = lr
         if name not in (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER):
             raise _later(f"optimizer {name!r} (the port has Adam and "
-                         "AdamW)", 10)
+                         "AdamW)", 4)
         if self.bf16_sr_mode:
             # master-less bf16: bf16 moments, fp32 update math,
             # stochastically rounded write-back (decoupled decay)
@@ -567,7 +567,7 @@ class DeepSpeedEngine:
         return self.state.params
 
     def save_checkpoint(self, *args, **kwargs):
-        raise _later("checkpoints (runtime/checkpoint.py)", 4)
+        raise _later("checkpoints (runtime/checkpoint.py)", 2)
 
     def load_checkpoint(self, *args, **kwargs):
-        raise _later("checkpoints (runtime/checkpoint.py)", 4)
+        raise _later("checkpoints (runtime/checkpoint.py)", 2)

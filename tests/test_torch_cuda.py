@@ -1,7 +1,7 @@
 """PyTorch port: the CUDA kernels on the card (kernels K1-fwd, K2,
-K3-fwd, K3-bwd, K4-fwd, K4-bwd, K6, K7, K8) against their plain PyTorch twins, the
-serving engine against the kernel-driven forward, and a training step
-on the kernels against the plain-torch route.
+K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8) against their plain
+PyTorch twins, the serving engine against the kernel-driven forward,
+and a training step on the kernels against the plain-torch route.
 
 Every test here is marked `cuda` and skips where
 torch.cuda.is_available() is False. The file imports neither JAX nor
@@ -97,10 +97,15 @@ def test_bias_gelu_kernel_matches_twin(dev, approximate):
     assert tfo.fused_bias_gelu.launches == before + 1
 
 
+# head dims 192 and 256 run the tile body's wide form
+WIDE_CASES = [(torch.bfloat16, True, 192), (torch.bfloat16, False, 256),
+              (torch.float32, True, 256), (torch.float32, False, 192)]
+
+
 @pytest.mark.parametrize("dtype,causal,d", [
     (torch.bfloat16, True, 64), (torch.bfloat16, False, 64),
     (torch.bfloat16, True, 128), (torch.float32, True, 64),
-    (torch.float32, False, 128)])
+    (torch.float32, False, 128)] + WIDE_CASES)
 def test_flash_kernel_matches_twin(dev, dtype, causal, d):
     """q/k/v as column slices of one qkv tensor (the model's strided
     layout), read in place by the kernel."""
@@ -123,9 +128,10 @@ def test_cuda_tensors_never_fall_back(dev):
     q = torch.zeros((1, 96, 2, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):          # T not a multiple of 64
         tfa.flash_attention(q, q, q)
-    q = torch.zeros((1, 128, 2, 80), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):          # head_dim 80
-        tfa.flash_attention(q, q, q)
+    for d in (80, 320):                      # no kernel head dim
+        q = torch.zeros((1, 128, 2, d), device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa.flash_attention(q, q, q)
     q = torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         tfa.flash_attention(q, q, q)
@@ -162,7 +168,7 @@ def test_engine_matches_kernel_forward(dev):
 @pytest.mark.parametrize("dtype,causal,d", [
     (torch.bfloat16, True, 64), (torch.bfloat16, False, 64),
     (torch.bfloat16, True, 128), (torch.float32, True, 64),
-    (torch.float32, False, 128)])
+    (torch.float32, False, 128)] + WIDE_CASES)
 def test_flash_backward_kernel_matches_twin(dev, dtype, causal, d):
     """K2 against _flash_bwd_plain on the forward kernel's own (out,
     lse), with an lse cotangent, q/k/v as qkv column slices."""
@@ -184,6 +190,124 @@ def test_flash_backward_kernel_matches_twin(dev, dtype, causal, d):
     for name, x, y in zip("qkv", got, ref):
         assert x.dtype == dtype and x.shape == (b, t, h, d)
         assert _rel_l2(x, y) <= GRAD_TOL[dtype], name
+
+
+def _merge_inputs(dev, dtype, d, causal, seed, b=2, t=256, h=3):
+    """q/k/v (qkv column slices) and a prior partial from K1 over a
+    disjoint key block, its first rows marked empty (-1e30, out 0)."""
+    g = _gen(dev, seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(dtype)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    k2, v2 = (torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    prev, prev_lse = tfa.flash_attention_with_lse(q, k2, v2, causal=False)
+    prev, prev_lse = prev.float().clone(), prev_lse.clone()
+    prev[:, :7] = 0.0
+    prev_lse[:, :, :7] = tfa.NEG_INF
+    return q, k, v, prev, prev_lse
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_merge_kernel_matches_twin(dev, dtype, causal, d):
+    """K5 against _flash_merge_plain on the same inputs: out, merged lse
+    and lse_n; then the backward (K2's given-delta entry) through
+    autograd against the same function on CPU copies (the twins)."""
+    q, k, v, prev, prev_lse = _merge_inputs(dev, dtype, d, causal, seed=d)
+    before = (tfa.flash_attention_merge.launches,
+              tfa.flash_attention_backward.launches)
+    out, lse, lse_n = tfa._flash_merge_launch(q, k, v, prev,
+                                              prev_lse[..., 0], d ** -0.5,
+                                              causal)
+    ref, ref_lse, ref_lse_n = tfa._flash_merge_plain(
+        q, k, v, prev, prev_lse[..., 0], d ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(out, ref, **tol)
+    torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+    torch.testing.assert_close(lse_n, ref_lse_n, **F32_TOL)
+    # the empty carry rows hold the block's own partial
+    torch.testing.assert_close(lse[:, :, :7], lse_n[:, :, :7], **F32_TOL)
+
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (q, k, v, prev, prev_lse)]
+    cpu = [x.detach().cpu().requires_grad_(True) for x in leaves]
+    gen = _gen(dev, 99)
+    g_out = torch.randn(q.shape, generator=gen, device=dev)
+    g_lse = torch.randn(prev_lse.shape, generator=gen, device=dev)
+    o, l = tfa.flash_attention_merge(*leaves, causal=causal)
+    got = torch.autograd.grad((o, l), leaves, (g_out, g_lse))
+    o_c, l_c = tfa.flash_attention_merge(*cpu, causal=causal)
+    want = torch.autograd.grad((o_c, l_c), cpu, (g_out.cpu(), g_lse.cpu()))
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_merge.launches,
+            tfa.flash_attention_backward.launches) == (before[0] + 2,
+                                                       before[1] + 1)
+    for name, x, y in zip(("dq", "dk", "dv", "dprev", "dprev_lse"), got,
+                          want):
+        assert torch.isfinite(x).all(), name
+        assert _rel_l2(x, y.to(dev)) <= GRAD_TOL[dtype], name
+
+
+def test_merge_kernel_empty_carry_is_k1(dev):
+    """The ring's first step: against prev_lse -1e30 and prev_out 0, K5
+    gives K1's out and lse to fp32 rounding."""
+    g = _gen(dev, 5)
+    q, k, v = (torch.randn((1, 512, 4, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    ref, ref_lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    out, lse = tfa.flash_attention_merge(
+        q, k, v, torch.zeros(q.shape, device=dev),
+        torch.full((1, 4, 512, 1), tfa.NEG_INF, device=dev), causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.float(), **BF16_TOL)
+    torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_given_delta_backward_matches_twin(dev, dtype):
+    """K2's given-delta entry (no out) against _flash_bwd_plain with the
+    same delta; the caller's delta is left as it was."""
+    g = _gen(dev, 8)
+    b, t, h, d = 2, 256, 3, 64
+    q, k, v, dout = (torch.randn((b, t, h, d), generator=g, device=dev)
+                     .to(dtype) for _ in range(4))
+    _, lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    lse = lse[..., 0].contiguous()
+    delta = torch.randn((b, h, t), generator=g, device=dev)
+    dlse = torch.randn((b, h, t), generator=g, device=dev)
+    keep = delta.clone()
+    got = tfa.flash_attention_backward(q, k, v, None, lse, dout, dlse,
+                                       d ** -0.5, True, delta=delta)
+    ref = tfa._flash_bwd_plain(q, k, v, None, lse, dout, dlse, d ** -0.5,
+                               True, delta=delta)
+    torch.cuda.synchronize()
+    assert torch.equal(delta, keep)
+    for name, x, y in zip("qkv", got, ref):
+        assert _rel_l2(x, y) <= GRAD_TOL[dtype], name
+
+
+def test_gpt2_head_dim_256_forward_matches_cpu(dev):
+    """A causal GPT-2 with head dim 256 (n_embd 1024, n_head 4): the
+    CUDA forward (K1's wide form, K3, K4) against the same weights on
+    the CPU (the twins, unfused), fp32."""
+    cfg = tgpt2.gpt2_config("gpt2-350m", n_layer=2, n_head=4,
+                            vocab_size=512, n_positions=256,
+                            dtype=torch.float32, dropout=0.0)
+    assert cfg.head_dim == 256
+    model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+    params = model.init(seed=4)
+    cpu = tgpt2.GPT2ForCausalLM(cfg, device="cpu")
+    cpu_params = {n: p.cpu() for n, p in params.items()}
+    ids = np.random.RandomState(4).randint(0, 512, (2, 256))
+    before = tfa.flash_attention_with_lse.launches
+    got = model.apply(params, ids).float()
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_with_lse.launches == before + 2
+    want = cpu.apply(cpu_params, ids)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("h", [100, 1600])
@@ -750,8 +874,11 @@ def test_block_sparse_autograd_matches_dense_fallback(dev):
 
 
 def test_block_sparse_kernels_raise_on_what_they_do_not_take(dev):
+    """A head dim above 128, fp16 and blocks outside 16-256 raise; T not
+    a multiple of 64 and head dims under 128 are padded (the padding
+    tests below)."""
     layout = tsa.FixedSparsityConfig(num_heads=2, block=32).make_layout(256)
-    for shape, dtype, err in (((1, 256, 2, 32), torch.bfloat16, ValueError),
+    for shape, dtype, err in (((1, 256, 2, 192), torch.bfloat16, ValueError),
                               ((1, 256, 2, 64), torch.float16,
                                NotImplementedError)):
         q = torch.zeros(shape, device=dev, dtype=dtype)
@@ -759,9 +886,55 @@ def test_block_sparse_kernels_raise_on_what_they_do_not_take(dev):
             tsa.block_sparse_attention(q, q, q, layout, 32)
     layout = tsa.FixedSparsityConfig(num_heads=2, block=32).make_layout(96)
     q = torch.zeros((1, 96, 2, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):          # T not a multiple of 64
-        tsa.block_sparse_attention(q, q, q, layout, 32)
+    before = tbsa._band_fwd_launch.launches + tbsa._bs_fwd_launch.launches
+    out = tsa.block_sparse_attention(q, q, q, layout, 32)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert tbsa._band_fwd_launch.launches + \
+        tbsa._bs_fwd_launch.launches == before + 1
     layout = tsa.DenseSparsityConfig(num_heads=2, block=8).make_layout(256)
     q = torch.zeros((1, 256, 2, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):          # block 8
         tsa.block_sparse_attention(q, q, q, layout, 8)
+
+
+@pytest.mark.parametrize("t,d,dtype", [(48, 32, torch.float32),
+                                       (96, 80, torch.float32),
+                                       (4112, 64, torch.bfloat16)])
+def test_block_sparse_kernels_pad_t_and_d(dev, t, d, dtype):
+    """BSLongformer (block 16, causal) at a T that is no multiple of 64
+    and head dims under 128: the kernel route pads T with invisible
+    blocks and D with zeros, and holds the twins (on CPU copies) and the
+    dense masked fallback, forward and dQ/dK/dV."""
+    layout = tsa.BSLongformerSparsityConfig(
+        num_heads=2, block=16, num_sliding_window_blocks=3).make_layout(t)
+    g = _gen(dev, t)
+    q, k, v = (torch.randn((1, t, 2, d), generator=g, device=dev)
+               .to(dtype).requires_grad_(True) for _ in range(3))
+    dout = torch.randn((1, t, 2, d), generator=g, device=dev).to(dtype)
+    before = (tbsa._band_fwd_launch.launches + tbsa._bs_fwd_launch.launches,
+              tbsa._bs_bwd_dq_launch.launches)
+    out = tsa.block_sparse_attention(q, k, v, layout, 16, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (tbsa._band_fwd_launch.launches + tbsa._bs_fwd_launch.launches,
+            tbsa._bs_bwd_dq_launch.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert out.shape == (1, t, 2, d)
+    cpu = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
+    twin = tsa.block_sparse_attention(*cpu, layout, 16, causal=True)
+    twin_grads = torch.autograd.grad(twin, cpu, dout.cpu())
+    # the dense reference in fp32 on the same (bf16-valued) inputs
+    f32 = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    ref = tbsa.block_sparse_attention_dense_fallback(*f32, layout, 16,
+                                                     causal=True)
+    ref_grads = torch.autograd.grad(ref, f32, dout.float())
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(out.float().cpu(), twin.float(), **tol)
+    torch.testing.assert_close(out.float(), ref, **tol)
+    # bf16 against the fp32 reference: P and dS rounded to bf16 in the
+    # kernel, then each gradient's own rounding
+    dense_tol = 2e-2 if dtype == torch.bfloat16 else GRAD_TOL[dtype]
+    for x, y, z in zip(got, twin_grads, ref_grads):
+        assert _rel_l2(x.cpu(), y) <= GRAD_TOL[dtype]
+        assert _rel_l2(x, z) <= dense_tol

@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.runtime import constants as TC
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig as TConfig
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from deepspeed_tpu_torch.runtime.zero import config as TZ
@@ -168,6 +169,8 @@ def test_train_batch_makes_no_host_sync(jax_model_and_tree, monkeypatch):
      "zero_optimization": {"stage": 2}, "gradient_clipping": 1.0,
      "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
      "scheduler": {"type": "WarmupLR", "params": {}}},
+    # Apex AMP maps to bf16 in both packages; its other params are ignored
+    {"train_batch_size": 8, "amp": {"enabled": True, "opt_level": "O1"}},
 ])
 def test_config_resolves_like_jax(d):
     j, t = JConfig(dict(d), world_size=1), TConfig(dict(d))
@@ -207,11 +210,59 @@ def test_constants_equal_jax(mine, ref):
     ({"monitor": {"enabled": True}}, "monitor"),
     ({"progressive_layer_drop": {"enabled": True}}, "layer drop"),
     ({"optimizer": {"type": "Lamb"}}, "lamb"),
+    ({"elasticity": {"enabled": True, "max_train_batch_size": 48,
+                     "micro_batch_sizes": [4]}}, "elasticity"),
 ])
 def test_later_slices_raise(jax_model_and_tree, extra, match):
     config = dict({"train_micro_batch_size_per_gpu": 2}, **extra)
     with pytest.raises(NotImplementedError, match=match):
         _port_engine(jax_model_and_tree[2], config)
+
+
+@pytest.mark.parametrize("extra,item", [
+    ({"fp16": {"enabled": True}}, 4),
+    ({"progressive_layer_drop": {"enabled": True}}, 4),
+    ({"optimizer": {"type": "Lamb"}}, 4),
+    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, 5),
+    ({"zero_optimization": {"stage": 3}}, 6),
+    ({"pipeline": {"stages": 2}}, 6),
+    ({"monitor": {"enabled": True}}, 8),
+    ({"elasticity": {"enabled": True}}, 9),
+])
+def test_later_slices_name_their_roadmap_item(jax_model_and_tree, extra,
+                                              item):
+    """Each raise names the ROADMAP Queue 1 item that ports it."""
+    config = dict({"train_micro_batch_size_per_gpu": 2}, **extra)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}$"):
+        _port_engine(jax_model_and_tree[2], config)
+
+
+def test_checkpoints_and_client_objects_name_their_roadmap_item(
+        jax_model_and_tree):
+    engine, _, _, _ = _port_engine(jax_model_and_tree[2],
+                                   {"train_micro_batch_size_per_gpu": 2})
+    with pytest.raises(NotImplementedError, match="item 2$"):
+        engine.save_checkpoint("unused")
+    with pytest.raises(NotImplementedError, match="item 4$"):
+        dst.initialize(model=engine.module, model_parameters=engine.params,
+                       optimizer=object(),
+                       config={"train_micro_batch_size_per_gpu": 2})
+
+
+@pytest.mark.parametrize("amp,error", [
+    (True, '"amp" must be a dict'),
+    ({"enabled": True}, "amp and fp16"),
+])
+def test_amp_block_rejects_like_jax(amp, error):
+    """A non-dict amp block, and amp with fp16, fail in both packages."""
+    d = {"train_batch_size": 8, "amp": amp}
+    if error == "amp and fp16":
+        d["fp16"] = {"enabled": True}
+    with pytest.raises(Exception):
+        JConfig(dict(d), world_size=1)
+    with pytest.raises(DeepSpeedConfigError, match=error):
+        TConfig(dict(d))
 
 
 def test_checkpoints_raise_and_eval_batch(jax_model_and_tree):

@@ -87,12 +87,29 @@ def test_flash_matches_dense_attention():
 def test_routing_gate_and_block_fit_match_jax():
     for t in (64, 100, 128, 136, 256, 384, 1024, 1536, 2048, 3072):
         assert tfa._fit_block(1024, t) == jfa._fit_block(1024, t)
-        for d in (32, 64, 96, 128):
+        for d in (32, 64, 96, 128, 192, 256, 320):
             tq = torch.zeros((1, t, 2, d))
             jq = np.zeros((1, t, 2, d), np.float32)
             for no_drop in (True, False):
                 assert tfa.flash_attention_usable(tq, no_drop) == \
                     jfa.flash_attention_usable(jq, no_drop), (t, d)
+
+
+def test_every_routed_head_dim_up_to_256_has_a_kernel():
+    """The gate admits any head dim that is a multiple of 64; the CUDA
+    kernels take each of them up to 256 (a GPT-2 with head dim 192 or
+    256 runs flash on the card as JAX does), and their twins compute the
+    same function at those widths."""
+    routed = [d for d in range(64, 257, 32)
+              if tfa.flash_attention_usable(torch.zeros((1, 128, 2, d)),
+                                            True)]
+    assert routed == [64, 128, 192, 256]
+    assert set(routed) <= set(tfa._KERNEL_HEAD_DIMS)
+    for d in (192, 256):
+        q, k, v = (torch.from_numpy(x) for x in _qkv(1, 128, 2, d, seed=d))
+        torch.testing.assert_close(
+            tfa.flash_attention(q, k, v, causal=True),
+            tfa.dense_attention(q, k, v, causal=True), **F32_TOL)
 
 
 def test_head_packing_validation_and_routing():

@@ -86,9 +86,12 @@ def test_params_from_jax_accepts_the_remat_child_name(jax_tree):
 def test_config_and_sizes_match_jax():
     j_fields = {f.name for f in dataclasses.fields(jgpt2.GPT2Config)}
     t_fields = {f.name for f in dataclasses.fields(tgpt2.GPT2Config)}
-    assert j_fields == t_fields
+    # the sequence-parallel group is a torch process group in place of
+    # the JAX mesh and its axis name
+    assert j_fields - {"sp_mesh", "sp_axis"} == t_fields - {"sp_group"}
+    assert "sp_group" in t_fields and tgpt2.GPT2Config().sp_group is None
     jd, td = jgpt2.GPT2Config(), tgpt2.GPT2Config()
-    for name in j_fields - {"dtype", "param_dtype"}:
+    for name in j_fields - {"dtype", "param_dtype", "sp_mesh", "sp_axis"}:
         assert getattr(jd, name) == getattr(td, name), name
     assert td.dtype == torch.bfloat16 and td.param_dtype == torch.float32
     assert jgpt2.GPT2_SIZES == tgpt2.GPT2_SIZES
@@ -114,10 +117,16 @@ def test_init_follows_the_jax_per_leaf_scheme():
 
 def test_out_of_slice_options_raise():
     cfg = tgpt2.tiny_gpt2_config()
-    with pytest.raises(NotImplementedError):
-        tgpt2.GPT2ForCausalLM(dataclasses.replace(cfg,
-                                                  sequence_parallel="ring"),
-                              device="cpu")
+    # sequence parallelism is ported (slice 6): its mode must be valid,
+    # and it needs a torch.distributed process group
+    with pytest.raises(ValueError, match="sequence_parallel"):
+        tgpt2.GPT2ForCausalLM(dataclasses.replace(
+            cfg, sequence_parallel="rings"), device="cpu")
+    sp = tgpt2.GPT2ForCausalLM(dataclasses.replace(
+        cfg, sequence_parallel="ring"), device="cpu")
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        sp.apply(sp.params(), np.zeros((1, 8), np.int64))
     # quantized compute is ported (slice 4); its mode must be valid
     with pytest.raises(ValueError, match="quantized_compute"):
         tgpt2.GPT2ForCausalLM(dataclasses.replace(

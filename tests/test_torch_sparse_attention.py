@@ -330,6 +330,30 @@ def test_bert_sparse_self_attention_matches_jax_with_carried_params():
                                        got_grads[name].numpy(), **GRAD_TOL)
 
 
+def test_bert_sparse_self_attention_init_matches_flax_dense():
+    """Fresh projections start as flax nn.Dense's: lecun-normal weights
+    (std 1/sqrt(fan_in) = 0.03125 at hidden 1024, within 10%; at most
+    two truncated stds) and zero biases, against the JAX module's own
+    init statistics; the same seed gives the same weights."""
+    hid, nh = 1024, 16
+    jmod = jsa.BertSparseSelfAttention(hidden_size=hid,
+                                       num_attention_heads=nh)
+    jparams = jmod.init(jax.random.PRNGKey(0),
+                        jnp.zeros((1, 256, hid), jnp.float32))["params"]
+    tmod = tsa.BertSparseSelfAttention(hid, nh, device="cpu", seed=3)
+    for name in ("query", "key", "value"):
+        w = getattr(tmod, name).weight.detach()
+        jw = np.asarray(jparams[name]["kernel"])
+        for std in (float(w.std()), float(jw.std())):
+            assert abs(std - 0.03125) <= 0.1 * 0.03125, (name, std)
+        limit = 2 * 0.03125 / 0.87962566103423978 + 1e-6
+        assert float(w.abs().max()) <= limit
+        assert not getattr(tmod, name).bias.detach().any()
+        assert not np.asarray(jparams[name]["bias"]).any()
+    again = tsa.BertSparseSelfAttention(hid, nh, device="cpu", seed=3)
+    assert torch.equal(again.query.weight, tmod.query.weight)
+
+
 def test_sparse_attention_utils_match_jax():
     ids = np.arange(200).reshape(2, 100).astype(np.int64)
     mask = np.ones((2, 100), np.int64)
