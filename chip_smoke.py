@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA
      versions; TF32 is switched off for matmuls and cuDNN;
-  2. build: the kernels compiled from ops/csrc/ into build/torch_kernels/;
+  2. build: the kernels compiled from ops/csrc/ into build/torch_kernels/,
+     with ptxas's registers and spills of each Hopper attention kernel;
   3. kernels vs their plain PyTorch twins at the slice's shapes, with
      max errors against stated tolerances, and the kernel's time beside
      the twin's, a bound (the least time the card could take: bytes
@@ -34,7 +35,9 @@ Phases, each printing one JSON line:
      warm-up and 6 timed steps on one repeated batch: step ms,
      tokens/s, peak memory, the loss at every step (finite, falling),
      launches per step of every kernel (zeroed right before the steps,
-     each must be > 0), and a torch.profiler window over 2 steps;
+     each must be > 0), and a torch.profiler window over 2 steps (with
+     the attention kernels' device ms per step beside the step ms, as
+     in every training phase's profile);
   8. training oracle: 2 layers at gpt2-1.5b width, bf16, micro batch 11,
      seq 1024, loss and every gradient through the kernels against the
      plain-torch route;
@@ -100,7 +103,11 @@ Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
 causal backward as K2's yardstick, two launches of each deterministic
-backward compared bit for bit, K4 in its grouped (expert) form and K8
+backward compared bit for bit (K2 at every case), K1 and K2 on their
+Hopper bodies (bf16, head dims 64 and 128) at T 320 too, where the last
+128-row tile runs past T, and K1 at B*H = 65550 (past grid.y's 65535),
+each timed attention case with its achieved TFLOP/s, share of its bound
+and ratio to the library call, K4 in its grouped (expert) form and K8
 at the MoE shape (N 16,384 tokens, 8 x 5,120 slots, H 1024) in bf16
 and fp32, k 1 and 2, with empty slots and dropped assignments
 (`torch.index_select` on the padded tokens is dispatch's yardstick),
@@ -160,6 +167,9 @@ TOL_TRAIN_LOSS = 1e-2
 TOL_TRAIN_GRAD = 5e-2
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the generator of the checks added for the Hopper attention bodies, so
+# that every earlier check keeps its inputs
+SM90_SEED = 7
 
 
 def emit(obj):
@@ -217,6 +227,33 @@ def bound(flops, flops_peak, nbytes, peaks):
                                  else "bytes")
 
 
+def sm90_ptxas(log):
+    """{kernel<D[, merge]>: "R registers, no spill" or "..., N bytes spill
+    stores"} of the Hopper attention kernels in one library's ptxas
+    report (nvcc -Xptxas -v)."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel_sm90)"
+                          r"ILi(\d+)E(?:Lb(\d)E)?", ln)
+            name = None if m is None else (
+                f"{m.group(1)}<{m.group(2)}" +
+                (f", merge={m.group(3)}" if m.group(3) else "") + ">")
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            out[name] = "no spill" if m.group(1) == "0" else \
+                f"{m.group(1)} bytes spill stores"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name] = f"{m.group(1)} registers, " + out.get(name, "")
+            name = None
+    return out
+
+
 def release():
     """Free what the last phase left before the next one measures its
     peak memory: an engine holds a reference cycle (`engine.optimizer` is
@@ -247,16 +284,28 @@ def check(label, got, ref, tol, checks):
     return abs_err
 
 
+def rates(row, flops):
+    """A timed row's achieved TFLOP/s (the algorithm's operations over
+    the kernel's time), its share of the bound (bound_ms / ms) and its
+    time over the library call's (None where there is none)."""
+    lib = row.get("library_ms")
+    row.update(tflops=flops / row["ms"] / 1e9,
+               share_of_bound=row["bound_ms"] / row["ms"],
+               ratio_to_library=row["ms"] / lib
+               if isinstance(lib, float) and lib > 0 else None)
+    return row
+
+
 def kernel_flash(peaks, gen):
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     checks, out = [], {}
 
-    def qkv_views(b, t, h, d, dtype):
+    def qkv_views(b, t, h, d, dtype, g):
         # the model's layout: q/k/v are column slices of one qkv tensor
         c = h * d
-        qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda",
+        qkv = torch.randn((b, t, 3 * c), generator=g, device="cuda",
                           dtype=torch.float32).to(dtype)
         return [p.view(b, t, h, d) for p in qkv.split(c, dim=-1)]
 
@@ -278,8 +327,22 @@ def kernel_flash(peaks, gen):
         ("fp32 non-causal B2 T512 H3 D192", 2, 512, 3, 192, torch.float32,
          False, None),
     )
-    for label, b, t, h, d, dtype, causal, timed in cases:
-        q, k, v = qkv_views(b, t, h, d, dtype)
+    # the Hopper body's ragged last q tile (T a multiple of 64, not of
+    # 128) and B*H past the WMMA bodies' grid.y limit of 65535, on inputs
+    # of their own generator (the cases above keep theirs)
+    gen_sm90 = torch.Generator(device="cuda")
+    gen_sm90.manual_seed(SM90_SEED)
+    sm90_cases = (
+        ("bf16 causal B2 T320 H3 D128 (ragged T)", 2, 320, 3, 128,
+         torch.bfloat16, True, None),
+        ("bf16 non-causal B2 T320 H3 D64 (ragged T)", 2, 320, 3, 64,
+         torch.bfloat16, False, None),
+        ("bf16 causal B32775 T64 H2 D64 (B*H 65550)", 32775, 64, 2, 64,
+         torch.bfloat16, True, None),
+    )
+    for (label, b, t, h, d, dtype, causal, timed), g in \
+            [(c, gen) for c in cases] + [(c, gen_sm90) for c in sm90_cases]:
+        q, k, v = qkv_views(b, t, h, d, dtype, g)
         sm = 1.0 / d ** 0.5
         got, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -298,7 +361,7 @@ def kernel_flash(peaks, gen):
                 else peaks["fp32"]
             bound_ms, bound_by = bound(flops, peak, nbytes, peaks)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            out[timed] = dict(
+            out[timed] = rates(dict(
                 max_abs_err=err,
                 ms=time_ms(lambda: fa.flash_attention_with_lse(
                     q, k, v, causal=causal)),
@@ -307,7 +370,9 @@ def kernel_flash(peaks, gen):
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal)),
-                shape=label)
+                shape=label), flops)
+        del q, k, v
+        release()
     return out, checks
 
 
@@ -468,18 +533,29 @@ def kernel_flash_bwd(peaks, gen):
         ("fp32 causal B2 T256 H3 D192", 2, 256, 3, 192, torch.float32, True,
          None),
     )
-    for label, b, t, h, d, dtype, causal, timed in cases:
+    # the Hopper sweeps' ragged last tile, on inputs of their own
+    # generator (the cases above keep theirs)
+    gen_sm90 = torch.Generator(device="cuda")
+    gen_sm90.manual_seed(SM90_SEED)
+    sm90_cases = (
+        ("bf16 causal B2 T320 H3 D128 (ragged T)", 2, 320, 3, 128,
+         torch.bfloat16, True, None),
+        ("bf16 non-causal B2 T320 H3 D64 (ragged T)", 2, 320, 3, 64,
+         torch.bfloat16, False, None),
+    )
+    for (label, b, t, h, d, dtype, causal, timed), g in \
+            [(c, gen) for c in cases] + [(c, gen_sm90) for c in sm90_cases]:
         timed_case = timed is not None
         c = h * d
-        qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda",
+        qkv = torch.randn((b, t, 3 * c), generator=g, device="cuda",
                           dtype=torch.float32).to(dtype)
         q, k, v = (p.view(b, t, h, d) for p in qkv.split(c, dim=-1))
         o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
         lse = lse[..., 0].contiguous()
-        dout = torch.randn((b, t, h, d), generator=gen, device="cuda",
+        dout = torch.randn((b, t, h, d), generator=g, device="cuda",
                            dtype=torch.float32).to(dtype)
         dlse = None if timed_case else torch.randn(
-            (b, h, t), generator=gen, device="cuda")
+            (b, h, t), generator=g, device="cuda")
         sm = 1.0 / d ** 0.5
 
         def run():
@@ -492,6 +568,15 @@ def kernel_flash_bwd(peaks, gen):
         tol = GRAD_TOL_BF16 if dtype == torch.bfloat16 else GRAD_TOL_F32
         errs = [check_rel(f"flash bwd d{n}, {label}", x, y, tol, checks)
                 for n, x, y in zip("qkv", got, ref)]
+        # two deterministic sweeps, no atomics: a second launch repeats
+        # the first bit for bit
+        again = run()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        checks.append({"check": f"flash bwd repeats bit for bit, {label}",
+                       "equal": same})
+        if not same:
+            raise AssertionError(f"K2 {label}: a second launch differs")
+        del ref, again
         if timed_case:
             itemsize = q.element_size()
             pairs = t * (t + 1) // 2 if causal else t * t
@@ -512,14 +597,14 @@ def kernel_flash_bwd(peaks, gen):
             def sdpa_fwd_bwd():
                 torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
 
-            out[timed] = dict(
+            out[timed] = rates(dict(
                 max_abs_err=max(errs), ms=time_ms(run),
                 plain_ms=time_ms(lambda: fa._flash_bwd_plain(
                     q, k, v, o, lse, dout, dlse, sm, causal), iters=3,
                     warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
-                shape=label)
+                shape=label), flops)
     return out, checks
 
 
@@ -1073,7 +1158,8 @@ def train_and_check(seed, card, warmup=2, steps=6, quantized=False,
           "launches_per_step": {k: v / (warmup + steps)
                                 for k, v in counts.items()},
           "card": card})
-    emit({"phase": phase + "_profile", **profile, "card": card})
+    emit({"phase": phase + "_profile", "step_ms": step_s * 1e3, **profile,
+          "card": card})
     if not ok:
         raise AssertionError(f"{phase} losses {loss_vals}: not finite or "
                              "not falling on the repeated batch")
@@ -1343,7 +1429,8 @@ def moe_train_and_check(seed, card, warmup=2, steps=6, quantized=False):
           "launches_per_step": {k: v / (warmup + steps)
                                 for k, v in counts.items()},
           "card": card})
-    emit({"phase": phase + "_profile", **profile, "card": card})
+    emit({"phase": phase + "_profile", "step_ms": step_s * 1e3, **profile,
+          "card": card})
     if not ok:
         raise AssertionError(f"{phase} losses {loss_vals}: not finite "
                              "or not falling on the repeated batch")
@@ -1916,7 +2003,8 @@ def kernel_merge(peaks, gen):
             bound_ms, bound_by = merge_bound(peaks, b, t, h, d,
                                              q.element_size(), causal)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            out[timed] = dict(
+            pairs = t * (t + 1) // 2 if causal else t * t
+            out[timed] = rates(dict(
                 max_abs_err=err,
                 ms=time_ms(lambda: fa._flash_merge_launch(
                     q, k, v, prev, plse, sm, causal)),
@@ -1927,7 +2015,7 @@ def kernel_merge(peaks, gen):
                     qt, kt, vt, is_causal=causal)),
                 k1_ms=time_ms(lambda: fa.flash_attention_with_lse(
                     q, k, v, causal=causal)),
-                shape=label)
+                shape=label), 4.0 * b * h * d * pairs)
         del q, k, v, prev, plse
         release()
 
@@ -1945,14 +2033,15 @@ def kernel_merge(peaks, gen):
     torch.cuda.synchronize()
     if not torch_isfinite(got[0]):
         raise AssertionError("K5 at [1, 32768, 16, 64]: non-finite output")
-    out["sequence_parallel_32k"] = dict(
+    out["sequence_parallel_32k"] = rates(dict(
         max_abs_err="not measured (the twin runs at T <= 8192)",
         ms=ms, k1_ms=k1_ms, merge_cost_ms=ms - k1_ms,
         plain_ms="not measured (the twin runs at T <= 8192)",
         bound_ms=bound_ms, bound_by=bound_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), iters=5),
-        shape="bf16 causal [1, 32768, 16, 64] (ring leg, 32k)")
+        shape="bf16 causal [1, 32768, 16, 64] (ring leg, 32k)"),
+        4.0 * b * h * d * t * (t + 1) // 2)
     del q, k, v, prev, plse, got, qt, kt, vt
     release()
 
@@ -2002,14 +2091,14 @@ def kernel_merge(peaks, gen):
             def sdpa_fwd_bwd():
                 torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
 
-            k2[timed] = dict(
+            k2[timed] = rates(dict(
                 max_abs_err=max(errs), ms=time_ms(run),
                 plain_ms=time_ms(lambda: fa._flash_bwd_plain(
                     q, k, v, None, lse, dout, dlse, sm, True, delta=delta),
                     iters=1, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
-                shape=label)
+                shape=label), 10.0 * b * h * d * pairs)
         release()
     return out, k2, checks
 
@@ -2168,10 +2257,12 @@ def sequence_parallel_path(seed, card):
     return counts
 
 
+# the dense attention kernels (K1-fwd and K5, K2's sweeps, its delta
+# pre-pass and given-delta shift), by kernel-name substring
+ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_", "delta_kernel")
 # device-time groups of the profiles, by kernel-name substring
 KERNEL_GROUPS = (
-    ("port kernels: attention", ("flash_fwd_kernel", "flash_bwd_",
-                                 "delta_kernel")),
+    ("port kernels: attention", ATTENTION_KERNELS),
     ("port kernels: epilogues", ("ln_fwd_kernel", "ln_bwd_rows_kernel",
                                  "gelu_fwd_kernel", "gelu_bwd_rows_kernel",
                                  "col_reduce_kernel")),
@@ -2215,10 +2306,15 @@ def profile_steps(run, steps):
                       if any(k in e.key for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + \
             e.self_device_time_total / 1e3 / steps
+    attention = {e.key[:60]: e.self_device_time_total / 1e3 / steps
+                 for e in kernels
+                 if any(k in e.key for k in ATTENTION_KERNELS)}
     return {
         "steps": steps,
         "wall_ms_per_step": wall_s * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "attention_device_ms_per_step": sum(attention.values()),
+        "attention_device_ms_per_step_by_kernel": attention,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_s,
         "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
         "device_ms_per_step_by_group": groups,
@@ -2372,7 +2468,10 @@ def main(argv=None):
                  if "registers" in ln or "spill" in ln]
              for n in _build.SOURCES}
     emit({"phase": "build", "seconds": build_s,
-          "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas})
+          "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas,
+          "sm90_attention_kernels": {
+              **sm90_ptxas(_build.build_log("flash_attention_fwd")),
+              **sm90_ptxas(_build.build_log("flash_attention_bwd"))}})
 
     # 3: kernels vs plain twins
     gen = torch.Generator(device="cuda")

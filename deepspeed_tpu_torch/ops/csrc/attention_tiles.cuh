@@ -1,6 +1,8 @@
 // Tiles and kernel bodies shared by the attention kernels: K1-fwd and
 // K5 (flash_attention_fwd.cu), K2 (flash_attention_bwd.cu) and K7
-// (block_sparse_attention.cu).
+// (block_sparse_attention.cu). K1, K5 and K2 take these bodies for fp32
+// and for head dims 192 and 256; in bf16 at head dims 64 and 128 they
+// run the Hopper bodies of attention_hopper.cuh.
 //
 // Every kernel works on 64-row tiles of one (batch, head) with 4 warps,
 // each warp owning 16 rows. Q/K/V/dO tiles are loaded with 16-byte

@@ -16,35 +16,42 @@
 // differentiable in both outputs.
 //
 // Three kernels per call, on one stream: a delta pre-pass (one warp per
-// (b, t, h) row), then the TPU kernel's two sweeps. The dK/dV kernel
-// runs one CTA per (b*h, 64-row k tile) that walks the q tiles at or
-// below the diagonal; the dQ kernel one CTA per (b*h, 64-row q tile)
-// that walks the k tiles up to the diagonal. Both recompute S and P, so
-// the score work is done twice, but every output row is owned by one
-// CTA: no atomics, and a run repeats bit for bit. Within a CTA each of
-// the 4 warps owns 16 rows of the scores it computes and 16 rows of the
-// gradient it accumulates; the accumulators stay in registers (WMMA
-// fragments for bf16, per-lane fp32 arrays for fp32) for the whole walk.
+// (b, t, h) row), then the TPU kernel's two sweeps. The dK/dV sweep
+// runs one CTA per (b*h, k tile) that walks the q tiles at or below the
+// diagonal; the dQ sweep one CTA per (b*h, q tile) that walks the k
+// tiles up to the diagonal. Both recompute S and P, so the score work is
+// done twice (7 products per visible pair against a fused sweep's 5),
+// but every output row is owned by one CTA: no atomics, and a run
+// repeats bit for bit.
 //
 // Bound on the H100: at the flagship shape (bf16, causal, T=1024, D=64)
 // the backward does 2.5x the forward's matmul work over ~1.6x its bytes,
-// so operations bound it at the tensor-core rate. This first kernel
-// takes the simple route: WMMA 16x16x16 bf16 fragments with fp32
-// accumulation, plain 16-byte loads, no TMA, no wgmma, no pipelining,
-// and the scores computed twice. fp32 inputs take a CUDA-core path (the
-// TPU kernel's fp32 dots were exact fp32; the tensor cores would round
-// to TF32). q/k/v/dO/O are read through their [B, T, H, D] strides, so
-// the qkv column slices need no copy. Head dims 192 and 256 take the
-// tile body's wide form: one CTA per tile and output column half, the
-// scores accumulated over the halves (and so computed by both halves'
-// CTAs), so the register accumulators stay those of a 128-wide head.
+// so operations bound it at the tensor-core rate (0.0934 ms for the 5
+// products a pair needs). bf16 at head dims 64 and 128, the main path,
+// runs the Hopper sweeps of attention_hopper.cuh: 128 keys (dK/dV) or
+// queries (dQ) resident per CTA, two warpgroups of 64 rows, the other
+// side streamed by TMA in 64-row tiles through a 3-stage ring (with the
+// step's lse and delta rows), scores and gradients in wgmma registers;
+// the dK/dV sweep forms the transposed scores so that P^T and dS^T feed
+// its products as register operands. Measured on the H100 (PERF.md) it
+// holds ~1.3x the time of torch's SDPA backward at the flagship shape
+// and less than SDPA's at head dim 128, ~17% of the bound. fp32 inputs
+// and head dims 192/256 keep attention_tiles.cuh's bodies: WMMA
+// 16x16x16 bf16 fragments (or a CUDA-core path for fp32: the TPU
+// kernel's fp32 dots were exact fp32; the tensor cores would round to
+// TF32) with the accumulators in registers, plain 16-byte loads; head
+// dims 192 and 256 one CTA per tile and output column half, the scores
+// accumulated over the halves (and so computed by both halves' CTAs), so
+// the register accumulators stay those of a 128-wide head. q/k/v/dO/O
+// are read through their [B, T, H, D] strides everywhere, so the qkv
+// column slices need no copy.
 //
 // The given-delta entry (`ds_flash_attn_bwd_delta`) is K5's backward (the
 // TPU launcher's `_bwd(..., delta=)` with out None, driven by
 // `_flash_merge_bwd`): the caller computes delta from the merge weights,
 // no `out` exists, and a one-pass kernel writes delta - log2(e) * dlse
 // into the workspace, leaving the caller's delta as it was.
-#include "attention_tiles.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -129,6 +136,113 @@ int launch_sweeps(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at D 64 and 128 (attention_hopper.cuh), each sweep one CTA per
+// (b*h, 128-row tile) in `GridOrder`'s order: the dK/dV sweep's k tiles
+// from the first (the longest causal walk), the dQ sweep's from the last
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads,
+                                  sm90::BwdCfg<D>::kDkvBlocks)
+flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int seq, int heads, float scale_log2,
+                          float sm_scale, int causal,
+                          sm90::GridOrder order) {
+  const int nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  int bh, kt;
+  order.at(nt, bh, kt);
+  // 64-row q steps; causal steps wholly before the tile's first key are
+  // skipped
+  const int first = causal ? kt * sm90::kRows / sm90::kStep : 0;
+  const sm90::DenseWalk90 walk{first, seq / sm90::kStep - first, causal,
+                               seq};
+  sm90::dkv_body<D>(mq, mk, mv, mdo, lse, delta, dk, dv, seq, heads,
+                    scale_log2, sm_scale, kt, bh, walk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, sm90::BwdCfg<D>::kDqBlocks)
+flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int seq, int heads,
+                         float scale_log2, float sm_scale, int causal,
+                         sm90::GridOrder order) {
+  const int nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  int bh, rank;
+  order.at(nt, bh, rank);
+  const int qt = nt - 1 - rank;
+  // 64-row k steps up to the tile's last query (causal)
+  const int nk = seq / sm90::kStep;
+  const int last = (qt + 1) * sm90::kRows / sm90::kStep;
+  const sm90::DenseWalk90 walk{0, causal && last < nk ? last : nk, causal,
+                               seq};
+  sm90::dq_body<D>(mq, mk, mv, mdo, lse, delta, dq, seq, heads, scale_log2,
+                   sm_scale, qt, bh, walk);
+}
+
+template <int D>
+int launch_sweeps_sm90(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dq, void* dk, void* dv,
+                       int batch, int seq, int heads, const long long* s,
+                       float scale_log2, float sm_scale, int causal,
+                       cudaStream_t stream) {
+  using L = sm90::BwdCfg<D>;
+  constexpr int R = sm90::kRows, S = sm90::kStep;
+  // resident (R rows) and streamed (S rows) maps of each operand
+  CUtensorMap q_r, q_s, k_r, k_s, v_r, v_s, do_r, do_s;
+  const void* ptr[4] = {q, k, v, dout};
+  CUtensorMap* res[4] = {&q_r, &k_r, &v_r, &do_r};
+  CUtensorMap* str[4] = {&q_s, &k_s, &v_s, &do_s};
+  const long long* st[4] = {s, s + 3, s + 6, s + 12};
+  for (int i = 0; i < 4; ++i)
+    if (sm90::make_map(res[i], ptr[i], batch, seq, heads, D, st[i][0],
+                       st[i][1], st[i][2], R) ||
+        sm90::make_map(str[i], ptr[i], batch, seq, heads, D, st[i][0],
+                       st[i][1], st[i][2], S))
+      return sm90::kMapError;
+  auto dkv = flash_bwd_dkv_kernel_sm90<D>;
+  auto dqk = flash_bwd_dq_kernel_sm90<D>;
+  allow_smem(dkv, L::bytes);
+  allow_smem(dqk, L::bytes);
+  const long long bhs = static_cast<long long>(batch) * heads;
+  const unsigned grid = static_cast<unsigned>((seq + R - 1) / R * bhs);
+  const sm90::GridOrder order = sm90::grid_order(bhs, seq, D);
+  dkv<<<grid, sm90::kThreads, L::bytes, stream>>>(
+      q_s, k_r, v_r, do_s, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), seq, heads, scale_log2, sm_scale, causal,
+      order);
+  dqk<<<grid, sm90::kThreads, L::bytes, stream>>>(
+      q_r, k_s, v_s, do_r, lse, delta, static_cast<bf16*>(dq), seq, heads,
+      scale_log2, sm_scale, causal, order);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the Hopper sweeps where they apply, attention_tiles.cuh's otherwise
+template <typename T, int D>
+int route_sweeps(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, void* dk, void* dv, int batch, int seq, int heads,
+                 const long long* s, float scale_log2, float sm_scale,
+                 int causal, cudaStream_t stream) {
+  if constexpr (sm90::kOnSm90<T, D>)
+    return launch_sweeps_sm90<D>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                 batch, seq, heads, s, scale_log2, sm_scale,
+                                 causal, stream);
+  else
+    return launch_sweeps<T, D>(q, k, v, dout, lse, delta, dq, dk, dv, batch,
+                               seq, heads, s, scale_log2, sm_scale, causal,
+                               stream);
+}
+
 }  // namespace
 
 // Element strides (b, t, h), in this order, of q, k, v, out, dout (15
@@ -152,9 +266,9 @@ extern "C" int ds_flash_attn_bwd(const void* q, const void* k, const void* v,
     using T = typename K::T;
     launch_delta<T, K::D>(out, dout, dlse, delta, batch, seq, heads,
                           strides + 9, strides + 12, s);
-    return launch_sweeps<T, K::D>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                  batch, seq, heads, strides, scale_log2,
-                                  sm_scale, causal, s);
+    return route_sweeps<T, K::D>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                 batch, seq, heads, strides, scale_log2,
+                                 sm_scale, causal, s);
   });
 }
 
@@ -176,7 +290,7 @@ extern "C" int ds_flash_attn_bwd_delta(
     const long long n = static_cast<long long>(batch) * heads * seq;
     shift_delta_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                          s>>>(delta_in, dlse, delta, n);
-    return launch_sweeps<typename K::T, K::D>(
+    return route_sweeps<typename K::T, K::D>(
         q, k, v, dout, lse, delta, dq, dk, dv, batch, seq, heads, strides,
         scale_log2, sm_scale, causal, s);
   });

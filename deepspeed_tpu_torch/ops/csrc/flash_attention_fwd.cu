@@ -15,24 +15,32 @@
 //
 // Bound on the H100: at the flagship shape (bf16, causal, T=1024, D=64)
 // the work is ~250 flops per byte moved once, just under the card's ~295
-// balance point, so bytes bound it and the tensor-core rate nearly does:
-// a kernel near the bound needs both. The design keeps the
-// [T, T] score matrix out of device memory: one CTA of 4 warps per
-// (b*h, 64-row q tile) walks the 64-row k tiles, causal tiles above the
-// diagonal skipped, with the running (m, l) per row in registers and
-// the fp32 output accumulator in shared memory. Each warp owns 16 query
-// rows end to end (scores, softmax, rescale, P·V), so the only
-// CTA-wide barriers are around the K/V tile loads. bf16 products run on
-// the tensor cores through WMMA 16x16x16 fragments with fp32
-// accumulation; fp32 inputs take a CUDA-core path (the TPU kernel's
-// fp32 dots were exact fp32, which the tensor cores' TF32 would not
-// be). Q/K/V are read through their [B, T, H, D] strides with 16-byte
-// loads, so the q/k/v column slices of the fused qkv projection are
-// read in place (the TPU launcher's transpose to [B*H, T, D] was a
-// layout step for its BlockSpecs). This is the simple first kernel:
-// no TMA, no wgmma, no pipelining of the tile loads yet. Head dims 192
-// and 256 take the tile body's wide form (two column halves of Q, K, V
-// and O), which fits the 227 KB of shared memory in fp32 too.
+// balance point, so bytes bound it (0.0434 ms) and the tensor-core rate
+// nearly does (0.0373 ms): a kernel near the bound needs both. Every
+// design keeps the [T, T] score matrix out of device memory, reads q,
+// k, v through their [B, T, H, D] strides (so the q/k/v column slices
+// of the fused qkv projection are read in place; the TPU launcher's
+// transpose to [B*H, T, D] was a layout step for its BlockSpecs), and
+// skips causal tiles above the diagonal.
+//
+// bf16 at head dims 64 and 128, the main path, runs the Hopper body of
+// attention_hopper.cuh: TMA loads through 4-D tensor maps, wgmma from
+// 128-byte-swizzled shared memory, scores, softmax and O in registers,
+// one CTA of two 64-row warpgroups per 128-row q tile walking 64-row
+// K/V tiles in a 4-stage ring (2 at D 128), two CTAs per SM. At D 64
+// exp2 (one MUFU op per score, 16 a clock per SM) costs as much time as
+// the two products of that score on the tensor cores, so the softmax
+// is cut to one FFMA, one MUFU, a max and an add per score (the scale
+// folded into the exponent, the row max taken on raw scores, masks only
+// on tiles that cross the diagonal, O rescaled only where a row's max
+// moved); measured on the H100 (PERF.md) it holds ~1.35x the time of
+// torch's SDPA forward at the flagship shape, ~27% of the bound. fp32
+// inputs and head dims 192/256 keep attention_tiles.cuh's bodies: 4
+// warps per 64-row tile, WMMA 16x16x16 bf16 fragments (or CUDA-core
+// fp32: the TPU kernel's fp32 dots were exact fp32, which TF32 would
+// not be), the fp32 output accumulator in shared memory, synchronous
+// 16-byte loads; head dims 192 and 256 in two column halves of Q, K, V
+// and O, which fits the 227 KB of shared memory in fp32 too.
 //
 // K5 replaces the same Pallas kernels in merge mode (`_fwd_kernel` :262
 // and `_fwd_kernel_packed` :337 with merge=True, launcher `_fwd(prev=)`,
@@ -47,11 +55,12 @@
 // K1's, so where K1 is near the balance point the merge makes it bytes
 // bound. The design keeps that traffic to
 // one pass: the carry is read and the merged row written in the
-// epilogue, once per row, where a separate merge would read and write
-// the partial and the carry again. An empty row of the block (none on a
+// epilogue, once per row (8-byte reads and writes on the Hopper body),
+// where a separate merge would read and write the partial and the
+// carry again. An empty row of the block (none on a
 // ring's chunk-causal walk) merges as an empty partial, and -1e30 in
 // prev_lse marks an empty carry (the ring's first step).
-#include "attention_tiles.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -95,6 +104,69 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at D 64 and 128: one CTA per (b*h, 128-row q tile), in
+// `GridOrder`'s order
+template <int D, bool Merge>
+__global__ void __launch_bounds__(sm90::kThreads, sm90::FwdCfg<D>::kBlocks)
+flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      FwdOut<Merge, bf16>* __restrict__ out,
+                      float* __restrict__ lse, int seq, int heads,
+                      float scale_log2, int causal, sm90::GridOrder order,
+                      MergeIn mg) {
+  const int nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  int bh, rank;
+  order.at(nt, bh, rank);
+  const int qt = nt - 1 - rank;
+  // 64-row K/V tiles up to the tile's last row (causal)
+  const int nk = seq / sm90::FwdCfg<D>::kN;
+  const int last = (qt + 1) * sm90::kRows / sm90::FwdCfg<D>::kN;
+  const sm90::DenseWalk90 walk{0, causal && last < nk ? last : nk, causal,
+                               seq};
+  sm90::fwd_body<D, Merge>(mq, mk, mv, out, lse, seq, heads, scale_log2, qt,
+                           bh, walk, mg);
+}
+
+template <int D, bool Merge>
+int launch_sm90(const void* q, const void* k, const void* v, void* out,
+                float* lse, int batch, int seq, int heads,
+                const long long* s, float scale_log2, int causal,
+                const MergeIn& mg, cudaStream_t stream) {
+  using L = sm90::FwdCfg<D>;
+  CUtensorMap mq, mk, mv;
+  if (sm90::make_map(&mq, q, batch, seq, heads, D, s[0], s[1], s[2],
+                     sm90::kRows) ||
+      sm90::make_map(&mk, k, batch, seq, heads, D, s[3], s[4], s[5],
+                     L::kN) ||
+      sm90::make_map(&mv, v, batch, seq, heads, D, s[6], s[7], s[8], L::kN))
+    return sm90::kMapError;
+  auto kern = flash_fwd_kernel_sm90<D, Merge>;
+  allow_smem(kern, L::bytes);
+  const long long nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  kern<<<static_cast<unsigned>(nt * batch * heads), sm90::kThreads, L::bytes,
+         stream>>>(mq, mk, mv, static_cast<FwdOut<Merge, bf16>*>(out), lse,
+                   seq, heads, scale_log2, causal,
+                   sm90::grid_order(static_cast<long long>(batch) * heads,
+                                    seq, D),
+                   mg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the Hopper body where it applies, attention_tiles.cuh's otherwise
+template <typename T, int D, bool Merge>
+int route(const void* q, const void* k, const void* v, void* out,
+          float* lse, int batch, int seq, int heads, const long long* s,
+          float scale_log2, int causal, const MergeIn& mg,
+          cudaStream_t stream) {
+  if constexpr (sm90::kOnSm90<T, D>)
+    return launch_sm90<D, Merge>(q, k, v, out, lse, batch, seq, heads, s,
+                                 scale_log2, causal, mg, stream);
+  else
+    return launch<T, D, Merge>(q, k, v, out, lse, batch, seq, heads, s,
+                               scale_log2, causal, mg, stream);
+}
+
 }  // namespace
 
 // q/k/v strides in elements, in the order (b, t, h) for q, then k, then
@@ -112,9 +184,9 @@ extern "C" int ds_flash_attn_fwd(const void* q, const void* k, const void* v,
   if (batch * seq == 0) return 0;
   return dispatch_dense(dtype, head_dim, [&](auto kind) {
     using K = decltype(kind);
-    return launch<typename K::T, K::D, false>(q, k, v, out, lse, batch, seq,
-                                              heads, strides, scale_log2,
-                                              causal, MergeIn{}, s);
+    return route<typename K::T, K::D, false>(q, k, v, out, lse, batch, seq,
+                                             heads, strides, scale_log2,
+                                             causal, MergeIn{}, s);
   });
 }
 
@@ -135,8 +207,8 @@ extern "C" int ds_flash_attn_fwd_merge(
                    lse_n};
   return dispatch_dense(dtype, head_dim, [&](auto kind) {
     using K = decltype(kind);
-    return launch<typename K::T, K::D, true>(q, k, v, out, lse, batch, seq,
-                                             heads, strides, scale_log2,
-                                             causal, mg, s);
+    return route<typename K::T, K::D, true>(q, k, v, out, lse, batch, seq,
+                                            heads, strides, scale_log2,
+                                            causal, mg, s);
   });
 }

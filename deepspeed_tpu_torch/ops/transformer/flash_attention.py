@@ -8,11 +8,16 @@ K5 in their merge mode: `flash_attention_merge`, the ring-attention
 step), and the backward kernels (`_bwd_dkv_kernel`, `_bwd_dq_kernel`,
 `_bwd_fused_kernel` and their packed twins) become
 `ops/csrc/flash_attention_bwd.cu` (K2, with a given-delta entry for
-K5's backward). The plain PyTorch twins `_flash_fwd_plain`,
-`_flash_merge_plain` and `_flash_bwd_plain` below run the same 64x64
-tiled algorithms (log2 space, -1e30 masking, causal tiles above the
-diagonal skipped) and are what CPU tensors take. `torch.autograd.
-Function`s join the halves, so `flash_attention`,
+K5's backward). bf16 at head dims 64 and 128 runs the Hopper bodies
+(`ops/csrc/attention_hopper.cuh`: TMA and wgmma, 128-row q tiles over
+64-row K/V tiles forward, the backward's 64-row steps past 128-row
+resident tiles); fp32 and head dims 192/256 the WMMA bodies of
+`attention_tiles.cuh` (64 x 64 tiles). The plain PyTorch twins
+`_flash_fwd_plain`, `_flash_merge_plain` and `_flash_bwd_plain` below
+run the same tiled algorithms at the tiles of the body the kernel
+would run (`_kernel_tiles`; log2 space, -1e30 masking, causal tiles
+above the diagonal skipped) and are what CPU tensors take.
+`torch.autograd.Function`s join the halves, so `flash_attention`,
 `flash_attention_with_lse` and `flash_attention_merge` are
 differentiable in every input and output (the lse cotangent enters the
 backward as a shift of delta, as in the JAX package). The kernels take
@@ -37,9 +42,16 @@ import torch
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# the CUDA kernel's tile: 64 query rows x 64 key rows per step
+# T must be a multiple of this; the WMMA bodies' tile (64 query rows x
+# 64 key rows) and the backward's step on every body
 KERNEL_BLOCK = 64
 _KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+# the Hopper bodies (bf16 at these head dims): 128-row q tiles over
+# 64-row K/V tiles
+_SM90_HEAD_DIMS = (64, 128)
+_SM90_TILES = (128, 64)
+# the WMMA bodies launch one CTA row per (b, h) on grid.y
+_MAX_GRID_Y = 65535
 LN2 = 0.6931471805599453
 _DEFAULT_BLOCK = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -140,37 +152,58 @@ def _resolve_head_packing(head_packing, d):
 # ----------------------------------------------------------------------
 # plain twins: the kernels' tiled algorithms in PyTorch
 # ----------------------------------------------------------------------
-def _flash_tiles_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
+def _on_sm90(dtype, d):
+    """Whether (dtype, head dim) runs the Hopper bodies."""
+    return dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS
+
+
+def _kernel_tiles(dtype, d):
+    """(q rows, k rows) of the forward kernel's tile pair at (dtype, d):
+    128 x 64 on the Hopper body (bf16, d 64 or 128), 64 x 64 on the WMMA
+    bodies (fp32, d 192 and 256)."""
+    return _SM90_TILES if _on_sm90(dtype, d) else (KERNEL_BLOCK,
+                                                   KERNEL_BLOCK)
+
+
+def _tile_slices(t, block):
+    """Row slices of `block` rows over T, the last one ragged."""
+    return [slice(i, min(i + block, t)) for i in range(0, t, block)]
+
+
+def _flash_tiles_plain(q, k, v, sm_scale, causal, block_q=None,
+                       block_k=None):
     """The kernel's walk, one q tile at a time: yields (rows, m, l, acc)
-    with the running max m and sum l [B, H, block, 1] and the fp32
-    accumulator [B, H, block, D] after the tile's last k tile (causal:
-    up to the diagonal). Scores are fp32 products scaled by
-    sm_scale*log2(e) with masked entries at -1e30, the exponents of a
-    row that has seen nothing visible use -5e29 (so masked p are 0),
-    and the P·V product takes p in v's dtype."""
+    with the running max m and sum l [B, H, rows, 1] and the fp32
+    accumulator [B, H, rows, D] after the tile's last k tile (causal: up
+    to the one holding its last row's key). Tiles are block_q x block_k
+    (default `_kernel_tiles`); a last tile past T is cut at T, as the
+    kernel masks the keys TMA zero-fills there. Scores are fp32 products
+    scaled by sm_scale*log2(e) with masked entries at -1e30, the
+    exponents of a row that has seen nothing visible use -5e29 (so
+    masked p are 0), the sum l and the accumulator are rescaled once per
+    k tile, and the P·V product takes p in v's dtype."""
     b, t, h, d = q.shape
+    if block_q is None or block_k is None:
+        block_q, block_k = _kernel_tiles(q.dtype, d)
     f32 = torch.float32
     scale = float(sm_scale * LOG2E)
     qh = q.permute(0, 2, 1, 3)                    # [B, H, T, D]
     kh = k.permute(0, 2, 1, 3)
     vh = v.permute(0, 2, 1, 3)
-    nblk = t // block
-    for qi in range(nblk):
-        rows = slice(qi * block, (qi + 1) * block)
+    for rows in _tile_slices(t, block_q):
+        n = rows.stop - rows.start
         qt = qh[:, :, rows].to(f32)
-        m = torch.full((b, h, block, 1), NEG_INF, dtype=f32,
-                       device=q.device)
-        l = torch.zeros((b, h, block, 1), dtype=f32, device=q.device)
-        acc = torch.zeros((b, h, block, d), dtype=f32, device=q.device)
-        for ki in range(qi + 1 if causal else nblk):
-            cols = slice(ki * block, (ki + 1) * block)
+        m = torch.full((b, h, n, 1), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((b, h, n, 1), dtype=f32, device=q.device)
+        acc = torch.zeros((b, h, n, d), dtype=f32, device=q.device)
+        for cols in _tile_slices(t, block_k):
+            if causal and cols.start >= rows.stop:
+                break
             s = torch.matmul(qt, kh[:, :, cols].to(f32).transpose(-1, -2))
             s = s * scale
             if causal:
-                qpos = torch.arange(qi * block, (qi + 1) * block,
-                                    device=q.device)
-                kpos = torch.arange(ki * block, (ki + 1) * block,
-                                    device=q.device)
+                qpos = torch.arange(rows.start, rows.stop, device=q.device)
+                kpos = torch.arange(cols.start, cols.stop, device=q.device)
                 s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             m_safe = m_new.clamp(min=NEG_INF / 2)
@@ -183,7 +216,7 @@ def _flash_tiles_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
         yield rows, m, l, acc
 
 
-def _flash_fwd_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
+def _flash_fwd_plain(q, k, v, sm_scale, causal, block_q=None, block_k=None):
     """(out [B,T,H,D] in q.dtype, lse [B,H,T] fp32 log2 space) by the
     kernel's algorithm (`_flash_tiles_plain`): out = acc / l,
     lse = m + log2(l)."""
@@ -191,14 +224,14 @@ def _flash_fwd_plain(q, k, v, sm_scale, causal, block=KERNEL_BLOCK):
     out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     for rows, m, l, acc in _flash_tiles_plain(q, k, v, sm_scale, causal,
-                                              block):
+                                              block_q, block_k):
         out[:, :, rows] = (acc / l).to(q.dtype)
         lse[:, :, rows] = (m + torch.log2(l))[..., 0]
     return out.permute(0, 2, 1, 3), lse
 
 
 def _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale, causal,
-                       block=KERNEL_BLOCK):
+                       block_q=None, block_k=None):
     """K5's algorithm: (out fp32 [B,T,H,D], lse [B,H,T], lse_n [B,H,T])
     of flash attention over (k, v) merged with the prior partial
     (prev_out [B,T,H,D], prev_lse [B,H,T] log2 space, -1e30 = empty) in
@@ -208,7 +241,8 @@ def _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale, causal,
           / (2^(prev_lse - mm) + 2^(lse_n - mm)),
     lse = mm + log2(the denominator). A row of the block that saw
     nothing merges as an empty partial (lse_n = -inf) and returns
-    lse_n = +inf, the kernel's mark for the backward."""
+    lse_n = +inf, the kernel's mark for the backward. Tiles as in
+    `_flash_tiles_plain`."""
     b, t, h, d = q.shape
     f32 = torch.float32
     inf = torch.tensor(float("inf"), dtype=f32, device=q.device)
@@ -217,7 +251,7 @@ def _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale, causal,
     lse = torch.empty((b, h, t), dtype=f32, device=q.device)
     lse_n = torch.empty((b, h, t), dtype=f32, device=q.device)
     for rows, m, l, acc in _flash_tiles_plain(q, k, v, sm_scale, causal,
-                                              block):
+                                              block_q, block_k):
         ln = torch.where(l > 0, m + torch.log2(l), -inf)
         plse = prev_lse[:, :, rows, None].to(f32)
         mm = torch.maximum(ln, plse)
@@ -231,16 +265,20 @@ def _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale, causal,
 
 
 def _flash_bwd_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
-                     block=KERNEL_BLOCK, delta=None):
+                     block_q=KERNEL_BLOCK, block_k=KERNEL_BLOCK,
+                     delta=None):
     """(dq, dk, dv) [B,T,H,D] in the input dtype by the kernel's
     algorithm: delta = rowsum(dO * O) - log2(e) * dlse; per (q tile,
     k tile) pair at or below the diagonal, P = exp2(S - lse) from the
     log2(e)-scaled scores (masked at -1e30), dP = dO V^T,
     dS = P (dP - delta) sm_scale; dV += P^T dO with P in dO's dtype,
-    dK += dS^T Q and dQ += dS K with dS in q's dtype, fp32 sums. `lse`
-    and `dlse` (or None) are [B, H, T] fp32. A given `delta` [B, H, T]
-    (the given-delta entry: out may be None) takes the place of
-    rowsum(dO * O)."""
+    dK += dS^T Q and dQ += dS K with dS in q's dtype, fp32 sums. The
+    pairs are block_q x block_k: every body sums dK and dV over 64-row
+    q steps and dQ over 64-row k steps (the Hopper sweeps stream 64-row
+    tiles past 128-row resident ones, whose rows are independent), so
+    the default 64 x 64 is each kernel's order. `lse` and `dlse` (or
+    None) are [B, H, T] fp32. A given `delta` [B, H, T] (the given-delta
+    entry: out may be None) takes the place of rowsum(dO * O)."""
     b, t, h, d = q.shape
     f32 = torch.float32
     scale = float(sm_scale * LOG2E)
@@ -254,21 +292,18 @@ def _flash_bwd_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
     dq = torch.zeros((b, h, t, d), dtype=f32, device=q.device)
     dk = torch.zeros_like(dq)
     dv = torch.zeros_like(dq)
-    nblk = t // block
-    for qi in range(nblk):
-        rows = slice(qi * block, (qi + 1) * block)
+    for rows in _tile_slices(t, block_q):
         qt, gt = qh[:, :, rows], gh[:, :, rows]
         lse_t = lse[:, :, rows, None].to(f32)
         delta_t = delta[:, :, rows, None]
-        for ki in range(qi + 1 if causal else nblk):
-            cols = slice(ki * block, (ki + 1) * block)
+        for cols in _tile_slices(t, block_k):
+            if causal and cols.start >= rows.stop:
+                break
             kt, vt = kh[:, :, cols], vh[:, :, cols]
             s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
             if causal:
-                qpos = torch.arange(qi * block, (qi + 1) * block,
-                                    device=q.device)
-                kpos = torch.arange(ki * block, (ki + 1) * block,
-                                    device=q.device)
+                qpos = torch.arange(rows.start, rows.stop, device=q.device)
+                kpos = torch.arange(cols.start, cols.stop, device=q.device)
                 s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
             p = torch.exp2(s - lse_t)
             dp = torch.matmul(gt, vt.transpose(-1, -2))
@@ -287,9 +322,9 @@ def _flash_bwd_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
 # kernel launchers
 # ----------------------------------------------------------------------
 def _kernel_readable(x):
-    """Whether the kernels' 16-byte row loads can read the [B, T, H, D]
-    tensor x in place: a contiguous head dim and 16-byte aligned base and
-    (b, t, h) strides."""
+    """Whether the kernels' 16-byte row loads (and the Hopper bodies'
+    TMA tensor maps) can read the [B, T, H, D] tensor x in place: a
+    contiguous head dim and 16-byte aligned base and (b, t, h) strides."""
     itemsize = x.element_size()
     return x.stride(3) == 1 and not x.data_ptr() % 16 and not any(
         (x.stride(i) * itemsize) % 16 for i in range(3))
@@ -310,6 +345,9 @@ def _check_kernel_operand(name, x, like):
 
 
 def _check_kernel_shape(q):
+    """What every body takes: bf16 or fp32, a kernel head dim, T a
+    multiple of 64; and B*H at most 65535 where the WMMA bodies run
+    (their grid carries B*H on y; the Hopper bodies fold it into x)."""
     b, t, h, d = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernel: dtype {q.dtype} not supported "
@@ -321,8 +359,9 @@ def _check_kernel_shape(q):
     if t % KERNEL_BLOCK:
         raise ValueError(f"flash kernel: T={t} is no multiple of "
                          f"{KERNEL_BLOCK}")
-    if b * h > 65535:
-        raise ValueError(f"flash kernel: B*H={b * h} exceeds 65535")
+    if b * h > _MAX_GRID_Y and not _on_sm90(q.dtype, d):
+        raise ValueError(f"flash kernel: B*H={b * h} exceeds {_MAX_GRID_Y} "
+                         f"({q.dtype}, head dim {d}: the WMMA bodies)")
 
 
 def _strides(*tensors):
@@ -369,6 +408,10 @@ def _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale, causal):
         raise ValueError("prev_out: expected an fp32 [B, T, H, D] tensor "
                          "on q's device with a contiguous head dim")
     _check_lse("prev_lse", prev_lse, b, h, t)
+    if prev_out.data_ptr() % 8 or any(prev_out.stride(i) % 2
+                                      for i in range(3)):
+        # the Hopper body reads prev_out 8 bytes at a time
+        prev_out = prev_out.clone(memory_format=torch.contiguous_format)
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     lse, lse_n = (torch.empty((b, h, t), dtype=torch.float32,
                               device=q.device) for _ in range(2))
@@ -397,6 +440,8 @@ def _flash_bwd_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
     _check_kernel_shape(q)
     for name, x in (("lse", lse), ("dlse", dlse), ("delta", delta)):
         _check_lse(name, x, b, h, t)
+    if lse.data_ptr() % 16:     # the Hopper dK/dV sweep bulk-copies lse rows
+        lse = lse.clone()
     dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     work = torch.empty((b, h, t), dtype=torch.float32, device=q.device)

@@ -1,5 +1,6 @@
 """PyTorch port: the CUDA kernels on the card (kernels K1-fwd, K2,
-K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8) against their plain
+K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2 and K5 in bf16 at
+head dims 64 and 128 on their Hopper bodies) against their plain
 PyTorch twins, the serving engine against the kernel-driven forward,
 and a training step on the kernels against the plain-torch route.
 
@@ -287,6 +288,93 @@ def test_given_delta_backward_matches_twin(dev, dtype):
     assert torch.equal(delta, keep)
     for name, x, y in zip("qkv", got, ref):
         assert _rel_l2(x, y) <= GRAD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_hopper_kernels_at_ragged_t_match_twins(dev, causal, d):
+    """The Hopper bodies (bf16, head dims 64 and 128) at T = 320, where
+    the last 128-row tile runs past T (TMA reads zeros there): K1, K2
+    with and without an lse cotangent, and K5 with a real carry, on qkv
+    column views, against their twins; K5 with an empty carry gives
+    K1's out and lse."""
+    g = _gen(dev, 11 + d)
+    b, t, h = 2, 320, 3
+    bf16 = torch.bfloat16
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(bf16)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    sm = d ** -0.5
+    out, lse = tfa._flash_fwd_launch(q, k, v, sm, causal)
+    ref, ref_lse = tfa._flash_fwd_plain(q, k, v, sm, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+
+    dout = torch.randn((b, t, h, d), generator=g, device=dev).to(bf16)
+    dlse = torch.randn((b, h, t), generator=g, device=dev)
+    for dl in (dlse, None):
+        got = tfa.flash_attention_backward(q, k, v, out, lse, dout, dl, sm,
+                                           causal)
+        want = tfa._flash_bwd_plain(q, k, v, out, lse, dout, dl, sm, causal)
+        torch.cuda.synchronize()
+        for name, x, y in zip("qkv", got, want):
+            assert _rel_l2(x, y) <= GRAD_TOL[bf16], (name, dl is None)
+
+    k2, v2 = (torch.randn((b, t, h, d), generator=g, device=dev).to(bf16)
+              for _ in range(2))
+    prev, prev_lse = tfa._flash_fwd_launch(q, k2, v2, sm, False)
+    prev = prev.float()
+    prev[:, :7] = 0.0
+    prev_lse[:, :, :7] = tfa.NEG_INF
+    got = tfa._flash_merge_launch(q, k, v, prev, prev_lse, sm, causal)
+    want = tfa._flash_merge_plain(q, k, v, prev, prev_lse, sm, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **BF16_TOL)
+    torch.testing.assert_close(got[1], want[1], **F32_TOL)
+    torch.testing.assert_close(got[2], want[2], **F32_TOL)
+    empty = tfa._flash_merge_launch(
+        q, k, v, torch.zeros(q.shape, device=dev),
+        torch.full((b, h, t), tfa.NEG_INF, device=dev), sm, causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(empty[0], out.float(), **BF16_TOL)
+    torch.testing.assert_close(empty[1], lse, **F32_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_hopper_backward_repeats_bit_for_bit(dev, d):
+    """K2's two sweeps own every output row (no atomics): a second
+    launch equals the first bit for bit, for the full entry and the
+    given-delta entry."""
+    g = _gen(dev, 21 + d)
+    b, t, h = 2, 512, 8
+    q, k, v, dout = (torch.randn((b, t, h, d), generator=g, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    out, lse = tfa._flash_fwd_launch(q, k, v, d ** -0.5, True)
+    dlse, delta = (torch.randn((b, h, t), generator=g, device=dev)
+                   for _ in range(2))
+    for kw in (dict(out=out), dict(out=None, delta=delta)):
+        runs = [tfa.flash_attention_backward(
+            q, k, v, kw["out"], lse, dout, dlse, d ** -0.5, True,
+            delta=kw.get("delta")) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_more_than_65535_heads_match_twin(dev):
+    """B*H = 65550 at T = 64: the Hopper body's 1-D grid launches it
+    (grid.y, which carries B*H in the WMMA bodies, stops at 65535), and
+    K1 matches its twin."""
+    g = _gen(dev, 31)
+    b, t, h, d = 32775, 64, 2, 64
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    before = tfa.flash_attention_with_lse.launches
+    out, lse = tfa.flash_attention_with_lse(q, k, v, causal=True)
+    ref, ref_lse = tfa._flash_fwd_plain(q, k, v, d ** -0.5, True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_with_lse.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    torch.testing.assert_close(lse[..., 0], ref_lse, **F32_TOL)
 
 
 def test_gpt2_head_dim_256_forward_matches_cpu(dev):

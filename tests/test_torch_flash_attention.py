@@ -136,3 +136,51 @@ def test_cpu_tensors_count_no_launch():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 128, 2, 64, seed=11))
     tfa.flash_attention(q, k, v)
     assert tfa.flash_attention_with_lse.launches == 0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t", [192, 320])
+def test_hopper_walk_matches_jax_interpret_at_ragged_t(t, causal, d):
+    """The Hopper body's walk (128-row q tiles over 64-row K/V tiles;
+    at T = 192 and 320 the last q tile runs past T) against the Pallas
+    kernel in interpret mode: fp32 through the twin with those tiles,
+    to roundoff; bf16 through the public function, which takes them at
+    head dims 64 and 128."""
+    assert tfa._kernel_tiles(torch.bfloat16, d) == (128, 64)
+    q, k, v = _qkv(2, t, 2, d, seed=t + d + causal)
+    ref_out, ref_lse = jfa.flash_attention_with_lse(q, k, v, causal=causal,
+                                                    interpret=True)
+    out, lse = tfa._flash_fwd_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    d ** -0.5, causal, 128, 64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               **F32_TOL)
+
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    ref_out, ref_lse = jfa.flash_attention_with_lse(jq, jk, jv, causal=causal,
+                                                    interpret=True)
+    out, lse = tfa.flash_attention_with_lse(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+        causal=causal)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref_out.astype(jnp.float32)),
+                               **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), **F32_TOL)
+
+
+def test_kernel_shape_check_takes_more_than_65535_heads_on_the_hopper_body():
+    """B*H = 65550: the Hopper bodies (bf16, head dims 64 and 128) fold
+    B*H into a 1-D grid and take it; the WMMA bodies (fp32, head dims
+    192 and 256) carry it on grid.y and raise. Meta tensors: the check
+    reads shapes and dtypes only."""
+    for d in (64, 128):
+        tfa._check_kernel_shape(torch.empty((32775, 64, 2, d),
+                                            dtype=torch.bfloat16,
+                                            device="meta"))
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q = torch.empty((32775, 64, 2, d), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="65535"):
+            tfa._check_kernel_shape(q)
+    tfa._check_kernel_shape(torch.empty((65535, 64, 1, 64),
+                                        dtype=torch.float32, device="meta"))

@@ -131,3 +131,29 @@ def test_backward_wrapper_equals_autograd_and_counts_no_launch():
     assert all(torch.equal(a, b) for a, b in zip(auto, ref))
     assert tfa.flash_attention_backward.launches == 0
     assert tfa.flash_attention_with_lse.launches == 0
+
+
+@pytest.mark.parametrize("with_dlse", [True, False], ids=["dlse", "no-dlse"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t", [192, 320])
+def test_hopper_walk_grads_match_jax_at_ragged_t(t, causal, with_dlse):
+    """The Hopper bodies' backward at T = 192 and 320 (128-row resident
+    tiles run past T; the sweeps step 64 rows): fp32 through the twins
+    with the Hopper forward's tiles (128 x 64) feeding the backward
+    twin's 64-row steps, to roundoff; bf16 through autograd of the
+    public function, which takes those tiles. With and without an lse
+    cotangent."""
+    q, k, v, g, g_lse = _inputs(1, t, 2, 64, seed=t + 2 * causal + with_dlse)
+    g_lse = g_lse if with_dlse else None
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    out, lse = tfa._flash_fwd_plain(tq, tk, tv, 0.125, causal, 128, 64)
+    dlse = None if g_lse is None else torch.from_numpy(g_lse)[..., 0]
+    got = tfa._flash_bwd_plain(tq, tk, tv, out, lse, tg, dlse, 0.125, causal)
+    ref = _jax_grads(q, k, v, g, g_lse, "fp32", causal, None)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_l2(a.numpy(), b) <= REL_TOL["fp32"], name
+
+    got = _port_grads(q, k, v, g, g_lse, "bf16", causal)
+    ref = _jax_grads(q, k, v, g, g_lse, "bf16", causal, None)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_l2(a, b) <= REL_TOL["bf16"], name

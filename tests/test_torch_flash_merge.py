@@ -148,3 +148,38 @@ def test_empty_partials_through_the_twin(monkeypatch):
     torch.testing.assert_close(out, prev, atol=0, rtol=0)
     torch.testing.assert_close(lse, prev_lse[..., 0], atol=0, rtol=0)
     assert torch.isposinf(lse_n).all()
+
+
+@pytest.mark.parametrize("carry", ["empty", "real"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t", [192, 320])
+def test_hopper_walk_merge_matches_jax_at_ragged_t(t, causal, carry):
+    """K5 on the Hopper body's walk (128-row q tiles over 64-row K/V
+    tiles, the last q tile past T at T = 192 and 320) against the Pallas
+    kernel's merge mode in interpret mode, with an empty carry (the
+    ring's first step: prev_lse -1e30 everywhere) and a real one: fp32
+    through the twin with those tiles, bf16 through the public function,
+    which takes them."""
+    q, k, v, prev, prev_lse = _inputs(50 + t + causal, t=t)
+    if carry == "empty":
+        prev, prev_lse = np.zeros_like(prev), np.full_like(prev_lse,
+                                                           tfa.NEG_INF)
+    ref_out, ref_lse = jfa.flash_attention_merge(
+        q, k, v, prev, prev_lse, causal=causal, interpret=True)
+    out, lse, _ = tfa._flash_merge_plain(
+        *(torch.from_numpy(x) for x in (q, k, v, prev)),
+        torch.from_numpy(prev_lse)[..., 0], 64 ** -0.5, causal, 128, 64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               **F32_TOL)
+
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    ref_out, ref_lse = jfa.flash_attention_merge(
+        jq, jk, jv, prev, prev_lse, causal=causal, interpret=True)
+    out, lse = tfa.flash_attention_merge(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+        torch.from_numpy(prev), torch.from_numpy(prev_lse), causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out, np.float32),
+                               **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse),
+                               **BF16_TOL)
