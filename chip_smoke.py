@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
   1. environment: card name and power limit (nvidia-smi), torch/CUDA
      versions; TF32 is switched off for matmuls and cuDNN;
   2. build: the kernels compiled from ops/csrc/ into build/torch_kernels/,
-     with ptxas's registers and spills of each Hopper attention kernel;
+     with ptxas's registers and spills of each Hopper (TMA + wgmma)
+     kernel: the attention bodies, K7-band's and K6; none may spill;
   3. kernels vs their plain PyTorch twins at the slice's shapes, with
      max errors against stated tolerances, and the kernel's time beside
      the twin's, a bound (the least time the card could take: bytes
@@ -65,10 +66,11 @@ Phases, each printing one JSON line:
  13. quantized MoE training: phase 11 with quantized experts and the
      quantized_compute block (K6 for c_attn/c_proj of every block, the
      dense blocks' MLPs and, grouped over the 8 experts, wi and wo);
- 14. kernel_sparse: the four K7 kernels (block-sparse attention) against
+ 14. kernel_sparse: the K7 kernels (block-sparse attention) against
      their twins at bench.py's sparse_attention_16k shape ([1, 16384,
      16, 64] bf16, block 256, causal; BSLongformer w4 and Fixed l4 g1 on
-     K7-band, BigBird on K7-fwd, K7-dkv/K7-dq under all three), timed
+     K7-band's Hopper body, and on its earlier WMMA body beside it,
+     BigBird on K7-fwd, K7-dkv/K7-dq under all three), timed
      beside a bound over the visible scores, the twin, SDPA with the
      expanded boolean layout mask and the dense K1/K2; checks at the
      paths' other shapes ([2, 32768] BSLongformer and Fixed, BERT's
@@ -82,7 +84,8 @@ Phases, each printing one JSON line:
  16. bert_sparse: BertSparseSelfAttention(1024, 16) (default Fixed,
      bidirectional) on [1, 16384, 1024] bf16, forward + backward finite;
  17. sparse_oracle: the kernel route against the dense masked fallback
-     at T 4096, outputs and dQ/dK/dV by relative L2, fp32 and bf16;
+     at T 4096, outputs and dQ/dK/dV by relative L2, fp32 (K7-band's
+     WMMA body) and bf16 (its Hopper body), every K7 kernel launched;
  18. kernel_merge: K5 (flash attention merged with a prior softmax
      partial in its epilogue) against its twin at the ring leg's
      [1, 8192, 4, 64] (bf16 causal and full, fp32) and the sp_training
@@ -112,9 +115,9 @@ at the MoE shape (N 16,384 tokens, 8 x 5,120 slots, H 1024) in bf16
 and fp32, k 1 and 2, with empty slots and dropped assignments
 (`torch.index_select` on the padded tokens is dispatch's yardstick),
 and K6 at the projection shapes of the flagship and of gpt2-350m-moe8
-and the experts' two grouped shapes (torch._int_mm and the bf16 matmul
-as its yardsticks); each kernel is timed at the shapes of the paths
-that run it.
+and the experts' two grouped shapes, bit for bit its twin there and at
+block 256 (torch._int_mm and the bf16 matmul as its yardsticks); each
+kernel is timed at the shapes of the paths that run it.
 Then the `kernels` summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises and the script
 exits non-zero without printing a result. It needs a CUDA device and
@@ -228,18 +231,24 @@ def bound(flops, flops_peak, nbytes, peaks):
 
 
 def sm90_ptxas(log):
-    """{kernel<D[, merge]>: "R registers, no spill" or "..., N bytes spill
-    stores"} of the Hopper attention kernels in one library's ptxas
-    report (nvcc -Xptxas -v)."""
+    """{kernel<args>: "R registers, no spill" or "..., N bytes spill
+    stores"} of the Hopper (TMA + wgmma) kernels in one library's ptxas
+    report (nvcc -Xptxas -v): the attention bodies (K1, K5, K2 and
+    K7-band, by head dim) and K6 (by output type)."""
     import re
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel_sm90)"
-                          r"ILi(\d+)E(?:Lb(\d)E)?", ln)
-            name = None if m is None else (
-                f"{m.group(1)}<{m.group(2)}" +
-                (f", merge={m.group(3)}" if m.group(3) else "") + ">")
+            m = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|band_fwd)"
+                          r"_kernel_sm90)ILi(\d+)E(?:Lb(\d)E)?", ln)
+            q = re.search(r"qmm_kernelI(f|13__nv_bfloat16)E", ln)
+            name = None
+            if m is not None:
+                name = (f"{m.group(1)}<{m.group(2)}" +
+                        (f", merge={m.group(3)}" if m.group(3) else "") +
+                        ">")
+            elif q is not None:
+                name = f"qmm_kernel<{'float' if q.group(1) == 'f' else 'bf16'}>"
             continue
         if name is None:
             continue
@@ -808,8 +817,9 @@ def kernel_moe(peaks, gen):
 
 # K6 against its twin: both take exact integer block partials, scale and
 # add them in the same order with no fused multiply-add, and round the
-# output once, so they agree bit for bit; the bound is one rounding of
-# the output (one bf16 ulp, 2^-7 relative; 1e-6 relative in fp32)
+# output once, so they agree bit for bit (`exact`, which must hold); the
+# bound is one rounding of the output (one bf16 ulp, 2^-7 relative; 1e-6
+# relative in fp32)
 TOL_K6_BF16 = dict(atol=1e-6, rtol=2 ** -7)
 TOL_K6_F32 = dict(atol=1e-6, rtol=1e-6)
 QUANT_BLOCK = 128
@@ -829,11 +839,16 @@ def kernel_qmm(peaks, gen):
     1024/3072, 1024/1024, 1024/4096, 4096/1024: c_attn and c_proj of
     every block, the dense blocks' MLPs) and its experts' two grouped
     projections (G 8, C 5,120; 1024/4096 and 4096/1024), bf16 output,
-    each timed; plus fp32 output and a ragged M. Operands are quantized
-    as the path quantizes them. Yardsticks, never called by the port:
-    torch._int_mm on the same padded int8 operands (the int8 product
-    without per-block scales) and the bf16 matmul the quantized path
-    replaces."""
+    each timed; plus fp32 output, a ragged M, the experts' ragged C 77
+    and block 256. Operands are quantized as the path quantizes them;
+    each result must equal its twin bit for bit. `ms` is the wrapper as
+    the path calls it (the per-call weight transpose included, as the
+    earlier kernel was timed), `kernel_ms` the launch alone on the
+    transposed weights; TOP/s and the share of the bound are the
+    kernel's. Yardsticks, never
+    called by the port: torch._int_mm on the same padded int8 operands
+    (the int8 product without per-block scales) and the bf16 matmul the
+    quantized path replaces."""
     import torch
     qm = _qmm()
     checks, out = [], {}
@@ -867,29 +882,33 @@ def kernel_qmm(peaks, gen):
          bf16, None),
         ("experts G8 ragged C77 K1024 N4096 fp32 out", MOE_EXPERTS, 77, 1024,
          4096, f32, None),
+        ("c_fc block 256", 1, flag_m, 1600, 6400, bf16, None),
     )
     for label, g, m, k, n, out_dt, timed in cases:
+        block = 256 if "block 256" in label else QUANT_BLOCK
         x = torch.randn((g, m, k), generator=gen, device="cuda").to(bf16)
         w = (0.02 * torch.randn((g, k, n), generator=gen, device="cuda")) \
             .to(bf16)
-        wq, sw = qm.quantize_kernel_int8(w, QUANT_BLOCK)
+        wq, sw = qm.quantize_kernel_int8(w, block)
         xq, sx = qm.quantize_rows_int8(x)
         kp = wq.shape[-2]
         xq = torch.nn.functional.pad(xq, (0, kp - k)).contiguous()
 
         def run():
-            return qm._qmm_launch(xq, wq, sx, sw, QUANT_BLOCK, out_dt)
+            return qm._qmm_launch(xq, wq, sx, sw, block, out_dt)
 
         got = run()
         torch.cuda.synchronize()
-        ref = qm._qmm_plain(xq, wq, sx, sw, QUANT_BLOCK, out_dt)
+        ref = qm._qmm_plain(xq, wq, sx, sw, block, out_dt)
         tol = TOL_K6_BF16 if out_dt == bf16 else TOL_K6_F32
         err = check(f"qmm, {label}", got, ref, tol, checks)
         checks[-1]["exact"] = bool(torch.equal(got, ref))
+        if not checks[-1]["exact"]:
+            raise AssertionError(f"qmm, {label}: not bit for bit its twin")
         del got, ref
         if not timed:
             continue
-        nb = kp // QUANT_BLOCK
+        nb = kp // block
         # 2 operations per int8 product; read xq, wq, sx, sw once, write
         # the bf16 output once
         flops = 2.0 * g * m * kp * n
@@ -905,10 +924,16 @@ def kernel_qmm(peaks, gen):
                            "unavailable": str(exc)[:200]})
         xb = x if g > 1 else x[0]
         wb = w if g > 1 else w[0]
+        wqt = wq.transpose(1, 2).contiguous()
+        swp = torch.nn.functional.pad(sw, (0, -n % 4)).contiguous()
+        kernel_ms = time_ms(lambda: qm._qmm_kernel(xq, wqt, sx, swp, block,
+                                                   out_dt))
         out[timed] = dict(
-            max_abs_err=err, ms=time_ms(run),
-            plain_ms=time_ms(lambda: qm._qmm_plain(xq, wq, sx, sw,
-                                                   QUANT_BLOCK, out_dt),
+            max_abs_err=err, ms=time_ms(run), kernel_ms=kernel_ms,
+            tops=flops / kernel_ms / 1e9,
+            share_of_bound=bound_ms / kernel_ms,
+            plain_ms=time_ms(lambda: qm._qmm_plain(xq, wq, sx, sw, block,
+                                                   out_dt),
                              iters=3, warmup=1),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=int_mm_ms,
             library_call=("torch._int_mm on the padded int8 operands, no "
@@ -916,7 +941,11 @@ def kernel_qmm(peaks, gen):
                                                 else "")),
             bf16_matmul_ms=time_ms(lambda: torch.matmul(xb, wb)),
             shape=label)
-        del x, w, wq, sw, xq, sx, wqt_t
+        del x, w, wq, sw, xq, sx, wqt_t, wqt, swp
+    from deepspeed_tpu_torch.ops import _build
+    ptxas = sm90_ptxas(_build.build_log("quantized_matmul"))
+    for row in out.values():
+        row["ptxas"] = ptxas
     return out, checks
 
 
@@ -1568,22 +1597,28 @@ def visible_scores(layout, block, causal):
 def kernel_sparse(peaks, gen):
     """K7 at the bench leg's shape ([1, 16384, 16, 64] bf16, block 256,
     causal): K7-band under BSLongformer (w 4, sliding) and Fixed (l 4,
-    g 1, aligned), K7-fwd under BigBird, K7-dkv and K7-dq under all
-    three, each against its twin, timed beside its bound (the visible
-    scores only), its twin, SDPA with the expanded boolean layout mask
-    (the library yardstick, never called by the port) and the dense
-    K1/K2 at the same shape; then checks, untimed, at the paths' other
-    shapes (BSLongformer and Fixed at [2, 32768]; BERT's default Fixed,
-    block 128, bidirectional, at [1, 16384]), at block 32 (T 2048, fp32
-    and bf16, non-causal) and on per-head layouts. Returns {kernel:
-    {case: numbers}} and the checks."""
+    g 1, aligned) on the Hopper body (and, as the earlier kernel, on the
+    WMMA body), K7-fwd under BigBird, K7-dkv and K7-dq under all three,
+    each against its twin, timed beside its bound (the visible scores
+    only), its twin, SDPA with the expanded boolean layout mask (the
+    library yardstick, never called by the port) and the dense K1/K2 at
+    the same shape; then checks, untimed, at the paths' other shapes
+    (BSLongformer and Fixed at [2, 32768]; BERT's default Fixed, block
+    128, bidirectional, at [1, 16384]), at block 32 (T 2048, fp32 on the
+    WMMA band body and bf16 on the Hopper one, non-causal), on per-head
+    layouts, and on the Hopper band body at every block and head dim it
+    takes (`band_layouts`). Returns {kernel: {case: numbers}} and the
+    checks."""
     import torch
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     bsa = _sparse()
     checks = []
-    res = {"block_sparse_fwd": {}, "block_sparse_band_fwd": {},
-           "block_sparse_bwd_dkv": {}, "block_sparse_bwd_dq": {}}
+    res = {"block_sparse_fwd": {}, "block_sparse_band_fwd_sm90": {},
+           "block_sparse_band_fwd": {}, "block_sparse_bwd_dkv": {},
+           "block_sparse_bwd_dq": {}}
+    ptxas = sm90_ptxas(_build.build_log("block_sparse_attention"))
 
     def one(label, layout, block, causal, dtype, b, t, h, d, timed):
         qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda",
@@ -1591,24 +1626,41 @@ def kernel_sparse(peaks, gen):
         q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
         dout = torch.randn((b, t, h, d), generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
-        plan = bsa._plan(layout, causal, block, bsa.TILE, q.device)
+        plan = fwd_plan = bsa._plan(layout, causal, block, bsa.TILE,
+                                    q.device)
         sm = d ** -0.5
-        if plan.band is not None:
-            fwd_name = "block_sparse_band_fwd"
-            launch, plain = bsa._band_fwd_launch, bsa._band_fwd_plain
-        else:
+        tiles = bsa._band_fwd_tiles(dtype, d, bsa.TILE)
+        if plan.band is None:
             fwd_name = "block_sparse_fwd"
             launch, plain = bsa._bs_fwd_launch, bsa._bs_fwd_plain
-        out, lse = launch(q, k, v, plan, sm)
+        elif tiles != (bsa.TILE, bsa.TILE):
+            fwd_name = "block_sparse_band_fwd_sm90"
+            launch, plain = bsa._band_fwd_sm90_launch, bsa._band_fwd_plain
+            fwd_plan = bsa._plan(layout, causal, block, tiles, q.device)
+        else:
+            fwd_name = "block_sparse_band_fwd"
+            launch, plain = bsa._band_fwd_launch, bsa._band_fwd_plain
+        out, lse = launch(q, k, v, fwd_plan, sm)
         dk, dv, delta = bsa._bs_bwd_dkv_launch(q, k, v, out, lse, dout,
                                                plan, sm)
         dq = bsa._bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm)
         torch.cuda.synchronize()
-        ref, ref_lse = plain(q, k, v, plan, sm)
+        ref, ref_lse = plain(q, k, v, fwd_plan, sm)
         tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
         gtol = GRAD_TOL_BF16 if dtype == torch.bfloat16 else GRAD_TOL_F32
         err_fwd = check(f"{fwd_name} out, {label}", out, ref, tol, checks)
         check(f"{fwd_name} log2-lse, {label}", lse, ref_lse, TOL_F32, checks)
+        if fwd_plan is not plan and timed:
+            # the earlier band kernel (WMMA, 64 x 64 tiles) on the same
+            # inputs, held to its own twin
+            wmma_out, wmma_lse = bsa._band_fwd_launch(q, k, v, plan, sm)
+            torch.cuda.synchronize()
+            wmma_ref, wmma_ref_lse = bsa._band_fwd_plain(q, k, v, plan, sm)
+            err_wmma = check(f"block_sparse_band_fwd out, {label}", wmma_out,
+                             wmma_ref, tol, checks)
+            check(f"block_sparse_band_fwd log2-lse, {label}", wmma_lse,
+                  wmma_ref_lse, TOL_F32, checks)
+            del wmma_out, wmma_lse, wmma_ref, wmma_ref_lse
         ref_dq, ref_dk, ref_dv = bsa._bs_bwd_plain(q, k, v, out, lse, dout,
                                                    plan, sm)
         err_dkv = max(check_rel(f"block_sparse_bwd_dkv d{n}, {label}", x, y,
@@ -1671,12 +1723,25 @@ def kernel_sparse(peaks, gen):
                                               else t * t)),
                   "sdpa_masked_fwd_ms": sdpa_f,
                   "sdpa_masked_fwd_bwd_ms": sdpa_fb, "dense": dense}
-        res[fwd_name][label] = dict(
-            max_abs_err=err_fwd, ms=time_ms(lambda: launch(q, k, v, plan,
+        fwd_flops = 4.0 * d * nvis
+        res[fwd_name][label] = rates(dict(
+            max_abs_err=err_fwd, ms=time_ms(lambda: launch(q, k, v, fwd_plan,
                                                            sm)),
-            plain_ms=time_ms(lambda: plain(q, k, v, plan, sm), iters=3,
+            plain_ms=time_ms(lambda: plain(q, k, v, fwd_plan, sm), iters=3,
                              warmup=1),
-            bound_ms=f_bound, bound_by=f_by, library_ms=sdpa_f, **common)
+            bound_ms=f_bound, bound_by=f_by, library_ms=sdpa_f, **common),
+            fwd_flops)
+        if fwd_plan is not plan:
+            res[fwd_name][label]["ptxas"] = ptxas
+            res["block_sparse_band_fwd"][label] = rates(dict(
+                max_abs_err=err_wmma,
+                ms=time_ms(lambda: bsa._band_fwd_launch(q, k, v, plan, sm)),
+                plain_ms=time_ms(lambda: bsa._band_fwd_plain(q, k, v, plan,
+                                                             sm),
+                                 iters=3, warmup=1),
+                bound_ms=f_bound, bound_by=f_by, library_ms=sdpa_f,
+                body="WMMA, 64 x 64 tiles (the earlier K7-band; the route "
+                     "takes it for fp32)", **common), fwd_flops)
         twin_bwd = time_ms(lambda: bsa._bs_bwd_plain(
             q, k, v, out, lse, dout, plan, sm), iters=2, warmup=1)
         res["block_sparse_bwd_dkv"][label] = dict(
@@ -1724,7 +1789,36 @@ def kernel_sparse(peaks, gen):
     for dtype in (torch.float32, torch.bfloat16):
         one(f"per-head variable {str(dtype)[6:]} causal B2 T2048 H4 D128 "
             "block 32", per_head, 32, True, dtype, 2, 2048, 4, 128, False)
+    # K7-band's Hopper body at every block it takes, at head dims 64 and
+    # 128: sliding and aligned bands, causal and not; T 448 (the last
+    # 128-row q tile runs past T) or 8 blocks. At blocks of 64 and under
+    # a q tile straddles layout blocks, and causally its lower half
+    # cannot see the first tile of its span
+    for block in (16, 32, 64, 128, 256):
+        t = 448 if 448 % block == 0 else 8 * block
+        for i, (layout, causal) in enumerate(band_layouts(3, t, block)):
+            for d in (64, 128):
+                one(f"band layout {i} {'causal' if causal else 'full'} "
+                    f"B2 T{t} H3 D{d} block {block}", layout, block, causal,
+                    torch.bfloat16, 2, t, 3, d, False)
     return res, checks
+
+
+def band_layouts(h, t, block):
+    """(layout, causal) pairs that K7-band takes: sliding bands
+    (BSLongformer: unidirectional with its global column, causal;
+    bidirectional without one, not causal) and aligned windows (Fixed
+    with its global columns, causal and not)."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    sliding = sa.BSLongformerSparsityConfig
+    return [(sliding(num_heads=h, block=block, num_sliding_window_blocks=3,
+                     attention="unidirectional").make_layout(t), True),
+            (sliding(num_heads=h, block=block, num_sliding_window_blocks=3,
+                     global_block_indices=[]).make_layout(t), False)] + [
+        (sa.FixedSparsityConfig(num_heads=h, block=block, num_local_blocks=4,
+                                attention=attention).make_layout(t), causal)
+        for attention, causal in (("unidirectional", True),
+                                  ("bidirectional", False))]
 
 
 def sparse_attention_path(seed, card):
@@ -1863,10 +1957,13 @@ def sparse_oracle(seed):
     (block_sparse_attention_dense_fallback: plain torch over the
     expanded [T, T] mask) at T 4096 (the fallback's fp32 scores at 16k
     would take ~17 GB), H16 D64 block 256 causal, for the three
-    patterns, fp32 and bf16: outputs and dQ/dK/dV by relative L2."""
+    patterns, fp32 (K7-band on the WMMA body) and bf16 (on the Hopper
+    body): outputs and dQ/dK/dV by relative L2. Launch counts are zeroed
+    right before and returned."""
     import torch
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     bsa = _sparse()
+    reset_counts()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     t = SPARSE_ORACLE_T
@@ -1894,10 +1991,12 @@ def sparse_oracle(seed):
                          "rel_l2": errs, "tol": tol, "ok": good})
             del results
             release()
+    counts = read_counts()
     emit({"phase": "sparse_oracle", "seq": t, "rows": rows, "ok": ok})
     if not ok:
         raise AssertionError("sparse kernel route disagrees with the dense "
                              "masked fallback")
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -2358,6 +2457,7 @@ def read_counts():
             "fused_bias_gelu_bwd": fo.fused_bias_gelu_backward.launches,
             "quantized_matmul": _qmm().quantized_matmul.launches,
             "block_sparse_fwd": bsa._bs_fwd_launch.launches,
+            "block_sparse_band_fwd_sm90": bsa._band_fwd_sm90_launch.launches,
             "block_sparse_band_fwd": bsa._band_fwd_launch.launches,
             "block_sparse_bwd_dkv": bsa._bs_bwd_dkv_launch.launches,
             "block_sparse_bwd_dq": bsa._bs_bwd_dq_launch.launches}
@@ -2395,6 +2495,12 @@ KERNELS = (
      "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
      "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:160",
      None),
+    # K7-band: the Hopper body (bf16 at head dims 64 and 128, the sparse
+    # path's) and the WMMA body (fp32)
+    ("block_sparse_band_fwd_sm90",
+     "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:552",
+     None),
     ("block_sparse_band_fwd",
      "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
      "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:552",
@@ -2423,8 +2529,10 @@ TRAINING_KERNELS = SERVING_KERNELS + (
 MOE_KERNELS = TRAINING_KERNELS + ("moe_dispatch", "moe_combine")
 QUANT_KERNELS = TRAINING_KERNELS + ("quantized_matmul",)
 MOE_QUANT_KERNELS = MOE_KERNELS + ("quantized_matmul",)
-SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_band_fwd",
+SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_band_fwd_sm90",
                   "block_sparse_bwd_dkv", "block_sparse_bwd_dq")
+# the sparse oracle's fp32 cases take K7-band's WMMA body
+SPARSE_ORACLE_KERNELS = SPARSE_KERNELS + ("block_sparse_band_fwd",)
 # the ring leg: K5 and K2 (the flash ring), K1 and K2 (Ulysses); GPT-2
 # under the ring: training's kernels with K5 in K1's place
 SEQUENCE_PARALLEL_KERNELS = ("flash_attention_merge", "flash_attention_bwd",
@@ -2467,11 +2575,16 @@ def main(argv=None):
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
              for n in _build.SOURCES}
+    sm90 = {k: v for n in ("flash_attention_fwd", "flash_attention_bwd",
+                           "block_sparse_attention", "quantized_matmul")
+            for k, v in sm90_ptxas(_build.build_log(n)).items()}
     emit({"phase": "build", "seconds": build_s,
           "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas,
-          "sm90_attention_kernels": {
-              **sm90_ptxas(_build.build_log("flash_attention_fwd")),
-              **sm90_ptxas(_build.build_log("flash_attention_bwd"))}})
+          "sm90_kernels": sm90})
+    spilled = [k for k, v in sm90.items() if "no spill" not in v]
+    if spilled or len(sm90) != 12:
+        raise AssertionError(f"Hopper kernels spilling {spilled} (or not "
+                             f"all 12 found: {sorted(sm90)})")
 
     # 3: kernels vs plain twins
     gen = torch.Generator(device="cuda")
@@ -2557,8 +2670,9 @@ def main(argv=None):
                          sparse_attention_path(args.seed, card),
                          SPARSE_KERNELS)
     bert_sparse(args.seed, card)
-    sparse_oracle(args.seed)
-    release()
+    sparse_oracle_counts = path_counts("sparse_oracle",
+                                       sparse_oracle(args.seed),
+                                       SPARSE_ORACLE_KERNELS)
 
     # 18: K5 and K2's given-delta entry against their twins; 19: the ring
     # leg in a one-rank NCCL group (counts zeroed inside, right before
@@ -2602,6 +2716,7 @@ def main(argv=None):
                       "quant_training": quant, "moe_training": moe,
                       "moe_quant_training": moe_quant,
                       "sparse_attention": sparse,
+                      "sparse_oracle": sparse_oracle_counts,
                       "sequence_parallel": sp_path,
                       "sp_training": sp_train}
     for kname, src_file, replaces, _ in KERNELS:
@@ -2614,7 +2729,9 @@ def main(argv=None):
         extra = {k: r[k] for k in ("library_call", "bf16_matmul_ms",
                                    "plain_is", "sdpa_masked_fwd_ms",
                                    "sdpa_masked_fwd_bwd_ms", "dense",
-                                   "visible_scores", "density", "k1_ms")
+                                   "visible_scores", "density", "k1_ms",
+                                   "kernel_ms", "tops", "tflops",
+                                   "share_of_bound", "body", "ptxas")
                  if k in r}
         rows.append({"name": kname, "route": "cuda", "source": src_file,
                      "replaces": replaces,

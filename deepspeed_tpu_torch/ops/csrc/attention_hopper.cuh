@@ -1,8 +1,9 @@
-// Hopper (sm_90a) bodies of the dense bf16 flash-attention kernels at
-// head dims 64 and 128: K1-fwd and its K5 merge mode
-// (flash_attention_fwd.cu) and K2's two sweeps (flash_attention_bwd.cu).
-// fp32 inputs, head dims 192/256 and K7 keep attention_tiles.cuh's
-// WMMA bodies.
+// Hopper (sm_90a) bodies of the bf16 flash-attention kernels at head
+// dims 64 and 128: K1-fwd and its K5 merge mode (flash_attention_fwd.cu),
+// K2's two sweeps (flash_attention_bwd.cu) and, over its band walk, the
+// block-sparse band forward K7-band (block_sparse_attention.cu). fp32
+// inputs, head dims 192/256 and K7's table forward and backward keep
+// attention_tiles.cuh's WMMA bodies.
 //
 // Replaces, in deepspeed_tpu/ops/transformer/flash_attention.py, the
 // forward Pallas kernels `_fwd_kernel` :262 and `_fwd_kernel_packed`
@@ -57,6 +58,7 @@
 #include <type_traits>
 
 #include "attention_tiles.cuh"
+#include "hopper.cuh"
 
 namespace attn {
 namespace sm90 {
@@ -73,52 +75,10 @@ constexpr bool kOnSm90 =
     std::is_same<T, bf16>::value && (D == 64 || D == 128);
 
 // ---------------------------------------------------------------------
-// PTX: mbarriers, TMA, wgmma
+// PTX: TMA boxes of the (D, H, T, B) maps, bf16 wgmma (mbarriers, the
+// ring, descriptors and fences come from hopper.cuh)
 // ---------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA traffic
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait that
-// never ends (a broken pipeline) traps, failing the launch, instead of
-// hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
+using namespace hopper;
 
 // one 64-column box of a (D, H, T, B) tensor map into shared memory
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map,
@@ -132,16 +92,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map,
       : "memory");
 }
 
-// `bytes` (a multiple of 16, 16-byte aligned) of global memory
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // a whole R x D tile: D / 64 boxes, one per column block
 template <int R, int D>
 __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& map,
@@ -150,41 +100,6 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& map,
 #pragma unroll
   for (int cb = 0; cb < D / 64; ++cb)
     tma_load(dst + cb * R * 64, map, bar, cb * 64, h, t0, b);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or reuse of registers that an
-// asynchronous wgmma writes (its accumulator) or reads (its A operand)
-// across the wait that ends it.
-template <int R>
-__device__ __forceinline__ void reg_fence(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets, layout type 1 (SWIZZLE_128B)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared
@@ -352,7 +267,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // ---------------------------------------------------------------------
 // The walk (attention_tiles.cuh's interface: count, tile, vis) of dense
 // attention, plus which tile pairs need a mask and which a warpgroup can
-// skip.
+// skip (`partial` and `empty`, given the step too).
 // ---------------------------------------------------------------------
 // visibility of score (row, col) of the tile pair at positions (q0, k0):
 // the causal triangle and keys before the sequence's end
@@ -372,76 +287,22 @@ struct DenseWalk90 {
   __device__ __forceinline__ DenseVis vis(int, int q0, int k0) const {
     return DenseVis{q0, k0, causal, seq};
   }
-  // whether the nq x nk pair at (q0, k0) holds a hidden score
-  __device__ __forceinline__ bool partial(int q0, int nq, int k0,
+  // whether the nq x nk pair at (q0, k0), step s of the walk, holds a
+  // hidden score
+  __device__ __forceinline__ bool partial(int, int q0, int nq, int k0,
                                           int nk) const {
     return k0 + nk > seq || (causal && k0 + nk - 1 > q0);
   }
   // whether it holds nothing visible
-  __device__ __forceinline__ bool empty(int q0, int nq, int k0) const {
+  __device__ __forceinline__ bool empty(int, int q0, int nq, int k0) const {
     return causal && k0 > q0 + nq - 1;
   }
 };
 
-// ---------------------------------------------------------------------
-// The ring of streamed tiles. Step `it` of the walk lands in stage
-// it % kS: full(it, f) counts the TMA bytes of its f-th barrier in,
-// empty(it) the 8 consumer warps out. Thread 0 fills the first kS
-// stages; after that the last warp to release a stage (by a counter in
-// shared memory) refills it with the step kS ahead, so no warp waits to
-// load and no warp is spent on loading alone.
-// ---------------------------------------------------------------------
+// The ring of streamed tiles (hopper.cuh) over the 8 consumer warps
 constexpr int kWarps = kConsumers * 4;
-
 template <int kS, int kF>
-struct Ring {
-  uint64_t* bar;    // full[kS][kF], then empty[kS]
-  unsigned* count;  // [kS]
-  static constexpr size_t bar_bytes = 8 * (kS * kF + kS);
-  static constexpr size_t bytes = bar_bytes + 4 * kS;
-
-  __device__ __forceinline__ uint64_t* full(int it, int f) const {
-    return bar + (it % kS) * kF + f;
-  }
-  __device__ __forceinline__ uint64_t* empty(int it) const {
-    return bar + kS * kF + it % kS;
-  }
-  // by one thread, before the CTA's barrier
-  __device__ __forceinline__ void init() const {
-    for (int s = 0; s < kS; ++s) {
-      for (int f = 0; f < kF; ++f) mbar_init(bar + s * kF + f, 1);
-      mbar_init(bar + kS * kF + s, kWarps);
-      count[s] = 0;
-    }
-  }
-  __device__ __forceinline__ void wait(int it, int f) const {
-    mbar_wait(full(it, f), (it / kS) & 1);
-  }
-  // lane 0 of each consumer warp, done with step it: true for the last
-  // of the 8, which then owns the stage
-  __device__ __forceinline__ bool release(int it) const {
-    mbar_arrive(empty(it));
-    if (atomicAdd(count + it % kS, 1u) % kWarps != kWarps - 1) return false;
-    mbar_wait(empty(it), (it / kS) & 1);
-    return true;
-  }
-};
-
-// Shared memory: 1024-byte aligned tiles, then the resident tile's
-// barrier and the ring's
-__device__ __forceinline__ unsigned char* smem_base() {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-}
-
-// the ring whose barriers start 8 bytes into `bars` (after the resident
-// tile's), its counters after them
-template <typename R>
-__device__ __forceinline__ R ring_at(unsigned char* bars) {
-  return R{reinterpret_cast<uint64_t*>(bars + 8),
-           reinterpret_cast<unsigned*>(bars + 8 + R::bar_bytes)};
-}
+using Ring = hopper::Ring<kS, kF, kWarps>;
 
 // __expf's log2 counterpart: ex2.approx with denormals flushed (the
 // exponents here are <= 0 and p below 2^-126 is 0 to the products)
@@ -551,14 +412,14 @@ __device__ __forceinline__ void fwd_body(
     const int st = it % kS;
     const int k0 = walk.tile(it) * kN;
     ring.wait(it, 0);
-    if (!walk.empty(q0, 64, k0)) {
+    if (!walk.empty(it, q0, 64, k0)) {
       wg_fence();
       gemm_abt<D, kRows, kN>(s, sQ, wg * 64, sK + st * kN * D, 0);
       wg_commit();
       wg_wait();
       reg_fence(s);
 
-      if (walk.partial(q0, 64, k0, kN))
+      if (walk.partial(it, q0, 64, k0, kN))
         hide(s, walk.vis(it, q0, k0), warp, lane);
       // the row max of the raw scores scaled is that of the scaled
       // scores (scale_log2 > 0); the scale then folds into one FFMA
@@ -739,7 +600,7 @@ __device__ __forceinline__ void dkv_body(
     const int st = it % kS;
     const int q0 = walk.tile(it) * kStep;
     ring.wait(it, 0);
-    if (!walk.empty(q0, kStep, k0)) {
+    if (!walk.empty(it, q0, kStep, k0)) {
       const bf16* q_s = sQ + st * kStep * D;
       const bf16* do_s = sdO + st * kStep * D;
       const float* lse_s = sRows + st * 2 * kStep;
@@ -753,7 +614,7 @@ __device__ __forceinline__ void dkv_body(
       reg_fence(dpt);
       // element e: key row 16 warp + lane / 4 + 8 ((e / 2) % 2) of the
       // warpgroup's 64, query column c = 8 (e / 4) + 2 (lane % 4) + e % 2
-      if (walk.partial(q0, kStep, k0, 64))
+      if (walk.partial(it, q0, kStep, k0, 64))
         hide_t(st_, walk.vis(it, q0, k0), warp, lane);
 #pragma unroll
       for (int j = 0; j < kStep / 8; ++j) {
@@ -868,7 +729,7 @@ __device__ __forceinline__ void dq_body(
     const int st = it % kS;
     const int k0 = walk.tile(it) * kStep;
     ring.wait(it, 0);
-    if (!walk.empty(q0, 64, k0)) {
+    if (!walk.empty(it, q0, 64, k0)) {
       const bf16* k_s = sK + st * kStep * D;
       wg_fence();
       gemm_abt<D, kRows, kStep>(s, sQ, wg * 64, k_s, 0);
@@ -877,7 +738,7 @@ __device__ __forceinline__ void dq_body(
       wg_wait();
       reg_fence(s);
       reg_fence(dp);
-      if (walk.partial(q0, 64, k0, kStep))
+      if (walk.partial(it, q0, 64, k0, kStep))
         hide(s, walk.vis(it, q0, k0), warp, lane);
 #pragma unroll
       for (int e = 0; e < kStep / 2; ++e) {
@@ -944,31 +805,6 @@ inline GridOrder grid_order(long long heads_total, int seq, int d) {
 // ---------------------------------------------------------------------
 // Host: tensor maps
 // ---------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA
-// runtime (no link against libcuda)
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// the C entries' error code when a tensor map cannot be encoded
-constexpr int kMapError = -2;
-
 // The map of a bf16 [B, T, H, D] tensor read through its element strides
 // (b, t, h), D contiguous: dims (D, H, T, B), boxes of 64 columns x
 // `rows` rows of one head, 128-byte swizzle, rows past T read as zeros.
@@ -977,8 +813,6 @@ constexpr int kMapError = -2;
 inline int make_map(CUtensorMap* map, const void* base, int batch, int seq,
                     int heads, int d, long long sb, long long st,
                     long long sh, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kMapError;
   auto stride = [](long long elems, int extent) -> cuuint64_t {
     return extent == 1 ? 16 : static_cast<cuuint64_t>(elems) * 2;
   };
@@ -989,13 +823,8 @@ inline int make_map(CUtensorMap* map, const void* base, int batch, int seq,
   const cuuint64_t strides[3] = {stride(sh, heads), stride(st, seq),
                                  stride(sb, batch)};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kMapError;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -2,11 +2,13 @@
 //
 // Replaces the four Pallas kernels of
 // deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py, one
-// __global__ entry point each:
-//   bs_fwd_kernel      <- _bs_fwd_kernel (:160), the table forward
-//   band_fwd_kernel    <- _band_fwd_kernel (:552), the band + global forward
-//   bs_bwd_dkv_kernel  <- _bs_bwd_dkv_kernel (:229), dK and dV
-//   bs_bwd_dq_kernel   <- _bs_bwd_dq_kernel (:279), dQ
+// __global__ entry point each (the band forward two, one per body):
+//   bs_fwd_kernel         <- _bs_fwd_kernel (:160), the table forward
+//   band_fwd_kernel_sm90  <- _band_fwd_kernel (:552), the band + global
+//   band_fwd_kernel          forward: bf16 at head dims 64 and 128 on the
+//                            Hopper body, fp32 on the WMMA body
+//   bs_bwd_dkv_kernel     <- _bs_bwd_dkv_kernel (:229), dK and dV
+//   bs_bwd_dq_kernel      <- _bs_bwd_dq_kernel (:279), dQ
 // They compute attention over [B, T, H, D] restricted to a block layout
 // [H, T/block, T/block] (and the causal triangle, element by element,
 // when causal), with the online softmax in log2 space as K1/K2 do, and
@@ -18,31 +20,44 @@
 // 64 x 64 tile does 64 flops per byte of K/V it loads, far under the
 // card's ~295 balance point: a tile walk that reloads K/V per q tile is
 // bound by L2 and latency first, and a fast kernel keeps several q tiles
-// on one K/V tile. This first kernel is the simple one: the tile bodies
-// of K1/K2 (attention_tiles.cuh: WMMA 16x16x16 bf16 with fp32
+// on one K/V tile and its loads in flight.
+//
+// The band forward in bf16 at head dims 64 and 128, the sparse path's,
+// runs attention_hopper.cuh's forward body (K1's) over `BandWalk90`:
+// 128-row q tiles, two warpgroups of 64 rows sharing each 64-row K/V
+// tile, which arrives by TMA in a ring of 4 (D 64) or 2 (D 128) stages;
+// wgmma products with the scores and O in registers; masks only on the
+// (64-row half, k tile) pairs that hold a hidden score; a half that sees
+// nothing of a tile skips its products; two CTAs per SM. Each half's
+// visibility is a bit mask of its sub-blocks against the tile's, from
+// the closed-form band test and the tile's global bits, computed per
+// step on the card. The other kernels are the first, simple ones: the
+// tile bodies of attention_tiles.cuh (WMMA 16x16x16 bf16 with fp32
 // accumulation, a CUDA-core fp32 path, no TMA, no wgmma, no pipelining)
-// over walks that visit only the visible tiles.
+// over walks that visit only the visible 64 x 64 tiles.
 //
 // What the design does about the TPU kernel's shape:
 // - The Pallas grid's super-rows (qt layout rows) and head groups (g)
-//   amortised grid-step overhead; here every CTA is one (64-row tile,
-//   b*h) and loops over its own visible list, so neither is carried over.
+//   amortised grid-step overhead; here every CTA is one (q tile, b*h)
+//   and loops over its own visible list, so neither is carried over.
 // - Layout blocks of 16 and 32 put several blocks in one 64-row tile: the
 //   host tables are built per tile with a bit mask of visible sub-blocks,
 //   bit (i * rr + j) for q sub-row i and k sub-column j of the tile (rr =
 //   64 / sub-block size; blocks >= 64 give rr = 1 and one bit), the
-//   generalisation of the TPU kernel's per-member-row `kmask` bits.
+//   generalisation of the TPU kernel's per-member-row `kmask` bits. The
+//   Hopper band walk computes the same bits per 64-row half.
 // - The band kernel's host-side gather of the global K/V columns (:703)
 //   existed for regular Pallas tiles; here the kernel reads those tiles
 //   in place from an index list, in ascending position order with the
 //   closed-form band span: globals before the span, the span, globals
 //   after it. A global tile inside the span is visited once, as part of
 //   the span, so no score is counted twice; causally dead global tiles
-//   (first key after the tile's last query) are not visited at all.
+//   (first key after the tile's last query) are not visited at all. A
+//   128-row q tile walks the union of its halves' spans.
 // - The backward is K2's atomic-free two sweeps over the tables: dK/dV
 //   per k tile over the transpose table, dQ per q tile over the forward
 //   table, after K2's delta pre-pass (rowsum(dO * O)).
-#include "attention_tiles.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
@@ -158,6 +173,111 @@ __device__ __forceinline__ BandWalk band_walk(int qt, int nb, int bshift,
                   causal, sub_shift, a + nband + (c - b)};
 }
 
+// The band walk of the Hopper body: 128-row q tile qt over 64-row k
+// tiles, in BandWalk's order over the union of the two 64-row halves'
+// spans. The CTA lays the walk out in shared memory before it starts
+// (`band_walk90`), so the loop holds only a pointer and reads one word
+// per step and half: steps[s] the k tile of step s, steps[nmax + s] and
+// steps[2 nmax + s] the sub-block bits of the two halves against it, bit
+// (i * rr + j) set when sub-block row i of the half sees sub-block column
+// j of the tile (a global column or the band) and does not lie wholly
+// after it (causal). `partial`, `empty` and `vis` of a half come from its
+// bits; a half past the sequence's end (the last tile of a T that is no
+// multiple of 128) has none.
+struct BandWalk90 {
+  const int* steps;
+  int n, nmax, q_first, sub_shift, causal;
+
+  __device__ __forceinline__ int count() const { return n; }
+  __device__ __forceinline__ int tile(int s) const { return steps[s]; }
+  __device__ __forceinline__ int bits(int s, int q0) const {
+    return steps[(q0 == q_first ? 1 : 2) * nmax + s];
+  }
+  __device__ __forceinline__ MaskVis vis(int s, int q0, int k0) const {
+    return MaskVis{bits(s, q0), sub_shift, sm90::kStep >> sub_shift, q0, k0,
+                   causal};
+  }
+  __device__ __forceinline__ bool partial(int s, int q0, int, int k0,
+                                          int nk) const {
+    const int rr = sm90::kStep >> sub_shift;
+    return bits(s, q0) != (1 << (rr * rr)) - 1 ||
+           (causal && k0 + nk - 1 > q0);
+  }
+  __device__ __forceinline__ bool empty(int s, int q0, int, int) const {
+    return bits(s, q0) == 0;
+  }
+};
+
+// the sub-block bits of the 64-row half at q0 against the k tile at k0
+__device__ __forceinline__ int band_bits(int q0, int k0, int g, int bshift,
+                                         int w, int aligned, int causal,
+                                         int sub_shift) {
+  const int sub = 1 << sub_shift, rr = sm90::kStep >> sub_shift;
+  int out = 0;
+  for (int i = 0; i < rr; ++i)
+    for (int j = 0; j < rr; ++j) {
+      const int qb = (q0 + i * sub) >> bshift, kb = (k0 + j * sub) >> bshift;
+      const bool band = aligned ? kb / w == qb / w
+                                : kb >= qb - (w - 1) && kb <= qb + (w - 1);
+      const bool v = (((g >> j) & 1) || band) &&
+                     !(causal && k0 + j * sub > q0 + i * sub + sub - 1);
+      out |= static_cast<int>(v) << (i * rr + j);
+    }
+  return out;
+}
+
+// Lays out the walk of q tile qt in `steps` ([3][nmax] in shared memory,
+// each thread a share of the steps; the forward body's first barrier
+// publishes them) and returns it. The span and the global tiles before
+// and after it are BandWalk's, over the rows of both halves; a walk
+// longer than the host's nmax (the longest `_band_walks` row) traps.
+__device__ __forceinline__ BandWalk90 band_walk90(
+    int* steps, int nmax, int qt, int seq, int bshift, int w, int aligned,
+    int causal, const int* gtiles, int ng, const int* gbits, int sub_shift) {
+  constexpr int kQ = sm90::kRows, kK = sm90::kStep;
+  const int nb = seq >> bshift;
+  const int qb_lo = (qt * kQ) >> bshift;
+  const int qb_hi = (qt * kQ + kQ - 1) >> bshift;
+  int kb_lo, kb_hi;
+  if (aligned) {
+    kb_lo = qb_lo / w * w;
+    kb_hi = qb_hi / w * w + w - 1;
+  } else {
+    kb_lo = qb_lo - (w - 1);
+    kb_hi = qb_hi + (w - 1);
+  }
+  if (causal) kb_hi = min(kb_hi, qb_hi);
+  kb_lo = max(kb_lo, 0);
+  kb_hi = min(kb_hi, nb - 1);
+  const int lo = (kb_lo << bshift) / kK;
+  int hi = (((kb_hi + 1) << bshift) - 1) / kK;
+  const int last = (qt * kQ + kQ - 1) / kK;  // the k tile of the last row
+  if (causal) hi = min(hi, last);
+  int a = 0, b = 0, c = 0;
+  for (int i = 0; i < ng; ++i) {
+    const int g = gtiles[i];
+    a += g < lo;
+    b += g <= hi;
+    c += !causal || g <= last;
+  }
+  const int nband = hi - lo + 1, n = a + nband + (c - b);
+  if (n > nmax) __trap();
+  const int q0 = qt * kQ;
+  for (int s = threadIdx.x; s < n; s += blockDim.x) {
+    const int t = s < a           ? gtiles[s]
+                  : s < a + nband ? lo + (s - a)
+                                  : gtiles[b + (s - a - nband)];
+    steps[s] = t;
+    steps[nmax + s] = band_bits(q0, t * kK, gbits[t], bshift, w, aligned,
+                                causal, sub_shift);
+    steps[2 * nmax + s] =
+        q0 + kK < seq ? band_bits(q0 + kK, t * kK, gbits[t], bshift, w,
+                                  aligned, causal, sub_shift)
+                      : 0;
+  }
+  return BandWalk90{steps, n, nmax, q0, sub_shift, causal};
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -187,6 +307,44 @@ band_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                   causal, gtiles, ng, gbits, sub_shift);
   fwd_body<T, D>(q, k, v, out, lse, seq, heads, st, scale_log2, qt, bh,
                  walk);
+}
+
+// The Hopper band kernel's shared memory: the forward body's, then the
+// walk's [3][nmax] words. Two CTAs per SM at D 64; one at D 128, where
+// the walk's pointer and counts would push the body's registers past the
+// 128 of two CTAs
+template <int D>
+struct BandCfg90 {
+  using F = sm90::FwdCfg<D>;
+  static constexpr size_t walk = (F::bar + 8 + F::R::bytes + 15) / 16 * 16;
+  static constexpr int kBlocks = D == 64 ? 2 : 1;
+  static size_t bytes(int nmax) { return walk + 12 * size_t(nmax) + 1024; }
+};
+
+// bf16 at D 64 and 128: one CTA per (b*h, 128-row q tile), in
+// `GridOrder`'s order (longest causal walks first)
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, BandCfg90<D>::kBlocks)
+band_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     bf16* __restrict__ out, float* __restrict__ lse,
+                     int seq, int heads, float scale_log2, int causal,
+                     int bshift, int w, int aligned,
+                     const int* __restrict__ gtiles, int ng,
+                     const int* __restrict__ gbits, int sub_shift, int nmax,
+                     sm90::GridOrder order) {
+  const int nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  int bh, rank;
+  order.at(nt, bh, rank);
+  const int qt = nt - 1 - rank;
+  int* steps =
+      reinterpret_cast<int*>(hopper::smem_base() + BandCfg90<D>::walk);
+  const BandWalk90 walk =
+      band_walk90(steps, nmax, qt, seq, bshift, w, aligned, causal, gtiles,
+                  ng, gbits, sub_shift);
+  sm90::fwd_body<D, false>(mq, mk, mv, out, lse, seq, heads, scale_log2, qt,
+                           bh, walk, MergeIn{});
 }
 
 template <typename T, int D>
@@ -274,6 +432,34 @@ int launch_band(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_band_sm90(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int batch, int seq, int heads,
+                     const long long* s, float scale_log2, int causal,
+                     int bshift, int w, int aligned, const int* gtiles,
+                     int ng, const int* gbits, int sub_shift, int nmax,
+                     cudaStream_t stream) {
+  using L = sm90::FwdCfg<D>;
+  CUtensorMap mq, mk, mv;
+  if (sm90::make_map(&mq, q, batch, seq, heads, D, s[0], s[1], s[2],
+                     sm90::kRows) ||
+      sm90::make_map(&mk, k, batch, seq, heads, D, s[3], s[4], s[5],
+                     L::kN) ||
+      sm90::make_map(&mv, v, batch, seq, heads, D, s[6], s[7], s[8], L::kN))
+    return sm90::kMapError;
+  auto kern = band_fwd_kernel_sm90<D>;
+  const size_t bytes = BandCfg90<D>::bytes(nmax);
+  allow_smem(kern, bytes);
+  const long long nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  kern<<<static_cast<unsigned>(nt * batch * heads), sm90::kThreads, bytes,
+         stream>>>(mq, mk, mv, static_cast<bf16*>(out), lse, seq, heads,
+                   scale_log2, causal, bshift, w, aligned, gtiles, ng, gbits,
+                   sub_shift, nmax,
+                   sm90::grid_order(static_cast<long long>(batch) * heads,
+                                    seq, D));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, void* dk,
@@ -351,10 +537,10 @@ extern "C" int ds_bs_attn_fwd(const void* q, const void* k, const void* v,
               static_cast<cudaStream_t>(stream));
 }
 
-// The band + global forward: layout blocks of 2^bshift rows, band width w
-// blocks (aligned windows when `aligned`), gtiles [ng] the ascending tiles
-// that hold a global column, gbits [T/64] their global sub-blocks (of
-// 2^sub_shift rows).
+// The band + global forward on the WMMA body: layout blocks of 2^bshift
+// rows, band width w blocks (aligned windows when `aligned`), gtiles [ng]
+// the ascending tiles that hold a global column, gbits [T/64] their
+// global sub-blocks (of 2^sub_shift rows).
 extern "C" int ds_bs_attn_band_fwd(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int batch, int seq, int heads,
@@ -368,6 +554,31 @@ extern "C" int ds_bs_attn_band_fwd(const void* q, const void* k,
   DS_DISPATCH(dtype, head_dim, launch_band, q, k, v, out, lse, batch, seq,
               heads, strides, scale_log2, causal, bshift, w, aligned, gtiles,
               ng, gbits, sub_shift, static_cast<cudaStream_t>(stream));
+}
+
+// K7-band on the Hopper body (bf16 at head dims 64 and 128; -1 for any
+// other pair): the arguments of ds_bs_attn_band_fwd (gbits per 64-row k
+// tile) and nmax, the longest walk of a 128-row q tile.
+extern "C" int ds_bs_attn_band_fwd_sm90(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int batch, int seq, int heads, int head_dim, const long long* strides,
+    float scale_log2, int causal, int bshift, int w, int aligned,
+    const int* gtiles, int ng, const int* gbits, int sub_shift, int nmax,
+    int dtype, int device, void* stream) {
+  cudaSetDevice(device);
+  if (batch * seq == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim == 64)
+    return launch_band_sm90<64>(q, k, v, out, lse, batch, seq, heads,
+                                strides, scale_log2, causal, bshift, w,
+                                aligned, gtiles, ng, gbits, sub_shift, nmax,
+                                s);
+  if (dtype == 1 && head_dim == 128)
+    return launch_band_sm90<128>(q, k, v, out, lse, batch, seq, heads,
+                                 strides, scale_log2, causal, bshift, w,
+                                 aligned, gtiles, ng, gbits, sub_shift, nmax,
+                                 s);
+  return -1;
 }
 
 // dK, dV, after writing delta = rowsum(dO * O) (which dQ then reads)

@@ -11,7 +11,7 @@
 //   P[g, b, m, n] = sum over k in block b of xq[g, m, k] * wqt[g, n, k]
 //
 // int8 products summed in int32 within each quantization block (exact:
-// |P| <= block * 127 * 127 < 2^24 for block <= 1024), each block's
+// |P| <= block * 128 * 128 <= 2^24 for block <= 1024), each block's
 // partial converted to fp32, scaled by its column scale and added into
 // an fp32 accumulator in ascending b, then the row scale once and the
 // cast. Products and sums use __fmul_rn/__fadd_rn, so no FMA is
@@ -22,232 +22,325 @@
 // Kp = 1664 or 6400, N = 1600..6400) 2*M*Kp*N int8 operations at 1,979
 // TOPS take 0.03-0.12 ms, while the bytes (int8 operands, bf16 output)
 // take a fraction of that at 3.35 TB/s. The TPU kernel walked a
-// sequential K grid axis with the accumulator in VMEM scratch; here one
-// CTA owns a 128 x 128 output tile and loops over the K axis itself,
-// with the int32 partial and the fp32 accumulator in registers. The
-// design is the simple correct one, not the fast one: mma.sync
-// m16n8k32 s8 (about half of what wgmma reaches), a two-stage cp.async
-// pipeline of 64-byte K slices, 8 warps of 64 x 32. The wgmma + TMA
-// form is ROADMAP work.
+// sequential K grid axis with the accumulator in VMEM scratch; here a
+// CTA owns a 128 x 128 output tile at a time and loops over K itself,
+// with each warpgroup's 64 x 128 int32 partial and fp32 sum in registers
+// (128 of them per thread: a larger tile would spill, and they keep the
+// CTA to one per SM). A stage of the tile carries 4.2 M operations for
+// 32.5 KB read from L2, so at the int8 peak the tile would draw ~15 TB/s
+// from L2, more than L2 gives; and the per-block epilogue costs the
+// CUDA cores about as much time as the block's products cost the tensor
+// cores. On the H100 the loads alone, the products alone and the
+// epilogue alone each take a like share of the kernel's time, and they
+// overlap only in part (`kernel_variants.py qmm`).
 //
-// Layouts. xq [G, M, Kp] int8 (K contiguous: mma's row-major A). The
-// weights come TRANSPOSED, wqt [G, N, Kp] (K contiguous per output
-// column: mma's "col" B), because ldmatrix.trans exists only for 16-bit
-// elements and a transpose in shared memory costs a pass per tile,
-// while the wrapper's transpose of the int8 weight costs one
-// weight-sized copy per call (<= 10 MB at gpt2-1.5b, against >= 18 MB
-// of int8 activations). sx [G, M] and sw [G, nb, N] fp32. out [G, M, N]
-// fp32 (dt 0) or bf16 (dt 1). Rows of M and N past the edge load as
-// zeros (cp.async's zero fill) and are not written: no padded copies.
-// The wrapper checks Kp % block == 0, block % 64 == 0 and 16-byte
-// aligned rows.
+// The design:
+// - Loads: 3-D TMA tensor maps (Kp, M, G) of xq and (Kp, N, G) of wqt
+//   with 128-byte swizzle, and a 2-D map of sw; a stage is 128 bytes of
+//   K (a quantization block at block 128) of 128 rows of each operand
+//   plus the block's 128 column scales, in a ring of kS stages. A
+//   producer warpgroup (one thread of it) loads each stage once the 8
+//   consumer warps have released it, so no consumer warp stops to
+//   refill. ptxas sizes the 384-thread CTA at 168 registers a thread,
+//   which the consumers' 128 accumulator registers and the rest fit
+//   without a spill. Rows past M and N arrive as zeros and are not
+//   written: no padded copies.
+// - Persistent CTAs, one per SM, walk the output tiles (M fastest) and
+//   run the ring on across them, so the next tile's loads fly during a
+//   tile's last products and its stores, and no CTA starts cold.
+// - Products: wgmma m64n128k32 s32.s8.s8, both operands K-major from
+//   the swizzled tiles (8-bit wgmma has no transpose, so the weights
+//   come transposed, [G, N, Kp]); scale-d 0 on a block's first k-step
+//   restarts the int32 partial.
+// - The per-block epilogue (convert, scale, add: three fp32 operations
+//   per element, about as many cycles as the block's products) reads
+//   the partial once its products are done and the column scales from a
+//   ring of 2 kS slots, so a stage's operand tiles go back to the loads
+//   before the epilogue runs: the epilogue holds up no load.
+// - int32 -> fp32 by cvt (exact for |P| <= 2^24). The magic-number form
+//   (an integer add of 0x4B400000 and an exact fp32 subtract, exact for
+//   |P| <= 2^22) gives the same bits but puts a third instruction on the
+//   fp32 pipe, which the epilogue fills: it is the slower of the two on
+//   the H100 at the flagship shapes (`kernel_variants.py qmm`, "magic").
+//
+// Layouts. xq [G, M, Kp] int8, wqt [G, N, Kp] int8 (K contiguous), sx
+// [G, M] fp32, sw [G, nb, sw_cols] fp32 (sw_cols >= N, a multiple of 4:
+// TMA's 16-byte row stride), out [G, M, N] fp32 (dt 0) or bf16 (dt 1).
+// The wrapper checks Kp % block == 0, block % 128 == 0 and 16-byte
+// aligned bases.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBM = 128;            // output rows per CTA
-constexpr int kBN = 128;            // output columns per CTA
-constexpr int kBK = 64;             // bytes of K per pipeline stage
-constexpr int kLds = kBK + 16;      // smem row stride: conflict-free frags
-constexpr int kThreads = 256;       // 8 warps: 2 along M x 4 along N
-constexpr int kWarpM = 64;
-constexpr int kWarpN = 32;
-constexpr int kMi = kWarpM / 16;    // m16 tiles per warp
-constexpr int kNi = kWarpN / 8;     // n8 tiles per warp
+using namespace hopper;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
+constexpr int kBM = 128;           // output rows per CTA: 2 warpgroups
+constexpr int kBN = 128;           // output columns per CTA
+constexpr int kBK = 128;           // bytes of K per stage (the swizzle row)
+constexpr int kS = 4;              // stages in the ring
+constexpr int kThreads = 384;      // a producer and 2 consumer warpgroups
+using R = Ring<kS, 1, 8>;          // released by the 8 consumer warps
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// shared memory: the A and B tiles of every stage (1024-byte aligned),
+// the column scales' 2 kS slots, the ring's barriers
+struct Cfg {
+  static constexpr size_t a = 0;
+  static constexpr size_t b = a + size_t(kS) * kBM * kBK;
+  static constexpr size_t sw = b + size_t(kS) * kBN * kBK;
+  static constexpr size_t bar = sw + size_t(2 * kS) * kBN * 4;
+  static constexpr size_t bytes = bar + 8 + R::bytes + 1024;
+  static constexpr uint32_t stage_bytes = kBM * kBK + kBN * kBK + kBN * 4;
+};
 
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a,
-                                       const unsigned* b) {
+// d[64 x 128] (+)= A[64 x 32] B[128 x 32]^T over int8, A and B K-major
+// in shared memory (128-byte swizzle), int32 accumulate; scale_d 0
+// overwrites d. Element e of d, in thread t of the warpgroup (warp w =
+// t / 32, lane l), is row 16 w + l / 4 + 8 ((e / 2) % 2), column
+// 8 (e / 4) + 2 (l % 4) + e % 2.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// One stage: kBM rows of xq and kBN rows of wqt, kBK bytes each, as
-// 16-byte chunks (4 per row, 2 per thread per operand). Rows past the
-// edge read 0 bytes (zero fill) from a valid address.
-__device__ __forceinline__ void load_stage(
-    int8_t* as, int8_t* bs, const int8_t* xq, const int8_t* wqt, int m0,
-    int n0, int m, int n, long long kp, long long k0, int tid) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int chunk = tid + i * kThreads;
-    const int r = chunk >> 2;
-    const int c = (chunk & 3) * 16;
-    const int row_a = m0 + r;
-    const int8_t* ga = xq + (row_a < m ? row_a : 0) * kp + k0 + c;
-    cp_async16(as + r * kLds + c, ga, row_a < m ? 16 : 0);
-    const int row_b = n0 + r;
-    const int8_t* gb = wqt + (row_b < n ? row_b : 0) * kp + k0 + c;
-    cp_async16(bs + r * kLds + c, gb, row_b < n ? 16 : 0);
-  }
+// two adjacent outputs in one store
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(a, b);
 }
 
+template <typename Out>
+__device__ __forceinline__ Out cast(float v);
+template <>
+__device__ __forceinline__ float cast<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 cast<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The output tiles (g, m0, n0), M fastest, are dealt round-robin to the
+// CTAs; a CTA's steps are its tiles' K stages in order, step `it` in
+// ring stage it % kS and column-scale slot it % (2 kS). Warpgroup wg
+// owns rows m0 + 64 wg .. + 63 of a tile (wg -1 is the producer). Each
+// step: wait for its bytes, issue its 4 k-steps, wait for the products,
+// hand the stage back to the producer; at a block's last stage fold the
+// block into the fp32 sum; at a tile's last, the row scale, the cast and
+// the store.
+template <typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
-    qmm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wqt,
-               const float* __restrict__ sx, const float* __restrict__ sw,
-               void* __restrict__ out, int m, int n, int kp, int block,
-               int dt) {
-  __shared__ __align__(16) int8_t smem_a[2][kBM * kLds];
-  __shared__ __align__(16) int8_t smem_b[2][kBN * kLds];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;   // 0..1
-  const int wn = warp & 3;    // 0..3
-  const int gid = lane >> 2;  // mma groupID
-  const int tig = lane & 3;   // mma threadID_in_group
-  const int g = blockIdx.z;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int nb = kp / block;
-  const int steps_per_block = block / kBK;
-  const int nk = kp / kBK;
-
-  xq += static_cast<long long>(g) * m * kp;
-  wqt += static_cast<long long>(g) * n * kp;
-  sx += static_cast<long long>(g) * m;
-  sw += static_cast<long long>(g) * nb * n;
-
-  int part[kMi][kNi][4];
-  float acc[kMi][kNi][4];
-#pragma unroll
-  for (int i = 0; i < kMi; ++i)
-#pragma unroll
-    for (int j = 0; j < kNi; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        part[i][j][e] = 0;
-        acc[i][j][e] = 0.0f;
+qmm_kernel(const __grid_constant__ CUtensorMap ma,
+           const __grid_constant__ CUtensorMap mb,
+           const __grid_constant__ CUtensorMap ms,
+           const float* __restrict__ sx, Out* __restrict__ out, int m,
+           int n, int kp, int block, int groups) {
+  unsigned char* sm = smem_base();
+  int8_t* sA = reinterpret_cast<int8_t*>(sm + Cfg::a);
+  int8_t* sB = reinterpret_cast<int8_t*>(sm + Cfg::b);
+  float* sS = reinterpret_cast<float*>(sm + Cfg::sw);
+  const R ring = ring_at<R>(sm + Cfg::bar);
+  const int tid = threadIdx.x, wg = tid / 128 - 1, warp = (tid % 128) / 32,
+            lane = tid % 32;
+  const int nb = kp / block, spb = block / kBK, nk = kp / kBK;
+  const int tn = (n + kBN - 1) / kBN, tm = (m + kBM - 1) / kBM;
+  const int mine = (groups * tm * tn - blockIdx.x + gridDim.x - 1) /
+                   gridDim.x;  // tiles of this CTA
+  const int steps = mine * nk;
+  // group, first row and first column of the tile of step it
+  auto origin = [&](int it, int& g, int& m0, int& n0) {
+    const int tile = blockIdx.x + (it / nk) * gridDim.x;
+    g = tile / (tm * tn);
+    m0 = tile % tm * kBM;
+    n0 = tile / tm % tn * kBN;
+  };
+  auto load = [&](int it) {
+    int g, m0, n0;
+    origin(it, g, m0, n0);
+    const int k = it % nk, st = it % kS;
+    uint64_t* bar = ring.full(it, 0);
+    mbar_expect_tx(bar, Cfg::stage_bytes);
+    tma_load_3d(sA + st * kBM * kBK, ma, bar, k * kBK, m0, g);
+    tma_load_3d(sB + st * kBN * kBK, mb, bar, k * kBK, n0, g);
+    tma_load_2d(sS + it % (2 * kS) * kBN, ms, bar, n0, g * nb + k / spb);
+  };
+  if (tid == 0) {
+    ring.init();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg < 0) {
+    // the producer: one thread loads each step once the consumers have
+    // released its stage
+    if (tid == 0)
+      for (int it = 0; it < steps; ++it) {
+        if (it >= kS) mbar_wait(ring.empty(it), (it / kS - 1) & 1);
+        load(it);
       }
+    return;
+  }
 
-  load_stage(smem_a[0], smem_b[0], xq, wqt, m0, n0, m, n, kp, 0, tid);
-  cp_async_commit();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_stage(smem_a[st ^ 1], smem_b[st ^ 1], xq, wqt, m0, n0, m, n, kp,
-                 static_cast<long long>(kt + 1) * kBK, tid);
-    }
-    cp_async_commit();
-    cp_async_wait_1();  // every group but the newest: stage kt is in
-    __syncthreads();
-
-    const int8_t* as = smem_a[st] + (wm * kWarpM) * kLds;
-    const int8_t* bs = smem_b[st] + (wn * kWarpN) * kLds;
+  int part[64];
+  float acc[64];
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      unsigned af[kMi][4];
-      unsigned bf[kNi][2];
+  for (int e = 0; e < 64; ++e) part[e] = 0;
+  for (int it = 0; it < steps;) {
+    int g, m0, n0;
+    origin(it, g, m0, n0);
 #pragma unroll
-      for (int i = 0; i < kMi; ++i) {
-        const int8_t* p = as + (i * 16 + gid) * kLds + kk + tig * 4;
-        af[i][0] = *reinterpret_cast<const unsigned*>(p);
-        af[i][1] = *reinterpret_cast<const unsigned*>(p + 8 * kLds);
-        af[i][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        af[i][3] = *reinterpret_cast<const unsigned*>(p + 8 * kLds + 16);
-      }
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+    for (int k = 0; k < nk; ++k, ++it) {
+      const int st = it % kS;
+      ring.wait(it, 0);
+      const uint32_t a0 = smem_u32(sA + st * kBM * kBK) + wg * 64 * kBK;
+      const uint32_t b0 = smem_u32(sB + st * kBN * kBK);
+      const bool first = k % spb == 0;
+      wg_fence();
 #pragma unroll
-      for (int j = 0; j < kNi; ++j) {
-        const int8_t* p = bs + (j * 8 + gid) * kLds + kk + tig * 4;
-        bf[j][0] = *reinterpret_cast<const unsigned*>(p);
-        bf[j][1] = *reinterpret_cast<const unsigned*>(p + 16);
-      }
+      for (int kk = 0; kk < kBK / 32; ++kk)
+        wgmma_s8_n128(part, desc_sw128(a0 + kk * 32, 16, 1024),
+                      desc_sw128(b0 + kk * 32, 16, 1024),
+                      !(first && kk == 0));
+      wg_commit();
+      wg_wait();
+      reg_fence(part);
+      if (lane == 0) mbar_arrive(ring.empty(it));
+      __syncwarp();
+      if (k % spb == spb - 1) {
+        const float* sws = sS + it % (2 * kS) * kBN;
 #pragma unroll
-      for (int i = 0; i < kMi; ++i)
+        for (int j = 0; j < kBN / 8; ++j) {
+          const float2 s2 = *reinterpret_cast<const float2*>(
+              sws + 8 * j + 2 * (lane % 4));
 #pragma unroll
-        for (int j = 0; j < kNi; ++j) mma_s8(part[i][j], af[i], bf[j]);
-    }
-
-    if ((kt + 1) % steps_per_block == 0) {
-      // the end of quantization block b: acc += float(part) * sw[b, col]
-      const float* swb = sw + static_cast<long long>(kt / steps_per_block) * n;
-#pragma unroll
-      for (int j = 0; j < kNi; ++j) {
-        const int col = n0 + wn * kWarpN + j * 8 + tig * 2;
-        const float s0 = col < n ? swb[col] : 0.0f;
-        const float s1 = col + 1 < n ? swb[col + 1] : 0.0f;
-#pragma unroll
-        for (int i = 0; i < kMi; ++i) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float s = (e & 1) ? s1 : s0;
-            acc[i][j][e] = __fadd_rn(
-                acc[i][j][e], __fmul_rn(__int2float_rn(part[i][j][e]), s));
-            part[i][j][e] = 0;
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * j + 2 * i;
+            acc[e] = __fadd_rn(acc[e], __fmul_rn(__int2float_rn(part[e]),
+                                                 s2.x));
+            acc[e + 1] = __fadd_rn(
+                acc[e + 1], __fmul_rn(__int2float_rn(part[e + 1]), s2.y));
           }
         }
       }
     }
-    __syncthreads();  // stage st is refilled by the next iteration's load
-  }
 
-  // epilogue: the row scale once, the cast, the masked store
-  const long long obase = static_cast<long long>(g) * m * n;
+    // the row scale once, the cast, the masked store
 #pragma unroll
-  for (int i = 0; i < kMi; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * kWarpM + i * 16 + gid + half * 8;
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * i;
       if (row >= m) continue;
-      const float rs = sx[row];
+      const float rs = sx[static_cast<long long>(g) * m + row];
+      Out* orow = out + (static_cast<long long>(g) * m + row) * n;
 #pragma unroll
-      for (int j = 0; j < kNi; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = n0 + wn * kWarpN + j * 8 + tig * 2 + c;
-          if (col >= n) continue;
-          const float v = __fmul_rn(acc[i][j][half * 2 + c], rs);
-          const long long o = obase + static_cast<long long>(row) * n + col;
-          if (dt == 1) {
-            static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
-          } else {
-            static_cast<float*>(out)[o] = v;
-          }
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane % 4);
+        const Out v0 = cast<Out>(__fmul_rn(acc[4 * j + 2 * i], rs));
+        const Out v1 = cast<Out>(__fmul_rn(acc[4 * j + 2 * i + 1], rs));
+        if (n % 2 == 0 && col + 1 < n) {
+          store2(orow + col, v0, v1);  // an even N keeps the pair aligned
+        } else {
+          if (col < n) orow[col] = v0;
+          if (col + 1 < n) orow[col + 1] = v1;
         }
       }
     }
   }
+}
+
+template <typename Out>
+int launch(const CUtensorMap& ma, const CUtensorMap& mb,
+           const CUtensorMap& ms, const float* sx, void* out, int groups,
+           int m, int n, int kp, int block, int device,
+           cudaStream_t stream) {
+  auto kern = qmm_kernel<Out>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(Cfg::bytes));
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long tiles = static_cast<long long>(groups) *
+                          ((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  kern<<<grid, kThreads, Cfg::bytes, stream>>>(
+      ma, mb, ms, sx, static_cast<Out*>(out), m, n, kp, block, groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // out [groups, m, n] = per-block dequantized xq [groups, m, kp] @
-// wqt[groups, n, kp]^T. dt: 0 = float32, 1 = bfloat16 output. Returns
-// cudaGetLastError().
+// wqt[groups, n, kp]^T; sw [groups, kp / block, sw_cols]. dt: 0 =
+// float32, 1 = bfloat16 output. Returns cudaGetLastError(), or
+// kMapError when a tensor map cannot be encoded.
 extern "C" int ds_quantized_matmul(const void* xq, const void* wqt,
                                    const void* sx, const void* sw, void* out,
                                    int groups, int m, int n, int kp,
-                                   int block, int dt, int device,
-                                   void* stream) {
+                                   int block, int sw_cols, int dt,
+                                   int device, void* stream) {
   cudaSetDevice(device);
-  if (groups > 0 && m > 0 && n > 0) {
-    const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, groups);
-    qmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wqt),
-        static_cast<const float*>(sx), static_cast<const float*>(sw), out, m,
-        n, kp, block, dt);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (groups <= 0 || m <= 0 || n <= 0) return 0;
+  const int nb = kp / block;
+  CUtensorMap ma, mb, ms;
+  const cuuint64_t da[3] = {static_cast<cuuint64_t>(kp),
+                            static_cast<cuuint64_t>(m),
+                            static_cast<cuuint64_t>(groups)};
+  const cuuint64_t sa[2] = {static_cast<cuuint64_t>(kp),
+                            static_cast<cuuint64_t>(kp) * m};
+  const cuuint64_t db[3] = {static_cast<cuuint64_t>(kp),
+                            static_cast<cuuint64_t>(n),
+                            static_cast<cuuint64_t>(groups)};
+  const cuuint64_t sb[2] = {static_cast<cuuint64_t>(kp),
+                            static_cast<cuuint64_t>(kp) * n};
+  const cuuint32_t abox[3] = {kBK, kBM, 1}, bbox[3] = {kBK, kBN, 1};
+  const cuuint64_t ds[2] = {static_cast<cuuint64_t>(sw_cols),
+                            static_cast<cuuint64_t>(groups) * nb};
+  const cuuint64_t ss[1] = {static_cast<cuuint64_t>(sw_cols) * 4};
+  const cuuint32_t sbox[2] = {kBN, 1};
+  if (hopper::encode(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, xq, da, sa, abox,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      hopper::encode(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, wqt, db, sb,
+                     bbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      hopper::encode(&ms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sw, ds, ss,
+                     sbox, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return hopper::kMapError;
+  const auto* rs = static_cast<const float*>(sx);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dt == 1)
+    return launch<__nv_bfloat16>(ma, mb, ms, rs, out, groups, m, n, kp,
+                                 block, device, s);
+  return launch<float>(ma, mb, ms, rs, out, groups, m, n, kp, block, device,
+                       s);
 }

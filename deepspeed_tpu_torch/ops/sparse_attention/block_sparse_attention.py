@@ -1,30 +1,38 @@
 """Block-sparse flash attention (kernels K7-fwd, K7-band, K7-dkv, K7-dq).
 
 Port of deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py.
-The four Pallas kernels become the four entry points of the hand-written
+The four Pallas kernels become the entry points of the hand-written
 CUDA source `ops/csrc/block_sparse_attention.cu`:
 
   K7-fwd   `_bs_fwd_kernel`      the table forward (BigBird, per-head
                                  layouts, any layout `_band_decompose`
                                  rejects)
   K7-band  `_band_fwd_kernel`    the band + global forward (BSLongformer,
-                                 Fixed)
+                                 Fixed): in bf16 at head dims 64 and 128
+                                 on the Hopper body of
+                                 `ops/csrc/attention_hopper.cuh`
+                                 (`_band_fwd_sm90_launch`: TMA, wgmma,
+                                 128-row q tiles over 64-row k tiles),
+                                 otherwise on the WMMA body
+                                 (`_band_fwd_launch`, 64 x 64 tiles)
   K7-dkv   `_bs_bwd_dkv_kernel`  dK and dV over the transpose table
   K7-dq    `_bs_bwd_dq_kernel`   dQ over the forward table
 
 The backward always runs the table kernels, whatever the forward took,
 as in the JAX package. The host code is the JAX package's, copied:
 `_build_tables`, `_band_decompose`, `layout_to_dense_mask` and the
-validations of `block_sparse_attention`. The kernels walk 64-row tiles
-(`TILE`), so their tables are `_build_tables` at tile granularity
+validations of `block_sparse_attention`. The table kernels walk 64-row
+tiles (`TILE`), so their tables are `_build_tables` at tile granularity
 (`_tile_tables`): a layout block of 16 or 32 puts several blocks in one
 tile, and each table entry carries a bit mask of the visible sub-blocks
-of its tile pair. The TPU launcher's super-rows (`qt`) and head groups
+of its tile pair. The band forward on the Hopper body walks 128-row q
+tiles over 64-row k tiles (`_band_fwd_tiles`); its plan holds only the
+band, and the backward takes the 64-row plan's tables. The TPU launcher's super-rows (`qt`) and head groups
 (`g`) amortised its grid-step overhead and have no counterpart here.
 
 The plain twins `_bs_fwd_plain`, `_band_fwd_plain` and `_bs_bwd_plain`
-run the kernels' algorithms in PyTorch: the same tile walks (all tiles of
-a walk step at once), the online softmax in log2 space with masked
+run the kernels' algorithms in PyTorch: the same tile walks at the same
+tile pairs (all tiles of a walk step at once), the online softmax in log2 space with masked
 scores at -1e30, fp32 sums, p and dS rounded to the input dtype before
 their products. A CPU tensor takes the twins; a CUDA tensor launches the
 kernels or raises on what they do not take (a head dim above 128, a
@@ -37,8 +45,8 @@ their tile is the layout block where 64 does not fit or the block is
 under 16.
 
 Built tables and their device copies are cached by (layout bytes,
-causal, block, tile, device), so the host work and the copy to the card
-happen once per layout, not once per call.
+causal, block, tile pair, device), so the host work and the copy to the
+card happen once per layout and tile pair, not once per call.
 """
 
 import ctypes
@@ -49,10 +57,11 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
-    _DTYPE_CODE, LOG2E, NEG_INF, _check_kernel_operand, _kernel_readable,
-    _strides, dense_attention)
+    _DTYPE_CODE, _SM90_TILES, LOG2E, NEG_INF, _check_kernel_operand,
+    _kernel_readable, _on_sm90, _strides, dense_attention)
 
-# the kernels' tile: 64 query rows x 64 key rows per step
+# the kernels' tile: 64 query rows x 64 key rows per step (the Hopper
+# band forward: 128 x 64, `_band_fwd_tiles`)
 TILE = 64
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_BLOCKS = (16, 32, 64, 128, 256)
@@ -62,6 +71,8 @@ _FWD_ARGTYPES = [_P] * 5 + [_I] * 4 + [_LL, _F, _I] + [_P] * 4 + \
     [_I] * 3 + [_I, _I, _P]
 _BAND_ARGTYPES = [_P] * 5 + [_I] * 4 + [_LL, _F, _I] + [_I] * 3 + \
     [_P, _I, _P, _I] + [_I, _I, _P]
+# the Hopper band forward's: nmax, the longest walk, after sub_shift
+_BAND90_ARGTYPES = _BAND_ARGTYPES[:-3] + [_I] + _BAND_ARGTYPES[-3:]
 _DKV_ARGTYPES = [_P] * 9 + [_I] * 4 + [_LL, _F, _F, _I] + [_P] * 4 + \
     [_I] * 3 + [_I, _I, _P]
 _DQ_ARGTYPES = [_P] * 7 + [_I] * 4 + [_LL, _F, _F, _I] + [_P] * 4 + \
@@ -198,13 +209,15 @@ def _band_decompose(layout, causal, max_globals=64, max_band_blocks=64):
     return None
 
 
-def _band_span(band, block, nb, causal, tile, qt):
-    """[lo, hi], in tiles, of the band span of q tiles `qt` (an int
-    array): the union over their rows of the band/window key blocks
-    (the band kernel's `band_walk` computes the same per CTA)."""
+def _band_span(band, block, nb, causal, tile, qt, q_tile=None):
+    """[lo, hi], in k tiles of `tile` rows, of the band span of q tiles
+    `qt` (an int array) of `q_tile` rows (default `tile`): the union over
+    their rows of the band/window key blocks (the band kernels'
+    `band_walk` and `band_walk90` compute the same per CTA)."""
     kind, w, _ = band
-    qb_lo = qt * tile // block
-    qb_hi = (qt * tile + tile - 1) // block
+    q_tile = q_tile or tile
+    qb_lo = qt * q_tile // block
+    qb_hi = (qt * q_tile + q_tile - 1) // block
     if kind == "aligned":
         kb_lo = qb_lo // w * w
         kb_hi = qb_hi // w * w + w - 1
@@ -218,7 +231,7 @@ def _band_span(band, block, nb, causal, tile, qt):
     lo = kb_lo * block // tile
     hi = ((kb_hi + 1) * block - 1) // tile
     if causal:
-        hi = np.minimum(hi, qt)
+        hi = np.minimum(hi, (qt * q_tile + q_tile - 1) // tile)
     return lo, hi
 
 
@@ -234,27 +247,32 @@ def _band_globals(band, block, t, tile):
     return np.nonzero(gbits)[0].astype(np.int32), gbits
 
 
-def _band_walks(band, block, t, causal, tile):
-    """The band kernel's walk of every q tile, padded to one length:
-    (kt [nt, n] key tiles, in_band [nt, n], valid [nt, n]). Each q tile
-    visits, in ascending order, the global tiles before its band span,
-    the span, and the global tiles after it (causal: up to its own
-    tile); a global tile inside the span is visited once, in the span."""
-    nt = t // tile
+def _band_walks(band, block, t, causal, tile, q_tile=None):
+    """The band kernel's walk of every q tile (`q_tile` rows, default
+    `tile`; the last one may run past t) over k tiles of `tile` rows,
+    padded to one length: (kt [nq, n] key tiles, in_band [nq, n], valid
+    [nq, n]). Each q tile visits, in ascending order, the global tiles
+    before its band span, the span, and the global tiles after it
+    (causal: up to the tile of its last row); a global tile inside the
+    span is visited once, in the span."""
+    q_tile = q_tile or tile
+    nq = -(-t // q_tile)
     gtiles, _ = _band_globals(band, block, t, tile)
     walks = []
-    for qt in range(nt):
+    for qt in range(nq):
         lo, hi = (int(x) for x in _band_span(band, block, t // block,
-                                              causal, tile, np.int64(qt)))
+                                              causal, tile, np.int64(qt),
+                                              q_tile))
+        last = (qt * q_tile + q_tile - 1) // tile
         before = [(int(g), False) for g in gtiles if g < lo]
         after = [(int(g), False) for g in gtiles
-                 if g > hi and (not causal or g <= qt)]
+                 if g > hi and (not causal or g <= last)]
         walks.append(before + [(kt, True) for kt in range(lo, hi + 1)] +
                      after)
     n = max(len(wk) for wk in walks)
-    kt = np.zeros((nt, n), np.int64)
-    in_band = np.zeros((nt, n), bool)
-    valid = np.zeros((nt, n), bool)
+    kt = np.zeros((nq, n), np.int64)
+    in_band = np.zeros((nq, n), bool)
+    valid = np.zeros((nq, n), bool)
     for qt, wk in enumerate(walks):
         for s, (tile_idx, band_step) in enumerate(wk):
             kt[qt, s], in_band[qt, s], valid[qt, s] = tile_idx, band_step, 1
@@ -269,50 +287,68 @@ def layout_to_dense_mask(layout, seq_len, block):
 
 
 # ----------------------------------------------------------------------
-# the cached tables of one (layout, causal, block, tile, device)
+# the cached tables of one (layout, causal, block, tile pair, device)
 # ----------------------------------------------------------------------
-class _Plan:
-    """Host tables of one layout and their int32 copies on `device`.
+def _tile_pair(tile):
+    """(q rows, k rows) of a square tile or a pair."""
+    if np.ndim(tile) == 0:
+        return int(tile), int(tile)
+    return tuple(int(x) for x in tile)
 
-    For the table kernels the forward table (visible k tiles per q tile)
-    and the transpose table (visible q tiles per k tile) with their sub-
-    block masks; for a layout `_band_decompose` accepts, the band and its
-    global tiles. The twins read the per-head numpy views (`*_h`)."""
+
+class _Plan:
+    """Host tables of one layout at one tile pair and their int32 copies
+    on `device`.
+
+    A square tile (`q_tile == tile`) holds, for the table kernels, the
+    forward table (visible k tiles per q tile) and the transpose table
+    (visible q tiles per k tile) with their sub-block masks; for a layout
+    `_band_decompose` accepts, the band, its global tiles and the band
+    walks. The Hopper band forward's 128 x 64 pair holds the band alone
+    (no tables: the backward takes the square plan's). The twins read the
+    per-head numpy views (`*_h`)."""
 
     def __init__(self, layout, causal, block, tile, device):
         nb = layout.shape[1]
-        self.block, self.tile, self.causal = block, tile, causal
+        self.q_tile, self.tile = tiles = _tile_pair(tile)
+        tile = self.tile
+        self.block, self.causal = block, causal
         self.sub = min(block, tile)
         self.rr = tile // self.sub
         self.sub_shift = self.sub.bit_length() - 1
         self.nt = nb * block // tile
-        (hm, kidx, kcnt, kmask, qidx, qcnt, qmask, self.kmax,
-         self.qmax) = _tile_tables(layout, causal, block, tile)
-        nt = self.nt
-
-        def per_head(a, width):
-            return a.reshape(-1, nt, width)[hm]
-
-        self.kidx_h, self.kmask_h = (per_head(a, self.kmax)
-                                     for a in (kidx, kmask))
-        self.qidx_h, self.qmask_h = (per_head(a, self.qmax)
-                                     for a in (qidx, qmask))
         self.band = _band_decompose(layout, causal)
+        tables = {}
+        if self.q_tile == tile:
+            (hm, kidx, kcnt, kmask, qidx, qcnt, qmask, self.kmax,
+             self.qmax) = _tile_tables(layout, causal, block, tile)
+            nt = self.nt
+
+            def per_head(a, width):
+                return a.reshape(-1, nt, width)[hm]
+
+            self.kidx_h, self.kmask_h = (per_head(a, self.kmax)
+                                         for a in (kidx, kmask))
+            self.qidx_h, self.qmask_h = (per_head(a, self.qmax)
+                                         for a in (qidx, qmask))
+            tables = {"head_map": hm, "kidx": kidx, "kcnt": kcnt,
+                      "kmask": kmask, "qidx": qidx, "qcnt": qcnt,
+                      "qmask": qmask}
+        elif self.band is None:
+            raise ValueError(f"a {tiles} tile pair takes only the band "
+                             "forward; this layout does not decompose")
         self.gtiles = self.gbits = self.walks = None
         if self.band is not None:
             self.gtiles, self.gbits = _band_globals(self.band, block,
                                                     nb * block, tile)
             self.walks = _band_walks(self.band, block, nb * block, causal,
-                                     tile)
+                                     tile, self.q_tile)
         self.dev = None
         if device.type == "cuda":
             def on(a):
                 return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                        device=device)
-            self.dev = {name: on(a) for name, a in (
-                ("head_map", hm), ("kidx", kidx), ("kcnt", kcnt),
-                ("kmask", kmask), ("qidx", qidx), ("qcnt", qcnt),
-                ("qmask", qmask))}
+            self.dev = {name: on(a) for name, a in tables.items()}
             if self.band is not None:
                 self.dev["gtiles"] = on(self.gtiles)
                 self.dev["gbits"] = on(self.gbits)
@@ -324,15 +360,17 @@ _plans_lock = threading.Lock()
 
 
 def _plan(layout, causal, block, tile, device):
-    """The cached `_Plan` of these arguments (least recently used out)."""
+    """The cached `_Plan` of these arguments (least recently used out).
+    `tile` is the square tile of the table kernels and the WMMA band
+    forward, or a (q rows, k rows) pair (`_band_fwd_tiles`)."""
     key = (layout.tobytes(), layout.shape, layout.dtype.str, bool(causal),
-           int(block), int(tile), str(device))
+           int(block), _tile_pair(tile), str(device))
     with _plans_lock:
         plan = _plans.get(key)
         if plan is not None:
             _plans.move_to_end(key)
             return plan
-    plan = _Plan(layout, bool(causal), int(block), int(tile), device)
+    plan = _Plan(layout, bool(causal), int(block), tile, device)
     with _plans_lock:
         _plans[key] = plan
         while len(_plans) > _PLAN_CACHE_SIZE:
@@ -394,19 +432,21 @@ def _table_steps(plan, transpose, device):
 
 def _band_steps(plan, device):
     """The band kernel's walk (`_band_walks`), step by step: (k tiles
-    [1, nt], visibility [1, nt, tile, tile]) from the closed-form band
-    test and the global sub-block bits."""
+    [1, nq], visibility [1, nq, q_tile, tile]) from the closed-form band
+    test and the global sub-block bits; rows past T (a last q tile that
+    runs past it) see nothing."""
     kind, w, _ = plan.band
-    tile, block = plan.tile, plan.block
+    tile, block, q_tile = plan.tile, plan.block, plan.q_tile
     kt_np, in_band_np, valid_np = plan.walks
     gbits = torch.as_tensor(plan.gbits, dtype=torch.long, device=device)
     pos = torch.arange(tile, device=device)
-    qp = torch.arange(plan.nt, device=device)[:, None, None] * tile + \
-        pos[:, None]                                          # [nt, tile, 1]
+    qp = torch.arange(kt_np.shape[0], device=device)[:, None, None] * \
+        q_tile + torch.arange(q_tile, device=device)[:, None]  # [nq, tq, 1]
     qb = qp // block
+    live = qp < plan.nt * tile
     for s in range(kt_np.shape[1]):
         kt = torch.as_tensor(kt_np[:, s], device=device)
-        kp = kt[:, None, None] * tile + pos[None, None, :]    # [nt, 1, tile]
+        kp = kt[:, None, None] * tile + pos[None, None, :]    # [nq, 1, tile]
         kb = kp // block
         glob = ((gbits[kt][:, None, None] >> (pos // plan.sub)[None, None, :])
                 & 1) != 0
@@ -416,21 +456,25 @@ def _band_steps(plan, device):
             in_band = (kb >= qb - (w - 1)) & (kb <= qb + (w - 1))
         in_band = in_band & torch.as_tensor(
             in_band_np[:, s], device=device)[:, None, None]
-        vis = (glob | in_band) & torch.as_tensor(
+        vis = (glob | in_band) & live & torch.as_tensor(
             valid_np[:, s], device=device)[:, None, None]
         if plan.causal:
             vis = vis & (kp <= qp)
         yield kt[None, :], vis[None]
 
 
-def _walk_fwd_plain(q, k, v, steps, tile, sm_scale):
+def _walk_fwd_plain(q, k, v, steps, q_tile, tile, sm_scale):
     """(out [B, T, H, D] in q.dtype, lse [B*H, T] fp32 log2 space): the
-    forward kernels' online softmax over `steps`, all q tiles at once."""
+    forward kernels' online softmax over `steps`, all q tiles (of
+    `q_tile` rows, the last one padded past T) at once over k tiles of
+    `tile` rows."""
     b, t, h, d = q.shape
     f32 = torch.float32
     scale = float(sm_scale * LOG2E)
-    qt, kt, vt = (_tiles(x, tile) for x in (q, k, v))
-    m = torch.full((b, h, t // tile, tile, 1), NEG_INF, dtype=f32,
+    tp = -(-t // q_tile) * q_tile
+    qt = _tiles(torch.nn.functional.pad(q, (0, 0, 0, 0, 0, tp - t)), q_tile)
+    kt, vt = (_tiles(x, tile) for x in (k, v))
+    m = torch.full((b, h, tp // q_tile, q_tile, 1), NEG_INF, dtype=f32,
                    device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qt)
@@ -448,20 +492,21 @@ def _walk_fwd_plain(q, k, v, steps, tile, sm_scale):
     out = acc / l.clamp(min=1e-30)
     lse = torch.where(l > 0, m + torch.log2(l.clamp(min=1e-30)),
                       torch.full_like(l, float("inf")))
-    out = out.reshape(b, h, t, d).permute(0, 2, 1, 3).to(q.dtype)
-    return out, lse.reshape(b * h, t)
+    out = out.reshape(b, h, tp, d)[:, :, :t].permute(0, 2, 1, 3)
+    return out.to(q.dtype), lse.reshape(b, h, tp)[..., :t].reshape(b * h, t)
 
 
 def _bs_fwd_plain(q, k, v, plan, sm_scale):
     """K7-fwd's algorithm: the forward-table walk."""
     return _walk_fwd_plain(q, k, v, _table_steps(plan, False, q.device),
-                           plan.tile, sm_scale)
+                           plan.tile, plan.tile, sm_scale)
 
 
 def _band_fwd_plain(q, k, v, plan, sm_scale):
-    """K7-band's algorithm: the band + global walk."""
-    return _walk_fwd_plain(q, k, v, _band_steps(plan, q.device), plan.tile,
-                           sm_scale)
+    """K7-band's algorithm: the band + global walk at the plan's tile
+    pair (the Hopper body's 128 x 64 or the WMMA body's 64 x 64)."""
+    return _walk_fwd_plain(q, k, v, _band_steps(plan, q.device),
+                           plan.q_tile, plan.tile, sm_scale)
 
 
 def _bs_bwd_plain(q, k, v, out, lse, dout, plan, sm_scale):
@@ -560,28 +605,65 @@ def _bs_fwd_launch(q, k, v, plan, sm_scale):
 _bs_fwd_launch.launches = 0
 
 
+def _band_args(q, k, v, out, lse, plan, sm_scale, *extra):
+    """The arguments of the band forward entry points (`extra` after
+    sub_shift)."""
+    from deepspeed_tpu_torch.ops import _build
+    kind, w, _ = plan.band
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *q.shape, _strides(q, k, v),
+            float(sm_scale * LOG2E), int(plan.causal),
+            plan.block.bit_length() - 1, w, int(kind == "aligned"),
+            plan.dev["gtiles"].data_ptr(), len(plan.gtiles),
+            plan.dev["gbits"].data_ptr(), plan.sub_shift, *extra,
+            _DTYPE_CODE[q.dtype], q.device.index or 0, _build.stream_ptr(q))
+
+
+def _check_band_plan(plan, tiles):
+    if plan.band is None or (plan.q_tile, plan.tile) != tiles:
+        raise ValueError(f"band forward kernel: needs a band plan at tiles "
+                         f"{tiles}, got {(plan.q_tile, plan.tile)}")
+
+
 def _band_fwd_launch(q, k, v, plan, sm_scale):
-    """K7-band on the card: (out, lse [B*H, T] log2 space)."""
+    """K7-band on the WMMA body (64 x 64 tiles; the route takes it for
+    fp32): (out, lse [B*H, T] log2 space)."""
     from deepspeed_tpu_torch.ops import _build
     _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v))
+    _check_band_plan(plan, (TILE, TILE))
     out, lse = _fwd_outputs(q)
-    kind, w, _ = plan.band
     fn = _build.function("block_sparse_attention", "ds_bs_attn_band_fwd",
                          _BAND_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), *q.shape, _strides(q, k, v),
-             float(sm_scale * LOG2E), int(plan.causal),
-             plan.block.bit_length() - 1, w, int(kind == "aligned"),
-             plan.dev["gtiles"].data_ptr(), len(plan.gtiles),
-             plan.dev["gbits"].data_ptr(), plan.sub_shift,
-             _DTYPE_CODE[q.dtype], q.device.index or 0,
-             _build.stream_ptr(q))
+    err = fn(*_band_args(q, k, v, out, lse, plan, sm_scale))
     _build.check(err, "block-sparse band forward kernel")
     _band_fwd_launch.launches += 1
     return out, lse
 
 
 _band_fwd_launch.launches = 0
+
+
+def _band_fwd_sm90_launch(q, k, v, plan, sm_scale):
+    """K7-band on the Hopper body (bf16 at head dims 64 and 128, the
+    plan at `_SM90_TILES`): (out, lse [B*H, T] log2 space)."""
+    from deepspeed_tpu_torch.ops import _build
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v))
+    if not _on_sm90(q.dtype, q.shape[-1]):
+        raise ValueError(f"Hopper band forward kernel: bf16 at head dims "
+                         f"64 and 128, got {q.dtype}, {q.shape[-1]}")
+    _check_band_plan(plan, _SM90_TILES)
+    out, lse = _fwd_outputs(q)
+    fn = _build.function("block_sparse_attention", "ds_bs_attn_band_fwd_sm90",
+                         _BAND90_ARGTYPES)
+    # the kernel lays its walk out in shared memory: the longest one
+    err = fn(*_band_args(q, k, v, out, lse, plan, sm_scale,
+                         plan.walks[0].shape[1]))
+    _build.check(err, "block-sparse Hopper band forward kernel")
+    _band_fwd_sm90_launch.launches += 1
+    return out, lse
+
+
+_band_fwd_sm90_launch.launches = 0
 
 
 def _bs_bwd_dkv_launch(q, k, v, out, lse, dout, plan, sm_scale):
@@ -639,9 +721,9 @@ _bs_bwd_dq_launch.launches = 0
 
 
 def reset_launch_counts():
-    """Zero the four K7 launch counters."""
-    for fn in (_bs_fwd_launch, _band_fwd_launch, _bs_bwd_dkv_launch,
-               _bs_bwd_dq_launch):
+    """Zero the K7 launch counters."""
+    for fn in (_bs_fwd_launch, _band_fwd_launch, _band_fwd_sm90_launch,
+               _bs_bwd_dkv_launch, _bs_bwd_dq_launch):
         fn.launches = 0
 
 
@@ -649,12 +731,15 @@ def reset_launch_counts():
 # routing and autograd
 # ----------------------------------------------------------------------
 def _forward(q, k, v, plan, sm_scale):
-    """(out, lse): the band kernel where the layout decomposes, else the
-    table kernel; the twins for CPU tensors."""
-    if plan.band is not None:
-        launch, plain = _band_fwd_launch, _band_fwd_plain
-    else:
+    """(out, lse): a band kernel where the layout decomposes (the Hopper
+    one for a plan at its tile pair), else the table kernel; the twins
+    for CPU tensors."""
+    if plan.band is None:
         launch, plain = _bs_fwd_launch, _bs_fwd_plain
+    elif plan.q_tile != plan.tile:
+        launch, plain = _band_fwd_sm90_launch, _band_fwd_plain
+    else:
+        launch, plain = _band_fwd_launch, _band_fwd_plain
     if q.is_cuda:
         return launch(q, k, v, plan, sm_scale)
     return plain(q, k, v, plan, sm_scale)
@@ -674,13 +759,14 @@ def _backward(q, k, v, out, lse, dout, plan, sm_scale):
 
 
 class _BlockSparseAttention(torch.autograd.Function):
-    """out = block-sparse attention of (q, k, v) under `plan`: the
-    forward kernel (or twin), and the backward kernels (or twin) off the
-    saved (q, k, v, out, lse) — the JAX package's custom VJP."""
+    """out = block-sparse attention of (q, k, v): the forward kernel (or
+    twin) under `fwd_plan`, and the backward kernels (or twin) under the
+    square `plan` off the saved (q, k, v, out, lse) — the JAX package's
+    custom VJP."""
 
     @staticmethod
-    def forward(ctx, q, k, v, plan, sm_scale):
-        out, lse = _forward(q, k, v, plan, sm_scale)
+    def forward(ctx, q, k, v, fwd_plan, plan, sm_scale):
+        out, lse = _forward(q, k, v, fwd_plan, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.plan, ctx.sm_scale = plan, sm_scale
         return out
@@ -689,7 +775,7 @@ class _BlockSparseAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out, lse, g, ctx.plan, ctx.sm_scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 # ----------------------------------------------------------------------
@@ -703,6 +789,16 @@ def _tile_for(t, block):
     if t % TILE == 0 and (block % TILE == 0 or block in _KERNEL_BLOCKS):
         return TILE
     return block
+
+
+def _band_fwd_tiles(dtype, d, tile):
+    """The band forward's (q rows, k rows) for inputs of `dtype` and head
+    dim d whose kernels walk `tile`-row tiles: the Hopper body's 128 x 64
+    where the tile is 64 and (dtype, d) runs it (bf16 at head dims 64 and
+    128, as for K1), else tile x tile."""
+    if tile == TILE and _on_sm90(dtype, d):
+        return _SM90_TILES
+    return (tile, tile)
 
 
 def _pad_for_kernel(q, k, v, layout, block):
@@ -773,12 +869,16 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
         sm_scale = 1.0 / np.sqrt(d)
     if q.is_cuda:
         q, k, v, layout = _pad_for_kernel(q, k, v, layout, block)
-    plan = _plan(layout, causal, block, _tile_for(q.shape[1], block),
-                 q.device)
+    tile = _tile_for(q.shape[1], block)
+    plan = fwd_plan = _plan(layout, causal, block, tile, q.device)
+    tiles = _band_fwd_tiles(q.dtype, q.shape[-1], tile)
+    if plan.band is not None and tiles != (tile, tile):
+        fwd_plan = _plan(layout, causal, block, tiles, q.device)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        out = _BlockSparseAttention.apply(q, k, v, plan, float(sm_scale))
+        out = _BlockSparseAttention.apply(q, k, v, fwd_plan, plan,
+                                          float(sm_scale))
     else:
-        out = _forward(q, k, v, plan, float(sm_scale))[0]
+        out = _forward(q, k, v, fwd_plan, float(sm_scale))[0]
     return out[:, :t, :, :d] if out.shape != (b, t, h, d) else out
 
 

@@ -50,10 +50,10 @@ from deepspeed_tpu_torch.utils.rng import stream_generator
 DEFAULT_QUANT_BLOCK = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_QMM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
+_QMM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
 # the blocks the kernel takes: the JAX package's rule for its int8 tiles
-# (the CUDA kernel's 64-byte K slices divide them)
+# (the CUDA kernel's 128-byte K stages divide them)
 _KERNEL_BLOCK_MULTIPLE = 128
 
 
@@ -186,9 +186,10 @@ def _check_block(block):
 def _qmm_launch(xq, wq, sx, sw, block, out_dtype):
     """K6 on CUDA tensors: xq [G, M, Kp] int8, wq [G, Kp, N] int8, sx
     [G, M, 1] and sw [G, nb, N] fp32 -> [G, M, N] in out_dtype. The
-    kernel takes the weights transposed ([G, N, Kp], K contiguous: the
-    tensor cores' column-major B), which costs one int8 copy of them."""
-    from deepspeed_tpu_torch.ops import _build
+    kernel takes the weights transposed ([G, N, Kp], K contiguous: 8-bit
+    wgmma reads both operands K-major), which costs one int8 copy of
+    them, and sw rows of a multiple of 4 columns (its tensor map's
+    16-byte stride), padded here where N is not."""
     _check_block(block)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"quantized_matmul kernel: int8 operands, got "
@@ -210,19 +211,29 @@ def _qmm_launch(xq, wq, sx, sw, block, out_dtype):
     if any(t.device != xq.device for t in (wq, sx, sw)):
         raise ValueError("quantized_matmul kernel: operands on different "
                          "devices")
-    if -(-m // 128) > 65535:
-        raise ValueError(f"quantized_matmul kernel: M={m} exceeds the grid")
     wqt = wq.transpose(1, 2).contiguous()
-    xq, sx, sw = xq.contiguous(), sx.contiguous(), sw.contiguous()
-    if xq.data_ptr() % 16 or wqt.data_ptr() % 16:
+    sw = F.pad(sw, (0, -n % 4))
+    return _qmm_kernel(xq.contiguous(), wqt, sx.contiguous(),
+                       sw.contiguous(), block, out_dtype)
+
+
+def _qmm_kernel(xq, wqt, sx, sw, block, out_dtype):
+    """The K6 launch on operands in its layouts (`_qmm_launch` checks
+    and makes them): xq [G, M, Kp] and wqt [G, N, Kp] int8, sx [G, M, 1]
+    and sw [G, nb, N rounded up to 4] fp32, all contiguous."""
+    from deepspeed_tpu_torch.ops import _build
+    if xq.data_ptr() % 16 or wqt.data_ptr() % 16 or sw.data_ptr() % 16:
         raise ValueError("quantized_matmul kernel: operands must be "
                          "16-byte aligned")
+    g, m, kp = xq.shape
+    n = wqt.shape[1]
     out = torch.empty((g, m, n), dtype=out_dtype, device=xq.device)
     fn = _build.function("quantized_matmul", "ds_quantized_matmul",
                          _QMM_ARGTYPES)
     err = fn(xq.data_ptr(), wqt.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-             out.data_ptr(), g, m, n, kp, block, _DTYPE_CODE[out_dtype],
-             xq.device.index or 0, _build.stream_ptr(xq))
+             out.data_ptr(), g, m, n, kp, block, sw.shape[-1],
+             _DTYPE_CODE[out_dtype], xq.device.index or 0,
+             _build.stream_ptr(xq))
     _build.check(err, "quantized_matmul kernel")
     quantized_matmul.launches += 1
     return out

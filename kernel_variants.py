@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the dense attention kernels' time goes, on one NVIDIA GPU.
+"""Where the Hopper kernels' time goes, on one NVIDIA GPU.
 
     python3 kernel_variants.py forward     # K1-fwd with parts switched off
     python3 kernel_variants.py backward    # K2's sweeps and delta pre-pass
     python3 kernel_variants.py order       # the grid order's L2 budget
+    python3 kernel_variants.py qmm         # K6 with parts switched off
 
 Each variant is a copy of deepspeed_tpu_torch/ops/csrc/ with a few text
-substitutions (a product, the softmax or a whole sweep switched off, or
-a constant changed), built with the same nvcc flags as ops/_build.py
-into build/kernel_variants/ (git-ignored), all variants in parallel. The
-script times each one's library, through the port's own wrapper, at the
-main path's bf16 shapes with CUDA events (mean of 20 calls after 3), and
-torch's scaled_dot_product_attention beside them as the yardstick. A
+substitutions (a product, the softmax, an epilogue or a whole sweep
+switched off, or a constant changed), built with the same nvcc flags as
+ops/_build.py into build/kernel_variants/ (git-ignored), all variants in
+parallel. The script times each one's library, through the port's own
+wrapper, at the main path's shapes with CUDA events (mean of 20 calls
+after 3): the attention modes at bf16 shapes with torch's
+scaled_dot_product_attention beside them as the yardstick, `qmm` at the
+flagship's four projections (the launch alone, on operands in the
+kernel's layouts) with torch._int_mm and the bf16 matmul beside them. A
 variant with a part switched off computes garbage: it is timed, never
 checked (`chip_smoke.py` and tests/test_torch_cuda.py check the kernels).
 A substitution that no longer applies to the sources fails the run.
@@ -39,7 +43,7 @@ NO_PV = (H, "      gemm_pb<D, kN, kN>(o, p, sV + st * kN * D, 0);\n",
 NO_S = (H, "      gemm_abt<D, kRows, kN>(s, sQ, wg * 64, sK + st * kN * D, 0);"
         "\n", "      if (it < 0) gemm_abt<D, kRows, kN>(s, sQ, wg * 64, "
         "sK + st * kN * D, 0);\n")
-NO_MASK = (H, "      if (walk.partial(q0, 64, k0, kN))\n        hide(s,",
+NO_MASK = (H, "      if (walk.partial(it, q0, 64, k0, kN))\n        hide(s,",
            "      if (it < 0)\n        hide(s,")
 NO_DQ = (BWD, "  dqk<<<grid, sm90::kThreads, L::bytes, stream>>>(",
          "  if (seq < 0) dqk<<<grid, sm90::kThreads, L::bytes, stream>>>(")
@@ -59,6 +63,53 @@ DKV_NO_GRADS = (H, "      gemm_pb<D, kStep, kStep>(acc_dv, pa, do_s, 0);\n"
                 "      if (it < 0) gemm_pb<D, kStep, kStep>(acc_dv, pa, do_s, "
                 "0);\n      if (it < 0) gemm_pb<D, kStep, kStep>(acc_dk, da, "
                 "q_s, 0);\n")
+
+
+# K6 (quantized_matmul.cu): the loads, the products, the per-block
+# epilogue, the output's store, the ring's depth, the tiles' order, the
+# conversion
+Q = "quantized_matmul.cu"
+QMM_NO_PRODUCTS = (Q, "        wgmma_s8_n128(part, desc_sw128(a0 + kk * 32, 16, "
+                   "1024),", "        if (it < 0) wgmma_s8_n128(part, "
+                   "desc_sw128(a0 + kk * 32, 16, 1024),")
+QMM_NO_EPILOGUE = (Q, "      if (k % spb == spb - 1) {\n        const float* sws",
+                   "      if (it < 0) {\n        const float* sws")
+# the consumer warpgroups issue their products in turn (named barriers)
+QMM_TURNS = [(Q, "      const bool first = k % spb == 0;\n      wg_fence();",
+              "      const bool first = k % spb == 0;\n      if (wg == 1)\n"
+              "        asm volatile(\"bar.sync 1, 256;\" ::: \"memory\");\n"
+              "      else if (it > 0)\n"
+              "        asm volatile(\"bar.sync 2, 256;\" ::: \"memory\");\n"
+              "      wg_fence();"),
+             (Q, "      wg_commit();\n      wg_wait();",
+              "      wg_commit();\n      if (wg == 0)\n"
+              "        asm volatile(\"bar.arrive 1, 256;\" ::: \"memory\");\n"
+              "      else if (it + 1 < steps)\n"
+              "        asm volatile(\"bar.arrive 2, 256;\" ::: \"memory\");\n"
+              "      wg_wait();")]
+QMM_NO_STORE = (Q, "      if (row >= m) continue;", "      if (row >= 0) continue;")
+QMM_NO_LOADS = [(Q, "    mbar_expect_tx(bar, Cfg::stage_bytes);\n    tma_load_3d(",
+                 "    mbar_expect_tx(bar, 0);\n    if (it < 0) tma_load_3d("),
+                (Q, "    tma_load_3d(sB + st * kBN * kBK, mb,",
+                 "    if (it < 0) tma_load_3d(sB + st * kBN * kBK, mb,"),
+                (Q, "    tma_load_2d(sS + it % (2 * kS) * kBN,",
+                 "    if (it < 0) tma_load_2d(sS + it % (2 * kS) * kBN,")]
+QMM_6_STAGES = (Q, "constexpr int kS = 4;", "constexpr int kS = 6;")
+# the tiles' order: N fastest, or N fastest within groups of 8 M tiles
+QMM_ORDER = (Q, "    m0 = tile % tm * kBM;\n    n0 = tile / tm % tn * kBN;")
+QMM_N_FASTEST = QMM_ORDER + ("    n0 = tile % tn * kBN;\n"
+                             "    m0 = tile / tn % tm * kBM;",)
+QMM_GROUPS_OF_8 = QMM_ORDER + (
+    "    const int r = tile % (tm * tn), gr = r / (8 * tn), w = r % (8 * tn),"
+    "\n              rows = min(8, tm - gr * 8);\n"
+    "    m0 = (gr * 8 + w % rows) * kBM;\n    n0 = w / rows * kBN;",)
+# the magic-number conversion in place of cvt (exact for block <= 256)
+QMM_MAGIC = [(Q, "__fmul_rn(__int2float_rn(part[e]),",
+              "__fmul_rn(__fsub_rn(__int_as_float(part[e] + 0x4B400000), "
+              "12582912.0f),"),
+             (Q, "__fmul_rn(__int2float_rn(part[e + 1]), s2.y)",
+              "__fmul_rn(__fsub_rn(__int_as_float(part[e + 1] + 0x4B400000), "
+              "12582912.0f), s2.y)")]
 
 
 def budget(value):
@@ -90,9 +141,31 @@ SETS = {
         for lib in ("flash_attention_fwd", "flash_attention_bwd")
         for name, v in (("32MB", None), ("8MB", "8ll << 20"),
                         ("tile_major", "1ll << 50"), ("head_major", "1"))}),
+    "qmm": ("quantized_matmul", {
+        "kernel": [],
+        "no_products": [QMM_NO_PRODUCTS],
+        "no_epilogue": [QMM_NO_EPILOGUE],
+        "loads_only": [QMM_NO_PRODUCTS, QMM_NO_EPILOGUE],
+        "no_loads": QMM_NO_LOADS,
+        "products_only": QMM_NO_LOADS + [QMM_NO_EPILOGUE],
+        "epilogue_only": QMM_NO_LOADS + [QMM_NO_PRODUCTS],
+        "turns": QMM_TURNS,
+        "no_store": [QMM_NO_STORE],
+        "epilogue_only_no_store": QMM_NO_LOADS + [QMM_NO_PRODUCTS,
+                                                  QMM_NO_STORE],
+        "epilogue_only_magic": QMM_NO_LOADS + [QMM_NO_PRODUCTS] + QMM_MAGIC,
+        "6_stages": [QMM_6_STAGES],
+        "n_fastest": [QMM_N_FASTEST],
+        "groups_of_8": [QMM_GROUPS_OF_8],
+        "magic": QMM_MAGIC,
+    }),
 }
 SHAPES = (((11, 1024, 25, 64), True), ((11, 1024, 25, 64), False),
           ((1, 8192, 4, 64), True), ((4, 1024, 16, 128), True))
+# the flagship's projections (M = 11 x 1024; K padded to blocks of 128)
+QMM_SHAPES = (("c_attn", 1664, 4800), ("c_proj", 1664, 1600),
+              ("c_fc", 1664, 6400), ("mlp_c_proj", 6400, 1600))
+QMM_M, QMM_BLOCK = 11 * 1024, 128
 
 
 def build(name, lib, subs):
@@ -158,6 +231,8 @@ def main(argv):
 
     bf16, gen = torch.bfloat16, torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if argv[0] == "qmm":
+        return time_qmm(variants, procs, cs, gen)
     cases, sdpa = [], {}
     for shape, causal in SHAPES:
         q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
@@ -188,6 +263,46 @@ def main(argv):
                 ms = cs.time_ms(lambda: fa._flash_bwd_launch(
                     q, k, v, out, lse, dout, None, sm, causal))
             rows[f"{list(shape)} causal={causal}"] = ms
+        _build.function = original
+        print(json.dumps({"variant": n, "library": lib, "ms": rows}),
+              flush=True)
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+def time_qmm(variants, procs, cs, gen):
+    """K6's variants at the flagship's projections: the launch alone
+    (`_qmm_kernel`) on int8 operands in its layouts, bf16 output."""
+    import importlib
+    import torch
+    from deepspeed_tpu_torch.ops import _build
+    qm = importlib.import_module(
+        "deepspeed_tpu_torch.ops.transformer.quantized_matmul")
+    cases, yard = [], {}
+    for name, kp, n in QMM_SHAPES:
+        xq = torch.randint(-127, 128, (1, QMM_M, kp), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        wqt = torch.randint(-127, 128, (1, n, kp), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        sx = torch.rand((1, QMM_M, 1), generator=gen, device="cuda")
+        sw = torch.rand((1, kp // QMM_BLOCK, n), generator=gen, device="cuda")
+        cases.append((name, xq, wqt, sx, sw))
+        w_kn = wqt[0].t()       # [Kp, N], column-major: _int_mm's layout
+        xb = torch.randn((QMM_M, kp), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        wb = torch.randn((kp, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        yard[name] = dict(
+            int_mm_ms=cs.time_ms(lambda: torch._int_mm(xq[0], w_kn)),
+            bf16_matmul_ms=cs.time_ms(lambda: torch.matmul(xb, wb)),
+            bound_ms=2.0 * QMM_M * kp * n / 1979e12 * 1e3)
+    print(json.dumps({"yardsticks": yard}), flush=True)
+    original = _build.function
+    for n, (lib, _) in variants.items():
+        use(lib, procs[n][1], original)
+        rows = {name: cs.time_ms(lambda: qm._qmm_kernel(
+                    xq, wqt, sx, sw, QMM_BLOCK, torch.bfloat16))
+                for name, xq, wqt, sx, sw in cases}
         _build.function = original
         print(json.dumps({"variant": n, "library": lib, "ms": rows}),
               flush=True)

@@ -1,6 +1,6 @@
 """PyTorch port: the CUDA kernels on the card (kernels K1-fwd, K2,
-K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2 and K5 in bf16 at
-head dims 64 and 128 on their Hopper bodies) against their plain
+K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2, K5 and K7-band
+in bf16 at head dims 64 and 128 on their Hopper bodies) against their plain
 PyTorch twins, the serving engine against the kernel-driven forward,
 and a training step on the kernels against the plain-torch route.
 
@@ -682,32 +682,44 @@ def _qm():
         "deepspeed_tpu_torch.ops.transformer.quantized_matmul")
 
 
-@pytest.mark.parametrize("g,m,k,n,out_dtype", [
-    (1, 300, 1600, 520, torch.bfloat16),    # partial last block, ragged
-    (1, 128, 256, 128, torch.float32),
-    (3, 77, 384, 200, torch.bfloat16),      # grouped, ragged M and N
-    (2, 64, 6400, 48, torch.float32),
+@pytest.mark.parametrize("g,m,k,n,out_dtype,block", [
+    (1, 300, 1600, 520, torch.bfloat16, 128),   # partial last block, ragged
+    (1, 128, 256, 128, torch.float32, 128),
+    (3, 77, 384, 200, torch.bfloat16, 128),     # grouped, ragged M and N
+    (2, 64, 6400, 48, torch.float32, 128),
+    # the flagship's four projections (M = 11 x 1024; N 1600 is no
+    # multiple of 128)
+    (1, 11264, 1600, 4800, torch.bfloat16, 128),
+    (1, 11264, 1600, 1600, torch.bfloat16, 128),
+    (1, 11264, 1600, 6400, torch.bfloat16, 128),
+    (1, 11264, 6400, 1600, torch.bfloat16, 128),
+    (1, 11227, 1600, 4800, torch.bfloat16, 128),  # ragged M
+    (8, 77, 1024, 4096, torch.float32, 128),      # experts, ragged C 77
+    (1, 1000, 1600, 1600, torch.float32, 128),    # fp32 output
+    (1, 1000, 1600, 1602, torch.bfloat16, 256),   # block 256, N % 4 = 2
+    (2, 200, 2048, 384, torch.float32, 512),      # block 512: cvt
 ])
-def test_quantized_matmul_kernel_matches_twin(dev, g, m, k, n, out_dtype):
+def test_quantized_matmul_kernel_matches_twin(dev, g, m, k, n, out_dtype,
+                                              block):
     """K6 equals its twin bit for bit: both sum exact int32 block
     partials and scale/add them in the same fp32 order, no FMA."""
     qm = _qm()
     gen = _gen(dev, 13)
     x = torch.randn((g, m, k), generator=gen, device=dev) * 3.0
     w = torch.randn((g, k, n), generator=gen, device=dev) * 0.05
-    wq, sw = qm.quantize_kernel_int8(w, 128)
+    wq, sw = qm.quantize_kernel_int8(w, block)
     xq, sx = qm.quantize_rows_int8(x)
     xq = torch.nn.functional.pad(xq, (0, wq.shape[-2] - k)).contiguous()
     before = qm.quantized_matmul.launches
-    got = qm._qmm(xq, wq, sx, sw, 128, out_dtype)
+    got = qm._qmm(xq, wq, sx, sw, block, out_dtype)
     torch.cuda.synchronize()
     assert qm.quantized_matmul.launches == before + 1
-    ref = qm._qmm_plain(xq, wq, sx, sw, 128, out_dtype)
+    ref = qm._qmm_plain(xq, wq, sx, sw, block, out_dtype)
     assert got.dtype == out_dtype and got.shape == (g, m, n)
     assert torch.equal(got, ref), float((got.float() - ref.float()).abs().max())
     # the wrapper: quantizes x itself and pads K, the same numbers
     y = qm.quantized_matmul(x if g > 1 else x[0], wq if g > 1 else wq[0],
-                            sw if g > 1 else sw[0], block=128,
+                            sw if g > 1 else sw[0], block=block,
                             out_dtype=out_dtype)
     assert torch.equal(y, got if g > 1 else got[0])
 
@@ -875,26 +887,32 @@ def _sparse_layouts(h, t, block, causal):
 def _k7_case(dev, layout, block, causal, dtype, d, seed):
     """Each K7 kernel the layout routes to, against its twin on the same
     inputs (q/k/v as column slices of one qkv tensor): the forward's out
-    and lse, then dq/dk/dv from the kernel's own (out, lse)."""
+    and lse (the band forward on the Hopper body in bf16 at head dims 64
+    and 128, with its 128 x 64 plan), then dq/dk/dv from the kernel's own
+    (out, lse)."""
     g = _gen(dev, seed)
     h, nb, _ = layout.shape
     b, t = 2, nb * block
     qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(dtype)
     q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
     dout = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
-    plan = tbsa._plan(layout, causal, block, tbsa.TILE, q.device)
+    plan = fwd_plan = tbsa._plan(layout, causal, block, tbsa.TILE, q.device)
     sm = d ** -0.5
-    if plan.band is not None:
-        launch, plain = tbsa._band_fwd_launch, tbsa._band_fwd_plain
-    else:
+    if plan.band is None:
         launch, plain = tbsa._bs_fwd_launch, tbsa._bs_fwd_plain
+    elif tbsa._band_fwd_tiles(dtype, d, tbsa.TILE) != (tbsa.TILE, tbsa.TILE):
+        launch, plain = tbsa._band_fwd_sm90_launch, tbsa._band_fwd_plain
+        fwd_plan = tbsa._plan(layout, causal, block, tfa._SM90_TILES,
+                              q.device)
+    else:
+        launch, plain = tbsa._band_fwd_launch, tbsa._band_fwd_plain
     before = (launch.launches, tbsa._bs_bwd_dkv_launch.launches,
               tbsa._bs_bwd_dq_launch.launches)
-    out, lse = launch(q, k, v, plan, sm)
+    out, lse = launch(q, k, v, fwd_plan, sm)
     dk, dv, delta = tbsa._bs_bwd_dkv_launch(q, k, v, out, lse, dout, plan,
                                             sm)
     dq = tbsa._bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm)
-    ref, ref_lse = plain(q, k, v, plan, sm)
+    ref, ref_lse = plain(q, k, v, fwd_plan, sm)
     ref_grads = tbsa._bs_bwd_plain(q, k, v, out, lse, dout, plan, sm)
     torch.cuda.synchronize()
     assert (launch.launches, tbsa._bs_bwd_dkv_launch.launches,
@@ -921,6 +939,52 @@ def test_block_sparse_kernels_match_twins(dev, block, causal, dtype):
         plan = _k7_case(dev, layout, block, causal, dtype, 64, seed=i)
         routes.add(plan.band is not None)
     assert routes == {True, False}      # both forward kernels ran
+
+
+def _band_layouts(h, t, block):
+    """(layout, causal) pairs on the band forward: sliding bands
+    (BSLongformer: unidirectional with its global column, causal; and
+    bidirectional without one, not causal) and aligned windows (Fixed,
+    with its global columns, causal and not). At blocks of 64 and under a
+    128-row q tile straddles layout blocks: causally its first span tile
+    is unseen by its lower half, and rows of a seen tile see nothing in
+    it."""
+    sliding = tsa.BSLongformerSparsityConfig
+    return [(sliding(num_heads=h, block=block, num_sliding_window_blocks=3,
+                     attention="unidirectional").make_layout(t), True),
+            (sliding(num_heads=h, block=block, num_sliding_window_blocks=3,
+                     global_block_indices=[]).make_layout(t), False)] + [
+        (tsa.FixedSparsityConfig(num_heads=h, block=block,
+                                 num_local_blocks=4,
+                                 attention=attention).make_layout(t), causal)
+        for attention, causal in (("unidirectional", True),
+                                  ("bidirectional", False))]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
+def test_hopper_band_kernel_matches_twin(dev, block, d):
+    """K7-band on the Hopper body against its twin at the 128 x 64 tile
+    pair, bf16: sliding and aligned bands, causal and not, at each block;
+    T = 448 (3.5 q tiles: the last runs past T) where the block divides
+    it, else 8 blocks, and 3 heads (odd B*H in the grid order)."""
+    t = 448 if 448 % block == 0 else 8 * block
+    kinds = set()
+    for i, (layout, causal) in enumerate(_band_layouts(3, t, block)):
+        plan = tbsa._plan(layout, causal, block, tfa._SM90_TILES, dev)
+        assert plan.band is not None
+        kinds.add(plan.band[0])
+        g = _gen(dev, 100 + i)
+        q, k, v = (torch.randn((2, t, 3, d), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        before = tbsa._band_fwd_sm90_launch.launches
+        out, lse = tbsa._band_fwd_sm90_launch(q, k, v, plan, d ** -0.5)
+        torch.cuda.synchronize()
+        assert tbsa._band_fwd_sm90_launch.launches == before + 1
+        ref, ref_lse = tbsa._band_fwd_plain(q, k, v, plan, d ** -0.5)
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+    assert kinds == {"sliding", "aligned"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

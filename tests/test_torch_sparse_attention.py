@@ -17,8 +17,12 @@ Tolerances, fp32: outputs atol = rtol = 2e-5 and gradients 1e-4: the
 twin walks 64-row tiles in log2 space, the JAX kernel super-rows of up
 to 4 layout blocks with natural exp, so the online-softmax sums and the
 gradient sums run in another order (the JAX package's own kernel tests
-hold the kernel to its dense fallback at 2e-5 and 5e-4). Layouts, tables
-and config blocks are compared exactly.
+hold the kernel to its dense fallback at 2e-5 and 5e-4). bf16 outputs
+(the band twin at the Hopper body's 128 x 64 tile pair against the JAX
+kernel in bf16): atol = rtol = 2^-6, two bf16 ulps at |x| in [1, 2):
+both round p to bf16 before P.V, each against its own running max (so
+at different points), and round the output to bf16 once. Layouts,
+tables, walks and config blocks are compared exactly.
 """
 
 import importlib
@@ -43,6 +47,10 @@ tfa = importlib.import_module(
 
 OUT_TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+BF16_OUT_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
+# the band forward's tile pair on the Hopper body: 128-row q tiles over
+# 64-row k tiles
+HOPPER_TILES = tfa._SM90_TILES
 
 
 def _configs(pkg, h, block):
@@ -150,6 +158,90 @@ def test_tile_walks_visit_every_visible_score_once(block, causal):
                     seen[rows * 64:(rows + 1) * 64,
                          cols * 64:(cols + 1) * 64] += vis[0, own].long()
             assert torch.equal(seen, want.long())
+
+
+# the band layouts of the Hopper walk's cases, by (block, kind, causal):
+# sliding = BSLongformer (unidirectional with its global column when
+# causal, bidirectional without globals when not), aligned = Fixed with
+# 4-block windows and their global columns; T takes 5-8 layout blocks and
+# is no multiple of 128 at blocks 16-64 (the last q tile runs past T),
+# where a 128-row q tile also straddles layout blocks
+BAND_T = {16: 320, 32: 320, 64: 448, 128: 768, 256: 1536}
+
+
+def _band_layout(block, kind, causal, h=2):
+    t = BAND_T[block]
+    if kind == "sliding":
+        cfg = tsa.BSLongformerSparsityConfig(
+            num_heads=h, block=block, num_sliding_window_blocks=3,
+            **({"attention": "unidirectional"} if causal else
+               {"global_block_indices": []}))
+    else:
+        cfg = tsa.FixedSparsityConfig(
+            num_heads=h, block=block, num_local_blocks=4,
+            attention="unidirectional" if causal else "bidirectional")
+    layout = cfg.make_layout(t)
+    assert tbsa._band_decompose(layout, causal)[0] == kind
+    return layout, t
+
+
+@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("kind", ["sliding", "aligned"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_hopper_band_walk_visits_the_tables_pairs(block, kind, causal):
+    """The band walk at 128 x 64 tiles visits exactly the (64-row q half,
+    k tile) pairs that the 64 x 64 forward table holds, each once, and
+    covers exactly the visible scores (rows past T see nothing)."""
+    layout, t = _band_layout(block, kind, causal)
+    cpu = torch.device("cpu")
+    tables = tbsa._Plan(layout, causal, block, tbsa.TILE, cpu)
+    walk = tbsa._Plan(layout, causal, block, HOPPER_TILES, cpu)
+    want = {(qt, int(kt)) for qt in range(tables.nt)
+            for kt, bits in zip(tables.kidx_h[0, qt], tables.kmask_h[0, qt])
+            if bits}
+    dense = torch.as_tensor(tbsa.layout_to_dense_mask(layout, t, block)[0])
+    if causal:
+        dense &= torch.ones((t, t), dtype=torch.bool).tril()
+    got, seen = [], torch.zeros((t, t), dtype=torch.long)
+    for idx, vis in tbsa._band_steps(walk, "cpu"):
+        for qt in range(idx.shape[1]):
+            kt, v = int(idx[0, qt]), vis[0, qt]
+            rows = min(128, t - qt * 128)
+            assert not v[rows:].any()
+            seen[qt * 128:qt * 128 + rows, kt * 64:(kt + 1) * 64] += \
+                v[:rows].long()
+            got += [(2 * qt + half, kt) for half in (0, 1)
+                    if v[half * 64:(half + 1) * 64].any()]
+    assert len(got) == len(set(got)) and set(got) == want
+    assert torch.equal(seen, dense.long())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kind", ["sliding", "aligned"])
+@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
+def test_hopper_band_twin_matches_jax(block, kind, causal, dtype):
+    """The band twin at the Hopper body's 128 x 64 tile pair (the walk
+    and rounding order of K7-band on the card) against the JAX package's
+    band kernel in interpret mode, forward, at D 64. In bf16 the public
+    route on the CPU takes that pair too and gives the same bits."""
+    layout, t = _band_layout(block, kind, causal)
+    q, k, v, _ = _qkv(1, t, 2, 64, seed=block + causal)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jbsa.block_sparse_attention(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), layout, block,
+        causal=causal, interpret=True)
+    xs = [torch.from_numpy(x).to(dtype) for x in (q, k, v)]
+    plan = tbsa._plan(layout, causal, block, HOPPER_TILES,
+                      torch.device("cpu"))
+    got, _ = tbsa._band_fwd_plain(*xs, plan, 64 ** -0.5)
+    tol = BF16_OUT_TOL if dtype == torch.bfloat16 else OUT_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    if dtype == torch.bfloat16:
+        assert torch.equal(tsa.block_sparse_attention(*xs, layout, block,
+                                                      causal=causal), got)
 
 
 def _qkv(b, t, h, d, seed):
@@ -436,3 +528,12 @@ def test_tables_are_built_once_per_layout():
     b = tbsa._plan(layout.copy(), True, 32, 64, torch.device("cpu"))
     c = tbsa._plan(layout, False, 32, 64, torch.device("cpu"))
     assert a is b and a is not c
+    # the Hopper band forward's plan: its own entry in the one cache,
+    # keyed by the tile pair
+    band = tsa.FixedSparsityConfig(num_heads=2, block=32).make_layout(256)
+    d = tbsa._plan(band, True, 32, HOPPER_TILES, torch.device("cpu"))
+    e = tbsa._plan(band, True, 32, 64, torch.device("cpu"))
+    assert d is tbsa._plan(band.copy(), True, 32, (128, 64),
+                           torch.device("cpu"))
+    assert d is not e and (d.q_tile, d.tile) == (128, 64)
+    assert (e.q_tile, e.tile) == (64, 64)
