@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
      versions; TF32 is switched off for matmuls and cuDNN;
   2. build: the kernels compiled from ops/csrc/ into build/torch_kernels/,
      with ptxas's registers and spills of each Hopper (TMA + wgmma)
-     kernel: the attention bodies, K7-band's and K6; none may spill;
+     kernel: the attention bodies, K7-band's, K7-dkv's, K7-dq's and
+     K6; none may spill;
   3. kernels vs their plain PyTorch twins at the slice's shapes, with
      max errors against stated tolerances, and the kernel's time beside
      the twin's, a bound (the least time the card could take: bytes
@@ -70,12 +71,15 @@ Phases, each printing one JSON line:
      their twins at bench.py's sparse_attention_16k shape ([1, 16384,
      16, 64] bf16, block 256, causal; BSLongformer w4 and Fixed l4 g1 on
      K7-band's Hopper body, and on its earlier WMMA body beside it,
-     BigBird on K7-fwd, K7-dkv/K7-dq under all three), timed
-     beside a bound over the visible scores, the twin, SDPA with the
-     expanded boolean layout mask and the dense K1/K2; checks at the
-     paths' other shapes ([2, 32768] BSLongformer and Fixed, BERT's
-     default Fixed at block 128, bidirectional), at block 32 (fp32,
-     bf16) and on per-head layouts at D 128;
+     BigBird on K7-fwd, K7-dkv/K7-dq under all three on the Hopper
+     sweeps, and on their earlier WMMA bodies beside them), timed
+     beside a bound over the visible scores (with TFLOP/s and the
+     backward walks' steps per CTA beside the visible tile pairs), the
+     twin, SDPA with the expanded boolean layout mask and the dense
+     K1/K2; checks at the paths' other shapes ([2, 32768] BSLongformer
+     and Fixed, BERT's default Fixed at block 128, bidirectional), at
+     block 32 (fp32, bf16), on per-head layouts at D 128 and on the
+     Hopper bodies at every block, head dims 64 and 128, T 448;
  15. sparse_attention: the bench leg through SparseSelfAttention(...)
      (q, q, q, causal=True), forward + backward, BSLongformer and Fixed
      at [1, 16384] and [2, 32768], BigBird at [1, 16384]: ms (CUDA
@@ -84,8 +88,8 @@ Phases, each printing one JSON line:
  16. bert_sparse: BertSparseSelfAttention(1024, 16) (default Fixed,
      bidirectional) on [1, 16384, 1024] bf16, forward + backward finite;
  17. sparse_oracle: the kernel route against the dense masked fallback
-     at T 4096, outputs and dQ/dK/dV by relative L2, fp32 (K7-band's
-     WMMA body) and bf16 (its Hopper body), every K7 kernel launched;
+     at T 4096, outputs and dQ/dK/dV by relative L2, fp32 (K7's WMMA
+     bodies) and bf16 (the Hopper ones), every K7 kernel launched;
  18. kernel_merge: K5 (flash attention merged with a prior softmax
      partial in its epilogue) against its twin at the ring leg's
      [1, 8192, 4, 64] (bf16 causal and full, fp32) and the sp_training
@@ -233,14 +237,15 @@ def bound(flops, flops_peak, nbytes, peaks):
 def sm90_ptxas(log):
     """{kernel<args>: "R registers, no spill" or "..., N bytes spill
     stores"} of the Hopper (TMA + wgmma) kernels in one library's ptxas
-    report (nvcc -Xptxas -v): the attention bodies (K1, K5, K2 and
-    K7-band, by head dim) and K6 (by output type)."""
+    report (nvcc -Xptxas -v): the attention bodies (K1, K5, K2, K7-band,
+    K7-dkv and K7-dq, by head dim) and K6 (by output type)."""
     import re
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|band_fwd)"
-                          r"_kernel_sm90)ILi(\d+)E(?:Lb(\d)E)?", ln)
+            m = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|band_fwd|"
+                          r"bs_bwd_dkv|bs_bwd_dq)_kernel_sm90)ILi(\d+)E"
+                          r"(?:Lb(\d)E)?", ln)
             q = re.search(r"qmm_kernelI(f|13__nv_bfloat16)E", ln)
             name = None
             if m is not None:
@@ -1594,21 +1599,45 @@ def visible_scores(layout, block, causal):
     return below * block * block + int(diag) * block * (block + 1) // 2
 
 
+def walk_stats(plan, square, name, b):
+    """The backward walk of `plan` (a square plan's transpose (dkv) or
+    forward (dq) table, or the Hopper pair's tables of the same name)
+    beside the visible 64 x 64 tile pairs it serves: CTAs, steps per CTA
+    (mean and most) and the share of a step's 64-row halves that see the
+    step's tile (the rest wait on a load they skip)."""
+    import numpy as np
+    hm = square.head_map
+    pairs = b * int((square.qcnt if name == "dkv" else square.kcnt)[hm].sum())
+    if plan is square:
+        count, halves = (square.qcnt if name == "dkv" else square.kcnt), 1
+    else:
+        count, halves = plan.pairs[name][1], 2
+    steps = b * int(count[hm].sum())
+    ctas = b * count[hm].size
+    return {"walk": {"ctas": ctas, "steps": steps,
+                     "steps_per_cta_mean": steps / ctas,
+                     "steps_per_cta_max": int(np.max(count)),
+                     "visible_tile_pairs": pairs,
+                     "halves_seeing_their_step": pairs / (halves * steps)
+                     if steps else None}}
+
+
 def kernel_sparse(peaks, gen):
     """K7 at the bench leg's shape ([1, 16384, 16, 64] bf16, block 256,
     causal): K7-band under BSLongformer (w 4, sliding) and Fixed (l 4,
     g 1, aligned) on the Hopper body (and, as the earlier kernel, on the
-    WMMA body), K7-fwd under BigBird, K7-dkv and K7-dq under all three,
+    WMMA body), K7-fwd under BigBird, K7-dkv and K7-dq under all three on
+    the Hopper sweeps (and, as the earlier kernels, on the WMMA bodies),
     each against its twin, timed beside its bound (the visible scores
     only), its twin, SDPA with the expanded boolean layout mask (the
     library yardstick, never called by the port) and the dense K1/K2 at
     the same shape; then checks, untimed, at the paths' other shapes
     (BSLongformer and Fixed at [2, 32768]; BERT's default Fixed, block
     128, bidirectional, at [1, 16384]), at block 32 (T 2048, fp32 on the
-    WMMA band body and bf16 on the Hopper one, non-causal), on per-head
-    layouts, and on the Hopper band body at every block and head dim it
-    takes (`band_layouts`). Returns {kernel: {case: numbers}} and the
-    checks."""
+    WMMA bodies and bf16 on the Hopper ones, non-causal), on per-head
+    layouts, and on the Hopper bodies at every block and head dim they
+    take (`band_layouts`, `table_layouts`). Returns {kernel: {case:
+    numbers}} and the checks."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import _build
@@ -1616,9 +1645,33 @@ def kernel_sparse(peaks, gen):
     bsa = _sparse()
     checks = []
     res = {"block_sparse_fwd": {}, "block_sparse_band_fwd_sm90": {},
-           "block_sparse_band_fwd": {}, "block_sparse_bwd_dkv": {},
+           "block_sparse_band_fwd": {}, "block_sparse_bwd_dkv_sm90": {},
+           "block_sparse_bwd_dq_sm90": {}, "block_sparse_bwd_dkv": {},
            "block_sparse_bwd_dq": {}}
     ptxas = sm90_ptxas(_build.build_log("block_sparse_attention"))
+
+    def backward(q, k, v, out, lse, dout, plan, sm, label, gtol, hopper):
+        """K7-dkv and K7-dq (on the Hopper sweeps or the WMMA bodies)
+        against the twin on `plan`: (names, launchers, delta, max errors
+        of dK/dV and dQ)."""
+        if hopper:
+            names = ("block_sparse_bwd_dkv_sm90", "block_sparse_bwd_dq_sm90")
+            launches = (bsa._bs_bwd_dkv_sm90_launch,
+                        bsa._bs_bwd_dq_sm90_launch)
+        else:
+            names = ("block_sparse_bwd_dkv", "block_sparse_bwd_dq")
+            launches = (bsa._bs_bwd_dkv_launch, bsa._bs_bwd_dq_launch)
+        dk, dv, delta = launches[0](q, k, v, out, lse, dout, plan, sm)
+        dq = launches[1](q, k, v, out, lse, dout, delta, plan, sm)
+        torch.cuda.synchronize()
+        ref_dq, ref_dk, ref_dv = bsa._bs_bwd_plain(q, k, v, out, lse, dout,
+                                                   plan, sm)
+        err_dkv = max(check_rel(f"{names[0]} d{n}, {label}", x, y, gtol,
+                                checks)
+                      for n, x, y in (("k", dk, ref_dk), ("v", dv, ref_dv)))
+        err_dq = check_rel(f"{names[1]} dq, {label}", dq, ref_dq, gtol,
+                           checks)
+        return names, launches, delta, err_dkv, err_dq
 
     def one(label, layout, block, causal, dtype, b, t, h, d, timed):
         qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda",
@@ -1626,30 +1679,29 @@ def kernel_sparse(peaks, gen):
         q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
         dout = torch.randn((b, t, h, d), generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
-        plan = fwd_plan = bsa._plan(layout, causal, block, bsa.TILE,
-                                    q.device)
+        plan = bsa._plan(layout, causal, block, bsa.TILE, q.device)
         sm = d ** -0.5
-        tiles = bsa._band_fwd_tiles(dtype, d, bsa.TILE)
+        tiles = bsa._hopper_tiles(dtype, d, bsa.TILE)
+        bwd_plan = bsa._plan(layout, causal, block, tiles, q.device)
+        fwd_plan = bwd_plan if bwd_plan.band is not None else plan
         if plan.band is None:
             fwd_name = "block_sparse_fwd"
             launch, plain = bsa._bs_fwd_launch, bsa._bs_fwd_plain
         elif tiles != (bsa.TILE, bsa.TILE):
             fwd_name = "block_sparse_band_fwd_sm90"
             launch, plain = bsa._band_fwd_sm90_launch, bsa._band_fwd_plain
-            fwd_plan = bsa._plan(layout, causal, block, tiles, q.device)
         else:
             fwd_name = "block_sparse_band_fwd"
             launch, plain = bsa._band_fwd_launch, bsa._band_fwd_plain
+        hopper = bwd_plan is not plan
         out, lse = launch(q, k, v, fwd_plan, sm)
-        dk, dv, delta = bsa._bs_bwd_dkv_launch(q, k, v, out, lse, dout,
-                                               plan, sm)
-        dq = bsa._bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm)
         torch.cuda.synchronize()
         ref, ref_lse = plain(q, k, v, fwd_plan, sm)
         tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
         gtol = GRAD_TOL_BF16 if dtype == torch.bfloat16 else GRAD_TOL_F32
         err_fwd = check(f"{fwd_name} out, {label}", out, ref, tol, checks)
         check(f"{fwd_name} log2-lse, {label}", lse, ref_lse, TOL_F32, checks)
+        del ref, ref_lse
         if fwd_plan is not plan and timed:
             # the earlier band kernel (WMMA, 64 x 64 tiles) on the same
             # inputs, held to its own twin
@@ -1661,14 +1713,13 @@ def kernel_sparse(peaks, gen):
             check(f"block_sparse_band_fwd log2-lse, {label}", wmma_lse,
                   wmma_ref_lse, TOL_F32, checks)
             del wmma_out, wmma_lse, wmma_ref, wmma_ref_lse
-        ref_dq, ref_dk, ref_dv = bsa._bs_bwd_plain(q, k, v, out, lse, dout,
-                                                   plan, sm)
-        err_dkv = max(check_rel(f"block_sparse_bwd_dkv d{n}, {label}", x, y,
-                                gtol, checks)
-                      for n, x, y in (("k", dk, ref_dk), ("v", dv, ref_dv)))
-        err_dq = check_rel(f"block_sparse_bwd_dq dq, {label}", dq, ref_dq,
-                           gtol, checks)
-        del ref, ref_lse, ref_dq, ref_dk, ref_dv
+        names, bwd_launches, delta, err_dkv, err_dq = backward(
+            q, k, v, out, lse, dout, bwd_plan, sm, label, gtol, hopper)
+        if hopper and timed:
+            # the earlier backward (WMMA, 64 x 64 tiles) on the same
+            # inputs, held to its twin on the 64-row tables
+            wmma_bwd = backward(q, k, v, out, lse, dout, plan, sm, label,
+                                gtol, False)
         if not timed:
             return
         # the work of the visible (causal) scores only: 2 products of
@@ -1742,20 +1793,33 @@ def kernel_sparse(peaks, gen):
                 bound_ms=f_bound, bound_by=f_by, library_ms=sdpa_f,
                 body="WMMA, 64 x 64 tiles (the earlier K7-band; the route "
                      "takes it for fp32)", **common), fwd_flops)
-        twin_bwd = time_ms(lambda: bsa._bs_bwd_plain(
-            q, k, v, out, lse, dout, plan, sm), iters=2, warmup=1)
-        res["block_sparse_bwd_dkv"][label] = dict(
-            max_abs_err=err_dkv,
-            ms=time_ms(lambda: bsa._bs_bwd_dkv_launch(q, k, v, out, lse,
-                                                      dout, plan, sm)),
-            plain_ms=twin_bwd, plain_is="the whole backward twin",
-            bound_ms=kv_bound, bound_by=kv_by, library_ms=None, **common)
-        res["block_sparse_bwd_dq"][label] = dict(
-            max_abs_err=err_dq,
-            ms=time_ms(lambda: bsa._bs_bwd_dq_launch(q, k, v, out, lse, dout,
-                                                     delta, plan, sm)),
-            plain_ms=twin_bwd, plain_is="the whole backward twin",
-            bound_ms=q_bound, bound_by=q_by, library_ms=None, **common)
+
+        def bwd_rows(bwd, p, extra):
+            (dkv_name, dq_name), (dkv, dq_launch), dlt, e_dkv, e_dq = bwd
+            twin_bwd = time_ms(lambda: bsa._bs_bwd_plain(
+                q, k, v, out, lse, dout, p, sm), iters=2, warmup=1)
+            res[dkv_name][label] = rates(dict(
+                max_abs_err=e_dkv,
+                ms=time_ms(lambda: dkv(q, k, v, out, lse, dout, p, sm)),
+                plain_ms=twin_bwd, plain_is="the whole backward twin",
+                bound_ms=kv_bound, bound_by=kv_by, library_ms=None,
+                **walk_stats(p, plan, "dkv", b), **extra, **common),
+                8.0 * d * nvis)
+            res[dq_name][label] = rates(dict(
+                max_abs_err=e_dq,
+                ms=time_ms(lambda: dq_launch(q, k, v, out, lse, dout, dlt, p,
+                                             sm)),
+                plain_ms=twin_bwd, plain_is="the whole backward twin",
+                bound_ms=q_bound, bound_by=q_by, library_ms=None,
+                **walk_stats(p, plan, "dq", b), **extra, **common),
+                6.0 * d * nvis)
+
+        bwd_rows((names, bwd_launches, delta, err_dkv, err_dq), bwd_plan,
+                 {"ptxas": ptxas} if hopper else {})
+        if hopper:
+            bwd_rows(wmma_bwd, plan, {
+                "body": "WMMA, 64 x 64 tiles (the earlier K7-dkv / K7-dq; "
+                        "the route takes it for fp32)"})
 
     h, d = SPARSE_H, SPARSE_D
     for pattern in ("bslongformer", "fixed", "bigbird"):
@@ -1789,16 +1853,18 @@ def kernel_sparse(peaks, gen):
     for dtype in (torch.float32, torch.bfloat16):
         one(f"per-head variable {str(dtype)[6:]} causal B2 T2048 H4 D128 "
             "block 32", per_head, 32, True, dtype, 2, 2048, 4, 128, False)
-    # K7-band's Hopper body at every block it takes, at head dims 64 and
-    # 128: sliding and aligned bands, causal and not; T 448 (the last
-    # 128-row q tile runs past T) or 8 blocks. At blocks of 64 and under
-    # a q tile straddles layout blocks, and causally its lower half
-    # cannot see the first tile of its span
+    # the Hopper bodies at every block they take, at head dims 64 and
+    # 128: K7-band and the backward on sliding and aligned bands, causal
+    # and not, the backward also on BigBird and per-head layouts; T 448
+    # (the last 128-row tile runs past T) or 8 blocks, 3 heads. At blocks
+    # of 64 and under a 128-row tile straddles layout blocks, and
+    # causally its lower half cannot see the first tile of its span
     for block in (16, 32, 64, 128, 256):
         t = 448 if 448 % block == 0 else 8 * block
-        for i, (layout, causal) in enumerate(band_layouts(3, t, block)):
+        cases = band_layouts(3, t, block) + table_layouts(3, t, block)
+        for i, (layout, causal) in enumerate(cases):
             for d in (64, 128):
-                one(f"band layout {i} {'causal' if causal else 'full'} "
+                one(f"layout {i} {'causal' if causal else 'full'} "
                     f"B2 T{t} H3 D{d} block {block}", layout, block, causal,
                     torch.bfloat16, 2, t, 3, d, False)
     return res, checks
@@ -1819,6 +1885,19 @@ def band_layouts(h, t, block):
                                 attention=attention).make_layout(t), causal)
         for attention, causal in (("unidirectional", True),
                                   ("bidirectional", False))]
+
+
+def table_layouts(h, t, block):
+    """(layout, causal) pairs that take the table forward: BigBird
+    (bidirectional) and per-head Variable layouts with random blocks
+    and a global column (causal)."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    return [(sa.BigBirdSparsityConfig(num_heads=h, block=block)
+             .make_layout(t), False),
+            (sa.VariableSparsityConfig(
+                num_heads=h, block=block, different_layout_per_head=True,
+                num_random_blocks=1, local_window_blocks=[1, 2],
+                global_block_indices=[0]).make_layout(t), True)]
 
 
 def sparse_attention_path(seed, card):
@@ -1957,9 +2036,9 @@ def sparse_oracle(seed):
     (block_sparse_attention_dense_fallback: plain torch over the
     expanded [T, T] mask) at T 4096 (the fallback's fp32 scores at 16k
     would take ~17 GB), H16 D64 block 256 causal, for the three
-    patterns, fp32 (K7-band on the WMMA body) and bf16 (on the Hopper
-    body): outputs and dQ/dK/dV by relative L2. Launch counts are zeroed
-    right before and returned."""
+    patterns, fp32 (K7-band, K7-dkv and K7-dq on the WMMA bodies) and
+    bf16 (on the Hopper ones): outputs and dQ/dK/dV by relative L2.
+    Launch counts are zeroed right before and returned."""
     import torch
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     bsa = _sparse()
@@ -2460,7 +2539,10 @@ def read_counts():
             "block_sparse_band_fwd_sm90": bsa._band_fwd_sm90_launch.launches,
             "block_sparse_band_fwd": bsa._band_fwd_launch.launches,
             "block_sparse_bwd_dkv": bsa._bs_bwd_dkv_launch.launches,
-            "block_sparse_bwd_dq": bsa._bs_bwd_dq_launch.launches}
+            "block_sparse_bwd_dq": bsa._bs_bwd_dq_launch.launches,
+            "block_sparse_bwd_dkv_sm90":
+                bsa._bs_bwd_dkv_sm90_launch.launches,
+            "block_sparse_bwd_dq_sm90": bsa._bs_bwd_dq_sm90_launch.launches}
 
 
 KERNELS = (
@@ -2490,7 +2572,7 @@ KERNELS = (
      "deepspeed_tpu/moe/fused_dispatch.py:183", None),
     ("quantized_matmul", "deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu",
      "deepspeed_tpu/ops/transformer/quantized_matmul.py:207", kernel_qmm),
-    # K7: one phase (kernel_sparse) checks and times all four
+    # K7: one phase (kernel_sparse) checks and times all of them
     ("block_sparse_fwd",
      "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
      "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:160",
@@ -2504,6 +2586,16 @@ KERNELS = (
     ("block_sparse_band_fwd",
      "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
      "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:552",
+     None),
+    # K7-dkv and K7-dq: the Hopper sweeps (bf16 at head dims 64 and 128,
+    # the sparse path's) and the WMMA bodies (fp32)
+    ("block_sparse_bwd_dkv_sm90",
+     "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:229",
+     None),
+    ("block_sparse_bwd_dq_sm90",
+     "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:279",
      None),
     ("block_sparse_bwd_dkv",
      "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
@@ -2530,9 +2622,11 @@ MOE_KERNELS = TRAINING_KERNELS + ("moe_dispatch", "moe_combine")
 QUANT_KERNELS = TRAINING_KERNELS + ("quantized_matmul",)
 MOE_QUANT_KERNELS = MOE_KERNELS + ("quantized_matmul",)
 SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_band_fwd_sm90",
-                  "block_sparse_bwd_dkv", "block_sparse_bwd_dq")
-# the sparse oracle's fp32 cases take K7-band's WMMA body
-SPARSE_ORACLE_KERNELS = SPARSE_KERNELS + ("block_sparse_band_fwd",)
+                  "block_sparse_bwd_dkv_sm90", "block_sparse_bwd_dq_sm90")
+# the sparse oracle's fp32 cases take K7's WMMA bodies
+SPARSE_ORACLE_KERNELS = SPARSE_KERNELS + ("block_sparse_band_fwd",
+                                          "block_sparse_bwd_dkv",
+                                          "block_sparse_bwd_dq")
 # the ring leg: K5 and K2 (the flash ring), K1 and K2 (Ulysses); GPT-2
 # under the ring: training's kernels with K5 in K1's place
 SEQUENCE_PARALLEL_KERNELS = ("flash_attention_merge", "flash_attention_bwd",
@@ -2582,9 +2676,9 @@ def main(argv=None):
           "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas,
           "sm90_kernels": sm90})
     spilled = [k for k, v in sm90.items() if "no spill" not in v]
-    if spilled or len(sm90) != 12:
+    if spilled or len(sm90) != 16:
         raise AssertionError(f"Hopper kernels spilling {spilled} (or not "
-                             f"all 12 found: {sorted(sm90)})")
+                             f"all 16 found: {sorted(sm90)})")
 
     # 3: kernels vs plain twins
     gen = torch.Generator(device="cuda")
@@ -2731,7 +2825,8 @@ def main(argv=None):
                                    "sdpa_masked_fwd_bwd_ms", "dense",
                                    "visible_scores", "density", "k1_ms",
                                    "kernel_ms", "tops", "tflops",
-                                   "share_of_bound", "body", "ptxas")
+                                   "share_of_bound", "body", "ptxas",
+                                   "walk")
                  if k in r}
         rows.append({"name": kname, "route": "cuda", "source": src_file,
                      "replaces": replaces,

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) bodies of the bf16 flash-attention kernels at head
 // dims 64 and 128: K1-fwd and its K5 merge mode (flash_attention_fwd.cu),
-// K2's two sweeps (flash_attention_bwd.cu) and, over its band walk, the
-// block-sparse band forward K7-band (block_sparse_attention.cu). fp32
-// inputs, head dims 192/256 and K7's table forward and backward keep
-// attention_tiles.cuh's WMMA bodies.
+// K2's two sweeps (flash_attention_bwd.cu) and, over their band and table
+// walks, the block-sparse band forward K7-band and backward K7-dkv and
+// K7-dq (block_sparse_attention.cu). fp32 inputs, head dims 192/256 and
+// K7's table forward keep attention_tiles.cuh's WMMA bodies.
 //
 // Replaces, in deepspeed_tpu/ops/transformer/flash_attention.py, the
 // forward Pallas kernels `_fwd_kernel` :262 and `_fwd_kernel_packed`
@@ -605,6 +605,10 @@ __device__ __forceinline__ void dkv_body(
       const bf16* do_s = sdO + st * kStep * D;
       const float* lse_s = sRows + st * 2 * kStep;
       const float* delta_s = lse_s + kStep;
+      // the pair's visibility, taken before the products (a table walk
+      // works out its mask here, so one register of it lives across them;
+      // taken after they start and before their wait, it spilled at D 64)
+      const auto vis = walk.vis(it, q0, k0);
       wg_fence();
       gemm_abt<D, kRows, kStep>(st_, sK, wg * 64, q_s, 0);
       gemm_abt<D, kRows, kStep>(dpt, sV, wg * 64, do_s, 0);
@@ -615,7 +619,7 @@ __device__ __forceinline__ void dkv_body(
       // element e: key row 16 warp + lane / 4 + 8 ((e / 2) % 2) of the
       // warpgroup's 64, query column c = 8 (e / 4) + 2 (lane % 4) + e % 2
       if (walk.partial(it, q0, kStep, k0, 64))
-        hide_t(st_, walk.vis(it, q0, k0), warp, lane);
+        hide_t(st_, vis, warp, lane);
 #pragma unroll
       for (int j = 0; j < kStep / 8; ++j) {
         const int c = 8 * j + 2 * (lane % 4);
@@ -731,6 +735,7 @@ __device__ __forceinline__ void dq_body(
     ring.wait(it, 0);
     if (!walk.empty(it, q0, 64, k0)) {
       const bf16* k_s = sK + st * kStep * D;
+      const auto vis = walk.vis(it, q0, k0);  // as in dkv_body
       wg_fence();
       gemm_abt<D, kRows, kStep>(s, sQ, wg * 64, k_s, 0);
       gemm_abt<D, kRows, kStep>(dp, sdO, wg * 64, sV + st * kStep * D, 0);
@@ -739,7 +744,7 @@ __device__ __forceinline__ void dq_body(
       reg_fence(s);
       reg_fence(dp);
       if (walk.partial(it, q0, 64, k0, kStep))
-        hide(s, walk.vis(it, q0, k0), warp, lane);
+        hide(s, vis, warp, lane);
 #pragma unroll
       for (int e = 0; e < kStep / 2; ++e) {
         const int i = (e / 2) % 2;

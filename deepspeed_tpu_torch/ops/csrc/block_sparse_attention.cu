@@ -2,13 +2,16 @@
 //
 // Replaces the four Pallas kernels of
 // deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py, one
-// __global__ entry point each (the band forward two, one per body):
-//   bs_fwd_kernel         <- _bs_fwd_kernel (:160), the table forward
-//   band_fwd_kernel_sm90  <- _band_fwd_kernel (:552), the band + global
-//   band_fwd_kernel          forward: bf16 at head dims 64 and 128 on the
-//                            Hopper body, fp32 on the WMMA body
-//   bs_bwd_dkv_kernel     <- _bs_bwd_dkv_kernel (:229), dK and dV
-//   bs_bwd_dq_kernel      <- _bs_bwd_dq_kernel (:279), dQ
+// __global__ entry point each (the band forward and the backward two,
+// one per body: bf16 at head dims 64 and 128 on the Hopper body, fp32 on
+// the WMMA body):
+//   bs_fwd_kernel           <- _bs_fwd_kernel (:160), the table forward
+//   band_fwd_kernel_sm90,   <- _band_fwd_kernel (:552), the band + global
+//   band_fwd_kernel            forward
+//   bs_bwd_dkv_kernel_sm90, <- _bs_bwd_dkv_kernel (:229), dK and dV
+//   bs_bwd_dkv_kernel
+//   bs_bwd_dq_kernel_sm90,  <- _bs_bwd_dq_kernel (:279), dQ
+//   bs_bwd_dq_kernel
 // They compute attention over [B, T, H, D] restricted to a block layout
 // [H, T/block, T/block] (and the causal triangle, element by element,
 // when causal), with the online softmax in log2 space as K1/K2 do, and
@@ -31,7 +34,16 @@
 // nothing of a tile skips its products; two CTAs per SM. Each half's
 // visibility is a bit mask of its sub-blocks against the tile's, from
 // the closed-form band test and the tile's global bits, computed per
-// step on the card. The other kernels are the first, simple ones: the
+// step on the card. The backward in bf16 at head dims 64 and 128 runs
+// K2's two Hopper sweeps (`dkv_body`, `dq_body`) over `TableWalk90`: a
+// resident 128-row tile (k tile for dK/dV, q tile for dQ) streams the
+// 64-row tiles that either of its halves sees, from the pair tables the
+// host builds out of the 64 x 64 tables (`_pair_tables`), one sub-block
+// mask per half and step; a half that sees nothing of a step's tile
+// skips its products (its warpgroup still waits for the tile). The CTAs
+// run longest walk first, in an order the host sorts (the global
+// columns' transpose rows list every later q tile: up to T/64 steps). The
+// table forward and the fp32 kernels are the first, simple ones: the
 // tile bodies of attention_tiles.cuh (WMMA 16x16x16 bf16 with fp32
 // accumulation, a CUDA-core fp32 path, no TMA, no wgmma, no pipelining)
 // over walks that visit only the visible 64 x 64 tiles.
@@ -56,7 +68,8 @@
 //   128-row q tile walks the union of its halves' spans.
 // - The backward is K2's atomic-free two sweeps over the tables: dK/dV
 //   per k tile over the transpose table, dQ per q tile over the forward
-//   table, after K2's delta pre-pass (rowsum(dO * O)).
+//   table, after K2's delta pre-pass (rowsum(dO * O)). Every output row
+//   has one writer, so a run repeats bit for bit.
 #include "attention_hopper.cuh"
 
 namespace {
@@ -278,6 +291,145 @@ __device__ __forceinline__ BandWalk90 band_walk90(
   return BandWalk90{steps, n, nmax, q0, sub_shift, causal};
 }
 
+// The visibility of one (64-row half, 64-row tile) pair of a table walk
+// to one thread: bit e for element e of its 32-score accumulator (rows
+// 16 warp + lane / 4 + 8 ((e / 2) % 2), columns 8 (e / 4) + 2 (lane % 4)
+// + e % 2; attention_hopper.cuh's layout). The sweeps take it before
+// their products, so one register of it lives across them instead of the
+// pair's bits, sub-block size and positions: the D 64 dQ sweep runs at
+// 128 registers, which the dense sweep's scores and accumulators fill.
+struct HalfMask {
+  unsigned m;
+};
+
+// sm90::hide and sm90::hide_t for a HalfMask: hidden scores to -inf
+template <int R>
+__device__ __forceinline__ void hide(float (&s)[R], HalfMask v, int, int) {
+  static_assert(R == 32, "one mask bit per accumulator element");
+#pragma unroll
+  for (int e = 0; e < R; ++e)
+    if (!((v.m >> e) & 1)) s[e] = sm90::neg_inf();
+}
+template <int R>
+__device__ __forceinline__ void hide_t(float (&s)[R], HalfMask v, int w,
+                                       int l) {
+  hide(s, v, w, l);
+}
+
+// The mask of the pair whose word is w (`TableWalk90`) at positions (q0,
+// k0): sub-block bit (i * rr + j) for q sub-row i and k sub-column j,
+// and, causally, keys at or before the query. kKeys: the accumulator's
+// rows are keys and its columns queries (dK/dV), else the reverse (dQ).
+template <bool kKeys>
+__device__ __forceinline__ unsigned half_mask(int w, int q0, int k0) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int bits = w & 0xffff, sub_shift = (w >> 16) & 15;
+  const int rr = sm90::kStep >> sub_shift, causal = (w >> 21) & 1;
+  unsigned m = 0;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int a = warp * 16 + lane / 4 + 8 * ((e / 2) % 2);
+    const int c = 8 * (e / 4) + 2 * (lane % 4) + e % 2;
+    const int row = kKeys ? c : a, col = kKeys ? a : c;  // query, key
+    const bool v =
+        ((bits >> ((row >> sub_shift) * rr + (col >> sub_shift))) & 1) &&
+        (!causal || k0 + col <= q0 + row);
+    m |= static_cast<unsigned>(v) << e;
+  }
+  return m;
+}
+
+// The walk of the Hopper backward sweeps: one row of a pair table
+// (`_pair_tables`), 64-row streamed tiles past a 128-row resident one.
+// The CTA copies its row into shared memory at byte kAt before it starts
+// (`table_walk90`), three words per step s: the streamed tile, then one
+// word per 64-row half of the resident tile, which packs the half's
+// sub-block bits against the tile (bits 0-15, MaskVis's meaning: bit
+// (i * rr + j) for q sub-row i and k sub-column j), sub_shift (bits
+// 16-19), whether the pair holds a hidden score (bit 20: a bit unset, or
+// the causal diagonal crosses it) and causal (bit 21). In registers the
+// walk keeps only its count: the sweeps at D 64 run two CTAs per SM, 128
+// registers a thread, and the dense sweeps use them all, so everything
+// else is read from shared memory where it is used. `partial`, `empty`
+// and `vis` key on the resident half: the k half k0 when the resident
+// tile holds keys (kKeys: dK/dV over the transpose table), the q half q0
+// when it holds queries (dQ over the forward table); the resident tile
+// starts at a multiple of 128 rows, so bit 6 of the half's first row
+// names it. A half with bits 0 (its 64-row table row does not list the
+// tile, or it lies past T) skips the step.
+template <bool kKeys, size_t kAt>
+struct TableWalk90 {
+  int n;
+
+  static __device__ __forceinline__ const int* at() {
+    return reinterpret_cast<const int*>(hopper::smem_base() + kAt);
+  }
+  // the resident half's word of step s
+  __device__ __forceinline__ int word(int s, int q0, int k0) const {
+    return at()[1 + 3 * s + (((kKeys ? k0 : q0) >> 6) & 1)];
+  }
+  __device__ __forceinline__ int count() const { return n; }
+  __device__ __forceinline__ int tile(int s) const { return at()[3 * s]; }
+  // the thread's mask of the pair, worked out only where it hides a
+  // score; the empty asm pins the work before the sweep's products
+  __device__ __forceinline__ HalfMask vis(int s, int q0, int k0) const {
+    const int w = word(s, q0, k0);
+    unsigned m = ~0u;
+    if ((w >> 20) & 1) m = half_mask<kKeys>(w, q0, k0);
+    asm volatile("" : "+r"(m));
+    return HalfMask{m};
+  }
+  __device__ __forceinline__ bool partial(int s, int q0, int, int k0,
+                                          int) const {
+    return (word(s, q0, k0) >> 20) & 1;
+  }
+  __device__ __forceinline__ bool empty(int s, int q0, int, int k0) const {
+    return (word(s, q0, k0) & 0xffff) == 0;
+  }
+};
+
+// Copies pair-table row `row` (table [rows][3][nmax], count [rows]) into
+// shared memory at kAt ([nmax][3] words, each thread a share; the
+// sweep's first barrier publishes them), packing each half's word, and
+// returns its walk; `first` is the resident tile's first row.
+template <bool kKeys, size_t kAt>
+__device__ __forceinline__ TableWalk90<kKeys, kAt> table_walk90(
+    const int* __restrict__ table, const int* __restrict__ count,
+    long long row, int nmax, int first, int sub_shift, int causal) {
+  int* steps = reinterpret_cast<int*>(hopper::smem_base() + kAt);
+  const int n = count[row];
+  const int* src = table + row * 3 * nmax;
+  const int rr = sm90::kStep >> sub_shift, full = (1 << (rr * rr)) - 1;
+  for (int s = threadIdx.x; s < n; s += blockDim.x) {
+    const int t = src[s];
+    steps[3 * s] = t;
+    for (int half = 0; half < 2; ++half) {
+      const int bits = src[(1 + half) * nmax + s];
+      const int r0 = first + half * sm90::kStep, o0 = t * sm90::kStep;
+      const int q0 = kKeys ? o0 : r0, k0 = kKeys ? r0 : o0;
+      const bool hidden =
+          bits != full || (causal && k0 + sm90::kStep - 1 > q0);
+      steps[3 * s + 1 + half] = bits | sub_shift << 16 |
+                                static_cast<int>(hidden) << 20 |
+                                (causal != 0) << 21;
+    }
+  }
+  return TableWalk90<kKeys, kAt>{n};
+}
+
+// The CTA's head h, b*h and resident tile in the host's order of (head,
+// tile) pairs, longest walk first (`_longest_first`), the batch element
+// fastest: CTA i takes pair order[i / batch] of batch element i % batch.
+__device__ __forceinline__ void table_order(const int* __restrict__ order,
+                                            int nt, int heads, int& h,
+                                            int& bh, int& tile) {
+  const int batch = gridDim.x / (nt * heads);
+  const int pair = order[blockIdx.x / batch];
+  h = pair / nt;
+  tile = pair % nt;
+  bh = (blockIdx.x % batch) * heads + h;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 bs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -345,6 +497,68 @@ band_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                   ng, gbits, sub_shift);
   sm90::fwd_body<D, false>(mq, mk, mv, out, lse, seq, heads, scale_log2, qt,
                            bh, walk, MergeIn{});
+}
+
+// The Hopper backward kernels' shared memory: the sweep's, then the
+// walk's 3 nmax words (nmax <= 512, the host's bound: 6 KB)
+template <int D>
+struct TableCfg90 {
+  using C = sm90::BwdCfg<D>;
+  static constexpr size_t walk = (C::bar + 8 + C::R::bytes + 15) / 16 * 16;
+  static size_t bytes(int nmax) { return walk + 12 * size_t(nmax) + 1024; }
+};
+
+// bf16 at D 64 and 128: one CTA per (b*h, 128-row k tile) over the
+// transpose pair table (`table_order`'s order)
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads,
+                                  sm90::BwdCfg<D>::kDkvBlocks)
+bs_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       int seq, int heads, float scale_log2, float sm_scale,
+                       int causal, const int* __restrict__ head_map,
+                       const int* __restrict__ table,
+                       const int* __restrict__ count,
+                       const int* __restrict__ order, int nmax,
+                       int sub_shift) {
+  const int nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  int h, bh, kt;
+  table_order(order, nt, heads, h, bh, kt);
+  const auto walk = table_walk90<true, TableCfg90<D>::walk>(
+      table, count, static_cast<long long>(head_map[h]) * nt + kt, nmax,
+      kt * sm90::kRows, sub_shift, causal);
+  sm90::dkv_body<D>(mq, mk, mv, mdo, lse, delta, dk, dv, seq, heads,
+                    scale_log2, sm_scale, kt, bh, walk);
+}
+
+// one CTA per (b*h, 128-row q tile) over the forward pair table
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, sm90::BwdCfg<D>::kDqBlocks)
+bs_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dq,
+                      int seq, int heads, float scale_log2, float sm_scale,
+                      int causal, const int* __restrict__ head_map,
+                      const int* __restrict__ table,
+                      const int* __restrict__ count,
+                      const int* __restrict__ order, int nmax,
+                      int sub_shift) {
+  const int nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  int h, bh, qt;
+  table_order(order, nt, heads, h, bh, qt);
+  const auto walk = table_walk90<false, TableCfg90<D>::walk>(
+      table, count, static_cast<long long>(head_map[h]) * nt + qt, nmax,
+      qt * sm90::kRows, sub_shift, causal);
+  sm90::dq_body<D>(mq, mk, mv, mdo, lse, delta, dq, seq, heads, scale_log2,
+                   sm_scale, qt, bh, walk);
 }
 
 template <typename T, int D>
@@ -498,6 +712,80 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// a pair table: head_map [H], steps [U * nt * 3 * nmax], count [U * nt],
+// order [H * nt] (nt the 128-row tiles)
+struct PairTable {
+  const int* head_map;
+  const int* steps;
+  const int* count;
+  const int* order;
+  int nmax;
+};
+
+// resident (kRows) and streamed (kStep) maps of q, k, v and dO, through
+// the caller's strides (s: q, k, v, out, dout)
+template <int D>
+int bwd_maps(CUtensorMap (&res)[4], CUtensorMap (&str)[4], const void* q,
+             const void* k, const void* v, const void* dout, int batch,
+             int seq, int heads, const long long* s) {
+  const void* ptr[4] = {q, k, v, dout};
+  const long long* st[4] = {s, s + 3, s + 6, s + 12};
+  for (int i = 0; i < 4; ++i)
+    if (sm90::make_map(&res[i], ptr[i], batch, seq, heads, D, st[i][0],
+                       st[i][1], st[i][2], sm90::kRows) ||
+        sm90::make_map(&str[i], ptr[i], batch, seq, heads, D, st[i][0],
+                       st[i][1], st[i][2], sm90::kStep))
+      return sm90::kMapError;
+  return 0;
+}
+
+unsigned pair_grid(int batch, int seq, int heads) {
+  return static_cast<unsigned>(static_cast<long long>(seq + sm90::kRows - 1) /
+                               sm90::kRows * batch * heads);
+}
+
+template <int D>
+int launch_dkv_sm90(const void* q, const void* k, const void* v,
+                    const void* out, const void* dout, const float* lse,
+                    float* delta, void* dk, void* dv, int batch, int seq,
+                    int heads, const long long* s, float scale_log2,
+                    float sm_scale, int causal, PairTable tab, int sub_shift,
+                    cudaStream_t stream) {
+  CUtensorMap res[4], str[4];
+  if (bwd_maps<D>(res, str, q, k, v, dout, batch, seq, heads, s))
+    return sm90::kMapError;
+  launch_delta<bf16, D>(out, dout, nullptr, delta, batch, seq, heads, s + 9,
+                        s + 12, stream);
+  auto kern = bs_bwd_dkv_kernel_sm90<D>;
+  const size_t bytes = TableCfg90<D>::bytes(tab.nmax);
+  allow_smem(kern, bytes);
+  kern<<<pair_grid(batch, seq, heads), sm90::kThreads, bytes, stream>>>(
+      str[0], res[1], res[2], str[3], lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), seq, heads, scale_log2, sm_scale, causal,
+      tab.head_map, tab.steps, tab.count, tab.order, tab.nmax, sub_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_sm90(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int batch, int seq, int heads,
+                   const long long* s, float scale_log2, float sm_scale,
+                   int causal, PairTable tab, int sub_shift,
+                   cudaStream_t stream) {
+  CUtensorMap res[4], str[4];
+  if (bwd_maps<D>(res, str, q, k, v, dout, batch, seq, heads, s))
+    return sm90::kMapError;
+  auto kern = bs_bwd_dq_kernel_sm90<D>;
+  const size_t bytes = TableCfg90<D>::bytes(tab.nmax);
+  allow_smem(kern, bytes);
+  kern<<<pair_grid(batch, seq, heads), sm90::kThreads, bytes, stream>>>(
+      res[0], str[1], str[2], res[3], lse, delta, static_cast<bf16*>(dq),
+      seq, heads, scale_log2, sm_scale, causal, tab.head_map, tab.steps,
+      tab.count, tab.order, tab.nmax, sub_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each entry point instantiates its launcher for (T, D) from dtype (0 =
@@ -618,4 +906,54 @@ extern "C" int ds_bs_attn_bwd_dq(const void* q, const void* k, const void* v,
   DS_DISPATCH(dtype, head_dim, launch_dq, q, k, v, dout, lse, delta, dq,
               batch, seq, heads, strides, scale_log2, sm_scale, causal, tab,
               sub_shift, rr, static_cast<cudaStream_t>(stream));
+}
+
+// K7-dkv and K7-dq on the Hopper sweeps (bf16 at head dims 64 and 128; -1
+// for any other pair): the arguments of ds_bs_attn_bwd_dkv /
+// ds_bs_attn_bwd_dq with a pair table in place of the 64-row one: steps
+// [U, nt, 3, nmax] (nt = ceil(T / 128); per row the streamed 64-row tiles,
+// then the two halves' sub-block bits), count [U, nt] and order [H * nt],
+// the (head, tile) pairs longest walk first.
+extern "C" int ds_bs_attn_bwd_dkv_sm90(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, float* delta, void* dk, void* dv,
+    int batch, int seq, int heads, int head_dim, const long long* strides,
+    float scale_log2, float sm_scale, int causal, const int* head_map,
+    const int* steps, const int* count, const int* order, int nmax,
+    int sub_shift, int dtype, int device, void* stream) {
+  cudaSetDevice(device);
+  if (batch * seq == 0) return 0;
+  const PairTable tab{head_map, steps, count, order, nmax};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim == 64)
+    return launch_dkv_sm90<64>(q, k, v, out, dout, lse, delta, dk, dv, batch,
+                               seq, heads, strides, scale_log2, sm_scale,
+                               causal, tab, sub_shift, s);
+  if (dtype == 1 && head_dim == 128)
+    return launch_dkv_sm90<128>(q, k, v, out, dout, lse, delta, dk, dv,
+                                batch, seq, heads, strides, scale_log2,
+                                sm_scale, causal, tab, sub_shift, s);
+  return -1;
+}
+
+extern "C" int ds_bs_attn_bwd_dq_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int batch, int seq,
+    int heads, int head_dim, const long long* strides, float scale_log2,
+    float sm_scale, int causal, const int* head_map, const int* steps,
+    const int* count, const int* order, int nmax, int sub_shift, int dtype,
+    int device, void* stream) {
+  cudaSetDevice(device);
+  if (batch * seq == 0) return 0;
+  const PairTable tab{head_map, steps, count, order, nmax};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim == 64)
+    return launch_dq_sm90<64>(q, k, v, dout, lse, delta, dq, batch, seq,
+                              heads, strides, scale_log2, sm_scale, causal,
+                              tab, sub_shift, s);
+  if (dtype == 1 && head_dim == 128)
+    return launch_dq_sm90<128>(q, k, v, dout, lse, delta, dq, batch, seq,
+                               heads, strides, scale_log2, sm_scale, causal,
+                               tab, sub_shift, s);
+  return -1;
 }

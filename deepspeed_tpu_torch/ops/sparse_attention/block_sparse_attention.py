@@ -16,19 +16,28 @@ CUDA source `ops/csrc/block_sparse_attention.cu`:
                                  otherwise on the WMMA body
                                  (`_band_fwd_launch`, 64 x 64 tiles)
   K7-dkv   `_bs_bwd_dkv_kernel`  dK and dV over the transpose table
-  K7-dq    `_bs_bwd_dq_kernel`   dQ over the forward table
+  K7-dq    `_bs_bwd_dq_kernel`   dQ over the forward table: both in bf16
+                                 at head dims 64 and 128 on the Hopper
+                                 sweeps of `attention_hopper.cuh`
+                                 (`_bs_bwd_dkv_sm90_launch`,
+                                 `_bs_bwd_dq_sm90_launch`: 128-row
+                                 resident tiles, 64-row steps by TMA,
+                                 wgmma), otherwise on the WMMA bodies
+                                 (`_bs_bwd_dkv_launch`, `_bs_bwd_dq_launch`)
 
 The backward always runs the table kernels, whatever the forward took,
 as in the JAX package. The host code is the JAX package's, copied:
 `_build_tables`, `_band_decompose`, `layout_to_dense_mask` and the
-validations of `block_sparse_attention`. The table kernels walk 64-row
+validations of `block_sparse_attention`. The WMMA kernels walk 64-row
 tiles (`TILE`), so their tables are `_build_tables` at tile granularity
 (`_tile_tables`): a layout block of 16 or 32 puts several blocks in one
 tile, and each table entry carries a bit mask of the visible sub-blocks
-of its tile pair. The band forward on the Hopper body walks 128-row q
-tiles over 64-row k tiles (`_band_fwd_tiles`); its plan holds only the
-band, and the backward takes the 64-row plan's tables. The TPU launcher's super-rows (`qt`) and head groups
-(`g`) amortised its grid-step overhead and have no counterpart here.
+of its tile pair. The Hopper kernels keep 128-row tiles resident and
+stream 64-row ones (`_hopper_tiles`): the band forward walks its band,
+and the backward walks pair tables (`_pair_tables`), the square tables'
+rows taken two at a time, each step with one sub-block mask per 64-row
+half. The TPU launcher's super-rows (`qt`) and head groups (`g`)
+amortised its grid-step overhead and have no counterpart here.
 
 The plain twins `_bs_fwd_plain`, `_band_fwd_plain` and `_bs_bwd_plain`
 run the kernels' algorithms in PyTorch: the same tile walks at the same
@@ -61,7 +70,7 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     _kernel_readable, _on_sm90, _strides, dense_attention)
 
 # the kernels' tile: 64 query rows x 64 key rows per step (the Hopper
-# band forward: 128 x 64, `_band_fwd_tiles`)
+# bodies: 128 resident rows x 64 streamed rows, `_hopper_tiles`)
 TILE = 64
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_BLOCKS = (16, 32, 64, 128, 256)
@@ -77,6 +86,14 @@ _DKV_ARGTYPES = [_P] * 9 + [_I] * 4 + [_LL, _F, _F, _I] + [_P] * 4 + \
     [_I] * 3 + [_I, _I, _P]
 _DQ_ARGTYPES = [_P] * 7 + [_I] * 4 + [_LL, _F, _F, _I] + [_P] * 4 + \
     [_I] * 3 + [_I, _I, _P]
+# the Hopper backward's: the pair tables (head_map, steps, count, order),
+# their width and sub_shift
+_DKV90_ARGTYPES = _DKV_ARGTYPES[:-6] + [_I] * 2 + _DKV_ARGTYPES[-3:]
+_DQ90_ARGTYPES = _DQ_ARGTYPES[:-6] + [_I] * 2 + _DQ_ARGTYPES[-3:]
+# the longest pair-table walk the Hopper backward takes (its shared memory
+# holds the walk): every 64-row tile of T = 32768, the transpose row of a
+# global column at the sparse path's longest shape
+_SM90_MAX_STEPS = 512
 
 
 # ----------------------------------------------------------------------
@@ -296,21 +313,63 @@ def _tile_pair(tile):
     return tuple(int(x) for x in tile)
 
 
+def _pair_tables(idx, cnt, mask):
+    """A square tile table (idx, mask [U, n, m], cnt [U, n]: per row the
+    visible columns, ascending, with their sub-block masks) -> the same
+    table over rows taken in pairs (rows 2i and 2i + 1; a last row alone
+    pairs with an empty one): (steps [U, n2, 3, m2], count [U, n2], m2).
+    Row i of it lists the ascending union of the pair's columns (steps
+    [..., 0, :]) and, per step, each member row's mask of that column
+    (steps [..., 1 + half, :]), 0 where the row does not list it; steps
+    past the count repeat column 0 with masks 0. Each half thus walks
+    exactly its square row, with its bits (`_pair_steps`)."""
+    u, n, m = idx.shape
+    dense = np.zeros((u, n + n % 2, n), np.int32)
+    uu, rr, ss = np.nonzero(np.arange(m)[None, None, :] < cnt[..., None])
+    dense[uu, rr, idx[uu, rr, ss]] = mask[uu, rr, ss]
+    halves = dense.reshape(u, -1, 2, n)
+    seen = (halves != 0).any(axis=2)
+    count = seen.sum(axis=2).astype(np.int32)
+    m2 = max(1, int(count.max()))
+    order = np.argsort(~seen, axis=2, kind="stable")[:, :, :m2]
+    live = np.arange(m2)[None, None, :] < count[..., None]
+    cols = np.where(live, order, 0)
+    bits = np.where(live[:, :, None, :],
+                    np.take_along_axis(halves, order[:, :, None, :], axis=3),
+                    0)
+    steps = np.concatenate([cols[:, :, None, :], bits], axis=2)
+    return steps.astype(np.int32), count, m2
+
+
+def _longest_first(count, head_map):
+    """The (head, row) pairs of a pair table, longest walk first (the
+    LPT rule: the CTAs that take longest start first, so the grid's last
+    wave holds short ones); ties head-major, rows ascending: [H * n2] of
+    h * n2 + row."""
+    per_head = count[head_map].reshape(-1)
+    return np.argsort(-per_head, kind="stable").astype(np.int32)
+
+
 class _Plan:
     """Host tables of one layout at one tile pair and their int32 copies
     on `device`.
 
     A square tile (`q_tile == tile`) holds, for the table kernels, the
     forward table (visible k tiles per q tile) and the transpose table
-    (visible q tiles per k tile) with their sub-block masks; for a layout
+    (visible q tiles per k tile) with their sub-block masks, per unique
+    layout (`head_map`: head -> unique layout); for a layout
     `_band_decompose` accepts, the band, its global tiles and the band
-    walks. The Hopper band forward's 128 x 64 pair holds the band alone
-    (no tables: the backward takes the square plan's). The twins read the
-    per-head numpy views (`*_h`)."""
+    walks. The Hopper pair (128-row resident tiles over 64-row streamed
+    ones) holds the band where the layout decomposes (the band forward)
+    and, for every layout, the Hopper backward's tables, built from the
+    square plan's by `_pair_tables`: `dq` the forward table over 128-row
+    q tiles (dQ), `dkv` the transpose table over 128-row k tiles (dK/dV),
+    each with its row counts and its CTA order (`_longest_first`). The
+    twins read the per-head numpy views (`*_h`)."""
 
     def __init__(self, layout, causal, block, tile, device):
         nb = layout.shape[1]
-        self.q_tile, self.tile = tiles = _tile_pair(tile)
+        self.q_tile, self.tile = _tile_pair(tile)
         tile = self.tile
         self.block, self.causal = block, causal
         self.sub = min(block, tile)
@@ -323,20 +382,32 @@ class _Plan:
             (hm, kidx, kcnt, kmask, qidx, qcnt, qmask, self.kmax,
              self.qmax) = _tile_tables(layout, causal, block, tile)
             nt = self.nt
-
-            def per_head(a, width):
-                return a.reshape(-1, nt, width)[hm]
-
-            self.kidx_h, self.kmask_h = (per_head(a, self.kmax)
-                                         for a in (kidx, kmask))
-            self.qidx_h, self.qmask_h = (per_head(a, self.qmax)
-                                         for a in (qidx, qmask))
+            self.head_map = hm
+            self.kidx, self.kcnt, self.kmask = (
+                kidx.reshape(-1, nt, self.kmax), kcnt.reshape(-1, nt),
+                kmask.reshape(-1, nt, self.kmax))
+            self.qidx, self.qcnt, self.qmask = (
+                qidx.reshape(-1, nt, self.qmax), qcnt.reshape(-1, nt),
+                qmask.reshape(-1, nt, self.qmax))
+            self.kidx_h, self.kmask_h = self.kidx[hm], self.kmask[hm]
+            self.qidx_h, self.qmask_h = self.qidx[hm], self.qmask[hm]
             tables = {"head_map": hm, "kidx": kidx, "kcnt": kcnt,
                       "kmask": kmask, "qidx": qidx, "qcnt": qcnt,
                       "qmask": qmask}
-        elif self.band is None:
-            raise ValueError(f"a {tiles} tile pair takes only the band "
-                             "forward; this layout does not decompose")
+        else:
+            square = _plan(layout, causal, block, tile, device)
+            self.head_map = hm = square.head_map
+            self.pairs = {}
+            for name, idx, cnt, mask in (
+                    ("dq", square.kidx, square.kcnt, square.kmask),
+                    ("dkv", square.qidx, square.qcnt, square.qmask)):
+                steps, count, width = _pair_tables(idx, cnt, mask)
+                order = _longest_first(count, hm)
+                self.pairs[name] = (steps, count, width, order)
+                tables.update({f"{name}_steps": steps,
+                               f"{name}_count": count,
+                               f"{name}_order": order})
+            tables["head_map"] = hm
         self.gtiles = self.gbits = self.walks = None
         if self.band is not None:
             self.gtiles, self.gbits = _band_globals(self.band, block,
@@ -362,7 +433,7 @@ _plans_lock = threading.Lock()
 def _plan(layout, causal, block, tile, device):
     """The cached `_Plan` of these arguments (least recently used out).
     `tile` is the square tile of the table kernels and the WMMA band
-    forward, or a (q rows, k rows) pair (`_band_fwd_tiles`)."""
+    forward, or a (resident rows, streamed rows) pair (`_hopper_tiles`)."""
     key = (layout.tobytes(), layout.shape, layout.dtype.str, bool(causal),
            int(block), _tile_pair(tile), str(device))
     with _plans_lock:
@@ -428,6 +499,30 @@ def _table_steps(plan, transpose, device):
             yield idx, _mask_vis(bits, idx, own, plan, device)
         else:
             yield idx, _mask_vis(bits, own, idx, plan, device)
+
+
+def _pair_steps(plan, transpose, device):
+    """The Hopper backward's walk over the pair tables, step by step:
+    (streamed 64-row tile [H, n2], visibility) for s = 0 .. width - 1,
+    the visibility [H, n2, 128, 64] (q rows of the resident tile x k
+    columns) over the forward table (dQ) or [H, n2, 64, 128] (q rows x
+    the resident tile's k columns) over the transpose table (dK/dV), each
+    64-row half from its own sub-block bits: a half whose bits are 0
+    (its square row does not list the tile, its row lies past T, or the
+    step lies past the count) sees nothing."""
+    steps = plan.pairs["dkv" if transpose else "dq"][0][plan.head_map]
+    own = torch.arange(steps.shape[1], device=device)[None, :]
+    for s in range(steps.shape[3]):
+        idx = torch.as_tensor(steps[:, :, 0, s], dtype=torch.long,
+                              device=device)
+        vis = []
+        for half in (0, 1):
+            bits = torch.as_tensor(steps[:, :, 1 + half, s],
+                                   dtype=torch.long, device=device)
+            res = 2 * own + half
+            vis.append(_mask_vis(bits, idx, res, plan, device) if transpose
+                       else _mask_vis(bits, res, idx, plan, device))
+        yield idx, torch.cat(vis, dim=-1 if transpose else -2)
 
 
 def _band_steps(plan, device):
@@ -514,45 +609,58 @@ def _bs_bwd_plain(q, k, v, out, lse, dout, plan, sm_scale):
     delta = rowsum(dO * O); P = exp2(S - lse) over the visible scores,
     dP = dO V^T, dS = P (dP - delta) sm_scale; dV += P^T dO with P in
     dO's dtype and dK += dS^T Q over the transpose table, dQ += dS K
-    over the forward table, dS in q's dtype, fp32 sums."""
+    over the forward table, dS in q's dtype, fp32 sums. Each sweep keeps
+    tiles of `plan.q_tile` rows resident (the 128-row tiles of the Hopper
+    pair, padded past T, over its pair tables; else the square tile over
+    the square tables) and streams tiles of `plan.tile` rows."""
     b, t, h, d = q.shape
-    tile, nt = plan.tile, plan.nt
+    rows, tile = plan.q_tile, plan.tile
+    tp = -(-t // rows) * rows
     f32 = torch.float32
     scale = float(sm_scale * LOG2E)
-    qt, kt, vt, dot = (_tiles(x, tile) for x in (q, k, v, dout))
+    steps = _pair_steps if rows != tile else _table_steps
     delta = (dout.to(f32) * out.to(f32)).sum(dim=-1).permute(0, 2, 1)
-    lse_t = lse.reshape(b, h, nt, tile, 1)
-    delta_t = delta.reshape(b, h, nt, tile, 1)
+    lse = lse.reshape(b, h, t)
+    pad = torch.nn.functional.pad
+    qs, ks, vs, dos = (_tiles(x, tile) for x in (q, k, v, dout))
+    qr, kr, vr, dor = (_tiles(pad(x, (0, 0, 0, 0, 0, tp - t)), rows)
+                       for x in (q, k, v, dout))
+    lse_s, delta_s = (x.reshape(b, h, t // tile, tile, 1)
+                      for x in (lse, delta))
+    lse_r, delta_r = (pad(x, (0, tp - t)).reshape(b, h, tp // rows, rows, 1)
+                      for x in (lse, delta))
 
-    def p_and_ds(qs, ks, vs, dos, lse_s, delta_s, vis):
-        s = torch.matmul(qs, ks.transpose(-1, -2)) * scale
-        p = torch.exp2(s.masked_fill(~vis, NEG_INF) - lse_s)
-        dp = torch.matmul(dos, vs.transpose(-1, -2))
-        ds = p * (dp - delta_s) * sm_scale
+    def p_and_ds(qx, kx, vx, dox, lse_x, delta_x, vis):
+        s = torch.matmul(qx, kx.transpose(-1, -2)) * scale
+        p = torch.exp2(s.masked_fill(~vis, NEG_INF) - lse_x)
+        dp = torch.matmul(dox, vx.transpose(-1, -2))
+        ds = p * (dp - delta_x) * sm_scale
         return p.to(dout.dtype).to(f32), ds.to(q.dtype).to(f32)
 
-    dq = torch.zeros_like(qt)
-    for idx, vis in _table_steps(plan, False, q.device):
-        _, ds = p_and_ds(qt, _gather(kt, idx), _gather(vt, idx), dot, lse_t,
-                         delta_t, vis)
-        dq = dq + torch.matmul(ds, _gather(kt, idx))
-    dk = torch.zeros_like(kt)
-    dv = torch.zeros_like(vt)
-    for idx, vis in _table_steps(plan, True, q.device):
-        qs, dos = _gather(qt, idx), _gather(dot, idx)
-        p, ds = p_and_ds(qs, kt, vt, dos, _gather(lse_t, idx),
-                         _gather(delta_t, idx), vis)
-        dv = dv + torch.matmul(p.transpose(-1, -2), dos)
-        dk = dk + torch.matmul(ds.transpose(-1, -2), qs)
-    return tuple(x.reshape(b, h, t, d).permute(0, 2, 1, 3).to(dtype)
-                 for x, dtype in ((dq, q.dtype), (dk, k.dtype),
-                                  (dv, v.dtype)))
+    dq = torch.zeros_like(qr)
+    for idx, vis in steps(plan, False, q.device):
+        _, ds = p_and_ds(qr, _gather(ks, idx), _gather(vs, idx), dor, lse_r,
+                         delta_r, vis)
+        dq = dq + torch.matmul(ds, _gather(ks, idx))
+    dk = torch.zeros_like(kr)
+    dv = torch.zeros_like(vr)
+    for idx, vis in steps(plan, True, q.device):
+        qx, dox = _gather(qs, idx), _gather(dos, idx)
+        p, ds = p_and_ds(qx, kr, vr, dox, _gather(lse_s, idx),
+                         _gather(delta_s, idx), vis)
+        dv = dv + torch.matmul(p.transpose(-1, -2), dox)
+        dk = dk + torch.matmul(ds.transpose(-1, -2), qx)
+    return tuple(x.reshape(b, h, tp, d)[:, :, :t].permute(0, 2, 1, 3)
+                 .to(dtype) for x, dtype in ((dq, q.dtype), (dk, k.dtype),
+                                             (dv, v.dtype)))
 
 
 # ----------------------------------------------------------------------
 # kernel launchers
 # ----------------------------------------------------------------------
-def _check_kernel_args(q, block, *others):
+def _check_kernel_args(q, block, *others, grid_y=True):
+    """Raise on what the K7 kernels do not take; `grid_y`: the WMMA
+    kernels' grid holds B*H in its y dimension (<= 65535)."""
     b, t, h, d = q.shape
     if q.dtype == torch.float16:
         raise NotImplementedError(
@@ -570,7 +678,7 @@ def _check_kernel_args(q, block, *others):
     if block not in _KERNEL_BLOCKS:
         raise ValueError(f"block-sparse kernel: block {block} not in "
                          f"{_KERNEL_BLOCKS}")
-    if b * h > 65535:
+    if grid_y and b * h > 65535:
         raise ValueError(f"block-sparse kernel: B*H={b * h} exceeds 65535")
     for name, x in others:
         _check_kernel_operand(name, x, q)
@@ -720,10 +828,86 @@ def _bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm_scale):
 _bs_bwd_dq_launch.launches = 0
 
 
+def _pair_args(q, plan, name):
+    """The Hopper backward's table arguments for the pair table `name`
+    ("dkv" or "dq"), after the checks of its route."""
+    if not _on_sm90(q.dtype, q.shape[-1]):
+        raise ValueError(f"Hopper block-sparse backward kernel: bf16 at head "
+                         f"dims 64 and 128, got {q.dtype}, {q.shape[-1]}")
+    if (plan.q_tile, plan.tile) != _SM90_TILES:
+        raise ValueError(f"Hopper block-sparse backward kernel: needs a plan "
+                         f"at tiles {_SM90_TILES}, got "
+                         f"{(plan.q_tile, plan.tile)}")
+    width = plan.pairs[name][2]
+    if width > _SM90_MAX_STEPS:
+        raise ValueError(f"Hopper block-sparse backward kernel: a walk of "
+                         f"{width} steps exceeds the {_SM90_MAX_STEPS} its "
+                         "shared memory holds")
+    t = plan.dev
+    return (t["head_map"].data_ptr(), t[f"{name}_steps"].data_ptr(),
+            t[f"{name}_count"].data_ptr(), t[f"{name}_order"].data_ptr(),
+            width, plan.sub_shift)
+
+
+def _bs_bwd_dkv_sm90_launch(q, k, v, out, lse, dout, plan, sm_scale):
+    """K7-dkv on the Hopper sweep (bf16 at head dims 64 and 128, the plan
+    at `_SM90_TILES`), after its delta pre-pass: (dk, dv, delta)."""
+    from deepspeed_tpu_torch.ops import _build
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
+                       ("out", out), ("dout", dout), grid_y=False)
+    tables = _pair_args(q, plan, "dkv")
+    if lse.data_ptr() % 16:     # the sweep bulk-copies lse rows
+        lse = lse.clone()
+    b, t, h, d = q.shape
+    dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    fn = _build.function("block_sparse_attention", "ds_bs_attn_bwd_dkv_sm90",
+                         _DKV90_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d,
+             _strides(q, k, v, out, dout), float(sm_scale * LOG2E),
+             float(sm_scale), int(plan.causal), *tables,
+             _DTYPE_CODE[q.dtype], q.device.index or 0,
+             _build.stream_ptr(q))
+    _build.check(err, "block-sparse Hopper dK/dV kernel")
+    _bs_bwd_dkv_sm90_launch.launches += 1
+    return dk, dv, delta
+
+
+_bs_bwd_dkv_sm90_launch.launches = 0
+
+
+def _bs_bwd_dq_sm90_launch(q, k, v, out, lse, dout, delta, plan, sm_scale):
+    """K7-dq on the Hopper sweep, reading the delta the dK/dV launch
+    wrote."""
+    from deepspeed_tpu_torch.ops import _build
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
+                       ("out", out), ("dout", dout), grid_y=False)
+    tables = _pair_args(q, plan, "dq")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fn = _build.function("block_sparse_attention", "ds_bs_attn_bwd_dq_sm90",
+                         _DQ90_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *q.shape,
+             _strides(q, k, v, out, dout), float(sm_scale * LOG2E),
+             float(sm_scale), int(plan.causal), *tables,
+             _DTYPE_CODE[q.dtype], q.device.index or 0,
+             _build.stream_ptr(q))
+    _build.check(err, "block-sparse Hopper dQ kernel")
+    _bs_bwd_dq_sm90_launch.launches += 1
+    return dq
+
+
+_bs_bwd_dq_sm90_launch.launches = 0
+
+
 def reset_launch_counts():
     """Zero the K7 launch counters."""
     for fn in (_bs_fwd_launch, _band_fwd_launch, _band_fwd_sm90_launch,
-               _bs_bwd_dkv_launch, _bs_bwd_dq_launch):
+               _bs_bwd_dkv_launch, _bs_bwd_dq_launch,
+               _bs_bwd_dkv_sm90_launch, _bs_bwd_dq_sm90_launch):
         fn.launches = 0
 
 
@@ -746,23 +930,27 @@ def _forward(q, k, v, plan, sm_scale):
 
 
 def _backward(q, k, v, out, lse, dout, plan, sm_scale):
-    """(dq, dk, dv): the table kernels (K7-dkv, then K7-dq on its
-    delta); the twin for CPU tensors."""
+    """(dq, dk, dv): K7-dkv, then K7-dq on its delta, on the Hopper
+    sweeps for a plan at the Hopper pair (bf16 at head dims 64 and 128),
+    else on the WMMA bodies; the twin for CPU tensors."""
     if not q.is_cuda:
         return _bs_bwd_plain(q, k, v, out, lse, dout, plan, sm_scale)
     if not _kernel_readable(dout):
         dout = dout.contiguous()
-    dk, dv, delta = _bs_bwd_dkv_launch(q, k, v, out, lse, dout, plan,
-                                       sm_scale)
-    dq = _bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm_scale)
+    if plan.q_tile != plan.tile:
+        dkv, dq_launch = _bs_bwd_dkv_sm90_launch, _bs_bwd_dq_sm90_launch
+    else:
+        dkv, dq_launch = _bs_bwd_dkv_launch, _bs_bwd_dq_launch
+    dk, dv, delta = dkv(q, k, v, out, lse, dout, plan, sm_scale)
+    dq = dq_launch(q, k, v, out, lse, dout, delta, plan, sm_scale)
     return dq, dk, dv
 
 
 class _BlockSparseAttention(torch.autograd.Function):
     """out = block-sparse attention of (q, k, v): the forward kernel (or
-    twin) under `fwd_plan`, and the backward kernels (or twin) under the
-    square `plan` off the saved (q, k, v, out, lse) — the JAX package's
-    custom VJP."""
+    twin) under `fwd_plan`, and the backward kernels (or twin) under
+    `plan` off the saved (q, k, v, out, lse) — the JAX package's custom
+    VJP."""
 
     @staticmethod
     def forward(ctx, q, k, v, fwd_plan, plan, sm_scale):
@@ -791,11 +979,13 @@ def _tile_for(t, block):
     return block
 
 
-def _band_fwd_tiles(dtype, d, tile):
-    """The band forward's (q rows, k rows) for inputs of `dtype` and head
-    dim d whose kernels walk `tile`-row tiles: the Hopper body's 128 x 64
-    where the tile is 64 and (dtype, d) runs it (bf16 at head dims 64 and
-    128, as for K1), else tile x tile."""
+def _hopper_tiles(dtype, d, tile):
+    """The (resident rows, streamed rows) of the band forward and the
+    backward for inputs of `dtype` and head dim d whose kernels walk
+    `tile`-row tiles: the Hopper bodies' 128 x 64 where the tile is 64
+    and (dtype, d) runs them (bf16 at head dims 64 and 128, as for K1 and
+    K2), else tile x tile (the table forward always takes the square
+    tile)."""
     if tile == TILE and _on_sm90(dtype, d):
         return _SM90_TILES
     return (tile, tile)
@@ -830,8 +1020,9 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
     layout: [H, T/block, T/block] 0/1 matrix from a SparsityConfig
     (concrete: it is compiled into visible-tile tables on the host).
     CUDA tensors launch kernel K7-band (layouts `_band_decompose`
-    accepts) or K7-fwd, and K7-dkv/K7-dq in the backward; CPU tensors
-    take the plain twins.
+    accepts) or K7-fwd, and K7-dkv/K7-dq in the backward (on the Hopper
+    sweeps in bf16 at head dims 64 and 128); CPU tensors take the plain
+    twins at the same tile pairs.
 
     head_packing: accepted for signature parity with the dense flash
     kernel ("auto"|"packed"|"off"), but the sparse kernels always run
@@ -870,10 +1061,10 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
     if q.is_cuda:
         q, k, v, layout = _pad_for_kernel(q, k, v, layout, block)
     tile = _tile_for(q.shape[1], block)
-    plan = fwd_plan = _plan(layout, causal, block, tile, q.device)
-    tiles = _band_fwd_tiles(q.dtype, q.shape[-1], tile)
-    if plan.band is not None and tiles != (tile, tile):
-        fwd_plan = _plan(layout, causal, block, tiles, q.device)
+    plan = _plan(layout, causal, block,
+                 _hopper_tiles(q.dtype, q.shape[-1], tile), q.device)
+    fwd_plan = plan if plan.band is not None else \
+        _plan(layout, causal, block, tile, q.device)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         out = _BlockSparseAttention.apply(q, k, v, fwd_plan, plan,
                                           float(sm_scale))

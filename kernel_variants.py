@@ -5,6 +5,7 @@
     python3 kernel_variants.py backward    # K2's sweeps and delta pre-pass
     python3 kernel_variants.py order       # the grid order's L2 budget
     python3 kernel_variants.py qmm         # K6 with parts switched off
+    python3 kernel_variants.py sparse_bwd  # K7-dkv and K7-dq on Hopper
 
 Each variant is a copy of deepspeed_tpu_torch/ops/csrc/ with a few text
 substitutions (a product, the softmax, an epilogue or a whole sweep
@@ -15,7 +16,10 @@ wrapper, at the main path's shapes with CUDA events (mean of 20 calls
 after 3): the attention modes at bf16 shapes with torch's
 scaled_dot_product_attention beside them as the yardstick, `qmm` at the
 flagship's four projections (the launch alone, on operands in the
-kernel's layouts) with torch._int_mm and the bf16 matmul beside them. A
+kernel's layouts) with torch._int_mm and the bf16 matmul beside them,
+`sparse_bwd` K7-dkv (its delta pre-pass included) and K7-dq on the
+Hopper sweeps at the sparse path's shape ([1, 16384, 16, 64] bf16,
+block 256, causal) under BSLongformer, Fixed and BigBird. A
 variant with a part switched off computes garbage: it is timed, never
 checked (`chip_smoke.py` and tests/test_torch_cuda.py check the kernels).
 A substitution that no longer applies to the sources fails the run.
@@ -63,6 +67,36 @@ DKV_NO_GRADS = (H, "      gemm_pb<D, kStep, kStep>(acc_dv, pa, do_s, 0);\n"
                 "      if (it < 0) gemm_pb<D, kStep, kStep>(acc_dv, pa, do_s, "
                 "0);\n      if (it < 0) gemm_pb<D, kStep, kStep>(acc_dk, da, "
                 "q_s, 0);\n")
+
+
+# K7-dkv and K7-dq on the Hopper sweeps (block_sparse_attention.cu over
+# attention_hopper.cuh): the dQ sweep's counterparts of the dK/dV parts
+# above, the masks of both, the CTAs' order and the long walks
+B = "block_sparse_attention.cu"
+BWD_NO_MASKS = [(H, "      if (walk.partial(it, q0, kStep, k0, 64))\n"
+                 "        hide_t(", "      if (it < 0)\n        hide_t("),
+                (H, "      if (walk.partial(it, q0, 64, k0, kStep))\n"
+                 "        hide(s,", "      if (it < 0)\n        hide(s,"),
+                (B, "    if ((w >> 20) & 1) m = half_mask<kKeys>(w, q0, k0);",
+                 "")]
+DQ_NO_ELEMENTWISE = (H, "      for (int e = 0; e < kStep / 2; ++e) {\n"
+                     "        const int i = (e / 2) % 2;",
+                     "      for (int e = 0; e < 0; ++e) {\n"
+                     "        const int i = (e / 2) % 2;")
+DQ_NO_SCORES = (H, "      gemm_abt<D, kRows, kStep>(s, sQ, wg * 64, k_s, 0);\n"
+                "      gemm_abt<D, kRows, kStep>(dp, sdO, wg * 64, "
+                "sV + st * kStep * D, 0);\n",
+                "      if (it < 0) gemm_abt<D, kRows, kStep>(s, sQ, wg * 64, "
+                "k_s, 0);\n      if (it < 0) gemm_abt<D, kRows, kStep>(dp, "
+                "sdO, wg * 64, sV + st * kStep * D, 0);\n")
+DQ_NO_GRADS = (H, "      gemm_pb<D, kStep, kStep>(acc, da, k_s, 0);\n",
+               "      if (it < 0) gemm_pb<D, kStep, kStep>(acc, da, k_s, 0);\n")
+# the (head, tile) pairs in index order in place of longest walk first
+NATURAL_ORDER = (B, "  const int pair = order[blockIdx.x / batch];",
+                 "  const int pair = blockIdx.x / batch;")
+# every walk cut to its first 64 steps (the global columns' long rows cut)
+SHORT_WALKS = (B, "  const int n = count[row];",
+               "  const int n = min(count[row], 64);")
 
 
 # K6 (quantized_matmul.cu): the loads, the products, the per-block
@@ -141,6 +175,18 @@ SETS = {
         for lib in ("flash_attention_fwd", "flash_attention_bwd")
         for name, v in (("32MB", None), ("8MB", "8ll << 20"),
                         ("tile_major", "1ll << 50"), ("head_major", "1"))}),
+    "sparse_bwd": ("block_sparse_attention", {
+        "kernel": [],
+        "no_masks": BWD_NO_MASKS,
+        "no_elementwise": [DKV_NO_ELEMENTWISE, DQ_NO_ELEMENTWISE],
+        "no_score_products": [DKV_NO_SCORES, DQ_NO_SCORES],
+        "no_gradient_products": [DKV_NO_GRADS, DQ_NO_GRADS],
+        "loads_only": BWD_NO_MASKS + [DKV_NO_ELEMENTWISE, DQ_NO_ELEMENTWISE,
+                                      DKV_NO_SCORES, DQ_NO_SCORES,
+                                      DKV_NO_GRADS, DQ_NO_GRADS],
+        "natural_order": [NATURAL_ORDER],
+        "walks_cut_to_64_steps": [SHORT_WALKS],
+    }),
     "qmm": ("quantized_matmul", {
         "kernel": [],
         "no_products": [QMM_NO_PRODUCTS],
@@ -233,6 +279,8 @@ def main(argv):
     gen.manual_seed(0)
     if argv[0] == "qmm":
         return time_qmm(variants, procs, cs, gen)
+    if argv[0] == "sparse_bwd":
+        return time_sparse_bwd(variants, procs, cs, gen)
     cases, sdpa = [], {}
     for shape, causal in SHAPES:
         q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
@@ -303,6 +351,41 @@ def time_qmm(variants, procs, cs, gen):
         rows = {name: cs.time_ms(lambda: qm._qmm_kernel(
                     xq, wqt, sx, sw, QMM_BLOCK, torch.bfloat16))
                 for name, xq, wqt, sx, sw in cases}
+        _build.function = original
+        print(json.dumps({"variant": n, "library": lib, "ms": rows}),
+              flush=True)
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+def time_sparse_bwd(variants, procs, cs, gen):
+    """K7-dkv's (with its delta pre-pass) and K7-dq's variants on the
+    Hopper sweeps at [1, 16384, 16, 64] bf16, block 256, causal, under
+    the sparse path's three layouts, from one K7-fwd output each."""
+    import torch
+    from deepspeed_tpu_torch.ops import _build
+    bsa = cs._sparse()
+    cases = []
+    for pattern in ("bslongformer", "fixed", "bigbird"):
+        layout = cs.sparse_config(pattern).make_layout(16384)
+        q, k, v, dout = (torch.randn((1, 16384, 16, 64), generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                         for _ in range(4))
+        square = bsa._plan(layout, True, 256, bsa.TILE, q.device)
+        pair = bsa._plan(layout, True, 256, bsa._SM90_TILES, q.device)
+        out, lse = bsa._bs_fwd_launch(q, k, v, square, 0.125)
+        cases.append((pattern, (q, k, v, out, lse, dout), pair))
+    original = _build.function
+    for n, (lib, _) in variants.items():
+        use(lib, procs[n][1], original)
+        rows = {}
+        for pattern, args, pair in cases:
+            delta = bsa._bs_bwd_dkv_sm90_launch(*args, pair, 0.125)[2]
+            rows[pattern] = dict(
+                dkv_ms=cs.time_ms(lambda: bsa._bs_bwd_dkv_sm90_launch(
+                    *args, pair, 0.125)),
+                dq_ms=cs.time_ms(lambda: bsa._bs_bwd_dq_sm90_launch(
+                    *args, delta, pair, 0.125)))
         _build.function = original
         print(json.dumps({"variant": n, "library": lib, "ms": rows}),
               flush=True)

@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA kernels on the card (kernels K1-fwd, K2,
-K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2, K5 and K7-band
-in bf16 at head dims 64 and 128 on their Hopper bodies) against their plain
+K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2, K5, K7-band,
+K7-dkv and K7-dq in bf16 at head dims 64 and 128 on their Hopper
+bodies) against their plain
 PyTorch twins, the serving engine against the kernel-driven forward,
 and a training step on the kernels against the plain-torch route.
 
@@ -884,39 +885,48 @@ def _sparse_layouts(h, t, block, causal):
     return [c.make_layout(t) for c in cfgs]
 
 
-def _k7_case(dev, layout, block, causal, dtype, d, seed):
+def _bwd_launches(hopper):
+    """K7-dkv's and K7-dq's launchers on the Hopper sweeps or the WMMA
+    bodies."""
+    if hopper:
+        return tbsa._bs_bwd_dkv_sm90_launch, tbsa._bs_bwd_dq_sm90_launch
+    return tbsa._bs_bwd_dkv_launch, tbsa._bs_bwd_dq_launch
+
+
+def _k7_case(dev, layout, block, causal, dtype, d, seed, b=2):
     """Each K7 kernel the layout routes to, against its twin on the same
     inputs (q/k/v as column slices of one qkv tensor): the forward's out
     and lse (the band forward on the Hopper body in bf16 at head dims 64
     and 128, with its 128 x 64 plan), then dq/dk/dv from the kernel's own
-    (out, lse)."""
+    (out, lse) (on the Hopper sweeps over the 128 x 64 plan's pair tables
+    in bf16 at head dims 64 and 128, as the public route takes them)."""
     g = _gen(dev, seed)
     h, nb, _ = layout.shape
-    b, t = 2, nb * block
+    t = nb * block
     qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(dtype)
     q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
     dout = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
-    plan = fwd_plan = tbsa._plan(layout, causal, block, tbsa.TILE, q.device)
+    plan = tbsa._plan(layout, causal, block, tbsa.TILE, q.device)
+    tiles = tbsa._hopper_tiles(dtype, d, tbsa.TILE)
+    bwd_plan = tbsa._plan(layout, causal, block, tiles, q.device)
+    fwd_plan = bwd_plan if bwd_plan.band is not None else plan
     sm = d ** -0.5
     if plan.band is None:
         launch, plain = tbsa._bs_fwd_launch, tbsa._bs_fwd_plain
-    elif tbsa._band_fwd_tiles(dtype, d, tbsa.TILE) != (tbsa.TILE, tbsa.TILE):
+    elif tiles != (tbsa.TILE, tbsa.TILE):
         launch, plain = tbsa._band_fwd_sm90_launch, tbsa._band_fwd_plain
-        fwd_plan = tbsa._plan(layout, causal, block, tfa._SM90_TILES,
-                              q.device)
     else:
         launch, plain = tbsa._band_fwd_launch, tbsa._band_fwd_plain
-    before = (launch.launches, tbsa._bs_bwd_dkv_launch.launches,
-              tbsa._bs_bwd_dq_launch.launches)
+    dkv, dq_launch = _bwd_launches(bwd_plan is not plan)
+    before = (launch.launches, dkv.launches, dq_launch.launches)
     out, lse = launch(q, k, v, fwd_plan, sm)
-    dk, dv, delta = tbsa._bs_bwd_dkv_launch(q, k, v, out, lse, dout, plan,
-                                            sm)
-    dq = tbsa._bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm)
+    dk, dv, delta = dkv(q, k, v, out, lse, dout, bwd_plan, sm)
+    dq = dq_launch(q, k, v, out, lse, dout, delta, bwd_plan, sm)
     ref, ref_lse = plain(q, k, v, fwd_plan, sm)
-    ref_grads = tbsa._bs_bwd_plain(q, k, v, out, lse, dout, plan, sm)
+    ref_grads = tbsa._bs_bwd_plain(q, k, v, out, lse, dout, bwd_plan, sm)
     torch.cuda.synchronize()
-    assert (launch.launches, tbsa._bs_bwd_dkv_launch.launches,
-            tbsa._bs_bwd_dq_launch.launches) == tuple(x + 1 for x in before)
+    assert (launch.launches, dkv.launches, dq_launch.launches) == \
+        tuple(x + 1 for x in before)
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     torch.testing.assert_close(lse, ref_lse, **F32_TOL)
@@ -932,7 +942,8 @@ def _k7_case(dev, layout, block, causal, dtype, d, seed):
 def test_block_sparse_kernels_match_twins(dev, block, causal, dtype):
     """K7-band, K7-fwd, K7-dkv and K7-dq against their twins at every
     block size the kernels take (16 and 32 put several layout blocks in
-    one 64-row tile), causal and not, fp32 and bf16."""
+    one 64-row tile), causal and not, fp32 (the WMMA bodies) and bf16
+    (the Hopper bodies for K7-band and the backward)."""
     t = max(512, 8 * block)
     routes = set()
     for i, layout in enumerate(_sparse_layouts(4, t, block, causal)):
@@ -985,6 +996,88 @@ def test_hopper_band_kernel_matches_twin(dev, block, d):
         torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
         torch.testing.assert_close(lse, ref_lse, **F32_TOL)
     assert kinds == {"sliding", "aligned"}
+
+
+def _table_layouts(h, t, block):
+    """(layout, causal) pairs that take the table forward: BigBird
+    (bidirectional) and per-head Variable layouts with random blocks and
+    a global column (causal)."""
+    return [(tsa.BigBirdSparsityConfig(num_heads=h, block=block)
+             .make_layout(t), False),
+            (tsa.VariableSparsityConfig(
+                num_heads=h, block=block, different_layout_per_head=True,
+                num_random_blocks=1, local_window_blocks=[1, 2],
+                global_block_indices=[0]).make_layout(t), True)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
+def test_hopper_sparse_backward_matches_twin(dev, block, d):
+    """K7-dkv and K7-dq on the Hopper sweeps against the twin on the
+    pair tables, bf16: sliding and aligned bands, BigBird and per-head
+    layouts, causal and not, at each block and head dim; T = 448 (the
+    last 128-row tile's lower half lies past T) where the block divides
+    it, else 8 blocks; B*H = 3 (odd) and q/k/v column slices of one qkv
+    tensor. A second launch repeats the first bit for bit."""
+    t = 448 if 448 % block == 0 else 8 * block
+    for i, (layout, causal) in enumerate(_band_layouts(3, t, block) +
+                                         _table_layouts(3, t, block)):
+        plan = _k7_case(dev, layout, block, causal, torch.bfloat16, d,
+                        seed=200 + i, b=1)
+        pair = tbsa._plan(layout, causal, block, tfa._SM90_TILES, dev)
+        g = _gen(dev, 300 + i)
+        q, k, v, dout = (torch.randn((1, t, 3, d), generator=g, device=dev)
+                         .to(torch.bfloat16) for _ in range(4))
+        out, lse = tbsa._bs_fwd_launch(q, k, v, plan, d ** -0.5)
+        runs = []
+        for _ in range(2):
+            dk, dv, delta = tbsa._bs_bwd_dkv_sm90_launch(
+                q, k, v, out, lse, dout, pair, d ** -0.5)
+            runs.append((dk, dv, tbsa._bs_bwd_dq_sm90_launch(
+                q, k, v, out, lse, dout, delta, pair, d ** -0.5)))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_hopper_sparse_backward_at_the_longest_walk(dev):
+    """BSLongformer (block 256, causal) at [1, 32768, 2, 64]: the global
+    column's k tiles walk every later q tile, 512 steps, the most the
+    Hopper backward's shared memory holds."""
+    layout = tsa.BSLongformerSparsityConfig(
+        num_heads=2, block=256, num_sliding_window_blocks=4).make_layout(
+            32768)
+    plan = tbsa._plan(layout, True, 256, tfa._SM90_TILES, dev)
+    assert plan.pairs["dkv"][2] == tbsa._SM90_MAX_STEPS
+    _k7_case(dev, layout, 256, True, torch.bfloat16, 64, seed=31, b=1)
+
+
+def test_block_sparse_route_takes_the_hopper_backward_for_bf16(dev):
+    """The public route's backward: bf16 at head dims 64 and 128 launches
+    the Hopper K7-dkv and K7-dq, fp32 the WMMA ones; each matches the
+    dense masked fallback."""
+    layout = tsa.BigBirdSparsityConfig(num_heads=2, block=64).make_layout(
+        1024)
+    for dtype, d, hopper in ((torch.bfloat16, 64, True),
+                             (torch.bfloat16, 128, True),
+                             (torch.float32, 64, False)):
+        g = _gen(dev, d)
+        q, k, v = (torch.randn((2, 1024, 2, d), generator=g, device=dev)
+                   .to(dtype).requires_grad_(True) for _ in range(3))
+        dout = torch.randn((2, 1024, 2, d), generator=g, device=dev).to(dtype)
+        counts = [f.launches for f in _bwd_launches(True) +
+                  _bwd_launches(False)]
+        out = tsa.block_sparse_attention(q, k, v, layout, 64)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        moved = [f.launches - c for f, c in
+                 zip(_bwd_launches(True) + _bwd_launches(False), counts)]
+        assert moved == ([1, 1, 0, 0] if hopper else [0, 0, 1, 1])
+        f32 = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+        ref = tbsa.block_sparse_attention_dense_fallback(*f32, layout, 64)
+        want = torch.autograd.grad(ref, f32, dout.float())
+        tol = 2e-2 if dtype == torch.bfloat16 else GRAD_TOL[dtype]
+        for x, y in zip(got, want):
+            assert _rel_l2(x, y) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1064,14 +1157,15 @@ def test_block_sparse_kernels_pad_t_and_d(dev, t, d, dtype):
     q, k, v = (torch.randn((1, t, 2, d), generator=g, device=dev)
                .to(dtype).requires_grad_(True) for _ in range(3))
     dout = torch.randn((1, t, 2, d), generator=g, device=dev).to(dtype)
+    # bf16 at head dim 64 takes the Hopper backward
+    dq_launch = _bwd_launches(dtype == torch.bfloat16 and d == 64)[1]
     before = (tbsa._band_fwd_launch.launches + tbsa._bs_fwd_launch.launches,
-              tbsa._bs_bwd_dq_launch.launches)
+              dq_launch.launches)
     out = tsa.block_sparse_attention(q, k, v, layout, 16, causal=True)
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
     assert (tbsa._band_fwd_launch.launches + tbsa._bs_fwd_launch.launches,
-            tbsa._bs_bwd_dq_launch.launches) == (before[0] + 1,
-                                                 before[1] + 1)
+            dq_launch.launches) == (before[0] + 1, before[1] + 1)
     assert out.shape == (1, t, 2, d)
     cpu = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
     twin = tsa.block_sparse_attention(*cpu, layout, 16, causal=True)

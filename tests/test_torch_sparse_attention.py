@@ -244,6 +244,99 @@ def test_hopper_band_twin_matches_jax(block, kind, causal, dtype):
                                                       causal=causal), got)
 
 
+# the pair tables' layouts, by block: Fixed and BSLongformer (bands with
+# global columns), BigBird (random blocks) and a per-head Variable layout;
+# T = 448 (the last 128-row tile's lower half lies past T) where the
+# block divides it, else 8 blocks
+PAIR_T = {16: 448, 32: 448, 64: 448, 128: 1024, 256: 2048}
+
+
+def _pair_layouts(block):
+    t = PAIR_T[block]
+    cfgs = (tsa.FixedSparsityConfig(num_heads=2, block=block,
+                                    num_local_blocks=3),
+            tsa.BSLongformerSparsityConfig(num_heads=2, block=block,
+                                           num_sliding_window_blocks=3),
+            tsa.BigBirdSparsityConfig(num_heads=2, block=block),
+            tsa.VariableSparsityConfig(num_heads=3, block=block,
+                                       num_random_blocks=1,
+                                       local_window_blocks=[1, 2],
+                                       global_block_indices=[0],
+                                       different_layout_per_head=True))
+    return [c.make_layout(t) for c in cfgs], t
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
+def test_pair_tables_walk_the_square_rows(block, causal):
+    """The Hopper backward's tables at 128 x 64 (the forward table for dQ,
+    the transpose table for dK/dV): each 64-row half of a 128-row row
+    lists exactly its square-table row, in order, with the same bits;
+    steps where a half does not list the tile, past the row's count, or
+    a half past T carry bits 0; the walk covers every visible score once
+    (element-level causal); the CTA order is longest walk first."""
+    cpu = torch.device("cpu")
+    layouts, t = _pair_layouts(block)
+    for layout in layouts:
+        square = tbsa._plan(layout, causal, block, tbsa.TILE, cpu)
+        pair = tbsa._plan(layout, causal, block, HOPPER_TILES, cpu)
+        assert pair.head_map is square.head_map
+        want = torch.as_tensor(tbsa.layout_to_dense_mask(layout, t, block))
+        if causal:
+            want &= torch.ones((t, t), dtype=torch.bool).tril()
+        for name, transpose, (idx, cnt, mask) in (
+                ("dq", False, (square.kidx, square.kcnt, square.kmask)),
+                ("dkv", True, (square.qidx, square.qcnt, square.qmask))):
+            steps, count, width, order = pair.pairs[name]
+            n2 = -(-square.nt // 2)
+            assert steps.shape == (len(idx), n2, 3, width)
+            for u in range(len(idx)):
+                for r in range(n2):
+                    live = steps[u, r, :, :count[u, r]]
+                    assert (np.diff(live[0]) > 0).all()
+                    assert not steps[u, r, :, count[u, r]:].any()
+                    for half in (0, 1):
+                        row = 2 * r + half
+                        got = [(int(c), int(b)) for c, b in
+                               zip(live[0], live[1 + half]) if b]
+                        sq = [] if row >= square.nt else [
+                            (int(c), int(b)) for c, b in
+                            zip(idx[u, row, :cnt[u, row]],
+                                mask[u, row, :cnt[u, row]])]
+                        assert got == sq, (name, u, r, half)
+            per_head = count[pair.head_map].reshape(-1)
+            assert sorted(order) == list(range(per_head.size))
+            assert (np.diff(per_head[order]) <= 0).all()
+            seen = torch.zeros((layout.shape[0], t, t), dtype=torch.int16)
+            for tiles, vis in tbsa._pair_steps(pair, transpose, cpu):
+                for h in range(layout.shape[0]):
+                    for r in range(n2):
+                        c = int(tiles[h, r]) * 64
+                        rows = slice(r * 128, min(t, r * 128 + 128))
+                        v = vis[h, r]
+                        if transpose:
+                            assert not v[:, t - r * 128:].any()
+                            seen[h, c:c + 64, rows] += v[:, :t - r * 128]
+                        else:
+                            assert not v[t - r * 128:].any()
+                            seen[h, rows, c:c + 64] += v[:t - r * 128]
+            assert torch.equal(seen, want.to(torch.int16)), name
+
+
+def test_hopper_backward_raises_past_its_longest_walk():
+    """The Hopper backward's shared memory holds a walk of 512 steps
+    (every 64-row tile of T = 32768); a longer transpose row (a global
+    column at T = 32832) raises on the host before any launch."""
+    layout = tsa.BSLongformerSparsityConfig(
+        num_heads=1, block=64, num_sliding_window_blocks=3).make_layout(32832)
+    plan = tbsa._plan(layout, True, 64, HOPPER_TILES, torch.device("cpu"))
+    assert plan.pairs["dkv"][2] == 513 > tbsa._SM90_MAX_STEPS
+    x = torch.zeros((1, 32832, 1, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 32832))
+    with pytest.raises(ValueError, match="512"):
+        tbsa._bs_bwd_dkv_sm90_launch(x, x, x, x, lse, x, plan, 0.125)
+
+
 def _qkv(b, t, h, d, seed):
     r = np.random.RandomState(seed)
     return [r.randn(b, t, h, d).astype(np.float32) for _ in range(4)]
@@ -298,6 +391,80 @@ ROUTES = [
     ("table-b8-twin-only", lambda h, b: jsa.BigBirdSparsityConfig(
         num_heads=h, block=b), 128, 2, 8, False, None),
 ]
+
+
+# the pair tables' twin against the JAX VJP: (id, config, T, block,
+# causal) at H 2, D 64; T 448 where the last 128-row tile's lower half
+# lies past T
+PAIR_ROUTES = [
+    ("sliding-b32-causal", lambda b: jsa.BSLongformerSparsityConfig(
+        num_heads=2, block=b, num_sliding_window_blocks=3), 448, 32, True),
+    ("aligned-b64-full", lambda b: jsa.FixedSparsityConfig(
+        num_heads=2, block=b, num_local_blocks=2), 448, 64, False),
+    ("bigbird-b16-causal", lambda b: jsa.BigBirdSparsityConfig(
+        num_heads=2, block=b), 448, 16, True),
+    ("per-head-b32-full", lambda b: jsa.VariableSparsityConfig(
+        num_heads=2, block=b, num_random_blocks=1, local_window_blocks=[2],
+        global_block_indices=[0], different_layout_per_head=True), 448, 32,
+     False),
+    ("bigbird-b128-full", lambda b: jsa.BigBirdSparsityConfig(
+        num_heads=2, block=b), 512, 128, False),
+    ("sliding-b256-causal", lambda b: jsa.BSLongformerSparsityConfig(
+        num_heads=2, block=b, num_sliding_window_blocks=3), 768, 256, True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("name,make,t,block,causal", PAIR_ROUTES,
+                         ids=[r[0] for r in PAIR_ROUTES])
+def test_pair_table_backward_twin_matches_jax(name, make, t, block, causal,
+                                              dtype):
+    """The backward twin on the Hopper pair tables (the walk and rounding
+    order of the Hopper K7-dkv and K7-dq) against the JAX package's VJP
+    in interpret mode: fp32 by the twin itself, to GRAD_TOL; bf16 through
+    the public route on the CPU, which takes the pair tables for the
+    backward, to 1e-2 relative L2 (the bf16 gradient tolerance of the
+    flash backward's tests: one rounding of each output and of P and dS),
+    and bit for bit the twin at the pair."""
+    layout = make(block).make_layout(t)
+    q, k, v, g = _qkv(1, t, 2, 64, seed=t + block + causal)
+    cpu = torch.device("cpu")
+    pair = tbsa._plan(layout, causal, block, HOPPER_TILES, cpu)
+    if dtype == "fp32":
+        want = _jax_fwd_bwd(q, k, v, g, layout, block, causal)
+        xs = [torch.from_numpy(x) for x in (q, k, v)]
+        out, lse = tbsa._bs_fwd_plain(*xs, tbsa._plan(layout, causal, block,
+                                                      tbsa.TILE, cpu), 0.125)
+        got = tbsa._bs_bwd_plain(*xs, out, lse, torch.from_numpy(g), pair,
+                                 0.125)
+        for a, b in zip(got, want[1:]):
+            np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL)
+        return
+
+    def jax_bf16(q, k, v):
+        return jbsa.block_sparse_attention(q, k, v, layout, block,
+                                           causal=causal, interpret=True)
+    _, vjp = jax.vjp(jax_bf16, *(jnp.asarray(x, jnp.bfloat16)
+                                 for x in (q, k, v)))
+    want = [np.asarray(x.astype(jnp.float32))
+            for x in vjp(jnp.asarray(g, jnp.bfloat16))]
+    xs = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+          for x in (q, k, v)]
+    gt = torch.from_numpy(g).to(torch.bfloat16)
+    out = tsa.block_sparse_attention(*xs, layout, block, causal=causal)
+    got = torch.autograd.grad(out, xs, gt)
+    for a, b in zip(got, want):
+        a = a.float().numpy()
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) <= 1e-2
+    fwd = pair if pair.band is not None else \
+        tbsa._plan(layout, causal, block, tbsa.TILE, cpu)
+    plain = tbsa._band_fwd_plain if pair.band is not None else \
+        tbsa._bs_fwd_plain
+    d = [x.detach() for x in xs]
+    o, lse = plain(*d, fwd, 0.125)
+    assert torch.equal(o, out.detach())
+    twin = tbsa._bs_bwd_plain(*d, o, lse, gt, pair, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(got, twin))
 
 
 @pytest.mark.parametrize("name,make,t,h,block,causal,kind", ROUTES,
@@ -537,3 +704,8 @@ def test_tables_are_built_once_per_layout():
                            torch.device("cpu"))
     assert d is not e and (d.q_tile, d.tile) == (128, 64)
     assert (e.q_tile, e.tile) == (64, 64)
+    # a layout that does not decompose has a Hopper plan too: the
+    # backward's pair tables, built from the cached square plan's
+    f = tbsa._plan(layout, True, 32, HOPPER_TILES, torch.device("cpu"))
+    assert f.band is None and set(f.pairs) == {"dq", "dkv"}
+    assert f.head_map is a.head_map
