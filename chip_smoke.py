@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
   2. build: the kernels compiled from ops/csrc/ into build/torch_kernels/,
      with ptxas's registers and spills of each Hopper (TMA + wgmma)
      kernel: the attention bodies, K7-band's, K7-dkv's, K7-dq's and
-     K6; none may spill;
+     K6, and of K4's 64 instantiations; none may spill;
   3. kernels vs their plain PyTorch twins at the slice's shapes, with
      max errors against stated tolerances, and the kernel's time beside
      the twin's, a bound (the least time the card could take: bytes
@@ -114,9 +114,14 @@ backward compared bit for bit (K2 at every case), K1 and K2 on their
 Hopper bodies (bf16, head dims 64 and 128) at T 320 too, where the last
 128-row tile runs past T, and K1 at B*H = 65550 (past grid.y's 65535),
 each timed attention case with its achieved TFLOP/s, share of its bound
-and ratio to the library call, K4 in its grouped (expert) form and K8
-at the MoE shape (N 16,384 tokens, 8 x 5,120 slots, H 1024) in bf16
-and fp32, k 1 and 2, with empty slots and dropped assignments
+and ratio to the library call, K4 at the decode shape too (with its
+device time from a CUDA graph), with torch's own GeLU forward and
+backward as yardsticks and at its layout's edges (W 100 and 6401, odd
+N, unaligned views, fp32 out, bf16 bias, groups of 37 rows; each case
+launched twice and compared bit for bit), K4 in its grouped (expert)
+form and K8 at the MoE shape (N 16,384 tokens, 8 x 5,120 slots, H
+1024) in bf16 and fp32, k 1 and 2, with empty slots and dropped
+assignments
 (`torch.index_select` on the padded tokens is dispatch's yardstick),
 and K6 at the projection shapes of the flagship and of gpt2-350m-moe8
 and the experts' two grouped shapes, bit for bit its twin there and at
@@ -213,6 +218,26 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls=20):
+    """Device time per call of `fn`, from `calls` calls captured in one
+    CUDA graph and replayed: the host's cost of each call (the wrapper's
+    checks, allocations and launch) left out, for calls so small that
+    back-to-back launches time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, iters=5, warmup=1) / calls
+    del graph
+    return ms
+
+
 def max_err(got, ref, atol, rtol):
     """(max abs error, max error / (atol + rtol*|ref|)); the check
     passes when the second is <= 1."""
@@ -234,11 +259,23 @@ def bound(flops, flops_peak, nbytes, peaks):
                                  else "bytes")
 
 
+# K4's instantiations: 2 x 2 x 2 element types x the two GeLU forms x
+# 16-byte or scalar accesses, forward and backward
+K4_KERNELS = 2 * 32
+# the Hopper kernels the build must report without spills: the attention
+# bodies and K6 (16), and K4's instantiations
+SM90_KERNELS = 16 + K4_KERNELS
+SM90_LIBS = ("flash_attention_fwd", "flash_attention_bwd",
+             "block_sparse_attention", "quantized_matmul", "fused_gelu_fwd",
+             "fused_gelu_bwd")
+
+
 def sm90_ptxas(log):
     """{kernel<args>: "R registers, no spill" or "..., N bytes spill
-    stores"} of the Hopper (TMA + wgmma) kernels in one library's ptxas
-    report (nvcc -Xptxas -v): the attention bodies (K1, K5, K2, K7-band,
-    K7-dkv and K7-dq, by head dim) and K6 (by output type)."""
+    stores"} of the Hopper kernels in one library's ptxas report (nvcc
+    -Xptxas -v): the attention bodies (K1, K5, K2, K7-band, K7-dkv and
+    K7-dq, by head dim), K6 (by output type) and K4 (by element types,
+    GeLU form and access width)."""
     import re
     out, name = {}, None
     for ln in log.splitlines():
@@ -247,6 +284,10 @@ def sm90_ptxas(log):
                           r"bs_bwd_dkv|bs_bwd_dq)_kernel_sm90)ILi(\d+)E"
                           r"(?:Lb(\d)E)?", ln)
             q = re.search(r"qmm_kernelI(f|13__nv_bfloat16)E", ln)
+            # the mangled types: f float, 13__nv_bfloat16 (and its
+            # back-reference S1_) bf16
+            k4 = re.search(r"(gelu_(?:fwd|bwd)_kernel)I((?:f|13__nv_bfloat16|"
+                           r"S\d*_){3})Lb(\d)ELb(\d)E", ln)
             name = None
             if m is not None:
                 name = (f"{m.group(1)}<{m.group(2)}" +
@@ -254,6 +295,12 @@ def sm90_ptxas(log):
                         ">")
             elif q is not None:
                 name = f"qmm_kernel<{'float' if q.group(1) == 'f' else 'bf16'}>"
+            elif k4 is not None:
+                types = ["float" if t == "f" else "bf16" for t in
+                         re.findall(r"f|13__nv_bfloat16|S\d*_", k4.group(2))]
+                name = (f"{k4.group(1)}<{', '.join(types)}, "
+                        f"{'tanh' if k4.group(3) == '1' else 'erf'}, "
+                        f"{'vec' if k4.group(4) == '1' else 'scalar'}>")
             continue
         if name is None:
             continue
@@ -449,19 +496,36 @@ def kernel_ln(peaks, gen):
     return out, checks
 
 
+# the generator of the checks added for K4's Hopper layout (ragged and
+# unaligned rows, mixed dtypes, groups cut short), so that every earlier
+# check keeps its inputs
+K4_SEED = 10
+
+
+def k4_rows(n, w, dtype, offset, gen, scale=1.0):
+    """[n, w] rows on the card, a view `offset` elements into its
+    storage (offset 1 leaves the rows unaligned: K4's scalar accesses)."""
+    import torch
+    flat = scale * torch.randn((n * w + offset,), generator=gen,
+                               device="cuda")
+    return flat.to(dtype)[offset:].view(n, w)
+
+
 def kernel_gelu(peaks, gen):
     import torch
+    import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     checks, out = [], {}
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = (  # (label, N, W, bias groups, tanh form, timed as)
         ("N4096 W6400 bf16 tanh", 4096, 6400, 1, True, "serving"),
         ("N4096 W6400 bf16 erf", 4096, 6400, 1, False, None),
-        ("N4 W6400 bf16 tanh (decode shape)", 4, 6400, 1, True, None),
+        ("N4 W6400 bf16 tanh (decode shape)", 4, 6400, 1, True,
+         "serving_decode"),
         ("N11264 W6400 bf16 tanh (training shape)", 11264, 6400, 1, True,
          "training"),
         ("N16384 W4096 bf16 tanh (MoE dense blocks)", 16384, 4096, 1, True,
-         None),
+         "moe_training_dense"),
         ("G8 x 5120 x W4096 bf16 tanh, bias [8, 4096] (MoE experts)",
          8 * 5120, 4096, 8, True, "moe_training"))
     for label, n, w, groups, approx, timed in cases:
@@ -486,11 +550,56 @@ def kernel_gelu(peaks, gen):
             nbytes = n * w * (2 + 2 + 2) + groups * w * 4
             bound_ms, bound_by = bound(11 * n * w, peaks["fp32"], nbytes,
                                        peaks)
-            out[timed] = dict(
+            out[timed] = rates(dict(
                 max_abs_err=err, ms=time_ms(run),
+                graph_ms=graph_ms(run) if n < 64 else None,
                 plain_ms=time_ms(lambda: fo._gelu_fwd_math(x, bias, approx)),
                 bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, shape=label)
+                library_ms=None, shape=label,
+                # PyTorch's own elementwise GeLU at the same shape: what
+                # its elementwise path streams (no bias, no saved sum);
+                # never called by the port
+                yardstick="F.gelu(x, approximate='tanh'), bf16 [N, W]",
+                yardstick_ms=time_ms(
+                    lambda: F.gelu(x, approximate="tanh"))), 11 * n * w)
+    # the layout's edges: (label, N, W, groups, rows', output and bias
+    # dtypes, storage offset), each against the twin and repeated bit
+    # for bit, with the launches counted
+    g2 = torch.Generator(device="cuda")
+    g2.manual_seed(K4_SEED)
+    edges = (
+        ("N63 W100 (scalar accesses)", 63, 100, 1, bf16, bf16, f32, 0),
+        ("N33 W6401 (scalar tail)", 33, 6401, 1, bf16, bf16, f32, 0),
+        ("N4095 W6400 (odd N)", 4095, 6400, 1, bf16, bf16, f32, 0),
+        ("N4096 W6400, rows 1 element into their storage", 4096, 6400, 1,
+         bf16, bf16, f32, 1),
+        ("N4096 W6400, rows 1 row into their storage", 4096, 6400, 1, bf16,
+         bf16, f32, 6400),
+        ("N4096 W6400 bf16 rows, fp32 out", 4096, 6400, 1, bf16, f32, f32,
+         0),
+        ("N1024 W6400 fp32", 1024, 6400, 1, f32, f32, f32, 0),
+        ("G8 x 37 x W4096, bf16 bias (groups cut short)", 8 * 37, 4096, 8,
+         bf16, bf16, bf16, 0))
+    for label, n, w, groups, x_dt, out_dt, bias_dt, offset in edges:
+        x = k4_rows(n, w, x_dt, offset, g2)
+        bias = (0.1 * torch.randn((groups, w) if groups > 1 else (w,),
+                                  generator=g2, device="cuda")).to(bias_dt)
+        before = fo.fused_bias_gelu.launches
+        got = fo.fused_bias_gelu_with_sum(x, bias, approximate=True,
+                                          out_dtype=out_dt)
+        again = fo.fused_bias_gelu_with_sum(x, bias, approximate=True,
+                                            out_dtype=out_dt)
+        torch.cuda.synchronize()
+        ref_out, ref_s = fo._gelu_fwd_math(x, bias, True)
+        check(f"gelu out, {label}", got[0], ref_out.to(out_dt),
+              TOL_BF16 if out_dt == bf16 else TOL_F32, checks)
+        check(f"gelu sum, {label}", got[1], ref_s.to(x_dt),
+              TOL_BF16 if x_dt == bf16 else TOL_F32, checks)
+        if fo.fused_bias_gelu.launches != before + 2:
+            raise AssertionError(f"gelu {label}: not two launches")
+        if not (torch.equal(got[0], again[0]) and
+                torch.equal(got[1], again[1])):
+            raise AssertionError(f"gelu {label}: two launches differ")
     return out, checks
 
 
@@ -683,7 +792,9 @@ def kernel_gelu_bwd(peaks, gen):
     """K4-bwd at the training flagship's shape (N = 11 x 1024 rows,
     W 6400), both GeLU forms, plus an fp32 case; at the MoE training
     shapes, the dense blocks' N 16,384 x W 4096 and the experts' grouped
-    form (8 groups of 5,120 rows, dbias [8, 4096])."""
+    form (8 groups of 5,120 rows, dbias [8, 4096]); at the serving and
+    decode shapes (N 4096 and 4, W 6400: no path runs K4-bwd there,
+    timed to compare with K4-fwd); then the layout's edges."""
     import torch
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     checks, out = [], {}
@@ -694,9 +805,13 @@ def kernel_gelu_bwd(peaks, gen):
         ("N11264 W6400 bf16 erf", 11264, 6400, None, bf16, False, None),
         ("N1024 W6400 fp32 tanh", 1024, 6400, None, f32, True, None),
         ("N16384 W4096 bf16 tanh (MoE dense blocks)", 16384, 4096, None,
-         bf16, True, None),
+         bf16, True, "moe_training_dense"),
         ("G8 x 5120 x W4096 bf16 tanh, dbias [8, 4096] (MoE experts)",
-         8 * 5120, 4096, 8, bf16, True, "moe_training"))
+         8 * 5120, 4096, 8, bf16, True, "moe_training"),
+        ("N4096 W6400 bf16 tanh (serving shape)", 4096, 6400, None, bf16,
+         True, "serving_shape"),
+        ("N4 W6400 bf16 tanh (decode shape)", 4, 6400, None, bf16, True,
+         "decode_shape"))
     for label, n, w, groups, dt, approx, timed in cases:
         s = (2.0 * torch.randn((n, w), generator=gen, device="cuda")).to(dt)
         dout = torch.randn((n, w), generator=gen, device="cuda").to(dt)
@@ -723,11 +838,53 @@ def kernel_gelu_bwd(peaks, gen):
             nbytes = n * w * (2 + 2 + 2) + (groups or 1) * w * 4
             bound_ms, bound_by = bound(19 * n * w, peaks["fp32"], nbytes,
                                        peaks)
-            out[timed] = dict(
+            out[timed] = rates(dict(
                 max_abs_err=err, ms=time_ms(run),
+                graph_ms=graph_ms(run) if n < 64 else None,
                 plain_ms=time_ms(lambda: fo._gelu_bwd_math(s, dout, approx)),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                shape=label)
+                shape=label,
+                # PyTorch's own GeLU backward at the same shape (no
+                # dbias); never called by the port
+                yardstick="aten.gelu_backward(dout, s, approximate='tanh'), "
+                          "bf16 [N, W]",
+                yardstick_ms=time_ms(
+                    lambda: torch.ops.aten.gelu_backward(
+                        dout, s, approximate="tanh"))), 19 * n * w)
+    g2 = torch.Generator(device="cuda")
+    g2.manual_seed(K4_SEED)
+    edges = (  # (label, N, W, groups, s dtype, dout/dx dtype, offset)
+        ("N63 W100 (scalar accesses)", 63, 100, None, bf16, bf16, 0),
+        ("N33 W6401 (scalar tail)", 33, 6401, None, bf16, bf16, 0),
+        ("N11263 W6400 (odd N)", 11263, 6400, None, bf16, bf16, 0),
+        ("N4096 W6400, dout 1 element into its storage", 4096, 6400, None,
+         bf16, bf16, 1),
+        ("N4096 W6400 bf16 s, fp32 dout and dx", 4096, 6400, None, bf16,
+         f32, 0),
+        ("G8 x 37 x W4096 (groups cut short)", 8 * 37, 4096, 8, bf16, bf16,
+         0),
+        ("G8 x 5117 x W4096 fp32", 8 * 5117, 4096, 8, f32, f32, 0))
+    for label, n, w, groups, s_dt, d_dt, offset in edges:
+        s = k4_rows(n, w, s_dt, 0, g2, scale=2.0)
+        dout = k4_rows(n, w, d_dt, offset, g2)
+        before = fo.fused_bias_gelu_backward.launches
+        got = fo.fused_bias_gelu_backward(s, dout, approximate=True,
+                                          dx_dtype=d_dt, groups=groups)
+        again = fo.fused_bias_gelu_backward(s, dout, approximate=True,
+                                            dx_dtype=d_dt, groups=groups)
+        torch.cuda.synchronize()
+        ref = fo._gelu_bwd_math(s, dout, True)
+        ref_dbias = ref.sum(0) if groups is None else \
+            ref.reshape(groups, -1, w).sum(1)
+        check_rel(f"gelu bwd dx, {label}", got[0], ref.to(d_dt),
+                  GRAD_TOL_BF16 if d_dt == bf16 else GRAD_TOL_F32, checks)
+        check_rel(f"gelu bwd dbias, {label}", got[1], ref_dbias,
+                  GRAD_TOL_F32 * 10, checks)
+        if fo.fused_bias_gelu_backward.launches != before + 2:
+            raise AssertionError(f"gelu bwd {label}: not two launches")
+        if not (torch.equal(got[0], again[0]) and
+                torch.equal(got[1], again[1])):
+            raise AssertionError(f"gelu bwd {label}: two launches differ")
     return out, checks
 
 
@@ -2442,7 +2599,7 @@ ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_", "delta_kernel")
 KERNEL_GROUPS = (
     ("port kernels: attention", ATTENTION_KERNELS),
     ("port kernels: epilogues", ("ln_fwd_kernel", "ln_bwd_rows_kernel",
-                                 "gelu_fwd_kernel", "gelu_bwd_rows_kernel",
+                                 "gelu_fwd_kernel", "gelu_bwd_kernel",
                                  "col_reduce_kernel")),
     ("port kernels: MoE dispatch/combine", ("gather_rows_kernel",
                                             "combine_rows_kernel")),
@@ -2669,16 +2826,15 @@ def main(argv=None):
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
              for n in _build.SOURCES}
-    sm90 = {k: v for n in ("flash_attention_fwd", "flash_attention_bwd",
-                           "block_sparse_attention", "quantized_matmul")
+    sm90 = {k: v for n in SM90_LIBS
             for k, v in sm90_ptxas(_build.build_log(n)).items()}
     emit({"phase": "build", "seconds": build_s,
           "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas,
           "sm90_kernels": sm90})
     spilled = [k for k, v in sm90.items() if "no spill" not in v]
-    if spilled or len(sm90) != 16:
+    if spilled or len(sm90) != SM90_KERNELS:
         raise AssertionError(f"Hopper kernels spilling {spilled} (or not "
-                             f"all 16 found: {sorted(sm90)})")
+                             f"all {SM90_KERNELS} found: {sorted(sm90)})")
 
     # 3: kernels vs plain twins
     gen = torch.Generator(device="cuda")
@@ -2826,7 +2982,7 @@ def main(argv=None):
                                    "visible_scores", "density", "k1_ms",
                                    "kernel_ms", "tops", "tflops",
                                    "share_of_bound", "body", "ptxas",
-                                   "walk")
+                                   "walk", "yardstick", "yardstick_ms")
                  if k in r}
         rows.append({"name": kname, "route": "cuda", "source": src_file,
                      "replaces": replaces,

@@ -9,90 +9,110 @@
 // with the JAX association, and writes out (out_dtype) and s (sum_dtype).
 // With `groups` G > 1 the N rows split into G equal groups (an expert's
 // capacity rows each: the JAX package vmaps the kernel over the expert
-// dimension) and bias is [G, W]: row r adds bias row r / (N / G).
-// G = 1 is the dense form.
+// dimension) and bias is [G, W]: group g adds bias row g. G = 1 is the
+// dense form.
 //
-// Bound on the H100: bytes. A pure elementwise pass (read x, write out
-// and s: 6 bytes per element in bf16 against ~15 flops and one
-// transcendental). The design is a grid-stride loop over the flattened
-// tensor with each thread handling consecutive elements of a row in
-// turn, so loads and stores coalesce; the bias row (W floats, 25.6 KB at
-// the flagship width 6400) stays in L1/L2. The TPU kernel padded W to a
-// lane multiple; here the flat index needs no padding. Accurate
-// tanhf/erff (no fast math), so it matches the plain twin to roundoff.
+// Bound on the H100: bytes. A pure elementwise pass: read x, write out
+// and s (6 bytes per element in bf16) against ~15 flops and one tanh.
+// The design (gelu_rows.cuh) streams rows in 16-byte vectors, 4 rows a
+// lane fetched a block ahead, all CTAs sweeping the rows together; it
+// keeps the lane's 8 bias values in registers for all its rows (read
+// once, in the bias's own dtype, and widened here) and divides nothing
+// per element. The dtypes are template parameters. Accurate tanhf/erff
+// (no fast math), so it matches the plain twin to roundoff.
 //
-// dtypes: 0 = float32, 1 = bfloat16 per tensor; bias is float32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// dtypes: 0 = float32, 1 = bfloat16 per tensor.
+#include "gelu_rows.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace gelu_rows;
 
-__device__ __forceinline__ float load_as_float(const void* p, int dt,
-                                               long long i) {
-  if (dt == 1) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  }
-  return static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_from_float(void* p, int dt,
-                                                 long long i, float v) {
-  if (dt == 1) {
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+template <typename XT, typename OT, typename ST, bool Approx, bool Vec>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+gelu_fwd_kernel(const XT* __restrict__ x, const void* __restrict__ bias,
+                int bias_dt, OT* __restrict__ out, ST* __restrict__ sum, int w,
+                Tiling t) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.y * kStrip + lane * kCols;
+  const int nc = min(kCols, w - c0);
+  if (nc <= 0) return;
+  int j, g0, g1;
+  const int g = cta_group(t, j, g0, g1);
+  const int end = g1, step = t.ctas_per_group * kRows;
+  int r = g0 + j * kRows + warp;
+  Raw8<XT> cur[kUnroll], nxt[kUnroll];
+  // the first rows and the bias in flight together (one round trip)
+  fetch_rows<Vec>(x, w, c0, nc, r, end, cur);
+  float b[kCols];
+  const long long boff = static_cast<long long>(g) * w + c0;
+  if (bias_dt == 1) {
+    Raw8<__nv_bfloat16> raw;
+    fetch8<Vec>(static_cast<const __nv_bfloat16*>(bias) + boff, nc, raw);
+    unpack8(raw, b);
   } else {
-    static_cast<float*>(p)[i] = v;
+    Raw8<float> raw;
+    fetch8<Vec>(static_cast<const float*>(bias) + boff, nc, raw);
+    unpack8(raw, b);
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gelu_fwd_kernel(const void* __restrict__ x, const float* __restrict__ bias,
-                void* __restrict__ out, void* __restrict__ sum,
-                long long total, int w, long long group_elems, int x_dt,
-                int out_dt, int sum_dt, int approximate) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < total; i += stride) {
-    const long long b = group_elems > 0 ? (i / group_elems) * w + i % w
-                                        : i % w;
-    const float s = load_as_float(x, x_dt, i) + bias[b];
-    float o;
-    if (approximate) {
-      const float cdf =
-          0.5f * (1.0f + tanhf(0.7978845608028654f *
-                               (s + 0.044715f * (s * s * s))));
-      o = s * cdf;
-    } else {
-      o = s * (erff(s / 1.4142135623730951f) + 1.0f) / 2.0f;
+  for (; r < end; r += step) {
+    fetch_rows<Vec>(x, w, c0, nc, r + step, end, nxt);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int ru = r + u * kWarps;
+      if (ru >= end) break;
+      float v[kCols], s[kCols], o[kCols];
+      unpack8(cur[u], v);
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        s[k] = v[k] + b[k];
+        o[k] = gelu<Approx>(s[k]);
+      }
+      const long long off = static_cast<long long>(ru) * w + c0;
+      store8<Vec>(out + off, nc, o);
+      store8<Vec>(sum + off, nc, s);
     }
-    store_from_float(out, out_dt, i, o);
-    store_from_float(sum, sum_dt, i, s);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
   }
 }
 
 }  // namespace
 
 // Launch over n rows of width w, in `groups` equal groups of rows with
-// one bias row [w] each, on `stream`. Returns cudaGetLastError().
+// one bias row [w] each, on `stream`, with the plan's tiling: a grid of
+// (groups * ctas_per_group, strips) CTAs, and 16-byte accesses when vec
+// is 8 (scalar ones when 1). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan that does not tile the rows.
 extern "C" int ds_fused_gelu_fwd(const void* x, const void* bias, void* out,
-                                 void* sum, int n, int w, int groups, int x_dt,
-                                 int out_dt, int sum_dt, int approximate,
-                                 int device, void* stream) {
+                                 void* sum, int n, int w, int groups,
+                                 int ctas_per_group, int strips, int vec,
+                                 int x_dt, int bias_dt, int out_dt,
+                                 int sum_dt, int approximate, int device,
+                                 void* stream) {
   cudaSetDevice(device);
-  const long long total = static_cast<long long>(n) * w;
-  if (total > 0) {
-    int sms = 132;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    long long blocks = (total + kThreads - 1) / kThreads;
-    const long long cap = static_cast<long long>(sms) * 16;
-    if (blocks > cap) blocks = cap;
-    gelu_fwd_kernel<<<static_cast<int>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        x, static_cast<const float*>(bias), out, sum, total, w,
-        groups > 1 ? static_cast<long long>(n / groups) * w : 0LL, x_dt,
-        out_dt, sum_dt, approximate);
-  }
+  if (n <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
+  const Tiling t{groups > 0 ? n / groups : 0, ctas_per_group};
+  if (!tiling_ok(n, w, groups, t, strips) || (vec != 1 && vec != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(groups * ctas_per_group, strips);
+  auto st = static_cast<cudaStream_t>(stream);
+  with_type(x_dt, [&](auto xt) {
+    with_type(out_dt, [&](auto ot) {
+      with_type(sum_dt, [&](auto sm) {
+        using XT = decltype(xt);
+        using OT = decltype(ot);
+        using ST = decltype(sm);
+        auto* k = approximate
+                      ? (vec == 8 ? gelu_fwd_kernel<XT, OT, ST, true, true>
+                                  : gelu_fwd_kernel<XT, OT, ST, true, false>)
+                      : (vec == 8 ? gelu_fwd_kernel<XT, OT, ST, false, true>
+                                  : gelu_fwd_kernel<XT, OT, ST, false, false>);
+        k<<<grid, kThreads, 0, st>>>(
+            static_cast<const XT*>(x), bias, bias_dt, static_cast<OT*>(out),
+            static_cast<ST*>(sum), w, t);
+      });
+    });
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
-// Shared by the fused epilogue backward kernels (K3-bwd in fused_ln_bwd.cu,
-// K4-bwd in fused_gelu_bwd.cu): per-element dtype access, and the
-// deterministic cross-row sum. A kernel over [N, W] rows has each CTA walk
+// K3-bwd's (fused_ln_bwd.cu) per-element dtype access and deterministic
+// cross-row sum (the grouped form is `kernel_variants.py gelu`'s fold for
+// K4-bwd). A kernel over [N, W] rows has each CTA walk
 // a contiguous run of rows and write its fp32 column sums to a workspace
 // [grid, cols]; col_reduce_kernel then adds the partials of each column
 // in CTA order, so a run repeats bit for bit (no float atomics).

@@ -16,8 +16,9 @@ sum cotangent at all.
 Bias + GeLU also takes a grouped bias [G, W] (the expert form,
 `moe/experts.py`: the JAX package vmaps the kernel over the expert
 dimension): the rows split into G equal groups, group g adds bias row
-g, and the backward's dbias is [G, W]. One launch covers all groups;
-G = 1 is the dense form, bit for bit.
+g, and the backward's dbias is [G, W]. One launch covers all groups
+(and, in the backward, dbias); G = 1 is the dense form, bit for bit.
+The K4 kernels' tiling is a plain function, `gelu_plan`.
 
 Dispatch: a wrapper takes the plain twin for tensors on the CPU and
 launches the kernel for tensors on CUDA. There is no fallback from a
@@ -28,7 +29,9 @@ wrappers), so a run can show that its main path went through the
 kernels.
 """
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -41,14 +44,24 @@ _INV_SQRT_2PI = 0.3989422804014327     # 1/sqrt(2*pi)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_GELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
+_GELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + \
     [ctypes.c_void_p]
 _LN_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_GELU_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+_GELU_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + \
     [ctypes.c_void_p]
 _GRID_ARGTYPES = [ctypes.c_int, ctypes.c_int]
-_GRID_GROUPS_ARGTYPES = [ctypes.c_int] * 3
+
+# K4's tiling (ops/csrc/gelu_rows.cuh): a CTA of 4 warps owns a strip of
+# 256 columns (8 a lane) and every ctas_per_group-th block of 16 rows of
+# one group; the grid is sized to one wave of 2 CTAs per SM (the
+# kernels' launch bounds)
+_GELU_STRIP = 256
+_GELU_BLOCK_ROWS = 16
+_GELU_CTAS_PER_SM = 2
+GeluPlan = collections.namedtuple(
+    "GeluPlan", "vec strips ctas_per_group block_rows grid work_rows "
+    "counters")
 
 
 def resolve_fused_ops(mode, dropout_inactive=True, device=None):
@@ -169,14 +182,18 @@ def _check_rows(name, t, width):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _vector(t, width, device, groups=None):
-    """[H] parameter vector (or [groups, H] rows of them) as the kernels
-    take it: fp32, contiguous, on the rows' device."""
+def _check_vector(t, width, device, groups=None):
     want = (width,) if groups is None else (groups, width)
     if tuple(t.shape) != want:
         raise ValueError(f"vector shape {tuple(t.shape)} != {want}")
     if t.device != device:
         raise ValueError(f"vector on {t.device}, rows on {device}")
+
+
+def _vector(t, width, device):
+    """[H] parameter vector as K3 takes it: fp32, contiguous, on the
+    rows' device."""
+    _check_vector(t, width, device)
     return t.to(torch.float32).contiguous()
 
 
@@ -224,6 +241,39 @@ def _bias_groups(bias, n):
     return groups
 
 
+@functools.lru_cache(maxsize=256)
+def gelu_plan(n, w, groups, sms, aligned=True):
+    """K4's launch plan for n rows of width w in `groups` equal groups on
+    a card of `sms` SMs: grid (groups * ctas_per_group, strips), a CTA
+    per strip of 256 columns and per group, where CTA j of a group takes
+    the group's blocks of `block_rows` rows j, j + ctas_per_group, ...
+    (the last block cut at the group's end). `vec` is 8 (16-byte
+    accesses) where W is a multiple of 8 and every pointer is 16-byte
+    `aligned`, else 1 (scalar accesses that stop at W). K4-bwd's
+    workspace has `work_rows` rows of W fp32 partial sums, one per CTA
+    row, and `counters` int32 counters, one per (group, strip). Cached:
+    the decode path asks for the same plan 48 times a step."""
+    rows = n // groups if groups > 0 else 0
+    strips = -(-w // _GELU_STRIP)
+    vec = 8 if aligned and w % 8 == 0 else 1
+    cpg = 0
+    if rows > 0 and w > 0:
+        # one wave of CTAs over the card; each at least one block
+        target = max(1, sms * _GELU_CTAS_PER_SM // (groups * strips))
+        cpg = min(target, -(-rows // _GELU_BLOCK_ROWS))
+    return GeluPlan(vec, strips, cpg, _GELU_BLOCK_ROWS,
+                    (groups * cpg, strips), groups * cpg, groups * strips)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
     from deepspeed_tpu_torch.ops import _build
     w = x.shape[-1]
@@ -233,15 +283,23 @@ def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
             raise TypeError(f"output dtype {dt} not supported")
     n = x.numel() // w if w else 0
     groups = _bias_groups(bias, n)
-    bias = _vector(bias, w, x.device, None if bias.dim() == 1 else groups)
+    _check_vector(bias, w, x.device, None if bias.dim() == 1 else groups)
+    if bias.dtype not in _DTYPE_CODE:
+        raise TypeError(f"bias dtype {bias.dtype} not supported "
+                        "(float32 or bfloat16)")
+    bias = bias.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     s = torch.empty(x.shape, dtype=sum_dtype, device=x.device)
+    dev = x.device.index or 0
+    # out and s are fresh allocations, aligned
+    plan = gelu_plan(n, w, groups, _sm_count(dev), _aligned(x, bias))
     fn = _build.function("fused_gelu_fwd", "ds_fused_gelu_fwd",
                          _GELU_ARGTYPES)
     err = fn(x.data_ptr(), bias.data_ptr(), out.data_ptr(), s.data_ptr(),
-             n, w, groups, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-             _DTYPE_CODE[sum_dtype], int(bool(approximate)),
-             x.device.index or 0, _build.stream_ptr(x))
+             n, w, groups, plan.ctas_per_group, plan.strips, plan.vec,
+             _DTYPE_CODE[x.dtype], _DTYPE_CODE[bias.dtype],
+             _DTYPE_CODE[out_dtype], _DTYPE_CODE[sum_dtype],
+             int(bool(approximate)), dev, _build.stream_ptr(x))
     _build.check(err, "fused_bias_gelu kernel")
     fused_bias_gelu.launches += 1
     return out, s
@@ -296,23 +354,22 @@ def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype, groups=None):
                          f"{tuple(s2.shape)}")
     if dx_dtype not in _DTYPE_CODE:
         raise TypeError(f"dx dtype {dx_dtype} not supported")
-    if w * 4 > 227 * 1024:
-        raise ValueError(f"fused GeLU backward kernel: W={w} exceeds the "
-                         "shared memory of one CTA")
     grouped, groups = groups is not None, groups or 1
     if n % groups:
         raise ValueError(f"{n} rows do not split into {groups} equal groups")
     dev = s2.device.index or 0
-    grid = _build.function("fused_gelu_bwd", "ds_partials_grid_groups",
-                           _GRID_GROUPS_ARGTYPES)(n // groups, groups, dev)
     dx = torch.empty((n, w), dtype=dx_dtype, device=s2.device)
     dbias = torch.empty((groups, w), dtype=torch.float32, device=s2.device)
-    work = torch.empty((max(grid * groups, 1), w), dtype=torch.float32,
+    plan = gelu_plan(n, w, groups, _sm_count(dev), _aligned(s2, dout2))
+    work = torch.empty((max(plan.work_rows, 1), w), dtype=torch.float32,
                        device=s2.device)
+    counters = torch.zeros((max(plan.counters, 1),), dtype=torch.int32,
+                           device=s2.device)
     fn = _build.function("fused_gelu_bwd", "ds_fused_gelu_bwd",
                          _GELU_BWD_ARGTYPES)
     err = fn(s2.data_ptr(), dout2.data_ptr(), dx.data_ptr(),
-             dbias.data_ptr(), work.data_ptr(), n, w, groups,
+             dbias.data_ptr(), work.data_ptr(), counters.data_ptr(), n, w,
+             groups, plan.ctas_per_group, plan.strips, plan.vec,
              _DTYPE_CODE[s2.dtype], _DTYPE_CODE[dout2.dtype],
              _DTYPE_CODE[dx_dtype], int(bool(approximate)), dev,
              _build.stream_ptr(s2))

@@ -6,6 +6,7 @@
     python3 kernel_variants.py order       # the grid order's L2 budget
     python3 kernel_variants.py qmm         # K6 with parts switched off
     python3 kernel_variants.py sparse_bwd  # K7-dkv and K7-dq on Hopper
+    python3 kernel_variants.py gelu        # K4-fwd and K4-bwd
 
 Each variant is a copy of deepspeed_tpu_torch/ops/csrc/ with a few text
 substitutions (a product, the softmax, an epilogue or a whole sweep
@@ -19,7 +20,9 @@ flagship's four projections (the launch alone, on operands in the
 kernel's layouts) with torch._int_mm and the bf16 matmul beside them,
 `sparse_bwd` K7-dkv (its delta pre-pass included) and K7-dq on the
 Hopper sweeps at the sparse path's shape ([1, 16384, 16, 64] bf16,
-block 256, causal) under BSLongformer, Fixed and BigBird. A
+block 256, causal) under BSLongformer, Fixed and BigBird, `gelu` K4-fwd
+and K4-bwd (tanh form, bf16 rows) at the serving, decode, training and
+MoE shapes with torch's own GeLU forward and backward beside them. A
 variant with a part switched off computes garbage: it is timed, never
 checked (`chip_smoke.py` and tests/test_torch_cuda.py check the kernels).
 A substitution that no longer applies to the sources fails the run.
@@ -146,6 +149,94 @@ QMM_MAGIC = [(Q, "__fmul_rn(__int2float_rn(part[e]),",
               "12582912.0f), s2.y)")]
 
 
+# K4 (fused_gelu_{fwd,bwd}.cu over gelu_rows.cuh): the GeLU math, the
+# bias add, dbias's sums and folds, the fold's last-CTA protocol, the
+# tanh's accuracy, the next block's prefetch
+GF, GB, GR = "fused_gelu_fwd.cu", "fused_gelu_bwd.cu", "gelu_rows.cuh"
+FWD_NO_MATH = (GF, "        o[k] = gelu<Approx>(s[k]);",
+               "        o[k] = s[k];")
+FWD_NO_BIAS = (GF, "        s[k] = v[k] + b[k];", "        s[k] = v[k];")
+BWD_NO_MATH = (GB, "          d[k] = dv[k] * gelu_grad<Approx>(sv[k]);",
+               "          d[k] = dv[k] + sv[k];")
+# no dbias: the lanes' sums, the CTA's fold and the last CTA's (dx only)
+BWD_NO_DBIAS = (GB, "  // 1. the CTA's partial row: its warps' sums in warp "
+                "order\n", "  if (w > 0) return;\n")
+# the CTAs write their partial rows, and nothing counts or folds them
+BWD_NO_LAST_FOLD = (GB, "  // 2. publish it, and count the CTAs of this "
+                    "(group, strip) done\n", "  if (w > 0) return;\n")
+# the partial rows folded by row_partials.cuh's col_reduce_kernel, a
+# second launch (K4-bwd's fold before this layout)
+BWD_COL_REDUCE = [BWD_NO_LAST_FOLD,
+                  (GB, '#include "gelu_rows.cuh"\n',
+                   '#include "gelu_rows.cuh"\n#include "row_partials.cuh"\n'),
+                  (GB, "      });\n    });\n  });\n  return static_cast<int>("
+                   "cudaGetLastError());",
+                   "      });\n    });\n  });\n  ds_partials::col_reduce("
+                   "workspace, ctas_per_group, w, dbias, st, groups);\n"
+                   "  return static_cast<int>(cudaGetLastError());")]
+# tanh.approx.f32 (one MUFU op) in place of the accurate tanhf
+FAST_TANH = [(GR, "namespace gelu_rows {\n",
+              "namespace gelu_rows {\n__device__ __forceinline__ float "
+              "tanh_approx(float x) {\n  float y;\n  asm(\"tanh.approx.f32 "
+              "%0, %1;\" : \"=f\"(y) : \"f\"(x));\n  return y;\n}\n"),
+             (GR, "0.5f * (1.0f + tanhf(0.7978845608028654f *",
+              "0.5f * (1.0f + tanh_approx(0.7978845608028654f *"),
+             (GR, "const float t = tanhf(inner);",
+              "const float t = tanh_approx(inner);")]
+# each block's rows fetched after the last block's math and stores, not
+# before them
+FWD_NO_PREFETCH = [
+    (GF, "    fetch_rows<Vec>(x, w, c0, nc, r + step, end, nxt);\n", ""),
+    (GF, "#pragma unroll\n    for (int u = 0; u < kUnroll; ++u) cur[u] = "
+     "nxt[u];", "    fetch_rows<Vec>(x, w, c0, nc, r + step, end, cur);")]
+BWD_NO_PREFETCH = [
+    (GB, "      fetch_rows<Vec>(s, w, c0, nc, r + step, end, s_nxt);\n"
+     "      fetch_rows<Vec>(dout, w, c0, nc, r + step, end, d_nxt);\n", ""),
+    (GB, "#pragma unroll\n      for (int u = 0; u < kUnroll; ++u) {\n"
+     "        s_cur[u] = s_nxt[u];\n        d_cur[u] = d_nxt[u];\n      }",
+     "      fetch_rows<Vec>(s, w, c0, nc, r + step, end, s_cur);\n"
+     "      fetch_rows<Vec>(dout, w, c0, nc, r + step, end, d_cur);")]
+# evict-first cache hints on every load and store (each byte is used once)
+STREAMING_HINTS = [
+    (GR, "      raw.q[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);",
+     "      raw.q[i] = __ldcs(reinterpret_cast<const uint4*>(p) + i);"),
+    (GR, "    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);",
+     "    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], "
+     "w[3]));"),
+    (GR, "    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], "
+     "v[3]);\n    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], "
+     "v[6], v[7]);",
+     "    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], "
+     "v[3]));\n    __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], "
+     "v[5], v[6], v[7]));")]
+
+
+def unroll(rows):
+    """Each lane's rows in flight per block (4 in the kernels)."""
+    return (GR, "constexpr int kUnroll = 4;", f"constexpr int kUnroll = {rows};")
+
+
+# CTAs of 8 warps (32-row blocks) in place of 4
+EIGHT_WARPS = (GR, "constexpr int kWarps = 4;", "constexpr int kWarps = 8;")
+# the plan's CTAs per SM where a variant sets it (2 in the kernels' plan)
+GELU_VARIANT_PLANS = {}
+
+
+def gelu_variants(side, lib, base):
+    """K4's variants on one side (fwd or bwd): its own parts switched off
+    (`base`), and the layout's constants with the plan's CTAs per SM."""
+    out = {f"{side}_{name}": (lib, subs) for name, subs in base.items()}
+    for name, subs, per_sm in (
+            ("8_warps", [EIGHT_WARPS], 2),
+            ("unroll_2", [unroll(2)], 2),
+            ("unroll_8", [unroll(8)], 2),
+            ("plan_1", [], 1),
+            ("plan_4", [], 4)):
+        out[f"{side}_{name}"] = (lib, subs)
+        GELU_VARIANT_PLANS[f"{side}_{name}"] = per_sm
+    return out
+
+
 def budget(value):
     return (H, "constexpr long long kL2Budget = 32ll << 20;",
             f"constexpr long long kL2Budget = {value};")
@@ -186,6 +277,21 @@ SETS = {
                                       DKV_NO_GRADS, DQ_NO_GRADS],
         "natural_order": [NATURAL_ORDER],
         "walks_cut_to_64_steps": [SHORT_WALKS],
+    }),
+    "gelu": (None, {
+        **gelu_variants("fwd", "fused_gelu_fwd", {
+            "kernel": [], "math_off": [FWD_NO_MATH],
+            "loads_stores_only": [FWD_NO_MATH, FWD_NO_BIAS],
+            "fast_tanh": FAST_TANH, "no_prefetch": FWD_NO_PREFETCH,
+            "streaming_hints": STREAMING_HINTS}),
+        **gelu_variants("bwd", "fused_gelu_bwd", {
+            "kernel": [], "math_off": [BWD_NO_MATH],
+            "no_dbias": [BWD_NO_DBIAS],
+            "loads_stores_only": [BWD_NO_MATH, BWD_NO_DBIAS],
+            "no_last_fold": [BWD_NO_LAST_FOLD],
+            "col_reduce_fold": BWD_COL_REDUCE, "fast_tanh": FAST_TANH,
+            "no_prefetch": BWD_NO_PREFETCH,
+            "streaming_hints": STREAMING_HINTS}),
     }),
     "qmm": ("quantized_matmul", {
         "kernel": [],
@@ -281,6 +387,8 @@ def main(argv):
         return time_qmm(variants, procs, cs, gen)
     if argv[0] == "sparse_bwd":
         return time_sparse_bwd(variants, procs, cs, gen)
+    if argv[0] == "gelu":
+        return time_gelu(variants, procs, cs, gen)
     cases, sdpa = [], {}
     for shape, causal in SHAPES:
         q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
@@ -389,6 +497,71 @@ def time_sparse_bwd(variants, procs, cs, gen):
         _build.function = original
         print(json.dumps({"variant": n, "library": lib, "ms": rows}),
               flush=True)
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+# K4's shapes on the main paths: (label, N, W, bias groups)
+GELU_SHAPES = (("serving N4096 W6400", 4096, 6400, 1),
+               ("decode N4 W6400", 4, 6400, 1),
+               ("training N11264 W6400", 11264, 6400, 1),
+               ("MoE dense blocks N16384 W4096", 16384, 4096, 1),
+               ("MoE experts G8 x 5120 x W4096", 8 * 5120, 4096, 8))
+
+
+def time_gelu(variants, procs, cs, gen):
+    """K4-fwd's and K4-bwd's variants through the port's wrappers (tanh
+    form, bf16 rows, fp32 bias), each under its plan's CTAs per SM, and
+    torch's GeLU forward and backward at the same shapes;
+    at the decode shape (N 4) device times from a CUDA graph of 20 calls
+    (`chip_smoke.graph_ms`)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    bf16, cases, yard = torch.bfloat16, [], {}
+    for label, n, w, groups in GELU_SHAPES:
+        x, dout = (torch.randn((n, w), generator=gen, device="cuda").to(bf16)
+                   for _ in range(2))
+        bias = 0.1 * torch.randn((groups, w) if groups > 1 else (w,),
+                                 generator=gen, device="cuda")
+        cases.append((label, x, bias, dout, groups if groups > 1 else None))
+        timer = cs.graph_ms if n < 64 else cs.time_ms
+        yard[label] = dict(
+            gelu_fwd_ms=timer(lambda: F.gelu(x, approximate="tanh")),
+            gelu_bwd_ms=timer(lambda: torch.ops.aten.gelu_backward(
+                dout, x, approximate="tanh")),
+            bound_ms=n * w * 6 / 3.35e12 * 1e3)
+    print(json.dumps({"yardsticks": yard}), flush=True)
+
+    def timed(fn, n):
+        # back-to-back calls at the decode shape time the host
+        return cs.graph_ms(fn) if n < 64 else cs.time_ms(fn)
+
+    def rows(fwd):
+        out = {}
+        for label, x, bias, dout, groups in cases:
+            if fwd:
+                out[label] = timed(lambda: fo.fused_bias_gelu_with_sum(
+                    x, bias, approximate=True), x.shape[0])
+            else:
+                out[label] = timed(lambda: fo.fused_bias_gelu_backward(
+                    x, dout, approximate=True, groups=groups), x.shape[0])
+        return out
+
+    original, default = _build.function, fo._GELU_CTAS_PER_SM
+    for n, (lib, _) in variants.items():
+        use(lib, procs[n][1], original)
+        fo._GELU_CTAS_PER_SM = GELU_VARIANT_PLANS.get(n, default)
+        fo.gelu_plan.cache_clear()
+        try:
+            ms = rows(lib == "fused_gelu_fwd")
+        finally:
+            _build.function, fo._GELU_CTAS_PER_SM = original, default
+            fo.gelu_plan.cache_clear()
+        print(json.dumps({"variant": n, "library": lib,
+                          "ctas_per_sm": GELU_VARIANT_PLANS.get(n, default),
+                          "ms": ms}), flush=True)
     print(cs.card_line(), flush=True)
     return 0
 

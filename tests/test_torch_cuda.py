@@ -83,20 +83,54 @@ def test_bias_residual_layernorm_kernel_matches_twin(dev, h):
     assert tfo.fused_bias_residual_layernorm.launches == before + 2
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+# K4's cases: (N, W, rows' dtype, output dtype, bias dtype, storage
+# offset of the rows in elements). W 100 and 6401 and an offset of one
+# element take the scalar accesses; an offset of one row keeps the
+# 16-byte vectors on a view
+GELU_CASES = {
+    "N64-W6400": (64, 6400, BF16, BF16, F32, 0),
+    "N4-W6400-decode": (4, 6400, BF16, BF16, F32, 0),
+    "N63-W100": (63, 100, BF16, BF16, F32, 0),
+    "N33-W6401": (33, 6401, BF16, BF16, F32, 0),
+    "N64-W6400-offset-1": (64, 6400, BF16, BF16, F32, 1),
+    "N64-W6400-offset-row": (64, 6400, BF16, BF16, F32, 6400),
+    "N64-W6400-fp32-out": (64, 6400, BF16, F32, F32, 0),
+    "N17-W4096-fp32": (17, 4096, F32, F32, F32, 0),
+    "N64-W6400-bf16-bias": (64, 6400, BF16, BF16, BF16, 0),
+}
+
+
+def _rows(n, w, dtype, offset, g, dev, scale=1.0):
+    """[n, w] rows, a view `offset` elements into its storage."""
+    flat = scale * torch.randn((n * w + offset,), generator=g, device=dev)
+    return flat.to(dtype)[offset:].view(n, w)
+
+
+@pytest.mark.parametrize("case", list(GELU_CASES))
 @pytest.mark.parametrize("approximate", [True, False], ids=["tanh", "erf"])
-def test_bias_gelu_kernel_matches_twin(dev, approximate):
+def test_bias_gelu_kernel_matches_twin(dev, approximate, case):
+    n, w, x_dt, out_dt, bias_dt, offset = GELU_CASES[case]
     g = _gen(dev, 1)
-    x = torch.randn((64, 6400), generator=g, device=dev).to(torch.bfloat16)
-    bias = torch.randn((6400,), generator=g, device=dev)
+    x = _rows(n, w, x_dt, offset, g, dev)
+    assert x.storage_offset() == offset
+    bias = torch.randn((w,), generator=g, device=dev).to(bias_dt)
     before = tfo.fused_bias_gelu.launches
-    got, s = tfo.fused_bias_gelu_with_sum(x, bias, approximate=approximate)
+    got, s = tfo.fused_bias_gelu_with_sum(x, bias, approximate=approximate,
+                                          out_dtype=out_dt)
     ref, ref_s = tfo._gelu_fwd_math(x, bias, approximate)
-    torch.testing.assert_close(got.float(), ref.to(got.dtype).float(),
-                               **BF16_TOL)
-    torch.testing.assert_close(s.float(), ref_s.to(s.dtype).float(),
-                               **BF16_TOL)
+    assert got.dtype == out_dt and s.dtype == x_dt
+    torch.testing.assert_close(
+        got.float(), ref.to(out_dt).float(),
+        **(BF16_TOL if out_dt == BF16 else F32_TOL))
+    torch.testing.assert_close(
+        s.float(), ref_s.to(x_dt).float(),
+        **(BF16_TOL if x_dt == BF16 else F32_TOL))
+    again = tfo.fused_bias_gelu_with_sum(x, bias, approximate=approximate,
+                                         out_dtype=out_dt)
     torch.cuda.synchronize()
-    assert tfo.fused_bias_gelu.launches == before + 1
+    assert tfo.fused_bias_gelu.launches == before + 2
+    assert torch.equal(got, again[0]) and torch.equal(s, again[1])
 
 
 # head dims 192 and 256 run the tile body's wide form
@@ -143,6 +177,10 @@ def test_cuda_tensors_never_fall_back(dev):
     y = torch.zeros((8, 4), device=dev).t()
     with pytest.raises(ValueError):          # not contiguous
         tfo.fused_bias_gelu(y, torch.zeros(8, device=dev))
+    y = torch.zeros((4, 8), device=dev)
+    with pytest.raises(TypeError):           # a bias K4 does not read
+        tfo.fused_bias_gelu(y, torch.zeros(8, device=dev,
+                                           dtype=torch.float16))
 
 
 def test_engine_matches_kernel_forward(dev):
@@ -424,22 +462,38 @@ def test_layernorm_backward_kernel_matches_twin(dev, h, dtype, with_dsum):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+# K4-bwd's cases: (N, W, storage offset of the cotangent in elements,
+# dout's and dx's dtype where not s's)
+GELU_BWD_CASES = {
+    "N300-W6400": (300, 6400, 0, None),
+    "N4-W6400-decode": (4, 6400, 0, None),
+    "N63-W100": (63, 100, 0, None),
+    "N33-W6401": (33, 6401, 0, None),
+    "N300-W6400-offset-1": (300, 6400, 1, None),
+    "N301-W6400-fp32-dout-dx": (301, 6400, 0, F32),
+}
+
+
+@pytest.mark.parametrize("case", list(GELU_BWD_CASES))
 @pytest.mark.parametrize("approximate", [True, False], ids=["tanh", "erf"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gelu_backward_kernel_matches_twin(dev, approximate, dtype):
+def test_gelu_backward_kernel_matches_twin(dev, approximate, dtype, case):
+    n, w, offset, other_dt = GELU_BWD_CASES[case]
     g = _gen(dev, 5)
-    s = (2.0 * torch.randn((300, 6400), generator=g, device=dev)).to(dtype)
-    dout = torch.randn((300, 6400), generator=g, device=dev).to(dtype)
+    s = (2.0 * torch.randn((n, w), generator=g, device=dev)).to(dtype)
+    dout = _rows(n, w, other_dt or dtype, offset, g, dev)
+    dx_dt = other_dt or dtype
     before = tfo.fused_bias_gelu_backward.launches
-    dx, dbias = tfo.fused_bias_gelu_backward(s, dout,
-                                             approximate=approximate)
+    dx, dbias = tfo.fused_bias_gelu_backward(
+        s, dout, approximate=approximate, dx_dtype=dx_dt)
     ref = tfo._gelu_bwd_math(s, dout, approximate)
+    again = tfo.fused_bias_gelu_backward(
+        s, dout, approximate=approximate, dx_dtype=dx_dt)
     torch.cuda.synchronize()
-    assert tfo.fused_bias_gelu_backward.launches == before + 1
-    assert dx.dtype == dtype
-    assert _rel_l2(dx, ref.to(dtype)) <= GRAD_TOL[dtype]
+    assert tfo.fused_bias_gelu_backward.launches == before + 2
+    assert dx.dtype == dx_dt
+    assert _rel_l2(dx, ref.to(dx_dt)) <= GRAD_TOL[dx_dt]
     assert _rel_l2(dbias, ref.sum(0)) <= GRAD_TOL[torch.float32] * 10
-    again = tfo.fused_bias_gelu_backward(s, dout, approximate=approximate)
     assert torch.equal(dx, again[0]) and torch.equal(dbias, again[1])
 
 
@@ -592,15 +646,25 @@ def test_moe_fused_autograd_matches_einsum_route(dev, dtype):
         assert _rel_l2(a, b) <= tol
 
 
+@pytest.mark.parametrize("rows,w,bias_dt", [(160, 4096, F32),
+                                             (37, 4096, F32),
+                                             (37, 100, F32),
+                                             (160, 4096, BF16)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_grouped_gelu_kernels_match_twins(dev, dtype):
+def test_grouped_gelu_kernels_match_twins(dev, dtype, rows, w, bias_dt):
     """K4 forward and backward with a grouped bias [G, W] (the experts'
     form) against the twins, and G = 1 through the grouped entry point
-    equal bit for bit to the dense form."""
+    equal bit for bit to the dense form. 37 rows a group is no multiple
+    of the plan's row runs (so a run ends at its group's end); W 100
+    takes the scalar accesses; a bf16 bias is read as it is (the experts
+    pass one)."""
     g = _gen(dev, 11)
-    groups, rows, w = 8, 160, 4096
+    groups = 8
     x = torch.randn((groups, rows, w), generator=g, device=dev).to(dtype)
-    bias = 0.1 * torch.randn((groups, w), generator=g, device=dev)
+    bias = (0.1 * torch.randn((groups, w), generator=g, device=dev)).to(
+        bias_dt)
+    before = (tfo.fused_bias_gelu.launches,
+              tfo.fused_bias_gelu_backward.launches)
     out, s = tfo.fused_bias_gelu_with_sum(x, bias, approximate=True)
     ref, ref_s = tfo._gelu_fwd_math(x, bias, True)
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
@@ -616,6 +680,12 @@ def test_grouped_gelu_kernels_match_twins(dev, dtype):
     again = tfo.fused_bias_gelu_backward(s, dout, approximate=True,
                                          groups=groups)
     assert torch.equal(dx, again[0]) and torch.equal(dbias, again[1])
+    fwd_again = tfo.fused_bias_gelu_with_sum(x, bias, approximate=True)
+    assert torch.equal(out, fwd_again[0]) and torch.equal(s, fwd_again[1])
+    torch.cuda.synchronize()
+    assert (tfo.fused_bias_gelu.launches,
+            tfo.fused_bias_gelu_backward.launches) == (before[0] + 2,
+                                                       before[1] + 2)
     x1 = x.reshape(-1, w)
     dense = tfo.fused_bias_gelu_with_sum(x1, bias[0], approximate=True)
     one = tfo.fused_bias_gelu_with_sum(x1, bias[:1], approximate=True)

@@ -141,3 +141,82 @@ def test_cpu_tensors_take_the_twins_and_count_no_launch():
     assert torch.equal(g, tfo._gelu_fwd_math(y, bias, True)[0])
     assert tfo.fused_bias_residual_layernorm.launches == 0
     assert tfo.fused_bias_gelu.launches == 0
+
+
+# K4's launch plan, the tiling the CUDA kernels take (ops/csrc/gelu_rows.cuh)
+SMS = 132
+
+
+def _cta_rows(plan, n, groups):
+    """[(group, rows)] of each CTA row of the grid, as the kernels walk
+    them from blockIdx.x: CTA j of group g takes the group's blocks of
+    block_rows rows j, j + ctas_per_group, ..."""
+    rows = n // groups
+    out = []
+    for bx in range(plan.grid[0]):
+        g, j = divmod(bx, plan.ctas_per_group)
+        mine = [r for b in range(j, -(-rows // plan.block_rows),
+                                 plan.ctas_per_group)
+                for r in range(g * rows + b * plan.block_rows,
+                               g * rows + min(rows, (b + 1) * plan.block_rows))]
+        out.append((g, mine))
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 4, 447, 11264])
+@pytest.mark.parametrize("w", [64, 100, 4096, 6400])
+def test_gelu_plan_covers_every_row_and_column_once(n, w):
+    """The CTA rows partition the N rows and the strips the W columns,
+    so the grid's CTAs (CTA row x strip) cover every element exactly
+    once, in at most one wave of 2 CTAs per SM."""
+    plan = tfo.gelu_plan(n, w, 1, SMS)
+    rows = np.zeros(n, np.int64)
+    for g, mine in _cta_rows(plan, n, 1):
+        assert g == 0 and mine, "every CTA has rows"
+        rows[mine] += 1
+    assert (rows == 1).all()
+    cols = np.zeros(w, np.int64)
+    for by in range(plan.strips):
+        cols[by * 256:min(w, by * 256 + 256)] += 1
+    assert (cols == 1).all() and (plan.strips - 1) * 256 < w
+    assert plan.grid == (plan.ctas_per_group, plan.strips)
+    assert plan.grid[0] * plan.grid[1] <= max(2 * SMS, plan.strips)
+
+
+@pytest.mark.parametrize("rows", [5120, 37])
+def test_gelu_plan_never_straddles_a_group(rows):
+    """G = 8 groups of 5,120 rows (the MoE cell) and of 37 (no multiple
+    of the 16-row blocks): each CTA's rows lie in its own group, and each
+    group's CTAs cover its rows once."""
+    groups, w = 8, 4096
+    n = groups * rows
+    plan = tfo.gelu_plan(n, w, groups, SMS)
+    assert plan.grid[0] == groups * plan.ctas_per_group
+    seen = np.zeros(n, np.int64)
+    for g, mine in _cta_rows(plan, n, groups):
+        assert all(g * rows <= r < (g + 1) * rows for r in mine)
+        seen[mine] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n,w,groups", [(11264, 6400, 1), (4, 6400, 1),
+                                        (40960, 4096, 8), (296, 100, 8),
+                                        (0, 64, 1)])
+def test_gelu_plan_sizes_the_workspace_and_counters_from_the_grid(
+        n, w, groups):
+    plan = tfo.gelu_plan(n, w, groups, SMS)
+    assert plan.work_rows == plan.grid[0]
+    assert plan.counters == groups * plan.grid[1]
+    assert plan.work_rows == groups * plan.ctas_per_group
+    if n == 0:
+        assert plan.grid[0] == 0 and plan.work_rows == 0
+
+
+@pytest.mark.parametrize("w,aligned,vec", [(6400, True, 8), (4096, True, 8),
+                                           (64, True, 8), (100, True, 1),
+                                           (6401, True, 1), (6400, False, 1),
+                                           (4, True, 1)])
+def test_gelu_plan_falls_back_to_scalar_accesses(w, aligned, vec):
+    """16-byte vectors need W (so every row's pitch) a multiple of 8
+    columns and every pointer 16-byte aligned."""
+    assert tfo.gelu_plan(64, w, 1, SMS, aligned).vec == vec
