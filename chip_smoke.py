@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
      versions; TF32 is switched off for matmuls and cuDNN;
   2. build: the kernels compiled from ops/csrc/ into build/torch_kernels/,
      with ptxas's registers and spills of each Hopper (TMA + wgmma)
-     kernel: the attention bodies, K7-band's, K7-dkv's, K7-dq's and
-     K6, and of K4's 64 instantiations; none may spill;
+     kernel: the attention bodies, K7-fwd's, K7-band's, K7-dkv's,
+     K7-dq's and K6, and of K4's 64 and K3-bwd's 32 instantiations;
+     none may spill (but K3-bwd's for rows past 3584 columns);
   3. kernels vs their plain PyTorch twins at the slice's shapes, with
      max errors against stated tolerances, and the kernel's time beside
      the twin's, a bound (the least time the card could take: bytes
@@ -70,8 +71,9 @@ Phases, each printing one JSON line:
  14. kernel_sparse: the K7 kernels (block-sparse attention) against
      their twins at bench.py's sparse_attention_16k shape ([1, 16384,
      16, 64] bf16, block 256, causal; BSLongformer w4 and Fixed l4 g1 on
-     K7-band's Hopper body, and on its earlier WMMA body beside it,
-     BigBird on K7-fwd, K7-dkv/K7-dq under all three on the Hopper
+     K7-band's Hopper body, BigBird on K7-fwd's Hopper body (128-row q
+     tiles over the forward pair table), each with its earlier WMMA body
+     beside it, K7-dkv/K7-dq under all three on the Hopper
      sweeps, and on their earlier WMMA bodies beside them), timed
      beside a bound over the visible scores (with TFLOP/s and the
      backward walks' steps per CTA beside the visible tile pairs), the
@@ -262,32 +264,44 @@ def bound(flops, flops_peak, nbytes, peaks):
 # K4's instantiations: 2 x 2 x 2 element types x the two GeLU forms x
 # 16-byte or scalar accesses, forward and backward
 K4_KERNELS = 2 * 32
-# the Hopper kernels the build must report without spills: the attention
-# bodies and K6 (16), and K4's instantiations
-SM90_KERNELS = 16 + K4_KERNELS
+# K3-bwd's: 2 x 2 x 2 element types (s, dout, dx) x 1 or 4 vectors a
+# lane x 16-byte or scalar accesses
+K3_BWD_KERNELS = 32
+# the Hopper kernels the build must report, none spilling: the attention
+# bodies and K6 (18), and K4's and K3-bwd's instantiations
+SM90_KERNELS = 18 + K4_KERNELS + K3_BWD_KERNELS
 SM90_LIBS = ("flash_attention_fwd", "flash_attention_bwd",
              "block_sparse_attention", "quantized_matmul", "fused_gelu_fwd",
-             "fused_gelu_bwd")
+             "fused_gelu_bwd", "fused_ln_bwd")
 
 
 def sm90_ptxas(log):
     """{kernel<args>: "R registers, no spill" or "..., N bytes spill
     stores"} of the Hopper kernels in one library's ptxas report (nvcc
-    -Xptxas -v): the attention bodies (K1, K5, K2, K7-band, K7-dkv and
-    K7-dq, by head dim), K6 (by output type) and K4 (by element types,
-    GeLU form and access width)."""
+    -Xptxas -v): the attention bodies (K1, K5, K2, K7-fwd, K7-band,
+    K7-dkv and K7-dq, by head dim), K6 (by output type), K4 (by element
+    types, GeLU form and access width) and K3-bwd (by element types,
+    vectors a lane and access width)."""
     import re
     out, name = {}, None
+    # the mangled types: f float, 13__nv_bfloat16 (and its back-reference
+    # S1_) bf16
+    types_re = r"f|13__nv_bfloat16|S\d*_"
+
+    def types(mangled):
+        return ", ".join("float" if t == "f" else "bf16"
+                         for t in re.findall(types_re, mangled))
+
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|band_fwd|"
+            m = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|band_fwd|bs_fwd|"
                           r"bs_bwd_dkv|bs_bwd_dq)_kernel_sm90)ILi(\d+)E"
                           r"(?:Lb(\d)E)?", ln)
             q = re.search(r"qmm_kernelI(f|13__nv_bfloat16)E", ln)
-            # the mangled types: f float, 13__nv_bfloat16 (and its
-            # back-reference S1_) bf16
-            k4 = re.search(r"(gelu_(?:fwd|bwd)_kernel)I((?:f|13__nv_bfloat16|"
-                           r"S\d*_){3})Lb(\d)ELb(\d)E", ln)
+            k4 = re.search(rf"(gelu_(?:fwd|bwd)_kernel)I((?:{types_re}){{3}})"
+                           r"Lb(\d)ELb(\d)E", ln)
+            k3 = re.search(rf"(ln_bwd_kernel)I((?:{types_re}){{3}})"
+                           r"Li(\d)ELb(\d)E", ln)
             name = None
             if m is not None:
                 name = (f"{m.group(1)}<{m.group(2)}" +
@@ -296,11 +310,13 @@ def sm90_ptxas(log):
             elif q is not None:
                 name = f"qmm_kernel<{'float' if q.group(1) == 'f' else 'bf16'}>"
             elif k4 is not None:
-                types = ["float" if t == "f" else "bf16" for t in
-                         re.findall(r"f|13__nv_bfloat16|S\d*_", k4.group(2))]
-                name = (f"{k4.group(1)}<{', '.join(types)}, "
+                name = (f"{k4.group(1)}<{types(k4.group(2))}, "
                         f"{'tanh' if k4.group(3) == '1' else 'erf'}, "
                         f"{'vec' if k4.group(4) == '1' else 'scalar'}>")
+            elif k3 is not None:
+                name = (f"{k3.group(1)}<{types(k3.group(2))}, "
+                        f"{k3.group(3)} vector(s) a lane, "
+                        f"{'vec' if k3.group(4) == '1' else 'scalar'}>")
             continue
         if name is None:
             continue
@@ -487,12 +503,12 @@ def kernel_ln(peaks, gen):
             nbytes = n * h * (2 + 2 + 2 + 2) + 3 * h * 4
             bound_ms, bound_by = bound(9 * n * h, peaks["fp32"], nbytes,
                                        peaks)
-            out[timed] = dict(
+            out[timed] = rates(dict(
                 max_abs_err=err, ms=time_ms(run),
                 plain_ms=time_ms(lambda: fo._ln_fwd_math(
                     y, bias, res, gamma, beta, 1e-5)),
                 bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, shape=label)
+                library_ms=None, shape=label), 9 * n * h)
     return out, checks
 
 
@@ -733,8 +749,12 @@ def kernel_flash_bwd(peaks, gen):
 
 def kernel_ln_bwd(peaks, gen):
     """K3-bwd at the training flagship's shape (N = 11 x 1024 rows,
-    H 1600) and the MoE training shape (N 16,384, H 1024): the block form (bf16 rows, sum cotangent) and the ln_f
-    form (fp32 dout, no sum cotangent), plus an fp32 case."""
+    H 1600) and the MoE training shape (N 16,384, H 1024): the block
+    form (bf16 rows, sum cotangent) and the ln_f form (fp32 dout, no sum
+    cotangent), with gamma in the parameters' dtype (bf16 on both
+    training cells), plus an fp32 case; each launched twice and compared
+    bit for bit, one launch per call. The timed rows carry the kernel's
+    launch plan (`ln_bwd_plan`)."""
     import torch
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     checks, out = [], {}
@@ -752,7 +772,8 @@ def kernel_ln_bwd(peaks, gen):
         h = 1024 if "H1024" in label else 1600
         s = (2.0 * torch.randn((n, h), generator=gen, device="cuda")) \
             .to(s_dt)
-        gamma = 1.0 + 0.1 * torch.randn((h,), generator=gen, device="cuda")
+        gamma = (1.0 + 0.1 * torch.randn((h,), generator=gen,
+                                         device="cuda")).to(s_dt)
         dout = torch.randn((n, h), generator=gen, device="cuda").to(d_dt)
         dsum = torch.randn((n, h), generator=gen, device="cuda") \
             .to(s_dt) if with_dsum else None
@@ -761,8 +782,11 @@ def kernel_ln_bwd(peaks, gen):
             return fo.fused_bias_residual_layernorm_backward(
                 s, gamma, dout, dsum, eps=1e-5, dx_dtype=s_dt)
 
+        before = fo.fused_bias_residual_layernorm_backward.launches
         got = run()
         torch.cuda.synchronize()
+        if fo.fused_bias_residual_layernorm_backward.launches != before + 1:
+            raise AssertionError(f"ln bwd {label}: not one launch")
         ds, dg, db = fo._ln_bwd_math(s, gamma, dout, dsum, 1e-5)
         ref = (ds.to(s_dt), ds.sum(0), dg.sum(0), db.sum(0))
         tol = GRAD_TOL_BF16 if s_dt == bf16 else GRAD_TOL_F32
@@ -774,17 +798,18 @@ def kernel_ln_bwd(peaks, gen):
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise AssertionError(f"ln bwd {label}: two launches differ")
         if timed:
-            # read s, dout, dsum, write dx (bf16), gamma and the three
-            # sums once; fp32 arithmetic ~22 operations per element
-            nbytes = n * h * (2 + 2 + 2 + 2) + 4 * h * 4
+            # read s, dout, dsum, write dx (bf16), gamma (bf16) and the
+            # three sums once; fp32 arithmetic ~22 operations per element
+            nbytes = n * h * (2 + 2 + 2 + 2) + h * 2 + 3 * h * 4
             bound_ms, bound_by = bound(22 * n * h, peaks["fp32"], nbytes,
                                        peaks)
-            out[timed] = dict(
-                max_abs_err=errs[0], ms=time_ms(run),
+            plan = fo.ln_bwd_plan(n, h, fo._sm_count(0))
+            out[timed] = rates(dict(
+                max_abs_err=errs[0], ms=time_ms(run), graph_ms=graph_ms(run),
                 plain_ms=time_ms(lambda: fo._ln_bwd_math(
                     s, gamma, dout, dsum, 1e-5)),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                shape=label)
+                shape=label, plan=plan._asdict()), 22 * n * h)
     return out, checks
 
 
@@ -1801,7 +1826,8 @@ def kernel_sparse(peaks, gen):
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     bsa = _sparse()
     checks = []
-    res = {"block_sparse_fwd": {}, "block_sparse_band_fwd_sm90": {},
+    res = {"block_sparse_fwd_sm90": {}, "block_sparse_fwd": {},
+           "block_sparse_band_fwd_sm90": {},
            "block_sparse_band_fwd": {}, "block_sparse_bwd_dkv_sm90": {},
            "block_sparse_bwd_dq_sm90": {}, "block_sparse_bwd_dkv": {},
            "block_sparse_bwd_dq": {}}
@@ -1839,39 +1865,45 @@ def kernel_sparse(peaks, gen):
         plan = bsa._plan(layout, causal, block, bsa.TILE, q.device)
         sm = d ** -0.5
         tiles = bsa._hopper_tiles(dtype, d, bsa.TILE)
-        bwd_plan = bsa._plan(layout, causal, block, tiles, q.device)
-        fwd_plan = bwd_plan if bwd_plan.band is not None else plan
+        # the route's plan: the Hopper pair's for bf16 at head dims 64 and
+        # 128 (every kernel on its Hopper body), else the square one
+        pair = bsa._plan(layout, causal, block, tiles, q.device)
+        hopper = pair is not plan
+        # (name, launcher, twin) of the forward on the WMMA body (the
+        # earlier kernel at bf16) and on the route's
         if plan.band is None:
-            fwd_name = "block_sparse_fwd"
-            launch, plain = bsa._bs_fwd_launch, bsa._bs_fwd_plain
-        elif tiles != (bsa.TILE, bsa.TILE):
-            fwd_name = "block_sparse_band_fwd_sm90"
-            launch, plain = bsa._band_fwd_sm90_launch, bsa._band_fwd_plain
+            wmma = ("block_sparse_fwd", bsa._bs_fwd_launch,
+                    bsa._bs_fwd_plain)
+            fwd_name, launch, plain = ("block_sparse_fwd_sm90",
+                                       bsa._bs_fwd_sm90_launch,
+                                       bsa._bs_fwd_plain) if hopper else wmma
         else:
-            fwd_name = "block_sparse_band_fwd"
-            launch, plain = bsa._band_fwd_launch, bsa._band_fwd_plain
-        hopper = bwd_plan is not plan
-        out, lse = launch(q, k, v, fwd_plan, sm)
+            wmma = ("block_sparse_band_fwd", bsa._band_fwd_launch,
+                    bsa._band_fwd_plain)
+            fwd_name, launch, plain = ("block_sparse_band_fwd_sm90",
+                                       bsa._band_fwd_sm90_launch,
+                                       bsa._band_fwd_plain) if hopper else wmma
+        out, lse = launch(q, k, v, pair, sm)
         torch.cuda.synchronize()
-        ref, ref_lse = plain(q, k, v, fwd_plan, sm)
+        ref, ref_lse = plain(q, k, v, pair, sm)
         tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
         gtol = GRAD_TOL_BF16 if dtype == torch.bfloat16 else GRAD_TOL_F32
         err_fwd = check(f"{fwd_name} out, {label}", out, ref, tol, checks)
         check(f"{fwd_name} log2-lse, {label}", lse, ref_lse, TOL_F32, checks)
         del ref, ref_lse
-        if fwd_plan is not plan and timed:
-            # the earlier band kernel (WMMA, 64 x 64 tiles) on the same
+        if hopper and timed:
+            # the earlier forward (WMMA, 64 x 64 tiles) on the same
             # inputs, held to its own twin
-            wmma_out, wmma_lse = bsa._band_fwd_launch(q, k, v, plan, sm)
+            wmma_out, wmma_lse = wmma[1](q, k, v, plan, sm)
             torch.cuda.synchronize()
-            wmma_ref, wmma_ref_lse = bsa._band_fwd_plain(q, k, v, plan, sm)
-            err_wmma = check(f"block_sparse_band_fwd out, {label}", wmma_out,
+            wmma_ref, wmma_ref_lse = wmma[2](q, k, v, plan, sm)
+            err_wmma = check(f"{wmma[0]} out, {label}", wmma_out,
                              wmma_ref, tol, checks)
-            check(f"block_sparse_band_fwd log2-lse, {label}", wmma_lse,
+            check(f"{wmma[0]} log2-lse, {label}", wmma_lse,
                   wmma_ref_lse, TOL_F32, checks)
             del wmma_out, wmma_lse, wmma_ref, wmma_ref_lse
         names, bwd_launches, delta, err_dkv, err_dq = backward(
-            q, k, v, out, lse, dout, bwd_plan, sm, label, gtol, hopper)
+            q, k, v, out, lse, dout, pair, sm, label, gtol, hopper)
         if hopper and timed:
             # the earlier backward (WMMA, 64 x 64 tiles) on the same
             # inputs, held to its twin on the 64-row tables
@@ -1932,24 +1964,28 @@ def kernel_sparse(peaks, gen):
                   "sdpa_masked_fwd_ms": sdpa_f,
                   "sdpa_masked_fwd_bwd_ms": sdpa_fb, "dense": dense}
         fwd_flops = 4.0 * d * nvis
+        # the table forward walks the forward table (dQ's)
+        fwd_walk = walk_stats(pair, plan, "dq", b) if plan.band is None \
+            else {}
         res[fwd_name][label] = rates(dict(
-            max_abs_err=err_fwd, ms=time_ms(lambda: launch(q, k, v, fwd_plan,
+            max_abs_err=err_fwd, ms=time_ms(lambda: launch(q, k, v, pair,
                                                            sm)),
-            plain_ms=time_ms(lambda: plain(q, k, v, fwd_plan, sm), iters=3,
+            plain_ms=time_ms(lambda: plain(q, k, v, pair, sm), iters=3,
                              warmup=1),
-            bound_ms=f_bound, bound_by=f_by, library_ms=sdpa_f, **common),
-            fwd_flops)
-        if fwd_plan is not plan:
+            bound_ms=f_bound, bound_by=f_by, library_ms=sdpa_f, **fwd_walk,
+            **common), fwd_flops)
+        if hopper:
             res[fwd_name][label]["ptxas"] = ptxas
-            res["block_sparse_band_fwd"][label] = rates(dict(
+            res[wmma[0]][label] = rates(dict(
                 max_abs_err=err_wmma,
-                ms=time_ms(lambda: bsa._band_fwd_launch(q, k, v, plan, sm)),
-                plain_ms=time_ms(lambda: bsa._band_fwd_plain(q, k, v, plan,
-                                                             sm),
+                ms=time_ms(lambda: wmma[1](q, k, v, plan, sm)),
+                plain_ms=time_ms(lambda: wmma[2](q, k, v, plan, sm),
                                  iters=3, warmup=1),
                 bound_ms=f_bound, bound_by=f_by, library_ms=sdpa_f,
-                body="WMMA, 64 x 64 tiles (the earlier K7-band; the route "
-                     "takes it for fp32)", **common), fwd_flops)
+                body="WMMA, 64 x 64 tiles (the earlier kernel; the route "
+                     "takes it for fp32)",
+                **(walk_stats(plan, plan, "dq", b) if plan.band is None
+                   else {}), **common), fwd_flops)
 
         def bwd_rows(bwd, p, extra):
             (dkv_name, dq_name), (dkv, dq_launch), dlt, e_dkv, e_dq = bwd
@@ -1971,7 +2007,7 @@ def kernel_sparse(peaks, gen):
                 **walk_stats(p, plan, "dq", b), **extra, **common),
                 6.0 * d * nvis)
 
-        bwd_rows((names, bwd_launches, delta, err_dkv, err_dq), bwd_plan,
+        bwd_rows((names, bwd_launches, delta, err_dkv, err_dq), pair,
                  {"ptxas": ptxas} if hopper else {})
         if hopper:
             bwd_rows(wmma_bwd, plan, {
@@ -2598,9 +2634,8 @@ ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_", "delta_kernel")
 # device-time groups of the profiles, by kernel-name substring
 KERNEL_GROUPS = (
     ("port kernels: attention", ATTENTION_KERNELS),
-    ("port kernels: epilogues", ("ln_fwd_kernel", "ln_bwd_rows_kernel",
-                                 "gelu_fwd_kernel", "gelu_bwd_kernel",
-                                 "col_reduce_kernel")),
+    ("port kernels: epilogues", ("ln_fwd_kernel", "ln_bwd_kernel",
+                                 "gelu_fwd_kernel", "gelu_bwd_kernel")),
     ("port kernels: MoE dispatch/combine", ("gather_rows_kernel",
                                             "combine_rows_kernel")),
     ("port kernels: int8 GEMM (K6)", ("qmm_kernel",)),
@@ -2692,6 +2727,7 @@ def read_counts():
             "fused_bias_gelu_fwd": fo.fused_bias_gelu.launches,
             "fused_bias_gelu_bwd": fo.fused_bias_gelu_backward.launches,
             "quantized_matmul": _qmm().quantized_matmul.launches,
+            "block_sparse_fwd_sm90": bsa._bs_fwd_sm90_launch.launches,
             "block_sparse_fwd": bsa._bs_fwd_launch.launches,
             "block_sparse_band_fwd_sm90": bsa._band_fwd_sm90_launch.launches,
             "block_sparse_band_fwd": bsa._band_fwd_launch.launches,
@@ -2729,7 +2765,13 @@ KERNELS = (
      "deepspeed_tpu/moe/fused_dispatch.py:183", None),
     ("quantized_matmul", "deepspeed_tpu_torch/ops/csrc/quantized_matmul.cu",
      "deepspeed_tpu/ops/transformer/quantized_matmul.py:207", kernel_qmm),
-    # K7: one phase (kernel_sparse) checks and times all of them
+    # K7: one phase (kernel_sparse) checks and times all of them.
+    # K7-fwd: the Hopper body (bf16 at head dims 64 and 128, the sparse
+    # path's) and the WMMA body (fp32)
+    ("block_sparse_fwd_sm90",
+     "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+     "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:160",
+     None),
     ("block_sparse_fwd",
      "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
      "deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:160",
@@ -2778,10 +2820,11 @@ TRAINING_KERNELS = SERVING_KERNELS + (
 MOE_KERNELS = TRAINING_KERNELS + ("moe_dispatch", "moe_combine")
 QUANT_KERNELS = TRAINING_KERNELS + ("quantized_matmul",)
 MOE_QUANT_KERNELS = MOE_KERNELS + ("quantized_matmul",)
-SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_band_fwd_sm90",
+SPARSE_KERNELS = ("block_sparse_fwd_sm90", "block_sparse_band_fwd_sm90",
                   "block_sparse_bwd_dkv_sm90", "block_sparse_bwd_dq_sm90")
 # the sparse oracle's fp32 cases take K7's WMMA bodies
-SPARSE_ORACLE_KERNELS = SPARSE_KERNELS + ("block_sparse_band_fwd",
+SPARSE_ORACLE_KERNELS = SPARSE_KERNELS + ("block_sparse_fwd",
+                                          "block_sparse_band_fwd",
                                           "block_sparse_bwd_dkv",
                                           "block_sparse_bwd_dq")
 # the ring leg: K5 and K2 (the flash ring), K1 and K2 (Ulysses); GPT-2

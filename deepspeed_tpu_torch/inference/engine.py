@@ -138,18 +138,18 @@ class InferenceEngine:
         cfg = InferenceConfig(config)
         if cfg.spec_enabled:
             raise NotImplementedError(
-                "inference.speculative is ported in the speculative/int8 "
-                "serving slice")
+                "inference.speculative is not in the port yet: ROADMAP "
+                "Queue 1 item 7")
         if cfg.weight_bits == 8:
             raise NotImplementedError(
-                "inference.weight_bits: 8 (int8 weight-only serving) is "
-                "ported in the speculative/int8 serving slice")
+                "inference.weight_bits: 8 (int8 weight-only serving) is not "
+                "in the port yet: ROADMAP Queue 1 item 7")
         mon = config.get(C.MONITOR, {})
         if isinstance(mon, dict) and mon.get(C.MONITOR_ENABLED,
                                              C.MONITOR_ENABLED_DEFAULT):
             raise NotImplementedError(
-                "an enabled monitor block is ported with the monitoring "
-                "slice")
+                "an enabled monitor block is not in the port yet: ROADMAP "
+                "Queue 1 item 8")
         self.device = resolve_device(device)
         self.model_config = model_config
         self.config = cfg

@@ -499,6 +499,42 @@ band_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                            bh, walk, MergeIn{});
 }
 
+// The Hopper table forward's shared memory: the forward body's, then the
+// walk's 3 nmax words (TableWalk90's layout; nmax <= 512, the host's
+// bound). Two CTAs per SM at D 64; one at D 128, where the 128 registers
+// of two spill the scores and O (`kernel_variants.py sparse_fwd` times
+// two there)
+template <int D>
+struct FwdTableCfg90 {
+  using F = sm90::FwdCfg<D>;
+  static constexpr size_t walk = (F::bar + 8 + F::R::bytes + 15) / 16 * 16;
+  static constexpr int kBlocks = D == 64 ? 2 : 1;
+  static size_t bytes(int nmax) { return walk + 12 * size_t(nmax) + 1024; }
+};
+
+// bf16 at D 64 and 128: one CTA per (b*h, 128-row q tile) over the
+// forward pair table, in `table_order`'s order (longest walk first)
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, FwdTableCfg90<D>::kBlocks)
+bs_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv,
+                   bf16* __restrict__ out, float* __restrict__ lse, int seq,
+                   int heads, float scale_log2, int causal,
+                   const int* __restrict__ head_map,
+                   const int* __restrict__ table,
+                   const int* __restrict__ count,
+                   const int* __restrict__ order, int nmax, int sub_shift) {
+  const int nt = (seq + sm90::kRows - 1) / sm90::kRows;
+  int h, bh, qt;
+  table_order(order, nt, heads, h, bh, qt);
+  const auto walk = table_walk90<false, FwdTableCfg90<D>::walk>(
+      table, count, static_cast<long long>(head_map[h]) * nt + qt, nmax,
+      qt * sm90::kRows, sub_shift, causal);
+  sm90::fwd_body<D, false>(mq, mk, mv, out, lse, seq, heads, scale_log2, qt,
+                           bh, walk, MergeIn{});
+}
+
 // The Hopper backward kernels' shared memory: the sweep's, then the
 // walk's 3 nmax words (nmax <= 512, the host's bound: 6 KB)
 template <int D>
@@ -674,6 +710,44 @@ int launch_band_sm90(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// a pair table: head_map [H], steps [U * nt * 3 * nmax], count [U * nt],
+// order [H * nt] (nt the 128-row tiles)
+struct PairTable {
+  const int* head_map;
+  const int* steps;
+  const int* count;
+  const int* order;
+  int nmax;
+};
+
+unsigned pair_grid(int batch, int seq, int heads) {
+  return static_cast<unsigned>(static_cast<long long>(seq + sm90::kRows - 1) /
+                               sm90::kRows * batch * heads);
+}
+
+template <int D>
+int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int batch, int seq, int heads,
+                    const long long* s, float scale_log2, int causal,
+                    PairTable tab, int sub_shift, cudaStream_t stream) {
+  using L = sm90::FwdCfg<D>;
+  CUtensorMap mq, mk, mv;
+  if (sm90::make_map(&mq, q, batch, seq, heads, D, s[0], s[1], s[2],
+                     sm90::kRows) ||
+      sm90::make_map(&mk, k, batch, seq, heads, D, s[3], s[4], s[5],
+                     L::kN) ||
+      sm90::make_map(&mv, v, batch, seq, heads, D, s[6], s[7], s[8], L::kN))
+    return sm90::kMapError;
+  auto kern = bs_fwd_kernel_sm90<D>;
+  const size_t bytes = FwdTableCfg90<D>::bytes(tab.nmax);
+  allow_smem(kern, bytes);
+  kern<<<pair_grid(batch, seq, heads), sm90::kThreads, bytes, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), lse, seq, heads, scale_log2,
+      causal, tab.head_map, tab.steps, tab.count, tab.order, tab.nmax,
+      sub_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, void* dk,
@@ -712,16 +786,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a pair table: head_map [H], steps [U * nt * 3 * nmax], count [U * nt],
-// order [H * nt] (nt the 128-row tiles)
-struct PairTable {
-  const int* head_map;
-  const int* steps;
-  const int* count;
-  const int* order;
-  int nmax;
-};
-
 // resident (kRows) and streamed (kStep) maps of q, k, v and dO, through
 // the caller's strides (s: q, k, v, out, dout)
 template <int D>
@@ -737,11 +801,6 @@ int bwd_maps(CUtensorMap (&res)[4], CUtensorMap (&str)[4], const void* q,
                        st[i][1], st[i][2], sm90::kStep))
       return sm90::kMapError;
   return 0;
-}
-
-unsigned pair_grid(int batch, int seq, int heads) {
-  return static_cast<unsigned>(static_cast<long long>(seq + sm90::kRows - 1) /
-                               sm90::kRows * batch * heads);
 }
 
 template <int D>
@@ -823,6 +882,33 @@ extern "C" int ds_bs_attn_fwd(const void* q, const void* k, const void* v,
   DS_DISPATCH(dtype, head_dim, launch_fwd, q, k, v, out, lse, batch, seq,
               heads, strides, scale_log2, causal, tab, sub_shift, rr,
               static_cast<cudaStream_t>(stream));
+}
+
+// K7-fwd on the Hopper body (bf16 at head dims 64 and 128; -1 for any
+// other pair): the arguments of ds_bs_attn_fwd with the forward pair
+// table in place of the 64-row one (as ds_bs_attn_bwd_dq_sm90 takes it):
+// steps [U, nt, 3, nmax], count [U, nt] and order [H * nt].
+extern "C" int ds_bs_attn_fwd_sm90(const void* q, const void* k,
+                                   const void* v, void* out, float* lse,
+                                   int batch, int seq, int heads,
+                                   int head_dim, const long long* strides,
+                                   float scale_log2, int causal,
+                                   const int* head_map, const int* steps,
+                                   const int* count, const int* order,
+                                   int nmax, int sub_shift, int dtype,
+                                   int device, void* stream) {
+  cudaSetDevice(device);
+  if (batch * seq == 0) return 0;
+  const PairTable tab{head_map, steps, count, order, nmax};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && head_dim == 64)
+    return launch_fwd_sm90<64>(q, k, v, out, lse, batch, seq, heads, strides,
+                               scale_log2, causal, tab, sub_shift, s);
+  if (dtype == 1 && head_dim == 128)
+    return launch_fwd_sm90<128>(q, k, v, out, lse, batch, seq, heads,
+                                strides, scale_log2, causal, tab, sub_shift,
+                                s);
+  return -1;
 }
 
 // The band + global forward on the WMMA body: layout blocks of 2^bshift

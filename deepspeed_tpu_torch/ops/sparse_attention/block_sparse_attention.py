@@ -6,7 +6,11 @@ CUDA source `ops/csrc/block_sparse_attention.cu`:
 
   K7-fwd   `_bs_fwd_kernel`      the table forward (BigBird, per-head
                                  layouts, any layout `_band_decompose`
-                                 rejects)
+                                 rejects): in bf16 at head dims 64 and
+                                 128 on the Hopper body
+                                 (`_bs_fwd_sm90_launch`: 128-row q tiles
+                                 over the forward pair table), otherwise
+                                 on the WMMA body (`_bs_fwd_launch`)
   K7-band  `_band_fwd_kernel`    the band + global forward (BSLongformer,
                                  Fixed): in bf16 at head dims 64 and 128
                                  on the Hopper body of
@@ -34,9 +38,10 @@ tiles (`TILE`), so their tables are `_build_tables` at tile granularity
 tile, and each table entry carries a bit mask of the visible sub-blocks
 of its tile pair. The Hopper kernels keep 128-row tiles resident and
 stream 64-row ones (`_hopper_tiles`): the band forward walks its band,
-and the backward walks pair tables (`_pair_tables`), the square tables'
-rows taken two at a time, each step with one sub-block mask per 64-row
-half. The TPU launcher's super-rows (`qt`) and head groups (`g`)
+and the table forward and the backward walk pair tables
+(`_pair_tables`), the square tables' rows taken two at a time, each step
+with one sub-block mask per 64-row half. One plan serves a call's
+forward and backward. The TPU launcher's super-rows (`qt`) and head groups (`g`)
 amortised its grid-step overhead and have no counterpart here.
 
 The plain twins `_bs_fwd_plain`, `_band_fwd_plain` and `_bs_bwd_plain`
@@ -86,13 +91,15 @@ _DKV_ARGTYPES = [_P] * 9 + [_I] * 4 + [_LL, _F, _F, _I] + [_P] * 4 + \
     [_I] * 3 + [_I, _I, _P]
 _DQ_ARGTYPES = [_P] * 7 + [_I] * 4 + [_LL, _F, _F, _I] + [_P] * 4 + \
     [_I] * 3 + [_I, _I, _P]
-# the Hopper backward's: the pair tables (head_map, steps, count, order),
-# their width and sub_shift
+# the Hopper table forward's and backward's: the pair tables (head_map,
+# steps, count, order), their width and sub_shift
+_FWD90_ARGTYPES = _FWD_ARGTYPES[:-6] + [_I] * 2 + _FWD_ARGTYPES[-3:]
 _DKV90_ARGTYPES = _DKV_ARGTYPES[:-6] + [_I] * 2 + _DKV_ARGTYPES[-3:]
 _DQ90_ARGTYPES = _DQ_ARGTYPES[:-6] + [_I] * 2 + _DQ_ARGTYPES[-3:]
-# the longest pair-table walk the Hopper backward takes (its shared memory
-# holds the walk): every 64-row tile of T = 32768, the transpose row of a
-# global column at the sparse path's longest shape
+# the longest pair-table walk the Hopper table forward and backward take
+# (their shared memory holds the walk): every 64-row tile of T = 32768,
+# the transpose row of a global column (or, bidirectionally, the forward
+# row of a global row) at the sparse path's longest shape
 _SM90_MAX_STEPS = 512
 
 
@@ -592,7 +599,13 @@ def _walk_fwd_plain(q, k, v, steps, q_tile, tile, sm_scale):
 
 
 def _bs_fwd_plain(q, k, v, plan, sm_scale):
-    """K7-fwd's algorithm: the forward-table walk."""
+    """K7-fwd's algorithm: the forward-table walk at the plan's tile pair:
+    128-row q tiles over the forward pair table (the Hopper body's walk,
+    `_pair_steps`) for a plan at `_SM90_TILES`, else the square tiles
+    over the square table (the WMMA body's)."""
+    if plan.q_tile != plan.tile:
+        return _walk_fwd_plain(q, k, v, _pair_steps(plan, False, q.device),
+                               plan.q_tile, plan.tile, sm_scale)
     return _walk_fwd_plain(q, k, v, _table_steps(plan, False, q.device),
                            plan.tile, plan.tile, sm_scale)
 
@@ -828,25 +841,49 @@ def _bs_bwd_dq_launch(q, k, v, out, lse, dout, delta, plan, sm_scale):
 _bs_bwd_dq_launch.launches = 0
 
 
-def _pair_args(q, plan, name):
-    """The Hopper backward's table arguments for the pair table `name`
-    ("dkv" or "dq"), after the checks of its route."""
+def _pair_args(q, plan, name, what="backward"):
+    """The Hopper table kernels' arguments for the pair table `name`
+    ("dq": the forward table, which the table forward walks too; "dkv":
+    the transpose table), after the checks of their route."""
     if not _on_sm90(q.dtype, q.shape[-1]):
-        raise ValueError(f"Hopper block-sparse backward kernel: bf16 at head "
+        raise ValueError(f"Hopper block-sparse {what} kernel: bf16 at head "
                          f"dims 64 and 128, got {q.dtype}, {q.shape[-1]}")
     if (plan.q_tile, plan.tile) != _SM90_TILES:
-        raise ValueError(f"Hopper block-sparse backward kernel: needs a plan "
+        raise ValueError(f"Hopper block-sparse {what} kernel: needs a plan "
                          f"at tiles {_SM90_TILES}, got "
                          f"{(plan.q_tile, plan.tile)}")
     width = plan.pairs[name][2]
     if width > _SM90_MAX_STEPS:
-        raise ValueError(f"Hopper block-sparse backward kernel: a walk of "
+        raise ValueError(f"Hopper block-sparse {what} kernel: a walk of "
                          f"{width} steps exceeds the {_SM90_MAX_STEPS} its "
                          "shared memory holds")
     t = plan.dev
     return (t["head_map"].data_ptr(), t[f"{name}_steps"].data_ptr(),
             t[f"{name}_count"].data_ptr(), t[f"{name}_order"].data_ptr(),
             width, plan.sub_shift)
+
+
+def _bs_fwd_sm90_launch(q, k, v, plan, sm_scale):
+    """K7-fwd on the Hopper body (bf16 at head dims 64 and 128, the plan
+    at `_SM90_TILES`): 128-row q tiles over the forward pair table, CTAs
+    longest walk first; (out, lse [B*H, T] log2 space)."""
+    from deepspeed_tpu_torch.ops import _build
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
+                       grid_y=False)
+    tables = _pair_args(q, plan, "dq", "table forward")
+    out, lse = _fwd_outputs(q)
+    fn = _build.function("block_sparse_attention", "ds_bs_attn_fwd_sm90",
+                         _FWD90_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), *q.shape, _strides(q, k, v),
+             float(sm_scale * LOG2E), int(plan.causal), *tables,
+             _DTYPE_CODE[q.dtype], q.device.index or 0, _build.stream_ptr(q))
+    _build.check(err, "block-sparse Hopper table forward kernel")
+    _bs_fwd_sm90_launch.launches += 1
+    return out, lse
+
+
+_bs_fwd_sm90_launch.launches = 0
 
 
 def _bs_bwd_dkv_sm90_launch(q, k, v, out, lse, dout, plan, sm_scale):
@@ -905,8 +942,8 @@ _bs_bwd_dq_sm90_launch.launches = 0
 
 def reset_launch_counts():
     """Zero the K7 launch counters."""
-    for fn in (_bs_fwd_launch, _band_fwd_launch, _band_fwd_sm90_launch,
-               _bs_bwd_dkv_launch, _bs_bwd_dq_launch,
+    for fn in (_bs_fwd_launch, _bs_fwd_sm90_launch, _band_fwd_launch,
+               _band_fwd_sm90_launch, _bs_bwd_dkv_launch, _bs_bwd_dq_launch,
                _bs_bwd_dkv_sm90_launch, _bs_bwd_dq_sm90_launch):
         fn.launches = 0
 
@@ -915,15 +952,17 @@ def reset_launch_counts():
 # routing and autograd
 # ----------------------------------------------------------------------
 def _forward(q, k, v, plan, sm_scale):
-    """(out, lse): a band kernel where the layout decomposes (the Hopper
-    one for a plan at its tile pair), else the table kernel; the twins
+    """(out, lse): a band kernel where the layout decomposes, else the
+    table kernel, each on the Hopper body for a plan at its tile pair
+    and on the WMMA body for a square plan; the twins (the same walk)
     for CPU tensors."""
+    hopper = plan.q_tile != plan.tile
     if plan.band is None:
-        launch, plain = _bs_fwd_launch, _bs_fwd_plain
-    elif plan.q_tile != plan.tile:
-        launch, plain = _band_fwd_sm90_launch, _band_fwd_plain
+        launch = _bs_fwd_sm90_launch if hopper else _bs_fwd_launch
+        plain = _bs_fwd_plain
     else:
-        launch, plain = _band_fwd_launch, _band_fwd_plain
+        launch = _band_fwd_sm90_launch if hopper else _band_fwd_launch
+        plain = _band_fwd_plain
     if q.is_cuda:
         return launch(q, k, v, plan, sm_scale)
     return plain(q, k, v, plan, sm_scale)
@@ -948,13 +987,12 @@ def _backward(q, k, v, out, lse, dout, plan, sm_scale):
 
 class _BlockSparseAttention(torch.autograd.Function):
     """out = block-sparse attention of (q, k, v): the forward kernel (or
-    twin) under `fwd_plan`, and the backward kernels (or twin) under
-    `plan` off the saved (q, k, v, out, lse) — the JAX package's custom
-    VJP."""
+    twin), then the backward kernels (or twin) off the saved (q, k, v,
+    out, lse), all under one plan — the JAX package's custom VJP."""
 
     @staticmethod
-    def forward(ctx, q, k, v, fwd_plan, plan, sm_scale):
-        out, lse = _forward(q, k, v, fwd_plan, sm_scale)
+    def forward(ctx, q, k, v, plan, sm_scale):
+        out, lse = _forward(q, k, v, plan, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.plan, ctx.sm_scale = plan, sm_scale
         return out
@@ -963,7 +1001,7 @@ class _BlockSparseAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out, lse, g, ctx.plan, ctx.sm_scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None
 
 
 # ----------------------------------------------------------------------
@@ -980,12 +1018,10 @@ def _tile_for(t, block):
 
 
 def _hopper_tiles(dtype, d, tile):
-    """The (resident rows, streamed rows) of the band forward and the
-    backward for inputs of `dtype` and head dim d whose kernels walk
-    `tile`-row tiles: the Hopper bodies' 128 x 64 where the tile is 64
-    and (dtype, d) runs them (bf16 at head dims 64 and 128, as for K1 and
-    K2), else tile x tile (the table forward always takes the square
-    tile)."""
+    """The (resident rows, streamed rows) of every K7 kernel for inputs
+    of `dtype` and head dim d whose kernels walk `tile`-row tiles: the
+    Hopper bodies' 128 x 64 where the tile is 64 and (dtype, d) runs them
+    (bf16 at head dims 64 and 128, as for K1 and K2), else tile x tile."""
     if tile == TILE and _on_sm90(dtype, d):
         return _SM90_TILES
     return (tile, tile)
@@ -1063,13 +1099,10 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
     tile = _tile_for(q.shape[1], block)
     plan = _plan(layout, causal, block,
                  _hopper_tiles(q.dtype, q.shape[-1], tile), q.device)
-    fwd_plan = plan if plan.band is not None else \
-        _plan(layout, causal, block, tile, q.device)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        out = _BlockSparseAttention.apply(q, k, v, fwd_plan, plan,
-                                          float(sm_scale))
+        out = _BlockSparseAttention.apply(q, k, v, plan, float(sm_scale))
     else:
-        out = _forward(q, k, v, fwd_plan, float(sm_scale))[0]
+        out = _forward(q, k, v, plan, float(sm_scale))[0]
     return out[:, :t, :, :d] if out.shape != (b, t, h, d) else out
 
 

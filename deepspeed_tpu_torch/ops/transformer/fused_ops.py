@@ -18,7 +18,9 @@ Bias + GeLU also takes a grouped bias [G, W] (the expert form,
 dimension): the rows split into G equal groups, group g adds bias row
 g, and the backward's dbias is [G, W]. One launch covers all groups
 (and, in the backward, dbias); G = 1 is the dense form, bit for bit.
-The K4 kernels' tiling is a plain function, `gelu_plan`.
+The K4 kernels' tiling is a plain function, `gelu_plan`, and K3-bwd's
+(row groups of warps, dbias/dgamma/dbeta folded in the same launch)
+`ln_bwd_plan`.
 
 Dispatch: a wrapper takes the plain twin for tensors on the CPU and
 launches the kernel for tensors on CUDA. There is no fallback from a
@@ -32,6 +34,7 @@ kernels.
 import collections
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -46,11 +49,10 @@ _LN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _GELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + \
     [ctypes.c_void_p]
-_LN_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_LN_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+    [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _GELU_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + \
     [ctypes.c_void_p]
-_GRID_ARGTYPES = [ctypes.c_int, ctypes.c_int]
 
 # K4's tiling (ops/csrc/gelu_rows.cuh): a CTA of 4 warps owns a strip of
 # 256 columns (8 a lane) and every ctas_per_group-th block of 16 rows of
@@ -62,6 +64,16 @@ _GELU_CTAS_PER_SM = 2
 GeluPlan = collections.namedtuple(
     "GeluPlan", "vec strips ctas_per_group block_rows grid work_rows "
     "counters")
+
+# K3-bwd's layout (ops/csrc/fused_ln_bwd.cu): a row group of warps per
+# row, each lane 8 columns of `vpt` vectors of every row it sees; CTAs
+# of up to 14 warps at one vector a lane (7 at four: their lanes take
+# 255 registers) holding row groups of the same width, one CTA per SM,
+# each row group taking one row at a time
+_LN_BWD_MAX_WARPS = 14
+LnBwdPlan = collections.namedtuple(
+    "LnBwdPlan", "vec vpt warps_per_row groups threads grid fold "
+    "fold_groups work_rows counters")
 
 
 def resolve_fused_ops(mode, dropout_inactive=True, device=None):
@@ -191,8 +203,8 @@ def _check_vector(t, width, device, groups=None):
 
 
 def _vector(t, width, device):
-    """[H] parameter vector as K3 takes it: fp32, contiguous, on the
-    rows' device."""
+    """[H] parameter vector as K3-fwd takes it: fp32, contiguous, on
+    the rows' device."""
     _check_vector(t, width, device)
     return t.to(torch.float32).contiguous()
 
@@ -265,6 +277,44 @@ def gelu_plan(n, w, groups, sms, aligned=True):
                     (groups * cpg, strips), groups * cpg, groups * strips)
 
 
+@functools.lru_cache(maxsize=256)
+def ln_bwd_plan(n, h, sms, aligned=True):
+    """K3-bwd's launch plan for n rows of width h on a card of `sms` SMs.
+
+    A row belongs to a row group of `warps_per_row` warps: lane i of the
+    group owns the 8-column vectors i + j * 32 * warps_per_row (j <
+    `vpt`) of every row the group sees, so the fewest warps whose lanes
+    cover the row's ceil(h / 8) vectors (1 vector a lane up to h = 3584,
+    else 4). A CTA holds `groups` row groups (as many as fit 14 warps at
+    one vector a lane, else 7; none idle), `threads` threads; the grid, one CTA per SM at most,
+    gives row group k (CTA k // groups, group k % groups) the rows k,
+    k + grid * groups, ... `vec` is 8 (16-byte accesses) where h is a
+    multiple of 8 and every pointer is 16-byte `aligned`, else 1. The
+    CTAs' partial rows [3, h] are folded in `fold_groups` groups of
+    `fold` consecutive CTAs (the last a remainder) and then the group
+    rows in order (with one group, straight into the sums): the
+    workspace holds `work_rows` rows, the int32 counters `counters` (one
+    per fold group and one for the groups). Raises ValueError past the
+    widest row (h > 7168)."""
+    vec = 8 if aligned and h % 8 == 0 else 1
+    nvec = -(-h // 8)
+    vpt = 1 if nvec <= 32 * _LN_BWD_MAX_WARPS else 4
+    warps = _LN_BWD_MAX_WARPS if vpt == 1 else _LN_BWD_MAX_WARPS // 2
+    wpr = max(1, -(-nvec // (32 * vpt)))
+    if wpr > warps:
+        raise ValueError(f"fused LN backward kernel: H={h} exceeds the "
+                         f"{32 * warps * vpt * 8} columns of its widest "
+                         "row")
+    groups = max(1, min(warps // wpr, n))
+    grid = min(sms, -(-n // groups))
+    fold = math.isqrt(grid - 1) + 1 if grid > 0 else 1
+    fold_groups = -(-grid // fold)
+    return LnBwdPlan(vec, vpt, wpr, groups, 32 * wpr * groups, grid, fold,
+                     fold_groups,
+                     grid + (fold_groups if fold_groups > 1 else 0),
+                     fold_groups + 1)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index):
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -318,27 +368,35 @@ def _ln_bwd_launch(s2, gamma, dout2, dsum2, eps, dx_dtype):
         if dsum2.shape != s2.shape:
             raise ValueError(f"dsum shape {tuple(dsum2.shape)} != s shape "
                              f"{tuple(s2.shape)}")
+        if dsum2.dtype != s2.dtype:
+            raise TypeError(f"dsum dtype {dsum2.dtype} != s dtype "
+                            f"{s2.dtype}: the kernel reads dsum in s's dtype")
     if dx_dtype not in _DTYPE_CODE:
         raise TypeError(f"dx dtype {dx_dtype} not supported")
-    if 5 * h * 4 > 227 * 1024:
-        raise ValueError(f"fused LN backward kernel: H={h} exceeds the "
-                         "shared memory of one CTA")
-    gamma = _vector(gamma, h, s2.device)
+    _check_vector(gamma, h, s2.device)
+    if gamma.dtype not in _DTYPE_CODE:
+        raise TypeError(f"gamma dtype {gamma.dtype} not supported "
+                        "(float32 or bfloat16)")
+    gamma = gamma.contiguous()
     dev = s2.device.index or 0
-    grid = _build.function("fused_ln_bwd", "ds_partials_grid",
-                           _GRID_ARGTYPES)(n, dev)
+    rows = [s2, dout2, gamma] + ([dsum2] if dsum2 is not None else [])
+    plan = ln_bwd_plan(n, h, _sm_count(dev), _aligned(*rows))
     dx = torch.empty((n, h), dtype=dx_dtype, device=s2.device)
     sums = torch.empty((3, h), dtype=torch.float32, device=s2.device)
-    work = torch.empty((max(grid, 1), 3, h), dtype=torch.float32,
+    work = torch.empty((max(plan.work_rows, 1), 3, h), dtype=torch.float32,
                        device=s2.device)
+    counters = torch.zeros((plan.counters,), dtype=torch.int32,
+                           device=s2.device)
     fn = _build.function("fused_ln_bwd", "ds_fused_ln_bwd",
                          _LN_BWD_ARGTYPES)
     err = fn(s2.data_ptr(), gamma.data_ptr(), dout2.data_ptr(),
              dsum2.data_ptr() if dsum2 is not None else None,
-             dx.data_ptr(), sums.data_ptr(), work.data_ptr(), n, h,
-             _DTYPE_CODE[s2.dtype], _DTYPE_CODE[dout2.dtype],
-             _DTYPE_CODE[dsum2.dtype] if dsum2 is not None else 0,
-             _DTYPE_CODE[dx_dtype], float(eps), dev, _build.stream_ptr(s2))
+             dx.data_ptr(), sums.data_ptr(), work.data_ptr(),
+             counters.data_ptr(), n, h, _DTYPE_CODE[s2.dtype],
+             _DTYPE_CODE[gamma.dtype], _DTYPE_CODE[dout2.dtype],
+             _DTYPE_CODE[dx_dtype], float(eps), plan.vec, plan.vpt,
+             plan.warps_per_row, plan.groups, plan.grid, plan.fold, dev,
+             _build.stream_ptr(s2))
     _build.check(err, "fused_bias_residual_layernorm backward kernel")
     fused_bias_residual_layernorm_backward.launches += 1
     return dx, sums[0], sums[1], sums[2]

@@ -9,11 +9,17 @@ determine the third), the `bf16` block with `master_weights`,
 (`get_moe_config`), the `quantized_compute` block
 (`get_quantized_compute_config`) and the `sparse_attention` block
 (`get_sparse_attention`), each validated as the JAX package validates
-it.
+it. The `checkpoint`, `async_dispatch`, `autotune` and `overlap` blocks
+are validated with the JAX package's errors too, though the port does
+not act on them yet.
 
-The blocks of later slices raise NotImplementedError naming the ROADMAP
-item that ports them: fp16 and loss scaling, ZeRO offload, pipeline,
-the monitor and progressive layer drop.
+A block that the JAX engine acts on and the port does not yet raises
+NotImplementedError naming the ROADMAP Queue 1 item that ports it
+(`_check_later_slices`): checkpoints (item 2); fp16 and loss scaling,
+progressive layer drop, activation checkpointing, async dispatch,
+wall_clock_breakdown and dump_state (4); overlap (5); pipeline and
+sparse gradients (6); the monitor and tensorboard (8); elasticity, the
+flops profiler and autotune (9).
 """
 
 from deepspeed_tpu_torch.runtime import constants as C
@@ -200,6 +206,133 @@ def get_sparse_attention(param_dict):
     return None
 
 
+def get_checkpoint_config(param_dict):
+    """Validated `checkpoint` block -> dict(tag_validation, async_save,
+    keep_last, writer_queue_depth, queue_policy), with the JAX package's
+    errors (deepspeed_tpu/runtime/config.py get_checkpoint_*)."""
+    block = param_dict.get(C.CHECKPOINT, {})
+    mode = get_scalar_param(block, C.CHECKPOINT_TAG_VALIDATION,
+                            C.CHECKPOINT_TAG_VALIDATION_DEFAULT)
+    mode = mode.capitalize()
+    if mode not in C.CHECKPOINT_TAG_VALIDATION_MODES:
+        raise DeepSpeedConfigError(
+            f"checkpoint.tag_validation mode {mode} not one of "
+            f"{C.CHECKPOINT_TAG_VALIDATION_MODES}")
+    keep = get_scalar_param(block, C.CHECKPOINT_KEEP_LAST,
+                            C.CHECKPOINT_KEEP_LAST_DEFAULT)
+    if keep < 0:
+        raise DeepSpeedConfigError(
+            f"checkpoint.keep_last must be >= 0 (0 = keep all), got {keep}")
+    depth = get_scalar_param(block, C.CHECKPOINT_WRITER_QUEUE_DEPTH,
+                             C.CHECKPOINT_WRITER_QUEUE_DEPTH_DEFAULT)
+    if depth < 1:
+        raise DeepSpeedConfigError(
+            f"checkpoint.writer_queue_depth must be >= 1, got {depth}")
+    policy = get_scalar_param(block, C.CHECKPOINT_QUEUE_POLICY,
+                              C.CHECKPOINT_QUEUE_POLICY_DEFAULT)
+    if policy not in C.CHECKPOINT_QUEUE_POLICIES:
+        raise DeepSpeedConfigError(
+            f"checkpoint.queue_policy {policy!r} not one of "
+            f"{C.CHECKPOINT_QUEUE_POLICIES}")
+    return {"tag_validation": mode,
+            "async_save": bool(get_scalar_param(
+                block, C.CHECKPOINT_ASYNC_SAVE,
+                C.CHECKPOINT_ASYNC_SAVE_DEFAULT)),
+            "keep_last": int(keep), "writer_queue_depth": int(depth),
+            "queue_policy": policy}
+
+
+def get_async_dispatch_config(param_dict):
+    """Validated `async_dispatch` block -> dict(enabled, steps_per_sync,
+    prefetch_depth), with the JAX package's errors."""
+    block = param_dict.get(C.ASYNC_DISPATCH, {})
+    steps = get_scalar_param(block, C.ASYNC_DISPATCH_STEPS_PER_SYNC,
+                             C.ASYNC_DISPATCH_STEPS_PER_SYNC_DEFAULT)
+    if steps < 0:
+        raise DeepSpeedConfigError(
+            f"async_dispatch.steps_per_sync must be >= 0 (0 = follow "
+            f"steps_per_print), got {steps}")
+    depth = get_scalar_param(block, C.ASYNC_DISPATCH_PREFETCH_DEPTH,
+                             C.ASYNC_DISPATCH_PREFETCH_DEPTH_DEFAULT)
+    if depth < 1:
+        raise DeepSpeedConfigError(
+            f"async_dispatch.prefetch_depth must be >= 1, got {depth}")
+    return {"enabled": get_scalar_param(block, C.ASYNC_DISPATCH_ENABLED,
+                                        C.ASYNC_DISPATCH_ENABLED_DEFAULT),
+            "steps_per_sync": int(steps), "prefetch_depth": int(depth)}
+
+
+# the overlap sites of the JAX package's ops/overlap.py (SITES)
+_OVERLAP_SITES = ("moe_dispatch", "ring", "zero3_leaf")
+
+
+def get_overlap_config(param_dict):
+    """Validated `overlap` block -> dict(enabled, sites, issue_distance),
+    with the JAX package's errors; site names are checked against its
+    site registry."""
+    block = param_dict.get(C.OVERLAP, {})
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f'"overlap" must be a dict, got {block!r}')
+    enabled = bool(get_scalar_param(block, C.OVERLAP_ENABLED,
+                                    C.OVERLAP_ENABLED_DEFAULT))
+    sites = block.get(C.OVERLAP_SITES, C.OVERLAP_SITES_DEFAULT)
+    if not (isinstance(sites, str) or
+            (isinstance(sites, (list, tuple)) and
+             all(isinstance(s, str) for s in sites))):
+        raise DeepSpeedConfigError(
+            'overlap.sites must be "auto" or a list of site names, '
+            f"got {sites!r}")
+    names = sites
+    if isinstance(sites, str):
+        names = [] if sites == "auto" else \
+            [s.strip() for s in sites.split(",") if s.strip()]
+    for s in names:
+        if s not in _OVERLAP_SITES:
+            raise DeepSpeedConfigError(
+                f"overlap.sites: unknown site {s!r} "
+                f"(valid: {', '.join(_OVERLAP_SITES)}, or 'auto')")
+    dist = get_scalar_param(block, C.OVERLAP_ISSUE_DISTANCE,
+                            C.OVERLAP_ISSUE_DISTANCE_DEFAULT)
+    if not _is_int(dist) or dist < 1:
+        raise DeepSpeedConfigError(
+            f"overlap.issue_distance must be an int >= 1, got {dist!r}")
+    known = {C.OVERLAP_ENABLED, C.OVERLAP_SITES, C.OVERLAP_ISSUE_DISTANCE}
+    unknown = set(block) - known
+    if unknown:
+        logger.warning(f"overlap: ignoring unknown key(s) {sorted(unknown)}; "
+                       f"known keys: {sorted(known)}")
+    return {"enabled": enabled,
+            "sites": sites if isinstance(sites, str) else list(sites),
+            "issue_distance": dist}
+
+
+def get_autotune_config(param_dict):
+    """Validated `autotune` block -> dict(enabled, table_path)."""
+    block = param_dict.get(C.AUTOTUNE, {})
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f'"autotune" must be a dict, got {block!r}')
+    enabled = bool(get_scalar_param(block, C.AUTOTUNE_ENABLED,
+                                    C.AUTOTUNE_ENABLED_DEFAULT))
+    path = get_scalar_param(block, C.AUTOTUNE_TABLE_PATH,
+                            C.AUTOTUNE_TABLE_PATH_DEFAULT)
+    if not isinstance(path, str):
+        raise DeepSpeedConfigError(
+            f"autotune.table_path must be a string, got {path!r}")
+    return {"enabled": enabled, "table_path": path}
+
+
+# the activation_checkpointing switches the JAX engine acts on
+# (deepspeed_tpu/runtime/activation_checkpointing/config.py), and the
+# flops_profiler block's switch (deepspeed_tpu/profiling/config.py)
+_ACTIVATION_CHKPT = "activation_checkpointing"
+_ACT_CHKPT_SWITCHES = ("partition_activations", "cpu_checkpointing",
+                       "contiguous_memory_optimization",
+                       "synchronize_checkpoint_boundary", "profile")
+_FLOPS_PROFILER = "flops_profiler"
+
+
 def _block_type_and_params(param_dict, key):
     block = param_dict.get(key) or {}
     name = block.get(C.TYPE) if isinstance(block, dict) else None
@@ -228,23 +361,49 @@ class DeepSpeedConfig:
         self._param_dict = load_config_dict(json_file_or_dict)
         self.world_size = world_size
         self.amp_enabled, self.amp_params = get_amp_config(self._param_dict)
-        self._check_later_slices(self._param_dict)
         self._initialize_params(self._param_dict)
+        self._check_later_slices(self._param_dict)
         self._configure_train_batch_size()
 
-    @staticmethod
-    def _check_later_slices(d):
+    def _check_later_slices(self, d):
+        """Raise on a block the JAX engine acts on and the port does not
+        yet, naming the ROADMAP Queue 1 item that ports it. Runs after
+        the blocks are validated, so a bad value fails as it does in the
+        JAX package."""
         if _block_enabled(d, C.FP16, C.FP16_ENABLED):
             raise _later("fp16 with loss scaling "
                          "(runtime/fp16/loss_scaler.py); use bf16", 4)
         if _block_enabled(d, C.PROGRESSIVE_LAYER_DROP, C.PLD_ENABLED):
             raise _later("progressive layer drop", 4)
+        if d.get(C.CHECKPOINT):
+            raise _later("the checkpoint block (runtime/checkpoint.py: "
+                         "async_save, keep_last, tag_validation, the "
+                         "writer queue)", 2)
+        act = d.get(_ACTIVATION_CHKPT) or {}
+        if any(act.get(k) for k in _ACT_CHKPT_SWITCHES):
+            raise _later("the activation_checkpointing block", 4)
+        if C.ASYNC_DISPATCH in d and self.async_dispatch_enabled:
+            raise _later("the async_dispatch block (runtime/prefetch.py)", 4)
+        if d.get(C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT):
+            raise _later("wall_clock_breakdown", 4)
+        if d.get(C.DUMP_STATE, C.DUMP_STATE_DEFAULT):
+            raise _later("dump_state", 4)
+        if C.OVERLAP in d and self.overlap["enabled"]:
+            raise _later("the overlap block (ops/overlap.py)", 5)
         if d.get(C.PIPELINE):
             raise _later("pipeline parallelism", 6)
+        if d.get(C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT):
+            raise _later("sparse_gradients (runtime/csr_tensor.py)", 6)
         if _block_enabled(d, C.MONITOR, C.MONITOR_ENABLED):
             raise _later("the monitor block", 8)
+        if _block_enabled(d, C.TENSORBOARD, C.TENSORBOARD_ENABLED):
+            raise _later("the tensorboard block", 8)
         if _block_enabled(d, C.ELASTICITY, C.ELASTICITY_ENABLED):
             raise _later("elasticity (elastic batch resolution)", 9)
+        if _block_enabled(d, _FLOPS_PROFILER):
+            raise _later("the flops_profiler block", 9)
+        if C.AUTOTUNE in d and self.autotune["enabled"]:
+            raise _later("the autotune block (ops/autotune.py)", 9)
 
     def _initialize_params(self, d):
         self.train_batch_size = get_scalar_param(
@@ -284,6 +443,23 @@ class DeepSpeedConfig:
         self.moe = get_moe_config(d)
         self.quantized_compute = get_quantized_compute_config(d)
         self.sparse_attention = get_sparse_attention(d)
+
+        # validated as the JAX package validates them, and kept under its
+        # attribute names; `_check_later_slices` refuses what they enable
+        ck = get_checkpoint_config(d)
+        self.checkpoint_tag_validation_enabled = \
+            ck["tag_validation"] != "Ignore"
+        self.checkpoint_tag_validation_fail = ck["tag_validation"] == "Fail"
+        self.checkpoint_async_save = ck["async_save"]
+        self.checkpoint_keep_last = ck["keep_last"]
+        self.checkpoint_writer_queue_depth = ck["writer_queue_depth"]
+        self.checkpoint_queue_policy = ck["queue_policy"]
+        ad = get_async_dispatch_config(d)
+        self.async_dispatch_enabled = ad["enabled"]
+        self.async_dispatch_steps_per_sync = ad["steps_per_sync"]
+        self.async_dispatch_prefetch_depth = ad["prefetch_depth"]
+        self.autotune = get_autotune_config(d)
+        self.overlap = get_overlap_config(d)
 
     def _set_batch_related_parameters(self):
         train_batch = self.train_batch_size

@@ -1,7 +1,8 @@
 """Config keys and defaults (trimmed copy of
 deepspeed_tpu/runtime/constants.py: the training keys the engine reads,
-the `inference` block, the `moe` and `quantized_compute` blocks, and
-the switches of the blocks
+the `inference` block, the `moe` and `quantized_compute` blocks, the
+`checkpoint`, `async_dispatch`, `autotune` and `overlap` blocks the
+config validates, and the switches of the blocks
 that later slices port). Values are identical to the JAX package's;
 tests/test_torch_inference.py and tests/test_torch_engine.py hold them
 equal."""
@@ -81,6 +82,54 @@ PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 PLD_ENABLED = "enabled"
 PLD_ENABLED_DEFAULT = False
 PIPELINE = "pipeline"
+
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+DUMP_STATE = "dump_state"
+DUMP_STATE_DEFAULT = False
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+
+# the blocks the port validates as the JAX package does and then, where
+# it asks for something the port does not do yet, refuses
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+CHECKPOINT_ASYNC_SAVE = "async_save"
+CHECKPOINT_ASYNC_SAVE_DEFAULT = True
+CHECKPOINT_KEEP_LAST = "keep_last"
+CHECKPOINT_KEEP_LAST_DEFAULT = 0
+CHECKPOINT_WRITER_QUEUE_DEPTH = "writer_queue_depth"
+CHECKPOINT_WRITER_QUEUE_DEPTH_DEFAULT = 1
+CHECKPOINT_QUEUE_POLICY = "queue_policy"
+CHECKPOINT_QUEUE_POLICY_DEFAULT = "block"
+CHECKPOINT_QUEUE_POLICIES = ["block", "drop"]
+
+ASYNC_DISPATCH = "async_dispatch"
+ASYNC_DISPATCH_ENABLED = "enabled"
+ASYNC_DISPATCH_ENABLED_DEFAULT = True
+ASYNC_DISPATCH_STEPS_PER_SYNC = "steps_per_sync"
+ASYNC_DISPATCH_STEPS_PER_SYNC_DEFAULT = 0
+ASYNC_DISPATCH_PREFETCH_DEPTH = "prefetch_depth"
+ASYNC_DISPATCH_PREFETCH_DEPTH_DEFAULT = 2
+
+AUTOTUNE = "autotune"
+AUTOTUNE_ENABLED = "enabled"
+AUTOTUNE_ENABLED_DEFAULT = True
+AUTOTUNE_TABLE_PATH = "table_path"
+AUTOTUNE_TABLE_PATH_DEFAULT = ""
+
+OVERLAP = "overlap"
+OVERLAP_ENABLED = "enabled"
+OVERLAP_ENABLED_DEFAULT = True
+OVERLAP_SITES = "sites"
+OVERLAP_SITES_DEFAULT = "auto"
+OVERLAP_ISSUE_DISTANCE = "issue_distance"
+OVERLAP_ISSUE_DISTANCE_DEFAULT = 1
 
 #############################################
 # Quantized compute (ops/transformer/quantized_matmul.py, kernel K6):

@@ -7,6 +7,11 @@
     python3 kernel_variants.py qmm         # K6 with parts switched off
     python3 kernel_variants.py sparse_bwd  # K7-dkv and K7-dq on Hopper
     python3 kernel_variants.py gelu        # K4-fwd and K4-bwd
+    python3 kernel_variants.py ln_bwd      # K3-bwd
+    python3 kernel_variants.py sparse_fwd  # K7-fwd on Hopper
+    python3 kernel_variants.py compare DIR [phase ...]
+                                           # chip_smoke.py phases from the
+                                           # tree DIR and this one, in turns
 
 Each variant is a copy of deepspeed_tpu_torch/ops/csrc/ with a few text
 substitutions (a product, the softmax, an epilogue or a whole sweep
@@ -22,7 +27,12 @@ kernel's layouts) with torch._int_mm and the bf16 matmul beside them,
 Hopper sweeps at the sparse path's shape ([1, 16384, 16, 64] bf16,
 block 256, causal) under BSLongformer, Fixed and BigBird, `gelu` K4-fwd
 and K4-bwd (tanh form, bf16 rows) at the serving, decode, training and
-MoE shapes with torch's own GeLU forward and backward beside them. A
+MoE shapes with torch's own GeLU forward and backward beside them,
+`ln_bwd` K3-bwd at the training (block and ln_f forms) and MoE shapes
+and at the gpt2-6.7b and gpt2-13b widths beside torch's LayerNorm
+backward, `sparse_fwd` K7-fwd on the Hopper
+body under BigBird at head dims 64 and 128 beside the WMMA table
+forward. A
 variant with a part switched off computes garbage: it is timed, never
 checked (`chip_smoke.py` and tests/test_torch_cuda.py check the kernels).
 A substitution that no longer applies to the sources fails the run.
@@ -164,11 +174,40 @@ BWD_NO_DBIAS = (GB, "  // 1. the CTA's partial row: its warps' sums in warp "
 # the CTAs write their partial rows, and nothing counts or folds them
 BWD_NO_LAST_FOLD = (GB, "  // 2. publish it, and count the CTAs of this "
                     "(group, strip) done\n", "  if (w > 0) return;\n")
-# the partial rows folded by row_partials.cuh's col_reduce_kernel, a
-# second launch (K4-bwd's fold before this layout)
+# the fold of partial rows by a second launch (K4-bwd's and K3-bwd's
+# before their Hopper layouts): out[g, c] is the sum over p of
+# partial[g * parts + p, c], added in order p = 0, 1, ...
+COL_REDUCE_SRC = """
+namespace ds_partials {
+constexpr int kThreads = 256;
+__global__ void __launch_bounds__(kThreads)
+col_reduce_kernel(const float* __restrict__ partial, int parts, int cols,
+                  int groups, float* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(groups) * cols) return;
+  const int g = static_cast<int>(i / cols);
+  const int c = static_cast<int>(i % cols);
+  const float* base = partial + static_cast<long long>(g) * parts * cols;
+  float acc = 0.f;
+  for (int p = 0; p < parts; ++p)
+    acc += base[static_cast<long long>(p) * cols + c];
+  out[i] = acc;
+}
+inline void col_reduce(const void* workspace, int parts, int cols, void* out,
+                       cudaStream_t st, int groups = 1) {
+  const long long total = static_cast<long long>(groups) * cols;
+  col_reduce_kernel<<<static_cast<int>((total + kThreads - 1) / kThreads),
+                      kThreads, 0, st>>>(
+      static_cast<const float*>(workspace), parts, cols, groups,
+      static_cast<float*>(out));
+}
+}  // namespace ds_partials
+"""
+# the partial rows folded by col_reduce_kernel, a second launch
 BWD_COL_REDUCE = [BWD_NO_LAST_FOLD,
                   (GB, '#include "gelu_rows.cuh"\n',
-                   '#include "gelu_rows.cuh"\n#include "row_partials.cuh"\n'),
+                   '#include "gelu_rows.cuh"\n' + COL_REDUCE_SRC),
                   (GB, "      });\n    });\n  });\n  return static_cast<int>("
                    "cudaGetLastError());",
                    "      });\n    });\n  });\n  ds_partials::col_reduce("
@@ -209,6 +248,60 @@ STREAMING_HINTS = [
      "    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], "
      "v[3]));\n    __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], "
      "v[5], v[6], v[7]));")]
+
+
+# K3-bwd (fused_ln_bwd.cu): the row exchange, the math, the column sums
+# and their folds, the next row's prefetch, the CTA's shape
+LB = "fused_ln_bwd.cu"
+LN_NO_REDUCTIONS = [(LB, "    group_sum(st, red + parity * 4 * wpr, wpr, "
+                     "warp, lane, bar);\n", "")]
+LN_NO_MATH = (LB, "        float ds = rstd * (dv[k] * gv[k] - mean_dxhat - "
+              "xhat * mean_dxhat_x);", "        float ds = sv[k] + dv[k];")
+# no column sums: the sums, the CTA's partial row and every fold off
+LN_NO_SUMS = (LB, "  // the CTA's partial row: its groups' sums added in group "
+              "order\n", "  if (h > 0) return;\n")
+# the CTAs write their partial rows, and nothing counts or folds them
+LN_NO_FOLD = (LB, "  // the last CTA of this fold group adds the group's "
+              "partial rows in CTA\n", "  if (h > 0) return;\n")
+# the partial rows folded by col_reduce_kernel, a second launch
+LN_COL_REDUCE = [LN_NO_FOLD,
+                 (LB, '#include "gelu_rows.cuh"\n',
+                  '#include "gelu_rows.cuh"\n' + COL_REDUCE_SRC),
+                 (LB, "      });\n    });\n  });\n  return static_cast<int>("
+                  "cudaGetLastError());",
+                  "      });\n    });\n  });\n  ds_partials::col_reduce("
+                  "workspace, grid, 3 * h, sums, st);\n"
+                  "  return static_cast<int>(cudaGetLastError());")]
+# each row fetched after the last row's math and stores, not before them
+LN_NO_PREFETCH = [(LB, "constexpr bool kPrefetch = V == 1 || sizeof(ST) == 2;",
+                   "constexpr bool kPrefetch = false;")]
+
+
+# CTAs of up to 21 warps (14 in the kernel): ptxas sizes 672 threads as
+# 768, 85 registers a lane
+LN_21_WARPS = (LB, "constexpr int kMaxWarps = 14;",
+               "constexpr int kMaxWarps = 21;")
+
+
+# the plan's (warps a CTA, CTAs per SM) where a variant sets them (14
+# and 1 in the kernel's plan)
+LN_VARIANT_PLANS = {"7_warp_ctas_2_per_sm": dict(warps=7, per_sm=2),
+                    "21_warp_ctas": dict(warps=21)}
+
+
+# K7-fwd on the Hopper body (bs_fwd_kernel_sm90): two CTAs per SM at D
+# 128 (one in the kernel; two spill), the masks, the walks cut short;
+# NATURAL_ORDER and SHORT_WALKS above apply to it too
+FWD_TABLE_2_PER_SM = (B, "  static constexpr int kBlocks = D == 64 ? 2 : 1;\n"
+                      "  static size_t bytes(int nmax) { return walk + 12 * "
+                      "size_t(nmax) + 1024; }\n};\n\n// bf16 at D 64 and 128: "
+                      "one CTA per (b*h, 128-row q tile) over the\n// forward",
+                      "  static constexpr int kBlocks = 2;\n"
+                      "  static size_t bytes(int nmax) { return walk + 12 * "
+                      "size_t(nmax) + 1024; }\n};\n\n// bf16 at D 64 and 128: "
+                      "one CTA per (b*h, 128-row q tile) over the\n// forward")
+FWD_NO_MASK = (H, "      if (walk.partial(it, q0, 64, k0, kN))\n        hide(s,",
+               "      if (it < 0)\n        hide(s,")
 
 
 def unroll(rows):
@@ -293,6 +386,25 @@ SETS = {
             "no_prefetch": BWD_NO_PREFETCH,
             "streaming_hints": STREAMING_HINTS}),
     }),
+    "ln_bwd": ("fused_ln_bwd", {
+        "kernel": [],
+        "no_row_exchange": LN_NO_REDUCTIONS,
+        "math_off": [LN_NO_MATH],
+        "no_column_sums": [LN_NO_SUMS],
+        "loads_stores_only": LN_NO_REDUCTIONS + [LN_NO_MATH, LN_NO_SUMS],
+        "no_last_fold": [LN_NO_FOLD],
+        "col_reduce_fold": LN_COL_REDUCE,
+        "no_prefetch": LN_NO_PREFETCH,
+        "7_warp_ctas_2_per_sm": [],
+        "21_warp_ctas": [LN_21_WARPS],
+    }),
+    "sparse_fwd": ("block_sparse_attention", {
+        "kernel": [],
+        "natural_order": [NATURAL_ORDER],
+        "d128_2_ctas_per_sm": [FWD_TABLE_2_PER_SM],
+        "no_masks": [FWD_NO_MASK],
+        "walks_cut_to_64_steps": [SHORT_WALKS],
+    }),
     "qmm": ("quantized_matmul", {
         "kernel": [],
         "no_products": [QMM_NO_PRODUCTS],
@@ -357,6 +469,8 @@ def use(lib, path, original):
 
 
 def main(argv):
+    if len(argv) >= 2 and argv[0] == "compare":
+        return compare(argv[1], argv[2:] or COMPARE_PHASES)
     if len(argv) != 1 or argv[0] not in SETS:
         print(__doc__, file=sys.stderr)
         return 2
@@ -389,6 +503,10 @@ def main(argv):
         return time_sparse_bwd(variants, procs, cs, gen)
     if argv[0] == "gelu":
         return time_gelu(variants, procs, cs, gen)
+    if argv[0] == "ln_bwd":
+        return time_ln_bwd(variants, procs, cs, gen)
+    if argv[0] == "sparse_fwd":
+        return time_sparse_fwd(variants, procs, cs, gen)
     cases, sdpa = [], {}
     for shape, causal in SHAPES:
         q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
@@ -562,6 +680,198 @@ def time_gelu(variants, procs, cs, gen):
         print(json.dumps({"variant": n, "library": lib,
                           "ctas_per_sm": GELU_VARIANT_PLANS.get(n, default),
                           "ms": ms}), flush=True)
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+# K3-bwd's shapes on the main paths, then at the widths of the
+# gpt2-6.7b and gpt2-13b presets (two vectors a lane; on no path):
+# (label, N, H, dout dtype, with dsum)
+LN_BWD_SHAPES = (("training N11264 H1600", 11264, 1600, "bf16", True),
+                 ("training ln_f N11264 H1600", 11264, 1600, "fp32", False),
+                 ("MoE N16384 H1024", 16384, 1024, "bf16", True),
+                 ("gpt2-6.7b N11264 H4096", 11264, 4096, "bf16", True),
+                 ("gpt2-13b N11264 H5120", 11264, 5120, "bf16", True))
+
+
+def time_ln_bwd(variants, procs, cs, gen):
+    """K3-bwd's variants through the port's wrapper (bf16 s, dsum, dx and
+    gamma; dout bf16, or fp32 on the ln_f form), each under its plan,
+    back to back (`ms`) and as device time from a CUDA graph (`graph_ms`,
+    the median of three), and torch's own LayerNorm backward (dx, dgamma, dbeta of a plain
+    LayerNorm, no dsum: a yardstick) at the same shapes."""
+    import torch
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    bf16, cases, yard = torch.bfloat16, [], {}
+    for label, n, h, d_dt, with_dsum in LN_BWD_SHAPES:
+        s, dsum = (torch.randn((n, h), generator=gen, device="cuda").to(bf16)
+                   for _ in range(2))
+        dout = torch.randn((n, h), generator=gen, device="cuda").to(
+            torch.float32 if d_dt == "fp32" else bf16)
+        gamma = (1.0 + 0.1 * torch.randn((h,), generator=gen,
+                                         device="cuda")).to(bf16)
+        cases.append((label, s, gamma, dout, dsum if with_dsum else None))
+        mean = s.float().mean(-1, keepdim=True)
+        rstd = torch.rsqrt(s.float().var(-1, keepdim=True) + 1e-5)
+        yard[label] = dict(
+            aten_layer_norm_backward_ms=cs.time_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dout.to(bf16), s, [h], mean, rstd, gamma, gamma,
+                    [True, True, True])),
+            # s, dout, dsum read and dx written once; gamma, the sums
+            bound_ms=(n * h * (2 + dout.element_size() + 2 * with_dsum + 2)
+                      + 14 * h) / 3.35e12 * 1e3)
+    print(json.dumps({"yardsticks": yard}), flush=True)
+    original, defaults = _build.function, (fo._sm_count,
+                                           fo._LN_BWD_MAX_WARPS)
+    for n, (lib, _) in variants.items():
+        use(lib, procs[n][1], original)
+        plan = LN_VARIANT_PLANS.get(n, {})
+        # CTAs per SM: the plan sizes the grid to one CTA per SM
+        per_sm = plan.get("per_sm", 1)
+        fo._sm_count = lambda dev, per_sm=per_sm: per_sm * defaults[0](dev)
+        fo._LN_BWD_MAX_WARPS = plan.get("warps", defaults[1])
+        fo.ln_bwd_plan.cache_clear()
+        try:
+            ms, dev = {}, {}
+            for label, s, gamma, dout, dsum in cases:
+                def run():
+                    return fo.fused_bias_residual_layernorm_backward(
+                        s, gamma, dout, dsum)
+                try:
+                    fo.ln_bwd_plan(*s.shape, fo._sm_count(0))
+                except ValueError:      # the variant's CTA has no layout
+                    ms[label] = dev[label] = None
+                    continue
+                ms[label] = cs.time_ms(run)
+                # device time alone (a CUDA graph of 20 calls), the
+                # median of three
+                dev[label] = sorted(cs.graph_ms(run) for _ in range(3))[1]
+        finally:
+            _build.function = original
+            fo._sm_count, fo._LN_BWD_MAX_WARPS = defaults
+            fo.ln_bwd_plan.cache_clear()
+        with open(procs[n][1] + ".log") as f:
+            ptxas = cs.sm90_ptxas(f.read())
+        print(json.dumps({"variant": n, "library": lib, "plan": plan,
+                          "ms": ms, "graph_ms": dev, "ptxas": ptxas}),
+              flush=True)
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+def time_sparse_fwd(variants, procs, cs, gen):
+    """K7-fwd's variants on the Hopper body at the sparse path's BigBird
+    ([1, 16384, 16, 64] bf16, block 256, causal) and at head dim 128
+    ([1, 16384, 8, 128]), with the WMMA table forward beside them."""
+    import torch
+    from deepspeed_tpu_torch.ops import _build
+    bsa = cs._sparse()
+    cases = []
+    for h, d in ((16, 64), (8, 128)):
+        layout = cs.sparse_config("bigbird", h=h).make_layout(16384)
+        q, k, v = (torch.randn((1, 16384, h, d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        pair = bsa._plan(layout, True, 256, bsa._SM90_TILES, q.device)
+        square = bsa._plan(layout, True, 256, bsa.TILE, q.device)
+        label = f"bigbird causal [1, 16384, {h}, {d}]"
+        cases.append((label, (q, k, v), pair, d ** -0.5))
+        print(json.dumps({"wmma_table_forward": label, "ms": cs.time_ms(
+            lambda: bsa._bs_fwd_launch(q, k, v, square, d ** -0.5))}),
+            flush=True)
+    original = _build.function
+    for n, (lib, _) in variants.items():
+        use(lib, procs[n][1], original)
+        ms = {label: cs.time_ms(lambda: bsa._bs_fwd_sm90_launch(*qkv, pair,
+                                                                 sm))
+              for label, qkv, pair, sm in cases}
+        _build.function = original
+        print(json.dumps({"variant": n, "library": lib, "ms": ms}),
+              flush=True)
+    print(cs.card_line(), flush=True)
+    return 0
+
+
+# `compare`'s phases: chip_smoke.py functions that time the kernels this
+# tree changed, run from each tree; and `ln_bwd_wide`, K3-bwd through
+# each tree's wrapper at LN_BWD_SHAPES's preset widths (bf16 rows,
+# gamma and dsum), back to back (`ms`) and from a CUDA graph
+# (`graph_ms`)
+COMPARE_PHASES = ("kernel_ln_bwd", "kernel_ln", "ln_bwd_wide")
+COMPARE_CODE = """
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke as cs
+from deepspeed_tpu_torch.ops import _build
+assert cs.__file__.startswith({root!r})
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.build_all()
+peaks = cs.peaks_for(torch.cuda.get_device_name(0))
+# the paths (seed, card) rather than kernel phases (peaks, generator)
+PATHS = ("sparse_attention_path", "train_and_check", "moe_train_and_check")
+
+
+def ln_bwd_wide(gen):
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    res = {{}}
+    for label, n, h in {wide!r}:
+        s, dout, dsum = (torch.randn((n, h), generator=gen, device="cuda")
+                         .to(torch.bfloat16) for _ in range(3))
+        gamma = (1.0 + 0.1 * torch.randn((h,), generator=gen,
+                                         device="cuda")).to(torch.bfloat16)
+        def run():
+            return fo.fused_bias_residual_layernorm_backward(
+                s, gamma, dout, dsum)
+        res[label] = dict(ms=cs.time_ms(run), graph_ms=cs.graph_ms(run))
+    return res
+
+
+for phase in {phases!r}:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    if phase == "ln_bwd_wide":
+        res = ln_bwd_wide(gen)
+    else:
+        fn = getattr(cs, phase)
+        res = fn(0, cs.card_line()) if phase in PATHS else fn(peaks, gen)[0]
+    print(json.dumps({{"tree": {label!r}, "phase": phase, "result": res}},
+                     default=str), flush=True)
+"""
+
+
+def compare(parent, phases):
+    """Time `phases` (chip_smoke.py functions: kernel phases, or the
+    paths in PATHS with their own lines; or `ln_bwd_wide`) from another
+    tree (the parent
+    commit unpacked under build/, say) and from this one, in turns:
+    parent, this, this, parent, each in its own process with its own
+    build. Prints each process's JSON lines under a marker line, then the
+    card line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    parent = os.path.abspath(parent)
+    for label, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                        ("parent", parent)):
+        code = COMPARE_CODE.format(
+            root=root, phases=tuple(phases), label=label,
+            wide=[(lb, n, h) for lb, n, h, _, _ in LN_BWD_SHAPES
+                  if lb.startswith("gpt2")])
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True)
+        # the phases' own lines (the paths emit theirs) under a marker
+        print(json.dumps({"tree": label, "root": root}), flush=True)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-4000:])
+            return proc.returncode
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
     print(cs.card_line(), flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 """PyTorch port: the CUDA kernels on the card (kernels K1-fwd, K2,
-K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2, K5, K7-band,
-K7-dkv and K7-dq in bf16 at head dims 64 and 128 on their Hopper
-bodies) against their plain
+K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2, K5, K7-fwd,
+K7-band, K7-dkv and K7-dq in bf16 at head dims 64 and 128 on their
+Hopper bodies) against their plain
 PyTorch twins, the serving engine against the kernel-driven forward,
 and a training step on the kernels against the plain-torch route.
 
@@ -460,6 +460,146 @@ def test_layernorm_backward_kernel_matches_twin(dev, h, dtype, with_dsum):
     # deterministic: a second launch repeats bit for bit
     again = tfo.fused_bias_residual_layernorm_backward(s, gamma, dout, dsum)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+# K3-bwd's edges: (N, H, s dtype, dout dtype, gamma dtype, with dsum,
+# storage offset of dout in elements)
+LN_BWD_EDGES = {
+    "N1-H1600-bf16-gamma": (1, 1600, BF16, BF16, BF16, True, 0),
+    "N4-H1600-fp32-gamma": (4, 1600, BF16, BF16, F32, True, 0),
+    "N301-H1601-odd": (301, 1601, BF16, BF16, F32, True, 0),
+    "N300-H1600-dout-offset-1": (300, 1600, BF16, BF16, BF16, True, 1),
+    "N300-H1600-ln_f-fp32-dout": (300, 1600, BF16, F32, BF16, False, 0),
+    "N37-H1024-bf16-gamma": (37, 1024, BF16, BF16, BF16, True, 0),
+    "N33-H100-fp32": (33, 100, F32, F32, F32, True, 0),
+    "N7-H2560-ten-warps-a-row": (7, 2560, BF16, BF16, BF16, True, 0),
+    "N11-H5120-four-vectors-a-lane": (11, 5120, BF16, BF16, BF16, True, 0),
+    "N5-H5121-four-vectors-scalar": (5, 5121, BF16, BF16, F32, True, 0),
+    "N9-H4096-fp32-four-vectors": (9, 4096, F32, F32, F32, True, 0),
+    "N9-H4100-fp32-four-vectors-scalar": (9, 4100, F32, BF16, F32, True, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(LN_BWD_EDGES))
+def test_layernorm_backward_kernel_edges(dev, case):
+    """K3-bwd's layout at its edges against `_ln_bwd_math`: gamma in fp32
+    and bf16 (read in its own dtype: the launch is the only kernel the
+    wrapper runs beside the counters' zero fill, no cast), an odd H
+    (scalar accesses), a view one element into its storage (unaligned:
+    scalar accesses), N = 1, the ln_f form, rows of 10 warps, four
+    vectors a lane (16-byte and scalar accesses; fp32 rows there fetch
+    the next row after this one's math); one launch per call, two
+    launches bit-identical."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n, h, s_dt, d_dt, g_dt, with_dsum, offset = LN_BWD_EDGES[case]
+    g = _gen(dev, 40)
+    s = (2.0 * torch.randn((n, h), generator=g, device=dev)).to(s_dt)
+    gamma = (1.0 + 0.1 * torch.randn((h,), generator=g, device=dev)).to(g_dt)
+    dout = torch.randn((n * h + offset,), generator=g, device=dev).to(d_dt)
+    dout = dout[offset:].view(n, h)
+    dsum = torch.randn((n, h), generator=g, device=dev).to(s_dt) \
+        if with_dsum else None
+    before = tfo.fused_bias_residual_layernorm_backward.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tfo.fused_bias_residual_layernorm_backward(s, gamma, dout, dsum)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert kernels, "the profiler recorded no device kernels"
+    assert sum("ln_bwd_kernel" in k for k in kernels) == 1, kernels
+    assert not any("copy" in k for k in kernels), kernels
+    again = tfo.fused_bias_residual_layernorm_backward(s, gamma, dout, dsum)
+    torch.cuda.synchronize()
+    assert tfo.fused_bias_residual_layernorm_backward.launches == before + 2
+    ds, dg_rows, db_rows = tfo._ln_bwd_math(s, gamma, dout, dsum, 1e-5)
+    ref = (ds.to(s_dt), ds.sum(0), dg_rows.sum(0), db_rows.sum(0))
+    assert got[0].dtype == s_dt and got[0].shape == (n, h)
+    for x, y in zip(got, ref):
+        assert _rel_l2(x, y) <= GRAD_TOL[s_dt]
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+# A kernel that fills the shared memory of as many CTAs as the card
+# holds at once with 0xFF bytes (a NaN as fp32), so that a later kernel
+# reading shared memory it never wrote sees NaNs there
+POISON_SMEM_CU = r"""
+#include <cuda_runtime.h>
+__global__ void poison_kernel(int words) {
+  extern __shared__ unsigned int smem[];
+  volatile unsigned int* p = smem;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) p[i] = 0xffffffffu;
+}
+extern "C" int poison_smem(int device, void* stream) {
+  int bytes = 0, sms = 0;
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaFuncSetAttribute(poison_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  poison_kernel<<<4 * sms, 1024, bytes, static_cast<cudaStream_t>(stream)>>>(
+      bytes / 4);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def poison_smem(tmp_path_factory):
+    """poison_smem(): launch the 0xFF fill on the current stream."""
+    import ctypes
+    import subprocess
+    from deepspeed_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    d = tmp_path_factory.mktemp("poison_smem")
+    src, lib = d / "poison_smem.cu", d / "poison_smem.so"
+    src.write_text(POISON_SMEM_CU)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).poison_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+
+    def poison():
+        dev = torch.cuda.current_device()
+        _build.check(fn(dev, torch.cuda.current_stream().cuda_stream),
+                     "poison_smem")
+    return poison
+
+
+@pytest.mark.parametrize("h", [1600, 1601, 100])
+def test_layernorm_backward_reads_no_stale_shared_memory(dev, poison_smem,
+                                                         h):
+    """K3-bwd right after a kernel that leaves every SM's shared memory
+    full of NaNs: lanes past the row's end (24 of 224 at H 1600 and
+    23 at H 1601, 19 of 32 at H 100) own no columns and must read none
+    of gamma's shared copy, whose words past the row are the partial
+    row's, unwritten until after the rows. dx and the sums stay finite
+    and match `_ln_bwd_math`."""
+    g = _gen(dev, 41)
+    n = 300
+    s = (2.0 * torch.randn((n, h), generator=g, device=dev)).to(BF16)
+    gamma = (1.0 + 0.1 * torch.randn((h,), generator=g, device=dev)).to(BF16)
+    dout, dsum = (torch.randn((n, h), generator=g, device=dev).to(BF16)
+                  for _ in range(2))
+    poison_smem()
+    got = tfo.fused_bias_residual_layernorm_backward(s, gamma, dout, dsum)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in got)
+    ds, dg_rows, db_rows = tfo._ln_bwd_math(s, gamma, dout, dsum, 1e-5)
+    ref = (ds.to(BF16), ds.sum(0), dg_rows.sum(0), db_rows.sum(0))
+    for x, y in zip(got, ref):
+        assert _rel_l2(x, y) <= GRAD_TOL[BF16]
+
+
+def test_layernorm_backward_refuses_a_dsum_in_another_dtype(dev):
+    """The kernel reads dsum in s's dtype; another dtype raises rather
+    than being cast."""
+    s = torch.zeros((4, 64), device=dev, dtype=BF16)
+    with pytest.raises(TypeError, match="dsum"):
+        tfo.fused_bias_residual_layernorm_backward(
+            s, torch.ones(64, device=dev), s, s.float())
 
 
 # K4-bwd's cases: (N, W, storage offset of the cotangent in elements,
@@ -963,13 +1103,22 @@ def _bwd_launches(hopper):
     return tbsa._bs_bwd_dkv_launch, tbsa._bs_bwd_dq_launch
 
 
+def _fwd_launches():
+    """The launches of the four K7 forward kernels (band and table, each
+    on the Hopper and the WMMA body)."""
+    return sum(f.launches for f in (
+        tbsa._band_fwd_launch, tbsa._band_fwd_sm90_launch,
+        tbsa._bs_fwd_launch, tbsa._bs_fwd_sm90_launch))
+
+
 def _k7_case(dev, layout, block, causal, dtype, d, seed, b=2):
     """Each K7 kernel the layout routes to, against its twin on the same
     inputs (q/k/v as column slices of one qkv tensor): the forward's out
-    and lse (the band forward on the Hopper body in bf16 at head dims 64
-    and 128, with its 128 x 64 plan), then dq/dk/dv from the kernel's own
-    (out, lse) (on the Hopper sweeps over the 128 x 64 plan's pair tables
-    in bf16 at head dims 64 and 128, as the public route takes them)."""
+    and lse (the band or the table forward, on the Hopper body in bf16 at
+    head dims 64 and 128 with the 128 x 64 plan), then dq/dk/dv from the
+    kernel's own (out, lse) (on the Hopper sweeps over the 128 x 64 plan's
+    pair tables in bf16 at head dims 64 and 128), as the public route
+    takes them. Returns the square plan."""
     g = _gen(dev, seed)
     h, nb, _ = layout.shape
     t = nb * block
@@ -978,22 +1127,23 @@ def _k7_case(dev, layout, block, causal, dtype, d, seed, b=2):
     dout = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
     plan = tbsa._plan(layout, causal, block, tbsa.TILE, q.device)
     tiles = tbsa._hopper_tiles(dtype, d, tbsa.TILE)
-    bwd_plan = tbsa._plan(layout, causal, block, tiles, q.device)
-    fwd_plan = bwd_plan if bwd_plan.band is not None else plan
+    pair = tbsa._plan(layout, causal, block, tiles, q.device)
     sm = d ** -0.5
+    hopper = tiles != (tbsa.TILE, tbsa.TILE)
     if plan.band is None:
-        launch, plain = tbsa._bs_fwd_launch, tbsa._bs_fwd_plain
-    elif tiles != (tbsa.TILE, tbsa.TILE):
-        launch, plain = tbsa._band_fwd_sm90_launch, tbsa._band_fwd_plain
+        launch = tbsa._bs_fwd_sm90_launch if hopper else tbsa._bs_fwd_launch
+        plain = tbsa._bs_fwd_plain
     else:
-        launch, plain = tbsa._band_fwd_launch, tbsa._band_fwd_plain
-    dkv, dq_launch = _bwd_launches(bwd_plan is not plan)
+        launch = tbsa._band_fwd_sm90_launch if hopper else \
+            tbsa._band_fwd_launch
+        plain = tbsa._band_fwd_plain
+    dkv, dq_launch = _bwd_launches(hopper)
     before = (launch.launches, dkv.launches, dq_launch.launches)
-    out, lse = launch(q, k, v, fwd_plan, sm)
-    dk, dv, delta = dkv(q, k, v, out, lse, dout, bwd_plan, sm)
-    dq = dq_launch(q, k, v, out, lse, dout, delta, bwd_plan, sm)
-    ref, ref_lse = plain(q, k, v, fwd_plan, sm)
-    ref_grads = tbsa._bs_bwd_plain(q, k, v, out, lse, dout, bwd_plan, sm)
+    out, lse = launch(q, k, v, pair, sm)
+    dk, dv, delta = dkv(q, k, v, out, lse, dout, pair, sm)
+    dq = dq_launch(q, k, v, out, lse, dout, delta, pair, sm)
+    ref, ref_lse = plain(q, k, v, pair, sm)
+    ref_grads = tbsa._bs_bwd_plain(q, k, v, out, lse, dout, pair, sm)
     torch.cuda.synchronize()
     assert (launch.launches, dkv.launches, dq_launch.launches) == \
         tuple(x + 1 for x in before)
@@ -1109,6 +1259,82 @@ def test_hopper_sparse_backward_matches_twin(dev, block, d):
         assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
+def test_hopper_table_forward_matches_twin(dev, block, d):
+    """K7-fwd on the Hopper body against its twin on the forward pair
+    table, bf16: BigBird (bidirectional) and per-head Variable layouts
+    (causal), at each block and head dim; T = 448 (the last 128-row q
+    tile's lower half lies past T) where the block divides it, else 8
+    blocks; B*H = 6. One launch per call, on this kernel only."""
+    t = 448 if 448 % block == 0 else 8 * block
+    for i, (layout, causal) in enumerate(_table_layouts(3, t, block)):
+        plan = tbsa._plan(layout, causal, block, tfa._SM90_TILES, dev)
+        assert plan.band is None
+        g = _gen(dev, 400 + i)
+        q, k, v = (torch.randn((2, t, 3, d), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        before = (tbsa._bs_fwd_sm90_launch.launches, _fwd_launches())
+        out, lse = tbsa._bs_fwd_sm90_launch(q, k, v, plan, d ** -0.5)
+        torch.cuda.synchronize()
+        assert (tbsa._bs_fwd_sm90_launch.launches, _fwd_launches()) == \
+            (before[0] + 1, before[1] + 1)
+        ref, ref_lse = tbsa._bs_fwd_plain(q, k, v, plan, d ** -0.5)
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+        torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+
+
+def test_hopper_table_forward_at_the_longest_walk(dev):
+    """BigBird (bidirectional, block 64) at [1, 32768, 1, 64]: its global
+    row walks all 512 k tiles, the most the table forward's shared memory
+    holds; at T = 32832 (513 tiles) the launch raises before the card is
+    touched."""
+    layout = tsa.BigBirdSparsityConfig(num_heads=1, block=64).make_layout(
+        32768)
+    plan = tbsa._plan(layout, False, 64, tfa._SM90_TILES, dev)
+    assert plan.pairs["dq"][2] == tbsa._SM90_MAX_STEPS
+    g = _gen(dev, 41)
+    q, k, v = (torch.randn((1, 32768, 1, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    out, lse = tbsa._bs_fwd_sm90_launch(q, k, v, plan, 0.125)
+    ref, ref_lse = tbsa._bs_fwd_plain(q, k, v, plan, 0.125)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    torch.testing.assert_close(lse, ref_lse, **F32_TOL)
+    wide = tsa.BigBirdSparsityConfig(num_heads=1, block=64).make_layout(
+        32832)
+    plan = tbsa._plan(wide, False, 64, tfa._SM90_TILES, dev)
+    x = torch.zeros((1, 32832, 1, 64), device=dev, dtype=torch.bfloat16)
+    before = tbsa._bs_fwd_sm90_launch.launches
+    with pytest.raises(ValueError, match="512"):
+        tbsa._bs_fwd_sm90_launch(x, x, x, plan, 0.125)
+    assert tbsa._bs_fwd_sm90_launch.launches == before
+
+
+def test_block_sparse_route_takes_the_hopper_table_forward_for_bf16(dev):
+    """The public route's table forward: bf16 at head dims 64 and 128
+    launches the Hopper K7-fwd, fp32 the WMMA one; each matches the dense
+    masked fallback."""
+    layout = tsa.BigBirdSparsityConfig(num_heads=2, block=64).make_layout(
+        1024)
+    for dtype, d, hopper in ((torch.bfloat16, 64, True),
+                             (torch.bfloat16, 128, True),
+                             (torch.float32, 64, False)):
+        g = _gen(dev, 50 + d)
+        q, k, v = (torch.randn((2, 1024, 2, d), generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        before = (tbsa._bs_fwd_sm90_launch.launches,
+                  tbsa._bs_fwd_launch.launches)
+        out = tsa.block_sparse_attention(q, k, v, layout, 64)
+        torch.cuda.synchronize()
+        moved = (tbsa._bs_fwd_sm90_launch.launches - before[0],
+                 tbsa._bs_fwd_launch.launches - before[1])
+        assert moved == ((1, 0) if hopper else (0, 1))
+        ref = tbsa.block_sparse_attention_dense_fallback(
+            *(x.float() for x in (q, k, v)), layout, 64)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        torch.testing.assert_close(out.float(), ref, **tol)
+
+
 def test_hopper_sparse_backward_at_the_longest_walk(dev):
     """BSLongformer (block 256, causal) at [1, 32768, 2, 64]: the global
     column's k tiles walk every later q tile, 512 steps, the most the
@@ -1201,12 +1427,11 @@ def test_block_sparse_kernels_raise_on_what_they_do_not_take(dev):
             tsa.block_sparse_attention(q, q, q, layout, 32)
     layout = tsa.FixedSparsityConfig(num_heads=2, block=32).make_layout(96)
     q = torch.zeros((1, 96, 2, 64), device=dev, dtype=torch.bfloat16)
-    before = tbsa._band_fwd_launch.launches + tbsa._bs_fwd_launch.launches
+    before = _fwd_launches()
     out = tsa.block_sparse_attention(q, q, q, layout, 32)
     torch.cuda.synchronize()
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
-    assert tbsa._band_fwd_launch.launches + \
-        tbsa._bs_fwd_launch.launches == before + 1
+    assert _fwd_launches() == before + 1
     layout = tsa.DenseSparsityConfig(num_heads=2, block=8).make_layout(256)
     q = torch.zeros((1, 256, 2, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):          # block 8
@@ -1229,13 +1454,12 @@ def test_block_sparse_kernels_pad_t_and_d(dev, t, d, dtype):
     dout = torch.randn((1, t, 2, d), generator=g, device=dev).to(dtype)
     # bf16 at head dim 64 takes the Hopper backward
     dq_launch = _bwd_launches(dtype == torch.bfloat16 and d == 64)[1]
-    before = (tbsa._band_fwd_launch.launches + tbsa._bs_fwd_launch.launches,
-              dq_launch.launches)
+    before = (_fwd_launches(), dq_launch.launches)
     out = tsa.block_sparse_attention(q, k, v, layout, 16, causal=True)
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
-    assert (tbsa._band_fwd_launch.launches + tbsa._bs_fwd_launch.launches,
-            dq_launch.launches) == (before[0] + 1, before[1] + 1)
+    assert (_fwd_launches(), dq_launch.launches) == \
+        (before[0] + 1, before[1] + 1)
     assert out.shape == (1, t, 2, d)
     cpu = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
     twin = tsa.block_sparse_attention(*cpu, layout, 16, causal=True)

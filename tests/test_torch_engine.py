@@ -30,6 +30,8 @@ import deepspeed_tpu_torch as dst
 from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu.runtime import constants as JC
 from deepspeed_tpu.runtime.config import DeepSpeedConfig as JConfig
+from deepspeed_tpu.runtime.config import \
+    DeepSpeedConfigError as JDeepSpeedConfigError
 from deepspeed_tpu.runtime.zero import config as JZ
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.models.convert import params_from_jax
@@ -171,6 +173,20 @@ def test_train_batch_makes_no_host_sync(jax_model_and_tree, monkeypatch):
      "scheduler": {"type": "WarmupLR", "params": {}}},
     # Apex AMP maps to bf16 in both packages; its other params are ignored
     {"train_batch_size": 8, "amp": {"enabled": True, "opt_level": "O1"}},
+    # the flagship's (bench.py bench_gpt2_15b)
+    {"train_micro_batch_size_per_gpu": 11, "gradient_accumulation_steps": 1,
+     "steps_per_print": 1000,
+     "bf16": {"enabled": True, "master_weights": False},
+     "zero_optimization": {"stage": 2},
+     "optimizer": {"type": "AdamW",
+                   "params": {"lr": 1e-4, "weight_decay": 0.01}}},
+    # blocks the port validates and keeps, switched off
+    {"train_batch_size": 8,
+     "async_dispatch": {"enabled": False, "steps_per_sync": 4,
+                        "prefetch_depth": 3},
+     "overlap": {"enabled": False, "sites": ["ring", "moe_dispatch"],
+                 "issue_distance": 2},
+     "autotune": {"enabled": False, "table_path": "table.json"}},
 ])
 def test_config_resolves_like_jax(d):
     j, t = JConfig(dict(d), world_size=1), TConfig(dict(d))
@@ -179,8 +195,39 @@ def test_config_resolves_like_jax(d):
                  "zero_optimization_stage", "zero_enabled",
                  "bfloat16_enabled", "bfloat16_master_weights",
                  "gradient_clipping", "optimizer_name", "optimizer_params",
-                 "scheduler_name", "scheduler_params"):
+                 "scheduler_name", "scheduler_params",
+                 "checkpoint_tag_validation_enabled",
+                 "checkpoint_tag_validation_fail", "checkpoint_async_save",
+                 "checkpoint_keep_last", "checkpoint_writer_queue_depth",
+                 "checkpoint_queue_policy", "async_dispatch_enabled",
+                 "async_dispatch_steps_per_sync",
+                 "async_dispatch_prefetch_depth", "autotune", "overlap"):
         assert getattr(t, attr) == getattr(j, attr), attr
+
+
+@pytest.mark.parametrize("block", [
+    {"checkpoint": {"tag_validation": "bogus"}},
+    {"checkpoint": {"keep_last": -1}},
+    {"checkpoint": {"writer_queue_depth": 0}},
+    {"checkpoint": {"queue_policy": "spill"}},
+    {"autotune": {"table_path": 3}},
+    {"autotune": True},
+    {"async_dispatch": {"steps_per_sync": -2}},
+    {"async_dispatch": {"prefetch_depth": 0}},
+    {"overlap": {"sites": ["ring", "nowhere"]}},
+    {"overlap": {"issue_distance": 0}},
+], ids=["tag_validation", "keep_last", "writer_queue_depth", "queue_policy",
+        "table_path", "autotune_not_a_dict", "steps_per_sync",
+        "prefetch_depth", "overlap_site", "issue_distance"])
+def test_config_rejects_bad_block_values_like_jax(block):
+    """A bad value in a block the port validates fails in both packages
+    with DeepSpeedConfigError (before the port refuses the block as not
+    ported yet)."""
+    d = dict({"train_batch_size": 8}, **block)
+    with pytest.raises(JDeepSpeedConfigError):
+        JConfig(dict(d), world_size=1)
+    with pytest.raises(DeepSpeedConfigError):
+        TConfig(dict(d))
 
 
 def test_config_rejects_an_inconsistent_triple():
@@ -228,6 +275,19 @@ def test_later_slices_raise(jax_model_and_tree, extra, match):
     ({"pipeline": {"stages": 2}}, 6),
     ({"monitor": {"enabled": True}}, 8),
     ({"elasticity": {"enabled": True}}, 9),
+    # blocks the JAX engine acts on (runtime/engine.py) and the port not yet
+    ({"checkpoint": {"async_save": True}}, 2),
+    ({"checkpoint": {"keep_last": 3}}, 2),
+    ({"activation_checkpointing": {"partition_activations": True}}, 4),
+    ({"async_dispatch": {"steps_per_sync": 4}}, 4),
+    ({"async_dispatch": {"enabled": True}}, 4),
+    ({"wall_clock_breakdown": True}, 4),
+    ({"dump_state": True}, 4),
+    ({"overlap": {"sites": "auto"}}, 5),
+    ({"sparse_gradients": True}, 6),
+    ({"tensorboard": {"enabled": True}}, 8),
+    ({"flops_profiler": {"enabled": True}}, 9),
+    ({"autotune": {"table_path": "table.json"}}, 9),
 ])
 def test_later_slices_name_their_roadmap_item(jax_model_and_tree, extra,
                                               item):

@@ -161,3 +161,99 @@ def test_inference_forward_takes_no_autograd_path():
         yg, vecs[0], res, vecs[1], vecs[2], return_sum=False)
     assert graded.requires_grad and not plain.requires_grad
     assert torch.equal(plain, graded.detach())
+
+
+# ----------------------------------------------------------------------
+# K3-bwd's launch plan (ops/csrc/fused_ln_bwd.cu): the kernel's index
+# arithmetic replayed on the plan, at the paths' widths (1600, 1024), a
+# ragged one (1601: scalar accesses), a narrow one (100: one warp a
+# row) and a ragged wide one (5121: four vectors a lane), at N 1, 4 and
+# the flagship's 11,264 rows
+# ----------------------------------------------------------------------
+SMS = 132
+
+
+def _ln_bwd_group_rows(plan, n, cta, group):
+    """The rows row group `group` of CTA `cta` takes, in order: k, k +
+    grid * groups, ... for k = cta * groups + group (ln_bwd_kernel's
+    loop)."""
+    return list(range(cta * plan.groups + group, n,
+                      plan.grid * plan.groups))
+
+
+def _ln_bwd_lane_columns(plan, h, lane):
+    """The columns lane `lane` of a row group owns in every row: 8 of
+    each of its vectors lane + j * 32 * warps_per_row, cut at h."""
+    tpr = 32 * plan.warps_per_row
+    return [c for j in range(plan.vpt)
+            for c in range(8 * (lane + j * tpr),
+                           min(h, 8 * (lane + j * tpr) + 8))]
+
+
+LN_BWD_PLAN_CASES = [(n, h) for h in (1600, 1024, 1601, 100, 5121)
+                     for n in (1, 4, 11264)]
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n,h", LN_BWD_PLAN_CASES,
+                         ids=[f"N{n}-H{h}" for n, h in LN_BWD_PLAN_CASES])
+def test_ln_bwd_plan_covers_every_row_and_column_once(n, h, aligned):
+    """The row groups of the grid take every row once, their lanes every
+    column of a row once with no warp left idle, the CTA fits 14 warps,
+    the grid is one CTA per SM at most with no CTA idle, and 16-byte
+    accesses only where h is a multiple of 8 and the pointers align."""
+    plan = tfo.ln_bwd_plan(n, h, SMS, aligned=aligned)
+    assert plan.threads == 32 * plan.warps_per_row * plan.groups <= 448
+    assert 1 <= plan.grid <= SMS
+    seen = np.zeros(n, np.int64)
+    for cta in range(plan.grid):
+        mine = [_ln_bwd_group_rows(plan, n, cta, g)
+                for g in range(plan.groups)]
+        assert mine[0], "every CTA has rows"
+        for rows in mine:
+            seen[rows] += 1
+    assert (seen == 1).all()
+    cols = np.zeros(h, np.int64)
+    for lane in range(32 * plan.warps_per_row):
+        cols[_ln_bwd_lane_columns(plan, h, lane)] += 1
+    assert (cols == 1).all()
+    last_warp = range(32 * (plan.warps_per_row - 1),
+                      32 * plan.warps_per_row)
+    assert any(_ln_bwd_lane_columns(plan, h, lane) for lane in last_warp)
+    assert plan.vec == (8 if aligned and h % 8 == 0 else 1)
+
+
+@pytest.mark.parametrize("n,h", LN_BWD_PLAN_CASES,
+                         ids=[f"N{n}-H{h}" for n, h in LN_BWD_PLAN_CASES])
+def test_ln_bwd_plan_folds_every_partial_row_once_in_order(n, h):
+    """The CTAs' partial rows are folded in fold groups of consecutive
+    CTAs, each group in CTA order, then the group rows in group order:
+    every CTA lands in one group once, in ascending order; the workspace
+    holds the partial rows and (with more than one group) the group
+    rows; one counter per fold group and one for the groups."""
+    plan = tfo.ln_bwd_plan(n, h, SMS)
+    groups = [list(range(f * plan.fold, min(plan.grid, (f + 1) * plan.fold)))
+              for f in range(plan.fold_groups)]
+    assert [c for g in groups for c in g] == list(range(plan.grid))
+    assert all(groups)
+    assert plan.fold_groups == -(-plan.grid // plan.fold)
+    assert plan.fold * plan.fold >= plan.grid
+    assert plan.counters == plan.fold_groups + 1
+    assert plan.work_rows == plan.grid + (
+        plan.fold_groups if plan.fold_groups > 1 else 0)
+
+
+@pytest.mark.parametrize("h,vpt,warps,groups", [
+    (1600, 1, 7, 2), (1024, 1, 4, 3), (2560, 1, 10, 1), (3584, 1, 14, 1),
+    (4096, 4, 4, 1), (5120, 4, 5, 1), (7168, 4, 7, 1), (100, 1, 1, 14)])
+def test_ln_bwd_plan_sizes_the_row_group_to_h(h, vpt, warps, groups):
+    """One 8-column vector a lane up to h = 3584 (14 warps a CTA), four
+    beyond (7 warps a CTA); past 7168 columns the kernel has no layout
+    and the plan raises; unaligned pointers take scalar accesses."""
+    plan = tfo.ln_bwd_plan(11264, h, SMS)
+    assert (plan.vpt, plan.warps_per_row, plan.groups) == \
+        (vpt, warps, groups)
+    assert tfo.ln_bwd_plan(11264, h, SMS, aligned=False).vec == 1
+    with pytest.raises(ValueError, match="widest row"):
+        tfo.ln_bwd_plan(4, 7176, SMS)

@@ -254,6 +254,23 @@ def test_out_of_slice_engine_options_raise(weights):
                         device="cpu")
 
 
+@pytest.mark.parametrize("extra,item", [
+    ({"inference": {"speculative": {"enabled": True}}}, 7),
+    ({"inference": {"weight_bits": 8}}, 7),
+    ({"monitor": {"enabled": True}}, 8),
+], ids=["speculative", "int8-weights", "monitor"])
+def test_out_of_slice_engine_options_name_their_roadmap_item(weights, extra,
+                                                             item):
+    """Each serving option the port does not have yet names the ROADMAP
+    Queue 1 item that ports it."""
+    config = dict(ICFG, **extra)
+    config["inference"] = dict(ICFG["inference"], **extra.get("inference", {}))
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}$"):
+        InferenceEngine(tgpt2.tiny_gpt2_config(), weights[2], config,
+                        device="cpu")
+
+
 def test_default_device_raises_without_cuda(weights):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device works")

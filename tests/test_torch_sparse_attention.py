@@ -456,15 +456,104 @@ def test_pair_table_backward_twin_matches_jax(name, make, t, block, causal,
     for a, b in zip(got, want):
         a = a.float().numpy()
         assert np.linalg.norm(a - b) / np.linalg.norm(b) <= 1e-2
-    fwd = pair if pair.band is not None else \
-        tbsa._plan(layout, causal, block, tbsa.TILE, cpu)
     plain = tbsa._band_fwd_plain if pair.band is not None else \
         tbsa._bs_fwd_plain
     d = [x.detach() for x in xs]
-    o, lse = plain(*d, fwd, 0.125)
+    o, lse = plain(*d, pair, 0.125)
     assert torch.equal(o, out.detach())
     twin = tbsa._bs_bwd_plain(*d, o, lse, gt, pair, 0.125)
     assert all(torch.equal(a, b) for a, b in zip(got, twin))
+
+
+# the table forward's pair-table twin against the JAX forward: (id,
+# config, block, causal) at H 2 and T 320 (the last 128-row q tile's
+# lower half lies past T), layouts `_band_decompose` rejects
+PAIR_FWD_ROUTES = [
+    ("bigbird-b64-full", lambda b: jsa.BigBirdSparsityConfig(
+        num_heads=2, block=b), 64, False),
+    ("bigbird-b32-causal", lambda b: jsa.BigBirdSparsityConfig(
+        num_heads=2, block=b), 32, True),
+    ("per-head-b32-full", lambda b: jsa.VariableSparsityConfig(
+        num_heads=2, block=b, num_random_blocks=1, local_window_blocks=[2],
+        global_block_indices=[0], different_layout_per_head=True), 32,
+     False),
+    ("per-head-b64-causal", lambda b: jsa.VariableSparsityConfig(
+        num_heads=2, block=b, num_random_blocks=1, local_window_blocks=[1, 2],
+        global_block_indices=[0], different_layout_per_head=True), 64, True),
+]
+PAIR_FWD_T = 320
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name,make,block,causal", PAIR_FWD_ROUTES,
+                         ids=[r[0] for r in PAIR_FWD_ROUTES])
+def test_pair_table_forward_twin_matches_jax(name, make, block, causal, d):
+    """K7-fwd's twin on the forward pair table (the Hopper table
+    forward's walk: 128-row q tiles over 64-row k tiles, one sub-block
+    mask per half) against the JAX package's forward in interpret mode:
+    fp32 by the twin itself, to OUT_TOL; bf16 through the public route on
+    the CPU, which takes the pair table for these layouts, to
+    BF16_OUT_TOL, and bit for bit the twin at the pair. Rows past T see
+    nothing; every real row's lse is finite."""
+    t = PAIR_FWD_T
+    layout = make(block).make_layout(t)
+    cpu = torch.device("cpu")
+    pair = tbsa._plan(layout, causal, block, HOPPER_TILES, cpu)
+    assert pair.band is None
+    q, k, v, _ = _qkv(1, t, 2, d, seed=block + d + causal)
+
+    def jax_fwd(dtype):
+        return np.asarray(jbsa.block_sparse_attention(
+            *(jnp.asarray(x, dtype) for x in (q, k, v)), layout, block,
+            causal=causal, sm_scale=d ** -0.5, interpret=True)
+            .astype(jnp.float32))
+
+    out, lse = tbsa._bs_fwd_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  pair, d ** -0.5)
+    np.testing.assert_allclose(out.numpy(), jax_fwd(jnp.float32), **OUT_TOL)
+    assert bool(torch.isfinite(lse).all())
+    xs = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    got = tsa.block_sparse_attention(*xs, layout, block, causal=causal)
+    np.testing.assert_allclose(got.float().numpy(), jax_fwd(jnp.bfloat16),
+                               **BF16_OUT_TOL)
+    assert torch.equal(got, tbsa._bs_fwd_plain(*xs, pair, d ** -0.5)[0])
+
+
+def test_cpu_route_takes_the_pair_table_forward_for_bf16(monkeypatch):
+    """A bf16 call at head dim 64 on a layout without a band runs the
+    table forward's twin on the 128 x 64 pair plan (the Hopper kernel's
+    walk), with and without gradients; fp32 keeps the 64-row tables."""
+    layout = tsa.BigBirdSparsityConfig(num_heads=2, block=64).make_layout(256)
+    walks = []
+    real = tbsa._walk_fwd_plain
+
+    def spy(q, k, v, steps, q_tile, tile, sm_scale):
+        walks.append((q.dtype, q_tile, tile))
+        return real(q, k, v, steps, q_tile, tile, sm_scale)
+
+    monkeypatch.setattr(tbsa, "_walk_fwd_plain", spy)
+    q, k, v, _ = (torch.from_numpy(x) for x in _qkv(1, 256, 2, 64, seed=5))
+    for dtype in (torch.bfloat16, torch.float32):
+        xs = [x.to(dtype) for x in (q, k, v)]
+        tsa.block_sparse_attention(*xs, layout, 64)
+        xs = [x.requires_grad_(True) for x in xs]
+        tsa.block_sparse_attention(*xs, layout, 64).float().sum().backward()
+    assert walks == [(torch.bfloat16, 128, 64)] * 2 + \
+        [(torch.float32, 64, 64)] * 2
+
+
+def test_hopper_table_forward_raises_past_its_longest_walk():
+    """The table forward's shared memory holds a walk of 512 steps; a
+    global row of a bidirectional BigBird layout at T = 32832 walks all
+    513 k tiles and raises on the host before any launch."""
+    layout = tsa.BigBirdSparsityConfig(
+        num_heads=1, block=64, num_random_blocks=0,
+        num_sliding_window_blocks=1).make_layout(32832)
+    plan = tbsa._plan(layout, False, 64, HOPPER_TILES, torch.device("cpu"))
+    assert plan.band is None and plan.pairs["dq"][2] == 513
+    x = torch.zeros((1, 32832, 1, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="512"):
+        tbsa._bs_fwd_sm90_launch(x, x, x, plan, 0.125)
 
 
 @pytest.mark.parametrize("name,make,t,h,block,causal,kind", ROUTES,
