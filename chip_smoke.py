@@ -107,7 +107,21 @@ Phases, each printing one JSON line:
      sequence with exactly 10 K5 and 10 K2 launches per pass;
  20. sp_training: phase 7 with sequence_parallel="ring" in the one-rank
      group (2 warm-up and 4 timed steps), each step's loss within 1e-2
-     of phase 7's, K5 on every layer.
+     of phase 7's, K5 on every layer;
+ 21. checkpoint: phase 7's flagship saves, resumes and continues. Engine
+     A takes 2 steps and a 4-step window without a save, saves the same
+     state sync and async (the async writer copying to pinned host
+     memory on its own CUDA stream), and takes 4 more steps while the
+     writer runs; engine B, fresh from other weights, loads `latest`
+     and takes those 4 steps on the same batches. Gates: the async call
+     returns before its commit, `latest` names the tag with no staging
+     dir left, the sync and async directories are byte-identical, every
+     leaf B loaded equals the file's bytes, B's losses equal A's bit for
+     bit, every training kernel launched. Printed: bytes written, the
+     blocked ms of both calls, the two windows' ms and the stall,
+     fetch, commit and load ms, peak device memory and host RSS during
+     the save; the checkpoint directory lives under build/ and is
+     removed at the end.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -115,8 +129,9 @@ causal backward as K2's yardstick, two launches of each deterministic
 backward compared bit for bit (K2 at every case), K1 and K2 on their
 Hopper bodies (bf16, head dims 64 and 128) at T 320 too, where the last
 128-row tile runs past T, and K1 at B*H = 65550 (past grid.y's 65535),
-each timed attention case with its achieved TFLOP/s, share of its bound
-and ratio to the library call, K4 at the decode shape too (with its
+K3-fwd's timed rows with their device time from a CUDA graph beside the
+back-to-back time, each timed attention case with its achieved TFLOP/s,
+share of its bound and ratio to the library call, K4 at the decode shape too (with its
 device time from a CUDA graph), with torch's own GeLU forward and
 backward as yardsticks and at its layout's edges (W 100 and 6401, odd
 N, unaligned views, fp32 out, bf16 bias, groups of 37 rows; each case
@@ -503,8 +518,12 @@ def kernel_ln(peaks, gen):
             nbytes = n * h * (2 + 2 + 2 + 2) + 3 * h * 4
             bound_ms, bound_by = bound(9 * n * h, peaks["fp32"], nbytes,
                                        peaks)
+            # back to back (ms) and device time from a CUDA graph
+            # (graph_ms): at N 4096 back-to-back calls time the host too
+            g_ms = graph_ms(run)
             out[timed] = rates(dict(
-                max_abs_err=err, ms=time_ms(run),
+                max_abs_err=err, ms=time_ms(run), graph_ms=g_ms,
+                graph_share_of_bound=bound_ms / g_ms,
                 plain_ms=time_ms(lambda: fo._ln_fwd_math(
                     y, bias, res, gamma, beta, 1e-5)),
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -1516,6 +1535,238 @@ def quant_oracle(seed, n_layer=2):
     if not ok:
         raise AssertionError("quantized kernel-route loss/gradients disagree "
                              f"with the plain route (missing: {missing})")
+
+
+# ----------------------------------------------------------------------
+# phase 21: checkpoints on the training flagship
+# ----------------------------------------------------------------------
+# steps before the saves, then a window without a save and a window
+# with the async save's writer running, of as many steps each; the
+# resumed engine takes the save window's steps again
+CKPT_STEPS_BEFORE, CKPT_STEPS_WINDOW = 2, 4
+# the flagship's depth in this phase (its width always 1600)
+CKPT_N_LAYER = 48
+
+
+def _rss_bytes():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _same_bits(a, b):
+    """Tensors equal in dtype, shape and every byte."""
+    import torch
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _loaded_leaves_match(engine, flat):
+    """(leaves compared, keys that differ): every tensor the engine
+    loads (its checkpoint trees of the live state) against the file's
+    entry, byte for byte, a stacked entry layer by layer."""
+    from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
+    opt = engine.state.opt_state
+    module, opt_state = engine._ckpt_trees(
+        list(engine.params.values()), opt.count, opt.mu, opt.nu, None,
+        engine._remat())
+    compared, bad = 0, []
+    for key, dest in ckpt_io.tree_to_entries(module, "module") + \
+            ckpt_io.tree_to_entries(opt_state, "optim"):
+        if isinstance(dest, ckpt_io.Stacked):
+            same = len(dest) == flat[key].shape[0] and all(
+                _same_bits(d, s) for d, s in zip(dest, flat[key]))
+        elif hasattr(dest, "is_cuda"):
+            same = _same_bits(dest, flat[key])
+        else:
+            continue
+        compared += 1
+        if not same:
+            bad.append(key)
+    return compared, bad
+
+
+def checkpoint_and_check(seed, card, n_layer=CKPT_N_LAYER):
+    """Phase 21: the training flagship (phase 7's config) saves, resumes
+    and continues. Engine A takes CKPT_STEPS_BEFORE steps, then a window
+    of CKPT_STEPS_WINDOW steps without a save; a sync save and an async
+    save of the same state; then as many steps while the async writer
+    copies on its side stream and serializes, then the barrier. Engine
+    B, fresh from other weights, loads `latest` and takes the save
+    window's steps on the same batches. Gates: the async call returns
+    before its commit; `latest` names its tag and no staging dir is
+    left; the sync and async directories are byte-identical; every
+    leaf B loaded equals the file's bytes; B's losses equal A's bit for
+    bit; every training kernel launched. Printed: bytes written, the
+    calls' blocked ms, the windows' ms and the stall, the writer's
+    device-to-host fetch and commit ms, load ms, peak device memory and
+    host RSS during each save. Returns the launch counts of the phase's
+    steps (zeroed right before A's first)."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
+
+    k, m = CKPT_STEPS_BEFORE, CKPT_STEPS_WINDOW
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    cfg = train_config(n_layer=n_layer)
+    ds_config = flagship_ds_config(batch)
+
+    def engine(s):
+        model = GPT2ForCausalLM(cfg)
+        return dst.initialize(model=model, model_parameters=model.init(s),
+                              config=ds_config)[0]
+
+    a = engine(seed)
+    state = list(a.params.values()) + a.state.opt_state.mu + \
+        a.state.opt_state.nu
+    state_bytes = sum(t.numel() * t.element_size() for t in state)
+    parent = os.path.join(ROOT, "build")
+    os.makedirs(parent, exist_ok=True)
+    free = shutil.disk_usage(parent).free
+    # the sync and the async save of one state lie side by side
+    need = int(2.1 * state_bytes) + (1 << 30)
+    if free < need:
+        raise RuntimeError(f"checkpoint phase: {free} bytes free under "
+                           f"{parent}, {need} needed")
+    ids = np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab_size, (k + 2 * m, 1, batch, seq)).astype(np.int32)
+    staged = [a.stage_batch({"input_ids": x}) for x in ids]
+    root = tempfile.mkdtemp(prefix="checkpoint_", dir=parent)
+    marks = {"fetch_ms": []}
+    fetch, write = a._fetch, a._write_checkpoint
+
+    def timed_fetch(*args, **kwargs):
+        t = time.perf_counter()
+        out = fetch(*args, **kwargs)
+        marks["fetch_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_write(*args, **kwargs):
+        write(*args, **kwargs)
+        marks["committed"] = time.perf_counter()
+
+    a._fetch, a._write_checkpoint = timed_fetch, timed_write
+    try:
+        reset_counts()
+        for b in staged[:k]:
+            a.train_batch(batch=b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in staged[k:k + m]:
+            a.train_batch(batch=b)
+        torch.cuda.synchronize()
+        quiet_ms = (time.perf_counter() - t0) * 1e3
+        # host RSS sampled every 20 ms from before the sync save to the
+        # async save's commit (the pinned buffers the sync save takes
+        # are cached, and the async save reuses them)
+        before = _rss_bytes()
+        rss = {"before": before, "sync": before, "async": before}
+        window = ["sync"]
+        stop = threading.Event()
+
+        def sample():
+            while not stop.wait(0.02):
+                rss[window[0]] = max(rss[window[0]], _rss_bytes())
+
+        sampler = threading.Thread(target=sample)
+        sampler.start()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        a.save_checkpoint(root, tag="sync", async_save=False,
+                          save_latest=False)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        peak_device_sync = torch.cuda.max_memory_allocated()
+        rss["async"] = _rss_bytes()
+        window[0] = "async"
+        torch.cuda.reset_peak_memory_stats()
+        tag = "async"
+        t0 = time.perf_counter()
+        accepted = a.save_checkpoint(root, tag=tag)
+        async_ms = (time.perf_counter() - t0) * 1e3
+        before_commit = a._ckpt_writer.pending() == 1 and \
+            ckpt_io.read_latest_tag(root) is None and \
+            not os.path.exists(os.path.join(root, tag))
+        losses_a = []
+        t1 = time.perf_counter()
+        for b in staged[k + m:]:
+            losses_a.append(a.train_batch(batch=b))
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t1) * 1e3
+        a.wait_for_checkpoint()
+        waited_ms = (time.perf_counter() - t1) * 1e3 - window_ms
+        stop.set()
+        sampler.join()
+        peak_device = torch.cuda.max_memory_allocated()
+        commit_ms = (marks["committed"] - t0) * 1e3
+        latest_ok = ckpt_io.read_latest_tag(root) == tag and not any(
+            ckpt_io.is_staging_name(n) for n in os.listdir(root))
+        tag_dir = os.path.join(root, tag)
+        files = {n: os.path.getsize(os.path.join(tag_dir, n))
+                 for n in sorted(os.listdir(tag_dir))}
+        identical = ckpt_io.checkpoint_dirs_bit_identical(
+            os.path.join(root, "sync"), tag_dir)
+        shutil.rmtree(os.path.join(root, "sync"))
+        losses_a = [float(x) for x in torch.stack(losses_a).cpu()]
+        steps_a = a.global_steps
+        del a, state
+        release()
+
+        b = engine(seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path, client = b.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        flat = ckpt_io.load_checkpoint_flat(root, tag)[0]
+        compared, differ = _loaded_leaves_match(b, flat)
+        del flat
+        losses_b = [float(x) for x in torch.stack(
+            [b.train_batch(batch=x) for x in staged[k + m:]]).cpu()]
+        counts = read_counts()
+        resumed_steps = b.global_steps
+        del b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = {"async_accepted": accepted,
+          "async_returned_before_commit": before_commit,
+          "latest_names_tag_no_staging_left": latest_ok,
+          "sync_and_async_dirs_identical": identical,
+          "loaded_leaves_equal_file": compared > 0 and not differ,
+          "resumed_losses_bit_equal": losses_b == losses_a,
+          "resumed_global_steps": resumed_steps == steps_a}
+    emit({"phase": "checkpoint", "model": "gpt2-1.5b", "n_layer": n_layer,
+          "n_embd": cfg.n_embd, "micro_batch": batch, "seq": seq,
+          "dtype": "bf16 params and moments (master_weights false)",
+          "zero_stage": 2, "steps_before": k, "window_steps": m,
+          "state_bytes": state_bytes, "bytes_written": sum(files.values()),
+          "files": files,
+          "sync_save_blocked_ms": sync_ms,
+          "async_save_blocked_ms": async_ms,
+          "writer_fetch_ms": {"sync": marks["fetch_ms"][0],
+                              "async": marks["fetch_ms"][1]},
+          "commit_ms": commit_ms,
+          "no_save_window_ms": quiet_ms, "save_window_ms": window_ms,
+          "stall_ms": window_ms - quiet_ms,
+          "stall_share": window_ms / quiet_ms - 1.0,
+          "wait_after_window_ms": waited_ms,
+          "load_ms": load_ms, "loaded_path": os.path.basename(path),
+          "client_state": client,
+          "leaves_compared": compared, "leaves_differing": differ[:10],
+          "peak_device_memory_gib": {"sync_save": peak_device_sync / 2 ** 30,
+                                     "async_save_and_window":
+                                         peak_device / 2 ** 30},
+          "host_rss_gib": {k: v / 2 ** 30 for k, v in rss.items()},
+          "losses_a": losses_a, "losses_resumed": losses_b,
+          "disk_free_gib": free / 2 ** 30, "gates": ok, "card": card})
+    failed = [name for name, good in ok.items() if not good]
+    if failed:
+        raise AssertionError(f"checkpoint phase gates failed: {failed}")
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -3003,6 +3254,12 @@ def main(argv=None):
     if k5_per_step < train_config().n_layer:
         raise AssertionError(f"sp_training: {k5_per_step} K5 launches per "
                              "step, fewer than the layers")
+    release()
+
+    # 21: the training flagship saves, resumes and continues (counts
+    # zeroed inside, right before its first step)
+    ckpt = path_counts("checkpoint", checkpoint_and_check(args.seed, card),
+                       TRAINING_KERNELS)
 
     rows = []
     counts_by_path = {"serving": serving, "training": training,
@@ -3011,7 +3268,7 @@ def main(argv=None):
                       "sparse_attention": sparse,
                       "sparse_oracle": sparse_oracle_counts,
                       "sequence_parallel": sp_path,
-                      "sp_training": sp_train}
+                      "sp_training": sp_train, "checkpoint": ckpt}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);

@@ -14,7 +14,10 @@ paged-KV serving engine (`inference/`). Slice 2: GPT-2 training —
 `initialize()` -> `DeepSpeedEngine` (`runtime/`) with the model's
 `loss_fn`, the backward kernels and remat. Later slices: MoE,
 quantized compute, block-sparse attention, and sequence parallelism
-(`ops/sequence/`, over the process groups `init_distributed` sets up).
+(`ops/sequence/`, over the process groups `init_distributed` sets up),
+and checkpoints in the JAX package's on-disk layout
+(`runtime/checkpoint.py`, the engine's `save_checkpoint` and
+`load_checkpoint`).
 """
 
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig

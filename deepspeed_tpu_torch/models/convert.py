@@ -1,4 +1,4 @@
-"""JAX GPT-2 parameter tree -> the port's flat parameter dict.
+"""JAX GPT-2 parameter tree <-> the port's flat parameter dict.
 
 The JAX model (deepspeed_tpu/models/gpt2.py) keeps wte/wpe, ln_f and a
 single scanned child under "h" whose leaves carry a leading [n_layer]
@@ -18,6 +18,11 @@ no JAX.
 `bert_sparse_params_from_jax` carries a `BertSparseSelfAttention` tree
 (query/key/value nn.Dense: kernel [in, out], bias) into the port
 module's state dict (nn.Linear: weight [out, in], bias).
+
+`params_to_jax` is `params_from_jax`'s inverse: it stacks the port's
+per-layer tensors into the scanned children (named for the remat
+setting, and cut into MoE cells from the parameter names), as a
+checkpoint in the JAX package's layout holds them.
 
 `config_from_jax` carries a JAX `GPT2Config` into the port's.
 """
@@ -108,6 +113,57 @@ def params_from_jax(tree, dtype=None):
     out["ln_f.scale"] = tensor(tree["ln_f"]["scale"])
     out["ln_f.bias"] = tensor(tree["ln_f"]["bias"])
     return out
+
+
+def _nest(tree, path, value):
+    *parents, leaf = path.split(".")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value
+
+
+def params_to_jax(params, remat=False, stack=torch.stack):
+    """The JAX tree of a flat parameter dict: "h.{i}.<path>" stacked
+    over the layers of each scanned child under "h" (`stack` of the
+    per-layer values; "Checkpoint" before each child name under
+    `remat`), every other dotted name nested as it reads. The layers
+    holding "moe_mlp" entries are the MoE blocks: the last of each cell
+    of every_n_layers, as `_layer_children` reads them."""
+    layers = {}
+    tree = {}
+    for name, value in params.items():
+        head, _, rest = name.partition(".")
+        index, _, path = rest.partition(".")
+        if head == "h" and index.isdigit() and path:
+            layers.setdefault(int(index), {})[path] = value
+        else:
+            _nest(tree, name, value)
+    if not layers:
+        return tree
+    n = len(layers)
+    if sorted(layers) != list(range(n)):
+        raise ValueError(f"layers {sorted(layers)} are not 0..{n - 1}")
+    moe = [i for i in range(n)
+           if any(p.startswith("moe_mlp.") for p in layers[i])]
+    prefix = "Checkpoint" if remat else ""
+    if not moe:
+        children = [(f"{prefix}GPT2Block_0", 0, 1)]
+    else:
+        every = moe[0] + 1
+        if moe != list(range(every - 1, n, every)) or n % every:
+            raise ValueError(f"MoE layers {moe} do not close cells of "
+                             f"{every} layers over {n}")
+        children = [(f"{prefix}GPT2Block_{j}", j, every)
+                    for j in range(every - 1)]
+        children.append((f"{prefix}MoEGPT2Block_0", every - 1, every))
+    tree["h"] = {}
+    for child, first, stride in children:
+        stacked = {}
+        for path in layers[first]:
+            _nest(stacked, path, stack([layers[i][path] for i in
+                                        range(first, n, stride)]))
+        tree["h"][child] = stacked
+    return tree
 
 
 def bert_sparse_params_from_jax(tree, dtype=None):

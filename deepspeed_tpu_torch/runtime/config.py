@@ -8,14 +8,15 @@ determine the third), the `bf16` block with `master_weights`,
 `gradient_clipping`, `steps_per_print`, the `moe` block
 (`get_moe_config`), the `quantized_compute` block
 (`get_quantized_compute_config`) and the `sparse_attention` block
-(`get_sparse_attention`), each validated as the JAX package validates
-it. The `checkpoint`, `async_dispatch`, `autotune` and `overlap` blocks
-are validated with the JAX package's errors too, though the port does
-not act on them yet.
+(`get_sparse_attention`) and the `checkpoint` block
+(`get_checkpoint_config`), each validated as the JAX package validates
+it. The `async_dispatch`, `autotune` and `overlap` blocks are validated
+with the JAX package's errors too, though the port does not act on them
+yet.
 
 A block that the JAX engine acts on and the port does not yet raises
 NotImplementedError naming the ROADMAP Queue 1 item that ports it
-(`_check_later_slices`): checkpoints (item 2); fp16 and loss scaling,
+(`_check_later_slices`): fp16 and loss scaling,
 progressive layer drop, activation checkpointing, async dispatch,
 wall_clock_breakdown and dump_state (4); overlap (5); pipeline and
 sparse gradients (6); the monitor and tensorboard (8); elasticity, the
@@ -375,10 +376,6 @@ class DeepSpeedConfig:
                          "(runtime/fp16/loss_scaler.py); use bf16", 4)
         if _block_enabled(d, C.PROGRESSIVE_LAYER_DROP, C.PLD_ENABLED):
             raise _later("progressive layer drop", 4)
-        if d.get(C.CHECKPOINT):
-            raise _later("the checkpoint block (runtime/checkpoint.py: "
-                         "async_save, keep_last, tag_validation, the "
-                         "writer queue)", 2)
         act = d.get(_ACTIVATION_CHKPT) or {}
         if any(act.get(k) for k in _ACT_CHKPT_SWITCHES):
             raise _later("the activation_checkpointing block", 4)

@@ -39,15 +39,35 @@ generator keyed by the same seed (the JAX engine's fold_in(rng, 0x51)).
 ZeRO stages 0, 1 and 2 at data-parallel world size 1 compute the
 unpartitioned update, as the JAX engine does on one chip. World size
 > 1 and stage 3 raise NotImplementedError naming ROADMAP Queue 1 item 6,
-offload item 5; checkpoints (item 2), fp16 loss scaling, client
-optimizer objects, LAMB, SGD and 1-bit Adam (item 4) raise too.
+offload item 5; fp16 loss scaling, client optimizer objects, LAMB, SGD
+and 1-bit Adam (item 4) raise too.
+
+Checkpoints (`save_checkpoint`, `load_checkpoint`) are the JAX engine's
+files (`runtime/checkpoint.py`): the module tree with the scanned
+layers stacked (`models.convert.params_to_jax`), the optimizer state as
+optax's trees (`inject_hyperparams(adamw)` over `ScaleByAdamState`, or
+`adamw_bf16`'s `ScaleByAdamBF16State` without master weights), the
+static loss scale under `aux/scale` and the JAX engine's metadata, so
+either package loads the other's. The port's own streams (dropout,
+quant, stochastic rounding) ride in one more metadata entry,
+`torch_rng`. An async save copies every leaf into fresh device buffers
+on the training stream before it returns (the update writes the state
+in place); the writer thread copies them into pinned host buffers on a
+side CUDA stream that waits for the snapshot's event, so its copies
+never queue behind the steps that follow, and frees them once copied.
 """
 
+import contextlib
+import copy
+import os
+import shutil
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.models.convert import params_to_jax
+from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.bf16_optimizer import (
@@ -66,6 +86,15 @@ SR_SEED = 17
 QUANT_STREAM = 0x51
 
 
+# the checkpoint's metadata entry of the port's own streams (the JAX
+# engine returns it inside its client_state)
+TORCH_RNG = "torch_rng"
+# metadata entries that are the engine's, not the client's
+_CKPT_META = ("module", "module_flat", "global_steps", "skipped_steps",
+              "micro_steps", "dp_world_size", "lr_scheduler", "rng",
+              TORCH_RNG)
+
+
 def _later(what, item):
     return NotImplementedError(
         f"{what} is not in the port yet: ROADMAP Queue 1 item {item}")
@@ -77,6 +106,36 @@ class EngineState(NamedTuple):
     opt_state: Any
     acc_grads: Any     # [fp32 tensor] per leaf at gas > 1, else ()
     global_steps: Any  # int32 device scalar: optimizer steps taken
+
+
+# optax's optimizer-state trees, as the JAX engine checkpoints them
+class InjectStatefulHyperparamsState(NamedTuple):
+    count: Any
+    hyperparams: Any
+    hyperparams_states: Any
+    inner_state: Any
+
+
+class ScaleByAdamState(NamedTuple):
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class EmptyState(NamedTuple):
+    pass
+
+
+class LossScaleState(NamedTuple):
+    loss_scale: Any
+    good_steps: Any
+    hysteresis: Any
+
+
+# the JAX engine's static loss scale outside fp16 (`aux/scale`)
+STATIC_SCALE = LossScaleState(np.asarray(1.0, np.float32),
+                              np.asarray(0, np.int32),
+                              np.asarray(1, np.int32))
 
 
 def _world_size():
@@ -165,6 +224,8 @@ class DeepSpeedEngine:
         self._configure_lr_scheduler()
         self._init_state()
         self.optimizer = self   # `engine.optimizer` parity
+        self._ckpt_writer = None
+        self._abandoned_ckpt_writers = []
 
     # ------------------------------------------------------------------
     # model resolution
@@ -279,17 +340,30 @@ class DeepSpeedEngine:
         if name not in (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER):
             raise _later(f"optimizer {name!r} (the port has Adam and "
                          "AdamW)", 4)
+        # the checkpoint's optax layout: the injected hyperparameters
+        # and the chain around the Adam state (None: adamw_bf16's bare
+        # state; else the number of EmptyStates after it)
+        hp = dict(b1=betas[0], b2=betas[1], eps=eps)
         if self.bf16_sr_mode:
             # master-less bf16: bf16 moments, fp32 update math,
             # stochastically rounded write-back (decoupled decay)
+            self._ckpt_layout(dict(hp, weight_decay=weight_decay), None)
             return adamw_bf16(learning_rate=lr, b1=betas[0], b2=betas[1],
                               eps=eps, weight_decay=weight_decay)
         # fp32 moments: optax.adamw / optax.adam math
         if params.get("adam_w_mode", True) or name == C.ADAMW_OPTIMIZER:
+            self._ckpt_layout(dict(hp, eps_root=0.0,
+                                   weight_decay=weight_decay), 2)
             return adamw_bf16(learning_rate=lr, b1=betas[0], b2=betas[1],
                               eps=eps, weight_decay=weight_decay,
                               state_dtype=torch.float32)
+        self._ckpt_layout(dict(hp, eps_root=0.0), 1)
         return adam(learning_rate=lr, b1=betas[0], b2=betas[1], eps=eps)
+
+    def _ckpt_layout(self, hyperparams, empty_states):
+        self._ckpt_hparams = {k: np.asarray(v, np.float32)
+                              for k, v in hyperparams.items()}
+        self._ckpt_empty_states = empty_states
 
     def _configure_optimizer(self):
         self.optimizer_transform = self._build_optimizer_transform()
@@ -566,8 +640,380 @@ class DeepSpeedEngine:
     def params(self):
         return self.state.params
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _later("checkpoints (runtime/checkpoint.py)", 2)
+    # ------------------------------------------------------------------
+    # checkpointing: the JAX engine's files and semantics
+    # ------------------------------------------------------------------
+    def checkpoint_tag_validation_enabled(self):
+        return self._config.checkpoint_tag_validation_enabled
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise _later("checkpoints (runtime/checkpoint.py)", 2)
+    def checkpoint_tag_validation_fail(self):
+        return self._config.checkpoint_tag_validation_fail
+
+    def checkpoint_async_save(self):
+        return self._config.checkpoint_async_save
+
+    def checkpoint_keep_last(self):
+        return self._config.checkpoint_keep_last
+
+    def checkpoint_writer_queue_depth(self):
+        return self._config.checkpoint_writer_queue_depth
+
+    def checkpoint_queue_policy(self):
+        return self._config.checkpoint_queue_policy
+
+    def _ckpt_trees(self, leaves, count, mu, nu, lr, remat):
+        """(module tree, optimizer tree) in the JAX engine's layout of
+        per-parameter values `leaves`, `mu`, `nu` (in parameter order)
+        and the step count and learning rate. The same trees of the
+        live tensors are the load's destinations."""
+        names = list(self.state.params)
+
+        def tree(values):
+            return params_to_jax(dict(zip(names, values)), remat=remat,
+                                 stack=ckpt_io.Stacked)
+
+        inner = ScaleByAdamState(count, tree(mu), tree(nu))
+        if self._ckpt_empty_states is not None:
+            inner = (inner,) + (EmptyState(),) * self._ckpt_empty_states
+        hyperparams = dict(self._ckpt_hparams, learning_rate=lr)
+        return tree(leaves), InjectStatefulHyperparamsState(
+            count, hyperparams, {}, inner)
+
+    def _remat(self):
+        return bool(getattr(getattr(self.module, "config", None), "remat",
+                            False))
+
+    def _rng_states(self):
+        """The port's streams: the dropout and quant generators' states
+        and the stochastic-rounding generator's."""
+        return {"dropout": self._rng.bit_generator.state,
+                "quant": self._quant_rng.bit_generator.state,
+                "stochastic_rounding": None if self._sr_gen is None else
+                self._sr_gen.get_state().numpy()}
+
+    def _jax_rng_key(self):
+        """A uint32[2] PRNG key for the JAX engine's `rng` entry, drawn
+        from a copy of the dropout stream (the stream does not move)."""
+        gen = np.random.Generator(type(self._rng.bit_generator)())
+        gen.bit_generator.state = self._rng.bit_generator.state
+        return gen.integers(0, 1 << 32, size=2, dtype=np.uint32)
+
+    def _checkpoint_snapshot(self, client_state, isolate=True):
+        """Phase 1 of save_checkpoint, the only part the train loop pays
+        for. isolate=True (async): every leaf copied into fresh device
+        buffers, queued on the training stream — the update writes
+        parameters and moments in place — and an event recorded after
+        the copies for the writer's stream to wait on. isolate=False
+        (inline writes) serializes straight from live state: nothing
+        steps while an inline write runs."""
+        state = self.state
+        take = (lambda t: t.detach().clone()) if isolate else \
+            (lambda t: t.detach())
+        leaves = state.master if self.mixed_precision else \
+            list(state.params.values())
+        opt = state.opt_state
+        # the learning rate of the last step (optax's injected one)
+        lr = self._device_lr_fn(state.global_steps - 1) \
+            if self._host_steps else np.asarray(self._base_lr, np.float32)
+        count = take(opt.count)
+        module, opt_state = self._ckpt_trees(
+            [take(t) for t in leaves], count, [take(t) for t in opt.mu],
+            [take(t) for t in opt.nu], lr, self._remat())
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return dict(
+            module=module, opt_state=opt_state, event=event,
+            rng=self._jax_rng_key(), torch_rng=self._rng_states(),
+            global_steps=self._host_steps, micro_steps=self.micro_steps,
+            lr_scheduler=self.lr_scheduler.state_dict()
+            if self.lr_scheduler else None,
+            # deep copy: the caller may keep mutating nested values
+            # while the background writer serializes
+            client_state=copy.deepcopy(dict(client_state or {})),
+            zero_stage=self.zero_optimization_stage())
+
+    def _fetch(self, trees, event):
+        """`trees` with every device leaf copied into pinned host
+        memory on a side stream that waits for `event` (a Stacked leaf
+        into one buffer, part by part), then synchronized; CPU leaves
+        pass through."""
+        if event is None:
+            return trees
+        stream = torch.cuda.Stream(device=self.device)
+
+        def to_host(leaf):
+            if isinstance(leaf, ckpt_io.Stacked):
+                host = torch.empty((len(leaf),) + tuple(leaf[0].shape),
+                                   dtype=leaf[0].dtype, pin_memory=True)
+                for i, part in enumerate(leaf):
+                    host[i].copy_(part, non_blocking=True)
+                return host
+            if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                host = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                   pin_memory=True)
+                return host.copy_(leaf, non_blocking=True)
+            return leaf
+
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            stream.wait_event(event)
+            trees = ckpt_io.tree_map(to_host, trees)
+        stream.synchronize()
+        return trees
+
+    def _write_checkpoint(self, save_dir, tag, snap, save_latest,
+                          commit_gate=None, writer=None):
+        """Phase 2 (the writer thread under async_save): fetch the
+        snapshot to the host, serialize into a `<tag>.tmp` staging dir,
+        fsync, rename to `<tag>`, update `latest` LAST, then rotate per
+        checkpoint.keep_last. `commit_gate` orders the commit sections
+        of concurrent writers by submission; a job whose `writer` was
+        abandoned commits its tag dir but leaves `latest` and rotation
+        alone."""
+        staging = ckpt_io.staging_dir(save_dir, tag)
+        if os.path.exists(staging):
+            shutil.rmtree(staging)   # stale leftover of a killed save
+        os.makedirs(staging, exist_ok=True)
+        module, opt_state = self._fetch(
+            (snap.pop("module"), snap.pop("opt_state")), snap["event"])
+        # the device copies are released here, once on the host
+        sd = dict(module=module, global_steps=snap["global_steps"],
+                  skipped_steps=0, micro_steps=snap["micro_steps"],
+                  dp_world_size=1, lr_scheduler=snap["lr_scheduler"],
+                  rng=snap["rng"])
+        sd[TORCH_RNG] = snap["torch_rng"]
+        sd.update(snap["client_state"])
+        optim_sd = dict(opt_state=opt_state, scale=STATIC_SCALE,
+                        zero_stage=snap["zero_stage"])
+        ckpt_io.save_checkpoint_files(save_dir, tag, sd, optim_sd,
+                                      ckpt_dir=staging)
+        with (commit_gate() if commit_gate is not None
+              else contextlib.nullcontext()):
+            ckpt_io.commit_staging_dir(save_dir, tag)
+            stale = writer is not None and writer.abandoned.is_set()
+            if stale:
+                logger.warning(
+                    f"abandoned checkpoint writer committed tag '{tag}' "
+                    "but is leaving `latest` and rotation alone (a "
+                    "successor engine may own them now)")
+            if save_latest and not stale:
+                ckpt_io.write_latest_tag(save_dir, tag)
+            keep_last = self.checkpoint_keep_last()
+            if keep_last and not stale:
+                deleted = ckpt_io.rotate_checkpoints(save_dir, keep_last,
+                                                     protect=(tag,))
+                if deleted:
+                    logger.info(f"checkpoint rotation removed {deleted}")
+        logger.info(f"saved checkpoint {tag} to {save_dir}")
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, async_save=None):
+        """Snapshot-then-write checkpoint save. With
+        checkpoint.async_save (default true) the call returns after the
+        device-side snapshot; a background thread serializes into a
+        staging dir and commits atomically (`wait_for_checkpoint` is
+        the barrier). `async_save` overrides the config per call.
+        Returns False only when checkpoint.queue_policy="drop"
+        discarded the save under backpressure."""
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        # a still-running abandoned writer may own this tag's staging
+        # dir; writing into it concurrently would commit a torn mix
+        for w in list(self._abandoned_ckpt_writers):
+            if not w.pending():
+                self._abandoned_ckpt_writers.remove(w)
+            elif w.tag_in_flight(tag):
+                logger.warning(
+                    f"skipping checkpoint save '{tag}': an abandoned "
+                    "writer still holds this tag's staging dir")
+                return False
+        if self.checkpoint_tag_validation_enabled():
+            ckpt_io.validate_checkpoint_tag(
+                tag, fail_on_mismatch=self.checkpoint_tag_validation_fail())
+        if async_save is None:
+            async_save = self.checkpoint_async_save()
+        if async_save:
+            if self._ckpt_writer is None:
+                self._ckpt_writer = ckpt_io.AsyncCheckpointWriter(
+                    queue_depth=self.checkpoint_writer_queue_depth(),
+                    queue_policy=self.checkpoint_queue_policy())
+            # queue_policy="drop" decides BEFORE the snapshot: a
+            # dropped save must not pay the device copy it drops
+            if not self._ckpt_writer.admit(tag):
+                return False
+        snap = self._checkpoint_snapshot(client_state, isolate=async_save)
+        if not async_save:
+            # an in-flight async writer may hold this tag's staging dir
+            # or commit `latest` after us: drain it first
+            self.wait_for_checkpoint()
+            self._write_checkpoint(save_dir, str(tag), snap, save_latest)
+            return True
+        writer = self._ckpt_writer
+        return writer.submit(
+            lambda commit_gate: self._write_checkpoint(
+                save_dir, str(tag), snap, save_latest,
+                commit_gate=commit_gate, writer=writer), tag)
+
+    def wait_for_checkpoint(self, timeout=None):
+        """Barrier for in-flight async saves: returns once every
+        submitted checkpoint is durably committed and re-raises the
+        first background write error. `timeout` (seconds) bounds the
+        wait: on expiry a `CheckpointWaitTimeout` is raised, so a
+        supervisor can abandon a hung writer
+        (`abandon_checkpoint_writers`). The writer heartbeat it would
+        carry comes with the monitor (ROADMAP Queue 1 item 8)."""
+        if self._ckpt_writer is None:
+            return
+        if self._ckpt_writer.wait(timeout):
+            return
+        pending = self._ckpt_writer.pending()
+        raise ckpt_io.CheckpointWaitTimeout(
+            f"{pending} async checkpoint save(s) still in flight after "
+            f"{timeout}s — abandon_checkpoint_writers() detaches them "
+            "(the committed `latest` tag is unaffected)", pending=pending)
+
+    def abandon_checkpoint_writers(self):
+        """Detach in-flight async save jobs: the engine stops tracking
+        (and waiting on) them. Running writer threads finish or fail on
+        their own — their tag dirs still commit atomically — but no
+        longer move `latest` or rotate, and their errors no longer
+        reach the train loop. Returns the number of jobs abandoned. The
+        next save_checkpoint builds a fresh writer."""
+        writer, self._ckpt_writer = self._ckpt_writer, None
+        if writer is None:
+            return 0
+        writer.abandoned.set()
+        # remembered so later saves refuse a tag whose staging dir a
+        # still-running abandoned job may own
+        self._abandoned_ckpt_writers = [
+            w for w in self._abandoned_ckpt_writers if w.pending()] + \
+            [writer]
+        abandoned = writer.pending()
+        if abandoned:
+            logger.warning(
+                f"abandoning {abandoned} in-flight async checkpoint "
+                "save(s); their tag dirs (if completed) remain atomic "
+                "but they will not move `latest`, and their errors "
+                "will no longer propagate")
+        return abandoned
+
+    def shutdown(self, wait_for_checkpoint=True, checkpoint_timeout=None):
+        """Tear down the engine's host-side services so it can be
+        dropped and rebuilt: drain — or, on timeout, abandon — in-flight
+        checkpoint writers. Device state is freed once the last
+        reference to the engine goes."""
+        if not wait_for_checkpoint:
+            return
+        try:
+            self.wait_for_checkpoint(timeout=checkpoint_timeout)
+        except ckpt_io.CheckpointWaitTimeout as e:
+            logger.warning(f"shutdown: {e}")
+            self.abandon_checkpoint_writers()
+        except RuntimeError as e:
+            # a failed background write must not block teardown
+            logger.warning(f"shutdown: pending writer error: {e}")
+
+    @torch.no_grad()
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True, retries=0):
+        """Load `tag` (default: the `latest` pointer) written by either
+        package into the live state, in place. Returns (path,
+        client_state), or (None, {}) when there is no `latest`. The
+        scanned children are read under the names of the run that
+        wrote them (remat or not); an optimizer state that does not
+        match this engine's optimizer leaves the moments as they are,
+        with a warning, as the JAX engine does."""
+        # a save of the checkpoint being loaded may still be in flight
+        self.wait_for_checkpoint()
+        if tag is None:
+            tag = ckpt_io.read_latest_tag(load_dir, retries=retries)
+            if tag is None:
+                logger.warning(
+                    f"Unable to find latest file at {load_dir}/latest")
+                return None, {}
+        sd, optim_sd = ckpt_io.load_checkpoint_files(
+            load_dir, tag, zero_enabled=load_optimizer_states,
+            retries=retries)
+        module_flat = sd["module_flat"]
+        remat = any(k.startswith("module['h']['Checkpoint")
+                    for k in module_flat)
+        state = self.state
+        leaves = state.master if self.mixed_precision else \
+            list(state.params.values())
+        opt = state.opt_state
+        module, opt_state = self._ckpt_trees(leaves, opt.count, opt.mu,
+                                             opt.nu, None, remat)
+
+        def pairs(tree, flat, prefix):
+            """[(destination, saved)] of every tensor leaf of `tree`,
+            KeyError for a missing entry, ValueError for a shape."""
+            out = []
+            for key, dest in ckpt_io.tree_to_entries(tree, prefix):
+                if not isinstance(dest, (torch.Tensor, ckpt_io.Stacked)):
+                    continue   # hyperparameters: the config's hold
+                if key not in flat:
+                    raise KeyError(f"checkpoint is missing entry {key!r}")
+                saved = flat[key]
+                parts = [(dest, saved)]
+                if isinstance(dest, ckpt_io.Stacked):
+                    if saved.dim() == 0 or saved.shape[0] != len(dest):
+                        raise ValueError(f"{key}: {tuple(saved.shape)} in "
+                                         f"the checkpoint, {len(dest)} "
+                                         "layers here")
+                    parts = list(zip(dest, saved))
+                for d, s in parts:
+                    if tuple(d.shape) != tuple(s.shape):
+                        raise ValueError(f"{key}: shape {tuple(s.shape)} "
+                                         f"!= {tuple(d.shape)}")
+                out += parts
+            return out
+
+        for dest, saved in pairs(module, module_flat, "module"):
+            dest.copy_(saved)
+        if self.mixed_precision:
+            for p, m in zip(state.params.values(), state.master):
+                p.copy_(m)
+        if load_optimizer_states and optim_sd is not None:
+            try:
+                moments = pairs(opt_state, optim_sd["opt_state_flat"],
+                                "optim")
+            except (KeyError, ValueError) as e:
+                # checkpoint saved with a different optimizer or layout:
+                # keep the moments, as the JAX engine does
+                logger.warning(
+                    "checkpoint optimizer state does not match the "
+                    f"current optimizer ({e}); optimizer moments not "
+                    "loaded (kept as they are)")
+            else:
+                for dest, saved in moments:
+                    dest.copy_(saved)
+        for a in state.acc_grads:
+            a.zero_()
+        self._pending = self._ready_grads = None
+        state.global_steps.fill_(int(sd.get("global_steps", 0)) -
+                                 int(sd.get("skipped_steps", 0)))
+        self.micro_steps = int(sd.get("micro_steps", 0))
+        # the checkpoint's global_steps counts every optimizer step
+        # (micro_steps // gas would drift across a gas change)
+        self._host_steps = int(sd.get("global_steps", 0))
+        streams = sd.get(TORCH_RNG)
+        if streams is None:
+            logger.info(
+                f"checkpoint {tag} carries no {TORCH_RNG} entry (written "
+                "by the JAX package): the dropout, quant and "
+                "stochastic-rounding streams keep their seeded state")
+        else:
+            self._rng.bit_generator.state = streams["dropout"]
+            self._quant_rng.bit_generator.state = streams["quant"]
+            sr = streams["stochastic_rounding"]
+            if self._sr_gen is not None and sr is not None:
+                self._sr_gen.set_state(torch.as_tensor(sr,
+                                                       dtype=torch.uint8))
+        if load_lr_scheduler_states and self.lr_scheduler is not None and \
+                sd.get("lr_scheduler") is not None:
+            self.lr_scheduler.load_state_dict(sd["lr_scheduler"])
+        client_state = {k: v for k, v in sd.items() if k not in _CKPT_META}
+        logger.info(f"loaded checkpoint {tag} from {load_dir}")
+        return f"{load_dir}/{tag}", client_state

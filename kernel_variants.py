@@ -12,6 +12,9 @@
     python3 kernel_variants.py compare DIR [phase ...]
                                            # chip_smoke.py phases from the
                                            # tree DIR and this one, in turns
+    python3 kernel_variants.py checkpoint_io
+                                           # phase 21 with np.savez and
+                                           # np.load, and as it is, in turns
 
 Each variant is a copy of deepspeed_tpu_torch/ops/csrc/ with a few text
 substitutions (a product, the softmax, an epilogue or a whole sweep
@@ -471,6 +474,8 @@ def use(lib, path, original):
 def main(argv):
     if len(argv) >= 2 and argv[0] == "compare":
         return compare(argv[1], argv[2:] or COMPARE_PHASES)
+    if argv == ["checkpoint_io"]:
+        return checkpoint_io()
     if len(argv) != 1 or argv[0] not in SETS:
         print(__doc__, file=sys.stderr)
         return 2
@@ -800,6 +805,14 @@ def time_sparse_fwd(variants, procs, cs, gen):
 # gamma and dsum), back to back (`ms`) and from a CUDA graph
 # (`graph_ms`)
 COMPARE_PHASES = ("kernel_ln_bwd", "kernel_ln", "ln_bwd_wide")
+
+# checkpoint_io: the JAX module's np.savez and np.load in place of the
+# port's one-buffer member writer and reader
+NPZ_CALLS = (('    _savez(base + ".npz", main)',
+              '    np.savez(base + ".npz", **main)'),
+             ('_load_npz(base + ".npz").items()',
+              'np.load(base + ".npz").items()'))
+
 COMPARE_CODE = """
 import json, sys
 sys.path.insert(0, {root!r})
@@ -812,7 +825,8 @@ torch.backends.cudnn.allow_tf32 = False
 _build.build_all()
 peaks = cs.peaks_for(torch.cuda.get_device_name(0))
 # the paths (seed, card) rather than kernel phases (peaks, generator)
-PATHS = ("sparse_attention_path", "train_and_check", "moe_train_and_check")
+PATHS = ("sparse_attention_path", "train_and_check", "moe_train_and_check",
+         "checkpoint_and_check")
 
 
 def ln_bwd_wide(gen):
@@ -841,6 +855,29 @@ for phase in {phases!r}:
     print(json.dumps({{"tree": {label!r}, "phase": phase, "result": res}},
                      default=str), flush=True)
 """
+
+
+def checkpoint_io():
+    """Copy the port and chip_smoke.py into build/kernel_variants/np_io
+    with np.savez and np.load in the checkpoint writer and loader, then
+    `compare` its checkpoint phase (labelled "parent") with this tree's
+    in turns."""
+    d = os.path.join(OUT, "np_io")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "deepspeed_tpu_torch"),
+                    os.path.join(d, "deepspeed_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
+    path = os.path.join(d, "deepspeed_tpu_torch", "runtime", "checkpoint.py")
+    with open(path) as f:
+        text = f.read()
+    for old, new in NPZ_CALLS:
+        if old not in text:
+            raise SystemExit(f"checkpoint_io: {old!r} is not in {path}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return compare(d, ["checkpoint_and_check"])
 
 
 def compare(parent, phases):

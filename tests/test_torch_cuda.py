@@ -3,7 +3,8 @@ K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2, K5, K7-fwd,
 K7-band, K7-dkv and K7-dq in bf16 at head dims 64 and 128 on their
 Hopper bodies) against their plain
 PyTorch twins, the serving engine against the kernel-driven forward,
-and a training step on the kernels against the plain-torch route.
+a training step on the kernels against the plain-torch route, and an
+async checkpoint's side-stream snapshot against in-place steps.
 
 Every test here is marked `cuda` and skips where
 torch.cuda.is_available() is False. The file imports neither JAX nor
@@ -674,6 +675,68 @@ def test_training_step_matches_plain_route(dev):
                                          "weight_decay": 0.01}}})
     loss = engine.train_batch(batch={"input_ids": ids[None]})
     assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.parametrize("gated", [True, False],
+                         ids=["steps-before-the-copy", "steps-during-it"])
+def test_async_snapshot_is_not_torn_by_in_place_steps(dev, tmp_path, gated):
+    """An async save copies every leaf on the training stream before it
+    returns; the writer thread fetches those copies to pinned host
+    memory on its own stream. Steps that update the parameters and
+    moments in place right after the call, before the writer's copies
+    start (gated) or while they run, leave the checkpoint equal to the
+    state at the call, bit for bit, and an engine resumed from it
+    repeats those steps' losses bit for bit (bf16 without master
+    weights: the stochastic-rounding stream comes back too)."""
+    import threading
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
+    cfg = tgpt2.gpt2_config("gpt2-125m", n_layer=2, vocab_size=1024,
+                            n_positions=256, dropout=0.0,
+                            dtype=torch.bfloat16,
+                            param_dtype=torch.bfloat16)
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "bf16": {"enabled": True, "master_weights": False},
+              "zero_optimization": {"stage": 2},
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+
+    def engine(seed):
+        model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+        return dst.initialize(model=model, model_parameters=model.init(seed),
+                              config=config)[0]
+
+    ids = torch.randint(0, 1024, (6, 1, 2, 256), generator=_gen(dev, 8),
+                        device=dev)
+    a = engine(0)
+    for x in ids[:2]:
+        a.train_batch(batch={"input_ids": x})
+    ref = [p.detach().cpu().clone() for p in a.params.values()]
+    ref_mu = [m.cpu().clone() for m in a.state.opt_state.mu]
+    release = threading.Event()
+    fetch = a._fetch
+
+    def held(trees, event):
+        if gated:
+            assert release.wait(timeout=60)
+        return fetch(trees, event)
+
+    a._fetch = held
+    assert a.save_checkpoint(str(tmp_path), tag="t") is True
+    losses = [a.train_batch(batch={"input_ids": x}) for x in ids[2:]]
+    release.set()
+    a.wait_for_checkpoint()
+    assert not all(torch.equal(p.cpu(), r)
+                   for p, r in zip(a.params.values(), ref))
+    b = engine(1)
+    b.load_checkpoint(str(tmp_path))
+    assert all(torch.equal(p.cpu(), r) for p, r in zip(b.params.values(),
+                                                        ref))
+    assert all(torch.equal(m.cpu(), r)
+               for m, r in zip(b.state.opt_state.mu, ref_mu))
+    resumed = [b.train_batch(batch={"input_ids": x}) for x in ids[2:]]
+    assert all(torch.equal(x, y) for x, y in zip(resumed, losses))
+    assert ckpt_io.read_latest_tag(str(tmp_path)) == "t"
 
 
 def test_tied_head_logits_keep_the_fp32_accumulator(dev):

@@ -15,9 +15,12 @@ relative (observed < 1e-6 over the 10 steps).
 
 Also here: the config's batch-triple resolution against the JAX
 package's DeepSpeedConfig, the constants, what raises for the later
-slices, the forward/backward/step API against train_batch, and the
-guard that train_batch never waits for the device.
+slices, the checkpoint block, the forward/backward/step API against
+train_batch, and the guard that train_batch never waits for the
+device.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -276,8 +279,6 @@ def test_later_slices_raise(jax_model_and_tree, extra, match):
     ({"monitor": {"enabled": True}}, 8),
     ({"elasticity": {"enabled": True}}, 9),
     # blocks the JAX engine acts on (runtime/engine.py) and the port not yet
-    ({"checkpoint": {"async_save": True}}, 2),
-    ({"checkpoint": {"keep_last": 3}}, 2),
     ({"activation_checkpointing": {"partition_activations": True}}, 4),
     ({"async_dispatch": {"steps_per_sync": 4}}, 4),
     ({"async_dispatch": {"enabled": True}}, 4),
@@ -298,12 +299,36 @@ def test_later_slices_name_their_roadmap_item(jax_model_and_tree, extra,
         _port_engine(jax_model_and_tree[2], config)
 
 
+@pytest.mark.parametrize("block,attr,value", [
+    ({"async_save": False}, "checkpoint_async_save", False),
+    ({"keep_last": 3}, "checkpoint_keep_last", 3),
+    ({"writer_queue_depth": 2, "queue_policy": "drop"},
+     "checkpoint_queue_policy", "drop"),
+    ({"tag_validation": "Fail"}, "checkpoint_tag_validation_fail", True),
+])
+def test_checkpoint_block_configures_the_engine(jax_model_and_tree, block,
+                                                attr, value, tmp_path):
+    """The `checkpoint` block, which raised until checkpoints were
+    ported, now sets the engine's checkpoint knobs, and a save under it
+    commits."""
+    engine, _, _, _ = _port_engine(
+        jax_model_and_tree[2], {"train_micro_batch_size_per_gpu": 2,
+                                "checkpoint": block})
+    assert getattr(engine, attr)() == value
+    assert engine.save_checkpoint(str(tmp_path), tag="t") is True
+    engine.wait_for_checkpoint()
+    assert sorted(os.listdir(tmp_path)) == ["latest", "t"]
+
+
 def test_checkpoints_and_client_objects_name_their_roadmap_item(
-        jax_model_and_tree):
+        jax_model_and_tree, tmp_path):
+    """Checkpoints work since ROADMAP Queue 1 item 2 was ported; client
+    optimizer objects still raise, naming item 4."""
     engine, _, _, _ = _port_engine(jax_model_and_tree[2],
                                    {"train_micro_batch_size_per_gpu": 2})
-    with pytest.raises(NotImplementedError, match="item 2$"):
-        engine.save_checkpoint("unused")
+    assert engine.save_checkpoint(str(tmp_path)) is True
+    assert engine.load_checkpoint(str(tmp_path)) == (
+        f"{tmp_path}/global_step0", {})
     with pytest.raises(NotImplementedError, match="item 4$"):
         dst.initialize(model=engine.module, model_parameters=engine.params,
                        optimizer=object(),
@@ -325,16 +350,27 @@ def test_amp_block_rejects_like_jax(amp, error):
         TConfig(dict(d))
 
 
-def test_checkpoints_raise_and_eval_batch(jax_model_and_tree):
+def test_checkpoints_raise_and_eval_batch(jax_model_and_tree, tmp_path):
+    """A checkpoint saved after a step and loaded into an engine built
+    from other weights gives the same eval_batch loss; eval_batch is
+    the model's deterministic loss without gradients."""
     engine, _, _, _ = _port_engine(jax_model_and_tree[2],
                                    {"train_micro_batch_size_per_gpu": 2})
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        engine.save_checkpoint("unused")
     ids = np.random.RandomState(3).randint(0, 256, (2, 128))
+    engine.train_batch(batch={"input_ids": ids[None]})
+    engine.save_checkpoint(str(tmp_path), tag="t", async_save=False)
     loss = engine.eval_batch({"input_ids": ids})
     ref = engine.module.loss_fn(engine.params, {"input_ids": ids},
                                 deterministic=True)
     assert not loss.requires_grad and torch.equal(loss, ref.detach())
+    other = tgpt2.GPT2ForCausalLM(tgpt2.tiny_gpt2_config(n_positions=128),
+                                  device="cpu")
+    fresh, _, _, _ = dst.initialize(
+        model=other, model_parameters=other.init(5),
+        config={"train_micro_batch_size_per_gpu": 2})
+    assert not torch.equal(fresh.eval_batch({"input_ids": ids}), loss)
+    fresh.load_checkpoint(str(tmp_path))
+    assert torch.equal(fresh.eval_batch({"input_ids": ids}), loss)
 
 
 def test_dataloader_feeds_train_batch(jax_model_and_tree):
