@@ -121,7 +121,27 @@ Phases, each printing one JSON line:
      blocked ms of both calls, the two windows' ms and the stall,
      fetch, commit and load ms, peak device memory and host RSS during
      the save; the checkpoint directory lives under build/ and is
-     removed at the end.
+     removed at the end;
+ 22. kernel_bert: K1-fwd and K2 (bf16 non-causal [16, 128, 16, 64]),
+     K3-fwd and K3-bwd in the post-LN form (N 2,048, H 1024; the
+     residual in bf16 and in fp32, fp32 out, the sum for the backward
+     only) and K4 erf (N 2,048, W 4096) against their twins at
+     BERT-large's pretraining shapes, timed beside their bounds, SDPA's
+     non-causal forward and backward, F.gelu and aten.gelu_backward;
+ 23. bert_training: BERT-large (24 layers, hidden 1024, 16 heads,
+     intermediate 4096, vocab 30522) through initialize -> train_batch
+     with bench.py's bench_bert_large settings (micro batch 16, gas 16,
+     seq 128, bf16 with fp32 masters, AdamW, dropout 0), 2 warm-up and 3
+     timed steps on one repeated batch: step ms, samples/s, tokens/s,
+     TFLOP/s (samples/s * 128 * 6 * n_params), peak memory, exactly 24
+     K1-fwd, 24 K2, 48 K3-fwd, 48 K3-bwd, 24 K4-fwd and 24 K4-bwd
+     launches per micro batch; 3 more steps (the 8 losses finite, the
+     last below the first), a profile of one step, and 3 steps of the
+     plain-torch route from the same weights, each loss within 1e-2 of
+     the kernel route's;
+ 24. bert_oracle: two BERT-large-wide layers, bf16, micro batch 16, seq
+     128: the loss and every gradient through the kernels against the
+     plain-torch route (fused ops off, dense attention).
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -2879,6 +2899,481 @@ def sequence_parallel_path(seed, card):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phases 22-24: BERT-large pretraining on the fused transformer layer
+# ----------------------------------------------------------------------
+# bench.py's bench_bert_large (bench.py:312-368): micro batch 16, gas 16,
+# seq 128, bf16 (fp32 masters), AdamW lr 1e-4, both dropouts 0
+BERT_BATCH, BERT_GAS, BERT_SEQ = 16, 16, 128
+BERT_WARMUP, BERT_STEPS = 2, 3
+# the steps after the timed ones on the same batch (the constant lr
+# without warm-up raises the loss at the second step before it falls),
+# and the plain route's steps beside the kernel route's
+BERT_MORE_STEPS, BERT_PLAIN_STEPS = 3, 3
+# the generator of the kernel checks at BERT's shapes, so that every
+# earlier check keeps its inputs
+BERT_SEED = 13
+# launches of each kernel per micro batch on BERT-large (24 layers):
+# attention once a layer, each post-LN bias + residual + LayerNorm
+# twice, the intermediate bias + GeLU once
+BERT_LAUNCHES_PER_MICRO = {
+    "flash_attention_fwd": 24, "flash_attention_bwd": 24,
+    "fused_bias_residual_layernorm_fwd": 48,
+    "fused_bias_residual_layernorm_bwd": 48,
+    "fused_bias_gelu_fwd": 24, "fused_bias_gelu_bwd": 24}
+BERT_KERNELS = tuple(BERT_LAUNCHES_PER_MICRO)
+
+
+def kernel_bert(peaks):
+    """Phase 22: K1-fwd, K2, K3-fwd, K3-bwd, K4-fwd and K4-bwd at
+    BERT-large's shapes on the pretraining path (micro batch 16, seq 128,
+    so 2,048 rows): non-causal bf16 attention [16, 128, 16, 64] (one
+    128-row q tile over two 64-row K/V tiles) beside SDPA's non-causal
+    forward and backward; the post-LN bias + residual + LayerNorm (y
+    bf16, fp32 out, no sum output, so the sum written for the backward
+    only) with the residual in bf16 (the carry into a layer's attention
+    LayerNorm) and in fp32 (the attention LayerNorm's output into the
+    MLP's), and its backward off that sum (fp32 dout, no sum cotangent,
+    dx bf16); the erf-GeLU at N 2048, W 4096 beside F.gelu and
+    aten.gelu_backward. Each against its twin; the backward kernels
+    launched twice and compared bit for bit. Returns ({kernel: {path:
+    row}}, checks)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(BERT_SEED)
+    checks, out = [], {k: {} for k in BERT_KERNELS}
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_rows = BERT_BATCH * BERT_SEQ
+
+    # K1-fwd and K2: q/k/v column slices of one qkv tensor
+    b, t, h, d = BERT_BATCH, BERT_SEQ, 16, 64
+    label = f"bf16 non-causal B{b} T{t} H{h} D{d} (BERT-large)"
+    c = h * d
+    qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda").to(bf16)
+    q, k, v = (p.view(b, t, h, d) for p in qkv.split(c, dim=-1))
+    sm = 1.0 / d ** 0.5
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    ref_o, ref_lse = fa._flash_fwd_plain(q, k, v, sm, False)
+    err = check(f"flash out, {label}", o, ref_o, TOL_BF16, checks)
+    check(f"flash log2-lse, {label}", lse[..., 0], ref_lse, TOL_F32, checks)
+    flops = 4.0 * b * h * d * t * t
+    nbytes = 4 * b * t * h * d * 2 + b * h * t * 4
+    bound_ms, bound_by = bound(flops, peaks["bf16"], nbytes, peaks)
+    qt, kt, vt = (x.transpose(1, 2).detach().clone() for x in (q, k, v))
+    out["flash_attention_fwd"]["bert"] = rates(dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fa.flash_attention_with_lse(q, k, v,
+                                                       causal=False)),
+        graph_ms=graph_ms(lambda: fa.flash_attention_with_lse(
+            q, k, v, causal=False)),
+        plain_ms=time_ms(lambda: fa._flash_fwd_plain(q, k, v, sm, False),
+                         iters=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=False)),
+        # at this size back-to-back calls time the host: device times
+        # from CUDA graphs, the kernel's and SDPA's
+        library_device_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=False)),
+        shape=label), flops)
+    lse = lse[..., 0].contiguous()
+    dout = torch.randn((b, t, h, d), generator=gen, device="cuda").to(bf16)
+
+    def k2():
+        return fa.flash_attention_backward(q, k, v, o, lse, dout, None, sm,
+                                           False)
+
+    got = k2()
+    torch.cuda.synchronize()
+    ref = fa._flash_bwd_plain(q, k, v, o, lse, dout, None, sm, False)
+    errs = [check_rel(f"flash bwd d{n}, {label}", x, y, GRAD_TOL_BF16,
+                      checks) for n, x, y in zip("qkv", got, ref)]
+    again = k2()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"K2 {label}: a second launch differs")
+    flops = 10.0 * b * h * d * t * t
+    nbytes = 8 * b * t * h * d * 2 + b * h * t * 4
+    bound_ms, bound_by = bound(flops, peaks["bf16"], nbytes, peaks)
+    dt_ = dout.transpose(1, 2).detach().clone()
+    for x in (qt, kt, vt):
+        x.requires_grad_(True)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt_)
+
+    out["flash_attention_bwd"]["bert"] = rates(dict(
+        max_abs_err=max(errs), ms=time_ms(k2), graph_ms=graph_ms(k2),
+        plain_ms=time_ms(lambda: fa._flash_bwd_plain(
+            q, k, v, o, lse, dout, None, sm, False), iters=3, warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
+        library_device_ms=graph_ms(sdpa_fwd_bwd) - graph_ms(sdpa_fwd),
+        shape=label), flops)
+    del qkv, q, k, v, o, lse, dout, got, again, ref, qt, kt, vt, dt_
+    release()
+
+    # K3-fwd and K3-bwd, the post-LN form, H 1024
+    hh = 1024
+    for res_dt, path in ((bf16, "bert"), (f32, "bert_fp32_residual")):
+        label = (f"N{n_rows} H{hh} post-LN: y bf16, residual "
+                 f"{'bf16' if res_dt == bf16 else 'fp32'}, out fp32, the "
+                 "sum for the backward")
+        y = torch.randn((n_rows, hh), generator=gen, device="cuda").to(bf16)
+        res = torch.randn((n_rows, hh), generator=gen, device="cuda") \
+            .to(res_dt)
+        # the parameters as the bf16 engine holds them
+        bias, gamma, beta = ((0.1 * torch.randn(
+            (hh,), generator=gen, device="cuda")).to(bf16)
+            for _ in range(3))
+        gamma = (gamma.float() + 1.0).to(bf16)
+
+        def k3():
+            # what the autograd Function runs on the training path
+            return fo._ln_forward(y, bias, res, gamma, beta, 1e-12, f32,
+                                  res_dt, True)
+
+        got_out, got_s = k3()
+        torch.cuda.synchronize()
+        ref_out, ref_s = fo._ln_fwd_math(y, bias, res, gamma, beta, 1e-12)
+        err = check(f"ln out, {label}", got_out, ref_out, TOL_F32, checks)
+        check(f"ln sum, {label}", got_s, ref_s.to(res_dt),
+              TOL_BF16 if res_dt == bf16 else TOL_F32, checks)
+        isz = res.element_size()
+        # read y and the residual, write out (fp32) and the sum, the
+        # three [H] vectors once (bf16)
+        nbytes = n_rows * hh * (2 + isz + 4 + isz) + 3 * hh * 2
+        bound_ms, bound_by = bound(9 * n_rows * hh, peaks["fp32"], nbytes,
+                                   peaks)
+        out["fused_bias_residual_layernorm_fwd"][path] = rates(dict(
+            max_abs_err=err, ms=time_ms(k3), graph_ms=graph_ms(k3),
+            plain_ms=time_ms(lambda: fo._ln_fwd_math(
+                y, bias, res, gamma, beta, 1e-12)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            shape=label), 9 * n_rows * hh)
+        # the backward off that sum: the cotangent of the fp32 output
+        s = got_s
+        d_out = torch.randn((n_rows, hh), generator=gen, device="cuda")
+        label = (f"N{n_rows} H{hh} post-LN backward: s "
+                 f"{'bf16' if res_dt == bf16 else 'fp32'}, dout fp32, no "
+                 "dsum, dx bf16")
+
+        def k3b():
+            return fo.fused_bias_residual_layernorm_backward(
+                s, gamma, d_out, None, eps=1e-12, dx_dtype=bf16)
+
+        got = k3b()
+        torch.cuda.synchronize()
+        ds, dg, db = fo._ln_bwd_math(s, gamma, d_out, None, 1e-12)
+        ref = (ds.to(bf16), ds.sum(0), dg.sum(0), db.sum(0))
+        errs = [check_rel(f"ln bwd {name}, {label}", x, r_,
+                          GRAD_TOL_BF16 if name == "dx" else
+                          GRAD_TOL_F32 * 10, checks)
+                for name, x, r_ in zip(("dx", "dbias", "dgamma", "dbeta"),
+                                       got, ref)]
+        again = k3b()
+        if not all(torch.equal(x, y_) for x, y_ in zip(got, again)):
+            raise AssertionError(f"ln bwd {label}: two launches differ")
+        # read s and dout (fp32), write dx (bf16), gamma (bf16) and the
+        # three sums once
+        nbytes = n_rows * hh * (isz + 4 + 2) + hh * 2 + 3 * hh * 4
+        bound_ms, bound_by = bound(22 * n_rows * hh, peaks["fp32"], nbytes,
+                                   peaks)
+        out["fused_bias_residual_layernorm_bwd"][
+            "bert" if res_dt == bf16 else "bert_fp32_sum"] = rates(dict(
+                max_abs_err=errs[0], ms=time_ms(k3b), graph_ms=graph_ms(k3b),
+                plain_ms=time_ms(lambda: fo._ln_bwd_math(
+                    s, gamma, d_out, None, 1e-12)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=label,
+                plan=fo.ln_bwd_plan(n_rows, hh, fo._sm_count(0))._asdict()),
+            22 * n_rows * hh)
+        del y, res, s, d_out, got, again, ref, got_out, got_s
+
+    # K4-fwd and K4-bwd, erf, W 4096
+    w = 4096
+    label = f"N{n_rows} W{w} bf16 erf (BERT-large intermediate)"
+    x = torch.randn((n_rows, w), generator=gen, device="cuda").to(bf16)
+    bias = (0.1 * torch.randn((w,), generator=gen, device="cuda")).to(bf16)
+
+    def k4():
+        return fo.fused_bias_gelu_with_sum(x, bias, approximate=False,
+                                           out_dtype=bf16)
+
+    got_out, got_s = k4()
+    torch.cuda.synchronize()
+    ref_out, ref_s = fo._gelu_fwd_math(x, bias, False)
+    err = check(f"gelu out, {label}", got_out, ref_out.to(bf16), TOL_BF16,
+                checks)
+    check(f"gelu sum, {label}", got_s, ref_s.to(bf16), TOL_BF16, checks)
+    # read x, write out and sum (bf16), the bias row once; the erf form:
+    # ~10 fp32 operations and an erf (counted as one) per element
+    nbytes = n_rows * w * (2 + 2 + 2) + w * 2
+    bound_ms, bound_by = bound(11 * n_rows * w, peaks["fp32"], nbytes, peaks)
+    out["fused_bias_gelu_fwd"]["bert"] = rates(dict(
+        max_abs_err=err, ms=time_ms(k4), graph_ms=graph_ms(k4),
+        plain_ms=time_ms(lambda: fo._gelu_fwd_math(x, bias, False)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape=label,
+        yardstick="F.gelu(x, approximate='none'), bf16 [N, W]",
+        yardstick_ms=time_ms(lambda: F.gelu(x, approximate="none")),
+        yardstick_graph_ms=graph_ms(lambda: F.gelu(x, approximate="none"))),
+        11 * n_rows * w)
+    s = got_s
+    dout = torch.randn((n_rows, w), generator=gen, device="cuda").to(bf16)
+
+    def k4b():
+        return fo.fused_bias_gelu_backward(s, dout, approximate=False)
+
+    dx, dbias = k4b()
+    torch.cuda.synchronize()
+    ref = fo._gelu_bwd_math(s, dout, False)
+    err = check_rel(f"gelu bwd dx, {label}", dx, ref.to(bf16),
+                    GRAD_TOL_BF16, checks)
+    check_rel(f"gelu bwd dbias, {label}", dbias, ref.sum(0),
+              GRAD_TOL_F32 * 10, checks)
+    again = k4b()
+    if not (torch.equal(dx, again[0]) and torch.equal(dbias, again[1])):
+        raise AssertionError(f"gelu bwd {label}: two launches differ")
+    nbytes = n_rows * w * (2 + 2 + 2) + w * 4
+    bound_ms, bound_by = bound(19 * n_rows * w, peaks["fp32"], nbytes, peaks)
+    out["fused_bias_gelu_bwd"]["bert"] = rates(dict(
+        max_abs_err=err, ms=time_ms(k4b), graph_ms=graph_ms(k4b),
+        plain_ms=time_ms(lambda: fo._gelu_bwd_math(s, dout, False)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape=label,
+        yardstick="aten.gelu_backward(dout, s, approximate='none'), bf16 "
+                  "[N, W]",
+        yardstick_ms=time_ms(lambda: torch.ops.aten.gelu_backward(
+            dout, s, approximate="none")),
+        yardstick_graph_ms=graph_ms(lambda: torch.ops.aten.gelu_backward(
+            dout, s, approximate="none"))), 19 * n_rows * w)
+    for by_path in out.values():
+        for row in by_path.values():
+            device_rates(row)
+    return out, checks
+
+
+def device_rates(row):
+    """A BERT row's device-time shares: its bound over the kernel's
+    CUDA-graph time, and that time over the library's (or the
+    yardstick's) device time where there is one."""
+    row["graph_share_of_bound"] = row["bound_ms"] / row["graph_ms"]
+    lib = row.get("library_device_ms", row.get("yardstick_graph_ms"))
+    if lib:
+        row["graph_ratio_to_library"] = row["graph_ms"] / lib
+    return row
+
+
+def bert_batch(cfg, seed):
+    """bench.py's bench_bert_large batch recipe (bench.py:331-339), one
+    step's [gas, micro batch, seq] stack from `seed`."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    shape = (BERT_GAS, BERT_BATCH, BERT_SEQ)
+    ids = r.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    labels = np.where(r.random(shape) < 0.15, ids, -100)
+    return {"input_ids": ids,
+            "masked_lm_labels": labels.astype(np.int32),
+            "next_sentence_label": r.integers(
+                0, 2, (BERT_GAS, BERT_BATCH)).astype(np.int32)}
+
+
+def bert_ds_config():
+    """bench.py's bench_bert_large ds_config."""
+    return {"train_micro_batch_size_per_gpu": BERT_BATCH,
+            "gradient_accumulation_steps": BERT_GAS,
+            "bf16": {"enabled": True},
+            "steps_per_print": 1000,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+
+
+def bert_model_config(**overrides):
+    from deepspeed_tpu_torch.models.bert import bert_config
+    return bert_config("bert-large", max_position_embeddings=BERT_SEQ,
+                       hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0, bf16=True,
+                       **overrides)
+
+
+def bert_training(seed, card):
+    """Phase 23: BERT-large pretraining (24 layers, hidden 1024, 16 heads
+    of 64, intermediate 4096, vocab 30522) through initialize ->
+    train_batch with bench_bert_large's settings (micro batch 16, gas
+    16, seq 128, bf16 with fp32 masters, AdamW lr 1e-4, dropout 0) on one
+    repeated batch of its recipe: 2 warm-up and 3 timed steps (step ms,
+    samples/s, tokens/s, TFLOP/s as samples/s * 128 * 6 * n_params, the
+    bench's formula; peak device memory; the launches per micro batch of
+    each kernel, exactly BERT_LAUNCHES_PER_MICRO), BERT_MORE_STEPS more,
+    a torch.profiler window over one step, one micro batch's host
+    enqueue time against its whole time, then the plain-torch route
+    (fused_ops "off", an all-ones mask: dense attention) from the same
+    weights for BERT_PLAIN_STEPS steps on the same batch. Gates: finite
+    losses; the last of the 8 below the first (the constant lr without
+    warm-up raises the loss at the second step, on both routes, before it
+    falls); each plain-route loss within TOL_TRAIN_LOSS of the kernel
+    route's at the same step; the exact launch counts. Returns the launch
+    counts of the 5 bench steps."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.bert import (BertForPreTrainingLM,
+                                                 mlm_head_dtype)
+
+    cfg = bert_model_config()
+    host_batch = bert_batch(cfg, seed)
+    t0 = time.perf_counter()
+    model = BertForPreTrainingLM(cfg)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in params.values())
+    engine, _, _, _ = dst.initialize(model=model, model_parameters=params,
+                                     config=bert_ds_config())
+    staged = engine.stage_batch(host_batch)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(BERT_WARMUP):
+        losses.append(engine.train_batch(batch=staged))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(BERT_STEPS):
+        losses.append(engine.train_batch(batch=staged))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / BERT_STEPS
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(BERT_MORE_STEPS):
+        losses.append(engine.train_batch(batch=staged))
+    loss_vals = [float(x) for x in torch.stack(losses).float().cpu()]
+    micro = (BERT_WARMUP + BERT_STEPS) * BERT_GAS
+    per_micro = {k: counts[k] / micro for k in BERT_KERNELS}
+    profile = profile_steps(lambda: engine.train_batch(batch=staged), 1)
+    # the host's time for one micro batch's loss and gradients: the
+    # enqueue (no device wait), then the wait for the device
+    micro_batch = {k: v[0] for k, v in staged.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.forward(micro_batch)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    micro_s = time.perf_counter() - t0
+    del engine, model, staged, micro_batch
+    release()
+
+    plain = BertForPreTrainingLM(bert_model_config(fused_ops="off"))
+    engine, _, _, _ = dst.initialize(model=plain, model_parameters=params,
+                                     config=bert_ds_config())
+    del params
+    staged = engine.stage_batch(dict(
+        host_batch, attention_mask=np.ones_like(host_batch["input_ids"])))
+    plain_vals = [float(engine.train_batch(batch=staged))
+                  for _ in range(BERT_PLAIN_STEPS)]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(plain_vals, loss_vals)]
+    del engine, plain, staged
+
+    samples_s = BERT_BATCH * BERT_GAS / step_s
+    ok = all(np.isfinite(loss_vals)) and loss_vals[-1] < loss_vals[0]
+    plain_ok = all(np.isfinite(plain_vals)) and max(gaps) <= TOL_TRAIN_LOSS
+    exact = per_micro == {k: float(v)
+                          for k, v in BERT_LAUNCHES_PER_MICRO.items()}
+    emit({"phase": "bert_training", "model": "bert-large",
+          "n_layer": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+          "heads": cfg.num_attention_heads,
+          "intermediate": cfg.intermediate_size, "vocab": cfg.vocab_size,
+          "n_params": n_params, "micro_batch": BERT_BATCH, "gas": BERT_GAS,
+          "seq": BERT_SEQ, "dtype": "bf16 compute, fp32 master weights",
+          "mlm_head_dtype": str(mlm_head_dtype(cfg, "cuda")),
+          "zero_stage": 0, "setup_s": setup_s,
+          "warmup_steps": BERT_WARMUP, "warmup_s": warm_s,
+          "steps": BERT_STEPS, "step_ms": step_s * 1e3,
+          "samples_per_s": samples_s,
+          "tokens_per_s": samples_s * BERT_SEQ,
+          "tflops": samples_s * BERT_SEQ * 6.0 * n_params / 1e12,
+          "max_memory_allocated_gib": peak / 2 ** 30,
+          "micro_batch_host_enqueue_ms": enqueue_s * 1e3,
+          "micro_batch_ms": micro_s * 1e3,
+          "losses": loss_vals, "loss_falls": ok,
+          "plain_route_losses": plain_vals,
+          "plain_route_rel_gap": gaps, "tol_plain_rel_gap": TOL_TRAIN_LOSS,
+          "launches_per_micro_batch": per_micro,
+          "expected_launches_per_micro_batch": BERT_LAUNCHES_PER_MICRO,
+          "launches_exact": exact, "card": card})
+    emit({"phase": "bert_training_profile", "step_ms": step_s * 1e3,
+          **profile, "card": card})
+    if not ok:
+        raise AssertionError(f"bert_training losses {loss_vals}: not finite "
+                             "or not falling on the repeated batch")
+    if not plain_ok:
+        raise AssertionError(f"bert_training: the plain route's losses "
+                             f"{plain_vals} stray from {loss_vals}")
+    if not exact:
+        raise AssertionError(f"bert_training launches per micro batch "
+                             f"{per_micro} != {BERT_LAUNCHES_PER_MICRO}")
+    return counts
+
+
+def bert_oracle(seed, n_layer=2):
+    """Phase 24: two BERT-large-wide layers, bf16 parameters as the
+    engine holds them, micro batch 16, seq 128: the loss and every
+    gradient through the kernels (fused epilogues and flash: K1-K4
+    forward and backward) against the plain-torch route (fused_ops
+    "off", and an all-ones attention mask, so dense attention with an
+    additive mask of zeros: the same function). Within TOL_TRAIN_LOSS /
+    TOL_TRAIN_GRAD (relative L2), as training_oracle."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.bert import BertForPreTrainingLM
+
+    cfg = bert_model_config(num_hidden_layers=n_layer)
+    kernel = BertForPreTrainingLM(cfg)
+    params = {k: v.to(torch.bfloat16) for k, v in kernel.init(seed).items()}
+    plain = BertForPreTrainingLM(bert_model_config(
+        num_hidden_layers=n_layer, fused_ops="off"))
+    batch = {k: torch.as_tensor(v[0], device="cuda")
+             for k, v in bert_batch(cfg, seed + 1).items()}
+    plain_batch = dict(batch, attention_mask=torch.ones_like(
+        batch["input_ids"]))
+    reset_counts()
+    results = []
+    for model, b in ((kernel, batch), (plain, plain_batch)):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = model.loss_fn(p, b, deterministic=True)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        results.append((float(loss.detach()), grads))
+        if model is kernel:
+            launched = read_counts()
+    torch.cuda.synchronize()
+    (lk, gk), (lp, gp) = results
+    loss_err = abs(lk - lp) / abs(lp)
+    errs = {name: rel_l2(a, b) for name, a, b in zip(params, gk, gp)}
+    worst = max(errs, key=errs.get)
+    finite = all(torch_isfinite(g) for g in gk)
+    ok = finite and loss_err <= TOL_TRAIN_LOSS and \
+        errs[worst] <= TOL_TRAIN_GRAD and \
+        all(launched[k] > 0 for k in BERT_KERNELS)
+    emit({"phase": "bert_oracle", "n_layer": n_layer, "batch": BERT_BATCH,
+          "seq": BERT_SEQ, "loss_kernels": lk, "loss_plain": lp,
+          "loss_rel_err": loss_err, "tol_loss": TOL_TRAIN_LOSS,
+          "grads": len(errs), "worst_grad": worst,
+          "worst_grad_rel_l2": errs[worst],
+          "median_grad_rel_l2": float(np.median(list(errs.values()))),
+          "tol_grad_rel_l2": TOL_TRAIN_GRAD,
+          "kernel_route_launches": {k: launched[k] for k in BERT_KERNELS},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("BERT kernel-route loss/gradients disagree "
+                             "with the plain-torch route")
+
+
 # the dense attention kernels (K1-fwd and K5, K2's sweeps, its delta
 # pre-pass and given-delta shift), by kernel-name substring
 ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_", "delta_kernel")
@@ -3260,6 +3755,21 @@ def main(argv=None):
     # zeroed inside, right before its first step)
     ckpt = path_counts("checkpoint", checkpoint_and_check(args.seed, card),
                        TRAINING_KERNELS)
+    release()
+
+    # 22: the kernels at BERT-large's shapes against their twins; 23:
+    # BERT-large pretraining (counts zeroed inside, right before its
+    # steps); 24: its oracle
+    bert_res, checks = kernel_bert(peaks)
+    for kname, by_path in bert_res.items():
+        results[kname].update(by_path)
+    emit({"phase": "kernel_bert", "checks": checks,
+          "timed_by_path": bert_res, "card": card})
+    release()
+    bert = path_counts("bert_training", bert_training(args.seed, card),
+                       BERT_KERNELS)
+    bert_oracle(args.seed)
+    release()
 
     rows = []
     counts_by_path = {"serving": serving, "training": training,
@@ -3268,7 +3778,8 @@ def main(argv=None):
                       "sparse_attention": sparse,
                       "sparse_oracle": sparse_oracle_counts,
                       "sequence_parallel": sp_path,
-                      "sp_training": sp_train, "checkpoint": ckpt}
+                      "sp_training": sp_train, "checkpoint": ckpt,
+                      "bert_training": bert}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);

@@ -15,11 +15,15 @@ paged-KV serving engine (`inference/`). Slice 2: GPT-2 training —
 `loss_fn`, the backward kernels and remat. Later slices: MoE,
 quantized compute, block-sparse attention, and sequence parallelism
 (`ops/sequence/`, over the process groups `init_distributed` sets up),
-and checkpoints in the JAX package's on-disk layout
+checkpoints in the JAX package's on-disk layout
 (`runtime/checkpoint.py`, the engine's `save_checkpoint` and
-`load_checkpoint`).
+`load_checkpoint`), and BERT pretraining on the fused transformer layer
+(`DeepSpeedTransformerLayer` / `DeepSpeedTransformerConfig`, re-exported
+here as in the JAX package; `models/bert.py`; `module_inject/`).
 """
 
+from deepspeed_tpu_torch.ops.transformer import (
+    DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 from deepspeed_tpu_torch.utils.device import resolve_device
@@ -29,6 +33,7 @@ from deepspeed_tpu_torch.utils.logging import logger
 __version__ = "0.1.0"
 
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
+           "DeepSpeedTransformerLayer", "DeepSpeedTransformerConfig",
            "init_distributed", "resolve_device", "logger", "__version__"]
 
 

@@ -25,6 +25,15 @@ setting, and cut into MoE cells from the parameter names), as a
 checkpoint in the JAX package's layout holds them.
 
 `config_from_jax` carries a JAX `GPT2Config` into the port's.
+
+BERT (`models/bert.py`): the JAX encoder scans one child under
+"bert.encoder.layer" ("DeepSpeedTransformerLayer_0", with `core`
+beneath it; the memory flags rename nothing), whose leaves carry a
+leading [num_hidden_layers] axis. `bert_params_from_jax` unstacks it
+into "bert.encoder.layer.{i}.core.<leaf>" and flattens every other
+leaf by its path; `bert_params_to_jax` stacks it back; a bf16 tree goes
+through fp32, as GPT-2's does. `bert_config_from_jax` carries a JAX
+`BertConfig` across.
 """
 
 import dataclasses
@@ -209,3 +218,66 @@ def config_from_jax(jcfg, sp_group=None, **overrides):
     fields["sp_group"] = sp_group
     fields.update(overrides)
     return GPT2Config(**fields)
+
+
+_BERT_LAYER_CHILD = "DeepSpeedTransformerLayer_0"
+_BERT_LAYERS = "bert.encoder.layer."
+
+
+def bert_params_from_jax(tree, dtype=None):
+    """A JAX `BertForPreTrainingLM` tree (nested dicts of numpy arrays)
+    -> the port's flat parameter dict of CPU tensors (dtype: keep the
+    tree's, or cast to the given torch dtype)."""
+    layer = tree["bert"]["encoder"]["layer"]
+    if sorted(layer) != [_BERT_LAYER_CHILD]:
+        raise ValueError(f'unexpected children {sorted(layer)} under '
+                         f'"bert.encoder.layer" (expected '
+                         f'["{_BERT_LAYER_CHILD}"])')
+    out = {}
+    for path, value in _leaves(tree):
+        if path.startswith(_BERT_LAYERS):
+            continue
+        out[path] = _tensor(value, dtype)
+    stacked = list(_leaves(layer[_BERT_LAYER_CHILD]))
+    n = {np.shape(v)[0] for _, v in stacked}
+    if len(n) != 1:
+        raise ValueError(f"encoder leaves disagree on the layer axis: {n}")
+    for path, value in stacked:
+        arr = np.array(value)
+        for i in range(arr.shape[0]):
+            out[f"{_BERT_LAYERS}{i}.{path}"] = _tensor(arr[i], dtype)
+    return out
+
+
+def bert_params_to_jax(params, stack=torch.stack):
+    """`bert_params_from_jax`'s inverse: "bert.encoder.layer.{i}.<path>"
+    stacked over the layers (`stack` of the per-layer values) under the
+    scanned child, every other dotted name nested as it reads."""
+    layers = {}
+    tree = {}
+    for name, value in params.items():
+        if name.startswith(_BERT_LAYERS):
+            index, _, path = name[len(_BERT_LAYERS):].partition(".")
+            layers.setdefault(int(index), {})[path] = value
+        else:
+            _nest(tree, name, value)
+    n = len(layers)
+    if sorted(layers) != list(range(n)):
+        raise ValueError(f"layers {sorted(layers)} are not 0..{n - 1}")
+    stacked = {}
+    for path in layers[0] if n else ():
+        _nest(stacked, path, stack([layers[i][path] for i in range(n)]))
+    tree.setdefault("bert", {}).setdefault("encoder", {})["layer"] = {
+        _BERT_LAYER_CHILD: stacked}
+    return tree
+
+
+def bert_config_from_jax(jcfg, **overrides):
+    """The port's `BertConfig` for a JAX `BertConfig`: every field carried
+    across by name; `overrides` replace fields after that."""
+    from deepspeed_tpu_torch.models.bert import BertConfig
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(BertConfig)
+              if hasattr(jcfg, f.name)}
+    fields.update(overrides)
+    return BertConfig(**fields)

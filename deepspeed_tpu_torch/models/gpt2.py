@@ -73,6 +73,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.models.convert import params_from_jax, params_to_jax
+from deepspeed_tpu_torch.models.wrapper import ModelWrapper
 from deepspeed_tpu_torch.moe.layer import MoEConfig, MoEMLP
 from deepspeed_tpu_torch.moe.router import STAT_AUX
 from deepspeed_tpu_torch.ops.sequence import (
@@ -84,7 +86,7 @@ from deepspeed_tpu_torch.ops.transformer.fused_ops import (
 from deepspeed_tpu_torch.ops.transformer.quantized_matmul import \
     resolve_quantized_compute
 from deepspeed_tpu_torch.ops.transformer.transformer import (
-    Dense, LayerNorm, QuantizedDense, SplitDense, plain_layernorm)
+    LayerNorm, plain_layernorm, project, projection, run_block)
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.rng import stream_generator, stream_seed
 
@@ -241,27 +243,12 @@ def _attention(cfg, q, k, v, dropout_gen=None):
                            dropout_gen=dropout_gen)
 
 
-def _project(proj, x, seed, index):
-    """`proj(x)`; a QuantizedDense also takes stream `index` of the
-    block's quant `seed` for its stochastic rounding."""
-    if isinstance(proj, QuantizedDense):
-        return proj(x, stream_seed(seed, index))
-    return proj(x)
-
-
 def _projection(cfg: GPT2Config, in_features, features, split=False):
-    """A block projection: Dense (SplitDense with `split`), or
-    QuantizedDense when quantized compute is configured (it resolves
-    "auto" per call, on the input's device). The parameters are the
-    same either way."""
-    if cfg.quantized_compute != "auto" and \
-            not resolve_quantized_compute(cfg.quantized_compute):
-        return (SplitDense if split else Dense)(in_features, features,
-                                                cfg.dtype, cfg.param_dtype)
-    return QuantizedDense(in_features, features, cfg.dtype, cfg.param_dtype,
-                          mode=cfg.quantized_compute, block=cfg.quant_block,
-                          stochastic_rounding=cfg.quant_stochastic_rounding,
-                          split=split)
+    """A block projection under the config's compute dtype and quantized
+    compute settings (`ops.transformer.transformer.projection`)."""
+    return projection(in_features, features, cfg.dtype, cfg.param_dtype,
+                      cfg.quantized_compute, cfg.quant_block,
+                      cfg.quant_stochastic_rounding, split=split)
 
 
 def embed_tokens(cfg: GPT2Config, wte, wpe, input_ids):
@@ -337,21 +324,21 @@ class GPT2Block(nn.Module):
                                 eps).to(cfg.dtype)
         else:
             x = self.ln_1(hidden).to(cfg.dtype)
-        qkv = _project(self.c_attn, x, quant_seed, 0)
+        qkv = project(self.c_attn, x, quant_seed, 0)
         # column slices of qkv, viewed [B, T, H, D] in place (no copy)
         q, k, v = (part.view(b, t, h, d) for part in qkv.split(c, dim=-1))
         attn = _attention(cfg, q, k, v, gen).reshape(b, t, c)
-        attn_y, attn_b = _project(self.c_proj, attn, quant_seed, 1)
+        attn_y, attn_b = project(self.c_proj, attn, quant_seed, 1)
         if use_fused:
             # one launch: c_proj bias + residual + ln_2
             y, hidden = fused_bias_residual_layernorm(
                 attn_y, attn_b, hidden, self.ln_2.scale, self.ln_2.bias,
                 eps=eps, out_dtype=cfg.dtype, sum_dtype=sum_dtype)
-            fc_y, fc_b = _project(self.c_fc, y, quant_seed, 2)
+            fc_y, fc_b = project(self.c_fc, y, quant_seed, 2)
             # one launch: c_fc bias + tanh GeLU (GPT-2's approximation)
             y = fused_bias_gelu(fc_y, fc_b, approximate=True,
                                 out_dtype=cfg.dtype)
-            mlp_y, mlp_b = _project(self.mlp_c_proj, y, quant_seed, 3)
+            mlp_y, mlp_b = project(self.mlp_c_proj, y, quant_seed, 3)
             if return_boundary:
                 return hidden, (mlp_y, mlp_b)
             return hidden + (mlp_y + mlp_b.to(cfg.dtype))
@@ -360,10 +347,10 @@ class GPT2Block(nn.Module):
             attn = dropout(attn, cfg.dropout, gen)
         hidden = hidden + attn
         y = self.ln_2(hidden).to(cfg.dtype)
-        fc_y, fc_b = _project(self.c_fc, y, quant_seed, 2)
+        fc_y, fc_b = project(self.c_fc, y, quant_seed, 2)
         y = nn.functional.gelu(fc_y + fc_b.to(cfg.dtype),
                                approximate="tanh")
-        mlp_y, mlp_b = _project(self.mlp_c_proj, y, quant_seed, 3)
+        mlp_y, mlp_b = project(self.mlp_c_proj, y, quant_seed, 3)
         y = mlp_y + mlp_b.to(cfg.dtype)
         if drop:
             y = dropout(y, cfg.dropout, gen)
@@ -405,11 +392,11 @@ class MoEGPT2Block(nn.Module):
             jitter = stream_generator(dropout_seed, 1, hidden.device)
 
         x = self.ln_1(hidden).to(cfg.dtype)
-        qkv = _project(self.c_attn, x, quant_seed, 0)
+        qkv = project(self.c_attn, x, quant_seed, 0)
         q, k, v = (part.view(b, t, h, d) for part in qkv.split(c, dim=-1))
-        attn = _project(self.c_proj,
-                        _attention(cfg, q, k, v, gen).reshape(b, t, c),
-                        quant_seed, 1)
+        attn = project(self.c_proj,
+                       _attention(cfg, q, k, v, gen).reshape(b, t, c),
+                       quant_seed, 1)
         if drop:
             attn = dropout(attn, cfg.dropout, gen)
         hidden = hidden + attn
@@ -418,22 +405,6 @@ class MoEGPT2Block(nn.Module):
         if drop:
             y = dropout(y, cfg.dropout, gen)
         return hidden + y, stats
-
-
-def _block_call(block, params, *args):
-    return torch.func.functional_call(block, params, args)
-
-
-def _run_block(block, remat, *args):
-    """One block, under full-block remat when `remat`: torch.utils
-    .checkpoint keeps the block's inputs (the boundary tuple) and
-    recomputes the rest in the backward. The block's parameters are
-    passed explicitly, so the recompute reads the same tensors as the
-    forward even when the caller swapped them in (functional_call)."""
-    if not remat:
-        return block(*args)
-    return checkpoint(_block_call, block, dict(block.named_parameters()),
-                      *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class GPT2LMHeadModel(nn.Module):
@@ -495,16 +466,16 @@ class GPT2LMHeadModel(nn.Module):
                     torch.zeros((cfg.n_embd,), dtype=self.wte.dtype,
                                 device=hidden.device))
             for i, block in enumerate(self.h):
-                hidden, prev = _run_block(block, remat, hidden, prev, True,
-                                          deterministic, seed(i), qseed(i))
+                hidden, prev = run_block(block, remat, hidden, prev, True,
+                                         deterministic, seed(i), qseed(i))
             hidden = fused_bias_residual_layernorm(
                 prev[0], prev[1], hidden, self.ln_f.scale, self.ln_f.bias,
                 eps=cfg.layer_norm_epsilon, out_dtype=torch.float32,
                 return_sum=False)
         else:
             for i, block in enumerate(self.h):
-                hidden = _run_block(block, remat, hidden, None, False,
-                                    deterministic, seed(i), qseed(i))
+                hidden = run_block(block, remat, hidden, None, False,
+                                   deterministic, seed(i), qseed(i))
             hidden = self.ln_f(hidden)
         if return_hidden:
             return hidden.to(cfg.dtype), self.wte
@@ -522,12 +493,12 @@ class GPT2LMHeadModel(nn.Module):
                             device=hidden.device)
         for i, block in enumerate(self.h):
             if cfg.is_moe_layer(i):
-                hidden, s = _run_block(block, remat, hidden, deterministic,
-                                       seed(i), qseed(i))
+                hidden, s = run_block(block, remat, hidden, deterministic,
+                                      seed(i), qseed(i))
                 stats = stats + s
             else:
-                hidden = _run_block(block, remat, hidden, None, False,
-                                    deterministic, seed(i), qseed(i))
+                hidden = run_block(block, remat, hidden, None, False,
+                                   deterministic, seed(i), qseed(i))
         stats = stats / float(cfg.moe_cells)
         hidden = self.ln_f(hidden)
         if return_hidden:
@@ -628,7 +599,7 @@ def _init_std(cfg, name):
     return None
 
 
-class GPT2ForCausalLM:
+class GPT2ForCausalLM(ModelWrapper):
     """Entry point: `init(seed)` -> params, `apply(params, input_ids)`
     -> logits [B, T, vocab], as in the JAX package. Parameters live on
     `device` ("cuda" unless the caller asks for the CPU)."""
@@ -647,42 +618,15 @@ class GPT2ForCausalLM:
         unit LayerNorm scales). The draws are torch's, not JAX's: the
         two packages give different weights from one seed. Returns the
         parameter dict."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        with torch.no_grad():
-            for name, p in self.module.named_parameters():
-                std = _init_std(self.config, name)
-                if std is not None:
-                    p.normal_(0.0, std, generator=gen)
-                elif name.endswith(".scale"):
-                    p.fill_(1.0)
-                else:
-                    p.zero_()
-        return self.params()
+        return self._init_params(seed, lambda n: _init_std(self.config, n))
 
-    def params(self):
-        """{name: tensor} views of the module's parameters."""
-        return {name: p.detach()
-                for name, p in self.module.named_parameters()}
+    def params_to_jax(self, params, remat=False, stack=torch.stack):
+        """The JAX tree of a flat parameter dict (the engine's checkpoint
+        layout): the scanned children named for `remat`."""
+        return params_to_jax(params, remat=remat, stack=stack)
 
-    def load_params(self, params):
-        """Copy a flat parameter dict (e.g. from
-        models.convert.params_from_jax) into the module."""
-        own = dict(self.module.named_parameters())
-        missing = set(own) - set(params)
-        extra = set(params) - set(own)
-        if missing or extra:
-            raise KeyError(f"parameter names differ: missing "
-                           f"{sorted(missing)[:5]}, extra "
-                           f"{sorted(extra)[:5]}")
-        with torch.no_grad():
-            for name, p in own.items():
-                src = torch.as_tensor(params[name])
-                if tuple(src.shape) != tuple(p.shape):
-                    raise ValueError(f"{name}: shape {tuple(src.shape)} "
-                                     f"!= {tuple(p.shape)}")
-                p.copy_(src)
-        return self.params()
+    def params_from_jax(self, tree, dtype=None):
+        return params_from_jax(tree, dtype)
 
     def _ids(self, x):
         t = x if isinstance(x, torch.Tensor) else \

@@ -44,7 +44,8 @@ and 1-bit Adam (item 4) raise too.
 
 Checkpoints (`save_checkpoint`, `load_checkpoint`) are the JAX engine's
 files (`runtime/checkpoint.py`): the module tree with the scanned
-layers stacked (`models.convert.params_to_jax`), the optimizer state as
+layers stacked (the model's `params_to_jax`: GPT-2's and BERT's
+converters in `models/convert.py`), the optimizer state as
 optax's trees (`inject_hyperparams(adamw)` over `ScaleByAdamState`, or
 `adamw_bf16`'s `ScaleByAdamBF16State` without master weights), the
 static loss scale under `aux/scale` and the JAX engine's metadata, so
@@ -66,7 +67,6 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.models.convert import params_to_jax
 from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime import lr_schedules
@@ -148,7 +148,9 @@ def _world_size():
 class DeepSpeedEngine:
     """Training engine. Args mirror `deepspeed_tpu.initialize`:
       model: an object with `.loss_fn(params, batch, rngs,
-        deterministic)` (e.g. `models.gpt2.GPT2ForCausalLM`);
+        deterministic)` (e.g. `models.gpt2.GPT2ForCausalLM`,
+        `models.bert.BertForPreTrainingLM`), and for checkpoints
+        `.params_to_jax(params, remat, stack)`;
       model_parameters: the flat parameter dict {name: tensor};
       device: where the state lives (default: the model's `device`,
         else "cuda").
@@ -667,10 +669,16 @@ class DeepSpeedEngine:
         and the step count and learning rate. The same trees of the
         live tensors are the load's destinations."""
         names = list(self.state.params)
+        to_jax = getattr(self.module, "params_to_jax", None)
+        if to_jax is None:
+            raise TypeError(
+                f"the model ({type(self.module).__name__}) needs a "
+                "params_to_jax(params, remat, stack) method for "
+                "checkpoints in the JAX package's layout")
 
         def tree(values):
-            return params_to_jax(dict(zip(names, values)), remat=remat,
-                                 stack=ckpt_io.Stacked)
+            return to_jax(dict(zip(names, values)), remat=remat,
+                          stack=ckpt_io.Stacked)
 
         inner = ScaleByAdamState(count, tree(mu), tree(nu))
         if self._ckpt_empty_states is not None:

@@ -3,8 +3,12 @@ K3-fwd, K3-bwd, K4-fwd, K4-bwd, K5, K6, K7, K8; K1, K2, K5, K7-fwd,
 K7-band, K7-dkv and K7-dq in bf16 at head dims 64 and 128 on their
 Hopper bodies) against their plain
 PyTorch twins, the serving engine against the kernel-driven forward,
-a training step on the kernels against the plain-torch route, and an
-async checkpoint's side-stream snapshot against in-place steps.
+a training step on the kernels against the plain-torch route, an
+async checkpoint's side-stream snapshot against in-place steps, and
+BERT pretraining's kernel forms (non-causal bf16 attention at [16, 128,
+16, 64], the post-LN LayerNorm at H 1024 with the carry's dtype, the
+erf GeLU at N 2048, W 4096) and a small BERT on the kernels against
+the plain route.
 
 Every test here is marked `cuda` and skips where
 torch.cuda.is_available() is False. The file imports neither JAX nor
@@ -1541,3 +1545,143 @@ def test_block_sparse_kernels_pad_t_and_d(dev, t, d, dtype):
     for x, y, z in zip(got, twin_grads, ref_grads):
         assert _rel_l2(x.cpu(), y) <= GRAD_TOL[dtype]
         assert _rel_l2(x, z) <= dense_tol
+
+
+# ----------------------------------------------------------------------
+# BERT-large pretraining's shapes and forms (micro batch 16, seq 128)
+# ----------------------------------------------------------------------
+def test_bert_flash_kernels_match_twins(dev):
+    """K1-fwd and K2, bf16 non-causal at [16, 128, 16, 64]: one 128-row
+    q tile over two 64-row K/V tiles; K2 launched twice, bit for bit."""
+    g = _gen(dev, 13)
+    b, t, h, d = 16, 128, 16, 64
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    out, lse = tfa.flash_attention_with_lse(q, k, v, causal=False)
+    ref, ref_lse = tfa._flash_fwd_plain(q, k, v, d ** -0.5, False)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    torch.testing.assert_close(lse[..., 0], ref_lse, **F32_TOL)
+    lse = lse[..., 0].contiguous()
+    dout = torch.randn((b, t, h, d), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    before = tfa.flash_attention_backward.launches
+    got = tfa.flash_attention_backward(q, k, v, out, lse, dout, None,
+                                       d ** -0.5, False)
+    again = tfa.flash_attention_backward(q, k, v, out, lse, dout, None,
+                                         d ** -0.5, False)
+    want = tfa._flash_bwd_plain(q, k, v, out, lse, dout, None, d ** -0.5,
+                                False)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_backward.launches == before + 2
+    for name, x, y, z in zip("qkv", got, want, again):
+        assert _rel_l2(x, y) <= GRAD_TOL[torch.bfloat16], name
+        assert torch.equal(x, z), name
+
+
+@pytest.mark.parametrize("res_dtype", [torch.bfloat16, torch.float32])
+def test_bert_post_ln_layernorm_kernels_match_twins(dev, res_dtype):
+    """K3 in BERT's post-LN form at N 2048, H 1024: y bf16, the residual
+    in the carry's dtype (bf16 into the attention LayerNorm, fp32 into
+    the output LayerNorm), bf16 parameters, fp32 out and the sum for the
+    backward; then K3-bwd off that sum with an fp32 dout, no dsum and a
+    bf16 dx, launched twice, bit for bit."""
+    g = _gen(dev, 14)
+    n, h = 2048, 1024
+    y = torch.randn((n, h), generator=g, device=dev).to(torch.bfloat16)
+    res = torch.randn((n, h), generator=g, device=dev).to(res_dtype)
+    bias, beta = ((0.1 * torch.randn((h,), generator=g, device=dev))
+                  .to(torch.bfloat16) for _ in range(2))
+    gamma = (1.0 + 0.1 * torch.randn((h,), generator=g, device=dev)) \
+        .to(torch.bfloat16)
+    before = tfo.fused_bias_residual_layernorm.launches
+    out, s = tfo._ln_forward(y, bias, res, gamma, beta, 1e-12,
+                             torch.float32, res_dtype, True)
+    ref_out, ref_s = tfo._ln_fwd_math(y, bias, res, gamma, beta, 1e-12)
+    torch.cuda.synchronize()
+    assert tfo.fused_bias_residual_layernorm.launches == before + 1
+    assert out.dtype == torch.float32 and s.dtype == res_dtype
+    torch.testing.assert_close(out, ref_out, **F32_TOL)
+    torch.testing.assert_close(
+        s.float(), ref_s.to(res_dtype).float(),
+        **(BF16_TOL if res_dtype == torch.bfloat16 else F32_TOL))
+    dout = torch.randn((n, h), generator=g, device=dev)
+    got = tfo.fused_bias_residual_layernorm_backward(
+        s, gamma, dout, None, eps=1e-12, dx_dtype=torch.bfloat16)
+    again = tfo.fused_bias_residual_layernorm_backward(
+        s, gamma, dout, None, eps=1e-12, dx_dtype=torch.bfloat16)
+    ds, dg, db = tfo._ln_bwd_math(s, gamma, dout, None, 1e-12)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16
+    assert _rel_l2(got[0], ds.to(torch.bfloat16)) <= \
+        GRAD_TOL[torch.bfloat16]
+    for x, r in zip(got[1:], (ds.sum(0), dg.sum(0), db.sum(0))):
+        assert _rel_l2(x, r) <= GRAD_TOL[torch.float32] * 10
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_bert_erf_gelu_kernels_match_twins(dev):
+    """K4-fwd and K4-bwd, erf, bf16 at N 2048, W 4096 (BERT-large's
+    intermediate) with a bf16 bias; the backward twice, bit for bit."""
+    g = _gen(dev, 15)
+    n, w = 2048, 4096
+    x = torch.randn((n, w), generator=g, device=dev).to(torch.bfloat16)
+    bias = (0.1 * torch.randn((w,), generator=g, device=dev)) \
+        .to(torch.bfloat16)
+    out, s = tfo.fused_bias_gelu_with_sum(x, bias, approximate=False)
+    ref_out, ref_s = tfo._gelu_fwd_math(x, bias, False)
+    torch.testing.assert_close(out.float(), ref_out.to(out.dtype).float(),
+                               **BF16_TOL)
+    torch.testing.assert_close(s.float(), ref_s.to(s.dtype).float(),
+                               **BF16_TOL)
+    dout = torch.randn((n, w), generator=g, device=dev).to(torch.bfloat16)
+    dx, dbias = tfo.fused_bias_gelu_backward(s, dout, approximate=False)
+    again = tfo.fused_bias_gelu_backward(s, dout, approximate=False)
+    ref = tfo._gelu_bwd_math(s, dout, False)
+    torch.cuda.synchronize()
+    assert _rel_l2(dx, ref.to(dx.dtype)) <= GRAD_TOL[torch.bfloat16]
+    assert _rel_l2(dbias, ref.sum(0)) <= GRAD_TOL[torch.float32] * 10
+    assert torch.equal(dx, again[0]) and torch.equal(dbias, again[1])
+
+
+def test_bert_on_the_kernels_matches_plain_route(dev):
+    """A 2-layer BERT at H 256 (4 heads of 64), bf16 parameters, seq 128:
+    the loss and every gradient through the kernels (fused post-LN
+    epilogues, erf GeLU, non-causal flash) against the plain-torch route
+    (fused_ops off, an all-ones mask: dense attention), within
+    chip_smoke's training-oracle tolerances; the kernel route launches
+    exactly 2 K1, 2 K2, 4 K3-fwd, 4 K3-bwd, 2 K4-fwd and 2 K4-bwd."""
+    from deepspeed_tpu_torch.models import bert as tbert
+    cfg = dict(vocab_size=1000, hidden_size=256, num_hidden_layers=2,
+               num_attention_heads=4, intermediate_size=1024,
+               max_position_embeddings=128, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0, bf16=True)
+    kernel = tbert.BertForPreTrainingLM(tbert.BertConfig(**cfg), device=dev)
+    plain = tbert.BertForPreTrainingLM(
+        tbert.BertConfig(**cfg, fused_ops="off"), device=dev)
+    params = {k: v.to(torch.bfloat16) for k, v in kernel.init(0).items()}
+    g = _gen(dev, 16)
+    ids = torch.randint(0, 1000, (4, 128), generator=g, device=dev)
+    labels = torch.where(torch.rand((4, 128), generator=g, device=dev) <
+                         0.15, ids, torch.full_like(ids, -100))
+    batch = {"input_ids": ids, "masked_lm_labels": labels,
+             "next_sentence_label": torch.tensor([0, 1, 1, 0], device=dev)}
+    counters = (tfa.flash_attention_with_lse, tfa.flash_attention_backward,
+                tfo.fused_bias_residual_layernorm,
+                tfo.fused_bias_residual_layernorm_backward,
+                tfo.fused_bias_gelu, tfo.fused_bias_gelu_backward)
+    results = []
+    for m, b in ((kernel, batch),
+                 (plain, dict(batch, attention_mask=torch.ones_like(ids)))):
+        before = [c.launches for c in counters]
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = m.loss_fn(p, b, deterministic=True)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        results.append((loss, grads,
+                        [c.launches - n for c, n in zip(counters, before)]))
+    (lk, gk, nk), (lp, gp, np_) = results
+    torch.cuda.synchronize()
+    assert nk == [2, 2, 4, 4, 2, 2] and np_ == [0] * 6
+    assert abs(float(lk) - float(lp)) <= 1e-2 * abs(float(lp))
+    for name, a, b in zip(params, gk, gp):
+        assert _rel_l2(a, b) <= 5e-2, name
