@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
   2. build: the kernels compiled from ops/csrc/ into build/torch_kernels/,
      with ptxas's registers and spills of each Hopper (TMA + wgmma)
      kernel: the attention bodies, K7-fwd's, K7-band's, K7-dkv's,
-     K7-dq's and K6, and of K4's 64 and K3-bwd's 32 instantiations;
-     none may spill (but K3-bwd's for rows past 3584 columns);
+     K7-dq's and K6, and of K4's 64, K3-bwd's 32 and K3-fwd's 32
+     instantiations; none may spill;
   3. kernels vs their plain PyTorch twins at the slice's shapes, with
      max errors against stated tolerances, and the kernel's time beside
      the twin's, a bound (the least time the card could take: bytes
@@ -149,10 +149,14 @@ causal backward as K2's yardstick, two launches of each deterministic
 backward compared bit for bit (K2 at every case), K1 and K2 on their
 Hopper bodies (bf16, head dims 64 and 128) at T 320 too, where the last
 128-row tile runs past T, and K1 at B*H = 65550 (past grid.y's 65535),
-K3-fwd's timed rows with their device time from a CUDA graph beside the
-back-to-back time, each timed attention case with its achieved TFLOP/s,
-share of its bound and ratio to the library call, K4 at the decode shape too (with its
-device time from a CUDA graph), with torch's own GeLU forward and
+K3-fwd at the serving (with the decode and prefill-chunk shapes),
+training and MoE shapes and both ln_f forms, each with its device time
+from a CUDA graph beside the back-to-back time, and at its layout's edges
+(the models' other widths, H 1602, unaligned views, fp32 throughout;
+each launched twice and compared bit for bit), each timed attention
+case with its achieved TFLOP/s, share of its bound and ratio to the
+library call, K4 at the decode shape too (with its device time from a
+CUDA graph), with torch's own GeLU forward and
 backward as yardsticks and at its layout's edges (W 100 and 6401, odd
 N, unaligned views, fp32 out, bf16 bias, groups of 37 rows; each case
 launched twice and compared bit for bit), K4 in its grouped (expert)
@@ -302,12 +306,15 @@ K4_KERNELS = 2 * 32
 # K3-bwd's: 2 x 2 x 2 element types (s, dout, dx) x 1 or 4 vectors a
 # lane x 16-byte or scalar accesses
 K3_BWD_KERNELS = 32
+# K3-fwd's: 2 x 2 x 2 x 2 element types (y, residual, out, sum) x
+# 16-byte or scalar accesses
+K3_FWD_KERNELS = 32
 # the Hopper kernels the build must report, none spilling: the attention
-# bodies and K6 (18), and K4's and K3-bwd's instantiations
-SM90_KERNELS = 18 + K4_KERNELS + K3_BWD_KERNELS
+# bodies and K6 (18), and K4's, K3-bwd's and K3-fwd's instantiations
+SM90_KERNELS = 18 + K4_KERNELS + K3_BWD_KERNELS + K3_FWD_KERNELS
 SM90_LIBS = ("flash_attention_fwd", "flash_attention_bwd",
              "block_sparse_attention", "quantized_matmul", "fused_gelu_fwd",
-             "fused_gelu_bwd", "fused_ln_bwd")
+             "fused_gelu_bwd", "fused_ln_bwd", "fused_ln_fwd")
 
 
 def sm90_ptxas(log):
@@ -315,8 +322,9 @@ def sm90_ptxas(log):
     stores"} of the Hopper kernels in one library's ptxas report (nvcc
     -Xptxas -v): the attention bodies (K1, K5, K2, K7-fwd, K7-band,
     K7-dkv and K7-dq, by head dim), K6 (by output type), K4 (by element
-    types, GeLU form and access width) and K3-bwd (by element types,
-    vectors a lane and access width)."""
+    types, GeLU form and access width), K3-bwd (by element types,
+    vectors a lane and access width) and K3-fwd (by element types and
+    access width)."""
     import re
     out, name = {}, None
     # the mangled types: f float, 13__nv_bfloat16 (and its back-reference
@@ -337,6 +345,8 @@ def sm90_ptxas(log):
                            r"Lb(\d)ELb(\d)E", ln)
             k3 = re.search(rf"(ln_bwd_kernel)I((?:{types_re}){{3}})"
                            r"Li(\d)ELb(\d)E", ln)
+            k3f = re.search(rf"(ln_fwd_kernel)I((?:{types_re}){{4}})"
+                            r"Lb(\d)E", ln)
             name = None
             if m is not None:
                 name = (f"{m.group(1)}<{m.group(2)}" +
@@ -352,6 +362,9 @@ def sm90_ptxas(log):
                 name = (f"{k3.group(1)}<{types(k3.group(2))}, "
                         f"{k3.group(3)} vector(s) a lane, "
                         f"{'vec' if k3.group(4) == '1' else 'scalar'}>")
+            elif k3f is not None:
+                name = (f"{k3f.group(1)}<{types(k3f.group(2))}, "
+                        f"{'vec' if k3f.group(3) == '1' else 'scalar'}>")
             continue
         if name is None:
             continue
@@ -489,30 +502,47 @@ def kernel_flash(peaks, gen):
 
 
 def kernel_ln(peaks, gen):
+    """K3-fwd at each path's shapes: serving N 4096 H 1600 (fp32
+    vectors: serving's fp32 parameters) and its ln_f form, the decode
+    shape N 4 and the prefill chunk N 128; the training flagship's N
+    11,264 H 1600 and its ln_f form and the MoE cell's N 16,384 H 1024,
+    with bias, gamma and beta in bf16 as the training paths hold them
+    (read in their own dtype: one launch a call). Every row is timed back
+    to back (`ms`) and as device time from a CUDA graph (`graph_ms`: at
+    these sizes back-to-back calls time the host), with its share of the
+    bound and the plain twin's time. Then the layout's edges (LN_SEED):
+    the models' other widths, a ragged width, unaligned views and fp32
+    throughout, each against the twin, one launch a call and repeated
+    bit for bit."""
     import torch
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     checks, out = [], {}
     bf16, f32 = torch.bfloat16, torch.float32
     cases = (
-        # (label, N, out dtype, sum dtype or None for the ln_f form,
-        #  timed as)
-        ("N4096 H1600 bf16 out+sum", 4096, bf16, bf16, "serving"),
-        ("N4096 H1600 ln_f form (fp32 out, no sum)", 4096, f32, None, None),
-        ("N4 H1600 bf16 (decode shape)", 4, bf16, bf16, None),
-        ("N128 H1600 bf16 (prefill chunk shape)", 128, bf16, bf16, None),
-        ("N11264 H1600 bf16 out+sum (training shape)", 11264, bf16, bf16,
-         "training"),
-        ("N11264 H1600 ln_f form (training shape)", 11264, f32, None, None),
-        ("N16384 H1024 bf16 out+sum (MoE training shape)", 16384, bf16,
-         bf16, "moe_training"),
+        # (label, N, vectors' dtype, out dtype, sum dtype or None for
+        #  the ln_f form, timed as)
+        ("N4096 H1600 bf16 out+sum", 4096, f32, bf16, bf16, "serving"),
+        ("N4096 H1600 ln_f form (fp32 out, no sum)", 4096, f32, f32, None,
+         "serving_ln_f"),
+        ("N4 H1600 bf16 (decode shape)", 4, f32, bf16, bf16,
+         "serving_decode"),
+        ("N128 H1600 bf16 (prefill chunk shape)", 128, f32, bf16, bf16,
+         "serving_prefill_chunk"),
+        ("N11264 H1600 bf16 out+sum, bf16 vectors (training shape)", 11264,
+         bf16, bf16, bf16, "training"),
+        ("N11264 H1600 ln_f form, bf16 vectors (training shape)", 11264,
+         bf16, f32, None, "training_ln_f"),
+        ("N16384 H1024 bf16 out+sum, bf16 vectors (MoE training shape)",
+         16384, bf16, bf16, bf16, "moe_training"),
     )
-    for label, n, out_dt, sum_dt, timed in cases:
+    for label, n, v_dt, out_dt, sum_dt, timed in cases:
         h = 1024 if "H1024" in label else 1600
         y = torch.randn((n, h), generator=gen, device="cuda").to(bf16)
         res = torch.randn((n, h), generator=gen, device="cuda").to(bf16)
         bias, gamma, beta = (0.1 * torch.randn(
             (h,), generator=gen, device="cuda") for _ in range(3))
-        gamma = gamma + 1.0
+        bias, gamma, beta = bias.to(v_dt), (gamma + 1.0).to(v_dt), \
+            beta.to(v_dt)
         ret_sum = sum_dt is not None
 
         def run():
@@ -520,8 +550,11 @@ def kernel_ln(peaks, gen):
                 y, bias, res, gamma, beta, eps=1e-5, out_dtype=out_dt,
                 sum_dtype=sum_dt, return_sum=ret_sum)
 
+        before = fo.fused_bias_residual_layernorm.launches
         got = run()
         torch.cuda.synchronize()
+        if fo.fused_bias_residual_layernorm.launches != before + 1:
+            raise AssertionError(f"ln {label}: not one launch")
         ref_out, ref_s = fo._ln_fwd_math(y, bias, res, gamma, beta, 1e-5)
         tol = TOL_BF16 if out_dt == bf16 else TOL_F32
         if ret_sum:
@@ -531,24 +564,72 @@ def kernel_ln(peaks, gen):
                   checks)
         else:
             err = check(f"ln out, {label}", got, ref_out, tol, checks)
-        if timed:
-            # read y and residual, write out and sum (bf16), the [H]
-            # vectors once; fp32 arithmetic: 2 adds, square and 2
-            # accumulates, subtract, 2 multiplies and an add per element
-            nbytes = n * h * (2 + 2 + 2 + 2) + 3 * h * 4
-            bound_ms, bound_by = bound(9 * n * h, peaks["fp32"], nbytes,
-                                       peaks)
-            # back to back (ms) and device time from a CUDA graph
-            # (graph_ms): at N 4096 back-to-back calls time the host too
-            g_ms = graph_ms(run)
-            out[timed] = rates(dict(
-                max_abs_err=err, ms=time_ms(run), graph_ms=g_ms,
-                graph_share_of_bound=bound_ms / g_ms,
-                plain_ms=time_ms(lambda: fo._ln_fwd_math(
-                    y, bias, res, gamma, beta, 1e-5)),
-                bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, shape=label), 9 * n * h)
+        # read y and residual (bf16), write out and the sum, the [H]
+        # vectors once; fp32 arithmetic: 2 adds, square and 2
+        # accumulates, subtract, 2 multiplies and an add per element
+        nbytes = n * h * (2 + 2 + torch.finfo(out_dt).bits // 8 +
+                          (2 if ret_sum else 0)) + \
+            3 * h * bias.element_size()
+        bound_ms, bound_by = bound(9 * n * h, peaks["fp32"], nbytes, peaks)
+        g_ms = graph_ms(run)
+        out[timed] = rates(dict(
+            max_abs_err=err, ms=time_ms(run), graph_ms=g_ms,
+            graph_share_of_bound=bound_ms / g_ms,
+            plain_ms=time_ms(lambda: fo._ln_fwd_math(
+                y, bias, res, gamma, beta, 1e-5)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, shape=label,
+            plan=fo.ln_fwd_plan(n, h, fo._sm_count(0))._asdict()), 9 * n * h)
+    # the layout's edges, each launched twice: (label, N, H, y, residual,
+    # vectors, out, sum dtype, y's and the residual's storage offsets)
+    g2 = torch.Generator(device="cuda")
+    g2.manual_seed(LN_SEED)
+    edges = [(f"N1024 H{h} bf16, bf16 vectors", 1024, h, bf16, bf16, bf16,
+              bf16, bf16, 0, 0) for h in (768, 1536, 2560, 4096, 5120)]
+    edges += [
+        ("N301 H1602 (ragged: scalar accesses)", 301, 1602, bf16, bf16,
+         bf16, bf16, bf16, 0, 0),
+        ("N4096 H1600, y 1 element into its storage (scalar accesses)",
+         4096, 1600, bf16, bf16, bf16, bf16, bf16, 1, 0),
+        ("N4096 H1600, y and residual 1 row into their storage", 4096,
+         1600, bf16, bf16, bf16, bf16, bf16, 1600, 1600),
+        ("N333 H1602 fp32 residual 1 element into its storage, fp32 out",
+         333, 1602, bf16, f32, f32, f32, f32, 0, 1),
+        ("N1024 H1600 fp32 throughout", 1024, 1600, f32, f32, f32, f32, f32,
+         0, 0),
+        ("N1 H5120 bf16, bf16 vectors", 1, 5120, bf16, bf16, bf16, bf16,
+         bf16, 0, 0),
+    ]
+    for label, n, h, y_dt, r_dt, v_dt, out_dt, sum_dt, y_off, r_off in edges:
+        y = k4_rows(n, h, y_dt, y_off, g2)
+        res = k4_rows(n, h, r_dt, r_off, g2)
+        bias, beta = ((0.1 * torch.randn((h,), generator=g2, device="cuda"))
+                      .to(v_dt) for _ in range(2))
+        gamma = (1.0 + 0.1 * torch.randn((h,), generator=g2,
+                                         device="cuda")).to(v_dt)
+        before = fo.fused_bias_residual_layernorm.launches
+        got = fo.fused_bias_residual_layernorm(
+            y, bias, res, gamma, beta, out_dtype=out_dt, sum_dtype=sum_dt)
+        again = fo.fused_bias_residual_layernorm(
+            y, bias, res, gamma, beta, out_dtype=out_dt, sum_dtype=sum_dt)
+        torch.cuda.synchronize()
+        ref_out, ref_s = fo._ln_fwd_math(y, bias, res, gamma, beta, 1e-5)
+        check(f"ln out, {label}", got[0], ref_out.to(out_dt),
+              TOL_BF16 if out_dt == bf16 else TOL_F32, checks)
+        check(f"ln sum, {label}", got[1], ref_s.to(sum_dt),
+              TOL_BF16 if sum_dt == bf16 else TOL_F32, checks)
+        if fo.fused_bias_residual_layernorm.launches != before + 2:
+            raise AssertionError(f"ln {label}: not two launches")
+        if not (torch.equal(got[0], again[0]) and
+                torch.equal(got[1], again[1])):
+            raise AssertionError(f"ln {label}: two launches differ")
     return out, checks
+
+
+# the generator of the checks added for K3-fwd's Hopper layout (the
+# models' widths, ragged and unaligned rows), so that every earlier check
+# keeps its inputs
+LN_SEED = 14
 
 
 # the generator of the checks added for K4's Hopper layout (ragged and

@@ -18,9 +18,12 @@ Bias + GeLU also takes a grouped bias [G, W] (the expert form,
 dimension): the rows split into G equal groups, group g adds bias row
 g, and the backward's dbias is [G, W]. One launch covers all groups
 (and, in the backward, dbias); G = 1 is the dense form, bit for bit.
-The K4 kernels' tiling is a plain function, `gelu_plan`, and K3-bwd's
-(row groups of warps, dbias/dgamma/dbeta folded in the same launch)
-`ln_bwd_plan`.
+The K4 kernels' tiling is a plain function, `gelu_plan`; K3-fwd's (row
+groups of warps, persistent CTAs) `ln_fwd_plan`, and K3-bwd's (the same
+rows, dbias/dgamma/dbeta folded in the same launch) `ln_bwd_plan`. The
+kernels read the [H] and [G, W] vectors in their own dtype (fp32 or
+bf16): a wrapper casts or copies none of them, so one call is one
+launch.
 
 Dispatch: a wrapper takes the plain twin for tensors on the CPU and
 launches the kernel for tensors on CUDA. There is no fallback from a
@@ -45,8 +48,8 @@ _INV_SQRT_2PI = 0.3989422804014327     # 1/sqrt(2*pi)
 
 # dtype codes and argument types of the kernels' C interfaces
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_LN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
+    [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _GELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + \
     [ctypes.c_void_p]
 _LN_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
@@ -64,6 +67,18 @@ _GELU_CTAS_PER_SM = 2
 GeluPlan = collections.namedtuple(
     "GeluPlan", "vec strips ctas_per_group block_rows grid work_rows "
     "counters")
+
+# K3-fwd's layout (ops/csrc/fused_ln_fwd.cu): a row group of the fewest
+# warps whose lanes cover the row's 8-column vectors (one a lane, up to
+# 20 warps: H 5120); CTAs of up to 8 warps of whole row groups (a group
+# of more warps alone), a wave of up to 28 warps an SM (as many as fit
+# at 72 registers a lane; the kernel's C entry cuts the grid further
+# where an instantiation takes more)
+_LN_FWD_MAX_WARPS = 20
+_LN_FWD_CTA_WARPS = 8
+_LN_FWD_SM_WARPS = 28
+LnFwdPlan = collections.namedtuple(
+    "LnFwdPlan", "vec warps_per_row groups threads grid")
 
 # K3-bwd's layout (ops/csrc/fused_ln_bwd.cu): a row group of warps per
 # row, each lane 8 columns of `vpt` vectors of every row it sees; CTAs
@@ -202,13 +217,6 @@ def _check_vector(t, width, device, groups=None):
         raise ValueError(f"vector on {t.device}, rows on {device}")
 
 
-def _vector(t, width, device):
-    """[H] parameter vector as K3-fwd takes it: fp32, contiguous, on
-    the rows' device."""
-    _check_vector(t, width, device)
-    return t.to(torch.float32).contiguous()
-
-
 def _ln_fwd_launch(y, bias, residual, gamma, beta, eps, out_dtype,
                    sum_dtype, return_sum):
     from deepspeed_tpu_torch.ops import _build
@@ -223,19 +231,32 @@ def _ln_fwd_launch(y, bias, residual, gamma, beta, eps, out_dtype,
     for dt in (out_dtype, sum_dtype):
         if dt not in _DTYPE_CODE:
             raise TypeError(f"output dtype {dt} not supported")
-    bias, gamma, beta = (_vector(v, h, y.device)
-                         for v in (bias, gamma, beta))
+    # the kernel reads each vector in its own dtype: no cast, no copy
+    for name, v in (("bias", bias), ("gamma", gamma), ("beta", beta)):
+        _check_vector(v, h, y.device)
+        if v.dtype not in _DTYPE_CODE:
+            raise TypeError(f"{name} dtype {v.dtype} not supported "
+                            "(float32 or bfloat16)")
+        if h > 1 and v.stride(0) != 1:
+            raise ValueError(f"{name}: must be contiguous")
     out = torch.empty(y.shape, dtype=out_dtype, device=y.device)
     s = torch.empty(y.shape, dtype=sum_dtype, device=y.device) \
         if return_sum else None
     n = y.numel() // h if h else 0
+    dev = y.device.index or 0
+    # out and s are fresh allocations, aligned
+    plan = ln_fwd_plan(n, h, _sm_count(dev),
+                       _aligned(y, residual, bias, gamma, beta))
     fn = _build.function("fused_ln_fwd", "ds_fused_ln_fwd", _LN_ARGTYPES)
-    err = fn(y.data_ptr(), bias.data_ptr(), residual.data_ptr(),
+    err = fn(y.data_ptr(), residual.data_ptr(), bias.data_ptr(),
              gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
              s.data_ptr() if s is not None else None, n, h,
              _DTYPE_CODE[y.dtype], _DTYPE_CODE[residual.dtype],
-             _DTYPE_CODE[out_dtype], _DTYPE_CODE[sum_dtype], float(eps),
-             y.device.index or 0, _build.stream_ptr(y))
+             _DTYPE_CODE[bias.dtype], _DTYPE_CODE[gamma.dtype],
+             _DTYPE_CODE[beta.dtype], _DTYPE_CODE[out_dtype],
+             _DTYPE_CODE[sum_dtype], float(eps), plan.vec,
+             plan.warps_per_row, plan.groups, plan.grid, dev,
+             _build.stream_ptr(y))
     _build.check(err, "fused_bias_residual_layernorm kernel")
     fused_bias_residual_layernorm.launches += 1
     return out, s
@@ -275,6 +296,36 @@ def gelu_plan(n, w, groups, sms, aligned=True):
         cpg = min(target, -(-rows // _GELU_BLOCK_ROWS))
     return GeluPlan(vec, strips, cpg, _GELU_BLOCK_ROWS,
                     (groups * cpg, strips), groups * cpg, groups * strips)
+
+
+@functools.lru_cache(maxsize=256)
+def ln_fwd_plan(n, h, sms, aligned=True):
+    """K3-fwd's launch plan for n rows of width h on a card of `sms` SMs.
+
+    A row belongs to a row group of `warps_per_row` warps, the fewest
+    whose lanes cover the row's ceil(h / 8) vectors: lane i of the group
+    owns the 8 columns 8i .. 8i + 7 of every row the group sees. A CTA
+    holds `groups` row groups (as many as fit 8 warps, at least one, and
+    at most ceil(n / sms), so that few rows spread over the SMs),
+    `threads` threads; the grid, at most the CTAs of 28 warps an SM (the
+    warps that fit at the paths' 70 registers a lane with bf16 outputs;
+    the C entry cuts it to the CTAs the card holds at once), gives row
+    group k (CTA k // groups, group k % groups) the rows k,
+    k + grid * groups, ... `vec` is 8 (16-byte accesses) where h is a
+    multiple of 8 and every input's pointer (y, the residual and the
+    three vectors) is 16-byte `aligned`, else 1 (scalar accesses that
+    stop at h). Raises ValueError past the widest row (h > 5120).
+    Cached: a step asks for the same plan on every layer."""
+    vec = 8 if aligned and h % 8 == 0 else 1
+    wpr = max(1, -(-h // (8 * 32)))
+    if wpr > _LN_FWD_MAX_WARPS:
+        raise ValueError(f"fused LN forward kernel: H={h} exceeds the "
+                         f"{32 * _LN_FWD_MAX_WARPS * 8} columns of its "
+                         "widest row")
+    groups = max(1, min(_LN_FWD_CTA_WARPS // wpr, -(-n // sms)))
+    per_sm = max(1, _LN_FWD_SM_WARPS // (groups * wpr))
+    grid = min(sms * per_sm, -(-n // groups)) if n > 0 else 0
+    return LnFwdPlan(vec, wpr, groups, 32 * wpr * groups, grid)
 
 
 @functools.lru_cache(maxsize=256)

@@ -8,6 +8,7 @@
     python3 kernel_variants.py sparse_bwd  # K7-dkv and K7-dq on Hopper
     python3 kernel_variants.py gelu        # K4-fwd and K4-bwd
     python3 kernel_variants.py ln_bwd      # K3-bwd
+    python3 kernel_variants.py ln_fwd      # K3-fwd
     python3 kernel_variants.py sparse_fwd  # K7-fwd on Hopper
     python3 kernel_variants.py compare DIR [phase ...]
                                            # chip_smoke.py phases from the
@@ -33,7 +34,10 @@ and K4-bwd (tanh form, bf16 rows) at the serving, decode, training and
 MoE shapes with torch's own GeLU forward and backward beside them,
 `ln_bwd` K3-bwd at the training (block and ln_f forms) and MoE shapes
 and at the gpt2-6.7b and gpt2-13b widths beside torch's LayerNorm
-backward, `sparse_fwd` K7-fwd on the Hopper
+backward, `ln_fwd` K3-fwd at every path's shape (LN_FWD_SHAPES) with its
+stores, its statistics exchange, its vector loads or its prefetch
+switched off and under other plans, beside torch's LayerNorm forward,
+`sparse_fwd` K7-fwd on the Hopper
 body under BigBird at head dims 64 and 128 beside the WMMA table
 forward. A
 variant with a part switched off computes garbage: it is timed, never
@@ -292,6 +296,90 @@ LN_VARIANT_PLANS = {"7_warp_ctas_2_per_sm": dict(warps=7, per_sm=2),
                     "21_warp_ctas": dict(warps=21)}
 
 
+# K3-fwd (fused_ln_fwd.cu): the stores, the row groups' exchange, the
+# vector loads, the next row's prefetch, where gamma and beta live
+LF = "fused_ln_fwd.cu"
+LF_NO_EXCHANGE = (LF, "    if (wpr > 1) {\n      if (lane == 0) {",
+                  "    if (wpr < 0) {\n      if (lane == 0) {")
+# the outputs folded into one value whose store never runs, so the loads
+# and the math stay
+LF_NO_STORES = (LF, "    put_row<Vec>(out + at, nc, o, lane, whole);\n"
+                "    if (sum != nullptr) put_row<Vec>(sum + at, nc, s, lane, "
+                "whole);\n",
+                "    float keep = 0.f;\n#pragma unroll\n"
+                "    for (int k = 0; k < kCols; ++k) keep += o[k] + s[k];\n"
+                "    if (keep == -1.2345e30f)\n"
+                "      out[at] = gelu_rows::from_float<OT>(keep);\n")
+LF_NO_VECTOR_LOADS = [
+    (LF, "  vector8<Vec>(bias, bias_dt, c0, nc, bv);\n"
+     "  vector8<Vec>(gamma, gamma_dt, c0, nc, gv);\n"
+     "  vector8<Vec>(beta, beta_dt, c0, nc, tv);\n",
+     "#pragma unroll\n  for (int k = 0; k < kCols; ++k) {\n"
+     "    bv[k] = 0.125f * k;\n    gv[k] = 1.f + 0.01f * k;\n"
+     "    tv[k] = 0.5f * k;\n  }\n")]
+# two rows in flight a row group: its first two rows fetched at the
+# start, and row r + 2 stride while row r's exchange and stores run (one
+# row ahead in the kernel)
+LF_TWO_AHEAD = [
+    (LF, "    fetch8<Vec>(res + at, nc, rr);\n  }\n",
+     "    fetch8<Vec>(res + at, nc, rr);\n  }\n"
+     "  Raw8<YT> yr2 = {};\n  Raw8<RT> rr2 = {};\n"
+     "  if (r + stride < n && nc > 0) {\n"
+     "    const long long at = static_cast<long long>(r + stride) * h + c0;\n"
+     "    fetch8<Vec>(y + at, nc, yr2);\n    fetch8<Vec>(res + at, nc, rr2);\n"
+     "  }\n"),
+    (LF, "    const int rn = r + stride;\n    if (rn < n && nc > 0) {\n"
+     "      const long long at = static_cast<long long>(rn) * h + c0;\n"
+     "      fetch8<Vec>(y + at, nc, yr);\n"
+     "      fetch8<Vec>(res + at, nc, rr);\n    }\n",
+     "    yr = yr2;\n    rr = rr2;\n"
+     "    const int rn = r + 2 * stride;\n    if (rn < n && nc > 0) {\n"
+     "      const long long at = static_cast<long long>(rn) * h + c0;\n"
+     "      fetch8<Vec>(y + at, nc, yr2);\n"
+     "      fetch8<Vec>(res + at, nc, rr2);\n    }\n")]
+# fp32 outputs stored as two half-sector 16-byte stores a lane (a full
+# sector a store from whole warps in the kernel, `put_row`)
+LF_HALF_SECTOR_STORES = [(LF, "  const bool whole = (warp + 1) * 32 * kCols "
+                          "<= h;", "  const bool whole = false;")]
+# the vectors read with scalar loads (16-byte ones in the kernel where
+# the rows take them)
+LF_SCALAR_VECTOR_LOADS = [(LF, "vector8<Vec>(", "vector8<false>(")]
+# gamma and beta in an fp32 copy in shared memory (in registers in the
+# kernel, as bias): each lane writes its 8 columns of each and reads
+# them back for every row
+LF_VECTORS_IN_SHARED = [
+    (LF, "  vector8<Vec>(gamma, gamma_dt, c0, nc, gv);\n"
+     "  vector8<Vec>(beta, beta_dt, c0, nc, tv);\n",
+     "  __shared__ __align__(16) float gb[2][kCols * kMaxThreads];\n"
+     "  vector8<Vec>(gamma, gamma_dt, c0, nc, gv);\n"
+     "  vector8<Vec>(beta, beta_dt, c0, nc, tv);\n"
+     "#pragma unroll\n  for (int k = 0; k < kCols; ++k)\n"
+     "    gb[0][c0 + k] = gv[k], gb[1][c0 + k] = tv[k];\n"),
+    (LF, "    for (int k = 0; k < kCols; ++k) o[k] = (s[k] - mu) * rstd * "
+     "gv[k] + tv[k];\n",
+     "    for (int k = 0; k < kCols; ++k)\n"
+     "      o[k] = (s[k] - mu) * rstd * gb[0][c0 + k] + gb[1][c0 + k];\n")]
+# the next row fetched after this row's stores, not before its exchange
+LF_FETCH = ("    const int rn = r + stride;\n    if (rn < n && nc > 0) {\n"
+            "      const long long at = static_cast<long long>(rn) * h + c0;\n"
+            "      fetch8<Vec>(y + at, nc, yr);\n"
+            "      fetch8<Vec>(res + at, nc, rr);\n    }\n")
+LF_NO_PREFETCH = [
+    (LF, "    // 2. the next row's y and residual, in flight through 3 and 4\n"
+     + LF_FETCH, ""),
+    (LF, "    if (sum != nullptr) put_row<Vec>(sum + at, nc, s, lane, whole);"
+     "\n  }\n}\n",
+     "    if (sum != nullptr) put_row<Vec>(sum + at, nc, s, lane, whole);\n"
+     + LF_FETCH + "  }\n}\n")]
+# the plan's warps a CTA and a wave's warps an SM where a variant sets
+# them (8 and 28 in the kernel's plan; the C entry cuts the grid to the
+# CTAs the card holds at once, so more warps an SM change nothing)
+LN_FWD_VARIANT_PLANS = {"16_warp_ctas": dict(cta_warps=16),
+                        "4_warp_ctas": dict(cta_warps=4),
+                        "16_warps_an_sm": dict(sm_warps=16),
+                        "24_warps_an_sm": dict(sm_warps=24)}
+
+
 # K7-fwd on the Hopper body (bs_fwd_kernel_sm90): two CTAs per SM at D
 # 128 (one in the kernel; two spill), the masks, the walks cut short;
 # NATURAL_ORDER and SHORT_WALKS above apply to it too
@@ -400,6 +488,20 @@ SETS = {
         "no_prefetch": LN_NO_PREFETCH,
         "7_warp_ctas_2_per_sm": [],
         "21_warp_ctas": [LN_21_WARPS],
+    }),
+    "ln_fwd": ("fused_ln_fwd", {
+        "kernel": [],
+        "no_exchange": [LF_NO_EXCHANGE],
+        "no_stores": [LF_NO_STORES],
+        "no_vector_loads": LF_NO_VECTOR_LOADS,
+        "scalar_vector_loads": LF_SCALAR_VECTOR_LOADS,
+        "vectors_in_shared_memory": LF_VECTORS_IN_SHARED,
+        "half_sector_fp32_stores": LF_HALF_SECTOR_STORES,
+        "two_rows_ahead": LF_TWO_AHEAD,
+        "loads_only": [LF_NO_EXCHANGE, LF_NO_STORES],
+        "no_prefetch": LF_NO_PREFETCH,
+        "streaming_hints": STREAMING_HINTS,
+        **{name: [] for name in LN_FWD_VARIANT_PLANS},
     }),
     "sparse_fwd": ("block_sparse_attention", {
         "kernel": [],
@@ -510,6 +612,8 @@ def main(argv):
         return time_gelu(variants, procs, cs, gen)
     if argv[0] == "ln_bwd":
         return time_ln_bwd(variants, procs, cs, gen)
+    if argv[0] == "ln_fwd":
+        return time_ln_fwd(variants, procs, cs, gen)
     if argv[0] == "sparse_fwd":
         return time_sparse_fwd(variants, procs, cs, gen)
     cases, sdpa = [], {}
@@ -766,6 +870,137 @@ def time_ln_bwd(variants, procs, cs, gen):
     return 0
 
 
+# K3-fwd's shapes on the paths: (label, N, H, y, residual, vectors, out,
+# sum dtype or None for the ln_f form, eps). Serving holds fp32
+# parameters, the training paths bf16 compute copies; the flagship's row
+# with fp32 vectors times the kernel alone where the parent layout's
+# wrapper casts bf16 ones
+LN_FWD_SHAPES = (
+    ("serving N4096 H1600", 4096, 1600, "bf16", "bf16", "fp32", "bf16",
+     "bf16", 1e-5),
+    ("decode N4 H1600", 4, 1600, "bf16", "bf16", "fp32", "bf16", "bf16",
+     1e-5),
+    ("prefill chunk N128 H1600", 128, 1600, "bf16", "bf16", "fp32", "bf16",
+     "bf16", 1e-5),
+    ("training N11264 H1600", 11264, 1600, "bf16", "bf16", "bf16", "bf16",
+     "bf16", 1e-5),
+    ("training fp32 vectors N11264 H1600", 11264, 1600, "bf16", "bf16",
+     "fp32", "bf16", "bf16", 1e-5),
+    ("training ln_f N11264 H1600", 11264, 1600, "bf16", "bf16", "bf16",
+     "fp32", None, 1e-5),
+    ("MoE N16384 H1024", 16384, 1024, "bf16", "bf16", "bf16", "bf16",
+     "bf16", 1e-5),
+    ("BERT bf16 residual N2048 H1024", 2048, 1024, "bf16", "bf16", "bf16",
+     "fp32", "bf16", 1e-12),
+    ("BERT fp32 residual N2048 H1024", 2048, 1024, "bf16", "fp32", "bf16",
+     "fp32", "fp32", 1e-12),
+)
+# what `compare`'s ln_fwd_shapes phase and the ln_fwd mode run: the
+# shapes' inputs from `gen`, through one tree's `_ln_forward`
+LN_FWD_CASES = """
+def ln_fwd_cases(gen, shapes):
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    out = []
+    for label, n, h, y_dt, r_dt, v_dt, o_dt, s_dt, eps in shapes:
+        y = torch.randn((n, h), generator=gen, device="cuda").to(dts[y_dt])
+        res = torch.randn((n, h), generator=gen, device="cuda").to(
+            dts[r_dt])
+        bias, gamma, beta = (0.1 * torch.randn((h,), generator=gen,
+                                               device="cuda")
+                             for _ in range(3))
+        vecs = [v.to(dts[v_dt]) for v in (bias, gamma + 1.0, beta)]
+        args = (y, vecs[0], res, vecs[1], vecs[2], eps, dts[o_dt],
+                dts[s_dt or r_dt], s_dt is not None)
+        # y and the residual read, out and the sum written, the vectors
+        # once, at the card's 3.35 TB/s
+        nbytes = n * h * (y.element_size() + res.element_size() +
+                          (4 if o_dt == "fp32" else 2) +
+                          (0 if s_dt is None else
+                           4 if s_dt == "fp32" else 2)) + \\
+            3 * h * vecs[0].element_size()
+        out.append((label, args, nbytes / 3.35e12 * 1e3,
+                    lambda args=args: fo._ln_forward(*args)))
+    return out
+
+
+def cold_ms(run, calls=20):
+    # (the K3-fwd kernel's device time, every kernel's but the flush) a
+    # call, from torch.profiler, with the L2 cache flushed (128 MB
+    # zeroed) before each call: the inputs come from device memory, as
+    # on a path, where they were written many kernels before
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and "Fill" not in e.key]
+    k3 = sum(e.self_device_time_total for e in ev
+             if "ln_fwd_kernel" in e.key)
+    return k3 / 1e3 / calls, \\
+        sum(e.self_device_time_total for e in ev) / 1e3 / calls
+"""
+
+
+def time_ln_fwd(variants, procs, cs, gen):
+    """K3-fwd's variants through the port's wrapper at LN_FWD_SHAPES,
+    each under its plan, back to back (`ms`), as device time from a
+    CUDA graph (`graph_ms`, the median of three) and as the kernel's
+    device time with the L2 cache flushed before each call (`cold_ms`,
+    torch.profiler), beside torch's own
+    LayerNorm forward (F.layer_norm of y, no bias, residual or sum: a
+    yardstick) at the same shapes."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    scope = {"torch": torch}
+    exec(LN_FWD_CASES, scope)
+    cases = scope["ln_fwd_cases"](gen, LN_FWD_SHAPES)
+    yard = {}
+    for label, args, bound_ms, _ in cases:
+        y, gamma, beta = args[0], args[3].to(args[0].dtype), \
+            args[4].to(args[0].dtype)
+        yard[label] = dict(
+            layer_norm_graph_ms=cs.graph_ms(lambda: F.layer_norm(
+                y, (y.shape[-1],), gamma, beta)), bound_ms=bound_ms)
+    print(json.dumps({"yardsticks": yard}), flush=True)
+    original = _build.function
+    defaults = (fo._LN_FWD_CTA_WARPS, fo._LN_FWD_SM_WARPS)
+    for n, (lib, _) in variants.items():
+        use(lib, procs[n][1], original)
+        plan = LN_FWD_VARIANT_PLANS.get(n, {})
+        fo._LN_FWD_CTA_WARPS = plan.get("cta_warps", defaults[0])
+        fo._LN_FWD_SM_WARPS = plan.get("sm_warps", defaults[1])
+        fo.ln_fwd_plan.cache_clear()
+        try:
+            ms, dev, share, cold = {}, {}, {}, {}
+            for label, _, bound_ms, run in cases:
+                ms[label] = cs.time_ms(run)
+                dev[label] = sorted(cs.graph_ms(run) for _ in range(3))[1]
+                share[label] = bound_ms / dev[label]
+                cold[label] = scope["cold_ms"](run)[0]
+        finally:
+            _build.function = original
+            fo._LN_FWD_CTA_WARPS, fo._LN_FWD_SM_WARPS = defaults
+            fo.ln_fwd_plan.cache_clear()
+        with open(procs[n][1] + ".log") as f:
+            ptxas = cs.sm90_ptxas(f.read())
+        print(json.dumps({"variant": n, "library": lib, "plan": plan,
+                          "ms": ms, "graph_ms": dev,
+                          "graph_share_of_bound": share, "cold_ms": cold,
+                          "ptxas": ptxas}),
+              flush=True)
+    print(cs.card_line(), flush=True)
+    return 0
+
+
 def time_sparse_fwd(variants, procs, cs, gen):
     """K7-fwd's variants on the Hopper body at the sparse path's BigBird
     ([1, 16384, 16, 64] bf16, block 256, causal) and at head dim 128
@@ -800,11 +1035,16 @@ def time_sparse_fwd(variants, procs, cs, gen):
 
 
 # `compare`'s phases: chip_smoke.py functions that time the kernels this
-# tree changed, run from each tree; and `ln_bwd_wide`, K3-bwd through
-# each tree's wrapper at LN_BWD_SHAPES's preset widths (bf16 rows,
-# gamma and dsum), back to back (`ms`) and from a CUDA graph
-# (`graph_ms`)
-COMPARE_PHASES = ("kernel_ln_bwd", "kernel_ln", "ln_bwd_wide")
+# tree changed, run from each tree; `ln_bwd_wide`, K3-bwd through each
+# tree's wrapper at LN_BWD_SHAPES's preset widths (bf16 rows, gamma and
+# dsum), back to back (`ms`) and from a CUDA graph (`graph_ms`); and
+# `ln_fwd_shapes`, K3-fwd through each tree's `_ln_forward` at
+# LN_FWD_SHAPES on the same inputs (the vectors in the path's dtype),
+# `graph_ms` the median of three, `cold_ms` with the L2 cache flushed
+# before each call; `bert_epilogues`, BERT-large's step with its
+# profile's epilogue kernels one by one
+COMPARE_PHASES = ("ln_fwd_shapes", "kernel_ln", "kernel_bert",
+                  "bert_epilogues")
 
 # checkpoint_io: the JAX module's np.savez and np.load in place of the
 # port's one-buffer member writer and reader
@@ -844,14 +1084,58 @@ def ln_bwd_wide(gen):
     return res
 
 
+{ln_fwd_cases}
+
+def ln_fwd_shapes(gen):
+    res = {{}}
+    for label, _, bound_ms, run in ln_fwd_cases(gen, {ln_fwd!r}):
+        dev = sorted(cs.graph_ms(run) for _ in range(3))[1]
+        cold, cold_all = cold_ms(run)
+        res[label] = dict(ms=cs.time_ms(run), graph_ms=dev,
+                          bound_ms=bound_ms,
+                          graph_share_of_bound=bound_ms / dev,
+                          cold_ms=cold, cold_share_of_bound=bound_ms / cold,
+                          cold_all_kernels_ms=cold_all)
+    return res
+
+
+def bert_epilogues():
+    # BERT-large's step (chip_smoke.bert_training) with its profile's
+    # epilogue group split by kernel
+    split = tuple((f"epilogue {{k}}", (k,)) for k in (
+        "ln_fwd_kernel", "ln_bwd_kernel", "gelu_fwd_kernel",
+        "gelu_bwd_kernel"))
+    cs.KERNEL_GROUPS = split + tuple(
+        g for g in cs.KERNEL_GROUPS if g[0] != "port kernels: epilogues")
+    lines, emit = [], cs.emit
+    cs.emit = lines.append
+    try:
+        cs.bert_training(0, cs.card_line())
+    finally:
+        cs.emit = emit
+    prof = next(d for d in lines if d.get("phase") == "bert_training_profile")
+    return {{k: prof.get(k) for k in (
+        "step_ms", "device_busy_ms_per_step", "device_idle_share",
+        "kernel_launches_per_step", "device_ms_per_step_by_group")}}
+
+
 for phase in {phases!r}:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     if phase == "ln_bwd_wide":
         res = ln_bwd_wide(gen)
+    elif phase == "ln_fwd_shapes":
+        res = ln_fwd_shapes(gen)
+    elif phase == "bert_epilogues":
+        res = bert_epilogues()
     else:
         fn = getattr(cs, phase)
-        res = fn(0, cs.card_line()) if phase in PATHS else fn(peaks, gen)[0]
+        if phase in PATHS:
+            res = fn(0, cs.card_line())
+        elif phase == "kernel_bert":      # its own generator
+            res = fn(peaks)[0]
+        else:
+            res = fn(peaks, gen)[0]
     print(json.dumps({{"tree": {label!r}, "phase": phase, "result": res}},
                      default=str), flush=True)
 """
@@ -882,7 +1166,8 @@ def checkpoint_io():
 
 def compare(parent, phases):
     """Time `phases` (chip_smoke.py functions: kernel phases, or the
-    paths in PATHS with their own lines; or `ln_bwd_wide`) from another
+    paths in PATHS with their own lines; or `ln_bwd_wide`,
+    `ln_fwd_shapes` or `bert_epilogues`) from another
     tree (the parent
     commit unpacked under build/, say) and from this one, in turns:
     parent, this, this, parent, each in its own process with its own
@@ -898,7 +1183,8 @@ def compare(parent, phases):
         code = COMPARE_CODE.format(
             root=root, phases=tuple(phases), label=label,
             wide=[(lb, n, h) for lb, n, h, _, _ in LN_BWD_SHAPES
-                  if lb.startswith("gpt2")])
+                  if lb.startswith("gpt2")],
+            ln_fwd_cases=LN_FWD_CASES, ln_fwd=LN_FWD_SHAPES)
         proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                               capture_output=True, text=True)
         # the phases' own lines (the paths emit theirs) under a marker

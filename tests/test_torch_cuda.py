@@ -10,6 +10,11 @@ BERT pretraining's kernel forms (non-causal bf16 attention at [16, 128,
 erf GeLU at N 2048, W 4096) and a small BERT on the kernels against
 the plain route.
 
+K3-fwd is held at every model width, a ragged one, N 1 / 4 / 127 and
+the paths' shapes, in every dtype combination, with unaligned views and
+after a kernel that fills shared memory with NaNs, and one call with
+bf16 vectors must run exactly one kernel.
+
 Every test here is marked `cuda` and skips where
 torch.cuda.is_available() is False. The file imports neither JAX nor
 the JAX package, so on a machine with a GPU and no JAX it runs alone:
@@ -605,6 +610,194 @@ def test_layernorm_backward_refuses_a_dsum_in_another_dtype(dev):
     with pytest.raises(TypeError, match="dsum"):
         tfo.fused_bias_residual_layernorm_backward(
             s, torch.ones(64, device=dev), s, s.float())
+
+
+# K3-fwd on its Hopper layout (ops/csrc/fused_ln_fwd.cu, plan
+# `ln_fwd_plan`): the repo's models' widths and a ragged one
+LN_FWD_WIDTHS = [768, 1024, 1536, 1600, 2560, 4096, 5120, 1602]
+
+
+def _ln_fwd_case(dev, n, h, y_dt, r_dt, v_dt, seed, y_off=0, r_off=0):
+    """y and the residual [n, h] (views y_off / r_off elements into their
+    storage), bias, gamma, beta [h] in v_dt."""
+    g = _gen(dev, seed)
+    y = _rows(n, h, y_dt, y_off, g, dev)
+    res = _rows(n, h, r_dt, r_off, g, dev)
+    bias, beta = ((0.1 * torch.randn((h,), generator=g, device=dev))
+                  .to(v_dt) for _ in range(2))
+    gamma = (1.0 + 0.1 * torch.randn((h,), generator=g, device=dev)) \
+        .to(v_dt)
+    return y, bias, res, gamma, beta
+
+
+def _check_ln_fwd(args, out_dt, sum_dt, eps=1e-5):
+    """One call against `_ln_fwd_math` (fp32 outputs within F32_TOL,
+    reduction order; bf16 ones within BF16_TOL, one rounding), one
+    launch, and a second call equal bit for bit."""
+    want_sum = sum_dt is not None
+    before = tfo.fused_bias_residual_layernorm.launches
+    got = tfo._ln_forward(*args, eps, out_dt, sum_dt or F32, want_sum)
+    again = tfo._ln_forward(*args, eps, out_dt, sum_dt or F32, want_sum)
+    torch.cuda.synchronize()
+    assert tfo.fused_bias_residual_layernorm.launches == before + 2
+    ref_out, ref_s = tfo._ln_fwd_math(*args, eps)
+    out, s = got
+    assert out.dtype == out_dt and out.shape == args[0].shape
+    torch.testing.assert_close(out.float(), ref_out.to(out_dt).float(),
+                               **(BF16_TOL if out_dt == BF16 else F32_TOL))
+    if want_sum:
+        assert s.dtype == sum_dt
+        torch.testing.assert_close(
+            s.float(), ref_s.to(sum_dt).float(),
+            **(BF16_TOL if sum_dt == BF16 else F32_TOL))
+        assert torch.equal(s, again[1])
+    else:
+        assert s is None and again[1] is None
+    assert torch.equal(out, again[0])
+
+
+@pytest.mark.parametrize("n", [1, 4, 127])
+@pytest.mark.parametrize("h", LN_FWD_WIDTHS)
+def test_layernorm_forward_kernel_at_every_width(dev, h, n):
+    """K3-fwd at each width (row groups of 3 to 20 warps; 1602 ragged:
+    scalar accesses, the last lane 2 columns) and at N 1, 4 (decode) and
+    127 (one row a CTA), bf16 rows, bf16 vectors, bf16 out and sum."""
+    args = _ln_fwd_case(dev, n, h, BF16, BF16, BF16, seed=50)
+    _check_ln_fwd(args, BF16, BF16)
+
+
+@pytest.mark.parametrize("v_dt", [F32, BF16], ids=["fp32_vectors",
+                                                   "bf16_vectors"])
+@pytest.mark.parametrize("sum_dt", [F32, BF16, None],
+                         ids=["sum_fp32", "sum_bf16", "ln_f"])
+@pytest.mark.parametrize("out_dt", [F32, BF16], ids=["out_fp32",
+                                                     "out_bf16"])
+@pytest.mark.parametrize("r_dt", [F32, BF16], ids=["res_fp32", "res_bf16"])
+@pytest.mark.parametrize("y_dt", [F32, BF16], ids=["y_fp32", "y_bf16"])
+def test_layernorm_forward_kernel_dtypes(dev, y_dt, r_dt, out_dt, sum_dt,
+                                         v_dt):
+    """Every dtype combination of y, residual, out and sum (16
+    instantiations, 16-byte accesses at H 1600), and without the sum (the
+    ln_f form), vectors in fp32 and in bf16 (each read in its own
+    dtype)."""
+    args = _ln_fwd_case(dev, 37, 1600, y_dt, r_dt, v_dt, seed=51)
+    _check_ln_fwd(args, out_dt, sum_dt)
+
+
+# K3-fwd's edges and the paths' shapes: (N, H, y, residual, vectors, out,
+# sum dtype or None, y's and the residual's storage offsets)
+LN_FWD_EDGES = {
+    "N4096-H1600-serving": (4096, 1600, BF16, BF16, F32, BF16, BF16, 0, 0),
+    "N11264-H1600-training": (11264, 1600, BF16, BF16, BF16, BF16, BF16, 0,
+                              0),
+    "N11264-H1600-ln_f": (11264, 1600, BF16, BF16, BF16, F32, None, 0, 0),
+    "N16384-H1024-moe": (16384, 1024, BF16, BF16, F32, BF16, BF16, 0, 0),
+    "N2048-H1024-post-ln-bf16-residual": (2048, 1024, BF16, BF16, BF16, F32,
+                                          BF16, 0, 0),
+    "N2048-H1024-post-ln-fp32-residual": (2048, 1024, BF16, F32, BF16, F32,
+                                          F32, 0, 0),
+    "N300-H1600-y-offset-1": (300, 1600, BF16, BF16, BF16, BF16, BF16, 1, 0),
+    "N300-H1600-residual-offset-1": (300, 1600, BF16, F32, BF16, F32, F32,
+                                     0, 1),
+    "N300-H1600-offset-row": (300, 1600, BF16, BF16, BF16, BF16, BF16, 1600,
+                              1600),
+    "N301-H1602-ragged-offset-1": (301, 1602, BF16, BF16, BF16, BF16, BF16,
+                                   1, 0),
+    "N33-H100-fp32": (33, 100, F32, F32, F32, F32, F32, 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(LN_FWD_EDGES))
+def test_layernorm_forward_kernel_edges(dev, case):
+    """K3-fwd at the paths' shapes (serving, training and its ln_f form,
+    MoE, BERT's post-LN forms) and its edges: a view one element into its
+    storage (unaligned: scalar accesses), one row into it (aligned: 16-byte
+    accesses on a view), a ragged width with an offset, fp32 throughout."""
+    n, h, y_dt, r_dt, v_dt, out_dt, sum_dt, y_off, r_off = \
+        LN_FWD_EDGES[case]
+    args = _ln_fwd_case(dev, n, h, y_dt, r_dt, v_dt, seed=52, y_off=y_off,
+                        r_off=r_off)
+    assert args[0].storage_offset() == y_off
+    assert args[2].storage_offset() == r_off
+    eps = 1e-12 if "post-ln" in case else 1e-5
+    _check_ln_fwd(args, out_dt, sum_dt, eps)
+
+
+def test_layernorm_forward_kernel_with_unaligned_vectors(dev):
+    """bias, gamma and beta one element into their storage: the plan
+    takes scalar accesses for every input (vec 1), rows included, and the
+    result matches `_ln_fwd_math`."""
+    y, bias, res, gamma, beta = _ln_fwd_case(dev, 300, 1600, BF16, BF16,
+                                             BF16, seed=55)
+    bias, gamma, beta = (torch.cat([v.new_zeros(1), v])[1:]
+                         for v in (bias, gamma, beta))
+    assert bias.data_ptr() % 16 != 0
+    assert tfo.ln_fwd_plan(300, 1600, tfo._sm_count(0),
+                           tfo._aligned(y, res, bias, gamma, beta)).vec == 1
+    _check_ln_fwd((y, bias, res, gamma, beta), BF16, BF16)
+
+
+def test_layernorm_forward_with_bf16_vectors_is_one_kernel(dev):
+    """One fused_bias_residual_layernorm call with bf16 bias, gamma and
+    beta (the training paths' parameters) runs exactly one kernel on the
+    card: no cast or copy of the vectors, nothing but K3-fwd."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    y, bias, res, gamma, beta = _ln_fwd_case(dev, 300, 1600, BF16, BF16,
+                                             BF16, seed=53)
+    tfo.fused_bias_residual_layernorm(y, bias, res, gamma, beta)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, s = tfo.fused_bias_residual_layernorm(y, bias, res, gamma,
+                                                   beta)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert kernels, "the profiler recorded no device kernels"
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "ln_fwd_kernel" in kernels[0][0], kernels
+
+
+@pytest.mark.parametrize("h", [1600, 1602, 100])
+def test_layernorm_forward_reads_no_stale_shared_memory(dev, poison_smem,
+                                                        h):
+    """K3-fwd right after a kernel that leaves every SM's shared memory
+    full of NaNs: each lane reads back only the words of gamma's and
+    beta's shared copy it wrote (lanes past the row's end, 24 of 224 at
+    H 1600, 23 at 1602, 19 of 32 at H 100, write and add zeros), and each
+    row's exchange only the slots its row group's warps wrote for that
+    row, so the outputs stay finite and match `_ln_fwd_math`."""
+    args = _ln_fwd_case(dev, 300, h, BF16, BF16, BF16, seed=54)
+    poison_smem()
+    out, s = tfo.fused_bias_residual_layernorm(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(s).all()
+    ref_out, ref_s = tfo._ln_fwd_math(*args, 1e-5)
+    torch.testing.assert_close(out.float(), ref_out.to(BF16).float(),
+                               **BF16_TOL)
+    torch.testing.assert_close(s.float(), ref_s.to(BF16).float(),
+                               **BF16_TOL)
+
+
+def test_layernorm_forward_raises_on_what_it_does_not_take(dev):
+    """Vectors it does not read (fp16, strided, on another device, of
+    another width) and rows past its widest (H 5121) raise; nothing casts
+    or falls back to the twin."""
+    y = torch.zeros((4, 64), device=dev, dtype=BF16)
+    ones = torch.ones(64, device=dev)
+    with pytest.raises(TypeError, match="gamma"):
+        tfo.fused_bias_residual_layernorm(y, ones, y, ones.half(), ones)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfo.fused_bias_residual_layernorm(
+            y, torch.ones(128, device=dev)[::2], y, ones, ones)
+    with pytest.raises(ValueError):
+        tfo.fused_bias_residual_layernorm(y, ones.cpu(), y, ones, ones)
+    with pytest.raises(ValueError):
+        tfo.fused_bias_residual_layernorm(y, ones[:32], y, ones, ones)
+    wide = torch.zeros((2, 5121), device=dev, dtype=BF16)
+    v = torch.ones(5121, device=dev)
+    with pytest.raises(ValueError, match="widest row"):
+        tfo.fused_bias_residual_layernorm(wide, v, wide, v, v)
 
 
 # K4-bwd's cases: (N, W, storage offset of the cotangent in elements,

@@ -55,26 +55,48 @@ def _ln_inputs(n, h, seed):
             (0.1 * r.randn(h)).astype(np.float32))
 
 
+# the dtypes of K3-fwd's operands: (y, residual, bias/gamma/beta, out,
+# sum). "fp32" and "bf16" are the model's pairing (rows and outputs in
+# the compute dtype, fp32 vectors: serving's fp32 parameters); the
+# "bf16_vectors" cases the training paths' bf16 parameters, which the
+# kernel reads in their own dtype (the wrapper casts none of them); the
+# "post_ln" cases BERT's post-LN form under the bf16 engine (bf16 y, the
+# carry's residual, bf16 parameters, fp32 out, the sum in the residual's
+# dtype)
+LN_DTYPES = {
+    "fp32": ("fp32", "fp32", "fp32", "fp32", "fp32"),
+    "bf16": ("bf16", "bf16", "fp32", "bf16", "bf16"),
+    "bf16-bf16_vectors": ("bf16", "bf16", "bf16", "bf16", "bf16"),
+    "fp32-bf16_vectors": ("fp32", "fp32", "bf16", "fp32", "fp32"),
+    "post_ln-bf16_residual": ("bf16", "bf16", "bf16", "fp32", "bf16"),
+    "post_ln-fp32_residual": ("bf16", "fp32", "bf16", "fp32", "fp32"),
+}
+
+
 @pytest.mark.parametrize("impl", ["interpret", "xla"])
-@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("dt", list(LN_DTYPES))
 @pytest.mark.parametrize("h", [64, 100])
 def test_bias_residual_layernorm_matches_jax(h, dt, impl):
-    """out and resid_sum, in the model's dtype pairing (rows and outputs
-    in the compute dtype, fp32 vectors); H=100 exercises the lane mask
-    of the TPU kernel."""
+    """out and resid_sum in each dtype pairing of LN_DTYPES; H=100
+    exercises the lane mask of the TPU kernel. Both packages get the same
+    vectors (bf16 ones rounded from the same fp32 values) and widen them
+    to fp32 inside the chain. Each output within F32_TOL where it is
+    fp32 (reduction order), BF16_TOL where it is bf16 (one rounding)."""
+    y_dt, r_dt, v_dt, out_dt, sum_dt = LN_DTYPES[dt]
     y, bias, res, gamma, beta = _ln_inputs(12, h, seed=h)
-    jy, ty = _both(y, dt)
-    jr, tr = _both(res, dt)
-    jdt, tdt = DTYPES[dt]
+    jy, ty = _both(y, y_dt)
+    jr, tr = _both(res, r_dt)
+    (jb, tb), (jg, tg), (jbeta, tbeta) = (_both(v, v_dt)
+                                          for v in (bias, gamma, beta))
     ref_out, ref_s = jfo.fused_bias_residual_layernorm(
-        jy, bias, jr, gamma, beta, eps=1e-5, out_dtype=jdt, sum_dtype=jdt,
-        impl=impl)
+        jy, jb, jr, jg, jbeta, eps=1e-5, out_dtype=DTYPES[out_dt][0],
+        sum_dtype=DTYPES[sum_dt][0], impl=impl)
     out, s = tfo.fused_bias_residual_layernorm(
-        ty, torch.from_numpy(bias), tr, torch.from_numpy(gamma),
-        torch.from_numpy(beta), eps=1e-5, out_dtype=tdt, sum_dtype=tdt)
-    assert out.dtype == tdt and s.dtype == tdt
-    _close(out, ref_out, dt)
-    _close(s, ref_s, dt)
+        ty, tb, tr, tg, tbeta, eps=1e-5, out_dtype=DTYPES[out_dt][1],
+        sum_dtype=DTYPES[sum_dt][1])
+    assert out.dtype == DTYPES[out_dt][1] and s.dtype == DTYPES[sum_dt][1]
+    _close(out, ref_out, out_dt)
+    _close(s, ref_s, sum_dt)
 
 
 @pytest.mark.parametrize("impl", ["interpret", "xla"])
@@ -220,3 +242,64 @@ def test_gelu_plan_falls_back_to_scalar_accesses(w, aligned, vec):
     """16-byte vectors need W (so every row's pitch) a multiple of 8
     columns and every pointer 16-byte aligned."""
     assert tfo.gelu_plan(64, w, 1, SMS, aligned).vec == vec
+
+
+# K3-fwd's launch plan, the layout the CUDA kernel takes
+# (ops/csrc/fused_ln_fwd.cu): the repo's models' widths (gpt2 presets and
+# BERT), a ragged one and two small ones
+LN_FWD_WIDTHS = [768, 1024, 1536, 1600, 2560, 4096, 5120, 1602, 100, 4]
+
+
+@pytest.mark.parametrize("n", [1, 4, 127, 2048, 11264])
+@pytest.mark.parametrize("h", LN_FWD_WIDTHS)
+def test_ln_fwd_plan_covers_every_row_once(n, h):
+    """Row group k of the grid (CTA k // groups, group k % groups) takes
+    the rows k, k + grid * groups, ...: every row exactly once. A row
+    group's lanes cover the row's 8-column vectors with the fewest
+    warps; a CTA holds whole row groups within the kernel's 20 warps,
+    and the grid one wave (at most 28 warps an SM, or one CTA where a
+    row group is wider), never more CTAs than rows need."""
+    plan = tfo.ln_fwd_plan(n, h, SMS)
+    wpr, groups = plan.warps_per_row, plan.groups
+    assert 32 * wpr * 8 >= h > 32 * (wpr - 1) * 8
+    assert plan.threads == 32 * wpr * groups <= 32 * 20
+    assert wpr == 1 or groups <= 15      # the named barriers 1 .. 15
+    total = plan.grid * groups
+    seen = np.zeros(n, np.int64)
+    for k in range(total):
+        seen[k::total] += 1
+    assert (seen == 1).all()
+    warps = wpr * groups
+    assert plan.grid * warps <= SMS * max(tfo._LN_FWD_SM_WARPS, warps)
+    assert (plan.grid - 1) * groups < n                # no CTA idle
+    if n <= SMS:
+        assert groups == 1 and plan.grid == n   # a row a CTA
+
+
+@pytest.mark.parametrize("h,aligned,vec", [(1600, True, 8), (1024, True, 8),
+                                           (5120, True, 8), (1602, True, 1),
+                                           (100, True, 1), (1600, False, 1),
+                                           (4, True, 1)])
+def test_ln_fwd_plan_falls_back_to_scalar_accesses(h, aligned, vec):
+    """16-byte vectors need H (so every row's pitch) a multiple of 8
+    columns and y's and the residual's pointers 16-byte aligned."""
+    assert tfo.ln_fwd_plan(64, h, SMS, aligned).vec == vec
+
+
+@pytest.mark.parametrize("h", [5121, 8192])
+def test_ln_fwd_plan_raises_past_its_widest_row(h):
+    with pytest.raises(ValueError, match="widest row"):
+        tfo.ln_fwd_plan(64, h, SMS)
+
+
+def test_ln_fwd_plan_at_the_paths_shapes():
+    """The paths' plans: one row a CTA at the decode and prefill-chunk
+    shapes; 7-warp row groups at H 1600 (200 vectors), 4 CTAs an SM (28
+    warps); two 4-warp row groups a CTA at H 1024 (BERT, MoE), 3 CTAs an
+    SM."""
+    assert tfo.ln_fwd_plan(4, 1600, SMS) == (8, 7, 1, 224, 4)
+    assert tfo.ln_fwd_plan(128, 1600, SMS) == (8, 7, 1, 224, 128)
+    assert tfo.ln_fwd_plan(11264, 1600, SMS) == (8, 7, 1, 224, 4 * SMS)
+    assert tfo.ln_fwd_plan(2048, 1024, SMS) == (8, 4, 2, 256, 3 * SMS)
+    assert tfo.ln_fwd_plan(16384, 1024, SMS) == (8, 4, 2, 256, 3 * SMS)
+    assert tfo.ln_fwd_plan(0, 1024, SMS).grid == 0
