@@ -301,17 +301,23 @@ def bound(flops, flops_peak, nbytes, peaks):
 
 
 # K4's instantiations: 2 x 2 x 2 element types x the two GeLU forms x
-# 16-byte or scalar accesses, forward and backward
-K4_KERNELS = 2 * 32
+# 16-byte or scalar accesses, forward and backward, and the fp16 forms
+# (all fp16) x the GeLU forms x access width, forward and backward
+K4_KERNELS = 2 * 32 + 2 * 4
 # K3-bwd's: 2 x 2 x 2 element types (s, dout, dx) x 1 or 4 vectors a
-# lane x 16-byte or scalar accesses
-K3_BWD_KERNELS = 32
+# lane x 16-byte or scalar accesses, and the 3 fp16 forms (dx fp16;
+# fused_ops.LN_BWD_FP16_FORMS) at one vector a lane x access width
+K3_BWD_KERNELS = 32 + 6
 # K3-fwd's: 2 x 2 x 2 x 2 element types (y, residual, out, sum) x
-# 16-byte or scalar accesses
-K3_FWD_KERNELS = 32
+# 16-byte or scalar accesses, and the 3 fp16 forms (y fp16;
+# fused_ops.LN_FWD_FP16_FORMS) x access width
+K3_FWD_KERNELS = 32 + 6
+# the attention bodies and K6 (18), and the fp16 forms of K1-fwd and of
+# K2's two sweeps at head dims 64 and 128 (6)
+ATTN_KERNELS = 18 + 6
 # the Hopper kernels the build must report, none spilling: the attention
-# bodies and K6 (18), and K4's, K3-bwd's and K3-fwd's instantiations
-SM90_KERNELS = 18 + K4_KERNELS + K3_BWD_KERNELS + K3_FWD_KERNELS
+# bodies and K6, and K4's, K3-bwd's and K3-fwd's instantiations
+SM90_KERNELS = ATTN_KERNELS + K4_KERNELS + K3_BWD_KERNELS + K3_FWD_KERNELS
 SM90_LIBS = ("flash_attention_fwd", "flash_attention_bwd",
              "block_sparse_attention", "quantized_matmul", "fused_gelu_fwd",
              "fused_gelu_bwd", "fused_ln_bwd", "fused_ln_fwd")
@@ -327,18 +333,21 @@ def sm90_ptxas(log):
     access width)."""
     import re
     out, name = {}, None
-    # the mangled types: f float, 13__nv_bfloat16 (and its back-reference
-    # S1_) bf16
-    types_re = r"f|13__nv_bfloat16|S\d*_"
+    # the mangled types: f float, 13__nv_bfloat16 bf16, 6__half fp16, and
+    # back-references (S1_) to the 16-bit type of the instantiation (none
+    # mixes bf16 and fp16)
+    types_re = r"f|13__nv_bfloat16|6__half|S\d*_"
 
     def types(mangled):
-        return ", ".join("float" if t == "f" else "bf16"
+        half = "fp16" if "6__half" in mangled else "bf16"
+        return ", ".join("float" if t == "f" else half
                          for t in re.findall(types_re, mangled))
 
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|band_fwd|bs_fwd|"
-                          r"bs_bwd_dkv|bs_bwd_dq)_kernel_sm90)ILi(\d+)E"
+                          r"bs_bwd_dkv|bs_bwd_dq)_kernel_sm90)I"
+                          r"(13__nv_bfloat16|6__half)?Li(\d+)E"
                           r"(?:Lb(\d)E)?", ln)
             q = re.search(r"qmm_kernelI(f|13__nv_bfloat16)E", ln)
             k4 = re.search(rf"(gelu_(?:fwd|bwd)_kernel)I((?:{types_re}){{3}})"
@@ -349,8 +358,10 @@ def sm90_ptxas(log):
                             r"Lb(\d)E", ln)
             name = None
             if m is not None:
-                name = (f"{m.group(1)}<{m.group(2)}" +
-                        (f", merge={m.group(3)}" if m.group(3) else "") +
+                name = (f"{m.group(1)}<" +
+                        ("fp16, " if m.group(2) == "6__half" else "") +
+                        m.group(3) +
+                        (f", merge={m.group(4)}" if m.group(4) else "") +
                         ">")
             elif q is not None:
                 name = f"qmm_kernel<{'float' if q.group(1) == 'f' else 'bf16'}>"
@@ -1417,9 +1428,10 @@ TOL_QUANT_LOSS = 0.2
 def train_config(**overrides):
     import torch
     from deepspeed_tpu_torch.models.gpt2 import gpt2_config
-    return gpt2_config("gpt2-1.5b", n_positions=TRAIN_SEQ, dropout=0.0,
-                       dtype=torch.bfloat16, param_dtype=torch.bfloat16,
-                       remat=True, remat_policy=None, **overrides)
+    kw = dict(n_positions=TRAIN_SEQ, dropout=0.0, dtype=torch.bfloat16,
+              param_dtype=torch.bfloat16, remat=True, remat_policy=None)
+    kw.update(overrides)
+    return gpt2_config("gpt2-1.5b", **kw)
 
 
 def train_and_check(seed, card, warmup=2, steps=6, quantized=False,
@@ -1645,8 +1657,11 @@ def quant_oracle(seed, n_layer=2):
 # with the async save's writer running, of as many steps each; the
 # resumed engine takes the save window's steps again
 CKPT_STEPS_BEFORE, CKPT_STEPS_WINDOW = 2, 4
-# the flagship's depth in this phase (its width always 1600)
-CKPT_N_LAYER = 48
+# the flagship's depth in this phase (its width always 1600): cut from
+# 48 to 16 layers to keep the whole run, with the fp16 phases, within
+# half its time limit (the save, load and resume paths are the same at
+# any depth; the bytes scale with it)
+CKPT_N_LAYER = 16
 
 
 def _rss_bytes():
@@ -1667,9 +1682,8 @@ def _loaded_leaves_match(engine, flat):
     loads (its checkpoint trees of the live state) against the file's
     entry, byte for byte, a stacked entry layer by layer."""
     from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
-    opt = engine.state.opt_state
     module, opt_state = engine._ckpt_trees(
-        list(engine.params.values()), opt.count, opt.mu, opt.nu, None,
+        list(engine.params.values()), engine.state.opt_state, None,
         engine._remat())
     compared, bad = 0, []
     for key, dest in ckpt_io.tree_to_entries(module, "module") + \
@@ -3275,10 +3289,10 @@ def bert_ds_config():
 
 def bert_model_config(**overrides):
     from deepspeed_tpu_torch.models.bert import bert_config
-    return bert_config("bert-large", max_position_embeddings=BERT_SEQ,
-                       hidden_dropout_prob=0.0,
-                       attention_probs_dropout_prob=0.0, bf16=True,
-                       **overrides)
+    kw = dict(max_position_embeddings=BERT_SEQ, hidden_dropout_prob=0.0,
+              attention_probs_dropout_prob=0.0, bf16=True)
+    kw.update(overrides)
+    return bert_config("bert-large", **kw)
 
 
 def bert_training(seed, card):
@@ -3455,6 +3469,829 @@ def bert_oracle(seed, n_layer=2):
                              "with the plain-torch route")
 
 
+# ----------------------------------------------------------------------
+# fp16 (phases 25-30): the fp16 forms of K1-K4 at paths A's and B's
+# shapes, the fp16 oracle at BERT-large width, path A (BERT-large fp16 +
+# LAMB), path B (GPT-2 1.5B fp16 + progressive layer drop), path C (the
+# engine's other optimizers and client objects at gpt2-1.5b width)
+# ----------------------------------------------------------------------
+# fp16 outputs against the twins: one rounding of the same fp32 result,
+# up to 2 fp16 ulps (2^-10 relative) where the fp32 values straddle a
+# rounding point; gradients by relative L2, the fp16 counterpart of
+# GRAD_TOL_BF16 (fp16 keeps 3 more mantissa bits than bf16; the margin
+# covers P and dS rounded inside attention)
+TOL_F16 = dict(atol=2e-3, rtol=2e-3)
+GRAD_TOL_F16 = 5e-3
+# the fp16 kernel rows of the `kernels` line, by the bf16 row they
+# share a source and a Pallas kernel with
+FP16_KERNELS = {
+    "flash_attention_fwd_fp16": "flash_attention_fwd",
+    "flash_attention_bwd_fp16": "flash_attention_bwd",
+    "fused_bias_residual_layernorm_fwd_fp16":
+        "fused_bias_residual_layernorm_fwd",
+    "fused_bias_residual_layernorm_bwd_fp16":
+        "fused_bias_residual_layernorm_bwd",
+    "fused_bias_gelu_fwd_fp16": "fused_bias_gelu_fwd",
+    "fused_bias_gelu_bwd_fp16": "fused_bias_gelu_bwd",
+}
+# the fp16 paths: their launches are the fp16 forms'
+FP16_PATHS = ("bert_fp16", "gpt2_fp16_pld", "engine_surface_fp16")
+# a run ends once this many clean steps follow the last skipped one, or
+# fails at the cap
+FP16_CLEAN_STEPS = 8
+FP16_STEP_CAP = {"bert_fp16": 64, "gpt2_fp16_pld": 64, "surface": 48}
+# path C: gpt2-1.5b width, this many layers
+SURFACE_N_LAYER = 4
+
+
+def cold_graph_ms(fn, calls=10):
+    """Device time per call of `fn` with the L2 cache flushed before each
+    call: a CUDA graph of (zero a 256 MiB buffer, fn) pairs less one of
+    the zeroing alone."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def both():
+        flush.zero_()
+        fn()
+
+    ms = graph_ms(both, calls) - graph_ms(flush.zero_, calls)
+    del flush
+    return ms
+
+
+def nonfinite_covered(got, ref):
+    """(every position where the twin is non-finite is non-finite in the
+    kernel's output, the two masks equal, the twin has any)."""
+    import torch
+    g, r = ~torch.isfinite(got.float()), ~torch.isfinite(ref.float())
+    return bool((g | ~r).all()), bool(torch.equal(g, r)), bool(r.any())
+
+
+def check_nonfinite(label, got, ref, checks):
+    covered, equal, any_ref = nonfinite_covered(got, ref)
+    checks.append({"check": f"non-finite where the twin's is, {label}",
+                   "covered": covered, "masks_equal": equal,
+                   "twin_has_nonfinite": any_ref})
+    if not (covered and any_ref):
+        raise AssertionError(f"{label}: an inf in the input did not "
+                             "reach the kernel's output where it reaches "
+                             "the twin's")
+
+
+def kernel_fp16(peaks, gen):
+    """The fp16 forms of K1-fwd, K2, K3-fwd, K3-bwd, K4-fwd and K4-bwd at
+    path A's shapes (BERT-large: attention [16, 128, 16, 64] non-causal,
+    N 2,048 rows of H 1,024 post-LN (an fp16 and then an fp32 residual,
+    fp32 out), bias + erf-GeLU N 2,048 x 4,096) and path B's (gpt2-1.5b:
+    attention [11, 1024, 25, 64] causal, N 11,264 x 1,600 all fp16,
+    tanh-GeLU N 11,264 x 6,400), every vector fp16 as the engine holds
+    the parameters. Each against its twin (TOL_F16, gradients
+    GRAD_TOL_F16), then with an inf in the input (y, x, v) or the
+    cotangent: non-finite wherever the twin is. Timed back to back
+    (`ms`), from a CUDA graph (`graph_ms`), K3 also with the L2 cache
+    flushed (`cold_graph_ms`); beside the bound, the plain twin, the bf16
+    form at the same shape (graph) and the library call or yardstick:
+    SDPA in fp16, `F.layer_norm` and `F.gelu` (graph)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    checks = []
+    out = {k: {} for k in FP16_KERNELS}
+
+    def randn(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")) \
+            .to(dtype)
+
+    # --- K1-fwd and K2 ---
+    for path, (b, t, h, d, causal) in (("bert_fp16", (16, 128, 16, 64,
+                                                      False)),
+                                       ("gpt2_fp16_pld", (11, 1024, 25, 64,
+                                                          True))):
+        label = f"fp16 {'causal' if causal else 'non-causal'} B{b} T{t} " \
+            f"H{h} D{d}"
+        c = h * d
+        qkv = randn((b, t, 3 * c), f16)
+        q, k, v = (p.view(b, t, h, d) for p in qkv.split(c, dim=-1))
+        sm = 1.0 / d ** 0.5
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa._flash_fwd_plain(q, k, v, sm, causal)
+        err = check(f"flash fp16 out, {label}", o, ref, TOL_F16, checks)
+        check(f"flash fp16 log2-lse, {label}", lse[..., 0], ref_lse,
+              TOL_F32, checks)
+        v_inf = v.clone()
+        v_inf[0, 5, 0, 3] = float("inf")
+        check_nonfinite(f"flash fp16 out, inf in v, {label}",
+                        fa.flash_attention_with_lse(q, k, v_inf,
+                                                    causal=causal)[0],
+                        fa._flash_fwd_plain(q, k, v_inf, sm, causal)[0],
+                        checks)
+        lse2 = lse[..., 0].contiguous()
+        dout = randn((b, t, h, d), f16)
+
+        def fwd():
+            return fa.flash_attention_with_lse(q, k, v, causal=causal)
+
+        def bwd():
+            return fa.flash_attention_backward(q, k, v, o, lse2, dout, None,
+                                               sm, causal)
+
+        got = bwd()
+        torch.cuda.synchronize()
+        ref_g = fa._flash_bwd_plain(q, k, v, o, lse2, dout, None, sm, causal)
+        errs = [check_rel(f"flash fp16 bwd d{n}, {label}", x, y,
+                          GRAD_TOL_F16, checks)
+                for n, x, y in zip("qkv", got, ref_g)]
+        d_inf = dout.clone()
+        d_inf[0, 7, 1, 2] = float("inf")
+        for n, x, y in zip("qkv", fa.flash_attention_backward(
+                q, k, v, o, lse2, d_inf, None, sm, causal),
+                fa._flash_bwd_plain(q, k, v, o, lse2, d_inf, None, sm,
+                                    causal)):
+            check_nonfinite(f"flash fp16 bwd d{n}, inf in dO, {label}", x, y,
+                            checks)
+        pairs = t * (t + 1) // 2 if causal else t * t
+        qb, kb, vb, ob, db = (x.to(bf16) for x in (q, k, v, o, dout))
+        lseb = fa.flash_attention_with_lse(qb, kb, vb, causal=causal)[1][
+            ..., 0].contiguous()
+        qt, kt, vt, dt = (x.transpose(1, 2).detach().clone()
+                          for x in (q, k, v, dout))
+        for x in (qt, kt, vt):
+            x.requires_grad_(True)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
+
+        flops = 4.0 * b * h * d * pairs
+        nbytes = 4 * b * t * h * d * 2 + b * h * t * 4
+        bound_ms, bound_by = bound(flops, peaks["bf16"], nbytes, peaks)
+        lib_fwd = graph_ms(sdpa_fwd)
+        out["flash_attention_fwd_fp16"][path] = rates(dict(
+            max_abs_err=err, ms=time_ms(fwd), graph_ms=graph_ms(fwd),
+            plain_ms=time_ms(lambda: fa._flash_fwd_plain(q, k, v, sm,
+                                                         causal),
+                             iters=3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(sdpa_fwd), library_graph_ms=lib_fwd,
+            bf16_graph_ms=graph_ms(lambda: fa.flash_attention_with_lse(
+                qb, kb, vb, causal=causal)),
+            library_call="F.scaled_dot_product_attention (fp16)",
+            shape=label), flops)
+        flops = 10.0 * b * h * d * pairs
+        nbytes = 8 * b * t * h * d * 2 + b * h * t * 4
+        bound_ms, bound_by = bound(flops, peaks["bf16"], nbytes, peaks)
+        out["flash_attention_bwd_fp16"][path] = rates(dict(
+            max_abs_err=max(errs), ms=time_ms(bwd), graph_ms=graph_ms(bwd),
+            plain_ms=time_ms(lambda: fa._flash_bwd_plain(
+                q, k, v, o, lse2, dout, None, sm, causal), iters=3,
+                warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
+            library_graph_ms=graph_ms(sdpa_fwd_bwd) - lib_fwd,
+            bf16_graph_ms=graph_ms(lambda: fa.flash_attention_backward(
+                qb, kb, vb, ob, lseb, db, None, sm, causal)),
+            library_call="F.scaled_dot_product_attention fwd+bwd less fwd "
+                         "(fp16)", shape=label), flops)
+        del qkv, q, k, v, o, lse, ref, ref_lse, got, ref_g, qb, kb, vb
+        release()
+
+    # --- K3-fwd and K3-bwd ---
+    ln_cases = (
+        # (path, label, N, H, residual, out, sum dtypes, timed)
+        ("bert_fp16", "post-LN fp16 residual", 2048, 1024, f16, f32, f16,
+         True),
+        ("bert_fp16_fp32_residual", "post-LN fp32 residual", 2048, 1024,
+         f32, f32, f32, True),
+        ("gpt2_fp16_pld", "all fp16", 11264, 1600, f16, f16, f16, True),
+    )
+    for path, form, n, h, r_dt, o_dt, s_dt, _ in ln_cases:
+        label = f"fp16 y N{n} H{h} {form}"
+        y = randn((n, h), f16, 2.0)
+        res = randn((n, h), r_dt, 2.0)
+        bias, beta = (randn((h,), f16, 0.1) for _ in range(2))
+        gamma = (1.0 + 0.1 * torch.randn((h,), generator=gen,
+                                         device="cuda")).to(f16)
+
+        def fwd():
+            return fo.fused_bias_residual_layernorm(
+                y, bias, res, gamma, beta, eps=1e-5, out_dtype=o_dt,
+                sum_dtype=s_dt)
+
+        o, s = fwd()
+        torch.cuda.synchronize()
+        ro, rs = fo._ln_fwd_math(y, bias, res, gamma, beta, 1e-5)
+        err = check(f"ln fp16 out, {label}", o, ro.to(o_dt),
+                    TOL_F16 if o_dt == f16 else TOL_F32, checks)
+        check(f"ln fp16 sum, {label}", s, rs.to(s_dt),
+              TOL_F16 if s_dt == f16 else TOL_F32, checks)
+        y_inf = y.clone()
+        y_inf[3, 17] = float("inf")
+        check_nonfinite(
+            f"ln fp16 out, inf in y, {label}",
+            fo.fused_bias_residual_layernorm(
+                y_inf, bias, res, gamma, beta, eps=1e-5, out_dtype=o_dt,
+                sum_dtype=s_dt)[0],
+            fo._ln_fwd_math(y_inf, bias, res, gamma, beta, 1e-5)[0].to(o_dt),
+            checks)
+        item = 2
+        nbytes = n * h * (2 + r_dt.itemsize + o_dt.itemsize +
+                          s_dt.itemsize) + 3 * h * item
+        bound_ms, bound_by = bound(10 * n * h, peaks["fp32"], nbytes, peaks)
+        yb, rb = y.to(bf16), res.to(bf16 if r_dt == f16 else f32)
+        vb = [x.to(bf16) for x in (bias, gamma, beta)]
+        yard_y = y.clone()
+        out["fused_bias_residual_layernorm_fwd_fp16"][path] = rates(dict(
+            max_abs_err=err, ms=time_ms(fwd), graph_ms=graph_ms(fwd),
+            cold_graph_ms=cold_graph_ms(fwd),
+            plain_ms=time_ms(lambda: fo._ln_fwd_math(y, bias, res, gamma,
+                                                     beta, 1e-5)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            yardstick="F.layer_norm of y alone (fp16)",
+            yardstick_graph_ms=graph_ms(lambda: F.layer_norm(
+                yard_y, (h,), gamma, beta, 1e-5)),
+            bf16_graph_ms=graph_ms(lambda: fo.fused_bias_residual_layernorm(
+                yb, vb[0], rb, vb[1], vb[2], eps=1e-5,
+                out_dtype=bf16 if o_dt == f16 else f32,
+                sum_dtype=bf16 if s_dt == f16 else f32)),
+            shape=label), 10 * n * h)
+
+        dout = randn((n, h), o_dt)
+        dsum = randn((n, h), s_dt)
+
+        def bwd():
+            return fo.fused_bias_residual_layernorm_backward(
+                s, gamma, dout, dsum, eps=1e-5, dx_dtype=f16)
+
+        got = bwd()
+        torch.cuda.synchronize()
+        ds, dg, db = fo._ln_bwd_math(s, gamma, dout, dsum, 1e-5)
+        ref = (ds.to(f16), ds.sum(0), dg.sum(0), db.sum(0))
+        errs = [check_rel(f"ln fp16 bwd {name}, {label}", x, r,
+                          GRAD_TOL_F16 if name == "dx" else GRAD_TOL_F32 * 10,
+                          checks)
+                for name, x, r in zip(("dx", "dbias", "dgamma", "dbeta"),
+                                      got, ref)]
+        d_inf = dout.clone()
+        d_inf[9, 4] = float("inf")
+        got_inf = fo.fused_bias_residual_layernorm_backward(
+            s, gamma, d_inf, dsum, eps=1e-5, dx_dtype=f16)
+        ref_inf = fo._ln_bwd_math(s, gamma, d_inf, dsum, 1e-5)
+        check_nonfinite(f"ln fp16 bwd dx, inf in dout, {label}", got_inf[0],
+                        ref_inf[0].to(f16), checks)
+        check_nonfinite(f"ln fp16 bwd dgamma, inf in dout, {label}",
+                        got_inf[2], ref_inf[1].sum(0), checks)
+        nbytes = n * h * (s_dt.itemsize + o_dt.itemsize + s_dt.itemsize +
+                          2) + h * 2 + 3 * h * 4
+        bound_ms, bound_by = bound(22 * n * h, peaks["fp32"], nbytes, peaks)
+        sb = s.to(bf16 if s_dt == f16 else f32)
+        ob = dout.to(bf16 if o_dt == f16 else f32)
+        sumb = dsum.to(sb.dtype)
+        y16 = yard_y.clone().requires_grad_(True)
+        g_lib = dout.to(f16)
+
+        def lib_fwd():
+            return F.layer_norm(y16, (h,), gamma, beta, 1e-5)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(lib_fwd(), (y16,), g_lib)
+
+        out["fused_bias_residual_layernorm_bwd_fp16"][path] = rates(dict(
+            max_abs_err=errs[0], ms=time_ms(bwd), graph_ms=graph_ms(bwd),
+            cold_graph_ms=cold_graph_ms(bwd),
+            plain_ms=time_ms(lambda: fo._ln_bwd_math(s, gamma, dout, dsum,
+                                                     1e-5)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            yardstick="F.layer_norm backward of y alone (fp16; fwd+bwd "
+                      "less fwd)",
+            yardstick_graph_ms=graph_ms(lib_fwd_bwd) - graph_ms(lib_fwd),
+            bf16_graph_ms=graph_ms(
+                lambda: fo.fused_bias_residual_layernorm_backward(
+                    sb, gamma.to(bf16), ob, sumb, eps=1e-5,
+                    dx_dtype=bf16)),
+            shape=label), 22 * n * h)
+        del y, res, o, s, ro, rs, dout, dsum, got, ref, y16
+        release()
+
+    # --- K4-fwd and K4-bwd ---
+    for path, n, w, approx in (("bert_fp16", 2048, 4096, False),
+                               ("gpt2_fp16_pld", 11264, 6400, True)):
+        label = f"fp16 N{n} W{w} {'tanh' if approx else 'erf'}"
+        x = randn((n, w), f16, 2.0)
+        bias = randn((w,), f16, 0.1)
+
+        def fwd():
+            return fo.fused_bias_gelu_with_sum(x, bias, approximate=approx)
+
+        o, s = fwd()
+        torch.cuda.synchronize()
+        ro, _ = fo._gelu_fwd_math(x, bias, approx)
+        err = check(f"gelu fp16 out, {label}", o, ro.to(f16), TOL_F16,
+                    checks)
+        x_inf = x.clone()
+        x_inf[2, 9] = float("inf")
+        check_nonfinite(f"gelu fp16 out, inf in x, {label}",
+                        fo.fused_bias_gelu(x_inf, bias, approximate=approx),
+                        fo._gelu_fwd_math(x_inf, bias, approx)[0].to(f16),
+                        checks)
+        nbytes = 3 * n * w * 2 + w * 2
+        bound_ms, bound_by = bound(20 * n * w, peaks["fp32"], nbytes, peaks)
+        xb, bb = x.to(bf16), bias.to(bf16)
+        xl = x.clone()
+        how = "tanh" if approx else "none"
+        out["fused_bias_gelu_fwd_fp16"][path] = rates(dict(
+            max_abs_err=err, ms=time_ms(fwd), graph_ms=graph_ms(fwd),
+            plain_ms=time_ms(lambda: fo._gelu_fwd_math(x, bias, approx)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            yardstick=f"F.gelu(x, approximate={how!r}) of x alone (fp16)",
+            yardstick_graph_ms=graph_ms(lambda: F.gelu(xl, approximate=how)),
+            bf16_graph_ms=graph_ms(lambda: fo.fused_bias_gelu(
+                xb, bb, approximate=approx)),
+            shape=label), 20 * n * w)
+        dout = randn((n, w), f16)
+
+        def bwd():
+            return fo.fused_bias_gelu_backward(s, dout, approximate=approx)
+
+        got = bwd()
+        torch.cuda.synchronize()
+        rdx = fo._gelu_bwd_math(s, dout, approx)
+        errs = [check_rel(f"gelu fp16 bwd dx, {label}", got[0], rdx.to(f16),
+                          GRAD_TOL_F16, checks),
+                check_rel(f"gelu fp16 bwd dbias, {label}", got[1],
+                          rdx.sum(0), GRAD_TOL_F32 * 10, checks)]
+        d_inf = dout.clone()
+        d_inf[4, 1] = float("inf")
+        got_inf = fo.fused_bias_gelu_backward(s, d_inf, approximate=approx)
+        ref_inf = fo._gelu_bwd_math(s, d_inf, approx)
+        check_nonfinite(f"gelu fp16 bwd dx, inf in dout, {label}",
+                        got_inf[0], ref_inf.to(f16), checks)
+        check_nonfinite(f"gelu fp16 bwd dbias, inf in dout, {label}",
+                        got_inf[1], ref_inf.sum(0), checks)
+        nbytes = 3 * n * w * 2 + w * 4
+        bound_ms, bound_by = bound(25 * n * w, peaks["fp32"], nbytes, peaks)
+        sb, db = s.to(bf16), dout.to(bf16)
+        xg = x.clone().requires_grad_(True)
+
+        def lib_fwd():
+            return F.gelu(xg, approximate=how)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(lib_fwd(), (xg,), dout)
+
+        out["fused_bias_gelu_bwd_fp16"][path] = rates(dict(
+            max_abs_err=errs[0], ms=time_ms(bwd), graph_ms=graph_ms(bwd),
+            plain_ms=time_ms(lambda: fo._gelu_bwd_math(s, dout, approx)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            yardstick=f"F.gelu(approximate={how!r}) backward of x alone "
+                      "(fp16; fwd+bwd less fwd)",
+            yardstick_graph_ms=graph_ms(lib_fwd_bwd) - graph_ms(lib_fwd),
+            bf16_graph_ms=graph_ms(lambda: fo.fused_bias_gelu_backward(
+                sb, db, approximate=approx)),
+            shape=label), 25 * n * w)
+        del x, o, s, ro, dout, got, rdx, xb, xg
+        release()
+    return out, checks
+
+
+def param_checksum(engine):
+    """One int64 device scalar over the bits of every parameter, master
+    and optimizer-state tensor of the engine (no host read): equal
+    before and after a step exactly when no bit moved, up to the
+    vanishing chance of compensating changes."""
+    import torch
+    state = engine.state
+    tensors = list(state.params.values()) + list(state.master or []) + \
+        engine._state_tensors(state.opt_state)
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    for i, t in enumerate(tensors):
+        if t.dtype == torch.float16 or t.dtype == torch.bfloat16:
+            v = t.view(torch.int16)
+        elif t.dtype == torch.float32:
+            v = t.view(torch.int32)
+        else:
+            v = t
+        # position-weighted so that two swapped values still differ
+        total += (v.reshape(-1).to(torch.int64) * (i + 1)).sum() + \
+            v.reshape(-1)[::97].to(torch.int64).cumsum(0).sum()
+    return total
+
+
+def replay_scale(flags, init_scale, window=1000, shift=2, min_scale=1.0):
+    """The JAX package's `update_loss_scale` (runtime/fp16/loss_scaler.py
+    there) replayed on the host over the overflow flags: the scale after
+    each step."""
+    scale, good, hyst, out = float(init_scale), 0, shift, []
+    for overflow in flags:
+        if overflow:
+            if hyst <= 1:
+                scale, hyst = max(scale / 2.0, min_scale), shift
+            else:
+                hyst -= 1
+            good = 0
+        else:
+            good += 1
+            if good % window == 0:
+                scale, hyst = scale * 2.0, shift
+        out.append(scale)
+    return out
+
+
+def run_fp16_path(name, engine, staged, cap, card, expect_per_step=None,
+                  tokens_per_step=None, extra=None, debug_sync=True):
+    """Steps `engine` on the staged batch until FP16_CLEAN_STEPS clean
+    steps follow the last skipped one (at most `cap`), reading the
+    skipped count after each step. Records per step the loss, the scale
+    and the bit checksum of every parameter, master and optimizer-state
+    tensor; then the gates: finite losses after the last skip, the last
+    clean loss below the first, every checksum unchanged across a
+    skipped step, the scale trajectory equal to the JAX automaton
+    replayed on the same overflow flags, and (`expect_per_step`) the
+    exact launches of each fp16 kernel per step. Then a window of 3
+    steps without reads (step ms), a profile of one step (idle share)
+    and, with `debug_sync`, one step under
+    torch.cuda.set_sync_debug_mode("error") (and, should anything in
+    train_batch synchronize, the update alone under it). Returns the
+    launch counts of the recorded steps and the emitted row."""
+    import numpy as np
+    import torch
+    args = engine.dynamic_loss_scale_args() or {}
+    init = engine.loss_scale()
+    losses, scales, skipped, sums = [], [], [], [param_checksum(engine)]
+    clean_run = 0
+    reset_counts()
+    t0 = time.perf_counter()
+    while len(losses) < cap and clean_run < FP16_CLEAN_STEPS:
+        losses.append(engine.train_batch(batch=staged).float())
+        scales.append(engine.state.scale.loss_scale.clone())
+        sums.append(param_checksum(engine))
+        skipped.append(engine.skipped_steps)   # reads the device
+        prev = skipped[-2] if len(skipped) > 1 else 0
+        clean_run = clean_run + 1 if skipped[-1] == prev else 0
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    n = len(losses)
+    flags = [skipped[i] > (skipped[i - 1] if i else 0) for i in range(n)]
+    loss_vals = [float(x) for x in torch.stack(losses).cpu()]
+    scale_vals = [float(x) for x in torch.stack(scales).cpu()]
+    sum_vals = [int(x) for x in torch.stack(sums).cpu()]
+    last_skip = max([i for i in range(n) if flags[i]], default=-1)
+    clean = loss_vals[last_skip + 1:]
+    unchanged = all(sum_vals[i + 1] == sum_vals[i] for i in range(n)
+                    if flags[i])
+    moved = all(sum_vals[i + 1] != sum_vals[i] for i in range(n)
+                if not flags[i])
+    jax_scales = replay_scale(flags, init, args.get("scale_window", 1000),
+                              args.get("delayed_shift", 2),
+                              args.get("min_scale", 1.0))
+    per_step = {k: counts[k] / n for k in TRAINING_KERNELS}
+    exact = expect_per_step is None or per_step == {
+        k: float(v) for k, v in expect_per_step.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine.train_batch(batch=staged)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_steps(lambda: engine.train_batch(batch=staged), 1)
+    sync_check = None
+    if debug_sync:
+        sync_check = sync_debug_step(engine, staged)
+    row = dict(phase=name, steps=n, run_s=run_s, skipped_steps=sum(flags),
+               last_skip=last_skip, losses=loss_vals,
+               clean_losses=len(clean), scales=scale_vals,
+               jax_automaton_scales=jax_scales,
+               scales_match_jax_automaton=scale_vals == jax_scales,
+               params_unchanged_across_skips=unchanged,
+               params_moved_on_clean_steps=moved,
+               step_ms=step_s * 1e3,
+               tokens_per_s=tokens_per_step / step_s
+               if tokens_per_step else None,
+               max_memory_allocated_gib=peak / 2 ** 30,
+               device_idle_share=profile.get("device_idle_share"),
+               launches_per_step=per_step,
+               expected_launches_per_step=expect_per_step,
+               launches_exact=exact, sync_debug=sync_check, card=card,
+               **(extra or {}))
+    emit(row)
+    emit({"phase": name + "_profile", "step_ms": step_s * 1e3, **profile,
+          "card": card})
+    ok = len(clean) >= FP16_CLEAN_STEPS and all(np.isfinite(clean)) and \
+        clean[FP16_CLEAN_STEPS - 1] < clean[0]
+    if not ok:
+        raise AssertionError(f"{name}: no {FP16_CLEAN_STEPS} clean steps "
+                             f"with finite, falling losses in {n}: "
+                             f"{loss_vals} (skips {flags})")
+    if not (unchanged and moved):
+        raise AssertionError(f"{name}: a skipped step moved a bit, or a "
+                             "clean one moved none")
+    if scale_vals != jax_scales:
+        raise AssertionError(f"{name}: scales {scale_vals} != the JAX "
+                             f"automaton's {jax_scales}")
+    if not exact:
+        raise AssertionError(f"{name}: launches per step {per_step} != "
+                             f"{expect_per_step}")
+    if sync_check is not None and not sync_check["update_ok"]:
+        raise AssertionError(f"{name}: the fp16 update synchronized: "
+                             f"{sync_check}")
+    return counts, row
+
+
+def sync_debug_step(engine, staged):
+    """One train_batch under torch.cuda.set_sync_debug_mode("error"); if
+    anything in it synchronizes, its message, and then one step with
+    only `_unscale_clip_and_update` (the unscale, the overflow vote, the
+    masked update and the scale automaton) under the mode."""
+    import torch
+    result = {"train_batch_ok": True, "train_batch_error": None}
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        engine.train_batch(batch=staged)
+    except RuntimeError as e:
+        result.update(train_batch_ok=False,
+                      train_batch_error=str(e).splitlines()[0][:300])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if result["train_batch_ok"]:
+        result["update_ok"] = True
+        return result
+    update = engine._unscale_clip_and_update
+
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return update(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine._unscale_clip_and_update = guarded
+    try:
+        engine.train_batch(batch=staged)
+        result["update_ok"] = True
+    except RuntimeError as e:
+        result.update(update_ok=False,
+                      update_error=str(e).splitlines()[0][:300])
+    finally:
+        del engine._unscale_clip_and_update
+    return result
+
+
+def bert_fp16_ds_config():
+    """bench_bert_large's ds_config with fp16 (loss_scale 0: dynamic,
+    the JAX defaults: 2^32, window 1000, hysteresis 2, min 1) in place of
+    bf16 and examples/ds_config_bert.json's optimizer block verbatim."""
+    return {"train_micro_batch_size_per_gpu": BERT_BATCH,
+            "gradient_accumulation_steps": BERT_GAS,
+            "steps_per_print": 1000,
+            "fp16": {"enabled": True, "loss_scale": 0},
+            "optimizer": {"type": "Lamb",
+                          "params": {"lr": 0.002, "max_coeff": 10.0,
+                                     "min_coeff": 0.01,
+                                     "weight_decay": 0.01}}}
+
+
+def bert_fp16_lamb(seed, card):
+    """Path A (phase 27): BERT-large pretraining (bench_bert_large: 24
+    post-LN layers, hidden 1024, 16 heads, vocab 30,522, micro batch 16,
+    gas 16, seq 128, dropout 0) in fp16 with LAMB through initialize ->
+    train_batch on one repeated batch of its recipe, from the scale
+    2^32 until 8 clean steps follow the last skip (`run_fp16_path`).
+    Reports samples/s and TFLOP/s too. Returns the launch counts."""
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.bert import BertForPreTrainingLM
+
+    cfg = bert_model_config(fp16=True, bf16=False)
+    t0 = time.perf_counter()
+    model = BertForPreTrainingLM(cfg)
+    params = model.init(seed)
+    n_params = sum(p.numel() for p in params.values())
+    engine, _, _, _ = dst.initialize(model=model, model_parameters=params,
+                                     config=bert_fp16_ds_config())
+    del params
+    staged = engine.stage_batch(bert_batch(cfg, seed))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counts, row = run_fp16_path(
+        "bert_fp16", engine, staged, FP16_STEP_CAP["bert_fp16"], card,
+        expect_per_step={k: v * BERT_GAS
+                         for k, v in BERT_LAUNCHES_PER_MICRO.items()},
+        tokens_per_step=BERT_BATCH * BERT_GAS * BERT_SEQ,
+        extra={"model": "bert-large", "n_params": n_params,
+               "setup_s": setup_s, "micro_batch": BERT_BATCH,
+               "gas": BERT_GAS, "seq": BERT_SEQ,
+               "dtype": "fp16 compute, fp32 masters and moments",
+               "optimizer": "Lamb (examples/ds_config_bert.json)"})
+    samples_s = BERT_BATCH * BERT_GAS / (row["step_ms"] / 1e3)
+    emit({"phase": "bert_fp16_rates", "samples_per_s": samples_s,
+          "tflops": samples_s * BERT_SEQ * 6.0 * n_params / 1e12,
+          "card": card})
+    del engine, model, staged
+    return counts
+
+
+def gpt2_fp16_launches(n_layer, pld):
+    """Launches per gpt2 training step under full-block remat (forward
+    and recompute): the boundary-fused carry runs K3-fwd for ln_1 and
+    ln_2 of every block and ln_f; under PLD the plain carry runs it for
+    ln_2 only (ln_1 and ln_f plain)."""
+    return {"flash_attention_fwd": 2 * n_layer,
+            "flash_attention_bwd": n_layer,
+            "fused_bias_residual_layernorm_fwd":
+                2 * n_layer if pld else 4 * n_layer + 1,
+            "fused_bias_residual_layernorm_bwd":
+                n_layer if pld else 2 * n_layer + 1,
+            "fused_bias_gelu_fwd": 2 * n_layer,
+            "fused_bias_gelu_bwd": n_layer}
+
+
+def gpt2_fp16_pld(seed, card):
+    """Path B (phase 28): the training flagship (bench_gpt2_15b: gpt2-1.5b,
+    micro batch 11, seq 1024, ZeRO-2, AdamW, full-block remat, dropout 0)
+    in fp16 ({"enabled": true}: fp16 parameters, fp32 masters and
+    moments, the dynamic scale from 2^32) with progressive layer drop
+    (theta 0.5, gamma 0.001) through initialize -> train_batch on one
+    repeated batch until 8 clean steps follow the last skip. Under PLD
+    the stack keeps the plain carry, so K3-fwd runs its in-block form.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+
+    cfg = train_config(dtype=torch.float16, param_dtype=torch.float32)
+    ds_config = flagship_ds_config(TRAIN_BATCH)
+    del ds_config["bf16"]
+    ds_config["fp16"] = {"enabled": True}
+    ds_config["progressive_layer_drop"] = {"enabled": True, "theta": 0.5,
+                                           "gamma": 0.001}
+    t0 = time.perf_counter()
+    model = GPT2ForCausalLM(cfg)
+    engine, _, _, _ = dst.initialize(model=model,
+                                     model_parameters=model.init(seed),
+                                     config=ds_config)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    staged = engine.stage_batch({"input_ids": ids})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counts, row = run_fp16_path(
+        "gpt2_fp16_pld", engine, staged, FP16_STEP_CAP["gpt2_fp16_pld"],
+        card, expect_per_step=gpt2_fp16_launches(cfg.n_layer, pld=True),
+        tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+        extra={"model": "gpt2-1.5b", "n_layer": cfg.n_layer,
+               "setup_s": setup_s, "micro_batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "zero_stage": 2, "remat": "full block",
+               "dtype": "fp16 parameters, fp32 masters and moments"})
+    emit({"phase": "gpt2_fp16_pld_theta", "steps": engine.global_steps,
+          "pld_theta": engine.pld_theta()})
+    del engine, model, staged
+    return counts
+
+
+def surface_cases():
+    """Path C's configurations: (name, ds_config extra, client
+    optimizer, client scheduler), built fresh per case."""
+    import torch
+    from deepspeed_tpu_torch.ops.lamb import FusedLamb
+    from deepspeed_tpu_torch.runtime import lr_schedules
+    from deepspeed_tpu_torch.runtime.bf16_optimizer import adamw_bf16
+    from deepspeed_tpu_torch.runtime.fp16.onebit_adam import OnebitAdam
+    return (
+        ("sgd_momentum", {"optimizer": {"type": "SGD", "params": {
+            "lr": 0.05, "momentum": 0.9}}}, None, None),
+        ("onebit_adam", {"optimizer": {"type": "OneBitAdam", "params": {
+            "lr": 1e-4, "weight_decay": 0.01, "freeze_step": 2}}}, None,
+         None),
+        ("client_fused_lamb", {}, FusedLamb(lr=2e-3, weight_decay=0.01),
+         None),
+        ("client_onebit_adam", {}, OnebitAdam(lr=1e-4, freeze_step=2), None),
+        ("client_transform_and_scheduler", {},
+         adamw_bf16(learning_rate=1e-4, weight_decay=0.01,
+                    state_dtype=torch.float32),
+         lr_schedules.WarmupLR(lr_schedules._OptimizerShim(lr=1e-4),
+                               warmup_max_lr=1e-4, warmup_num_steps=10)),
+        ("adamw_config_scheduler", {
+            "optimizer": {"type": "AdamW", "params": {
+                "lr": 1e-4, "weight_decay": 0.01}},
+            "scheduler": {"type": "WarmupLR", "params": {
+                "warmup_max_lr": 1e-4, "warmup_num_steps": 10}}}, None,
+         None),
+    )
+
+
+def engine_surface_fp16(seed, card):
+    """Path C (phase 29): at gpt2-1.5b width with SURFACE_N_LAYER layers,
+    micro batch 11, seq 1024, fp16 from the scale 2^20: SGD with
+    momentum, 1-bit Adam across freeze_step 2, the FusedLamb and
+    OnebitAdam facades as client optimizers, a client transform
+    (adamw_bf16 with fp32 moments) with a client WarmupLR scheduler, and
+    AdamW with the config's WarmupLR; each until 8 clean steps follow
+    its last skip, with run_fp16_path's gates (the sync check on the
+    config scheduler's case: a client scheduler reads the overflow flag
+    every step by design). Returns the launch counts over all cases."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+
+    cfg = train_config(dtype=torch.float16, param_dtype=torch.float32,
+                       n_layer=SURFACE_N_LAYER)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    total = None
+    for name, extra, client, sched in surface_cases():
+        ds_config = {"train_micro_batch_size_per_gpu": TRAIN_BATCH,
+                     "steps_per_print": 1000,
+                     "fp16": {"enabled": True, "initial_scale_power": 20},
+                     **extra}
+        model = GPT2ForCausalLM(cfg)
+        engine, _, _, _ = dst.initialize(
+            model=model, model_parameters=model.init(seed),
+            optimizer=client, lr_scheduler=sched, config=ds_config)
+        staged = engine.stage_batch({"input_ids": ids})
+        counts, _ = run_fp16_path(
+            f"surface_{name}", engine, staged, FP16_STEP_CAP["surface"],
+            card, expect_per_step=gpt2_fp16_launches(cfg.n_layer, pld=False),
+            tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+            extra={"n_layer": cfg.n_layer, "width": "gpt2-1.5b",
+                   "optimizer": type(engine.optimizer_transform).__name__
+                   if client is not None else extra["optimizer"]["type"],
+                   "client_scheduler": sched is not None},
+            debug_sync=name == "adamw_config_scheduler")
+        total = counts if total is None else \
+            {k: total[k] + v for k, v in counts.items()}
+        del engine, model, staged
+        release()
+    return total
+
+
+def bert_fp16_oracle(seed, n_layer=2):
+    """Phase 26: two BERT-large-wide layers, micro batch 16, seq 128:
+    one micro batch's loss and every gradient on the fp16 kernel route
+    (fp16 parameters as the engine holds them; K1-K4's fp16 forms; the
+    loss scaled by 2^10 before the backward and the gradients unscaled in
+    fp32, as the engine does) against the fp32 twin route (fp32
+    parameters, fused_ops "off", an all-ones mask: dense attention, the
+    same function). Within TOL_TRAIN_LOSS / TOL_TRAIN_GRAD (relative
+    L2), the bf16 oracles' bounds, which fp16's finer rounding meets."""
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.models.bert import BertForPreTrainingLM
+
+    cfg = bert_model_config(num_hidden_layers=n_layer, fp16=True, bf16=False)
+    kernel = BertForPreTrainingLM(cfg)
+    params = kernel.init(seed)
+    plain = BertForPreTrainingLM(bert_model_config(
+        num_hidden_layers=n_layer, fused_ops="off", bf16=False))
+    batch = {k: torch.as_tensor(v[0], device="cuda")
+             for k, v in bert_batch(cfg, seed + 1).items()}
+    plain_batch = dict(batch, attention_mask=torch.ones_like(
+        batch["input_ids"]))
+    scale = 2.0 ** 10
+    reset_counts()
+    results = []
+    for model, b, dtype, s in ((kernel, batch, torch.float16, scale),
+                               (plain, plain_batch, torch.float32, 1.0)):
+        p = {k: v.to(dtype).requires_grad_(True) for k, v in params.items()}
+        loss = model.loss_fn(p, b, deterministic=True)
+        grads = torch.autograd.grad(loss * s, list(p.values()))
+        results.append((float(loss.detach()),
+                        [g.float() / s for g in grads]))
+        if model is kernel:
+            launched = read_counts()
+    torch.cuda.synchronize()
+    (lk, gk), (lp, gp) = results
+    loss_err = abs(lk - lp) / abs(lp)
+    errs = {name: rel_l2(a, b) for name, a, b in zip(params, gk, gp)}
+    worst = max(errs, key=errs.get)
+    finite = all(torch_isfinite(g) for g in gk)
+    ok = finite and loss_err <= TOL_TRAIN_LOSS and \
+        errs[worst] <= TOL_TRAIN_GRAD and \
+        all(launched[k] > 0 for k in BERT_KERNELS)
+    emit({"phase": "bert_fp16_oracle", "n_layer": n_layer,
+          "batch": BERT_BATCH, "seq": BERT_SEQ, "loss_fp16_kernels": lk,
+          "loss_fp32_plain": lp, "loss_rel_err": loss_err,
+          "tol_loss": TOL_TRAIN_LOSS, "grads": len(errs),
+          "worst_grad": worst, "worst_grad_rel_l2": errs[worst],
+          "median_grad_rel_l2": float(np.median(list(errs.values()))),
+          "tol_grad_rel_l2": TOL_TRAIN_GRAD, "loss_scale": scale,
+          "kernel_route_launches": {k: launched[k] for k in BERT_KERNELS},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("BERT fp16 kernel-route loss/gradients "
+                             "disagree with the fp32 plain route")
+
+
 # the dense attention kernels (K1-fwd and K5, K2's sweeps, its delta
 # pre-pass and given-delta shift), by kernel-name substring
 ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_", "delta_kernel")
@@ -3565,7 +4402,7 @@ def read_counts():
             "block_sparse_bwd_dq_sm90": bsa._bs_bwd_dq_sm90_launch.launches}
 
 
-KERNELS = (
+KERNELS_BF16 = (
     ("flash_attention_fwd",
      "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
      "deepspeed_tpu/ops/transformer/flash_attention.py:262", kernel_flash),
@@ -3637,6 +4474,12 @@ KERNELS = (
      "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
      "deepspeed_tpu/ops/transformer/flash_attention.py:262", None),
 )
+KERNELS = KERNELS_BF16 + tuple(
+    # the fp16 forms of K1-K4 (the same sources and Pallas kernels);
+    # kernel_fp16 checks and times them
+    (f16, next(k[1] for k in KERNELS_BF16 if k[0] == base),
+     next(k[2] for k in KERNELS_BF16 if k[0] == base), None)
+    for f16, base in FP16_KERNELS.items())
 # the kernels each path runs: serving the forward ones, dense training
 # K1-K4, MoE training K1-K4 and K8; the quantized paths add K6
 SERVING_KERNELS = ("flash_attention_fwd", "fused_bias_residual_layernorm_fwd",
@@ -3699,6 +4542,7 @@ def main(argv=None):
     sm90 = {k: v for n in SM90_LIBS
             for k, v in sm90_ptxas(_build.build_log(n)).items()}
     emit({"phase": "build", "seconds": build_s,
+          "seconds_by_source": dict(_build.compile_seconds),
           "dir": os.path.relpath(_build.BUILD_DIR, ROOT), "ptxas": ptxas,
           "sm90_kernels": sm90})
     spilled = [k for k, v in sm90.items() if "no spill" not in v]
@@ -3852,6 +4696,26 @@ def main(argv=None):
     bert_oracle(args.seed)
     release()
 
+    # 25: the fp16 forms of K1-K4 at paths A's and B's shapes against
+    # their twins; 26: the fp16 oracle at BERT-large width; 27: path A,
+    # BERT-large fp16 + LAMB; 28: path B, GPT-2 1.5B fp16 + progressive
+    # layer drop; 29: path C, the engine's other optimizers and client
+    # objects in fp16 (counts zeroed inside each, right before its steps)
+    fp16_res, checks = kernel_fp16(peaks, gen)
+    results.update(fp16_res)
+    emit({"phase": "kernel_fp16", "checks": checks,
+          "timed_by_path": fp16_res, "card": card})
+    release()
+    bert_fp16_oracle(args.seed)
+    release()
+    bert16 = path_counts("bert_fp16", bert_fp16_lamb(args.seed, card),
+                         BERT_KERNELS)
+    gpt16 = path_counts("gpt2_fp16_pld", gpt2_fp16_pld(args.seed, card),
+                        TRAINING_KERNELS)
+    surface16 = path_counts("engine_surface_fp16",
+                            engine_surface_fp16(args.seed, card),
+                            TRAINING_KERNELS)
+
     rows = []
     counts_by_path = {"serving": serving, "training": training,
                       "quant_training": quant, "moe_training": moe,
@@ -3860,21 +4724,31 @@ def main(argv=None):
                       "sparse_oracle": sparse_oracle_counts,
                       "sequence_parallel": sp_path,
                       "sp_training": sp_train, "checkpoint": ckpt,
-                      "bert_training": bert}
+                      "bert_training": bert, "bert_fp16": bert16,
+                      "gpt2_fp16_pld": gpt16,
+                      "engine_surface_fp16": surface16}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);
         # every path's under "timed_by_path"
         by_path = results[kname]
         r = next(iter(by_path.values()))
-        paths = {p: c[kname] for p, c in counts_by_path.items()}
+        # an fp16 form's launches are the fp16 paths', a bf16 form's the
+        # others'
+        fp16 = kname in FP16_KERNELS
+        counter = FP16_KERNELS.get(kname, kname)
+        paths = {p: c[counter] for p, c in counts_by_path.items()
+                 if (p in FP16_PATHS) == fp16}
         extra = {k: r[k] for k in ("library_call", "bf16_matmul_ms",
                                    "plain_is", "sdpa_masked_fwd_ms",
                                    "sdpa_masked_fwd_bwd_ms", "dense",
                                    "visible_scores", "density", "k1_ms",
                                    "kernel_ms", "tops", "tflops",
                                    "share_of_bound", "body", "ptxas",
-                                   "walk", "yardstick", "yardstick_ms")
+                                   "walk", "yardstick", "yardstick_ms",
+                                   "graph_ms", "cold_graph_ms",
+                                   "bf16_graph_ms", "library_graph_ms",
+                                   "yardstick_graph_ms")
                  if k in r}
         rows.append({"name": kname, "route": "cuda", "source": src_file,
                      "replaces": replaces,

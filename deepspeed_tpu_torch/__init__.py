@@ -17,9 +17,12 @@ quantized compute, block-sparse attention, and sequence parallelism
 (`ops/sequence/`, over the process groups `init_distributed` sets up),
 checkpoints in the JAX package's on-disk layout
 (`runtime/checkpoint.py`, the engine's `save_checkpoint` and
-`load_checkpoint`), and BERT pretraining on the fused transformer layer
+`load_checkpoint`), BERT pretraining on the fused transformer layer
 (`DeepSpeedTransformerLayer` / `DeepSpeedTransformerConfig`, re-exported
-here as in the JAX package; `models/bert.py`; `module_inject/`).
+here as in the JAX package; `models/bert.py`; `module_inject/`), and fp16
+training with dynamic loss scaling (`runtime/fp16/`), LAMB
+(`ops/lamb/`), SGD, 1-bit Adam, client optimizer and scheduler objects
+and progressive layer drop.
 """
 
 from deepspeed_tpu_torch.ops.transformer import (

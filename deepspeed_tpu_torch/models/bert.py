@@ -26,9 +26,11 @@ token_type_embeddings}", "bert.embeddings.LayerNorm.{scale,bias}",
 `models/convert.py` `bert_params_from_jax` turns a JAX tree into this
 form and `bert_params_to_jax` back.
 
-Out of this slice (each raises naming its ROADMAP Queue 1 item): fp16
-(item 4); the ZeRO-3 gather scheduler and its scheduled forward
-(`_zero3_forward`, item 6).
+fp16 (`fp16=True`) computes in fp16 on the fp16 forms of K1-K4, with
+the MLM head's matmuls in fp16 where `mlm_head_in_compute_dtype` says
+so. Out of this slice (raises naming its ROADMAP Queue 1 item): the
+ZeRO-3 gather scheduler and its scheduled forward (`_zero3_forward`,
+item 6).
 """
 
 import dataclasses
@@ -45,7 +47,7 @@ from deepspeed_tpu_torch.models.gpt2 import \
 from deepspeed_tpu_torch.models.wrapper import ModelWrapper
 from deepspeed_tpu_torch.ops.transformer.flash_attention import dropout
 from deepspeed_tpu_torch.ops.transformer.transformer import (
-    FP16_SLICE, Dense, DeepSpeedTransformerConfig, DeepSpeedTransformerLayer,
+    Dense, DeepSpeedTransformerConfig, DeepSpeedTransformerLayer,
     LayerNorm, layer_init_std)
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.rng import stream_generator, stream_seed
@@ -145,9 +147,8 @@ def mlm_head_dtype(cfg: BertConfig, device):
         head_compute = torch.device(device).type == "cuda"
     if not head_compute:
         return torch.float32
-    if cfg.fp16:
-        raise NotImplementedError(FP16_SLICE)
-    return torch.bfloat16 if cfg.bf16 else torch.float32
+    return torch.float16 if cfg.fp16 else \
+        torch.bfloat16 if cfg.bf16 else torch.float32
 
 
 def _promoted_layernorm(ln, x):
@@ -289,8 +290,6 @@ class BertForPreTrainingLM(ModelWrapper):
     unless the caller asks for the CPU)."""
 
     def __init__(self, config: BertConfig, device="cuda"):
-        if config.fp16:
-            raise NotImplementedError(FP16_SLICE)
         self.config = config
         self.device = resolve_device(device)
         with torch.device(self.device):

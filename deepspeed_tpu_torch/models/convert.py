@@ -281,3 +281,25 @@ def bert_config_from_jax(jcfg, **overrides):
               if hasattr(jcfg, f.name)}
     fields.update(overrides)
     return BertConfig(**fields)
+
+
+def optimizer_state_to_jax(engine):
+    """{keystr: numpy array} of a training engine's optimizer state in
+    the JAX engine's layout, the tree its checkpoints write (optax's
+    `InjectStatefulHyperparamsState` over Adam's, LAMB's or SGD's state,
+    or `OnebitAdamState`; the scanned layers stacked), for a leaf by leaf
+    comparison with a JAX engine's `opt_state`."""
+    from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
+    state = engine.state
+    leaves = state.master if engine.mixed_precision else \
+        list(state.params.values())
+    _, tree = engine._ckpt_trees(leaves, state.opt_state,
+                                 engine._injected_lr(), engine._remat())
+    out = {}
+    for key, value in ckpt_io.tree_to_entries(tree, ""):
+        if isinstance(value, ckpt_io.Stacked):
+            value = torch.stack(list(value))
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().float().numpy()
+        out[key] = np.asarray(value)
+    return out

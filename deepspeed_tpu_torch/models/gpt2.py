@@ -61,8 +61,21 @@ all-gathers the chunks' gradients), runs `ring_attention` or
 gradients. Attention dropout under sequence parallelism raises, as in
 JAX.
 
-Out of this slice (each raises NotImplementedError naming its slice):
-named remat policies, progressive layer drop.
+Progressive layer drop (`layer_keep_prob`, a 0-dim tensor or float:
+the engine's per-step theta): as in the JAX model, the stack then keeps
+the plain carry (no boundary fusion; the fused path still runs K3 for
+ln_2 and K4 in each block) and gates each block's output: with dropout
+on (`deterministic=False`) a bernoulli draw per block keeps the block
+(`torch.where(gate, out, hidden)`), drawn on the device from stream 2 of
+the block's dropout seed (the JAX model draws from flax's dropout rng:
+the two packages keep different blocks from one seed); deterministic,
+`hidden + p * (out - hidden)`.
+
+fp16 compute (`dtype=torch.float16`) runs K1-K4 in their fp16 forms.
+Out of this slice (each raises NotImplementedError naming its ROADMAP
+item): named remat policies (item 4); fp16 with MoE, quantized compute
+or sequence parallelism (the fp16 forms of K8, grouped K4, K6 and K5,
+item 10).
 """
 
 import dataclasses
@@ -94,8 +107,12 @@ REMAT_POLICY_SLICE = ("named remat policies (the save_fused_epilogues "
                       "and save_only_these_names forms) come with the "
                       "rest of the single-card engine (ROADMAP Queue 1 "
                       "item 4)")
-PLD_SLICE = ("progressive layer drop comes with the rest of the "
-             "single-card engine (ROADMAP Queue 1 item 4)")
+FP16_KERNELS_SLICE = ("the fp16 forms of K5, K6, K7, K8 and grouped K4 "
+                      "(fp16 sequence parallelism, quantized compute, "
+                      "block-sparse attention and MoE) are not in the "
+                      "port yet: ROADMAP Queue 1 item 10")
+# the stream of a block's dropout seed that PLD's gate draws from
+PLD_STREAM = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +213,12 @@ def check_supported(cfg: GPT2Config):
     if cfg.attention_impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"attention_impl={cfg.attention_impl!r}: "
                          "expected 'auto', 'pallas' or 'xla'")
+    if cfg.dtype == torch.float16 and (
+            cfg.moe is not None or cfg.sequence_parallel or
+            cfg.quantized_compute not in ("off", False, None)):
+        raise NotImplementedError(
+            f"fp16 with MoE, quantized compute or sequence parallelism: "
+            f"{FP16_KERNELS_SLICE}")
 
 
 SP_IMPLS = {"ring": ring_attention, "ulysses": ulysses_attention}
@@ -428,25 +451,30 @@ class GPT2LMHeadModel(nn.Module):
         self.ln_f = LayerNorm(cfg.n_embd, pd, cfg.layer_norm_epsilon)
 
     def forward(self, input_ids, deterministic=True, return_hidden=False,
-                dropout_seed=None, quant_seed=None):
+                dropout_seed=None, quant_seed=None, layer_keep_prob=None):
         """Logits, or with `return_hidden` (final hidden, wte); an MoE
         model returns (that, router stats [E+2] averaged over its MoE
         layers). `quant_seed` seeds the quantized projections' stochastic
-        rounding, block i from its stream i + 1."""
+        rounding, block i from its stream i + 1. `layer_keep_prob` gates
+        each block (progressive layer drop)."""
         cfg = self.config
         drop = not deterministic and cfg.dropout > 0.0
-        if drop and dropout_seed is None:
-            raise ValueError("dropout is active (deterministic=False, "
-                             f"dropout={cfg.dropout}) but no dropout seed "
-                             'was given (rngs={"dropout": seed})')
+        pld = layer_keep_prob is not None
+        if (drop or (pld and not deterministic)) and dropout_seed is None:
+            raise ValueError("dropout or progressive layer drop is active "
+                             f"(deterministic=False, dropout={cfg.dropout})"
+                             ' but no dropout seed was given (rngs='
+                             '{"dropout": seed})')
         remat = cfg.remat and torch.is_grad_enabled()
         hidden = embed_tokens(cfg, self.wte, self.wpe, input_ids)
         if drop:
             hidden = dropout(hidden, cfg.dropout,
                              stream_generator(dropout_seed, 0, hidden.device))
-        # router jitter, like dropout, draws from the step's seed
+        # router jitter and PLD's gate, like dropout, draw from the
+        # step's seed
         stochastic = not deterministic and dropout_seed is not None and (
-            drop or (cfg.moe is not None and cfg.moe.jitter_eps > 0.0))
+            drop or pld or
+            (cfg.moe is not None and cfg.moe.jitter_eps > 0.0))
 
         def seed(i):
             # block i's stream: a seed of its own, drawn again on recompute
@@ -458,7 +486,15 @@ class GPT2LMHeadModel(nn.Module):
         if cfg.moe is not None:
             return self._moe_forward(hidden, remat, deterministic, seed,
                                      qseed, return_hidden)
-        if resolve_fused_ops(cfg.fused_ops, not drop, hidden.device):
+        if pld:
+            # PLD gates completed block outputs: the plain carry
+            for i, block in enumerate(self.h):
+                out = run_block(block, remat, hidden, None, False,
+                                deterministic, seed(i), qseed(i))
+                hidden = _pld_gate(hidden, out, layer_keep_prob,
+                                   deterministic, seed(i))
+            hidden = self.ln_f(hidden)
+        elif resolve_fused_ops(cfg.fused_ops, not drop, hidden.device):
             # boundary fusion: the zero first boundary's bias takes
             # wte's dtype, as in the JAX model's carry0
             prev = (torch.zeros(hidden.shape, dtype=cfg.dtype,
@@ -505,6 +541,19 @@ class GPT2LMHeadModel(nn.Module):
             return (hidden.to(cfg.dtype), self.wte), stats
         return torch.matmul(hidden.to(cfg.dtype),
                             self.wte.to(cfg.dtype).t()), stats
+
+
+def _pld_gate(hidden, out, keep_prob, deterministic, seed):
+    """Progressive layer drop on one block: `hidden + p * (out -
+    hidden)` when deterministic, else `out` where a bernoulli(p) draw
+    (on the device, stream PLD_STREAM of the block's seed) keeps the
+    block and `hidden` where it drops it. No host read."""
+    p = torch.as_tensor(keep_prob, dtype=torch.float32, device=hidden.device)
+    if deterministic:
+        return (hidden + p * (out - hidden)).to(out.dtype)
+    gen = stream_generator(seed, PLD_STREAM, hidden.device)
+    gate = torch.rand((), generator=gen, device=hidden.device) < p
+    return torch.where(gate, out, hidden)
 
 
 class _TiedHeadLogits(torch.autograd.Function):
@@ -643,11 +692,14 @@ class GPT2ForCausalLM(ModelWrapper):
             raise NotImplementedError(
                 "apply is the deterministic inference forward; dropout "
                 "runs in loss_fn(params, batch, rngs)")
-        if layer_keep_prob is not None:
-            raise NotImplementedError(PLD_SLICE)
+        if layer_keep_prob is not None and self.config.moe is not None:
+            raise ValueError(
+                "progressive_layer_drop is not supported with "
+                "mixture-of-experts (no per-cell keep-prob gate)")
         with torch.no_grad():
-            out = torch.func.functional_call(self.module, params,
-                                             (self._ids(input_ids),))
+            out = torch.func.functional_call(
+                self.module, params, (self._ids(input_ids),),
+                {"layer_keep_prob": layer_keep_prob})
         if self.config.moe is not None:
             out, _stats = out   # logits only; the stats ride loss_fn
         return out
@@ -678,8 +730,6 @@ class GPT2ForCausalLM(ModelWrapper):
             raise ValueError(
                 "progressive_layer_drop is not supported with "
                 "mixture-of-experts (no per-cell keep-prob gate)")
-        if layer_keep_prob is not None:
-            raise NotImplementedError(PLD_SLICE)
         if return_router_stats and cfg.moe is None:
             raise ValueError(
                 "return_router_stats requires a model built with "
@@ -695,7 +745,8 @@ class GPT2ForCausalLM(ModelWrapper):
             self.module, params, (input_ids,),
             {"deterministic": deterministic, "return_hidden": True,
              "dropout_seed": rngs.get("dropout"),
-             "quant_seed": rngs.get("quant")})
+             "quant_seed": rngs.get("quant"),
+             "layer_keep_prob": layer_keep_prob})
         if cfg.moe is None:
             return chunked_tied_head_loss(*out, labels)
         (hidden, wte), stats = out

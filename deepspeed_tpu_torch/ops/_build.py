@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -46,6 +47,8 @@ SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ln_fwd",
 _lock = threading.Lock()
 _libs = {}
 _fns = {}
+# seconds each source's nvcc took in the last build that compiled it
+compile_seconds = {}
 
 
 def _nvcc():
@@ -80,6 +83,7 @@ def build_all():
     A failed compile raises with nvcc's output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths, procs = {}, {}
+    start = time.perf_counter()
     for name in SOURCES:
         src, out = _lib_path(name)
         paths[name] = out
@@ -90,6 +94,12 @@ def build_all():
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                 stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
     failed = []
+    waiting = dict(procs)
+    while waiting:
+        for name in [n for n, p in waiting.items() if p[0].poll() is not None]:
+            compile_seconds[name] = time.perf_counter() - start
+            del waiting[name]
+        time.sleep(0.05)
     for name, (proc, tmp, out, log) in procs.items():
         rc = proc.wait()
         log.close()

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) bodies of the bf16 flash-attention kernels at head
-// dims 64 and 128: K1-fwd and its K5 merge mode (flash_attention_fwd.cu),
+// Hopper (sm_90a) bodies of the bf16 and fp16 flash-attention kernels at
+// head dims 64 and 128: K1-fwd and its K5 merge mode (flash_attention_fwd.cu),
 // K2's two sweeps (flash_attention_bwd.cu) and, over their band and table
 // walks, the block-sparse band forward K7-band and backward K7-dkv and
 // K7-dq (block_sparse_attention.cu). fp32 inputs, head dims 192/256 and
@@ -44,7 +44,12 @@
 // the causal diagonal or the sequence's end are masked, and a warpgroup
 // skips the products of a tile it cannot see.
 //
-// A tile of R rows x D bf16 columns sits in shared memory as D / 64
+// The element type E (bf16, or __half for the fp16 forms) picks the
+// wgmma operand type (`.bf16` / `.f16`), the tensor maps' data type and
+// the packing of P, dS and the outputs; everything else (the tiles'
+// layout, the fp32 accumulators and softmax) is the same for both.
+//
+// A tile of R rows x D 16-bit columns sits in shared memory as D / 64
 // column blocks of R x 128 bytes, each 1024-byte aligned, which is the
 // layout TMA writes for a 64-column box under CU_TENSOR_MAP_SWIZZLE_128B
 // and the canonical 128-byte-swizzle layout of a wgmma descriptor.
@@ -52,6 +57,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,14 +74,18 @@ constexpr int kThreads = kConsumers * 128;
 constexpr int kRows = 64 * kConsumers;     // rows of a resident tile
 constexpr int kStep = 64;                  // rows of a streamed tile
 
-// bf16 at head dims 64 and 128 run here; `dispatch_dense` sends the rest
-// to attention_tiles.cuh
+// bf16 and fp16 at head dims 64 and 128 run here; `dispatch_dense` sends
+// the rest to attention_tiles.cuh
 template <typename T, int D>
 constexpr bool kOnSm90 =
-    std::is_same<T, bf16>::value && (D == 64 || D == 128);
+    (std::is_same<T, bf16>::value || std::is_same<T, __half>::value) &&
+    (D == 64 || D == 128);
+
+template <typename E>
+constexpr bool kHalf = std::is_same<E, __half>::value;
 
 // ---------------------------------------------------------------------
-// PTX: TMA boxes of the (D, H, T, B) maps, bf16 wgmma (mbarriers, the
+// PTX: TMA boxes of the (D, H, T, B) maps, 16-bit wgmma (mbarriers, the
 // ring, descriptors and fences come from hopper.cuh)
 // ---------------------------------------------------------------------
 using namespace hopper;
@@ -93,8 +103,8 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map,
 }
 
 // a whole R x D tile: D / 64 boxes, one per column block
-template <int R, int D>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& map,
+template <int R, int D, typename E>
+__device__ __forceinline__ void tma_tile(E* dst, const CUtensorMap& map,
                                          uint64_t* bar, int h, int t0,
                                          int b) {
 #pragma unroll
@@ -103,99 +113,134 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap& map,
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared
-// memory (128-byte swizzle), fp32 accumulate; scale_d 0 overwrites d
+// memory (128-byte swizzle), fp32 accumulate; scale_d 0 overwrites d. TY
+// is the operands' PTX type.
+#define ATTN_WGMMA_SS_N64(TY)                                              \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %34, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      "{"                                                                  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kHalf<E>)
+    ATTN_WGMMA_SS_N64("f16");
+  else
+    ATTN_WGMMA_SS_N64("bf16");
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64], A bf16 in registers (the
-// accumulator layout of a product, `pack_a`), B MN-major in shared memory
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the accumulator
+// layout of a product, `pack_a`), B MN-major in shared memory
+#define ATTN_WGMMA_RS_N64(TY)                                              \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\n"                                                 \
+      "setp.ne.b32 p, %37, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "          \
+      "{"                                                                  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),             \
+        "r"(scale_d))
+
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+  if constexpr (kHalf<E>)
+    ATTN_WGMMA_RS_N64("f16");
+  else
+    ATTN_WGMMA_RS_N64("bf16");
 }
 
-// d[64 x 128] += A[64 x 16] B[16 x 128], A bf16 in registers (the
-// accumulator layout of a product, `pack_a`), B MN-major in shared memory
+// d[64 x 128] += A[64 x 16] B[16 x 128], A in registers (the accumulator
+// layout of a product, `pack_a`), B MN-major in shared memory
+#define ATTN_WGMMA_RS_N128(TY)                                      \
+  asm volatile(                                                     \
+      "{\n.reg .pred p;\n"                                          \
+      "setp.ne.b32 p, %69, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+      "{"                                                           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                            \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                    \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                    \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                    \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                    \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                      \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),        \
+        "r"(scale_d))
+
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+  if constexpr (kHalf<E>)
+    ATTN_WGMMA_RS_N128("f16");
+  else
+    ATTN_WGMMA_RS_N128("bf16");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// (lo, hi) rounded to E and packed in one register
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<E>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// p[0], p[1] = lo, hi rounded to E (p 4-byte aligned)
+template <typename E>
+__device__ __forceinline__ void store2(E* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<E>(lo, hi);
 }
 
 // ---------------------------------------------------------------------
@@ -203,56 +248,57 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // thread t of the warpgroup (warp w = t / 32, lane l), element e at row
 // 16 w + l / 4 + 8 ((e / 2) % 2) and column 8 (e / 4) + 2 (l % 4) + e % 2.
 // ---------------------------------------------------------------------
-template <int N>
+template <int N, typename E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 64)
-    wgmma_rs_n64(d, a, db, 1);
+    wgmma_rs_n64<E>(d, a, db, 1);
   else
-    wgmma_rs_n128(d, a, db, 1);
+    wgmma_rs_n128<E>(d, a, db, 1);
 }
 
 // d[64 x 64] = A B^T over D: A rows ra .. ra + 63 of an RA-row tile, B
 // rows rb .. rb + 63 of an RB-row tile, both K-major (started, not
 // waited for)
-template <int D, int RA, int RB>
-__device__ __forceinline__ void gemm_abt(float (&d)[32], const bf16* a,
-                                         int ra, const bf16* b, int rb) {
+template <int D, int RA, int RB, typename E>
+__device__ __forceinline__ void gemm_abt(float (&d)[32], const E* a,
+                                         int ra, const E* b, int rb) {
   const uint32_t a0 = smem_u32(a) + ra * 128;
   const uint32_t b0 = smem_u32(b) + rb * 128;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss_n64(d, desc_sw128(a0 + (kk / 4) * RA * 128 + off, 16, 1024),
+    wgmma_ss_n64<E>(d, desc_sw128(a0 + (kk / 4) * RA * 128 + off, 16, 1024),
                  desc_sw128(b0 + (kk / 4) * RB * 128 + off, 16, 1024),
                  kk > 0);
   }
 }
 
-// d[64 x D] += P B over K rows: P as K / 16 bf16 A fragments (`pack_a`),
+// d[64 x D] += P B over K rows: P as K / 16 A fragments (`pack_a`),
 // B rows kb .. kb + K - 1 of an RB-row tile read MN-major (started, not
 // waited for)
-template <int D, int K, int RB>
+template <int D, int K, int RB, typename E>
 __device__ __forceinline__ void gemm_pb(float (&d)[D / 2],
                                         const uint32_t (&p)[K / 16][4],
-                                        const bf16* b, int kb) {
+                                        const E* b, int kb) {
   const uint32_t b0 = smem_u32(b) + kb * 128;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    wgmma_rs<D>(d, p[kk], desc_sw128(b0 + kk * 16 * 128, RB * 128, 1024));
+    wgmma_rs<D, E>(d, p[kk],
+                   desc_sw128(b0 + kk * 16 * 128, RB * 128, 1024));
 }
 
-// the accumulator of an m64nN product, rounded to bf16, as the A
-// fragments of a product over its N columns
-template <int N>
+// the accumulator of an m64nN product, rounded to E, as the A fragments
+// of a product over its N columns
+template <int N, typename E>
 __device__ __forceinline__ void pack_a(const float (&s)[N / 2],
                                        uint32_t (&p)[N / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      p[kk][r] = pack2<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -361,22 +407,22 @@ struct FwdCfg {
 // S = Q K^T, the online softmax in log2 space (the running max m and sum
 // l of each row, the exponents of a row that has seen nothing visible
 // yet taken against -5e29 so masked p are 0, l and O rescaled once per
-// K/V tile), O = O alpha + P V with P rounded to bf16, then
+// K/V tile), O = O alpha + P V with P rounded to E (v's type), then
 // `fwd_store_row`'s epilogue: K1 writes out = O / l and lse = m +
 // log2(l) (+inf for a row that saw nothing); K5 folds in the carry
 // (prev_out, prev_lse) and writes out (fp32), the merged lse and lse_n.
-template <int D, bool Merge, typename Walk>
+template <int D, bool Merge, typename Walk, typename E = bf16>
 __device__ __forceinline__ void fwd_body(
     const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-    FwdOut<Merge, bf16>* __restrict__ out, float* __restrict__ lse,
+    FwdOut<Merge, E>* __restrict__ out, float* __restrict__ lse,
     int seq, int heads, float scale_log2, int qt, int bh, const Walk& walk,
     const MergeIn& mg) {
   using C = FwdCfg<D>;
   constexpr int kN = C::kN, kS = C::kS;
   unsigned char* sm = smem_base();
-  bf16* sQ = reinterpret_cast<bf16*>(sm + C::q);
-  bf16* sK = reinterpret_cast<bf16*>(sm + C::k);
-  bf16* sV = reinterpret_cast<bf16*>(sm + C::v);
+  E* sQ = reinterpret_cast<E*>(sm + C::q);
+  E* sK = reinterpret_cast<E*>(sm + C::k);
+  E* sV = reinterpret_cast<E*>(sm + C::v);
   uint64_t* full_q = reinterpret_cast<uint64_t*>(sm + C::bar);
   const auto ring = ring_at<typename C::R>(sm + C::bar);
   const int b = bh / heads, h = bh % heads;
@@ -452,7 +498,7 @@ __device__ __forceinline__ void fwd_body(
         for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e / 2) % 2];
       }
       uint32_t p[kN / 16][4];
-      pack_a<kN>(s, p);
+      pack_a<kN, E>(s, p);
 
       ring.wait(it, 1);
       wg_fence();
@@ -473,7 +519,7 @@ __device__ __forceinline__ void fwd_body(
     const int t = q0 + warp * 16 + lane / 4 + 8 * i;
     if (t >= seq) continue;
     const long long row = static_cast<long long>(bh) * seq + t;
-    FwdOut<Merge, bf16>* orow =
+    FwdOut<Merge, E>* orow =
         out + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
     // one reciprocal per row where the twins divide each element: the
     // products differ from the quotients by at most one fp32 ulp
@@ -482,9 +528,8 @@ __device__ __forceinline__ void fwd_body(
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * (lane % 4);
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(o[4 * j + 2 * i] * inv_l,
-                                  o[4 * j + 2 * i + 1] * inv_l);
+        store2<E>(orow + col, o[4 * j + 2 * i] * inv_l,
+                  o[4 * j + 2 * i + 1] * inv_l);
       }
       if (lane % 4 == 0) lse[row] = l[i] > 0.f ? m[i] + log2f(l[i]) : inf;
     } else {
@@ -546,20 +591,20 @@ struct BwdCfg {
 // S^T = K Q^T and dP^T = V dO^T of its 64 keys, so that P^T and dS^T
 // land in registers as the A operands of dV += P^T dO and dK += dS^T Q
 // (dO and Q read MN-major).
-template <int D, typename Walk>
+template <int D, typename Walk, typename E>
 __device__ __forceinline__ void dkv_body(
     const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
     const CUtensorMap& mdo, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int seq, int heads, float scale_log2,
+    const float* __restrict__ delta, E* __restrict__ dk,
+    E* __restrict__ dv, int seq, int heads, float scale_log2,
     float sm_scale, int kt, int bh, const Walk& walk) {
   using C = BwdCfg<D>;
   constexpr int kS = C::kS;
   unsigned char* sm = smem_base();
-  bf16* sK = reinterpret_cast<bf16*>(sm + C::a);
-  bf16* sV = reinterpret_cast<bf16*>(sm + C::b);
-  bf16* sQ = reinterpret_cast<bf16*>(sm + C::c);
-  bf16* sdO = reinterpret_cast<bf16*>(sm + C::d);
+  E* sK = reinterpret_cast<E*>(sm + C::a);
+  E* sV = reinterpret_cast<E*>(sm + C::b);
+  E* sQ = reinterpret_cast<E*>(sm + C::c);
+  E* sdO = reinterpret_cast<E*>(sm + C::d);
   float* sRows = reinterpret_cast<float*>(sm + C::rows);  // [S][lse, delta]
   uint64_t* full_kv = reinterpret_cast<uint64_t*>(sm + C::bar);
   const auto ring = ring_at<typename C::R>(sm + C::bar);
@@ -601,8 +646,8 @@ __device__ __forceinline__ void dkv_body(
     const int q0 = walk.tile(it) * kStep;
     ring.wait(it, 0);
     if (!walk.empty(it, q0, kStep, k0)) {
-      const bf16* q_s = sQ + st * kStep * D;
-      const bf16* do_s = sdO + st * kStep * D;
+      const E* q_s = sQ + st * kStep * D;
+      const E* do_s = sdO + st * kStep * D;
       const float* lse_s = sRows + st * 2 * kStep;
       const float* delta_s = lse_s + kStep;
       // the pair's visibility, taken before the products (a table walk
@@ -637,8 +682,8 @@ __device__ __forceinline__ void dkv_body(
         }
       }
       uint32_t pa[kStep / 16][4], da[kStep / 16][4];
-      pack_a<kStep>(st_, pa);
-      pack_a<kStep>(dpt, da);
+      pack_a<kStep, E>(st_, pa);
+      pack_a<kStep, E>(dpt, da);
       wg_fence();
       gemm_pb<D, kStep, kStep>(acc_dv, pa, do_s, 0);
       gemm_pb<D, kStep, kStep>(acc_dk, da, q_s, 0);
@@ -662,12 +707,10 @@ __device__ __forceinline__ void dkv_body(
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
-          __floats2bfloat162_rn(acc_dk[4 * j + 2 * i],
-                                acc_dk[4 * j + 2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
-          __floats2bfloat162_rn(acc_dv[4 * j + 2 * i],
-                                acc_dv[4 * j + 2 * i + 1]);
+      store2<E>(dk + at + col, acc_dk[4 * j + 2 * i],
+                acc_dk[4 * j + 2 * i + 1]);
+      store2<E>(dv + at + col, acc_dv[4 * j + 2 * i],
+                acc_dv[4 * j + 2 * i + 1]);
     }
   }
 }
@@ -676,20 +719,20 @@ __device__ __forceinline__ void dkv_body(
 // steps. Q and dO stay resident, the ring streams K and V; each
 // warpgroup computes S and dP of its 64 queries, forms dS in registers
 // and accumulates dQ += dS K (K read MN-major).
-template <int D, typename Walk>
+template <int D, typename Walk, typename E>
 __device__ __forceinline__ void dq_body(
     const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
     const CUtensorMap& mdo, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int seq,
+    const float* __restrict__ delta, E* __restrict__ dq, int seq,
     int heads, float scale_log2, float sm_scale, int qt, int bh,
     const Walk& walk) {
   using C = BwdCfg<D>;
   constexpr int kS = C::kS;
   unsigned char* sm = smem_base();
-  bf16* sQ = reinterpret_cast<bf16*>(sm + C::a);
-  bf16* sdO = reinterpret_cast<bf16*>(sm + C::b);
-  bf16* sK = reinterpret_cast<bf16*>(sm + C::c);
-  bf16* sV = reinterpret_cast<bf16*>(sm + C::d);
+  E* sQ = reinterpret_cast<E*>(sm + C::a);
+  E* sdO = reinterpret_cast<E*>(sm + C::b);
+  E* sK = reinterpret_cast<E*>(sm + C::c);
+  E* sV = reinterpret_cast<E*>(sm + C::d);
   uint64_t* full_qdo = reinterpret_cast<uint64_t*>(sm + C::bar);
   const auto ring = ring_at<typename C::R>(sm + C::bar);
   const int b = bh / heads, h = bh % heads;
@@ -734,7 +777,7 @@ __device__ __forceinline__ void dq_body(
     const int k0 = walk.tile(it) * kStep;
     ring.wait(it, 0);
     if (!walk.empty(it, q0, 64, k0)) {
-      const bf16* k_s = sK + st * kStep * D;
+      const E* k_s = sK + st * kStep * D;
       const auto vis = walk.vis(it, q0, k0);  // as in dkv_body
       wg_fence();
       gemm_abt<D, kRows, kStep>(s, sQ, wg * 64, k_s, 0);
@@ -752,7 +795,7 @@ __device__ __forceinline__ void dq_body(
         dp[e] = p * (dp[e] - delta_r[i]) * sm_scale;
       }
       uint32_t da[kStep / 16][4];
-      pack_a<kStep>(dp, da);
+      pack_a<kStep, E>(dp, da);
       wg_fence();
       gemm_pb<D, kStep, kStep>(acc, da, k_s, 0);
       wg_commit();
@@ -768,11 +811,11 @@ __device__ __forceinline__ void dq_body(
   for (int i = 0; i < 2; ++i) {
     const int t = q0 + warp * 16 + lane / 4 + 8 * i;
     if (t >= seq) continue;
-    bf16* row = dq + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
+    E* row = dq + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      store2<E>(row + 8 * j + 2 * (lane % 4), acc[4 * j + 2 * i],
+                acc[4 * j + 2 * i + 1]);
   }
 }
 
@@ -798,7 +841,7 @@ struct GridOrder {
   }
 };
 
-// the heads whose two streamed bf16 operands fill kL2Budget bytes
+// the heads whose two streamed 16-bit operands fill kL2Budget bytes
 constexpr long long kL2Budget = 32ll << 20;
 inline GridOrder grid_order(long long heads_total, int seq, int d) {
   const long long per_head = static_cast<long long>(seq) * d * 2 * 2;
@@ -810,14 +853,22 @@ inline GridOrder grid_order(long long heads_total, int seq, int d) {
 // ---------------------------------------------------------------------
 // Host: tensor maps
 // ---------------------------------------------------------------------
-// The map of a bf16 [B, T, H, D] tensor read through its element strides
+// The map of a 16-bit [B, T, H, D] tensor (`dt`: bf16 unless the caller
+// passes fp16's `map_type<__half>()`) read through its element strides
 // (b, t, h), D contiguous: dims (D, H, T, B), boxes of 64 columns x
 // `rows` rows of one head, 128-byte swizzle, rows past T read as zeros.
 // The wrapper guarantees a 16-byte aligned base and 16-byte strides; a
 // dimension of extent 1 takes a stride of 16 bytes (never stepped).
+template <typename E>
+constexpr CUtensorMapDataType map_type() {
+  return kHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
 inline int make_map(CUtensorMap* map, const void* base, int batch, int seq,
                     int heads, int d, long long sb, long long st,
-                    long long sh, int rows) {
+                    long long sh, int rows,
+                    CUtensorMapDataType dt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   auto stride = [](long long elems, int extent) -> cuuint64_t {
     return extent == 1 ? 16 : static_cast<cuuint64_t>(elems) * 2;
   };
@@ -828,8 +879,8 @@ inline int make_map(CUtensorMap* map, const void* base, int batch, int seq,
   const cuuint64_t strides[3] = {stride(sh, heads), stride(st, seq),
                                  stride(sb, batch)};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
-                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  return encode(map, dt, 4, base, dims, strides, box,
+                CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

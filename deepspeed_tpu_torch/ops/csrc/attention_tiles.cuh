@@ -33,6 +33,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
@@ -93,6 +94,9 @@ __device__ __forceinline__ bf16 from_float<bf16>(float v) {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(__half v) {
+  return __half2float(v);
 }
 
 // rows [t0, t0+64) of one head, row stride `st` elements, D contiguous
@@ -1033,10 +1037,18 @@ struct Kind {
   static constexpr int D = D_;
 };
 
-// fn(Kind<T, D>{}) for dtype (0 = float32, 1 = bfloat16) and the dense
-// kernels' head dims 64, 128, 192, 256; -1 for anything else.
-template <typename Fn>
+// fn(Kind<T, D>{}) for dtype (0 = float32, 1 = bfloat16, 2 = float16)
+// and the dense kernels' head dims 64, 128, 192, 256 (fp16: 64 and 128,
+// the Hopper bodies'; none where Half is false); -1 for anything else.
+template <bool Half = true, typename Fn>
 int dispatch_dense(int dtype, int head_dim, Fn&& fn) {
+  if constexpr (Half) {
+    if (dtype == 2) {
+      if (head_dim == 64) return fn(Kind<__half, 64>{});
+      if (head_dim == 128) return fn(Kind<__half, 128>{});
+      return -1;
+    }
+  }
   if (dtype == 1) {
     if (head_dim == 64) return fn(Kind<bf16, 64>{});
     if (head_dim == 128) return fn(Kind<bf16, 128>{});

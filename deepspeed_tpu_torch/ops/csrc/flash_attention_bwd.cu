@@ -136,10 +136,11 @@ int launch_sweeps(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D 64 and 128 (attention_hopper.cuh), each sweep one CTA per
-// (b*h, 128-row tile) in `GridOrder`'s order: the dK/dV sweep's k tiles
-// from the first (the longest causal walk), the dQ sweep's from the last
-template <int D>
+// bf16 and fp16 (E) at D 64 and 128 (attention_hopper.cuh), each sweep
+// one CTA per (b*h, 128-row tile) in `GridOrder`'s order: the dK/dV
+// sweep's k tiles from the first (the longest causal walk), the dQ
+// sweep's from the last
+template <typename E, int D>
 __global__ void __launch_bounds__(sm90::kThreads,
                                   sm90::BwdCfg<D>::kDkvBlocks)
 flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
@@ -148,7 +149,7 @@ flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mdo,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          E* __restrict__ dk, E* __restrict__ dv,
                           int seq, int heads, float scale_log2,
                           float sm_scale, int causal,
                           sm90::GridOrder order) {
@@ -164,7 +165,7 @@ flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                     scale_log2, sm_scale, kt, bh, walk);
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(sm90::kThreads, sm90::BwdCfg<D>::kDqBlocks)
 flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mk,
@@ -172,7 +173,7 @@ flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mdo,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int seq, int heads,
+                         E* __restrict__ dq, int seq, int heads,
                          float scale_log2, float sm_scale, int causal,
                          sm90::GridOrder order) {
   const int nt = (seq + sm90::kRows - 1) / sm90::kRows;
@@ -188,7 +189,7 @@ flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                    sm_scale, qt, bh, walk);
 }
 
-template <int D>
+template <typename E, int D>
 int launch_sweeps_sm90(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dq, void* dk, void* dv,
@@ -203,25 +204,26 @@ int launch_sweeps_sm90(const void* q, const void* k, const void* v,
   CUtensorMap* res[4] = {&q_r, &k_r, &v_r, &do_r};
   CUtensorMap* str[4] = {&q_s, &k_s, &v_s, &do_s};
   const long long* st[4] = {s, s + 3, s + 6, s + 12};
+  constexpr auto dt = sm90::map_type<E>();
   for (int i = 0; i < 4; ++i)
     if (sm90::make_map(res[i], ptr[i], batch, seq, heads, D, st[i][0],
-                       st[i][1], st[i][2], R) ||
+                       st[i][1], st[i][2], R, dt) ||
         sm90::make_map(str[i], ptr[i], batch, seq, heads, D, st[i][0],
-                       st[i][1], st[i][2], S))
+                       st[i][1], st[i][2], S, dt))
       return sm90::kMapError;
-  auto dkv = flash_bwd_dkv_kernel_sm90<D>;
-  auto dqk = flash_bwd_dq_kernel_sm90<D>;
+  auto dkv = flash_bwd_dkv_kernel_sm90<E, D>;
+  auto dqk = flash_bwd_dq_kernel_sm90<E, D>;
   allow_smem(dkv, L::bytes);
   allow_smem(dqk, L::bytes);
   const long long bhs = static_cast<long long>(batch) * heads;
   const unsigned grid = static_cast<unsigned>((seq + R - 1) / R * bhs);
   const sm90::GridOrder order = sm90::grid_order(bhs, seq, D);
   dkv<<<grid, sm90::kThreads, L::bytes, stream>>>(
-      q_s, k_r, v_r, do_s, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), seq, heads, scale_log2, sm_scale, causal,
+      q_s, k_r, v_r, do_s, lse, delta, static_cast<E*>(dk),
+      static_cast<E*>(dv), seq, heads, scale_log2, sm_scale, causal,
       order);
   dqk<<<grid, sm90::kThreads, L::bytes, stream>>>(
-      q_r, k_s, v_s, do_r, lse, delta, static_cast<bf16*>(dq), seq, heads,
+      q_r, k_s, v_s, do_r, lse, delta, static_cast<E*>(dq), seq, heads,
       scale_log2, sm_scale, causal, order);
   return static_cast<int>(cudaGetLastError());
 }
@@ -234,7 +236,7 @@ int route_sweeps(const void* q, const void* k, const void* v,
                  const long long* s, float scale_log2, float sm_scale,
                  int causal, cudaStream_t stream) {
   if constexpr (sm90::kOnSm90<T, D>)
-    return launch_sweeps_sm90<D>(q, k, v, dout, lse, delta, dq, dk, dv,
+    return launch_sweeps_sm90<T, D>(q, k, v, dout, lse, delta, dq, dk, dv,
                                  batch, seq, heads, s, scale_log2, sm_scale,
                                  causal, stream);
   else
@@ -248,8 +250,9 @@ int route_sweeps(const void* q, const void* k, const void* v,
 // Element strides (b, t, h), in this order, of q, k, v, out, dout (15
 // values); the head dim of each is contiguous. dq/dk/dv are contiguous
 // [B, T, H, D]; lse, dlse (may be null) and the delta workspace are
-// [B*H, T] fp32. dtype: 0 = float32, 1 = bfloat16; head_dim 64, 128, 192
-// or 256. Returns cudaGetLastError(), or -1 for an unsupported (dtype, D).
+// [B*H, T] fp32. dtype: 0 = float32, 1 = bfloat16, 2 = float16 (head dims
+// 64 and 128 only); head_dim 64, 128, 192 or 256. Returns
+// cudaGetLastError(), or -1 for an unsupported (dtype, D).
 extern "C" int ds_flash_attn_bwd(const void* q, const void* k, const void* v,
                                  const void* out, const void* dout,
                                  const float* lse, const float* dlse,
@@ -285,7 +288,8 @@ extern "C" int ds_flash_attn_bwd_delta(
   cudaSetDevice(device);
   auto s = static_cast<cudaStream_t>(stream);
   if (batch * seq == 0) return 0;
-  return dispatch_dense(dtype, head_dim, [&](auto kind) {
+  // K5's backward in fp16 is not ported: no fp16 instantiation
+  return dispatch_dense<false>(dtype, head_dim, [&](auto kind) {
     using K = decltype(kind);
     const long long n = static_cast<long long>(batch) * heads * seq;
     shift_delta_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,

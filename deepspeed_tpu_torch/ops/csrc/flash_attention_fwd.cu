@@ -104,14 +104,14 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 at D 64 and 128: one CTA per (b*h, 128-row q tile), in
-// `GridOrder`'s order
-template <int D, bool Merge>
+// bf16 and fp16 (E) at D 64 and 128: one CTA per (b*h, 128-row q tile),
+// in `GridOrder`'s order
+template <typename E, int D, bool Merge>
 __global__ void __launch_bounds__(sm90::kThreads, sm90::FwdCfg<D>::kBlocks)
 flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                       const __grid_constant__ CUtensorMap mk,
                       const __grid_constant__ CUtensorMap mv,
-                      FwdOut<Merge, bf16>* __restrict__ out,
+                      FwdOut<Merge, E>* __restrict__ out,
                       float* __restrict__ lse, int seq, int heads,
                       float scale_log2, int causal, sm90::GridOrder order,
                       MergeIn mg) {
@@ -124,28 +124,31 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
   const int last = (qt + 1) * sm90::kRows / sm90::FwdCfg<D>::kN;
   const sm90::DenseWalk90 walk{0, causal && last < nk ? last : nk, causal,
                                seq};
-  sm90::fwd_body<D, Merge>(mq, mk, mv, out, lse, seq, heads, scale_log2, qt,
-                           bh, walk, mg);
+  sm90::fwd_body<D, Merge, sm90::DenseWalk90, E>(mq, mk, mv, out, lse, seq,
+                                                heads, scale_log2, qt, bh,
+                                                walk, mg);
 }
 
-template <int D, bool Merge>
+template <typename E, int D, bool Merge>
 int launch_sm90(const void* q, const void* k, const void* v, void* out,
                 float* lse, int batch, int seq, int heads,
                 const long long* s, float scale_log2, int causal,
                 const MergeIn& mg, cudaStream_t stream) {
   using L = sm90::FwdCfg<D>;
+  constexpr auto dt = sm90::map_type<E>();
   CUtensorMap mq, mk, mv;
   if (sm90::make_map(&mq, q, batch, seq, heads, D, s[0], s[1], s[2],
-                     sm90::kRows) ||
+                     sm90::kRows, dt) ||
       sm90::make_map(&mk, k, batch, seq, heads, D, s[3], s[4], s[5],
-                     L::kN) ||
-      sm90::make_map(&mv, v, batch, seq, heads, D, s[6], s[7], s[8], L::kN))
+                     L::kN, dt) ||
+      sm90::make_map(&mv, v, batch, seq, heads, D, s[6], s[7], s[8], L::kN,
+                     dt))
     return sm90::kMapError;
-  auto kern = flash_fwd_kernel_sm90<D, Merge>;
+  auto kern = flash_fwd_kernel_sm90<E, D, Merge>;
   allow_smem(kern, L::bytes);
   const long long nt = (seq + sm90::kRows - 1) / sm90::kRows;
   kern<<<static_cast<unsigned>(nt * batch * heads), sm90::kThreads, L::bytes,
-         stream>>>(mq, mk, mv, static_cast<FwdOut<Merge, bf16>*>(out), lse,
+         stream>>>(mq, mk, mv, static_cast<FwdOut<Merge, E>*>(out), lse,
                    seq, heads, scale_log2, causal,
                    sm90::grid_order(static_cast<long long>(batch) * heads,
                                     seq, D),
@@ -160,7 +163,7 @@ int route(const void* q, const void* k, const void* v, void* out,
           float scale_log2, int causal, const MergeIn& mg,
           cudaStream_t stream) {
   if constexpr (sm90::kOnSm90<T, D>)
-    return launch_sm90<D, Merge>(q, k, v, out, lse, batch, seq, heads, s,
+    return launch_sm90<T, D, Merge>(q, k, v, out, lse, batch, seq, heads, s,
                                  scale_log2, causal, mg, stream);
   else
     return launch<T, D, Merge>(q, k, v, out, lse, batch, seq, heads, s,
@@ -170,9 +173,9 @@ int route(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q/k/v strides in elements, in the order (b, t, h) for q, then k, then
-// v; the last dimension is contiguous. dtype: 0 = float32, 1 = bfloat16;
-// head_dim 64, 128, 192 or 256. Returns cudaGetLastError(), or -1 for an
-// unsupported (dtype, D).
+// v; the last dimension is contiguous. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16 (head dims 64 and 128 only); head_dim 64, 128, 192 or 256.
+// Returns cudaGetLastError(), or -1 for an unsupported (dtype, D).
 extern "C" int ds_flash_attn_fwd(const void* q, const void* k, const void* v,
                                  void* out, float* lse, int batch, int seq,
                                  int heads, int head_dim,
@@ -205,7 +208,8 @@ extern "C" int ds_flash_attn_fwd_merge(
   if (batch * seq == 0) return 0;
   const MergeIn mg{prev_out, strides[9], strides[10], strides[11], prev_lse,
                    lse_n};
-  return dispatch_dense(dtype, head_dim, [&](auto kind) {
+  // K5 in fp16 is not ported: no fp16 instantiation
+  return dispatch_dense<false>(dtype, head_dim, [&](auto kind) {
     using K = decltype(kind);
     return route<typename K::T, K::D, true>(q, k, v, out, lse, batch, seq,
                                             heads, strides, scale_log2,

@@ -32,7 +32,9 @@
 // Accurate tanhf/erff/expf (no fast math), so it holds the plain twin
 // to float roundoff.
 //
-// dtypes: 0 = float32, 1 = bfloat16 per tensor.
+// dtypes: 0 = float32, 1 = bfloat16, 2 = float16 per tensor. The fp16
+// form (dx fp16) is instantiated with s and dout in fp16 only, the dtypes
+// the fp16 paths give it; dbias stays fp32.
 #include "gelu_rows.cuh"
 
 namespace {
@@ -151,25 +153,33 @@ extern "C" int ds_fused_gelu_bwd(const void* s, const void* dout, void* dx,
   const Tiling t{n / groups, ctas_per_group};
   if (!tiling_ok(n, w, groups, t, strips) || (vec != 1 && vec != 8))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mixed_16bit({s_dt, dout_dt, dx_dt}) ||
+      (dx_dt == 2) != (s_dt == 2 && dout_dt == 2) ||
+      (dx_dt != 2 && (s_dt == 2 || dout_dt == 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(groups * ctas_per_group, strips);
-  with_type(s_dt, [&](auto stype) {
-    with_type(dout_dt, [&](auto dtype) {
-      with_type(dx_dt, [&](auto xtype) {
-        using ST = decltype(stype);
-        using DT = decltype(dtype);
-        using XT = decltype(xtype);
-        auto* k = approximate
-                      ? (vec == 8 ? gelu_bwd_kernel<ST, DT, XT, true, true>
-                                  : gelu_bwd_kernel<ST, DT, XT, true, false>)
-                      : (vec == 8 ? gelu_bwd_kernel<ST, DT, XT, false, true>
-                                  : gelu_bwd_kernel<ST, DT, XT, false, false>);
-        k<<<grid, kThreads, 0, st>>>(
-            static_cast<const ST*>(s), static_cast<const DT*>(dout),
-            static_cast<XT*>(dx), static_cast<float*>(dbias),
-            static_cast<float*>(workspace), static_cast<int*>(counters), w,
-            t);
+  auto launch = [&](auto stype, auto dtype, auto xtype) {
+    using ST = decltype(stype);
+    using DT = decltype(dtype);
+    using XT = decltype(xtype);
+    auto* k = approximate
+                  ? (vec == 8 ? gelu_bwd_kernel<ST, DT, XT, true, true>
+                              : gelu_bwd_kernel<ST, DT, XT, true, false>)
+                  : (vec == 8 ? gelu_bwd_kernel<ST, DT, XT, false, true>
+                              : gelu_bwd_kernel<ST, DT, XT, false, false>);
+    k<<<grid, kThreads, 0, st>>>(
+        static_cast<const ST*>(s), static_cast<const DT*>(dout),
+        static_cast<XT*>(dx), static_cast<float*>(dbias),
+        static_cast<float*>(workspace), static_cast<int*>(counters), w, t);
+  };
+  if (dx_dt == 2) {
+    launch(__half{}, __half{}, __half{});
+  } else {
+    with_type(s_dt, [&](auto stype) {
+      with_type(dout_dt, [&](auto dtype) {
+        with_type(dx_dt, [&](auto xtype) { launch(stype, dtype, xtype); });
       });
     });
-  });
+  }
   return static_cast<int>(cudaGetLastError());
 }

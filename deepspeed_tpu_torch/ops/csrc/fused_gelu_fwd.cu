@@ -21,7 +21,9 @@
 // per element. The dtypes are template parameters. Accurate tanhf/erff
 // (no fast math), so it matches the plain twin to roundoff.
 //
-// dtypes: 0 = float32, 1 = bfloat16 per tensor.
+// dtypes: 0 = float32, 1 = bfloat16, 2 = float16 per tensor. The fp16
+// form (x fp16) is instantiated with out and s in fp16 only, the dtypes
+// the fp16 paths give it; the bias is read in its own dtype.
 #include "gelu_rows.cuh"
 
 namespace {
@@ -49,6 +51,10 @@ gelu_fwd_kernel(const XT* __restrict__ x, const void* __restrict__ bias,
   if (bias_dt == 1) {
     Raw8<__nv_bfloat16> raw;
     fetch8<Vec>(static_cast<const __nv_bfloat16*>(bias) + boff, nc, raw);
+    unpack8(raw, b);
+  } else if (bias_dt == 2) {
+    Raw8<__half> raw;
+    fetch8<Vec>(static_cast<const __half*>(bias) + boff, nc, raw);
     unpack8(raw, b);
   } else {
     Raw8<float> raw;
@@ -95,24 +101,33 @@ extern "C" int ds_fused_gelu_fwd(const void* x, const void* bias, void* out,
   const Tiling t{groups > 0 ? n / groups : 0, ctas_per_group};
   if (!tiling_ok(n, w, groups, t, strips) || (vec != 1 && vec != 8))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mixed_16bit({x_dt, bias_dt, out_dt, sum_dt}) ||
+      (x_dt == 2) != (out_dt == 2 && sum_dt == 2) ||
+      (x_dt != 2 && (out_dt == 2 || sum_dt == 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(groups * ctas_per_group, strips);
   auto st = static_cast<cudaStream_t>(stream);
-  with_type(x_dt, [&](auto xt) {
-    with_type(out_dt, [&](auto ot) {
-      with_type(sum_dt, [&](auto sm) {
-        using XT = decltype(xt);
-        using OT = decltype(ot);
-        using ST = decltype(sm);
-        auto* k = approximate
-                      ? (vec == 8 ? gelu_fwd_kernel<XT, OT, ST, true, true>
-                                  : gelu_fwd_kernel<XT, OT, ST, true, false>)
-                      : (vec == 8 ? gelu_fwd_kernel<XT, OT, ST, false, true>
-                                  : gelu_fwd_kernel<XT, OT, ST, false, false>);
-        k<<<grid, kThreads, 0, st>>>(
-            static_cast<const XT*>(x), bias, bias_dt, static_cast<OT*>(out),
-            static_cast<ST*>(sum), w, t);
+  auto launch = [&](auto xt, auto ot, auto sm) {
+    using XT = decltype(xt);
+    using OT = decltype(ot);
+    using ST = decltype(sm);
+    auto* k = approximate
+                  ? (vec == 8 ? gelu_fwd_kernel<XT, OT, ST, true, true>
+                              : gelu_fwd_kernel<XT, OT, ST, true, false>)
+                  : (vec == 8 ? gelu_fwd_kernel<XT, OT, ST, false, true>
+                              : gelu_fwd_kernel<XT, OT, ST, false, false>);
+    k<<<grid, kThreads, 0, st>>>(static_cast<const XT*>(x), bias, bias_dt,
+                                 static_cast<OT*>(out), static_cast<ST*>(sum),
+                                 w, t);
+  };
+  if (x_dt == 2) {
+    launch(__half{}, __half{}, __half{});
+  } else {
+    with_type(x_dt, [&](auto xt) {
+      with_type(out_dt, [&](auto ot) {
+        with_type(sum_dt, [&](auto sm) { launch(xt, ot, sm); });
       });
     });
-  });
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,6 +51,8 @@
 // parameters; dsum is read in s's dtype; gamma's dtype is a run-time flag.
 #include "gelu_rows.cuh"
 
+#include <type_traits>
+
 namespace {
 
 using gelu_rows::fetch8;
@@ -58,6 +60,8 @@ using gelu_rows::kCols;
 using gelu_rows::Raw8;
 using gelu_rows::store8;
 using gelu_rows::unpack8;
+using gelu_rows::unpack8_16;
+using gelu_rows::mixed_16bit;
 using gelu_rows::with_type;
 
 // warps of one CTA: 14 at one vector a lane (the paths' widths: one CTA
@@ -195,11 +199,12 @@ ln_bwd_kernel(const ST* __restrict__ s, const void* __restrict__ gamma,
       continue;
     }
     float gv[kCols];
-    if (gamma_dt == 1) {
+    if (gamma_dt != 0) {
+      // bf16 or fp16: the same 16-bit loads, widened by the flag
       Raw8<__nv_bfloat16> raw;
       fetch8<Vec>(static_cast<const __nv_bfloat16*>(gamma) + c0[j], nc[j],
                   raw);
-      unpack8(raw, gv);
+      unpack8_16(raw, gamma_dt == 2, gv);
     } else {
       Raw8<float> raw;
       fetch8<Vec>(static_cast<const float*>(gamma) + c0[j], nc[j], raw);
@@ -378,32 +383,59 @@ extern "C" int ds_fused_ln_bwd(const void* s, const void* gamma,
       wpr < 1 || groups < 1 ||
       threads > (vpt == 1 ? kMaxThreads : kMaxThreads / 2) ||
       lanes * vpt * kCols < h || (lanes - 32) * vpt * kCols >= h ||
-      grid < 1 || fold < 1 || (vec == 8 && h % 8 != 0))
+      grid < 1 || fold < 1 || (vec == 8 && h % 8 != 0) ||
+      mixed_16bit({s_dt, gamma_dt, dout_dt, dx_dt}) ||
+      (dx_dt != 2 && (s_dt == 2 || dout_dt == 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       (static_cast<size_t>(3) * h + lanes * vpt * kCols + 8 * wpr * groups) *
       sizeof(float);
-  with_type(s_dt, [&](auto stype) {
-    with_type(dout_dt, [&](auto dtype) {
-      with_type(dx_dt, [&](auto xtype) {
-        using ST = decltype(stype);
-        using DT = decltype(dtype);
-        using XT = decltype(xtype);
-        auto* k = vpt == 1 ? (vec == 8 ? ln_bwd_kernel<ST, DT, XT, 1, true>
-                                       : ln_bwd_kernel<ST, DT, XT, 1, false>)
-                           : (vec == 8 ? ln_bwd_kernel<ST, DT, XT, 4, true>
-                                       : ln_bwd_kernel<ST, DT, XT, 4, false>);
-        if (smem > 48 * 1024)
-          cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-        k<<<grid, threads, smem, st>>>(
-            static_cast<const ST*>(s), gamma, gamma_dt,
-            static_cast<const DT*>(dout), static_cast<const ST*>(dsum),
-            static_cast<XT*>(dx), static_cast<float*>(sums),
-            static_cast<float*>(workspace), static_cast<int*>(counters), n, h,
-            wpr, fold, eps);
+  // V (vectors a lane) as a type, so that a form can be instantiated at
+  // one vpt only
+  auto launch = [&](auto stype, auto dtype, auto xtype, auto vtag) {
+    using ST = decltype(stype);
+    using DT = decltype(dtype);
+    using XT = decltype(xtype);
+    constexpr int V = decltype(vtag)::value;
+    auto* k = vec == 8 ? ln_bwd_kernel<ST, DT, XT, V, true>
+                       : ln_bwd_kernel<ST, DT, XT, V, false>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+    k<<<grid, threads, smem, st>>>(
+        static_cast<const ST*>(s), gamma, gamma_dt,
+        static_cast<const DT*>(dout), static_cast<const ST*>(dsum),
+        static_cast<XT*>(dx), static_cast<float*>(sums),
+        static_cast<float*>(workspace), static_cast<int*>(counters), n, h, wpr,
+        fold, eps);
+  };
+  using V1 = std::integral_constant<int, 1>;
+  using V4 = std::integral_constant<int, 4>;
+  if (dx_dt == 2) {
+    // the fp16 forms the fp16 paths give it, one vector a lane (H up to
+    // 3584): dx fp16 and (s, dout) fp16, fp16 (GPT-2); fp16, fp32 (BERT's
+    // first post-LN LayerNorm, GPT-2's ln_f); fp32, fp32 (BERT's second)
+    using H = __half;
+    if (vpt != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (s_dt == 2 && dout_dt == 2)
+      launch(H{}, H{}, H{}, V1{});
+    else if (s_dt == 2 && dout_dt == 0)
+      launch(H{}, float{}, H{}, V1{});
+    else if (s_dt == 0 && dout_dt == 0)
+      launch(float{}, float{}, H{}, V1{});
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    with_type(s_dt, [&](auto stype) {
+      with_type(dout_dt, [&](auto dtype) {
+        with_type(dx_dt, [&](auto xtype) {
+          if (vpt == 1)
+            launch(stype, dtype, xtype, V1{});
+          else
+            launch(stype, dtype, xtype, V4{});
+        });
       });
     });
-  });
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -60,6 +60,7 @@ using gelu_rows::kCols;
 using gelu_rows::Raw8;
 using gelu_rows::store8;
 using gelu_rows::unpack8;
+using gelu_rows::mixed_16bit;
 using gelu_rows::with_type;
 
 // a CTA's warps: one row group of 20 spans H 5120, the widest row
@@ -74,7 +75,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // v = the nc <= 8 values of a [H] vector from column c, in fp32 (zeros
 // past them; nc <= 0: all zeros), read in the vector's own dtype (0
-// fp32, 1 bf16): 16-byte loads (Vec) or scalar ones
+// fp32, 1 bf16, 2 fp16): 16-byte loads (Vec) or scalar ones
 template <bool Vec>
 __device__ __forceinline__ void vector8(const void* p, int dt, int c, int nc,
                                         float (&v)[kCols]) {
@@ -84,6 +85,10 @@ __device__ __forceinline__ void vector8(const void* p, int dt, int c, int nc,
   } else if (dt == 1) {
     Raw8<__nv_bfloat16> raw;
     fetch8<Vec>(static_cast<const __nv_bfloat16*>(p) + c, nc, raw);
+    unpack8(raw, v);
+  } else if (dt == 2) {
+    Raw8<__half> raw;
+    fetch8<Vec>(static_cast<const __half*>(p) + c, nc, raw);
     unpack8(raw, v);
   } else {
     Raw8<float> raw;
@@ -254,35 +259,54 @@ extern "C" int ds_fused_ln_fwd(const void* y, const void* res,
   if ((vec != 1 && vec != 8) || wpr < 1 || groups < 1 ||
       threads > kMaxThreads || (wpr > 1 && groups > 15) ||
       lanes * kCols < h || (lanes - 32) * kCols >= h || grid < 1 ||
-      (vec == 8 && h % 8 != 0))
+      (vec == 8 && h % 8 != 0) ||
+      mixed_16bit({y_dt, r_dt, bias_dt, gamma_dt, beta_dt, out_dt, sum_dt}) ||
+      (y_dt != 2 && (r_dt == 2 || out_dt == 2 || sum_dt == 2)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   static int sm_count[64];  // by device, cached
   int& sms = sm_count[device & 63];
   if (sms == 0)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  with_type(y_dt, [&](auto ytype) {
-    with_type(r_dt, [&](auto rtype) {
-      with_type(out_dt, [&](auto otype) {
-        with_type(sum_dt, [&](auto stype) {
-          using YT = decltype(ytype);
-          using RT = decltype(rtype);
-          using OT = decltype(otype);
-          using ST = decltype(stype);
-          auto* k = vec == 8 ? ln_fwd_kernel<YT, RT, OT, ST, true>
-                             : ln_fwd_kernel<YT, RT, OT, ST, false>;
-          const int per_sm =
-              vec == 8 ? resident_ctas<YT, RT, OT, ST, true>(threads)
-                       : resident_ctas<YT, RT, OT, ST, false>(threads);
-          const int held = per_sm * sms > 0 ? per_sm * sms : 1;
-          const int wave = grid < held ? grid : held;
-          k<<<wave, threads, 0, st>>>(
-              static_cast<const YT*>(y), static_cast<const RT*>(res), bias,
-              gamma, beta, bias_dt, gamma_dt, beta_dt, static_cast<OT*>(out),
-              static_cast<ST*>(sum), n, h, wpr, eps);
+  auto launch = [&](auto ytype, auto rtype, auto otype, auto stype) {
+    using YT = decltype(ytype);
+    using RT = decltype(rtype);
+    using OT = decltype(otype);
+    using ST = decltype(stype);
+    auto* k = vec == 8 ? ln_fwd_kernel<YT, RT, OT, ST, true>
+                       : ln_fwd_kernel<YT, RT, OT, ST, false>;
+    const int per_sm = vec == 8
+                           ? resident_ctas<YT, RT, OT, ST, true>(threads)
+                           : resident_ctas<YT, RT, OT, ST, false>(threads);
+    const int held = per_sm * sms > 0 ? per_sm * sms : 1;
+    const int wave = grid < held ? grid : held;
+    k<<<wave, threads, 0, st>>>(
+        static_cast<const YT*>(y), static_cast<const RT*>(res), bias, gamma,
+        beta, bias_dt, gamma_dt, beta_dt, static_cast<OT*>(out),
+        static_cast<ST*>(sum), n, h, wpr, eps);
+  };
+  if (y_dt == 2) {
+    // the fp16 forms the fp16 paths give it, y fp16 and (residual, out,
+    // sum): fp16, fp16, fp16 (GPT-2); fp16, fp32, fp16 (BERT's first
+    // post-LN LayerNorm, GPT-2's ln_f); fp32, fp32, fp32 (BERT's second)
+    using H = __half;
+    if (r_dt == 2 && out_dt == 2 && sum_dt == 2)
+      launch(H{}, H{}, H{}, H{});
+    else if (r_dt == 2 && out_dt == 0 && sum_dt == 2)
+      launch(H{}, H{}, float{}, H{});
+    else if (r_dt == 0 && out_dt == 0 && sum_dt == 0)
+      launch(H{}, float{}, float{}, float{});
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    with_type(y_dt, [&](auto ytype) {
+      with_type(r_dt, [&](auto rtype) {
+        with_type(out_dt, [&](auto otype) {
+          with_type(sum_dt,
+                    [&](auto stype) { launch(ytype, rtype, otype, stype); });
         });
       });
     });
-  });
+  }
   return static_cast<int>(cudaGetLastError());
 }

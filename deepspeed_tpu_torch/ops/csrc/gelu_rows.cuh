@@ -16,15 +16,18 @@
 // The group is worked out once per CTA and each row's 64-bit offset once
 // per row: nothing is divided per element.
 //
-// Loads and stores are 16 bytes a lane (one bf16 vector, or two fp32
-// ones) where the plan allows it (`Vec`: W a multiple of 8 and every
+// Loads and stores are 16 bytes a lane (one bf16 or fp16 vector, or two
+// fp32 ones) where the plan allows it (`Vec`: W a multiple of 8 and every
 // pointer 16-byte aligned); otherwise 8 scalar accesses stop at W.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 namespace gelu_rows {
 
@@ -63,9 +66,16 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
 
 // The bits of a lane's 8 elements of one row as loaded: one 16-byte
-// vector in bf16, two in fp32. Rows are fetched a block ahead into these
+// vector in bf16 or fp16, two in fp32. Rows are fetched a block ahead into these
 // and widened to fp32 only when their math runs.
 template <typename T>
 struct Raw8 {
@@ -108,7 +118,15 @@ __device__ __forceinline__ void fetch8(const T* __restrict__ p, int n,
 template <typename T>
 __device__ __forceinline__ void unpack8(const Raw8<T>& raw,
                                         float (&v)[kCols]) {
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (kIsHalf<T>) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t w = word(raw.q[0], i);
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  } else if constexpr (sizeof(T) == 2) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const uint32_t w = word(raw.q[0], i);
@@ -119,6 +137,25 @@ __device__ __forceinline__ void unpack8(const Raw8<T>& raw,
 #pragma unroll
     for (int i = 0; i < kCols; ++i)
       v[i] = __uint_as_float(word(raw.q[i / 4], i % 4));
+  }
+}
+
+// v = the 8 16-bit elements of raw in fp32, as fp16 when `half` and as
+// bf16 otherwise: one load path for a vector whose 16-bit type is a
+// run-time flag
+__device__ __forceinline__ void unpack8_16(const Raw8<__nv_bfloat16>& raw,
+                                           bool half, float (&v)[kCols]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t w = word(raw.q[0], i);
+    if (half) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    } else {
+      v[2 * i] = __uint_as_float(w << 16);
+      v[2 * i + 1] = __uint_as_float(w & 0xffff0000u);
+    }
   }
 }
 
@@ -144,8 +181,13 @@ __device__ __forceinline__ void store8(T* __restrict__ p, int n,
     uint32_t w[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-      w[k] = *reinterpret_cast<const uint32_t*>(&h);
+      if constexpr (kIsHalf<T>) {
+        const __half2 h = __floats2half2_rn(v[2 * k], v[2 * k + 1]);
+        w[k] = *reinterpret_cast<const uint32_t*>(&h);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+        w[k] = *reinterpret_cast<const uint32_t*>(&h);
+      }
     }
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   } else if constexpr (Vec) {
@@ -196,8 +238,8 @@ inline bool tiling_ok(int n, int w, int groups, const Tiling& t, int strips) {
          t.ctas_per_group > 0;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16. Calls f(T{}) with T the
-// tensor's element type.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. Calls f(T{}) with
+// T the tensor's element type, of the bf16 forms (fp32 or bf16).
 template <typename F>
 inline void with_type(int dt, F&& f) {
   if (dt == 1) {
@@ -205,6 +247,18 @@ inline void with_type(int dt, F&& f) {
   } else {
     f(float{});
   }
+}
+
+// Whether the dtype codes of one launch mix the two 16-bit types (no
+// instantiation takes both), or name neither fp32 nor a 16-bit type.
+inline bool mixed_16bit(std::initializer_list<int> dts) {
+  bool bf = false, hf = false;
+  for (int dt : dts) {
+    if (dt < 0 || dt > 2) return true;
+    bf = bf || dt == 1;
+    hf = hf || dt == 2;
+  }
+  return bf && hf;
 }
 
 }  // namespace gelu_rows

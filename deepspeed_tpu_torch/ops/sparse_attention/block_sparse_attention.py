@@ -677,8 +677,9 @@ def _check_kernel_args(q, block, *others, grid_y=True):
     b, t, h, d = q.shape
     if q.dtype == torch.float16:
         raise NotImplementedError(
-            "block-sparse attention kernels: float16 is not in the port "
-            "yet (ROADMAP Queue 1 item 4); use bfloat16 or float32")
+            "block-sparse attention kernels: the fp16 form of K7 is not "
+            "in the port yet (ROADMAP Queue 1 item 10); use bfloat16 or "
+            "float32")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"block-sparse kernel: dtype {q.dtype} not "
                         "supported (float32 or bfloat16)")

@@ -8,7 +8,7 @@ K5 in their merge mode: `flash_attention_merge`, the ring-attention
 step), and the backward kernels (`_bwd_dkv_kernel`, `_bwd_dq_kernel`,
 `_bwd_fused_kernel` and their packed twins) become
 `ops/csrc/flash_attention_bwd.cu` (K2, with a given-delta entry for
-K5's backward). bf16 at head dims 64 and 128 runs the Hopper bodies
+K5's backward). bf16 and fp16 at head dims 64 and 128 run the Hopper bodies
 (`ops/csrc/attention_hopper.cuh`: TMA and wgmma, 128-row q tiles over
 64-row K/V tiles forward, the backward's 64-row steps past 128-row
 resident tiles); fp32 and head dims 192/256 the WMMA bodies of
@@ -21,7 +21,10 @@ above the diagonal skipped) and are what CPU tensors take.
 `flash_attention_with_lse` and `flash_attention_merge` are
 differentiable in every input and output (the lse cotangent enters the
 backward as a shift of delta, as in the JAX package). The kernels take
-head dims 64, 128, 192 and 256.
+head dims 64, 128, 192 and 256; fp16 (the fp16 forms of K1-fwd and K2,
+on the Hopper bodies) head dims 64 and 128. fp16 at the wide head dims
+and fp16 K5 (its merge and given-delta entries) raise NotImplementedError
+naming ROADMAP Queue 1 item 10.
 
 Layout: [B, T, H, D] at every public function, as in the JAX package.
 The lse is returned as [B, H, T, 1] in LOG2 space (m + log2(l) over
@@ -46,7 +49,7 @@ LOG2E = 1.4426950408889634
 # 64 key rows) and the backward's step on every body
 KERNEL_BLOCK = 64
 _KERNEL_HEAD_DIMS = (64, 128, 192, 256)
-# the Hopper bodies (bf16 at these head dims): 128-row q tiles over
+# the Hopper bodies (bf16 and fp16 at these head dims): 128-row q tiles over
 # 64-row K/V tiles
 _SM90_HEAD_DIMS = (64, 128)
 _SM90_TILES = (128, 64)
@@ -54,7 +57,9 @@ _SM90_TILES = (128, 64)
 _MAX_GRID_Y = 65535
 LN2 = 0.6931471805599453
 _DEFAULT_BLOCK = 1024
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+FP16_LATER = ("the fp16 forms of K5 (merge) and of the wide head dims "
+              "192/256 are not in the port yet: ROADMAP Queue 1 item 10")
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
     [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -154,12 +159,12 @@ def _resolve_head_packing(head_packing, d):
 # ----------------------------------------------------------------------
 def _on_sm90(dtype, d):
     """Whether (dtype, head dim) runs the Hopper bodies."""
-    return dtype == torch.bfloat16 and d in _SM90_HEAD_DIMS
+    return dtype in (torch.bfloat16, torch.float16) and d in _SM90_HEAD_DIMS
 
 
 def _kernel_tiles(dtype, d):
     """(q rows, k rows) of the forward kernel's tile pair at (dtype, d):
-    128 x 64 on the Hopper body (bf16, d 64 or 128), 64 x 64 on the WMMA
+    128 x 64 on the Hopper body (bf16 or fp16, d 64 or 128), 64 x 64 on the WMMA
     bodies (fp32, d 192 and 256)."""
     return _SM90_TILES if _on_sm90(dtype, d) else (KERNEL_BLOCK,
                                                    KERNEL_BLOCK)
@@ -345,13 +350,17 @@ def _check_kernel_operand(name, x, like):
 
 
 def _check_kernel_shape(q):
-    """What every body takes: bf16 or fp32, a kernel head dim, T a
-    multiple of 64; and B*H at most 65535 where the WMMA bodies run
-    (their grid carries B*H on y; the Hopper bodies fold it into x)."""
+    """What every body takes: fp32, bf16 or fp16, a kernel head dim
+    (fp16: 64 or 128), T a multiple of 64; and B*H at most 65535 where
+    the WMMA bodies run (their grid carries B*H on y; the Hopper bodies
+    fold it into x)."""
     b, t, h, d = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernel: dtype {q.dtype} not supported "
-                        "(float32 or bfloat16)")
+                        "(float32, bfloat16 or float16)")
+    if q.dtype == torch.float16 and d not in _SM90_HEAD_DIMS:
+        raise NotImplementedError(f"flash kernel: fp16 at head dim {d}: "
+                                  f"{FP16_LATER}")
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel: head_dim {d} not in "
                          f"{_KERNEL_HEAD_DIMS} (the CUDA kernels' head "
@@ -400,6 +409,8 @@ def _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale, causal):
     """K5 on the card: (out fp32 [B,T,H,D], lse, lse_n [B,H,T])."""
     from deepspeed_tpu_torch.ops import _build
     b, t, h, d = q.shape
+    if q.dtype == torch.float16:
+        raise NotImplementedError(f"flash merge kernel: {FP16_LATER}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, x, q)
     _check_kernel_shape(q)
@@ -432,6 +443,9 @@ def _flash_bwd_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
                       delta=None):
     from deepspeed_tpu_torch.ops import _build
     b, t, h, d = q.shape
+    if delta is not None and q.dtype == torch.float16:
+        raise NotImplementedError(f"flash backward with a given delta "
+                                  f"(K5's backward): {FP16_LATER}")
     operands = [("q", q), ("k", k), ("v", v), ("dout", g)]
     if delta is None:
         operands.append(("out", out))

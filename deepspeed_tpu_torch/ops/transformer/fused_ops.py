@@ -25,6 +25,15 @@ kernels read the [H] and [G, W] vectors in their own dtype (fp32 or
 bf16): a wrapper casts or copies none of them, so one call is one
 launch.
 
+fp16: each kernel has an fp16 form, instantiated only for the dtypes the
+fp16 paths give it (`_check_fp16_form`, `LN_FWD_FP16_FORMS`,
+`LN_BWD_FP16_FORMS`): K3-fwd with y fp16 and (residual, out, sum) all
+fp16, or fp16/fp32/fp16, or fp32 throughout; K3-bwd with dx fp16 and
+(s, dout) fp16/fp16, fp16/fp32 or fp32/fp32, one vector a lane (H up to
+3584); K4-fwd and K4-bwd all fp16; the vectors fp16 or fp32. No launch
+mixes bf16 and fp16. Grouped K4 in fp16 (the MoE experts) and K3-bwd in
+fp16 above H 3584 raise naming ROADMAP Queue 1 item 10.
+
 Dispatch: a wrapper takes the plain twin for tensors on the CPU and
 launches the kernel for tensors on CUDA. There is no fallback from a
 CUDA tensor to the twin. Each wrapper counts its kernel launches in a
@@ -47,7 +56,18 @@ _GELU_C = 0.044715
 _INV_SQRT_2PI = 0.3989422804014327     # 1/sqrt(2*pi)
 
 # dtype codes and argument types of the kernels' C interfaces
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+FP16_GROUPED_LATER = ("the fp16 form of grouped K4 (the MoE experts' bias "
+                      "+ GeLU) is not in the port yet: ROADMAP Queue 1 "
+                      "item 10")
+# the fp16 forms of K3 that are instantiated: (residual, out, sum) of
+# K3-fwd and (s, dout) of K3-bwd, with y and dx fp16. GPT-2 gives the
+# all-fp16 forms; BERT's post-LN layer an fp16 residual, then an fp32
+# one, with fp32 out (GPT-2's ln_f fp32 out too)
+_F16, _F32 = torch.float16, torch.float32
+LN_FWD_FP16_FORMS = ((_F16, _F16, _F16), (_F16, _F32, _F16),
+                     (_F32, _F32, _F32))
+LN_BWD_FP16_FORMS = ((_F16, _F16), (_F16, _F32), (_F32, _F32))
 _LN_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
     [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _GELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + \
@@ -199,10 +219,32 @@ def _gelu_bwd_math(s, d_out, approximate):
 # ----------------------------------------------------------------------
 # kernel launchers
 # ----------------------------------------------------------------------
+def _check_fp16_form(kernel, lead, lead_dtype, others, all_fp16=False):
+    """The instantiations a launch can take: with `lead` (the kernel's
+    leading row tensor) fp16, the fp16 form (`others` fp16 or fp32, or
+    with `all_fp16` the row tensors all fp16); else no operand may be
+    fp16. `others`: [(name, dtype, row)]. TypeError names the operand."""
+    half = torch.float16
+    if lead_dtype == half:
+        for name, dt, row in others:
+            if dt == torch.bfloat16 or (all_fp16 and row and dt != half):
+                raise TypeError(
+                    f"{kernel}: {name} dtype {dt} with {lead} float16 (the "
+                    "fp16 form takes " +
+                    ("float16 rows" if all_fp16 and row else
+                     "float16 or float32") + ")")
+        return
+    for name, dt, _ in others:
+        if dt == half:
+            raise TypeError(f"{kernel}: {name} dtype float16 with {lead} "
+                            f"{lead_dtype} (no launch mixes float16 with "
+                            "another 16-bit type or fp32 rows)")
+
+
 def _check_rows(name, t, width):
     if t.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {t.dtype} not supported "
-                        "(float32 or bfloat16)")
+                        "(float32, bfloat16 or float16)")
     if t.shape[-1] != width:
         raise ValueError(f"{name}: last dim {t.shape[-1]} != {width}")
     if not t.is_contiguous():
@@ -236,9 +278,19 @@ def _ln_fwd_launch(y, bias, residual, gamma, beta, eps, out_dtype,
         _check_vector(v, h, y.device)
         if v.dtype not in _DTYPE_CODE:
             raise TypeError(f"{name} dtype {v.dtype} not supported "
-                            "(float32 or bfloat16)")
+                            "(float32, bfloat16 or float16)")
         if h > 1 and v.stride(0) != 1:
             raise ValueError(f"{name}: must be contiguous")
+    _check_fp16_form("K3-fwd", "y", y.dtype, [
+        ("residual", residual.dtype, True), ("out", out_dtype, True),
+        ("sum", sum_dtype, True), ("bias", bias.dtype, False),
+        ("gamma", gamma.dtype, False), ("beta", beta.dtype, False)])
+    if y.dtype == torch.float16 and \
+            (residual.dtype, out_dtype, sum_dtype) not in LN_FWD_FP16_FORMS:
+        raise TypeError(
+            f"K3-fwd: fp16 y with (residual, out, sum) dtypes "
+            f"{(residual.dtype, out_dtype, sum_dtype)}: the fp16 forms are "
+            f"{LN_FWD_FP16_FORMS}")
     out = torch.empty(y.shape, dtype=out_dtype, device=y.device)
     s = torch.empty(y.shape, dtype=sum_dtype, device=y.device) \
         if return_sum else None
@@ -387,7 +439,12 @@ def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
     _check_vector(bias, w, x.device, None if bias.dim() == 1 else groups)
     if bias.dtype not in _DTYPE_CODE:
         raise TypeError(f"bias dtype {bias.dtype} not supported "
-                        "(float32 or bfloat16)")
+                        "(float32, bfloat16 or float16)")
+    if x.dtype == torch.float16 and groups > 1:
+        raise NotImplementedError(f"fused_bias_gelu: {FP16_GROUPED_LATER}")
+    _check_fp16_form("K4-fwd", "x", x.dtype, [
+        ("out", out_dtype, True), ("sum", sum_dtype, True),
+        ("bias", bias.dtype, False)], all_fp16=True)
     bias = bias.contiguous()
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     s = torch.empty(x.shape, dtype=sum_dtype, device=x.device)
@@ -427,11 +484,23 @@ def _ln_bwd_launch(s2, gamma, dout2, dsum2, eps, dx_dtype):
     _check_vector(gamma, h, s2.device)
     if gamma.dtype not in _DTYPE_CODE:
         raise TypeError(f"gamma dtype {gamma.dtype} not supported "
-                        "(float32 or bfloat16)")
+                        "(float32, bfloat16 or float16)")
+    _check_fp16_form("K3-bwd", "dx", dx_dtype, [
+        ("s", s2.dtype, True), ("dout", dout2.dtype, True),
+        ("gamma", gamma.dtype, False)])
+    if dx_dtype == torch.float16 and \
+            (s2.dtype, dout2.dtype) not in LN_BWD_FP16_FORMS:
+        raise TypeError(f"K3-bwd: fp16 dx with (s, dout) dtypes "
+                        f"{(s2.dtype, dout2.dtype)}: the fp16 forms are "
+                        f"{LN_BWD_FP16_FORMS}")
     gamma = gamma.contiguous()
     dev = s2.device.index or 0
     rows = [s2, dout2, gamma] + ([dsum2] if dsum2 is not None else [])
     plan = ln_bwd_plan(n, h, _sm_count(dev), _aligned(*rows))
+    if dx_dtype == torch.float16 and plan.vpt != 1:
+        raise NotImplementedError(
+            f"K3-bwd: fp16 at H {h} (4 vectors a lane, above H 3584) is "
+            "not in the port yet: ROADMAP Queue 1 item 10")
     dx = torch.empty((n, h), dtype=dx_dtype, device=s2.device)
     sums = torch.empty((3, h), dtype=torch.float32, device=s2.device)
     work = torch.empty((max(plan.work_rows, 1), 3, h), dtype=torch.float32,
@@ -466,6 +535,11 @@ def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype, groups=None):
     grouped, groups = groups is not None, groups or 1
     if n % groups:
         raise ValueError(f"{n} rows do not split into {groups} equal groups")
+    if dx_dtype == torch.float16 and groups > 1:
+        raise NotImplementedError(
+            f"fused_bias_gelu_backward: {FP16_GROUPED_LATER}")
+    _check_fp16_form("K4-bwd", "dx", dx_dtype, [
+        ("s", s2.dtype, True), ("dout", dout2.dtype, True)], all_fp16=True)
     dev = s2.device.index or 0
     dx = torch.empty((n, w), dtype=dx_dtype, device=s2.device)
     dbias = torch.empty((groups, w), dtype=torch.float32, device=s2.device)

@@ -26,7 +26,8 @@ The memory flags (`normalize_invertible`, `gelu_checkpoint`,
 whole block recomputed in the backward. The JAX layer's per-fusion
 policy (`save_fused_epilogues`) comes with the named remat policies
 (ROADMAP Queue 1 item 4). `stochastic_mode` is accepted and ignored, as
-in JAX. fp16 raises (Queue 1 item 4): the kernels take fp32 and bf16.
+in JAX. fp16 (`fp16=True`) runs K1-K4 in their fp16 forms; fp16 with
+quantized compute raises (ROADMAP Queue 1 item 10).
 
 Dense kernels keep flax's [in, out] layout (`x @ kernel`), so a JAX
 parameter tree converts by a plain unstack (models/convert.py) and the
@@ -52,8 +53,10 @@ from deepspeed_tpu_torch.ops.transformer.quantized_matmul import (
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.rng import stream_generator, stream_seed
 
-FP16_SLICE = ("fp16 comes with the rest of the single-card engine (ROADMAP "
-              "Queue 1 item 4); the kernels take fp32 and bf16")
+FP16_SLICE = ("the fp16 forms of K5, K6, K7, K8 and grouped K4 (fp16 "
+              "sequence parallelism, quantized compute, block-sparse "
+              "attention and MoE) are not in the port yet: ROADMAP Queue "
+              "1 item 10")
 
 
 class Dense(nn.Module):
@@ -257,9 +260,10 @@ class DeepSpeedTransformerConfig:
 
     @property
     def compute_dtype(self):
-        """bf16 with `bf16`, else fp32; fp16 raises (Queue 1 item 4)."""
+        """fp16 with `fp16`, bf16 with `bf16`, else fp32 (the JAX
+        layer's order)."""
         if self.fp16:
-            raise NotImplementedError(FP16_SLICE)
+            return torch.float16
         return torch.bfloat16 if self.bf16 else torch.float32
 
 
@@ -456,7 +460,9 @@ class DeepSpeedTransformerLayer(nn.Module):
 
     def __init__(self, config: DeepSpeedTransformerConfig, device="cuda"):
         super().__init__()
-        config.compute_dtype   # fp16 raises here
+        if config.fp16 and resolve_quantized_compute(
+                config.quantized_compute, resolve_device(device)):
+            raise NotImplementedError(f"fp16 quantized compute: {FP16_SLICE}")
         self.config = config
         with torch.device(resolve_device(device)):
             self.core = _TransformerLayerCore(config)

@@ -24,6 +24,13 @@ or of the updates exists at the step's peak (at 1.5B parameters a
 whole fp32 update tree would be 6 GB). The learning rate may be a
 Python float or a 0-dim device tensor (the engine passes a device
 scalar, so no step needs a host sync).
+
+Under fp16 loss scaling a step may be skipped, and the skip is decided
+on the device: `update` then takes `keep`, a 0-dim device bool. Every
+state write is `torch.where(keep, new, old)` and the count advances by
+`keep`, so a skipped step (keep false) leaves every moment and the count
+bit for bit as they were, even when the gradients hold inf or NaN; the
+caller masks the updates' application the same way (`apply_updates`).
 """
 
 from typing import Any, Callable, NamedTuple
@@ -39,11 +46,35 @@ class ScaleByAdamBF16State(NamedTuple):
 
 class GradientTransformation(NamedTuple):
     """optax's (init, update) pair: `init(params) -> state`;
-    `update(grads, state, params, lr) -> (updates, state)`, the updates
-    an iterator of fp32 tensors, one per leaf, whose every step also
-    updates that leaf's state in place."""
+    `update(grads, state, params, lr, keep) -> (updates, state)`, the
+    updates an iterator of fp32 tensors, one per leaf, whose every step
+    also updates that leaf's state in place."""
     init: Callable
     update: Callable
+
+
+def masked_copy_(dest, new, keep):
+    """dest <- new, or, with a device bool `keep`, dest <- new where keep
+    (else dest keeps its bits)."""
+    if keep is None:
+        dest.copy_(new)
+    else:
+        dest.copy_(torch.where(keep, new.to(dest.dtype), dest))
+
+
+def step_increment(keep):
+    """What a count advances by: 1, or the device bool `keep` as int32."""
+    return 1 if keep is None else keep.to(torch.int32)
+
+
+def apply_updates(targets, updates, keep=None):
+    """target += update for each pair, in place; with `keep`, only where
+    keep is true (a skipped step leaves every target's bits)."""
+    for t, u in zip(targets, updates):
+        if keep is None:
+            t.add_(u)
+        else:
+            t.copy_(torch.where(keep, t + u, t))
 
 
 def scale_by_adam_bf16(b1=0.9, b2=0.999, eps=1e-8,
@@ -62,9 +93,9 @@ def scale_by_adam_bf16(b1=0.9, b2=0.999, eps=1e-8,
             nu=[torch.zeros(p.shape, dtype=state_dtype, device=p.device)
                 for p in params])
 
-    def update_fn(grads, state, params=None, lr=None):
+    def update_fn(grads, state, params=None, lr=None, keep=None):
         del params, lr
-        state.count.add_(1)
+        state.count.add_(step_increment(keep))
         c = state.count.to(torch.float32)
         bc1 = 1.0 - torch.pow(b1, c)
         bc2 = 1.0 - torch.pow(b2, c)
@@ -74,8 +105,8 @@ def scale_by_adam_bf16(b1=0.9, b2=0.999, eps=1e-8,
                 g32 = g.to(torch.float32)
                 mu32 = b1 * m.to(torch.float32) + (1.0 - b1) * g32
                 nu32 = b2 * v.to(torch.float32) + (1.0 - b2) * (g32 * g32)
-                m.copy_(mu32)
-                v.copy_(nu32)
+                masked_copy_(m, mu32, keep)
+                masked_copy_(v, nu32, keep)
                 yield (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + eps)
 
         return leaves(), state
@@ -92,9 +123,9 @@ def adamw_bf16(learning_rate=None, b1=0.9, b2=0.999, eps=1e-8,
     inner = scale_by_adam_bf16(b1=b1, b2=b2, eps=eps,
                                state_dtype=state_dtype)
 
-    def update_fn(grads, state, params, lr=None):
+    def update_fn(grads, state, params, lr=None, keep=None):
         lr = learning_rate if lr is None else lr
-        precond, state = inner.update(grads, state)
+        precond, state = inner.update(grads, state, keep=keep)
         updates = (-lr * (u + weight_decay * p.to(torch.float32))
                    for u, p in zip(precond, params))
         return updates, state
@@ -108,9 +139,9 @@ def adam(learning_rate=None, b1=0.9, b2=0.999, eps=1e-8,
     inner = scale_by_adam_bf16(b1=b1, b2=b2, eps=eps,
                                state_dtype=state_dtype)
 
-    def update_fn(grads, state, params=None, lr=None):
+    def update_fn(grads, state, params=None, lr=None, keep=None):
         lr = learning_rate if lr is None else lr
-        precond, state = inner.update(grads, state)
+        precond, state = inner.update(grads, state, keep=keep)
         return (-lr * u for u in precond), state
 
     return GradientTransformation(inner.init, update_fn)

@@ -509,7 +509,8 @@ def load_checkpoint_files(load_dir, tag, zero_enabled=True, mp_rank=0,
     """Engine-facing loader. Returns (model_sd, optim_sd): the metadata
     with the module's {path: tensor} map under model_sd["module_flat"],
     and the optimizer metadata with its map under
-    optim_sd["opt_state_flat"] (None without optimizer state, or when
+    optim_sd["opt_state_flat"] and the aux trees' (the loss scale) under
+    optim_sd["aux_flat"] (None without optimizer state, or when
     `zero_enabled` is False). A legacy pickle checkpoint's trees come
     back as the same maps."""
     legacy_marker = os.path.join(
@@ -535,6 +536,9 @@ def load_checkpoint_files(load_dir, tag, zero_enabled=True, mp_rank=0,
         optim_sd = dict(opt_meta)
         optim_sd["opt_state_flat"] = {
             k: v for k, v in flat.items() if k.startswith("optim")}
+        # the aux trees (the loss scale): {"aux/scale.loss_scale": ...}
+        optim_sd["aux_flat"] = {
+            k: v for k, v in flat.items() if k.startswith("aux/")}
     return model_sd, optim_sd
 
 

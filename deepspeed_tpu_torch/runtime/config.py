@@ -3,7 +3,10 @@
 
 What the training slices read: the batch triple (train_batch_size =
 micro batch x gradient accumulation x data-parallel world size; any two
-determine the third), the `bf16` block with `master_weights`,
+determine the third), the `bf16` block with `master_weights`, the
+`fp16` block and its loss-scale settings (`get_loss_scale`,
+`get_initial_dynamic_scale`, `get_dynamic_loss_scale_args`), the
+`progressive_layer_drop` block (`get_pld_params`),
 `zero_optimization.stage`, the `optimizer` and `scheduler` blocks,
 `gradient_clipping`, `steps_per_print`, the `moe` block
 (`get_moe_config`), the `quantized_compute` block
@@ -16,8 +19,7 @@ yet.
 
 A block that the JAX engine acts on and the port does not yet raises
 NotImplementedError naming the ROADMAP Queue 1 item that ports it
-(`_check_later_slices`): fp16 and loss scaling,
-progressive layer drop, activation checkpointing, async dispatch,
+(`_check_later_slices`): activation checkpointing, async dispatch,
 wall_clock_breakdown and dump_state (4); overlap (5); pipeline and
 sparse gradients (6); the monitor and tensorboard (8); elasticity, the
 flops profiler and autotune (9).
@@ -52,6 +54,75 @@ def get_bfloat16_enabled(param_dict):
             return get_scalar_param(param_dict[key], C.BFLOAT16_ENABLED,
                                     C.BFLOAT16_ENABLED_DEFAULT)
     return False
+
+
+def get_fp16_enabled(param_dict):
+    if C.FP16 in param_dict:
+        return get_scalar_param(param_dict[C.FP16], C.FP16_ENABLED,
+                                C.FP16_ENABLED_DEFAULT)
+    return False
+
+
+def get_loss_scale(param_dict):
+    if get_fp16_enabled(param_dict):
+        return get_scalar_param(param_dict[C.FP16], C.FP16_LOSS_SCALE,
+                                C.FP16_LOSS_SCALE_DEFAULT)
+    return C.FP16_LOSS_SCALE_DEFAULT
+
+
+def get_initial_dynamic_scale(param_dict):
+    if get_fp16_enabled(param_dict):
+        power = get_scalar_param(param_dict[C.FP16],
+                                 C.FP16_INITIAL_SCALE_POWER,
+                                 C.FP16_INITIAL_SCALE_POWER_DEFAULT)
+    else:
+        power = C.FP16_INITIAL_SCALE_POWER_DEFAULT
+    return 2**power
+
+
+def get_dynamic_loss_scale_args(param_dict):
+    """The automaton's settings when the fp16 block names any of them
+    (the JAX package's dict: init_scale, scale_window, delayed_shift,
+    min_scale), else None."""
+    if not get_fp16_enabled(param_dict):
+        return None
+    fp16 = param_dict[C.FP16]
+    props = (C.FP16_INITIAL_SCALE_POWER, C.FP16_LOSS_SCALE_WINDOW,
+             C.FP16_MIN_LOSS_SCALE, C.FP16_HYSTERESIS)
+    if not any(p in fp16 for p in props):
+        return None
+    return {
+        "init_scale": 2**get_scalar_param(
+            fp16, C.FP16_INITIAL_SCALE_POWER,
+            C.FP16_INITIAL_SCALE_POWER_DEFAULT),
+        "scale_window": get_scalar_param(
+            fp16, C.FP16_LOSS_SCALE_WINDOW, C.FP16_LOSS_SCALE_WINDOW_DEFAULT),
+        "delayed_shift": get_scalar_param(
+            fp16, C.FP16_HYSTERESIS, C.FP16_HYSTERESIS_DEFAULT),
+        "min_scale": get_scalar_param(
+            fp16, C.FP16_MIN_LOSS_SCALE, C.FP16_MIN_LOSS_SCALE_DEFAULT),
+    }
+
+
+def get_pld_enabled(param_dict):
+    if C.PROGRESSIVE_LAYER_DROP in param_dict:
+        return get_scalar_param(param_dict[C.PROGRESSIVE_LAYER_DROP],
+                                C.PLD_ENABLED, C.PLD_ENABLED_DEFAULT)
+    return False
+
+
+def get_pld_params(param_dict):
+    """The block's theta and gamma, only where given (absent keys take
+    ProgressiveLayerDrop's own defaults, theta 0.5: the constants'
+    theta 1.0 would make PLD a no-op), or False without the block."""
+    if C.PROGRESSIVE_LAYER_DROP not in param_dict:
+        return False
+    block = param_dict[C.PROGRESSIVE_LAYER_DROP]
+    unknown = set(block) - {C.PLD_ENABLED, C.PLD_THETA, C.PLD_GAMMA}
+    if unknown:
+        logger.warning(f"progressive_layer_drop: ignoring unknown key(s) "
+                       f"{sorted(unknown)}")
+    return {k: block[k] for k in (C.PLD_THETA, C.PLD_GAMMA) if k in block}
 
 
 def get_bfloat16_master_weights(param_dict):
@@ -371,11 +442,6 @@ class DeepSpeedConfig:
         yet, naming the ROADMAP Queue 1 item that ports it. Runs after
         the blocks are validated, so a bad value fails as it does in the
         JAX package."""
-        if _block_enabled(d, C.FP16, C.FP16_ENABLED):
-            raise _later("fp16 with loss scaling "
-                         "(runtime/fp16/loss_scaler.py); use bf16", 4)
-        if _block_enabled(d, C.PROGRESSIVE_LAYER_DROP, C.PLD_ENABLED):
-            raise _later("progressive layer drop", 4)
         act = d.get(_ACTIVATION_CHKPT) or {}
         if any(act.get(k) for k in _ACT_CHKPT_SWITCHES):
             raise _later("the activation_checkpointing block", 4)
@@ -426,6 +492,15 @@ class DeepSpeedConfig:
             logger.warning("amp.enabled maps to bf16 mixed precision; amp "
                            f"params {list(self.amp_params)} are ignored")
             self.bfloat16_enabled = True
+        self.fp16_enabled = get_fp16_enabled(d)
+        # the JAX package's assertion, word for word
+        assert not (self.fp16_enabled and self.bfloat16_enabled), \
+            "fp16 and bf16 modes are mutually exclusive"
+        self.loss_scale = get_loss_scale(d)
+        self.initial_dynamic_scale = get_initial_dynamic_scale(d)
+        self.dynamic_loss_scale_args = get_dynamic_loss_scale_args(d)
+        self.pld_enabled = get_pld_enabled(d)
+        self.pld_params = get_pld_params(d)
 
         self.gradient_clipping = get_scalar_param(
             d, C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT)

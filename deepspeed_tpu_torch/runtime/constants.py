@@ -49,6 +49,17 @@ DEEPSPEED_OPTIMIZERS = [
 FP16 = "fp16"
 FP16_ENABLED = "enabled"
 FP16_ENABLED_DEFAULT = False
+# 0 = dynamic loss scaling; any other value is a static scale
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 32
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
 
 BFLOAT16 = "bf16"
 BFLOAT16_ALIAS = "bfloat16"
@@ -81,6 +92,10 @@ STEPS_PER_PRINT_DEFAULT = 10
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 PLD_ENABLED = "enabled"
 PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
 PIPELINE = "pipeline"
 
 SPARSE_GRADIENTS = "sparse_gradients"

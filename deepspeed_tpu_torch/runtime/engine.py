@@ -11,6 +11,17 @@ whole step over a stacked [gas, micro_batch, ...] batch;
 
 Precision, as in the JAX engine:
   * fp32: fp32 parameters and Adam moments;
+  * fp16: fp16 compute parameters, an fp32 master copy and fp32
+    moments, and loss scaling (`runtime/fp16/loss_scaler.py`): the loss
+    is multiplied by scale / gas before differentiation, the fp32
+    gradients are divided by the scale, the global norm is always
+    computed, and a non-finite norm is an overflow. An overflowed step
+    is skipped: the device step counter holds, the skipped counter and
+    the scale automaton step. PyTorch has no `lax.cond`, so the skip is
+    a mask: every optimizer-state write and the master's update are
+    `torch.where(keep, new, old)` with the device bool keep = not
+    overflow, so a skipped step leaves every parameter, master, moment
+    and counter bit for bit as it was, with no host read;
   * bf16 with master weights: bf16 compute parameters, an fp32 master
     copy and fp32 moments; the update lands on the master and is cast
     back;
@@ -20,9 +31,27 @@ Precision, as in the JAX engine:
     parameter-sized tree at the step's peak).
 
 No host sync inside `train_batch`: the learning rate is evaluated on
-the device from the device step counter (`device_schedule_fn`), the
-clip factor stays a device scalar, and the loss comes back as a device
-tensor. A host-side mirror of the step count serves logging.
+the device from the device step counter (`device_schedule_fn`, which
+holds still across skipped fp16 steps), the clip factor stays a device
+scalar, and the loss comes back as a device tensor. A host-side mirror
+of the step count serves logging; the config scheduler's host object
+(what `get_lr()` reads) steps every step and is corrected from the
+device counter at print fences and in `get_lr()`, as the JAX engine's
+async loop does. A client scheduler object is host code: its lr rides
+to the step as a device scalar through a non-blocking copy, and under
+fp16 the engine reads each step's overflow flag to rewind it (the JAX
+engine's synced loop) — the one per-step host read, in that mode only.
+
+Optimizers: Adam/AdamW (`bf16_optimizer.py`), LAMB with the clipped
+trust ratio (`ops/lamb/fused_lamb.py`), SGD with momentum
+(`runtime/sgd.py`) and 1-bit Adam's single-worker form
+(`runtime/fp16/onebit_adam.py`), or a client object with
+`init(params)` and `update(grads, state, params, lr=None[, keep])`
+(e.g. `FusedLamb`, `OnebitAdam`, `adamw_bf16(...)`); a client object
+whose update takes no `keep` gets the skip by a copy of its state,
+restored where the step overflowed. Progressive layer drop
+(`runtime/progressive_layer_drop.py`) hands the model its per-step
+theta as a device scalar (`layer_keep_prob`).
 
 An `moe` block is wired into the model through its `configure_moe`
 hook before the state is built (`_init_moe`): the structural keys are
@@ -39,17 +68,19 @@ generator keyed by the same seed (the JAX engine's fold_in(rng, 0x51)).
 ZeRO stages 0, 1 and 2 at data-parallel world size 1 compute the
 unpartitioned update, as the JAX engine does on one chip. World size
 > 1 and stage 3 raise NotImplementedError naming ROADMAP Queue 1 item 6,
-offload item 5; fp16 loss scaling, client optimizer objects, LAMB, SGD
-and 1-bit Adam (item 4) raise too.
+offload item 5.
 
 Checkpoints (`save_checkpoint`, `load_checkpoint`) are the JAX engine's
 files (`runtime/checkpoint.py`): the module tree with the scanned
 layers stacked (the model's `params_to_jax`: GPT-2's and BERT's
 converters in `models/convert.py`), the optimizer state as
 optax's trees (`inject_hyperparams(adamw)` over `ScaleByAdamState`, or
-`adamw_bf16`'s `ScaleByAdamBF16State` without master weights), the
-static loss scale under `aux/scale` and the JAX engine's metadata, so
-either package loads the other's. The port's own streams (dropout,
+`adamw_bf16`'s `ScaleByAdamBF16State` without master weights; LAMB's
+`LambState` and SGD's `TraceState` under `inject_hyperparams`;
+`OnebitAdamState` bare), the live `LossScaleState` under `aux/scale`
+(restored only by an fp16 engine, as in the JAX engine), the skipped
+steps and the JAX engine's metadata, so either package loads the
+other's. The port's own streams (dropout,
 quant, stochastic rounding) ride in one more metadata entry,
 `torch_rng`. An async save copies every leaf into fresh device buffers
 on the training stream before it returns (the update writes the state
@@ -60,6 +91,7 @@ never queue behind the steps that follow, and frees them once copied.
 
 import contextlib
 import copy
+import inspect
 import os
 import shutil
 from typing import Any, NamedTuple
@@ -70,11 +102,22 @@ import torch
 from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime import lr_schedules
+from deepspeed_tpu_torch.ops.lamb.fused_lamb import LambState, lamb
 from deepspeed_tpu_torch.runtime.bf16_optimizer import (
-    adam, adamw_bf16, stochastic_round_apply)
+    ScaleByAdamBF16State, adam, adamw_bf16, apply_updates,
+    stochastic_round_apply)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.config_utils import load_config_dict
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
+    DELAYED_SHIFT, INITIAL_LOSS_SCALE, MIN_LOSS_SCALE, SCALE_WINDOW,
+    LossScaleState, make_loss_scale_state,
+    make_static_loss_scale_state, update_loss_scale)
+from deepspeed_tpu_torch.runtime.fp16.onebit_adam import (OnebitAdamState,
+                                                          onebit_adam)
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
+    ProgressiveLayerDrop
+from deepspeed_tpu_torch.runtime.sgd import SGDState, sgd
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
@@ -106,6 +149,8 @@ class EngineState(NamedTuple):
     opt_state: Any
     acc_grads: Any     # [fp32 tensor] per leaf at gas > 1, else ()
     global_steps: Any  # int32 device scalar: optimizer steps taken
+    scale: Any         # LossScaleState (static 1.0 outside fp16)
+    skipped: Any       # int32 device scalar: steps skipped on overflow
 
 
 # optax's optimizer-state trees, as the JAX engine checkpoints them
@@ -126,16 +171,8 @@ class EmptyState(NamedTuple):
     pass
 
 
-class LossScaleState(NamedTuple):
-    loss_scale: Any
-    good_steps: Any
-    hysteresis: Any
-
-
-# the JAX engine's static loss scale outside fp16 (`aux/scale`)
-STATIC_SCALE = LossScaleState(np.asarray(1.0, np.float32),
-                              np.asarray(0, np.int32),
-                              np.asarray(1, np.int32))
+class TraceState(NamedTuple):
+    trace: Any
 
 
 def _world_size():
@@ -154,8 +191,10 @@ class DeepSpeedEngine:
       model_parameters: the flat parameter dict {name: tensor};
       device: where the state lives (default: the model's `device`,
         else "cuda").
-    The optimizer and the LR schedule come from the config; a client
-    optimizer or scheduler object raises (ROADMAP Queue 1 item 4).
+    The optimizer and the LR schedule come from the config, or from
+    client objects: `optimizer` with `init(params)` and
+    `update(grads, state, params, lr=None[, keep])`, `lr_scheduler`
+    with `step()` and `get_last_lr()`.
     """
 
     def __init__(self, args=None, model=None, optimizer=None,
@@ -174,14 +213,26 @@ class DeepSpeedEngine:
             else _world_size()
         if world > 1:
             raise _later(f"data-parallel training (world size {world})", 6)
-        if optimizer is not None or lr_scheduler is not None:
-            raise _later("client optimizer and lr_scheduler objects", 4)
+        if optimizer is not None and not (hasattr(optimizer, "init") and
+                                          hasattr(optimizer, "update")):
+            raise TypeError(
+                f"client optimizer {type(optimizer).__name__} needs "
+                "init(params) and update(grads, state, params, lr=None): "
+                "a GradientTransformation-like object (e.g. FusedLamb, "
+                "OnebitAdam, adamw_bf16(...))")
+        self.client_optimizer = optimizer
+        self.client_lr_scheduler = lr_scheduler
         self._config = DeepSpeedConfig(load_config_dict(config),
                                        world_size=1)
         if self._config.zero_cpu_offload:
             raise _later("ZeRO-Offload (zero_optimization.cpu_offload)", 5)
         if self._config.zero_optimization_stage == 3:
             raise _later("ZeRO stage 3", 6)
+        if self._config.fp16_enabled and (
+                self._config.moe["enabled"] or
+                self._config.quantized_compute["enabled"]):
+            raise _later("fp16 with MoE or quantized compute (the fp16 "
+                         "forms of K8, grouped K4 and K6)", 10)
 
         self.collate_fn = collate_fn
         self._resolve_model(model, model_parameters)
@@ -194,12 +245,20 @@ class DeepSpeedEngine:
             # the index tensors carry, so placed batches compare equal
             self.device = torch.device("cuda", torch.cuda.current_device())
 
+        self.fp16_mode = bool(self._config.fp16_enabled)
         self.bf16_mode = bool(self._config.bfloat16_enabled)
         self.bf16_sr_mode = self.bf16_mode and \
             not self._config.bfloat16_master_weights
-        self.mixed_precision = self.bf16_mode and not self.bf16_sr_mode
-        self.compute_dtype = torch.bfloat16 if self.bf16_mode else \
-            torch.float32
+        self.mixed_precision = (self.fp16_mode or self.bf16_mode) and \
+            not self.bf16_sr_mode
+        self.compute_dtype = torch.float16 if self.fp16_mode else \
+            torch.bfloat16 if self.bf16_mode else torch.float32
+        self.dynamic_loss_scale_enabled = self.fp16_mode and \
+            self._config.loss_scale == 0
+        self.progressive_layer_drop = None
+        if self._config.pld_enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                **(self._config.pld_params or {}))
 
         self.timers = SynchronizedWallClockTimer(self.device)
         self.tput_timer = ThroughputTimer(
@@ -223,7 +282,7 @@ class DeepSpeedEngine:
             self._sr_gen.manual_seed(SR_SEED)
 
         self._configure_optimizer()
-        self._configure_lr_scheduler()
+        self._configure_lr_scheduler(lr_scheduler)
         self._init_state()
         self.optimizer = self   # `engine.optimizer` parity
         self._ckpt_writer = None
@@ -328,10 +387,47 @@ class DeepSpeedEngine:
     def scheduler_params(self):
         return self._config.scheduler_params
 
+    def fp16_enabled(self):
+        return self._config.fp16_enabled
+
+    def bfloat16_enabled(self):
+        return self._config.bfloat16_enabled
+
+    def loss_scale(self):
+        """The current loss scale (a host read)."""
+        return float(self.state.scale.loss_scale)
+
+    def dynamic_loss_scale(self):
+        return self.dynamic_loss_scale_enabled
+
+    def initial_dynamic_scale(self):
+        return self._config.initial_dynamic_scale
+
+    def dynamic_loss_scale_args(self):
+        return self._config.dynamic_loss_scale_args
+
+    def pld_enabled(self):
+        return self._config.pld_enabled
+
+    def pld_params(self):
+        return self._config.pld_params
+
+    def pld_theta(self):
+        return self.progressive_layer_drop.get_theta() \
+            if self.progressive_layer_drop else 1.0
+
     # ------------------------------------------------------------------
     # optimizer, schedule, state
     # ------------------------------------------------------------------
     def _build_optimizer_transform(self):
+        # the checkpoint's optax layout: the injected hyperparameters
+        # and, for Adam, the chain around its state (None: adamw_bf16's
+        # bare state; else the number of EmptyStates after it)
+        self._ckpt_layout({}, None)
+        if self.client_optimizer is not None:
+            # the client's own lr applies unless a scheduler drives it
+            self._base_lr = None
+            return self.client_optimizer
         name = (self._config.optimizer_name or C.ADAM_OPTIMIZER).lower()
         params = dict(self._config.optimizer_params or {})
         lr = params.get("lr", 1e-3)
@@ -339,12 +435,29 @@ class DeepSpeedEngine:
         eps = params.get("eps", 1e-8)
         weight_decay = params.get("weight_decay", 0.0)
         self._base_lr = lr
+        if self.bf16_sr_mode and name not in (C.ADAM_OPTIMIZER,
+                                              C.ADAMW_OPTIMIZER):
+            raise ValueError(
+                f'bf16 {{"master_weights": false}} supports Adam/AdamW '
+                f"only (got {name!r}); drop the flag to use the "
+                "fp32-master path")
+        if name == C.ONEBIT_ADAM_OPTIMIZER:
+            return onebit_adam(learning_rate=lr, b1=betas[0], b2=betas[1],
+                               eps=eps, weight_decay=weight_decay,
+                               freeze_step=params.get("freeze_step", 100))
+        if name == C.LAMB_OPTIMIZER:
+            return lamb(learning_rate=lr, b1=betas[0], b2=betas[1], eps=eps,
+                        weight_decay=weight_decay,
+                        max_coeff=params.get("max_coeff", 10.0),
+                        min_coeff=params.get("min_coeff", 0.01),
+                        bias_correction=params.get("bias_correction", True))
+        if name == C.SGD_OPTIMIZER:
+            momentum = params.get("momentum", 0.0) or None
+            if momentum is not None:
+                self._ckpt_layout(dict(momentum=momentum), None)
+            return sgd(learning_rate=lr, momentum=momentum)
         if name not in (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER):
-            raise _later(f"optimizer {name!r} (the port has Adam and "
-                         "AdamW)", 4)
-        # the checkpoint's optax layout: the injected hyperparameters
-        # and the chain around the Adam state (None: adamw_bf16's bare
-        # state; else the number of EmptyStates after it)
+            raise ValueError(f"Unknown optimizer {name}")
         hp = dict(b1=betas[0], b2=betas[1], eps=eps)
         if self.bf16_sr_mode:
             # master-less bf16: bf16 moments, fp32 update math,
@@ -369,16 +482,25 @@ class DeepSpeedEngine:
 
     def _configure_optimizer(self):
         self.optimizer_transform = self._build_optimizer_transform()
-        self._optimizer_shim = lr_schedules._OptimizerShim(lr=self._base_lr)
+        self._update_takes_keep = "keep" in inspect.signature(
+            self.optimizer_transform.update).parameters
+        self._optimizer_shim = lr_schedules._OptimizerShim(
+            lr=self._base_lr or 0.0)
 
-    def _configure_lr_scheduler(self):
+    def _configure_lr_scheduler(self, client_lr_scheduler=None):
         """The device schedule (lr from the device step counter) of the
-        config's scheduler block, or the constant base lr."""
+        config's scheduler block, or the constant base lr; a client
+        scheduler object is stepped on the host instead (`_step_lr`)."""
+        self._device_lr_fn = None
+        if client_lr_scheduler is not None:
+            self.lr_scheduler = client_lr_scheduler
+            return
         name = self.scheduler_name()
         if name is None:
             self.lr_scheduler = None
-            self._device_lr_fn = lr_schedules.device_schedule_fn(
-                None, base_lr=self._base_lr)
+            if self._base_lr is not None:
+                self._device_lr_fn = lr_schedules.device_schedule_fn(
+                    None, base_lr=self._base_lr)
             return
         sched_cls = {
             lr_schedules.LR_RANGE_TEST: lr_schedules.LRRangeTest,
@@ -412,10 +534,21 @@ class DeepSpeedEngine:
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                for p in leaves] \
             if self.gradient_accumulation_steps() > 1 else ()
+        if self.dynamic_loss_scale_enabled:
+            args = self.dynamic_loss_scale_args() or {}
+            scale = make_loss_scale_state(
+                init_scale=args.get(INITIAL_LOSS_SCALE,
+                                    self.initial_dynamic_scale()),
+                delayed_shift=args.get(DELAYED_SHIFT, 2), device=dev)
+        else:
+            scale = make_static_loss_scale_state(
+                self._config.loss_scale if self.fp16_mode else 1.0, dev)
         self.state = EngineState(
             params=params, master=master, opt_state=opt_state,
             acc_grads=acc,
-            global_steps=torch.zeros((), dtype=torch.int32, device=dev))
+            global_steps=torch.zeros((), dtype=torch.int32, device=dev),
+            scale=scale,
+            skipped=torch.zeros((), dtype=torch.int32, device=dev))
         self._initial_params = None   # don't pin the caller's copy
         n_params = sum(p.numel() for p in leaves)
         logger.info(f"engine initialized: {n_params / 1e6:.1f}M params, "
@@ -431,15 +564,37 @@ class DeepSpeedEngine:
         return {"dropout": int(self._rng.integers(1 << 62)),
                 "quant": int(self._quant_rng.integers(1 << 62))}
 
-    def _micro_grad(self, batch, rngs):
+    def _keep_prob(self):
+        """PLD's theta for this step as a device scalar, or None."""
+        if self.progressive_layer_drop is None:
+            return None
+        return self._to_device_scalar(self.progressive_layer_drop
+                                      .get_theta())
+
+    def _to_device_scalar(self, value):
+        """A host float as an fp32 0-dim tensor on the engine's device,
+        by a non-blocking copy from pinned memory (no sync)."""
+        t = torch.tensor(float(value), dtype=torch.float32)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _micro_grad(self, batch, rngs, keep_prob=None):
         """(raw loss, grads) of one microbatch; the loss is divided by
-        gas before differentiation, so accumulated grads are the mean."""
+        gas before differentiation, so accumulated grads are the mean,
+        and under fp16 multiplied by the loss scale first (the JAX
+        engine's loss * (scale / gas))."""
         params = self.state.params
         gas = self.gradient_accumulation_steps()
+        kwargs = {} if keep_prob is None else \
+            {"layer_keep_prob": keep_prob}
         with torch.enable_grad():
             loss = self._loss_fn(params, batch, rngs=rngs,
-                                 deterministic=False)
-            scaled = loss * (1.0 / gas) if gas > 1 else loss
+                                 deterministic=False, **kwargs)
+            if self.fp16_mode:
+                scaled = loss * (self.state.scale.loss_scale / gas)
+            else:
+                scaled = loss * (1.0 / gas) if gas > 1 else loss
             leaves = list(params.values())
             grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -449,25 +604,56 @@ class DeepSpeedEngine:
         return loss.detach(), grads
 
     def _step_lr(self):
-        """The step's learning rate as a device scalar, from the device
-        step counter. Also steps the host scheduler, the mirror get_lr()
-        reads."""
+        """The step's learning rate as a device scalar: from the device
+        step counter (the config's schedule, or the constant base lr),
+        or a client scheduler's host value copied without a sync; None
+        for a client optimizer with neither (its own lr applies). Also
+        steps the host scheduler, the mirror get_lr() reads."""
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
-        return self._device_lr_fn(self.state.global_steps)
+        if self._device_lr_fn is not None:
+            return self._device_lr_fn(self.state.global_steps)
+        if self.lr_scheduler is not None:
+            return self._to_device_scalar(
+                self.lr_scheduler.get_last_lr()[0])
+        return None
+
+    @staticmethod
+    def _state_tensors(tree):
+        """Every tensor of an optimizer state (NamedTuples, tuples,
+        lists, dicts), in a fixed order."""
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree)
+                    for t in DeepSpeedEngine._state_tensors(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [t for x in tree
+                    for t in DeepSpeedEngine._state_tensors(x)]
+        return []
 
     @torch.no_grad()
     def _unscale_clip_and_update(self, grads, lr):
-        """Clip by the global norm (computed only when clipping is on),
-        update, advance the step counter. Returns the grad norm (a
-        device scalar) or None when nothing consumed it."""
+        """Unscale (fp16), the global norm (computed when fp16 or
+        clipping consumes it), the overflow flag, clipping, the update
+        (masked by keep = not overflow under fp16), the step counters
+        and the scale automaton; all on the device. Returns (grad norm
+        or None, overflow device bool or None)."""
         state = self.state
         grad_norm = None
+        overflow = keep = None
+        if self.fp16_mode:
+            for g in grads:
+                g.div_(state.scale.loss_scale)
         clip = self.gradient_clipping()
-        if clip and clip > 0:
+        if self.fp16_mode or (clip and clip > 0):
             sq = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
                               for g in grads])
             grad_norm = torch.sqrt(torch.sum(sq))
+        if self.fp16_mode:
+            overflow = ~torch.isfinite(grad_norm)
+            keep = ~overflow
+        if clip and clip > 0:
             factor = torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
             factor = torch.where(torch.isfinite(factor), factor,
                                  torch.ones_like(factor))
@@ -475,18 +661,44 @@ class DeepSpeedEngine:
                 g.mul_(factor.to(g.dtype))
         leaves = list(state.params.values())
         target = state.master if self.mixed_precision else leaves
-        updates, _ = self.optimizer_transform.update(
-            grads, state.opt_state, target, lr)
+        saved = None
+        if keep is not None and not self._update_takes_keep:
+            # a client transform without `keep`: its state is restored
+            # where the step overflowed
+            saved = [t.clone() for t in self._state_tensors(state.opt_state)]
+            updates, _ = self.optimizer_transform.update(
+                grads, state.opt_state, target, lr)
+        elif keep is not None:
+            updates, _ = self.optimizer_transform.update(
+                grads, state.opt_state, target, lr, keep=keep)
+        else:
+            updates, _ = self.optimizer_transform.update(
+                grads, state.opt_state, target, lr)
         if self.bf16_sr_mode:
             stochastic_round_apply(target, updates, self._sr_gen)
         else:
-            for t, u in zip(target, updates):
-                t.add_(u)
+            apply_updates(target, updates, keep)
+        if saved is not None:
+            for t, old in zip(self._state_tensors(state.opt_state), saved):
+                t.copy_(torch.where(keep, t, old))
         if self.mixed_precision:
             for p, m in zip(leaves, state.master):
                 p.copy_(m)
-        state.global_steps.add_(1)
-        return grad_norm
+        if keep is None:
+            state.global_steps.add_(1)
+            return grad_norm, None
+        state.global_steps.add_(keep.to(torch.int32))
+        state.skipped.add_(overflow.to(torch.int32))
+        args = self.dynamic_loss_scale_args() or {}
+        new_scale = update_loss_scale(
+            state.scale, overflow,
+            scale_window=args.get(SCALE_WINDOW, 1000),
+            min_scale=args.get(MIN_LOSS_SCALE, 1.0),
+            delayed_shift=args.get(DELAYED_SHIFT, 2),
+            dynamic=self.dynamic_loss_scale_enabled)
+        for dest, value in zip(state.scale, new_scale):
+            dest.copy_(value)
+        return grad_norm, overflow
 
     def _stacked(self, data_iter, batch):
         gas = self.gradient_accumulation_steps()
@@ -526,14 +738,18 @@ class DeepSpeedEngine:
         batch = self.stage_batch(self._stacked(data_iter, batch))
         self.tput_timer.start()
         lr = self._step_lr()
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self._host_steps)
+        kp = self._keep_prob()
         if gas == 1:
             loss, grads = self._micro_grad(
-                {k: v[0] for k, v in batch.items()}, self._next_rngs())
+                {k: v[0] for k, v in batch.items()}, self._next_rngs(), kp)
         else:
             losses = []
             for i in range(gas):
                 loss_i, g = self._micro_grad(
-                    {k: v[i] for k, v in batch.items()}, self._next_rngs())
+                    {k: v[i] for k, v in batch.items()}, self._next_rngs(),
+                    kp)
                 with torch.no_grad():
                     for a, gi in zip(self.state.acc_grads, g):
                         a.add_(gi)
@@ -541,7 +757,7 @@ class DeepSpeedEngine:
                 del g
             grads = self.state.acc_grads
             loss = torch.stack(losses).mean()
-        self._unscale_clip_and_update(grads, lr)
+        _, overflow = self._unscale_clip_and_update(grads, lr)
         del grads
         if gas > 1:
             for a in self.state.acc_grads:
@@ -549,7 +765,7 @@ class DeepSpeedEngine:
         self.micro_steps += gas
         self._host_steps += 1
         self.losses = loss
-        self._after_model_step()
+        self._after_model_step(overflow)
         self.tput_timer.stop(count=gas)
         return loss
 
@@ -564,7 +780,10 @@ class DeepSpeedEngine:
         """Loss of one microbatch dict; its gradients are computed here
         too and cached for `backward`."""
         batch = self.stage_batch(batch)
-        loss, grads = self._micro_grad(batch, self._next_rngs())
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self._host_steps)
+        loss, grads = self._micro_grad(batch, self._next_rngs(),
+                                       self._keep_prob())
         self._pending = (loss, grads)
         return loss
 
@@ -596,17 +815,33 @@ class DeepSpeedEngine:
             if grads is None:
                 raise RuntimeError("step() at an accumulation boundary "
                                    "without backward()")
-            self._unscale_clip_and_update(grads, self._step_lr())
+            _, overflow = self._unscale_clip_and_update(grads,
+                                                        self._step_lr())
             self._ready_grads = None
             for a in self.state.acc_grads:
                 a.zero_()
             self._host_steps += 1
-            self._after_model_step()
+            self._after_model_step(overflow)
         self.micro_steps += 1
 
-    def _after_model_step(self):
+    def _after_model_step(self, overflow=None):
+        if overflow is not None and self.client_lr_scheduler is not None:
+            # the JAX engine's synced loop: a client scheduler does not
+            # advance past an overflowed step (this reads the device)
+            if bool(overflow):
+                self.lr_scheduler.step(
+                    self.lr_scheduler.last_batch_iteration - 1)
         if self._host_steps % self.steps_per_print() == 0:
             logger.info(f"step={self._host_steps}, lr={self.get_lr()}")
+
+    def _sync_scheduler_mirror(self):
+        """Correct the config scheduler's host mirror from the device
+        step counter (one device read): only fp16 skips make it drift."""
+        if self.fp16_mode and self.lr_scheduler is not None and \
+                self.client_lr_scheduler is None:
+            gs = int(self.state.global_steps)
+            if self.lr_scheduler.last_batch_iteration != gs - 1:
+                self.lr_scheduler.step(gs - 1)
 
     # ------------------------------------------------------------------
     # data, eval, properties
@@ -625,18 +860,27 @@ class DeepSpeedEngine:
                                  rngs=None, deterministic=True)
 
     def get_lr(self):
+        self._sync_scheduler_mirror()
         if self.lr_scheduler is not None:
             try:
                 return [float(self.lr_scheduler.get_last_lr()[0])]
             except AssertionError:
                 return [float(self.lr_scheduler.get_lr()[0])]
+        if self._base_lr is None:
+            return [float(getattr(self.client_optimizer, "lr", 0.0))]
         return [float(self._base_lr)]
 
     @property
     def global_steps(self):
-        """Optimizer steps taken (the host mirror: every step advances
-        it, and no step is skipped without fp16 loss scaling)."""
+        """Optimizer steps attempted, skipped ones included (the host
+        mirror; the device counter `state.global_steps` counts the steps
+        applied)."""
         return self._host_steps
+
+    @property
+    def skipped_steps(self):
+        """Steps skipped on fp16 overflow (a device read)."""
+        return int(self.state.skipped)
 
     @property
     def params(self):
@@ -663,10 +907,11 @@ class DeepSpeedEngine:
     def checkpoint_queue_policy(self):
         return self._config.checkpoint_queue_policy
 
-    def _ckpt_trees(self, leaves, count, mu, nu, lr, remat):
+    def _ckpt_trees(self, leaves, opt, lr, remat):
         """(module tree, optimizer tree) in the JAX engine's layout of
-        per-parameter values `leaves`, `mu`, `nu` (in parameter order)
-        and the step count and learning rate. The same trees of the
+        per-parameter values `leaves` (in parameter order), the
+        optimizer state `opt` (the port's, its per-parameter lists in
+        parameter order) and the learning rate. The same trees of the
         live tensors are the load's destinations."""
         names = list(self.state.params)
         to_jax = getattr(self.module, "params_to_jax", None)
@@ -680,12 +925,39 @@ class DeepSpeedEngine:
             return to_jax(dict(zip(names, values)), remat=remat,
                           stack=ckpt_io.Stacked)
 
-        inner = ScaleByAdamState(count, tree(mu), tree(nu))
-        if self._ckpt_empty_states is not None:
-            inner = (inner,) + (EmptyState(),) * self._ckpt_empty_states
         hyperparams = dict(self._ckpt_hparams, learning_rate=lr)
+        if isinstance(opt, OnebitAdamState):
+            return tree(leaves), OnebitAdamState(
+                opt.count, tree(opt.exp_avg), tree(opt.exp_avg_sq),
+                tree(opt.worker_error), tree(opt.server_error),
+                {"learning_rate": opt.hyperparams["learning_rate"]})
+        if isinstance(opt, LambState):
+            inner = LambState(opt.count, tree(opt.mu), tree(opt.nu))
+        elif isinstance(opt, SGDState):
+            inner = (EmptyState() if opt.trace is None else
+                     TraceState(tree(opt.trace)), EmptyState())
+        elif isinstance(opt, ScaleByAdamBF16State):
+            inner = ScaleByAdamState(opt.count, tree(opt.mu), tree(opt.nu))
+            if self._ckpt_empty_states is not None:
+                inner = (inner,) + (EmptyState(),) * self._ckpt_empty_states
+            elif self.client_optimizer is not None:
+                return tree(leaves), inner   # adamw_bf16's bare state
+        else:
+            raise TypeError(
+                f"checkpoints of optimizer state {type(opt).__name__} are "
+                "not in the JAX package's layout (Adam/AdamW, LAMB, SGD "
+                "and 1-bit Adam are)")
         return tree(leaves), InjectStatefulHyperparamsState(
-            count, hyperparams, {}, inner)
+            opt.count, hyperparams, {}, inner)
+
+    def _injected_lr(self):
+        """The learning rate of the last step applied, as optax's
+        injected hyperparameter holds it in the JAX engine's state."""
+        if self._device_lr_fn is None:
+            return np.asarray(self.get_lr()[0], np.float32)
+        if self._host_steps:
+            return self._device_lr_fn(self.state.global_steps - 1)
+        return np.asarray(self._base_lr, np.float32)
 
     def _remat(self):
         return bool(getattr(getattr(self.module, "config", None), "remat",
@@ -719,20 +991,20 @@ class DeepSpeedEngine:
             (lambda t: t.detach())
         leaves = state.master if self.mixed_precision else \
             list(state.params.values())
-        opt = state.opt_state
-        # the learning rate of the last step (optax's injected one)
-        lr = self._device_lr_fn(state.global_steps - 1) \
-            if self._host_steps else np.asarray(self._base_lr, np.float32)
-        count = take(opt.count)
+        lr = self._injected_lr()
+        opt = ckpt_io.tree_map(
+            lambda t: take(t) if isinstance(t, torch.Tensor) else t,
+            state.opt_state)
         module, opt_state = self._ckpt_trees(
-            [take(t) for t in leaves], count, [take(t) for t in opt.mu],
-            [take(t) for t in opt.nu], lr, self._remat())
+            [take(t) for t in leaves], opt, lr, self._remat())
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
         return dict(
             module=module, opt_state=opt_state, event=event,
+            scale=LossScaleState(*[take(t) for t in state.scale]),
+            skipped=take(state.skipped),
             rng=self._jax_rng_key(), torch_rng=self._rng_states(),
             global_steps=self._host_steps, micro_steps=self.micro_steps,
             lr_scheduler=self.lr_scheduler.state_dict()
@@ -783,16 +1055,18 @@ class DeepSpeedEngine:
         if os.path.exists(staging):
             shutil.rmtree(staging)   # stale leftover of a killed save
         os.makedirs(staging, exist_ok=True)
-        module, opt_state = self._fetch(
-            (snap.pop("module"), snap.pop("opt_state")), snap["event"])
+        module, opt_state, scale, skipped = self._fetch(
+            (snap.pop("module"), snap.pop("opt_state"), snap.pop("scale"),
+             snap.pop("skipped")), snap["event"])
         # the device copies are released here, once on the host
         sd = dict(module=module, global_steps=snap["global_steps"],
-                  skipped_steps=0, micro_steps=snap["micro_steps"],
+                  skipped_steps=int(skipped),
+                  micro_steps=snap["micro_steps"],
                   dp_world_size=1, lr_scheduler=snap["lr_scheduler"],
                   rng=snap["rng"])
         sd[TORCH_RNG] = snap["torch_rng"]
         sd.update(snap["client_state"])
-        optim_sd = dict(opt_state=opt_state, scale=STATIC_SCALE,
+        optim_sd = dict(opt_state=opt_state, scale=scale,
                         zero_stage=snap["zero_stage"])
         ckpt_io.save_checkpoint_files(save_dir, tag, sd, optim_sd,
                                       ckpt_dir=staging)
@@ -950,9 +1224,8 @@ class DeepSpeedEngine:
         state = self.state
         leaves = state.master if self.mixed_precision else \
             list(state.params.values())
-        opt = state.opt_state
-        module, opt_state = self._ckpt_trees(leaves, opt.count, opt.mu,
-                                             opt.nu, None, remat)
+        module, opt_state = self._ckpt_trees(leaves, state.opt_state, None,
+                                             remat)
 
         def pairs(tree, flat, prefix):
             """[(destination, saved)] of every tensor leaf of `tree`,
@@ -997,9 +1270,20 @@ class DeepSpeedEngine:
             else:
                 for dest, saved in moments:
                     dest.copy_(saved)
+            saved_scale = optim_sd.get("scale")   # a legacy pickle's
+            aux = optim_sd.get("aux_flat") or {}
+            if saved_scale is None and "aux/scale.loss_scale" in aux:
+                saved_scale = [aux[f"aux/scale.{f}"]
+                               for f in LossScaleState._fields]
+            if saved_scale is not None and self.fp16_mode:
+                # only fp16 unscales: a saved scale != 1 restored into a
+                # bf16/fp32 engine would scale every gradient forever
+                for dest, saved in zip(state.scale, saved_scale):
+                    dest.copy_(torch.as_tensor(np.asarray(saved)))
         for a in state.acc_grads:
             a.zero_()
         self._pending = self._ready_grads = None
+        state.skipped.fill_(int(sd.get("skipped_steps", 0)))
         state.global_steps.fill_(int(sd.get("global_steps", 0)) -
                                  int(sd.get("skipped_steps", 0)))
         self.micro_steps = int(sd.get("micro_steps", 0))

@@ -215,9 +215,9 @@ inline void col_reduce(const void* workspace, int parts, int cols, void* out,
 BWD_COL_REDUCE = [BWD_NO_LAST_FOLD,
                   (GB, '#include "gelu_rows.cuh"\n',
                    '#include "gelu_rows.cuh"\n' + COL_REDUCE_SRC),
-                  (GB, "      });\n    });\n  });\n  return static_cast<int>("
+                  (GB, "      });\n    });\n  }\n  return static_cast<int>("
                    "cudaGetLastError());",
-                   "      });\n    });\n  });\n  ds_partials::col_reduce("
+                   "      });\n    });\n  }\n  ds_partials::col_reduce("
                    "workspace, ctas_per_group, w, dbias, st, groups);\n"
                    "  return static_cast<int>(cudaGetLastError());")]
 # tanh.approx.f32 (one MUFU op) in place of the accurate tanhf
@@ -274,9 +274,9 @@ LN_NO_FOLD = (LB, "  // the last CTA of this fold group adds the group's "
 LN_COL_REDUCE = [LN_NO_FOLD,
                  (LB, '#include "gelu_rows.cuh"\n',
                   '#include "gelu_rows.cuh"\n' + COL_REDUCE_SRC),
-                 (LB, "      });\n    });\n  });\n  return static_cast<int>("
+                 (LB, "      });\n    });\n  }\n  return static_cast<int>("
                   "cudaGetLastError());",
-                  "      });\n    });\n  });\n  ds_partials::col_reduce("
+                  "      });\n    });\n  }\n  ds_partials::col_reduce("
                   "workspace, grid, 3 * h, sums, st);\n"
                   "  return static_cast<int>(cudaGetLastError());")]
 # each row fetched after the last row's math and stores, not before them

@@ -9,10 +9,10 @@ numpy-seeded batch with a padding mask and token types, on the fused
 ("on": the port's plain twins, the JAX package's XLA form) and unfused
 routes, post-LN and pre-LN; on bf16 parameters, as the engines hold
 them, the encoder's carry is bf16 in both. `bert_params_to_jax` inverts
-`bert_params_from_jax`. Then `initialize` -> `train_batch` at gradient
-accumulation 2 in both engines (AdamW, WarmupLR, clipping) on the same
-batches. Last, what raises: the ZeRO-3 scheduler (Queue 1 item 6) and
-fp16 (item 4).
+`bert_params_from_jax`. The engines' trajectory at gradient
+accumulation 2 (`_ds_config`, TRAJ_TOL) is held in
+tests/test_torch_bert_engine.py. Last, what raises: the ZeRO-3 scheduler (Queue 1 item 6); fp16,
+ported since, builds (it is held in `test_torch_fp16_kernels.py`).
 
 Tolerances (fp32; the packages differ in reduction order only): logits
 within 1e-5 absolute and relative (observed <= 1.7e-6), the loss within
@@ -28,13 +28,12 @@ import torch
 
 import jax
 
-import deepspeed_tpu
-import deepspeed_tpu_torch as dst
 from deepspeed_tpu.models import bert as jbert
 from deepspeed_tpu_torch.models import bert as tbert
 from deepspeed_tpu_torch.models.convert import (bert_config_from_jax,
                                                 bert_params_from_jax,
                                                 bert_params_to_jax)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = 1e-5
 LOSS_TOL = 1e-5
@@ -211,36 +210,6 @@ def _ds_config(gas):
                                      "warmup_max_lr": 1e-3}}}
 
 
-def test_engine_losses_match_jax_engine(jax_bert):
-    """Five steps of `train_batch` at gas 2 on three batches in turn:
-    each step's loss in both engines (the JAX engine spreads the global
-    batch over its virtual devices; the port runs micro batches of 8)."""
-    jcfg, jmodel, jparams, tree = jax_bert
-    gas = 2
-    config = _ds_config(gas)
-    jengine = deepspeed_tpu.initialize(model=jmodel, model_parameters=jparams,
-                                       config=config)[0]
-    model = tbert.BertForPreTrainingLM(bert_config_from_jax(jcfg),
-                                       device="cpu")
-    engine = dst.initialize(model=model,
-                            model_parameters=bert_params_from_jax(tree),
-                            config=dict(config,
-                                        train_micro_batch_size_per_gpu=8))[0]
-    batches = []
-    for i in range(3):
-        micro = [_batch(bs=8, seed=10 + 2 * i + j) for j in range(gas)]
-        batches.append({k: np.stack([m[k] for m in micro])
-                        for k in micro[0]})
-    ref, got = [], []
-    for step in range(5):
-        ref.append(float(jengine.train_batch(batch=batches[step % 3])))
-        got.append(float(engine.train_batch(batch=batches[step % 3])))
-    ref, got = np.array(ref), np.array(got)
-    assert np.all(np.abs(got - ref) <= TRAJ_TOL * np.abs(ref)), (got, ref)
-    assert got[-1] < got[0]
-    assert engine.global_steps == 5 and engine.micro_steps == 10
-
-
 def test_init_fills_every_parameter():
     model = tbert.BertForPreTrainingLM(tbert.tiny_bert_config(), device="cpu")
     params = model.init(seed=1)
@@ -312,6 +281,11 @@ def test_zero3_scheduler_raises_naming_item_6():
 
 
 def test_fp16_raises_naming_item_4():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tbert.BertForPreTrainingLM(tbert.tiny_bert_config(fp16=True),
+    """fp16 (item 4) no longer raises: the model builds, computes in fp16
+    and puts the MLM head's matmuls in fp16 where asked."""
+    assert tbert.mlm_head_dtype(tbert.tiny_bert_config(
+        fp16=True, mlm_head_in_compute_dtype=True), "cpu") == torch.float16
+    assert tbert.mlm_head_dtype(tbert.tiny_bert_config(fp16=True),
+                                "cpu") == torch.float32
+    tbert.BertForPreTrainingLM(tbert.tiny_bert_config(fp16=True),
                                    device="cpu")

@@ -34,6 +34,7 @@ import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.runtime import bf16_optimizer as tbo
 from deepspeed_tpu_torch.runtime import lr_schedules as tls
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _grads(seed, shapes):

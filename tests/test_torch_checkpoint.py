@@ -1,6 +1,9 @@
 """PyTorch port: checkpoints against the JAX package, both ways.
 
-One JAX engine per mode (built once per module) trains two steps from a
+(The interop tests below are in tests/test_torch_checkpoint_interop.py,
+split out to spread the test clock over workers; this file keeps the
+modes, the helpers they share and the rest.) One JAX engine per mode
+(built once per module) trains two steps from a
 gpt2-tiny tree and saves; the port loads that directory, and a port
 engine started from the same tree trains the same two steps, saves,
 and the JAX engine loads it. The modes: fp32; bf16 with fp32 master
@@ -22,24 +25,21 @@ experts, top-2, fp32, remat). In each mode:
     parameters, with several bf16 roundings of the residual stream in
     each package's own order.
 
-BERT (bert-tiny, fp32, the model's own converters `params_to_jax` /
-`params_from_jax`): the JAX engine's directory loads into the port and
-the port's into the JAX engine, every leaf and moment bit for bit, and
-the next loss within 1e-5 relative (observed <= 1.5e-7).
+BERT's checkpoints are held in tests/test_torch_checkpoint_bert.py, the
+async writer's cases in tests/test_torch_checkpoint_async.py, and the
+fp16 engine's and LAMB's, SGD's and 1-bit Adam's in
+tests/test_torch_fp16.py and tests/test_torch_optimizers.py (each with
+the JAX engine of its own trajectory test).
 
 Then the port against itself: save, load into a fresh engine, continue,
 bit for bit the uninterrupted run, at fp32 and at bf16 without master
 weights (the dropout, quant and stochastic-rounding streams restored);
-the single-process cases of the JAX package's `test_async_checkpoint.py`
-on the port's engine; the bf16 npz encoding without ml_dtypes; the npz
-writer against np.savez; legacy pickles; the tag vote.
+the bf16 npz encoding without ml_dtypes; the npz writer against
+np.savez; legacy pickles; the tag vote.
 """
 
 import dataclasses
-import os
 import pickle
-import threading
-import time
 from unittest import mock
 
 import numpy as np
@@ -49,18 +49,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import deepspeed_tpu
 import deepspeed_tpu_torch as dst
-from deepspeed_tpu.models import bert as jbert
 from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu.moe import MoEConfig as JMoE
-from deepspeed_tpu_torch.models import bert as tbert
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
-from deepspeed_tpu_torch.models.convert import (bert_config_from_jax,
-                                                params_from_jax,
+from deepspeed_tpu_torch.models.convert import (params_from_jax,
                                                 params_to_jax)
 from deepspeed_tpu_torch.moe import MoEConfig as TMoE
 from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SEQ = 32
 FP32_TOL = 1e-5
@@ -121,49 +118,9 @@ def _port_engine(mode, tree, **extra):
                           config=_ds_config(mode, micro_batch=8, **extra))[0]
 
 
-@pytest.fixture(scope="module", params=list(MODES))
-def jax_run(request, tmp_path_factory):
-    """The JAX engine of a mode after two steps and a save to
-    `<dir>/jax` (tag "t"), then one more step (its loss is the next
-    loss after the save), with the initial tree."""
-    mode = request.param
-    jcfg, _ = _model_cfgs(mode)
-    model = jgpt2.GPT2ForCausalLM(jcfg)
-    params = model.init(jax.random.PRNGKey(0),
-                        {"input_ids": np.zeros((1, 8), np.int32)})
-    engine = deepspeed_tpu.initialize(model=model, model_parameters=params,
-                                      config=_ds_config(mode))[0]
-    batches = _batches()
-    for b in batches[:2]:
-        engine.train_batch(batch=b)
-    root = tmp_path_factory.mktemp(f"ckpt_{mode}")
-    engine.save_checkpoint(str(root / "jax"), tag="t", async_save=False)
-    next_loss = float(engine.train_batch(batch=batches[2]))
-    return dict(mode=mode, engine=engine, root=root, batches=batches,
-                next_loss=next_loss,
-                tree=jax.tree_util.tree_map(np.asarray, params))
-
-
 def _flat(path, tag="t"):
     flat, meta, optim_meta, _ = ckpt_io.load_checkpoint_flat(path, tag)
     return flat, meta, optim_meta
-
-
-def _port_save_after_two_steps(run):
-    """A port engine from the run's initial tree, two steps, saved to
-    `<dir>/port` (tag "t"); returns the engine (once, per run)."""
-    if "port" not in run:
-        engine = _port_engine(run["mode"], run["tree"])
-        for b in run["batches"][:2]:
-            engine.train_batch(batch=b)
-        engine.save_checkpoint(str(run["root"] / "port"), tag="t",
-                               async_save=False)
-        run["port"] = engine
-    return run["port"]
-
-
-def _loss_tol(mode):
-    return BF16_TOL if MODES[mode]["bf16"] is not None else FP32_TOL
 
 
 def _jax_flat(tree, prefix):
@@ -183,183 +140,6 @@ def _bits(x):
     return arr.tobytes()
 
 
-def test_port_writes_the_jax_entries(jax_run):
-    _port_save_after_two_steps(jax_run)
-    jflat, jmeta, jopt = _flat(str(jax_run["root"] / "jax"))
-    pflat, pmeta, popt = _flat(str(jax_run["root"] / "port"))
-
-    def layout(flat):
-        return {k: (tuple(v.shape), v.dtype) for k, v in flat.items()}
-
-    assert layout(pflat) == layout(jflat)
-    assert set(pmeta) == set(jmeta) | {"torch_rng"}
-    assert popt == jopt
-    for key in ("global_steps", "skipped_steps", "micro_steps",
-                "lr_scheduler"):
-        assert pmeta[key] == jmeta[key], key
-    assert pmeta["rng"].dtype == np.uint32 and pmeta["rng"].shape == (2,)
-    if MODES[jax_run["mode"]]["stage"]:
-        # the JAX save sharded the moments into bucket files
-        assert any(n.startswith("zero_pp_rank") for n in
-                   os.listdir(jax_run["root"] / "jax" / "t"))
-
-
-def test_jax_checkpoint_loads_into_port(jax_run):
-    mode = jax_run["mode"]
-    src = str(jax_run["root"] / "jax")
-    engine = _port_engine(mode, jax_run["tree"])
-    with mock.patch.object(ckpt_io.logger, "warning") as warn:
-        path, client = engine.load_checkpoint(src)
-    assert path.endswith("t") and client == {}
-    assert not warn.called, warn.call_args_list
-    # the loaded state, written back, holds the file's bytes in every
-    # entry but the injected learning rate (each package evaluates its
-    # schedule)
-    engine.save_checkpoint(str(jax_run["root"] / "reload"), tag="t",
-                           async_save=False)
-    jflat, jmeta, _ = _flat(src)
-    pflat, pmeta, _ = _flat(str(jax_run["root"] / "reload"))
-    lr_key = "optim.hyperparams['learning_rate']"
-    for key, value in jflat.items():
-        if key == lr_key:
-            np.testing.assert_allclose(pflat[key], value, rtol=1e-6)
-        else:
-            assert _bits(pflat[key]) == _bits(value), key
-    moments = [k for k in jflat if ".mu[" in k or ".nu[" in k]
-    assert moments and all(bool(torch.any(jflat[k] != 0))
-                           for k in moments if ".nu[" in k)
-    assert engine.global_steps == 2 and engine.micro_steps == 2
-    loss = float(engine.train_batch(batch=jax_run["batches"][2]))
-    ref = jax_run["next_loss"]
-    assert abs(loss - ref) <= _loss_tol(mode) * abs(ref), (loss, ref)
-
-
-def test_port_checkpoint_loads_into_jax(jax_run):
-    mode = jax_run["mode"]
-    port = _port_save_after_two_steps(jax_run)
-    jengine = jax_run["engine"]
-    src = str(jax_run["root"] / "port")
-    with mock.patch("deepspeed_tpu.runtime.engine.logger") as log:
-        path, client = jengine.load_checkpoint(src, tag="t")
-    warnings = [str(c.args[0]) for c in log.warning.call_args_list]
-    assert not any("reset" in w for w in warnings), warnings
-    assert set(client) == {"torch_rng"}
-    assert jengine.global_steps == 2
-    pflat, _, _ = _flat(src)
-    # the checkpoint-facing trees (ZeRO's padding taken off)
-    payload = jengine._ckpt_payload(jengine.state)
-    jmodule = _jax_flat(payload["module"], "module")
-    jopt = _jax_flat(payload["opt_state"], "optim")
-    assert set(jmodule) | set(jopt) == {k for k in pflat
-                                        if not k.startswith("aux/")}
-    for key, value in {**jmodule, **jopt}.items():
-        assert _bits(pflat[key]) == _bits(value), key
-    batch = jax_run["batches"][3]
-    ref = float(port.train_batch(batch=batch))
-    loss = float(jengine.train_batch(batch=batch))
-    assert abs(loss - ref) <= _loss_tol(mode) * abs(ref), (loss, ref)
-
-
-# ----------------------------------------------------------------------
-# BERT: the model's own tree converters
-# ----------------------------------------------------------------------
-def _bert_batches(n=4, seed=0):
-    rng = np.random.RandomState(seed)
-    out = []
-    for _ in range(n):
-        ids = rng.randint(0, 256, (1, 8, SEQ)).astype(np.int32)
-        labels = np.where(rng.rand(1, 8, SEQ) < 0.15, ids, -100)
-        out.append({"input_ids": ids,
-                    "masked_lm_labels": labels.astype(np.int32),
-                    "next_sentence_label":
-                        rng.randint(0, 2, (1, 8)).astype(np.int32)})
-    return out
-
-
-@pytest.fixture(scope="module")
-def bert_run(tmp_path_factory):
-    """The JAX engine on bert-tiny (fp32) after two steps and a save to
-    `<dir>/jax` (tag "t"), then one more step, with the initial tree."""
-    jcfg = jbert.tiny_bert_config()
-    model = jbert.BertForPreTrainingLM(jcfg)
-    params = model.init(jax.random.PRNGKey(0),
-                        {"input_ids": np.zeros((1, SEQ), np.int32)})
-    engine = deepspeed_tpu.initialize(model=model, model_parameters=params,
-                                      config=_ds_config("fp32"))[0]
-    batches = _bert_batches()
-    for b in batches[:2]:
-        engine.train_batch(batch=b)
-    root = tmp_path_factory.mktemp("ckpt_bert")
-    engine.save_checkpoint(str(root / "jax"), tag="t", async_save=False)
-    next_loss = float(engine.train_batch(batch=batches[2]))
-    return dict(jcfg=jcfg, engine=engine, root=root, batches=batches,
-                next_loss=next_loss,
-                tree=jax.tree_util.tree_map(np.asarray, params))
-
-
-def _bert_port_engine(run):
-    model = tbert.BertForPreTrainingLM(bert_config_from_jax(run["jcfg"]),
-                                       device="cpu")
-    return dst.initialize(
-        model=model, model_parameters=model.params_from_jax(run["tree"]),
-        config=_ds_config("fp32", micro_batch=8))[0]
-
-
-def test_bert_jax_checkpoint_loads_into_port(bert_run):
-    src = str(bert_run["root"] / "jax")
-    engine = _bert_port_engine(bert_run)
-    with mock.patch.object(ckpt_io.logger, "warning") as warn:
-        path, client = engine.load_checkpoint(src)
-    assert path.endswith("t") and client == {}
-    assert not warn.called, warn.call_args_list
-    engine.save_checkpoint(str(bert_run["root"] / "reload"), tag="t",
-                           async_save=False)
-    jflat, _, _ = _flat(src)
-    pflat, _, _ = _flat(str(bert_run["root"] / "reload"))
-    assert set(pflat) == set(jflat)
-    assert any("['encoder']['layer']['DeepSpeedTransformerLayer_0']" in k
-               for k in jflat)
-    lr_key = "optim.hyperparams['learning_rate']"
-    for key, value in jflat.items():
-        if key == lr_key:
-            np.testing.assert_allclose(pflat[key], value, rtol=1e-6)
-        else:
-            assert _bits(pflat[key]) == _bits(value), key
-    assert any(".mu[" in k for k in jflat)
-    loss = float(engine.train_batch(batch=bert_run["batches"][2]))
-    ref = bert_run["next_loss"]
-    assert abs(loss - ref) <= FP32_TOL * abs(ref), (loss, ref)
-
-
-def test_bert_port_checkpoint_loads_into_jax(bert_run):
-    port = _bert_port_engine(bert_run)
-    for b in bert_run["batches"][:2]:
-        port.train_batch(batch=b)
-    src = str(bert_run["root"] / "port")
-    port.save_checkpoint(src, tag="t", async_save=False)
-    jengine = bert_run["engine"]
-    with mock.patch("deepspeed_tpu.runtime.engine.logger") as log:
-        jengine.load_checkpoint(src, tag="t")
-    warnings = [str(c.args[0]) for c in log.warning.call_args_list]
-    assert not any("reset" in w for w in warnings), warnings
-    assert jengine.global_steps == 2
-    pflat, _, _ = _flat(src)
-    payload = jengine._ckpt_payload(jengine.state)
-    jmodule = _jax_flat(payload["module"], "module")
-    jopt = _jax_flat(payload["opt_state"], "optim")
-    assert set(jmodule) | set(jopt) == {k for k in pflat
-                                        if not k.startswith("aux/")}
-    for key, value in {**jmodule, **jopt}.items():
-        assert _bits(pflat[key]) == _bits(value), key
-    batch = bert_run["batches"][3]
-    ref = float(port.train_batch(batch=batch))
-    loss = float(jengine.train_batch(batch=batch))
-    assert abs(loss - ref) <= FP32_TOL * abs(ref), (loss, ref)
-
-
-# ----------------------------------------------------------------------
-# the layout pieces
-# ----------------------------------------------------------------------
 @pytest.mark.parametrize("mode,remat", [("fp32", False), ("fp32", True),
                                         ("moe", True)])
 def test_params_to_jax_inverts_params_from_jax(mode, remat):
@@ -617,7 +397,8 @@ def test_mismatched_optimizer_keeps_the_moments(tmp_path):
 
 
 # ----------------------------------------------------------------------
-# async saves: the single-process cases of test_async_checkpoint.py
+# a small engine of its own weights (the legacy pickle case here, the
+# async cases in tests/test_torch_checkpoint_async.py)
 # ----------------------------------------------------------------------
 def _engine(checkpoint=None, gas=1, seed=0):
     model = tgpt2.GPT2ForCausalLM(tgpt2.tiny_gpt2_config(n_positions=SEQ),
@@ -629,314 +410,3 @@ def _engine(checkpoint=None, gas=1, seed=0):
         config["checkpoint"] = checkpoint
     return dst.initialize(model=model, model_parameters=model.init(seed),
                           config=config)[0]
-
-
-def _train(engine, steps, start=0):
-    gas = engine.gradient_accumulation_steps()
-    for i in range(steps):
-        ids = np.random.RandomState(start + i).randint(0, 256, (gas, 4, SEQ))
-        engine.train_batch(batch={"input_ids": ids})
-
-
-def _case_atomic_commit(tmp_path):
-    engine = _engine()
-    _train(engine, 2)
-    assert engine.save_checkpoint(str(tmp_path), tag="t1") is True
-    engine.wait_for_checkpoint()
-    assert os.path.isdir(tmp_path / "t1")
-    assert not os.path.exists(tmp_path / ("t1" + ckpt_io.STAGING_SUFFIX))
-    assert ckpt_io.read_latest_tag(str(tmp_path)) == "t1"
-    path, _ = engine.load_checkpoint(str(tmp_path))
-    assert path is not None and path.endswith("t1")
-
-
-def _case_async_equals_sync_under_training(tmp_path):
-    """A sync and an async save of the same state are bit-identical
-    although training steps (in place) while the writer serializes."""
-    engine = _engine()
-    _train(engine, 2)
-    engine.save_checkpoint(str(tmp_path), tag="sync_ref", async_save=False,
-                           save_latest=False)
-    orig = engine._write_checkpoint
-    gate = threading.Event()
-
-    def gated(*a, **k):
-        assert gate.wait(timeout=30)
-        return orig(*a, **k)
-
-    engine._write_checkpoint = gated
-    engine.save_checkpoint(str(tmp_path), tag="async_ref", async_save=True)
-    ref_mu = [m.clone() for m in engine.state.opt_state.mu]
-    _train(engine, 3, start=100)
-    gate.set()
-    engine.wait_for_checkpoint()
-    assert ckpt_io.checkpoint_dirs_bit_identical(
-        str(tmp_path / "sync_ref"), str(tmp_path / "async_ref"))
-    engine2 = _engine(seed=7)
-    engine2.load_checkpoint(str(tmp_path), tag="async_ref")
-    assert all(torch.equal(a, b)
-               for a, b in zip(ref_mu, engine2.state.opt_state.mu))
-
-
-def _case_backpressure_blocks(tmp_path):
-    engine = _engine()   # writer_queue_depth defaults to 1
-    _train(engine, 1)
-    orig = engine._write_checkpoint
-
-    def slow(*a, **k):
-        time.sleep(0.5)
-        return orig(*a, **k)
-
-    engine._write_checkpoint = slow
-    t0 = time.perf_counter()
-    engine.save_checkpoint(str(tmp_path), tag="a")
-    first = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    engine.save_checkpoint(str(tmp_path), tag="b")
-    second = time.perf_counter() - t1
-    engine.wait_for_checkpoint()
-    assert first < 0.4 <= second, (first, second)
-    assert os.path.isdir(tmp_path / "a") and os.path.isdir(tmp_path / "b")
-    assert ckpt_io.read_latest_tag(str(tmp_path)) == "b"
-
-
-def _case_backpressure_drops(tmp_path):
-    engine = _engine({"queue_policy": "drop"})
-    _train(engine, 1)
-    orig = engine._write_checkpoint
-    started, release = threading.Event(), threading.Event()
-
-    def gated(*a, **k):
-        started.set()
-        assert release.wait(timeout=30)
-        return orig(*a, **k)
-
-    engine._write_checkpoint = gated
-    assert engine.save_checkpoint(str(tmp_path), tag="a") is True
-    assert started.wait(timeout=10)
-    # dropped BEFORE paying for the snapshot
-    with mock.patch.object(engine, "_checkpoint_snapshot") as snap:
-        assert engine.save_checkpoint(str(tmp_path), tag="b") is False
-    assert snap.call_count == 0
-    release.set()
-    engine.wait_for_checkpoint()
-    assert os.path.isdir(tmp_path / "a")
-    assert not os.path.exists(tmp_path / "b")
-    assert not os.path.exists(tmp_path / ("b" + ckpt_io.STAGING_SUFFIX))
-
-
-def _case_same_tag_serializes(tmp_path):
-    engine = _engine({"writer_queue_depth": 2})
-    _train(engine, 1)
-    orig = engine._write_checkpoint
-    started, release = threading.Event(), threading.Event()
-
-    def gated(*a, **k):
-        if not started.is_set():
-            started.set()
-            assert release.wait(timeout=30)
-        return orig(*a, **k)
-
-    engine._write_checkpoint = gated
-    assert engine.save_checkpoint(str(tmp_path), tag="t") is True
-    assert started.wait(timeout=10)
-    threading.Timer(0.5, release.set).start()
-    t0 = time.perf_counter()
-    assert engine.save_checkpoint(str(tmp_path), tag="t") is True
-    assert time.perf_counter() - t0 >= 0.3
-    engine.wait_for_checkpoint()
-    assert sorted(os.listdir(tmp_path)) == ["latest", "t"]
-
-
-def _case_submission_order(tmp_path):
-    engine = _engine({"writer_queue_depth": 2, "keep_last": 1})
-    _train(engine, 1)
-    orig = engine._write_checkpoint
-    first = threading.Event()
-
-    def stagger(*a, **k):
-        if not first.is_set():
-            first.set()
-            time.sleep(0.5)   # the first job serializes slowly
-        return orig(*a, **k)
-
-    engine._write_checkpoint = stagger
-    assert engine.save_checkpoint(str(tmp_path), tag="older") is True
-    assert engine.save_checkpoint(str(tmp_path), tag="newer") is True
-    engine.wait_for_checkpoint()
-    assert ckpt_io.read_latest_tag(str(tmp_path)) == "newer"
-    assert os.path.isdir(tmp_path / "newer")
-    assert not os.path.isdir(tmp_path / "older")   # rotated out
-
-
-def _case_later_failure_no_deadlock(tmp_path):
-    engine = _engine({"writer_queue_depth": 2})
-    _train(engine, 1)
-    orig = engine._write_checkpoint
-
-    def hooked(save_dir, tag, snap, save_latest, **k):
-        if tag == "a":
-            time.sleep(0.5)
-            return orig(save_dir, tag, snap, save_latest, **k)
-        raise OSError("disk full")   # job b dies before its gate
-
-    engine._write_checkpoint = hooked
-    assert engine.save_checkpoint(str(tmp_path), tag="a") is True
-    assert engine.save_checkpoint(str(tmp_path), tag="b") is True
-    with pytest.raises(RuntimeError, match="checkpoint write failed"):
-        engine.wait_for_checkpoint()
-    assert os.path.isdir(tmp_path / "a")
-
-
-def _case_writer_error_reraised(tmp_path):
-    engine = _engine()
-    _train(engine, 1)
-
-    def boom(*a, **k):
-        raise OSError("disk full")
-
-    engine._write_checkpoint = boom
-    engine.save_checkpoint(str(tmp_path), tag="t")
-    with pytest.raises(RuntimeError, match="checkpoint write failed"):
-        engine.wait_for_checkpoint()
-    engine.wait_for_checkpoint()   # consumed; the writer is usable
-
-
-def _case_sync_drains_async(tmp_path):
-    engine = _engine()
-    _train(engine, 1)
-    orig = engine._write_checkpoint
-    release = threading.Event()
-
-    def gated(save_dir, tag, snap, save_latest, **k):
-        if tag == "slow":
-            assert release.wait(timeout=30)
-        return orig(save_dir, tag, snap, save_latest, **k)
-
-    engine._write_checkpoint = gated
-    engine.save_checkpoint(str(tmp_path), tag="slow")
-    threading.Timer(0.4, release.set).start()
-    t0 = time.perf_counter()
-    engine.save_checkpoint(str(tmp_path), tag="final", async_save=False)
-    assert time.perf_counter() - t0 >= 0.3
-    assert ckpt_io.read_latest_tag(str(tmp_path)) == "final"
-    assert os.path.isdir(tmp_path / "slow")
-
-
-def _case_gas_change_across_reload(tmp_path):
-    eng_a = _engine(gas=2)
-    _train(eng_a, 2)
-    assert eng_a.global_steps == 2 and eng_a.micro_steps == 4
-    eng_a.save_checkpoint(str(tmp_path), tag="t")
-    eng_a.wait_for_checkpoint()
-    eng_b = _engine(seed=7)   # gas 1
-    eng_b.load_checkpoint(str(tmp_path), tag="t")
-    assert eng_b.global_steps == 2   # micro_steps // gas would say 4
-    assert int(eng_b.state.global_steps) == 2
-
-
-def _case_resave_existing_tag(tmp_path):
-    engine = _engine()
-    _train(engine, 1)
-    engine.save_checkpoint(str(tmp_path), tag="t")
-    engine.wait_for_checkpoint()
-    _train(engine, 1, start=50)
-    engine.save_checkpoint(str(tmp_path), tag="t")
-    engine.wait_for_checkpoint()
-    assert sorted(os.listdir(tmp_path)) == ["latest", "t"]
-    assert engine.load_checkpoint(str(tmp_path))[0].endswith("t")
-
-
-def _case_client_state_isolated(tmp_path):
-    engine = _engine()
-    _train(engine, 1)
-    orig = engine._write_checkpoint
-    gate = threading.Event()
-
-    def slow(*a, **k):
-        assert gate.wait(timeout=30)
-        return orig(*a, **k)
-
-    engine._write_checkpoint = slow
-    state = {"metrics": {"acc": 1}}
-    engine.save_checkpoint(str(tmp_path), tag="t", client_state=state)
-    state["metrics"]["acc"] = 999   # mutate while the writer waits
-    gate.set()
-    engine.wait_for_checkpoint()
-    sd, _ = ckpt_io.load_checkpoint_files(str(tmp_path), "t")
-    assert sd["metrics"] == {"acc": 1}
-    assert engine.load_checkpoint(str(tmp_path))[1] == {
-        "metrics": {"acc": 1}}
-
-
-def _case_interrupted_save_raises(tmp_path):
-    os.makedirs(tmp_path / ("t" + ckpt_io.STAGING_SUFFIX))
-    with pytest.raises(ckpt_io.CheckpointStagingOnlyError,
-                       match="interrupted save"):
-        ckpt_io.load_checkpoint_flat(str(tmp_path), "t")
-    with pytest.raises(ckpt_io.CheckpointNotFoundError):
-        _engine().load_checkpoint(str(tmp_path), tag="never")
-
-
-def _case_latest_skips_staging(tmp_path):
-    (tmp_path / "latest").write_text("t" + ckpt_io.STAGING_SUFFIX)
-    assert ckpt_io.read_latest_tag(str(tmp_path)) is None
-    assert _engine().load_checkpoint(str(tmp_path)) == (None, {})
-    ckpt_io.write_latest_tag(str(tmp_path), "real")
-    assert ckpt_io.read_latest_tag(str(tmp_path)) == "real"
-    assert sorted(os.listdir(tmp_path)) == ["latest"]
-
-
-def _case_keep_last_rotation(tmp_path):
-    engine = _engine({"keep_last": 2})
-    _train(engine, 1)
-    for i in range(3):
-        engine.save_checkpoint(str(tmp_path), tag=f"t{i}")
-        engine.wait_for_checkpoint()
-        time.sleep(0.05)   # distinct mtimes on coarse filesystems
-    dirs = sorted(d for d in os.listdir(tmp_path)
-                  if os.path.isdir(tmp_path / d))
-    assert dirs == ["t1", "t2"], dirs
-    assert engine.load_checkpoint(str(tmp_path))[0].endswith("t2")
-
-
-def _case_timeout_abandon_and_shutdown(tmp_path):
-    """A wedged writer: the bounded wait raises, abandonment frees the
-    engine, the abandoned job still commits its tag but not `latest`,
-    and a save to the tag it holds is skipped."""
-    engine = _engine()
-    _train(engine, 1)
-    engine.save_checkpoint(str(tmp_path), tag="good", async_save=False)
-    orig = engine._write_checkpoint
-    release = threading.Event()
-
-    def wedged(*a, **k):
-        assert release.wait(timeout=30)
-        return orig(*a, **k)
-
-    engine._write_checkpoint = wedged
-    engine.save_checkpoint(str(tmp_path), tag="stuck")
-    with pytest.raises(ckpt_io.CheckpointWaitTimeout) as err:
-        engine.wait_for_checkpoint(timeout=0.1)
-    assert err.value.pending == 1
-    assert engine.abandon_checkpoint_writers() == 1
-    engine._write_checkpoint = orig
-    assert engine.save_checkpoint(str(tmp_path), tag="stuck") is False
-    engine.shutdown()   # nothing tracked: returns at once
-    release.set()
-    for w in engine._abandoned_ckpt_writers:
-        w.wait(timeout=30)
-    assert os.path.isdir(tmp_path / "stuck")
-    assert ckpt_io.read_latest_tag(str(tmp_path)) == "good"
-    engine.save_checkpoint(str(tmp_path), tag="next")
-    engine.shutdown()   # drains the new writer
-    assert ckpt_io.read_latest_tag(str(tmp_path)) == "next"
-
-
-ASYNC_CASES = {name[len("_case_"):]: fn for name, fn in globals().items()
-               if name.startswith("_case_")}
-
-
-@pytest.mark.parametrize("case", sorted(ASYNC_CASES))
-def test_async_checkpoint(case, tmp_path):
-    ASYNC_CASES[case](tmp_path)

@@ -8,7 +8,10 @@ async checkpoint's side-stream snapshot against in-place steps, and
 BERT pretraining's kernel forms (non-causal bf16 attention at [16, 128,
 16, 64], the post-LN LayerNorm at H 1024 with the carry's dtype, the
 erf GeLU at N 2048, W 4096) and a small BERT on the kernels against
-the plain route.
+the plain route; the fp16 forms of K1-K4 at the fp16 paths' shapes
+(BERT-large, gpt2-1.5b), with an inf in the input and in the cotangent
+reaching every output the twin's reaches, none of their instantiations
+spilling, and an fp16 step skipped on the card bit for bit.
 
 K3-fwd is held at every model width, a ragged one, N 1 / 4 / 127 and
 the paths' shapes, in every dtype combination, with unaligned views and
@@ -22,7 +25,8 @@ the JAX package, so on a machine with a GPU and no JAX it runs alone:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: bf16 outputs within one rounding of the twin's fp32 result
-(atol = rtol = 1e-2, about one bf16 ulp); fp32 outputs and the
+(atol = rtol = 1e-2, about one bf16 ulp); fp16 outputs within two fp16
+ulps (atol = rtol = 2e-3), fp16 gradients 5e-3 relative L2; fp32 outputs and the
 log2-space lse to reduction-order roundoff (atol = rtol = 1e-4).
 Gradients are compared by relative L2 error, ||got - ref|| / ||ref||:
 fp32 within 1e-5 (reduction order); bf16 within 1e-2 (one rounding of
@@ -178,10 +182,11 @@ def test_cuda_tensors_never_fall_back(dev):
         q = torch.zeros((1, 128, 2, d), device=dev, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
             tfa.flash_attention(q, q, q)
-    q = torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.float16)
+    # fp16 has its forms since ROADMAP Queue 1 item 4; fp64 none
+    q = torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         tfa.flash_attention(q, q, q)
-    y = torch.zeros((4, 8), device=dev, dtype=torch.float16)
+    y = torch.zeros((4, 8), device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         tfo.fused_bias_gelu(y, torch.zeros(8, device=dev))
     y = torch.zeros((8, 4), device=dev).t()
@@ -1878,3 +1883,253 @@ def test_bert_on_the_kernels_matches_plain_route(dev):
     assert abs(float(lk) - float(lp)) <= 1e-2 * abs(float(lp))
     for name, a, b in zip(params, gk, gp):
         assert _rel_l2(a, b) <= 5e-2, name
+
+
+# ----------------------------------------------------------------------
+# the fp16 forms of K1-K4 (paths A, B and C's shapes)
+# ----------------------------------------------------------------------
+# fp16 outputs within two fp16 ulps of the twin's fp32 result (fp16
+# keeps 3 more mantissa bits than bf16); gradients by relative L2
+F16_TOL = dict(atol=2e-3, rtol=2e-3)
+F16_GRAD_TOL = 5e-3
+F16 = torch.float16
+
+
+def _nonfinite_covered(got, ref):
+    """Every position where the twin is non-finite is non-finite in the
+    kernel's output too, and the twin has some."""
+    g, r = ~torch.isfinite(got.float()), ~torch.isfinite(ref.float())
+    return bool(r.any()) and bool((g | ~r).all())
+
+
+@pytest.mark.parametrize("b,t,h,d,causal", [
+    (16, 128, 16, 64, False),    # path A, BERT-large
+    (11, 1024, 25, 64, True),    # paths B and C, gpt2-1.5b
+    (2, 320, 3, 128, True),      # head dim 128, ragged last q tile
+], ids=["bert", "gpt2", "d128-ragged"])
+def test_fp16_flash_kernels_match_twins(dev, b, t, h, d, causal):
+    """K1-fwd and K2's fp16 forms (q/k/v column slices of one qkv tensor)
+    against the twins; K2 twice, bit for bit; an inf in v (the forward)
+    and in dO (the backward) gives non-finite values wherever the twin's
+    are."""
+    g = _gen(dev, 21)
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(F16)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    sm = d ** -0.5
+    before = tfa.flash_attention_with_lse.launches
+    out, lse = tfa.flash_attention_with_lse(q, k, v, causal=causal)
+    ref, ref_lse = tfa._flash_fwd_plain(q, k, v, sm, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_with_lse.launches == before + 1
+    assert out.dtype == F16
+    torch.testing.assert_close(out.float(), ref.float(), **F16_TOL)
+    torch.testing.assert_close(lse[..., 0], ref_lse, **F32_TOL)
+    lse = lse[..., 0].contiguous()
+    dout = torch.randn((b, t, h, d), generator=g, device=dev).to(F16)
+    got = tfa.flash_attention_backward(q, k, v, out, lse, dout, None, sm,
+                                       causal)
+    again = tfa.flash_attention_backward(q, k, v, out, lse, dout, None, sm,
+                                         causal)
+    want = tfa._flash_bwd_plain(q, k, v, out, lse, dout, None, sm, causal)
+    for name, x, y, z in zip("qkv", got, want, again):
+        assert x.dtype == F16
+        assert _rel_l2(x, y) <= F16_GRAD_TOL, name
+        assert torch.equal(x, z), name
+    v_inf = v.clone()
+    v_inf[0, 3, 0, 1] = float("inf")
+    assert _nonfinite_covered(
+        tfa.flash_attention_with_lse(q, k, v_inf, causal=causal)[0],
+        tfa._flash_fwd_plain(q, k, v_inf, sm, causal)[0])
+    dout[0, 5, 1, 2] = float("inf")
+    for x, y in zip(tfa.flash_attention_backward(q, k, v, out, lse, dout,
+                                                 None, sm, causal),
+                    tfa._flash_bwd_plain(q, k, v, out, lse, dout, None, sm,
+                                         causal)):
+        assert _nonfinite_covered(x, y)
+
+
+@pytest.mark.parametrize("n,h,res_dt,out_dt,sum_dt", [
+    (2048, 1024, F16, torch.float32, F16),            # A: first LN
+    (2048, 1024, torch.float32, torch.float32, torch.float32),  # A: second
+    (11264, 1600, F16, F16, F16),                     # B, C: in block
+    (127, 1602, F16, F16, F16),                       # ragged, scalar
+], ids=["bert-fp16-residual", "bert-fp32-residual", "gpt2", "ragged"])
+def test_fp16_layernorm_kernels_match_twins(dev, n, h, res_dt, out_dt,
+                                            sum_dt):
+    """K3-fwd's and K3-bwd's fp16 forms (y fp16, fp16 vectors as the
+    engine holds them) against the twins, one launch a call, the
+    backward twice bit for bit; an inf in y and in dout propagates."""
+    g = _gen(dev, 22)
+    y = (2.0 * torch.randn((n, h), generator=g, device=dev)).to(F16)
+    res = (2.0 * torch.randn((n, h), generator=g, device=dev)).to(res_dt)
+    bias, beta = ((0.1 * torch.randn((h,), generator=g, device=dev))
+                  .to(F16) for _ in range(2))
+    gamma = (1.0 + 0.1 * torch.randn((h,), generator=g, device=dev)).to(F16)
+    before = tfo.fused_bias_residual_layernorm.launches
+    out, s = tfo._ln_forward(y, bias, res, gamma, beta, 1e-5, out_dt,
+                             sum_dt, True)
+    ref_out, ref_s = tfo._ln_fwd_math(y, bias, res, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert tfo.fused_bias_residual_layernorm.launches == before + 1
+    assert out.dtype == out_dt and s.dtype == sum_dt
+    for x, r in ((out, ref_out), (s, ref_s)):
+        torch.testing.assert_close(
+            x.float(), r.to(x.dtype).float(),
+            **(F16_TOL if x.dtype == F16 else F32_TOL))
+    dout = torch.randn((n, h), generator=g, device=dev).to(out_dt)
+    dsum = torch.randn((n, h), generator=g, device=dev).to(sum_dt)
+    got = tfo.fused_bias_residual_layernorm_backward(
+        s, gamma, dout, dsum, eps=1e-5, dx_dtype=F16)
+    again = tfo.fused_bias_residual_layernorm_backward(
+        s, gamma, dout, dsum, eps=1e-5, dx_dtype=F16)
+    ds, dg, db = tfo._ln_bwd_math(s, gamma, dout, dsum, 1e-5)
+    torch.cuda.synchronize()
+    assert got[0].dtype == F16
+    assert _rel_l2(got[0], ds.to(F16)) <= F16_GRAD_TOL
+    for x, r in zip(got[1:], (ds.sum(0), dg.sum(0), db.sum(0))):
+        assert _rel_l2(x, r) <= GRAD_TOL[torch.float32] * 10
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    y[3, 7] = float("inf")
+    assert _nonfinite_covered(
+        tfo._ln_forward(y, bias, res, gamma, beta, 1e-5, out_dt, sum_dt,
+                        True)[0],
+        tfo._ln_fwd_math(y, bias, res, gamma, beta, 1e-5)[0].to(out_dt))
+    dout[9, 4] = float("inf")
+    got = tfo.fused_bias_residual_layernorm_backward(
+        s, gamma, dout, dsum, eps=1e-5, dx_dtype=F16)
+    ds, dg, _ = tfo._ln_bwd_math(s, gamma, dout, dsum, 1e-5)
+    assert _nonfinite_covered(got[0], ds.to(F16))
+    assert _nonfinite_covered(got[2], dg.sum(0))
+
+
+@pytest.mark.parametrize("n,w,approximate", [
+    (2048, 4096, False),    # path A, erf
+    (11264, 6400, True),    # paths B and C, tanh
+    (37, 100, True),        # ragged, scalar accesses
+], ids=["bert-erf", "gpt2-tanh", "ragged"])
+def test_fp16_gelu_kernels_match_twins(dev, n, w, approximate):
+    """K4-fwd's and K4-bwd's fp16 forms (fp16 bias) against the twins,
+    the backward twice bit for bit; an inf in x and in dout
+    propagates."""
+    g = _gen(dev, 23)
+    x = (2.0 * torch.randn((n, w), generator=g, device=dev)).to(F16)
+    bias = (0.1 * torch.randn((w,), generator=g, device=dev)).to(F16)
+    out, s = tfo.fused_bias_gelu_with_sum(x, bias, approximate=approximate)
+    ref_out, ref_s = tfo._gelu_fwd_math(x, bias, approximate)
+    torch.testing.assert_close(out.float(), ref_out.to(F16).float(),
+                               **F16_TOL)
+    torch.testing.assert_close(s.float(), ref_s.to(F16).float(), **F16_TOL)
+    dout = torch.randn((n, w), generator=g, device=dev).to(F16)
+    dx, dbias = tfo.fused_bias_gelu_backward(s, dout,
+                                             approximate=approximate)
+    again = tfo.fused_bias_gelu_backward(s, dout, approximate=approximate)
+    ref = tfo._gelu_bwd_math(s, dout, approximate)
+    torch.cuda.synchronize()
+    assert dx.dtype == F16 and dbias.dtype == torch.float32
+    assert _rel_l2(dx, ref.to(F16)) <= F16_GRAD_TOL
+    assert _rel_l2(dbias, ref.sum(0)) <= GRAD_TOL[torch.float32] * 10
+    assert torch.equal(dx, again[0]) and torch.equal(dbias, again[1])
+    x[2, 9] = float("inf")
+    assert _nonfinite_covered(
+        tfo.fused_bias_gelu(x, bias, approximate=approximate),
+        tfo._gelu_fwd_math(x, bias, approximate)[0].to(F16))
+    dout[4, 1] = float("inf")
+    got = tfo.fused_bias_gelu_backward(s, dout, approximate=approximate)
+    ref = tfo._gelu_bwd_math(s, dout, approximate)
+    assert _nonfinite_covered(got[0], ref.to(F16))
+    assert _nonfinite_covered(got[1], ref.sum(0))
+
+
+def test_fp16_instantiations_do_not_spill(dev):
+    """ptxas's report of every fp16 instantiation (`6__half` in the
+    mangled name): K1-fwd at head dims 64 and 128 (2), K2's two sweeps
+    (4) and its delta pre-pass (2), K3-fwd (its 3 fp16 forms; 16-byte or
+    scalar: 6), K3-bwd (its 3 fp16 forms, one vector a lane; 16-byte or
+    scalar: 6), K4-fwd and K4-bwd (all fp16; tanh or erf; 16-byte or
+    scalar: 8): 28 entries, none spilling."""
+    from deepspeed_tpu_torch.ops import _build
+    _build.build_all()
+    entries = {}
+    for lib in ("flash_attention_fwd", "flash_attention_bwd",
+                "fused_ln_fwd", "fused_ln_bwd", "fused_gelu_fwd",
+                "fused_gelu_bwd"):
+        name = None
+        for line in _build.build_log(lib).splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1] if "6__half" in line else None
+            elif name is not None and "spill stores" in line:
+                entries[name] = line.strip()
+                name = None
+    assert len(entries) == 28, sorted(entries)
+    spilled = {k: v for k, v in entries.items()
+               if "0 bytes spill stores" not in v}
+    assert not spilled, spilled
+
+
+def test_fp16_kernels_refuse_what_they_do_not_take(dev):
+    """No launch mixes bf16 and fp16; fp16 K5, fp16 at head dim 256 and
+    fp16 grouped K4 (the MoE experts) raise naming ROADMAP Queue 1 item
+    10; nothing falls back to a twin."""
+    g = _gen(dev, 24)
+    y = torch.randn((4, 64), generator=g, device=dev).to(F16)
+    ones = torch.ones(64, device=dev, dtype=F16)
+    with pytest.raises(TypeError, match="residual"):
+        tfo.fused_bias_residual_layernorm(y, ones, y.to(torch.bfloat16),
+                                          ones, ones)
+    with pytest.raises(TypeError, match="forms"):    # no path's pairing
+        tfo.fused_bias_residual_layernorm(y, ones, y, ones, ones,
+                                          sum_dtype=torch.float32)
+    wide = torch.zeros((4, 4096), device=dev, dtype=F16)
+    v = torch.ones(4096, device=dev, dtype=F16)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tfo.fused_bias_residual_layernorm_backward(wide, v, wide, wide,
+                                                   dx_dtype=F16)
+    with pytest.raises(TypeError, match="out"):
+        tfo.fused_bias_gelu(y, ones, out_dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tfo.fused_bias_gelu(torch.zeros((8, 64), device=dev, dtype=F16),
+                            torch.ones((2, 64), device=dev, dtype=F16))
+    q = torch.zeros((1, 128, 2, 256), device=dev, dtype=F16)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tfa.flash_attention_with_lse(q, q, q, causal=True)
+    q = torch.zeros((1, 128, 2, 64), device=dev, dtype=F16)
+    prev = torch.zeros((1, 128, 2, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tfa.flash_attention_merge(q, q, q, prev,
+                                  torch.zeros((1, 2, 128, 1), device=dev))
+
+
+def test_fp16_engine_skips_bit_for_bit_on_the_card(dev):
+    """A 2-layer gpt2 (H 256, 4 heads of 64) in fp16 on the kernels: a
+    step whose gradients overflow (a static scale of 2^40) leaves every
+    parameter, master and moment bit for bit, with no host read in the
+    update; the counters count it."""
+    import deepspeed_tpu_torch as dst
+    cfg = tgpt2.gpt2_config("gpt2-125m", vocab_size=1000, n_positions=256,
+                            n_layer=2, n_embd=256, n_head=4, dropout=0.0,
+                            dtype=F16)
+    model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+    engine = dst.initialize(model=model, model_parameters=model.init(0),
+                            config={"train_micro_batch_size_per_gpu": 4,
+                                    "fp16": {"enabled": True,
+                                             "loss_scale": 2 ** 40},
+                                    "optimizer": {"type": "Lamb",
+                                                  "params": {"lr": 1e-3}}})[0]
+    ids = torch.randint(0, 1000, (1, 4, 256), generator=_gen(dev, 25),
+                        device=dev)
+    staged = engine.stage_batch({"input_ids": ids})
+    state = engine.state
+    before = [t.clone() for t in list(state.params.values()) + state.master +
+              engine._state_tensors(state.opt_state)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.train_batch(batch=staged)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = list(state.params.values()) + state.master + \
+        engine._state_tensors(state.opt_state)
+    for a, b in zip(before, after):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+    assert engine.skipped_steps == 1 and int(state.global_steps) == 0

@@ -3,8 +3,9 @@
 Both packages run `initialize` -> `train_batch` on gpt2-tiny from the
 same weights (the JAX tree converted by `params_from_jax`) over the same
 numpy-seeded batches, in fp32 with AdamW (weight decay), a WarmupLR
-schedule and gradient clipping, at gradient accumulation 1 and 2, and
-their loss trajectories over 10 steps must agree. The JAX engine
+schedule and gradient clipping, at gradient accumulation 1 (here) and 2
+(tests/test_torch_engine_gas2.py), and their loss trajectories over 10
+steps must agree. The JAX engine
 spreads the global batch over the 8 virtual CPU devices of the test
 harness (data parallel, micro batch 1 per device); the port runs it as
 one micro batch of 8 on one device: the same mean loss and the same
@@ -44,6 +45,7 @@ from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.dataloader import (DeepSpeedDataLoader,
                                                     RepeatingLoader)
 from deepspeed_tpu_torch.runtime.zero import config as TZ
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TRAJ_TOL = 1e-5
 
@@ -77,8 +79,14 @@ def _port_engine(tree, config, **cfg_overrides):
                           config=config)
 
 
-@pytest.mark.parametrize("gas", [1, 2])
+@pytest.mark.parametrize("gas", [1])
 def test_loss_trajectory_matches_jax_engine(jax_model_and_tree, gas):
+    """gas 1 here, gas 2 in tests/test_torch_engine_gas2.py (the same
+    check, `check_loss_trajectory`)."""
+    check_loss_trajectory(jax_model_and_tree, gas)
+
+
+def check_loss_trajectory(jax_model_and_tree, gas):
     jmodel, jparams, tree = jax_model_and_tree
     config = _ds_config(gas)
     jengine, _, _, _ = deepspeed_tpu.initialize(
@@ -251,15 +259,18 @@ def test_constants_equal_jax(mine, ref):
         assert getattr(mine, name) == getattr(ref, name), name
 
 
+# fp16, 1-bit Adam, progressive layer drop and LAMB are ported (their
+# cases now hold what still raises beside them, or in their item)
 @pytest.mark.parametrize("extra,match", [
-    ({"fp16": {"enabled": True}}, "fp16"),
+    ({"fp16": {"enabled": True},
+      "quantized_compute": {"enabled": True, "mode": "on"}}, "fp16"),
     ({"zero_optimization": {"stage": 3}}, "stage 3"),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "Offload"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
-    ({"optimizer": {"type": "OneBitAdam"}}, "onebitadam"),
+    ({"wall_clock_breakdown": True}, "wall_clock_breakdown"),
     ({"monitor": {"enabled": True}}, "monitor"),
-    ({"progressive_layer_drop": {"enabled": True}}, "layer drop"),
-    ({"optimizer": {"type": "Lamb"}}, "lamb"),
+    ({"dump_state": True}, "dump_state"),
+    ({"tensorboard": {"enabled": True}}, "tensorboard"),
     ({"elasticity": {"enabled": True, "max_train_batch_size": 48,
                      "micro_batch_sizes": [4]}}, "elasticity"),
 ])
@@ -270,9 +281,11 @@ def test_later_slices_raise(jax_model_and_tree, extra, match):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"fp16": {"enabled": True}}, 4),
-    ({"progressive_layer_drop": {"enabled": True}}, 4),
-    ({"optimizer": {"type": "Lamb"}}, 4),
+    ({"fp16": {"enabled": True},
+      "quantized_compute": {"enabled": True, "mode": "on"}}, 10),
+    ({"fp16": {"enabled": True},
+      "moe": {"enabled": True, "num_experts": 2}}, 10),
+    ({"activation_checkpointing": {"cpu_checkpointing": True}}, 4),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, 5),
     ({"zero_optimization": {"stage": 3}}, 6),
     ({"pipeline": {"stages": 2}}, 6),
@@ -322,14 +335,15 @@ def test_checkpoint_block_configures_the_engine(jax_model_and_tree, block,
 
 def test_checkpoints_and_client_objects_name_their_roadmap_item(
         jax_model_and_tree, tmp_path):
-    """Checkpoints work since ROADMAP Queue 1 item 2 was ported; client
-    optimizer objects still raise, naming item 4."""
+    """Checkpoints work since ROADMAP Queue 1 item 2 was ported, client
+    optimizer objects since item 4 was: an object without init/update
+    is refused as no optimizer."""
     engine, _, _, _ = _port_engine(jax_model_and_tree[2],
                                    {"train_micro_batch_size_per_gpu": 2})
     assert engine.save_checkpoint(str(tmp_path)) is True
     assert engine.load_checkpoint(str(tmp_path)) == (
         f"{tmp_path}/global_step0", {})
-    with pytest.raises(NotImplementedError, match="item 4$"):
+    with pytest.raises(TypeError, match="init"):
         dst.initialize(model=engine.module, model_parameters=engine.params,
                        optimizer=object(),
                        config={"train_micro_batch_size_per_gpu": 2})

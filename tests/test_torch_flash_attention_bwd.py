@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 
 from deepspeed_tpu_torch.ops.transformer import flash_attention as tfa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # the JAX package's ops.transformer re-exports a function under the
 # module's name, so the module is fetched by its full path

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.transformer import flash_attention as tfa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("deepspeed_tpu.ops.transformer.flash_attention")
 

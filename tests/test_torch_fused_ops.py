@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from deepspeed_tpu.ops.transformer import fused_ops as jfo
 from deepspeed_tpu_torch.ops.transformer import fused_ops as tfo
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)

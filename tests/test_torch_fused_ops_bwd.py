@@ -26,6 +26,7 @@ import jax.numpy as jnp
 
 from deepspeed_tpu.ops.transformer import fused_ops as jfo
 from deepspeed_tpu_torch.ops.transformer import fused_ops as tfo
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

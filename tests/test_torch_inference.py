@@ -44,6 +44,7 @@ from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.ops.transformer import flash_attention as tfa
 from deepspeed_tpu_torch.ops.transformer import fused_ops as tfo
 from deepspeed_tpu_torch.runtime import constants as tconst
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.module_inject import (convert_bert_layer_params,
 from deepspeed_tpu_torch.ops import module_inject as ops_inject
 from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
                                                  DeepSpeedTransformerLayer)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 

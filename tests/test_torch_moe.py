@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.moe import layer as tlayer
 from deepspeed_tpu_torch.moe import router as trouter
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError as TErr
 from deepspeed_tpu_torch.runtime.config import get_moe_config as t_get_moe_config
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # the packages re-export the function fused_dispatch under the
 # submodule's name, so the modules come from importlib

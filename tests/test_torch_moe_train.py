@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.moe import MoEConfig as TMoE
 from deepspeed_tpu_torch.moe import STAT_AUX
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 MOE = dict(num_experts=4, top_k=2, capacity_factor=1.0, every_n_layers=2)
 SEQ = 32

@@ -60,6 +60,7 @@ from deepspeed_tpu_torch.ops.transformer.transformer import (Dense,
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig as TConfig
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.utils.rng import stream_generator
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 jqm = importlib.import_module(
     "deepspeed_tpu.ops.transformer.quantized_matmul")

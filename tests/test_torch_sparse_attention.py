@@ -45,12 +45,8 @@ jfa = importlib.import_module("deepspeed_tpu.ops.transformer.flash_attention")
 tfa = importlib.import_module(
     "deepspeed_tpu_torch.ops.transformer.flash_attention")
 
-OUT_TOL = dict(atol=2e-5, rtol=2e-5)
-GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
-BF16_OUT_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
-# the band forward's tile pair on the Hopper body: 128-row q tiles over
-# 64-row k tiles
-HOPPER_TILES = tfa._SM90_TILES
+from torch_sparse_cases import GRAD_TOL, HOPPER_TILES, OUT_TOL, _qkv
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _configs(pkg, h, block):
@@ -125,204 +121,6 @@ def test_tables_and_band_decomposition_match_jax(i, causal):
         jbsa.layout_to_dense_mask(layout, 512, 32))
 
 
-@pytest.mark.parametrize("block", [16, 32, 64, 128])
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_tile_walks_visit_every_visible_score_once(block, causal):
-    """The kernels' walks (forward table, transpose table and, where the
-    layout decomposes, the band walk) cover exactly the layout's visible
-    scores (element-level causal), each once."""
-    t = 512
-    for cfg in (tsa.FixedSparsityConfig(num_heads=1, block=block,
-                                        num_local_blocks=3),
-                tsa.BSLongformerSparsityConfig(
-                    num_heads=1, block=block, num_sliding_window_blocks=4,
-                    attention="unidirectional"),
-                tsa.BigBirdSparsityConfig(num_heads=1, block=block)):
-        layout = cfg.make_layout(t)
-        plan = tbsa._Plan(layout, causal, block, tbsa.TILE,
-                          torch.device("cpu"))
-        want = torch.as_tensor(tbsa.layout_to_dense_mask(layout, t,
-                                                         block)[0])
-        if causal:
-            want &= torch.ones((t, t), dtype=torch.bool).tril()
-        walks = [(tbsa._table_steps(plan, False, "cpu"), False),
-                 (tbsa._table_steps(plan, True, "cpu"), True)]
-        if plan.band is not None:
-            walks.append((tbsa._band_steps(plan, "cpu"), False))
-        for steps, transpose in walks:
-            seen = torch.zeros((t, t), dtype=torch.long)
-            for idx, vis in steps:
-                for own in range(plan.nt):
-                    other = int(idx[0, own])
-                    rows, cols = (other, own) if transpose else (own, other)
-                    seen[rows * 64:(rows + 1) * 64,
-                         cols * 64:(cols + 1) * 64] += vis[0, own].long()
-            assert torch.equal(seen, want.long())
-
-
-# the band layouts of the Hopper walk's cases, by (block, kind, causal):
-# sliding = BSLongformer (unidirectional with its global column when
-# causal, bidirectional without globals when not), aligned = Fixed with
-# 4-block windows and their global columns; T takes 5-8 layout blocks and
-# is no multiple of 128 at blocks 16-64 (the last q tile runs past T),
-# where a 128-row q tile also straddles layout blocks
-BAND_T = {16: 320, 32: 320, 64: 448, 128: 768, 256: 1536}
-
-
-def _band_layout(block, kind, causal, h=2):
-    t = BAND_T[block]
-    if kind == "sliding":
-        cfg = tsa.BSLongformerSparsityConfig(
-            num_heads=h, block=block, num_sliding_window_blocks=3,
-            **({"attention": "unidirectional"} if causal else
-               {"global_block_indices": []}))
-    else:
-        cfg = tsa.FixedSparsityConfig(
-            num_heads=h, block=block, num_local_blocks=4,
-            attention="unidirectional" if causal else "bidirectional")
-    layout = cfg.make_layout(t)
-    assert tbsa._band_decompose(layout, causal)[0] == kind
-    return layout, t
-
-
-@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
-@pytest.mark.parametrize("kind", ["sliding", "aligned"])
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_hopper_band_walk_visits_the_tables_pairs(block, kind, causal):
-    """The band walk at 128 x 64 tiles visits exactly the (64-row q half,
-    k tile) pairs that the 64 x 64 forward table holds, each once, and
-    covers exactly the visible scores (rows past T see nothing)."""
-    layout, t = _band_layout(block, kind, causal)
-    cpu = torch.device("cpu")
-    tables = tbsa._Plan(layout, causal, block, tbsa.TILE, cpu)
-    walk = tbsa._Plan(layout, causal, block, HOPPER_TILES, cpu)
-    want = {(qt, int(kt)) for qt in range(tables.nt)
-            for kt, bits in zip(tables.kidx_h[0, qt], tables.kmask_h[0, qt])
-            if bits}
-    dense = torch.as_tensor(tbsa.layout_to_dense_mask(layout, t, block)[0])
-    if causal:
-        dense &= torch.ones((t, t), dtype=torch.bool).tril()
-    got, seen = [], torch.zeros((t, t), dtype=torch.long)
-    for idx, vis in tbsa._band_steps(walk, "cpu"):
-        for qt in range(idx.shape[1]):
-            kt, v = int(idx[0, qt]), vis[0, qt]
-            rows = min(128, t - qt * 128)
-            assert not v[rows:].any()
-            seen[qt * 128:qt * 128 + rows, kt * 64:(kt + 1) * 64] += \
-                v[:rows].long()
-            got += [(2 * qt + half, kt) for half in (0, 1)
-                    if v[half * 64:(half + 1) * 64].any()]
-    assert len(got) == len(set(got)) and set(got) == want
-    assert torch.equal(seen, dense.long())
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("kind", ["sliding", "aligned"])
-@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
-def test_hopper_band_twin_matches_jax(block, kind, causal, dtype):
-    """The band twin at the Hopper body's 128 x 64 tile pair (the walk
-    and rounding order of K7-band on the card) against the JAX package's
-    band kernel in interpret mode, forward, at D 64. In bf16 the public
-    route on the CPU takes that pair too and gives the same bits."""
-    layout, t = _band_layout(block, kind, causal)
-    q, k, v, _ = _qkv(1, t, 2, 64, seed=block + causal)
-    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
-    want = jbsa.block_sparse_attention(
-        *(jnp.asarray(x, jdt) for x in (q, k, v)), layout, block,
-        causal=causal, interpret=True)
-    xs = [torch.from_numpy(x).to(dtype) for x in (q, k, v)]
-    plan = tbsa._plan(layout, causal, block, HOPPER_TILES,
-                      torch.device("cpu"))
-    got, _ = tbsa._band_fwd_plain(*xs, plan, 64 ** -0.5)
-    tol = BF16_OUT_TOL if dtype == torch.bfloat16 else OUT_TOL
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want, np.float32), **tol)
-    if dtype == torch.bfloat16:
-        assert torch.equal(tsa.block_sparse_attention(*xs, layout, block,
-                                                      causal=causal), got)
-
-
-# the pair tables' layouts, by block: Fixed and BSLongformer (bands with
-# global columns), BigBird (random blocks) and a per-head Variable layout;
-# T = 448 (the last 128-row tile's lower half lies past T) where the
-# block divides it, else 8 blocks
-PAIR_T = {16: 448, 32: 448, 64: 448, 128: 1024, 256: 2048}
-
-
-def _pair_layouts(block):
-    t = PAIR_T[block]
-    cfgs = (tsa.FixedSparsityConfig(num_heads=2, block=block,
-                                    num_local_blocks=3),
-            tsa.BSLongformerSparsityConfig(num_heads=2, block=block,
-                                           num_sliding_window_blocks=3),
-            tsa.BigBirdSparsityConfig(num_heads=2, block=block),
-            tsa.VariableSparsityConfig(num_heads=3, block=block,
-                                       num_random_blocks=1,
-                                       local_window_blocks=[1, 2],
-                                       global_block_indices=[0],
-                                       different_layout_per_head=True))
-    return [c.make_layout(t) for c in cfgs], t
-
-
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("block", [16, 32, 64, 128, 256])
-def test_pair_tables_walk_the_square_rows(block, causal):
-    """The Hopper backward's tables at 128 x 64 (the forward table for dQ,
-    the transpose table for dK/dV): each 64-row half of a 128-row row
-    lists exactly its square-table row, in order, with the same bits;
-    steps where a half does not list the tile, past the row's count, or
-    a half past T carry bits 0; the walk covers every visible score once
-    (element-level causal); the CTA order is longest walk first."""
-    cpu = torch.device("cpu")
-    layouts, t = _pair_layouts(block)
-    for layout in layouts:
-        square = tbsa._plan(layout, causal, block, tbsa.TILE, cpu)
-        pair = tbsa._plan(layout, causal, block, HOPPER_TILES, cpu)
-        assert pair.head_map is square.head_map
-        want = torch.as_tensor(tbsa.layout_to_dense_mask(layout, t, block))
-        if causal:
-            want &= torch.ones((t, t), dtype=torch.bool).tril()
-        for name, transpose, (idx, cnt, mask) in (
-                ("dq", False, (square.kidx, square.kcnt, square.kmask)),
-                ("dkv", True, (square.qidx, square.qcnt, square.qmask))):
-            steps, count, width, order = pair.pairs[name]
-            n2 = -(-square.nt // 2)
-            assert steps.shape == (len(idx), n2, 3, width)
-            for u in range(len(idx)):
-                for r in range(n2):
-                    live = steps[u, r, :, :count[u, r]]
-                    assert (np.diff(live[0]) > 0).all()
-                    assert not steps[u, r, :, count[u, r]:].any()
-                    for half in (0, 1):
-                        row = 2 * r + half
-                        got = [(int(c), int(b)) for c, b in
-                               zip(live[0], live[1 + half]) if b]
-                        sq = [] if row >= square.nt else [
-                            (int(c), int(b)) for c, b in
-                            zip(idx[u, row, :cnt[u, row]],
-                                mask[u, row, :cnt[u, row]])]
-                        assert got == sq, (name, u, r, half)
-            per_head = count[pair.head_map].reshape(-1)
-            assert sorted(order) == list(range(per_head.size))
-            assert (np.diff(per_head[order]) <= 0).all()
-            seen = torch.zeros((layout.shape[0], t, t), dtype=torch.int16)
-            for tiles, vis in tbsa._pair_steps(pair, transpose, cpu):
-                for h in range(layout.shape[0]):
-                    for r in range(n2):
-                        c = int(tiles[h, r]) * 64
-                        rows = slice(r * 128, min(t, r * 128 + 128))
-                        v = vis[h, r]
-                        if transpose:
-                            assert not v[:, t - r * 128:].any()
-                            seen[h, c:c + 64, rows] += v[:, :t - r * 128]
-                        else:
-                            assert not v[t - r * 128:].any()
-                            seen[h, rows, c:c + 64] += v[:t - r * 128]
-            assert torch.equal(seen, want.to(torch.int16)), name
-
-
 def test_hopper_backward_raises_past_its_longest_walk():
     """The Hopper backward's shared memory holds a walk of 512 steps
     (every 64-row tile of T = 32768); a longer transpose row (a global
@@ -335,188 +133,6 @@ def test_hopper_backward_raises_past_its_longest_walk():
     lse = torch.zeros((1, 32832))
     with pytest.raises(ValueError, match="512"):
         tbsa._bs_bwd_dkv_sm90_launch(x, x, x, x, lse, x, plan, 0.125)
-
-
-def _qkv(b, t, h, d, seed):
-    r = np.random.RandomState(seed)
-    return [r.randn(b, t, h, d).astype(np.float32) for _ in range(4)]
-
-
-def _jax_fwd_bwd(q, k, v, g, layout, block, causal):
-    def f(q, k, v):
-        return jbsa.block_sparse_attention(q, k, v, layout, block,
-                                           causal=causal, interpret=True)
-    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
-    return [np.asarray(x) for x in (out, *vjp(jnp.asarray(g)))]
-
-
-def _torch_fwd_bwd(q, k, v, g, layout, block, causal):
-    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True)
-                  for x in (q, k, v))
-    out = tsa.block_sparse_attention(qt, kt, vt, layout, block,
-                                     causal=causal)
-    grads = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(g))
-    return [x.detach().numpy() for x in (out, *grads)]
-
-
-ROUTES = [
-    # (id, config, T, H, block, causal, expected band kind or None)
-    ("sliding-b32", lambda h, b: jsa.BSLongformerSparsityConfig(
-        num_heads=h, block=b, num_sliding_window_blocks=3), 256, 2, 32,
-     True, "sliding"),
-    ("sliding-b64", lambda h, b: jsa.BSLongformerSparsityConfig(
-        num_heads=h, block=b, num_sliding_window_blocks=4), 512, 2, 64,
-     True, "sliding"),
-    ("aligned-b32-full", lambda h, b: jsa.FixedSparsityConfig(
-        num_heads=h, block=b, num_local_blocks=2), 256, 2, 32, False,
-     "aligned"),
-    ("aligned-b64-causal", lambda h, b: jsa.FixedSparsityConfig(
-        num_heads=h, block=b, num_local_blocks=4), 512, 2, 64, True,
-     "aligned"),
-    ("table-bigbird-causal", lambda h, b: jsa.BigBirdSparsityConfig(
-        num_heads=h, block=b), 256, 2, 32, True, None),
-    ("table-bigbird-full-b64", lambda h, b: jsa.BigBirdSparsityConfig(
-        num_heads=h, block=b), 512, 2, 64, False, None),
-    ("table-per-head", lambda h, b: jsa.VariableSparsityConfig(
-        num_heads=h, block=b, num_random_blocks=1,
-        local_window_blocks=[2], different_layout_per_head=True), 256, 2,
-     32, False, None),
-    ("lse2d-eight-heads", lambda h, b: jsa.FixedSparsityConfig(
-        num_heads=h, block=b, num_local_blocks=2, num_global_blocks=1),
-     256, 8, 32, True, "sliding"),
-    # blocks under 16 take no kernel: the twins walk tiles of one block
-    ("sliding-b8-twin-only", lambda h, b: jsa.BSLongformerSparsityConfig(
-        num_heads=h, block=b, num_sliding_window_blocks=3), 128, 2, 8,
-     True, "sliding"),
-    ("table-b8-twin-only", lambda h, b: jsa.BigBirdSparsityConfig(
-        num_heads=h, block=b), 128, 2, 8, False, None),
-]
-
-
-# the pair tables' twin against the JAX VJP: (id, config, T, block,
-# causal) at H 2, D 64; T 448 where the last 128-row tile's lower half
-# lies past T
-PAIR_ROUTES = [
-    ("sliding-b32-causal", lambda b: jsa.BSLongformerSparsityConfig(
-        num_heads=2, block=b, num_sliding_window_blocks=3), 448, 32, True),
-    ("aligned-b64-full", lambda b: jsa.FixedSparsityConfig(
-        num_heads=2, block=b, num_local_blocks=2), 448, 64, False),
-    ("bigbird-b16-causal", lambda b: jsa.BigBirdSparsityConfig(
-        num_heads=2, block=b), 448, 16, True),
-    ("per-head-b32-full", lambda b: jsa.VariableSparsityConfig(
-        num_heads=2, block=b, num_random_blocks=1, local_window_blocks=[2],
-        global_block_indices=[0], different_layout_per_head=True), 448, 32,
-     False),
-    ("bigbird-b128-full", lambda b: jsa.BigBirdSparsityConfig(
-        num_heads=2, block=b), 512, 128, False),
-    ("sliding-b256-causal", lambda b: jsa.BSLongformerSparsityConfig(
-        num_heads=2, block=b, num_sliding_window_blocks=3), 768, 256, True),
-]
-
-
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("name,make,t,block,causal", PAIR_ROUTES,
-                         ids=[r[0] for r in PAIR_ROUTES])
-def test_pair_table_backward_twin_matches_jax(name, make, t, block, causal,
-                                              dtype):
-    """The backward twin on the Hopper pair tables (the walk and rounding
-    order of the Hopper K7-dkv and K7-dq) against the JAX package's VJP
-    in interpret mode: fp32 by the twin itself, to GRAD_TOL; bf16 through
-    the public route on the CPU, which takes the pair tables for the
-    backward, to 1e-2 relative L2 (the bf16 gradient tolerance of the
-    flash backward's tests: one rounding of each output and of P and dS),
-    and bit for bit the twin at the pair."""
-    layout = make(block).make_layout(t)
-    q, k, v, g = _qkv(1, t, 2, 64, seed=t + block + causal)
-    cpu = torch.device("cpu")
-    pair = tbsa._plan(layout, causal, block, HOPPER_TILES, cpu)
-    if dtype == "fp32":
-        want = _jax_fwd_bwd(q, k, v, g, layout, block, causal)
-        xs = [torch.from_numpy(x) for x in (q, k, v)]
-        out, lse = tbsa._bs_fwd_plain(*xs, tbsa._plan(layout, causal, block,
-                                                      tbsa.TILE, cpu), 0.125)
-        got = tbsa._bs_bwd_plain(*xs, out, lse, torch.from_numpy(g), pair,
-                                 0.125)
-        for a, b in zip(got, want[1:]):
-            np.testing.assert_allclose(a.numpy(), b, **GRAD_TOL)
-        return
-
-    def jax_bf16(q, k, v):
-        return jbsa.block_sparse_attention(q, k, v, layout, block,
-                                           causal=causal, interpret=True)
-    _, vjp = jax.vjp(jax_bf16, *(jnp.asarray(x, jnp.bfloat16)
-                                 for x in (q, k, v)))
-    want = [np.asarray(x.astype(jnp.float32))
-            for x in vjp(jnp.asarray(g, jnp.bfloat16))]
-    xs = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
-          for x in (q, k, v)]
-    gt = torch.from_numpy(g).to(torch.bfloat16)
-    out = tsa.block_sparse_attention(*xs, layout, block, causal=causal)
-    got = torch.autograd.grad(out, xs, gt)
-    for a, b in zip(got, want):
-        a = a.float().numpy()
-        assert np.linalg.norm(a - b) / np.linalg.norm(b) <= 1e-2
-    plain = tbsa._band_fwd_plain if pair.band is not None else \
-        tbsa._bs_fwd_plain
-    d = [x.detach() for x in xs]
-    o, lse = plain(*d, pair, 0.125)
-    assert torch.equal(o, out.detach())
-    twin = tbsa._bs_bwd_plain(*d, o, lse, gt, pair, 0.125)
-    assert all(torch.equal(a, b) for a, b in zip(got, twin))
-
-
-# the table forward's pair-table twin against the JAX forward: (id,
-# config, block, causal) at H 2 and T 320 (the last 128-row q tile's
-# lower half lies past T), layouts `_band_decompose` rejects
-PAIR_FWD_ROUTES = [
-    ("bigbird-b64-full", lambda b: jsa.BigBirdSparsityConfig(
-        num_heads=2, block=b), 64, False),
-    ("bigbird-b32-causal", lambda b: jsa.BigBirdSparsityConfig(
-        num_heads=2, block=b), 32, True),
-    ("per-head-b32-full", lambda b: jsa.VariableSparsityConfig(
-        num_heads=2, block=b, num_random_blocks=1, local_window_blocks=[2],
-        global_block_indices=[0], different_layout_per_head=True), 32,
-     False),
-    ("per-head-b64-causal", lambda b: jsa.VariableSparsityConfig(
-        num_heads=2, block=b, num_random_blocks=1, local_window_blocks=[1, 2],
-        global_block_indices=[0], different_layout_per_head=True), 64, True),
-]
-PAIR_FWD_T = 320
-
-
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("name,make,block,causal", PAIR_FWD_ROUTES,
-                         ids=[r[0] for r in PAIR_FWD_ROUTES])
-def test_pair_table_forward_twin_matches_jax(name, make, block, causal, d):
-    """K7-fwd's twin on the forward pair table (the Hopper table
-    forward's walk: 128-row q tiles over 64-row k tiles, one sub-block
-    mask per half) against the JAX package's forward in interpret mode:
-    fp32 by the twin itself, to OUT_TOL; bf16 through the public route on
-    the CPU, which takes the pair table for these layouts, to
-    BF16_OUT_TOL, and bit for bit the twin at the pair. Rows past T see
-    nothing; every real row's lse is finite."""
-    t = PAIR_FWD_T
-    layout = make(block).make_layout(t)
-    cpu = torch.device("cpu")
-    pair = tbsa._plan(layout, causal, block, HOPPER_TILES, cpu)
-    assert pair.band is None
-    q, k, v, _ = _qkv(1, t, 2, d, seed=block + d + causal)
-
-    def jax_fwd(dtype):
-        return np.asarray(jbsa.block_sparse_attention(
-            *(jnp.asarray(x, dtype) for x in (q, k, v)), layout, block,
-            causal=causal, sm_scale=d ** -0.5, interpret=True)
-            .astype(jnp.float32))
-
-    out, lse = tbsa._bs_fwd_plain(*(torch.from_numpy(x) for x in (q, k, v)),
-                                  pair, d ** -0.5)
-    np.testing.assert_allclose(out.numpy(), jax_fwd(jnp.float32), **OUT_TOL)
-    assert bool(torch.isfinite(lse).all())
-    xs = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
-    got = tsa.block_sparse_attention(*xs, layout, block, causal=causal)
-    np.testing.assert_allclose(got.float().numpy(), jax_fwd(jnp.bfloat16),
-                               **BF16_OUT_TOL)
-    assert torch.equal(got, tbsa._bs_fwd_plain(*xs, pair, d ** -0.5)[0])
 
 
 def test_cpu_route_takes_the_pair_table_forward_for_bf16(monkeypatch):
@@ -554,21 +170,6 @@ def test_hopper_table_forward_raises_past_its_longest_walk():
     x = torch.zeros((1, 32832, 1, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="512"):
         tbsa._bs_fwd_sm90_launch(x, x, x, plan, 0.125)
-
-
-@pytest.mark.parametrize("name,make,t,h,block,causal,kind", ROUTES,
-                         ids=[r[0] for r in ROUTES])
-def test_twin_forward_and_grads_match_jax(name, make, t, h, block, causal,
-                                          kind):
-    layout = make(h, block).make_layout(t)
-    band = tbsa._band_decompose(layout, causal)
-    assert (band[0] if band else None) == kind
-    q, k, v, g = _qkv(1, t, h, 32, seed=t + h + block + causal)
-    want = _jax_fwd_bwd(q, k, v, g, layout, block, causal)
-    got = _torch_fwd_bwd(q, k, v, g, layout, block, causal)
-    np.testing.assert_allclose(got[0], want[0], **OUT_TOL)
-    for a, b in zip(got[1:], want[1:]):
-        np.testing.assert_allclose(a, b, **GRAD_TOL)
 
 
 def test_twins_match_the_dense_fallback_at_blocks_16_and_256():

@@ -17,6 +17,7 @@ import torch
 
 from deepspeed_tpu.ops import sparse_attention as jsa
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 B, H, BLOCK = 2, 3, 16
 R = C = 4   # block grid

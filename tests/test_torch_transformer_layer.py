@@ -12,7 +12,9 @@ the input under a random output cotangent are held to JAX's too. Then
 the memory flags (the same values and gradients as without them, and
 JAX's), the quantized projections resolved off with stochastic rounding
 (the JAX package's sr_fallback), dropout by seeded reproducibility and
-rate statistics (the streams are torch's, not JAX's), and fp16 raising.
+rate statistics (the streams are torch's, not JAX's), and what fp16
+still refuses (quantized compute, ROADMAP Queue 1 item 10; fp16 itself
+is held in `test_torch_fp16_kernels.py`).
 
 The widths are small (H 128, 2 heads of 64: flash attention takes head
 dims that are multiples of 64).
@@ -41,6 +43,7 @@ from deepspeed_tpu_torch.ops.transformer import (
     DeepSpeedTransformerConfig as TConfig,
     DeepSpeedTransformerLayer as TLayer)
 from deepspeed_tpu_torch.ops.transformer import transformer as ttr
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -339,8 +342,14 @@ def test_attention_routes():
 
 
 def test_fp16_raises_naming_item_4():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TLayer(TConfig(**_cfg(fp16=True)), device="cpu")
+    """fp16 builds the layer in fp16 (item 4 is ported); fp16 with the
+    quantized projections raises, naming the item that owns K6's fp16
+    form."""
+    layer = TLayer(TConfig(**_cfg(fp16=True)), device="cpu")
+    assert layer.config.compute_dtype == torch.float16
+    with pytest.raises(NotImplementedError, match="item 10$"):
+        TLayer(TConfig(**_cfg(fp16=True, quantized_compute="on")),
+               device="cpu")
 
 
 def test_the_layer_defaults_to_cuda():
