@@ -312,15 +312,18 @@ K3_BWD_KERNELS = 32 + 6
 # 16-byte or scalar accesses, and the 3 fp16 forms (y fp16;
 # fused_ops.LN_FWD_FP16_FORMS) x access width
 K3_FWD_KERNELS = 32 + 6
-# the attention bodies and K6 (18), and the fp16 forms of K1-fwd and of
-# K2's two sweeps at head dims 64 and 128 (6)
-ATTN_KERNELS = 18 + 6
+# the attention bodies and K6 (18), the fp16 forms of K1-fwd and of K2's
+# two sweeps at head dims 64 and 128 (6), K2-fused in bf16 and fp16 at
+# head dims 64 and 128 (4) and K7's four Hopper kernels in fp16 at head
+# dims 64 and 128 (8)
+ATTN_KERNELS = 18 + 6 + 4 + 8
 # the Hopper kernels the build must report, none spilling: the attention
 # bodies and K6, and K4's, K3-bwd's and K3-fwd's instantiations
 SM90_KERNELS = ATTN_KERNELS + K4_KERNELS + K3_BWD_KERNELS + K3_FWD_KERNELS
 SM90_LIBS = ("flash_attention_fwd", "flash_attention_bwd",
-             "block_sparse_attention", "quantized_matmul", "fused_gelu_fwd",
-             "fused_gelu_bwd", "fused_ln_bwd", "fused_ln_fwd")
+             "flash_attention_bwd_fused", "block_sparse_attention",
+             "quantized_matmul", "fused_gelu_fwd", "fused_gelu_bwd",
+             "fused_ln_bwd", "fused_ln_fwd")
 
 
 def sm90_ptxas(log):
@@ -345,7 +348,8 @@ def sm90_ptxas(log):
 
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq)|band_fwd|bs_fwd|"
+            m = re.search(r"((?:flash_(?:fwd|bwd_dkv|bwd_dq|bwd_fused)|"
+                          r"band_fwd|bs_fwd|"
                           r"bs_bwd_dkv|bs_bwd_dq)_kernel_sm90)I"
                           r"(13__nv_bfloat16|6__half)?Li(\d+)E"
                           r"(?:Lb(\d)E)?", ln)
@@ -775,15 +779,17 @@ def torch_isfinite(x):
 
 
 def kernel_flash_bwd(peaks, gen):
-    """K2 at the training flagship's shape (B11 T1024 H25 D64 bf16
+    """K2's sweeps (the delta pre-pass, then the dK/dV and dQ sweeps:
+    `_flash_bwd_launch`, the route of T > 1024, fp32 and head dims
+    192/256) at the training flagship's shape (B11 T1024 H25 D64 bf16
     causal, q/k/v column slices of one qkv tensor) and the MoE training
-    shape (B16 T1024 H16 D64), plus fp32 and d=128 cases and the wide
-    head dims (192, 256; D256 timed), against `_flash_bwd_plain` on the
-    forward kernel's own
-    (out, lse). The library yardstick is SDPA's causal backward (its
-    forward + backward, minus its forward)."""
+    shape (B16 T1024 H16 D64), where the paths now take K2-fused (the
+    sweeps launched directly, as the earlier kernel at those shapes),
+    plus fp32 and d=128 cases and the wide head dims (192, 256; D256
+    timed), against `_flash_bwd_plain` on the forward kernel's own (out,
+    lse). The library yardstick is SDPA's causal backward (its forward +
+    backward, minus its forward)."""
     import torch
-    import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     checks, out = [], {}
     cases = (
@@ -829,8 +835,8 @@ def kernel_flash_bwd(peaks, gen):
         sm = 1.0 / d ** 0.5
 
         def run():
-            return fa.flash_attention_backward(q, k, v, o, lse, dout, dlse,
-                                               sm, causal)
+            return fa._flash_bwd_launch(q, k, v, o, lse, dout, dlse, sm,
+                                        causal)
 
         got = run()
         torch.cuda.synchronize()
@@ -855,26 +861,140 @@ def kernel_flash_bwd(peaks, gen):
             # read q, k, v, out, dout and lse; write dq, dk, dv
             nbytes = 8 * b * t * h * d * itemsize + b * h * t * 4
             bound_ms, bound_by = bound(flops, peaks["bf16"], nbytes, peaks)
-            qt, kt, vt, dt = (x.transpose(1, 2).detach().clone()
-                              for x in (q, k, v, dout))
-            for x in (qt, kt, vt):
-                x.requires_grad_(True)
-
-            def sdpa_fwd():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
-
-            def sdpa_fwd_bwd():
-                torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
-
             out[timed] = rates(dict(
-                max_abs_err=max(errs), ms=time_ms(run),
+                max_abs_err=max(errs), ms=time_ms(run), graph_ms=graph_ms(run),
                 plain_ms=time_ms(lambda: fa._flash_bwd_plain(
                     q, k, v, o, lse, dout, dlse, sm, causal), iters=3,
                     warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
-                shape=label), flops)
+                library_ms=sdpa_ms(q, k, v, dout, True)[2], shape=label),
+                flops)
+    return out, checks
+
+
+def fused_bwd_bound(peaks, b, t, h, d, causal, itemsize=2):
+    """(flops, bound_ms, bound_by) of one backward: five products per
+    visible (q, k) pair (S, dP, dV, dK, dQ); bytes q, k, v, out and dout
+    read, lse read, dq, dk and dv written."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 10.0 * b * h * d * pairs
+    nbytes = 8 * b * t * h * d * itemsize + b * h * t * 4
+    return (flops, *bound(flops, peaks["bf16"], nbytes, peaks))
+
+
+def sdpa_ms(q, k, v, dout, causal):
+    """SDPA on the same inputs, back to back and from CUDA graphs: its
+    forward (fwd_ms, fwd_graph_ms) and its backward, forward + backward
+    less forward (bwd_ms, bwd_graph_ms). The library yardstick, never
+    called by the port."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt, dt = (x.transpose(1, 2).detach().clone()
+                      for x in (q, k, v, dout))
+    for x in (qt, kt, vt):
+        x.requires_grad_(True)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dt)
+
+    fwd_ms, fwd_graph_ms = time_ms(fwd), graph_ms(fwd)
+    return (fwd_ms, fwd_graph_ms, time_ms(fwd_bwd) - fwd_ms,
+            graph_ms(fwd_bwd) - fwd_graph_ms)
+
+
+def kernel_flash_bwd_fused(peaks, gen):
+    """K2-fused (`_flash_bwd_fused_launch`, the backward of every path at
+    T <= 1024) against its twin `_flash_bwd_fused_plain` on the forward
+    kernel's own (out, lse): at the training flagship's shape (B11 T1024
+    H25 D64 bf16 causal, q/k/v column slices of one qkv tensor: clusters
+    of 8 CTAs) and the MoE training shape (B16 T1024 H16 D64), timed;
+    then at head dim 128, at a ragged last key block (T 192, 320), at a
+    one-CTA cluster (T 64) and in fp16, causal and not, with an lse
+    cotangent. Each case launched twice and compared bit for bit. Timed
+    back to back (`ms`) and from CUDA graphs (`graph_ms`), beside the
+    bound, the twin, K2's sweeps on the same inputs (`sweeps_ms`,
+    `sweeps_graph_ms`) and SDPA's backward (`library_ms`,
+    `library_graph_ms`)."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    bf16, f16 = torch.bfloat16, torch.float16
+    checks, out = [], {}
+    cases = (
+        # (label, B, T, H, D, dtype, causal, with dlse, timed as)
+        ("bf16 causal B11 T1024 H25 D64", 11, 1024, 25, 64, bf16, True,
+         False, "training"),
+        ("bf16 causal B16 T1024 H16 D64 (MoE training shape)", 16, 1024, 16,
+         64, bf16, True, False, "moe_training"),
+        ("bf16 non-causal B2 T1024 H4 D128", 2, 1024, 4, 128, bf16, False,
+         True, None),
+        ("bf16 causal B2 T192 H3 D64 (ragged last key block)", 2, 192, 3,
+         64, bf16, True, True, None),
+        ("bf16 non-causal B2 T320 H3 D128 (ragged last key block)", 2, 320,
+         3, 128, bf16, False, True, None),
+        ("bf16 non-causal B4 T64 H3 D64 (one CTA)", 4, 64, 3, 64, bf16,
+         False, True, None),
+        ("fp16 causal B2 T512 H4 D128", 2, 512, 4, 128, f16, True, True,
+         None),
+        ("fp16 non-causal B2 T384 H4 D64", 2, 384, 4, 64, f16, False, True,
+         None),
+    )
+    for label, b, t, h, d, dtype, causal, with_dlse, timed in cases:
+        c = h * d
+        qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda",
+                          dtype=torch.float32).to(dtype)
+        q, k, v = (p.view(b, t, h, d) for p in qkv.split(c, dim=-1))
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        lse = lse[..., 0].contiguous()
+        dout = torch.randn((b, t, h, d), generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+        dlse = torch.randn((b, h, t), generator=gen, device="cuda") \
+            if with_dlse else None
+        sm = 1.0 / d ** 0.5
+
+        def run():
+            return fa._flash_bwd_fused_launch(q, k, v, o, lse, dout, dlse,
+                                              sm, causal)
+
+        def sweeps():
+            return fa._flash_bwd_launch(q, k, v, o, lse, dout, dlse, sm,
+                                        causal)
+
+        got = run()
+        torch.cuda.synchronize()
+        ref = fa._flash_bwd_fused_plain(q, k, v, o, lse, dout, dlse, sm,
+                                        causal)
+        tol = GRAD_TOL_BF16 if dtype == bf16 else GRAD_TOL_F16
+        errs = [check_rel(f"flash bwd fused d{n}, {label}", x, y, tol,
+                          checks) for n, x, y in zip("qkv", got, ref)]
+        # every dQ row summed in one fixed order: a second launch repeats
+        # the first bit for bit
+        again = run()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        checks.append({"check": f"flash bwd fused repeats bit for bit, "
+                                f"{label}", "equal": same})
+        if not same:
+            raise AssertionError(f"K2-fused {label}: a second launch "
+                                 "differs")
+        del ref, again
+        if timed is not None:
+            flops, bound_ms, bound_by = fused_bwd_bound(peaks, b, t, h, d,
+                                                        causal)
+            lib_ms, lib_graph_ms = sdpa_ms(q, k, v, dout, causal)[2:]
+            out[timed] = rates(dict(
+                max_abs_err=max(errs), ms=time_ms(run), graph_ms=graph_ms(run),
+                plain_ms=time_ms(lambda: fa._flash_bwd_fused_plain(
+                    q, k, v, o, lse, dout, dlse, sm, causal), iters=3,
+                    warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by,
+                sweeps_ms=time_ms(sweeps), sweeps_graph_ms=graph_ms(sweeps),
+                library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+                library_call="F.scaled_dot_product_attention fwd+bwd less "
+                             "fwd", shape=label), flops)
+        del qkv, q, k, v, o, lse, dout, got
+        release()
     return out, checks
 
 
@@ -1511,6 +1631,12 @@ def train_and_check(seed, card, warmup=2, steps=6, quantized=False,
     if not ok:
         raise AssertionError(f"{phase} losses {loss_vals}: not finite or "
                              "not falling on the repeated batch")
+    # one K2-fused launch per layer a step (the full-block recompute runs
+    # the forward only); the ring's count is checked in main
+    fused = counts["flash_attention_bwd_fused"] / (warmup + steps)
+    if not sequence_parallel and fused != cfg.n_layer:
+        raise AssertionError(f"{phase}: {fused} K2-fused launches a step, "
+                             f"expected {cfg.n_layer}")
     del engine, model, staged
     return counts, loss_vals
 
@@ -2016,6 +2142,10 @@ def moe_train_and_check(seed, card, warmup=2, steps=6, quantized=False):
     if not ok:
         raise AssertionError(f"{phase} losses {loss_vals}: not finite "
                              "or not falling on the repeated batch")
+    fused = counts["flash_attention_bwd_fused"] / (warmup + steps)
+    if fused != cfg.n_layer:
+        raise AssertionError(f"{phase}: {fused} K2-fused launches a step, "
+                             f"expected {cfg.n_layer}")
     del engine, model, staged
     return counts
 
@@ -2179,13 +2309,16 @@ def kernel_sparse(peaks, gen):
     each against its twin, timed beside its bound (the visible scores
     only), its twin, SDPA with the expanded boolean layout mask (the
     library yardstick, never called by the port) and the dense K1/K2 at
-    the same shape; then checks, untimed, at the paths' other shapes
+    the same shape; the fp16 forms (the Hopper kernels on __half) the
+    same way at that shape under BSLongformer and BigBird, and checked
+    under Fixed; then checks, untimed, at the paths' other shapes
     (BSLongformer and Fixed at [2, 32768]; BERT's default Fixed, block
-    128, bidirectional, at [1, 16384]), at block 32 (T 2048, fp32 on the
-    WMMA bodies and bf16 on the Hopper ones, non-causal), on per-head
-    layouts, and on the Hopper bodies at every block and head dim they
-    take (`band_layouts`, `table_layouts`). Returns {kernel: {case:
-    numbers}} and the checks."""
+    128, bidirectional, at [1, 16384], bf16 and fp16), at block 32 (T
+    2048, fp32 on the WMMA bodies and bf16 on the Hopper ones,
+    non-causal), on per-head layouts, and on the Hopper bodies at every
+    block and head dim they take (`band_layouts`, `table_layouts`; fp16
+    at blocks 16, 64 and 256). Returns {kernel: {case: numbers}} and the
+    checks."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops import _build
@@ -2197,6 +2330,9 @@ def kernel_sparse(peaks, gen):
            "block_sparse_band_fwd": {}, "block_sparse_bwd_dkv_sm90": {},
            "block_sparse_bwd_dq_sm90": {}, "block_sparse_bwd_dkv": {},
            "block_sparse_bwd_dq": {}}
+    # the fp16 forms: the Hopper kernels on __half (rows "<name>_fp16")
+    res.update({k: {} for k, base in FP16_KERNELS.items()
+                if base.startswith("block_sparse")})
     ptxas = sm90_ptxas(_build.build_log("block_sparse_attention"))
 
     def backward(q, k, v, out, lse, dout, plan, sm, label, gtol, hopper):
@@ -2204,7 +2340,9 @@ def kernel_sparse(peaks, gen):
         against the twin on `plan`: (names, launchers, delta, max errors
         of dK/dV and dQ)."""
         if hopper:
-            names = ("block_sparse_bwd_dkv_sm90", "block_sparse_bwd_dq_sm90")
+            sfx = "_fp16" if q.dtype == torch.float16 else ""
+            names = ("block_sparse_bwd_dkv_sm90" + sfx,
+                     "block_sparse_bwd_dq_sm90" + sfx)
             launches = (bsa._bs_bwd_dkv_sm90_launch,
                         bsa._bs_bwd_dq_sm90_launch)
         else:
@@ -2231,10 +2369,12 @@ def kernel_sparse(peaks, gen):
         plan = bsa._plan(layout, causal, block, bsa.TILE, q.device)
         sm = d ** -0.5
         tiles = bsa._hopper_tiles(dtype, d, bsa.TILE)
-        # the route's plan: the Hopper pair's for bf16 at head dims 64 and
-        # 128 (every kernel on its Hopper body), else the square one
+        # the route's plan: the Hopper pair's for bf16 and fp16 at head
+        # dims 64 and 128 (every kernel on its Hopper body), else the
+        # square one
         pair = bsa._plan(layout, causal, block, tiles, q.device)
         hopper = pair is not plan
+        half = dtype == torch.float16
         # (name, launcher, twin) of the forward on the WMMA body (the
         # earlier kernel at bf16) and on the route's
         if plan.band is None:
@@ -2243,21 +2383,27 @@ def kernel_sparse(peaks, gen):
             fwd_name, launch, plain = ("block_sparse_fwd_sm90",
                                        bsa._bs_fwd_sm90_launch,
                                        bsa._bs_fwd_plain) if hopper else wmma
+            fwd_name += "_fp16" if half else ""
         else:
             wmma = ("block_sparse_band_fwd", bsa._band_fwd_launch,
                     bsa._band_fwd_plain)
             fwd_name, launch, plain = ("block_sparse_band_fwd_sm90",
                                        bsa._band_fwd_sm90_launch,
                                        bsa._band_fwd_plain) if hopper else wmma
+            fwd_name += "_fp16" if half else ""
         out, lse = launch(q, k, v, pair, sm)
         torch.cuda.synchronize()
         ref, ref_lse = plain(q, k, v, pair, sm)
-        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
-        gtol = GRAD_TOL_BF16 if dtype == torch.bfloat16 else GRAD_TOL_F32
+        tol = {torch.bfloat16: TOL_BF16, torch.float16: TOL_F16}.get(
+            dtype, TOL_F32)
+        gtol = {torch.bfloat16: GRAD_TOL_BF16,
+                torch.float16: GRAD_TOL_F16}.get(dtype, GRAD_TOL_F32)
         err_fwd = check(f"{fwd_name} out, {label}", out, ref, tol, checks)
         check(f"{fwd_name} log2-lse, {label}", lse, ref_lse, TOL_F32, checks)
         del ref, ref_lse
-        if hopper and timed:
+        # the WMMA bodies (the earlier kernels) take fp32 and bf16 only
+        earlier = hopper and timed and not half
+        if earlier:
             # the earlier forward (WMMA, 64 x 64 tiles) on the same
             # inputs, held to its own twin
             wmma_out, wmma_lse = wmma[1](q, k, v, plan, sm)
@@ -2270,7 +2416,7 @@ def kernel_sparse(peaks, gen):
             del wmma_out, wmma_lse, wmma_ref, wmma_ref_lse
         names, bwd_launches, delta, err_dkv, err_dq = backward(
             q, k, v, out, lse, dout, pair, sm, label, gtol, hopper)
-        if hopper and timed:
+        if earlier:
             # the earlier backward (WMMA, 64 x 64 tiles) on the same
             # inputs, held to its twin on the 64-row tables
             wmma_bwd = backward(q, k, v, out, lse, dout, plan, sm, label,
@@ -2342,6 +2488,7 @@ def kernel_sparse(peaks, gen):
             **common), fwd_flops)
         if hopper:
             res[fwd_name][label]["ptxas"] = ptxas
+        if earlier:
             res[wmma[0]][label] = rates(dict(
                 max_abs_err=err_wmma,
                 ms=time_ms(lambda: wmma[1](q, k, v, plan, sm)),
@@ -2375,7 +2522,7 @@ def kernel_sparse(peaks, gen):
 
         bwd_rows((names, bwd_launches, delta, err_dkv, err_dq), pair,
                  {"ptxas": ptxas} if hopper else {})
-        if hopper:
+        if earlier:
             bwd_rows(wmma_bwd, plan, {
                 "body": "WMMA, 64 x 64 tiles (the earlier K7-dkv / K7-dq; "
                         "the route takes it for fp32)"})
@@ -2385,6 +2532,14 @@ def kernel_sparse(peaks, gen):
         layout = sparse_config(pattern).make_layout(16384)
         one(f"{pattern} bf16 causal B1 T16384 H16 D64 block 256", layout,
             SPARSE_BLOCK, True, torch.bfloat16, 1, 16384, h, d, True)
+        release()
+    # the fp16 forms at the fp16 path's shape: BSLongformer (K7-band) and
+    # BigBird (K7-fwd) timed, Fixed checked; the 32k shapes stay bf16's
+    for pattern, timed in (("bslongformer", True), ("bigbird", True),
+                           ("fixed", False)):
+        one(f"{pattern} fp16 causal B1 T16384 H16 D64 block 256",
+            sparse_config(pattern).make_layout(16384), SPARSE_BLOCK, True,
+            torch.float16, 1, 16384, h, d, timed)
         release()
     # the other shapes the sparse_attention and bert_sparse paths give
     # the kernels, checked, not timed: [2, 32768] (512 tiles per row;
@@ -2396,10 +2551,12 @@ def kernel_sparse(peaks, gen):
             torch.bfloat16, 2, 32768, h, d, False)
         release()
     from deepspeed_tpu_torch.ops import sparse_attention as sa
-    one("bert default fixed bf16 non-causal B1 T16384 H16 D64 block 128",
-        sa.FixedSparsityConfig(num_heads=h).make_layout(16384), 128, False,
-        torch.bfloat16, 1, 16384, h, d, False)
-    release()
+    for dtype in (torch.bfloat16, torch.float16):
+        one(f"bert default fixed {str(dtype)[6:]} non-causal B1 T16384 H16 "
+            "D64 block 128",
+            sa.FixedSparsityConfig(num_heads=h).make_layout(16384), 128,
+            False, dtype, 1, 16384, h, d, False)
+        release()
     for pattern in ("bslongformer", "fixed", "bigbird"):
         layout = sparse_config(pattern, h=4, block=32).make_layout(2048)
         for dtype in (torch.float32, torch.bfloat16):
@@ -2421,11 +2578,15 @@ def kernel_sparse(peaks, gen):
     for block in (16, 32, 64, 128, 256):
         t = 448 if 448 % block == 0 else 8 * block
         cases = band_layouts(3, t, block) + table_layouts(3, t, block)
+        # fp16 at the smallest, the tile's and the largest block
+        dtypes = (torch.bfloat16, torch.float16) if block in (16, 64, 256) \
+            else (torch.bfloat16,)
         for i, (layout, causal) in enumerate(cases):
             for d in (64, 128):
-                one(f"layout {i} {'causal' if causal else 'full'} "
-                    f"B2 T{t} H3 D{d} block {block}", layout, block, causal,
-                    torch.bfloat16, 2, t, 3, d, False)
+                for dtype in dtypes:
+                    one(f"layout {i} {'causal' if causal else 'full'} "
+                        f"{str(dtype)[6:]} B2 T{t} H3 D{d} block {block}",
+                        layout, block, causal, dtype, 2, t, 3, d, False)
     return res, checks
 
 
@@ -2459,12 +2620,13 @@ def table_layouts(h, t, block):
                 global_block_indices=[0]).make_layout(t), True)]
 
 
-def sparse_attention_path(seed, card):
+def sparse_attention_path(seed, card, dtype=None):
     """The bench leg (bench.py:370-470) through the port's entry point:
     SparseSelfAttention(config)(q, q, q, causal=True), forward and the
     backward of the output's sum, under BSLongformer and Fixed at
     [1, 16384] and [2, 32768] and BigBird at [1, 16384] (H16 D64 bf16,
-    block 256), against dense flash attention (K1/K2) on the same q.
+    block 256), against dense flash attention (K1/K2) on the same q; in
+    fp16 (`dtype`) the [1, 16384] configurations only.
     Launch counts are zeroed right before the path and read after one
     pass of each configuration. Then each is timed by CUDA events over
     10 passes after a warm-up, with the cache allocator warm, beside its
@@ -2474,13 +2636,16 @@ def sparse_attention_path(seed, card):
     import torch
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    dtype = dtype or torch.bfloat16
+    fp16 = dtype == torch.float16
+    path = tuple(c for c in SPARSE_PATH if not fp16 or c[2] == 16384)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     qs = {(b, t): torch.randn((b, t, SPARSE_H, SPARSE_D), generator=gen,
-                              device="cuda").to(torch.bfloat16)
-          for b, t in {(b, t) for _, b, t in SPARSE_PATH}}
+                              device="cuda").to(dtype)
+          for b, t in {(b, t) for _, b, t in path}}
     mods = {p: sa.SparseSelfAttention(sparse_config(p), max_seq_length=t)
-            for p, _, t in SPARSE_PATH}
+            for p, _, t in path}
 
     def fwd_bwd(fn, q):
         x = q.detach().requires_grad_(True)
@@ -2495,7 +2660,7 @@ def sparse_attention_path(seed, card):
         return fa.flash_attention(x, x, x, causal=True)
 
     reset_counts()
-    for pattern, b, t in SPARSE_PATH:
+    for pattern, b, t in path:
         out, grad = fwd_bwd(sparse_fn(pattern), qs[(b, t)])
         torch.cuda.synchronize()
         if not (torch_isfinite(out) and torch_isfinite(grad)):
@@ -2513,7 +2678,7 @@ def sparse_attention_path(seed, card):
 
     rows = []
     dense = {}
-    for pattern, b, t in SPARSE_PATH:
+    for pattern, b, t in path:
         if (b, t) not in dense:
             dense[(b, t)] = timed(dense_fn, qs[(b, t)])
         ms, peak, cold = timed(sparse_fn(pattern), qs[(b, t)])
@@ -2530,31 +2695,34 @@ def sparse_attention_path(seed, card):
                      "visible_scores": nvis,
                      "us_per_visible_block": ms * 1e3 / (
                          nvis / SPARSE_BLOCK ** 2)})
-    emit({"phase": "sparse_attention", "card": card,
-          "config": "bench.py sparse_attention_16k: H16 D64 bf16 block 256 "
-                    "causal, fwd + bwd of sum(out)",
+    emit({"phase": "sparse_attention_fp16" if fp16 else "sparse_attention",
+          "card": card,
+          "config": f"bench.py sparse_attention_16k: H16 D64 "
+                    f"{'fp16' if fp16 else 'bf16'} block 256 causal, fwd + "
+                    "bwd of sum(out)",
           "timing": "CUDA events, mean of 10 passes after 1 warm-up",
           "rows": rows, "launches": {k: counts[k] for k in SPARSE_KERNELS}})
     release()
     return counts
 
 
-def bert_sparse(seed, card):
+def bert_sparse(seed, card, dtype=None):
     """BertSparseSelfAttention(hidden_size=1024, num_attention_heads=16)
     (BERT-large's attention width; the default FixedSparsityConfig:
     block 128, 4 local blocks, 1 global, bidirectional) on
-    [1, 16384, 1024] bf16 hidden states, weights from the seed: forward
-    and backward of the mean square of the output; the loss and every
-    gradient finite."""
+    [1, 16384, 1024] hidden states in `dtype` (bf16 by default; fp16),
+    weights from the seed: forward and backward of the mean square of
+    the output; the loss and every gradient finite."""
     import torch
     from deepspeed_tpu_torch.ops.sparse_attention import \
         BertSparseSelfAttention
+    dtype = dtype or torch.bfloat16
     torch.manual_seed(seed)
-    mod = BertSparseSelfAttention(1024, 16, dtype=torch.bfloat16)
+    mod = BertSparseSelfAttention(1024, 16, dtype=dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     x = torch.randn((1, 16384, 1024), generator=gen,
-                    device="cuda").to(torch.bfloat16).requires_grad_(True)
+                    device="cuda").to(dtype).requires_grad_(True)
 
     def step():
         mod.zero_grad()
@@ -2577,7 +2745,8 @@ def bert_sparse(seed, card):
     emit({"phase": "bert_sparse", "card": card,
           "config": "BertSparseSelfAttention(1024, 16), default Fixed "
                     "(block 128, l4 g1, bidirectional), [1, 16384, 1024] "
-                    "bf16", "band": list(plan.band[:2]) if plan.band
+                    f"{str(dtype)[6:]}",
+          "band": list(plan.band[:2]) if plan.band
           else None, "loss": loss.item(), "fwd_bwd_ms": ms,
           "timing": "CUDA events, mean of 10 steps after 1",
           "launches": launched,
@@ -2678,15 +2847,18 @@ def kernel_merge(peaks, gen):
     rows are an empty partial: out, lse and lse_n. Timed at those shapes
     beside its bound, the twin and SDPA's forward (the yardstick, never
     called by the port), and at [1, 32768, 16, 64] bf16 causal against
-    K1 on the same q (the difference is the merge's cost). Then K2's
-    given-delta entry (K5's backward) against the twin at the 8k shape,
-    bf16, and at [2, 1024, 4, 64] fp32, timed at the 8k shape. Returns
-    (K5's timed_by_path, K2's given-delta entries, checks)."""
+    K1 on the same q (the difference is the merge's cost). Then the
+    given-delta entry (K5's backward) of the route's kernel against its
+    twin: K2's sweeps at the 8k shape, bf16, and at [2, 1024, 4, 64]
+    fp32, timed at the 8k shape; K2-fused at the sp_training shape
+    ([11, 1024, 25, 64] bf16 causal), launched twice and compared bit for
+    bit, timed beside the sweeps on the same inputs. Returns (K5's
+    timed_by_path, K2's given-delta entries, K2-fused's, checks)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     bf16, f32 = torch.bfloat16, torch.float32
-    checks, out, k2 = [], {}, {}
+    checks, out, k2, k2_fused = [], {}, {}, {}
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -2782,12 +2954,14 @@ def kernel_merge(peaks, gen):
     del q, k, v, prev, plse, got, qt, kt, vt
     release()
 
-    # K2's given-delta entry against the twin
+    # the given-delta entry of the route's kernel against its twin
     for label, shape, dtype, timed in (
             ("bf16 causal [1, 8192, 4, 64] given delta", SP_SHAPE_8K, bf16,
              "sequence_parallel"),
             ("fp32 causal [2, 1024, 4, 64] given delta", (2, 1024, 4, 64),
-             f32, None)):
+             f32, None),
+            ("bf16 causal [11, 1024, 25, 64] given delta", (11, 1024, 25, 64),
+             bf16, "sp_training")):
         b, t, h, d = shape
         q, k, v, dout = (randn(shape, dtype) for _ in range(4))
         _, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
@@ -2801,43 +2975,48 @@ def kernel_merge(peaks, gen):
             return fa.flash_attention_backward(q, k, v, None, lse, dout,
                                                dlse, sm, True, delta=delta)
 
+        def sweeps():
+            return fa._flash_bwd_launch(q, k, v, None, lse, dout, dlse, sm,
+                                        True, delta=delta)
+
         got = run()
         torch.cuda.synchronize()
         if not torch.equal(delta, keep):
             raise AssertionError("the given-delta K2 wrote the caller's "
                                  "delta")
-        ref = fa._flash_bwd_plain(q, k, v, None, lse, dout, dlse, sm, True,
-                                  delta=delta)
+        fused = fa._fused_route(q)
+        name = "flash bwd fused" if fused else "flash bwd"
+        ref = fa._flash_bwd_twin(q, k, v, None, lse, dout, dlse, sm, True,
+                                 delta=delta)
         tol = GRAD_TOL_BF16 if dtype == bf16 else GRAD_TOL_F32
-        errs = [check_rel(f"flash bwd d{n}, {label}", x, y, tol, checks)
+        errs = [check_rel(f"{name} d{n}, {label}", x, y, tol, checks)
                 for n, x, y in zip("qkv", got, ref)]
+        if fused:
+            same = all(torch.equal(x, y) for x, y in zip(got, run()))
+            checks.append({"check": f"{name} repeats bit for bit, {label}",
+                           "equal": same})
+            if not same:
+                raise AssertionError(f"K2-fused {label}: a second launch "
+                                     "differs")
         if timed:
             pairs = t * (t + 1) // 2
             nbytes = 7 * b * t * h * d * q.element_size() + 12 * b * h * t
             bound_ms, bound_by = bound(10.0 * b * h * d * pairs,
                                        peaks["bf16"], nbytes, peaks)
-            qt, kt, vt, dt = (x.transpose(1, 2).detach().clone()
-                              for x in (q, k, v, dout))
-            for x in (qt, kt, vt):
-                x.requires_grad_(True)
-
-            def sdpa_fwd():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
-
-            def sdpa_fwd_bwd():
-                torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
-
-            k2[timed] = rates(dict(
-                max_abs_err=max(errs), ms=time_ms(run),
-                plain_ms=time_ms(lambda: fa._flash_bwd_plain(
+            row = dict(
+                max_abs_err=max(errs), ms=time_ms(run), graph_ms=graph_ms(run),
+                plain_ms=time_ms(lambda: fa._flash_bwd_twin(
                     q, k, v, None, lse, dout, dlse, sm, True, delta=delta),
                     iters=1, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
-                shape=label), 10.0 * b * h * d * pairs)
+                library_ms=sdpa_ms(q, k, v, dout, True)[2], shape=label)
+            if fused:
+                row.update(sweeps_ms=time_ms(sweeps),
+                           sweeps_graph_ms=graph_ms(sweeps))
+            (k2_fused if fused else k2)[timed] = rates(
+                row, 10.0 * b * h * d * pairs)
         release()
-    return out, k2, checks
+    return out, k2, k2_fused, checks
 
 
 def init_sp_group():
@@ -3009,18 +3188,20 @@ BERT_MORE_STEPS, BERT_PLAIN_STEPS = 3, 3
 # earlier check keeps its inputs
 BERT_SEED = 13
 # launches of each kernel per micro batch on BERT-large (24 layers):
-# attention once a layer, each post-LN bias + residual + LayerNorm
-# twice, the intermediate bias + GeLU once
+# attention once a layer (the backward K2-fused, T 128; K2's sweeps
+# never), each post-LN bias + residual + LayerNorm twice, the
+# intermediate bias + GeLU once
 BERT_LAUNCHES_PER_MICRO = {
-    "flash_attention_fwd": 24, "flash_attention_bwd": 24,
+    "flash_attention_fwd": 24, "flash_attention_bwd_fused": 24,
+    "flash_attention_bwd": 0,
     "fused_bias_residual_layernorm_fwd": 48,
     "fused_bias_residual_layernorm_bwd": 48,
     "fused_bias_gelu_fwd": 24, "fused_bias_gelu_bwd": 24}
-BERT_KERNELS = tuple(BERT_LAUNCHES_PER_MICRO)
+BERT_KERNELS = tuple(k for k, v in BERT_LAUNCHES_PER_MICRO.items() if v)
 
 
 def kernel_bert(peaks):
-    """Phase 22: K1-fwd, K2, K3-fwd, K3-bwd, K4-fwd and K4-bwd at
+    """Phase 22: K1-fwd, K2-fused, K3-fwd, K3-bwd, K4-fwd and K4-bwd at
     BERT-large's shapes on the pretraining path (micro batch 16, seq 128,
     so 2,048 rows): non-causal bf16 attention [16, 128, 16, 64] (one
     128-row q tile over two 64-row K/V tiles) beside SDPA's non-causal
@@ -3082,36 +3263,33 @@ def kernel_bert(peaks):
         return fa.flash_attention_backward(q, k, v, o, lse, dout, None, sm,
                                            False)
 
+    def sweeps():
+        return fa._flash_bwd_launch(q, k, v, o, lse, dout, None, sm, False)
+
+    before = fa._flash_bwd_fused_launch.launches
     got = k2()
     torch.cuda.synchronize()
-    ref = fa._flash_bwd_plain(q, k, v, o, lse, dout, None, sm, False)
-    errs = [check_rel(f"flash bwd d{n}, {label}", x, y, GRAD_TOL_BF16,
+    if fa._flash_bwd_fused_launch.launches != before + 1:
+        raise AssertionError(f"{label}: the backward did not take K2-fused")
+    ref = fa._flash_bwd_fused_plain(q, k, v, o, lse, dout, None, sm, False)
+    errs = [check_rel(f"flash bwd fused d{n}, {label}", x, y, GRAD_TOL_BF16,
                       checks) for n, x, y in zip("qkv", got, ref)]
     again = k2()
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
-        raise AssertionError(f"K2 {label}: a second launch differs")
+        raise AssertionError(f"K2-fused {label}: a second launch differs")
     flops = 10.0 * b * h * d * t * t
     nbytes = 8 * b * t * h * d * 2 + b * h * t * 4
     bound_ms, bound_by = bound(flops, peaks["bf16"], nbytes, peaks)
-    dt_ = dout.transpose(1, 2).detach().clone()
-    for x in (qt, kt, vt):
-        x.requires_grad_(True)
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt_)
-
-    out["flash_attention_bwd"]["bert"] = rates(dict(
+    lib_ms, lib_graph_ms = sdpa_ms(q, k, v, dout, False)[2:]
+    out["flash_attention_bwd_fused"]["bert"] = rates(dict(
         max_abs_err=max(errs), ms=time_ms(k2), graph_ms=graph_ms(k2),
-        plain_ms=time_ms(lambda: fa._flash_bwd_plain(
+        plain_ms=time_ms(lambda: fa._flash_bwd_fused_plain(
             q, k, v, o, lse, dout, None, sm, False), iters=3, warmup=1),
+        sweeps_ms=time_ms(sweeps), sweeps_graph_ms=graph_ms(sweeps),
         bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
-        library_device_ms=graph_ms(sdpa_fwd_bwd) - graph_ms(sdpa_fwd),
+        library_ms=lib_ms, library_device_ms=lib_graph_ms,
         shape=label), flops)
-    del qkv, q, k, v, o, lse, dout, got, again, ref, qt, kt, vt, dt_
+    del qkv, q, k, v, o, lse, dout, got, again, ref, qt, kt, vt
     release()
 
     # K3-fwd and K3-bwd, the post-LN form, H 1024
@@ -3350,7 +3528,7 @@ def bert_training(seed, card):
         losses.append(engine.train_batch(batch=staged))
     loss_vals = [float(x) for x in torch.stack(losses).float().cpu()]
     micro = (BERT_WARMUP + BERT_STEPS) * BERT_GAS
-    per_micro = {k: counts[k] / micro for k in BERT_KERNELS}
+    per_micro = {k: counts[k] / micro for k in BERT_LAUNCHES_PER_MICRO}
     profile = profile_steps(lambda: engine.train_batch(batch=staged), 1)
     # the host's time for one micro batch's loss and gradients: the
     # enqueue (no device wait), then the wait for the device
@@ -3486,6 +3664,7 @@ GRAD_TOL_F16 = 5e-3
 # share a source and a Pallas kernel with
 FP16_KERNELS = {
     "flash_attention_fwd_fp16": "flash_attention_fwd",
+    "flash_attention_bwd_fused_fp16": "flash_attention_bwd_fused",
     "flash_attention_bwd_fp16": "flash_attention_bwd",
     "fused_bias_residual_layernorm_fwd_fp16":
         "fused_bias_residual_layernorm_fwd",
@@ -3493,9 +3672,14 @@ FP16_KERNELS = {
         "fused_bias_residual_layernorm_bwd",
     "fused_bias_gelu_fwd_fp16": "fused_bias_gelu_fwd",
     "fused_bias_gelu_bwd_fp16": "fused_bias_gelu_bwd",
+    "block_sparse_fwd_sm90_fp16": "block_sparse_fwd_sm90",
+    "block_sparse_band_fwd_sm90_fp16": "block_sparse_band_fwd_sm90",
+    "block_sparse_bwd_dkv_sm90_fp16": "block_sparse_bwd_dkv_sm90",
+    "block_sparse_bwd_dq_sm90_fp16": "block_sparse_bwd_dq_sm90",
 }
 # the fp16 paths: their launches are the fp16 forms'
-FP16_PATHS = ("bert_fp16", "gpt2_fp16_pld", "engine_surface_fp16")
+FP16_PATHS = ("sparse_attention_fp16", "bert_fp16", "gpt2_fp16_pld",
+              "engine_surface_fp16")
 # a run ends once this many clean steps follow the last skipped one, or
 # fails at the cap
 FP16_CLEAN_STEPS = 8
@@ -3540,8 +3724,9 @@ def check_nonfinite(label, got, ref, checks):
 
 
 def kernel_fp16(peaks, gen):
-    """The fp16 forms of K1-fwd, K2, K3-fwd, K3-bwd, K4-fwd and K4-bwd at
-    path A's shapes (BERT-large: attention [16, 128, 16, 64] non-causal,
+    """The fp16 forms of K1-fwd, K2-fused, K2's sweeps, K3-fwd, K3-bwd,
+    K4-fwd and K4-bwd at path A's shapes (BERT-large: attention [16,
+    128, 16, 64] non-causal,
     N 2,048 rows of H 1,024 post-LN (an fp16 and then an fp32 residual,
     fp32 out), bias + erf-GeLU N 2,048 x 4,096) and path B's (gpt2-1.5b:
     attention [11, 1024, 25, 64] causal, N 11,264 x 1,600 all fp16,
@@ -3559,7 +3744,9 @@ def kernel_fp16(peaks, gen):
     from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
     f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
     checks = []
-    out = {k: {} for k in FP16_KERNELS}
+    # K7's fp16 forms are kernel_sparse's
+    out = {k: {} for k, base in FP16_KERNELS.items()
+           if not base.startswith("block_sparse")}
 
     def randn(shape, dtype, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device="cuda")) \
@@ -3599,47 +3786,52 @@ def kernel_fp16(peaks, gen):
             return fa.flash_attention_backward(q, k, v, o, lse2, dout, None,
                                                sm, causal)
 
+        def sweeps():
+            return fa._flash_bwd_launch(q, k, v, o, lse2, dout, None, sm,
+                                        causal)
+
+        # the path's backward: K2-fused (T <= 1024), twice, bit for bit
         got = bwd()
         torch.cuda.synchronize()
-        ref_g = fa._flash_bwd_plain(q, k, v, o, lse2, dout, None, sm, causal)
-        errs = [check_rel(f"flash fp16 bwd d{n}, {label}", x, y,
+        ref_g = fa._flash_bwd_fused_plain(q, k, v, o, lse2, dout, None, sm,
+                                          causal)
+        errs = [check_rel(f"flash fused fp16 bwd d{n}, {label}", x, y,
                           GRAD_TOL_F16, checks)
                 for n, x, y in zip("qkv", got, ref_g)]
+        if not all(torch.equal(x, y) for x, y in zip(got, bwd())):
+            raise AssertionError(f"K2-fused {label}: a second launch "
+                                 "differs")
         d_inf = dout.clone()
         d_inf[0, 7, 1, 2] = float("inf")
         for n, x, y in zip("qkv", fa.flash_attention_backward(
                 q, k, v, o, lse2, d_inf, None, sm, causal),
-                fa._flash_bwd_plain(q, k, v, o, lse2, d_inf, None, sm,
-                                    causal)):
-            check_nonfinite(f"flash fp16 bwd d{n}, inf in dO, {label}", x, y,
-                            checks)
+                fa._flash_bwd_fused_plain(q, k, v, o, lse2, d_inf, None, sm,
+                                          causal)):
+            check_nonfinite(f"flash fused fp16 bwd d{n}, inf in dO, {label}",
+                            x, y, checks)
+        # K2's sweeps in fp16 (the route of T > 1024) on the same inputs
+        got_s = sweeps()
+        torch.cuda.synchronize()
+        errs_s = [check_rel(f"flash fp16 bwd sweeps d{n}, {label}", x, y,
+                            GRAD_TOL_F16, checks)
+                  for n, x, y in zip("qkv", got_s, fa._flash_bwd_plain(
+                      q, k, v, o, lse2, dout, None, sm, causal))]
         pairs = t * (t + 1) // 2 if causal else t * t
         qb, kb, vb, ob, db = (x.to(bf16) for x in (q, k, v, o, dout))
         lseb = fa.flash_attention_with_lse(qb, kb, vb, causal=causal)[1][
             ..., 0].contiguous()
-        qt, kt, vt, dt = (x.transpose(1, 2).detach().clone()
-                          for x in (q, k, v, dout))
-        for x in (qt, kt, vt):
-            x.requires_grad_(True)
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(qt, kt, vt,
-                                                  is_causal=causal)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dt)
-
+        lib_fwd_ms, lib_fwd, lib_ms, lib_graph_ms = sdpa_ms(q, k, v, dout,
+                                                            causal)
         flops = 4.0 * b * h * d * pairs
         nbytes = 4 * b * t * h * d * 2 + b * h * t * 4
         bound_ms, bound_by = bound(flops, peaks["bf16"], nbytes, peaks)
-        lib_fwd = graph_ms(sdpa_fwd)
         out["flash_attention_fwd_fp16"][path] = rates(dict(
             max_abs_err=err, ms=time_ms(fwd), graph_ms=graph_ms(fwd),
             plain_ms=time_ms(lambda: fa._flash_fwd_plain(q, k, v, sm,
                                                          causal),
                              iters=3, warmup=1),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(sdpa_fwd), library_graph_ms=lib_fwd,
+            library_ms=lib_fwd_ms, library_graph_ms=lib_fwd,
             bf16_graph_ms=graph_ms(lambda: fa.flash_attention_with_lse(
                 qb, kb, vb, causal=causal)),
             library_call="F.scaled_dot_product_attention (fp16)",
@@ -3647,19 +3839,31 @@ def kernel_fp16(peaks, gen):
         flops = 10.0 * b * h * d * pairs
         nbytes = 8 * b * t * h * d * 2 + b * h * t * 4
         bound_ms, bound_by = bound(flops, peaks["bf16"], nbytes, peaks)
-        out["flash_attention_bwd_fp16"][path] = rates(dict(
+        sweeps_graph_ms = graph_ms(sweeps)
+        out["flash_attention_bwd_fused_fp16"][path] = rates(dict(
             max_abs_err=max(errs), ms=time_ms(bwd), graph_ms=graph_ms(bwd),
-            plain_ms=time_ms(lambda: fa._flash_bwd_plain(
+            plain_ms=time_ms(lambda: fa._flash_bwd_fused_plain(
                 q, k, v, o, lse2, dout, None, sm, causal), iters=3,
                 warmup=1),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
-            library_graph_ms=graph_ms(sdpa_fwd_bwd) - lib_fwd,
+            library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+            sweeps_ms=time_ms(sweeps), sweeps_graph_ms=sweeps_graph_ms,
             bf16_graph_ms=graph_ms(lambda: fa.flash_attention_backward(
                 qb, kb, vb, ob, lseb, db, None, sm, causal)),
             library_call="F.scaled_dot_product_attention fwd+bwd less fwd "
                          "(fp16)", shape=label), flops)
-        del qkv, q, k, v, o, lse, ref, ref_lse, got, ref_g, qb, kb, vb
+        out["flash_attention_bwd_fp16"][path] = rates(dict(
+            max_abs_err=max(errs_s), ms=time_ms(sweeps),
+            graph_ms=sweeps_graph_ms,
+            plain_ms=time_ms(lambda: fa._flash_bwd_plain(
+                q, k, v, o, lse2, dout, None, sm, causal), iters=3,
+                warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms, library_graph_ms=lib_graph_ms,
+            library_call="F.scaled_dot_product_attention fwd+bwd less fwd "
+                         "(fp16)", shape=label + " (the sweeps launched "
+                         "directly: the path takes K2-fused)"), flops)
+        del qkv, q, k, v, o, lse, ref, ref_lse, got, got_s, ref_g, qb, kb, vb
         release()
 
     # --- K3-fwd and K3-bwd ---
@@ -3951,7 +4155,8 @@ def run_fp16_path(name, engine, staged, cap, card, expect_per_step=None,
     jax_scales = replay_scale(flags, init, args.get("scale_window", 1000),
                               args.get("delayed_shift", 2),
                               args.get("min_scale", 1.0))
-    per_step = {k: counts[k] / n for k in TRAINING_KERNELS}
+    per_step = {k: counts[k] / n
+                for k in (expect_per_step or TRAINING_KERNELS)}
     exact = expect_per_step is None or per_step == {
         k: float(v) for k, v in expect_per_step.items()}
     torch.cuda.reset_peak_memory_stats()
@@ -4105,7 +4310,7 @@ def gpt2_fp16_launches(n_layer, pld):
     ln_2 of every block and ln_f; under PLD the plain carry runs it for
     ln_2 only (ln_1 and ln_f plain)."""
     return {"flash_attention_fwd": 2 * n_layer,
-            "flash_attention_bwd": n_layer,
+            "flash_attention_bwd_fused": n_layer,
             "fused_bias_residual_layernorm_fwd":
                 2 * n_layer if pld else 4 * n_layer + 1,
             "fused_bias_residual_layernorm_bwd":
@@ -4383,6 +4588,8 @@ def read_counts():
             "moe_combine": fd.combine_rows.launches,
             "flash_attention_fwd": fa.flash_attention_with_lse.launches,
             "flash_attention_bwd": fa.flash_attention_backward.launches,
+            "flash_attention_bwd_fused":
+                fa._flash_bwd_fused_launch.launches,
             "flash_attention_merge": fa.flash_attention_merge.launches,
             "fused_bias_residual_layernorm_fwd":
                 fo.fused_bias_residual_layernorm.launches,
@@ -4412,6 +4619,12 @@ KERNELS_BF16 = (
     ("fused_bias_gelu_fwd",
      "deepspeed_tpu_torch/ops/csrc/fused_gelu_fwd.cu",
      "deepspeed_tpu/ops/transformer/fused_ops.py:282", kernel_gelu),
+    # K2-fused: the one-pass backward at T <= 1024 (every training path)
+    ("flash_attention_bwd_fused",
+     "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd_fused.cu",
+     "deepspeed_tpu/ops/transformer/flash_attention.py:606",
+     kernel_flash_bwd_fused),
+    # K2's sweeps: longer sequences (the ring leg), fp32, head dims 192/256
     ("flash_attention_bwd",
      "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
      "deepspeed_tpu/ops/transformer/flash_attention.py:513",
@@ -4481,12 +4694,15 @@ KERNELS = KERNELS_BF16 + tuple(
      next(k[2] for k in KERNELS_BF16 if k[0] == base), None)
     for f16, base in FP16_KERNELS.items())
 # the kernels each path runs: serving the forward ones, dense training
-# K1-K4, MoE training K1-K4 and K8; the quantized paths add K6
+# K1-K4 (the backward K2-fused: every training path's T is one tile,
+# <= 1024), MoE training K1-K4 and K8; the quantized paths add K6
 SERVING_KERNELS = ("flash_attention_fwd", "fused_bias_residual_layernorm_fwd",
                    "fused_bias_gelu_fwd")
 TRAINING_KERNELS = SERVING_KERNELS + (
-    "flash_attention_bwd", "fused_bias_residual_layernorm_bwd",
+    "flash_attention_bwd_fused", "fused_bias_residual_layernorm_bwd",
     "fused_bias_gelu_bwd")
+# what the paths at T <= 1024 never launch: K2's sweeps
+FUSED_ABSENT = ("flash_attention_bwd",)
 MOE_KERNELS = TRAINING_KERNELS + ("moe_dispatch", "moe_combine")
 QUANT_KERNELS = TRAINING_KERNELS + ("quantized_matmul",)
 MOE_QUANT_KERNELS = MOE_KERNELS + ("quantized_matmul",)
@@ -4497,8 +4713,9 @@ SPARSE_ORACLE_KERNELS = SPARSE_KERNELS + ("block_sparse_fwd",
                                           "block_sparse_band_fwd",
                                           "block_sparse_bwd_dkv",
                                           "block_sparse_bwd_dq")
-# the ring leg: K5 and K2 (the flash ring), K1 and K2 (Ulysses); GPT-2
-# under the ring: training's kernels with K5 in K1's place
+# the ring leg: K5 and K2's sweeps (the flash ring at T 8192 and 32768),
+# K1 and K2's sweeps (Ulysses); GPT-2 under the ring: training's kernels
+# with K5 in K1's place (K2-fused through its given-delta entry)
 SEQUENCE_PARALLEL_KERNELS = ("flash_attention_merge", "flash_attention_bwd",
                              "flash_attention_fwd")
 SP_TRAINING_KERNELS = tuple(k for k in TRAINING_KERNELS
@@ -4579,19 +4796,23 @@ def main(argv=None):
                              f"path: {missing}")
     release()
 
-    def path_counts(path, counts, kernels):
+    def path_counts(path, counts, kernels, absent=()):
         emit({"phase": "launch_counts", "path": path, **counts})
         missing = [k for k in kernels if counts[k] <= 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"path: {missing}")
+        stray = [k for k in absent if counts[k] != 0]
+        if stray:
+            raise AssertionError(f"kernels launched on the {path} path "
+                                 f"that it must not run: {stray}")
         release()
         return counts
 
     # 7: the training path (counts zeroed inside, right before its
     # steps), then 8: its oracle
     training, losses = train_and_check(args.seed, card)
-    path_counts("training", training, TRAINING_KERNELS)
+    path_counts("training", training, TRAINING_KERNELS, FUSED_ABSENT)
     training_oracle(args.seed)
     release()
 
@@ -4599,7 +4820,7 @@ def main(argv=None):
     # as 7 with the quantized_compute block, held to 7's losses; then 10:
     # its oracle
     quant, quant_losses = train_and_check(args.seed, card, quantized=True)
-    path_counts("quant_training", quant, QUANT_KERNELS)
+    path_counts("quant_training", quant, QUANT_KERNELS, FUSED_ABSENT)
     gaps = [abs(a - b) for a, b in zip(quant_losses, losses)]
     emit({"phase": "quant_vs_unquantized_losses", "quant": quant_losses,
           "unquantized": losses, "abs_gap": gaps, "tol": TOL_QUANT_LOSS,
@@ -4614,13 +4835,13 @@ def main(argv=None):
     # 11: the MoE training path (counts zeroed inside, right before its
     # steps), then 12: its oracle, then 13: the quantized MoE path
     moe = path_counts("moe_training", moe_train_and_check(args.seed, card),
-                      MOE_KERNELS)
+                      MOE_KERNELS, FUSED_ABSENT)
     moe_oracle(args.seed)
     release()
     moe_quant = path_counts(
         "moe_quant_training",
         moe_train_and_check(args.seed, card, quantized=True),
-        MOE_QUANT_KERNELS)
+        MOE_QUANT_KERNELS, FUSED_ABSENT)
 
     # 14: the K7 kernels against their twins; 15: the sparse attention
     # path (counts zeroed inside, right before it); 16: BERT-large's
@@ -4634,6 +4855,13 @@ def main(argv=None):
                          sparse_attention_path(args.seed, card),
                          SPARSE_KERNELS)
     bert_sparse(args.seed, card)
+    # 16b: the fp16 passes of the sparse path (the [1, 16384] shapes) and
+    # of BERT-large's sparse self-attention block
+    sparse16 = path_counts("sparse_attention_fp16",
+                           sparse_attention_path(args.seed, card,
+                                                 torch.float16),
+                           SPARSE_KERNELS)
+    bert_sparse(args.seed, card, torch.float16)
     sparse_oracle_counts = path_counts("sparse_oracle",
                                        sparse_oracle(args.seed),
                                        SPARSE_ORACLE_KERNELS)
@@ -4642,12 +4870,15 @@ def main(argv=None):
     # leg in a one-rank NCCL group (counts zeroed inside, right before
     # it) and the emulated four-rank ring; 20: the training flagship
     # under the ring, held to 7's losses
-    merge_res, k2_res, checks = kernel_merge(peaks, gen)
+    merge_res, k2_res, fused_res, checks = kernel_merge(peaks, gen)
     results["flash_attention_merge"] = merge_res
     results["flash_attention_bwd"].update(k2_res)
+    results["flash_attention_bwd_fused"].update(fused_res)
     emit({"phase": "kernel_merge", "checks": checks,
           "timed_by_path": {"flash_attention_merge": merge_res,
-                            "flash_attention_bwd": k2_res}, "card": card})
+                            "flash_attention_bwd": k2_res,
+                            "flash_attention_bwd_fused": fused_res},
+          "card": card})
     release()
     rendezvous = init_sp_group()
     try:
@@ -4656,7 +4887,8 @@ def main(argv=None):
                               SEQUENCE_PARALLEL_KERNELS)
         sp_train, sp_losses = train_and_check(
             args.seed, card, steps=4, sequence_parallel="ring")
-        path_counts("sp_training", sp_train, SP_TRAINING_KERNELS)
+        path_counts("sp_training", sp_train, SP_TRAINING_KERNELS,
+                    FUSED_ABSENT)
     finally:
         torch.distributed.destroy_process_group()
         if os.path.exists(rendezvous):
@@ -4679,7 +4911,7 @@ def main(argv=None):
     # 21: the training flagship saves, resumes and continues (counts
     # zeroed inside, right before its first step)
     ckpt = path_counts("checkpoint", checkpoint_and_check(args.seed, card),
-                       TRAINING_KERNELS)
+                       TRAINING_KERNELS, FUSED_ABSENT)
     release()
 
     # 22: the kernels at BERT-large's shapes against their twins; 23:
@@ -4692,7 +4924,7 @@ def main(argv=None):
           "timed_by_path": bert_res, "card": card})
     release()
     bert = path_counts("bert_training", bert_training(args.seed, card),
-                       BERT_KERNELS)
+                       BERT_KERNELS, FUSED_ABSENT)
     bert_oracle(args.seed)
     release()
 
@@ -4709,18 +4941,19 @@ def main(argv=None):
     bert_fp16_oracle(args.seed)
     release()
     bert16 = path_counts("bert_fp16", bert_fp16_lamb(args.seed, card),
-                         BERT_KERNELS)
+                         BERT_KERNELS, FUSED_ABSENT)
     gpt16 = path_counts("gpt2_fp16_pld", gpt2_fp16_pld(args.seed, card),
-                        TRAINING_KERNELS)
+                        TRAINING_KERNELS, FUSED_ABSENT)
     surface16 = path_counts("engine_surface_fp16",
                             engine_surface_fp16(args.seed, card),
-                            TRAINING_KERNELS)
+                            TRAINING_KERNELS, FUSED_ABSENT)
 
     rows = []
     counts_by_path = {"serving": serving, "training": training,
                       "quant_training": quant, "moe_training": moe,
                       "moe_quant_training": moe_quant,
                       "sparse_attention": sparse,
+                      "sparse_attention_fp16": sparse16,
                       "sparse_oracle": sparse_oracle_counts,
                       "sequence_parallel": sp_path,
                       "sp_training": sp_train, "checkpoint": ckpt,

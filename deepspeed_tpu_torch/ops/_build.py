@@ -40,7 +40,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the kernel sources, by library name
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "fused_ln_fwd",
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_bwd_fused", "fused_ln_fwd",
            "fused_ln_bwd", "fused_gelu_fwd", "fused_gelu_bwd",
            "moe_dispatch", "quantized_matmul", "block_sparse_attention")
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) bodies of the bf16 and fp16 flash-attention kernels at
 // head dims 64 and 128: K1-fwd and its K5 merge mode (flash_attention_fwd.cu),
-// K2's two sweeps (flash_attention_bwd.cu) and, over their band and table
+// K2's two sweeps (flash_attention_bwd.cu), the wgmma, TMA and ring pieces
+// of K2-fused (flash_attention_bwd_fused.cu) and, over their band and table
 // walks, the block-sparse band forward K7-band and backward K7-dkv and
 // K7-dq (block_sparse_attention.cu). fp32 inputs, head dims 192/256 and
 // K7's table forward keep attention_tiles.cuh's WMMA bodies.
@@ -9,9 +10,10 @@
 // forward Pallas kernels `_fwd_kernel` :262 and `_fwd_kernel_packed`
 // :337 (launcher `_fwd` :431, `pallas_call` :491), in their merge mode
 // too (`flash_attention_merge` :1068), and the backward kernels
-// `_bwd_dkv_kernel` :513, `_bwd_dq_kernel` :564, `_bwd_fused_kernel`
-// :606 and their packed twins :662, :704, :738 (launcher `_bwd` :765,
-// `pallas_call` :825, :845, :884).
+// `_bwd_dkv_kernel` :513, `_bwd_dq_kernel` :564 and their packed twins
+// :662, :704 (launcher `_bwd` :765, `pallas_call` :845, :884); the
+// one-tile `_bwd_fused_kernel` :606 / :738 (`pallas_call` :825) is
+// K2-fused's (flash_attention_bwd_fused.cu, over this header's pieces).
 //
 // Bound on the H100 at the flagship shape (bf16, causal, [11, 1024, 25,
 // 64]): the forward's bytes, 0.0434 ms at 3.35 TB/s, with its products

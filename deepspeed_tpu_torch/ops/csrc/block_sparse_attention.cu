@@ -25,7 +25,9 @@
 // bound by L2 and latency first, and a fast kernel keeps several q tiles
 // on one K/V tile and its loads in flight.
 //
-// The band forward in bf16 at head dims 64 and 128, the sparse path's,
+// The band forward in bf16 and fp16 at head dims 64 and 128 (bf16 is the
+// sparse path's; the element type E picks the wgmma operand type and the
+// tensor maps' data type, everything else is the same)
 // runs attention_hopper.cuh's forward body (K1's) over `BandWalk90`:
 // 128-row q tiles, two warpgroups of 64 rows sharing each 64-row K/V
 // tile, which arrives by TMA in a ring of 4 (D 64) or 2 (D 128) stages;
@@ -34,7 +36,8 @@
 // nothing of a tile skips its products; two CTAs per SM. Each half's
 // visibility is a bit mask of its sub-blocks against the tile's, from
 // the closed-form band test and the tile's global bits, computed per
-// step on the card. The backward in bf16 at head dims 64 and 128 runs
+// step on the card. The backward in bf16 and fp16 at head dims 64 and
+// 128 runs
 // K2's two Hopper sweeps (`dkv_body`, `dq_body`) over `TableWalk90`: a
 // resident 128-row tile (k tile for dK/dV, q tile for dQ) streams the
 // 64-row tiles that either of its halves sees, from the pair tables the
@@ -473,14 +476,14 @@ struct BandCfg90 {
   static size_t bytes(int nmax) { return walk + 12 * size_t(nmax) + 1024; }
 };
 
-// bf16 at D 64 and 128: one CTA per (b*h, 128-row q tile), in
-// `GridOrder`'s order (longest causal walks first)
-template <int D>
+// bf16 and fp16 (E) at D 64 and 128: one CTA per (b*h, 128-row q
+// tile), in `GridOrder`'s order (longest causal walks first)
+template <typename E, int D>
 __global__ void __launch_bounds__(sm90::kThreads, BandCfg90<D>::kBlocks)
 band_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
                      const __grid_constant__ CUtensorMap mv,
-                     bf16* __restrict__ out, float* __restrict__ lse,
+                     E* __restrict__ out, float* __restrict__ lse,
                      int seq, int heads, float scale_log2, int causal,
                      int bshift, int w, int aligned,
                      const int* __restrict__ gtiles, int ng,
@@ -495,8 +498,9 @@ band_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
   const BandWalk90 walk =
       band_walk90(steps, nmax, qt, seq, bshift, w, aligned, causal, gtiles,
                   ng, gbits, sub_shift);
-  sm90::fwd_body<D, false>(mq, mk, mv, out, lse, seq, heads, scale_log2, qt,
-                           bh, walk, MergeIn{});
+  sm90::fwd_body<D, false, BandWalk90, E>(mq, mk, mv, out, lse, seq, heads,
+                                          scale_log2, qt, bh, walk,
+                                          MergeIn{});
 }
 
 // The Hopper table forward's shared memory: the forward body's, then the
@@ -512,14 +516,15 @@ struct FwdTableCfg90 {
   static size_t bytes(int nmax) { return walk + 12 * size_t(nmax) + 1024; }
 };
 
-// bf16 at D 64 and 128: one CTA per (b*h, 128-row q tile) over the
-// forward pair table, in `table_order`'s order (longest walk first)
-template <int D>
+// bf16 and fp16 (E) at D 64 and 128: one CTA per (b*h, 128-row q tile)
+// over the forward pair table, in `table_order`'s order (longest walk
+// first)
+template <typename E, int D>
 __global__ void __launch_bounds__(sm90::kThreads, FwdTableCfg90<D>::kBlocks)
 bs_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv,
-                   bf16* __restrict__ out, float* __restrict__ lse, int seq,
+                   E* __restrict__ out, float* __restrict__ lse, int seq,
                    int heads, float scale_log2, int causal,
                    const int* __restrict__ head_map,
                    const int* __restrict__ table,
@@ -531,8 +536,9 @@ bs_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
   const auto walk = table_walk90<false, FwdTableCfg90<D>::walk>(
       table, count, static_cast<long long>(head_map[h]) * nt + qt, nmax,
       qt * sm90::kRows, sub_shift, causal);
-  sm90::fwd_body<D, false>(mq, mk, mv, out, lse, seq, heads, scale_log2, qt,
-                           bh, walk, MergeIn{});
+  sm90::fwd_body<D, false, decltype(walk), E>(mq, mk, mv, out, lse, seq,
+                                              heads, scale_log2, qt, bh, walk,
+                                              MergeIn{});
 }
 
 // The Hopper backward kernels' shared memory: the sweep's, then the
@@ -544,9 +550,9 @@ struct TableCfg90 {
   static size_t bytes(int nmax) { return walk + 12 * size_t(nmax) + 1024; }
 };
 
-// bf16 at D 64 and 128: one CTA per (b*h, 128-row k tile) over the
-// transpose pair table (`table_order`'s order)
-template <int D>
+// bf16 and fp16 (E) at D 64 and 128: one CTA per (b*h, 128-row k tile)
+// over the transpose pair table (`table_order`'s order)
+template <typename E, int D>
 __global__ void __launch_bounds__(sm90::kThreads,
                                   sm90::BwdCfg<D>::kDkvBlocks)
 bs_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
@@ -555,7 +561,7 @@ bs_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                        const __grid_constant__ CUtensorMap mdo,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       E* __restrict__ dk, E* __restrict__ dv,
                        int seq, int heads, float scale_log2, float sm_scale,
                        int causal, const int* __restrict__ head_map,
                        const int* __restrict__ table,
@@ -573,14 +579,14 @@ bs_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
 }
 
 // one CTA per (b*h, 128-row q tile) over the forward pair table
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(sm90::kThreads, sm90::BwdCfg<D>::kDqBlocks)
 bs_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
                       const __grid_constant__ CUtensorMap mk,
                       const __grid_constant__ CUtensorMap mv,
                       const __grid_constant__ CUtensorMap mdo,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dq,
+                      const float* __restrict__ delta, E* __restrict__ dq,
                       int seq, int heads, float scale_log2, float sm_scale,
                       int causal, const int* __restrict__ head_map,
                       const int* __restrict__ table,
@@ -682,27 +688,39 @@ int launch_band(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+// the forward's maps: q in 128-row tiles, k and v in 64-row ones
+template <typename E, int D>
+int fwd_maps(CUtensorMap& mq, CUtensorMap& mk, CUtensorMap& mv,
+             const void* q, const void* k, const void* v, int batch, int seq,
+             int heads, const long long* s) {
+  constexpr int kN = sm90::FwdCfg<D>::kN;
+  constexpr auto dt = sm90::map_type<E>();
+  return sm90::make_map(&mq, q, batch, seq, heads, D, s[0], s[1], s[2],
+                        sm90::kRows, dt) ||
+                 sm90::make_map(&mk, k, batch, seq, heads, D, s[3], s[4],
+                                s[5], kN, dt) ||
+                 sm90::make_map(&mv, v, batch, seq, heads, D, s[6], s[7],
+                                s[8], kN, dt)
+             ? sm90::kMapError
+             : 0;
+}
+
+template <typename E, int D>
 int launch_band_sm90(const void* q, const void* k, const void* v, void* out,
                      float* lse, int batch, int seq, int heads,
                      const long long* s, float scale_log2, int causal,
                      int bshift, int w, int aligned, const int* gtiles,
                      int ng, const int* gbits, int sub_shift, int nmax,
                      cudaStream_t stream) {
-  using L = sm90::FwdCfg<D>;
   CUtensorMap mq, mk, mv;
-  if (sm90::make_map(&mq, q, batch, seq, heads, D, s[0], s[1], s[2],
-                     sm90::kRows) ||
-      sm90::make_map(&mk, k, batch, seq, heads, D, s[3], s[4], s[5],
-                     L::kN) ||
-      sm90::make_map(&mv, v, batch, seq, heads, D, s[6], s[7], s[8], L::kN))
+  if (fwd_maps<E, D>(mq, mk, mv, q, k, v, batch, seq, heads, s))
     return sm90::kMapError;
-  auto kern = band_fwd_kernel_sm90<D>;
+  auto kern = band_fwd_kernel_sm90<E, D>;
   const size_t bytes = BandCfg90<D>::bytes(nmax);
   allow_smem(kern, bytes);
   const long long nt = (seq + sm90::kRows - 1) / sm90::kRows;
   kern<<<static_cast<unsigned>(nt * batch * heads), sm90::kThreads, bytes,
-         stream>>>(mq, mk, mv, static_cast<bf16*>(out), lse, seq, heads,
+         stream>>>(mq, mk, mv, static_cast<E*>(out), lse, seq, heads,
                    scale_log2, causal, bshift, w, aligned, gtiles, ng, gbits,
                    sub_shift, nmax,
                    sm90::grid_order(static_cast<long long>(batch) * heads,
@@ -725,24 +743,19 @@ unsigned pair_grid(int batch, int seq, int heads) {
                                sm90::kRows * batch * heads);
 }
 
-template <int D>
+template <typename E, int D>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* out,
                     float* lse, int batch, int seq, int heads,
                     const long long* s, float scale_log2, int causal,
                     PairTable tab, int sub_shift, cudaStream_t stream) {
-  using L = sm90::FwdCfg<D>;
   CUtensorMap mq, mk, mv;
-  if (sm90::make_map(&mq, q, batch, seq, heads, D, s[0], s[1], s[2],
-                     sm90::kRows) ||
-      sm90::make_map(&mk, k, batch, seq, heads, D, s[3], s[4], s[5],
-                     L::kN) ||
-      sm90::make_map(&mv, v, batch, seq, heads, D, s[6], s[7], s[8], L::kN))
+  if (fwd_maps<E, D>(mq, mk, mv, q, k, v, batch, seq, heads, s))
     return sm90::kMapError;
-  auto kern = bs_fwd_kernel_sm90<D>;
+  auto kern = bs_fwd_kernel_sm90<E, D>;
   const size_t bytes = FwdTableCfg90<D>::bytes(tab.nmax);
   allow_smem(kern, bytes);
   kern<<<pair_grid(batch, seq, heads), sm90::kThreads, bytes, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), lse, seq, heads, scale_log2,
+      mq, mk, mv, static_cast<E*>(out), lse, seq, heads, scale_log2,
       causal, tab.head_map, tab.steps, tab.count, tab.order, tab.nmax,
       sub_shift);
   return static_cast<int>(cudaGetLastError());
@@ -788,7 +801,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 // resident (kRows) and streamed (kStep) maps of q, k, v and dO, through
 // the caller's strides (s: q, k, v, out, dout)
-template <int D>
+template <typename E, int D>
 int bwd_maps(CUtensorMap (&res)[4], CUtensorMap (&str)[4], const void* q,
              const void* k, const void* v, const void* dout, int batch,
              int seq, int heads, const long long* s) {
@@ -796,14 +809,16 @@ int bwd_maps(CUtensorMap (&res)[4], CUtensorMap (&str)[4], const void* q,
   const long long* st[4] = {s, s + 3, s + 6, s + 12};
   for (int i = 0; i < 4; ++i)
     if (sm90::make_map(&res[i], ptr[i], batch, seq, heads, D, st[i][0],
-                       st[i][1], st[i][2], sm90::kRows) ||
+                       st[i][1], st[i][2], sm90::kRows,
+                       sm90::map_type<E>()) ||
         sm90::make_map(&str[i], ptr[i], batch, seq, heads, D, st[i][0],
-                       st[i][1], st[i][2], sm90::kStep))
+                       st[i][1], st[i][2], sm90::kStep,
+                       sm90::map_type<E>()))
       return sm90::kMapError;
   return 0;
 }
 
-template <int D>
+template <typename E, int D>
 int launch_dkv_sm90(const void* q, const void* k, const void* v,
                     const void* out, const void* dout, const float* lse,
                     float* delta, void* dk, void* dv, int batch, int seq,
@@ -811,21 +826,21 @@ int launch_dkv_sm90(const void* q, const void* k, const void* v,
                     float sm_scale, int causal, PairTable tab, int sub_shift,
                     cudaStream_t stream) {
   CUtensorMap res[4], str[4];
-  if (bwd_maps<D>(res, str, q, k, v, dout, batch, seq, heads, s))
+  if (bwd_maps<E, D>(res, str, q, k, v, dout, batch, seq, heads, s))
     return sm90::kMapError;
-  launch_delta<bf16, D>(out, dout, nullptr, delta, batch, seq, heads, s + 9,
-                        s + 12, stream);
-  auto kern = bs_bwd_dkv_kernel_sm90<D>;
+  launch_delta<E, D>(out, dout, nullptr, delta, batch, seq, heads, s + 9,
+                     s + 12, stream);
+  auto kern = bs_bwd_dkv_kernel_sm90<E, D>;
   const size_t bytes = TableCfg90<D>::bytes(tab.nmax);
   allow_smem(kern, bytes);
   kern<<<pair_grid(batch, seq, heads), sm90::kThreads, bytes, stream>>>(
-      str[0], res[1], res[2], str[3], lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), seq, heads, scale_log2, sm_scale, causal,
+      str[0], res[1], res[2], str[3], lse, delta, static_cast<E*>(dk),
+      static_cast<E*>(dv), seq, heads, scale_log2, sm_scale, causal,
       tab.head_map, tab.steps, tab.count, tab.order, tab.nmax, sub_shift);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <typename E, int D>
 int launch_dq_sm90(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int batch, int seq, int heads,
@@ -833,13 +848,13 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
                    int causal, PairTable tab, int sub_shift,
                    cudaStream_t stream) {
   CUtensorMap res[4], str[4];
-  if (bwd_maps<D>(res, str, q, k, v, dout, batch, seq, heads, s))
+  if (bwd_maps<E, D>(res, str, q, k, v, dout, batch, seq, heads, s))
     return sm90::kMapError;
-  auto kern = bs_bwd_dq_kernel_sm90<D>;
+  auto kern = bs_bwd_dq_kernel_sm90<E, D>;
   const size_t bytes = TableCfg90<D>::bytes(tab.nmax);
   allow_smem(kern, bytes);
   kern<<<pair_grid(batch, seq, heads), sm90::kThreads, bytes, stream>>>(
-      res[0], str[1], str[2], res[3], lse, delta, static_cast<bf16*>(dq),
+      res[0], str[1], str[2], res[3], lse, delta, static_cast<E*>(dq),
       seq, heads, scale_log2, sm_scale, causal, tab.head_map, tab.steps,
       tab.count, tab.order, tab.nmax, sub_shift);
   return static_cast<int>(cudaGetLastError());
@@ -848,8 +863,10 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Each entry point instantiates its launcher for (T, D) from dtype (0 =
-// float32, 1 = bfloat16) and head_dim (64 or 128), and returns
-// cudaGetLastError(), or -1 for an unsupported pair.
+// float32, 1 = bfloat16, 2 = float16) and head_dim (64 or 128), and
+// returns cudaGetLastError(), or -1 for an unsupported pair: the WMMA
+// entries (DS_DISPATCH) take fp32 and bf16, the Hopper ones
+// (DS_DISPATCH90) bf16 and fp16.
 #define DS_DISPATCH(dtype, head_dim, LAUNCH, ...)                       \
   if ((dtype) == 1 && (head_dim) == 64) return LAUNCH<bf16, 64>(__VA_ARGS__); \
   if ((dtype) == 1 && (head_dim) == 128)                                \
@@ -858,6 +875,15 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
     return LAUNCH<float, 64>(__VA_ARGS__);                              \
   if ((dtype) == 0 && (head_dim) == 128)                                \
     return LAUNCH<float, 128>(__VA_ARGS__);                             \
+  return -1
+#define DS_DISPATCH90(dtype, head_dim, LAUNCH, ...)                     \
+  if ((dtype) == 1 && (head_dim) == 64) return LAUNCH<bf16, 64>(__VA_ARGS__); \
+  if ((dtype) == 1 && (head_dim) == 128)                                \
+    return LAUNCH<bf16, 128>(__VA_ARGS__);                              \
+  if ((dtype) == 2 && (head_dim) == 64)                                 \
+    return LAUNCH<__half, 64>(__VA_ARGS__);                             \
+  if ((dtype) == 2 && (head_dim) == 128)                                \
+    return LAUNCH<__half, 128>(__VA_ARGS__);                            \
   return -1
 
 // Strides are in elements, (b, t, h) of q, k, v (9 values) for the
@@ -884,8 +910,8 @@ extern "C" int ds_bs_attn_fwd(const void* q, const void* k, const void* v,
               static_cast<cudaStream_t>(stream));
 }
 
-// K7-fwd on the Hopper body (bf16 at head dims 64 and 128; -1 for any
-// other pair): the arguments of ds_bs_attn_fwd with the forward pair
+// K7-fwd on the Hopper body (bf16 and fp16 at head dims 64 and 128; -1
+// for any other pair): the arguments of ds_bs_attn_fwd with the forward pair
 // table in place of the 64-row one (as ds_bs_attn_bwd_dq_sm90 takes it):
 // steps [U, nt, 3, nmax], count [U, nt] and order [H * nt].
 extern "C" int ds_bs_attn_fwd_sm90(const void* q, const void* k,
@@ -901,14 +927,8 @@ extern "C" int ds_bs_attn_fwd_sm90(const void* q, const void* k,
   if (batch * seq == 0) return 0;
   const PairTable tab{head_map, steps, count, order, nmax};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch_fwd_sm90<64>(q, k, v, out, lse, batch, seq, heads, strides,
-                               scale_log2, causal, tab, sub_shift, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch_fwd_sm90<128>(q, k, v, out, lse, batch, seq, heads,
-                                strides, scale_log2, causal, tab, sub_shift,
-                                s);
-  return -1;
+  DS_DISPATCH90(dtype, head_dim, launch_fwd_sm90, q, k, v, out, lse, batch,
+                seq, heads, strides, scale_log2, causal, tab, sub_shift, s);
 }
 
 // The band + global forward on the WMMA body: layout blocks of 2^bshift
@@ -930,9 +950,9 @@ extern "C" int ds_bs_attn_band_fwd(const void* q, const void* k,
               ng, gbits, sub_shift, static_cast<cudaStream_t>(stream));
 }
 
-// K7-band on the Hopper body (bf16 at head dims 64 and 128; -1 for any
-// other pair): the arguments of ds_bs_attn_band_fwd (gbits per 64-row k
-// tile) and nmax, the longest walk of a 128-row q tile.
+// K7-band on the Hopper body (bf16 and fp16 at head dims 64 and 128; -1
+// for any other pair): the arguments of ds_bs_attn_band_fwd (gbits per
+// 64-row k tile) and nmax, the longest walk of a 128-row q tile.
 extern "C" int ds_bs_attn_band_fwd_sm90(
     const void* q, const void* k, const void* v, void* out, float* lse,
     int batch, int seq, int heads, int head_dim, const long long* strides,
@@ -942,17 +962,9 @@ extern "C" int ds_bs_attn_band_fwd_sm90(
   cudaSetDevice(device);
   if (batch * seq == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch_band_sm90<64>(q, k, v, out, lse, batch, seq, heads,
-                                strides, scale_log2, causal, bshift, w,
-                                aligned, gtiles, ng, gbits, sub_shift, nmax,
-                                s);
-  if (dtype == 1 && head_dim == 128)
-    return launch_band_sm90<128>(q, k, v, out, lse, batch, seq, heads,
-                                 strides, scale_log2, causal, bshift, w,
-                                 aligned, gtiles, ng, gbits, sub_shift, nmax,
-                                 s);
-  return -1;
+  DS_DISPATCH90(dtype, head_dim, launch_band_sm90, q, k, v, out, lse, batch,
+                seq, heads, strides, scale_log2, causal, bshift, w, aligned,
+                gtiles, ng, gbits, sub_shift, nmax, s);
 }
 
 // dK, dV, after writing delta = rowsum(dO * O) (which dQ then reads)
@@ -994,8 +1006,8 @@ extern "C" int ds_bs_attn_bwd_dq(const void* q, const void* k, const void* v,
               sub_shift, rr, static_cast<cudaStream_t>(stream));
 }
 
-// K7-dkv and K7-dq on the Hopper sweeps (bf16 at head dims 64 and 128; -1
-// for any other pair): the arguments of ds_bs_attn_bwd_dkv /
+// K7-dkv and K7-dq on the Hopper sweeps (bf16 and fp16 at head dims 64
+// and 128; -1 for any other pair): the arguments of ds_bs_attn_bwd_dkv /
 // ds_bs_attn_bwd_dq with a pair table in place of the 64-row one: steps
 // [U, nt, 3, nmax] (nt = ceil(T / 128); per row the streamed 64-row tiles,
 // then the two halves' sub-block bits), count [U, nt] and order [H * nt],
@@ -1011,15 +1023,9 @@ extern "C" int ds_bs_attn_bwd_dkv_sm90(
   if (batch * seq == 0) return 0;
   const PairTable tab{head_map, steps, count, order, nmax};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch_dkv_sm90<64>(q, k, v, out, dout, lse, delta, dk, dv, batch,
-                               seq, heads, strides, scale_log2, sm_scale,
-                               causal, tab, sub_shift, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch_dkv_sm90<128>(q, k, v, out, dout, lse, delta, dk, dv,
-                                batch, seq, heads, strides, scale_log2,
-                                sm_scale, causal, tab, sub_shift, s);
-  return -1;
+  DS_DISPATCH90(dtype, head_dim, launch_dkv_sm90, q, k, v, out, dout, lse,
+                delta, dk, dv, batch, seq, heads, strides, scale_log2,
+                sm_scale, causal, tab, sub_shift, s);
 }
 
 extern "C" int ds_bs_attn_bwd_dq_sm90(
@@ -1033,13 +1039,7 @@ extern "C" int ds_bs_attn_bwd_dq_sm90(
   if (batch * seq == 0) return 0;
   const PairTable tab{head_map, steps, count, order, nmax};
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch_dq_sm90<64>(q, k, v, dout, lse, delta, dq, batch, seq,
-                              heads, strides, scale_log2, sm_scale, causal,
-                              tab, sub_shift, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch_dq_sm90<128>(q, k, v, dout, lse, delta, dq, batch, seq,
-                               heads, strides, scale_log2, sm_scale, causal,
-                               tab, sub_shift, s);
-  return -1;
+  DS_DISPATCH90(dtype, head_dim, launch_dq_sm90, q, k, v, dout, lse, delta,
+                dq, batch, seq, heads, strides, scale_log2, sm_scale, causal,
+                tab, sub_shift, s);
 }

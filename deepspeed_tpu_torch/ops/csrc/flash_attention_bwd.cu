@@ -1,8 +1,13 @@
-// K2: flash attention backward, for Hopper (sm_90a).
+// K2: flash attention backward in two sweeps, for Hopper (sm_90a).
 //
-// Replaces the Pallas kernels `_bwd_dkv_kernel`, `_bwd_dq_kernel`,
-// `_bwd_fused_kernel` and their packed twins in
-// deepspeed_tpu/ops/transformer/flash_attention.py (launcher `_bwd`).
+// Replaces the Pallas kernels `_bwd_dkv_kernel`, `_bwd_dq_kernel` and
+// their packed twins in deepspeed_tpu/ops/transformer/flash_attention.py
+// (launcher `_bwd`), which the JAX package runs where the sequence is
+// more than one tile of its 1024-row default block. Its one-tile kernel
+// `_bwd_fused_kernel` (every T <= 1024) is K2-fused,
+// flash_attention_bwd_fused.cu, and the wrapper routes as `_bwd` does:
+// these sweeps run at T > 1024 (the ring leg's 8k and 32k), and in fp32
+// and at head dims 192 and 256 at every T.
 // From q, k, v, the forward's out and log2-space lse (K1-fwd writes both)
 // and the output cotangent dO, with scores scaled by sm_scale * log2(e)
 // and masked entries at -1e30 as in the forward:
@@ -20,22 +25,23 @@
 // runs one CTA per (b*h, k tile) that walks the q tiles at or below the
 // diagonal; the dQ sweep one CTA per (b*h, q tile) that walks the k
 // tiles up to the diagonal. Both recompute S and P, so the score work is
-// done twice (7 products per visible pair against a fused sweep's 5),
+// done twice (7 products per visible pair against K2-fused's 5),
 // but every output row is owned by one CTA: no atomics, and a run
 // repeats bit for bit.
 //
-// Bound on the H100: at the flagship shape (bf16, causal, T=1024, D=64)
+// Bound on the H100: at the ring leg's [1, 8192, 4, 64] (bf16, causal)
 // the backward does 2.5x the forward's matmul work over ~1.6x its bytes,
-// so operations bound it at the tensor-core rate (0.0934 ms for the 5
-// products a pair needs). bf16 at head dims 64 and 128, the main path,
-// runs the Hopper sweeps of attention_hopper.cuh: 128 keys (dK/dV) or
+// so operations bound it at the tensor-core rate (0.0869 ms for the 5
+// products a pair needs). bf16 and fp16 at head dims 64 and 128 run the
+// Hopper sweeps of attention_hopper.cuh: 128 keys (dK/dV) or
 // queries (dQ) resident per CTA, two warpgroups of 64 rows, the other
 // side streamed by TMA in 64-row tiles through a 3-stage ring (with the
 // step's lse and delta rows), scores and gradients in wgmma registers;
 // the dK/dV sweep forms the transposed scores so that P^T and dS^T feed
 // its products as register operands. Measured on the H100 (PERF.md) it
 // holds ~1.3x the time of torch's SDPA backward at the flagship shape
-// and less than SDPA's at head dim 128, ~17% of the bound. fp32 inputs
+// (where the paths now take K2-fused) and less than SDPA's at head dim
+// 128, ~17% of the bound. fp32 inputs
 // and head dims 192/256 keep attention_tiles.cuh's bodies: WMMA
 // 16x16x16 bf16 fragments (or a CUDA-core path for fp32: the TPU
 // kernel's fp32 dots were exact fp32; the tensor cores would round to

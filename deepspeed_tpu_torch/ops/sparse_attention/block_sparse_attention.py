@@ -6,14 +6,14 @@ CUDA source `ops/csrc/block_sparse_attention.cu`:
 
   K7-fwd   `_bs_fwd_kernel`      the table forward (BigBird, per-head
                                  layouts, any layout `_band_decompose`
-                                 rejects): in bf16 at head dims 64 and
-                                 128 on the Hopper body
+                                 rejects): in bf16 and fp16 at head dims
+                                 64 and 128 on the Hopper body
                                  (`_bs_fwd_sm90_launch`: 128-row q tiles
                                  over the forward pair table), otherwise
                                  on the WMMA body (`_bs_fwd_launch`)
   K7-band  `_band_fwd_kernel`    the band + global forward (BSLongformer,
-                                 Fixed): in bf16 at head dims 64 and 128
-                                 on the Hopper body of
+                                 Fixed): in bf16 and fp16 at head dims 64
+                                 and 128 on the Hopper body of
                                  `ops/csrc/attention_hopper.cuh`
                                  (`_band_fwd_sm90_launch`: TMA, wgmma,
                                  128-row q tiles over 64-row k tiles),
@@ -21,13 +21,19 @@ CUDA source `ops/csrc/block_sparse_attention.cu`:
                                  (`_band_fwd_launch`, 64 x 64 tiles)
   K7-dkv   `_bs_bwd_dkv_kernel`  dK and dV over the transpose table
   K7-dq    `_bs_bwd_dq_kernel`   dQ over the forward table: both in bf16
-                                 at head dims 64 and 128 on the Hopper
-                                 sweeps of `attention_hopper.cuh`
+                                 and fp16 at head dims 64 and 128 on the
+                                 Hopper sweeps of `attention_hopper.cuh`
                                  (`_bs_bwd_dkv_sm90_launch`,
                                  `_bs_bwd_dq_sm90_launch`: 128-row
                                  resident tiles, 64-row steps by TMA,
                                  wgmma), otherwise on the WMMA bodies
                                  (`_bs_bwd_dkv_launch`, `_bs_bwd_dq_launch`)
+
+The fp16 forms are the Hopper kernels' (the same bodies, instantiated
+on `__half`: `wgmma .f16`, fp16 tensor maps); the WMMA bodies take fp32
+and bf16, so fp16 on their route (a tile other than 64 rows) raises
+`FP16_WMMA_LATER`. On the card every fp16 call takes the Hopper route:
+the padding below brings T to a multiple of 64 and D to 64 or 128.
 
 The backward always runs the table kernels, whatever the forward took,
 as in the JAX package. The host code is the JAX package's, copied:
@@ -50,13 +56,13 @@ tile pairs (all tiles of a walk step at once), the online softmax in log2 space 
 scores at -1e30, fp32 sums, p and dS rounded to the input dtype before
 their products. A CPU tensor takes the twins; a CUDA tensor launches the
 kernels or raises on what they do not take (a head dim above 128, a
-block other than 16-256, fp16). On the card, `block_sparse_attention`
-pads a T that is no multiple of 64 with layout blocks that no row sees
-and whose rows see nothing, and a head dim under 128 with zeros to 64 or
-128 (sm_scale from the true head dim); the padding is sliced off the
-output and so off dQ/dK/dV. The twins take those shapes as they are:
-their tile is the layout block where 64 does not fit or the block is
-under 16.
+block other than 16-256, fp16 on the WMMA bodies). On the card,
+`block_sparse_attention` pads a T that is no multiple of 64 with layout
+blocks that no row sees and whose rows see nothing, and a head dim
+under 128 with zeros to 64 or 128 (sm_scale from the true head dim);
+the padding is sliced off the output and so off dQ/dK/dV. The twins
+take those shapes as they are: their tile is the layout block where 64
+does not fit or the block is under 16.
 
 Built tables and their device copies are cached by (layout bytes,
 causal, block, tile pair, device), so the host work and the copy to the
@@ -78,6 +84,10 @@ from deepspeed_tpu_torch.ops.transformer.flash_attention import (
 # bodies: 128 resident rows x 64 streamed rows, `_hopper_tiles`)
 TILE = 64
 _KERNEL_HEAD_DIMS = (64, 128)
+FP16_WMMA_LATER = (
+    "block-sparse kernels: fp16 runs the Hopper kernels (head dims 64 and "
+    "128 at the 64-row tile); the WMMA kernels' fp16 form is not in the "
+    "port: ROADMAP Queue 2 item 9")
 _KERNEL_BLOCKS = (16, 32, 64, 128, 256)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.POINTER(ctypes.c_longlong)
@@ -671,18 +681,16 @@ def _bs_bwd_plain(q, k, v, out, lse, dout, plan, sm_scale):
 # ----------------------------------------------------------------------
 # kernel launchers
 # ----------------------------------------------------------------------
-def _check_kernel_args(q, block, *others, grid_y=True):
-    """Raise on what the K7 kernels do not take; `grid_y`: the WMMA
-    kernels' grid holds B*H in its y dimension (<= 65535)."""
+def _check_kernel_args(q, block, *others, grid_y=True, hopper=False):
+    """Raise on what the K7 kernels do not take; `grid_y`: the kernel's
+    grid holds B*H in its y dimension (<= 65535); `hopper`: a Hopper
+    kernel (bf16 or fp16), else a WMMA one (fp32 or bf16)."""
     b, t, h, d = q.shape
-    if q.dtype == torch.float16:
-        raise NotImplementedError(
-            "block-sparse attention kernels: the fp16 form of K7 is not "
-            "in the port yet (ROADMAP Queue 1 item 10); use bfloat16 or "
-            "float32")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"block-sparse kernel: dtype {q.dtype} not "
-                        "supported (float32 or bfloat16)")
+                        "supported (float32, bfloat16 or float16)")
+    if q.dtype == torch.float16 and not hopper:
+        raise NotImplementedError(FP16_WMMA_LATER)
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"block-sparse kernel: head_dim {d} not in "
                          f"{_KERNEL_HEAD_DIMS}")
@@ -766,13 +774,14 @@ _band_fwd_launch.launches = 0
 
 
 def _band_fwd_sm90_launch(q, k, v, plan, sm_scale):
-    """K7-band on the Hopper body (bf16 at head dims 64 and 128, the
-    plan at `_SM90_TILES`): (out, lse [B*H, T] log2 space)."""
+    """K7-band on the Hopper body (bf16 or fp16 at head dims 64 and 128,
+    the plan at `_SM90_TILES`): (out, lse [B*H, T] log2 space)."""
     from deepspeed_tpu_torch.ops import _build
-    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v))
+    _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
+                       hopper=True)
     if not _on_sm90(q.dtype, q.shape[-1]):
-        raise ValueError(f"Hopper band forward kernel: bf16 at head dims "
-                         f"64 and 128, got {q.dtype}, {q.shape[-1]}")
+        raise ValueError(f"Hopper band forward kernel: bf16 or fp16 at head "
+                         f"dims 64 and 128, got {q.dtype}, {q.shape[-1]}")
     _check_band_plan(plan, _SM90_TILES)
     out, lse = _fwd_outputs(q)
     fn = _build.function("block_sparse_attention", "ds_bs_attn_band_fwd_sm90",
@@ -847,8 +856,9 @@ def _pair_args(q, plan, name, what="backward"):
     ("dq": the forward table, which the table forward walks too; "dkv":
     the transpose table), after the checks of their route."""
     if not _on_sm90(q.dtype, q.shape[-1]):
-        raise ValueError(f"Hopper block-sparse {what} kernel: bf16 at head "
-                         f"dims 64 and 128, got {q.dtype}, {q.shape[-1]}")
+        raise ValueError(f"Hopper block-sparse {what} kernel: bf16 or fp16 "
+                         f"at head dims 64 and 128, got {q.dtype}, "
+                         f"{q.shape[-1]}")
     if (plan.q_tile, plan.tile) != _SM90_TILES:
         raise ValueError(f"Hopper block-sparse {what} kernel: needs a plan "
                          f"at tiles {_SM90_TILES}, got "
@@ -865,12 +875,12 @@ def _pair_args(q, plan, name, what="backward"):
 
 
 def _bs_fwd_sm90_launch(q, k, v, plan, sm_scale):
-    """K7-fwd on the Hopper body (bf16 at head dims 64 and 128, the plan
-    at `_SM90_TILES`): 128-row q tiles over the forward pair table, CTAs
-    longest walk first; (out, lse [B*H, T] log2 space)."""
+    """K7-fwd on the Hopper body (bf16 or fp16 at head dims 64 and 128,
+    the plan at `_SM90_TILES`): 128-row q tiles over the forward pair
+    table, CTAs longest walk first; (out, lse [B*H, T] log2 space)."""
     from deepspeed_tpu_torch.ops import _build
     _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
-                       grid_y=False)
+                       grid_y=False, hopper=True)
     tables = _pair_args(q, plan, "dq", "table forward")
     out, lse = _fwd_outputs(q)
     fn = _build.function("block_sparse_attention", "ds_bs_attn_fwd_sm90",
@@ -888,11 +898,13 @@ _bs_fwd_sm90_launch.launches = 0
 
 
 def _bs_bwd_dkv_sm90_launch(q, k, v, out, lse, dout, plan, sm_scale):
-    """K7-dkv on the Hopper sweep (bf16 at head dims 64 and 128, the plan
-    at `_SM90_TILES`), after its delta pre-pass: (dk, dv, delta)."""
+    """K7-dkv on the Hopper sweep (bf16 or fp16 at head dims 64 and 128,
+    the plan at `_SM90_TILES`), after its delta pre-pass: (dk, dv,
+    delta)."""
     from deepspeed_tpu_torch.ops import _build
     _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
-                       ("out", out), ("dout", dout), grid_y=False)
+                       ("out", out), ("dout", dout), grid_y=False,
+                       hopper=True)
     tables = _pair_args(q, plan, "dkv")
     if lse.data_ptr() % 16:     # the sweep bulk-copies lse rows
         lse = lse.clone()
@@ -922,7 +934,8 @@ def _bs_bwd_dq_sm90_launch(q, k, v, out, lse, dout, delta, plan, sm_scale):
     wrote."""
     from deepspeed_tpu_torch.ops import _build
     _check_kernel_args(q, plan.block, ("q", q), ("k", k), ("v", v),
-                       ("out", out), ("dout", dout), grid_y=False)
+                       ("out", out), ("dout", dout), grid_y=False,
+                       hopper=True)
     tables = _pair_args(q, plan, "dq")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = _build.function("block_sparse_attention", "ds_bs_attn_bwd_dq_sm90",
@@ -971,7 +984,8 @@ def _forward(q, k, v, plan, sm_scale):
 
 def _backward(q, k, v, out, lse, dout, plan, sm_scale):
     """(dq, dk, dv): K7-dkv, then K7-dq on its delta, on the Hopper
-    sweeps for a plan at the Hopper pair (bf16 at head dims 64 and 128),
+    sweeps for a plan at the Hopper pair (bf16 or fp16 at head dims 64
+    and 128),
     else on the WMMA bodies; the twin for CPU tensors."""
     if not q.is_cuda:
         return _bs_bwd_plain(q, k, v, out, lse, dout, plan, sm_scale)
@@ -1022,7 +1036,8 @@ def _hopper_tiles(dtype, d, tile):
     """The (resident rows, streamed rows) of every K7 kernel for inputs
     of `dtype` and head dim d whose kernels walk `tile`-row tiles: the
     Hopper bodies' 128 x 64 where the tile is 64 and (dtype, d) runs them
-    (bf16 at head dims 64 and 128, as for K1 and K2), else tile x tile."""
+    (bf16 or fp16 at head dims 64 and 128, as for K1 and K2), else tile x
+    tile."""
     if tile == TILE and _on_sm90(dtype, d):
         return _SM90_TILES
     return (tile, tile)
@@ -1058,8 +1073,8 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
     (concrete: it is compiled into visible-tile tables on the host).
     CUDA tensors launch kernel K7-band (layouts `_band_decompose`
     accepts) or K7-fwd, and K7-dkv/K7-dq in the backward (on the Hopper
-    sweeps in bf16 at head dims 64 and 128); CPU tensors take the plain
-    twins at the same tile pairs.
+    bodies in bf16 and fp16 at head dims 64 and 128); CPU tensors take
+    the plain twins at the same tile pairs.
 
     head_packing: accepted for signature parity with the dense flash
     kernel ("auto"|"packed"|"off"), but the sparse kernels always run

@@ -1,30 +1,40 @@
-"""Flash attention: forward (kernel K1-fwd), backward (kernel K2) and
-the forward merged with a prior softmax partial (kernel K5).
+"""Flash attention: forward (kernel K1-fwd), backward (kernels K2-fused
+and K2) and the forward merged with a prior softmax partial (kernel K5).
 
 Port of deepspeed_tpu/ops/transformer/flash_attention.py. The Pallas
 forward kernels `_fwd_kernel` / `_fwd_kernel_packed` become the
 hand-written CUDA kernel `ops/csrc/flash_attention_fwd.cu` (K1-fwd, and
 K5 in their merge mode: `flash_attention_merge`, the ring-attention
-step), and the backward kernels (`_bwd_dkv_kernel`, `_bwd_dq_kernel`,
-`_bwd_fused_kernel` and their packed twins) become
-`ops/csrc/flash_attention_bwd.cu` (K2, with a given-delta entry for
-K5's backward). bf16 and fp16 at head dims 64 and 128 run the Hopper bodies
-(`ops/csrc/attention_hopper.cuh`: TMA and wgmma, 128-row q tiles over
-64-row K/V tiles forward, the backward's 64-row steps past 128-row
-resident tiles); fp32 and head dims 192/256 the WMMA bodies of
+step). The one-pass backward `_bwd_fused_kernel` / `_bwd_fused_kernel_packed`,
+which the JAX package runs whenever the whole sequence is one tile of
+its 1024-row default block (every T <= 1024), becomes
+`ops/csrc/flash_attention_bwd_fused.cu` (K2-fused: a cluster of
+ceil(T / 128) CTAs per head, S, P, dP and dS formed once per tile pair,
+delta computed in the launch). The two-sweep backward `_bwd_dkv_kernel` /
+`_bwd_dq_kernel` and their packed twins become
+`ops/csrc/flash_attention_bwd.cu` (K2: a delta pre-pass, then the dK/dV
+and dQ sweeps, with a given-delta entry for K5's backward). The backward
+routes as the JAX package's `_bwd` does: K2-fused at T <= 1024 in bf16
+and fp16 at head dims 64 and 128, K2's sweeps at longer T; fp32 and head
+dims 192/256 keep the sweeps at every T (the fused forms there are not
+ported: ROADMAP Queue 2). bf16 and fp16 at head dims 64 and 128 run the
+Hopper bodies (`ops/csrc/attention_hopper.cuh`: TMA and wgmma, 128-row q
+tiles over 64-row K/V tiles forward, the backward's 64-row steps past
+128-row resident tiles); fp32 and head dims 192/256 the WMMA bodies of
 `attention_tiles.cuh` (64 x 64 tiles). The plain PyTorch twins
-`_flash_fwd_plain`, `_flash_merge_plain` and `_flash_bwd_plain` below
-run the same tiled algorithms at the tiles of the body the kernel
-would run (`_kernel_tiles`; log2 space, -1e30 masking, causal tiles
-above the diagonal skipped) and are what CPU tensors take.
+`_flash_fwd_plain`, `_flash_merge_plain`, `_flash_bwd_fused_plain` and
+`_flash_bwd_plain` below run the same tiled algorithms at the tiles of
+the body the kernel would run (`_kernel_tiles`; log2 space, -1e30
+masking, causal tiles above the diagonal skipped) and are what CPU
+tensors take, on the same routes (`_flash_bwd_twin`).
 `torch.autograd.Function`s join the halves, so `flash_attention`,
 `flash_attention_with_lse` and `flash_attention_merge` are
 differentiable in every input and output (the lse cotangent enters the
 backward as a shift of delta, as in the JAX package). The kernels take
-head dims 64, 128, 192 and 256; fp16 (the fp16 forms of K1-fwd and K2,
-on the Hopper bodies) head dims 64 and 128. fp16 at the wide head dims
-and fp16 K5 (its merge and given-delta entries) raise NotImplementedError
-naming ROADMAP Queue 1 item 10.
+head dims 64, 128, 192 and 256; fp16 (the fp16 forms of K1-fwd, K2-fused
+and K2, on the Hopper bodies) head dims 64 and 128. fp16 at the wide head
+dims and fp16 K5 (its merge and given-delta entries) raise
+NotImplementedError naming ROADMAP Queue 1 item 10.
 
 Layout: [B, T, H, D] at every public function, as in the JAX package.
 The lse is returned as [B, H, T, 1] in LOG2 space (m + log2(l) over
@@ -39,6 +49,7 @@ with d != 64 raises).
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -269,6 +280,157 @@ def _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale, causal,
     return out.permute(0, 2, 1, 3), lse, lse_n
 
 
+def _delta(out, g, dlse, delta):
+    """delta [B, H, T] fp32: rowsum(dO * O), or the given one, minus
+    log2(e) * dlse."""
+    if delta is None:
+        delta = (g.to(torch.float32) * out.to(torch.float32)).sum(dim=-1) \
+            .permute(0, 2, 1)
+    else:
+        delta = delta.to(torch.float32)
+    if dlse is not None:
+        delta = delta - LOG2E * dlse.to(torch.float32)
+    return delta
+
+
+def _fused_route(q):
+    """Whether the backward of q's shape and dtype takes K2-fused: the
+    whole sequence in one tile of `_fit_block(_DEFAULT_BLOCK, T)` (the
+    JAX package's one-pass branch, every T <= 1024), on the Hopper
+    bodies' dtypes and head dims."""
+    t = q.shape[1]
+    return _fit_block(_DEFAULT_BLOCK, t) == t and _on_sm90(q.dtype,
+                                                           q.shape[-1])
+
+
+def _fused_plan(nk, causal, d):
+    """K2-fused's plan for nk 128-row key blocks: (rows, owner), rows[c]
+    the (key block, q block) pairs CTA c of a head's cluster takes, one a
+    round (None: an idle round), owner[j] the (CTA, slot) of q block j's
+    dQ slab. Every round gives every slab at most one partial, so each
+    dQ row is summed in the plan's order.
+
+    Causal at head dim 64 (two fp32 slabs fit a CTA's shared memory):
+    CTA c pairs key blocks c and nk - 1 - c, nk + 1 rounds for
+    ceil(nk / 2) CTAs and no idle slot (an odd nk's middle key block
+    alone in its CTA); key block c takes q blocks c up to nk/2 - 1, then
+    nk - 1 down to nk/2 (or c), key block nk - 1 - c q blocks nk - 1
+    down to nk - 1 - c. Otherwise the rotation: CTA i holds key block i
+    and takes q block (i + r) mod nk in round r (causal: while
+    i + r < nk, so key block 0 works nk rounds and key block nk - 1
+    one).
+    """
+    if causal and d == 64:
+        half = nk // 2
+        rows, owner = [], {}
+        for c in range((nk + 1) // 2):
+            owner[c] = (c, 0)
+            row = [(c, j) for j in list(range(c, half)) +
+                   list(range(nk - 1, max(half, c) - 1, -1))]
+            if nk - 1 - c > c:
+                owner[nk - 1 - c] = (c, 1)
+                row += [(nk - 1 - c, j) for j in range(nk - 1, nk - 2 - c,
+                                                        -1)]
+            rows.append(row)
+    else:
+        rows = [[(i, (i + r) % nk) for r in range(nk)
+                 if not causal or i + r < nk] for i in range(nk)]
+        owner = {j: (j, 0) for j in range(nk)}
+    rounds = max(len(row) for row in rows)
+    return [row + [None] * (rounds - len(row)) for row in rows], owner
+
+
+class _FusedPlan(ctypes.Structure):
+    """`_fused_plan` as the kernel's FusedPlan (flash_attention_bwd_fused.cu:
+    up to 8 CTAs, 9 rounds; -1 for an idle round or an empty slot)."""
+    _fields_ = [("ctas", ctypes.c_int), ("rounds", ctypes.c_int),
+                ("kb", (ctypes.c_byte * 9) * 8),
+                ("qb", (ctypes.c_byte * 9) * 8),
+                ("own", (ctypes.c_byte * 2) * 8),
+                ("owner", ctypes.c_byte * 8), ("slot", ctypes.c_byte * 8)]
+
+    @classmethod
+    @functools.lru_cache(maxsize=None)
+    def of(cls, nk, causal, d):
+        """The plan of (nk, causal, d), built once (the kernel takes it
+        by value, so one struct serves every launch)."""
+        rows, owner = _fused_plan(nk, causal, d)
+        plan = cls(ctas=len(rows), rounds=len(rows[0]))
+        for c, row in enumerate(rows):
+            plan.own[c][0] = plan.own[c][1] = -1
+            for r, pair in enumerate(row):
+                plan.kb[c][r], plan.qb[c][r] = pair or (-1, -1)
+        for j, (c, sl) in owner.items():
+            plan.own[c][sl] = j
+            plan.owner[j], plan.slot[j] = c, sl
+        return plan
+
+
+def _flash_bwd_fused_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
+                           delta=None):
+    """(dq, dk, dv) [B,T,H,D] by K2-fused's algorithm, in its order: the
+    128-row key blocks (the last one cut at T) pair with q blocks round
+    by round as `_fused_plan` lays them out, each q block walked in
+    64-row q steps. Per step and 64-key half that sees the step (causal
+    halves wholly above the diagonal are skipped, as the kernel's
+    warpgroups skip them): P = exp2(S - lse), dP = dO V^T,
+    dS = P (dP - delta) sm_scale; dV += P^T dO with P in dO's dtype and
+    dK += dS^T Q with dS in q's dtype, fp32 sums over the walk. After
+    both steps dQ of the q block gains dS K over the 128 keys (one
+    product, the skipped halves' dS zero), added to its zeroed fp32 slab
+    in round order. delta as in `_flash_bwd_plain`."""
+    b, t, h, d = q.shape
+    f32 = torch.float32
+    rows, step = _SM90_TILES[0], KERNEL_BLOCK
+    scale = float(sm_scale * LOG2E)
+    qh, kh, vh, gh = (x.permute(0, 2, 1, 3).to(f32) for x in (q, k, v, g))
+    delta = _delta(out, g, dlse, delta)
+    dq = torch.zeros((b, h, t, d), dtype=f32, device=q.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    blocks = _tile_slices(t, rows)
+    plan, _ = _fused_plan(len(blocks), causal, d)
+    for r in range(len(plan[0])):
+        for pair in (row[r] for row in plan):
+            if pair is None:
+                continue
+            keys, qb = blocks[pair[0]], blocks[pair[1]]
+            ds_rows = []
+            for qs in _tile_slices(qb.stop - qb.start, step):
+                qs = slice(qb.start + qs.start, qb.start + qs.stop)
+                qt, gt = qh[:, :, qs], gh[:, :, qs]
+                lse_t = lse[:, :, qs, None].to(f32)
+                delta_t = delta[:, :, qs, None]
+                ds_row = torch.zeros((b, h, qs.stop - qs.start,
+                                      keys.stop - keys.start), dtype=f32,
+                                     device=q.device)
+                for half in _tile_slices(keys.stop - keys.start, step):
+                    ks = slice(keys.start + half.start, keys.start + half.stop)
+                    if causal and ks.start >= qs.stop:
+                        continue
+                    kt, vt = kh[:, :, ks], vh[:, :, ks]
+                    s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+                    if causal:
+                        qpos = torch.arange(qs.start, qs.stop, device=q.device)
+                        kpos = torch.arange(ks.start, ks.stop, device=q.device)
+                        s = s.masked_fill(kpos[None, :] > qpos[:, None],
+                                          NEG_INF)
+                    p = torch.exp2(s - lse_t)
+                    dp = torch.matmul(gt, vt.transpose(-1, -2))
+                    ds = p * (dp - delta_t) * sm_scale
+                    p_c = p.to(g.dtype).to(f32)
+                    ds_c = ds.to(q.dtype).to(f32)
+                    dv[:, :, ks] += torch.matmul(p_c.transpose(-1, -2), gt)
+                    dk[:, :, ks] += torch.matmul(ds_c.transpose(-1, -2), qt)
+                    ds_row[..., half] = ds_c
+                ds_rows.append(ds_row)
+            dq[:, :, qb] += torch.matmul(torch.cat(ds_rows, dim=2),
+                                         kh[:, :, keys])
+    return tuple(x.to(dtype).permute(0, 2, 1, 3)
+                 for x, dtype in ((dq, q.dtype), (dk, k.dtype),
+                                  (dv, v.dtype)))
+
+
 def _flash_bwd_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
                      block_q=KERNEL_BLOCK, block_k=KERNEL_BLOCK,
                      delta=None):
@@ -288,12 +450,7 @@ def _flash_bwd_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
     f32 = torch.float32
     scale = float(sm_scale * LOG2E)
     qh, kh, vh, gh = (x.permute(0, 2, 1, 3).to(f32) for x in (q, k, v, g))
-    if delta is None:
-        delta = (g.to(f32) * out.to(f32)).sum(dim=-1).permute(0, 2, 1)
-    else:
-        delta = delta.to(f32)
-    if dlse is not None:
-        delta = delta - LOG2E * dlse.to(f32)
+    delta = _delta(out, g, dlse, delta)
     dq = torch.zeros((b, h, t, d), dtype=f32, device=q.device)
     dk = torch.zeros_like(dq)
     dv = torch.zeros_like(dq)
@@ -321,6 +478,15 @@ def _flash_bwd_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
     return tuple(x.to(dtype).permute(0, 2, 1, 3)
                  for x, dtype in ((dq, q.dtype), (dk, k.dtype),
                                   (dv, v.dtype)))
+
+
+def _flash_bwd_twin(q, k, v, out, lse, g, dlse, sm_scale, causal,
+                    delta=None):
+    """The plain twin of the backward kernel q's shape and dtype route
+    to: `_flash_bwd_fused_plain` where `_fused_route`, else
+    `_flash_bwd_plain` (the sweeps)."""
+    twin = _flash_bwd_fused_plain if _fused_route(q) else _flash_bwd_plain
+    return twin(q, k, v, out, lse, g, dlse, sm_scale, causal, delta=delta)
 
 
 # ----------------------------------------------------------------------
@@ -439,10 +605,11 @@ def _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale, causal):
     return out, lse, lse_n
 
 
-def _flash_bwd_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
-                      delta=None):
-    from deepspeed_tpu_torch.ops import _build
-    b, t, h, d = q.shape
+def _check_bwd_args(q, k, v, out, lse, g, dlse, delta):
+    """What both backward kernels take: `_check_kernel_shape`'s, out (when
+    no delta is given) and dout like q, lse, dlse and delta contiguous
+    fp32 [B, H, T]; fp16 takes no given delta."""
+    b, t, h, _ = q.shape
     if delta is not None and q.dtype == torch.float16:
         raise NotImplementedError(f"flash backward with a given delta "
                                   f"(K5's backward): {FP16_LATER}")
@@ -454,6 +621,48 @@ def _flash_bwd_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
     _check_kernel_shape(q)
     for name, x in (("lse", lse), ("dlse", dlse), ("delta", delta)):
         _check_lse(name, x, b, h, t)
+
+
+def _flash_bwd_fused_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
+                            delta=None):
+    """K2-fused on the card: one launch, delta computed inside (or the
+    given one read), no workspace."""
+    from deepspeed_tpu_torch.ops import _build
+    b, t, h, d = q.shape
+    _check_bwd_args(q, k, v, out, lse, g, dlse, delta)
+    if not _fused_route(q):
+        raise ValueError(f"K2-fused: ({q.dtype}, T={t}, head dim {d}) is "
+                         "not on its route (bf16 or fp16, head dim 64 or "
+                         f"128, T <= {_DEFAULT_BLOCK})")
+    dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    fn = _build.function("flash_attention_bwd_fused",
+                         "ds_flash_attn_bwd_fused",
+                         _BWD_ARGTYPES + [ctypes.c_void_p, ctypes.c_int])
+    plan = _FusedPlan.of(-(-t // _SM90_TILES[0]), bool(causal), d)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(out),
+             g.data_ptr(), lse.data_ptr(), ptr(dlse), ptr(delta),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d,
+             _strides(q, k, v, g if out is None else out, g),
+             float(sm_scale * LOG2E), float(sm_scale), int(bool(causal)),
+             _DTYPE_CODE[q.dtype], q.device.index or 0, _build.stream_ptr(q),
+             ctypes.byref(plan), ctypes.sizeof(plan))
+    _build.check(err, "flash_attention fused backward kernel")
+    _flash_bwd_fused_launch.launches += 1
+    return dq, dk, dv
+
+
+_flash_bwd_fused_launch.launches = 0
+
+
+def _flash_bwd_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
+                      delta=None):
+    """K2's sweeps on the card: the delta pre-pass (or the given delta's
+    shift) into a workspace, then the dK/dV and dQ sweeps."""
+    from deepspeed_tpu_torch.ops import _build
+    b, t, h, d = q.shape
+    _check_bwd_args(q, k, v, out, lse, g, dlse, delta)
     if lse.data_ptr() % 16:     # the Hopper dK/dV sweep bulk-copies lse rows
         lse = lse.clone()
     dq, dk, dv = (torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -487,7 +696,11 @@ def flash_attention_backward(q, k, v, out, lse, dout, dlse=None,
     `_flash_fwd_plain` write it), the output cotangent `dout` and an
     optional lse cotangent `dlse` [B, H, T]. With `delta` [B, H, T]
     given (K5's backward), out is not read and may be None. CUDA tensors
-    launch kernel K2; CPU tensors take the plain twin."""
+    launch kernel K2-fused where `_fused_route` (T <= 1024 in bf16 or
+    fp16 at head dims 64 and 128; counted on
+    `_flash_bwd_fused_launch.launches`) and K2's sweeps elsewhere
+    (counted here, on `flash_attention_backward.launches`); CPU tensors
+    take the route's plain twin (`_flash_bwd_twin`)."""
     if out is None and delta is None:
         raise ValueError("flash_attention_backward needs out or delta")
     if sm_scale is None:
@@ -497,10 +710,12 @@ def flash_attention_backward(q, k, v, out, lse, dout, dlse=None,
     if q.is_cuda:
         if not _kernel_readable(dout):
             dout = dout.contiguous()
-        return _flash_bwd_launch(q, k, v, out, lse, dout, dlse,
-                                 float(sm_scale), causal, delta)
-    return _flash_bwd_plain(q, k, v, out, lse, dout, dlse, float(sm_scale),
-                            causal, delta=delta)
+        launch = _flash_bwd_fused_launch if _fused_route(q) else \
+            _flash_bwd_launch
+        return launch(q, k, v, out, lse, dout, dlse, float(sm_scale), causal,
+                      delta)
+    return _flash_bwd_twin(q, k, v, out, lse, dout, dlse, float(sm_scale),
+                           causal, delta=delta)
 
 
 flash_attention_backward.launches = 0
@@ -679,8 +894,9 @@ flash_attention_merge.launches = 0
 
 
 def reset_launch_count():
-    """Zero the forward (K1), backward (K2) and merge (K5) launch
-    counters."""
+    """Zero the forward (K1), backward (K2-fused and K2's sweeps) and
+    merge (K5) launch counters."""
     flash_attention_with_lse.launches = 0
     flash_attention_backward.launches = 0
+    _flash_bwd_fused_launch.launches = 0
     flash_attention_merge.launches = 0

@@ -3,6 +3,7 @@
 
     python3 kernel_variants.py forward     # K1-fwd with parts switched off
     python3 kernel_variants.py backward    # K2's sweeps and delta pre-pass
+    python3 kernel_variants.py fused_bwd   # K2-fused with parts switched off
     python3 kernel_variants.py order       # the grid order's L2 budget
     python3 kernel_variants.py qmm         # K6 with parts switched off
     python3 kernel_variants.py sparse_bwd  # K7-dkv and K7-dq on Hopper
@@ -39,7 +40,8 @@ stores, its statistics exchange, its vector loads or its prefetch
 switched off and under other plans, beside torch's LayerNorm forward,
 `sparse_fwd` K7-fwd on the Hopper
 body under BigBird at head dims 64 and 128 beside the WMMA table
-forward. A
+forward, `fused_bwd` K2-fused at the flagship's shape (causal and not),
+BERT's and a head dim of 128 by CUDA graph, beside K2's sweeps. A
 variant with a part switched off computes garbage: it is timed, never
 checked (`chip_smoke.py` and tests/test_torch_cuda.py check the kernels).
 A substitution that no longer applies to the sources fails the run.
@@ -88,6 +90,23 @@ DKV_NO_GRADS = (H, "      gemm_pb<D, kStep, kStep>(acc_dv, pa, do_s, 0);\n"
                 "0);\n      if (it < 0) gemm_pb<D, kStep, kStep>(acc_dk, da, "
                 "q_s, 0);\n")
 
+
+# K2-fused (flash_attention_bwd_fused.cu): the cluster barrier between
+# rounds (a CTA barrier in its place, one cluster barrier after the last
+# round, so that no CTA leaves while another may write its slab), the
+# dQ partials' adds into the owners' slabs (into the CTA's own instead),
+# the dQ phase, and the dS tile's stores
+FB = "flash_attention_bwd_fused.cu"
+FUSED_NO_CLUSTER_SYNC = (FB, "    cluster_sync();\n  }\n",
+                         "    __syncthreads();\n  }\n  cluster_sync();\n")
+FUSED_DQ_LOCAL = (FB, "        const int to = plan.owner[j];",
+                  "        const int to = c;")
+FUSED_NO_DQ = (FB, "      if (j * kRows + wg * kStep < seq) {",
+               "      if (seq < 0) {")
+FUSED_NO_DS_STORES = (FB, "              *reinterpret_cast<uint32_t*>(ds_s + "
+                      "sw128(kr, qc)) = da[kk][x];",
+                      "              if (seq < 0) *reinterpret_cast<uint32_t*>"
+                      "(ds_s + sw128(kr, qc)) = da[kk][x];")
 
 # K7-dkv and K7-dq on the Hopper sweeps (block_sparse_attention.cu over
 # attention_hopper.cuh): the dQ sweep's counterparts of the dK/dV parts
@@ -445,6 +464,15 @@ SETS = {
         "delta_and_dq": [NO_DKV],
         "delta_only": [NO_DKV, NO_DQ],
     }),
+    "fused_bwd": ("flash_attention_bwd_fused", {
+        "kernel": [],
+        "no_cluster_sync": [FUSED_NO_CLUSTER_SYNC],
+        "dq_adds_local": [FUSED_DQ_LOCAL],
+        "no_dq_phase": [FUSED_NO_DQ],
+        "no_dq_phase_no_sync": [FUSED_NO_DQ, FUSED_NO_CLUSTER_SYNC],
+        "steps_only": [FUSED_NO_DQ, FUSED_NO_CLUSTER_SYNC,
+                       FUSED_NO_DS_STORES],
+    }),
     "order": (None, {
         f"{lib}_{name}": (lib, [budget(v)] if v else [])
         for lib in ("flash_attention_fwd", "flash_attention_bwd")
@@ -531,6 +559,9 @@ SETS = {
 }
 SHAPES = (((11, 1024, 25, 64), True), ((11, 1024, 25, 64), False),
           ((1, 8192, 4, 64), True), ((4, 1024, 16, 128), True))
+# K2-fused's: the flagship causal and not, BERT-large's, a head dim of 128
+FUSED_SHAPES = (((11, 1024, 25, 64), True), ((11, 1024, 25, 64), False),
+                ((16, 128, 16, 64), False), ((4, 1024, 16, 128), True))
 # the flagship's projections (M = 11 x 1024; K padded to blocks of 128)
 QMM_SHAPES = (("c_attn", 1664, 4800), ("c_proj", 1664, 1600),
               ("c_fc", 1664, 6400), ("mlp_c_proj", 6400, 1600))
@@ -617,7 +648,8 @@ def main(argv):
     if argv[0] == "sparse_fwd":
         return time_sparse_fwd(variants, procs, cs, gen)
     cases, sdpa = [], {}
-    for shape, causal in SHAPES:
+    fused = lib_all == "flash_attention_bwd_fused"
+    for shape, causal in FUSED_SHAPES if fused else SHAPES:
         q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
                          .to(bf16) for _ in range(4))
         out, lse = fa._flash_fwd_launch(q, k, v, shape[3] ** -0.5, causal)
@@ -642,6 +674,9 @@ def main(argv):
             if lib == "flash_attention_fwd":
                 ms = cs.time_ms(lambda: fa._flash_fwd_launch(q, k, v, sm,
                                                              causal))
+            elif fused:
+                ms = cs.graph_ms(lambda: fa._flash_bwd_fused_launch(
+                    q, k, v, out, lse, dout, None, sm, causal))
             else:
                 ms = cs.time_ms(lambda: fa._flash_bwd_launch(
                     q, k, v, out, lse, dout, None, sm, causal))
@@ -649,6 +684,15 @@ def main(argv):
         _build.function = original
         print(json.dumps({"variant": n, "library": lib, "ms": rows}),
               flush=True)
+    if fused:
+        # K2's sweeps on the same inputs, the route the fused kernel took
+        # over (device time from CUDA graphs, as the variants')
+        print(json.dumps({"variant": "sweeps", "ms": {
+            f"{list(shape)} causal={causal}": cs.graph_ms(
+                lambda: fa._flash_bwd_launch(q, k, v, out, lse, dout, None,
+                                             shape[3] ** -0.5, causal))
+            for shape, causal, q, k, v, dout, out, lse in cases}}),
+            flush=True)
     print(cs.card_line(), flush=True)
     return 0
 
@@ -1066,7 +1110,7 @@ _build.build_all()
 peaks = cs.peaks_for(torch.cuda.get_device_name(0))
 # the paths (seed, card) rather than kernel phases (peaks, generator)
 PATHS = ("sparse_attention_path", "train_and_check", "moe_train_and_check",
-         "checkpoint_and_check")
+         "checkpoint_and_check", "bert_training")
 
 
 def ln_bwd_wide(gen):
