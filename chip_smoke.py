@@ -141,7 +141,28 @@ Phases, each printing one JSON line:
      the kernel route's;
  24. bert_oracle: two BERT-large-wide layers, bf16, micro batch 16, seq
      128: the loss and every gradient through the kernels against the
-     plain-torch route (fused ops off, dense attention).
+     plain-torch route (fused ops off, dense attention);
+ 25. kernel_fp16: the fp16 forms against their twins at the fp16 paths'
+     shapes, each with an inf in an input reaching every output the
+     twin's reaches and beside its bf16 form: K1-fwd, K2-fused, K2's
+     sweeps, K3 and K4 at paths A's and B's; K8 and grouped K4 at D's,
+     K6 with an fp16 output at E's (bit for bit, and past 65504 inf
+     where the twin is), K5 and K2's given-delta entry on both routes at
+     F's and the ring leg's;
+ 26. bert_fp16_oracle: phase 24 in fp16 (loss scaled by 2^10);
+ 27-29. fp16 paths A (BERT-large + LAMB), B (gpt2-1.5b + progressive
+     layer drop) and C (gpt2-1.5b width at 4 layers: the engine's other
+     optimizers and client objects), each until 8 clean steps follow the
+     last skipped one (`run_fp16_path`: finite, falling losses, the JAX
+     automaton's scales, no bit moved on a skip, exact launches, the
+     update under set_sync_debug_mode("error"), step ms, a profile);
+ 30-31. fp16 paths D (gpt2-350m-moe8: K8, grouped K4) and E (D with
+     quantized experts and the quantized_compute block: K6 with an fp16
+     output) from the scale 2^16, through `run_fp16_path`;
+ 32. sequence_parallel_fp16: the ring leg in fp16 at [1, 8192, 4, 64]
+     and the emulated four-rank ring (K5, K2's given-delta sweeps);
+ 33. fp16 path F: sp_training in fp16 from the scale 2^16 (K5,
+     K2-fused's given-delta entry), through `run_fp16_path`.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -314,9 +335,10 @@ K3_BWD_KERNELS = 32 + 6
 K3_FWD_KERNELS = 32 + 6
 # the attention bodies and K6 (18), the fp16 forms of K1-fwd and of K2's
 # two sweeps at head dims 64 and 128 (6), K2-fused in bf16 and fp16 at
-# head dims 64 and 128 (4) and K7's four Hopper kernels in fp16 at head
-# dims 64 and 128 (8)
-ATTN_KERNELS = 18 + 6 + 4 + 8
+# head dims 64 and 128 (4), K7's four Hopper kernels in fp16 at head
+# dims 64 and 128 (8), K5 in fp16 at head dims 64 and 128 (2) and K6
+# with an fp16 output (1)
+ATTN_KERNELS = 18 + 6 + 4 + 8 + 2 + 1
 # the Hopper kernels the build must report, none spilling: the attention
 # bodies and K6, and K4's, K3-bwd's and K3-fwd's instantiations
 SM90_KERNELS = ATTN_KERNELS + K4_KERNELS + K3_BWD_KERNELS + K3_FWD_KERNELS
@@ -353,7 +375,7 @@ def sm90_ptxas(log):
                           r"bs_bwd_dkv|bs_bwd_dq)_kernel_sm90)I"
                           r"(13__nv_bfloat16|6__half)?Li(\d+)E"
                           r"(?:Lb(\d)E)?", ln)
-            q = re.search(r"qmm_kernelI(f|13__nv_bfloat16)E", ln)
+            q = re.search(r"qmm_kernelI(f|13__nv_bfloat16|6__half)E", ln)
             k4 = re.search(rf"(gelu_(?:fwd|bwd)_kernel)I((?:{types_re}){{3}})"
                            r"Lb(\d)ELb(\d)E", ln)
             k3 = re.search(rf"(ln_bwd_kernel)I((?:{types_re}){{3}})"
@@ -368,7 +390,8 @@ def sm90_ptxas(log):
                         (f", merge={m.group(4)}" if m.group(4) else "") +
                         ">")
             elif q is not None:
-                name = f"qmm_kernel<{'float' if q.group(1) == 'f' else 'bf16'}>"
+                name = "qmm_kernel<" + {"f": "float", "6__half": "fp16"}.get(
+                    q.group(1), "bf16") + ">"
             elif k4 is not None:
                 name = (f"{k4.group(1)}<{types(k4.group(2))}, "
                         f"{'tanh' if k4.group(3) == '1' else 'erf'}, "
@@ -1269,6 +1292,54 @@ def _qmm():
         "deepspeed_tpu_torch.ops.transformer.quantized_matmul")
 
 
+def qmm_row(peaks, checks, label, x, w, xq, wq, sx, sw, block, out_dt, err):
+    """K6's timed row at one shape: the wrapper as the path calls it
+    (`ms`, the per-call weight transpose included) and the launch alone
+    on the transposed weights (`kernel_ms`, whose TOP/s and share of the
+    bound the row reports) beside the bound, the twin, and the
+    yardsticks torch._int_mm on the same padded int8 operands and the
+    matmul of x and w in their dtype (`<dtype>_matmul_ms`)."""
+    import torch
+    qm = _qmm()
+    g, m, kp = xq.shape
+    n = wq.shape[-1]
+    nb = kp // block
+    # 2 operations per int8 product; read xq, wq, sx, sw once, write the
+    # 16-bit output once
+    flops = 2.0 * g * m * kp * n
+    nbytes = g * (m * kp + kp * n + m * 4 + nb * n * 4 + m * n * 2)
+    bound_ms, bound_by = bound(flops, peaks["int8"], nbytes, peaks)
+    wqt_t = [wq[i].t().contiguous().t() for i in range(g)]  # [Kp, N]
+    try:
+        int_mm_ms = time_ms(lambda: [torch._int_mm(xq[i], wqt_t[i])
+                                     for i in range(g)])
+    except RuntimeError as exc:    # a yardstick only
+        int_mm_ms = None
+        checks.append({"check": f"torch._int_mm, {label}",
+                       "unavailable": str(exc)[:200]})
+    xb = x if g > 1 else x[0]
+    wb = w if g > 1 else w[0]
+    wqt = wq.transpose(1, 2).contiguous()
+    swp = torch.nn.functional.pad(sw, (0, -n % 4)).contiguous()
+    kernel_ms = time_ms(lambda: qm._qmm_kernel(xq, wqt, sx, swp, block,
+                                               out_dt))
+    matmul = {torch.bfloat16: "bf16", torch.float16: "fp16"}[x.dtype]
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: qm._qmm_launch(xq, wq, sx, sw, block, out_dt)),
+        "kernel_ms": kernel_ms, "tops": flops / kernel_ms / 1e9,
+        "share_of_bound": bound_ms / kernel_ms,
+        "plain_ms": time_ms(lambda: qm._qmm_plain(xq, wq, sx, sw, block,
+                                                  out_dt),
+                            iters=3, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": int_mm_ms,
+        "library_call": ("torch._int_mm on the padded int8 operands, no "
+                         "per-block scales" + (f", {g} calls" if g > 1
+                                               else "")),
+        f"{matmul}_matmul_ms": time_ms(lambda: torch.matmul(xb, wb)),
+        "shape": label}
+
+
 def kernel_qmm(peaks, gen):
     """K6 at the shapes of the quantized paths: the flagship's four
     projections (M = 11 x 1024 tokens; K/N 1600/4800, 1600/1600,
@@ -1344,42 +1415,10 @@ def kernel_qmm(peaks, gen):
         if not checks[-1]["exact"]:
             raise AssertionError(f"qmm, {label}: not bit for bit its twin")
         del got, ref
-        if not timed:
-            continue
-        nb = kp // block
-        # 2 operations per int8 product; read xq, wq, sx, sw once, write
-        # the bf16 output once
-        flops = 2.0 * g * m * kp * n
-        nbytes = g * (m * kp + kp * n + m * 4 + nb * n * 4 + m * n * 2)
-        bound_ms, bound_by = bound(flops, peaks["int8"], nbytes, peaks)
-        wqt_t = [wq[i].t().contiguous().t() for i in range(g)]  # [Kp, N]
-        try:
-            int_mm_ms = time_ms(lambda: [torch._int_mm(xq[i], wqt_t[i])
-                                         for i in range(g)])
-        except RuntimeError as exc:    # a yardstick only
-            int_mm_ms = None
-            checks.append({"check": f"torch._int_mm, {label}",
-                           "unavailable": str(exc)[:200]})
-        xb = x if g > 1 else x[0]
-        wb = w if g > 1 else w[0]
-        wqt = wq.transpose(1, 2).contiguous()
-        swp = torch.nn.functional.pad(sw, (0, -n % 4)).contiguous()
-        kernel_ms = time_ms(lambda: qm._qmm_kernel(xq, wqt, sx, swp, block,
-                                                   out_dt))
-        out[timed] = dict(
-            max_abs_err=err, ms=time_ms(run), kernel_ms=kernel_ms,
-            tops=flops / kernel_ms / 1e9,
-            share_of_bound=bound_ms / kernel_ms,
-            plain_ms=time_ms(lambda: qm._qmm_plain(xq, wq, sx, sw, block,
-                                                   out_dt),
-                             iters=3, warmup=1),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=int_mm_ms,
-            library_call=("torch._int_mm on the padded int8 operands, no "
-                          "per-block scales" + (f", {g} calls" if g > 1
-                                                else "")),
-            bf16_matmul_ms=time_ms(lambda: torch.matmul(xb, wb)),
-            shape=label)
-        del x, w, wq, sw, xq, sx, wqt_t, wqt, swp
+        if timed:
+            out[timed] = qmm_row(peaks, checks, label, x, w, xq, wq, sx, sw,
+                                 block, out_dt, err)
+        del x, w, wq, sw, xq, sx
     from deepspeed_tpu_torch.ops import _build
     ptxas = sm90_ptxas(_build.build_log("quantized_matmul"))
     for row in out.values():
@@ -2042,9 +2081,11 @@ def moe_config(quantized_experts="off", **overrides):
                     capacity_factor=MOE_CF, every_n_layers=2,
                     quantized_experts=quantized_experts,
                     quant_block=QUANT_BLOCK).validate()
-    return gpt2_config("gpt2-350m", n_positions=MOE_SEQ, dropout=0.0,
-                       dtype=torch.bfloat16, param_dtype=torch.bfloat16,
-                       remat=True, remat_policy=None, moe=moe, **overrides)
+    kwargs = dict(n_positions=MOE_SEQ, dropout=0.0, dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16, remat=True, remat_policy=None,
+                  moe=moe)
+    kwargs.update(overrides)
+    return gpt2_config("gpt2-350m", **kwargs)
 
 
 def moe_train_and_check(seed, card, warmup=2, steps=6, quantized=False):
@@ -3676,14 +3717,43 @@ FP16_KERNELS = {
     "block_sparse_band_fwd_sm90_fp16": "block_sparse_band_fwd_sm90",
     "block_sparse_bwd_dkv_sm90_fp16": "block_sparse_bwd_dkv_sm90",
     "block_sparse_bwd_dq_sm90_fp16": "block_sparse_bwd_dq_sm90",
+    "moe_dispatch_fp16": "moe_dispatch",
+    "moe_combine_fp16": "moe_combine",
+    "fused_bias_gelu_fwd_grouped_fp16": "fused_bias_gelu_fwd",
+    "fused_bias_gelu_bwd_grouped_fp16": "fused_bias_gelu_bwd",
+    "quantized_matmul_fp16": "quantized_matmul",
+    "flash_attention_merge_fp16": "flash_attention_merge",
+    "flash_attention_bwd_fused_delta_fp16": "flash_attention_bwd_fused",
+    "flash_attention_bwd_delta_fp16": "flash_attention_bwd",
 }
 # the fp16 paths: their launches are the fp16 forms'
 FP16_PATHS = ("sparse_attention_fp16", "bert_fp16", "gpt2_fp16_pld",
-              "engine_surface_fp16")
+              "engine_surface_fp16", "moe_fp16", "moe_quant_fp16",
+              "sequence_parallel_fp16", "sp_fp16")
+# an fp16 row whose launches are counted apart from its bf16 row's
+# counter (K4's grouped launches), and the paths of a row whose counter
+# other fp16 forms share: K2's given-delta entry runs on the ring paths
+# only, its other entries on the rest
+FP16_COUNTERS = {
+    "fused_bias_gelu_fwd_grouped_fp16": "fused_bias_gelu_fwd_grouped",
+    "fused_bias_gelu_bwd_grouped_fp16": "fused_bias_gelu_bwd_grouped",
+}
+FP16_ROW_PATHS = {
+    "flash_attention_bwd_fused_delta_fp16": ("sp_fp16",),
+    "flash_attention_bwd_delta_fp16": ("sequence_parallel_fp16",),
+    "flash_attention_bwd_fused_fp16": tuple(
+        p for p in FP16_PATHS if p != "sp_fp16"),
+    "flash_attention_bwd_fp16": tuple(
+        p for p in FP16_PATHS if p != "sequence_parallel_fp16"),
+}
+# paths D, E and F start from the scale 2^16 (the JAX package's own
+# fp16 leg starts low too)
+FP16_SCALE_POWER = 16
 # a run ends once this many clean steps follow the last skipped one, or
 # fails at the cap
 FP16_CLEAN_STEPS = 8
-FP16_STEP_CAP = {"bert_fp16": 64, "gpt2_fp16_pld": 64, "surface": 48}
+FP16_STEP_CAP = {"bert_fp16": 64, "gpt2_fp16_pld": 64, "surface": 48,
+                 "moe_fp16": 40, "moe_quant_fp16": 40, "sp_fp16": 40}
 # path C: gpt2-1.5b width, this many layers
 SURFACE_N_LAYER = 4
 
@@ -3737,7 +3807,9 @@ def kernel_fp16(peaks, gen):
     (`ms`), from a CUDA graph (`graph_ms`), K3 also with the L2 cache
     flushed (`cold_graph_ms`); beside the bound, the plain twin, the bf16
     form at the same shape (graph) and the library call or yardstick:
-    SDPA in fp16, `F.layer_norm` and `F.gelu` (graph)."""
+    SDPA in fp16, `F.layer_norm` and `F.gelu` (graph). Then the forms of
+    paths D, E and F: `kernel_fp16_moe`, `kernel_fp16_qmm`,
+    `kernel_fp16_merge`."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
@@ -4061,7 +4133,380 @@ def kernel_fp16(peaks, gen):
             shape=label), 25 * n * w)
         del x, o, s, ro, dout, got, rdx, xb, xg
         release()
+    kernel_fp16_moe(peaks, gen, out, checks)
+    kernel_fp16_qmm(peaks, gen, out, checks)
+    kernel_fp16_merge(peaks, gen, out, checks)
     return out, checks
+
+
+# K8, grouped K4, K6 (fp16 out), K5 and K2's given delta in fp16: the
+# forms the fp16 MoE, quantized MoE and ring paths (D, E, F) run.
+# A 16-bit K8 combine row is one rounding of the twin's fp32 sum: one
+# fp16 ulp (2^-10 relative; the atol covers fp16's subnormals)
+TOL_K8_F16 = dict(atol=2 ** -24, rtol=2 ** -10)
+
+
+def kernel_fp16_moe(peaks, gen, out, checks):
+    """The fp16 forms of K8 and grouped K4 at gpt2-350m-moe8's shapes
+    (path D): dispatch and combine at N 16,384 tokens, H 1024, 8 experts
+    of capacity 5,120, top-2 with empty slots and drops; bias + tanh-GeLU
+    over the experts' [8, 5,120, 4,096] rows with a bias [8, 4,096]
+    (dbias [8, 4,096]). Each against its twin (dispatch exactly, combine
+    within one fp16 ulp, K4 within TOL_F16 / GRAD_TOL_F16), a second
+    launch bit for bit, an inf in the input reaching every output the
+    twin's reaches, and an fp16 combine whose sum passes 65504 inf where
+    the twin's is. Timed back to back and from a CUDA graph beside the
+    bound, the twin, the bf16 form at the same shape and the yardstick
+    (index_select; F.gelu)."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    fd = importlib.import_module("deepspeed_tpu_torch.moe.fused_dispatch")
+    f16, bf16 = torch.float16, torch.bfloat16
+    n, h, k = MOE_BATCH * MOE_SEQ, 1024, MOE_TOP_K
+    routing, stats, src, dest, cap = moe_routing(gen, n, k, 1.0)
+    ec = MOE_EXPERTS * cap
+    occupied = int((src < n).sum())
+    kept = int(routing["keep"].sum())
+    label = f"fp16 k{k} N{n} H{h} E{MOE_EXPERTS} C{cap}"
+    x = torch.randn((n, h), generator=gen, device="cuda").to(f16)
+    ye = torch.randn((ec, h), generator=gen, device="cuda").to(f16)
+    cw = (routing["keep"] * routing["w"]).float().contiguous()
+    xe = fd.gather_rows(x, src)
+    y = fd.combine_rows(ye, dest, cw)
+    torch.cuda.synchronize()
+    exact = torch.equal(xe, fd._gather_rows_plain(x, src))
+    checks.append({"check": f"dispatch, {label}", "exact": exact,
+                   "occupied_slots": occupied, "slots": ec,
+                   "dropped_fraction": float(stats[-2])})
+    if not exact:
+        raise AssertionError(f"dispatch {label}: differs from the twin")
+    err = check(f"combine, {label}", y, fd._combine_rows_plain(ye, dest, cw),
+                TOL_K8_F16, checks)
+    same = torch.equal(y, fd.combine_rows(ye, dest, cw))
+    checks.append({"check": f"combine repeats bit for bit, {label}",
+                   "equal": same})
+    if not same:
+        raise AssertionError(f"combine {label}: a second launch differs")
+    x_inf = x.clone()
+    x_inf[int(src[src < n][0])] = float("inf")
+    xe_inf = fd.gather_rows(x_inf, src)
+    check_nonfinite(f"dispatch, inf in a token, {label}", xe_inf,
+                    fd._gather_rows_plain(x_inf, src), checks)
+    check_nonfinite(f"combine, inf in a slot, {label}",
+                    fd.combine_rows(xe_inf, dest, cw),
+                    fd._combine_rows_plain(xe_inf, dest, cw), checks)
+    big = torch.full((ec, h), 40000.0, device="cuda", dtype=f16)
+    ones = torch.ones_like(cw)
+    check_nonfinite(f"combine past 65504, {label}",
+                    fd.combine_rows(big, dest, ones),
+                    fd._combine_rows_plain(big, dest, ones), checks)
+    del x_inf, xe_inf, big
+    d_bound, d_by = bound(0, peaks["bf16"], (occupied + ec) * h * 2 +
+                          ec * 4, peaks)
+    c_bound, c_by = bound(2 * kept * h, peaks["fp32"],
+                          (kept + n) * h * 2 + n * k * 8, peaks)
+    xp = torch.cat([x, x.new_zeros((1, h))])
+    srcl = src.long()
+    xb, yeb = x.to(bf16), ye.to(bf16)
+    out["moe_dispatch_fp16"]["moe_fp16"] = dict(
+        max_abs_err=0.0, ms=time_ms(lambda: fd.gather_rows(x, src)),
+        graph_ms=graph_ms(lambda: fd.gather_rows(x, src)),
+        plain_ms=time_ms(lambda: fd._gather_rows_plain(x, src)),
+        bound_ms=d_bound, bound_by=d_by,
+        library_ms=time_ms(lambda: xp.index_select(0, srcl)),
+        library_graph_ms=graph_ms(lambda: xp.index_select(0, srcl)),
+        library_call="index_select on the padded fp16 tokens",
+        bf16_graph_ms=graph_ms(lambda: fd.gather_rows(xb, src)),
+        shape=label)
+    out["moe_combine_fp16"]["moe_fp16"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: fd.combine_rows(ye, dest, cw)),
+        graph_ms=graph_ms(lambda: fd.combine_rows(ye, dest, cw)),
+        plain_ms=time_ms(lambda: fd._combine_rows_plain(ye, dest, cw)),
+        bound_ms=c_bound, bound_by=c_by, library_ms=None,
+        bf16_graph_ms=graph_ms(lambda: fd.combine_rows(yeb, dest, cw)),
+        shape=label)
+    del x, ye, xe, y, xp, xb, yeb
+    release()
+
+    # grouped K4 over the experts' rows
+    w = 4 * h
+    label = f"fp16 grouped G{MOE_EXPERTS} C{cap} W{w} tanh"
+    x = torch.randn((MOE_EXPERTS, cap, w), generator=gen,
+                    device="cuda").to(f16)
+    bias = (0.1 * torch.randn((MOE_EXPERTS, w), generator=gen,
+                              device="cuda")).to(f16)
+
+    def fwd():
+        return fo.fused_bias_gelu_with_sum(x, bias, approximate=True)
+
+    o, s = fwd()
+    torch.cuda.synchronize()
+    ro, _ = fo._gelu_fwd_math(x, bias, True)
+    err = check(f"grouped gelu out, {label}", o, ro.to(f16), TOL_F16,
+                checks)
+    again = fwd()
+    if not (torch.equal(o, again[0]) and torch.equal(s, again[1])):
+        raise AssertionError(f"grouped K4-fwd {label}: a second launch "
+                             "differs")
+    x_inf = x.clone()
+    x_inf[3, 17, 9] = float("inf")
+    check_nonfinite(f"grouped gelu out, inf in x, {label}",
+                    fo.fused_bias_gelu(x_inf, bias, approximate=True),
+                    fo._gelu_fwd_math(x_inf, bias, True)[0].to(f16), checks)
+    del x_inf, again
+    rows = MOE_EXPERTS * cap * w
+    nbytes = 3 * rows * 2 + MOE_EXPERTS * w * 2
+    bound_ms, bound_by = bound(20 * rows, peaks["fp32"], nbytes, peaks)
+    xb, bb = x.to(bf16), bias.to(bf16)
+    xl = x.clone()
+    out["fused_bias_gelu_fwd_grouped_fp16"]["moe_fp16"] = rates(dict(
+        max_abs_err=err, ms=time_ms(fwd), graph_ms=graph_ms(fwd),
+        plain_ms=time_ms(lambda: fo._gelu_fwd_math(x, bias, True)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        yardstick="F.gelu(x, approximate='tanh') of x alone (fp16)",
+        yardstick_graph_ms=graph_ms(lambda: F.gelu(xl, approximate="tanh")),
+        bf16_graph_ms=graph_ms(lambda: fo.fused_bias_gelu(
+            xb, bb, approximate=True)),
+        shape=label), 20 * rows)
+    del xb, bb, xl
+    dout = torch.randn(x.shape, generator=gen, device="cuda").to(f16)
+
+    def bwd():
+        return fo.fused_bias_gelu_backward(s, dout, approximate=True,
+                                           groups=MOE_EXPERTS)
+
+    got = bwd()
+    torch.cuda.synchronize()
+    rdx = fo._gelu_bwd_math(s, dout, True)
+    errs = [check_rel(f"grouped gelu bwd dx, {label}", got[0], rdx.to(f16),
+                      GRAD_TOL_F16, checks),
+            check_rel(f"grouped gelu bwd dbias, {label}", got[1],
+                      rdx.sum(1), GRAD_TOL_F32 * 10, checks)]
+    again = bwd()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"grouped K4-bwd {label}: a second launch "
+                             "differs")
+    d_inf = dout.clone()
+    d_inf[5, 2, 1] = float("inf")
+    got_inf = fo.fused_bias_gelu_backward(s, d_inf, approximate=True,
+                                          groups=MOE_EXPERTS)
+    ref_inf = fo._gelu_bwd_math(s, d_inf, True)
+    check_nonfinite(f"grouped gelu bwd dx, inf in dout, {label}",
+                    got_inf[0], ref_inf.to(f16), checks)
+    check_nonfinite(f"grouped gelu bwd dbias, inf in dout, {label}",
+                    got_inf[1], ref_inf.sum(1), checks)
+    del got_inf, ref_inf, d_inf, again, rdx
+    nbytes = 3 * rows * 2 + MOE_EXPERTS * w * 4
+    bound_ms, bound_by = bound(25 * rows, peaks["fp32"], nbytes, peaks)
+    sb, db = s.to(bf16), dout.to(bf16)
+    xg = x.clone().requires_grad_(True)
+
+    def lib_fwd():
+        return F.gelu(xg, approximate="tanh")
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), (xg,), dout)
+
+    out["fused_bias_gelu_bwd_grouped_fp16"]["moe_fp16"] = rates(dict(
+        max_abs_err=errs[0], ms=time_ms(bwd), graph_ms=graph_ms(bwd),
+        plain_ms=time_ms(lambda: fo._gelu_bwd_math(s, dout, True)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        yardstick="F.gelu(approximate='tanh') backward of x alone (fp16; "
+                  "fwd+bwd less fwd)",
+        yardstick_graph_ms=graph_ms(lib_fwd_bwd) - graph_ms(lib_fwd),
+        bf16_graph_ms=graph_ms(lambda: fo.fused_bias_gelu_backward(
+            sb, db, approximate=True, groups=MOE_EXPERTS)),
+        shape=label), 25 * rows)
+    del x, bias, o, s, dout, got, sb, db, xg
+    release()
+
+
+def kernel_fp16_qmm(peaks, gen, out, checks):
+    """K6 with an fp16 output at path E's shapes: gpt2-350m-moe8's four
+    projections (M 16,384) and its experts' two grouped GEMMs (G 8, C
+    5,120), bit for bit its twin; the bf16 output on the same operands in
+    the same call; an output past 65504 inf where the twin's is. Timed
+    (the wrapper as the path calls it, and the launch alone) beside the
+    bound, the twin, the bf16-output form and the yardsticks
+    torch._int_mm and the fp16 matmul."""
+    import torch
+    qm = _qmm()
+    f16, bf16 = torch.float16, torch.bfloat16
+    moe_m = MOE_BATCH * MOE_SEQ
+    cases = (
+        ("c_attn M16384 K1024 N3072", 1, moe_m, 1024, 3072, "c_attn"),
+        ("c_proj M16384 K1024 N1024", 1, moe_m, 1024, 1024, "c_proj"),
+        ("c_fc M16384 K1024 N4096", 1, moe_m, 1024, 4096, "c_fc"),
+        ("mlp_c_proj M16384 K4096 N1024", 1, moe_m, 4096, 1024,
+         "mlp_c_proj"),
+        ("experts wi G8 C5120 K1024 N4096", MOE_EXPERTS, 5120, 1024, 4096,
+         "wi"),
+        ("experts wo G8 C5120 K4096 N1024", MOE_EXPERTS, 5120, 4096, 1024,
+         "wo"),
+    )
+    for label, g, m, k, n, name in cases:
+        label = "fp16 out " + label
+        block = QUANT_BLOCK
+        x = torch.randn((g, m, k), generator=gen, device="cuda").to(f16)
+        w = (0.02 * torch.randn((g, k, n), generator=gen, device="cuda")) \
+            .to(f16)
+        wq, sw = qm.quantize_kernel_int8(w, block)
+        xq, sx = qm.quantize_rows_int8(x)
+        kp = wq.shape[-2]
+        xq = torch.nn.functional.pad(xq, (0, kp - k)).contiguous()
+
+        def run(dt=f16):
+            return qm._qmm_launch(xq, wq, sx, sw, block, dt)
+
+        got = run()
+        torch.cuda.synchronize()
+        ref = qm._qmm_plain(xq, wq, sx, sw, block, f16)
+        err = check(f"qmm, {label}", got, ref, TOL_F16, checks)
+        checks[-1]["exact"] = bool(torch.equal(got, ref))
+        if not checks[-1]["exact"]:
+            raise AssertionError(f"qmm, {label}: not bit for bit its twin")
+        if not torch.equal(run(bf16), qm._qmm_plain(xq, wq, sx, sw, block,
+                                                    bf16)):
+            raise AssertionError(f"qmm bf16 out on the operands of {label}: "
+                                 "not bit for bit its twin")
+        big = sx * 1e5
+        check_nonfinite(f"qmm past 65504, {label}",
+                        qm._qmm_launch(xq, wq, big, sw, block, f16),
+                        qm._qmm_plain(xq, wq, big, sw, block, f16), checks)
+        del got, ref, big
+        row = qmm_row(peaks, checks, label, x, w, xq, wq, sx, sw, block, f16,
+                      err)
+        row.update(graph_ms=graph_ms(run),
+                   bf16_graph_ms=graph_ms(lambda: run(bf16)))
+        out["quantized_matmul_fp16"][f"moe_quant_fp16:{name}"] = row
+        del x, w, wq, sw, xq, sx
+        release()
+
+
+def kernel_fp16_merge(peaks, gen, out, checks):
+    """K5 in fp16 at path F's shape ([11, 1024, 25, 64] causal, an empty
+    carry: the ring over one rank) and the ring leg's ([1, 8192, 4, 64]
+    causal, a carry from K1 over a disjoint block whose first rows are
+    empty), and K2's given-delta entry in fp16 on both its routes there
+    (K2-fused at T 1024, the sweeps at T 8192): each against its twin
+    (out within TOL_F16, the lse within TOL_F32, gradients GRAD_TOL_F16),
+    a second launch bit for bit, an inf in v (K5) or in dO (K2) reaching
+    every output the twin's reaches. Timed back to back and from a CUDA
+    graph beside the bound, the twin, the bf16 form on the same values
+    and SDPA in fp16 (the forward; forward + backward less forward)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    f16, bf16 = torch.float16, torch.bfloat16
+    shapes = (("sp_fp16", (TRAIN_BATCH, TRAIN_SEQ, 25, 64), True),
+              ("sequence_parallel_fp16", SP_SHAPE_8K, False))
+    for path, shape, empty in shapes:
+        b, t, h, d = shape
+        label = f"fp16 causal {list(shape)}" + \
+            (" empty carry" if empty else "")
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(f16)
+                   for _ in range(3))
+        if empty:
+            prev = torch.zeros(shape, device="cuda")
+            plse = torch.full((b, h, t), fa.NEG_INF, device="cuda")
+        else:
+            k2, v2 = (torch.randn(shape, generator=gen, device="cuda")
+                      .to(f16) for _ in range(2))
+            prev, plse = fa.flash_attention_with_lse(q, k2, v2, causal=False)
+            prev, plse = prev.float(), plse[..., 0].contiguous()
+            prev[:, :7] = 0.0
+            plse[:, :, :7] = fa.NEG_INF
+            del k2, v2
+        sm = d ** -0.5
+
+        def merge(q=q, k=k, v=v):
+            return fa._flash_merge_launch(q, k, v, prev, plse, sm, True)
+
+        got = merge()
+        torch.cuda.synchronize()
+        ref = fa._flash_merge_plain(q, k, v, prev, plse, sm, True)
+        err = check(f"merge out, {label}", got[0], ref[0], TOL_F16, checks)
+        check(f"merge lse, {label}", got[1], ref[1], TOL_F32, checks)
+        check(f"merge lse_n, {label}", got[2], ref[2], TOL_F32, checks)
+        if not all(torch.equal(a, c) for a, c in zip(got, merge())):
+            raise AssertionError(f"K5 {label}: a second launch differs")
+        v_inf = v.clone()
+        v_inf[0, 5, 0, 3] = float("inf")
+        check_nonfinite(f"merge out, inf in v, {label}", merge(v=v_inf)[0],
+                        fa._flash_merge_plain(q, k, v_inf, prev, plse, sm,
+                                              True)[0], checks)
+        del got, ref, v_inf
+        bound_ms, bound_by = merge_bound(peaks, b, t, h, d, 2, True)
+        qb, kb, vb = (x.to(bf16) for x in (q, k, v))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = t * (t + 1) // 2
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        out["flash_attention_merge_fp16"][path] = rates(dict(
+            max_abs_err=err, ms=time_ms(merge), graph_ms=graph_ms(merge),
+            plain_ms=time_ms(lambda: fa._flash_merge_plain(
+                q, k, v, prev, plse, sm, True), iters=1, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(sdpa), library_graph_ms=graph_ms(sdpa),
+            library_call="F.scaled_dot_product_attention forward (fp16)",
+            bf16_graph_ms=graph_ms(lambda: merge(qb, kb, vb)),
+            shape=label), 4.0 * b * h * d * pairs)
+        del qb, kb, vb, qt, kt, vt, prev, plse
+        release()
+
+        # K2's given-delta entry on the route this T takes
+        label = f"fp16 causal {list(shape)} given delta"
+        dout = torch.randn(shape, generator=gen, device="cuda").to(f16)
+        _, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        lse = lse[..., 0].contiguous()
+        delta, dlse = (torch.randn((b, h, t), generator=gen, device="cuda")
+                       for _ in range(2))
+        fused = fa._fused_route(q)
+        row = "flash_attention_bwd_fused_delta_fp16" if fused else \
+            "flash_attention_bwd_delta_fp16"
+        name = "flash bwd fused" if fused else "flash bwd"
+
+        def run(q=q, k=k, v=v, dout=dout):
+            return fa.flash_attention_backward(q, k, v, None, lse, dout,
+                                               dlse, sm, True, delta=delta)
+
+        got = run()
+        torch.cuda.synchronize()
+        ref = fa._flash_bwd_twin(q, k, v, None, lse, dout, dlse, sm, True,
+                                 delta=delta)
+        errs = [check_rel(f"{name} d{n}, {label}", x, y, GRAD_TOL_F16,
+                          checks) for n, x, y in zip("qkv", got, ref)]
+        if not all(torch.equal(a, c) for a, c in zip(got, run())):
+            raise AssertionError(f"{name} {label}: a second launch differs")
+        d_inf = dout.clone()
+        d_inf[0, 7, 1, 2] = float("inf")
+        for n, x, y in zip("qkv", run(dout=d_inf), fa._flash_bwd_twin(
+                q, k, v, None, lse, d_inf, dlse, sm, True, delta=delta)):
+            check_nonfinite(f"{name} d{n}, inf in dO, {label}", x, y, checks)
+        del got, ref, d_inf
+        nbytes = 7 * b * t * h * d * 2 + 12 * b * h * t
+        bound_ms, bound_by = bound(10.0 * b * h * d * pairs, peaks["bf16"],
+                                   nbytes, peaks)
+        qb, kb, vb, db = (x.to(bf16) for x in (q, k, v, dout))
+        lib_fwd_ms, lib_fwd, lib_ms, lib_graph_ms = sdpa_ms(q, k, v, dout,
+                                                            True)
+        out[row][path] = rates(dict(
+            max_abs_err=max(errs), ms=time_ms(run), graph_ms=graph_ms(run),
+            plain_ms=time_ms(lambda: fa._flash_bwd_twin(
+                q, k, v, None, lse, dout, dlse, sm, True, delta=delta),
+                iters=1, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            library_graph_ms=lib_graph_ms,
+            library_call="F.scaled_dot_product_attention fwd+bwd less fwd "
+                         "(fp16)",
+            bf16_graph_ms=graph_ms(lambda: run(qb, kb, vb, db)),
+            shape=label), 10.0 * b * h * d * pairs)
+        del q, k, v, dout, lse, delta, dlse, qb, kb, vb, db
+        release()
 
 
 def param_checksum(engine):
@@ -4440,6 +4885,177 @@ def engine_surface_fp16(seed, card):
     return total
 
 
+def moe_fp16_launches(n_layer, quantized):
+    """Launches a step of the fp16 MoE GPT-2 (every other layer MoE,
+    full-block remat: forward and recompute): dense blocks K3-fwd (c_proj
+    + ln_2) and dense K4 twice, K3-bwd and K4-bwd once; MoE blocks K8's
+    two gathers three times each (forward, recompute, backward), grouped
+    K4 twice and once; every block K1-fwd twice and K2-fused once;
+    quantized, K6 for every projection twice (the STE backward runs
+    none): 4 a dense block, c_attn, c_proj and the experts' wi and wo a
+    MoE block."""
+    moe = n_layer // 2
+    counts = {"flash_attention_fwd": 2 * n_layer,
+              "flash_attention_bwd_fused": n_layer,
+              "flash_attention_bwd": 0,
+              "fused_bias_residual_layernorm_fwd": 2 * (n_layer - moe),
+              "fused_bias_residual_layernorm_bwd": n_layer - moe,
+              "fused_bias_gelu_fwd": 2 * n_layer,
+              "fused_bias_gelu_bwd": n_layer,
+              "fused_bias_gelu_fwd_grouped": 2 * moe,
+              "fused_bias_gelu_bwd_grouped": moe,
+              "moe_dispatch": 3 * moe, "moe_combine": 3 * moe,
+              "quantized_matmul": 8 * n_layer if quantized else 0}
+    return counts
+
+
+def moe_fp16(seed, card, quantized=False):
+    """Path D (phase 30, `moe_fp16`): gpt2-350m-moe8 at full size (24
+    layers, n_embd 1024, 8 experts, top-2, capacity 1.25, every other
+    layer) through initialize -> train_batch with moe_ds_config()'s
+    block and fp16 ({"enabled": true, "initial_scale_power": 16}: fp16
+    parameters, fp32 masters and moments) in place of bf16, ZeRO-0,
+    AdamW, full-block remat, on one repeated batch until 8 clean steps
+    follow the last skip (`run_fp16_path`'s gates, exact launches of
+    `moe_fp16_launches`). With `quantized`, path E (phase 31,
+    `moe_quant_fp16`): quantized experts and the quantized_compute block,
+    as `moe_quant_training` has them, so every projection runs K6 with
+    an fp16 output. Returns the launch counts."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+
+    name = "moe_quant_fp16" if quantized else "moe_fp16"
+    cfg = moe_config(quantized_experts="on" if quantized else "off",
+                     dtype=torch.float16, param_dtype=torch.float32)
+    ds_config = moe_ds_config()
+    del ds_config["bf16"]
+    ds_config["fp16"] = {"enabled": True,
+                         "initial_scale_power": FP16_SCALE_POWER}
+    if quantized:
+        ds_config["quantized_compute"] = dict(QUANT_BLOCK_CONFIG)
+    t0 = time.perf_counter()
+    model = GPT2ForCausalLM(cfg)
+    engine, _, _, _ = dst.initialize(model=model,
+                                     model_parameters=model.init(seed),
+                                     config=ds_config)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, MOE_BATCH, MOE_SEQ)).astype(np.int32)
+    staged = engine.stage_batch({"input_ids": ids})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    counts, _ = run_fp16_path(
+        name, engine, staged, FP16_STEP_CAP[name], card,
+        expect_per_step=moe_fp16_launches(cfg.n_layer, quantized),
+        tokens_per_step=MOE_BATCH * MOE_SEQ,
+        extra={"model": "gpt2-350m-moe8", "n_layer": cfg.n_layer,
+               "n_embd": cfg.n_embd, "moe_layers": cfg.moe_cells,
+               "setup_s": setup_s, "micro_batch": MOE_BATCH,
+               "seq": MOE_SEQ, "zero_stage": 0, "remat": "full block",
+               "initial_scale_power": FP16_SCALE_POWER,
+               "quantized_compute": ds_config.get("quantized_compute"),
+               "dtype": "fp16 parameters, fp32 masters and moments"})
+    del engine, model, staged
+    return counts
+
+
+def sequence_parallel_fp16_path(seed, card):
+    """Phase 32 (`sequence_parallel_fp16`): the ring leg in fp16 in the
+    one-rank NCCL group, forward + backward of sum(out.float()) with
+    q = k = v causal at [1, 8192, 4, 64]: ring_attention's flash body
+    (K5, then K2's given-delta sweeps) held to K1 in fp16, then four
+    ranks' folds played in one process (`emulated_ring`: 10 K5 and 10
+    K2 given-delta launches) held to K1 / K2 on the whole sequence.
+    Launch counts are zeroed right before the passes and read after.
+    Returns them."""
+    import torch
+    from deepspeed_tpu_torch.ops.sequence import ring_attention
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    f16 = torch.float16
+    q = torch.randn(SP_SHAPE_8K, generator=gen, device="cuda").to(f16)
+    qs, ks, vs = (torch.randn(SP_SHAPE_8K, generator=gen, device="cuda")
+                  .to(f16).requires_grad_(True) for _ in range(3))
+    checks = []
+    reset_counts()
+    x = q.detach().requires_grad_(True)
+    out = ring_attention(x, x, x, causal=True, use_flash=True)
+    out.float().sum().backward()
+    emulated = emulated_ring(qs, ks, vs, SP_RANKS)
+    grads = torch.autograd.grad(emulated.float().sum(), (qs, ks, vs))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if not (torch_isfinite(out) and torch_isfinite(x.grad)):
+        raise AssertionError("sequence_parallel_fp16: non-finite output or "
+                             "gradient")
+    check("ring flash fp16 [1, 8192, 4, 64] against K1", out,
+          fa.flash_attention(q, q, q, causal=True), TOL_F16, checks)
+    ref = fa.flash_attention(qs, ks, vs, causal=True)
+    ref_grads = torch.autograd.grad(ref.float().sum(), (qs, ks, vs))
+    check(f"emulated {SP_RANKS}-rank ring fp16 out against K1", emulated,
+          ref, TOL_F16, checks)
+    for n, a, b in zip("qkv", grads, ref_grads):
+        check_rel(f"emulated ring fp16 d{n} against K2", a, b, TOL_SP_GRAD,
+                  checks)
+    emit({"phase": "sequence_parallel_fp16", "card": card,
+          "group": "one-rank NCCL (file:// rendezvous)",
+          "config": "bench.py bench_ring_attention in fp16: causal, "
+                    "q = k = v, fwd + bwd of sum(out.float()), and the "
+                    f"emulated {SP_RANKS}-rank ring",
+          "checks": checks,
+          "launches": {k: counts[k] for k in SEQUENCE_PARALLEL_KERNELS}})
+    del q, x, out, qs, ks, vs, emulated, grads, ref, ref_grads
+    release()
+    return counts
+
+
+def sp_fp16(seed, card):
+    """Path F (phase 33, `sp_fp16`): sp_training (the training flagship's
+    gpt2-1.5b, micro batch 11, seq 1024, ZeRO-2, AdamW, full-block remat,
+    with sequence_parallel="ring" over the one-rank group) in fp16 with
+    fp32 masters from the scale 2^16, until 8 clean steps follow the
+    last skip (`run_fp16_path`'s gates): every layer's attention is K5
+    (no K1) and its backward K2-fused's given-delta entry. Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+
+    cfg = train_config(dtype=torch.float16, param_dtype=torch.float32,
+                       sequence_parallel="ring")
+    ds_config = flagship_ds_config(TRAIN_BATCH)
+    del ds_config["bf16"]
+    ds_config["fp16"] = {"enabled": True,
+                         "initial_scale_power": FP16_SCALE_POWER}
+    t0 = time.perf_counter()
+    model = GPT2ForCausalLM(cfg)
+    engine, _, _, _ = dst.initialize(model=model,
+                                     model_parameters=model.init(seed),
+                                     config=ds_config)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    staged = engine.stage_batch({"input_ids": ids})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    expect = gpt2_fp16_launches(cfg.n_layer, pld=False)
+    expect["flash_attention_merge"] = expect.pop("flash_attention_fwd")
+    expect.update(flash_attention_fwd=0, flash_attention_bwd=0)
+    counts, _ = run_fp16_path(
+        "sp_fp16", engine, staged, FP16_STEP_CAP["sp_fp16"], card,
+        expect_per_step=expect, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+        extra={"model": "gpt2-1.5b", "n_layer": cfg.n_layer,
+               "sequence_parallel": "ring (one-rank NCCL group)",
+               "setup_s": setup_s, "micro_batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "zero_stage": 2, "remat": "full block",
+               "initial_scale_power": FP16_SCALE_POWER,
+               "dtype": "fp16 parameters, fp32 masters and moments"})
+    del engine, model, staged
+    return counts
+
+
 def bert_fp16_oracle(seed, n_layer=2):
     """Phase 26: two BERT-large-wide layers, micro batch 16, seq 128:
     one micro batch's loss and every gradient on the fp16 kernel route
@@ -4597,6 +5213,9 @@ def read_counts():
                 fo.fused_bias_residual_layernorm_backward.launches,
             "fused_bias_gelu_fwd": fo.fused_bias_gelu.launches,
             "fused_bias_gelu_bwd": fo.fused_bias_gelu_backward.launches,
+            "fused_bias_gelu_fwd_grouped": fo.fused_bias_gelu.grouped_launches,
+            "fused_bias_gelu_bwd_grouped":
+                fo.fused_bias_gelu_backward.grouped_launches,
             "quantized_matmul": _qmm().quantized_matmul.launches,
             "block_sparse_fwd_sm90": bsa._bs_fwd_sm90_launch.launches,
             "block_sparse_fwd": bsa._bs_fwd_launch.launches,
@@ -4706,6 +5325,9 @@ FUSED_ABSENT = ("flash_attention_bwd",)
 MOE_KERNELS = TRAINING_KERNELS + ("moe_dispatch", "moe_combine")
 QUANT_KERNELS = TRAINING_KERNELS + ("quantized_matmul",)
 MOE_QUANT_KERNELS = MOE_KERNELS + ("quantized_matmul",)
+# the fp16 MoE paths name K4's grouped launches too
+MOE_FP16_KERNELS = MOE_KERNELS + ("fused_bias_gelu_fwd_grouped",
+                                  "fused_bias_gelu_bwd_grouped")
 SPARSE_KERNELS = ("block_sparse_fwd_sm90", "block_sparse_band_fwd_sm90",
                   "block_sparse_bwd_dkv_sm90", "block_sparse_bwd_dq_sm90")
 # the sparse oracle's fp32 cases take K7's WMMA bodies
@@ -4947,6 +5569,30 @@ def main(argv=None):
     surface16 = path_counts("engine_surface_fp16",
                             engine_surface_fp16(args.seed, card),
                             TRAINING_KERNELS, FUSED_ABSENT)
+    release()
+
+    # 30: path D, gpt2-350m-moe8 in fp16 (K8, grouped K4); 31: path E,
+    # D with quantized experts and the quantized_compute block (K6 with
+    # an fp16 output); 32: the ring leg in fp16 in the one-rank group
+    # (K5, K2's given-delta sweeps); 33: path F, sp_training in fp16
+    # (K5, K2-fused's given-delta entry); counts zeroed inside each,
+    # right before its steps or passes
+    moe16 = path_counts("moe_fp16", moe_fp16(args.seed, card),
+                        MOE_FP16_KERNELS, FUSED_ABSENT)
+    moe_quant16 = path_counts(
+        "moe_quant_fp16", moe_fp16(args.seed, card, quantized=True),
+        MOE_FP16_KERNELS + ("quantized_matmul",), FUSED_ABSENT)
+    rendezvous = init_sp_group()
+    try:
+        ring16 = path_counts("sequence_parallel_fp16",
+                             sequence_parallel_fp16_path(args.seed, card),
+                             ("flash_attention_merge", "flash_attention_bwd"))
+        sp16 = path_counts("sp_fp16", sp_fp16(args.seed, card),
+                           SP_TRAINING_KERNELS, FUSED_ABSENT)
+    finally:
+        torch.distributed.destroy_process_group()
+        if os.path.exists(rendezvous):
+            os.remove(rendezvous)
 
     rows = []
     counts_by_path = {"serving": serving, "training": training,
@@ -4959,20 +5605,24 @@ def main(argv=None):
                       "sp_training": sp_train, "checkpoint": ckpt,
                       "bert_training": bert, "bert_fp16": bert16,
                       "gpt2_fp16_pld": gpt16,
-                      "engine_surface_fp16": surface16}
+                      "engine_surface_fp16": surface16,
+                      "moe_fp16": moe16, "moe_quant_fp16": moe_quant16,
+                      "sequence_parallel_fp16": ring16, "sp_fp16": sp16}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);
         # every path's under "timed_by_path"
         by_path = results[kname]
         r = next(iter(by_path.values()))
-        # an fp16 form's launches are the fp16 paths', a bf16 form's the
-        # others'
+        # an fp16 form's launches are the fp16 paths' (or its rows'
+        # paths'), a bf16 form's the others'
         fp16 = kname in FP16_KERNELS
-        counter = FP16_KERNELS.get(kname, kname)
+        counter = FP16_COUNTERS.get(kname, FP16_KERNELS.get(kname, kname))
+        row_paths = FP16_ROW_PATHS.get(kname, FP16_PATHS)
         paths = {p: c[counter] for p, c in counts_by_path.items()
-                 if (p in FP16_PATHS) == fp16}
+                 if (p in row_paths if fp16 else p not in FP16_PATHS)}
         extra = {k: r[k] for k in ("library_call", "bf16_matmul_ms",
+                                   "fp16_matmul_ms",
                                    "plain_is", "sdpa_masked_fwd_ms",
                                    "sdpa_masked_fwd_bwd_ms", "dense",
                                    "visible_scores", "density", "k1_ms",

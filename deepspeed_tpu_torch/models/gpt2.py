@@ -71,11 +71,11 @@ the block's dropout seed (the JAX model draws from flax's dropout rng:
 the two packages keep different blocks from one seed); deterministic,
 `hidden + p * (out - hidden)`.
 
-fp16 compute (`dtype=torch.float16`) runs K1-K4 in their fp16 forms.
-Out of this slice (each raises NotImplementedError naming its ROADMAP
-item): named remat policies (item 4); fp16 with MoE, quantized compute
-or sequence parallelism (the fp16 forms of K8, grouped K4, K6 and K5,
-item 10).
+fp16 compute (`dtype=torch.float16`) runs every kernel of its path in
+its fp16 form: K1-K4, and with MoE K8 and grouped K4, with quantized
+compute K6 (fp16 out), under the ring K5 and K2's given-delta entry.
+Out of this slice (raises NotImplementedError naming its ROADMAP item):
+named remat policies (item 4).
 """
 
 import dataclasses
@@ -107,10 +107,6 @@ REMAT_POLICY_SLICE = ("named remat policies (the save_fused_epilogues "
                       "and save_only_these_names forms) come with the "
                       "rest of the single-card engine (ROADMAP Queue 1 "
                       "item 4)")
-FP16_KERNELS_SLICE = ("the fp16 forms of K5, K6, K7, K8 and grouped K4 "
-                      "(fp16 sequence parallelism, quantized compute, "
-                      "block-sparse attention and MoE) are not in the "
-                      "port yet: ROADMAP Queue 1 item 10")
 # the stream of a block's dropout seed that PLD's gate draws from
 PLD_STREAM = 2
 
@@ -213,12 +209,6 @@ def check_supported(cfg: GPT2Config):
     if cfg.attention_impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"attention_impl={cfg.attention_impl!r}: "
                          "expected 'auto', 'pallas' or 'xla'")
-    if cfg.dtype == torch.float16 and (
-            cfg.moe is not None or cfg.sequence_parallel or
-            cfg.quantized_compute not in ("off", False, None)):
-        raise NotImplementedError(
-            f"fp16 with MoE, quantized compute or sequence parallelism: "
-            f"{FP16_KERNELS_SLICE}")
 
 
 SP_IMPLS = {"ring": ring_attention, "ulysses": ulysses_attention}

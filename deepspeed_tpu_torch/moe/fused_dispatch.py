@@ -11,6 +11,10 @@ Routing in index form (`top_k_gating_indexed`: e_idx/slot/keep/w, each
     [N, H]: token n sums its k slots `dest[n]` scaled by keep * w, in
     fp32, written in ye's dtype.
 
+The rows may be fp32, bf16 or fp16 (the fp16 engine's MoE layers): a
+16-bit row is widened, scaled and summed in fp32 and rounded once to its
+dtype, so an fp16 sum past 65504 is inf, as in the JAX kernel.
+
 The Pallas kernels `_dispatch_kernel` / `_make_combine_kernel` become
 the CUDA kernels of `ops/csrc/moe_dispatch.cu`, launched by
 `gather_rows` and `combine_rows` (each counts its launches in
@@ -36,7 +40,7 @@ import ctypes
 
 import torch
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -99,8 +103,8 @@ def _combine_rows_plain(ye, dest, cw):
 # ----------------------------------------------------------------------
 def _check(name, t, dtype=None):
     if dtype is None and t.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32 "
-                        "or bfloat16)")
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32, "
+                        "bfloat16 or float16)")
     if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
@@ -162,7 +166,7 @@ def _combine_rows_launch(ye, dest, cw):
 
 def gather_rows(x, src, slot_w=None):
     """out [S, H] with out[s] = slot_w[s] * x[src[s]] (w = 1 when
-    `slot_w` is None), zeros where src[s] >= N. x [N, H] fp32/bf16,
+    `slot_w` is None), zeros where src[s] >= N. x [N, H] fp32/bf16/fp16,
     src [S] int32, slot_w [S] fp32. CUDA tensors launch K8's gather;
     CPU tensors take the plain twin. No gradient: the autograd Functions
     below call it."""
@@ -176,7 +180,7 @@ gather_rows.launches = 0
 
 def combine_rows(ye, dest, cw):
     """out [N, H] with out[n] = sum_j cw[n, j] * ye[dest[n, j]], fp32
-    accumulation, in ye's dtype. ye [S, H] fp32/bf16, dest [N, k] int32,
+    accumulation, in ye's dtype. ye [S, H] fp32/bf16/fp16, dest [N, k] int32,
     cw [N, k] fp32. CUDA tensors launch K8's combine; CPU tensors take
     the plain twin. No gradient (see gather_rows)."""
     if ye.is_cuda:

@@ -1039,15 +1039,13 @@ struct Kind {
 
 // fn(Kind<T, D>{}) for dtype (0 = float32, 1 = bfloat16, 2 = float16)
 // and the dense kernels' head dims 64, 128, 192, 256 (fp16: 64 and 128,
-// the Hopper bodies'; none where Half is false); -1 for anything else.
-template <bool Half = true, typename Fn>
+// the Hopper bodies'); -1 for anything else.
+template <typename Fn>
 int dispatch_dense(int dtype, int head_dim, Fn&& fn) {
-  if constexpr (Half) {
-    if (dtype == 2) {
-      if (head_dim == 64) return fn(Kind<__half, 64>{});
-      if (head_dim == 128) return fn(Kind<__half, 128>{});
-      return -1;
-    }
+  if (dtype == 2) {
+    if (head_dim == 64) return fn(Kind<__half, 64>{});
+    if (head_dim == 128) return fn(Kind<__half, 128>{});
+    return -1;
   }
   if (dtype == 1) {
     if (head_dim == 64) return fn(Kind<bf16, 64>{});

@@ -294,8 +294,7 @@ extern "C" int ds_flash_attn_bwd_delta(
   cudaSetDevice(device);
   auto s = static_cast<cudaStream_t>(stream);
   if (batch * seq == 0) return 0;
-  // K5's backward in fp16 is not ported: no fp16 instantiation
-  return dispatch_dense<false>(dtype, head_dim, [&](auto kind) {
+  return dispatch_dense(dtype, head_dim, [&](auto kind) {
     using K = decltype(kind);
     const long long n = static_cast<long long>(batch) * heads * seq;
     shift_delta_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,

@@ -208,8 +208,7 @@ extern "C" int ds_flash_attn_fwd_merge(
   if (batch * seq == 0) return 0;
   const MergeIn mg{prev_out, strides[9], strides[10], strides[11], prev_lse,
                    lse_n};
-  // K5 in fp16 is not ported: no fp16 instantiation
-  return dispatch_dense<false>(dtype, head_dim, [&](auto kind) {
+  return dispatch_dense(dtype, head_dim, [&](auto kind) {
     using K = decltype(kind);
     return route<typename K::T, K::D, true>(q, k, v, out, lse, batch, seq,
                                             heads, strides, scale_log2,

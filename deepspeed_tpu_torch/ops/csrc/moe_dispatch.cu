@@ -30,9 +30,13 @@
 // loop. Products and sums use __fmul_rn/__fadd_rn (no FMA contraction),
 // so the combine adds its k terms exactly as the plain twin does.
 //
-// dtypes: 0 = float32, 1 = bfloat16, the same for the rows read and the
-// rows written; weights float32; indices int32.
+// dtypes: 0 = float32, 1 = bfloat16, 2 = float16, the same for the rows
+// read and the rows written; weights float32; indices int32. A 16-bit
+// row is widened to fp32, scaled and summed there, and rounded once to
+// its dtype on the store (fp16: a sum past 65504 becomes inf, as the JAX
+// kernel's `astype(out_dtype)` makes it).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -47,6 +51,7 @@ __device__ __forceinline__ float load_as_float(const void* p, int dt,
   if (dt == 1) {
     return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
   }
+  if (dt == 2) return __half2float(static_cast<const __half*>(p)[i]);
   return static_cast<const float*>(p)[i];
 }
 
@@ -54,18 +59,30 @@ __device__ __forceinline__ void store_from_float(void* p, int dt,
                                                  long long i, float v) {
   if (dt == 1) {
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  } else if (dt == 2) {
+    static_cast<__half*>(p)[i] = __float2half_rn(v);
   } else {
     static_cast<float*>(p)[i] = v;
   }
 }
 
-// 16 bytes as 8 floats (bf16) or 4 floats (fp32); `lanes` of them used
+__device__ __forceinline__ int elem_size(int dt) { return dt == 0 ? 4 : 2; }
+
+// 16 bytes as 8 floats (bf16, fp16) or 4 floats (fp32)
 __device__ __forceinline__ void unpack(const uint4& v, int dt, float* f) {
   if (dt == 1) {
     const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 t = __bfloat1622float2(b[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  } else if (dt == 2) {
+    const __half2* b = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __half22float2(b[i]);
       f[2 * i] = t.x;
       f[2 * i + 1] = t.y;
     }
@@ -82,6 +99,12 @@ __device__ __forceinline__ uint4 pack(const float* f, int dt) {
     __nv_bfloat162* b = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) b[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  } else if (dt == 2) {
+    __half2* b = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      b[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+    }
   } else {
     float* a = reinterpret_cast<float*>(&v);
 #pragma unroll
@@ -100,7 +123,7 @@ gather_rows_kernel(const void* __restrict__ x, const int* __restrict__ src,
   const int tok = src[row];
   const bool empty = tok < 0 || tok >= n;
   const float scale = (w != nullptr && !empty) ? w[row] : 1.0f;
-  const int esize = dt == 1 ? 2 : 4;
+  const int esize = elem_size(dt);
   if (vec) {
     const int per = 16 / esize;          // elements per 16-byte vector
     const int nvec = h / per;
@@ -147,7 +170,7 @@ combine_rows_kernel(const void* __restrict__ ye, const int* __restrict__ dest,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n) return;
-  const int esize = dt == 1 ? 2 : 4;
+  const int esize = elem_size(dt);
   const int* d = dest + static_cast<long long>(row) * k;
   const float* wt = cw + static_cast<long long>(row) * k;
   if (vec) {
@@ -226,7 +249,7 @@ extern "C" int ds_moe_combine_rows(const void* ye, const void* dest,
           out, n, k, h, dt, vec);
     } else {
       cudaMemsetAsync(out, 0,
-                      static_cast<size_t>(n) * h * (dt == 1 ? 2 : 4),
+                      static_cast<size_t>(n) * h * (dt == 0 ? 4 : 2),
                       static_cast<cudaStream_t>(stream));
     }
   }

@@ -65,10 +65,13 @@
 //
 // Layouts. xq [G, M, Kp] int8, wqt [G, N, Kp] int8 (K contiguous), sx
 // [G, M] fp32, sw [G, nb, sw_cols] fp32 (sw_cols >= N, a multiple of 4:
-// TMA's 16-byte row stride), out [G, M, N] fp32 (dt 0) or bf16 (dt 1).
+// TMA's 16-byte row stride), out [G, M, N] fp32 (dt 0), bf16 (dt 1) or
+// fp16 (dt 2: the fp32 result rounded once, inf past 65504 as JAX's
+// `astype` gives it).
 // The wrapper checks Kp % block == 0, block % 128 == 0 and 16-byte
 // aligned bases.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "hopper.cuh"
 
@@ -142,6 +145,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, __nv_bfloat16 a,
                                        __nv_bfloat16 b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, __half a, __half b) {
+  *reinterpret_cast<__half2*>(p) = __halves2half2(a, b);
+}
 
 template <typename Out>
 __device__ __forceinline__ Out cast(float v);
@@ -152,6 +158,10 @@ __device__ __forceinline__ float cast<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 cast<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half cast<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // The output tiles (g, m0, n0), M fastest, are dealt round-robin to the
@@ -303,8 +313,8 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mb,
 
 // out [groups, m, n] = per-block dequantized xq [groups, m, kp] @
 // wqt[groups, n, kp]^T; sw [groups, kp / block, sw_cols]. dt: 0 =
-// float32, 1 = bfloat16 output. Returns cudaGetLastError(), or
-// kMapError when a tensor map cannot be encoded.
+// float32, 1 = bfloat16, 2 = float16 output. Returns
+// cudaGetLastError(), or kMapError when a tensor map cannot be encoded.
 extern "C" int ds_quantized_matmul(const void* xq, const void* wqt,
                                    const void* sx, const void* sw, void* out,
                                    int groups, int m, int n, int kp,
@@ -341,6 +351,9 @@ extern "C" int ds_quantized_matmul(const void* xq, const void* wqt,
   if (dt == 1)
     return launch<__nv_bfloat16>(ma, mb, ms, rs, out, groups, m, n, kp,
                                  block, device, s);
+  if (dt == 2)
+    return launch<__half>(ma, mb, ms, rs, out, groups, m, n, kp, block,
+                          device, s);
   return launch<float>(ma, mb, ms, rs, out, groups, m, n, kp, block, device,
                        s);
 }

@@ -31,10 +31,10 @@ tensors take, on the same routes (`_flash_bwd_twin`).
 `flash_attention_with_lse` and `flash_attention_merge` are
 differentiable in every input and output (the lse cotangent enters the
 backward as a shift of delta, as in the JAX package). The kernels take
-head dims 64, 128, 192 and 256; fp16 (the fp16 forms of K1-fwd, K2-fused
-and K2, on the Hopper bodies) head dims 64 and 128. fp16 at the wide head
-dims and fp16 K5 (its merge and given-delta entries) raise
-NotImplementedError naming ROADMAP Queue 1 item 10.
+head dims 64, 128, 192 and 256; fp16 (the fp16 forms of K1-fwd, K5,
+K2-fused and K2, their given-delta entries included, on the Hopper
+bodies) head dims 64 and 128. fp16 at the wide head dims (on no model's
+path) raises NotImplementedError naming ROADMAP Queue 2 item 7.
 
 Layout: [B, T, H, D] at every public function, as in the JAX package.
 The lse is returned as [B, H, T, 1] in LOG2 space (m + log2(l) over
@@ -69,8 +69,8 @@ _MAX_GRID_Y = 65535
 LN2 = 0.6931471805599453
 _DEFAULT_BLOCK = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-FP16_LATER = ("the fp16 forms of K5 (merge) and of the wide head dims "
-              "192/256 are not in the port yet: ROADMAP Queue 1 item 10")
+FP16_LATER = ("the fp16 forms of the wide head dims 192/256 are not in "
+              "the port yet: ROADMAP Queue 2 item 7")
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
     [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -575,8 +575,6 @@ def _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale, causal):
     """K5 on the card: (out fp32 [B,T,H,D], lse, lse_n [B,H,T])."""
     from deepspeed_tpu_torch.ops import _build
     b, t, h, d = q.shape
-    if q.dtype == torch.float16:
-        raise NotImplementedError(f"flash merge kernel: {FP16_LATER}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_kernel_operand(name, x, q)
     _check_kernel_shape(q)
@@ -608,11 +606,8 @@ def _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale, causal):
 def _check_bwd_args(q, k, v, out, lse, g, dlse, delta):
     """What both backward kernels take: `_check_kernel_shape`'s, out (when
     no delta is given) and dout like q, lse, dlse and delta contiguous
-    fp32 [B, H, T]; fp16 takes no given delta."""
+    fp32 [B, H, T]."""
     b, t, h, _ = q.shape
-    if delta is not None and q.dtype == torch.float16:
-        raise NotImplementedError(f"flash backward with a given delta "
-                                  f"(K5's backward): {FP16_LATER}")
     operands = [("q", q), ("k", k), ("v", v), ("dout", g)]
     if delta is None:
         operands.append(("out", out))

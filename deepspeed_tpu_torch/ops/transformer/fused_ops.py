@@ -30,9 +30,10 @@ fp16 paths give it (`_check_fp16_form`, `LN_FWD_FP16_FORMS`,
 `LN_BWD_FP16_FORMS`): K3-fwd with y fp16 and (residual, out, sum) all
 fp16, or fp16/fp32/fp16, or fp32 throughout; K3-bwd with dx fp16 and
 (s, dout) fp16/fp16, fp16/fp32 or fp32/fp32, one vector a lane (H up to
-3584); K4-fwd and K4-bwd all fp16; the vectors fp16 or fp32. No launch
-mixes bf16 and fp16. Grouped K4 in fp16 (the MoE experts) and K3-bwd in
-fp16 above H 3584 raise naming ROADMAP Queue 1 item 10.
+3584); K4-fwd and K4-bwd all fp16, dense or grouped (the MoE experts: a
+per-expert bias, a per-group fp32 dbias); the vectors fp16 or fp32. No
+launch mixes bf16 and fp16. K3-bwd in fp16 above H 3584 (on no model's
+path) raises naming ROADMAP Queue 2 item 6.
 
 Dispatch: a wrapper takes the plain twin for tensors on the CPU and
 launches the kernel for tensors on CUDA. There is no fallback from a
@@ -40,7 +41,8 @@ CUDA tensor to the twin. Each wrapper counts its kernel launches in a
 plain integer (`fused_bias_residual_layernorm.launches`,
 `fused_bias_gelu.launches`, and `.launches` of the two `*_backward`
 wrappers), so a run can show that its main path went through the
-kernels.
+kernels; K4's two wrappers also count their grouped launches apart
+(`.grouped_launches`, a part of `.launches`).
 """
 
 import collections
@@ -57,9 +59,6 @@ _INV_SQRT_2PI = 0.3989422804014327     # 1/sqrt(2*pi)
 
 # dtype codes and argument types of the kernels' C interfaces
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-FP16_GROUPED_LATER = ("the fp16 form of grouped K4 (the MoE experts' bias "
-                      "+ GeLU) is not in the port yet: ROADMAP Queue 1 "
-                      "item 10")
 # the fp16 forms of K3 that are instantiated: (residual, out, sum) of
 # K3-fwd and (s, dout) of K3-bwd, with y and dx fp16. GPT-2 gives the
 # all-fp16 forms; BERT's post-LN layer an fp16 residual, then an fp32
@@ -440,8 +439,6 @@ def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
     if bias.dtype not in _DTYPE_CODE:
         raise TypeError(f"bias dtype {bias.dtype} not supported "
                         "(float32, bfloat16 or float16)")
-    if x.dtype == torch.float16 and groups > 1:
-        raise NotImplementedError(f"fused_bias_gelu: {FP16_GROUPED_LATER}")
     _check_fp16_form("K4-fwd", "x", x.dtype, [
         ("out", out_dtype, True), ("sum", sum_dtype, True),
         ("bias", bias.dtype, False)], all_fp16=True)
@@ -460,6 +457,7 @@ def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
              int(bool(approximate)), dev, _build.stream_ptr(x))
     _build.check(err, "fused_bias_gelu kernel")
     fused_bias_gelu.launches += 1
+    fused_bias_gelu.grouped_launches += int(groups > 1)
     return out, s
 
 
@@ -500,7 +498,7 @@ def _ln_bwd_launch(s2, gamma, dout2, dsum2, eps, dx_dtype):
     if dx_dtype == torch.float16 and plan.vpt != 1:
         raise NotImplementedError(
             f"K3-bwd: fp16 at H {h} (4 vectors a lane, above H 3584) is "
-            "not in the port yet: ROADMAP Queue 1 item 10")
+            "not in the port yet: ROADMAP Queue 2 item 6")
     dx = torch.empty((n, h), dtype=dx_dtype, device=s2.device)
     sums = torch.empty((3, h), dtype=torch.float32, device=s2.device)
     work = torch.empty((max(plan.work_rows, 1), 3, h), dtype=torch.float32,
@@ -535,9 +533,6 @@ def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype, groups=None):
     grouped, groups = groups is not None, groups or 1
     if n % groups:
         raise ValueError(f"{n} rows do not split into {groups} equal groups")
-    if dx_dtype == torch.float16 and groups > 1:
-        raise NotImplementedError(
-            f"fused_bias_gelu_backward: {FP16_GROUPED_LATER}")
     _check_fp16_form("K4-bwd", "dx", dx_dtype, [
         ("s", s2.dtype, True), ("dout", dout2.dtype, True)], all_fp16=True)
     dev = s2.device.index or 0
@@ -558,6 +553,7 @@ def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype, groups=None):
              _build.stream_ptr(s2))
     _build.check(err, "fused_bias_gelu backward kernel")
     fused_bias_gelu_backward.launches += 1
+    fused_bias_gelu_backward.grouped_launches += int(groups > 1)
     return dx, (dbias if grouped else dbias[0])
 
 
@@ -633,6 +629,7 @@ def fused_bias_gelu_backward(s, d_out, *, approximate=False, dx_dtype=None,
 
 
 fused_bias_gelu_backward.launches = 0
+fused_bias_gelu_backward.grouped_launches = 0
 
 
 class _FusedLayerNorm(torch.autograd.Function):
@@ -757,11 +754,15 @@ def fused_bias_gelu_with_sum(x, bias, *, approximate=False,
 
 
 fused_bias_gelu.launches = 0
+fused_bias_gelu.grouped_launches = 0
 
 
 def reset_launch_counts():
-    """Zero the four launch counters (K3/K4, forward and backward)."""
+    """Zero the launch counters (K3/K4, forward and backward, and K4's
+    grouped ones)."""
     fused_bias_residual_layernorm.launches = 0
     fused_bias_gelu.launches = 0
     fused_bias_residual_layernorm_backward.launches = 0
     fused_bias_gelu_backward.launches = 0
+    fused_bias_gelu.grouped_launches = 0
+    fused_bias_gelu_backward.grouped_launches = 0

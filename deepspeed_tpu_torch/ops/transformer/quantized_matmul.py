@@ -18,7 +18,11 @@ takes the twin. The quantizers and the K padding stay plain torch, as
 the JAX package left them to XLA; the padding of M and N of the TPU
 launcher becomes masking inside the kernel. One call covers G groups
 (weights [G, Kp, N]): the experts' vmap of the JAX package is one
-grouped launch here, the group the kernel grid's third axis.
+grouped launch here, the group the kernel grid's third axis. The output
+is fp32, bf16 or fp16 (the fp16 engine's projections): the row scale
+applies in fp32 and the result rounds once, so an fp16 value past 65504
+is inf, as JAX's `astype` makes it, and the loss scaler sees the
+overflow.
 
 `quantized_dense` is the training entry point: the forward quantizes
 the CURRENT weights per (K-block, column) and the input per row, the
@@ -49,7 +53,7 @@ from deepspeed_tpu_torch.utils.rng import stream_generator
 # package's; the kernel takes multiples of 128
 DEFAULT_QUANT_BLOCK = 128
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _QMM_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
 # the blocks the kernel takes: the JAX package's rule for its int8 tiles
@@ -198,7 +202,7 @@ def _qmm_launch(xq, wq, sx, sw, block, out_dtype):
         raise TypeError("quantized_matmul kernel: float32 scales")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"quantized_matmul kernel: output dtype {out_dtype} "
-                        "not supported (float32 or bfloat16)")
+                        "not supported (float32, bfloat16 or float16)")
     g, m, kp = xq.shape
     n = wq.shape[-1]
     nb = kp // block
@@ -287,13 +291,15 @@ def reset_launch_count():
 # ----------------------------------------------------------------------
 def _dw(x, g, dtype):
     """dW = x^T g over the rows (grouped: per group), JAX's
-    einsum(x.f32, g.f32).astype(w.dtype). bf16 operands on CUDA take one
-    bf16 GEMM with an fp32 output: the fp32 casts of bf16 values are
-    exact, so the products are JAX's and only the summation order
-    differs (a true fp32 GEMM over every projection would cost ~0.5 s a
-    step at gpt2-1.5b). Everything else runs the fp32 GEMM."""
+    einsum(x.f32, g.f32).astype(w.dtype). bf16 or fp16 operands (both of
+    one type) on CUDA take one 16-bit GEMM with an fp32 output: the fp32
+    casts of bf16 and fp16 values are exact, so the products are JAX's
+    and only the summation order differs (a true fp32 GEMM over every
+    projection would cost ~0.5 s a step at gpt2-1.5b). Everything else
+    runs the fp32 GEMM."""
     xt = x.transpose(-1, -2)
-    if x.is_cuda and x.dtype == torch.bfloat16 and g.dtype == torch.bfloat16:
+    if x.is_cuda and x.dtype == g.dtype and \
+            x.dtype in (torch.bfloat16, torch.float16):
         mm = torch.bmm if x.dim() == 3 else torch.mm
         return mm(xt, g, out_dtype=torch.float32).to(dtype)
     return torch.matmul(xt.to(torch.float32),

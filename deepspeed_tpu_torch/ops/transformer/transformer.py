@@ -26,8 +26,8 @@ The memory flags (`normalize_invertible`, `gelu_checkpoint`,
 whole block recomputed in the backward. The JAX layer's per-fusion
 policy (`save_fused_epilogues`) comes with the named remat policies
 (ROADMAP Queue 1 item 4). `stochastic_mode` is accepted and ignored, as
-in JAX. fp16 (`fp16=True`) runs K1-K4 in their fp16 forms; fp16 with
-quantized compute raises (ROADMAP Queue 1 item 10).
+in JAX. fp16 (`fp16=True`) runs K1-K4 in their fp16 forms, and the
+quantized projections K6 with an fp16 output.
 
 Dense kernels keep flax's [in, out] layout (`x @ kernel`), so a JAX
 parameter tree converts by a plain unstack (models/convert.py) and the
@@ -52,12 +52,6 @@ from deepspeed_tpu_torch.ops.transformer.quantized_matmul import (
     resolve_quantized_compute)
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.rng import stream_generator, stream_seed
-
-FP16_SLICE = ("the fp16 forms of K5, K6, K7, K8 and grouped K4 (fp16 "
-              "sequence parallelism, quantized compute, block-sparse "
-              "attention and MoE) are not in the port yet: ROADMAP Queue "
-              "1 item 10")
-
 
 class Dense(nn.Module):
     """flax nn.Dense(dtype=compute dtype): `x @ kernel + bias` with the
@@ -460,9 +454,6 @@ class DeepSpeedTransformerLayer(nn.Module):
 
     def __init__(self, config: DeepSpeedTransformerConfig, device="cuda"):
         super().__init__()
-        if config.fp16 and resolve_quantized_compute(
-                config.quantized_compute, resolve_device(device)):
-            raise NotImplementedError(f"fp16 quantized compute: {FP16_SLICE}")
         self.config = config
         with torch.device(resolve_device(device)):
             self.core = _TransformerLayerCore(config)

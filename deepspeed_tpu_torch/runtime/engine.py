@@ -228,11 +228,6 @@ class DeepSpeedEngine:
             raise _later("ZeRO-Offload (zero_optimization.cpu_offload)", 5)
         if self._config.zero_optimization_stage == 3:
             raise _later("ZeRO stage 3", 6)
-        if self._config.fp16_enabled and (
-                self._config.moe["enabled"] or
-                self._config.quantized_compute["enabled"]):
-            raise _later("fp16 with MoE or quantized compute (the fp16 "
-                         "forms of K8, grouped K4 and K6)", 10)
 
         self.collate_fn = collate_fn
         self._resolve_model(model, model_parameters)

@@ -11,7 +11,11 @@ erf GeLU at N 2048, W 4096) and a small BERT on the kernels against
 the plain route; the fp16 forms of K1-K4 at the fp16 paths' shapes
 (BERT-large, gpt2-1.5b), with an inf in the input and in the cotangent
 reaching every output the twin's reaches, none of their instantiations
-spilling, and an fp16 step skipped on the card bit for bit.
+spilling, and an fp16 step skipped on the card bit for bit; the fp16
+forms of K8, grouped K4, K6 (fp16 out) and K5 (with K2's given-delta
+entry on both routes) beside their bf16 forms, with ragged shapes, infs
+and overflows, repeated launches bit for bit, and the exact launches of
+the fp16 MoE, quantized MoE and ring training steps.
 
 K3-fwd is held at every model width, a ragged one, N 1 / 4 / 127 and
 the paths' shapes, in every dtype combination, with unaligned views and
@@ -372,11 +376,12 @@ def test_merge_kernel_empty_carry_is_k1(dev):
     torch.testing.assert_close(lse, ref_lse, **F32_TOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_given_delta_backward_matches_twin(dev, dtype):
     """The given-delta entry (no out) of the route's kernel (K2-fused in
-    bf16, K2's sweeps in fp32) against its twin with the same delta; the
-    caller's delta is left as it was."""
+    bf16 and fp16, K2's sweeps in fp32) against its twin with the same
+    delta; the caller's delta is left as it was."""
     g = _gen(dev, 8)
     b, t, h, d = 2, 256, 3, 64
     q, k, v, dout = (torch.randn((b, t, h, d), generator=g, device=dev)
@@ -393,7 +398,7 @@ def test_given_delta_backward_matches_twin(dev, dtype):
     torch.cuda.synchronize()
     assert torch.equal(delta, keep)
     for name, x, y in zip("qkv", got, ref):
-        assert _rel_l2(x, y) <= GRAD_TOL[dtype], name
+        assert _rel_l2(x, y) <= GRAD_TOL.get(dtype, 5e-3), name
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -1265,7 +1270,7 @@ def test_quantized_matmul_kernel_raises_on_what_it_does_not_take(dev):
     with pytest.raises(TypeError):
         qm._qmm(xq.float(), wq, sx, sw, 128, torch.float32)
     with pytest.raises(TypeError):
-        qm._qmm(xq, wq, sx, sw, 128, torch.float16)
+        qm._qmm(xq, wq, sx, sw, 128, torch.float64)
     with pytest.raises(ValueError):
         qm._qmm(xq, wq[:, :128], sx, sw, 128, torch.float32)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -1273,13 +1278,15 @@ def test_quantized_matmul_kernel_raises_on_what_it_does_not_take(dev):
                            torch.zeros((128, 8), device=dev), block=64)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_quantized_dense_autograd_matches_the_cpu_twin(dev, dtype):
     """quantized_dense on the card (K6 forward, STE backward) against
     the same call on CPU copies (the twin): the forward equal to one
     rounding of the output; dx and dW to fp32 GEMM roundoff (fp32), or
-    to one bf16 rounding (bf16: dW is one bf16 GEMM with an fp32 output
-    on the card, the fp32 GEMM of the same products on the CPU)."""
+    to one 16-bit rounding (bf16, fp16: dW is one 16-bit GEMM with an
+    fp32 output on the card, the fp32 GEMM of the same products on the
+    CPU; fp16 keeps 3 more mantissa bits, 5e-3)."""
     qm = _qm()
     gen = _gen(dev, 14)
     x = (torch.randn((4, 96, 1600), generator=gen, device=dev)).to(dtype)
@@ -1292,7 +1299,8 @@ def test_quantized_dense_autograd_matches_the_cpu_twin(dev, dtype):
         y = qm.quantized_dense(xd, wd, block=128)
         outs.append((y.detach().cpu(),) + tuple(
             t.cpu() for t in torch.autograd.grad(y, (xd, wd), dy.to(d))))
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+           torch.float16: 5e-3}[dtype]
     for a, b in zip(outs[0], outs[1]):
         assert a.dtype == b.dtype == dtype
         assert _rel_l2(a, b) <= tol
@@ -2101,20 +2109,22 @@ def test_fp16_gelu_kernels_match_twins(dev, n, w, approximate):
 
 def test_fp16_instantiations_do_not_spill(dev):
     """ptxas's report of every fp16 instantiation (`6__half` in the
-    mangled name): K1-fwd at head dims 64 and 128 (2), K2's two sweeps
-    (4) and its delta pre-pass (2), K2-fused (2), K3-fwd (its 3 fp16
-    forms; 16-byte or scalar: 6), K3-bwd (its 3 fp16 forms, one vector a
-    lane; 16-byte or scalar: 6), K4-fwd and K4-bwd (all fp16; tanh or
-    erf; 16-byte or scalar: 8) and K7's four Hopper kernels (8; K7-dkv's
-    delta pre-pass is K2's by name, counted once): 38 entries, none
-    spilling."""
+    mangled name): K1-fwd and K5 at head dims 64 and 128 (4), K2's two
+    sweeps (4) and its delta pre-pass (2), K2-fused (2), K3-fwd (its 3
+    fp16 forms; 16-byte or scalar: 6), K3-bwd (its 3 fp16 forms, one
+    vector a lane; 16-byte or scalar: 6), K4-fwd and K4-bwd (all fp16,
+    dense or grouped; tanh or erf; 16-byte or scalar: 8), K6 with an
+    fp16 output (1) and K7's four Hopper kernels (8; K7-dkv's delta
+    pre-pass is K2's by name, counted once): 41 entries, none spilling.
+    K8 reads its dtype at run time (no template) and K2's given-delta
+    entry runs the sweeps' instantiations."""
     from deepspeed_tpu_torch.ops import _build
     _build.build_all()
     entries = {}
     for lib in ("flash_attention_fwd", "flash_attention_bwd",
                 "flash_attention_bwd_fused", "fused_ln_fwd", "fused_ln_bwd",
                 "fused_gelu_fwd", "fused_gelu_bwd",
-                "block_sparse_attention"):
+                "block_sparse_attention", "quantized_matmul"):
         name = None
         for line in _build.build_log(lib).splitlines():
             if "Compiling entry function" in line:
@@ -2122,16 +2132,17 @@ def test_fp16_instantiations_do_not_spill(dev):
             elif name is not None and "spill stores" in line:
                 entries[name] = line.strip()
                 name = None
-    assert len(entries) == 38, sorted(entries)
+    assert len(entries) == 41, sorted(entries)
     spilled = {k: v for k, v in entries.items()
                if "0 bytes spill stores" not in v}
     assert not spilled, spilled
 
 
 def test_fp16_kernels_refuse_what_they_do_not_take(dev):
-    """No launch mixes bf16 and fp16; fp16 K5, fp16 at head dim 256 and
-    fp16 grouped K4 (the MoE experts) raise naming ROADMAP Queue 1 item
-    10; nothing falls back to a twin."""
+    """No launch mixes bf16 and fp16; the fp16 forms on no model's path
+    raise naming their ROADMAP Queue 2 item (K3-bwd above H 3584: item 6;
+    head dim 256: item 7); K8 and K6 refuse a dtype they do not take;
+    nothing falls back to a twin."""
     g = _gen(dev, 24)
     y = torch.randn((4, 64), generator=g, device=dev).to(F16)
     ones = torch.ones(64, device=dev, dtype=F16)
@@ -2143,22 +2154,28 @@ def test_fp16_kernels_refuse_what_they_do_not_take(dev):
                                           sum_dtype=torch.float32)
     wide = torch.zeros((4, 4096), device=dev, dtype=F16)
     v = torch.ones(4096, device=dev, dtype=F16)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
         tfo.fused_bias_residual_layernorm_backward(wide, v, wide, wide,
                                                    dx_dtype=F16)
     with pytest.raises(TypeError, match="out"):
         tfo.fused_bias_gelu(y, ones, out_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="bias"):    # grouped: no bf16 bias
         tfo.fused_bias_gelu(torch.zeros((8, 64), device=dev, dtype=F16),
-                            torch.ones((2, 64), device=dev, dtype=F16))
+                            torch.ones((2, 64), device=dev,
+                                       dtype=torch.bfloat16))
     q = torch.zeros((1, 128, 2, 256), device=dev, dtype=F16)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
         tfa.flash_attention_with_lse(q, q, q, causal=True)
-    q = torch.zeros((1, 128, 2, 64), device=dev, dtype=F16)
-    prev = torch.zeros((1, 128, 2, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfa.flash_attention_merge(q, q, q, prev,
-                                  torch.zeros((1, 2, 128, 1), device=dev))
+    tfd = importlib.import_module("deepspeed_tpu_torch.moe.fused_dispatch")
+    with pytest.raises(TypeError, match="float16"):
+        tfd.gather_rows(torch.zeros((4, 64), device=dev, dtype=torch.float64),
+                        torch.zeros(4, device=dev, dtype=torch.int32))
+    qm = _qm()
+    with pytest.raises(TypeError, match="float16"):
+        qm._qmm(torch.zeros((1, 64, 128), device=dev, dtype=torch.int8),
+                torch.zeros((1, 128, 64), device=dev, dtype=torch.int8),
+                torch.ones((1, 64, 1), device=dev),
+                torch.ones((1, 1, 64), device=dev), 128, torch.float64)
 
 
 def test_fp16_engine_skips_bit_for_bit_on_the_card(dev):
@@ -2382,8 +2399,8 @@ def test_sweeps_given_delta_matches_plain(dev, dtype, t):
 def test_backward_past_t_1024_matches_plain(dev, dtype):
     """The public backward at T 2048 (the sweeps' route) against
     `_flash_bwd_plain`, with an lse cotangent, causal and not; in bf16
-    also K5's backward (the sweeps' given-delta entry) through autograd
-    against the same function on CPU copies."""
+    and fp16 also K5's backward (the sweeps' given-delta entry) through
+    autograd against the same function on CPU copies."""
     for causal in (True, False):
         q, k, v, out, lse, dout, dlse = _fused_inputs(dev, 1, 2048, 2, 64,
                                                       dtype, causal, seed=3)
@@ -2396,8 +2413,6 @@ def test_backward_past_t_1024_matches_plain(dev, dtype):
         assert tfa.flash_attention_backward.launches == before + 1
         for name, x, y in zip("qkv", got, ref):
             assert _rel_l2(x, y) <= GRAD_TOL.get(dtype, F16_GRAD_TOL), name
-    if dtype == F16:        # fp16 takes no given delta yet (FP16_LATER)
-        return
     q, k, v, prev, prev_lse = _merge_inputs(dev, dtype, 64, True, seed=4,
                                             b=1, t=2048, h=2)
     leaves = [x.detach().clone().requires_grad_(True)
@@ -2416,7 +2431,8 @@ def test_backward_past_t_1024_matches_plain(dev, dtype):
     for name, x, y in zip(("dq", "dk", "dv", "dprev", "dprev_lse"), got,
                           want):
         assert torch.isfinite(x).all(), name
-        assert _rel_l2(x, y.to(dev)) <= GRAD_TOL[dtype], name
+        assert _rel_l2(x, y.to(dev)) <= GRAD_TOL.get(dtype, F16_GRAD_TOL), \
+            name
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -2462,3 +2478,365 @@ def test_fp16_block_sparse_route_matches_dense_fallback(dev):
     plan = tbsa._plan(layout, True, 64, (tbsa.TILE, tbsa.TILE), dev)
     with pytest.raises(NotImplementedError, match="Queue 2"):
         tbsa._band_fwd_launch(q.detach(), k.detach(), v.detach(), plan, 0.125)
+
+
+# ----------------------------------------------------------------------
+# the fp16 forms of K8, grouped K4, K6 (fp16 out) and K5 (with K2's
+# given-delta entry), beside their bf16 forms
+# ----------------------------------------------------------------------
+# a 16-bit combine row is one rounding of the twin's fp32 sum: within
+# one ulp of its dtype (2^-8 bf16, 2^-10 fp16; the atol covers fp16's
+# subnormals)
+K8_TOL = {torch.bfloat16: dict(atol=1e-30, rtol=2 ** -8),
+          F16: dict(atol=2 ** -24, rtol=2 ** -10)}
+
+
+def _nonfinite_equal(got, ref):
+    """The kernel's output is non-finite at exactly the twin's non-finite
+    positions, and the twin has some."""
+    g, r = ~torch.isfinite(got.float()), ~torch.isfinite(ref.float())
+    return bool(r.any()) and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("k,cf", [(2, 1.25), (2, 0.5)])
+@pytest.mark.parametrize("h", [1024, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F16], ids=["bf16", "fp16"])
+def test_fp16_moe_dispatch_combine_kernels_match_twins(dev, dtype, h, k, cf):
+    """K8 in bf16 and fp16 side by side against the twins at gpt2-350m-
+    moe8's width (H 1024, 16-byte vectors) and H 100 (the scalar path),
+    with empty slots (cf 1.25) and drops (cf 0.5): dispatch and the
+    weighted gather exactly, combine within one ulp, a second combine
+    bit for bit; an inf in a token row reaches exactly the slots and
+    tokens the twin's reaches; an fp16 combine whose sum passes 65504 is
+    inf where the twin's is."""
+    tfd = importlib.import_module("deepspeed_tpu_torch.moe.fused_dispatch")
+    n, e = 512, 8
+    routing, stats, src, dest, cap = _routing(dev, n, e, k, cf, 30)
+    g = _gen(dev, 31)
+    x = torch.randn((n, h), generator=g, device=dev).to(dtype)
+    before = (tfd.gather_rows.launches, tfd.combine_rows.launches)
+    xe = tfd.gather_rows(x, src)
+    assert xe.dtype == dtype and torch.equal(xe,
+                                             tfd._gather_rows_plain(x, src))
+    sw = torch.rand((e * cap,), generator=g, device=dev)
+    assert torch.equal(tfd.gather_rows(x, src, sw),
+                       tfd._gather_rows_plain(x, src, sw))
+    ye = torch.randn((e * cap, h), generator=g, device=dev).to(dtype)
+    cw = (routing["keep"] * routing["w"]).float()
+    y = tfd.combine_rows(ye, dest, cw)
+    ref = tfd._combine_rows_plain(ye, dest, cw)
+    assert y.dtype == dtype
+    torch.testing.assert_close(y.float(), ref.float(), **K8_TOL[dtype])
+    assert torch.equal(y, tfd.combine_rows(ye, dest, cw))
+    # an inf token row: the slots it fills, then the tokens summing them
+    x_inf = x.clone()
+    x_inf[int(src[src < n][0])] = float("inf")
+    xe_inf = tfd.gather_rows(x_inf, src)
+    assert torch.equal(~torch.isfinite(xe_inf.float()),
+                       ~torch.isfinite(tfd._gather_rows_plain(
+                           x_inf, src).float()))
+    y_inf = tfd.combine_rows(xe_inf, dest, cw)
+    assert _nonfinite_equal(y_inf, tfd._combine_rows_plain(xe_inf, dest,
+                                                           cw))
+    torch.cuda.synchronize()
+    assert (tfd.gather_rows.launches - before[0],
+            tfd.combine_rows.launches - before[1]) == (3, 3)
+    if dtype == F16:
+        big = torch.full((e * cap, h), 40000.0, device=dev, dtype=F16)
+        ones = torch.ones_like(cw)
+        got = tfd.combine_rows(big, dest, ones)
+        want = tfd._combine_rows_plain(big, dest, ones)
+        assert bool(torch.isinf(want).all()) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,w", [(160, 4096), (37, 4096), (37, 100)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F16], ids=["bf16", "fp16"])
+def test_fp16_grouped_gelu_kernels_match_twins(dev, dtype, rows, w):
+    """Grouped K4 (8 experts, a bias [8, W] and dbias [8, W], as the fp16
+    MoE experts run it: x, bias, out, s, dout and dx in the one dtype) in
+    bf16 and fp16 against the twins: 37 rows a group end their last row
+    run early, W 100 takes the scalar accesses; forward and backward
+    twice bit for bit; an inf in x and in dout reaches what the twin's
+    reaches (dbias included); each call counts one grouped launch."""
+    g = _gen(dev, 32)
+    groups = 8
+    x = torch.randn((groups, rows, w), generator=g, device=dev).to(dtype)
+    bias = (0.1 * torch.randn((groups, w), generator=g, device=dev)).to(
+        dtype)
+    before = (tfo.fused_bias_gelu.grouped_launches,
+              tfo.fused_bias_gelu_backward.grouped_launches)
+    out, s = tfo.fused_bias_gelu_with_sum(x, bias, approximate=True)
+    ref, ref_s = tfo._gelu_fwd_math(x, bias, True)
+    tol = BF16_TOL if dtype == torch.bfloat16 else F16_TOL
+    torch.testing.assert_close(out.float(), ref.to(dtype).float(), **tol)
+    torch.testing.assert_close(s.float(), ref_s.to(dtype).float(), **tol)
+    dout = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+    dx, dbias = tfo.fused_bias_gelu_backward(s, dout, approximate=True,
+                                             groups=groups)
+    d = tfo._gelu_bwd_math(s, dout, True)
+    assert dx.dtype == dtype and dbias.dtype == torch.float32
+    assert _rel_l2(dx, d.to(dtype)) <= GRAD_TOL.get(dtype, F16_GRAD_TOL)
+    assert _rel_l2(dbias, d.sum(1)) <= GRAD_TOL[torch.float32] * 10
+    again = tfo.fused_bias_gelu_backward(s, dout, approximate=True,
+                                         groups=groups)
+    assert torch.equal(dx, again[0]) and torch.equal(dbias, again[1])
+    fwd_again = tfo.fused_bias_gelu_with_sum(x, bias, approximate=True)
+    assert torch.equal(out, fwd_again[0]) and torch.equal(s, fwd_again[1])
+    x_inf = x.clone()
+    x_inf[3, 5, 7] = float("inf")
+    assert _nonfinite_equal(
+        tfo.fused_bias_gelu(x_inf, bias, approximate=True),
+        tfo._gelu_fwd_math(x_inf, bias, True)[0].to(dtype))
+    d_inf = dout.clone()
+    d_inf[5, 2, 1] = float("inf")
+    got = tfo.fused_bias_gelu_backward(s, d_inf, approximate=True,
+                                       groups=groups)
+    want = tfo._gelu_bwd_math(s, d_inf, True)
+    for a, b in ((got[0], want.to(dtype)), (got[1], want.sum(1))):
+        assert _nonfinite_covered(a, b)
+    torch.cuda.synchronize()
+    assert (tfo.fused_bias_gelu.grouped_launches - before[0],
+            tfo.fused_bias_gelu_backward.grouped_launches - before[1]) == \
+        (3, 3)
+
+
+@pytest.mark.parametrize("g,m,k,n", [
+    (1, 300, 1600, 520),      # partial last block, ragged M and N
+    (3, 77, 384, 200),        # grouped, ragged
+    (1, 16384, 1024, 3072),   # gpt2-350m-moe8's c_attn
+    (1, 16384, 4096, 1024),   # its mlp_c_proj
+    (8, 2560, 1024, 4096),    # its experts' wi (capacity 2,560)
+    (8, 2560, 4096, 1024),    # and wo
+])
+def test_fp16_quantized_matmul_kernel_matches_twin(dev, g, m, k, n):
+    """K6 with an fp16 output equals its twin bit for bit (the same fp32
+    sum, one rounding), and so does its bf16 output on the same
+    operands; scaled up past 65504 the fp16 output is inf exactly where
+    the twin's is, finite elsewhere."""
+    qm = _qm()
+    gen = _gen(dev, 33)
+    x = torch.randn((g, m, k), generator=gen, device=dev) * 3.0
+    w = torch.randn((g, k, n), generator=gen, device=dev) * 0.05
+    wq, sw = qm.quantize_kernel_int8(w, 128)
+    xq, sx = qm.quantize_rows_int8(x)
+    xq = torch.nn.functional.pad(xq, (0, wq.shape[-2] - k)).contiguous()
+    before = qm.quantized_matmul.launches
+    for dtype in (torch.bfloat16, F16):
+        got = qm._qmm(xq, wq, sx, sw, 128, dtype)
+        ref = qm._qmm_plain(xq, wq, sx, sw, 128, dtype)
+        assert got.dtype == dtype and got.shape == (g, m, n)
+        assert torch.equal(got, ref)
+    big = sx * 20000.0
+    got = qm._qmm(xq, wq, big, sw, 128, F16)
+    ref = qm._qmm_plain(xq, wq, big, sw, 128, F16)
+    torch.cuda.synchronize()
+    assert qm.quantized_matmul.launches == before + 3
+    assert bool(torch.isinf(ref).any()) and bool(torch.isfinite(ref).any())
+    assert torch.equal(got, ref)
+
+
+def test_fp16_quantized_dense_overflow_reaches_the_loss_scaler(dev):
+    """An fp16 quantized projection whose product passes 65504 gives inf
+    in the forward (as JAX's astype does), and its straight-through
+    backward of an inf cotangent gives non-finite dx and dW, which the
+    fp16 engine's overflow vote reads."""
+    qm = _qm()
+    gen = _gen(dev, 34)
+    x = (300.0 * torch.randn((64, 1024), generator=gen, device=dev)).to(F16)
+    w = (3.0 * torch.randn((1024, 256), generator=gen, device=dev)).to(F16)
+    y = qm.quantized_dense(x, w, block=128)
+    assert y.dtype == F16 and bool(torch.isinf(y).any())
+    xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    y = qm.quantized_dense(xr / 300.0, wr, block=128)
+    dy = torch.zeros_like(y)
+    dy[3, 4] = float("inf")
+    dx, dw = torch.autograd.grad(y, (xr, wr), dy)
+    assert not bool(torch.isfinite(dx).all())
+    assert not bool(torch.isfinite(dw).all())
+
+
+@pytest.mark.parametrize("t", [256, 320])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp16_merge_kernel_matches_twin(dev, d, causal, t):
+    """K5 in fp16 (and bf16 on the same values, side by side) against
+    the twin: out (fp32), merged lse and lse_n; T 320 ends in a ragged
+    128-row q tile; a second launch bit for bit; an inf in v reaches
+    exactly the rows the twin's reaches; then the backward through
+    autograd (K2-fused's given-delta entry at T <= 1024) against the
+    same function on CPU copies, with one K5 launch a call and one
+    K2-fused launch a backward."""
+    q, k, v, prev, prev_lse = _merge_inputs(dev, F16, d, causal, seed=d + t,
+                                            t=t)
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (F16, F16_TOL)):
+        qx, kx, vx = (x.to(dtype) for x in (q, k, v))
+        before = tfa.flash_attention_merge.launches
+        got = tfa._flash_merge_launch(qx, kx, vx, prev, prev_lse[..., 0],
+                                      d ** -0.5, causal)
+        ref = tfa._flash_merge_plain(qx, kx, vx, prev, prev_lse[..., 0],
+                                     d ** -0.5, causal)
+        torch.testing.assert_close(got[0], ref[0], **tol)
+        torch.testing.assert_close(got[1], ref[1], **F32_TOL)
+        torch.testing.assert_close(got[2], ref[2], **F32_TOL)
+        again = tfa._flash_merge_launch(qx, kx, vx, prev, prev_lse[..., 0],
+                                        d ** -0.5, causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        torch.cuda.synchronize()
+        assert tfa.flash_attention_merge.launches == before + 2
+    v_inf = v.clone()
+    v_inf[1, 9, 2, 5] = float("inf")
+    assert _nonfinite_equal(
+        tfa._flash_merge_launch(q, k, v_inf, prev, prev_lse[..., 0],
+                                d ** -0.5, causal)[0],
+        tfa._flash_merge_plain(q, k, v_inf, prev, prev_lse[..., 0],
+                               d ** -0.5, causal)[0])
+
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (q, k, v, prev, prev_lse)]
+    cpu = [x.detach().cpu().requires_grad_(True) for x in leaves]
+    gen = _gen(dev, 97)
+    g_out = torch.randn(q.shape, generator=gen, device=dev)
+    g_lse = torch.randn(prev_lse.shape, generator=gen, device=dev)
+    before = (tfa.flash_attention_merge.launches,
+              tfa._flash_bwd_fused_launch.launches)
+    o, l = tfa.flash_attention_merge(*leaves, causal=causal)
+    got = torch.autograd.grad((o, l), leaves, (g_out, g_lse))
+    o_c, l_c = tfa.flash_attention_merge(*cpu, causal=causal)
+    want = torch.autograd.grad((o_c, l_c), cpu, (g_out.cpu(), g_lse.cpu()))
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_merge.launches,
+            tfa._flash_bwd_fused_launch.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    for name, x, y in zip(("dq", "dk", "dv", "dprev", "dprev_lse"), got,
+                          want):
+        assert x.dtype == y.dtype, name
+        assert torch.isfinite(x).all(), name
+        assert _rel_l2(x, y.to(dev)) <= F16_GRAD_TOL, name
+
+
+@pytest.mark.parametrize("t", [1024, 2048])
+def test_fp16_given_delta_backward_repeats_and_carries_inf(dev, t):
+    """K2's given-delta entry in fp16 on both routes (K2-fused at T 1024,
+    the sweeps at T 2048) beside bf16 on the same values: against the
+    twin, a second launch bit for bit, and an inf in dO reaching what the
+    twin's reaches."""
+    q, k, v, _, lse, dout, dlse = _fused_inputs(dev, 1, t, 2, 64, F16, True,
+                                                seed=35)
+    delta = torch.randn((1, 2, t), generator=_gen(dev, 36), device=dev)
+    counter = _k2_counter(q)
+    before = counter.launches
+    for dtype in (torch.bfloat16, F16):
+        qx, kx, vx, dx = (x.to(dtype) for x in (q, k, v, dout))
+        got = tfa.flash_attention_backward(qx, kx, vx, None, lse, dx, dlse,
+                                           0.125, True, delta=delta)
+        ref = tfa._flash_bwd_twin(qx, kx, vx, None, lse, dx, dlse, 0.125,
+                                  True, delta=delta)
+        for name, a, b in zip("qkv", got, ref):
+            assert a.dtype == dtype
+            assert _rel_l2(a, b) <= GRAD_TOL.get(dtype, F16_GRAD_TOL), name
+        again = tfa.flash_attention_backward(qx, kx, vx, None, lse, dx,
+                                             dlse, 0.125, True, delta=delta)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    d_inf = dout.clone()
+    d_inf[0, 100, 1, 3] = float("inf")
+    got = tfa.flash_attention_backward(q, k, v, None, lse, d_inf, dlse, 0.125,
+                                       True, delta=delta)
+    ref = tfa._flash_bwd_twin(q, k, v, None, lse, d_inf, dlse, 0.125, True,
+                              delta=delta)
+    for a, b in zip(got, ref):
+        assert _nonfinite_covered(a, b)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 5
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository root: the launch formulas and
+    counters its fp16 paths hold the card to."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["moe", "moe_quantized"])
+def test_fp16_moe_engine_step_launches_exactly(dev, quantized):
+    """A 4-layer MoE GPT-2 (two MoE layers, 8 experts, top-2, capacity
+    1.25) at gpt2-350m's width in fp16 with fp32 masters, through
+    initialize -> train_batch (with the quantized_compute block and
+    quantized experts when `quantized`): finite losses, and per step
+    exactly chip_smoke's `moe_fp16_launches` of every fp16 kernel form
+    (paths D and E's formula, at 4 layers)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.moe import MoEConfig
+    moe = MoEConfig(num_experts=8, top_k=2, capacity_factor=1.25,
+                    every_n_layers=2,
+                    quantized_experts="on" if quantized else "off")
+    cfg = tgpt2.gpt2_config("gpt2-350m", n_layer=4, vocab_size=1024,
+                            n_positions=512, dropout=0.0, dtype=F16,
+                            remat=True, remat_policy=None,
+                            moe=moe.validate())
+    model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+    config = {"train_micro_batch_size_per_gpu": 4,
+              "fp16": {"enabled": True, "initial_scale_power": 16},
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+              "moe": {"enabled": True, "num_experts": 8,
+                      "every_n_layers": 2}}
+    if quantized:
+        config["quantized_compute"] = {"enabled": True, "mode": "on"}
+    engine = dst.initialize(model=model, model_parameters=model.init(0),
+                            config=config)[0]
+    ids = torch.randint(0, 1024, (1, 4, 512), generator=_gen(dev, 37),
+                        device=dev)
+    staged = engine.stage_batch({"input_ids": ids})
+    cs = _chip_smoke()
+    engine.train_batch(batch=staged)
+    torch.cuda.synchronize()
+    before = cs.read_counts()
+    losses = [engine.train_batch(batch=staged) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = cs.read_counts()
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    want = cs.moe_fp16_launches(cfg.n_layer, quantized)
+    got = {k: (after[k] - before[k]) / 2 for k in want}
+    assert got == {k: float(v) for k, v in want.items()}
+
+
+def test_fp16_ring_engine_step_launches_exactly(dev, tmp_path):
+    """A 2-layer GPT-2 at gpt2-1.5b's width in fp16 with sequence_parallel
+    "ring" over a one-rank NCCL group: each step launches K5 twice a
+    layer (forward and recompute; no K1) and K2-fused's given-delta
+    entry once a layer, with finite losses."""
+    import deepspeed_tpu_torch as dst
+    cfg = tgpt2.gpt2_config("gpt2-1.5b", n_layer=2, vocab_size=1024,
+                            n_positions=1024, dropout=0.0, dtype=F16,
+                            remat=True, remat_policy=None,
+                            sequence_parallel="ring")
+    torch.cuda.set_device(0)
+    dst.init_distributed("nccl", init_method="file://" + str(
+        tmp_path / "rendezvous"), rank=0, world_size=1, verbose=False)
+    try:
+        model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+        engine = dst.initialize(
+            model=model, model_parameters=model.init(0),
+            config={"train_micro_batch_size_per_gpu": 2,
+                    "fp16": {"enabled": True, "initial_scale_power": 16},
+                    "optimizer": {"type": "AdamW",
+                                  "params": {"lr": 1e-4}}})[0]
+        ids = torch.randint(0, 1024, (1, 2, 1024), generator=_gen(dev, 38),
+                            device=dev)
+        staged = engine.stage_batch({"input_ids": ids})
+        cs = _chip_smoke()
+        engine.train_batch(batch=staged)
+        torch.cuda.synchronize()
+        before = cs.read_counts()
+        loss = engine.train_batch(batch=staged)
+        torch.cuda.synchronize()
+        after = cs.read_counts()
+    finally:
+        torch.distributed.destroy_process_group()
+    assert bool(torch.isfinite(loss))
+    got = {k: after[k] - before[k] for k in
+           ("flash_attention_merge", "flash_attention_fwd",
+            "flash_attention_bwd_fused", "flash_attention_bwd")}
+    assert got == {"flash_attention_merge": 4, "flash_attention_fwd": 0,
+                   "flash_attention_bwd_fused": 2, "flash_attention_bwd": 0}

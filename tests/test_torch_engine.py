@@ -259,11 +259,9 @@ def test_constants_equal_jax(mine, ref):
         assert getattr(mine, name) == getattr(ref, name), name
 
 
-# fp16, 1-bit Adam, progressive layer drop and LAMB are ported (their
-# cases now hold what still raises beside them, or in their item)
+# fp16 (with MoE and quantized compute too), 1-bit Adam, progressive
+# layer drop and LAMB are ported
 @pytest.mark.parametrize("extra,match", [
-    ({"fp16": {"enabled": True},
-      "quantized_compute": {"enabled": True, "mode": "on"}}, "fp16"),
     ({"zero_optimization": {"stage": 3}}, "stage 3"),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "Offload"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
@@ -281,10 +279,6 @@ def test_later_slices_raise(jax_model_and_tree, extra, match):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"fp16": {"enabled": True},
-      "quantized_compute": {"enabled": True, "mode": "on"}}, 10),
-    ({"fp16": {"enabled": True},
-      "moe": {"enabled": True, "num_experts": 2}}, 10),
     ({"activation_checkpointing": {"cpu_checkpointing": True}}, 4),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, 5),
     ({"zero_optimization": {"stage": 3}}, 6),

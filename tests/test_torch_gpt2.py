@@ -141,11 +141,15 @@ def test_out_of_slice_options_raise():
     ids = np.zeros((1, 8), np.int64)
     with pytest.raises(NotImplementedError):
         model.apply(model.params(), ids, deterministic=False)
-    # training is ported (slice 2); its later-slice options still raise
-    # (fp16 with MoE, quantized compute or sequence parallelism)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # fp16 with quantized compute, MoE or sequence parallelism is ported
+    # (their fp16 kernel forms): each builds
+    from deepspeed_tpu_torch.moe import MoEConfig
+    for extra in ({"quantized_compute": "on"},
+                  {"moe": MoEConfig(num_experts=2, every_n_layers=2)},
+                  {"sequence_parallel": "ring"},
+                  {"sequence_parallel": "ulysses"}):
         tgpt2.GPT2ForCausalLM(dataclasses.replace(
-            cfg, dtype=torch.float16, quantized_compute="on"), device="cpu")
+            cfg, dtype=torch.float16, **extra), device="cpu")
 
 
 def test_default_device_raises_without_cuda():

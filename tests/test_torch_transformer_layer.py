@@ -12,9 +12,10 @@ the input under a random output cotangent are held to JAX's too. Then
 the memory flags (the same values and gradients as without them, and
 JAX's), the quantized projections resolved off with stochastic rounding
 (the JAX package's sr_fallback), dropout by seeded reproducibility and
-rate statistics (the streams are torch's, not JAX's), and what fp16
-still refuses (quantized compute, ROADMAP Queue 1 item 10; fp16 itself
-is held in `test_torch_fp16_kernels.py`).
+rate statistics (the streams are torch's, not JAX's), and fp16 with the
+quantized projections building and running (fp16 itself is held in
+`test_torch_fp16_kernels.py`, quantized compute in fp16 in
+`test_torch_fp16_quant.py`).
 
 The widths are small (H 128, 2 heads of 64: flash attention takes head
 dims that are multiples of 64).
@@ -342,14 +343,18 @@ def test_attention_routes():
 
 
 def test_fp16_raises_naming_item_4():
-    """fp16 builds the layer in fp16 (item 4 is ported); fp16 with the
-    quantized projections raises, naming the item that owns K6's fp16
-    form."""
+    """fp16 builds the layer in fp16 (item 4 is ported), and with the
+    quantized projections too (K6's fp16 output is ported): its
+    projections are QuantizedDense and a forward gives finite fp16
+    values."""
     layer = TLayer(TConfig(**_cfg(fp16=True)), device="cpu")
     assert layer.config.compute_dtype == torch.float16
-    with pytest.raises(NotImplementedError, match="item 10$"):
-        TLayer(TConfig(**_cfg(fp16=True, quantized_compute="on")),
-               device="cpu")
+    layer = TLayer(TConfig(**_cfg(fp16=True, quantized_compute="on")),
+                   device="cpu")
+    layer.init_params(0)
+    assert isinstance(layer.core.attn_qkvw, ttr.QuantizedDense)
+    out = layer(torch.randn(1, 128, H).half(), None, True)
+    assert out.dtype == torch.float16 and bool(torch.isfinite(out).all())
 
 
 def test_the_layer_defaults_to_cuda():

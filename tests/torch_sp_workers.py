@@ -127,3 +127,75 @@ def worker(rank, p, out_dir, param_file):
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+# ----------------------------------------------------------------------
+# fp16 (tests/test_torch_fp16_ring.py): the same harness on fp16 inputs
+# ----------------------------------------------------------------------
+# (name, local chunk length, heads, head dim, causal, use_flash): the
+# ring's flash body (K5's and K2's given-delta twins) causal and not, and
+# Ulysses on the flash twins (K1, K2-fused); global T = P * local chunk
+FP16_CASES = (("ring_flash_causal_fp16", 128, 2, 64, True, True),
+              ("ring_flash_full_fp16", 128, 2, 64, False, True),
+              ("ulysses_flash_causal_fp16", 64, 4, 64, True, True))
+
+
+def _attention_case_fp16(fn, name, t_local, h, d, causal, rank, p, out,
+                         **kw):
+    """The rank's chunk of out and of the grads of sum(out.float() ** 2),
+    on the fp16 casts of the case's global inputs."""
+    q, k, v = global_qkv(t_local * p, h, d, case_seed(name))
+    chunk = slice(rank * t_local, (rank + 1) * t_local)
+    leaves = [torch.from_numpy(x[:, chunk].copy()).half().requires_grad_(True)
+              for x in (q, k, v)]
+    o = fn(*leaves, causal=causal, **kw)
+    (o.float() ** 2).sum().backward()
+    out[f"{name}/out"] = o.detach().float().numpy()
+    for n, x in zip("qkv", leaves):
+        out[f"{name}/d{n}"] = x.grad.float().numpy()
+
+
+def run_fp16_cases(rank, p, out_dir, param_file):
+    from deepspeed_tpu_torch.models import gpt2 as tgpt2
+    from deepspeed_tpu_torch.ops import sequence as sp
+    from deepspeed_tpu_torch.utils.distributed import init_distributed
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    init_distributed("gloo", init_method="file://" + os.path.join(
+        out_dir, "rendezvous"), rank=rank, world_size=p, verbose=False,
+        timeout=120)
+    out = {}
+    for name, tl, h, d, causal, flash in FP16_CASES:
+        fn = sp.ulysses_attention if name.startswith("ulysses") else \
+            sp.ring_attention
+        _attention_case_fp16(fn, name, tl, h, d, causal, rank, p, out,
+                             use_flash=flash)
+    # GPT-2 in fp16 under sequence parallelism (fp16 parameters, as the
+    # engine holds them): the ring's fallback body, Ulysses' dense one
+    flat = np.load(param_file)
+    for impl in ("ring", "ulysses"):
+        cfg = tgpt2.tiny_gpt2_config(n_layer=2, n_head=8, dropout=0.0,
+                                     dtype=torch.float16,
+                                     sequence_parallel=impl)
+        model = tgpt2.GPT2ForCausalLM(cfg, device="cpu")
+        params = {n: torch.from_numpy(flat[n]).half().requires_grad_(True)
+                  for n in flat.files}
+        loss = model.loss_fn(params, {"input_ids": gpt2_ids()})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[f"gpt2_{impl}/loss"] = loss.detach().float().numpy()
+        for n, g in zip(params, grads):
+            out[f"gpt2_{impl}/grad/{n}"] = g.float().numpy()
+    dist.barrier()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def worker_fp16(rank, p, out_dir, param_file):
+    """The spawned process of the fp16 cases (as `worker`)."""
+    try:
+        run_fp16_cases(rank, p, out_dir, param_file)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
