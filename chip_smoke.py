@@ -933,15 +933,19 @@ def kernel_flash_bwd_fused(peaks, gen):
     T <= 1024) against its twin `_flash_bwd_fused_plain` on the forward
     kernel's own (out, lse): at the training flagship's shape (B11 T1024
     H25 D64 bf16 causal, q/k/v column slices of one qkv tensor: clusters
-    of 8 CTAs) and the MoE training shape (B16 T1024 H16 D64), timed;
+    of 4 CTAs) and the MoE training shape (B16 T1024 H16 D64), timed;
     then at head dim 128, at a ragged last key block (T 192, 320), at a
     one-CTA cluster (T 64) and in fp16, causal and not, with an lse
     cotangent. Each case launched twice and compared bit for bit. Timed
     back to back (`ms`) and from CUDA graphs (`graph_ms`), beside the
     bound, the twin, K2's sweeps on the same inputs (`sweeps_ms`,
     `sweeps_graph_ms`) and SDPA's backward (`library_ms`,
-    `library_graph_ms`)."""
+    `library_graph_ms`); with the plan's CTAs a cluster, the clusters the
+    card runs at once (the occupancy API) and the waves that makes."""
+    import ctypes
+
     import torch
+    from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
     bf16, f16 = torch.bfloat16, torch.float16
     checks, out = [], {}
@@ -1005,6 +1009,10 @@ def kernel_flash_bwd_fused(peaks, gen):
         if timed is not None:
             flops, bound_ms, bound_by = fused_bwd_bound(peaks, b, t, h, d,
                                                         causal)
+            ctas = fa._FusedPlan.of(-(-t // 128), causal, d).ctas
+            at_once = _build.function(
+                "flash_attention_bwd_fused", "ds_flash_attn_bwd_fused_clusters",
+                [ctypes.c_int] * 4)(ctas, d, 1 if dtype == bf16 else 2, 0)
             lib_ms, lib_graph_ms = sdpa_ms(q, k, v, dout, causal)[2:]
             out[timed] = rates(dict(
                 max_abs_err=max(errs), ms=time_ms(run), graph_ms=graph_ms(run),
@@ -1015,7 +1023,9 @@ def kernel_flash_bwd_fused(peaks, gen):
                 sweeps_ms=time_ms(sweeps), sweeps_graph_ms=graph_ms(sweeps),
                 library_ms=lib_ms, library_graph_ms=lib_graph_ms,
                 library_call="F.scaled_dot_product_attention fwd+bwd less "
-                             "fwd", shape=label), flops)
+                             "fwd", shape=label, cluster_ctas=ctas,
+                clusters_at_once=at_once,
+                waves=b * h / at_once if at_once > 0 else None), flops)
         del qkv, q, k, v, o, lse, dout, got
         release()
     return out, checks

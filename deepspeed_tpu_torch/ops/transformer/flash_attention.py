@@ -8,9 +8,9 @@ K5 in their merge mode: `flash_attention_merge`, the ring-attention
 step). The one-pass backward `_bwd_fused_kernel` / `_bwd_fused_kernel_packed`,
 which the JAX package runs whenever the whole sequence is one tile of
 its 1024-row default block (every T <= 1024), becomes
-`ops/csrc/flash_attention_bwd_fused.cu` (K2-fused: a cluster of
+`ops/csrc/flash_attention_bwd_fused.cu` (K2-fused: a cluster of up to
 ceil(T / 128) CTAs per head, S, P, dP and dS formed once per tile pair,
-delta computed in the launch). The two-sweep backward `_bwd_dkv_kernel` /
+delta computed in the launch, dQ's partials added in the plan's order). The two-sweep backward `_bwd_dkv_kernel` /
 `_bwd_dq_kernel` and their packed twins become
 `ops/csrc/flash_attention_bwd.cu` (K2: a delta pre-pass, then the dK/dV
 and dQ sweeps, with a given-delta entry for K5's backward). The backward
@@ -305,20 +305,19 @@ def _fused_route(q):
 
 def _fused_plan(nk, causal, d):
     """K2-fused's plan for nk 128-row key blocks: (rows, owner), rows[c]
-    the (key block, q block) pairs CTA c of a head's cluster takes, one a
-    round (None: an idle round), owner[j] the (CTA, slot) of q block j's
-    dQ slab. Every round gives every slab at most one partial, so each
-    dQ row is summed in the plan's order.
+    the (key block, q block) pairs CTA c of a head's cluster takes, in
+    order (None pads the shorter rows), owner[j] the (CTA, slot) that
+    computes q block j's delta rows. A q block's partials sit at distinct
+    pair indices, and `_fused_order` adds them in that order.
 
-    Causal at head dim 64 (two fp32 slabs fit a CTA's shared memory):
-    CTA c pairs key blocks c and nk - 1 - c, nk + 1 rounds for
-    ceil(nk / 2) CTAs and no idle slot (an odd nk's middle key block
-    alone in its CTA); key block c takes q blocks c up to nk/2 - 1, then
-    nk - 1 down to nk/2 (or c), key block nk - 1 - c q blocks nk - 1
-    down to nk - 1 - c. Otherwise the rotation: CTA i holds key block i
-    and takes q block (i + r) mod nk in round r (causal: while
-    i + r < nk, so key block 0 works nk rounds and key block nk - 1
-    one).
+    Causal at head dim 64 (two K/V blocks fit a CTA's shared memory):
+    CTA c pairs key blocks c and nk - 1 - c, nk + 1 pairs for each of
+    ceil(nk / 2) CTAs (an odd nk's middle key block alone in its CTA);
+    key block c takes q blocks c up to nk/2 - 1, then nk - 1 down to
+    nk/2 (or c), key block nk - 1 - c q blocks nk - 1 down to nk - 1 - c.
+    Otherwise the rotation: CTA i holds key block i and takes q block
+    (i + r) mod nk as its r-th pair (causal: while i + r < nk, so key
+    block 0 takes nk pairs and key block nk - 1 one).
     """
     if causal and d == 64:
         half = nk // 2
@@ -340,12 +339,39 @@ def _fused_plan(nk, causal, d):
     return [row + [None] * (rounds - len(row)) for row in rows], owner
 
 
+def _fused_order(rows):
+    """{q block j: [(CTA c, pair index p), ...]}: the order in which the
+    kernel adds q block j's dQ partials, by pair index (each of j's
+    partials at another index). Each partial's warpgroup waits for the
+    one before it and passes on to the one after it."""
+    order = {}
+    for c, row in enumerate(rows):
+        for p, pair in enumerate(row):
+            if pair is not None:
+                order.setdefault(pair[1], []).append((p, c))
+    for j, parts in order.items():
+        if len({p for p, _ in parts}) != len(parts):
+            raise ValueError(f"K2-fused plan: q block {j} has two partials "
+                             "at one pair index")
+        order[j] = [(c, p) for p, c in sorted(parts)]
+    return order
+
+
 class _FusedPlan(ctypes.Structure):
-    """`_fused_plan` as the kernel's FusedPlan (flash_attention_bwd_fused.cu:
-    up to 8 CTAs, 9 rounds; -1 for an idle round or an empty slot)."""
-    _fields_ = [("ctas", ctypes.c_int), ("rounds", ctypes.c_int),
+    """`_fused_plan` and `_fused_order` as the kernel's FusedPlan
+    (flash_attention_bwd_fused.cu: up to 8 CTAs of up to 9 pairs; -1
+    where there is none). For CTA c's p-th pair: its key and q blocks,
+    whether it is its q block's first partial, and the (CTA, pair) of the
+    next one (-1: the last); the CTA's key blocks in order; the owners of
+    the q blocks' delta rows."""
+    _fields_ = [("ctas", ctypes.c_int), ("pairs", ctypes.c_int),
+                ("n", ctypes.c_byte * 8),
                 ("kb", (ctypes.c_byte * 9) * 8),
                 ("qb", (ctypes.c_byte * 9) * 8),
+                ("first", (ctypes.c_byte * 9) * 8),
+                ("next_cta", (ctypes.c_byte * 9) * 8),
+                ("next_pair", (ctypes.c_byte * 9) * 8),
+                ("kv", (ctypes.c_byte * 2) * 8),
                 ("own", (ctypes.c_byte * 2) * 8),
                 ("owner", ctypes.c_byte * 8), ("slot", ctypes.c_byte * 8)]
 
@@ -355,11 +381,21 @@ class _FusedPlan(ctypes.Structure):
         """The plan of (nk, causal, d), built once (the kernel takes it
         by value, so one struct serves every launch)."""
         rows, owner = _fused_plan(nk, causal, d)
-        plan = cls(ctas=len(rows), rounds=len(rows[0]))
+        plan = cls(ctas=len(rows), pairs=len(rows[0]))
         for c, row in enumerate(rows):
+            pairs = [pair for pair in row if pair is not None]
+            plan.n[c] = len(pairs)
+            kvs = list(dict.fromkeys(kb for kb, _ in pairs))
+            plan.kv[c][0], plan.kv[c][1] = (kvs + [-1])[:2]
             plan.own[c][0] = plan.own[c][1] = -1
-            for r, pair in enumerate(row):
-                plan.kb[c][r], plan.qb[c][r] = pair or (-1, -1)
+            for p, (kb, j) in enumerate(pairs):
+                plan.kb[c][p], plan.qb[c][p] = kb, j
+                plan.next_cta[c][p] = plan.next_pair[c][p] = -1
+        for parts in _fused_order(rows).values():
+            for i, (c, p) in enumerate(parts):
+                plan.first[c][p] = int(i == 0)
+                if i + 1 < len(parts):
+                    plan.next_cta[c][p], plan.next_pair[c][p] = parts[i + 1]
         for j, (c, sl) in owner.items():
             plan.own[c][sl] = j
             plan.owner[j], plan.slot[j] = c, sl
@@ -369,16 +405,17 @@ class _FusedPlan(ctypes.Structure):
 def _flash_bwd_fused_plain(q, k, v, out, lse, g, dlse, sm_scale, causal,
                            delta=None):
     """(dq, dk, dv) [B,T,H,D] by K2-fused's algorithm, in its order: the
-    128-row key blocks (the last one cut at T) pair with q blocks round
-    by round as `_fused_plan` lays them out, each q block walked in
-    64-row q steps. Per step and 64-key half that sees the step (causal
+    128-row key blocks (the last one cut at T) pair with q blocks as
+    `_fused_plan` lays them out, taken by pair index, each q block walked
+    in 64-row q steps. Per step and 64-key half that sees the step (causal
     halves wholly above the diagonal are skipped, as the kernel's
     warpgroups skip them): P = exp2(S - lse), dP = dO V^T,
     dS = P (dP - delta) sm_scale; dV += P^T dO with P in dO's dtype and
     dK += dS^T Q with dS in q's dtype, fp32 sums over the walk. After
     both steps dQ of the q block gains dS K over the 128 keys (one
-    product, the skipped halves' dS zero), added to its zeroed fp32 slab
-    in round order. delta as in `_flash_bwd_plain`."""
+    product, the skipped halves' dS zero), summed in fp32 in the plan's
+    order (`_fused_order`: by pair index). delta as in
+    `_flash_bwd_plain`."""
     b, t, h, d = q.shape
     f32 = torch.float32
     rows, step = _SM90_TILES[0], KERNEL_BLOCK
@@ -515,11 +552,12 @@ def _check_kernel_operand(name, x, like):
                          "kernel's loads")
 
 
-def _check_kernel_shape(q):
+def _check_kernel_shape(q, any_t=False):
     """What every body takes: fp32, bf16 or fp16, a kernel head dim
-    (fp16: 64 or 128), T a multiple of 64; and B*H at most 65535 where
-    the WMMA bodies run (their grid carries B*H on y; the Hopper bodies
-    fold it into x)."""
+    (fp16: 64 or 128), T a multiple of 64 (any T where `any_t`: K2-fused
+    masks its last q step and key block itself); and B*H at most 65535
+    where the WMMA bodies run (their grid carries B*H on y; the Hopper
+    bodies fold it into x)."""
     b, t, h, d = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernel: dtype {q.dtype} not supported "
@@ -531,7 +569,7 @@ def _check_kernel_shape(q):
         raise ValueError(f"flash kernel: head_dim {d} not in "
                          f"{_KERNEL_HEAD_DIMS} (the CUDA kernels' head "
                          "dims; the CPU twins take any)")
-    if t % KERNEL_BLOCK:
+    if t % KERNEL_BLOCK and not any_t:
         raise ValueError(f"flash kernel: T={t} is no multiple of "
                          f"{KERNEL_BLOCK}")
     if b * h > _MAX_GRID_Y and not _on_sm90(q.dtype, d):
@@ -603,7 +641,7 @@ def _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale, causal):
     return out, lse, lse_n
 
 
-def _check_bwd_args(q, k, v, out, lse, g, dlse, delta):
+def _check_bwd_args(q, k, v, out, lse, g, dlse, delta, any_t=False):
     """What both backward kernels take: `_check_kernel_shape`'s, out (when
     no delta is given) and dout like q, lse, dlse and delta contiguous
     fp32 [B, H, T]."""
@@ -613,7 +651,7 @@ def _check_bwd_args(q, k, v, out, lse, g, dlse, delta):
         operands.append(("out", out))
     for name, x in operands:
         _check_kernel_operand(name, x, q)
-    _check_kernel_shape(q)
+    _check_kernel_shape(q, any_t)
     for name, x in (("lse", lse), ("dlse", dlse), ("delta", delta)):
         _check_lse(name, x, b, h, t)
 
@@ -621,10 +659,11 @@ def _check_bwd_args(q, k, v, out, lse, g, dlse, delta):
 def _flash_bwd_fused_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
                             delta=None):
     """K2-fused on the card: one launch, delta computed inside (or the
-    given one read), no workspace."""
+    given one read), at any T <= 1024; dQ's partials summed in an fp32
+    [B*H, T, D] workspace where there is more than one key block."""
     from deepspeed_tpu_torch.ops import _build
     b, t, h, d = q.shape
-    _check_bwd_args(q, k, v, out, lse, g, dlse, delta)
+    _check_bwd_args(q, k, v, out, lse, g, dlse, delta, any_t=True)
     if not _fused_route(q):
         raise ValueError(f"K2-fused: ({q.dtype}, T={t}, head dim {d}) is "
                          "not on its route (bf16 or fp16, head dim 64 or "
@@ -634,15 +673,19 @@ def _flash_bwd_fused_launch(q, k, v, out, lse, g, dlse, sm_scale, causal,
     ptr = (lambda x: None if x is None else x.data_ptr())
     fn = _build.function("flash_attention_bwd_fused",
                          "ds_flash_attn_bwd_fused",
-                         _BWD_ARGTYPES + [ctypes.c_void_p, ctypes.c_int])
-    plan = _FusedPlan.of(-(-t // _SM90_TILES[0]), bool(causal), d)
+                         _BWD_ARGTYPES + [ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_void_p])
+    nk = -(-t // _SM90_TILES[0])
+    plan = _FusedPlan.of(nk, bool(causal), d)
+    ws = torch.empty((b * h, t, d), dtype=torch.float32,
+                     device=q.device) if nk > 1 else None
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(out),
              g.data_ptr(), lse.data_ptr(), ptr(dlse), ptr(delta),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d,
              _strides(q, k, v, g if out is None else out, g),
              float(sm_scale * LOG2E), float(sm_scale), int(bool(causal)),
              _DTYPE_CODE[q.dtype], q.device.index or 0, _build.stream_ptr(q),
-             ctypes.byref(plan), ctypes.sizeof(plan))
+             ctypes.byref(plan), ctypes.sizeof(plan), ptr(ws))
     _build.check(err, "flash_attention fused backward kernel")
     _flash_bwd_fused_launch.launches += 1
     return dq, dk, dv

@@ -41,7 +41,8 @@ switched off and under other plans, beside torch's LayerNorm forward,
 `sparse_fwd` K7-fwd on the Hopper
 body under BigBird at head dims 64 and 128 beside the WMMA table
 forward, `fused_bwd` K2-fused at the flagship's shape (causal and not),
-BERT's and a head dim of 128 by CUDA graph, beside K2's sweeps. A
+the MoE cell's, BERT's and a head dim of 128 by CUDA graph, beside K2's
+sweeps. A
 variant with a part switched off computes garbage: it is timed, never
 checked (`chip_smoke.py` and tests/test_torch_cuda.py check the kernels).
 A substitution that no longer applies to the sources fails the run.
@@ -91,22 +92,48 @@ DKV_NO_GRADS = (H, "      gemm_pb<D, kStep, kStep>(acc_dv, pa, do_s, 0);\n"
                 "q_s, 0);\n")
 
 
-# K2-fused (flash_attention_bwd_fused.cu): the cluster barrier between
-# rounds (a CTA barrier in its place, one cluster barrier after the last
-# round, so that no CTA leaves while another may write its slab), the
-# dQ partials' adds into the owners' slabs (into the CTA's own instead),
-# the dQ phase, and the dS tile's stores
+# K2-fused (flash_attention_bwd_fused.cu): the ordered adds (no baton
+# waited for or passed: the partials land in any order), the dQ exchange
+# made local (every partial stored into the workspace: no add at L2, no
+# read-back; unordered too, since no partial waits), the dQ phase (its
+# product and exchange; the dS^T hand-off barrier kept), the steps alone
+# (no dQ phase, no dS^T stores, no hand-off barrier), and without the
+# prologue's own delta rows too; and the layout's parts one at a time:
+# the ring's depth at head dim 64, the second key block's K/V loaded at
+# the switch rather than at the start, and a fence of each adder's own
+# before the baton's barrier
 FB = "flash_attention_bwd_fused.cu"
-FUSED_NO_CLUSTER_SYNC = (FB, "    cluster_sync();\n  }\n",
-                         "    __syncthreads();\n  }\n  cluster_sync();\n")
-FUSED_DQ_LOCAL = (FB, "        const int to = plan.owner[j];",
-                  "        const int to = c;")
-FUSED_NO_DQ = (FB, "      if (j * kRows + wg * kStep < seq) {",
-               "      if (seq < 0) {")
-FUSED_NO_DS_STORES = (FB, "              *reinterpret_cast<uint32_t*>(ds_s + "
-                      "sw128(kr, qc)) = da[kk][x];",
-                      "              if (seq < 0) *reinterpret_cast<uint32_t*>"
-                      "(ds_s + sw128(kr, qc)) = da[kk][x];")
+FUSED_UNORDERED = (FB, "  static constexpr bool kOrdered = true;",
+                   "  static constexpr bool kOrdered = false;")
+FUSED_DQ_LOCAL = (FB, "    const bool first = plan.first[c][p], last = "
+                  "plan.next_cta[c][p] < 0;",
+                  "    const bool first = true, last = plan.first[c][p] && "
+                  "plan.next_cta[c][p] < 0;")
+FUSED_NO_DQ = (FB, "    return pair_qb(p) * kRows + wg * kStep < seq;",
+               "    return seq < 0;")
+FUSED_NO_HANDOFF = (FB, "    if (cb == 0) named_sync(1, kThreads);\n",
+                    "    if (seq < 0) named_sync(1, kThreads);\n")
+FUSED_NO_DS_STORES = (FB, "          for (int x = 0; x < 4; ++x)\n"
+                      "            *reinterpret_cast<uint32_t*>(",
+                      "          for (int x = 0; x < 4; ++x)\n"
+                      "            if (seq < 0) *reinterpret_cast<uint32_t*>(")
+FUSED_NO_OWN_DELTA = (FB, "        const bool rows = live && delta_in == nullptr;",
+                      "        const bool rows = false;")
+FUSED_KV_AT_SWITCH = (FB, "  static constexpr bool kPrefetchKV = true;",
+                      "  static constexpr bool kPrefetchKV = false;")
+
+
+def fused_stages(n):
+    """K2-fused's ring of n stages at head dim 64."""
+    return (FB, "  static constexpr int kS = D == 64 ? 3 : 2;",
+            f"  static constexpr int kS = D == 64 ? {n} : 2;")
+
+
+FUSED_ADDER_FENCE = (FB, "    named_sync(2 + wg, 128);\n    if (tid % 128 "
+                     "== 0)\n      baton_pass(",
+                     "    asm volatile(\"fence.acq_rel.gpu;\\n\" ::: \"memory\");"
+                     "\n    named_sync(2 + wg, 128);\n    if (tid % 128 == 0)\n"
+                     "      baton_pass(")
 
 # K7-dkv and K7-dq on the Hopper sweeps (block_sparse_attention.cu over
 # attention_hopper.cuh): the dQ sweep's counterparts of the dK/dV parts
@@ -466,12 +493,16 @@ SETS = {
     }),
     "fused_bwd": ("flash_attention_bwd_fused", {
         "kernel": [],
-        "no_cluster_sync": [FUSED_NO_CLUSTER_SYNC],
-        "dq_adds_local": [FUSED_DQ_LOCAL],
+        "ordered_adds_off": [FUSED_UNORDERED],
+        "dq_exchange_local": [FUSED_UNORDERED, FUSED_DQ_LOCAL],
         "no_dq_phase": [FUSED_NO_DQ],
-        "no_dq_phase_no_sync": [FUSED_NO_DQ, FUSED_NO_CLUSTER_SYNC],
-        "steps_only": [FUSED_NO_DQ, FUSED_NO_CLUSTER_SYNC,
-                       FUSED_NO_DS_STORES],
+        "steps_only": [FUSED_NO_DQ, FUSED_NO_HANDOFF, FUSED_NO_DS_STORES],
+        "ring_2_stages": [fused_stages(2)],
+        "ring_4_stages": [fused_stages(4)],
+        "steps_only_no_own_delta": [FUSED_NO_DQ, FUSED_NO_HANDOFF,
+                                    FUSED_NO_DS_STORES, FUSED_NO_OWN_DELTA],
+        "kv_loaded_at_switch": [FUSED_KV_AT_SWITCH],
+        "adder_fence": [FUSED_ADDER_FENCE],
     }),
     "order": (None, {
         f"{lib}_{name}": (lib, [budget(v)] if v else [])
@@ -559,9 +590,24 @@ SETS = {
 }
 SHAPES = (((11, 1024, 25, 64), True), ((11, 1024, 25, 64), False),
           ((1, 8192, 4, 64), True), ((4, 1024, 16, 128), True))
-# K2-fused's: the flagship causal and not, BERT-large's, a head dim of 128
+# K2-fused's: the flagship causal and not, the MoE cell's, BERT-large's,
+# a head dim of 128
 FUSED_SHAPES = (((11, 1024, 25, 64), True), ((11, 1024, 25, 64), False),
-                ((16, 128, 16, 64), False), ((4, 1024, 16, 128), True))
+                ((16, 1024, 16, 64), True), ((16, 128, 16, 64), False),
+                ((4, 1024, 16, 128), True))
+# `compare`'s fused_bwd_shapes: (shape, causal, dtype, given delta), the
+# paths' K2-fused forms (the flagship, sp_training's given delta, the MoE
+# cell, BERT-large, fp16 paths A and B) and a head dim of 128
+FUSED_COMPARE_CASES = (
+    ((11, 1024, 25, 64), True, "bfloat16", False),
+    ((11, 1024, 25, 64), False, "bfloat16", False),
+    ((16, 1024, 16, 64), True, "bfloat16", False),
+    ((16, 128, 16, 64), False, "bfloat16", False),
+    ((11, 1024, 25, 64), True, "float16", False),
+    ((16, 128, 16, 64), False, "float16", False),
+    ((11, 1024, 25, 64), True, "bfloat16", True),
+    ((11, 1024, 25, 64), True, "float16", True),
+    ((4, 1024, 16, 128), True, "bfloat16", False))
 # the flagship's projections (M = 11 x 1024; K padded to blocks of 128)
 QMM_SHAPES = (("c_attn", 1664, 4800), ("c_proj", 1664, 1600),
               ("c_fc", 1664, 6400), ("mlp_c_proj", 6400, 1600))
@@ -685,6 +731,14 @@ def main(argv):
         print(json.dumps({"variant": n, "library": lib, "ms": rows}),
               flush=True)
     if fused:
+        # how many clusters of 1-8 CTAs the card runs at once (the
+        # occupancy API on the kernel's own launch configuration)
+        at_once = _build.function("flash_attention_bwd_fused",
+                                  "ds_flash_attn_bwd_fused_clusters",
+                                  [ctypes.c_int] * 4)
+        print(json.dumps({"clusters_at_once": {
+            f"D{d}": {n: at_once(n, d, 1, 0) for n in range(1, 9)}
+            for d in (64, 128)}}), flush=True)
         # K2's sweeps on the same inputs, the route the fused kernel took
         # over (device time from CUDA graphs, as the variants')
         print(json.dumps({"variant": "sweeps", "ms": {
@@ -1086,7 +1140,9 @@ def time_sparse_fwd(variants, procs, cs, gen):
 # LN_FWD_SHAPES on the same inputs (the vectors in the path's dtype),
 # `graph_ms` the median of three, `cold_ms` with the L2 cache flushed
 # before each call; `bert_epilogues`, BERT-large's step with its
-# profile's epilogue kernels one by one
+# profile's epilogue kernels one by one; `fused_bwd_shapes`, K2-fused
+# through each tree's wrapper at FUSED_COMPARE_CASES on the same inputs,
+# the median of three CUDA-graph times
 COMPARE_PHASES = ("ln_fwd_shapes", "kernel_ln", "kernel_bert",
                   "bert_epilogues")
 
@@ -1143,6 +1199,30 @@ def ln_fwd_shapes(gen):
     return res
 
 
+def fused_bwd_shapes(gen):
+    # K2-fused through each tree's wrapper on the same inputs: the median
+    # of three CUDA-graph times
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    res = {{}}
+    for (b, t, h, d), causal, dtype, given in {fused!r}:
+        dt = getattr(torch, dtype)
+        q, k, v, dout = (torch.randn((b, t, h, d), generator=gen,
+                                     device="cuda").to(dt) for _ in range(4))
+        out, lse = fa._flash_fwd_launch(q, k, v, d ** -0.5, causal)
+        delta = torch.randn((b, h, t), generator=gen, device="cuda") \
+            if given else None
+
+        def run():
+            return fa._flash_bwd_fused_launch(
+                q, k, v, None if given else out, lse, dout, None,
+                d ** -0.5, causal, delta)
+        label = f"{{dtype}} {{[b, t, h, d]}} causal={{causal}}" + \
+            (" given delta" if given else "")
+        res[label] = sorted(cs.graph_ms(run) for _ in range(3))[1]
+        del q, k, v, dout, out, lse, delta
+    return res
+
+
 def bert_epilogues():
     # BERT-large's step (chip_smoke.bert_training) with its profile's
     # epilogue group split by kernel
@@ -1172,6 +1252,8 @@ for phase in {phases!r}:
         res = ln_fwd_shapes(gen)
     elif phase == "bert_epilogues":
         res = bert_epilogues()
+    elif phase == "fused_bwd_shapes":
+        res = fused_bwd_shapes(gen)
     else:
         fn = getattr(cs, phase)
         if phase in PATHS:
@@ -1211,7 +1293,7 @@ def checkpoint_io():
 def compare(parent, phases):
     """Time `phases` (chip_smoke.py functions: kernel phases, or the
     paths in PATHS with their own lines; or `ln_bwd_wide`,
-    `ln_fwd_shapes` or `bert_epilogues`) from another
+    `ln_fwd_shapes`, `fused_bwd_shapes` or `bert_epilogues`) from another
     tree (the parent
     commit unpacked under build/, say) and from this one, in turns:
     parent, this, this, parent, each in its own process with its own
@@ -1228,7 +1310,8 @@ def compare(parent, phases):
             root=root, phases=tuple(phases), label=label,
             wide=[(lb, n, h) for lb, n, h, _, _ in LN_BWD_SHAPES
                   if lb.startswith("gpt2")],
-            ln_fwd_cases=LN_FWD_CASES, ln_fwd=LN_FWD_SHAPES)
+            ln_fwd_cases=LN_FWD_CASES, ln_fwd=LN_FWD_SHAPES,
+            fused=FUSED_COMPARE_CASES)
         proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                               capture_output=True, text=True)
         # the phases' own lines (the paths emit theirs) under a marker

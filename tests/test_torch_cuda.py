@@ -2261,6 +2261,52 @@ def test_fused_backward_kernel_matches_twin(dev, t, d, dtype, causal):
         assert torch.equal(x, z), name
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, F16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("t", [896, 1000])
+def test_fused_backward_seven_and_eight_key_blocks(dev, t, dtype):
+    """K2-fused causal at head dim 64 on 7 key blocks (T 896: the middle
+    one alone in its CTA) and 8 (T 1000: the last key block 104 rows, the
+    last q step 40, T no multiple of 64), against the twin from the
+    forward twin's (out, lse), with an lse cotangent; one launch a call,
+    a second launch equal to the first bit for bit."""
+    g = _gen(dev, t)
+    b, h, d = 2, 3, 64
+    qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev).to(dtype)
+    q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+    out, lse = tfa._flash_fwd_plain(q, k, v, d ** -0.5, True)
+    dout = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    dlse = torch.randn((b, h, t), generator=g, device=dev)
+    before = tfa._flash_bwd_fused_launch.launches
+    got = tfa.flash_attention_backward(q, k, v, out, lse, dout, dlse)
+    again = tfa.flash_attention_backward(q, k, v, out, lse, dout, dlse)
+    ref = tfa._flash_bwd_fused_plain(q, k, v, out, lse, dout, dlse,
+                                     d ** -0.5, True)
+    torch.cuda.synchronize()
+    assert tfa._flash_bwd_fused_launch.launches == before + 2
+    tol = GRAD_TOL[dtype] if dtype == torch.bfloat16 else F16_GRAD_TOL
+    for name, x, y, z in zip("qkv", got, ref, again):
+        assert x.dtype == dtype and x.shape == q.shape
+        assert _rel_l2(x, y) <= tol, name
+        assert torch.equal(x, z), name
+
+
+def test_fused_backward_five_launches_bit_for_bit_at_flagship_heads(dev):
+    """Five back-to-back K2-fused launches at the training flagship's
+    shape ([11, 1024, 25, 64] bf16 causal: 275 clusters of 4 CTAs) give
+    the same dq, dk and dv bit for bit: a race in the ordered dQ adds
+    would show as a rare mismatch."""
+    q, k, v, out, lse, dout, _ = _fused_inputs(dev, 11, 1024, 25, 64,
+                                               torch.bfloat16, True,
+                                               seed=31)
+    runs = [tfa.flash_attention_backward(q, k, v, out, lse, dout)
+            for _ in range(5)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for name, x, y in zip("qkv", runs[0], run):
+            assert torch.equal(x, y), name
+    assert all(torch.isfinite(x).all() for x in runs[0])
+
+
 @pytest.mark.parametrize("t,causal", [(256, True), (128, False),
                                       (1024, True)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, F16], ids=["bf16", "fp16"])

@@ -13,8 +13,11 @@ the kernel's order (`_fused_plan`'s rounds of 128-row key blocks,
 pairing both key blocks. These tests hold the twin against JAX in
 fp32, bf16 and fp16, causal and not, through both outputs (the lse
 cotangent enters as a shift of delta), and the given-delta entry
-through `flash_attention_merge`'s VJP (K5's backward). The CUDA kernel
-is held against the twin on the card in tests/test_torch_cuda.py.
+through `flash_attention_merge`'s VJP (K5's backward); T 384 and 1000
+take clusters of 2-8 CTAs. The plan's tests check that each q block's
+dQ partials have one stated order and that the kernel's waits for them
+(its batons) cannot deadlock. The CUDA kernel is held against the twin
+on the card in tests/test_torch_cuda.py.
 
 Tolerances, by relative L2 error ||port - jax|| / ||jax||: fp32 1e-5
 (the same products summed in another order; observed ~1e-7); bf16 1e-2
@@ -73,10 +76,13 @@ def _jax_grads(q, k, v, g, g_lse, dt, causal):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dt", ["fp32", "bf16", "fp16"])
-@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("t", [128, 256, 384, 1000])
 def test_fused_twin_matches_jax_one_tile_backward(t, dt, causal):
     """dq, dk, dv of the fused twin, from the forward twin's (out, lse),
-    with dO rounded to the input dtype as JAX's cast cotangent is."""
+    with dO rounded to the input dtype as JAX's cast cotangent is; T 384
+    (three key blocks: causal at head dim 64 the middle one alone in its
+    CTA, three partials in the last q block's order) and 1000 (eight key
+    blocks, the last 104 rows, the last q step 40)."""
     q, k, v, g, g_lse = _inputs(t, seed=t + 3 * causal + len(dt))
     tdt = DTYPES[dt][1]
     tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
@@ -90,7 +96,7 @@ def test_fused_twin_matches_jax_one_tile_backward(t, dt, causal):
         assert _rel_l2(a.float().numpy(), b) <= REL_TOL[dt], name
 
 
-@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("t", [128, 256, 384])
 def test_fused_route_given_delta_matches_jax_merge_vjp(t):
     """bf16 `flash_attention_merge`'s VJP on the CPU: its backward hands
     the fused twin a given delta (`_fused_route`), held against JAX's
@@ -171,8 +177,109 @@ def test_fused_plan_takes_every_pair_once(causal, d):
             js = [row[r][1] for row in rows if row[r] is not None]
             assert len(js) == len(set(js)), (nk, r)
         plan = tfa._FusedPlan.of(nk, causal, d)
-        assert (plan.ctas, plan.rounds) == (len(rows), len(rows[0]))
+        assert (plan.ctas, plan.pairs) == (len(rows), len(rows[0]))
+        for c, row in enumerate(rows):
+            got = [(plan.kb[c][p], plan.qb[c][p]) for p in range(plan.n[c])]
+            assert got == [p for p in row if p is not None], (nk, c)
+            kvs = [plan.kv[c][x] for x in range(2) if plan.kv[c][x] >= 0]
+            assert kvs == list(dict.fromkeys(kb for kb, _ in got)), (nk, c)
+            # at head dim 128 one resident K/V block a CTA
+            assert len(kvs) == 1 or (causal and d == 64), (nk, c)
         if causal and d == 64:
             assert (len(rows), len(rows[0])) == ((nk + 1) // 2,
                                                  nk + 1 if nk > 1 else 1)
+
+
+def _partials_by_links(plan):
+    """{q block: [(CTA, pair), ...]} read off the kernel's struct: from
+    each q block's first partial along the next links."""
+    chains = {}
+    for c in range(plan.ctas):
+        for p in range(plan.n[c]):
+            if plan.first[c][p]:
+                chain, at = [], (c, p)
+                while at[0] >= 0:
+                    chain.append(at)
+                    at = (plan.next_cta[at[0]][at[1]],
+                          plan.next_pair[at[0]][at[1]])
+                chains[plan.qb[c][p]] = chain
+    return chains
+
+
+def _run_batons(n, order):
+    """The kernel's dQ adds as a simulation: CTA c takes its n[c] pairs in
+    order, and the add of its p-th pair waits until the partial before it
+    in its q block's `order` is added (the baton). Returns the adds in
+    the order they ran, or None if some CTA waits forever."""
+    before = {at: parts[i - 1] for parts in order.values()
+              for i, at in enumerate(parts) if i > 0}
+    done, ran, nxt = set(), [], [0] * len(n)
+    while len(ran) < sum(n):
+        moved = False
+        for c in range(len(n)):
+            if nxt[c] < n[c] and before.get((c, nxt[c]), (c, -1)) in \
+                    done | {(c, -1)}:
+                done.add((c, nxt[c]))
+                ran.append((c, nxt[c]))
+                nxt[c] += 1
+                moved = True
+        if not moved:
+            return None
+    return ran
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_fused_plan_orders_each_q_blocks_partials(causal, d):
+    """Each q block's dQ partials, at every cluster size (1-8 key
+    blocks), in one stated order: `_fused_order`, by pair index, every
+    pair whose q block it is once; the kernel's struct links them in
+    that order (first flag, next CTA and pair) and the twin adds them in
+    it too (its loop runs pair index by pair index)."""
+    for nk in range(1, 9):
+        rows, _ = tfa._fused_plan(nk, causal, d)
+        order = tfa._fused_order(rows)
+        assert sorted(order) == list(range(nk))
+        for j, parts in order.items():
+            want = sorted(((c, p) for c, row in enumerate(rows)
+                           for p, pair in enumerate(row)
+                           if pair is not None and pair[1] == j),
+                          key=lambda at: at[1])
+            assert parts == want, (nk, j)
+            assert len({p for _, p in parts}) == len(parts), (nk, j)
+        assert _partials_by_links(tfa._FusedPlan.of(nk, causal, d)) == \
+            order, nk
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_fused_plan_batons_run_to_completion(causal, d):
+    """The kernel's waits cannot deadlock: with each CTA taking its pairs
+    in order and each add waiting for the one before it in its q block
+    (the struct's links), every add of every cluster size runs, each q
+    block's in its stated order; every baton is passed once."""
+    for nk in range(1, 9):
+        plan = tfa._FusedPlan.of(nk, causal, d)
+        n = [plan.n[c] for c in range(plan.ctas)]
+        order = _partials_by_links(plan)
+        ran = _run_batons(n, order)
+        assert ran is not None, nk
+        for parts in order.values():
+            assert [at for at in ran if at in parts] == parts, nk
+        passed = [(plan.next_cta[c][p], plan.next_pair[c][p])
+                  for c in range(plan.ctas) for p in range(n[c])
+                  if plan.next_cta[c][p] >= 0]
+        waits = [(c, p) for c in range(plan.ctas) for p in range(n[c])
+                 if not plan.first[c][p]]
+        assert sorted(passed) == sorted(waits), nk
+
+
+def test_fused_baton_simulation_finds_a_deadlock():
+    """The simulation is not vacuous: two CTAs whose q blocks' orders
+    cross (each one's first add waits for the other's second) stall."""
+    n = [2, 2]
+    crossed = {0: [(1, 1), (0, 0)], 1: [(0, 1), (1, 0)]}
+    assert _run_batons(n, crossed) is None
+    assert _run_batons(n, {0: [(0, 0), (1, 1)], 1: [(1, 0), (0, 1)]}) == \
+        [(0, 0), (1, 0), (0, 1), (1, 1)]
 
