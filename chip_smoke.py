@@ -162,7 +162,30 @@ Phases, each printing one JSON line:
  32. sequence_parallel_fp16: the ring leg in fp16 at [1, 8192, 4, 64]
      and the emulated four-rank ring (K5, K2's given-delta sweeps);
  33. fp16 path F: sp_training in fp16 from the scale 2^16 (K5,
-     K2-fused's given-delta entry), through `run_fp16_path`.
+     K2-fused's given-delta entry), through `run_fp16_path`;
+ 34. path G (after 13): bench.py's bench_gpt2_350m (gpt2-350m, micro
+     batch 16, seq 1024, bf16 with fp32 masters, ZeRO-0, AdamW) under
+     remat_policy "dots_with_no_batch_dims_saveable" with async_dispatch
+     on, fed through engine.prefetch (a PrefetchLoader on a side
+     stream), its timed steps under set_sync_debug_mode("error"): step
+     ms, tokens/s, peak memory, exact launches a step; the same steps fed
+     directly give bit-equal losses; full-block remat's losses within
+     1e-2, its step ms and peak memory beside; ABCorrectnessChecker
+     against the fp32 ZeRO-0 shadow for 4 steps (loss_atol 0.05);
+ 35. path H (after 8): phase 7 under remat_policy "save_fused_epilogues":
+     its profile beside phase 7's, losses within 1e-2 of phase 7's,
+     exact launches a step (K1-fwd 48, not 96; K3-fwd 97; K4-fwd 96);
+ 36. phase 7 at 4 layers under "save_only_these_names:attn_out,attn_lse",
+     exact launches (REMAT_RECOMPUTE: the JAX jaxpr's recompute, which
+     tests/test_torch_remat_policies.py holds on the CPU);
+ 37. user_checkpoint (after 24): one gpt2-1.5b block applied 4 times
+     through deepspeed_tpu_torch.checkpointing.checkpoint, without and
+     with cpu_checkpointing: bit-equal gradients, the kept inputs pinned
+     on the host, the device memory held for the backward lower by at
+     least their bytes;
+ 38. bert_memory_flags: BERT-large's layer at 4 layers with and without
+     normalize_invertible under fused ops: one more K1-fwd and K4-fwd a
+     layer, no more K3-fwd (the JAX layer's jaxpr), losses within 1e-2.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -1604,7 +1627,8 @@ def train_config(**overrides):
 
 
 def train_and_check(seed, card, warmup=2, steps=6, quantized=False,
-                    sequence_parallel=None):
+                    sequence_parallel=None, remat_policy=None, n_layer=None,
+                    phase=None):
     """Phase 7: the JAX package's training flagship (bench_gpt2_15b:
     gpt2-1.5b, micro batch 11, seq 1024, bf16 without master weights,
     ZeRO-2, AdamW, full-block remat, dropout 0) through initialize ->
@@ -1612,15 +1636,19 @@ def train_and_check(seed, card, warmup=2, steps=6, quantized=False,
     With `quantized` (phase `quant_training`) the ds_config carries the
     quantized_compute block, so every projection runs K6. With
     `sequence_parallel` (phase `sp_training`) the model attends through
-    ring or Ulysses attention over the default process group. Returns
-    the launch counts of its steps and the losses."""
+    ring or Ulysses attention over the default process group. With
+    `remat_policy` (path H) the blocks remat under that named policy;
+    `n_layer` cuts the depth. Returns the launch counts of its steps and
+    the losses."""
     import numpy as np
     import torch
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
 
     batch, seq = TRAIN_BATCH, TRAIN_SEQ
-    cfg = train_config(sequence_parallel=sequence_parallel)
+    over = {} if n_layer is None else {"n_layer": n_layer}
+    cfg = train_config(sequence_parallel=sequence_parallel,
+                       remat_policy=remat_policy, **over)
     ds_config = flagship_ds_config(batch)
     if quantized:
         ds_config["quantized_compute"] = dict(QUANT_BLOCK_CONFIG)
@@ -1654,14 +1682,15 @@ def train_and_check(seed, card, warmup=2, steps=6, quantized=False,
     profile = profile_steps(
         lambda: [engine.train_batch(batch=staged) for _ in range(2)], 2)
     ok = all(np.isfinite(loss_vals)) and loss_vals[-1] < loss_vals[0]
-    phase = "quant_training" if quantized else \
-        "sp_training" if sequence_parallel else "training"
+    phase = phase or ("quant_training" if quantized else
+                      "sp_training" if sequence_parallel else "training")
     emit({"phase": phase, "model": "gpt2-1.5b", "n_layer": cfg.n_layer,
           "n_embd": cfg.n_embd, "n_head": cfg.n_head,
           "vocab": cfg.vocab_size, "micro_batch": batch, "seq": seq,
           "dtype": "bf16 params and moments (master_weights false), "
                    "stochastic rounding",
-          "zero_stage": 2, "remat": "full block",
+          "zero_stage": 2,
+          "remat": remat_policy or "full block",
           "sequence_parallel": sequence_parallel,
           "quantized_compute": ds_config.get("quantized_compute"),
           "quantized_projections": type(
@@ -5123,6 +5152,403 @@ def bert_fp16_oracle(seed, n_layer=2):
                              "disagree with the fp32 plain route")
 
 
+# ----------------------------------------------------------------------
+# phases 34-38: selective remat, the prefetch loader, user checkpointing
+# ----------------------------------------------------------------------
+# the forward kernels that a fused dense GPT-2 block's backward launches
+# again under each remat policy, per layer. The JAX package's rematted
+# grad jaxpr decides: tests/test_torch_remat_policies.py holds the port's
+# recompute to it on the CPU and holds this table to the port's
+REMAT_RECOMPUTE = {
+    None: {"flash_attention_fwd": 1, "fused_bias_residual_layernorm_fwd": 2,
+           "fused_bias_gelu_fwd": 1},
+    "dots_with_no_batch_dims_saveable": {
+        "flash_attention_fwd": 1, "fused_bias_residual_layernorm_fwd": 2,
+        "fused_bias_gelu_fwd": 1},
+    "save_only_these_names:attn_out,attn_lse": {
+        "flash_attention_fwd": 0, "fused_bias_residual_layernorm_fwd": 2,
+        "fused_bias_gelu_fwd": 1},
+    "save_fused_epilogues": {
+        "flash_attention_fwd": 0, "fused_bias_residual_layernorm_fwd": 0,
+        "fused_bias_gelu_fwd": 1},
+}
+
+
+def gpt2_step_launches(policy, n_layer):
+    """Each kernel's launches in one fused dense GPT-2 training step (gas
+    1, T <= 1024): the forward (K1-fwd and K4-fwd once a layer, K3-fwd
+    twice a layer and once for ln_f), the backward (K2-fused, K3-bwd and
+    K4-bwd likewise), and what `policy`'s recompute launches again."""
+    again = REMAT_RECOMPUTE[policy]
+    n = n_layer
+    return {"flash_attention_fwd": n + again["flash_attention_fwd"] * n,
+            "flash_attention_bwd_fused": n, "flash_attention_bwd": 0,
+            "fused_bias_residual_layernorm_fwd":
+                2 * n + 1 + again["fused_bias_residual_layernorm_fwd"] * n,
+            "fused_bias_residual_layernorm_bwd": 2 * n + 1,
+            "fused_bias_gelu_fwd": n + again["fused_bias_gelu_fwd"] * n,
+            "fused_bias_gelu_bwd": n}
+
+
+def exact_launches(path, counts, steps, policy, n_layer):
+    """Gate: `counts` over `steps` steps equal gpt2_step_launches."""
+    want = gpt2_step_launches(policy, n_layer)
+    got = {k: counts[k] / steps for k in want}
+    ok = got == {k: float(v) for k, v in want.items()}
+    emit({"phase": "exact_launches", "path": path, "remat_policy": policy,
+          "n_layer": n_layer, "launches_per_step": got, "expected": want,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{path}: launches per step {got} != {want}")
+
+
+# phase 36: the attention names alone, at the flagship's width
+ATTN_NAMES = "save_only_these_names:attn_out,attn_lse"
+ATTN_NAMES_LAYERS = 4
+
+# path G: bench.py's bench_gpt2_350m (bench.py:254-268) verbatim
+SEL_BATCH, SEL_SEQ = 16, 1024
+SEL_POLICY = "dots_with_no_batch_dims_saveable"
+# ABCorrectnessChecker's loss tolerance on path G: the checker's default
+# (bf16 primaries drift by rounding)
+AB_LOSS_ATOL = 0.05
+AB_STEPS = 4
+
+
+def selective_config(remat_policy=SEL_POLICY):
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_config
+    return gpt2_config("gpt2-350m", n_positions=SEL_SEQ, dropout=0.0,
+                       dtype=torch.bfloat16, remat=True,
+                       remat_policy=remat_policy)
+
+
+def selective_ds_config(steps_per_sync):
+    """bench_gpt2_350m's ds_config with the async_dispatch block on."""
+    return {"train_micro_batch_size_per_gpu": SEL_BATCH,
+            "gradient_accumulation_steps": 1, "steps_per_print": 1000,
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 0},
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 1e-4, "weight_decay": 0.01}},
+            "async_dispatch": {"enabled": True,
+                               "steps_per_sync": steps_per_sync}}
+
+
+def _timed_steps(engine, feed, warmup, steps, sync_error=False):
+    """(losses, warm-up seconds, seconds a timed step); the timed steps
+    run under set_sync_debug_mode("error") when `sync_error`."""
+    import torch
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        losses.append(feed())
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            losses.append(feed())
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return losses, warm_s, step_s
+
+
+def gpt2_350m_selective(seed, card, warmup=2, steps=6):
+    """Phase 34, path G: bench_gpt2_350m (gpt2-350m, micro batch 16, seq
+    1024, bf16 with fp32 masters, ZeRO-0, AdamW lr 1e-4 wd 0.01,
+    remat_policy dots_with_no_batch_dims_saveable) with async_dispatch
+    on, one repeated batch fed through engine.prefetch; the timed steps
+    run under set_sync_debug_mode("error") (a fence falls inside them).
+    Then a second engine on the same weights takes the same batches
+    directly (bit-equal losses), the same config under full-block remat
+    (losses within TOL_TRAIN_LOSS; its step ms and peak memory beside
+    G's), and ABCorrectnessChecker on G's config for AB_STEPS steps
+    (loss_atol AB_LOSS_ATOL); a profile of 2 steps under each policy.
+    Returns the launch counts of the prefetch run."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.runtime.correctness import ABCorrectnessChecker
+
+    n = warmup + steps
+    cfg = selective_config()
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SEL_BATCH, SEL_SEQ)).astype(np.int32)
+    params = GPT2ForCausalLM(cfg).init(seed)
+
+    def engine_for(policy, steps_per_sync=steps):
+        model = GPT2ForCausalLM(selective_config(policy))
+        return dst.initialize(model=model, model_parameters=params,
+                              config=selective_ds_config(steps_per_sync))[0]
+
+    # G: through engine.prefetch
+    engine = engine_for(SEL_POLICY)
+    fences = []
+    real_fence = engine._sync_fence
+    engine._sync_fence = lambda: (fences.append(engine._host_steps),
+                                  real_fence())
+    loader = engine.prefetch(({"input_ids": ids} for _ in range(n)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, warm_s, step_s = _timed_steps(
+        engine, lambda: engine.train_batch(data_iter=loader), warmup, steps,
+        sync_error=True)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    loader.close()
+    fed = torch.stack(losses).float().cpu()
+    staged = engine.stage_batch({"input_ids": ids[None]})
+    profile = profile_steps(
+        lambda: [engine.train_batch(batch=staged) for _ in range(2)], 2)
+    del engine, loader, losses, staged
+    release()
+
+    # the same steps fed directly
+    engine = engine_for(SEL_POLICY)
+    staged = engine.stage_batch({"input_ids": ids[None]})
+    direct = torch.stack([engine.train_batch(batch=staged)
+                          for _ in range(n)]).float().cpu()
+    del engine, staged
+    release()
+
+    # full-block remat, the same config and steps
+    engine = engine_for(None)
+    staged = engine.stage_batch({"input_ids": ids[None]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    full, full_warm_s, full_step_s = _timed_steps(
+        engine, lambda: engine.train_batch(batch=staged), warmup, steps)
+    full_peak = torch.cuda.max_memory_allocated()
+    full = torch.stack(full).float().cpu()
+    full_profile = profile_steps(
+        lambda: [engine.train_batch(batch=staged) for _ in range(2)], 2)
+    del engine, staged
+    release()
+
+    # the A/B checker: G's engine beside its fp32 ZeRO-0 shadow
+    checker = ABCorrectnessChecker(
+        GPT2ForCausalLM(cfg), params, selective_ds_config(steps),
+        interval=1, loss_atol=AB_LOSS_ATOL)
+    ab_error = None
+    try:
+        for _ in range(AB_STEPS):
+            checker.train_batch(batch={"input_ids": ids[None]})
+    except AssertionError as e:
+        ab_error = str(e)
+    report = checker.report()
+    del checker, params
+    release()
+
+    vals = [float(x) for x in fed]
+    gaps = [abs(a - b) for a, b in zip(vals, full.tolist())]
+    ok = all(np.isfinite(vals)) and vals[-1] < vals[0]
+    bit_equal = torch.equal(fed, direct)
+    emit({"phase": "gpt2_350m_selective", "path": "G", "model": "gpt2-350m",
+          "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+          "micro_batch": SEL_BATCH, "seq": SEL_SEQ,
+          "dtype": "bf16 compute, fp32 master weights", "zero_stage": 0,
+          "remat_policy": SEL_POLICY, "async_dispatch": True,
+          "fed_by": "engine.prefetch (PrefetchLoader, depth 2)",
+          "fences_at_steps": fences, "warmup_steps": warmup,
+          "warmup_s": warm_s, "steps": steps, "step_ms": step_s * 1e3,
+          "tokens_per_s": SEL_BATCH * SEL_SEQ / step_s,
+          "max_memory_allocated_gib": peak / 2 ** 30,
+          "sync_debug_mode": "error over the timed steps",
+          "launches_per_step": {k: v / n for k, v in counts.items()},
+          "losses": vals, "loss_falls": ok,
+          "direct_feed_losses": direct.tolist(),
+          "direct_feed_bit_equal": bit_equal,
+          "full_remat": {"step_ms": full_step_s * 1e3,
+                         "tokens_per_s": SEL_BATCH * SEL_SEQ / full_step_s,
+                         "max_memory_allocated_gib": full_peak / 2 ** 30,
+                         "losses": full.tolist(), "abs_gap": gaps,
+                         "tol": TOL_TRAIN_LOSS},
+          "ab_checker": dict(report, loss_atol=AB_LOSS_ATOL, error=ab_error),
+          "card": card})
+    emit({"phase": "gpt2_350m_selective_profile", "step_ms": step_s * 1e3,
+          **profile, "card": card})
+    emit({"phase": "gpt2_350m_full_remat_profile",
+          "step_ms": full_step_s * 1e3, **full_profile, "card": card})
+    if not ok:
+        raise AssertionError(f"path G losses {vals}: not finite or not "
+                             "falling on the repeated batch")
+    if not bit_equal:
+        raise AssertionError(f"path G: prefetch-fed losses {vals} differ "
+                             f"from the direct feed's {direct.tolist()}")
+    if not max(gaps) <= TOL_TRAIN_LOSS:
+        raise AssertionError(f"path G: losses {vals} stray more than "
+                             f"{TOL_TRAIN_LOSS} from full remat's "
+                             f"{full.tolist()}")
+    if ab_error is not None or report["checks"] != AB_STEPS:
+        raise AssertionError(f"path G: the A/B checker failed: {ab_error}")
+    exact_launches("gpt2_350m_selective", counts, n, SEL_POLICY, cfg.n_layer)
+    return counts
+
+
+# phase 37: the user checkpoint chain (one gpt2-1.5b block applied
+# UC_CHAIN times)
+UC_CHAIN = 4
+
+
+def user_checkpoint(seed, card):
+    """Phase 37: one gpt2-1.5b block at full width (fused path: K1, K3,
+    K4 and their backward kernels) applied UC_CHAIN times to a
+    [11, 1024, 1600] bf16 input through
+    deepspeed_tpu_torch.checkpointing.checkpoint, without and with
+    cpu_checkpointing. Gates: the gradients (input and every parameter)
+    bit-equal; with cpu_checkpointing the kept inputs are UC_CHAIN
+    pinned host tensors, and the device memory the forward leaves for
+    the backward is lower by at least their bytes. Returns the launch
+    counts of both runs."""
+    import torch
+    from deepspeed_tpu_torch import checkpointing as ck
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Block
+
+    cfg = train_config()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    with torch.device("cuda"):
+        block = GPT2Block(cfg)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if name.endswith("kernel"):
+                p.normal_(0.0, 0.02, generator=gen)
+            elif name.endswith("scale"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    x0 = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.n_embd), generator=gen,
+                     device="cuda", dtype=torch.bfloat16)
+    params = list(block.parameters())
+
+    def run(offload):
+        ck.configure(None, checkpoint_in_cpu=offload)
+        x = x0.clone().requires_grad_(True)
+        release()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        h = x * 1.0
+        for _ in range(UC_CHAIN):
+            h = ck.checkpoint(block, h)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        out_bytes = h.numel() * h.element_size()
+        held = torch.cuda.memory_allocated() - base - out_bytes
+        staged = ck.host_staged_inputs()
+        info = {"held_for_backward_bytes": held,
+                "host_inputs": len(staged),
+                "host_bytes": sum(t.numel() * t.element_size()
+                                  for t in staged),
+                "host_pinned": all(t.is_pinned() for t in staged)}
+        del staged
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(h.float().sum(), [x] + params)
+        torch.cuda.synchronize()
+        info.update(forward_ms=fwd_s * 1e3,
+                    backward_ms=(time.perf_counter() - t0) * 1e3,
+                    peak_bytes=torch.cuda.max_memory_allocated() - base)
+        return info, grads
+
+    reset_counts()
+    try:
+        plain, g_plain = run(False)
+        offload, g_off = run(True)
+    finally:
+        ck.configure(None)
+    counts = read_counts()
+    same = all(torch.equal(a, b) for a, b in zip(g_plain, g_off))
+    saved = offload["host_bytes"]
+    lower = plain["held_for_backward_bytes"] - \
+        offload["held_for_backward_bytes"]
+    ok = same and offload["host_pinned"] and \
+        offload["host_inputs"] == UC_CHAIN and saved > 0 and lower >= saved
+    emit({"phase": "user_checkpoint", "block": "gpt2-1.5b GPT2Block",
+          "input": [TRAIN_BATCH, TRAIN_SEQ, cfg.n_embd], "dtype": "bf16",
+          "chain": UC_CHAIN, "without_cpu_checkpointing": plain,
+          "with_cpu_checkpointing": offload,
+          "device_bytes_saved": lower, "grads_bit_equal": same,
+          "launches": counts, "ok": ok, "card": card})
+    if not ok:
+        raise AssertionError(f"user_checkpoint: grads equal {same}, "
+                             f"{offload}, saved {lower} of {saved} bytes")
+    del block, x0, params, g_plain, g_off
+    return counts
+
+
+BERT_FLAGS_LAYERS = 4
+
+
+def bert_memory_flags(seed, card, steps=3):
+    """Phase 38: BERT-large's fused layer at BERT_FLAGS_LAYERS layers
+    (micro batch 16, seq 128, gas 1) with and without
+    normalize_invertible under fused ops (the per-fusion
+    save_fused_epilogues policy, as the JAX layer): the flag's steps
+    launch, beyond the plain ones, exactly one K1-fwd and one K4-fwd a
+    layer (the JAX layer's jaxpr: its flash outputs carry no names, its
+    GeLU output is not kept) and no K3-fwd; the losses agree within
+    TOL_TRAIN_LOSS. Returns the flag run's launch counts."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.bert import BertForPreTrainingLM
+
+    n = BERT_FLAGS_LAYERS
+    ds = dict(bert_ds_config(), gradient_accumulation_steps=1)
+    runs = {}
+    for flag in (False, True):
+        cfg = bert_model_config(num_hidden_layers=n,
+                                normalize_invertible=flag)
+        model = BertForPreTrainingLM(cfg)
+        engine, _, _, _ = dst.initialize(model=model,
+                                         model_parameters=model.init(seed),
+                                         config=ds)
+        staged = engine.stage_batch({k: v[:1] for k, v in
+                                     bert_batch(cfg, seed).items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, _, step_s = _timed_steps(
+            engine, lambda: engine.train_batch(batch=staged), 1, steps)
+        runs[flag] = (read_counts(), [float(x) for x in
+                                      torch.stack(losses).float().cpu()],
+                      step_s, torch.cuda.max_memory_allocated())
+        del engine, model, staged
+        release()
+    (c0, l0, s0, p0), (c1, l1, s1, p1) = runs[False], runs[True]
+    per = steps + 1
+    extra = {k: (c1[k] - c0[k]) / per for k in BERT_LAUNCHES_PER_MICRO}
+    want = {k: float(n) if k in ("flash_attention_fwd", "fused_bias_gelu_fwd")
+            else 0.0 for k in BERT_LAUNCHES_PER_MICRO}
+    gaps = [abs(a - b) for a, b in zip(l1, l0)]
+    ok = extra == want and all(np.isfinite(l1)) and \
+        max(gaps) <= TOL_TRAIN_LOSS
+    emit({"phase": "bert_memory_flags", "model": "bert-large",
+          "n_layer": n, "flag": "normalize_invertible", "fused_ops": "auto",
+          "policy": "save_fused_epilogues", "micro_batch": BERT_BATCH,
+          "seq": BERT_SEQ,
+          "launches_per_step": {k: c1[k] / per
+                                for k in BERT_LAUNCHES_PER_MICRO},
+          "extra_launches_per_step": extra, "expected_extra": want,
+          "losses": l1, "plain_losses": l0, "losses_bit_equal": l1 == l0,
+          "step_ms": s1 * 1e3, "plain_step_ms": s0 * 1e3,
+          "max_memory_allocated_gib": p1 / 2 ** 30,
+          "plain_max_memory_allocated_gib": p0 / 2 ** 30, "ok": ok,
+          "card": card})
+    if not ok:
+        raise AssertionError(f"bert_memory_flags: extra launches {extra} "
+                             f"(expected {want}), losses {l1} vs {l0}")
+    return c1
+
+
 # the dense attention kernels (K1-fwd and K5, K2's sweeps, its delta
 # pre-pass and given-delta shift), by kernel-name substring
 ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_bwd_", "delta_kernel")
@@ -5445,7 +5871,38 @@ def main(argv=None):
     # steps), then 8: its oracle
     training, losses = train_and_check(args.seed, card)
     path_counts("training", training, TRAINING_KERNELS, FUSED_ABSENT)
+    exact_launches("training", training, len(losses), None,
+                   train_config().n_layer)
     training_oracle(args.seed)
+    release()
+
+    # 35, path H: the flagship under save_fused_epilogues (counts zeroed
+    # inside, right before its steps), held to 7's losses at the same
+    # steps and to its exact launches; 36: save_only_these_names:
+    # attn_out,attn_lse at the flagship's width and 4 layers
+    per_fusion, pf_losses = train_and_check(
+        args.seed, card, remat_policy="save_fused_epilogues",
+        phase="training_per_fusion")
+    path_counts("training_per_fusion", per_fusion, TRAINING_KERNELS,
+                FUSED_ABSENT)
+    exact_launches("training_per_fusion", per_fusion, len(pf_losses),
+                   "save_fused_epilogues", train_config().n_layer)
+    gaps = [abs(a - b) for a, b in zip(pf_losses, losses)]
+    emit({"phase": "per_fusion_vs_training_losses",
+          "per_fusion": pf_losses, "training": losses, "abs_gap": gaps,
+          "tol": TOL_TRAIN_LOSS, "ok": max(gaps) <= TOL_TRAIN_LOSS})
+    if not max(gaps) <= TOL_TRAIN_LOSS:
+        raise AssertionError(f"training_per_fusion losses {pf_losses} "
+                             f"stray more than {TOL_TRAIN_LOSS} from "
+                             f"{losses}")
+    release()
+    attn_names, an_losses = train_and_check(
+        args.seed, card, warmup=1, steps=3, remat_policy=ATTN_NAMES,
+        n_layer=ATTN_NAMES_LAYERS, phase="training_attn_names")
+    path_counts("training_attn_names", attn_names, TRAINING_KERNELS,
+                FUSED_ABSENT)
+    exact_launches("training_attn_names", attn_names, len(an_losses),
+                   ATTN_NAMES, ATTN_NAMES_LAYERS)
     release()
 
     # 9: the quantized training path, the same weights, batch and seed
@@ -5474,6 +5931,12 @@ def main(argv=None):
         "moe_quant_training",
         moe_train_and_check(args.seed, card, quantized=True),
         MOE_QUANT_KERNELS, FUSED_ABSENT)
+
+    # 34, path G: gpt2-350m under dots_with_no_batch_dims_saveable, fed
+    # by engine.prefetch (counts zeroed inside, right before its steps)
+    selective = path_counts("gpt2_350m_selective",
+                            gpt2_350m_selective(args.seed, card),
+                            TRAINING_KERNELS, FUSED_ABSENT)
 
     # 14: the K7 kernels against their twins; 15: the sparse attention
     # path (counts zeroed inside, right before it); 16: BERT-large's
@@ -5560,6 +6023,16 @@ def main(argv=None):
     bert_oracle(args.seed)
     release()
 
+    # 37: the user checkpoint chain, without and with cpu_checkpointing;
+    # 38: BERT-large's memory flags under fused ops (counts zeroed inside
+    # each, right before its runs)
+    user_ck = path_counts("user_checkpoint", user_checkpoint(args.seed, card),
+                          TRAINING_KERNELS, FUSED_ABSENT)
+    release()
+    bert_flags = path_counts("bert_memory_flags",
+                             bert_memory_flags(args.seed, card),
+                             BERT_KERNELS, FUSED_ABSENT)
+
     # 25: the fp16 forms of K1-K4 at paths A's and B's shapes against
     # their twins; 26: the fp16 oracle at BERT-large width; 27: path A,
     # BERT-large fp16 + LAMB; 28: path B, GPT-2 1.5B fp16 + progressive
@@ -5617,7 +6090,12 @@ def main(argv=None):
                       "gpt2_fp16_pld": gpt16,
                       "engine_surface_fp16": surface16,
                       "moe_fp16": moe16, "moe_quant_fp16": moe_quant16,
-                      "sequence_parallel_fp16": ring16, "sp_fp16": sp16}
+                      "sequence_parallel_fp16": ring16, "sp_fp16": sp16,
+                      "training_per_fusion": per_fusion,
+                      "training_attn_names": attn_names,
+                      "gpt2_350m_selective": selective,
+                      "user_checkpoint": user_ck,
+                      "bert_memory_flags": bert_flags}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);

@@ -22,8 +22,15 @@ checkpoints in the JAX package's on-disk layout
 here as in the JAX package; `models/bert.py`; `module_inject/`), and fp16
 training with dynamic loss scaling (`runtime/fp16/`), LAMB
 (`ops/lamb/`), SGD, 1-bit Adam, client optimizer and scheduler objects
-and progressive layer drop.
+and progressive layer drop; the named remat policies and the
+user-facing activation checkpointing (`checkpointing`, the module
+alias of `runtime/activation_checkpointing/checkpointing.py`, as in the
+JAX package), the `async_dispatch` block with `runtime/prefetch.py`,
+`runtime/utils.py`, the A/B checker (`runtime/correctness.py`) and
+`add_config_arguments`.
 """
+
+import argparse
 
 from deepspeed_tpu_torch.ops.transformer import (
     DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
@@ -32,12 +39,35 @@ from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.logging import logger
+# `deepspeed.checkpointing` module alias (the activation-checkpointing
+# module at package level, as in the JAX package)
+from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+    checkpointing  # noqa: F401
 
 __version__ = "0.1.0"
 
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
            "DeepSpeedTransformerLayer", "DeepSpeedTransformerConfig",
-           "init_distributed", "resolve_device", "logger", "__version__"]
+           "init_distributed", "resolve_device", "logger", "checkpointing",
+           "add_config_arguments", "__version__"]
+
+
+def _add_core_arguments(parser):
+    """--deepspeed family of args (ref `__init__.py:142-175`)."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag to user code)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="DeepSpeed json configuration file.")
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Discover launch info from MPI environment")
+    return parser
+
+
+def add_config_arguments(parser: argparse.ArgumentParser):
+    """Update an argument parser with DeepSpeed's args (ref
+    `__init__.py:193`)."""
+    return _add_core_arguments(parser)
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

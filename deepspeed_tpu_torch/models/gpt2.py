@@ -17,8 +17,15 @@ Attention takes flash (kernel K1, backward K2) exactly where the JAX
 package does (`flash_attention_usable`), and dense attention elsewhere.
 
 Training (`loss_fn`) adds what the JAX scan cell does around the block:
-full-block remat (`remat=True`, `remat_policy=None`) through
-`torch.utils.checkpoint` over each block, carrying the boundary tuple;
+remat (`remat=True`) over each block, carrying the boundary tuple, under
+`remat_policy`, resolved as the JAX model resolves it
+(`resolve_remat_policy`): None is full-block remat; "save_fused_epilogues"
+keeps the kernels' named outputs (attention's out and lse, both outputs
+of each K3, K4's sum), so the backward's recompute launches no K1-fwd or
+K3-fwd and runs c_attn, c_fc and K4-fwd again; "save_only_these_names:
+attn_out,attn_lse" keeps attention's; "dots_with_no_batch_dims_saveable"
+keeps the projections' GEMM outputs
+(runtime/activation_checkpointing/checkpointing.py);
 dropout on the embedding, the attention probabilities and both
 projections (the unfused path, as in JAX), drawn from per-layer
 `torch.Generator`s seeded from `rngs["dropout"]`, so a block's
@@ -74,8 +81,6 @@ the two packages keep different blocks from one seed); deterministic,
 fp16 compute (`dtype=torch.float16`) runs every kernel of its path in
 its fp16 form: K1-K4, and with MoE K8 and grouped K4, with quantized
 compute K6 (fp16 out), under the ring K5 and K2's given-delta entry.
-Out of this slice (raises NotImplementedError naming its ROADMAP item):
-named remat policies (item 4).
 """
 
 import dataclasses
@@ -93,20 +98,20 @@ from deepspeed_tpu_torch.moe.router import STAT_AUX
 from deepspeed_tpu_torch.ops.sequence import (
     gather_sequence, ring_attention, scatter_sequence, ulysses_attention)
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
-    dense_attention, dropout, flash_attention, flash_attention_usable)
+    dense_attention, dropout, flash_attention,
+    flash_attention_rematerializable, flash_attention_usable)
 from deepspeed_tpu_torch.ops.transformer.fused_ops import (
     fused_bias_gelu, fused_bias_residual_layernorm, resolve_fused_ops)
 from deepspeed_tpu_torch.ops.transformer.quantized_matmul import \
     resolve_quantized_compute
 from deepspeed_tpu_torch.ops.transformer.transformer import (
-    LayerNorm, plain_layernorm, project, projection, run_block)
+    LayerNorm, epilogue_gemms, plain_layernorm, project, projection,
+    run_block)
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import resolve_checkpoint_policy
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.rng import stream_generator, stream_seed
 
-REMAT_POLICY_SLICE = ("named remat policies (the save_fused_epilogues "
-                      "and save_only_these_names forms) come with the "
-                      "rest of the single-card engine (ROADMAP Queue 1 "
-                      "item 4)")
 # the stream of a block's dropout seed that PLD's gate draws from
 PLD_STREAM = 2
 
@@ -122,8 +127,8 @@ class GPT2Config:
     layer_norm_epsilon: float = 1e-5
     dtype: Any = torch.bfloat16      # compute dtype
     param_dtype: Any = torch.float32  # storage dtype of parameters
-    # remat recomputes activations in the backward; the forward of this
-    # slice computes the same values with it on or off
+    # remat recomputes activations in the backward (what `remat_policy`
+    # keeps excepted); the values are the same with it on or off
     remat: bool = True
     remat_policy: Optional[str] = None
     attention_impl: str = "auto"    # auto | pallas (the kernel) | xla
@@ -190,9 +195,20 @@ def tiny_gpt2_config(**overrides):
     return GPT2Config(**base)
 
 
+def resolve_remat_policy(name):
+    """Remat-policy string -> RematPolicy (the JAX model's
+    `resolve_remat_policy`): registered custom policies (incl. the
+    built-in "save_fused_epilogues" per-fusion policy) first, then
+    "save_only_these_names:a,b" over the kernels' output names (the
+    model names its attention output "attn_out"), then the
+    argument-free `jax.checkpoint_policies` names."""
+    return resolve_checkpoint_policy(name)
+
+
 def check_supported(cfg: GPT2Config):
-    """Raise for the options whose code paths are later slices, and
-    for an `moe` that is no MoEConfig."""
+    """Raise for an unknown remat policy, for an `moe` that is no
+    MoEConfig and for the options' bad values."""
+    resolve_remat_policy(cfg.remat_policy)   # ValueError if unknown
     if cfg.moe is not None:
         if not isinstance(cfg.moe, MoEConfig):
             raise TypeError(f"GPT2Config.moe must be a moe.MoEConfig or "
@@ -247,11 +263,18 @@ def _attention(cfg, q, k, v, dropout_gen=None):
         return _sp_attention(cfg, q, k, v)
     if cfg.attention_impl in ("pallas", "auto"):
         if flash_attention_usable(q, dropout_gen is None):
-            return flash_attention(q, k, v, causal=True,
-                                   head_packing=cfg.attention_head_packing)
+            # under remat, (out, lse) carry the names "attn_out" /
+            # "attn_lse" that the named policies keep
+            flash = flash_attention_rematerializable if cfg.remat else \
+                flash_attention
+            return flash(q, k, v, causal=True,
+                         head_packing=cfg.attention_head_packing)
         if cfg.attention_impl == "pallas":
             raise RuntimeError("flash attention requested but unusable "
                                "for these shapes/settings")
+    # the JAX model names this route's output "attn_out" too; the port's
+    # remat frame keeps kernel outputs only, so under a names policy the
+    # recompute rebuilds it (as its own backward needs the softmax anyway)
     return dense_attention(q, k, v, causal=True, dropout_rate=cfg.dropout,
                            dropout_gen=dropout_gen)
 
@@ -341,7 +364,8 @@ class GPT2Block(nn.Module):
         # column slices of qkv, viewed [B, T, H, D] in place (no copy)
         q, k, v = (part.view(b, t, h, d) for part in qkv.split(c, dim=-1))
         attn = _attention(cfg, q, k, v, gen).reshape(b, t, c)
-        attn_y, attn_b = project(self.c_proj, attn, quant_seed, 1)
+        with epilogue_gemms(use_fused):
+            attn_y, attn_b = project(self.c_proj, attn, quant_seed, 1)
         if use_fused:
             # one launch: c_proj bias + residual + ln_2
             y, hidden = fused_bias_residual_layernorm(
@@ -456,6 +480,7 @@ class GPT2LMHeadModel(nn.Module):
                              ' but no dropout seed was given (rngs='
                              '{"dropout": seed})')
         remat = cfg.remat and torch.is_grad_enabled()
+        policy = resolve_remat_policy(cfg.remat_policy)
         hidden = embed_tokens(cfg, self.wte, self.wpe, input_ids)
         if drop:
             hidden = dropout(hidden, cfg.dropout,
@@ -474,13 +499,14 @@ class GPT2LMHeadModel(nn.Module):
             return stream_seed(quant_seed, i + 1)
 
         if cfg.moe is not None:
-            return self._moe_forward(hidden, remat, deterministic, seed,
-                                     qseed, return_hidden)
+            return self._moe_forward(hidden, remat, policy, deterministic,
+                                     seed, qseed, return_hidden)
         if pld:
             # PLD gates completed block outputs: the plain carry
             for i, block in enumerate(self.h):
                 out = run_block(block, remat, hidden, None, False,
-                                deterministic, seed(i), qseed(i))
+                                deterministic, seed(i), qseed(i),
+                                policy=policy)
                 hidden = _pld_gate(hidden, out, layer_keep_prob,
                                    deterministic, seed(i))
             hidden = self.ln_f(hidden)
@@ -493,7 +519,8 @@ class GPT2LMHeadModel(nn.Module):
                                 device=hidden.device))
             for i, block in enumerate(self.h):
                 hidden, prev = run_block(block, remat, hidden, prev, True,
-                                         deterministic, seed(i), qseed(i))
+                                         deterministic, seed(i), qseed(i),
+                                         policy=policy)
             hidden = fused_bias_residual_layernorm(
                 prev[0], prev[1], hidden, self.ln_f.scale, self.ln_f.bias,
                 eps=cfg.layer_norm_epsilon, out_dtype=torch.float32,
@@ -501,15 +528,16 @@ class GPT2LMHeadModel(nn.Module):
         else:
             for i, block in enumerate(self.h):
                 hidden = run_block(block, remat, hidden, None, False,
-                                   deterministic, seed(i), qseed(i))
+                                   deterministic, seed(i), qseed(i),
+                                   policy=policy)
             hidden = self.ln_f(hidden)
         if return_hidden:
             return hidden.to(cfg.dtype), self.wte
         return torch.matmul(hidden.to(cfg.dtype),
                             self.wte.to(cfg.dtype).t())
 
-    def _moe_forward(self, hidden, remat, deterministic, seed, qseed,
-                     return_hidden):
+    def _moe_forward(self, hidden, remat, policy, deterministic, seed,
+                     qseed, return_hidden):
         """The MoE stack: dense blocks without the boundary carry (the
         JAX super-cell calls them so), MoE blocks returning router stats,
         which sum over the MoE layers and divide by their count; then a
@@ -520,11 +548,13 @@ class GPT2LMHeadModel(nn.Module):
         for i, block in enumerate(self.h):
             if cfg.is_moe_layer(i):
                 hidden, s = run_block(block, remat, hidden, deterministic,
-                                      seed(i), qseed(i))
+                                      seed(i), qseed(i),
+                                      policy=policy)
                 stats = stats + s
             else:
                 hidden = run_block(block, remat, hidden, None, False,
-                                   deterministic, seed(i), qseed(i))
+                                   deterministic, seed(i), qseed(i),
+                                   policy=policy)
         stats = stats / float(cfg.moe_cells)
         hidden = self.ln_f(hidden)
         if return_hidden:
@@ -714,7 +744,7 @@ class GPT2ForCausalLM(ModelWrapper):
         step's dropout when `deterministic` is False and dropout > 0;
         `rngs["quant"]` (an int) seeds the quantized projections'
         stochastic rounding when `quant_stochastic_rounding` is on.
-        Under `remat` every block runs under full-block remat."""
+        Under `remat` every block runs under remat with `remat_policy`."""
         cfg = self.config
         if layer_keep_prob is not None and cfg.moe is not None:
             raise ValueError(
@@ -724,10 +754,6 @@ class GPT2ForCausalLM(ModelWrapper):
             raise ValueError(
                 "return_router_stats requires a model built with "
                 "GPT2Config(moe=...)")
-        if cfg.remat and cfg.remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r}: {REMAT_POLICY_SLICE}; "
-                "remat_policy=None (full-block remat) is supported")
         input_ids, labels = self._shifted_labels(
             {k: self._ids(v) for k, v in batch.items()})
         rngs = rngs or {}

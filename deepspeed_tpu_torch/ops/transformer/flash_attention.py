@@ -54,6 +54,9 @@ import functools
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import named_outputs
+
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 # T must be a multiple of this; the WMMA bodies' tile (64 query rows x
@@ -765,8 +768,16 @@ class _FlashAttention(torch.autograd.Function):
     (q, k, v, out, lse) — the JAX package's custom VJP."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal):
-        out, lse = _flash_forward(q, k, v, sm_scale, causal)
+    def forward(ctx, q, k, v, sm_scale, causal, named=False):
+        # `named`: (out, lse) carry the names "attn_out" / "attn_lse"
+        # (`flash_attention_rematerializable`), so a remat recompute that
+        # keeps them does not launch the forward kernel again
+        if named:
+            out, lse = named_outputs(
+                ("attn_out", "attn_lse"),
+                lambda: _flash_forward(q, k, v, sm_scale, causal))
+        else:
+            out, lse = _flash_forward(q, k, v, sm_scale, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.sm_scale, ctx.causal = sm_scale, causal
         ctx.set_materialize_grads(False)
@@ -779,7 +790,7 @@ class _FlashAttention(torch.autograd.Function):
             g_out = torch.zeros_like(out)
         dq, dk, dv = flash_attention_backward(
             q, k, v, out, lse, g_out, g_lse, ctx.sm_scale, ctx.causal)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def _merge_forward(q, k, v, prev_out, prev_lse, sm_scale, causal):
@@ -873,15 +884,17 @@ def _needs_grad(*xs):
 
 
 def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None,
-                             head_packing="auto"):
+                             head_packing="auto", rematerializable=False):
     """Flash attention returning (out [B,T,H,D], lse [B,H,T,1]), lse in
     LOG2 space, differentiable in both. CUDA tensors launch kernels
     K1-fwd (and K2 in the backward); CPU tensors take the plain twins
-    (T must be a multiple of 64 on either)."""
+    (T must be a multiple of 64 on either). `rematerializable`: the
+    outputs carry the remat names "attn_out" / "attn_lse"."""
     sm_scale, causal = _normalize_flash_args(q, k, v, causal, sm_scale,
                                              head_packing)
     if _needs_grad(q, k, v):
-        out, lse = _FlashAttention.apply(q, k, v, sm_scale, causal)
+        out, lse = _FlashAttention.apply(q, k, v, sm_scale, causal,
+                                         rematerializable)
     else:
         out, lse = _flash_forward(q, k, v, sm_scale, causal)
     return out, lse[..., None]
@@ -896,6 +909,19 @@ def flash_attention(q, k, v, causal=True, sm_scale=None,
     return flash_attention_with_lse(q, k, v, causal=causal,
                                     sm_scale=sm_scale,
                                     head_packing=head_packing)[0]
+
+
+def flash_attention_rematerializable(q, k, v, causal=True, sm_scale=None,
+                                     head_packing="auto"):
+    """flash_attention whose (out, lse) carry the remat names "attn_out"
+    / "attn_lse" (the JAX package's `flash_attention_rematerializable`):
+    under a remat policy that keeps them (save_only_these_names:
+    attn_out,attn_lse, save_fused_epilogues) the backward never launches
+    the forward kernel again. The same numbers as `flash_attention`."""
+    return flash_attention_with_lse(q, k, v, causal=causal,
+                                    sm_scale=sm_scale,
+                                    head_packing=head_packing,
+                                    rematerializable=True)[0]
 
 
 def flash_attention_merge(q, k, v, prev_out, prev_lse, causal=True,

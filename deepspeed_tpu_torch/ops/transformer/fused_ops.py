@@ -52,6 +52,19 @@ import math
 
 import torch
 
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import named_outputs
+
+# names of the kernels' outputs that the named remat policies keep
+# (runtime/activation_checkpointing/checkpointing.py); save_fused_epilogues
+# keeps all but FUSED_GELU_OUT: 4H wide, one transcendental pass from the
+# kept sum
+FUSED_LN_OUT = "fused_ln_out"
+FUSED_LN_SUM = "fused_ln_sum"
+FUSED_GELU_SUM = "fused_gelu_sum"
+FUSED_GELU_OUT = "fused_gelu_out"
+FUSED_EPILOGUE_SAVE_NAMES = (FUSED_LN_OUT, FUSED_LN_SUM, FUSED_GELU_SUM)
+
 _SQRT_2 = 1.4142135623730951
 _SQRT_2_OVER_PI = 0.7978845608028654   # sqrt(2/pi), the tanh-gelu const
 _GELU_C = 0.044715
@@ -640,8 +653,12 @@ class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, bias, residual, gamma, beta, eps, out_dtype,
                 sum_dtype, return_sum):
-        out, s = _ln_forward(y, bias, residual, gamma, beta, eps,
-                             out_dtype, sum_dtype, True)
+        # named (FUSED_LN_OUT, FUSED_LN_SUM) for the remat policies, the
+        # ln_f form too: a remat recompute that keeps both launches nothing
+        out, s = named_outputs(
+            (FUSED_LN_OUT, FUSED_LN_SUM),
+            lambda: _ln_forward(y, bias, residual, gamma, beta, eps,
+                                out_dtype, sum_dtype, True))
         ctx.save_for_backward(s, gamma)
         ctx.eps, ctx.return_sum = eps, return_sum
         ctx.dtypes = (y.dtype, bias.dtype, residual.dtype, gamma.dtype,
@@ -672,7 +689,11 @@ class _FusedGelu(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, bias, approximate, out_dtype):
-        out, s = _gelu_forward(x, bias, approximate, out_dtype)
+        # the sum is named first, as in the JAX package; a recompute that
+        # keeps only the sum runs the kernel again for the output
+        s, out = named_outputs(
+            (FUSED_GELU_SUM, FUSED_GELU_OUT),
+            lambda: _gelu_forward(x, bias, approximate, out_dtype)[::-1])
         ctx.save_for_backward(s)
         ctx.approximate = approximate
         ctx.groups = bias.shape[0] if bias.dim() == 2 else None

@@ -21,13 +21,15 @@ attention dropout and `flash_attention_usable` holds, else
 dropout. Hidden dropout runs on the unfused path, as in JAX.
 
 The memory flags (`normalize_invertible`, `gelu_checkpoint`,
-`attn_dropout_checkpoint`) run the core under full-block
-`torch.utils.checkpoint`: the same values as without them, with the
-whole block recomputed in the backward. The JAX layer's per-fusion
-policy (`save_fused_epilogues`) comes with the named remat policies
-(ROADMAP Queue 1 item 4). `stochastic_mode` is accepted and ignored, as
-in JAX. fp16 (`fp16=True`) runs K1-K4 in their fp16 forms, and the
-quantized projections K6 with an fp16 output.
+`attn_dropout_checkpoint`) run the core under remat: on the fused path
+per fusion, as the JAX layer does (the `save_fused_epilogues` policy
+keeps K3's and K4's named outputs, so the recompute launches no K3-fwd
+and skips the GEMMs that only feed it; the layer's flash outputs carry no
+names in the JAX layer, so K1-fwd runs again, as there), else the whole
+block is recomputed. The values are the same either way.
+`stochastic_mode` is accepted and ignored, as in JAX. fp16
+(`fp16=True`) runs K1-K4 in their fp16 forms, and the quantized
+projections K6 with an fp16 output.
 
 Dense kernels keep flax's [in, out] layout (`x @ kernel`), so a JAX
 parameter tree converts by a plain unstack (models/convert.py) and the
@@ -36,17 +38,20 @@ model's `init`, `DeepSpeedTransformerLayer.init_params` or a converted
 tree fills them.
 """
 
+import contextlib
 import inspect
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     dense_attention, dropout, flash_attention, flash_attention_usable)
 from deepspeed_tpu_torch.ops.transformer.fused_ops import (
-    fused_bias_gelu, fused_bias_residual_layernorm, resolve_fused_ops)
+    FUSED_LN_OUT, FUSED_LN_SUM, fused_bias_gelu,
+    fused_bias_residual_layernorm, resolve_fused_ops)
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
+    import dead_gemms, remat
 from deepspeed_tpu_torch.ops.transformer.quantized_matmul import (
     DEFAULT_QUANT_BLOCK, bf16_fallback_matmul, quantized_dense,
     resolve_quantized_compute)
@@ -291,16 +296,27 @@ def _block_call(block, params, *args):
     return torch.func.functional_call(block, params, args)
 
 
-def run_block(block, remat, *args):
-    """One block, under full-block remat when `remat`: torch.utils
-    .checkpoint keeps the block's inputs and recomputes the rest in the
-    backward. The block's parameters are passed explicitly, so the
-    recompute reads the same tensors as the forward even when the caller
-    swapped them in (functional_call)."""
-    if not remat:
+def run_block(block, rematerialize, *args, policy=None):
+    """One block, under remat when `rematerialize`: the block's inputs
+    and what the remat `policy` names are kept (None: nothing more, the
+    full-block remat), the rest recomputed in the backward
+    (`activation_checkpointing.checkpointing.remat`). The block's
+    parameters are passed explicitly, so the recompute reads the same
+    tensors as the forward even when the caller swapped them in
+    (functional_call)."""
+    if not rematerialize:
         return block(*args)
-    return checkpoint(_block_call, block, dict(block.named_parameters()),
-                      *args, use_reentrant=False, preserve_rng_state=False)
+    return remat(_block_call, block, dict(block.named_parameters()), *args,
+                 policy=policy)
+
+
+def epilogue_gemms(use_fused):
+    """Context for a GEMM whose output feeds only a K3 launch
+    (bias + residual + LayerNorm): on the fused path, `dead_gemms` of
+    K3's named outputs (a recompute that keeps them skips the GEMM)."""
+    if use_fused:
+        return dead_gemms((FUSED_LN_OUT, FUSED_LN_SUM))
+    return contextlib.nullcontext()
 
 
 class _TransformerLayerCore(nn.Module):
@@ -376,7 +392,8 @@ class _TransformerLayerCore(nn.Module):
                    for part in qkv.split(h, dim=-1))
         ctx = self._attention(q, k, v, attention_mask, attn_drop, gen)
         ctx = ctx.reshape(b, t, h)
-        attn_y, attn_b = project(self.attn_ow, ctx, quant_seed, 1)
+        with epilogue_gemms(use_fused):
+            attn_y, attn_b = project(self.attn_ow, ctx, quant_seed, 1)
         if use_fused:
             if cfg.pre_layer_norm:
                 # one launch: attn_ow bias + residual + the MLP's pre-norm;
@@ -408,7 +425,8 @@ class _TransformerLayerCore(nn.Module):
                                     out_dtype=dt)
             if cfg.pre_layer_norm:
                 return x + self._dense(self.output_w, inter, quant_seed, 3)
-            mlp_y, mlp_b = project(self.output_w, inter, quant_seed, 3)
+            with epilogue_gemms(use_fused):
+                mlp_y, mlp_b = project(self.output_w, inter, quant_seed, 3)
             return fused_bias_residual_layernorm(
                 mlp_y, mlp_b, x, ln_out.scale, ln_out.bias, eps=eps,
                 out_dtype=torch.float32, return_sum=False)
@@ -449,8 +467,8 @@ class DeepSpeedTransformerLayer(nn.Module):
     kernels) and `core.{attn_layer_norm,layer_norm}.{scale,bias}`, all
     fp32, as the JAX layer's tree has them, on `device` ("cuda" unless
     the caller asks for the CPU). Under a memory flag and gradients, the
-    core runs under full-block torch.utils.checkpoint: its inputs are
-    kept and the rest recomputed in the backward."""
+    core runs under remat: per fusion (`save_fused_epilogues`) on the
+    fused path, as the JAX layer does, else the whole block."""
 
     def __init__(self, config: DeepSpeedTransformerConfig, device="cuda"):
         super().__init__()
@@ -463,10 +481,15 @@ class DeepSpeedTransformerLayer(nn.Module):
         cfg = self.config
         if deterministic is None:
             deterministic = not cfg.training
+        policy = None
+        if resolve_fused_ops(cfg.fused_ops,
+                             deterministic or cfg.hidden_dropout_ratio == 0.0,
+                             hidden_states.device):
+            policy = "save_fused_epilogues"
         return run_block(self.core,
                          cfg.any_checkpointing and torch.is_grad_enabled(),
                          hidden_states, attention_mask, deterministic,
-                         dropout_seed, quant_seed)
+                         dropout_seed, quant_seed, policy=policy)
 
     def init_params(self, seed=0):
         """Fill the parameters from `seed` with the JAX layer's init:

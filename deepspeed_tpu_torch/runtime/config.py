@@ -12,20 +12,24 @@ determine the third), the `bf16` block with `master_weights`, the
 (`get_moe_config`), the `quantized_compute` block
 (`get_quantized_compute_config`) and the `sparse_attention` block
 (`get_sparse_attention`) and the `checkpoint` block
-(`get_checkpoint_config`), each validated as the JAX package validates
-it. The `async_dispatch`, `autotune` and `overlap` blocks are validated
-with the JAX package's errors too, though the port does not act on them
-yet.
+(`get_checkpoint_config`), the `async_dispatch` block
+(`get_async_dispatch_config`), the `activation_checkpointing` block
+(`activation_checkpointing_config`) and `dump_state`, each validated as
+the JAX package validates it. The `autotune` and `overlap` blocks are
+validated with the JAX package's errors too, though the port does not
+act on them yet.
 
 A block that the JAX engine acts on and the port does not yet raises
 NotImplementedError naming the ROADMAP Queue 1 item that ports it
-(`_check_later_slices`): activation checkpointing, async dispatch,
-wall_clock_breakdown and dump_state (4); overlap (5); pipeline and
-sparse gradients (6); the monitor and tensorboard (8); elasticity, the
-flops profiler and autotune (9).
+(`_check_later_slices`): overlap (5); pipeline and sparse gradients
+(6); the monitor, tensorboard and wall_clock_breakdown (8: the JAX
+engine prints the breakdown from the monitor's trace spans);
+elasticity, the flops profiler and autotune (9).
 """
 
 from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.activation_checkpointing.config import \
+    DeepSpeedActivationCheckpointingConfig
 from deepspeed_tpu_torch.runtime.config_utils import (get_scalar_param,
                                                       load_config_dict)
 from deepspeed_tpu_torch.runtime.zero import config as Z
@@ -395,13 +399,7 @@ def get_autotune_config(param_dict):
     return {"enabled": enabled, "table_path": path}
 
 
-# the activation_checkpointing switches the JAX engine acts on
-# (deepspeed_tpu/runtime/activation_checkpointing/config.py), and the
-# flops_profiler block's switch (deepspeed_tpu/profiling/config.py)
-_ACTIVATION_CHKPT = "activation_checkpointing"
-_ACT_CHKPT_SWITCHES = ("partition_activations", "cpu_checkpointing",
-                       "contiguous_memory_optimization",
-                       "synchronize_checkpoint_boundary", "profile")
+# the flops_profiler block's switch (deepspeed_tpu/profiling/config.py)
 _FLOPS_PROFILER = "flops_profiler"
 
 
@@ -442,15 +440,9 @@ class DeepSpeedConfig:
         yet, naming the ROADMAP Queue 1 item that ports it. Runs after
         the blocks are validated, so a bad value fails as it does in the
         JAX package."""
-        act = d.get(_ACTIVATION_CHKPT) or {}
-        if any(act.get(k) for k in _ACT_CHKPT_SWITCHES):
-            raise _later("the activation_checkpointing block", 4)
-        if C.ASYNC_DISPATCH in d and self.async_dispatch_enabled:
-            raise _later("the async_dispatch block (runtime/prefetch.py)", 4)
-        if d.get(C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT):
-            raise _later("wall_clock_breakdown", 4)
-        if d.get(C.DUMP_STATE, C.DUMP_STATE_DEFAULT):
-            raise _later("dump_state", 4)
+        if self.wall_clock_breakdown:
+            # the JAX engine prints it from the monitor's trace spans
+            raise _later("wall_clock_breakdown", 8)
         if C.OVERLAP in d and self.overlap["enabled"]:
             raise _later("the overlap block (ops/overlap.py)", 5)
         if d.get(C.PIPELINE):
@@ -532,6 +524,22 @@ class DeepSpeedConfig:
         self.async_dispatch_prefetch_depth = ad["prefetch_depth"]
         self.autotune = get_autotune_config(d)
         self.overlap = get_overlap_config(d)
+        self.activation_checkpointing_config = \
+            DeepSpeedActivationCheckpointingConfig(d)
+        self.wall_clock_breakdown = bool(get_scalar_param(
+            d, C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT))
+        self.dump_state = bool(get_scalar_param(d, C.DUMP_STATE,
+                                                C.DUMP_STATE_DEFAULT))
+
+    def print(self, name):
+        """Log every resolved setting (the JAX config's `print`, what the
+        engine's dump_state shows at init)."""
+        logger.info("{}:".format(name))
+        for arg in sorted(vars(self)):
+            if arg != "_param_dict":
+                dots = "." * (29 - len(arg))
+                logger.info("  {} {} {}".format(arg, dots,
+                                                 getattr(self, arg)))
 
     def _set_batch_related_parameters(self):
         train_batch = self.train_batch_size

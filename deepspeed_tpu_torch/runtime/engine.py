@@ -37,10 +37,25 @@ scalar, and the loss comes back as a device tensor. A host-side mirror
 of the step count serves logging; the config scheduler's host object
 (what `get_lr()` reads) steps every step and is corrected from the
 device counter at print fences and in `get_lr()`, as the JAX engine's
-async loop does. A client scheduler object is host code: its lr rides
-to the step as a device scalar through a non-blocking copy, and under
-fp16 the engine reads each step's overflow flag to rewind it (the JAX
-engine's synced loop) — the one per-step host read, in that mode only.
+async loop does. The `async_dispatch` block (on unless it says
+`"enabled": false`, as in JAX) sets that loop's host fences: every
+`steps_per_sync` optimizer steps (0: steps_per_print) the engine
+corrects the mirror (fp16 only: one device read) and logs; between
+fences nothing reads the device. `engine.prefetch(source)` wraps a
+microbatch iterable in a `PrefetchLoader` (runtime/prefetch.py: a worker
+thread collates and stages `prefetch_depth` batches ahead on a side CUDA
+stream) that `train_batch(data_iter=...)` takes from directly. With
+`"enabled": false`, or with a client scheduler object (host code, which
+turns async dispatch off with the JAX engine's log line), the loop is
+the JAX engine's synced one: the scheduler's host lr rides to the step
+as a device scalar through a non-blocking copy, and under fp16 the
+engine reads each step's overflow flag to rewind the scheduler — the
+one per-step host read, in that mode only.
+
+The `activation_checkpointing` block configures
+`deepspeed_tpu_torch.checkpointing` (runtime/activation_checkpointing/)
+for the user's `checkpoint()` calls, as the JAX engine does; `dump_state`
+logs the resolved config at init.
 
 Optimizers: Adam/AdamW (`bf16_optimizer.py`), LAMB with the clipped
 trust ratio (`ops/lamb/fused_lamb.py`), SGD with momentum
@@ -115,6 +130,8 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
     make_static_loss_scale_state, update_loss_scale)
 from deepspeed_tpu_torch.runtime.fp16.onebit_adam import (OnebitAdamState,
                                                           onebit_adam)
+from deepspeed_tpu_torch.runtime.prefetch import (PrefetchLoader,
+                                                   stack_microbatches)
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.sgd import SGDState, sgd
@@ -229,6 +246,19 @@ class DeepSpeedEngine:
         if self._config.zero_optimization_stage == 3:
             raise _later("ZeRO stage 3", 6)
 
+        # activation checkpointing (the JAX engine wires the JSON block
+        # into the checkpointing module through configure)
+        ac = self._config.activation_checkpointing_config
+        if any([ac.partition_activations, ac.cpu_checkpointing,
+                ac.contiguous_memory_optimization,
+                ac.synchronize_checkpoint_boundary, ac.profile]):
+            from deepspeed_tpu_torch.runtime.activation_checkpointing \
+                import checkpointing as ds_checkpointing
+            ds_checkpointing.configure(mpu, deepspeed_config=self._config)
+        self._steps_per_sync = \
+            self._config.async_dispatch_steps_per_sync or \
+            self.steps_per_print()
+
         self.collate_fn = collate_fn
         self._resolve_model(model, model_parameters)
         self._init_moe()
@@ -282,6 +312,8 @@ class DeepSpeedEngine:
         self.optimizer = self   # `engine.optimizer` parity
         self._ckpt_writer = None
         self._abandoned_ckpt_writers = []
+        if self._config.dump_state:
+            self._config.print("DeepSpeedEngine configuration")
 
     # ------------------------------------------------------------------
     # model resolution
@@ -487,8 +519,16 @@ class DeepSpeedEngine:
         config's scheduler block, or the constant base lr; a client
         scheduler object is stepped on the host instead (`_step_lr`)."""
         self._device_lr_fn = None
+        self._async_dispatch = self._config.async_dispatch_enabled and \
+            client_lr_scheduler is None
         if client_lr_scheduler is not None:
             self.lr_scheduler = client_lr_scheduler
+            if self._config.async_dispatch_enabled:
+                logger.info(
+                    "async_dispatch: disabled — a client lr_scheduler "
+                    "object is host code the step cannot evaluate on the "
+                    "device (use the config scheduler block for the "
+                    "sync-free hot path)")
             return
         name = self.scheduler_name()
         if name is None:
@@ -599,18 +639,19 @@ class DeepSpeedEngine:
         return loss.detach(), grads
 
     def _step_lr(self):
-        """The step's learning rate as a device scalar: from the device
-        step counter (the config's schedule, or the constant base lr),
-        or a client scheduler's host value copied without a sync; None
-        for a client optimizer with neither (its own lr applies). Also
-        steps the host scheduler, the mirror get_lr() reads."""
+        """The step's learning rate as a device scalar: under async
+        dispatch from the device step counter (the config's schedule), in
+        the synced loop the scheduler's host value copied without a sync;
+        the constant base lr without a scheduler; None for a client
+        optimizer with neither (its own lr applies). Also steps the host
+        scheduler, the mirror get_lr() reads."""
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
+            if not self._async_dispatch:
+                return self._to_device_scalar(
+                    self.lr_scheduler.get_last_lr()[0])
         if self._device_lr_fn is not None:
             return self._device_lr_fn(self.state.global_steps)
-        if self.lr_scheduler is not None:
-            return self._to_device_scalar(
-                self.lr_scheduler.get_last_lr()[0])
         return None
 
     @staticmethod
@@ -700,9 +741,8 @@ class DeepSpeedEngine:
         if batch is None:
             if data_iter is None:
                 raise ValueError("train_batch needs data_iter or batch")
-            micro = [next(data_iter) for _ in range(gas)]
-            return {k: np.stack([np.asarray(m[k]) for m in micro])
-                    for k in micro[0]}
+            return stack_microbatches([next(data_iter)
+                                       for _ in range(gas)])
         leading = next(iter(batch.values())).shape[0]
         if leading != gas:
             raise ValueError(f"stacked batch leading dim {leading} != "
@@ -724,12 +764,27 @@ class DeepSpeedEngine:
             return t.to(self.device)
         return {k: put(v) for k, v in batch.items()}
 
+    def prefetch(self, data_source, depth=None, stacked=False):
+        """Wrap a microbatch iterable in a background PrefetchLoader:
+        collation and `stage_batch` placement run on a worker thread (on
+        a side CUDA stream of the loader's), `depth` (default
+        async_dispatch.prefetch_depth) staged batches ahead of the step
+        loop. Feed the result to `train_batch` as `data_iter`."""
+        return PrefetchLoader(
+            data_source, stage_fn=self.stage_batch,
+            gas=self.gradient_accumulation_steps(),
+            depth=depth if depth is not None else self.prefetch_depth(),
+            stacked=stacked, device=self.device)
+
     def train_batch(self, data_iter=None, batch=None):
         """One optimizer step over gas microbatches: an iterator yielding
-        microbatch dicts, or a stacked batch dict with leading dim
-        [gas, micro_batch, ...]. Returns the mean loss as a device
+        microbatch dicts, a PrefetchLoader (stacked batches already
+        staged: no collation here), or a stacked batch dict with leading
+        dim [gas, micro_batch, ...]. Returns the mean loss as a device
         tensor; nothing in the call waits for the device."""
         gas = self.gradient_accumulation_steps()
+        if batch is None and isinstance(data_iter, PrefetchLoader):
+            batch, data_iter = next(data_iter), None
         batch = self.stage_batch(self._stacked(data_iter, batch))
         self.tput_timer.start()
         lr = self._step_lr()
@@ -820,20 +875,34 @@ class DeepSpeedEngine:
         self.micro_steps += 1
 
     def _after_model_step(self, overflow=None):
-        if overflow is not None and self.client_lr_scheduler is not None:
-            # the JAX engine's synced loop: a client scheduler does not
+        if overflow is not None and not self._async_dispatch and \
+                self.lr_scheduler is not None:
+            # the JAX engine's synced loop: the scheduler does not
             # advance past an overflowed step (this reads the device)
             if bool(overflow):
                 self.lr_scheduler.step(
                     self.lr_scheduler.last_batch_iteration - 1)
+        # print fences are fences too: a steps_per_sync that doesn't
+        # divide into the print multiples must not suppress the log
+        if self._host_steps % self._steps_per_sync == 0 or \
+                self._host_steps % self.steps_per_print() == 0:
+            self._sync_fence()
+
+    def _sync_fence(self):
+        """The hot loop's only host-device rendezvous: correct the
+        scheduler mirror, and at print steps log. Runs every
+        `steps_per_sync` optimizer steps (default: steps_per_print)."""
+        self._sync_scheduler_mirror()
         if self._host_steps % self.steps_per_print() == 0:
             logger.info(f"step={self._host_steps}, lr={self.get_lr()}")
 
     def _sync_scheduler_mirror(self):
         """Correct the config scheduler's host mirror from the device
-        step counter (one device read): only fp16 skips make it drift."""
-        if self.fp16_mode and self.lr_scheduler is not None and \
-                self.client_lr_scheduler is None:
+        step counter (one device read): only fp16 skips make it drift,
+        and only under async dispatch (the synced loop rewinds it each
+        step)."""
+        if self._async_dispatch and self.fp16_mode and \
+                self.lr_scheduler is not None:
             gs = int(self.state.global_steps)
             if self.lr_scheduler.last_batch_iteration != gs - 1:
                 self.lr_scheduler.step(gs - 1)
@@ -853,6 +922,19 @@ class DeepSpeedEngine:
         with torch.no_grad():
             return self._loss_fn(self.state.params, self.stage_batch(batch),
                                  rngs=None, deterministic=True)
+
+    def async_dispatch_enabled(self):
+        """Effective async-dispatch mode (the config flag, vetoed when a
+        client lr_scheduler object forces the synced loop)."""
+        return self._async_dispatch
+
+    def steps_per_sync(self):
+        """Host-device fence cadence in optimizer steps
+        (async_dispatch.steps_per_sync, or steps_per_print when 0)."""
+        return self._steps_per_sync
+
+    def prefetch_depth(self):
+        return self._config.async_dispatch_prefetch_depth
 
     def get_lr(self):
         self._sync_scheduler_mirror()

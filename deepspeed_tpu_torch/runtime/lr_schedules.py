@@ -11,14 +11,20 @@ device step counter, so the learning rate rides a device scalar and no
 step reads anything back to the host. It equals the host class's
 `get_lr()[0]` at `last_batch_iteration == step` (fp32 on the device vs
 float64 on the host: parity to ~1e-6 relative).
+
+`add_tuning_arguments(parser)` adds the schedules' command-line flags
+(the JAX package's namespace), `get_config_from_args(args)` turns them
+into a scheduler block.
 """
 
+import argparse
 import math
 
 import torch
 
 from deepspeed_tpu_torch.utils.logging import logger
 
+LR_SCHEDULE = 'lr_schedule'
 LR_RANGE_TEST = 'LRRangeTest'
 ONE_CYCLE = 'OneCycle'
 WARMUP_LR = 'WarmupLR'
@@ -48,6 +54,65 @@ WARMUP_MIN_LR = 'warmup_min_lr'
 WARMUP_MAX_LR = 'warmup_max_lr'
 WARMUP_NUM_STEPS = 'warmup_num_steps'
 TOTAL_NUM_STEPS = 'total_num_steps'
+
+
+def add_tuning_arguments(parser):
+    group = parser.add_argument_group('Convergence Tuning',
+                                      'Convergence tuning configurations')
+    group.add_argument('--lr_schedule', type=str, default=None,
+                       help='LR schedule for training.')
+    group.add_argument("--lr_range_test_min_lr", type=float, default=0.001)
+    group.add_argument("--lr_range_test_step_size", type=int, default=1000)
+    group.add_argument("--lr_range_test_step_rate", type=float, default=1.0)
+    group.add_argument("--lr_range_test_staircase", type=bool, default=False)
+    group.add_argument("--cycle_first_step_size", type=int, default=1000)
+    group.add_argument("--cycle_first_stair_count", type=int, default=1)
+    group.add_argument("--cycle_second_step_size", type=int, default=-1)
+    group.add_argument("--cycle_second_stair_count", type=int, default=-1)
+    group.add_argument("--decay_step_size", type=int, default=1000)
+    group.add_argument("--cycle_min_lr", type=float, default=0.01)
+    group.add_argument("--cycle_max_lr", type=float, default=0.1)
+    group.add_argument("--decay_lr_rate", type=float, default=0.0)
+    group.add_argument("--cycle_momentum", type=bool, default=False)
+    group.add_argument("--cycle_min_mom", type=float, default=0.8)
+    group.add_argument("--cycle_max_mom", type=float, default=0.9)
+    group.add_argument("--decay_mom_rate", type=float, default=0.0)
+    group.add_argument('--warmup_min_lr', type=float, default=0)
+    group.add_argument('--warmup_max_lr', type=float, default=0.001)
+    group.add_argument('--warmup_num_steps', type=int, default=1000)
+    return parser
+
+
+def parse_arguments():
+    parser = argparse.ArgumentParser()
+    parser = add_tuning_arguments(parser)
+    lr_sched_args, unknown_args = parser.parse_known_args()
+    return lr_sched_args, unknown_args
+
+
+def get_config_from_args(args):
+    if not hasattr(args, LR_SCHEDULE) or args.lr_schedule is None:
+        return None, '--{} not specified on command line'.format(LR_SCHEDULE)
+    if args.lr_schedule not in VALID_LR_SCHEDULES:
+        return None, '{} is not supported LR schedule'.format(args.lr_schedule)
+
+    config = {'type': args.lr_schedule, 'params': {}}
+    if args.lr_schedule == LR_RANGE_TEST:
+        keys = [LR_RANGE_TEST_MIN_LR, LR_RANGE_TEST_STEP_RATE,
+                LR_RANGE_TEST_STEP_SIZE, LR_RANGE_TEST_STAIRCASE]
+    elif args.lr_schedule == ONE_CYCLE:
+        keys = [CYCLE_MIN_LR, CYCLE_MAX_LR, DECAY_LR_RATE,
+                CYCLE_FIRST_STEP_SIZE, CYCLE_FIRST_STAIR_COUNT,
+                CYCLE_SECOND_STEP_SIZE, CYCLE_SECOND_STAIR_COUNT,
+                DECAY_STEP_SIZE, CYCLE_MIN_MOM, CYCLE_MAX_MOM, DECAY_MOM_RATE]
+    else:
+        keys = [WARMUP_MIN_LR, WARMUP_MAX_LR, WARMUP_NUM_STEPS]
+        if args.lr_schedule == WARMUP_DECAY_LR:
+            keys.append(TOTAL_NUM_STEPS)
+    for key in keys:
+        if hasattr(args, key):
+            config['params'][key] = getattr(args, key)
+    return config, None
 
 
 class _OptimizerShim:

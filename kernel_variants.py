@@ -17,6 +17,9 @@
     python3 kernel_variants.py checkpoint_io
                                            # phase 21 with np.savez and
                                            # np.load, and as it is, in turns
+    python3 kernel_variants.py remat_policies
+                                           # training steps under each remat
+                                           # policy and full remat, in turns
 
 Each variant is a copy of deepspeed_tpu_torch/ops/csrc/ with a few text
 substitutions (a product, the softmax, an epilogue or a whole sweep
@@ -655,6 +658,8 @@ def main(argv):
         return compare(argv[1], argv[2:] or COMPARE_PHASES)
     if argv == ["checkpoint_io"]:
         return checkpoint_io()
+    if argv == ["remat_policies"]:
+        return remat_policies()
     if len(argv) != 1 or argv[0] not in SETS:
         print(__doc__, file=sys.stderr)
         return 2
@@ -1288,6 +1293,119 @@ def checkpoint_io():
     with open(path, "w") as f:
         f.write(text)
     return compare(d, ["checkpoint_and_check"])
+
+
+# remat_policies: windows of steps a policy, rounds of windows in turns
+POLICY_STEPS, POLICY_ROUNDS = 4, 3
+
+
+def _policy_windows(label, makers, cs):
+    """Build each engine of `makers` [(name, make)], warm it by 2 steps,
+    then take POLICY_ROUNDS rounds of windows in turns (A B B A, then
+    B A A B, ...), each POLICY_STEPS steps: its ms a step (host clock
+    to the device's end) and the host's enqueue ms a step (until the
+    last train_batch returned, before the device is waited for); then a
+    torch.profiler window of 2 steps per engine. Prints one JSON line."""
+    import time
+    import numpy as np
+    import torch
+    built = {}
+    for name, make in makers:
+        feed = make()
+        for _ in range(2):
+            feed()
+        torch.cuda.synchronize()
+        built[name] = feed
+    names = [n for n, _ in makers]
+    res = {n: {"ms": [], "enqueue_ms": []} for n in names}
+    for r in range(POLICY_ROUNDS):
+        order = names if r % 2 == 0 else names[::-1]
+        for n in order + order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(POLICY_STEPS):
+                built[n]()
+            enq = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            res[n]["ms"].append((time.perf_counter() - t0) /
+                                POLICY_STEPS * 1e3)
+            res[n]["enqueue_ms"].append(enq / POLICY_STEPS * 1e3)
+    for n in names:
+        prof = cs.profile_steps(lambda: [built[n]() for _ in range(2)], 2)
+        res[n].update(busy_ms=prof.get("device_busy_ms_per_step"),
+                      launches=prof.get("kernel_launches_per_step"),
+                      median_ms=float(np.median(res[n]["ms"])),
+                      median_enqueue_ms=float(np.median(
+                          res[n]["enqueue_ms"])))
+    print(json.dumps({"remat_policies": label, "steps_a_window":
+                      POLICY_STEPS, "results": res}), flush=True)
+    del built
+    cs.release()
+
+
+def remat_policies():
+    """The flagship (phase 7's engine) under full remat and under
+    save_fused_epilogues, then path G's gpt2-350m under full remat and
+    under dots_with_no_batch_dims_saveable, fed directly and through
+    engine.prefetch, all engines of a model resident in one process
+    (`_policy_windows`)."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+
+    def flagship(policy):
+        def make():
+            cfg = cs.train_config(remat_policy=policy)
+            model = GPT2ForCausalLM(cfg)
+            engine = dst.initialize(
+                model=model, model_parameters=model.init(0),
+                config=cs.flagship_ds_config(cs.TRAIN_BATCH))[0]
+            ids = np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (1, cs.TRAIN_BATCH, cs.TRAIN_SEQ))
+            staged = engine.stage_batch({"input_ids": ids})
+            return lambda: engine.train_batch(batch=staged)
+        return make
+
+    loaders = []
+
+    def small(policy, prefetch=False):
+        def make():
+            cfg = cs.selective_config(policy)
+            model = GPT2ForCausalLM(cfg)
+            engine = dst.initialize(
+                model=model, model_parameters=model.init(0),
+                config=cs.selective_ds_config(POLICY_STEPS))[0]
+            ids = np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (cs.SEL_BATCH, cs.SEL_SEQ))
+            if prefetch:
+                loader = engine.prefetch(({"input_ids": ids}
+                                          for _ in range(10 ** 6)))
+                loaders.append(loader)
+                return lambda: engine.train_batch(data_iter=loader)
+            staged = engine.stage_batch({"input_ids": ids[None]})
+            return lambda: engine.train_batch(batch=staged)
+        return make
+
+    _policy_windows("gpt2-1.5b", [
+        ("full", flagship(None)),
+        ("save_fused_epilogues", flagship("save_fused_epilogues"))], cs)
+    _policy_windows("gpt2-350m", [
+        ("full", small(None)), ("dots", small(cs.SEL_POLICY)),
+        ("dots_prefetch", small(cs.SEL_POLICY, True)),
+        ("full_prefetch", small(None, True))], cs)
+    for loader in loaders:
+        loader.close()
+    print(cs.card_line(), flush=True)
+    return 0
 
 
 def compare(parent, phases):

@@ -2886,3 +2886,136 @@ def test_fp16_ring_engine_step_launches_exactly(dev, tmp_path):
             "flash_attention_bwd_fused", "flash_attention_bwd")}
     assert got == {"flash_attention_merge": 4, "flash_attention_fwd": 0,
                    "flash_attention_bwd_fused": 2, "flash_attention_bwd": 0}
+
+
+# ----------------------------------------------------------------------
+# named remat policies, cpu_checkpointing, the prefetch loader
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("policy", [
+    None, "dots_with_no_batch_dims_saveable",
+    "save_only_these_names:attn_out,attn_lse", "save_fused_epilogues"],
+    ids=["full", "dots", "attn_names", "fused_epilogues"])
+def test_remat_policy_step_launches_exactly(dev, policy):
+    """A 2-layer GPT-2 at gpt2-350m's width in bf16 (fused path, flash at
+    head dim 64, T 512) through initialize -> train_batch under each
+    remat policy: per step exactly chip_smoke's `gpt2_step_launches`
+    (the JAX jaxpr's recompute, held on the CPU), and the losses of full
+    remat bit for bit."""
+    import deepspeed_tpu_torch as dst
+    cs = _chip_smoke()
+    runs = {}
+    for pol in (None, policy):
+        cfg = tgpt2.gpt2_config("gpt2-350m", n_layer=2, vocab_size=1024,
+                                n_positions=512, dropout=0.0,
+                                dtype=torch.bfloat16, remat=True,
+                                remat_policy=pol)
+        model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+        engine = dst.initialize(
+            model=model, model_parameters=model.init(0),
+            config={"train_micro_batch_size_per_gpu": 4,
+                    "bf16": {"enabled": True},
+                    "optimizer": {"type": "AdamW",
+                                  "params": {"lr": 1e-4}}})[0]
+        ids = torch.randint(0, 1024, (1, 4, 512), generator=_gen(dev, 41),
+                            device=dev)
+        staged = engine.stage_batch({"input_ids": ids})
+        torch.cuda.synchronize()
+        before = cs.read_counts()
+        losses = torch.stack([engine.train_batch(batch=staged)
+                              for _ in range(2)])
+        torch.cuda.synchronize()
+        after = cs.read_counts()
+        runs[pol] = (losses, {k: (after[k] - before[k]) / 2
+                              for k in after})
+    losses, got = runs[policy]
+    want = cs.gpt2_step_launches(policy, 2)
+    assert {k: got[k] for k in want} == {k: float(v)
+                                         for k, v in want.items()}
+    assert bool(torch.isfinite(losses).all())
+    assert torch.equal(losses, runs[None][0])
+
+
+def test_cpu_checkpointing_keeps_pinned_host_inputs(dev):
+    """checkpoint() under cpu_checkpointing on the card: the kept inputs
+    are pinned host tensors (copied without a sync), the device memory
+    between forward and backward drops by their bytes, the gradients
+    equal the on-device run's bit for bit."""
+    from deepspeed_tpu_torch import checkpointing as ck
+    g = _gen(dev, 43)
+    w = torch.randn(256, 256, generator=g, device=dev, requires_grad=True)
+    x0 = torch.randn(64, 1024, 256, generator=g, device=dev)
+
+    def fn(h):
+        return torch.tanh(h @ w)
+
+    def run(offload):
+        ck.configure(None, checkpoint_in_cpu=offload)
+        x = x0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            h = x * 1.0
+            for _ in range(3):
+                h = ck.checkpoint(fn, h)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        staged = ck.host_staged_inputs()
+        info = (held, len(staged), all(t.is_pinned() for t in staged),
+                sum(t.numel() * t.element_size() for t in staged))
+        del staged
+        grads = torch.autograd.grad(h.sum(), [x, w])
+        return info, grads
+
+    try:
+        (held0, n0, _, _), g0 = run(False)
+        (held1, n1, pinned, nbytes), g1 = run(True)
+    finally:
+        ck.configure(None)
+    assert n0 == 0 and n1 == 3 and pinned
+    assert held0 - held1 >= nbytes == 3 * x0.numel() * 4
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def test_prefetch_loader_stages_on_its_side_stream(dev):
+    """The PrefetchLoader stages on its own stream: each batch equals the
+    host batch, the consumer's stream waits on the staging event (no
+    host sync: taken under set_sync_debug_mode("error")), and the staged
+    tensors are recorded on the consumer's stream."""
+    from deepspeed_tpu_torch.runtime.prefetch import PrefetchLoader
+
+    rng = np.random.default_rng(5)
+    micro = [{"ids": rng.integers(0, 1000, (8, 4096)).astype(np.int32),
+              "x": rng.standard_normal((8, 4096)).astype(np.float32)}
+             for _ in range(6)]
+    streams = []
+
+    def stage(batch):
+        streams.append(torch.cuda.current_stream(dev))
+        return {k: torch.as_tensor(v).pin_memory().to(dev, non_blocking=True)
+                for k, v in batch.items()}
+
+    loader = PrefetchLoader(iter(micro), stage_fn=stage, gas=2, depth=2,
+                            device=dev)
+    consumer = torch.cuda.current_stream(dev)
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            batch = next(loader)
+            # a consumer-stream op on the staged batch, ordered after the
+            # copy by the event wait
+            got.append({k: v * 1 for k, v in batch.items()})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with pytest.raises(StopIteration):
+        next(loader)
+    loader.close()
+    assert streams and all(s != consumer for s in streams)
+    assert all(s == loader._stream for s in streams)
+    for i, batch in enumerate(got):
+        for k in ("ids", "x"):
+            ref = np.stack([micro[2 * i][k], micro[2 * i + 1][k]])
+            assert np.array_equal(batch[k].cpu().numpy(), ref)

@@ -172,10 +172,11 @@ def test_fp32_gradients_match_jax(pre_ln, fused, t, masked):
                                   "attn_dropout_checkpoint"])
 @pytest.mark.parametrize("fused", ["on", "off"])
 def test_memory_flags_keep_the_values(flag, fused):
-    """Full-block recompute under each flag: the output and every
-    gradient equal the layer's without the flag bit for bit (the same
-    ops run again), and the output matches JAX's layer with the flag
-    (JAX's per-fusion policy under fused ops)."""
+    """Remat under each flag (per fusion under fused ops, as JAX's
+    layer: save_fused_epilogues; else the whole block): the output and
+    every gradient equal the layer's without the flag bit for bit (the
+    kept outputs are the forward's, the rest runs again), and the output
+    matches JAX's layer with the flag."""
     jlayer, params, layer = _pair(pre_layer_norm=False, fused_ops=fused,
                                   **{flag: True})
     plain = TLayer(TConfig(**_cfg(pre_layer_norm=False, fused_ops=fused)),
