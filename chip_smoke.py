@@ -108,20 +108,20 @@ Phases, each printing one JSON line:
  20. sp_training: phase 7 with sequence_parallel="ring" in the one-rank
      group (2 warm-up and 4 timed steps), each step's loss within 1e-2
      of phase 7's, K5 on every layer;
- 21. checkpoint: phase 7's flagship saves, resumes and continues. Engine
-     A takes 2 steps and a 4-step window without a save, saves the same
-     state sync and async (the async writer copying to pinned host
-     memory on its own CUDA stream), and takes 4 more steps while the
-     writer runs; engine B, fresh from other weights, loads `latest`
-     and takes those 4 steps on the same batches. Gates: the async call
-     returns before its commit, `latest` names the tag with no staging
-     dir left, the sync and async directories are byte-identical, every
-     leaf B loaded equals the file's bytes, B's losses equal A's bit for
-     bit, every training kernel launched. Printed: bytes written, the
-     blocked ms of both calls, the two windows' ms and the stall,
-     fetch, commit and load ms, peak device memory and host RSS during
-     the save; the checkpoint directory lives under build/ and is
-     removed at the end;
+ 21. checkpoint: phase 7's flagship (8 of its 48 layers) saves, resumes
+     and continues. Engine A takes 2 steps and a 4-step window without a
+     save, saves the same state sync and async (the async writer copying
+     to pinned host memory on its own CUDA stream), and takes 4 more
+     steps while the writer runs; engine B, fresh from other weights,
+     loads `latest` and takes those 4 steps on the same batches. Gates:
+     the async call returns before its commit, `latest` names the tag
+     with no staging dir left, the sync and async directories are
+     byte-identical, every leaf B loaded equals the file's bytes, B's
+     losses equal A's bit for bit, every training kernel launched.
+     Printed: bytes written, the blocked ms of both calls, the two
+     windows' ms and the stall, fetch, commit and load ms, peak device
+     memory and host RSS during the save; the checkpoint directory lives
+     under build/ and is removed at the end;
  22. kernel_bert: K1-fwd and K2 (bf16 non-causal [16, 128, 16, 64]),
      K3-fwd and K3-bwd in the post-LN form (N 2,048, H 1024; the
      residual in bf16 and in fp32, fp32 out, the sum for the backward
@@ -150,9 +150,10 @@ Phases, each printing one JSON line:
      where the twin is), K5 and K2's given-delta entry on both routes at
      F's and the ring leg's;
  26. bert_fp16_oracle: phase 24 in fp16 (loss scaled by 2^10);
- 27-29. fp16 paths A (BERT-large + LAMB), B (gpt2-1.5b + progressive
-     layer drop) and C (gpt2-1.5b width at 4 layers: the engine's other
-     optimizers and client objects), each until 8 clean steps follow the
+ 27-29. fp16 paths A (BERT-large + LAMB, 8 of its 24 layers), B
+     (gpt2-1.5b + progressive layer drop, 16 of its 48 layers) and C
+     (gpt2-1.5b width at 4 layers: the engine's other optimizers and
+     client objects), each until 8 clean steps follow the
      last skipped one (`run_fp16_path`: finite, falling losses, the JAX
      automaton's scales, no bit moved on a skip, exact launches, the
      update under set_sync_debug_mode("error"), step ms, a profile);
@@ -185,7 +186,37 @@ Phases, each printing one JSON line:
      least their bytes;
  38. bert_memory_flags: BERT-large's layer at 4 layers with and without
      normalize_invertible under fused ops: one more K1-fwd and K4-fwd a
-     layer, no more K3-fwd (the JAX layer's jaxpr), losses within 1e-2.
+     layer, no more K3-fwd (the JAX layer's jaxpr), losses within 1e-2;
+ 39. O1, zero_offload_real_step (bench.py:475-527) verbatim: gpt2-125m,
+     micro batch 8, seq 1024, gas 4, dropout 0, bf16 with fp32
+     parameters, full remat, ZeRO-2 + cpu_offload, AdamW lr 1e-4: the
+     host's cores, RAM and CPU-Adam threads (printed after phase 1), 1
+     warm-up and 3 timed steps (step ms, tokens/s, the split: the device
+     half until the norm is on the host, the norm wait, the host chunk
+     loop, D2H/H2D bytes and their device ms and GB/s), exact launches
+     (K1-fwd 96, K2-fused 48, K3-fwd 196, K3-bwd 100, K4-fwd 96, K4-bwd
+     48 a step), the pipeline on the device clock (chunk i+1's D2H and
+     chunk i-1's H2D inside chunk i's host step) and the serial round
+     trip's steps beside the pipelined ones in turns, a profile;
+ 40. O2, zero_offload_wire (bench.py:534-600): O1 at bf16_native, int8
+     (8/8) and 1bit (1/8, warmup_steps 1), 4 steps each: wire_stats and
+     step ms; int8 under 0.55x and 1-bit under 0.2x the native D2H
+     bytes, H2D as the JAX package counts it, the last losses within
+     5e-2 of bf16_native's;
+ 41. O3: bench_gpt2_15b's config with "cpu_offload": true at full width
+     and depth (master_weights false is ignored with a warning): 1
+     warm-up and 3 timed steps, step ms, tokens/s, peak device memory,
+     host RSS, the split, exact launches;
+ 42. O3's A/B at 4 layers: against the device engine with fp32 masters
+     on the same weights and batches, losses within 1e-2 over 4 steps,
+     host masters within 5e-3 relative L2 of the device master;
+ 43. O4: the A/B's model in fp16 with cpu_offload from 2^32 until 8 clean
+     steps follow the last skip: the first step skips, every skip keeps
+     the host masters bit for bit, the scales are the JAX package's host
+     automaton's;
+ 44. O5 (after 39): O1's engine saves and takes 2 steps; a fresh engine
+     loads and takes the same 2: masters, moments and step bit-equal,
+     losses bit-equal. Every offload path runs the native CPU-Adam.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -269,7 +300,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SM90_SEED = 7
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's seconds so far
+    ("t_s"), where the run's time goes."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1863,9 +1901,9 @@ def quant_oracle(seed, n_layer=2):
 CKPT_STEPS_BEFORE, CKPT_STEPS_WINDOW = 2, 4
 # the flagship's depth in this phase (its width always 1600): cut from
 # 48 to 16 layers to keep the whole run, with the fp16 phases, within
-# half its time limit (the save, load and resume paths are the same at
-# any depth; the bytes scale with it)
-CKPT_N_LAYER = 16
+# half its time limit, and to 8 with the offload phases (the save, load
+# and resume paths are the same at any depth; the bytes scale with it)
+CKPT_N_LAYER = 8
 
 
 def _rss_bytes():
@@ -3278,6 +3316,14 @@ BERT_LAUNCHES_PER_MICRO = {
     "fused_bias_residual_layernorm_bwd": 48,
     "fused_bias_gelu_fwd": 24, "fused_bias_gelu_bwd": 24}
 BERT_KERNELS = tuple(k for k, v in BERT_LAUNCHES_PER_MICRO.items() if v)
+# path A's depth (BERT-large's width, 24 layers in the cell): cut to 8
+# with the offload phases to keep the run within its time limit (the
+# skips, the scale automaton and LAMB's update are the same at any
+# depth)
+FP16_A_LAYERS = 8
+# path B's depth (gpt2-1.5b's width, 48 layers in the cell): cut to 16
+# for the same reason
+FP16_B_LAYERS = 16
 
 
 def kernel_bert(peaks):
@@ -3768,7 +3814,7 @@ FP16_KERNELS = {
 # the fp16 paths: their launches are the fp16 forms'
 FP16_PATHS = ("sparse_attention_fp16", "bert_fp16", "gpt2_fp16_pld",
               "engine_surface_fp16", "moe_fp16", "moe_quant_fp16",
-              "sequence_parallel_fp16", "sp_fp16")
+              "sequence_parallel_fp16", "sp_fp16", "offload_fp16")
 # an fp16 row whose launches are counted apart from its bf16 row's
 # counter (K4's grouped launches), and the paths of a row whose counter
 # other fp16 forms share: K2's given-delta entry runs on the ring paths
@@ -4750,8 +4796,8 @@ def bert_fp16_ds_config():
 
 def bert_fp16_lamb(seed, card):
     """Path A (phase 27): BERT-large pretraining (bench_bert_large: 24
-    post-LN layers, hidden 1024, 16 heads, vocab 30,522, micro batch 16,
-    gas 16, seq 128, dropout 0) in fp16 with LAMB through initialize ->
+    post-LN layers, here FP16_A_LAYERS, hidden 1024, 16 heads, vocab
+    30,522, micro batch 16, gas 16, seq 128, dropout 0) in fp16 with LAMB through initialize ->
     train_batch on one repeated batch of its recipe, from the scale
     2^32 until 8 clean steps follow the last skip (`run_fp16_path`).
     Reports samples/s and TFLOP/s too. Returns the launch counts."""
@@ -4759,7 +4805,8 @@ def bert_fp16_lamb(seed, card):
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models.bert import BertForPreTrainingLM
 
-    cfg = bert_model_config(fp16=True, bf16=False)
+    cfg = bert_model_config(fp16=True, bf16=False,
+                            num_hidden_layers=FP16_A_LAYERS)
     t0 = time.perf_counter()
     model = BertForPreTrainingLM(cfg)
     params = model.init(seed)
@@ -4772,10 +4819,11 @@ def bert_fp16_lamb(seed, card):
     setup_s = time.perf_counter() - t0
     counts, row = run_fp16_path(
         "bert_fp16", engine, staged, FP16_STEP_CAP["bert_fp16"], card,
-        expect_per_step={k: v * BERT_GAS
+        expect_per_step={k: v * BERT_GAS * FP16_A_LAYERS // 24
                          for k, v in BERT_LAUNCHES_PER_MICRO.items()},
         tokens_per_step=BERT_BATCH * BERT_GAS * BERT_SEQ,
-        extra={"model": "bert-large", "n_params": n_params,
+        extra={"model": "bert-large", "n_layer": FP16_A_LAYERS,
+               "n_params": n_params,
                "setup_s": setup_s, "micro_batch": BERT_BATCH,
                "gas": BERT_GAS, "seq": BERT_SEQ,
                "dtype": "fp16 compute, fp32 masters and moments",
@@ -4804,8 +4852,9 @@ def gpt2_fp16_launches(n_layer, pld):
 
 
 def gpt2_fp16_pld(seed, card):
-    """Path B (phase 28): the training flagship (bench_gpt2_15b: gpt2-1.5b,
-    micro batch 11, seq 1024, ZeRO-2, AdamW, full-block remat, dropout 0)
+    """Path B (phase 28): the training flagship (bench_gpt2_15b: gpt2-1.5b
+    at FP16_B_LAYERS of its 48 layers, micro batch 11, seq 1024, ZeRO-2,
+    AdamW, full-block remat, dropout 0)
     in fp16 ({"enabled": true}: fp16 parameters, fp32 masters and
     moments, the dynamic scale from 2^32) with progressive layer drop
     (theta 0.5, gamma 0.001) through initialize -> train_batch on one
@@ -4817,7 +4866,8 @@ def gpt2_fp16_pld(seed, card):
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
 
-    cfg = train_config(dtype=torch.float16, param_dtype=torch.float32)
+    cfg = train_config(dtype=torch.float16, param_dtype=torch.float32,
+                       n_layer=FP16_B_LAYERS)
     ds_config = flagship_ds_config(TRAIN_BATCH)
     del ds_config["bf16"]
     ds_config["fp16"] = {"enabled": True}
@@ -5664,6 +5714,499 @@ def read_counts():
             "block_sparse_bwd_dq_sm90": bsa._bs_bwd_dq_sm90_launch.launches}
 
 
+# ----------------------------------------------------------------------
+# phases 39-44: ZeRO-Offload (O1-O5)
+# ----------------------------------------------------------------------
+# O1: bench.py's zero_offload_real_step (bench.py:475-527) verbatim
+OFF_BATCH, OFF_SEQ, OFF_GAS, OFF_LAYERS = 8, 1024, 4, 12
+OFF_TIMED = 3
+# O2: bench.py's zero_offload_wire settings (bench.py:534-600)
+OFF_WIRES = (("bf16_native", {}),
+             ("int8", {"grad_bits": 8, "param_bits": 8}),
+             ("1bit", {"grad_bits": 1, "param_bits": 8, "warmup_steps": 1}))
+OFF_WIRE_STEPS = 4
+# the wire's losses against bf16_native's at the same step (the same
+# weights and batches; int8 and 1-bit gradients move each update by up
+# to a quantization step, which shows in the loss by the 4th step)
+TOL_WIRE_LOSS = 5e-2
+# the wire's D2H bytes against the native wire's: int8 is n + 4 bytes a
+# 4096-element block (0.5001x), 1 bit n / 8 + the scales (0.0626x)
+WIRE_D2H_RATIO = {"int8": 0.55, "1bit": 0.2}
+# O3: the flagship with cpu_offload; its A/B against the device engine
+# with fp32 masters at this many layers, and O4 (fp16) at the same
+OFF_AB_LAYERS = 4
+OFF_AB_STEPS = 4
+# the A/B: the same AdamW on the host (CPU-Adam) and on the card (the
+# engine's fused update); both keep fp32 masters and round the same bf16
+# parameters, so the losses differ by the update's float roundoff only,
+# carried through 4 steps, and the masters by lr-sized steps' roundoff
+TOL_OFF_AB_LOSS = 1e-2
+TOL_OFF_AB_MASTER = 5e-3
+OFF_FP16_CAP = 40
+# an interior chunk's copies count as hidden when they end before the
+# host's step on that chunk does; the event clock's jitter (ms)
+OFF_CLOCK_SLACK = 0.05
+
+
+def host_line():
+    """The host's cores, RAM and CPU-Adam threads: the offload paths'
+    time depends on them."""
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import ds_num_threads
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True)
+    row = {"phase": "offload_host", "nproc": os.cpu_count(),
+           "affinity_cpus": len(os.sched_getaffinity(0)),
+           "free_g": free.stdout.strip().splitlines(),
+           "ds_num_threads": ds_num_threads()}
+    emit(row)
+    return row
+
+
+def offload_ds_config(wire=None, micro=OFF_BATCH, gas=OFF_GAS):
+    """zero_offload_real_step's ds_config (bench.py:497-504), with the
+    offload_wire block when given."""
+    zero = {"stage": 2, "cpu_offload": True}
+    if wire:
+        zero["offload_wire"] = dict(wire)
+    return {"train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas, "steps_per_print": 1000,
+            "bf16": {"enabled": True}, "zero_optimization": zero,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+
+
+def offload_125m(seed, wire=None):
+    """gpt2-125m, bf16 compute with fp32 parameters, full remat, dropout
+    0, through initialize with offload_ds_config. Returns (engine, cfg,
+    setup seconds)."""
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM, gpt2_config
+    cfg = gpt2_config("gpt2-125m", n_positions=OFF_SEQ, dropout=0.0,
+                      dtype=torch.bfloat16, param_dtype=torch.float32,
+                      remat=True)
+    t0 = time.perf_counter()
+    model = GPT2ForCausalLM(cfg)
+    engine, _, _, _ = dst.initialize(model=model,
+                                     model_parameters=model.init(seed),
+                                     config=offload_ds_config(wire))
+    torch.cuda.synchronize()
+    if not engine._host_adam.native:
+        raise AssertionError("offload: CPU-Adam is not the native library")
+    return engine, cfg, time.perf_counter() - t0
+
+
+def offload_batch(cfg, i, gas=OFF_GAS, micro=OFF_BATCH, seq=OFF_SEQ):
+    """bench.py's make_batch(i): [gas, micro, seq] ids from seed i."""
+    import numpy as np
+    return {"input_ids": np.random.default_rng(i).integers(
+        0, cfg.vocab_size, (gas, micro, seq)).astype(np.int32)}
+
+
+def offload_step(engine, batch):
+    """One synced train_batch: (loss, the step's split): step ms, the
+    device half (until the norm is on the host), the norm wait, the host
+    chunk loop, CPU-Adam's share of it, the copies' device ms and rates."""
+    import torch
+    t0 = time.perf_counter()
+    loss = engine.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tm = dict(engine.offload_timing)
+    ws = engine.wire_stats
+    split = {"step_ms": (t1 - t0) * 1e3,
+             "device_half_ms": (tm["norm_at"] - t0) * 1e3,
+             "norm_wait_ms": tm["norm_wait_ms"],
+             "host_loop_ms": tm["host_loop_ms"],
+             "after_loop_ms": (t1 - tm["done_at"]) * 1e3,
+             "chunks": tm["chunks"], "ring": tm["ring"],
+             "d2h_bytes": ws["d2h_bytes"], "h2d_bytes": ws["h2d_bytes"]}
+    if tm["ring"] > 0:
+        copies = engine.offload_copy_ms()
+        split.update(host_chunks_ms=tm["host_chunks_ms"],
+                     copy_wait_ms=tm["copy_wait_ms"], **copies,
+                     d2h_gb_per_s=ws["d2h_bytes"] / copies["d2h_ms"] / 1e6,
+                     h2d_gb_per_s=ws["h2d_bytes"] / copies["h2d_ms"] / 1e6)
+    return float(loss), split
+
+
+def overlap_gate(trace):
+    """From offload_trace: for each interior chunk i, whether chunk
+    i+1's D2H and chunk i-1's H2D ran inside chunk i's window (after the
+    host's step on chunk i-1 ended, ended before its step on chunk i
+    did): the copies the host step hid."""
+    host = trace["host"]
+    rows = []
+    for i in range(1, len(host) - 1):
+        lo, hi = host[i - 1][1], host[i][1]
+        d, h = trace["d2h"][i + 1], trace["h2d"][i - 1]
+        rows.append({
+            "chunk": i, "window_ms": [lo, hi],
+            "d2h_next_ms": list(d), "h2d_prev_ms": list(h),
+            "d2h_hidden": d[0] >= lo - OFF_CLOCK_SLACK and d[1] <= hi,
+            "h2d_hidden": h[0] >= lo - OFF_CLOCK_SLACK and h[1] <= hi})
+    hidden = sum(r["d2h_hidden"] and r["h2d_hidden"] for r in rows)
+    return {"interior_chunks": len(rows), "hidden": hidden,
+            "all_hidden": hidden == len(rows), "worst": rows[:3] + [
+                r for r in rows if not (r["d2h_hidden"] and
+                                        r["h2d_hidden"])][:3]}
+
+
+def zero_offload_real_step(seed, card):
+    """O1 (phase 39): bench.py's zero_offload_real_step verbatim, 1
+    warm-up and OFF_TIMED timed steps, exact launches, a profile, the
+    pipeline's overlap on the device clock, and the serial round trip's
+    step beside the pipelined one. Returns (counts, engine, cfg, the
+    losses), the engine for O5."""
+    import torch
+    engine, cfg, setup_s = offload_125m(seed)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, splits = [], []
+    for i in range(1 + OFF_TIMED):
+        loss, split = offload_step(engine, offload_batch(cfg, i))
+        losses.append(loss)
+        splits.append(split)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    exact_launches("zero_offload_real_step", counts,
+                   (1 + OFF_TIMED) * OFF_GAS, None, OFF_LAYERS)
+    timed = splits[1:]
+    step_ms = sum(s["step_ms"] for s in timed) / len(timed)
+    tokens = OFF_BATCH * OFF_SEQ * OFF_GAS
+    n = engine._host_master.size
+    # the traced step: the copies against the host steps on the device
+    # clock; then the serial round trip (blocking copies) beside the
+    # pipelined one, in turns
+    engine._offload_trace = True
+    _, traced = offload_step(engine, offload_batch(cfg, 10))
+    gate = overlap_gate(engine.offload_trace())
+    engine._offload_trace = False
+    turns = []
+    for ring in (0, 2, 2, 0):
+        engine._offload_ring = ring
+        turns.append(offload_step(engine, offload_batch(cfg, 11))[1])
+    engine._offload_ring = 2
+    serial = [t["step_ms"] for t in turns if t["ring"] == 0]
+    piped = [t["step_ms"] for t in turns if t["ring"] == 2]
+    profile = profile_steps(
+        lambda: engine.train_batch(batch=offload_batch(cfg, 12)), 1)
+    row = {"phase": "zero_offload_real_step", "model": "gpt2-125m",
+           "params": n, "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+           "micro_batch": OFF_BATCH, "seq": OFF_SEQ, "gas": OFF_GAS,
+           "dtype": "bf16 compute, fp32 masters and moments on the host",
+           "native_cpu_adam": engine._host_adam.native,
+           "chunks": len(engine._offload_bounds_cached),
+           "setup_s": setup_s, "warmup_steps": 1, "steps": OFF_TIMED,
+           "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "split_by_step": timed,
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "losses": losses,
+           "launches_per_step": {k: v / (1 + OFF_TIMED)
+                                 for k, v in counts.items() if v},
+           "overlap": gate, "traced_step": traced,
+           "serial_vs_pipelined_step_ms": {"serial": serial,
+                                           "pipelined": piped},
+           "serial_vs_pipelined_host_loop_ms": {
+               "serial": [t["host_loop_ms"] for t in turns
+                          if t["ring"] == 0],
+               "pipelined": [t["host_loop_ms"] for t in turns
+                             if t["ring"] == 2]},
+           "card": card}
+    emit(row)
+    emit({"phase": "zero_offload_real_step_profile", **profile,
+          "card": card})
+    import numpy as np
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"O1 losses {losses}: not finite")
+    if not gate["all_hidden"] and min(piped) > min(serial):
+        raise AssertionError(f"O1: the pipeline hid no copies ({gate}) "
+                             f"and is not faster than the serial round "
+                             f"trip ({piped} ms against {serial})")
+    return counts, engine, cfg, losses
+
+
+def zero_offload_wire(seed, card):
+    """O2 (phase 40): O1's config at each of bench.py's wire settings,
+    OFF_WIRE_STEPS steps on the same batches; the wire_stats, step ms,
+    and the gates: int8 and 1-bit D2H bytes under their ratios of the
+    native wire's, H2D as the JAX package counts it, losses finite and
+    within TOL_WIRE_LOSS of bf16_native's after the last step. Returns
+    the launch counts over the three engines."""
+    import numpy as np
+    total, rows, native_loss = None, {}, None
+    for name, wire in OFF_WIRES:
+        engine, cfg, _ = offload_125m(seed, wire)
+        reset_counts()
+        losses, splits = [], []
+        for i in range(OFF_WIRE_STEPS):
+            loss, split = offload_step(engine, offload_batch(cfg, i))
+            losses.append(loss)
+            splits.append(split)
+        counts = read_counts()
+        total = counts if total is None else \
+            {k: total[k] + v for k, v in counts.items()}
+        ws = dict(engine.wire_stats)
+        bounds = engine._offload_bounds_cached
+        h2d = sum((hi - lo) + 4 * -(-(hi - lo) // 4096) for lo, hi in bounds) \
+            if wire.get("param_bits") == 8 else 2 * engine._host_master.size
+        rows[name] = {"wire": wire, "wire_stats": ws, "losses": losses,
+                      "step_ms": [s["step_ms"] for s in splits],
+                      "split_last": splits[-1],
+                      "d2h_ratio": ws["d2h_bytes"] / ws["d2h_bytes_native"],
+                      "h2d_expected": h2d}
+        if name == "bf16_native":
+            native_loss = losses
+        del engine
+        release()
+    gaps = {k: abs(r["losses"][-1] - native_loss[-1]) for k, r in
+            rows.items()}
+    ok = {"finite": all(np.isfinite(r["losses"]).all()
+                        for r in rows.values()),
+          "d2h_ratios": all(rows[k]["d2h_ratio"] < v
+                            for k, v in WIRE_D2H_RATIO.items()),
+          "h2d_as_jax": all(r["wire_stats"]["h2d_bytes"] == r["h2d_expected"]
+                            for r in rows.values()),
+          "losses_within": max(gaps.values()) <= TOL_WIRE_LOSS,
+          "past_warmup": not any(r["wire_stats"]["warmup"]
+                                 for r in rows.values())}
+    emit({"phase": "zero_offload_wire", "settings": rows,
+          "last_loss_gap_to_native": gaps, "tol": TOL_WIRE_LOSS,
+          "gates": ok, "card": card})
+    if not all(ok.values()):
+        raise AssertionError(f"O2 gates failed: {ok}")
+    return total
+
+
+def offload_flagship_config(n_layer=None, fp16=False):
+    """bench_gpt2_15b's ds_config (bench.py:242-250) with "cpu_offload":
+    true in its ZeRO-2 block; fp16 in place of bf16 for O4."""
+    ds = flagship_ds_config(TRAIN_BATCH)
+    ds["zero_optimization"] = {"stage": 2, "cpu_offload": True}
+    if fp16:
+        del ds["bf16"]
+        ds["fp16"] = {"enabled": True, "loss_scale": 0,
+                      "initial_scale_power": 32}
+    return ds
+
+
+def offload_flagship(seed, card):
+    """O3 (phase 41): the flagship with cpu_offload at full width and
+    depth, 1 warm-up and OFF_TIMED timed steps: step ms, tokens/s, peak
+    device memory, host RSS, the split. Returns the launch counts."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    cfg = train_config()
+    rss0 = _rss_bytes()
+    t0 = time.perf_counter()
+    model = GPT2ForCausalLM(cfg)
+    engine, _, _, _ = dst.initialize(model=model,
+                                     model_parameters=model.init(seed),
+                                     config=offload_flagship_config())
+    del model
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if not engine._host_adam.native:
+        raise AssertionError("O3: CPU-Adam is not the native library")
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    staged = engine.stage_batch({"input_ids": ids})
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, splits = [], []
+    for _ in range(1 + OFF_TIMED):
+        loss, split = offload_step(engine, staged)
+        losses.append(loss)
+        splits.append(split)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rss = _rss_bytes()
+    exact_launches("offload_flagship", counts, 1 + OFF_TIMED, None,
+                   cfg.n_layer)
+    timed = splits[1:]
+    step_ms = sum(s["step_ms"] for s in timed) / len(timed)
+    n = engine._host_master.size
+    emit({"phase": "offload_flagship", "model": "gpt2-1.5b",
+          "params": n, "n_layer": cfg.n_layer, "n_embd": cfg.n_embd,
+          "micro_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "dtype": "bf16 compute; fp32 masters and moments on the host "
+                   "(master_weights false is ignored with cpu_offload)",
+          "native_cpu_adam": engine._host_adam.native,
+          "chunks": len(engine._offload_bounds_cached),
+          "setup_s": setup_s, "steps": OFF_TIMED, "step_ms": step_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+          "split_by_step": timed, "losses": losses,
+          "max_memory_allocated_gib": peak / 2 ** 30,
+          "host_rss_gib": rss / 2 ** 30,
+          "host_rss_growth_gib": (rss - rss0) / 2 ** 30,
+          "host_state_gib": 3 * n * 4 / 2 ** 30,
+          "card": card})
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"O3 losses {losses}: not finite or falling")
+    del engine, staged
+    release()
+    return counts
+
+
+def offload_ab(seed, card):
+    """O3's A/B (phase 42): at OFF_AB_LAYERS layers of the flagship's
+    width, the offload engine against the device engine with fp32
+    masters (bf16 master_weights true) on the same weights and batches:
+    losses within TOL_OFF_AB_LOSS over OFF_AB_STEPS steps, the host
+    masters within TOL_OFF_AB_MASTER relative L2 of the device master."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    cfg = train_config(n_layer=OFF_AB_LAYERS)
+    ids = np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab_size, (OFF_AB_STEPS, 1, TRAIN_BATCH, TRAIN_SEQ)).astype(
+        np.int32)
+    out = {}
+    for kind in ("offload", "device"):
+        ds = offload_flagship_config()
+        if kind == "device":
+            ds["zero_optimization"] = {"stage": 2}
+            ds["bf16"] = {"enabled": True, "master_weights": True}
+        model = GPT2ForCausalLM(cfg)
+        engine, _, _, _ = dst.initialize(model=model,
+                                         model_parameters=model.init(seed),
+                                         config=ds)
+        losses = [float(engine.train_batch(batch={"input_ids": x}))
+                  for x in ids]
+        if kind == "offload":
+            order = engine._offload_order
+            master = engine._host_master.copy()
+        else:
+            fp32 = engine.fp32_params
+            master = torch.cat([fp32[n].reshape(-1) for n in order]).cpu() \
+                .numpy()
+        out[kind] = (losses, master)
+        del engine, model
+        release()
+    gaps = [abs(a - b) for a, b in zip(out["offload"][0], out["device"][0])]
+    rel = float(np.linalg.norm(out["offload"][1] - out["device"][1]) /
+                np.linalg.norm(out["device"][1]))
+    ok = max(gaps) <= TOL_OFF_AB_LOSS and rel <= TOL_OFF_AB_MASTER
+    emit({"phase": "offload_ab", "n_layer": OFF_AB_LAYERS,
+          "losses_offload": out["offload"][0],
+          "losses_device_fp32_masters": out["device"][0], "abs_gap": gaps,
+          "tol_loss": TOL_OFF_AB_LOSS, "master_rel_l2": rel,
+          "tol_master": TOL_OFF_AB_MASTER, "ok": ok, "card": card})
+    if not ok:
+        raise AssertionError(f"O3 A/B: loss gaps {gaps}, master rel L2 "
+                             f"{rel}")
+
+
+def offload_fp16(seed, card):
+    """O4 (phase 43): the A/B's model in fp16 with cpu_offload from the
+    scale 2^32, until FP16_CLEAN_STEPS clean steps follow the last skip:
+    each skipped step leaves the host masters bit for bit, the scale
+    follows the JAX package's host automaton (its DynamicLossScaler,
+    replayed on the same overflow flags). Returns the launch counts."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler
+    cfg = train_config(dtype=torch.float16, param_dtype=torch.float32,
+                       n_layer=OFF_AB_LAYERS)
+    model = GPT2ForCausalLM(cfg)
+    engine, _, _, _ = dst.initialize(
+        model=model, model_parameters=model.init(seed),
+        config=offload_flagship_config(fp16=True))
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    staged = engine.stage_batch({"input_ids": ids})
+    replay = CreateLossScaler(
+        dtype_fp16=True, static_loss_scale=0, dynamic_scaling=True,
+        dynamic_loss_args=engine.dynamic_loss_scale_args())
+    init = engine._host_scaler.cur_scale
+    reset_counts()
+    losses, scales, flags, replayed, kept = [], [], [], [], []
+    clean = 0
+    while len(losses) < OFF_FP16_CAP and clean < FP16_CLEAN_STEPS:
+        before = engine._host_master.copy()
+        skipped = engine.skipped_steps
+        losses.append(float(engine.train_batch(batch=staged)))
+        flag = engine.skipped_steps > skipped
+        flags.append(flag)
+        scales.append(engine._host_scaler.cur_scale)
+        replay.update_scale(flag)
+        replayed.append(replay.cur_scale)
+        if flag:
+            kept.append(bool(np.array_equal(before, engine._host_master)))
+        clean = 0 if flag else clean + 1
+    counts = read_counts()
+    last_skip = max([i for i, f in enumerate(flags) if f], default=-1)
+    after = losses[last_skip + 1:]
+    ok = {"skipped_first": bool(flags and flags[0]),
+          "masters_kept_on_skips": all(kept),
+          "scales_match_jax_automaton": scales == replayed,
+          "clean_steps_after_last_skip": len(after) >= FP16_CLEAN_STEPS,
+          "finite_after": bool(np.isfinite(after).all()),
+          "native_cpu_adam": engine._host_adam.native}
+    emit({"phase": "offload_fp16", "n_layer": OFF_AB_LAYERS,
+          "initial_scale": init, "steps": len(losses),
+          "skipped": sum(flags), "losses": losses, "scales": scales,
+          "jax_automaton_scales": replayed, "gates": ok, "card": card})
+    del engine, model, staged
+    release()
+    if not all(ok.values()):
+        raise AssertionError(f"O4 gates failed: {ok}")
+    return counts
+
+
+def offload_checkpoint(engine, cfg, seed, card):
+    """O5 (phase 44): O1's engine saves (sync) and takes 2 more steps; a
+    fresh engine from other weights loads the save and takes the same 2
+    steps. Gates: host_master, both moments and the step bit-equal after
+    the load, the losses bit-equal to the unbroken run's. Returns the
+    launch counts of both engines' steps."""
+    import shutil
+    import tempfile
+    import numpy as np
+    parent = os.path.join(ROOT, "build")
+    os.makedirs(parent, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="offload_ckpt_", dir=parent)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        engine.save_checkpoint(root, tag="o5", async_save=False)
+        save_s = time.perf_counter() - t0
+        saved = {"master": engine._host_master.copy(),
+                 "exp_avg": engine._host_adam.exp_avg.copy(),
+                 "exp_avg_sq": engine._host_adam.exp_avg_sq.copy(),
+                 "step": engine._host_adam.step_count}
+        batches = [offload_batch(cfg, 20 + i) for i in range(2)]
+        la = [float(engine.train_batch(batch=b)) for b in batches]
+        fresh, _, _ = offload_125m(seed + 1)
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(root, tag="o5")
+        load_s = time.perf_counter() - t0
+        same = {"host_master": np.array_equal(fresh._host_master,
+                                              saved["master"]),
+                "exp_avg": np.array_equal(fresh._host_adam.exp_avg,
+                                          saved["exp_avg"]),
+                "exp_avg_sq": np.array_equal(fresh._host_adam.exp_avg_sq,
+                                             saved["exp_avg_sq"]),
+                "step": fresh._host_adam.step_count == saved["step"]}
+        lb = [float(fresh.train_batch(batch=b)) for b in batches]
+        counts = read_counts()
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(root) for f in fs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = dict(same, losses_bit_equal=la == lb)
+    emit({"phase": "offload_checkpoint", "bytes": nbytes, "save_s": save_s,
+          "load_s": load_s, "losses_unbroken": la, "losses_resumed": lb,
+          "gates": ok, "card": card})
+    del fresh
+    if not all(ok.values()):
+        raise AssertionError(f"O5 gates failed: {ok}")
+    return counts
+
+
 KERNELS_BF16 = (
     ("flash_attention_fwd",
      "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -5806,6 +6349,9 @@ def main(argv=None):
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "peaks": peaks})
+    # the host's cores, RAM and CPU-Adam's threads (builds the host
+    # library from csrc/adam/cpu_adam.cpp)
+    host_line()
 
     # 2: build
     t0 = time.perf_counter()
@@ -6077,6 +6623,31 @@ def main(argv=None):
         if os.path.exists(rendezvous):
             os.remove(rendezvous)
 
+    # 39-44: ZeRO-Offload: O1 zero_offload_real_step (then O5: its
+    # engine saves and a fresh one resumes), O2 the three wires, O3 the
+    # flagship with cpu_offload and its A/B against fp32 masters on the
+    # card, O4 fp16 from 2^32 (counts zeroed inside each, right before
+    # its steps)
+    o1, o1_engine, o1_cfg, _ = zero_offload_real_step(args.seed, card)
+    off_real = path_counts("zero_offload_real_step", o1, TRAINING_KERNELS,
+                           FUSED_ABSENT)
+    off_ckpt = path_counts("offload_checkpoint",
+                           offload_checkpoint(o1_engine, o1_cfg, args.seed,
+                                              card),
+                           TRAINING_KERNELS, FUSED_ABSENT)
+    del o1_engine
+    release()
+    off_wire = path_counts("zero_offload_wire",
+                           zero_offload_wire(args.seed, card),
+                           TRAINING_KERNELS, FUSED_ABSENT)
+    off_flag = path_counts("offload_flagship",
+                           offload_flagship(args.seed, card),
+                           TRAINING_KERNELS, FUSED_ABSENT)
+    offload_ab(args.seed, card)
+    release()
+    off16 = path_counts("offload_fp16", offload_fp16(args.seed, card),
+                        TRAINING_KERNELS, FUSED_ABSENT)
+
     rows = []
     counts_by_path = {"serving": serving, "training": training,
                       "quant_training": quant, "moe_training": moe,
@@ -6095,7 +6666,12 @@ def main(argv=None):
                       "training_attn_names": attn_names,
                       "gpt2_350m_selective": selective,
                       "user_checkpoint": user_ck,
-                      "bert_memory_flags": bert_flags}
+                      "bert_memory_flags": bert_flags,
+                      "zero_offload_real_step": off_real,
+                      "offload_checkpoint": off_ckpt,
+                      "zero_offload_wire": off_wire,
+                      "offload_flagship": off_flag,
+                      "offload_fp16": off16}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);

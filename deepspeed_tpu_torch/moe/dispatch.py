@@ -13,9 +13,21 @@ are the whole of it (the expert mesh, its all-to-all over NCCL and the
 import torch
 
 
-def dispatch_tokens(x, dispatch_mask):
-    """[N, H] tokens -> [E, C, H] per-expert buffers."""
-    return torch.einsum("nec,nh->ech", dispatch_mask.to(x.dtype), x)
+def dispatch_tokens(x, dispatch_mask, granularity=1):
+    """[N, H] tokens -> [E, C, H] per-expert buffers. `granularity` > 1
+    splits the einsum along the capacity axis into that many contiguous
+    chunks (the `moe_dispatch` overlap schedule's knob, ops/overlap.py):
+    each chunk contracts the same tokens, so the concatenation equals
+    the single einsum bit for bit."""
+    c = dispatch_mask.shape[-1]
+    g = max(int(granularity), 1)
+    mask = dispatch_mask.to(x.dtype)
+    if g <= 1 or c < g:
+        return torch.einsum("nec,nh->ech", mask, x)
+    sizes = [c // g + (1 if i < c % g else 0) for i in range(g)]
+    chunks = torch.split(mask, sizes, dim=2)
+    return torch.cat([torch.einsum("nec,nh->ech", m, x) for m in chunks],
+                     dim=1)
 
 
 def combine_tokens(ye, combine_weights):

@@ -9,11 +9,11 @@ host. Dispatch and combine take one of two routes
 (`resolve_fused_dispatch`): the fused row gathers of kernel K8
 (`fused_dispatch.py`), or the one-hot einsum pair (`dispatch.py`).
 
-The JAX layer ties the pair into the overlap runtime
-(`ops/overlap.py`: `async_collective` and `overlap_fence`). Those are
-bit-exact identities that only order the schedule, and at world size 1
-on one stream there is nothing to order, so the port's layer has no
-such calls; overlap on side streams comes with world size > 1.
+The pair reads the `moe_dispatch` site of the overlap runtime
+(`ops/overlap.py`) as the JAX layer does: the einsum route splits its
+dispatch along the capacity axis by the schedule's `granularity`, the
+in-flight window is recorded, and `async_collective`/`overlap_fence`
+(identities in eager order) mark where the JAX layer ties the pair.
 
 `moe_mlp_reference` is the oracle: the same gating, the einsum pair and
 a per-expert loop of single GEMMs with plain epilogues.
@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.moe.dispatch import (combine_tokens,
+                                              dispatch_buffer_nbytes,
                                               dispatch_tokens,
                                               replicate_stats)
 from deepspeed_tpu_torch.moe.experts import ExpertFFN, expert_ffn_reference
@@ -35,6 +36,7 @@ from deepspeed_tpu_torch.moe.fused_dispatch import (fused_combine,
 from deepspeed_tpu_torch.moe.router import (_dense_masks, _gating_core,
                                             _index_routing, router_capacity,
                                             top_k_gating)
+from deepspeed_tpu_torch.ops import overlap as _overlap
 
 EXPERT_MESH_SLICE = ("expert-parallel meshes come with world size > 1 "
                      "(ROADMAP Queue 1 item 6)")
@@ -165,19 +167,34 @@ class MoEMLP(nn.Module):
             self.route_override)
         self.last_expert_idx = gate_idx.detach()
         stats = replicate_stats(stats, moe.mesh)
+        nbytes = dispatch_buffer_nbytes(e, capacity, h, self.dtype)
+        sched = _overlap.schedule(_overlap.SITE_MOE, payload_bytes=nbytes,
+                                  mesh=moe.mesh)
         xc = xf.to(self.dtype)
-        if resolve_fused_dispatch(moe.fused_dispatch, moe.mesh, x.device):
+        fused = resolve_fused_dispatch(moe.fused_dispatch, moe.mesh,
+                                       x.device)
+        if fused:
             routing = _index_routing(gate_vals, gate_idx, fits, slots)
             src, dest = routing_slots(routing, e, capacity)
-            xe = fused_dispatch(xc, src, dest, routing["keep"])
-            ye = self.experts(xe.reshape(e, capacity, h))
-            y = fused_combine(ye.reshape(e * capacity, h), dest,
-                              routing["keep"], routing["w"])
+            xe = fused_dispatch(xc, src, dest, routing["keep"]).reshape(
+                e, capacity, h)
         else:
             dispatch, combine = _dense_masks(capacity, gate_vals, fits,
                                              slots)
-            ye = self.experts(dispatch_tokens(xc, dispatch))
+            xe = dispatch_tokens(xc, dispatch,
+                                 granularity=sched["granularity"])
+        if sched["overlap"]:
+            xe, stats = _overlap.async_collective(xe, stats)
+        ye = self.experts(xe)
+        _overlap.record_inflight(_overlap.SITE_MOE, str(id(self)),
+                                 nbytes if sched["overlap"] else 0)
+        if fused:
+            y = fused_combine(ye.reshape(e * capacity, h), dest,
+                              routing["keep"], routing["w"])
+        else:
             y = combine_tokens(ye, combine)
+        if sched["overlap"]:
+            y = _overlap.overlap_fence(y, stats)
         return y.reshape(b, t, h).to(self.dtype), stats
 
 

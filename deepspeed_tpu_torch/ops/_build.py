@@ -21,6 +21,15 @@ call instead of passing silently.
 
 No fast-math flag: the kernels use the accurate `tanhf`/`erff`/`exp2f`
 so they hold the plain twins to float roundoff.
+
+Host C++ (`host_library`): ZeRO-Offload's CPU-Adam is the repository's
+`csrc/adam/cpu_adam.cpp`, compiled by `g++` with the flags the JAX
+package's `op_builder/builder.py` uses (`-O3 -std=c++17 -shared -fPIC
+-fopenmp`, and `-march=native` on x86_64), so both packages run the same
+machine code on one host. The library lands in `build/torch_kernels/`
+too, named by a hash of the source, the flags and the host CPU's
+feature flags (a `-march=native` library is the host's own). A failed
+compile raises with g++'s output.
 """
 
 import ctypes
@@ -32,9 +41,12 @@ import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "build", "torch_kernels")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
+# the host C++ sources, by library name
+HOST_SOURCES = {"cpu_adam": os.path.join(REPO_ROOT, "csrc", "adam",
+                                         "cpu_adam.cpp")}
 
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -165,3 +177,54 @@ def stream_ptr(tensor):
     import torch
     return ctypes.c_void_p(
         torch.cuda.current_stream(tensor.device).cuda_stream)
+
+
+def host_cxx_flags():
+    """g++'s flags for the host libraries (op_builder/builder.py's)."""
+    flags = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp"]
+    if os.uname().machine in ("x86_64", "amd64"):
+        flags.append("-march=native")
+    return flags
+
+
+def _host_lib_path(name):
+    src = HOST_SOURCES[name]
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(host_cxx_flags()).encode())
+    try:
+        with open("/proc/cpuinfo") as f:
+            flags = next((ln for ln in f if ln.startswith("flags")), "")
+        h.update(flags.encode())
+    except OSError:
+        import platform
+        h.update(platform.processor().encode())
+    return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def host_library(name):
+    """The loaded ctypes library of the host source `name` (a key of
+    HOST_SOURCES), compiled by g++ on first use. Raises when g++ is
+    missing or fails."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src, out = _host_lib_path(name)
+        if not os.path.exists(out):
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"{name}: no g++ on PATH to compile {src}")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            start = time.perf_counter()
+            run = subprocess.run([gxx, *host_cxx_flags(), src, "-o", tmp],
+                                 capture_output=True, text=True)
+            if run.returncode != 0:
+                raise RuntimeError(f"g++ failed for {name}:\n"
+                                   f"{(run.stdout + run.stderr)[-4000:]}")
+            os.replace(tmp, out)
+            compile_seconds[name] = time.perf_counter() - start
+        lib = _libs[name] = ctypes.CDLL(out)
+        return lib

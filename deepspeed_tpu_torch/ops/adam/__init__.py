@@ -1,0 +1,3 @@
+from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
+
+__all__ = ["DeepSpeedCPUAdam"]

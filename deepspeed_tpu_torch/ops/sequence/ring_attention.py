@@ -94,22 +94,22 @@ class _Hop:
 
 
 class _RingHop(torch.autograd.Function):
-    """(k, v) one rank on: the forward posts the hop, appends it to
+    """(k, v) `shift` ranks on: the forward posts the hop, appends it to
     `pending` and returns its receive buffers, which hold the block once
     the caller has waited on the hop; the backward sends the cotangents
-    one rank back."""
+    `shift` ranks back."""
 
     @staticmethod
-    def forward(ctx, group, pending, k, v):
-        ctx.group = group
-        hop = _Hop((k, v), group, 1)
+    def forward(ctx, group, pending, k, v, shift=1):
+        ctx.group, ctx.shift = group, shift
+        hop = _Hop((k, v), group, shift)
         pending.append(hop)
         return tuple(hop.out)
 
     @staticmethod
     def backward(ctx, dk, dv):
-        dk, dv = _Hop((dk, dv), ctx.group, -1).wait()
-        return None, None, dk, dv
+        dk, dv = _Hop((dk, dv), ctx.group, -ctx.shift).wait()
+        return None, None, dk, dv, None
 
 
 class _Anchor(torch.autograd.Function):
@@ -129,31 +129,61 @@ class _Anchor(torch.autograd.Function):
 
 
 def _ring(k, v, group, causal, fold, carry):
-    """JAX's ring scan with the hop issued early: at step s the held K/V
-    block is rank (r - s) mod P's; the hop that brings the next block is
-    posted before the held block is folded into `carry` and waited on
-    after. Under `causal` the diagonal block (s = 0) folds with the
-    causal mask, a block from a lower rank without one, and a block from
-    a higher rank is skipped (the carry passes through, no launch). JAX's
-    scan rotates P times and its last rotation is dead; here the blocks
-    rotate P - 1 times, so a group of one rank sends nothing. Returns the
-    carry and the rotated blocks (for `_Anchor`)."""
+    """JAX's ring scan under the `ring` overlap schedule (ops/overlap.py):
+    at step s the held K/V block is rank (r - s) mod P's. Overlapped at
+    issue distance d, the hop that brings block s + d is posted before
+    block s is folded into `carry`, as JAX's pre-rotated window posts it
+    (blocks 1 .. d-1 come straight from their owners, a shift of j ranks,
+    then each block is the one before it one rank on); without overlap
+    the hop is posted after the fold. The blocks and the fold order are
+    the same either way, and at d = 2 so are the hops, so outputs and
+    gradients match distance 1 bit for bit. Under `causal` the diagonal
+    block (s = 0) folds with the causal mask, a block from a lower rank
+    without one, and a block from a higher rank is skipped (the carry
+    passes through, no launch). JAX's scan rotates P times and its last
+    rotation is dead; here blocks come P - 1 times, so a group of one
+    rank sends nothing. Returns the carry and the received blocks (for
+    `_Anchor`)."""
+    from deepspeed_tpu_torch.ops import overlap
     p, r = _size_rank(group)
-    kb, vb = k, v
+    payload = 2 * k.numel() * k.element_size()
+    sched = overlap.schedule(overlap.SITE_RING, payload_bytes=payload,
+                             mesh={"seq": p})
+    ahead = min(max(int(sched["issue_distance"]), 1), p) \
+        if sched["overlap"] else 0
+    overlap.record_inflight(overlap.SITE_RING, "seq", ahead * payload)
+    blocks = {0: (k, v)}
+    hops = {}
     rotated = []
-    for step in range(p):
+
+    def post(t, src, shift):
         pending = []
-        if step < p - 1:
-            nk, nv = _RingHop.apply(group, pending, kb, vb)
-            rotated += [nk, nv]
+        nk, nv = _RingHop.apply(group, pending, *src, shift)
+        hops[t] = (pending[0], (nk, nv))
+        rotated.extend([nk, nv])
+
+    def block(t):
+        if t not in blocks:
+            hop, kv = hops.pop(t)
+            hop.wait()
+            blocks[t] = kv
+        return blocks[t]
+
+    for j in range(1, min(ahead, p)):
+        post(j, (k, v), j)
+    for step in range(p):
+        t = step + ahead
+        if ahead and t < p:
+            post(t, block(t - 1), 1)
+        kb, vb = block(step)
         src = (r - step) % p
         if not causal or src < r:
             carry = fold(kb, vb, carry, False)
         elif src == r:
             carry = fold(kb, vb, carry, True)
-        if pending:
-            pending[0].wait()
-            kb, vb = nk, nv
+        if not ahead and step + 1 < p:
+            post(step + 1, (kb, vb), 1)
+        blocks.pop(step, None)
     return carry, rotated
 
 

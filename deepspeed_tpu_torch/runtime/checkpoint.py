@@ -317,8 +317,10 @@ def save_checkpoint_files(save_dir, tag, model_sd, optim_sd, mp_rank=0,
 
     `model_sd` — dict with a "module" tree of host leaves plus JSON-able
     metadata entries. `optim_sd` — dict with an "opt_state" tree plus
-    metadata; array-valued entries other than "opt_state" are written
-    under "aux/<name>"; may be None. `ckpt_dir` overrides the
+    metadata; array-valued entries other than "opt_state" (and trees of
+    arrays: the offload engine's host_adam and offload_wire dicts, which
+    the JAX writer puts in the JSON metadata as lists) are written under
+    "aux/<name>"; may be None. `ckpt_dir` overrides the
     destination directory (the writer points it at the `<tag>.tmp`
     staging dir and renames on commit)."""
     if ckpt_dir is None:
@@ -331,7 +333,7 @@ def save_checkpoint_files(save_dir, tag, model_sd, optim_sd, mp_rank=0,
         for k, v in optim_sd.items():
             if k == "opt_state":
                 entries += tree_to_entries(v, "optim")
-            elif _is_array(v) or (isinstance(v, (tuple, list)) and any(
+            elif _is_array(v) or (isinstance(v, (tuple, list, dict)) and any(
                     _is_array(x) for _, x in tree_to_entries(v))):
                 entries += tree_to_entries(v, f"aux/{k}")
             else:

@@ -15,14 +15,15 @@ determine the third), the `bf16` block with `master_weights`, the
 (`get_checkpoint_config`), the `async_dispatch` block
 (`get_async_dispatch_config`), the `activation_checkpointing` block
 (`activation_checkpointing_config`) and `dump_state`, each validated as
-the JAX package validates it. The `autotune` and `overlap` blocks are
-validated with the JAX package's errors too, though the port does not
-act on them yet.
+the JAX package validates it. `zero_config` holds the
+`zero_optimization` block with its `offload_wire` (runtime/zero/
+config.py); the `overlap` block configures ops/overlap.py through the
+engine. The `autotune` block is validated with the JAX package's errors
+too, though the port does not act on it yet.
 
 A block that the JAX engine acts on and the port does not yet raises
 NotImplementedError naming the ROADMAP Queue 1 item that ports it
-(`_check_later_slices`): overlap (5); pipeline and sparse gradients
-(6); the monitor, tensorboard and wall_clock_breakdown (8: the JAX
+(`_check_later_slices`): pipeline and sparse gradients (6); the monitor, tensorboard and wall_clock_breakdown (8: the JAX
 engine prints the breakdown from the monitor's trace spans);
 elasticity, the flops profiler and autotune (9).
 """
@@ -139,20 +140,14 @@ def get_bfloat16_master_weights(param_dict):
 
 
 def get_zero_config(param_dict):
-    """(stage, cpu_offload) of the zero_optimization block (a bool block
-    means stage 1 or 0, as in the JAX package)."""
-    d = param_dict.get(Z.ZERO_OPTIMIZATION, {})
-    if isinstance(d, bool):
-        d = {Z.ZERO_OPTIMIZATION_STAGE: 1 if d else 0}
-    stage = get_scalar_param(d, Z.ZERO_OPTIMIZATION_STAGE,
-                             Z.ZERO_OPTIMIZATION_STAGE_DEFAULT)
-    if not 0 <= stage <= Z.MAX_STAGE_ZERO_OPTIMIZATION:
+    """The zero_optimization block (a bool block means stage 1 or 0, as
+    in the JAX package) as a DeepSpeedZeroConfig, its stage checked."""
+    zc = Z.DeepSpeedZeroConfig(param_dict)
+    if not 0 <= zc.stage <= Z.MAX_STAGE_ZERO_OPTIMIZATION:
         raise DeepSpeedConfigError(
             f"zero_optimization.stage must be in "
-            f"[0,{Z.MAX_STAGE_ZERO_OPTIMIZATION}], got {stage}")
-    offload = get_scalar_param(d, Z.ZERO_OPTIMIZATION_CPU_OFFLOAD,
-                               Z.ZERO_OPTIMIZATION_CPU_OFFLOAD_DEFAULT)
-    return stage, bool(offload)
+            f"[0,{Z.MAX_STAGE_ZERO_OPTIMIZATION}], got {zc.stage}")
+    return zc
 
 
 def _is_int(v):
@@ -443,8 +438,6 @@ class DeepSpeedConfig:
         if self.wall_clock_breakdown:
             # the JAX engine prints it from the monitor's trace spans
             raise _later("wall_clock_breakdown", 8)
-        if C.OVERLAP in d and self.overlap["enabled"]:
-            raise _later("the overlap block (ops/overlap.py)", 5)
         if d.get(C.PIPELINE):
             raise _later("pipeline parallelism", 6)
         if d.get(C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT):
@@ -472,9 +465,16 @@ class DeepSpeedConfig:
         self.steps_per_print = get_scalar_param(d, C.STEPS_PER_PRINT,
                                                 C.STEPS_PER_PRINT_DEFAULT)
 
-        self.zero_optimization_stage, self.zero_cpu_offload = \
-            get_zero_config(d)
+        self.zero_config = get_zero_config(d)
+        self.zero_optimization_stage = self.zero_config.stage
+        self.zero_cpu_offload = bool(self.zero_config.cpu_offload)
         self.zero_enabled = self.zero_optimization_stage > 0
+        if self.zero_config.offload_wire_compressed() and \
+                not self.zero_cpu_offload:
+            logger.warning(
+                "DeepSpeedConfig: zero_optimization.offload_wire "
+                "compresses the ZeRO-Offload host link and has no effect "
+                "without cpu_offload: true")
 
         self.bfloat16_enabled = get_bfloat16_enabled(d)
         self.bfloat16_master_weights = get_bfloat16_master_weights(d)

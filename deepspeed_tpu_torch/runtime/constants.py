@@ -146,6 +146,23 @@ OVERLAP_SITES_DEFAULT = "auto"
 OVERLAP_ISSUE_DISTANCE = "issue_distance"
 OVERLAP_ISSUE_DISTANCE_DEFAULT = 1
 
+# zero_optimization.offload_wire: the ZeRO-Offload round trip's format
+# (runtime/zero/offload.py). grad_bits (D2H): 32 native (bf16 when
+# computing in bf16, else fp32), 16 bf16 always, 8 int8 with one fp32
+# scale per 4096-element block, 1 sign bits + per-block scale with
+# on-device error feedback. param_bits (H2D): 32 native, 8 an int8
+# param delta against a device fp32 copy with a host shadow.
+# warmup_steps: steps on an uncompressed fp32 wire before compression.
+OFFLOAD_WIRE = "offload_wire"
+OFFLOAD_WIRE_GRAD_BITS = "grad_bits"
+OFFLOAD_WIRE_GRAD_BITS_DEFAULT = 32
+OFFLOAD_WIRE_PARAM_BITS = "param_bits"
+OFFLOAD_WIRE_PARAM_BITS_DEFAULT = 32
+OFFLOAD_WIRE_WARMUP_STEPS = "warmup_steps"
+OFFLOAD_WIRE_WARMUP_STEPS_DEFAULT = 0
+OFFLOAD_WIRE_GRAD_BITS_VALID = (1, 8, 16, 32)
+OFFLOAD_WIRE_PARAM_BITS_VALID = (8, 32)
+
 #############################################
 # Quantized compute (ops/transformer/quantized_matmul.py, kernel K6):
 #   {"quantized_compute": {"enabled": true, "mode": "auto",

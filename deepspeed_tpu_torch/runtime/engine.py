@@ -82,8 +82,15 @@ generator keyed by the same seed (the JAX engine's fold_in(rng, 0x51)).
 
 ZeRO stages 0, 1 and 2 at data-parallel world size 1 compute the
 unpartitioned update, as the JAX engine does on one chip. World size
-> 1 and stage 3 raise NotImplementedError naming ROADMAP Queue 1 item 6,
-offload item 5.
+> 1 and stage 3 raise NotImplementedError naming ROADMAP Queue 1 item 6.
+`zero_optimization.cpu_offload` (with stage > 0) is ZeRO-Offload
+(`runtime/zero/offload.py`, the `ZeroOffloadMixin` this class takes):
+host fp32 masters and CPU-Adam moments, the device parameters and an
+fp32 accumulator on the card, every step's micro batches accumulated
+and then `_offload_take_step`; a bf16 `master_weights: false` is
+ignored with the JAX engine's warning, and async dispatch is off (the
+host step is a sync by nature). The `overlap` block configures
+`ops/overlap.py` at init.
 
 Checkpoints (`save_checkpoint`, `load_checkpoint`) are the JAX engine's
 files (`runtime/checkpoint.py`): the module tree with the scanned
@@ -135,6 +142,7 @@ from deepspeed_tpu_torch.runtime.prefetch import (PrefetchLoader,
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.sgd import SGDState, sgd
+from deepspeed_tpu_torch.runtime.zero.offload import ZeroOffloadMixin
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
@@ -199,7 +207,7 @@ def _world_size():
     return 1
 
 
-class DeepSpeedEngine:
+class DeepSpeedEngine(ZeroOffloadMixin):
     """Training engine. Args mirror `deepspeed_tpu.initialize`:
       model: an object with `.loss_fn(params, batch, rngs,
         deterministic)` (e.g. `models.gpt2.GPT2ForCausalLM`,
@@ -241,8 +249,6 @@ class DeepSpeedEngine:
         self.client_lr_scheduler = lr_scheduler
         self._config = DeepSpeedConfig(load_config_dict(config),
                                        world_size=1)
-        if self._config.zero_cpu_offload:
-            raise _later("ZeRO-Offload (zero_optimization.cpu_offload)", 5)
         if self._config.zero_optimization_stage == 3:
             raise _later("ZeRO stage 3", 6)
 
@@ -273,7 +279,15 @@ class DeepSpeedEngine:
         self.fp16_mode = bool(self._config.fp16_enabled)
         self.bf16_mode = bool(self._config.bfloat16_enabled)
         self.bf16_sr_mode = self.bf16_mode and \
-            not self._config.bfloat16_master_weights
+            not self._config.bfloat16_master_weights and \
+            not self._offload_enabled()
+        if self.bf16_mode and not self._config.bfloat16_master_weights \
+                and not self.bf16_sr_mode:
+            logger.warning(
+                'bf16 {"master_weights": false} is ignored together '
+                "with cpu_offload — the offload path IS the master "
+                "store (fp32 masters + moments in host RAM); remove "
+                "one of the two settings")
         self.mixed_precision = (self.fp16_mode or self.bf16_mode) and \
             not self.bf16_sr_mode
         self.compute_dtype = torch.float16 if self.fp16_mode else \
@@ -308,12 +322,23 @@ class DeepSpeedEngine:
 
         self._configure_optimizer()
         self._configure_lr_scheduler(lr_scheduler)
+        self._init_overlap()
         self._init_state()
         self.optimizer = self   # `engine.optimizer` parity
         self._ckpt_writer = None
         self._abandoned_ckpt_writers = []
         if self._config.dump_state:
             self._config.print("DeepSpeedEngine configuration")
+
+    def _init_overlap(self):
+        """Wire the `overlap` block into ops/overlap.py (the enabled
+        toggle, the pinned or "auto" site set, the issue distance), as
+        the JAX engine does; the monitor's `overlap` event comes with the
+        monitor (ROADMAP Queue 1 item 8)."""
+        from deepspeed_tpu_torch.ops import overlap
+        ov = self._config.overlap
+        overlap.configure(enabled=ov["enabled"], sites=ov["sites"],
+                          issue_distance=ov["issue_distance"])
 
     # ------------------------------------------------------------------
     # model resolution
@@ -519,8 +544,9 @@ class DeepSpeedEngine:
         config's scheduler block, or the constant base lr; a client
         scheduler object is stepped on the host instead (`_step_lr`)."""
         self._device_lr_fn = None
+        # ZeRO-Offload's host optimizer step is a sync by nature
         self._async_dispatch = self._config.async_dispatch_enabled and \
-            client_lr_scheduler is None
+            client_lr_scheduler is None and not self._offload_enabled()
         if client_lr_scheduler is not None:
             self.lr_scheduler = client_lr_scheduler
             if self._config.async_dispatch_enabled:
@@ -554,6 +580,9 @@ class DeepSpeedEngine:
     def _init_state(self):
         dev = self.device
         names = list(self._initial_params)
+        if self._offload_enabled():
+            self._init_offload_state()
+            return
         with torch.no_grad():
             if self.mixed_precision:
                 master = [torch.as_tensor(self._initial_params[n]).to(
@@ -590,6 +619,27 @@ class DeepSpeedEngine:
                     f"zero_stage={self.zero_optimization_stage()}, "
                     f"dtype={self.compute_dtype}, "
                     f"master_weights={self.mixed_precision}, device={dev}")
+
+    def _init_offload_state(self):
+        """ZeRO-Offload: no device master or optimizer state; host
+        masters and CPU-Adam moments (runtime/zero/offload.py)."""
+        dev = self.device
+        params, acc = self._init_offload(self._initial_params)
+        if self.fp16_mode:
+            scale = make_static_loss_scale_state(
+                self._host_scaler.cur_scale, dev)
+        else:
+            scale = make_static_loss_scale_state(1.0, dev)
+        self.state = EngineState(
+            params=params, master=None, opt_state=(), acc_grads=acc,
+            global_steps=torch.zeros((), dtype=torch.int32, device=dev),
+            scale=scale,
+            skipped=torch.zeros((), dtype=torch.int32, device=dev))
+        self._initial_params = None
+        logger.info(f"engine initialized (offload): "
+                    f"{self._host_master.size / 1e6:.1f}M params, "
+                    f"zero_stage={self.zero_optimization_stage()}, "
+                    f"dtype={self.compute_dtype}, device={dev}")
 
     # ------------------------------------------------------------------
     # the step
@@ -644,7 +694,13 @@ class DeepSpeedEngine:
         the synced loop the scheduler's host value copied without a sync;
         the constant base lr without a scheduler; None for a client
         optimizer with neither (its own lr applies). Also steps the host
-        scheduler, the mirror get_lr() reads."""
+        scheduler, the mirror get_lr() reads. Under ZeRO-Offload: the
+        host float CPU-Adam takes (None: the optimizer block's lr)."""
+        if self._offload_enabled():
+            if self.lr_scheduler is not None:
+                self.lr_scheduler.step()
+                return float(self.lr_scheduler.get_last_lr()[0])
+            return self._base_lr
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
             if not self._async_dispatch:
@@ -791,7 +847,8 @@ class DeepSpeedEngine:
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self._host_steps)
         kp = self._keep_prob()
-        if gas == 1:
+        offload = self._offload_enabled()
+        if gas == 1 and not offload:
             loss, grads = self._micro_grad(
                 {k: v[0] for k, v in batch.items()}, self._next_rngs(), kp)
         else:
@@ -807,9 +864,14 @@ class DeepSpeedEngine:
                 del g
             grads = self.state.acc_grads
             loss = torch.stack(losses).mean()
-        _, overflow = self._unscale_clip_and_update(grads, lr)
+        if offload:
+            # the grads-only device half, then the host step (which
+            # zeroes the accumulator)
+            overflow = self._offload_take_step(lr)
+        else:
+            _, overflow = self._unscale_clip_and_update(grads, lr)
         del grads
-        if gas > 1:
+        if gas > 1 and not offload:
             for a in self.state.acc_grads:
                 a.zero_()
         self.micro_steps += gas
@@ -865,8 +927,11 @@ class DeepSpeedEngine:
             if grads is None:
                 raise RuntimeError("step() at an accumulation boundary "
                                    "without backward()")
-            _, overflow = self._unscale_clip_and_update(grads,
-                                                        self._step_lr())
+            if self._offload_enabled():
+                overflow = self._offload_take_step(self._step_lr())
+            else:
+                _, overflow = self._unscale_clip_and_update(
+                    grads, self._step_lr())
             self._ready_grads = None
             for a in self.state.acc_grads:
                 a.zero_()
@@ -875,6 +940,8 @@ class DeepSpeedEngine:
         self.micro_steps += 1
 
     def _after_model_step(self, overflow=None):
+        if self._offload_enabled() and not self.fp16_mode:
+            overflow = None   # the JAX engine rewinds for fp16 only
         if overflow is not None and not self._async_dispatch and \
                 self.lr_scheduler is not None:
             # the JAX engine's synced loop: the scheduler does not
@@ -1002,6 +1069,9 @@ class DeepSpeedEngine:
             return to_jax(dict(zip(names, values)), remat=remat,
                           stack=ckpt_io.Stacked)
 
+        if self._offload_enabled():
+            # the JAX offload engine's device optimizer state is ()
+            return tree(leaves), ()
         hyperparams = dict(self._ckpt_hparams, learning_rate=lr)
         if isinstance(opt, OnebitAdamState):
             return tree(leaves), OnebitAdamState(
@@ -1066,20 +1136,27 @@ class DeepSpeedEngine:
         state = self.state
         take = (lambda t: t.detach().clone()) if isolate else \
             (lambda t: t.detach())
-        leaves = state.master if self.mixed_precision else \
-            list(state.params.values())
+        offload = None
+        if self._offload_enabled():
+            # the module tree is views of the host masters' copy
+            offload = self._offload_checkpoint_snapshot(isolate)
+            views = self._offload_views(offload["host_master"])
+            leaves = [views[n] for n in state.params]
+        else:
+            leaves = [take(t) for t in (
+                state.master if self.mixed_precision else
+                state.params.values())]
         lr = self._injected_lr()
         opt = ckpt_io.tree_map(
             lambda t: take(t) if isinstance(t, torch.Tensor) else t,
             state.opt_state)
-        module, opt_state = self._ckpt_trees(
-            [take(t) for t in leaves], opt, lr, self._remat())
+        module, opt_state = self._ckpt_trees(leaves, opt, lr, self._remat())
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
         return dict(
-            module=module, opt_state=opt_state, event=event,
+            module=module, opt_state=opt_state, event=event, offload=offload,
             scale=LossScaleState(*[take(t) for t in state.scale]),
             skipped=take(state.skipped),
             rng=self._jax_rng_key(), torch_rng=self._rng_states(),
@@ -1145,6 +1222,10 @@ class DeepSpeedEngine:
         sd.update(snap["client_state"])
         optim_sd = dict(opt_state=opt_state, scale=scale,
                         zero_stage=snap["zero_stage"])
+        if snap.get("offload"):
+            # host_master, host_adam and offload_wire under aux/ (the JAX
+            # engine's names, read by either package)
+            optim_sd.update(snap["offload"])
         ckpt_io.save_checkpoint_files(save_dir, tag, sd, optim_sd,
                                       ckpt_dir=staging)
         with (commit_gate() if commit_gate is not None
@@ -1299,8 +1380,14 @@ class DeepSpeedEngine:
         remat = any(k.startswith("module['h']['Checkpoint")
                     for k in module_flat)
         state = self.state
-        leaves = state.master if self.mixed_precision else \
-            list(state.params.values())
+        offload = self._offload_enabled()
+        if offload:
+            # the module lands in the host masters, then on the device
+            views = self._offload_views()
+            leaves = [views[n] for n in state.params]
+        else:
+            leaves = state.master if self.mixed_precision else \
+                list(state.params.values())
         module, opt_state = self._ckpt_trees(leaves, state.opt_state, None,
                                              remat)
 
@@ -1330,10 +1417,18 @@ class DeepSpeedEngine:
 
         for dest, saved in pairs(module, module_flat, "module"):
             dest.copy_(saved)
-        if self.mixed_precision:
+        if offload:
+            # the masters resync from the module even without optimizer
+            # states; the wire state restarts unless the states restore it
+            if self._config.zero_config.offload_wire_compressed():
+                self._offload_wire_load_state_dict(None)
+            if load_optimizer_states and optim_sd is not None:
+                self._offload_load_state(optim_sd)
+            self._offload_push_masters()
+        elif self.mixed_precision:
             for p, m in zip(state.params.values(), state.master):
                 p.copy_(m)
-        if load_optimizer_states and optim_sd is not None:
+        if load_optimizer_states and optim_sd is not None and not offload:
             try:
                 moments = pairs(opt_state, optim_sd["opt_state_flat"],
                                 "optim")

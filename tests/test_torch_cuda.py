@@ -3019,3 +3019,91 @@ def test_prefetch_loader_stages_on_its_side_stream(dev):
         for k in ("ids", "x"):
             ref = np.stack([micro[2 * i][k], micro[2 * i + 1][k]])
             assert np.array_equal(batch[k].cpu().numpy(), ref)
+
+
+# ----------------------------------------------------------------------
+# ZeRO-Offload on the card (runtime/zero/offload.py)
+# ----------------------------------------------------------------------
+OFFLOAD_WIRES = {"native": None,
+                 "int8": {"grad_bits": 8, "param_bits": 8},
+                 "1bit": {"grad_bits": 1, "param_bits": 8,
+                          "warmup_steps": 1}}
+
+
+def _offload_engine(dev, wire=None, ring=2):
+    """gpt2-125m's width at 2 layers (~53M parameters: 13 chunks of the
+    4M-element pipeline), bf16 with fp32 parameters, micro batch 2, gas
+    2, seq 256, ZeRO-2 with cpu_offload."""
+    import deepspeed_tpu_torch as dst
+    cfg = tgpt2.gpt2_config("gpt2-125m", n_layer=2, n_positions=256,
+                            dropout=0.0, dtype=torch.bfloat16,
+                            param_dtype=torch.float32, remat=True)
+    model = tgpt2.GPT2ForCausalLM(cfg, device=dev)
+    zero = {"stage": 2, "cpu_offload": True}
+    if wire:
+        zero["offload_wire"] = wire
+    engine, _, _, _ = dst.initialize(
+        model=model, model_parameters=model.init(3), config={
+            "train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 2, "steps_per_print": 1000,
+            "bf16": {"enabled": True}, "zero_optimization": zero,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}})
+    engine._offload_ring = ring
+    ids = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 2, 2, 256)).astype(np.int32)
+    return engine, [{"input_ids": ids[i]} for i in range(3)]
+
+
+@pytest.mark.parametrize("wire", list(OFFLOAD_WIRES))
+def test_offload_pipeline_equals_the_serial_round_trip(dev, wire):
+    """The pinned, chunk-pipelined round trip against the serial one
+    (blocking copies, one chunk after another) of the same engine
+    config: the same losses and masters, parameters and moments bit for
+    bit over 3 steps, in each wire mode; the library is the native one."""
+    piped, batches = _offload_engine(dev, OFFLOAD_WIRES[wire], ring=2)
+    serial, _ = _offload_engine(dev, OFFLOAD_WIRES[wire], ring=0)
+    assert piped._host_adam.native and len(piped._offload_bounds_cached) > 3
+    for b in batches:
+        la = float(piped.train_batch(batch=b))
+        lb = float(serial.train_batch(batch=b))
+        assert la == lb and np.isfinite(la)
+    assert np.array_equal(piped._host_master, serial._host_master)
+    assert np.array_equal(piped._host_adam.exp_avg_sq,
+                          serial._host_adam.exp_avg_sq)
+    assert torch.equal(piped._offload_param_flat, serial._offload_param_flat)
+    assert piped.wire_stats == serial.wire_stats
+
+
+def test_offload_buffers_are_pinned_and_views_aligned(dev):
+    engine, batches = _offload_engine(dev)
+    engine.train_batch(batch=batches[0])
+    pinned = engine._offload_pinned
+    for bufs in pinned["in"] + pinned["out"]:
+        assert all(t.is_pinned() for t in bufs.values())
+    assert pinned["scales"].is_pinned()
+    for p in engine.state.params.values():
+        assert p.is_cuda and p.data_ptr() % 16 == 0
+    assert not engine._offload_acc.is_pinned()
+
+
+@pytest.mark.parametrize("wire", list(OFFLOAD_WIRES))
+def test_offload_step_syncs_the_host_once(dev, wire):
+    """A step past the warm-up under set_sync_debug_mode("warn"): exactly
+    one synchronizing call (the norm read); the chunk loop waits on
+    events, its copies are non-blocking from pinned memory."""
+    import warnings
+    engine, batches = _offload_engine(dev, OFFLOAD_WIRES[wire])
+    engine.train_batch(batch=batches[0])
+    engine.train_batch(batch=batches[1])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine.train_batch(batch=batches[2])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's one-time notice ("... is a prototype feature") is no sync
+    syncs = [w for w in seen
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in seen]

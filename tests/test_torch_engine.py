@@ -191,6 +191,12 @@ def test_train_batch_makes_no_host_sync(jax_model_and_tree, monkeypatch):
      "zero_optimization": {"stage": 2},
      "optimizer": {"type": "AdamW",
                    "params": {"lr": 1e-4, "weight_decay": 0.01}}},
+    # ZeRO-Offload with the compressed wire
+    {"train_batch_size": 8, "bf16": {"enabled": True},
+     "zero_optimization": {"stage": 2, "cpu_offload": True,
+                           "offload_wire": {"grad_bits": 1,
+                                            "param_bits": 8,
+                                            "warmup_steps": 3}}},
     # blocks the port validates and keeps, switched off
     {"train_batch_size": 8,
      "async_dispatch": {"enabled": False, "steps_per_sync": 4,
@@ -214,6 +220,12 @@ def test_config_resolves_like_jax(d):
                  "async_dispatch_steps_per_sync",
                  "async_dispatch_prefetch_depth", "autotune", "overlap"):
         assert getattr(t, attr) == getattr(j, attr), attr
+    for attr in ("stage", "cpu_offload", "offload_wire_grad_bits",
+                 "offload_wire_param_bits", "offload_wire_warmup_steps"):
+        assert getattr(t.zero_config, attr) == \
+            getattr(j.zero_config, attr), attr
+    assert t.zero_config.offload_wire_compressed() == \
+        j.zero_config.offload_wire_compressed()
 
 
 @pytest.mark.parametrize("block", [
@@ -264,7 +276,7 @@ def test_constants_equal_jax(mine, ref):
 # blocks and dump_state are ported
 @pytest.mark.parametrize("extra,match", [
     ({"zero_optimization": {"stage": 3}}, "stage 3"),
-    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "Offload"),
+    ({"zero_optimization": {"stage": 3, "cpu_offload": True}}, "stage 3"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"wall_clock_breakdown": True}, "wall_clock_breakdown"),
     ({"monitor": {"enabled": True}}, "monitor"),
@@ -279,14 +291,14 @@ def test_later_slices_raise(jax_model_and_tree, extra, match):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, 5),
+    ({"zero_optimization": {"stage": 3, "cpu_offload": True}}, 6),
     ({"zero_optimization": {"stage": 3}}, 6),
     ({"pipeline": {"stages": 2}}, 6),
     ({"monitor": {"enabled": True}}, 8),
     ({"elasticity": {"enabled": True}}, 9),
     # blocks the JAX engine acts on (runtime/engine.py) and the port not yet
     ({"wall_clock_breakdown": True}, 8),
-    ({"overlap": {"sites": "auto"}}, 5),
+    ({"overlap": {"sites": "auto"}, "autotune": {"enabled": True}}, 9),
     ({"sparse_gradients": True}, 6),
     ({"tensorboard": {"enabled": True}}, 8),
     ({"flops_profiler": {"enabled": True}}, 9),

@@ -199,3 +199,58 @@ def worker_fp16(rank, p, out_dir, param_file):
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+# ----------------------------------------------------------------------
+# the ring's overlap schedule (tests/test_torch_overlap.py): the fallback
+# body under ops/overlap.py's issue distances and with overlap off
+# ----------------------------------------------------------------------
+# (label, overlap.configure arguments)
+OVERLAP_SCHEDULES = (("d1", dict(issue_distance=1)),
+                     ("d2", dict(issue_distance=2)),
+                     ("d3", dict(issue_distance=3)),
+                     ("off", dict(enabled=False)))
+OVERLAP_CASES = (("ring_overlap_causal", 24, 2, 32, True),
+                 ("ring_overlap_full", 24, 2, 32, False))
+
+
+def run_overlap_cases(rank, p, out_dir):
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.ops import overlap
+    from deepspeed_tpu_torch.ops import sequence as sp
+    from deepspeed_tpu_torch.utils.distributed import init_distributed
+
+    torch.set_num_threads(1)
+    init_distributed("gloo", init_method="file://" + os.path.join(
+        out_dir, "rendezvous"), rank=rank, world_size=p, verbose=False,
+        timeout=120)
+    out = {}
+    for name, tl, h, d, causal in OVERLAP_CASES:
+        q, k, v = global_qkv(tl * p, h, d, case_seed(name))
+        chunk = slice(rank * tl, (rank + 1) * tl)
+        for label, sched in OVERLAP_SCHEDULES:
+            overlap.reset()
+            overlap.configure(**sched)
+            leaves = [torch.from_numpy(x[:, chunk].copy()).requires_grad_(
+                True) for x in (q, k, v)]
+            o = sp.ring_attention(*leaves, causal=causal, use_flash=False)
+            (o ** 2).sum().backward()
+            out[f"{name}/{label}/out"] = o.detach().numpy()
+            for n, x in zip("qkv", leaves):
+                out[f"{name}/{label}/d{n}"] = x.grad.numpy()
+            out[f"{name}/{label}/inflight"] = np.array(
+                overlap.inflight_bytes())
+    overlap.reset()
+    dist.barrier()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()
+
+
+def worker_overlap(rank, p, out_dir):
+    """The spawned process of the overlap cases (as `worker`)."""
+    try:
+        run_overlap_cases(rank, p, out_dir)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
