@@ -65,9 +65,10 @@ Phases, each printing one JSON line:
      route against the plain-torch route (einsum dispatch/combine) with
      the routing held equal, after counting the assignments the plain
      route would choose differently on its own;
- 13. quantized MoE training: phase 11 with quantized experts and the
-     quantized_compute block (K6 for c_attn/c_proj of every block, the
-     dense blocks' MLPs and, grouped over the 8 experts, wi and wo);
+ 13. quantized MoE training: phase 11 at 12 of its 24 layers with
+     quantized experts and the quantized_compute block (K6 for
+     c_attn/c_proj of every block, the dense blocks' MLPs and, grouped
+     over the 8 experts, wi and wo);
  14. kernel_sparse: the K7 kernels (block-sparse attention) against
      their twins at bench.py's sparse_attention_16k shape ([1, 16384,
      16, 64] bf16, block 256, causal; BSLongformer w4 and Fixed l4 g1 on
@@ -157,13 +158,15 @@ Phases, each printing one JSON line:
      last skipped one (`run_fp16_path`: finite, falling losses, the JAX
      automaton's scales, no bit moved on a skip, exact launches, the
      update under set_sync_debug_mode("error"), step ms, a profile);
- 30-31. fp16 paths D (gpt2-350m-moe8: K8, grouped K4) and E (D with
-     quantized experts and the quantized_compute block: K6 with an fp16
-     output) from the scale 2^16, through `run_fp16_path`;
+ 30-31. fp16 paths D (gpt2-350m-moe8 at 12 of its 24 layers: K8,
+     grouped K4) and E (D with quantized experts and the
+     quantized_compute block: K6 with an fp16 output) from the scale
+     2^16, through `run_fp16_path`;
  32. sequence_parallel_fp16: the ring leg in fp16 at [1, 8192, 4, 64]
      and the emulated four-rank ring (K5, K2's given-delta sweeps);
- 33. fp16 path F: sp_training in fp16 from the scale 2^16 (K5,
-     K2-fused's given-delta entry), through `run_fp16_path`;
+ 33. fp16 path F: sp_training at 16 of its 48 layers in fp16 from the
+     scale 2^16 (K5, K2-fused's given-delta entry), through
+     `run_fp16_path`;
  34. path G (after 13): bench.py's bench_gpt2_350m (gpt2-350m, micro
      batch 16, seq 1024, bf16 with fp32 masters, ZeRO-0, AdamW) under
      remat_policy "dots_with_no_batch_dims_saveable" with async_dispatch
@@ -216,7 +219,32 @@ Phases, each printing one JSON line:
      automaton's;
  44. O5 (after 39): O1's engine saves and takes 2 steps; a fresh engine
      loads and takes the same 2: masters, moments and step bit-equal,
-     losses bit-equal. Every offload path runs the native CPU-Adam.
+     losses bit-equal. Every offload path runs the native CPU-Adam;
+ 45. verify_rows (after 6): on a speculative engine's weights, a decode
+     row against the same row inside a verify-shaped batch (4 slots x 5
+     positions), bit for bit, op by op: the four projections, paged
+     attention, K3-fwd, K4-fwd, and ln_f with the tied head as the
+     engine runs it (one GEMM per position); the head as one GEMM over
+     all positions is reported beside it, not gated;
+ 46. speculative_decode: gpt2-1.5b at full width and depth, random
+     weights from --seed, the residual projections (c_proj, mlp_c_proj)
+     of blocks 4..47 scaled by 0.2 (bench.py's bench_speculative_decode
+     construction), a vanilla engine and a speculative engine (truncate:4
+     draft, k 4, k_min 1, adaptive) serving the same 4 greedy requests
+     (prompts 100-300, 64 new tokens): the streams equal token for
+     token, drafted, accepted and rollbacks > 0, every spec_block under
+     set_sync_debug_mode("error"); the acceptance rate, rounds, tokens/s
+     of each engine and the draft/verify dispatch split;
+ 47. speculative_sampled: the same requests at temperature 0.8, top-k
+     40, one round a fence: tokens in the vocabulary, accepted <=
+     drafted, each slot's verified rounds equal to its live rounds;
+ 48. int8_serving: weight_bits 8 (block 128) against bf16 on phase 46's
+     weights: verify_rows on the int8 engine, 16 teacher-forced decode
+     steps with the logits within TOL_INT8_LOGITS (0.25) and the greedy
+     tokens equal wherever the gap allows, then decode ms a step,
+     tokens/s, projection bytes and peak memory of each engine;
+ 49. int8_speculative: int8 with speculative decoding, 32 new tokens a
+     request: the stream equals the int8 engine's.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -243,7 +271,10 @@ and K6 at the projection shapes of the flagship and of gpt2-350m-moe8
 and the experts' two grouped shapes, bit for bit its twin there and at
 block 256 (torch._int_mm and the bf16 matmul as its yardsticks); each
 kernel is timed at the shapes of the paths that run it.
-Then the `kernels` summary line, the card line, and as the last line
+Phases 45-49 run right after 6; the speculative and int8 paths' launch
+counts (zeroed after each serve's warm-up, right before the timed
+serve) must show K3-fwd and K4-fwd and no K6. Then the `kernels`
+summary line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase raises and the script
 exits non-zero without printing a result. It needs a CUDA device and
 the repository around it.
@@ -1629,6 +1660,427 @@ def serve_and_check(seed, card, device="cuda", n_layer=None):
 
 
 # ----------------------------------------------------------------------
+# phases 45-49: speculative decoding and int8 weight-only serving
+# ----------------------------------------------------------------------
+# bench.py's bench_speculative_decode builds its flagship so that a
+# truncate draft agrees with it on most steps but not all: the residual
+# projections (c_proj, mlp_c_proj: kernel and bias) of every block past
+# the draft's are scaled by a factor. Here at gpt2-1.5b: the draft is
+# the first SPEC_DRAFT_LAYERS blocks, and blocks SPEC_DRAFT_LAYERS..47
+# are damped by SPEC_DAMP.
+SPEC_DRAFT_LAYERS = 4
+SPEC_DAMP = 0.2
+SPEC_K, SPEC_K_MIN = 4, 1
+SPEC_NEW = 64
+SPEC_PROMPTS = (100, 167, 233, 300)
+SPEC_BLOCK = {"enabled": True, "draft_model": f"truncate:{SPEC_DRAFT_LAYERS}",
+              "k": SPEC_K, "k_min": SPEC_K_MIN, "adaptive": True}
+# the sampled run: temperature and top-k
+SPEC_TEMPERATURE, SPEC_TOP_K = 0.8, 40
+# int8 weight-only against bf16 on the same weights, teacher-forced
+# decode logits: each weight moves by at most half its block's step
+# (max-abs / 254, ~0.7% of a block's spread), which adds to the bf16
+# roundings that the decode oracle's 8 ulps (TOL_LOGITS) cover, and the
+# epilogue rounds each block's partial product and its scaled value to
+# bf16 before the sum. The bound is 16 bf16 ulps at |x| in [2, 4); on
+# an H100 80GB HBM3 at 700 W this phase measured 0.1094 in each of two
+# runs over its 16 steps x 4 slots x 50,257 logits. Greedy tokens must agree wherever
+# the bf16 engine's top-2 gap exceeds twice the bound (a gap the bound
+# cannot close).
+TOL_INT8_LOGITS = 2 * TOL_LOGITS
+INT8_FORCED_STEPS = 16
+INT8_BLOCK = 128
+
+
+def spec_serving_config(weight_bits=32, speculative=None, new=SPEC_NEW):
+    """Phase 4's serving settings with a ring of `new` tokens, the int8
+    weights and the speculative block as asked."""
+    block = {"max_slots": 4, "prefill_chunk": 128, "sync_every": 8,
+             "max_new_tokens": new, "weight_bits": weight_bits,
+             "weight_quant_block": INT8_BLOCK,
+             "kv_cache": {"num_pages": 128, "page_size": 16}}
+    if speculative is not None:
+        block["speculative"] = dict(speculative)
+    return {"inference": block}
+
+
+def damped_flagship(seed, device="cuda", n_layer=None):
+    """gpt2-1.5b at full width (depth cut only for a CPU rehearsal) with
+    random weights from `seed`, the residual projections of blocks
+    SPEC_DRAFT_LAYERS.. scaled by SPEC_DAMP (bench_speculative_decode's
+    construction)."""
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2ForCausalLM,
+                                                 gpt2_config)
+    overrides = {} if n_layer is None else {"n_layer": n_layer}
+    cfg = gpt2_config("gpt2-1.5b", **overrides)
+    params = GPT2ForCausalLM(cfg, device=device).init(seed)
+    for i in range(SPEC_DRAFT_LAYERS, cfg.n_layer):
+        for mod in ("c_proj", "mlp_c_proj"):
+            for leaf in ("kernel", "bias"):
+                params[f"h.{i}.{mod}.{leaf}"].mul_(SPEC_DAMP)
+    return cfg, params
+
+
+def spec_prompts(seed, vocab):
+    import numpy as np
+    rng = np.random.RandomState(seed + 1)
+    return [rng.randint(0, vocab, size=n).astype(np.int32)
+            for n in SPEC_PROMPTS]
+
+
+def serve_timed(engine, prompts, new, device, **req):
+    """Warm up, zero the launch counts, then serve `prompts` through a
+    ServingLoop: (the requests by rid, the loop, wall seconds). The
+    counts read after it are the timed serve's alone."""
+    from deepspeed_tpu_torch.inference import Request, ServingLoop
+    engine.reset()
+    ServingLoop(engine).serve([Request(rid="warm", tokens=prompts[0][:40],
+                                       max_new_tokens=4)])
+    engine.reset()
+    sync(device)
+    reset_counts()
+    loop = ServingLoop(engine)
+    t0 = time.perf_counter()
+    done = loop.serve([Request(rid=i, tokens=p, max_new_tokens=new, **req)
+                       for i, p in enumerate(prompts)])
+    sync(device)
+    wall = time.perf_counter() - t0
+    return {r.rid: r for r in done}, loop, wall
+
+
+def no_sync(fn, device):
+    """`fn` run under torch.cuda.set_sync_debug_mode("error") on the
+    card: any host read inside it raises."""
+    import torch
+
+    def run(*a, **k):
+        if torch.device(device).type != "cuda":
+            return fn(*a, **k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
+def spec_totals(engine):
+    sp = engine.fetch_state()["speculative"]
+    out = {k: int(sp[k].sum()) for k in ("drafted", "accepted", "verified",
+                                         "rollbacks")}
+    out["rounds"] = sp["rounds"]
+    return out
+
+
+def verify_rows(engine, gen, k=SPEC_K):
+    """A decode row against the same row inside a verify-shaped batch
+    ([max_slots, k+1] rows), bit for bit, op by op of the step on the
+    engine's layer-0 weights at its widths: the four projections (cuBLAS,
+    or the int8 epilogue), paged attention (decode's kv_limit against
+    verify's), K3-fwd's block form, K4-fwd, and ln_f with the tied head
+    as the engine runs it (`_logits`, one GEMM per query position).
+    "head_one_gemm" is the head as one GEMM over all k+1 positions, the
+    phrasing `_logits` replaces: reported, not gated. Returns {op: the
+    number of the k+1 positions whose bits differ}."""
+    import torch
+    from deepspeed_tpu_torch.inference.engine import (_project,
+                                                      paged_attention)
+    from deepspeed_tpu_torch.ops.transformer.fused_ops import (
+        fused_bias_gelu, fused_bias_residual_layernorm)
+    mc, dev = engine.model_config, engine.device
+    s, c, h, d = engine.config.max_slots, mc.n_embd, mc.n_head, mc.head_dim
+    w = engine._weights
+    lp = w["layers"][0]
+    block = engine.config.weight_quant_block
+
+    def rnd(*shape, dtype=mc.dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) *
+                scale).to(dtype)
+
+    def differ(full, row_fn):
+        return sum(not torch.equal(full[:, j:j + 1], row_fn(j))
+                   for j in range(k + 1))
+
+    out = {}
+    for mod, width in (("c_attn", c), ("c_proj", c), ("c_fc", c),
+                       ("mlp_c_proj", 4 * c)):
+        x = rnd(s, k + 1, width)
+        full = _project(mc, lp, mod, x, block)
+        out[mod] = differ(full, lambda j: _project(
+            mc, lp, mod, x[:, j:j + 1].contiguous(), block))
+    tk = engine.cache.max_pages_per_slot * engine.cache.page_size
+    q, kc, vc = rnd(s, k + 1, h, d), rnd(s, tk, h, d), rnd(s, tk, h, d)
+    pos0 = torch.arange(s, device=dev) * 37 + 100
+    steps = torch.arange(k + 1, device=dev)
+    full = paged_attention(q, kc, vc, pos0[:, None] + steps, pos0 + k)
+    out["paged_attention"] = differ(full, lambda j: paged_attention(
+        q[:, j:j + 1].contiguous(), kc, vc, (pos0 + j)[:, None], pos0 + j))
+    y, resid = rnd(s, k + 1, c), rnd(s, k + 1, c, dtype=torch.float32)
+    args = (lp["c_proj.bias"], lp["ln_2.scale"], lp["ln_2.bias"])
+
+    def k3(yy, rr):
+        o, sm = fused_bias_residual_layernorm(
+            yy, args[0], rr, args[1], args[2], eps=mc.layer_norm_epsilon,
+            out_dtype=mc.dtype, sum_dtype=torch.float32)
+        return torch.cat([o.float(), sm], dim=-1)
+    out["k3_fwd"] = differ(k3(y, resid), lambda j: k3(
+        y[:, j:j + 1].contiguous(), resid[:, j:j + 1].contiguous()))
+    fc = rnd(s, k + 1, 4 * c)
+    full = fused_bias_gelu(fc, lp["c_fc.bias"], approximate=True,
+                           out_dtype=mc.dtype)
+    out["k4_fwd"] = differ(full, lambda j: fused_bias_gelu(
+        fc[:, j:j + 1].contiguous(), lp["c_fc.bias"], approximate=True,
+        out_dtype=mc.dtype))
+    mlp_y = rnd(s, k + 1, c)
+    full = engine._logits(w, mc, resid, (mlp_y, lp["mlp_c_proj.bias"]))
+    out["ln_f_and_head"] = differ(full, lambda j: engine._logits(
+        w, mc, resid[:, j:j + 1].contiguous(),
+        (mlp_y[:, j:j + 1].contiguous(), lp["mlp_c_proj.bias"])))
+    hid = rnd(s, k + 1, c)
+    head = w["wte_c"].t()
+    full = torch.matmul(hid, head)
+    out["head_one_gemm"] = differ(full, lambda j: torch.matmul(
+        hid[:, j:j + 1].contiguous(), head))
+    return out
+
+
+def check_verify_rows(label, engine, gen, card):
+    rows = verify_rows(engine, gen)
+    gated = {op: n for op, n in rows.items() if op != "head_one_gemm"}
+    ok = not any(gated.values())
+    emit({"phase": "verify_rows", "engine": label,
+          "positions": SPEC_K + 1, "slots": engine.config.max_slots,
+          "differing_positions": rows, "ok": ok, "card": card})
+    if not ok:
+        raise AssertionError(f"{label}: a verify row's bits differ from the "
+                             f"decode row's: {gated}")
+
+
+def speculative_decode(seed, card, device="cuda", n_layer=None):
+    """Phases 45-47: the verify rows (45), speculative serving at
+    temperature 0 against vanilla serving on the damped gpt2-1.5b (46;
+    the speculative path's launch counts zeroed after the warm-up,
+    right before the timed serve)
+    and the sampled run (47). Returns (the speculative path's counts,
+    the weights, the vanilla requests)."""
+    import torch
+    from deepspeed_tpu_torch.inference import InferenceEngine
+    t0 = time.perf_counter()
+    cfg, params = damped_flagship(seed, device, n_layer)
+    vanilla = InferenceEngine(cfg, params, spec_serving_config(),
+                              device=device)
+    spec = InferenceEngine(cfg, params,
+                           spec_serving_config(speculative=SPEC_BLOCK),
+                           device=device)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    check_verify_rows("bf16", spec, gen, card)
+    prompts = spec_prompts(seed, cfg.vocab_size)
+
+    van, _, van_s = serve_timed(vanilla, prompts, SPEC_NEW, device)
+    spec.spec_block = no_sync(spec.spec_block, device)
+    got, loop, spec_s = serve_timed(spec, prompts, SPEC_NEW, device)
+    counts = read_counts()
+    totals = spec_totals(spec)
+    # decode alone (the requests prefilled first), a block of 8 steps or
+    # rounds a fence
+    decode_s = {}
+    for name, eng, block in (("vanilla", vanilla, vanilla.decode_block),
+                             ("speculative", spec, spec.spec_block)):
+        eng.reset()
+        for slot, p in enumerate(prompts):
+            eng.start_request(slot, p, max_new=SPEC_NEW)
+        sync(device)
+        t0 = time.perf_counter()
+        while eng.fetch_state()["active"].any():
+            block(8)
+        decode_s[name] = time.perf_counter() - t0
+    equal = all(got[i].out_tokens.tolist() == van[i].out_tokens.tolist()
+                for i in van)
+    new_tokens = sum(len(r.out_tokens) for r in got.values())
+    stats = loop.spec_stats
+    row = {"phase": "speculative_decode", "model": "gpt2-1.5b",
+           "n_layer": cfg.n_layer,
+           "draft": SPEC_BLOCK["draft_model"], "damp": SPEC_DAMP,
+           "damped_blocks": [SPEC_DRAFT_LAYERS, cfg.n_layer - 1],
+           "k": SPEC_K, "k_min": SPEC_K_MIN, "adaptive": True,
+           "requests": len(prompts), "prompt_tokens": list(SPEC_PROMPTS),
+           "new_tokens_each": SPEC_NEW, "setup_s": setup_s,
+           "streams_equal": equal, **totals,
+           "acceptance_rate": totals["accepted"] / max(totals["drafted"], 1),
+           "tokens_per_verify": new_tokens / max(totals["verified"], 1),
+           "vanilla_wall_s": van_s, "speculative_wall_s": spec_s,
+           "vanilla_tokens_per_s": new_tokens / van_s,
+           "speculative_tokens_per_s": new_tokens / spec_s,
+           "speedup": van_s / spec_s,
+           "decode_only_s": decode_s,
+           "decode_only_tokens_per_s": {
+               k: new_tokens / v for k, v in decode_s.items()},
+           "vanilla_decode_ms_per_step":
+               decode_s["vanilla"] * 1e3 / SPEC_NEW,
+           "draft_dispatch_s": stats["draft_dispatch_s"],
+           "verify_dispatch_s": stats["verify_dispatch_s"],
+           "fences": stats["fences"],
+           "rollback_pages": stats["rollback_pages"],
+           "spec_block_sync_debug": "error" if device == "cuda" else None,
+           "card": card}
+    emit(row)
+    if not (equal and totals["drafted"] > 0 and totals["accepted"] > 0 and
+            totals["rollbacks"] > 0):
+        raise AssertionError(f"speculative_decode: streams equal {equal}, "
+                             f"counters {totals}")
+
+    # 47: temperature > 0 with top-k, one round a fence so that each
+    # slot's live rounds are counted on the host
+    import numpy as np
+    spec.reset()
+    for slot, p in enumerate(prompts):
+        spec.start_request(slot, p, max_new=SPEC_NEW // 2,
+                           temperature=SPEC_TEMPERATURE, top_k=SPEC_TOP_K)
+    live = np.zeros(spec.config.max_slots, np.int64)
+    snap = spec.fetch_state()
+    t0 = time.perf_counter()
+    while snap["active"].any():
+        live += snap["active"]
+        spec.spec_block(1)
+        snap = spec.fetch_state()
+    sampled_s = time.perf_counter() - t0
+    sp = snap["speculative"]
+    toks = snap["out_tokens"][:, :SPEC_NEW // 2]
+    ok = (bool(((toks >= 0) & (toks < cfg.vocab_size)).all()) and
+          list(snap["n_gen"]) == [SPEC_NEW // 2] * len(prompts) and
+          bool((sp["accepted"] <= sp["drafted"]).all()) and
+          np.array_equal(sp["verified"], live))
+    emit({"phase": "speculative_sampled", "temperature": SPEC_TEMPERATURE,
+          "top_k": SPEC_TOP_K, "new_tokens_each": SPEC_NEW // 2,
+          "drafted": int(sp["drafted"].sum()),
+          "accepted": int(sp["accepted"].sum()),
+          "verified": sp["verified"].tolist(), "live_rounds": live.tolist(),
+          "rollbacks": int(sp["rollbacks"].sum()),
+          "acceptance_rate": int(sp["accepted"].sum()) /
+          max(int(sp["drafted"].sum()), 1),
+          "wall_s": sampled_s, "ok": ok, "card": card})
+    if not ok:
+        raise AssertionError("speculative_sampled: tokens, counters or "
+                             "live rounds out of their contract")
+    del spec, vanilla
+    release()
+    return counts, cfg, params
+
+
+def projection_bytes(engine):
+    """The bytes of the projection weights the engine reads a step
+    (values, and scales where quantized)."""
+    total = 0
+    for lp in engine._weights["layers"]:
+        for name, t in lp.items():
+            if name.endswith(".kernel") or name.endswith(".kernel_scale"):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def int8_serving(seed, card, cfg, params, device="cuda"):
+    """Phases 48-49: int8 weight-only serving against bf16 on phase 46's
+    weights (the int8 path's launch counts zeroed after the warm-up,
+    right before the timed serve), then int8 with speculative decoding against int8 alone.
+    Returns the int8 path's counts."""
+    import torch
+    from deepspeed_tpu_torch.inference import InferenceEngine
+    prompts = spec_prompts(seed, cfg.vocab_size)
+    engines = {}
+    on_card = torch.device(device).type == "cuda"
+    for bits in (32, 8):
+        before = torch.cuda.memory_allocated() if on_card else 0
+        eng = InferenceEngine(cfg, params, spec_serving_config(bits),
+                              device=device)
+        sync(device)
+        engines[bits] = (eng, torch.cuda.memory_allocated() - before
+                         if on_card else None)
+    e16, e8 = engines[32][0], engines[8][0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    check_verify_rows("int8", e8, gen, card)
+
+    # teacher-forced decode logits: both engines take the bf16 engine's
+    # token at every step
+    for eng in (e16, e8):
+        eng.reset()
+        for slot, p in enumerate(prompts):
+            eng.start_request(slot, p, max_new=INT8_FORCED_STEPS)
+    worst, checked, agree = 0.0, 0, 0
+    for _ in range(INT8_FORCED_STEPS):
+        l16 = e16.decode_once().float()
+        l8 = e8.decode_once().float()
+        e8._state["cur_token"] = e16._state["cur_token"].clone()
+        worst = max(worst, float((l16 - l8).abs().max()))
+        top2 = torch.topk(l16, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * TOL_INT8_LOGITS
+        checked += int(clear.sum())
+        agree += int((clear & (l16.argmax(-1) == l8.argmax(-1))).sum())
+    sync(device)
+    stats = {}
+    for bits, (eng, load_bytes) in engines.items():
+        eng.reset()
+        sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for slot, p in enumerate(prompts):
+            eng.start_request(slot, p, max_new=SPEC_NEW)
+        sync(device)
+        t0 = time.perf_counter()
+        eng.decode_block(SPEC_NEW)
+        sync(device)
+        decode_s = time.perf_counter() - t0
+        stats[bits] = {
+            "decode_ms_per_step": decode_s * 1e3 / SPEC_NEW,
+            "decode_tokens_per_s": len(prompts) * SPEC_NEW / decode_s,
+            "projection_bytes": projection_bytes(eng),
+            "engine_bytes_on_load": load_bytes,
+            "peak_bytes_decoding": torch.cuda.max_memory_allocated()
+            if on_card else None}
+    # served: the int8 engine (phase 46 served the same requests on
+    # bf16 with these settings: its vanilla_tokens_per_s)
+    van8, _, wall = serve_timed(e8, prompts, SPEC_NEW, device)
+    counts = read_counts()
+    stats[8]["served_tokens_per_s"] = len(prompts) * SPEC_NEW / wall
+    ok = worst <= TOL_INT8_LOGITS and agree == checked
+    emit({"phase": "int8_serving", "block": INT8_BLOCK,
+          "forced_steps": INT8_FORCED_STEPS,
+          "max_abs_logit_diff": worst, "tol": TOL_INT8_LOGITS,
+          "argmax_checked": checked, "argmax_agree": agree,
+          "bf16": stats[32], "int8": stats[8], "ok": ok, "card": card})
+    if not ok:
+        raise AssertionError("int8 decode logits out of their bound against "
+                             "bf16")
+    del engines, e16, e8
+    release()
+
+    # 49: int8 with speculative decoding, half the new tokens: the
+    # stream is the int8 engine's
+    both = InferenceEngine(cfg, params,
+                           spec_serving_config(8, speculative=SPEC_BLOCK),
+                           device=device)
+    both.spec_block = no_sync(both.spec_block, device)
+    got, _, wall = serve_timed(both, prompts, SPEC_NEW // 2, device)
+    equal = all(got[i].out_tokens.tolist() ==
+                van8[i].out_tokens[:SPEC_NEW // 2].tolist() for i in van8)
+    totals = spec_totals(both)
+    emit({"phase": "int8_speculative", "new_tokens_each": SPEC_NEW // 2,
+          "streams_equal": equal, **totals,
+          "acceptance_rate": totals["accepted"] / max(totals["drafted"], 1),
+          "tokens_per_s": len(prompts) * (SPEC_NEW // 2) / wall,
+          "card": card})
+    if not (equal and totals["accepted"] > 0):
+        raise AssertionError(f"int8_speculative: streams equal {equal}, "
+                             f"counters {totals}")
+    del both
+    release()
+    return counts
+
+
+# ----------------------------------------------------------------------
 # phases 7-10: training, its oracle, quantized training, its oracle
 # ----------------------------------------------------------------------
 def flagship_ds_config(micro_batch):
@@ -2165,7 +2617,8 @@ def moe_config(quantized_experts="off", **overrides):
     return gpt2_config("gpt2-350m", **kwargs)
 
 
-def moe_train_and_check(seed, card, warmup=2, steps=6, quantized=False):
+def moe_train_and_check(seed, card, warmup=2, steps=6, quantized=False,
+                        n_layer=None):
     """Phase 11: gpt2-350m-moe8 through initialize (with the moe block)
     -> train_batch on one fixed batch repeated: step ms, tokens/s, peak
     memory, losses (finite, falling), the router's drop fraction and
@@ -2181,7 +2634,8 @@ def moe_train_and_check(seed, card, warmup=2, steps=6, quantized=False):
     from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
     from deepspeed_tpu_torch.moe import STAT_DROP, router_capacity
 
-    cfg = moe_config(quantized_experts="on" if quantized else "off")
+    cfg = moe_config(quantized_experts="on" if quantized else "off",
+                     **({} if n_layer is None else {"n_layer": n_layer}))
     ds_config = moe_ds_config()
     if quantized:
         ds_config["quantized_compute"] = dict(QUANT_BLOCK_CONFIG)
@@ -3324,6 +3778,12 @@ FP16_A_LAYERS = 8
 # path B's depth (gpt2-1.5b's width, 48 layers in the cell): cut to 16
 # for the same reason
 FP16_B_LAYERS = 16
+# the serving phases 45-49 (~85 s) made room by cutting, the same
+# way, path F (gpt2-1.5b under the ring in fp16) to 16 of 48 layers,
+# paths D and E and the quantized MoE path (gpt2-350m-moe8) to 12 of 24
+# (6 MoE layers)
+FP16_F_LAYERS = 16
+MOE_CUT_LAYERS = 12
 
 
 def kernel_bert(peaks):
@@ -4999,9 +5459,9 @@ def moe_fp16_launches(n_layer, quantized):
 
 
 def moe_fp16(seed, card, quantized=False):
-    """Path D (phase 30, `moe_fp16`): gpt2-350m-moe8 at full size (24
-    layers, n_embd 1024, 8 experts, top-2, capacity 1.25, every other
-    layer) through initialize -> train_batch with moe_ds_config()'s
+    """Path D (phase 30, `moe_fp16`): gpt2-350m-moe8 at full width
+    and MOE_CUT_LAYERS of its 24 layers (n_embd 1024, 8 experts, top-2,
+    capacity 1.25, every other layer) through initialize -> train_batch with moe_ds_config()'s
     block and fp16 ({"enabled": true, "initial_scale_power": 16}: fp16
     parameters, fp32 masters and moments) in place of bf16, ZeRO-0,
     AdamW, full-block remat, on one repeated batch until 8 clean steps
@@ -5017,7 +5477,8 @@ def moe_fp16(seed, card, quantized=False):
 
     name = "moe_quant_fp16" if quantized else "moe_fp16"
     cfg = moe_config(quantized_experts="on" if quantized else "off",
-                     dtype=torch.float16, param_dtype=torch.float32)
+                     dtype=torch.float16, param_dtype=torch.float32,
+                     n_layer=MOE_CUT_LAYERS)
     ds_config = moe_ds_config()
     del ds_config["bf16"]
     ds_config["fp16"] = {"enabled": True,
@@ -5102,7 +5563,7 @@ def sequence_parallel_fp16_path(seed, card):
 
 def sp_fp16(seed, card):
     """Path F (phase 33, `sp_fp16`): sp_training (the training flagship's
-    gpt2-1.5b, micro batch 11, seq 1024, ZeRO-2, AdamW, full-block remat,
+    gpt2-1.5b at FP16_F_LAYERS of its 48 layers, micro batch 11, seq 1024, ZeRO-2, AdamW, full-block remat,
     with sequence_parallel="ring" over the one-rank group) in fp16 with
     fp32 masters from the scale 2^16, until 8 clean steps follow the
     last skip (`run_fp16_path`'s gates): every layer's attention is K5
@@ -5114,7 +5575,7 @@ def sp_fp16(seed, card):
     from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
 
     cfg = train_config(dtype=torch.float16, param_dtype=torch.float32,
-                       sequence_parallel="ring")
+                       sequence_parallel="ring", n_layer=FP16_F_LAYERS)
     ds_config = flagship_ds_config(TRAIN_BATCH)
     del ds_config["bf16"]
     ds_config["fp16"] = {"enabled": True,
@@ -6296,6 +6757,9 @@ KERNELS = KERNELS_BF16 + tuple(
 # <= 1024), MoE training K1-K4 and K8; the quantized paths add K6
 SERVING_KERNELS = ("flash_attention_fwd", "fused_bias_residual_layernorm_fwd",
                    "fused_bias_gelu_fwd")
+# the speculative and int8 serving paths: the engine's epilogues only
+# (paged attention and the int8 epilogue are plain torch)
+SPEC_KERNELS = ("fused_bias_residual_layernorm_fwd", "fused_bias_gelu_fwd")
 TRAINING_KERNELS = SERVING_KERNELS + (
     "flash_attention_bwd_fused", "fused_bias_residual_layernorm_bwd",
     "fused_bias_gelu_bwd")
@@ -6413,6 +6877,23 @@ def main(argv=None):
         release()
         return counts
 
+    # 45-47: speculative decoding on the damped gpt2-1.5b, its verify
+    # rows, the temperature-0 stream against vanilla (counts zeroed in
+    # serve_timed after the warm-up, right before the timed speculative
+    # serve) and the sampled run; 48-49: int8 weight-only serving on the
+    # same weights (counts zeroed the same way before the timed int8
+    # serve) and int8 with speculation.
+    # Both paths run K3-fwd and K4-fwd, and never K6 (the epilogue is
+    # plain torch)
+    spec_counts, spec_cfg, spec_params = speculative_decode(args.seed, card)
+    speculative = path_counts("speculative", spec_counts, SPEC_KERNELS,
+                              ("quantized_matmul",))
+    int8 = path_counts("int8_serving",
+                       int8_serving(args.seed, card, spec_cfg, spec_params),
+                       SPEC_KERNELS, ("quantized_matmul",))
+    del spec_params
+    release()
+
     # 7: the training path (counts zeroed inside, right before its
     # steps), then 8: its oracle
     training, losses = train_and_check(args.seed, card)
@@ -6475,7 +6956,8 @@ def main(argv=None):
     release()
     moe_quant = path_counts(
         "moe_quant_training",
-        moe_train_and_check(args.seed, card, quantized=True),
+        moe_train_and_check(args.seed, card, quantized=True,
+                            n_layer=MOE_CUT_LAYERS),
         MOE_QUANT_KERNELS, FUSED_ABSENT)
 
     # 34, path G: gpt2-350m under dots_with_no_batch_dims_saveable, fed
@@ -6649,7 +7131,8 @@ def main(argv=None):
                         TRAINING_KERNELS, FUSED_ABSENT)
 
     rows = []
-    counts_by_path = {"serving": serving, "training": training,
+    counts_by_path = {"serving": serving, "speculative": speculative,
+                      "int8_serving": int8, "training": training,
                       "quant_training": quant, "moe_training": moe,
                       "moe_quant_training": moe_quant,
                       "sparse_attention": sparse,

@@ -1,5 +1,5 @@
 """deepspeed_tpu_torch.inference — the serving engine (port of
-deepspeed_tpu.inference, slice 1).
+deepspeed_tpu.inference).
 
   * InferenceEngine (engine.py): chunked prefill + single-token decode
     steps, device-side sampling, no per-token host sync.
@@ -10,6 +10,10 @@ deepspeed_tpu.inference, slice 1).
     iteration-level continuous batching with chunked prefill
     interleaving and EOS/max-tokens eviction.
   * InferenceConfig (config.py): the `inference` config block.
+  * int8 weight-only quantization (quant.py): per-block-scale
+    kernels quantized once at load, dequant-in-matmul epilogue.
+  * speculative decoding (speculative.py): draft-model propose,
+    batched flagship verify, lossless acceptance on the device.
 """
 
 from deepspeed_tpu_torch.inference.config import (InferenceConfig,

@@ -1,6 +1,7 @@
 """Paged KV cache: the host-side page allocator (port of
-deepspeed_tpu/inference/kv_cache.py without the memory-ledger wiring
-and the speculative draft pool, which come with later slices).
+deepspeed_tpu/inference/kv_cache.py without the memory-ledger wiring,
+which comes with the monitor, ROADMAP Queue 1 item 8: until then the
+pools' bytes, the draft pool's included, are plain attributes).
 
 One preallocated pool of fixed-size pages
 
@@ -16,9 +17,24 @@ Allocation is host-side and happens only at serving fences. Admission
 reserves a request's worst-case page count up front (`can_admit`), so
 an admitted request never fails an allocation mid-flight; pages are
 still assigned incrementally as the sequence grows.
+
+Speculative decoding's draft model keeps its K/V in a second pool with
+the draft's layer count (`attach_draft`) that shares these page tables
+and this allocator: one admission decision, one table upload. A
+rejected suffix is undone by `rollback`, which trims a slot's pages to
+its committed length without touching page data: stale K/V beyond a
+slot's position is masked and value-zeroed by the engine's attention.
 """
 
 import numpy as np
+import torch
+
+
+def _itemsize(dtype):
+    """Bytes per element of a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize
 
 
 class PagedKVCache:
@@ -28,7 +44,7 @@ class PagedKVCache:
     mutation)."""
 
     def __init__(self, n_layer, n_head, head_dim, num_pages, page_size,
-                 max_slots, max_pages_per_slot):
+                 max_slots, max_pages_per_slot, dtype=np.float32):
         if max_pages_per_slot < 1:
             raise ValueError(
                 f"max_pages_per_slot must be >= 1, got {max_pages_per_slot}")
@@ -43,6 +59,11 @@ class PagedKVCache:
         self.page_size = int(page_size)
         self.max_slots = int(max_slots)
         self.max_pages_per_slot = int(max_pages_per_slot)
+        self.itemsize = _itemsize(dtype)
+        # bytes of ONE page across K+V and all layers
+        self.page_bytes = (2 * self.n_layer * self.page_size * self.n_head *
+                           self.head_dim * self.itemsize)
+        self.pool_bytes = self.num_pages * self.page_bytes
         # page 0 = scratch; pages 1..num_pages-1 allocatable (LIFO free
         # list: recently freed pages are re-assigned first)
         self._free = list(range(self.num_pages - 1, 0, -1))
@@ -51,6 +72,21 @@ class PagedKVCache:
         self.tables = np.zeros((self.max_slots, self.max_pages_per_slot),
                                np.int32)
         self.table_version = 0
+        # the speculative draft pool (attach_draft): same tables and
+        # allocator, the draft's layer count
+        self.draft_n_layer = 0
+        self.draft_page_bytes = 0
+        self.draft_pool_bytes = 0
+
+    def attach_draft(self, n_layer_draft):
+        """Declare the speculative draft model's KV pool: it shares this
+        cache's page tables and free list, so the only new accounting is
+        its bytes, the flagship's page bytes scaled to the draft's layer
+        count."""
+        self.draft_n_layer = int(n_layer_draft)
+        self.draft_page_bytes = (2 * self.draft_n_layer * self.page_size *
+                                 self.n_head * self.head_dim * self.itemsize)
+        self.draft_pool_bytes = self.num_pages * self.draft_page_bytes
 
     # -- accounting -----------------------------------------------------
     def pages_for_tokens(self, n_tokens):
@@ -79,6 +115,11 @@ class PagedKVCache:
     def pages_in_use(self):
         """Pages currently assigned to live requests."""
         return sum(len(p) for p in self._pages.values())
+
+    def draft_slot_bytes(self, slot):
+        """The draft pool's bytes behind `slot`'s pages (0 without a
+        draft)."""
+        return self.allocated_pages(slot) * self.draft_page_bytes
 
     # -- admission / growth / release -----------------------------------
     def can_admit(self, n_tokens_worst_case):
@@ -123,6 +164,31 @@ class PagedKVCache:
             self.tables[slot, len(pages) - 1] = phys
             self.table_version += 1
         return pages
+
+    def rollback(self, slot, n_tokens):
+        """Rewind `slot` to exactly the pages needed for positions
+        [0, n_tokens): the rejected-suffix rollback of speculative
+        decoding. No page data is copied or cleared (the device-side
+        kv_limit, the slot's position, masks stale K/V): trimmed pages go
+        back on the LIFO free list, so a re-advance pops the same
+        physical pages into the same table columns, and the freed
+        columns reset to the scratch page. Returns the number of pages
+        released; a rollback that trims nothing changes nothing (no
+        table_version bump, no upload)."""
+        if slot not in self._pages:
+            raise ValueError(f"slot {slot} is not admitted")
+        need = self.pages_for_tokens(n_tokens)
+        pages = self._pages[slot]
+        if need >= len(pages):
+            return 0
+        freed = pages[need:]
+        del pages[need:]
+        # reversed: the highest-position page ends up on top of the LIFO
+        # list, so regrowth reassigns page for page identically
+        self._free.extend(reversed(freed))
+        self.tables[slot, need:need + len(freed)] = 0
+        self.table_version += 1
+        return len(freed)
 
     def free(self, slot):
         """Return `slot`'s pages to the free list, drop its reservation

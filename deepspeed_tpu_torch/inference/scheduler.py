@@ -1,7 +1,7 @@
 """Continuous batching over the sync-free dispatch loop (port of
-deepspeed_tpu/inference/scheduler.py without the serving tracker, the
-monitor events and the speculative hooks, which come with later
-slices).
+deepspeed_tpu/inference/scheduler.py without the serving tracker and
+the monitor events, which come with the monitor, ROADMAP Queue 1 item
+8).
 
 The unit of scheduling is one **serving iteration**:
 
@@ -12,10 +12,13 @@ The unit of scheduling is one **serving iteration**:
      decode batch instead of stalling it; a slot whose prompt is fully
      cached flips live;
   3. decode block — `sync_every` single-token decode steps for the
-     whole slot batch, enqueued with no host sync;
+     whole slot batch, enqueued with no host sync (with speculative
+     decoding, `sync_every` speculative rounds: engine.spec_block);
   4. the fence — ONE device->host copy (engine.fetch_state) reads
      every slot's progress; finished requests (EOS / max-tokens,
-     decided on the device) are evicted and their pages freed.
+     decided on the device) are evicted and their pages freed, and
+     with speculation each live slot's pages are trimmed to its
+     committed length and the round counters are diffed per fence.
 """
 
 import dataclasses
@@ -62,6 +65,18 @@ class ServingLoop:
         self._last_n_gen = np.zeros((s,), np.int64)
         # host mirror of each live slot's position as of the last fence
         self._last_pos = np.zeros((s,), np.int64)
+        # speculative decoding: the device counters are cumulative per
+        # slot, so each fence diffs them against these mirrors
+        self._spec = bool(getattr(engine, "speculative_enabled", False))
+        self._last_spec = {key: np.zeros((s,), np.int64) for key in
+                           ("drafted", "accepted", "verified", "rollbacks")}
+        self._last_rounds = 0
+        # the last fence's speculative window (rounds, drafted, accepted,
+        # verified, rollbacks, rollback_pages, draft_dispatch_s,
+        # verify_dispatch_s: the JAX loop's `speculative` monitor event,
+        # which waits for the monitor) and their sums over the fences
+        self.spec_window = None
+        self.spec_stats = {"fences": 0}
 
     # -- submission -----------------------------------------------------
     def submit(self, req):
@@ -129,12 +144,20 @@ class ServingLoop:
         if not self.live and not self.prefilling:
             return False
         if self.live:
-            iters = self._infer.config.sync_every
+            rounds = self._infer.config.sync_every
+            # a speculative round can commit up to (draft steps + 1)
+            # tokens a slot, so the block's capacity window widens from
+            # sync_every steps to sync_every rounds of that worst case
+            per_round = (self._infer.spec_next_draft() + 1) \
+                if self._spec else 1
             for slot in self.live:
                 self._infer.ensure_decode_capacity(
-                    slot, int(self._last_pos[slot]), iters)
+                    slot, int(self._last_pos[slot]), rounds * per_round)
             self._infer.push_tables()
-            self._infer.decode_block(iters)
+            if self._spec:
+                self._infer.spec_block(rounds)
+            else:
+                self._infer.decode_block(rounds)
         self._fence()
         return True
 
@@ -208,6 +231,38 @@ class ServingLoop:
             self._last_n_gen[slot] = gen
             if not snap["active"][slot]:
                 self._finish(slot, req, snap, now)
+        if self._spec:
+            # rejected-suffix rollback, host side: trim each live slot's
+            # pages to its committed length (verify rewound the device
+            # position; no page data moves), so the freed pages fund
+            # this fence's admissions
+            pages = sum(self._infer.cache.rollback(
+                slot, int(snap["pos"][slot]) + 1) for slot in self.live)
+            self._spec_fence(snap, pages)
+
+    def _spec_fence(self, snap, rollback_pages):
+        """Per-fence speculative accounting: diff the cumulative device
+        counters (read in the fence's one copy) against the host mirrors
+        and keep the window, with the drafted-vs-verified dispatch split,
+        and its sums. The JAX loop also emits it as the `speculative` monitor
+        event and hands it to the serving tracker; both wait for the
+        monitor (ROADMAP Queue 1 item 8)."""
+        sp = snap["speculative"]
+        window = {"rounds": sp["rounds"] - self._last_rounds}
+        self._last_rounds = sp["rounds"]
+        for key, last in self._last_spec.items():
+            now = sp[key].astype(np.int64)
+            window[key] = int((now - last).sum())
+            self._last_spec[key] = now
+        window["rollback_pages"] = int(rollback_pages)
+        window["draft_dispatch_s"], window["verify_dispatch_s"] = \
+            self._infer.spec_dispatch_split()
+        if window["rounds"] <= 0 and window["drafted"] == 0:
+            return
+        self.spec_window = window
+        self.spec_stats["fences"] += 1
+        for key, value in window.items():
+            self.spec_stats[key] = self.spec_stats.get(key, 0) + value
 
     def _finish(self, slot, req, snap, now):
         gen = int(snap["n_gen"][slot])

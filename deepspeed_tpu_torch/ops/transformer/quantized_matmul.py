@@ -2,9 +2,10 @@
 dequant in the GEMM epilogue (kernel K6), and the straight-through
 training family built on them.
 
-Port of deepspeed_tpu/ops/transformer/quantized_matmul.py (its training
-half; the weight-only serving epilogue `int8_matmul` comes with int8
-serving, ROADMAP Queue 1 item 7). The scale layout is the JAX package's:
+Port of deepspeed_tpu/ops/transformer/quantized_matmul.py: the training
+half, and the weight-only serving epilogue `int8_matmul` (an XLA einsum
+in the JAX package, plain torch here on every device). The scale layout
+is the JAX package's:
 
     weights:      one fp32 scale per (K-block, output column)
                   -> scales [.., nb, N], nb = ceil(K / block)
@@ -118,7 +119,14 @@ def quantize_kernel_int8(w, block, gen=None, values_dtype=torch.int8):
     """Traced twin of `quantize_kernel_int8_np`: [.., K, N] -> (q
     [.., nb*block, N] in `values_dtype`, scales fp32 [.., nb, N]). K is
     really padded (the product contracts over nb*block rows) and the
-    scales are the clamped ones the product uses."""
+    scales are the clamped ones the product uses (1 for an all-zero
+    block, where `quantize_kernel_int8_np` keeps 0). Rounding to
+    nearest, the values and the other scales are that function's bit
+    for bit, on any device: the same fp32 max, division and
+    round-half-to-even. The 127
+    is a tensor on w's device: CUDA torch turns a division by a Python
+    scalar into a product with its reciprocal, one rounding more, which
+    moved some scales by an ulp on the card."""
     w = w.to(torch.float32)
     k, n = w.shape[-2], w.shape[-1]
     nb = -(-k // block)
@@ -126,7 +134,7 @@ def quantize_kernel_int8(w, block, gen=None, values_dtype=torch.int8):
     if pad:
         w = F.pad(w, (0, 0, 0, pad))
     blocks = w.reshape(w.shape[:-2] + (nb, block, n))
-    s = blocks.abs().amax(dim=-2) / 127.0
+    s = blocks.abs().amax(dim=-2) / torch.full((), 127.0, device=w.device)
     safe = torch.where(s > 0, s, torch.ones_like(s))
     q = torch.clamp(_round(blocks / safe[..., None, :], gen), -127, 127)
     return q.to(values_dtype).reshape(w.shape), safe
@@ -154,6 +162,34 @@ def dequantize_kernel(q, scales, block, k=None, dtype=torch.float32):
     deq = blocks.to(torch.float32) * scales[..., None, :]
     deq = deq.reshape(deq.shape[:-3] + (nb * block, deq.shape[-1]))
     return deq[..., :k if k is not None else kp, :].to(dtype)
+
+
+# ----------------------------------------------------------------------
+# the weight-only epilogue (int8 serving)
+# ----------------------------------------------------------------------
+def int8_matmul(x, q, scales, block, out_dtype):
+    """The weight-only dequant-in-matmul epilogue, the JAX package's
+    `int8_matmul`: x [.., K] @ int8 q [K or nb*block, N] with
+    per-(block, column) scales [nb, N] -> [.., N] in out_dtype. K is
+    padded to whole blocks; each block's partial product runs in
+    out_dtype (one batched GEMM over the blocks), each partial is
+    multiplied by its scale row and the partials are summed. Plain
+    torch on every device: the int8 weights are cast to out_dtype a
+    block batch at a time in every call (a 16-bit copy of the weight,
+    written and read once more, where a weight-only GEMM kernel would
+    widen in registers)."""
+    k, n = x.shape[-1], q.shape[-1]
+    nb = scales.shape[-2]
+    kp = nb * block
+    if kp != k:
+        x = F.pad(x, (0, kp - k))
+    if q.shape[-2] != kp:
+        q = F.pad(q, (0, 0, 0, kp - q.shape[-2]))
+    lead = x.shape[:-1]
+    xb = x.reshape(-1, nb, block).to(out_dtype).transpose(0, 1)
+    part = torch.bmm(xb, q.reshape(nb, block, n).to(out_dtype))
+    out = (part * scales.to(out_dtype)[:, None, :]).sum(dim=0)
+    return out.reshape(lead + (n,))
 
 
 # ----------------------------------------------------------------------

@@ -23,10 +23,15 @@ too, though the port does not act on it yet.
 
 A block that the JAX engine acts on and the port does not yet raises
 NotImplementedError naming the ROADMAP Queue 1 item that ports it
-(`_check_later_slices`): pipeline and sparse gradients (6); the monitor, tensorboard and wall_clock_breakdown (8: the JAX
-engine prints the breakdown from the monitor's trace spans);
-elasticity, the flops profiler and autotune (9).
+(`_check_later_slices`): pipeline, sparse gradients and a `mesh` axis
+above 1 (6); the monitor, tensorboard and wall_clock_breakdown (8: the
+JAX engine prints the breakdown from the monitor's trace spans);
+elasticity, the flops profiler and autotune (9). The `mesh` block is
+resolved for the port's world size as the JAX package's `build_mesh`
+resolves it for its devices (`resolve_mesh`, `mesh_shape`).
 """
+
+import math
 
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.activation_checkpointing.config import \
@@ -44,6 +49,52 @@ class DeepSpeedConfigError(Exception):
 def _later(what, item):
     return NotImplementedError(
         f"{what} is not in the port yet: ROADMAP Queue 1 item {item}")
+
+
+# the mesh's axis orders, the JAX package's runtime/mesh.py AXIS_ORDER and
+# AXIS_ORDER_EXPERT
+MESH_AXES = (C.MESH_PIPE_AXIS, C.MESH_DATA_AXIS, C.MESH_MODEL_AXIS)
+MESH_AXES_EXPERT = (C.MESH_PIPE_AXIS, C.MESH_DATA_AXIS, C.MESH_EXPERT_AXIS,
+                    C.MESH_MODEL_AXIS)
+
+
+def _mesh_sizes(mesh_config):
+    """The `mesh` block's axes and sizes, -1 for an inferred axis (the
+    JAX `build_mesh`'s defaults: data -1, pipe and model 1)."""
+    cfg = dict(mesh_config or {})
+    axes = MESH_AXES_EXPERT if C.MESH_EXPERT_AXIS in cfg else MESH_AXES
+    sizes = {C.MESH_PIPE_AXIS: int(cfg.get(C.MESH_PIPE_AXIS, 1)),
+             C.MESH_DATA_AXIS: int(cfg.get(C.MESH_DATA_AXIS, -1)),
+             C.MESH_MODEL_AXIS: int(cfg.get(C.MESH_MODEL_AXIS, 1))}
+    if C.MESH_EXPERT_AXIS in cfg:
+        sizes[C.MESH_EXPERT_AXIS] = int(cfg[C.MESH_EXPERT_AXIS])
+    return axes, sizes
+
+
+def resolve_mesh(mesh_config, n):
+    """The `mesh` block resolved for n devices as the JAX package's
+    `build_mesh` resolves it (`deepspeed_tpu/runtime/mesh.py:51-81`, its
+    assertions word for word): at most one axis -1, inferred from n; the
+    axes' product must be n; an `expert` axis switches to the 4-axis
+    order. Raises AssertionError (not `assert`, so that `-O` keeps the
+check) with the JAX package's messages. Returns {axis: size} in the
+mesh's axis order."""
+    axes, sizes = _mesh_sizes(mesh_config)
+    known = [sizes[a] for a in axes if sizes[a] != -1]
+    n_known = math.prod(known) if known else 1
+    unknown = [a for a in axes if sizes[a] == -1]
+    if len(unknown) > 1:
+        raise AssertionError("at most one mesh axis may be -1 (inferred)")
+    if unknown:
+        if n % n_known != 0:
+            raise AssertionError(f"device count {n} not divisible by fixed "
+                                 f"axis product {n_known}")
+        sizes[unknown[0]] = n // n_known
+    dims = tuple(sizes[a] for a in axes)
+    if math.prod(dims) != n:
+        raise AssertionError(
+            f"mesh {'x'.join(map(str, dims))} != device count {n}")
+    return {a: sizes[a] for a in axes}
 
 
 def _block_enabled(param_dict, key, enabled_key="enabled"):
@@ -428,6 +479,8 @@ class DeepSpeedConfig:
         self.amp_enabled, self.amp_params = get_amp_config(self._param_dict)
         self._initialize_params(self._param_dict)
         self._check_later_slices(self._param_dict)
+        self.mesh_shape = resolve_mesh(self._param_dict.get(C.MESH),
+                                       self.world_size)
         self._configure_train_batch_size()
 
     def _check_later_slices(self, d):
@@ -440,6 +493,11 @@ class DeepSpeedConfig:
             raise _later("wall_clock_breakdown", 8)
         if d.get(C.PIPELINE):
             raise _later("pipeline parallelism", 6)
+        _, mesh = _mesh_sizes(d.get(C.MESH))
+        wide = sorted(a for a, size in mesh.items() if size > 1)
+        if wide:
+            raise _later(f"a mesh with {', '.join(wide)} above 1 "
+                         "(runtime/mesh.py)", 6)
         if d.get(C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT):
             raise _later("sparse_gradients (runtime/csr_tensor.py)", 6)
         if _block_enabled(d, C.MONITOR, C.MONITOR_ENABLED):

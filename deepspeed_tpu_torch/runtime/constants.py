@@ -211,6 +211,18 @@ MOE_FUSED_DISPATCH_DEFAULT = "auto"
 MOE_FUSED_DISPATCH_VALID = ("on", "off", "auto")
 
 #############################################
+# Mesh block: {"mesh": {"data": -1, "model": 1, "pipe": 1, "expert": 1}},
+# -1 = infer from the device count; the `expert` axis exists only when
+# the block names it. The port resolves it for its world size and runs
+# no axis above 1 yet (runtime/config.py `resolve_mesh`).
+#############################################
+MESH = "mesh"
+MESH_DATA_AXIS = "data"
+MESH_MODEL_AXIS = "model"
+MESH_PIPE_AXIS = "pipe"
+MESH_EXPERT_AXIS = "expert"
+
+#############################################
 # Monitor (only the switch: the monitor itself is a later slice)
 #############################################
 MONITOR = "monitor"

@@ -1171,7 +1171,7 @@ _build.build_all()
 peaks = cs.peaks_for(torch.cuda.get_device_name(0))
 # the paths (seed, card) rather than kernel phases (peaks, generator)
 PATHS = ("sparse_attention_path", "train_and_check", "moe_train_and_check",
-         "checkpoint_and_check", "bert_training")
+         "checkpoint_and_check", "bert_training", "serve_and_check")
 
 
 def ln_bwd_wide(gen):

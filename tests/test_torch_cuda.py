@@ -3107,3 +3107,103 @@ def test_offload_step_syncs_the_host_once(dev, wire):
     syncs = [w for w in seen
              if "called a synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in seen]
+
+
+# ----------------------------------------------------------------------
+# speculative decoding and int8 weight-only serving
+# ----------------------------------------------------------------------
+def _serving_engine(dev, n_layer=2, **inference):
+    """gpt2-1.5b's width at `n_layer` layers, bf16 compute, random
+    weights: chip_smoke's serving settings with `inference` on top."""
+    cfg = tgpt2.gpt2_config("gpt2-1.5b", n_layer=n_layer)
+    params = tgpt2.GPT2ForCausalLM(cfg, device=dev).init(seed=0)
+    cs = _chip_smoke()
+    icfg = cs.spec_serving_config(new=32)
+    icfg["inference"].update(inference)
+    return cs, cfg, params, InferenceEngine(cfg, params, icfg, device=dev)
+
+
+@pytest.mark.parametrize("weight_bits", [32, 8], ids=["bf16", "int8"])
+def test_verify_rows_equal_decode_rows_bit_for_bit(dev, weight_bits):
+    """At gpt2-1.5b's widths, 4 slots x 5 positions: every op of the
+    verify step gives a row the decode step's bits (the head through
+    `_logits`, one GEMM per position)."""
+    cs, _, _, eng = _serving_engine(dev, weight_bits=weight_bits)
+    rows = cs.verify_rows(eng, _gen(dev, 21))
+    torch.cuda.synchronize()
+    assert {op: n for op, n in rows.items() if op != "head_one_gemm"} == \
+        {op: 0 for op in rows if op != "head_one_gemm"}, rows
+
+
+@pytest.mark.parametrize("weight_bits", [32, 8], ids=["bf16", "int8"])
+def test_speculative_stream_equals_vanilla_on_the_card(dev, weight_bits):
+    """4 layers at gpt2-1.5b's width, blocks 1.. damped as chip_smoke
+    damps its flagship's: the truncate:1 speculative stream equals the
+    vanilla stream at temperature 0, spec_block under
+    set_sync_debug_mode("error"), with drafts accepted."""
+    from deepspeed_tpu_torch.inference import Request, ServingLoop
+    cfg = tgpt2.gpt2_config("gpt2-1.5b", n_layer=4)
+    params = tgpt2.GPT2ForCausalLM(cfg, device=dev).init(seed=0)
+    for i in range(1, 4):
+        for mod in ("c_proj", "mlp_c_proj"):
+            for leaf in ("kernel", "bias"):
+                params[f"h.{i}.{mod}.{leaf}"].mul_(0.2)
+    cs = _chip_smoke()
+    spec_block = {"enabled": True, "draft_model": "truncate:1", "k": 4,
+                  "k_min": 1, "adaptive": True}
+    van = InferenceEngine(cfg, params, cs.spec_serving_config(weight_bits,
+                                                              new=32),
+                          device=dev)
+    spec = InferenceEngine(cfg, params, cs.spec_serving_config(
+        weight_bits, speculative=spec_block, new=32), device=dev)
+    spec.spec_block = cs.no_sync(spec.spec_block, "cuda")
+    r = np.random.RandomState(22)
+    prompts = [r.randint(0, cfg.vocab_size, n) for n in (40, 77, 130, 9)]
+
+    def serve(eng):
+        return {q.rid: q.out_tokens.tolist() for q in ServingLoop(eng).serve(
+            [Request(rid=i, tokens=p, max_new_tokens=32)
+             for i, p in enumerate(prompts)])}
+
+    assert serve(spec) == serve(van)
+    totals = cs.spec_totals(spec)
+    assert totals["accepted"] > 0 and totals["drafted"] > 0
+
+
+def test_spec_block_reads_nothing_on_the_host(dev):
+    """Several speculative rounds back to back under
+    set_sync_debug_mode("error"): no synchronizing call."""
+    cs, cfg, _, eng = _serving_engine(dev, speculative={
+        "enabled": True, "draft_model": "truncate:1", "k": 3})
+    r = np.random.RandomState(23)
+    for slot in range(3):
+        eng.start_request(slot, r.randint(0, cfg.vocab_size, 20 + slot),
+                          max_new=24, temperature=0.7 * slot, top_k=8 * slot)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.spec_block(3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    state = eng.fetch_state()
+    assert (state["n_gen"][:3] > 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_on_the_card_matches_the_cpu(dev, dtype):
+    """The plain epilogue at the projections' shapes (K 1600 and 6400,
+    block 128): the card's result against the CPU's on the same inputs,
+    fp32 to reduction-order roundoff, bf16 within one rounding."""
+    from deepspeed_tpu_torch.ops.transformer import quantized_matmul as qm
+    g = _gen(dev, 24)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for k, n in ((1600, 4800), (6400, 1600)):
+        w = torch.randn((k, n), generator=g, device=dev) * 0.02
+        x = torch.randn((4, 5, k), generator=g, device=dev).to(dtype)
+        q, s = qm.quantize_kernel_int8(w, 128)
+        got = qm.int8_matmul(x, q[:k], s, 128, dtype)
+        ref = qm.int8_matmul(x.cpu(), q[:k].cpu(), s.cpu(), 128, dtype)
+        torch.testing.assert_close(got.cpu().float(), ref.float(), **tol)
+        # the quantizer on the card is the CPU's bit for bit
+        q_cpu, s_cpu = qm.quantize_kernel_int8(w.cpu(), 128)
+        assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)

@@ -36,6 +36,7 @@ from deepspeed_tpu.runtime import constants as JC
 from deepspeed_tpu.runtime.config import DeepSpeedConfig as JConfig
 from deepspeed_tpu.runtime.config import \
     DeepSpeedConfigError as JDeepSpeedConfigError
+from deepspeed_tpu.runtime.mesh import build_mesh
 from deepspeed_tpu.runtime.zero import config as JZ
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.models.convert import params_from_jax
@@ -204,9 +205,15 @@ def test_train_batch_makes_no_host_sync(jax_model_and_tree, monkeypatch):
      "overlap": {"enabled": False, "sites": ["ring", "moe_dispatch"],
                  "issue_distance": 2},
      "autotune": {"enabled": False, "table_path": "table.json"}},
+    # mesh blocks one device resolves: every axis 1, or data inferred
+    {"train_batch_size": 8, "mesh": {"pipe": 1, "data": 1, "model": 1}},
+    {"train_batch_size": 8, "mesh": {"data": -1, "expert": 1}},
 ])
 def test_config_resolves_like_jax(d):
     j, t = JConfig(dict(d), world_size=1), TConfig(dict(d))
+    # the JAX engine builds its mesh from the block (one device here)
+    mesh = build_mesh(d.get("mesh"), devices=jax.devices()[:1])
+    assert list(t.mesh_shape.items()) == list(mesh.shape.items())
     for attr in ("train_batch_size", "train_micro_batch_size_per_gpu",
                  "gradient_accumulation_steps", "steps_per_print",
                  "zero_optimization_stage", "zero_enabled",
@@ -253,6 +260,21 @@ def test_config_rejects_bad_block_values_like_jax(block):
         TConfig(dict(d))
 
 
+@pytest.mark.parametrize("mesh", [
+    {"data": 0}, {"data": -1, "model": -1}, {"pipe": -1},
+    {"model": -2}, {"expert": 1, "data": 0},
+], ids=["zero_axis", "two_inferred", "pipe_inferred_data_default",
+        "negative_axis", "expert_order"])
+def test_config_rejects_a_malformed_mesh_like_jax(mesh):
+    """A mesh block that no device count resolves fails in the port as
+    `build_mesh` fails in the JAX engine, with the same message."""
+    with pytest.raises(AssertionError) as ref:
+        build_mesh(mesh, devices=jax.devices()[:1])
+    with pytest.raises(AssertionError) as got:
+        TConfig({"train_batch_size": 8, "mesh": mesh})
+    assert str(got.value) == str(ref.value)
+
+
 def test_config_rejects_an_inconsistent_triple():
     bad = {"train_batch_size": 10, "train_micro_batch_size_per_gpu": 4,
            "gradient_accumulation_steps": 2}
@@ -283,6 +305,7 @@ def test_constants_equal_jax(mine, ref):
     ({"tensorboard": {"enabled": True}}, "tensorboard"),
     ({"elasticity": {"enabled": True, "max_train_batch_size": 48,
                      "micro_batch_sizes": [4]}}, "elasticity"),
+    ({"mesh": {"model": 2, "data": 1}}, "mesh with model above 1"),
 ])
 def test_later_slices_raise(jax_model_and_tree, extra, match):
     config = dict({"train_micro_batch_size_per_gpu": 2}, **extra)
@@ -303,6 +326,7 @@ def test_later_slices_raise(jax_model_and_tree, extra, match):
     ({"tensorboard": {"enabled": True}}, 8),
     ({"flops_profiler": {"enabled": True}}, 9),
     ({"autotune": {"table_path": "table.json"}}, 9),
+    ({"mesh": {"model": 2, "data": 1}}, 6),
 ])
 def test_later_slices_name_their_roadmap_item(jax_model_and_tree, extra,
                                               item):

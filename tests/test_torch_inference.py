@@ -12,7 +12,10 @@ bit-exact serving checks do not hold on every build.
 Guards: importing the port (and chip_smoke) loads no jax/flax module
 and nothing of deepspeed_tpu; `decode_block` makes no host sync; CPU
 runs launch no kernel; default-device construction raises without
-CUDA.
+CUDA; the serving options still out of the port raise naming their
+ROADMAP item, and the ported ones (speculative decoding and int8
+weights: tests/test_torch_speculative.py,
+tests/test_torch_inference_int8.py) construct and decode.
 """
 
 import os
@@ -243,33 +246,58 @@ def test_paged_kv_cache_arithmetic_matches_jax():
         got.admit(0, 4)
 
 
+def _decode_four(engine):
+    """Admit one request, take its 4 new tokens through the engine's
+    dispatch loop, and return them from the fence."""
+    engine.start_request(0, _prompts((11,), seed=10)[0], max_new=4)
+    if engine.speculative_enabled:
+        engine.spec_block(4)
+    else:
+        engine.decode_block(4)
+    state = engine.fetch_state()
+    assert state["n_gen"][0] == 4 and not state["active"][0]
+    return state["out_tokens"][0, :4]
+
+
 def test_out_of_slice_engine_options_raise(weights):
+    """The monitor is out of the port yet; speculative decoding and
+    int8 weights (ROADMAP Queue 1 item 7) now construct and decode."""
     cfg = tgpt2.tiny_gpt2_config()
     for extra in ({"speculative": {"enabled": True}}, {"weight_bits": 8}):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(cfg, weights[2],
-                            {"inference": dict(ICFG["inference"], **extra)},
-                            device="cpu")
+        engine = InferenceEngine(
+            cfg, weights[2], {"inference": dict(ICFG["inference"], **extra)},
+            device="cpu")
+        assert all(0 <= t < cfg.vocab_size for t in _decode_four(engine))
     with pytest.raises(NotImplementedError):
         InferenceEngine(cfg, weights[2], dict(ICFG, monitor={"enabled": True}),
                         device="cpu")
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"inference": {"speculative": {"enabled": True}}}, 7),
-    ({"inference": {"weight_bits": 8}}, 7),
+    ({"inference": {"speculative": {"enabled": True}}}, None),
+    ({"inference": {"weight_bits": 8}}, None),
     ({"monitor": {"enabled": True}}, 8),
 ], ids=["speculative", "int8-weights", "monitor"])
 def test_out_of_slice_engine_options_name_their_roadmap_item(weights, extra,
                                                              item):
     """Each serving option the port does not have yet names the ROADMAP
-    Queue 1 item that ports it."""
+    Queue 1 item that ports it; the options of item 7 (item None here)
+    are ported: the engine constructs and decodes, speculation at
+    temperature 0 giving the vanilla engine's tokens."""
     config = dict(ICFG, **extra)
     config["inference"] = dict(ICFG["inference"], **extra.get("inference", {}))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}$"):
-        InferenceEngine(tgpt2.tiny_gpt2_config(), weights[2], config,
-                        device="cpu")
+    cfg = tgpt2.tiny_gpt2_config()
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 item {item}$"):
+            InferenceEngine(cfg, weights[2], config, device="cpu")
+        return
+    got = _decode_four(InferenceEngine(cfg, weights[2], config,
+                                       device="cpu"))
+    if "speculative" in config["inference"]:
+        want = _decode_four(InferenceEngine(cfg, weights[2], ICFG,
+                                            device="cpu"))
+        np.testing.assert_array_equal(got, want)
 
 
 def test_default_device_raises_without_cuda(weights):
@@ -318,6 +346,8 @@ def test_port_imports_load_no_jax():
         "import sys\n"
         "import chip_smoke, deepspeed_tpu_torch\n"
         "import deepspeed_tpu_torch.inference\n"
+        "import deepspeed_tpu_torch.inference.speculative\n"
+        "import deepspeed_tpu_torch.inference.quant\n"
         "import deepspeed_tpu_torch.models.gpt2\n"
         "import deepspeed_tpu_torch.models.convert\n"
         "import deepspeed_tpu_torch.ops._build\n"
