@@ -245,6 +245,33 @@ Phases, each printing one JSON line:
      tokens/s, projection bytes and peak memory of each engine;
  49. int8_speculative: int8 with speculative decoding, 32 new tokens a
      request: the stream equals the int8 engine's.
+ 50. monitor_training (path M, after 8): phase 7's training cell with
+     async_dispatch at steps_per_sync 4, wall_clock_breakdown and the
+     monitor (JSONL and tensorboard sinks, the Perfetto trace, flight,
+     numerics, the memory ledger, stall_timeout_sec 60) beside the same
+     engine without them, windows of 4 steps in turns: losses bit for
+     bit, the kernels' launches a step equal, no host read between
+     fences (set_sync_debug_mode("error")) and one copy at a fence, the
+     events' losses, the ledger's state bytes, the tfevents CRCs, a
+     forward, backward and step span a step in the trace and `ds_trace
+     summary` on it; the memory event against torch.cuda.memory_stats,
+     MFU and tokens/s, and the overhead (median of the window ratios,
+     the 3% contract recorded, not gated);
+ 51. monitor_faults (after 44): 4 layers of phase 7's cell with a 2 s
+     stall timeout: a healthy stretch gives no stall, a host sleep one
+     stall event and one flight dump, an exception out of train_batch
+     one dump, a micro batch of 4096 rows torch.OutOfMemoryError and a
+     dump classified oom with the ledger's hints, then a step;
+ 52. monitor_serving (after 49): phase 4's serving cell and phase 46's
+     speculative cell with the monitor and the request tracker against
+     the same serves without: tokens equal, no host read in a block, the
+     tracker's p50/p99 within one histogram bucket of the requests'
+     stamps, the KV ledger the pools' bytes, one trace track a slot;
+ 53. monitor_events (after 51): at 4 layers, the moe and router events
+     of gpt2-350m-moe8, the quantized path's quantized_matmul event, O1's
+     wire counters against its steps' bytes, a checkpoint's ckpt_commit
+     and its ledger entries released, engine.prefetch's heartbeat
+     terminal at exhaustion; every event held to the JAX engine's keys.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -6788,6 +6815,753 @@ SP_TRAINING_KERNELS = tuple(k for k in TRAINING_KERNELS
     ("flash_attention_merge",)
 
 
+# ----------------------------------------------------------------------
+# phases 50-53: the monitor (deepspeed_tpu_torch/monitor/)
+# ----------------------------------------------------------------------
+# path M: the training cell with the monitor; warm-up of one window, then
+# MON_WINDOWS windows of MON_SYNC steps (a fence closes each window)
+MON_SYNC = 4
+MON_WINDOWS = 3
+# the JAX package's overhead contract (bench.py bench_monitor_overhead):
+# recorded, not gated
+MON_OVERHEAD_CONTRACT = 0.03
+# the kernels whose launches a monitored step must equal an unmonitored
+# step's
+MON_GATED_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_fused",
+                     "fused_bias_residual_layernorm_fwd",
+                     "fused_bias_residual_layernorm_bwd",
+                     "fused_bias_gelu_fwd", "fused_bias_gelu_bwd")
+# monitor_faults and monitor_events: the depth their models are cut to
+MON_CUT_LAYERS = 4
+MON_STALL_SEC = 2.0
+# the micro batch (rows of 1024 tokens) no card holds at 4 layers of
+# gpt2-1.5b's width: its activations alone pass 80 GB
+MON_OOM_ROWS = 4096
+# the tracker's percentiles against the requests' own stamps: one
+# histogram bucket (2^(1/3)) with bench.py's 1.45x jitter band
+MON_BUCKET_BAND = 1.45
+# the JAX engine's event key sets (deepspeed_tpu/runtime/engine.py,
+# monitor/__init__.py, inference/scheduler.py; tests/
+# test_torch_monitor_*.py hold the port's events to the JAX package's
+# on the CPU), beside the keys every event carries
+MON_BASE_KEYS = {"v", "ts", "kind", "step"}
+MON_EVENT_KEYS = {
+    "overlap": {"enabled", "sites", "issue_distance"},
+    "quantized_matmul": {"applied", "mode", "block", "stochastic_rounding",
+                         "active"},
+    "moe": {"num_experts", "top_k", "capacity_factor", "aux_loss_weight",
+            "every_n_layers", "jitter_eps", "fused_dispatch",
+            "expert_axis"},
+    "router": {"num_experts", "expert_load", "load_max", "drop_fraction",
+               "aux_loss", "window_steps"},
+    "ckpt_commit": {"tag", "dir", "wall_ms", "global_steps"},
+    "stall": {"fence_age_sec", "timeout_sec", "heartbeat_age_sec",
+              "terminal_subsystems", "consecutive_fires"},
+    "numerics": {"grad_norm", "grad_absmax", "grad_nonfinite",
+                 "act_absmax", "act_mean", "act_nonfinite", "window_steps",
+                 "first_nonfinite"},
+    "memory": {"schema", "hbm", "host", "top_buffers", "peak"},
+    "speculative": {"rounds", "drafted_tokens", "accepted_tokens",
+                    "acceptance_rate", "tokens_per_verify",
+                    "rollback_events", "rollback_pages", "mean_k",
+                    "draft_dispatch_ms", "verify_dispatch_ms"},
+}
+
+
+def monitor_block(out, **extra):
+    """Path M's monitor block: the JSONL and tensorboard sinks, the
+    Perfetto trace, the flight recorder, numerics and the memory ledger,
+    the stall watchdog at 60 s."""
+    block = {"enabled": True, "output_path": out,
+             "sinks": ["jsonl", "tensorboard"],
+             "stall_timeout_sec": 60,
+             "trace": {"enabled": True}, "flight": {"enabled": True},
+             "numerics": {"enabled": True}, "memory": {"enabled": True}}
+    block.update(extra)
+    return block
+
+
+def read_events(out):
+    with open(os.path.join(out, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_keys(label, event, checks):
+    """An event's keys against the JAX engine's set for its kind."""
+    want = MON_EVENT_KEYS[event["kind"]] | MON_BASE_KEYS
+    got = set(event)
+    checks.append({"check": f"{label}: {event['kind']} keys", "ok":
+                   got == want, "missing": sorted(want - got),
+                   "extra": sorted(got - want)})
+
+
+class HostReads:
+    """Counts the tensor methods that read the device on the host
+    (.item, .cpu, .tolist, .numpy) while installed."""
+
+    NAMES = ("item", "cpu", "tolist", "numpy")
+
+    def __init__(self):
+        self.calls = []
+        self._orig = {}
+
+    def __enter__(self):
+        import torch
+        for name in self.NAMES:
+            orig = self._orig[name] = getattr(torch.Tensor, name)
+
+            def counted(t, *a, _orig=orig, _name=name, **k):
+                self.calls.append(_name)
+                return _orig(t, *a, **k)
+            setattr(torch.Tensor, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for name, orig in self._orig.items():
+            setattr(torch.Tensor, name, orig)
+        return False
+
+
+def guarded_fences(engine, reads, device):
+    """Wrap `engine._sync_fence`: the steps between fences run under
+    set_sync_debug_mode("error") on the card (any host read raises), the
+    fence itself under "default"; each fence records the host reads
+    since the last one and its own. Returns the list of (between,
+    inside) read lists."""
+    import torch
+    fences = []
+    real = engine._sync_fence
+    cuda = torch.device(device).type == "cuda"
+
+    def fence():
+        between = list(reads.calls)
+        del reads.calls[:]
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+        try:
+            real()
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("error")
+        fences.append((between, list(reads.calls)))
+        del reads.calls[:]
+    engine._sync_fence = fence
+    return fences
+
+
+def monitor_training(seed, card, device="cuda", n_layer=None, out=None):
+    """Phase 50, path M: the training cell (bench_gpt2_15b verbatim) with
+    async_dispatch at steps_per_sync 4, wall_clock_breakdown and the
+    monitor (monitor_block), beside the same engine without it: one
+    window of warm-up, then MON_WINDOWS windows of MON_SYNC steps, the
+    two engines in turns (off, on; then on, off; ...) on the same
+    batches. Gates: the losses bit for bit; K1-fwd, K2-fused, K3-fwd,
+    K3-bwd, K4-fwd and K4-bwd launched as often a step; no host read
+    between fences (set_sync_debug_mode("error") and the tensor read
+    methods counted) and one copy at each fence; every `metrics`
+    event's loss the mean of its window's step losses; the ledger's
+    params and optimizer-state bytes the state's tensor bytes; the
+    tfevents file read back with its CRCs; the Perfetto trace with a
+    forward, backward and step span a step, and `ds_trace summary` on
+    it; numerics finite. Reports the `memory` event against
+    torch.cuda.memory_stats, MFU and tokens/s beside the script's own
+    clock, and the overhead as the median of the paired window ratios.
+    Returns the monitored engine's launch counts."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.monitor import trace_cli
+    from deepspeed_tpu_torch.monitor.tfevents import read_tfevents
+
+    out = out or tempfile.mkdtemp(prefix="ds_monitor_m_")
+    over = {} if n_layer is None else {"n_layer": n_layer}
+    cfg = train_config(**over)
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    checks = []
+    t0 = time.perf_counter()
+
+    def build(on):
+        ds = flagship_ds_config(batch)
+        ds["async_dispatch"] = {"steps_per_sync": MON_SYNC}
+        if on:
+            ds["wall_clock_breakdown"] = True
+            ds["monitor"] = monitor_block(out)
+        model = GPT2ForCausalLM(cfg, device=device)
+        engine, _, _, _ = dst.initialize(model=model,
+                                         model_parameters=model.init(seed),
+                                         config=ds)
+        return engine
+
+    engines = {"off": build(False), "on": build(True)}
+    rng = np.random.default_rng(seed)
+    n_steps = MON_SYNC * (1 + MON_WINDOWS)
+    staged = [engines["off"].stage_batch({"input_ids": rng.integers(
+        0, cfg.vocab_size, (1, batch, seq)).astype(np.int32)})
+              for _ in range(n_steps)]
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    losses = {"off": [], "on": []}
+    counts = {k: {} for k in engines}
+    window_ms = {"off": [], "on": []}
+    reads = HostReads()
+    fences = {k: guarded_fences(e, reads, device)
+              for k, e in engines.items()}
+    cuda = torch.device(device).type == "cuda"
+
+    def window(name, w):
+        eng = engines[name]
+        reset_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        with reads:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                for i in range(w * MON_SYNC, (w + 1) * MON_SYNC):
+                    losses[name].append(eng.train_batch(batch=staged[i]))
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("default")
+        sync(device)
+        if w > 0:
+            window_ms[name].append((time.perf_counter() - t0) * 1e3)
+            for k, v in read_counts().items():
+                counts[name][k] = counts[name].get(k, 0) + v
+
+    for name in ("off", "on"):
+        window(name, 0)
+    for w in range(1, 1 + MON_WINDOWS):
+        for name in (("off", "on") if w % 2 else ("on", "off")):
+            window(name, w)
+    run_s = time.perf_counter() - t0
+
+    on = engines["on"]
+    vals = {k: torch.stack(v).float().cpu() for k, v in losses.items()}
+    bit_equal = bool(torch.equal(vals["on"], vals["off"]))
+    checks.append({"check": "losses bit for bit, monitor on and off",
+                   "ok": bit_equal})
+    steps = MON_SYNC * MON_WINDOWS
+    per_step = {k: {n: counts[k].get(n, 0) / steps for n in
+                    MON_GATED_KERNELS} for k in counts}
+    checks.append({"check": "launches a step, monitor on and off",
+                   "ok": per_step["on"] == per_step["off"],
+                   "on": per_step["on"], "off": per_step["off"]})
+    between = [len(b) for b, _ in fences["on"]]
+    inside = [sorted(f) for _, f in fences["on"]]
+    checks.append({"check": "no host read between fences, one copy at a "
+                   "fence", "ok": all(n == 0 for n in between) and
+                   len(inside) == 1 + MON_WINDOWS and
+                   all(f == ["cpu", "numpy"] for f in inside),
+                   "between": between, "at_fences": inside})
+    st = on.state
+    params_bytes = sum(p.numel() * p.element_size()
+                       for p in st.params.values())
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for t in on._state_tensors(st.opt_state))
+    ts = on.tput_timer.avg_samples_per_sec()
+    own_tps = batch * seq * MON_SYNC / (np.median(window_ms["on"]) / 1e3)
+    stats = torch.cuda.memory_stats() if cuda else {}
+    on.shutdown()
+    engines["off"].shutdown()
+
+    events = read_events(out)
+    metrics = [e for e in events if e["kind"] == "metrics"]
+    host_vals = vals["on"].tolist()
+    means = [round(sum(host_vals[i * MON_SYNC:(i + 1) * MON_SYNC])
+                   / MON_SYNC, 6) for i in range(1 + MON_WINDOWS)]
+    checks.append({"check": "each metrics event's loss the mean of its "
+                   "window's steps", "ok": [e["loss"] for e in metrics] ==
+                   means, "events": [e["loss"] for e in metrics],
+                   "means": means})
+    mem = [e for e in events if e["kind"] == "memory"]
+    cats = mem[-1]["hbm"]["categories"]
+    checks.append({"check": "ledger params and opt_state bytes are the "
+                   "state's tensor bytes",
+                   "ok": cats.get("params") == params_bytes and
+                   cats.get("opt_state") == opt_bytes,
+                   "ledger": {k: cats.get(k) for k in ("params",
+                                                       "opt_state")},
+                   "state": {"params": params_bytes, "opt_state": opt_bytes}})
+    numerics = [e for e in events if e["kind"] == "numerics"]
+    finite = all(np.isfinite(v) for e in numerics
+                 for key in ("grad_norm", "grad_absmax")
+                 for v in e[key].values())
+    checks.append({"check": "numerics group stats finite",
+                   "ok": bool(numerics) and finite,
+                   "groups": list(numerics[-1]["grad_norm"])
+                   if numerics else None})
+    for e in (numerics[-1], mem[-1]):
+        check_keys("monitor_training", e, checks)
+    tb_dir = os.path.join(out, "tb")
+    tb = [os.path.join(tb_dir, f) for f in os.listdir(tb_dir)]
+    records = [r for f in tb for r in read_tfevents(f)]
+    tb_loss = [r["scalars"]["monitor/metrics/loss"] for r in records
+               if "monitor/metrics/loss" in r.get("scalars", {})]
+    checks.append({"check": "tfevents read back with their CRCs",
+                   "ok": len(tb_loss) == len(metrics), "records":
+                   len(records)})
+    trace_path = os.path.join(out, "trace_rank0.json")
+    with open(trace_path) as f:
+        trace = json.load(f)
+    spans = {}
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") == "X" and ev.get("cat") == "host_span":
+            spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+    checks.append({"check": "one forward, backward and step span a step",
+                   "ok": all(spans.get(k) == n_steps for k in
+                             ("forward", "backward", "step")),
+                   "spans": spans, "steps": n_steps})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trace_cli.main(["summary", trace_path])
+    summary = buf.getvalue().splitlines()
+    checks.append({"check": "ds_trace summary", "ok": rc in (0, None) and
+                   any("host/step" in ln for ln in summary)})
+    ratios = [a / b for a, b in zip(window_ms["on"], window_ms["off"])]
+    overhead = float(np.median(ratios)) - 1.0
+    hbm = mem[-1]["hbm"]
+    emit({"phase": "monitor_training", "model": "gpt2-1.5b",
+          "n_layer": cfg.n_layer, "micro_batch": batch, "seq": seq,
+          "steps_per_sync": MON_SYNC, "warmup_steps": MON_SYNC,
+          "steps": steps, "setup_s": setup_s, "run_s": run_s,
+          "window_ms": window_ms, "window_ratios_on_off": ratios,
+          "overhead": overhead, "overhead_contract": MON_OVERHEAD_CONTRACT,
+          "regressed": overhead > MON_OVERHEAD_CONTRACT,
+          "metrics_last": {k: metrics[-1].get(k) for k in (
+              "loss", "mfu", "tokens_per_sec_per_chip", "tokens_per_sec",
+              "samples_per_sec", "window_steps", "spans")},
+          "script_tokens_per_s": own_tps,
+          "throughput_timer_samples_per_s": ts,
+          "memory_event": {"categories": hbm["categories"],
+                           "ledger_bytes": hbm["ledger_bytes"],
+                           "measured_in_use": hbm["measured_in_use"],
+                           "measured_peak": hbm["measured_peak"],
+                           "residual_bytes": hbm["residual_bytes"],
+                           "peak": mem[-1]["peak"]},
+          "torch_memory_stats": {
+              "allocated_current": stats.get("allocated_bytes.all.current"),
+              "allocated_peak": stats.get("allocated_bytes.all.peak"),
+              "reserved_current": stats.get("reserved_bytes.all.current")},
+          "events": sorted({e["kind"] for e in events}),
+          "ds_trace_summary": summary[:12],
+          "checks": checks, "card": card})
+    bad = [c["check"] for c in checks if not c["ok"]]
+    shutil.rmtree(out, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"monitor_training: {bad}")
+    return counts["on"]
+
+
+def monitor_faults(seed, card, device="cuda", n_layer=MON_CUT_LAYERS,
+                   oom_rows=MON_OOM_ROWS):
+    """Phase 51: the flight recorder and the watchdog on the training
+    cell at MON_CUT_LAYERS layers (a fence every step, stall_timeout_sec
+    MON_STALL_SEC): a healthy stretch of steps longer than the timeout
+    gives no `stall` event and no dump; a host sleep past the timeout
+    with no fence gives one of each; an exception out of train_batch
+    gives one dump; a micro batch the card cannot hold raises
+    torch.OutOfMemoryError and leaves a dump classified `oom` with the
+    ledger's hints, after which the engine steps again."""
+    import tempfile
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.monitor.flight import list_flight_dumps
+
+    out = tempfile.mkdtemp(prefix="ds_monitor_faults_")
+    cfg = train_config(n_layer=n_layer)
+    ds = flagship_ds_config(TRAIN_BATCH)
+    ds["async_dispatch"] = {"steps_per_sync": 1}
+    ds["monitor"] = {"enabled": True, "output_path": out,
+                     "stall_timeout_sec": MON_STALL_SEC}
+    model = GPT2ForCausalLM(cfg, device=device)
+    engine, _, _, _ = dst.initialize(model=model,
+                                     model_parameters=model.init(seed),
+                                     config=ds)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    staged = engine.stage_batch({"input_ids": ids})
+    checks = []
+
+    def stalls():
+        return [e for e in read_events(out) if e["kind"] == "stall"]
+
+    t0 = time.perf_counter()
+    healthy = 0
+    while time.perf_counter() - t0 < 1.5 * MON_STALL_SEC or healthy < 2:
+        engine.train_batch(batch=staged)
+        healthy += 1
+    checks.append({"check": "a healthy stretch: no stall, no dump",
+                   "ok": stalls() == [] and list_flight_dumps(out) == [],
+                   "steps": healthy,
+                   "seconds": time.perf_counter() - t0})
+    time.sleep(MON_STALL_SEC + 1.5)
+    dumps = list_flight_dumps(out)
+    stall_dump = {}
+    if dumps:
+        with open(dumps[-1]) as f:
+            stall_dump = json.load(f)
+    st = stalls()
+    checks.append({"check": "a stall: one stall event, one dump",
+                   "ok": len(st) == 1 and len(dumps) == 1 and
+                   stall_dump.get("reason") == "stall",
+                   "stall": st[-1] if st else None})
+    if st:
+        check_keys("monitor_faults", st[-1], checks)
+    engine.train_batch(batch=staged)    # a fence ends the episode
+    try:
+        engine.train_batch(batch={"input_ids": ids[:, :1].repeat(2, 0)})
+        raised = None
+    except ValueError as e:
+        raised = repr(e)
+    dumps = list_flight_dumps(out)
+    with open(dumps[-1]) as f:
+        crash = json.load(f)
+    checks.append({"check": "an exception out of train_batch: one dump",
+                   "ok": raised is not None and len(dumps) == 2 and
+                   crash["reason"] == "exception", "error": raised})
+    big = np.zeros((1, oom_rows, TRAIN_SEQ), np.int32)
+    oom_type = None
+    try:
+        engine.train_batch(batch={"input_ids": big})
+    except torch.OutOfMemoryError as e:
+        oom_type = type(e).__name__
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    dumps = list_flight_dumps(out)
+    with open(dumps[-1]) as f:
+        oom = json.load(f)
+    forensics = oom.get("extra", {}).get("oom", {})
+    loss = float(engine.train_batch(batch=staged))
+    checks.append({"check": "an OOM: torch.OutOfMemoryError, a dump "
+                   "classified oom with the ledger's hints, then a step",
+                   "ok": oom_type is not None and len(dumps) == 3 and
+                   oom["reason"] == "oom" and bool(forensics.get("hints"))
+                   and bool(np.isfinite(loss)),
+                   "hints": forensics.get("hints"),
+                   "top_buffers": (forensics.get("top_buffers") or [])[:3],
+                   "loss_after": loss})
+    engine.shutdown()
+    emit({"phase": "monitor_faults", "model": "gpt2-1.5b",
+          "n_layer": cfg.n_layer, "stall_timeout_sec": MON_STALL_SEC,
+          "oom_rows": oom_rows, "checks": checks, "card": card})
+    bad = [c["check"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"monitor_faults: {bad}")
+
+
+def pick(vals, p):
+    return vals[min(int(p * len(vals)), len(vals) - 1)]
+
+
+def tracker_agrees(tracker, done):
+    """The tracker's p50/p99 TTFT and per-token latency against the
+    requests' own stamps (bench.py bench_serving_observability): within
+    MON_BUCKET_BAND."""
+    ttft = sorted((q.first_token_at - q.admitted_at) * 1e3 for q in done)
+    tok = []
+    for q in done:
+        n = max(len(q.out_tokens), 1)
+        live = q.live_at if q.live_at is not None else q.admitted_at
+        tok += [(q.finished_at - live) * 1e3 / n] * n
+    tok.sort()
+    rows = {}
+    for name, hist, vals in (("ttft", tracker.hist_ttft_ms, ttft),
+                             ("token", tracker.hist_token_ms, tok)):
+        for p in (0.5, 0.99):
+            rep, exact = hist.percentile(p), pick(vals, p)
+            rows[f"{name}_p{int(p * 100)}"] = {
+                "tracker_ms": rep, "requests_ms": exact,
+                "ok": rep is not None and exact > 0 and
+                1 / MON_BUCKET_BAND <= rep / exact <= MON_BUCKET_BAND}
+    return rows
+
+
+def monitored_serve(engine, prompts, new, device, reads):
+    """Warm the engine up without the loop (the tracker sees loop
+    requests only), then serve `prompts` through a ServingLoop with
+    every decode and speculative block counted for host reads."""
+    from deepspeed_tpu_torch.inference import Request, ServingLoop
+    engine.start_request(0, prompts[0][:40], max_new=4)
+    engine.decode_block(4)
+    engine.fetch_state()
+    engine.reset()
+    sync(device)
+    blocks = []
+    for attr in ("decode_block", "spec_block"):
+        if not hasattr(engine, attr):
+            continue
+        real = no_sync(getattr(engine, attr), device)
+
+        def counted(*a, _real=real, **k):
+            with reads:
+                out = _real(*a, **k)
+            blocks.append(len(reads.calls))
+            del reads.calls[:]
+            return out
+        setattr(engine, attr, counted)
+    done = ServingLoop(engine).serve(
+        [Request(rid=i, tokens=p, max_new_tokens=new)
+         for i, p in enumerate(prompts)])
+    return {q.rid: q for q in done}, blocks
+
+
+def monitor_serving(seed, card, spec_cfg, spec_params, device="cuda",
+                    n_layer=None):
+    """Phase 52: the serving cell (gpt2-1.5b, phase 4's settings, 4
+    greedy requests) with the monitor and inference.observability on,
+    beside the same serve without them; then phase 46's speculative
+    cell (spec_cfg, spec_params) the same way. Gates: the tokens equal
+    the unmonitored serve's; no host read in a decode or speculative
+    block; the tracker's p50/p99 TTFT and per-token latency within one
+    histogram bucket of the requests' own stamps; the `kv_cache` and
+    `kv_cache_draft` ledger bytes the pools' tensor bytes; one Perfetto
+    track per slot; the `speculative` events' keys the JAX engine's."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from deepspeed_tpu_torch.inference import InferenceEngine
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2ForCausalLM,
+                                                 gpt2_config)
+
+    checks = []
+    rows = {}
+    reads = HostReads()
+    overrides = {} if n_layer is None else {"n_layer": n_layer}
+    cfg = gpt2_config("gpt2-1.5b", **overrides)
+    params = GPT2ForCausalLM(cfg, device=device).init(seed)
+    plain_cfg = {"inference": {"max_slots": 4, "prefill_chunk": 128,
+                               "sync_every": 8, "max_new_tokens": 32,
+                               "kv_cache": {"num_pages": 128,
+                                            "page_size": 16}}}
+    rng = np.random.RandomState(seed)
+    plain_prompts = [rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+                     for n in (100, 167, 233, 300)]
+    cells = (("serving", cfg, params, plain_cfg, plain_prompts, 32),
+             ("speculative", spec_cfg, spec_params,
+              spec_serving_config(speculative=SPEC_BLOCK),
+              spec_prompts(seed, spec_cfg.vocab_size), SPEC_NEW))
+    for name, mcfg, weights, icfg, prompts, new in cells:
+        out = tempfile.mkdtemp(prefix=f"ds_monitor_{name}_")
+        t0 = time.perf_counter()
+        off = InferenceEngine(mcfg, weights, icfg, device=device)
+        ref, _ = monitored_serve(off, prompts, new, device, reads)
+        del off
+        release()
+        on = InferenceEngine(
+            mcfg, weights, dict(icfg, monitor={
+                "enabled": True, "output_path": out,
+                "trace": {"enabled": True}}), device=device)
+        got, blocks = monitored_serve(on, prompts, new, device, reads)
+        serve_s = time.perf_counter() - t0
+        equal = all(got[i].out_tokens.tolist() == ref[i].out_tokens.tolist()
+                    for i in ref)
+        checks.append({"check": f"{name}: tokens equal the unmonitored "
+                       "serve's", "ok": equal and len(got) == len(ref)})
+        checks.append({"check": f"{name}: no host read in a block",
+                       "ok": bool(blocks) and max(blocks) == 0,
+                       "blocks": len(blocks)})
+        agree = tracker_agrees(on.tracker, list(got.values()))
+        checks.append({"check": f"{name}: tracker percentiles within one "
+                       "bucket", "ok": all(r["ok"] for r in agree.values()),
+                       **agree})
+        st = on._state
+        pools = {"kv_cache": sum(st[k].numel() * st[k].element_size()
+                                 for k in ("k_pool", "v_pool"))}
+        if on.speculative_enabled:
+            sp = on._spec_state
+            pools["kv_cache_draft"] = sum(
+                t.numel() * t.element_size() for key, t in sp.items()
+                if key in ("dk_pool", "dv_pool"))
+        ledger = on.monitor.ledger.totals()["hbm"]
+        checks.append({"check": f"{name}: KV ledger bytes are the pools'",
+                       "ok": all(ledger.get(k) == v
+                                 for k, v in pools.items()),
+                       "ledger": {k: ledger.get(k) for k in pools},
+                       "pools": pools})
+        on.monitor.close()
+        with open(os.path.join(out, "trace_rank0.json")) as f:
+            trace = json.load(f)
+        tracks = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                        if e.get("ph") == "M" and
+                        e["args"]["name"].startswith("serve/slot"))
+        checks.append({"check": f"{name}: one Perfetto track a slot",
+                       "ok": tracks == [f"serve/slot{s}" for s in range(4)],
+                       "tracks": tracks})
+        events = read_events(out)
+        for e in events:
+            if e["kind"] == "speculative":
+                check_keys(name, e, checks)
+                break
+        if on.speculative_enabled:
+            checks.append({"check": f"{name}: speculative events",
+                           "ok": any(e["kind"] == "speculative"
+                                     for e in events)})
+        slo = [e for e in events if e["kind"] == "serving_slo"][-1]
+        rows[name] = {"serve_s": serve_s, "requests": len(got),
+                      "kinds": sorted({e["kind"] for e in events}),
+                      "ttft_p50_ms": slo["ttft_p50_ms"],
+                      "ttft_p99_ms": slo["ttft_p99_ms"],
+                      "token_p50_ms": slo["token_p50_ms"],
+                      "token_p99_ms": slo["token_p99_ms"],
+                      "tracker_speculative": on.tracker.snapshot().get(
+                          "speculative")}
+        del on
+        release()
+        shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "monitor_serving", "model": "gpt2-1.5b",
+          "n_layer": cfg.n_layer, "cells": rows, "checks": checks,
+          "card": card})
+    bad = [c["check"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"monitor_serving: {bad}")
+
+
+def monitor_events(seed, card, device="cuda", n_layer=MON_CUT_LAYERS):
+    """Phase 53, at MON_CUT_LAYERS layers each: the events of the paths
+    that only some configurations run, each held to the JAX engine's key
+    set, and their counters: gpt2-350m-moe8 (the `moe` event and the
+    `router` events at its fences), the quantized path (the
+    `quantized_matmul` event), O1's offload (the `metrics` events' wire
+    counters against the bytes the offload step reports), a checkpoint
+    save (`ckpt_commit`; the snapshot's ledger entries registered, then
+    released), and engine.prefetch (its heartbeat terminal once the
+    source is exhausted)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM, gpt2_config
+
+    checks = []
+    rows = {}
+
+    def engine_for(cfg, ds, out):
+        ds = dict(ds, monitor={"enabled": True, "output_path": out})
+        model = GPT2ForCausalLM(cfg, device=device)
+        return dst.initialize(model=model, model_parameters=model.init(seed),
+                              config=ds)[0]
+
+    # gpt2-350m-moe8: the moe event, the router at two fences
+    out = tempfile.mkdtemp(prefix="ds_monitor_moe_")
+    cfg = moe_config(n_layer=n_layer)
+    ds = moe_ds_config()
+    ds["async_dispatch"] = {"steps_per_sync": 2}
+    eng = engine_for(cfg, ds, out)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, MOE_BATCH, MOE_SEQ)).astype(np.int32)
+    staged = eng.stage_batch({"input_ids": ids})
+    for _ in range(4):
+        eng.train_batch(batch=staged)
+    eng.shutdown()
+    events = read_events(out)
+    moe = [e for e in events if e["kind"] == "moe"]
+    router = [e for e in events if e["kind"] == "router"]
+    for e in moe[:1] + router[:1]:
+        check_keys("moe", e, checks)
+    checks.append({"check": "moe: one moe event, a router event a fence",
+                   "ok": len(moe) == 1 and len(router) == 2 and all(
+                       r["num_experts"] == MOE_EXPERTS and
+                       np.isfinite(r["aux_loss"]) and
+                       0 <= r["drop_fraction"] <= 1 for r in router)})
+    rows["moe"] = {"router": router[-1] if router else None}
+    del eng
+    release()
+    shutil.rmtree(out, ignore_errors=True)
+
+    # the quantized path's event; this engine also saves a checkpoint
+    # and feeds on engine.prefetch
+    out = tempfile.mkdtemp(prefix="ds_monitor_quant_")
+    cfg = train_config(n_layer=n_layer)
+    ds = flagship_ds_config(TRAIN_BATCH)
+    ds["quantized_compute"] = dict(QUANT_BLOCK_CONFIG)
+    ds["async_dispatch"] = {"steps_per_sync": 2}
+    eng = engine_for(cfg, ds, out)
+    rng = np.random.default_rng(seed)
+    micro = [{"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)}
+        for _ in range(2)]
+    loader = eng.prefetch(iter(micro))
+    for _ in range(2):
+        eng.train_batch(data_iter=loader)
+    try:
+        next(loader)
+        exhausted = False
+    except StopIteration:
+        exhausted = True
+    terminal = "prefetch" in eng.monitor._heartbeat_state()[1]
+    checks.append({"check": "prefetch: heartbeat terminal at exhaustion",
+                   "ok": exhausted and terminal})
+    ckpt_dir = tempfile.mkdtemp(prefix="ds_monitor_ckpt_")
+    eng.save_checkpoint(ckpt_dir, tag="t", async_save=True)
+    during = eng.monitor.ledger.category_breakdown("ckpt_snapshot")
+    eng.wait_for_checkpoint()
+    after = eng.monitor.ledger.category_breakdown("ckpt_snapshot")
+    checks.append({"check": "checkpoint: snapshot entries registered, "
+                   "then released", "ok": sum(during.values()) > 0 and
+                   after == {}, "during": during})
+    eng.shutdown()
+    events = read_events(out)
+    for kind in ("quantized_matmul", "ckpt_commit"):
+        got = [e for e in events if e["kind"] == kind]
+        checks.append({"check": f"{kind}: one event", "ok": len(got) == 1})
+        for e in got[:1]:
+            check_keys(kind, e, checks)
+    qm = [e for e in events if e["kind"] == "quantized_matmul"]
+    checks.append({"check": "quantized_matmul: applied and active",
+                   "ok": bool(qm) and qm[0]["applied"] and qm[0]["active"]})
+    rows["quantized"] = {"event": qm[0] if qm else None}
+    del eng
+    release()
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # O1's offload: the fences' wire counters against the step's bytes
+    import torch
+    out = tempfile.mkdtemp(prefix="ds_monitor_offload_")
+    cfg = gpt2_config("gpt2-125m", n_positions=OFF_SEQ, dropout=0.0,
+                      dtype=torch.bfloat16, param_dtype=torch.float32,
+                      remat=True, n_layer=n_layer)
+    ds = offload_ds_config(micro=OFF_BATCH, gas=OFF_GAS)
+    ds["steps_per_print"] = 2
+    eng = engine_for(cfg, ds, out)
+    d2h = h2d = 0
+    for i in range(2):
+        eng.train_batch(batch=offload_batch(cfg, i, gas=OFF_GAS,
+                                            micro=OFF_BATCH, seq=OFF_SEQ))
+        d2h += eng.wire_stats["d2h_bytes"]
+        h2d += eng.wire_stats["h2d_bytes"]
+    eng.shutdown()
+    events = read_events(out)
+    wire = [e for e in events if e["kind"] == "metrics"][-1]["wire"]
+    checks.append({"check": "offload: the wire counters are the steps' "
+                   "bytes", "ok": wire["d2h_bytes"] == d2h and
+                   wire["h2d_bytes"] == h2d, "wire": wire,
+                   "steps": {"d2h_bytes": d2h, "h2d_bytes": h2d}})
+    mem = [e for e in events if e["kind"] == "memory"][-1]
+    checks.append({"check": "offload: host_master and host_opt_state on "
+                   "the ledger's host side",
+                   "ok": {"host_master", "host_opt_state"} <=
+                   set(mem["host"]["categories"]),
+                   "host": mem["host"]["categories"]})
+    rows["offload"] = {"wire": wire}
+    del eng
+    release()
+    shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "monitor_events", "n_layer": n_layer, "rows": rows,
+          "checks": checks, "card": card})
+    bad = [c["check"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"monitor_events: {bad}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -6891,6 +7665,9 @@ def main(argv=None):
     int8 = path_counts("int8_serving",
                        int8_serving(args.seed, card, spec_cfg, spec_params),
                        SPEC_KERNELS, ("quantized_matmul",))
+    # 52: the serving cell and phase 46's speculative cell with the
+    # monitor and the request tracker
+    monitor_serving(args.seed, card, spec_cfg, spec_params)
     del spec_params
     release()
 
@@ -6901,6 +7678,13 @@ def main(argv=None):
     exact_launches("training", training, len(losses), None,
                    train_config().n_layer)
     training_oracle(args.seed)
+    release()
+
+    # 50, path M: the training cell with the monitor beside it without
+    # (counts zeroed inside, before each of its windows)
+    monitored = path_counts("monitor_training",
+                            monitor_training(args.seed, card),
+                            TRAINING_KERNELS, FUSED_ABSENT)
     release()
 
     # 35, path H: the flagship under save_fused_epilogues (counts zeroed
@@ -7129,6 +7913,14 @@ def main(argv=None):
     release()
     off16 = path_counts("offload_fp16", offload_fp16(args.seed, card),
                         TRAINING_KERNELS, FUSED_ABSENT)
+    release()
+
+    # 51: the watchdog, the flight recorder and OOM forensics; 53: the
+    # events of the MoE, quantized, offload, checkpoint and prefetch paths
+    monitor_faults(args.seed, card)
+    release()
+    monitor_events(args.seed, card)
+    release()
 
     rows = []
     counts_by_path = {"serving": serving, "speculative": speculative,
@@ -7154,7 +7946,8 @@ def main(argv=None):
                       "offload_checkpoint": off_ckpt,
                       "zero_offload_wire": off_wire,
                       "offload_flagship": off_flag,
-                      "offload_fp16": off16}
+                      "offload_fp16": off16,
+                      "monitor_training": monitored}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);

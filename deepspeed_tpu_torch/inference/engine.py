@@ -48,7 +48,13 @@ equal vanilla decode at temperature 0 (every other product of a step
 gives a row the same bits at either row count: tests/test_torch_cuda.py,
 chip_smoke.py's `verify_rows`).
 
-Out of this slice (NotImplementedError): the monitor.
+Telemetry: a `monitor` block on the config gives the engine a
+`Monitor` (deepspeed_tpu_torch/monitor/) whose memory ledger holds the
+weights and the KV pools (`kv_cache`, `kv_cache_draft`, per request);
+the ServingLoop emits the monitor's serving events, and with
+`inference.observability` (on by default under an enabled monitor) a
+`ServingTracker` stamps every request's lifecycle — all host-side, so
+the decode and speculative blocks keep their zero host reads.
 """
 
 import time
@@ -63,11 +69,12 @@ from deepspeed_tpu_torch.inference.quant import (KERNEL_SCALE,
                                                  QUANT_KERNEL_MODULES,
                                                  int8_matmul,
                                                  quantize_param_tree)
+from deepspeed_tpu_torch.monitor import DeepSpeedMonitorConfig, Monitor
+from deepspeed_tpu_torch.monitor import memory as memory_mod
 from deepspeed_tpu_torch.models.gpt2 import (check_supported,
                                              stacked_block_params)
 from deepspeed_tpu_torch.ops.transformer.fused_ops import (
     fused_bias_gelu, fused_bias_residual_layernorm)
-from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1e30
@@ -229,15 +236,12 @@ class InferenceEngine:
         check_supported(model_config)
         config = config or {}
         cfg = InferenceConfig(config)
-        mon = config.get(C.MONITOR, {})
-        if isinstance(mon, dict) and mon.get(C.MONITOR_ENABLED,
-                                             C.MONITOR_ENABLED_DEFAULT):
-            raise NotImplementedError(
-                "an enabled monitor block is not in the port yet: ROADMAP "
-                "Queue 1 item 8")
         self.device = resolve_device(device)
         self.model_config = model_config
         self.config = cfg
+        self.monitor = Monitor(self, DeepSpeedMonitorConfig(config))
+        self._host_steps = 0
+        self.micro_steps = 0
 
         max_seq = model_config.n_positions
         if cfg.max_seq_len is not None:
@@ -248,10 +252,20 @@ class InferenceEngine:
             n_layer=model_config.n_layer, n_head=model_config.n_head,
             head_dim=model_config.head_dim, num_pages=cfg.kv_num_pages,
             page_size=cfg.kv_page_size, max_slots=cfg.max_slots,
-            max_pages_per_slot=max_pages, dtype=model_config.dtype)
+            max_pages_per_slot=max_pages, dtype=model_config.dtype,
+            ledger=self.monitor.ledger)
         # int8 weight-only: quantized once here (the JAX engine's load)
         self._weights = load_weights(params, model_config, self.device,
                                      cfg.weight_bits, cfg.weight_quant_block)
+        self.monitor.ledger.register_tree(
+            memory_mod.CAT_PARAMS, "inference.params", self._weights)
+        # request-level serving observability: on by default, but only
+        # under an enabled monitor block on the same config
+        self.tracker = None
+        if self.monitor.enabled and cfg.observability_enabled:
+            from deepspeed_tpu_torch.monitor.serving import ServingTracker
+            self.tracker = ServingTracker(self.monitor, self.cache, cfg)
+            self.monitor.attach_serving(self.tracker)
         self._top_k_cap = min(cfg.top_k_max, model_config.vocab_size)
         self._rows = torch.arange(cfg.max_slots, device=self.device)
         self._gen = torch.Generator(device=self.device)
@@ -277,7 +291,12 @@ class InferenceEngine:
             self._draft = load_weights(draft_params, draft_model_config,
                                        self.device, cfg.weight_bits,
                                        cfg.weight_quant_block)
+            self.monitor.ledger.register_tree(
+                memory_mod.CAT_PARAMS, "inference.draft_params",
+                self._draft)
         else:
+            # the derived draft's weights are the flagship's own layer
+            # dicts: no new bytes to register
             self._draft_config, self._draft = spec.derive_draft(
                 mc, self._weights, cfg.spec_draft_model)
         dmc = self._draft_config
@@ -339,6 +358,8 @@ class InferenceEngine:
         self._tables_version = self.cache.table_version
         if self.speculative_enabled:
             self._reset_speculative()
+        if self.tracker is not None:
+            self.tracker.on_reset()
 
     # ------------------------------------------------------------------
     # the model over the paged cache

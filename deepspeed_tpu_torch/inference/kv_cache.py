@@ -1,7 +1,5 @@
 """Paged KV cache: the host-side page allocator (port of
-deepspeed_tpu/inference/kv_cache.py without the memory-ledger wiring,
-which comes with the monitor, ROADMAP Queue 1 item 8: until then the
-pools' bytes, the draft pool's included, are plain attributes).
+deepspeed_tpu/inference/kv_cache.py).
 
 One preallocated pool of fixed-size pages
 
@@ -24,10 +22,19 @@ and this allocator: one admission decision, one table upload. A
 rejected suffix is undone by `rollback`, which trims a slot's pages to
 its committed length without touching page data: stale K/V beyond a
 slot's position is masked and value-zeroed by the engine's attention.
+
+Ledger integration (monitor/memory.py): the pool registers itself under
+the `kv_cache` category — one dynamic `pool.unallocated` entry plus one
+dynamic entry per live request — so the category total always equals
+the true preallocated pool bytes while `top_buffers` and the category
+meta give per-request attribution; the draft pool does the same under
+`kv_cache_draft` in draft page bytes.
 """
 
 import numpy as np
 import torch
+
+from deepspeed_tpu_torch.monitor import memory as memory_mod
 
 
 def _itemsize(dtype):
@@ -44,7 +51,8 @@ class PagedKVCache:
     mutation)."""
 
     def __init__(self, n_layer, n_head, head_dim, num_pages, page_size,
-                 max_slots, max_pages_per_slot, dtype=np.float32):
+                 max_slots, max_pages_per_slot, dtype=np.float32,
+                 ledger=None):
         if max_pages_per_slot < 1:
             raise ValueError(
                 f"max_pages_per_slot must be >= 1, got {max_pages_per_slot}")
@@ -69,14 +77,24 @@ class PagedKVCache:
         self._free = list(range(self.num_pages - 1, 0, -1))
         self._reserved = {}        # slot -> reserved page credit (int)
         self._pages = {}           # slot -> [physical page ids]
+        self._names = {}           # slot -> ledger entry name
         self.tables = np.zeros((self.max_slots, self.max_pages_per_slot),
                                np.int32)
         self.table_version = 0
+        self._ledger = ledger
+        self._ledger_tokens = {}
         # the speculative draft pool (attach_draft): same tables and
         # allocator, the draft's layer count
         self.draft_n_layer = 0
         self.draft_page_bytes = 0
         self.draft_pool_bytes = 0
+        self._draft_ledger_tokens = {}
+        if ledger is not None:
+            ledger.register_dynamic(
+                memory_mod.CAT_KV, "pool.unallocated",
+                lambda: self.pool_bytes - self.allocated_bytes(),
+                meta={"num_pages": self.num_pages,
+                      "page_size": self.page_size})
 
     def attach_draft(self, n_layer_draft):
         """Declare the speculative draft model's KV pool: it shares this
@@ -87,6 +105,14 @@ class PagedKVCache:
         self.draft_page_bytes = (2 * self.draft_n_layer * self.page_size *
                                  self.n_head * self.head_dim * self.itemsize)
         self.draft_pool_bytes = self.num_pages * self.draft_page_bytes
+        if self._ledger is not None:
+            self._ledger.register_dynamic(
+                memory_mod.CAT_KV_DRAFT, "pool.unallocated",
+                lambda: self.draft_pool_bytes -
+                self.pages_in_use() * self.draft_page_bytes,
+                meta={"num_pages": self.num_pages,
+                      "page_size": self.page_size,
+                      "n_layer_draft": self.draft_n_layer})
 
     # -- accounting -----------------------------------------------------
     def pages_for_tokens(self, n_tokens):
@@ -112,6 +138,12 @@ class PagedKVCache:
     def allocated_pages(self, slot):
         return len(self._pages.get(slot, ()))
 
+    def slot_bytes(self, slot):
+        return self.allocated_pages(slot) * self.page_bytes
+
+    def allocated_bytes(self):
+        return self.pages_in_use() * self.page_bytes
+
     def pages_in_use(self):
         """Pages currently assigned to live requests."""
         return sum(len(p) for p in self._pages.values())
@@ -132,9 +164,9 @@ class PagedKVCache:
             return False
         return need + self.reserved_unallocated() <= len(self._free)
 
-    def admit(self, slot, n_tokens_worst_case):
+    def admit(self, slot, n_tokens_worst_case, name=None):
         """Reserve worst-case capacity for `slot` (no pages assigned
-        yet)."""
+        yet) and open its ledger entries."""
         if slot in self._pages or slot in self._reserved:
             raise ValueError(f"slot {slot} is already admitted")
         if not self.can_admit(n_tokens_worst_case):
@@ -145,6 +177,22 @@ class PagedKVCache:
                 "(raise inference.kv_cache.num_pages)")
         self._reserved[slot] = self.pages_for_tokens(n_tokens_worst_case)
         self._pages[slot] = []
+        self._names[slot] = name or f"slot{slot}"
+        if self._ledger is not None:
+            # the slot id keys the entry: request ids are caller-chosen
+            # and two live requests may share one
+            self._ledger_tokens[slot] = self._ledger.register_dynamic(
+                memory_mod.CAT_KV, f"request.s{slot}.{self._names[slot]}",
+                (lambda s: lambda: self.slot_bytes(s))(slot),
+                meta={"slot": int(slot), "request": self._names[slot]})
+            if self.draft_n_layer:
+                self._draft_ledger_tokens[slot] = \
+                    self._ledger.register_dynamic(
+                        memory_mod.CAT_KV_DRAFT,
+                        f"request.s{slot}.{self._names[slot]}",
+                        (lambda s: lambda: self.draft_slot_bytes(s))(slot),
+                        meta={"slot": int(slot),
+                              "request": self._names[slot]})
 
     def ensure(self, slot, n_tokens):
         """Assign pages so `slot` can hold positions [0, n_tokens).
@@ -191,11 +239,17 @@ class PagedKVCache:
         return len(freed)
 
     def free(self, slot):
-        """Return `slot`'s pages to the free list, drop its reservation
-        and reset its table row to the scratch page."""
+        """Return `slot`'s pages to the free list, drop its reservation,
+        close its ledger entries and reset its table row to the scratch
+        page."""
         pages = self._pages.pop(slot, [])
         self._free.extend(reversed(pages))
         self._reserved.pop(slot, None)
+        self._names.pop(slot, None)
         self.tables[slot, :] = 0
         self.table_version += 1
+        for tokens in (self._ledger_tokens, self._draft_ledger_tokens):
+            token = tokens.pop(slot, None)
+            if token is not None and self._ledger is not None:
+                self._ledger.release(token)
         return len(pages)

@@ -1,7 +1,5 @@
 """Continuous batching over the sync-free dispatch loop (port of
-deepspeed_tpu/inference/scheduler.py without the serving tracker and
-the monitor events, which come with the monitor, ROADMAP Queue 1 item
-8).
+deepspeed_tpu/inference/scheduler.py).
 
 The unit of scheduling is one **serving iteration**:
 
@@ -19,6 +17,12 @@ The unit of scheduling is one **serving iteration**:
      decided on the device) are evicted and their pages freed, and
      with speculation each live slot's pages are trimmed to its
      committed length and the round counters are diffed per fence.
+
+With the engine's monitor on, the loop emits the JAX loop's events
+(`request_admitted`, `decode_batch`, `speculative`, `request_finished`,
+the fence's `memory`) and, with `inference.observability`, feeds the
+engine's ServingTracker (monitor/serving.py) at the phases it already
+runs on the host: no hook reads the device.
 """
 
 import dataclasses
@@ -61,6 +65,10 @@ class ServingLoop:
         self.prefilling = {}  # slot -> [Request, next_prefill_pos]
         self.results = []
         self._t0 = None
+        self._last_fence_t = None
+        # host dispatch stamp of the current decode block (the serving
+        # tracker's per-fence decode window; None = no block in flight)
+        self._decode_t0 = None
         s = engine.config.max_slots
         self._last_n_gen = np.zeros((s,), np.int64)
         # host mirror of each live slot's position as of the last fence
@@ -73,13 +81,23 @@ class ServingLoop:
         self._last_rounds = 0
         # the last fence's speculative window (rounds, drafted, accepted,
         # verified, rollbacks, rollback_pages, draft_dispatch_s,
-        # verify_dispatch_s: the JAX loop's `speculative` monitor event,
-        # which waits for the monitor) and their sums over the fences
+        # verify_dispatch_s: what the `speculative` monitor event
+        # reports) and their sums over the fences
         self.spec_window = None
         self.spec_stats = {"fences": 0}
 
     # -- submission -----------------------------------------------------
     def submit(self, req):
+        try:
+            self._check_submit(req)
+        except ValueError:
+            trk = self._infer.tracker
+            if trk is not None:
+                trk.on_rejected()
+            raise
+        self.queue.append(req)
+
+    def _check_submit(self, req):
         req.tokens = np.asarray(req.tokens, np.int32).reshape(-1)
         if len(req.tokens) < 1:
             raise ValueError(f"request {req.rid!r}: empty prompt")
@@ -113,7 +131,6 @@ class ServingLoop:
                 f"request {req.rid!r}: top_k {req.top_k} exceeds the "
                 "sampling cap inference.top_k_max="
                 f"{self._infer.config.top_k_max}")
-        self.queue.append(req)
 
     def serve(self, requests, clock_zero=None):
         """Submit `requests` and run until everything finished.
@@ -130,8 +147,17 @@ class ServingLoop:
     def run(self, clock_zero=None):
         self._t0 = clock_zero if clock_zero is not None \
             else time.monotonic()
+        self._last_fence_t = self._now()
         while self.queue or self.live or self.prefilling:
-            if not self.step():
+            try:
+                progressed = self.step()
+            except Exception as exc:
+                # serving forensics: the flight dump (with the live
+                # request table in its context) survives the process;
+                # the exception still propagates
+                self._infer.monitor.on_crash(exc)
+                raise
+            if not progressed:
                 # idle: everything queued is in the future
                 time.sleep(0.0005)
 
@@ -154,11 +180,14 @@ class ServingLoop:
                 self._infer.ensure_decode_capacity(
                     slot, int(self._last_pos[slot]), rounds * per_round)
             self._infer.push_tables()
+            self._decode_t0 = time.perf_counter()
             if self._spec:
                 self._infer.spec_block(rounds)
             else:
                 self._infer.decode_block(rounds)
-        self._fence()
+        else:
+            self._decode_t0 = None
+        self._fence(self._infer.config.sync_every if self.live else 0)
         return True
 
     # -- phases ---------------------------------------------------------
@@ -174,6 +203,7 @@ class ServingLoop:
         fairness)."""
         free = self._free_slots()
         future = []
+        trk = self._infer.tracker
         while free and self.queue:
             req = self.queue.popleft()
             if req.arrival_time > now:
@@ -183,11 +213,28 @@ class ServingLoop:
             if not self._infer.cache.can_admit(worst):
                 # pages exhausted: wait for an eviction
                 self.queue.appendleft(req)
+                if trk is not None:
+                    trk.on_admission_deferred()
                 break
             slot = free.pop(0)
-            self._infer.cache.admit(slot, worst)
+            self._infer.cache.admit(slot, worst, name=str(req.rid))
             req.admitted_at = now
             self.prefilling[slot] = [req, 0]
+            pages_reserved = self._infer.cache.pages_for_tokens(worst)
+            if trk is not None:
+                trk.on_admitted(
+                    slot, str(req.rid), len(req.tokens),
+                    req.max_new_tokens,
+                    queued_s=max(now - req.arrival_time, 0.0),
+                    pages_reserved=pages_reserved)
+            self._infer.monitor.event(
+                "request_admitted",
+                request_id=str(req.rid), slot=int(slot),
+                prompt_tokens=int(len(req.tokens)),
+                max_new_tokens=int(req.max_new_tokens),
+                queue_depth=len(self.queue),
+                queued_ms=round((now - req.arrival_time) * 1e3, 3),
+                kv_pages_reserved=int(pages_reserved))
         # not-yet-arrived requests go back in their original order
         for req in reversed(future):
             self.queue.appendleft(req)
@@ -196,6 +243,7 @@ class ServingLoop:
         """ONE chunk per prefilling slot, then flip completed slots
         live."""
         chunk = self._infer.config.prefill_chunk
+        trk = self._infer.tracker
         for slot in list(self.prefilling):
             req, start = self.prefilling[slot]
             t = len(req.tokens)
@@ -204,8 +252,12 @@ class ServingLoop:
                 end = min(start + chunk, n_prefill)
                 # prefill reads its table ROW from the host copy
                 self._infer.cache.ensure(slot, end)
+                t0 = time.perf_counter()
                 self._infer.prefill_chunk(slot, req.tokens[start:end],
                                           start)
+                if trk is not None:
+                    trk.on_prefill_chunk(
+                        slot, t0, time.perf_counter() - t0, start, end)
                 self.prefilling[slot][1] = end
                 start = end
             if start >= n_prefill:
@@ -218,19 +270,38 @@ class ServingLoop:
                 self.live[slot] = req
                 self._last_pos[slot] = t - 1
                 del self.prefilling[slot]
+                if trk is not None:
+                    trk.on_live(slot)
 
-    def _fence(self):
-        """The serving rendezvous: one fetch_state, then eviction."""
+    def _fence(self, iterations):
+        """The serving rendezvous: one fetch_state, then eviction and
+        the monitor's events (host-only work: the tracker hooks are
+        host dict and timestamp arithmetic)."""
         snap = self._infer.fetch_state()
         now = self._now()
+        window_s = max(now - self._last_fence_t, 1e-9)
+        trk = self._infer.tracker
+        new_tokens = 0
+        deltas = {}
+        finished = []
         for slot, req in list(self.live.items()):
             gen = int(snap["n_gen"][slot])
-            if gen > self._last_n_gen[slot] and req.first_token_at is None:
+            delta = gen - int(self._last_n_gen[slot])
+            deltas[slot] = delta
+            new_tokens += delta
+            if delta > 0 and req.first_token_at is None:
                 req.first_token_at = now
             self._last_pos[slot] = int(snap["pos"][slot])
             self._last_n_gen[slot] = gen
             if not snap["active"][slot]:
-                self._finish(slot, req, snap, now)
+                finished.append((slot, req))
+        if trk is not None:
+            # TTFT and the per-slot decode windows BEFORE evictions, so
+            # a request that got its first token and finished inside the
+            # same window records both
+            trk.on_fence_progress(self._decode_t0, iterations, deltas)
+        for slot, req in finished:
+            self._finish(slot, req, snap, now)
         if self._spec:
             # rejected-suffix rollback, host side: trim each live slot's
             # pages to its committed length (verify rewound the device
@@ -239,14 +310,33 @@ class ServingLoop:
             pages = sum(self._infer.cache.rollback(
                 slot, int(snap["pos"][slot]) + 1) for slot in self.live)
             self._spec_fence(snap, pages)
+        self._last_fence_t = now
+        mon = self._infer.monitor
+        mon.event(
+            "decode_batch",
+            iterations=int(iterations),
+            active_slots=len(self.live),
+            prefilling_slots=len(self.prefilling),
+            queue_depth=len(self.queue),
+            window_ms=round(window_s * 1e3, 3),
+            window_tokens=int(new_tokens),
+            tokens_per_sec=round(new_tokens / window_s, 3),
+            kv_pages_in_use=int(self._infer.cache.pages_in_use()),
+            kv_pages_free=int(self._infer.cache.free_pages()))
+        if trk is not None:
+            # SLO metrics AFTER evictions: this fence's finishes are in
+            # the histograms and counters the event reports
+            trk.on_fence_metrics(window_s, new_tokens, len(self.queue),
+                                 len(self.live), len(self.prefilling))
+        if mon.memory_enabled:
+            mon._emit_memory_event(self._infer._host_steps)
 
     def _spec_fence(self, snap, rollback_pages):
         """Per-fence speculative accounting: diff the cumulative device
         counters (read in the fence's one copy) against the host mirrors
         and keep the window, with the drafted-vs-verified dispatch split,
-        and its sums. The JAX loop also emits it as the `speculative` monitor
-        event and hands it to the serving tracker; both wait for the
-        monitor (ROADMAP Queue 1 item 8)."""
+        and its sums; hand the split to the serving tracker and emit the
+        `speculative` monitor event."""
         sp = snap["speculative"]
         window = {"rounds": sp["rounds"] - self._last_rounds}
         self._last_rounds = sp["rounds"]
@@ -257,12 +347,36 @@ class ServingLoop:
         window["rollback_pages"] = int(rollback_pages)
         window["draft_dispatch_s"], window["verify_dispatch_s"] = \
             self._infer.spec_dispatch_split()
+        trk = self._infer.tracker
+        if trk is not None:
+            trk.on_speculative(
+                window["draft_dispatch_s"], window["verify_dispatch_s"],
+                window["drafted"], window["accepted"], window["verified"],
+                window["rollbacks"])
         if window["rounds"] <= 0 and window["drafted"] == 0:
             return
         self.spec_window = window
         self.spec_stats["fences"] += 1
         for key, value in window.items():
             self.spec_stats[key] = self.spec_stats.get(key, 0) + value
+        d, a, v = window["drafted"], window["accepted"], window["verified"]
+        self._infer.monitor.event(
+            "speculative",
+            rounds=int(window["rounds"]),
+            drafted_tokens=d,
+            accepted_tokens=a,
+            acceptance_rate=round(a / d, 4) if d > 0 else None,
+            # emitted tokens per flagship verify launch (each verified
+            # slot-round commits its accepted drafts + one flagship
+            # token); vanilla decode is identically 1.0
+            tokens_per_verify=round((a + v) / v, 3) if v > 0 else None,
+            rollback_events=window["rollbacks"],
+            rollback_pages=int(rollback_pages),
+            mean_k=round(float(np.mean(
+                sp["k_slot"][snap["active"]])), 3)
+            if snap["active"].any() else None,
+            draft_dispatch_ms=round(window["draft_dispatch_s"] * 1e3, 3),
+            verify_dispatch_ms=round(window["verify_dispatch_s"] * 1e3, 3))
 
     def _finish(self, slot, req, snap, now):
         gen = int(snap["n_gen"][slot])
@@ -274,8 +388,33 @@ class ServingLoop:
         del self.live[slot]
         self._last_n_gen[slot] = 0
         self._last_pos[slot] = 0
+        trk = self._infer.tracker
+        if trk is not None:
+            # before cache.free: the tracker's final row keeps the pages
+            # the request held when it finished
+            trk.on_finished(slot, req.finish_reason)
         self._infer.cache.free(slot)
         self.results.append(req)
+        wall_s = max(now - req.admitted_at, 1e-9)
+        live_at = req.live_at if req.live_at is not None \
+            else req.admitted_at
+        decode_s = max(now - live_at, 1e-9)
+        self._infer.monitor.event(
+            "request_finished",
+            request_id=str(req.rid), slot=int(slot),
+            reason=req.finish_reason,
+            prompt_tokens=int(len(req.tokens)),
+            new_tokens=gen,
+            queued_ms=round(
+                (req.admitted_at - req.arrival_time) * 1e3, 3),
+            ttft_ms=None if req.first_token_at is None else round(
+                (req.first_token_at - req.admitted_at) * 1e3, 3),
+            prefill_ms=round(max(live_at - req.admitted_at, 0.0) * 1e3,
+                             3),
+            decode_ms=round(decode_s * 1e3, 3),
+            token_ms=round(decode_s * 1e3 / max(gen, 1), 3),
+            wall_ms=round(wall_s * 1e3, 3),
+            tokens_per_sec=round(gen / wall_s, 3))
 
 
 def serve_sequential(engine, requests, clock_zero=None):
@@ -286,6 +425,7 @@ def serve_sequential(engine, requests, clock_zero=None):
     loop = ServingLoop(engine)
     loop._t0 = clock_zero if clock_zero is not None \
         else time.monotonic()
+    loop._last_fence_t = loop._now()
     for req in sorted(requests, key=lambda r: r.arrival_time):
         while loop._now() < req.arrival_time:
             time.sleep(0.0005)

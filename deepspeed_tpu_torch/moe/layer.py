@@ -27,6 +27,7 @@ from torch import nn
 
 from deepspeed_tpu_torch.moe.dispatch import (combine_tokens,
                                               dispatch_buffer_nbytes,
+                                              record_dispatch_bytes,
                                               dispatch_tokens,
                                               replicate_stats)
 from deepspeed_tpu_torch.moe.experts import ExpertFFN, expert_ffn_reference
@@ -168,6 +169,9 @@ class MoEMLP(nn.Module):
         self.last_expert_idx = gate_idx.detach()
         stats = replicate_stats(stats, moe.mesh)
         nbytes = dispatch_buffer_nbytes(e, capacity, h, self.dtype)
+        # the memory ledger's `moe_dispatch` accounting (a host dict
+        # write, no device work)
+        record_dispatch_bytes(id(self), nbytes, num_experts=e, width=h)
         sched = _overlap.schedule(_overlap.SITE_MOE, payload_bytes=nbytes,
                                   mesh=moe.mesh)
         xc = xf.to(self.dtype)

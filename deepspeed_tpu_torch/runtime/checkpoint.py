@@ -86,8 +86,9 @@ class CheckpointStagingOnlyError(FileNotFoundError):
 
 class CheckpointWaitTimeout(TimeoutError):
     """wait_for_checkpoint(timeout=...) expired with a writer still in
-    flight. `heartbeat_age_sec` is the writer's last heartbeat age where
-    a monitor records one (None without it). Abandonment unblocks
+    flight. `heartbeat_age_sec` is the writer's last heartbeat age as
+    the engine's monitor recorded it (None when it saw none), so a caller
+    can tell a slow-but-alive writer from a wedged one. Abandonment unblocks
     in-process teardown/rebuild; writer threads stay non-daemon by
     design (the interpreter will not EXIT mid-write)."""
 

@@ -14,8 +14,11 @@ determine the third), the `bf16` block with `master_weights`, the
 (`get_sparse_attention`) and the `checkpoint` block
 (`get_checkpoint_config`), the `async_dispatch` block
 (`get_async_dispatch_config`), the `activation_checkpointing` block
-(`activation_checkpointing_config`) and `dump_state`, each validated as
-the JAX package validates it. `zero_config` holds the
+(`activation_checkpointing_config`), `dump_state`, the `monitor` block
+(`monitor_config`, a `monitor.config.DeepSpeedMonitorConfig`), the
+legacy `tensorboard` block (`tensorboard_enabled`, `_output_path`,
+`_job_name`) and `wall_clock_breakdown`, each validated as the JAX
+package validates it. `zero_config` holds the
 `zero_optimization` block with its `offload_wire` (runtime/zero/
 config.py); the `overlap` block configures ops/overlap.py through the
 engine. The `autotune` block is validated with the JAX package's errors
@@ -24,9 +27,7 @@ too, though the port does not act on it yet.
 A block that the JAX engine acts on and the port does not yet raises
 NotImplementedError naming the ROADMAP Queue 1 item that ports it
 (`_check_later_slices`): pipeline, sparse gradients and a `mesh` axis
-above 1 (6); the monitor, tensorboard and wall_clock_breakdown (8: the
-JAX engine prints the breakdown from the monitor's trace spans);
-elasticity, the flops profiler and autotune (9). The `mesh` block is
+above 1 (6); elasticity, the flops profiler and autotune (9). The `mesh` block is
 resolved for the port's world size as the JAX package's `build_mesh`
 resolves it for its devices (`resolve_mesh`, `mesh_shape`).
 """
@@ -449,6 +450,30 @@ def get_autotune_config(param_dict):
 _FLOPS_PROFILER = "flops_profiler"
 
 
+def get_tensorboard_enabled(param_dict):
+    if C.TENSORBOARD in param_dict:
+        return get_scalar_param(param_dict[C.TENSORBOARD],
+                                C.TENSORBOARD_ENABLED,
+                                C.TENSORBOARD_ENABLED_DEFAULT)
+    return False
+
+
+def get_tensorboard_output_path(param_dict):
+    if get_tensorboard_enabled(param_dict):
+        return get_scalar_param(param_dict[C.TENSORBOARD],
+                                C.TENSORBOARD_OUTPUT_PATH,
+                                C.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+    return C.TENSORBOARD_OUTPUT_PATH_DEFAULT
+
+
+def get_tensorboard_job_name(param_dict):
+    if get_tensorboard_enabled(param_dict):
+        return get_scalar_param(param_dict[C.TENSORBOARD],
+                                C.TENSORBOARD_JOB_NAME,
+                                C.TENSORBOARD_JOB_NAME_DEFAULT)
+    return C.TENSORBOARD_JOB_NAME_DEFAULT
+
+
 def _block_type_and_params(param_dict, key):
     block = param_dict.get(key) or {}
     name = block.get(C.TYPE) if isinstance(block, dict) else None
@@ -488,9 +513,6 @@ class DeepSpeedConfig:
         yet, naming the ROADMAP Queue 1 item that ports it. Runs after
         the blocks are validated, so a bad value fails as it does in the
         JAX package."""
-        if self.wall_clock_breakdown:
-            # the JAX engine prints it from the monitor's trace spans
-            raise _later("wall_clock_breakdown", 8)
         if d.get(C.PIPELINE):
             raise _later("pipeline parallelism", 6)
         _, mesh = _mesh_sizes(d.get(C.MESH))
@@ -500,10 +522,6 @@ class DeepSpeedConfig:
                          "(runtime/mesh.py)", 6)
         if d.get(C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT):
             raise _later("sparse_gradients (runtime/csr_tensor.py)", 6)
-        if _block_enabled(d, C.MONITOR, C.MONITOR_ENABLED):
-            raise _later("the monitor block", 8)
-        if _block_enabled(d, C.TENSORBOARD, C.TENSORBOARD_ENABLED):
-            raise _later("the tensorboard block", 8)
         if _block_enabled(d, C.ELASTICITY, C.ELASTICITY_ENABLED):
             raise _later("elasticity (elastic batch resolution)", 9)
         if _block_enabled(d, _FLOPS_PROFILER):
@@ -586,6 +604,12 @@ class DeepSpeedConfig:
             DeepSpeedActivationCheckpointingConfig(d)
         self.wall_clock_breakdown = bool(get_scalar_param(
             d, C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT))
+        from deepspeed_tpu_torch.monitor.config import \
+            DeepSpeedMonitorConfig
+        self.monitor_config = DeepSpeedMonitorConfig(d)
+        self.tensorboard_enabled = get_tensorboard_enabled(d)
+        self.tensorboard_output_path = get_tensorboard_output_path(d)
+        self.tensorboard_job_name = get_tensorboard_job_name(d)
         self.dump_state = bool(get_scalar_param(d, C.DUMP_STATE,
                                                 C.DUMP_STATE_DEFAULT))
 

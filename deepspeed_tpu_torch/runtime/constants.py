@@ -107,6 +107,10 @@ DUMP_STATE_DEFAULT = False
 TENSORBOARD = "tensorboard"
 TENSORBOARD_ENABLED = "enabled"
 TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
 
 # the blocks the port validates as the JAX package does and then, where
 # it asks for something the port does not do yet, refuses
@@ -223,11 +227,106 @@ MESH_PIPE_AXIS = "pipe"
 MESH_EXPERT_AXIS = "expert"
 
 #############################################
-# Monitor (only the switch: the monitor itself is a later slice)
+# Monitor block: unified async-safe telemetry — device-side metric
+# accumulators drained at the async-dispatch sync fences, pluggable
+# sinks (JSONL event log / native tfevents), step tracing, and a stall
+# watchdog. See deepspeed_tpu_torch/monitor/.
+#   {"monitor": {"enabled": true, "sinks": ["jsonl", "tensorboard"],
+#                "output_path": "runs/x/monitor", "flush_interval": 0,
+#                "stall_timeout_sec": 120, "stall_probe": false,
+#                "all_ranks": false}}
 #############################################
 MONITOR = "monitor"
 MONITOR_ENABLED = "enabled"
 MONITOR_ENABLED_DEFAULT = False
+MONITOR_SINKS = "sinks"
+MONITOR_SINKS_DEFAULT = ("jsonl",)
+MONITOR_OUTPUT_PATH = "output_path"
+MONITOR_OUTPUT_PATH_DEFAULT = ""
+MONITOR_JOB_NAME = "job_name"
+MONITOR_JOB_NAME_DEFAULT = ""
+MONITOR_FLUSH_INTERVAL = "flush_interval"
+MONITOR_FLUSH_INTERVAL_DEFAULT = 0
+MONITOR_STALL_TIMEOUT_SEC = "stall_timeout_sec"
+MONITOR_STALL_TIMEOUT_SEC_DEFAULT = 0
+MONITOR_STALL_PROBE = "stall_probe"
+MONITOR_STALL_PROBE_DEFAULT = False
+# Terminal stall verdict: after this many CONSECUTIVE watchdog fires
+# with no intervening fence, emit one `stall_escalated` event (flight
+# dump + sink event) and go quiet for the episode. 0 = off (one fire
+# per stall episode, never terminal). A supervisor treats the
+# escalated event as "stop waiting, recover from the last committed
+# checkpoint".
+MONITOR_STALL_ESCALATE_AFTER = "stall_escalate_after"
+MONITOR_STALL_ESCALATE_AFTER_DEFAULT = 0
+MONITOR_ALL_RANKS = "all_ranks"
+MONITOR_ALL_RANKS_DEFAULT = False
+# MFU denominator override (FLOP/s per chip). 0 = auto: the card's
+# nominal dense bf16 peak on a known CUDA card, None (no MFU) on the CPU.
+# Set it to make MFU / tokens_per_sec_per_chip meaningful on CPU
+# rehearsal runs, or to report against a measured (rather than
+# nominal) peak.
+MONITOR_PEAK_FLOPS_OVERRIDE = "peak_flops_override"
+MONITOR_PEAK_FLOPS_OVERRIDE_DEFAULT = 0.0
+
+# -- monitor.trace: Perfetto/Chrome trace-event export ----------------
+#   {"trace": {"enabled": true, "path": "", "max_events": 200000}}
+# path defaults to <output_path>/trace_rank<r>.json; the file is
+# written at monitor.close(), on a watchdog fire, and on demand via
+# engine.monitor.export_trace(). `ds_trace merge` (monitor/trace_cli.py)
+# merges per-rank shards.
+MONITOR_TRACE = "trace"
+MONITOR_TRACE_ENABLED = "enabled"
+MONITOR_TRACE_ENABLED_DEFAULT = False
+MONITOR_TRACE_PATH = "path"
+MONITOR_TRACE_PATH_DEFAULT = ""
+MONITOR_TRACE_MAX_EVENTS = "max_events"
+MONITOR_TRACE_MAX_EVENTS_DEFAULT = 200000
+
+# -- monitor.flight: crash/stall flight recorder ----------------------
+#   {"flight": {"enabled": true, "capacity": 256, "path": ""}}
+# A bounded in-memory ring of the last `capacity` monitor events +
+# per-subsystem heartbeat ages, dumped atomically (tmp+fsync+rename)
+# to flight_<ts>.json on watchdog fire, uncaught train_batch
+# exception, SIGTERM, or abnormal interpreter exit. Enabled by default
+# whenever the monitor is on (the ring is a deque append per event).
+MONITOR_FLIGHT = "flight"
+MONITOR_FLIGHT_ENABLED = "enabled"
+MONITOR_FLIGHT_ENABLED_DEFAULT = True
+MONITOR_FLIGHT_CAPACITY = "capacity"
+MONITOR_FLIGHT_CAPACITY_DEFAULT = 256
+MONITOR_FLIGHT_PATH = "path"
+MONITOR_FLIGHT_PATH_DEFAULT = ""
+
+# -- monitor.numerics: device-side numerics health --------------------
+#   {"numerics": {"enabled": true}}
+# Opt-in per-layer accumulators computed inside the step on the device
+# (grad-norm/abs-max/nonfinite per top-level param group, activation
+# abs-max/mean/nonfinite at layer boundaries for layer-exposing
+# models) and drained in the existing one-copy-per-fence path —
+# zero new per-step host syncs (guard-tested).
+MONITOR_NUMERICS = "numerics"
+MONITOR_NUMERICS_ENABLED = "enabled"
+MONITOR_NUMERICS_ENABLED_DEFAULT = False
+
+# -- monitor.memory: live HBM/host byte ledger ------------------------
+#   {"memory": {"enabled": true, "top_buffers": 8}}
+# ON by default with the monitor (like flight): every long-lived
+# allocation site (engine state groups, offload host state, checkpoint
+# snapshot double-buffers, prefetch staging, serving KV pools)
+# registers its logical bytes from shape metadata; each fence
+# reconciles ledger vs device_memory_stats + host RSS into a `memory`
+# event (residual = activations and temporaries), tracks the peak
+# watermark with the attribution snapshot AT peak, and renders
+# Perfetto per-category counter tracks. Out-of-memory crashes
+# (torch.OutOfMemoryError) get the ledger + top buffers + actionable
+# hints attached to the flight dump. Zero new per-step host syncs (guard-tested).
+MONITOR_MEMORY = "memory"
+MONITOR_MEMORY_ENABLED = "enabled"
+MONITOR_MEMORY_ENABLED_DEFAULT = True
+MONITOR_MEMORY_TOP_BUFFERS = "top_buffers"
+MONITOR_MEMORY_TOP_BUFFERS_DEFAULT = 8
+
 
 # Elasticity (only the switch: elastic batch resolution is a later slice)
 ELASTICITY = "elasticity"

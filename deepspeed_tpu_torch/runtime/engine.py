@@ -92,6 +92,22 @@ ignored with the JAX engine's warning, and async dispatch is off (the
 host step is a sync by nature). The `overlap` block configures
 `ops/overlap.py` at init.
 
+Telemetry (`deepspeed_tpu_torch/monitor/`, the `monitor` block): every
+engine carries a `Monitor`; with the block enabled, `train_batch` and
+the microbatch API hand each step's device scalars (loss, grad norm,
+loss scale, overflow, tokens; per-group gradient numerics under
+`monitor.numerics`; MoE router stats) to it with no host read, and
+`_sync_fence` drains them in one device-to-host copy into the sinks'
+`metrics`/`numerics`/`router`/`memory` events. Forward, backward and
+step spans are timed without a fence when `wall_clock_breakdown` is
+set or a Perfetto trace is exported; the memory ledger holds the
+state's bytes by category; an exception out of `train_batch` leaves a
+flight dump (classified `oom` for `torch.OutOfMemoryError`). The legacy
+`tensorboard` block writes its scalars at print fences through the
+native tfevents writer. As in the JAX engine, MoE router stats ride
+the step only while the monitor is on, so a monitor-off engine
+launches exactly what it launched before.
+
 Checkpoints (`save_checkpoint`, `load_checkpoint`) are the JAX engine's
 files (`runtime/checkpoint.py`): the module tree with the scanned
 layers stacked (the model's `params_to_jax`: GPT-2's and BERT's
@@ -116,11 +132,16 @@ import copy
 import inspect
 import os
 import shutil
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.monitor import (SPAN_BACKWARD, SPAN_CKPT,
+                                         SPAN_FORWARD, SPAN_STEP, Monitor)
+from deepspeed_tpu_torch.monitor import memory as _mem
+from deepspeed_tpu_torch.monitor import numerics as _num
 from deepspeed_tpu_torch.runtime import checkpoint as ckpt_io
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime import lr_schedules
@@ -144,6 +165,7 @@ from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
 from deepspeed_tpu_torch.runtime.sgd import SGDState, sgd
 from deepspeed_tpu_torch.runtime.zero.offload import ZeroOffloadMixin
 from deepspeed_tpu_torch.utils.device import resolve_device
+from deepspeed_tpu_torch.utils.distributed import get_rank, get_world_size
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
@@ -200,11 +222,17 @@ class TraceState(NamedTuple):
     trace: Any
 
 
-def _world_size():
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+def _batch_token_count(batch):
+    """Element count of a batch's first leaf (keys sorted, as the JAX
+    engine's tree flattening orders them), from its shape alone: the
+    token count of a token-id batch."""
+    if not batch:
+        return 0
+    return int(np.prod(np.shape(batch[sorted(batch)[0]])))
+
+
+def _batch_lead(batch):
+    return tuple(np.shape(batch[sorted(batch)[0]])) if batch else ()
 
 
 class DeepSpeedEngine(ZeroOffloadMixin):
@@ -235,7 +263,7 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             raise ValueError("DeepSpeed requires --deepspeed_config or a "
                              "config dict")
         world = mpu.get_data_parallel_world_size() if mpu is not None \
-            else _world_size()
+            else get_world_size()
         if world > 1:
             raise _later(f"data-parallel training (world size {world})", 6)
         if optimizer is not None and not (hasattr(optimizer, "init") and
@@ -267,14 +295,23 @@ class DeepSpeedEngine(ZeroOffloadMixin):
 
         self.collate_fn = collate_fn
         self._resolve_model(model, model_parameters)
-        self._init_moe()
-        self._init_quantized_compute()
         self.device = resolve_device(
             device if device is not None else getattr(model, "device",
                                                       "cuda"))
         if self.device.type == "cuda" and self.device.index is None:
             # the index tensors carry, so placed batches compare equal
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.micro_steps = 0
+        self._host_steps = 0
+        # telemetry (monitor/): device scalars retained per step and
+        # drained at the sync fences; every hook is one attribute check
+        # when monitor.enabled is false
+        self.monitor = Monitor(self, self._config.monitor_config)
+        mon_cfg = self._config.monitor_config
+        self._numerics_on = bool(mon_cfg.enabled and
+                                 mon_cfg.numerics_enabled)
+        self._init_moe()
+        self._init_quantized_compute()
 
         self.fp16_mode = bool(self._config.fp16_enabled)
         self.bf16_mode = bool(self._config.bfloat16_enabled)
@@ -305,9 +342,14 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             steps_per_output=self.steps_per_print(), device=self.device)
         self.training_dataloader = self.deepspeed_io(training_data) \
             if training_data is not None else None
+        self.summary_writer = None
+        if self.tensorboard_enabled() and get_rank() == 0:
+            self.summary_writer = self.get_summary_writer()
 
-        self.micro_steps = 0
-        self._host_steps = 0
+        # tokens (elements of the first batch leaf) consumed since the
+        # last optimizer step — a host int for the monitor, no sync
+        self._tokens_pending = 0
+        self._pending_router = None   # forward()'s router stats
         self._pending = None       # (loss, grads) of forward()
         self._ready_grads = None   # gas = 1: backward()'s grads for step()
         self.losses = None
@@ -333,12 +375,18 @@ class DeepSpeedEngine(ZeroOffloadMixin):
     def _init_overlap(self):
         """Wire the `overlap` block into ops/overlap.py (the enabled
         toggle, the pinned or "auto" site set, the issue distance), as
-        the JAX engine does; the monitor's `overlap` event comes with the
-        monitor (ROADMAP Queue 1 item 8)."""
+        the JAX engine does, and emit one `overlap` monitor event
+        recording the configuration."""
         from deepspeed_tpu_torch.ops import overlap
         ov = self._config.overlap
         overlap.configure(enabled=ov["enabled"], sites=ov["sites"],
                           issue_distance=ov["issue_distance"])
+        if self.monitor.enabled:
+            self.monitor.event(
+                "overlap", enabled=ov["enabled"],
+                sites=(ov["sites"] if isinstance(ov["sites"], str)
+                       else ",".join(sorted(ov["sites"]))),
+                issue_distance=ov["issue_distance"])
 
     # ------------------------------------------------------------------
     # model resolution
@@ -361,10 +409,12 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         `configure_moe` hook with the router knobs (the structural keys
         are verified against the built parameters there). At world size
         1 there is no expert mesh axis, so every expert count divides
-        it. The `moe` monitor event and the router stats at fences come
-        with the monitor (ROADMAP Queue 1 item 8)."""
+        it. Emits one `moe` monitor event recording the configuration;
+        the router stats ride the step to the fences only while the
+        monitor is on."""
         mc = self._config.moe
         self._moe_active = False
+        self._moe_stats_on = False
         if not mc["enabled"]:
             return
         hook = getattr(self.module, "configure_moe", None)
@@ -386,6 +436,19 @@ class DeepSpeedEngine(ZeroOffloadMixin):
              jitter_eps=mc["jitter_eps"],
              fused_dispatch=mc["fused_dispatch"])
         self._moe_active = True
+        # router stats ride the step only when something drains them
+        # (the monitor fence): a monitor-off engine launches what it did
+        self._moe_stats_on = self.monitor.enabled
+        if self.monitor.enabled:
+            self.monitor.event(
+                "moe", num_experts=mc["num_experts"],
+                top_k=mc["top_k"],
+                capacity_factor=mc["capacity_factor"],
+                aux_loss_weight=mc["aux_loss_weight"],
+                every_n_layers=mc["every_n_layers"],
+                jitter_eps=mc["jitter_eps"],
+                fused_dispatch=mc["fused_dispatch"],
+                expert_axis=expert_axis)
         logger.info(
             f"MoE: {mc['num_experts']} experts (top_k={mc['top_k']}, "
             f"cf={mc['capacity_factor']}, every_n_layers="
@@ -395,9 +458,8 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         """Wire the `quantized_compute` config block into the model:
         call its `configure_quantized_compute` hook with the configured
         mode, block and stochastic_rounding, or warn when the model has
-        no such hook (the block then has no effect). The JAX engine also
-        emits a `quantized_matmul` monitor event here; that comes with
-        the monitor (ROADMAP Queue 1 item 8)."""
+        no such hook (the block then has no effect), and emit one
+        `quantized_matmul` monitor event recording the configuration."""
         qc = self._config.quantized_compute
         if not qc["enabled"]:
             return
@@ -408,9 +470,20 @@ class DeepSpeedEngine(ZeroOffloadMixin):
                 f"({type(self.module).__name__}) exposes no "
                 "configure_quantized_compute hook; forward matmuls stay "
                 "unquantized")
-            return
-        hook(qc["mode"], block=qc["block"],
-             stochastic_rounding=qc["stochastic_rounding"])
+            applied = False
+        else:
+            hook(qc["mode"], block=qc["block"],
+                 stochastic_rounding=qc["stochastic_rounding"])
+            applied = True
+        if self.monitor.enabled:
+            from deepspeed_tpu_torch.ops.transformer.quantized_matmul \
+                import resolve_quantized_compute
+            self.monitor.event(
+                "quantized_matmul", applied=applied,
+                mode=qc["mode"], block=qc["block"],
+                stochastic_rounding=qc["stochastic_rounding"],
+                active=bool(applied and resolve_quantized_compute(
+                    qc["mode"], self.device)))
 
     # ------------------------------------------------------------------
     # config accessors
@@ -467,6 +540,41 @@ class DeepSpeedEngine(ZeroOffloadMixin):
     def pld_theta(self):
         return self.progressive_layer_drop.get_theta() \
             if self.progressive_layer_drop else 1.0
+
+    def wall_clock_breakdown(self):
+        return self._config.wall_clock_breakdown
+
+    def tensorboard_enabled(self):
+        return self._config.tensorboard_enabled
+
+    def tensorboard_output_path(self):
+        return self._config.tensorboard_output_path
+
+    def tensorboard_job_name(self):
+        return self._config.tensorboard_job_name
+
+    _tb_fallback_warned = False
+
+    def get_summary_writer(self, name="DeepSpeedJobName", base=None):
+        """TensorBoard writer for the legacy `tensorboard` config block,
+        served by the native tfevents writer (monitor/tfevents.py); the
+        config keys (enabled/output_path/job_name) keep their reference
+        meaning. Returns None (warn-once) only when the log dir is
+        unusable."""
+        if base is None:
+            base = os.path.join(os.path.expanduser("~"), "tensorboard")
+        base_dir = self.tensorboard_output_path() or base
+        log_dir = os.path.join(base_dir, self.tensorboard_job_name() or name)
+        try:
+            from deepspeed_tpu_torch.monitor.tfevents import SummaryWriter
+            return SummaryWriter(log_dir)
+        except OSError:
+            if not DeepSpeedEngine._tb_fallback_warned:
+                DeepSpeedEngine._tb_fallback_warned = True
+                logger.warning(
+                    "tensorboard unavailable; scalar summaries are "
+                    "disabled for this run", exc_info=True)
+            return None
 
     # ------------------------------------------------------------------
     # optimizer, schedule, state
@@ -615,6 +723,7 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             skipped=torch.zeros((), dtype=torch.int32, device=dev))
         self._initial_params = None   # don't pin the caller's copy
         n_params = sum(p.numel() for p in leaves)
+        self._init_telemetry_state(n_params)
         logger.info(f"engine initialized: {n_params / 1e6:.1f}M params, "
                     f"zero_stage={self.zero_optimization_stage()}, "
                     f"dtype={self.compute_dtype}, "
@@ -636,10 +745,79 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             scale=scale,
             skipped=torch.zeros((), dtype=torch.int32, device=dev))
         self._initial_params = None
+        self._init_telemetry_state(int(self._host_master.size))
         logger.info(f"engine initialized (offload): "
                     f"{self._host_master.size / 1e6:.1f}M params, "
                     f"zero_stage={self.zero_optimization_stage()}, "
                     f"dtype={self.compute_dtype}, device={dev}")
+
+    def _init_telemetry_state(self, n_params):
+        """The parameter count (the monitor's MFU), the numerics group
+        labels and the memory ledger's state entries."""
+        # 6·N·tokens/s against the card's nominal peak: the bench.py
+        # convention
+        self._n_model_params = int(n_params)
+        if self._numerics_on:
+            names, of = self._numerics_group_index()
+            self._numerics_mask = _num.group_mask(
+                [of[n] for n in self.state.params], len(names), self.device)
+            self.monitor.set_numerics_labels(grad=names)
+        self._register_memory_ledger()
+
+    def _numerics_group_index(self):
+        """(group names, {parameter name: group index}): the JAX
+        engine's `group_paths(params, depth=2)` on the model's
+        `params_to_jax` tree (its leaves here the parameter names), so
+        both packages label the same groups; without a converter, the
+        first two components of the dotted names."""
+        names = list(self.state.params)
+        to_jax = getattr(self.module, "params_to_jax", None)
+        if to_jax is not None:
+            tree = to_jax(dict(zip(names, names)), remat=self._remat(),
+                          stack=ckpt_io.Stacked)
+            return _num.group_index(tree)
+        groups, of = [], {}
+        for n in names:
+            g = "/".join(n.split(".")[:2])
+            if g not in groups:
+                groups.append(g)
+            of[n] = groups.index(g)
+        return groups, of
+
+    def _register_memory_ledger(self):
+        """Register the engine's long-lived device state groups with the
+        monitor's memory ledger (monitor/memory.py): init-time shape
+        metadata only, no per-step cost. Runs whether or not the monitor
+        is on (the ledger is a dict)."""
+        led = self.monitor.ledger
+        st = self.state
+        led.register_tree(_mem.CAT_PARAMS, "engine.params",
+                          list(st.params.values()))
+        if st.master is not None:
+            led.register_tree(_mem.CAT_MASTER, "engine.master_fp32",
+                              st.master)
+        if st.opt_state:
+            led.register_tree(_mem.CAT_OPT, "engine.opt_state",
+                              st.opt_state)
+        if st.acc_grads:
+            led.register_tree(_mem.CAT_GRADS, "engine.acc_grads",
+                              st.acc_grads)
+        if self._moe_active:
+            # the MoE layers' [E, C, H] dispatch pair: per-layer bytes
+            # recorded at the first forward (moe/dispatch.py), times
+            # the model's MoE layer count; 0 until a step runs
+            from deepspeed_tpu_torch.moe.dispatch import \
+                dispatch_bytes_per_layer
+            info = getattr(self.module, "moe_info", lambda: None)() or {}
+            n_moe = int(info.get("moe_layers", 1))
+            n_experts, width = info.get("num_experts"), info.get("width")
+            led.register_dynamic(
+                _mem.CAT_MOE, "moe.dispatch_buffers",
+                lambda: dispatch_bytes_per_layer(
+                    num_experts=n_experts, width=width) * n_moe)
+        from deepspeed_tpu_torch.ops import overlap as _overlap
+        led.register_dynamic(_mem.CAT_OVERLAP, "overlap.inflight_window",
+                             _overlap.inflight_bytes)
 
     # ------------------------------------------------------------------
     # the step
@@ -664,29 +842,48 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _micro_grad(self, batch, rngs, keep_prob=None):
-        """(raw loss, grads) of one microbatch; the loss is divided by
-        gas before differentiation, so accumulated grads are the mean,
-        and under fp16 multiplied by the loss scale first (the JAX
-        engine's loss * (scale / gas))."""
+    def _micro_grad(self, batch, rngs, keep_prob=None, spans=False):
+        """(raw loss, grads, router stats or None) of one microbatch;
+        the loss is divided by gas before differentiation, so
+        accumulated grads are the mean, and under fp16 multiplied by the
+        loss scale first (the JAX engine's loss * (scale / gas)). The
+        [E+2] router stats come back only while the monitor drains them
+        (`_moe_stats_on`); the model computes them for its aux loss
+        either way. With `spans` (train_batch's, when spans are active)
+        the loss and its differentiation are timed as the forward and
+        backward spans (host dispatch time, no fence)."""
         params = self.state.params
         gas = self.gradient_accumulation_steps()
         kwargs = {} if keep_prob is None else \
             {"layer_keep_prob": keep_prob}
+        rstats = None
+        if spans:
+            self.monitor.trace.start(SPAN_FORWARD)
         with torch.enable_grad():
-            loss = self._loss_fn(params, batch, rngs=rngs,
-                                 deterministic=False, **kwargs)
+            if self._moe_stats_on:
+                loss, rstats = self._loss_fn(
+                    params, batch, rngs=rngs, deterministic=False,
+                    return_router_stats=True, **kwargs)
+                rstats = rstats.detach()
+            else:
+                loss = self._loss_fn(params, batch, rngs=rngs,
+                                     deterministic=False, **kwargs)
             if self.fp16_mode:
                 scaled = loss * (self.state.scale.loss_scale / gas)
             else:
                 scaled = loss * (1.0 / gas) if gas > 1 else loss
             leaves = list(params.values())
+            if spans:
+                self.monitor.trace.stop(SPAN_FORWARD)
+                self.monitor.trace.start(SPAN_BACKWARD)
             grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
+            if spans:
+                self.monitor.trace.stop(SPAN_BACKWARD)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
         if not (self.bf16_sr_mode and gas == 1):
             grads = [g.to(torch.float32) for g in grads]
-        return loss.detach(), grads
+        return loss.detach(), grads, rstats
 
     def _step_lr(self):
         """The step's learning rate as a device scalar: under async
@@ -730,7 +927,11 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         clipping consumes it), the overflow flag, clipping, the update
         (masked by keep = not overflow under fp16), the step counters
         and the scale automaton; all on the device. Returns (grad norm
-        or None, overflow device bool or None)."""
+        or None, overflow device bool or None, per-group numerics stats
+        [G, 3] or None). With `monitor.numerics` the group stats are
+        taken on the unscaled gradients, sharing the per-leaf sums of
+        squares with the global norm where one is taken; they read the
+        gradients and write nothing the update reads."""
         state = self.state
         grad_norm = None
         overflow = keep = None
@@ -738,10 +939,13 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             for g in grads:
                 g.div_(state.scale.loss_scale)
         clip = self.gradient_clipping()
+        sq = health_grad = None
         if self.fp16_mode or (clip and clip > 0):
-            sq = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
-                              for g in grads])
-            grad_norm = torch.sqrt(torch.sum(sq))
+            sq = _num.leaf_sumsq(grads)
+            grad_norm = torch.sqrt(torch.sum(torch.stack(sq)))
+        if self._numerics_on:
+            health_grad = _num.grad_group_stats(grads, self._numerics_mask,
+                                                sq=sq)
         if self.fp16_mode:
             overflow = ~torch.isfinite(grad_norm)
             keep = ~overflow
@@ -778,7 +982,7 @@ class DeepSpeedEngine(ZeroOffloadMixin):
                 p.copy_(m)
         if keep is None:
             state.global_steps.add_(1)
-            return grad_norm, None
+            return grad_norm, None, health_grad
         state.global_steps.add_(keep.to(torch.int32))
         state.skipped.add_(overflow.to(torch.int32))
         args = self.dynamic_loss_scale_args() or {}
@@ -790,7 +994,7 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             dynamic=self.dynamic_loss_scale_enabled)
         for dest, value in zip(state.scale, new_scale):
             dest.copy_(value)
-        return grad_norm, overflow
+        return grad_norm, overflow, health_grad
 
     def _stacked(self, data_iter, batch):
         gas = self.gradient_accumulation_steps()
@@ -825,61 +1029,144 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         collation and `stage_batch` placement run on a worker thread (on
         a side CUDA stream of the loader's), `depth` (default
         async_dispatch.prefetch_depth) staged batches ahead of the step
-        loop. Feed the result to `train_batch` as `data_iter`."""
-        return PrefetchLoader(
+        loop. Feed the result to `train_batch` as `data_iter`. With the
+        monitor on, the worker's heartbeats (terminal at exhaustion),
+        its staging spans and its queued bytes reach the monitor."""
+        mon = self.monitor
+        loader = PrefetchLoader(
             data_source, stage_fn=self.stage_batch,
             gas=self.gradient_accumulation_steps(),
             depth=depth if depth is not None else self.prefetch_depth(),
-            stacked=stacked, device=self.device)
+            stacked=stacked, device=self.device,
+            heartbeat=(lambda: mon.heartbeat("prefetch"))
+            if mon.enabled else None,
+            finished=(lambda: mon.heartbeat_done("prefetch"))
+            if mon.enabled else None,
+            span=(lambda t0, dur: mon.subsystem_span(
+                "prefetch", "stage_batch", t0, dur))
+            if mon.trace_export is not None else None)
+        # the occupancy gauge and the ledger's staged-bytes entry ride
+        # the live loader
+        mon.attach_prefetch(loader)
+        return loader
+
+    def _spans_active(self):
+        """Record fwd/bwd/step spans when wall_clock_breakdown is on OR a
+        Perfetto trace is being exported (monitor.trace.enabled)."""
+        return self.wall_clock_breakdown() or \
+            self.monitor.trace_export is not None
 
     def train_batch(self, data_iter=None, batch=None):
         """One optimizer step over gas microbatches: an iterator yielding
         microbatch dicts, a PrefetchLoader (stacked batches already
         staged: no collation here), or a stacked batch dict with leading
         dim [gas, micro_batch, ...]. Returns the mean loss as a device
-        tensor; nothing in the call waits for the device."""
+        tensor; nothing in the call waits for the device.
+
+        An exception escaping the step (a StopIteration of an exhausted
+        iterator aside) is a forensic moment: with the monitor on, the
+        flight recorder dumps the last events and heartbeat ages —
+        classified `oom` with the memory ledger's hints for
+        `torch.OutOfMemoryError` — before it propagates."""
+        try:
+            return self._train_batch_impl(data_iter=data_iter, batch=batch)
+        except StopIteration:
+            raise
+        except BaseException as e:
+            if self.monitor.enabled and \
+                    not getattr(e, "_ds_flight_dumped", False):
+                try:
+                    e._ds_flight_dumped = True
+                except AttributeError:
+                    pass
+                self.monitor.on_crash(e)
+            raise
+
+    def _train_batch_impl(self, data_iter=None, batch=None):
         gas = self.gradient_accumulation_steps()
         if batch is None and isinstance(data_iter, PrefetchLoader):
             batch, data_iter = next(data_iter), None
         batch = self.stage_batch(self._stacked(data_iter, batch))
         self.tput_timer.start()
+        tokens = _batch_token_count(batch)
+        # tokens per sample (shape math): the stacked batch is [gas,
+        # rows, ...] and the timer counts rows
+        lead = _batch_lead(batch)
+        self._tokens_per_sample = int(np.prod(lead[2:])) \
+            if len(lead) > 2 else 1
         lr = self._step_lr()
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self._host_steps)
         kp = self._keep_prob()
         offload = self._offload_enabled()
+        spans = self._spans_active()
+        if spans:
+            self.monitor.trace.start(SPAN_STEP)
         if gas == 1 and not offload:
-            loss, grads = self._micro_grad(
-                {k: v[0] for k, v in batch.items()}, self._next_rngs(), kp)
+            loss, grads, rstats = self._micro_grad(
+                {k: v[0] for k, v in batch.items()}, self._next_rngs(), kp,
+                spans)
         else:
-            losses = []
+            losses, router = [], []
             for i in range(gas):
-                loss_i, g = self._micro_grad(
+                loss_i, g, rstats = self._micro_grad(
                     {k: v[i] for k, v in batch.items()}, self._next_rngs(),
-                    kp)
+                    kp, spans)
                 with torch.no_grad():
                     for a, gi in zip(self.state.acc_grads, g):
                         a.add_(gi)
                 losses.append(loss_i)
+                if rstats is not None:
+                    router.append(rstats)
                 del g
             grads = self.state.acc_grads
             loss = torch.stack(losses).mean()
+            # the router stats are per-step means: average over the
+            # accumulation window
+            rstats = torch.stack(router).mean(dim=0) if router else None
+        grad_norm = hgrad = None
         if offload:
             # the grads-only device half, then the host step (which
             # zeroes the accumulator)
             overflow = self._offload_take_step(lr)
         else:
-            _, overflow = self._unscale_clip_and_update(grads, lr)
+            grad_norm, overflow, hgrad = self._unscale_clip_and_update(
+                grads, lr)
         del grads
         if gas > 1 and not offload:
             for a in self.state.acc_grads:
                 a.zero_()
+        if spans:
+            self.monitor.trace.stop(SPAN_STEP)
         self.micro_steps += gas
         self._host_steps += 1
         self.losses = loss
+        self._monitor_step(loss, grad_norm, overflow, tokens, hgrad, rstats)
         self._after_model_step(overflow)
         self.tput_timer.stop(count=gas)
         return loss
+
+    def _monitor_step(self, loss, grad_norm, overflow, tokens, hgrad, rstats):
+        """Hand one optimizer step's device scalars to the monitor (no
+        host read). As in the JAX engine a step that takes no norm
+        reports 0.0 (a host number, no device work). No model here taps
+        activation stats (the JAX engine's layer-exposing PipelineModule
+        does), so `act` is None."""
+        if not self.monitor.enabled:
+            return
+        health = {"grad": hgrad, "act": None} if self._numerics_on \
+            else None
+        if self._offload_enabled():
+            self.monitor.on_step(
+                loss=loss, grad_norm=self._offload_last_norm,
+                loss_scale=self._host_scaler.cur_scale,
+                overflow=overflow, tokens=tokens,
+                wire_stats=self.wire_stats, health=health, router=rstats)
+        else:
+            self.monitor.on_step(
+                loss=loss, grad_norm=0.0 if grad_norm is None else grad_norm,
+                loss_scale=self.state.scale.loss_scale, overflow=overflow,
+                tokens=tokens, health=health, router=rstats)
 
     # ------------------------------------------------------------------
     # forward / backward / step, one microbatch at a time
@@ -891,12 +1178,26 @@ class DeepSpeedEngine(ZeroOffloadMixin):
     def forward(self, batch, **kwargs):
         """Loss of one microbatch dict; its gradients are computed here
         too and cached for `backward`."""
+        spans = self._spans_active()
+        if spans:
+            # fence-free span (monitor/trace.py): host dispatch time
+            self.monitor.trace.start(SPAN_FORWARD)
         batch = self.stage_batch(batch)
+        self._tokens_pending += _batch_token_count(batch)
+        # here the batch is ONE microbatch [rows, ...]
+        lead = _batch_lead(batch)
+        self._tokens_per_sample = int(np.prod(lead[1:])) \
+            if len(lead) > 1 else 1
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self._host_steps)
-        loss, grads = self._micro_grad(batch, self._next_rngs(),
-                                       self._keep_prob())
+        loss, grads, rstats = self._micro_grad(batch, self._next_rngs(),
+                                               self._keep_prob())
         self._pending = (loss, grads)
+        # the manual path's router stats: the last microbatch's stand in
+        # for the accumulation window, as in the JAX engine
+        self._pending_router = rstats
+        if spans:
+            self.monitor.trace.stop(SPAN_FORWARD)
         return loss
 
     __call__ = forward
@@ -907,6 +1208,9 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         if self._pending is None:
             raise RuntimeError("backward() called without a preceding "
                                "forward()")
+        spans = self._spans_active()
+        if spans:
+            self.monitor.trace.start(SPAN_BACKWARD)
         pending_loss, grads = self._pending
         self._pending = None
         if self.state.acc_grads:
@@ -917,27 +1221,39 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             self._ready_grads = grads
         self.losses = None if release_loss else \
             (loss if loss is not None else pending_loss)
+        if spans:
+            self.monitor.trace.stop(SPAN_BACKWARD)
         return loss
 
     def step(self, lr_kwargs=None):
         """Advance one micro step; at the accumulation boundary, take
         the optimizer step."""
+        spans = self._spans_active()
+        if spans:
+            self.monitor.trace.start(SPAN_STEP)
         if self.is_gradient_accumulation_boundary():
             grads = self.state.acc_grads or self._ready_grads
             if grads is None:
                 raise RuntimeError("step() at an accumulation boundary "
                                    "without backward()")
+            tokens, self._tokens_pending = self._tokens_pending, 0
+            grad_norm = hgrad = None
             if self._offload_enabled():
                 overflow = self._offload_take_step(self._step_lr())
             else:
-                _, overflow = self._unscale_clip_and_update(
+                grad_norm, overflow, hgrad = self._unscale_clip_and_update(
                     grads, self._step_lr())
             self._ready_grads = None
             for a in self.state.acc_grads:
                 a.zero_()
             self._host_steps += 1
+            rstats, self._pending_router = self._pending_router, None
+            self._monitor_step(self.losses, grad_norm, overflow, tokens,
+                               hgrad, rstats)
             self._after_model_step(overflow)
         self.micro_steps += 1
+        if spans:
+            self.monitor.trace.stop(SPAN_STEP)
 
     def _after_model_step(self, overflow=None):
         if self._offload_enabled() and not self.fp16_mode:
@@ -957,11 +1273,41 @@ class DeepSpeedEngine(ZeroOffloadMixin):
 
     def _sync_fence(self):
         """The hot loop's only host-device rendezvous: correct the
-        scheduler mirror, and at print steps log. Runs every
-        `steps_per_sync` optimizer steps (default: steps_per_print)."""
+        scheduler mirror, drain the monitor (one device-to-host copy),
+        and at print steps log (with the span breakdown under
+        wall_clock_breakdown) and write the tensorboard block's scalars.
+        Runs every `steps_per_sync` optimizer steps (default:
+        steps_per_print)."""
         self._sync_scheduler_mirror()
-        if self._host_steps % self.steps_per_print() == 0:
-            logger.info(f"step={self._host_steps}, lr={self.get_lr()}")
+        at_print = self._host_steps % self.steps_per_print() == 0
+        spans = None
+        if self.monitor.enabled:
+            event = self.monitor.on_fence()
+            spans = event.get("spans") if event else None
+        elif self.wall_clock_breakdown() and at_print:
+            # wall_clock_breakdown without the monitor block: the trace
+            # accumulated the span times over the print window
+            spans = self.monitor.trace.drain()
+        if at_print and spans:
+            logger.info(
+                "span ms/step (host dispatch, fence-aligned) | " +
+                " | ".join(f"{k}: {v['ms_per']:.2f}"
+                           for k, v in spans.items()))
+        if self.summary_writer is not None and at_print:
+            samples = self.global_steps * self.train_batch_size()
+            self.summary_writer.add_scalar(
+                "Train/Samples/lr", self._current_lr(), samples)
+            if self.losses is not None:
+                # the tensorboard block's own read, at print fences only
+                self.summary_writer.add_scalar(
+                    "Train/Samples/train_loss", float(self.losses), samples)
+            if self.fp16_mode:
+                self.summary_writer.add_scalar(
+                    "Train/Samples/loss_scale", self.loss_scale(), samples)
+            self.summary_writer.flush()
+        if at_print:
+            logger.info(f"step={self._host_steps}, "
+                        f"lr={[self._current_lr()]}")
 
     def _sync_scheduler_mirror(self):
         """Correct the config scheduler's host mirror from the device
@@ -1003,16 +1349,21 @@ class DeepSpeedEngine(ZeroOffloadMixin):
     def prefetch_depth(self):
         return self._config.async_dispatch_prefetch_depth
 
-    def get_lr(self):
-        self._sync_scheduler_mirror()
+    def _current_lr(self):
+        """The host mirror's learning rate, without correcting it first
+        (no device read: what the fences log after their correction)."""
         if self.lr_scheduler is not None:
             try:
-                return [float(self.lr_scheduler.get_last_lr()[0])]
+                return float(self.lr_scheduler.get_last_lr()[0])
             except AssertionError:
-                return [float(self.lr_scheduler.get_lr()[0])]
+                return float(self.lr_scheduler.get_lr()[0])
         if self._base_lr is None:
-            return [float(getattr(self.client_optimizer, "lr", 0.0))]
-        return [float(self._base_lr)]
+            return float(getattr(self.client_optimizer, "lr", 0.0))
+        return float(self._base_lr)
+
+    def get_lr(self):
+        self._sync_scheduler_mirror()
+        return [self._current_lr()]
 
     @property
     def global_steps(self):
@@ -1204,7 +1555,10 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         checkpoint.keep_last. `commit_gate` orders the commit sections
         of concurrent writers by submission; a job whose `writer` was
         abandoned commits its tag dir but leaves `latest` and rotation
-        alone."""
+        alone. With the monitor on, the writer beats the `checkpoint`
+        heartbeat and emits one `ckpt_commit` event from its thread."""
+        write_t0 = time.perf_counter()
+        self.monitor.heartbeat("checkpoint")
         staging = ckpt_io.staging_dir(save_dir, tag)
         if os.path.exists(staging):
             shutil.rmtree(staging)   # stale leftover of a killed save
@@ -1245,6 +1599,18 @@ class DeepSpeedEngine(ZeroOffloadMixin):
                                                      protect=(tag,))
                 if deleted:
                     logger.info(f"checkpoint rotation removed {deleted}")
+        if self.monitor.enabled:
+            # on the writer thread under async_save: the monitor's event
+            # path and counters are thread-safe
+            commit_ms = (time.perf_counter() - write_t0) * 1e3
+            self.monitor.registry.inc("ckpt/commits")
+            self.monitor.registry.set_counter("ckpt/last_commit_ms",
+                                              round(commit_ms, 2))
+            self.monitor.heartbeat("checkpoint")
+            self.monitor.event(
+                "ckpt_commit", tag=str(tag), dir=save_dir,
+                wall_ms=round(commit_ms, 2),
+                global_steps=int(snap["global_steps"]))
         logger.info(f"saved checkpoint {tag} to {save_dir}")
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
@@ -1282,18 +1648,60 @@ class DeepSpeedEngine(ZeroOffloadMixin):
             # dropped save must not pay the device copy it drops
             if not self._ckpt_writer.admit(tag):
                 return False
-        snap = self._checkpoint_snapshot(client_state, isolate=async_save)
+        with self.monitor.trace.span(SPAN_CKPT):
+            # the only part of an async save the train loop pays for
+            snap = self._checkpoint_snapshot(client_state,
+                                             isolate=async_save)
         if not async_save:
             # an in-flight async writer may hold this tag's staging dir
             # or commit `latest` after us: drain it first
             self.wait_for_checkpoint()
             self._write_checkpoint(save_dir, str(tag), snap, save_latest)
             return True
+        # memory ledger: the snapshot's copies are alive from here until
+        # the writer finishes (success or failure)
+        tokens = self._register_ckpt_snapshot(str(tag), snap)
+        led = self.monitor.ledger
         writer = self._ckpt_writer
-        return writer.submit(
-            lambda commit_gate: self._write_checkpoint(
-                save_dir, str(tag), snap, save_latest,
-                commit_gate=commit_gate, writer=writer), tag)
+        try:
+            accepted = writer.submit(
+                lambda commit_gate: self._write_checkpoint(
+                    save_dir, str(tag), snap, save_latest,
+                    commit_gate=commit_gate, writer=writer), tag,
+                on_done=lambda: [led.release(t) for t in tokens])
+        except BaseException:
+            # submit re-raises a pending writer error before accepting
+            # the job: a leaked entry would show a phantom snapshot
+            for t in tokens:
+                led.release(t)
+            raise
+        if not accepted:
+            for t in tokens:
+                led.release(t)
+        return accepted
+
+    def _register_ckpt_snapshot(self, tag, snap):
+        """Register the isolated snapshot's copies with the memory
+        ledger: the device clones and the offload host copies. Entry
+        names carry a per-engine sequence number, so a re-save of the
+        same tag while the first write is in flight does not replace the
+        first save's entries. Returns the tokens the writer's on_done
+        releases."""
+        led = self.monitor.ledger
+        self._ckpt_snap_seq = getattr(self, "_ckpt_snap_seq", 0) + 1
+        name = f"snapshot:{tag}@{self._ckpt_snap_seq}"
+        device = [t for t in _mem._leaves((snap["module"], snap["opt_state"],
+                                           snap["scale"], snap["skipped"]))
+                  if isinstance(t, torch.Tensor) and t.device == self.device]
+        tokens = [led.register_tree(_mem.CAT_CKPT, name, device)]
+        host = 0
+        for v in _mem._leaves(snap.get("offload")):
+            if isinstance(v, np.ndarray):
+                host += int(v.nbytes)
+        if host:
+            tokens.append(led.register(_mem.CAT_CKPT, f"{name}#host", host,
+                                       space=_mem.SPACE_HOST))
+        return tokens
 
     def wait_for_checkpoint(self, timeout=None):
         """Barrier for in-flight async saves: returns once every
@@ -1301,17 +1709,23 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         first background write error. `timeout` (seconds) bounds the
         wait: on expiry a `CheckpointWaitTimeout` is raised, so a
         supervisor can abandon a hung writer
-        (`abandon_checkpoint_writers`). The writer heartbeat it would
-        carry comes with the monitor (ROADMAP Queue 1 item 8)."""
+        (`abandon_checkpoint_writers`); it carries the writer's last
+        heartbeat age (`heartbeat_age_sec`, None when the monitor saw
+        none)."""
         if self._ckpt_writer is None:
             return
         if self._ckpt_writer.wait(timeout):
             return
+        hb, _ = self.monitor._heartbeat_state()
+        age = hb.get("checkpoint")
         pending = self._ckpt_writer.pending()
         raise ckpt_io.CheckpointWaitTimeout(
             f"{pending} async checkpoint save(s) still in flight after "
-            f"{timeout}s — abandon_checkpoint_writers() detaches them "
-            "(the committed `latest` tag is unaffected)", pending=pending)
+            f"{timeout}s; writer heartbeat "
+            + (f"{age}s ago" if age is not None else "never seen")
+            + " — abandon_checkpoint_writers() detaches them (the "
+            "committed `latest` tag is unaffected)",
+            pending=pending, heartbeat_age_sec=age)
 
     def abandon_checkpoint_writers(self):
         """Detach in-flight async save jobs: the engine stops tracking
@@ -1341,18 +1755,19 @@ class DeepSpeedEngine(ZeroOffloadMixin):
     def shutdown(self, wait_for_checkpoint=True, checkpoint_timeout=None):
         """Tear down the engine's host-side services so it can be
         dropped and rebuilt: drain — or, on timeout, abandon — in-flight
-        checkpoint writers. Device state is freed once the last
-        reference to the engine goes."""
-        if not wait_for_checkpoint:
-            return
-        try:
-            self.wait_for_checkpoint(timeout=checkpoint_timeout)
-        except ckpt_io.CheckpointWaitTimeout as e:
-            logger.warning(f"shutdown: {e}")
-            self.abandon_checkpoint_writers()
-        except RuntimeError as e:
-            # a failed background write must not block teardown
-            logger.warning(f"shutdown: pending writer error: {e}")
+        checkpoint writers, then close the monitor (watchdog thread,
+        flight recorder disarm, trace export, sink flush). Device state
+        is freed once the last reference to the engine goes."""
+        if wait_for_checkpoint:
+            try:
+                self.wait_for_checkpoint(timeout=checkpoint_timeout)
+            except ckpt_io.CheckpointWaitTimeout as e:
+                logger.warning(f"shutdown: {e}")
+                self.abandon_checkpoint_writers()
+            except RuntimeError as e:
+                # a failed background write must not block teardown
+                logger.warning(f"shutdown: pending writer error: {e}")
+        self.monitor.close()
 
     @torch.no_grad()
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,

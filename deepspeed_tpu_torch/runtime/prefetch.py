@@ -28,6 +28,7 @@ Usage::
 
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -72,16 +73,32 @@ class PrefetchLoader:
       device: the device `stage_fn` places on; a CUDA device gives the
         loader its side stream. Default: the current CUDA device when a
         card is present, else none (no stream).
-    The JAX loader's monitor hooks (heartbeat, span, the byte gauge) come
-    with the monitor (ROADMAP Queue 1 item 8).
+      heartbeat: optional zero-arg callable invoked after each staged
+        batch (the monitor's stall-watchdog heartbeat — a quiet
+        prefetch worker shows up by age in the stall diagnostic).
+      finished: optional zero-arg callable invoked once when the worker
+        exits (source exhausted, error, or close). The monitor marks
+        the heartbeat TERMINAL there: a cleanly-finished worker's
+        growing heartbeat age must not read as a stall.
+      span: optional callable (t_start, dur_sec) per staged batch — the
+        Perfetto "prefetch" track stamp (collate + staging enqueue time
+        on the worker thread).
     """
 
     def __init__(self, source, stage_fn=None, gas=1, depth=2,
-                 stacked=False, device=None):
+                 stacked=False, device=None, heartbeat=None,
+                 finished=None, span=None):
         self._source = source
         self._stage_fn = stage_fn
         self._gas = max(1, int(gas))
         self._stacked = stacked
+        self._heartbeat = heartbeat
+        self._finished = finished
+        self._span = span
+        # bytes of one staged batch (set by the worker after the first
+        # stage; shape metadata only) — the memory ledger's dynamic
+        # prefetch entry samples occupancy x this
+        self.staged_nbytes = 0
         if device is None and stage_fn is not None and \
                 torch.cuda.is_available():
             device = torch.device("cuda", torch.cuda.current_device())
@@ -119,15 +136,39 @@ class PrefetchLoader:
         try:
             it = iter(self._source)
             while not self._closed:
+                t0 = time.perf_counter()
                 try:
                     batch = self._next_stacked(it)
                 except StopIteration:
                     break
-                self._put(self._stage(batch))
+                item = self._stage(batch)
+                if not self.staged_nbytes:
+                    self.staged_nbytes = sum(
+                        t.numel() * t.element_size()
+                        for t in _tensors(item[0]))
+                if self._span is not None:
+                    try:
+                        self._span(t0, time.perf_counter() - t0)
+                    except Exception:  # ds-lint: allow[BROADEXC] telemetry hook; a broken trace exporter must not kill the staging worker
+                        pass
+                self._put(item)
+                if self._heartbeat is not None:
+                    try:
+                        self._heartbeat()
+                    except Exception:  # ds-lint: allow[BROADEXC] telemetry hook; a broken watchdog must not kill the staging worker
+                        pass
         except BaseException as e:  # noqa: B036 - re-raised by __next__
             self._exc = e
         finally:
             self._put(_DONE)
+            if self._finished is not None:
+                # the worker is DONE (exhausted/closed/errored): its
+                # heartbeat goes terminal — the watchdog must not count
+                # a finished subsystem's age toward a stall verdict
+                try:
+                    self._finished()
+                except Exception:  # ds-lint: allow[BROADEXC] telemetry hook; the worker is already exiting
+                    pass
 
     def _put(self, item):
         # bounded put that aborts when the consumer closes mid-wait
@@ -173,6 +214,12 @@ class PrefetchLoader:
         """Staged batches queued ahead of the consumer right now (0 means
         the input pipeline is the bottleneck; == depth the step loop)."""
         return self._queue.qsize()
+
+    def buffer_bytes(self):
+        """Device bytes held by queued staged batches right now
+        (occupancy x per-batch bytes) — the memory ledger's dynamic
+        prefetch entry."""
+        return self._queue.qsize() * self.staged_nbytes
 
     def close(self):
         """Stop the worker and drop the queued batches."""

@@ -208,6 +208,18 @@ class ZeroOffloadMixin:
         self.offload_timing = {}
         self._offload_pinned = None
         self._init_offload_wire(n)
+        # memory ledger: offload MOVES the masters and the moments to
+        # host RAM — the ledger's host space is where its whole memory
+        # argument lives. The device parameters are views of one flat
+        # buffer: the engine registers the views (as `params`) and not
+        # the buffer, so each byte counts once.
+        from deepspeed_tpu_torch.monitor import memory as _mem
+        led = self.monitor.ledger
+        led.register(_mem.CAT_HOST_MASTER, "offload.host_master",
+                     self._host_master.nbytes, space=_mem.SPACE_HOST)
+        # CPU-Adam moments: exp_avg + exp_avg_sq, fp32, one per element
+        led.register(_mem.CAT_HOST_OPT, "offload.adam_moments",
+                     2 * n * 4, space=_mem.SPACE_HOST)
         logger.info(
             f"ZeRO-Offload: {n / 1e6:.1f}M fp32 masters + moments on host "
             f"(native cpu_adam={self._host_adam.native}, wire grad_bits="
@@ -241,16 +253,27 @@ class ZeroOffloadMixin:
         self._offload_grad_residual = None
         self._offload_param_shadow = None
         self._offload_device_flat = None
+        from deepspeed_tpu_torch.monitor import memory as _mem
+        led = self.monitor.ledger
         if self._wire_grad_bits == 1:
             # the error-feedback residual, padded to whole scale blocks
             self._offload_grad_residual = torch.zeros(
                 -(-n // B) * B, dtype=torch.float32, device=self.device)
+            led.register_tree(_mem.CAT_WIRE, "offload.grad_residual",
+                              self._offload_grad_residual)
         if self._wire_param_bits == 8:
             # the host shadow tracks the device fp32 copy: both apply
             # the same dequantized deltas
             self._offload_param_shadow = self._host_master.copy()
             self._offload_device_flat = torch.from_numpy(
                 self._host_master).to(self.device, copy=True)
+            led.register(_mem.CAT_WIRE, "offload.param_shadow",
+                         self._offload_param_shadow.nbytes,
+                         space=_mem.SPACE_HOST)
+            # the device fp32 flat copy is the int8 wire's 4 B/param
+            # device cost
+            led.register_tree(_mem.CAT_WIRE, "offload.device_flat",
+                              self._offload_device_flat)
 
     def _pieces(self, lo, hi):
         """[(a, b, device offset)]: chunk [lo, hi)'s elements [a, b) land
@@ -454,7 +477,10 @@ class ZeroOffloadMixin:
         # the one host sync of the step
         norm_host = float(norm)
         t2 = time.perf_counter()
+        # the norm is on the host already: it feeds the monitor's
+        # grad_norm and the stall diagnosis for free
         self._offload_last_norm = norm_host
+        self.monitor.heartbeat("offload")
         overflow = not math.isfinite(norm_host)
         self._host_scaler.update_scale(overflow)
         if self.fp16_mode:
@@ -467,6 +493,9 @@ class ZeroOffloadMixin:
             self.offload_timing = {"overflow": True,
                                    "tail_ms": (t1 - t0) * 1e3,
                                    "norm_wait_ms": (t2 - t1) * 1e3}
+            self.monitor.subsystem_span(
+                "offload", "host_step (overflow skip)", t0,
+                time.perf_counter() - t0)
             return True
         if new_res is not None:
             self._offload_grad_residual.copy_(new_res)
@@ -505,6 +534,11 @@ class ZeroOffloadMixin:
             overflow=False, chunks=len(bounds), ring=self._offload_ring,
             tail_ms=(t1 - t0) * 1e3, norm_wait_ms=(t2 - t1) * 1e3,
             host_step_ms=(t3 - t0) * 1e3, norm_at=t2, done_at=t3, **split)
+        # the host step gets its own Perfetto track: D2H + chunked
+        # CPU-Adam + H2D as one slice
+        self.monitor.subsystem_span(
+            "offload", "host_step", t0, t3 - t0,
+            args={"d2h_bytes": int(d2h_bytes), "h2d_bytes": int(h2d_bytes)})
         return False
 
     def _offload_set_scale(self, scale):

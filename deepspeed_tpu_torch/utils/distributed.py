@@ -75,3 +75,20 @@ def mpi_discovery(distributed_port=29500, verbose=True):
         logger.info(f"MPI discovery: rank={rank} world_size={world_size} "
                     f"master_addr={os.environ['MASTER_ADDR']} "
                     f"master_port={distributed_port}")
+
+
+def get_rank():
+    """This process's rank in the default process group (0 without
+    one): the JAX package's `jax.process_index()`."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def get_world_size():
+    """The default process group's size (1 without one)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1

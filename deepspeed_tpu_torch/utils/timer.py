@@ -165,6 +165,19 @@ class ThroughputTimer:
             self._close_window()
         self._drain(block=False, log=report_speed)
 
+    def close_window(self):
+        """End the open window at this point of the device stream without
+        waiting for it (a later host read of the stream completes it:
+        the monitor closes the window before its fence's one copy)."""
+        if self._window_start is not None and \
+                self.global_step_count > self._window_start[1]:
+            self._close_window()
+
+    def collect(self):
+        """Count the closed windows whose end the device has passed,
+        without waiting for the others."""
+        self._drain(block=False, log=False)
+
     def _close_window(self):
         start, steps0 = self._window_start
         end = _Mark(self.device)

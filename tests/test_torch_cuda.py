@@ -3207,3 +3207,107 @@ def test_int8_matmul_on_the_card_matches_the_cpu(dev, dtype):
         # the quantizer on the card is the CPU's bit for bit
         q_cpu, s_cpu = qm.quantize_kernel_int8(w.cpu(), 128)
         assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+
+
+# ----------------------------------------------------------------------
+# the monitor on the card
+# ----------------------------------------------------------------------
+def _monitored_engine(out, n_layer=2, seq=128, steps_per_sync=2):
+    """A bf16 gpt2-125m-width engine (the training cell's settings) with
+    the monitor, numerics, the trace and the memory ledger on."""
+    import deepspeed_tpu_torch as dst
+    cfg = tgpt2.gpt2_config("gpt2-125m", n_layer=n_layer, n_positions=seq,
+                            dropout=0.0, dtype=torch.bfloat16,
+                            param_dtype=torch.bfloat16, remat=True)
+    model = tgpt2.GPT2ForCausalLM(cfg)
+    engine, _, _, _ = dst.initialize(
+        model=model, model_parameters=model.init(0),
+        config={"train_micro_batch_size_per_gpu": 4, "steps_per_print": 1000,
+                "bf16": {"enabled": True, "master_weights": False},
+                "zero_optimization": {"stage": 2},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                "async_dispatch": {"steps_per_sync": steps_per_sync},
+                "wall_clock_breakdown": True,
+                "monitor": {"enabled": True, "output_path": str(out),
+                            "numerics": {"enabled": True},
+                            "trace": {"enabled": True}}})
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 4, seq))
+    return engine, engine.stage_batch({"input_ids": ids.astype(np.int32)})
+
+
+def test_monitored_step_makes_no_host_sync(dev, tmp_path):
+    """With the monitor, numerics, spans and the trace on, a step that
+    ends before a fence runs under set_sync_debug_mode("error"); the
+    fence's step drains the window into a `metrics` event with a finite
+    loss and per-group numerics."""
+    engine, staged = _monitored_engine(tmp_path)
+    engine.train_batch(batch=staged)
+    engine.train_batch(batch=staged)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            engine.train_batch(batch=staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        engine.train_batch(batch=staged)
+    engine.shutdown()
+    events = [json.loads(line) for line in open(tmp_path / "events.jsonl")]
+    metrics = [e for e in events if e["kind"] == "metrics"]
+    numerics = [e for e in events if e["kind"] == "numerics"]
+    assert [e["step"] for e in metrics] == [2, 4, 6]
+    assert all(np.isfinite(e["loss"]) for e in metrics)
+    assert all(np.isfinite(v) for e in numerics
+               for v in e["grad_norm"].values())
+    assert metrics[-1]["spans"]["step"]["count"] == 2
+
+
+def test_memory_ledger_reconciles_with_the_allocator(dev, tmp_path):
+    """The ledger's params and optimizer state are the state's bytes;
+    reconciled against torch.cuda.memory_stats' allocated bytes, the
+    residual is what the allocator holds beyond them."""
+    engine, staged = _monitored_engine(tmp_path)
+    engine.train_batch(batch=staged)
+    torch.cuda.synchronize()
+    payload = engine.monitor._reconcile_memory(engine.global_steps)
+    stats = torch.cuda.memory_stats()
+    hbm = payload["hbm"]
+    st = engine.state
+    params = sum(p.numel() * p.element_size() for p in st.params.values())
+    opt = sum(t.numel() * t.element_size()
+              for t in engine._state_tensors(st.opt_state))
+    assert hbm["categories"]["params"] == params
+    assert hbm["categories"]["opt_state"] == opt
+    assert hbm["device_count"] == torch.cuda.device_count()
+    assert hbm["measured_in_use"] == stats["allocated_bytes.all.current"]
+    assert hbm["measured_peak"] == stats["allocated_bytes.all.peak"]
+    assert hbm["residual_bytes"] == hbm["measured_in_use"] - \
+        hbm["ledger_bytes"]
+    assert hbm["residual_bytes"] > 0
+    assert stats["reserved_bytes.all.current"] >= hbm["measured_in_use"]
+    engine.shutdown()
+
+
+def test_provoked_oom_is_classified_and_the_engine_steps_on(dev, tmp_path):
+    """A batch whose embedding alone passes the card's memory raises
+    torch.OutOfMemoryError out of train_batch, leaves a flight dump
+    classified `oom` with the ledger's hints, and after empty_cache the
+    engine takes its next step."""
+    from deepspeed_tpu_torch.monitor.flight import list_flight_dumps
+    engine, staged = _monitored_engine(tmp_path, seq=1024)
+    engine.train_batch(batch=staged)
+    # 65536 rows of 1024 tokens at width 768 in bf16: 103 GB of
+    # embedding output
+    big = np.zeros((1, 65536, 1024), np.int32)
+    with pytest.raises(torch.OutOfMemoryError):
+        engine.train_batch(batch={"input_ids": big})
+    del big
+    torch.cuda.empty_cache()
+    (dump,) = list_flight_dumps(str(tmp_path))
+    doc = json.load(open(dump))
+    assert doc["reason"] == "oom"
+    assert doc["extra"]["oom"]["hints"]
+    assert doc["extra"]["oom"]["hbm"]["categories"]["params"] > 0
+    loss = engine.train_batch(batch=staged)
+    assert np.isfinite(float(loss))
+    engine.shutdown()

@@ -300,9 +300,6 @@ def test_constants_equal_jax(mine, ref):
     ({"zero_optimization": {"stage": 3}}, "stage 3"),
     ({"zero_optimization": {"stage": 3, "cpu_offload": True}}, "stage 3"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
-    ({"wall_clock_breakdown": True}, "wall_clock_breakdown"),
-    ({"monitor": {"enabled": True}}, "monitor"),
-    ({"tensorboard": {"enabled": True}}, "tensorboard"),
     ({"elasticity": {"enabled": True, "max_train_batch_size": 48,
                      "micro_batch_sizes": [4]}}, "elasticity"),
     ({"mesh": {"model": 2, "data": 1}}, "mesh with model above 1"),
@@ -317,13 +314,10 @@ def test_later_slices_raise(jax_model_and_tree, extra, match):
     ({"zero_optimization": {"stage": 3, "cpu_offload": True}}, 6),
     ({"zero_optimization": {"stage": 3}}, 6),
     ({"pipeline": {"stages": 2}}, 6),
-    ({"monitor": {"enabled": True}}, 8),
     ({"elasticity": {"enabled": True}}, 9),
     # blocks the JAX engine acts on (runtime/engine.py) and the port not yet
-    ({"wall_clock_breakdown": True}, 8),
     ({"overlap": {"sites": "auto"}, "autotune": {"enabled": True}}, 9),
     ({"sparse_gradients": True}, 6),
-    ({"tensorboard": {"enabled": True}}, 8),
     ({"flops_profiler": {"enabled": True}}, 9),
     ({"autotune": {"table_path": "table.json"}}, 9),
     ({"mesh": {"model": 2, "data": 1}}, 6),
@@ -335,6 +329,62 @@ def test_later_slices_name_their_roadmap_item(jax_model_and_tree, extra,
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}$"):
         _port_engine(jax_model_and_tree[2], config)
+
+
+def _telemetry_block(block, out):
+    """The config of one telemetry block, its files under `out`."""
+    if block == "monitor":
+        return {"monitor": {"enabled": True, "output_path": str(out)}}
+    if block == "tensorboard":
+        return {"tensorboard": {"enabled": True, "output_path": str(out),
+                                "job_name": "job"}}
+    return {"wall_clock_breakdown": True}
+
+
+@pytest.mark.parametrize("api", ["train_batch", "forward_backward_step"])
+@pytest.mark.parametrize("block", ["monitor", "tensorboard",
+                                   "wall_clock_breakdown"])
+def test_telemetry_blocks_run_and_write(jax_model_and_tree, block, api,
+                                        tmp_path, monkeypatch):
+    """The monitor, tensorboard and wall_clock_breakdown blocks, which
+    raised until the monitor was ported, build an engine that trains
+    through either API and writes its sink at the fences: the monitor's
+    JSONL `metrics` events, the tensorboard block's tfevents scalars
+    (read back with their CRCs), the breakdown's span log line."""
+    import json
+    from deepspeed_tpu_torch.monitor.tfevents import read_tfevents
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+    logged = []
+    monkeypatch.setattr(engine_mod.logger, "info", logged.append)
+    config = dict({"train_micro_batch_size_per_gpu": 2,
+                   "steps_per_print": 2}, **_telemetry_block(block, tmp_path))
+    engine, _, _, _ = _port_engine(jax_model_and_tree[2], config)
+    ids = np.random.RandomState(4).randint(0, 256, (2, 128))
+    for _ in range(4):
+        if api == "train_batch":
+            engine.train_batch(batch={"input_ids": ids[None]})
+        else:
+            loss = engine({"input_ids": ids})
+            engine.backward(loss)
+            engine.step()
+    engine.shutdown()
+    assert engine.global_steps == 4
+    if block == "monitor":
+        events = [json.loads(line) for line in
+                  open(tmp_path / "events.jsonl")]
+        metrics = [e for e in events if e["kind"] == "metrics"]
+        assert [e["step"] for e in metrics] == [2, 4]
+        assert all(np.isfinite(e["loss"]) for e in metrics)
+    elif block == "tensorboard":
+        (name,) = os.listdir(tmp_path / "job")
+        records = read_tfevents(str(tmp_path / "job" / name))
+        tags = {tag for r in records for tag in r.get("scalars", {})}
+        assert {"Train/Samples/lr", "Train/Samples/train_loss"} <= tags
+    else:
+        spans = [m for m in logged if "span ms/step" in m]
+        assert len(spans) == 2
+        want = "step" if api == "train_batch" else "forward"
+        assert all(f"{want}:" in m for m in spans)
 
 
 @pytest.mark.parametrize("block,attr,value", [

@@ -259,31 +259,39 @@ def _decode_four(engine):
     return state["out_tokens"][0, :4]
 
 
-def test_out_of_slice_engine_options_raise(weights):
-    """The monitor is out of the port yet; speculative decoding and
-    int8 weights (ROADMAP Queue 1 item 7) now construct and decode."""
+def test_out_of_slice_engine_options_raise(weights, tmp_path):
+    """Speculative decoding and int8 weights (ROADMAP Queue 1 item 7)
+    and the monitor (item 8) construct and decode; the monitor's engine
+    carries a serving tracker."""
     cfg = tgpt2.tiny_gpt2_config()
     for extra in ({"speculative": {"enabled": True}}, {"weight_bits": 8}):
         engine = InferenceEngine(
             cfg, weights[2], {"inference": dict(ICFG["inference"], **extra)},
             device="cpu")
         assert all(0 <= t < cfg.vocab_size for t in _decode_four(engine))
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(cfg, weights[2], dict(ICFG, monitor={"enabled": True}),
-                        device="cpu")
+    engine = InferenceEngine(
+        cfg, weights[2], dict(ICFG, monitor={"enabled": True,
+                                             "output_path": str(tmp_path)}),
+        device="cpu")
+    assert engine.tracker is not None
+    assert all(0 <= t < cfg.vocab_size for t in _decode_four(engine))
 
 
 @pytest.mark.parametrize("extra,item", [
     ({"inference": {"speculative": {"enabled": True}}}, None),
     ({"inference": {"weight_bits": 8}}, None),
-    ({"monitor": {"enabled": True}}, 8),
+    ({"monitor": {"enabled": True}}, None),
 ], ids=["speculative", "int8-weights", "monitor"])
 def test_out_of_slice_engine_options_name_their_roadmap_item(weights, extra,
-                                                             item):
+                                                             item, tmp_path):
     """Each serving option the port does not have yet names the ROADMAP
-    Queue 1 item that ports it; the options of item 7 (item None here)
-    are ported: the engine constructs and decodes, speculation at
-    temperature 0 giving the vanilla engine's tokens."""
+    Queue 1 item that ports it; the options of items 7 and 8 (item None
+    here) are ported: the engine constructs and decodes, speculation at
+    temperature 0 giving the vanilla engine's tokens, the monitor giving
+    them too and writing its events (a ServingLoop's `decode_batch` and
+    `request_finished`) to its JSONL sink."""
+    if "monitor" in extra:
+        extra = {"monitor": dict(extra["monitor"], output_path=str(tmp_path))}
     config = dict(ICFG, **extra)
     config["inference"] = dict(ICFG["inference"], **extra.get("inference", {}))
     cfg = tgpt2.tiny_gpt2_config()
@@ -294,10 +302,19 @@ def test_out_of_slice_engine_options_name_their_roadmap_item(weights, extra,
         return
     got = _decode_four(InferenceEngine(cfg, weights[2], config,
                                        device="cpu"))
-    if "speculative" in config["inference"]:
+    if "speculative" in config["inference"] or "monitor" in config:
         want = _decode_four(InferenceEngine(cfg, weights[2], ICFG,
                                             device="cpu"))
         np.testing.assert_array_equal(got, want)
+    if "monitor" in config:
+        import json
+        eng = InferenceEngine(cfg, weights[2], config, device="cpu")
+        ServingLoop(eng).serve(_requests(Request, _prompts((6, 10), seed=9)))
+        eng.monitor.close()
+        kinds = [json.loads(line)["kind"] for line in
+                 open(tmp_path / "events.jsonl")]
+        assert kinds.count("request_finished") == 2
+        assert "decode_batch" in kinds and "serving_slo" in kinds
 
 
 def test_default_device_raises_without_cuda(weights):
