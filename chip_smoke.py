@@ -176,12 +176,15 @@ Phases, each printing one JSON line:
      directly give bit-equal losses; full-block remat's losses within
      1e-2, its step ms and peak memory beside; ABCorrectnessChecker
      against the fp32 ZeRO-0 shadow for 4 steps (loss_atol 0.05);
- 35. path H (after 8): phase 7 under remat_policy "save_fused_epilogues":
-     its profile beside phase 7's, losses within 1e-2 of phase 7's,
-     exact launches a step (K1-fwd 48, not 96; K3-fwd 97; K4-fwd 96);
- 36. phase 7 at 4 layers under "save_only_these_names:attn_out,attn_lse",
-     exact launches (REMAT_RECOMPUTE: the JAX jaxpr's recompute, which
-     tests/test_torch_remat_policies.py holds on the CPU);
+ 35. path H (after 8): phase 7's cell at 4 layers (48 until PR 23)
+     under remat_policy "save_fused_epilogues", beside the same 4 layers
+     under full-block remat: its profile, losses within 1e-2 of full
+     remat's, exact launches a step (K1-fwd 4, not 8; K3-fwd 9; K4-fwd
+     8);
+ 36. the same under "save_only_these_names:attn_out,attn_lse": losses
+     within 1e-2 of full remat's, exact launches (REMAT_RECOMPUTE: the
+     JAX jaxpr's recompute, which tests/test_torch_remat_policies.py
+     holds on the CPU);
  37. user_checkpoint (after 24): one gpt2-1.5b block applied 4 times
      through deepspeed_tpu_torch.checkpointing.checkpoint, without and
      with cpu_checkpointing: bit-equal gradients, the kept inputs pinned
@@ -245,8 +248,9 @@ Phases, each printing one JSON line:
      tokens/s, projection bytes and peak memory of each engine;
  49. int8_speculative: int8 with speculative decoding, 32 new tokens a
      request: the stream equals the int8 engine's.
- 50. monitor_training (path M, after 8): phase 7's training cell with
-     async_dispatch at steps_per_sync 4, wall_clock_breakdown and the
+ 50. monitor_training (path M, after 8): phase 7's training cell (at
+     12 of its 48 layers since PR 23) with async_dispatch at
+     steps_per_sync 4, wall_clock_breakdown and the
      monitor (JSONL and tensorboard sinks, the Perfetto trace, flight,
      numerics, the memory ledger, stall_timeout_sec 60) beside the same
      engine without them, windows of 4 steps in turns: losses bit for
@@ -272,6 +276,27 @@ Phases, each printing one JSON line:
      wire counters against its steps' bytes, a checkpoint's ckpt_commit
      and its ledger entries released, engine.prefetch's heartbeat
      terminal at exhaustion; every event held to the JAX engine's keys.
+ 54. flops_profile (after 8): phase 7's cell with the flops_profiler
+     block (profile_step 2) for 3 steps: the losses bit for bit phase
+     7's, the profile's kernel rows' calls equal to step 2's launches,
+     its total flops within 1% of the analytic count (the matrix
+     products and attention of the step under full remat), the top rows
+     by estimated time;
+ 55. autotune (after 53): the launch plans of K3-fwd, K3-bwd, K4-fwd and
+     K4-bwd searched at the flagship's rows (N 11,264; H 1,600, W 6,400)
+     and the decode rows (N 4), bf16, into a temporary table: every
+     candidate against the twin, each winner no slower than its
+     default, a fresh process reloading the table (autotune_hit, the
+     winning plan), a forged source hash falling back with one warning,
+     the flash and quantized-matmul families' one tile pair each;
+ 56. elastic: ElasticSupervisor over gpt2-1.5b's width at 4 layers, seq
+     1024, micro batch 2, gas 2, async checkpoints every 2 steps: run(3),
+     two injected stalls, run(8); one in-place recovery from
+     global_step2 with its replayed losses bit for bit, its ZeRO plan the
+     memory ledger's state bytes, the event in the monitor's JSONL;
+ 57. env_report: `python -m deepspeed_tpu_torch.env_report` in a
+     subprocess: every kernel source built, the card's name and power
+     limit, nvcc's version.
 Phase 3 holds the forward kernels at the serving, the training and the
 MoE training shapes, and the backward kernels (K2, K3-bwd, K4-bwd) at
 both training shapes, against their twins, with fp32 cases, SDPA's
@@ -5743,6 +5768,9 @@ def exact_launches(path, counts, steps, policy, n_layer):
 # phase 36: the attention names alone, at the flagship's width
 ATTN_NAMES = "save_only_these_names:attn_out,attn_lse"
 ATTN_NAMES_LAYERS = 4
+# paths H and 36 run at this depth, beside full remat at the same depth
+# (H ran the flagship's 48 layers until PR 23: cut to fit phases 54-57)
+REMAT_CUT_LAYERS = ATTN_NAMES_LAYERS
 
 # path G: bench.py's bench_gpt2_350m (bench.py:254-268) verbatim
 SEL_BATCH, SEL_SEQ = 16, 1024
@@ -6833,6 +6861,9 @@ MON_GATED_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_fused",
                      "fused_bias_gelu_fwd", "fused_bias_gelu_bwd")
 # monitor_faults and monitor_events: the depth their models are cut to
 MON_CUT_LAYERS = 4
+# path M's depth: 12 of the cell's 48 layers (PR 23, to fit phases 54-57
+# in the run's time; M compares its engines with each other)
+MON_TRAIN_LAYERS = 12
 MON_STALL_SEC = 2.0
 # the micro batch (rows of 1024 tokens) no card holds at 4 layers of
 # gpt2-1.5b's width: its activations alone pass 80 GB
@@ -7562,6 +7593,590 @@ def monitor_events(seed, card, device="cuda", n_layer=MON_CUT_LAYERS):
         raise AssertionError(f"monitor_events: {bad}")
 
 
+# ----------------------------------------------------------------------
+# phases 54-57: the tools on the card — the flops profiler, the kernel
+# autotuner, elasticity at world size 1, env_report
+# ----------------------------------------------------------------------
+# the kernel rows of a profile, by the launch counters' names
+PROFILE_ROWS = {"K1-fwd": "flash_attention_fwd",
+                "K2-fused": "flash_attention_bwd_fused",
+                "K3-fwd": "fused_bias_residual_layernorm_fwd",
+                "K3-bwd": "fused_bias_residual_layernorm_bwd",
+                "K4-fwd": "fused_bias_gelu_fwd",
+                "K4-bwd": "fused_bias_gelu_bwd"}
+PROFILE_MATMULS = ("aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm",
+                   "aten.matmul")
+# the profile's total flops against the analytic count: the count covers
+# the matrix products and attention; the rest of the profile is K3's and
+# K4's per-element arithmetic (~0.2% of the step at gpt2-1.5b's widths;
+# torch's formulas give the elementwise aten ops no flops)
+TOL_PROFILE_FLOPS = 0.01
+
+
+def flagship_flops(cfg, batch, seq):
+    """The analytic flops of one flagship step under full-block remat:
+    (matrix products, attention). Matrix products: tokens x (88 L H^2 +
+    8 V H): each block's 12 H^2 of projections run forward (2 flops a
+    MAC), backward (4) and again in the recompute (2), but for the
+    block's last projection, whose output no backward needs (torch's
+    non-reentrant checkpoint stops recomputing once the saved tensors
+    are back: -8 H^2); the tied head's 2 V H forward, recomputed (the
+    chunked loss is checkpointed) and 4 V H backward. Attention: per
+    layer K1-fwd twice (forward, recompute), 4 B nh d pairs each, and
+    K2-fused once, 10 B nh d pairs; pairs = T (T + 1) / 2 (causal)."""
+    n_l, h, v = cfg.n_layer, cfg.n_embd, cfg.vocab_size
+    tokens = batch * seq
+    mm = tokens * (88 * n_l * h * h + 8 * v * h)
+    pairs = seq * (seq + 1) // 2
+    per_pair = batch * cfg.n_head * (h // cfg.n_head) * pairs
+    attn = n_l * (2 * 4 + 10) * per_pair
+    return mm, attn
+
+
+def flops_profile_flagship(seed, card, ref_losses, steps=3):
+    """Phase 54: the training cell (bench_gpt2_15b verbatim, phase 7's
+    weights and batch) with `"flops_profiler": {"enabled": true,
+    "profile_step": 2}` for `steps` steps. Gates: the losses bit for bit
+    phase 7's first ones (the profile counts the real step); one
+    profile, at step 2; its kernel rows' calls equal the launches
+    counted over step 2 (zeroed right before it) and the exact per-step
+    launches; its total flops within TOL_PROFILE_FLOPS of the analytic
+    count (`flagship_flops`). Prints the top rows by est_us. Returns
+    the launch counts of step 2."""
+    import numpy as np
+    import torch
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.profiling.flops_profiler import profiler as fp
+
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    cfg = train_config()
+    ds = flagship_ds_config(batch)
+    ds["flops_profiler"] = {"enabled": True, "profile_step": 2,
+                            "top_modules": 8}
+    t0 = time.perf_counter()
+    model = GPT2ForCausalLM(cfg)
+    engine, _, _, _ = dst.initialize(model=model,
+                                     model_parameters=model.init(seed),
+                                     config=ds)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, batch, seq)).astype(np.int32)
+    staged = engine.stage_batch({"input_ids": ids})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, step_ms, counts = [], [], None
+    for i in range(steps):
+        if i == 1:
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(batch=staged))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 1:
+            counts = read_counts()
+    loss_vals = [float(x) for x in torch.stack(losses).float().cpu()]
+    prof = engine.last_flops_profile
+    checks = [{"check": "losses bit for bit phase 7's",
+               "ok": loss_vals == ref_losses[:steps], "losses": loss_vals,
+               "training": ref_losses[:steps]},
+              {"check": "one profile, at step 2", "ok": prof is not None}]
+    if prof is None:
+        raise AssertionError("flops_profile: no profile at step 2")
+    rows = {r["name"]: r for r in prof.rows}
+    calls = {k: rows[k]["calls"] if k in rows else 0 for k in PROFILE_ROWS}
+    want = gpt2_step_launches(None, cfg.n_layer)
+    checks.append({"check": "kernel rows' calls = the step's launches",
+                   "ok": all(calls[k] == counts[c] == want[c]
+                             for k, c in PROFILE_ROWS.items()),
+                   "calls": calls,
+                   "launches": {k: counts[c] for k, c in PROFILE_ROWS.items()},
+                   "expected": {k: want[c] for k, c in PROFILE_ROWS.items()}})
+    mm, attn = flagship_flops(cfg, batch, seq)
+    got_mm = sum(r["flops"] for r in prof.rows
+                 if r["name"] in PROFILE_MATMULS)
+    got_attn = sum(rows[k]["flops"] for k in ("K1-fwd", "K2-fused")
+                   if k in rows)
+    total = prof.total_flops
+    rel = abs(total - (mm + attn)) / (mm + attn)
+    checks.append({"check": "total flops against the analytic count",
+                   "ok": rel <= TOL_PROFILE_FLOPS, "total": total,
+                   "analytic": mm + attn, "rel_gap": rel,
+                   "tol": TOL_PROFILE_FLOPS,
+                   "matmul": got_mm, "analytic_matmul": mm,
+                   "matmul_exact": got_mm == mm,
+                   "attention": got_attn, "analytic_attention": attn})
+    top = fp._compact(prof.rows, 8)
+    emit({"phase": "flops_profile", "model": "gpt2-1.5b",
+          "n_layer": cfg.n_layer, "micro_batch": batch, "seq": seq,
+          "profile_step": 2, "setup_s": setup_s, "step_ms": step_ms,
+          "total_flops": total, "total_bytes": prof.total_bytes,
+          "total_transcendentals": prof.total_transcendentals,
+          "total_params": prof.total_params, "rows": len(prof.rows),
+          "kernel_rows": {k: {f: rows[k][f] for f in (
+              "calls", "flops", "bytes", "est_us", "time_pct")}
+              for k in PROFILE_ROWS if k in rows},
+          "top_by_est_us": top,
+          "formula": "tokens (88 L H^2 + 8 V H) + L (2 x 4 + 10) B nh d "
+                     "T (T + 1) / 2",
+          "checks": checks, "card": card})
+    for r in top:
+        print(f"  flops_profile top: {r['op']:<28} {r['kind']:<6} calls "
+              f"{r['calls']:>5} est {r['est_us']:.1f} us "
+              f"({r['time_pct']}%)", flush=True)
+    bad = [c["check"] for c in checks if not c["ok"]]
+    del engine, model, staged
+    if bad:
+        raise AssertionError(f"flops_profile: {bad}")
+    return counts
+
+
+# the autotune phase's shapes: the flagship's rows (N 11,264 of H 1,600
+# and W 6,400) and the serving decode step's (N 4), in bf16
+TUNE_ROWS = ((TRAIN_BATCH * TRAIN_SEQ, 1600), (4, 1600))
+
+
+class _EventLog:
+    """A stand-in monitor: records the autotuner's events."""
+
+    def __init__(self):
+        self.events = []
+
+    def event(self, kind, **fields):
+        self.events.append(dict(fields, kind=kind))
+
+
+def _row_inputs(family, direction, n, h, gen):
+    """(launch(plan) -> outputs, twin outputs, tolerances) of one row
+    kernel at [n, h] (K4: W = h) on the flagship path's dtypes: bf16
+    rows, bf16 vectors (master-less bf16 parameters), the tanh GeLU."""
+    import torch
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    bf16 = torch.bfloat16
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen,
+                                            device="cuda")).to(bf16)
+    if family == "fused_ln" and direction == "fwd":
+        y, res = rn(n, h), rn(n, h)
+        bias, gamma, beta = rn(h, scale=0.1), rn(h, scale=0.1, shift=1.0), \
+            rn(h, scale=0.1)
+        ref = fo._ln_fwd_math(y, bias, res, gamma, beta, 1e-5)
+        return (lambda plan: fo._ln_fwd_launch(
+            y, bias, res, gamma, beta, 1e-5, bf16, bf16, True, tuned=plan),
+            tuple(r.to(bf16) for r in ref), "rounding")
+    if family == "fused_ln":
+        s, dout, dsum = rn(n, h, scale=2.0), rn(n, h), rn(n, h)
+        gamma = rn(h, scale=0.1, shift=1.0)
+        ds, dg, db = fo._ln_bwd_math(s, gamma, dout, dsum, 1e-5)
+        return (lambda plan: fo._ln_bwd_launch(s, gamma, dout, dsum, 1e-5,
+                                               bf16, tuned=plan),
+                (ds.to(bf16), ds.sum(0), dg.sum(0), db.sum(0)), "grad")
+    x, bias = rn(n, h), rn(h, scale=0.1)
+    if direction == "fwd":
+        ref = fo._gelu_fwd_math(x, bias, True)
+        return (lambda plan: fo._gelu_fwd_launch(x, bias, True, bf16, bf16,
+                                                 tuned=plan),
+                tuple(r.to(bf16) for r in ref), "rounding")
+    dout = rn(n, h)
+    d = fo._gelu_bwd_math(x, dout, True)
+    return (lambda plan: fo._gelu_bwd_launch(x, dout, True, bf16,
+                                             tuned=plan),
+            (d.to(bf16), d.sum(0)), "grad")
+
+
+def autotune_phase(seed, card):
+    """Phase 55: `search` over the launch plans of K3-fwd, K3-bwd, K4-fwd
+    and K4-bwd at the flagship's shapes and the decode shape, in bf16,
+    into a temporary table (no table at the default path before or
+    after: every bit-for-bit gate of this script runs on the default
+    plans). Gates: every candidate's output held against the twin (bf16
+    within one rounding; gradients by relative L2 1e-2) and repeated
+    bit for bit; each winner's time <= its default's; a fresh process
+    reloads the table, its wrapper call emits `autotune_hit` and
+    launches the winning plan; an entry with a forged source hash falls
+    back to the default plan with one warning. The flash_fwd and
+    quantized_matmul families search their one instantiated tile pair
+    and report it."""
+    import logging
+    import shutil
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.ops import autotune
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+    from deepspeed_tpu_torch.utils.logging import logger
+
+    default_path = os.path.join(_build.BUILD_DIR, autotune.TABLE_BASENAME)
+    tmp = tempfile.mkdtemp(prefix="ds_autotune_")
+    table = os.path.join(tmp, "autotune_table.json")
+    checks = [{"check": "no table at the default path before",
+               "ok": not os.path.exists(default_path)}]
+    log = _EventLog()
+    autotune.reset()
+    autotune.configure(enabled=True, table_path=table, monitor=log)
+    sms = fo._sm_count(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 55)
+    families, winners = [], {}
+    t0 = time.perf_counter()
+    try:
+        for n, h in TUNE_ROWS:
+            for family, width in (("fused_ln", h), ("fused_gelu", 4 * h)):
+                for direction in ("fwd", "bwd"):
+                    launch, ref, kind = _row_inputs(family, direction, n,
+                                                    width, gen)
+                    default, cands = autotune.row_search_space(
+                        family, direction, n, width, sms)
+                    worst = 0.0
+                    for plan in [default] + [c for c in cands
+                                             if c != default]:
+                        got = launch(plan)
+                        again = launch(plan)
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(a, b)
+                                   for a, b in zip(got, again)):
+                            raise AssertionError(
+                                f"autotune {family} {direction} {plan}: "
+                                "two launches differ")
+                        for a, b in zip(got, ref):
+                            if kind == "rounding":
+                                abs_err, ratio = max_err(a, b, atol=1e-2,
+                                                         rtol=1e-2)
+                                ok = ratio <= 1.0
+                            else:
+                                abs_err = rel_l2(a, b)
+                                ok = abs_err <= 1e-2
+                            worst = max(worst, abs_err)
+                            if not ok:
+                                raise AssertionError(
+                                    f"autotune {family} {direction} n {n} "
+                                    f"w {width} plan {plan}: error "
+                                    f"{abs_err} against the twin")
+                        del got, again
+                    res = autotune.search_row_plan(
+                        family, direction, n, width, torch.bfloat16,
+                        lambda plan: (lambda: launch(plan)), sms,
+                        warmup=2, reps=5, inner=10)
+                    key = f"{family}_{direction}_n{n}_w{width}"
+                    winners[key] = (family, direction, n, width,
+                                    res["params"])
+                    families.append({
+                        "family": family, "direction": direction, "n": n,
+                        "width": width, "candidates": res["candidates_tried"],
+                        "default": default, "winner": res["params"],
+                        "default_us": res["default_us"],
+                        "winner_us": res["best_us"],
+                        "speedup": res["speedup_vs_default"],
+                        "max_err_vs_twin": worst,
+                        "err_kind": "max abs (bf16 outputs)"
+                        if kind == "rounding" else "relative L2"})
+                    checks.append({"check": f"{key}: winner <= default",
+                                   "ok": res["best_us"] <= res["default_us"]})
+                    release()
+        # the tile families: one instantiated pair each
+        b, t, nh, d = TRAIN_BATCH, TRAIN_SEQ, 25, 64
+        q, k, v = (torch.randn((b, t, nh, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        tiles = autotune.flash_tile_candidates(torch.bfloat16, d)
+        flash = autotune.search(
+            "flash_fwd", autotune.flash_shape_class(t, d, True, False),
+            torch.bfloat16, tiles, tiles[0],
+            build=lambda p: (lambda: fa._flash_forward(q, k, v, 0.125,
+                                                       True)),
+            warmup=2, reps=3, inner=5)
+        qm = _qmm()
+        m, kk, nn = TRAIN_BATCH * TRAIN_SEQ, 1600, 4800
+        x = torch.randn((1, m, kk), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (0.02 * torch.randn((1, kk, nn), generator=gen, device="cuda")) \
+            .to(torch.bfloat16)
+        wq, sw = qm.quantize_kernel_int8(w, QUANT_BLOCK)
+        xq, sx = qm.quantize_rows_int8(x)
+        xq = torch.nn.functional.pad(xq, (0, wq.shape[-2] - kk)).contiguous()
+        qtiles = autotune.qmm_tile_candidates()
+        qmm = autotune.search(
+            "quantized_matmul", autotune.qmm_shape_class(m, kk, nn),
+            torch.bfloat16, qtiles, qtiles[0],
+            build=lambda p: (lambda: qm._qmm_launch(
+                xq, wq, sx, sw, QUANT_BLOCK, torch.bfloat16)),
+            warmup=2, reps=3, inner=5)
+        for name, res, cand in (("flash_fwd", flash, tiles),
+                                ("quantized_matmul", qmm, qtiles)):
+            families.append({"family": name, "searched": cand,
+                             "candidates": res["candidates_tried"],
+                             "winner": res["params"],
+                             "default_us": res["default_us"],
+                             "winner_us": res["best_us"],
+                             "speedup": res["speedup_vs_default"]})
+            checks.append({"check": f"{name}: the one instantiated tile "
+                           "pair, speedup 1.0",
+                           "ok": res["candidates_tried"] == 1 and
+                           res["speedup_vs_default"] == 1.0})
+        del q, k, v, x, w, wq, sw, xq, sx
+        search_s = time.perf_counter() - t0
+        searches = [e for e in log.events if e["kind"] == "autotune_search"]
+        checks.append({"check": "one autotune_search event a search",
+                       "ok": len(searches) == len(families)})
+
+        # a fresh process reloads the table: its K3-fwd wrapper call at
+        # the flagship's rows emits autotune_hit and launches the winner
+        n, h = TUNE_ROWS[0]
+        win = winners[f"fused_ln_fwd_n{n}_w{h}"][4]
+        script = (
+            "import json, torch\n"
+            "from deepspeed_tpu_torch.ops import autotune\n"
+            "from deepspeed_tpu_torch.ops.transformer import fused_ops as fo\n"
+            "events, plans = [], []\n"
+            "class Log:\n"
+            "    def event(self, kind, **f):\n"
+            "        events.append(dict(f, kind=kind))\n"
+            "plan = fo.ln_fwd_plan\n"
+            "def spy(*a):\n"
+            "    plans.append(a[4] if len(a) > 4 else None)\n"
+            "    return plan(*a)\n"
+            "fo.ln_fwd_plan = spy\n"
+            f"autotune.configure(table_path={table!r}, monitor=Log())\n"
+            "bf = torch.bfloat16\n"
+            f"y = torch.randn(({n}, {h}), device='cuda').to(bf)\n"
+            f"v = torch.ones(({h},), device='cuda', dtype=bf)\n"
+            "out, s = fo.fused_bias_residual_layernorm(y, v, y, v, v)\n"
+            "torch.cuda.synchronize()\n"
+            "print(json.dumps({'events': events, 'plans': plans,\n"
+            "                  'finite': bool(torch.isfinite(out).all())}))\n")
+        t1 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", script],
+                             capture_output=True, text=True, cwd=ROOT,
+                             timeout=300)
+        reload_s = time.perf_counter() - t1
+        if run.returncode != 0:
+            raise AssertionError(f"autotune reload process failed:\n"
+                                 f"{run.stderr[-3000:]}")
+        got = json.loads(run.stdout.strip().splitlines()[-1])
+        hits = [e for e in got["events"] if e["kind"] == "autotune_hit"]
+        tuned = [list(map(list, p)) if p else None for p in got["plans"]]
+        checks.append({"check": "a fresh process: autotune_hit and the "
+                       "winning plan", "ok": len(hits) == 1 and
+                       hits[0]["params"] == win and
+                       tuned == [[list(kv) for kv in sorted(win.items())]]
+                       and got["finite"], "hits": hits, "plans": tuned,
+                       "winner": win, "reload_s": reload_s})
+
+        # a forged source hash: the default plan and one warning
+        with open(table) as f:
+            doc = json.load(f)
+        for entry in doc["entries"].values():
+            entry["source_hash"] = "forged"
+        with open(table, "w") as f:
+            json.dump(doc, f)
+        warned = []
+
+        class Warned(logging.Handler):
+            def emit(self, record):
+                warned.append(record.getMessage())
+        handler = Warned(level=logging.WARNING)
+        logger.addHandler(handler)
+        autotune.reset()
+        autotune.configure(table_path=table)
+        try:
+            plans = [autotune.row_plan("fused_ln", n, h, "fwd",
+                                       torch.bfloat16) for _ in range(3)]
+            y = torch.randn((n, h), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            vec = torch.ones((h,), device="cuda", dtype=torch.bfloat16)
+            out = fo.fused_bias_residual_layernorm(y, vec, y, vec, vec)[0]
+            default_out = fo._ln_fwd_launch(
+                y, vec, y, vec, vec, 1e-5, torch.bfloat16, torch.bfloat16,
+                True, tuned=autotune.row_search_space(
+                    "fused_ln", "fwd", n, h, sms)[0])[0]
+            same = bool(torch.equal(out, default_out))
+        finally:
+            logger.removeHandler(handler)
+        stale = [m for m in warned if "different kernel source" in m]
+        checks.append({"check": "a forged source hash: the default plan "
+                       "and one warning", "ok": plans == [None] * 3 and
+                       len(stale) == 1 and same, "warnings": stale})
+    finally:
+        autotune.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    checks.append({"check": "no table at the default path after",
+                   "ok": not os.path.exists(default_path)})
+    emit({"phase": "autotune", "dtype": "bf16", "sms": sms,
+          "families": families, "search_s": search_s, "checks": checks,
+          "card": card})
+    for f in families:
+        print(f"  autotune {f['family']} {f.get('direction', '')} "
+              f"n {f.get('n', '-')} w {f.get('width', '-')}: default "
+              f"{f['default_us']} us, winner {f['winner_us']} us "
+              f"{f['winner']}", flush=True)
+    bad = [c["check"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"autotune: {bad}")
+
+
+# phase 56: the supervisor on gpt2-1.5b's width at ELASTIC_LAYERS layers
+ELASTIC_LAYERS = 4
+ELASTIC_BLOCK = {"enabled": True, "max_train_batch_size": 4,
+                 "micro_batch_sizes": [2], "version": 0.1,
+                 "runtime": {"enabled": True, "hosts": 1,
+                             "checkpoint_interval": 2,
+                             "drain_timeout_sec": 10, "escalate_after": 2}}
+# the recovery event's keys (deepspeed_tpu/elasticity/runtime.py)
+ELASTIC_EVENT_KEYS = {"cause", "lost_hosts", "world_before", "world_after",
+                      "micro_batch", "gradient_accumulation_steps",
+                      "resumed_from_tag", "resumed_step", "replayed_steps",
+                      "detect_to_resume_sec", "zero_plan_bytes"}
+
+
+def elastic_phase(seed, card, device="cuda", n_layer=ELASTIC_LAYERS):
+    """Phase 56: `ElasticSupervisor` drives gpt2-1.5b's width at
+    `n_layer` layers, seq 1024, bf16 master-less, ZeRO-2, AdamW, the
+    elasticity block ELASTIC_BLOCK (micro batch 2, gas 2 at world size
+    1), async checkpoints into a temporary dir, the monitor on: run(3),
+    two injected stalls, run(8). Gates: exactly one recovery, cause
+    stall_escalated, world_after 1, resumed from global_step2, at least
+    one replayed step and every replayed loss bit for bit; the event's
+    zero_plan bytes equal to the memory ledger's state bytes (the
+    optimizer's 0-d step count aside); the recovery event in the
+    monitor's JSONL with the JAX keys. Prints detect-to-resume ms.
+    Returns the launch counts of the whole run."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from deepspeed_tpu_torch.elasticity import runtime as ert
+    from deepspeed_tpu_torch.models.gpt2 import GPT2ForCausalLM
+    from deepspeed_tpu_torch.monitor import memory as mem
+
+    tmp = tempfile.mkdtemp(prefix="ds_elastic_")
+    out = os.path.join(tmp, "monitor")
+    cfg = train_config(n_layer=n_layer)
+    seq = TRAIN_SEQ
+    ds = {"steps_per_print": 1000,
+          "bf16": {"enabled": True, "master_weights": False},
+          "zero_optimization": {"stage": 2},
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 1e-4, "weight_decay": 0.01}},
+          "checkpoint": {"async_save": True},
+          "monitor": monitor_block(out),
+          "elasticity": json.loads(json.dumps(ELASTIC_BLOCK))}
+
+    def factory():
+        model = GPT2ForCausalLM(cfg, device=device)
+        return model, model.init(seed)
+
+    def batch_fn(step, spec):
+        ids = np.random.default_rng(seed * 1000 + step).integers(
+            0, cfg.vocab_size, (spec.gas, spec.rows, seq)).astype(np.int32)
+        return {"input_ids": ids}
+
+    checks = []
+    t0 = time.perf_counter()
+    sup = ert.ElasticSupervisor(ds, factory, batch_fn,
+                                save_dir=os.path.join(tmp, "ckpt"),
+                                device=device)
+    try:
+        reset_counts()
+        sup.run(3)
+        sup.injector.inject_stall()
+        sup.injector.inject_stall()
+        rep = sup.run(8)
+        sync(device)
+        counts = read_counts()
+        engine = sup.engine
+        led = engine.monitor.ledger.totals()["hbm"]
+        st = engine.state
+        scalars = sum(t.numel() * t.element_size()
+                      for t in engine._state_tensors(st.opt_state)
+                      if t.dim() == 0)
+        measured = {"params": led.get(mem.CAT_PARAMS, 0),
+                    "master": led.get(mem.CAT_MASTER, 0),
+                    "opt_state": led.get(mem.CAT_OPT, 0) - scalars,
+                    "grads": led.get(mem.CAT_GRADS, 0)}
+        replayed = {s: list(p) for s, p in sup.replayed_losses.items()}
+    finally:
+        sup.close()
+    run_s = time.perf_counter() - t0
+    recs = rep["recoveries"]
+    rec = recs[0] if recs else {}
+    checks.append({"check": "exactly one recovery, an escalated stall",
+                   "ok": len(recs) == 1 and
+                   rec.get("cause") == ert.STALL_ESCALATED})
+    checks.append({"check": "world_after 1, resumed from global_step2",
+                   "ok": rec.get("world_after") == 1 and
+                   rec.get("resumed_from_tag") == "global_step2"})
+    checks.append({"check": "replayed steps bit for bit",
+                   "ok": rec.get("replayed_steps", 0) >= 1 and
+                   len(replayed) == rec.get("replayed_steps") and
+                   all(a == b for a, b in replayed.values()),
+                   "replayed": replayed})
+    checks.append({"check": "zero_plan bytes = the ledger's state bytes",
+                   "ok": rec.get("zero_plan_bytes") == measured,
+                   "plan": rec.get("zero_plan_bytes"), "ledger": measured})
+    events = read_events(out)
+    mon = [e for e in events if e["kind"] == "recovery"]
+    checks.append({"check": "the recovery event in the monitor, the JAX "
+                   "keys", "ok": len(mon) == 1 and
+                   ELASTIC_EVENT_KEYS | MON_BASE_KEYS <= set(mon[0]),
+                   "keys": sorted(mon[0]) if mon else None})
+    losses = [rep["losses"][s] for s in sorted(rep["losses"])]
+    checks.append({"check": "losses finite", "ok": bool(
+        np.all(np.isfinite(losses))) and rep["steps"] == 8})
+    emit({"phase": "elastic", "model": "gpt2-1.5b", "n_layer": cfg.n_layer,
+          "seq": seq, "elasticity": ELASTIC_BLOCK,
+          "world_size": rep["world_size"], "micro_batch": rep["micro_batch"],
+          "gradient_accumulation_steps":
+              rep["gradient_accumulation_steps"],
+          "recovery": rec,
+          "detect_to_resume_ms": rec.get("detect_to_resume_sec", 0) * 1e3,
+          "losses": losses, "run_s": run_s, "checks": checks, "card": card})
+    shutil.rmtree(tmp, ignore_errors=True)
+    bad = [c["check"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"elastic: {bad}")
+    return counts
+
+
+def env_report_phase(card):
+    """Phase 57: `python -m deepspeed_tpu_torch.env_report` in a
+    subprocess: exit 0; every `.cu` under ops/csrc/ reported built and
+    compatible; the card's name and power limit as nvidia-smi gives
+    them; nvcc's version."""
+    from deepspeed_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m",
+                          "deepspeed_tpu_torch.env_report"],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=300)
+    report_s = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    name, _, limit = card.partition(",")
+    sources = sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
+    rows = {src: [ln for ln in lines if f"ops/csrc/{src}" in ln]
+            for src in sources}
+    nvcc = [ln for ln in lines if ln.startswith("nvcc .")]
+    checks = [
+        {"check": "exit 0", "ok": run.returncode == 0},
+        {"check": "every .cu built and compatible",
+         "ok": all(len(r) == 1 and r[0].count("[OKAY]") == 2
+                   for r in rows.values()), "sources": sources},
+        {"check": "the card's name and power limit",
+         "ok": any(name.strip() in ln for ln in lines) and
+         any(limit.strip() in ln for ln in lines)},
+        {"check": "nvcc's version", "ok": len(nvcc) == 1 and
+         "release" in nvcc[0], "nvcc": nvcc},
+    ]
+    emit({"phase": "env_report", "report_s": report_s,
+          "lines": [ln for ln in lines if "ops/csrc/" in ln or
+                    ln.startswith(("nvcc", "target", "device", "power",
+                                   "torch"))],
+          "stderr": run.stderr[-2000:], "checks": checks, "card": card})
+    bad = [c["check"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"env_report: {bad}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -7680,40 +8295,54 @@ def main(argv=None):
     training_oracle(args.seed)
     release()
 
+    # 54: the training cell again with the flops_profiler block, held to
+    # 7's losses (counts zeroed inside, right before its profiled step)
+    profiled = path_counts("flops_profile",
+                           flops_profile_flagship(args.seed, card, losses),
+                           TRAINING_KERNELS, FUSED_ABSENT)
+    release()
+
     # 50, path M: the training cell with the monitor beside it without
-    # (counts zeroed inside, before each of its windows)
+    # (counts zeroed inside, before each of its windows), at
+    # MON_TRAIN_LAYERS of its 48 layers
     monitored = path_counts("monitor_training",
-                            monitor_training(args.seed, card),
+                            monitor_training(args.seed, card,
+                                             n_layer=MON_TRAIN_LAYERS),
                             TRAINING_KERNELS, FUSED_ABSENT)
     release()
 
-    # 35, path H: the flagship under save_fused_epilogues (counts zeroed
-    # inside, right before its steps), held to 7's losses at the same
-    # steps and to its exact launches; 36: save_only_these_names:
-    # attn_out,attn_lse at the flagship's width and 4 layers
-    per_fusion, pf_losses = train_and_check(
-        args.seed, card, remat_policy="save_fused_epilogues",
-        phase="training_per_fusion")
-    path_counts("training_per_fusion", per_fusion, TRAINING_KERNELS,
+    # 35, path H, and 36: the flagship's width at REMAT_CUT_LAYERS
+    # layers (H at 48 until PR 23) under save_fused_epilogues and under
+    # save_only_these_names:attn_out,attn_lse, each held to full-block
+    # remat at the same depth, weights and batch, and to its exact
+    # launches (counts zeroed inside each, right before its steps)
+    cut = dict(warmup=1, steps=3, n_layer=REMAT_CUT_LAYERS)
+    remat_ref, ref_losses = train_and_check(
+        args.seed, card, phase="training_remat_reference", **cut)
+    path_counts("training_remat_reference", remat_ref, TRAINING_KERNELS,
                 FUSED_ABSENT)
-    exact_launches("training_per_fusion", per_fusion, len(pf_losses),
-                   "save_fused_epilogues", train_config().n_layer)
-    gaps = [abs(a - b) for a, b in zip(pf_losses, losses)]
-    emit({"phase": "per_fusion_vs_training_losses",
-          "per_fusion": pf_losses, "training": losses, "abs_gap": gaps,
-          "tol": TOL_TRAIN_LOSS, "ok": max(gaps) <= TOL_TRAIN_LOSS})
-    if not max(gaps) <= TOL_TRAIN_LOSS:
-        raise AssertionError(f"training_per_fusion losses {pf_losses} "
-                             f"stray more than {TOL_TRAIN_LOSS} from "
-                             f"{losses}")
-    release()
-    attn_names, an_losses = train_and_check(
-        args.seed, card, warmup=1, steps=3, remat_policy=ATTN_NAMES,
-        n_layer=ATTN_NAMES_LAYERS, phase="training_attn_names")
-    path_counts("training_attn_names", attn_names, TRAINING_KERNELS,
-                FUSED_ABSENT)
-    exact_launches("training_attn_names", attn_names, len(an_losses),
-                   ATTN_NAMES, ATTN_NAMES_LAYERS)
+    exact_launches("training_remat_reference", remat_ref, len(ref_losses),
+                   None, REMAT_CUT_LAYERS)
+    by_policy = {}
+    for policy, path in (("save_fused_epilogues", "training_per_fusion"),
+                         (ATTN_NAMES, "training_attn_names")):
+        counts, pol_losses = train_and_check(
+            args.seed, card, remat_policy=policy, phase=path, **cut)
+        by_policy[path] = path_counts(path, counts, TRAINING_KERNELS,
+                                      FUSED_ABSENT)
+        exact_launches(path, counts, len(pol_losses), policy,
+                       REMAT_CUT_LAYERS)
+        gaps = [abs(a - b) for a, b in zip(pol_losses, ref_losses)]
+        emit({"phase": f"{path}_vs_full_remat_losses", "policy": policy,
+              "losses": pol_losses, "full_remat": ref_losses,
+              "abs_gap": gaps, "tol": TOL_TRAIN_LOSS,
+              "n_layer": REMAT_CUT_LAYERS, "ok": max(gaps) <= TOL_TRAIN_LOSS})
+        if not max(gaps) <= TOL_TRAIN_LOSS:
+            raise AssertionError(f"{path} losses {pol_losses} stray more "
+                                 f"than {TOL_TRAIN_LOSS} from full remat's "
+                                 f"{ref_losses}")
+    per_fusion = by_policy["training_per_fusion"]
+    attn_names = by_policy["training_attn_names"]
     release()
 
     # 9: the quantized training path, the same weights, batch and seed
@@ -7922,6 +8551,16 @@ def main(argv=None):
     monitor_events(args.seed, card)
     release()
 
+    # 55: the autotuner over K3's and K4's launch plans (a temporary
+    # table, removed after); 56: the elastic supervisor at world size 1
+    # (counts zeroed inside, right before its first run); 57: env_report
+    autotune_phase(args.seed, card)
+    release()
+    elastic = path_counts("elastic", elastic_phase(args.seed, card),
+                          TRAINING_KERNELS, FUSED_ABSENT)
+    release()
+    env_report_phase(card)
+
     rows = []
     counts_by_path = {"serving": serving, "speculative": speculative,
                       "int8_serving": int8, "training": training,
@@ -7937,6 +8576,7 @@ def main(argv=None):
                       "engine_surface_fp16": surface16,
                       "moe_fp16": moe16, "moe_quant_fp16": moe_quant16,
                       "sequence_parallel_fp16": ring16, "sp_fp16": sp16,
+                      "training_remat_reference": remat_ref,
                       "training_per_fusion": per_fusion,
                       "training_attn_names": attn_names,
                       "gpt2_350m_selective": selective,
@@ -7947,7 +8587,8 @@ def main(argv=None):
                       "zero_offload_wire": off_wire,
                       "offload_flagship": off_flag,
                       "offload_fp16": off16,
-                      "monitor_training": monitored}
+                      "monitor_training": monitored,
+                      "flops_profile": profiled, "elastic": elastic}
     for kname, src_file, replaces, _ in KERNELS:
         # the row's numbers at the kernel's first timed shape (the
         # serving shape where the kernel serves, as in earlier runs);

@@ -27,7 +27,11 @@ user-facing activation checkpointing (`checkpointing`, the module
 alias of `runtime/activation_checkpointing/checkpointing.py`, as in the
 JAX package), the `async_dispatch` block with `runtime/prefetch.py`,
 `runtime/utils.py`, the A/B checker (`runtime/correctness.py`) and
-`add_config_arguments`.
+`add_config_arguments`; the monitor (`monitor/`); the tools that run on
+the card: the flops profiler (`profiling/`), the launch-plan autotuner
+(`ops/autotune.py`), elasticity with its supervisor at world size 1
+(`elasticity/`), ZeRO's memory plan (`runtime/zero/partition.py`) and
+`env_report.py`.
 """
 
 import argparse

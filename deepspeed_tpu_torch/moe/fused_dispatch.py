@@ -40,6 +40,9 @@ import ctypes
 
 import torch
 
+from deepspeed_tpu_torch.profiling.flops_profiler.profiler import \
+    kernel_call
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
@@ -170,9 +173,34 @@ def gather_rows(x, src, slot_w=None):
     src [S] int32, slot_w [S] fp32. CUDA tensors launch K8's gather;
     CPU tensors take the plain twin. No gradient: the autograd Functions
     below call it."""
-    if x.is_cuda:
-        return _gather_rows_launch(x.contiguous(), src.contiguous(), slot_w)
-    return _gather_rows_plain(x, src, slot_w)
+    def run():
+        if x.is_cuda:
+            return _gather_rows_launch(x.contiguous(), src.contiguous(),
+                                       slot_w)
+        return _gather_rows_plain(x, src, slot_w)
+    return kernel_call("K8-dispatch", "moe_dispatch", "gather_rows",
+                       lambda: gather_cost(x, src, slot_w), run)
+
+
+def gather_cost(x, src, slot_w):
+    """K8-dispatch's (flops, bytes, transcendentals) by shapes: every
+    slot row written and (at most) read, the slot map and weights read;
+    a multiply an element when weighted. (chip_smoke.py's bound counts
+    the occupied slots of its data; a profile reads no data.)"""
+    s, h = src.numel(), x.shape[-1]
+    weighted = slot_w is not None
+    return (s * h if weighted else 0,
+            2 * s * h * x.element_size() + s * 4 * (2 if weighted else 1),
+            0)
+
+
+def combine_cost(ye, dest):
+    """K8-combine's: a multiply-add an element of each kept assignment;
+    the assignments' rows read, every token row written, dest and cw
+    read."""
+    n, k = dest.shape
+    h = ye.shape[-1]
+    return 2 * n * k * h, (n * k + n) * h * ye.element_size() + n * k * 8, 0
 
 
 gather_rows.launches = 0
@@ -183,10 +211,13 @@ def combine_rows(ye, dest, cw):
     accumulation, in ye's dtype. ye [S, H] fp32/bf16/fp16, dest [N, k] int32,
     cw [N, k] fp32. CUDA tensors launch K8's combine; CPU tensors take
     the plain twin. No gradient (see gather_rows)."""
-    if ye.is_cuda:
-        return _combine_rows_launch(ye.contiguous(), dest.contiguous(),
-                                    cw.contiguous())
-    return _combine_rows_plain(ye, dest, cw)
+    def run():
+        if ye.is_cuda:
+            return _combine_rows_launch(ye.contiguous(), dest.contiguous(),
+                                        cw.contiguous())
+        return _combine_rows_plain(ye, dest, cw)
+    return kernel_call("K8-combine", "moe_dispatch", "combine_rows",
+                       lambda: combine_cost(ye, dest), run)
 
 
 combine_rows.launches = 0

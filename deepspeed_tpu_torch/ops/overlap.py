@@ -26,11 +26,10 @@ Schedule resolution (`schedule(site, ...)`, a host dict read):
   1. ``overlap.enabled`` off -> overlap off everywhere;
   2. an explicit ``overlap.sites`` list -> overlap on exactly those
      sites, at the configured ``issue_distance``;
-  3. ``sites="auto"`` (the default) -> the JAX package reads its
-     autotune collective-schedule table here. The port has no autotune
-     yet (ops/autotune.py is ROADMAP Queue 1 item 9), so "auto" reads no
-     table and resolves as the JAX package does when the table has no
-     entry: overlap on, at the configured issue distance, granularity 1.
+  3. ``sites="auto"`` (the default) -> the measured collective-schedule
+     entry of ops/autotune.py's table for (site, mesh, payload class),
+     where there is one; without one, overlap on, at the configured
+     issue distance, granularity 1.
 
 In-flight bytes: each site records its staging window
 (`record_inflight`); `inflight_bytes` is the sum over sites of each
@@ -97,8 +96,8 @@ def _normalize_sites(sites):
 
 
 def configure(enabled=None, sites=None, issue_distance=None):
-    """Toggle the discipline, pin the overlapped site set ('auto' = every
-    site, until the autotune table exists), set the issue distance."""
+    """Toggle the discipline, pin the overlapped site set ('auto' = the
+    autotune table's schedules), set the issue distance."""
     if sites is not None:
         sites = _normalize_sites(sites)
     if issue_distance is not None:
@@ -131,9 +130,10 @@ def enabled():
 
 def schedule(site, payload_bytes=0, mesh=None):
     """The overlap schedule of one site: {"overlap": bool,
-    "issue_distance": int, "granularity": int}. `payload_bytes` and
-    `mesh` key the JAX package's autotune table, which the port does not
-    have yet (module docstring)."""
+    "issue_distance": int, "granularity": int}: a host dict read, no
+    device sync. An explicit `overlap.sites` list wins; only "auto"
+    reads the autotune table's collective-schedule entry, keyed by
+    `site`, `mesh` and `payload_bytes`."""
     if site not in SITES:
         raise ValueError(
             f"unknown overlap site {site!r} (valid: {', '.join(SITES)})")
@@ -145,6 +145,16 @@ def schedule(site, payload_bytes=0, mesh=None):
     sites = _state["sites"]
     if sites != "auto":
         base["overlap"] = site in sites
+        return base
+    from deepspeed_tpu_torch.ops import autotune
+    params = autotune.collective_schedule(site, mesh, payload_bytes)
+    if params:
+        for k in ("overlap", "issue_distance", "granularity"):
+            if k in params:
+                base[k] = params[k]
+        base["overlap"] = bool(base["overlap"])
+        base["issue_distance"] = max(int(base["issue_distance"]), 1)
+        base["granularity"] = max(int(base["granularity"]), 1)
     return base
 
 

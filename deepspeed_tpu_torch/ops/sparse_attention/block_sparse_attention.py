@@ -76,6 +76,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.profiling.flops_profiler.profiler import \
+    kernel_call
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     _DTYPE_CODE, _SM90_TILES, LOG2E, NEG_INF, _check_kernel_operand,
     _kernel_readable, _on_sm90, _strides, dense_attention)
@@ -386,6 +388,7 @@ class _Plan:
 
     def __init__(self, layout, causal, block, tile, device):
         nb = layout.shape[1]
+        self.visible = visible_scores(layout, block, causal)
         self.q_tile, self.tile = _tile_pair(tile)
         tile = self.tile
         self.block, self.causal = block, causal
@@ -440,6 +443,30 @@ class _Plan:
             if self.band is not None:
                 self.dev["gtiles"] = on(self.gtiles)
                 self.dev["gbits"] = on(self.gbits)
+
+
+def visible_scores(layout, block, causal):
+    """Visible (query, key) pairs of a [H, nb, nb] layout summed over
+    heads: the work a block-sparse kernel must do (causal: only keys at
+    or before the query)."""
+    lay = np.asarray(layout) != 0
+    if not causal:
+        return int(lay.sum()) * block * block
+    diag = int(np.einsum("hii->", lay.astype(np.int64)))
+    below = int(np.tril(lay, -1).sum())
+    return below * block * block + diag * block * (block + 1) // 2
+
+
+def _k7_cost(q, plan, products, rows, lse_rows):
+    """A K7 kernel's (flops, bytes, transcendentals), as chip_smoke.py's
+    bounds count them: `products` products of 2*D flops per visible
+    score, `rows` [B, T, H, D] tensors and `lse_rows` fp32 [B, H, T]
+    rows read or written once, one exp a visible score."""
+    b, t, h, d = q.shape
+    nvis = b * plan.visible
+    return (2.0 * products * d * nvis,
+            rows * b * t * h * d * q.element_size() + lse_rows * b * h * t * 4,
+            nvis)
 
 
 _PLAN_CACHE_SIZE = 32
@@ -977,9 +1004,23 @@ def _forward(q, k, v, plan, sm_scale):
     else:
         launch = _band_fwd_sm90_launch if hopper else _band_fwd_launch
         plain = _band_fwd_plain
-    if q.is_cuda:
-        return launch(q, k, v, plan, sm_scale)
-    return plain(q, k, v, plan, sm_scale)
+    return kernel_call(
+        "K7-fwd" if plan.band is None else "K7-band",
+        "block_sparse_attention", "block_sparse_attention",
+        lambda: _k7_cost(q, plan, 2, 4, 1),
+        lambda: (launch if q.is_cuda else plain)(q, k, v, plan, sm_scale))
+
+
+def _dkv_cost(q, plan):
+    """K7-dkv: S and dP recomputed, dV and dK (4 products); q, k, v,
+    out, dout read, dk, dv written; lse read."""
+    return _k7_cost(q, plan, 4, 7, 1)
+
+
+def _dq_cost(q, plan):
+    """K7-dq: S and dP recomputed, dQ (3 products); q, k, v, dout read,
+    dq written; lse and delta read."""
+    return _k7_cost(q, plan, 3, 5, 2)
 
 
 def _backward(q, k, v, out, lse, dout, plan, sm_scale):
@@ -987,16 +1028,27 @@ def _backward(q, k, v, out, lse, dout, plan, sm_scale):
     sweeps for a plan at the Hopper pair (bf16 or fp16 at head dims 64
     and 128),
     else on the WMMA bodies; the twin for CPU tensors."""
+    src, op = "block_sparse_attention", "block_sparse_attention_backward"
     if not q.is_cuda:
-        return _bs_bwd_plain(q, k, v, out, lse, dout, plan, sm_scale)
+        # the twin runs both sweeps at once: both kernels' rows
+        return kernel_call(
+            "K7-dkv", src, op, lambda: _dkv_cost(q, plan),
+            lambda: kernel_call(
+                "K7-dq", src, op, lambda: _dq_cost(q, plan),
+                lambda: _bs_bwd_plain(q, k, v, out, lse, dout, plan,
+                                      sm_scale)))
     if not _kernel_readable(dout):
         dout = dout.contiguous()
     if plan.q_tile != plan.tile:
         dkv, dq_launch = _bs_bwd_dkv_sm90_launch, _bs_bwd_dq_sm90_launch
     else:
         dkv, dq_launch = _bs_bwd_dkv_launch, _bs_bwd_dq_launch
-    dk, dv, delta = dkv(q, k, v, out, lse, dout, plan, sm_scale)
-    dq = dq_launch(q, k, v, out, lse, dout, delta, plan, sm_scale)
+    dk, dv, delta = kernel_call(
+        "K7-dkv", src, op, lambda: _dkv_cost(q, plan),
+        lambda: dkv(q, k, v, out, lse, dout, plan, sm_scale))
+    dq = kernel_call(
+        "K7-dq", src, op, lambda: _dq_cost(q, plan),
+        lambda: dq_launch(q, k, v, out, lse, dout, delta, plan, sm_scale))
     return dq, dk, dv
 
 

@@ -54,6 +54,8 @@ import functools
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.profiling.flops_profiler.profiler import \
+    kernel_call
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
     import named_outputs
 
@@ -748,15 +750,22 @@ def flash_attention_backward(q, k, v, out, lse, dout, dlse=None,
         sm_scale = 1.0 / np.sqrt(q.shape[-1])
     if dlse is not None:
         dlse = dlse.to(torch.float32).contiguous()
-    if q.is_cuda:
-        if not _kernel_readable(dout):
-            dout = dout.contiguous()
-        launch = _flash_bwd_fused_launch if _fused_route(q) else \
-            _flash_bwd_launch
-        return launch(q, k, v, out, lse, dout, dlse, float(sm_scale), causal,
-                      delta)
-    return _flash_bwd_twin(q, k, v, out, lse, dout, dlse, float(sm_scale),
-                           causal, delta=delta)
+    fused = _fused_route(q)
+
+    def run():
+        g = dout
+        if q.is_cuda:
+            if not _kernel_readable(g):
+                g = g.contiguous()
+            launch = _flash_bwd_fused_launch if fused else _flash_bwd_launch
+            return launch(q, k, v, out, lse, g, dlse, float(sm_scale),
+                          causal, delta)
+        return _flash_bwd_twin(q, k, v, out, lse, g, dlse, float(sm_scale),
+                               causal, delta=delta)
+    return kernel_call("K2-fused" if fused else "K2",
+                       "flash_attention_bwd_fused" if fused
+                       else "flash_attention_bwd", "flash_attention_backward",
+                       lambda: flash_bwd_cost(q, causal), run)
 
 
 flash_attention_backward.launches = 0
@@ -794,13 +803,17 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _merge_forward(q, k, v, prev_out, prev_lse, sm_scale, causal):
-    if q.is_cuda:
-        return _flash_merge_launch(q, k, v, prev_out, prev_lse, sm_scale,
-                                   causal)
-    if q.shape[1] % KERNEL_BLOCK:
-        raise ValueError(f"flash attention: T={q.shape[1]} is no "
-                         f"multiple of {KERNEL_BLOCK}")
-    return _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale, causal)
+    def run():
+        if q.is_cuda:
+            return _flash_merge_launch(q, k, v, prev_out, prev_lse,
+                                       sm_scale, causal)
+        if q.shape[1] % KERNEL_BLOCK:
+            raise ValueError(f"flash attention: T={q.shape[1]} is no "
+                             f"multiple of {KERNEL_BLOCK}")
+        return _flash_merge_plain(q, k, v, prev_out, prev_lse, sm_scale,
+                                  causal)
+    return kernel_call("K5", "flash_attention_fwd", "flash_attention_merge",
+                       lambda: merge_cost(q, causal), run)
 
 
 class _FlashMerge(torch.autograd.Function):
@@ -870,13 +883,53 @@ def _normalize_flash_args(q, k, v, causal, sm_scale, head_packing):
     return float(sm_scale), bool(causal)
 
 
+def _visible_pairs(t, causal):
+    return t * (t + 1) // 2 if causal else t * t
+
+
+def flash_fwd_cost(q, causal):
+    """K1-fwd's (flops, bytes, transcendentals), as chip_smoke.py's bound
+    counts them: two products of 2*D flops per visible (q, k) pair (S,
+    P.V); q, k, v read, out written, the fp32 lse written; one exp a
+    visible score."""
+    b, t, h, d = q.shape
+    pairs = _visible_pairs(t, causal)
+    return (4.0 * b * h * d * pairs,
+            4 * b * t * h * d * q.element_size() + b * h * t * 4,
+            b * h * pairs)
+
+
+def merge_cost(q, causal):
+    """K5's: K1's score work; q, k, v read, prev_out read and out
+    written in fp32, prev_lse read and lse, lse_n written."""
+    b, t, h, d = q.shape
+    pairs = _visible_pairs(t, causal)
+    return (4.0 * b * h * d * pairs,
+            (3 * q.element_size() + 8) * b * t * h * d + 12 * b * h * t,
+            b * h * pairs)
+
+
+def flash_bwd_cost(q, causal):
+    """K2's and K2-fused's: five products per visible pair (S, dP, dV,
+    dK, dQ); q, k, v, out, dout read, dq, dk, dv written, lse read; one
+    exp a visible score."""
+    b, t, h, d = q.shape
+    pairs = _visible_pairs(t, causal)
+    return (10.0 * b * h * d * pairs,
+            8 * b * t * h * d * q.element_size() + b * h * t * 4,
+            b * h * pairs)
+
+
 def _flash_forward(q, k, v, sm_scale, causal):
-    if q.is_cuda:
-        return _flash_fwd_launch(q, k, v, sm_scale, causal)
-    if q.shape[1] % KERNEL_BLOCK:
-        raise ValueError(f"flash attention: T={q.shape[1]} is no "
-                         f"multiple of {KERNEL_BLOCK}")
-    return _flash_fwd_plain(q, k, v, sm_scale, causal)
+    def run():
+        if q.is_cuda:
+            return _flash_fwd_launch(q, k, v, sm_scale, causal)
+        if q.shape[1] % KERNEL_BLOCK:
+            raise ValueError(f"flash attention: T={q.shape[1]} is no "
+                             f"multiple of {KERNEL_BLOCK}")
+        return _flash_fwd_plain(q, k, v, sm_scale, causal)
+    return kernel_call("K1-fwd", "flash_attention_fwd", "flash_attention",
+                       lambda: flash_fwd_cost(q, causal), run)
 
 
 def _needs_grad(*xs):

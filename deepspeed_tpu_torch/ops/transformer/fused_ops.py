@@ -52,6 +52,9 @@ import math
 
 import torch
 
+from deepspeed_tpu_torch.ops import autotune
+from deepspeed_tpu_torch.profiling.flops_profiler.profiler import \
+    kernel_call
 from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing \
     import named_outputs
 
@@ -272,7 +275,7 @@ def _check_vector(t, width, device, groups=None):
 
 
 def _ln_fwd_launch(y, bias, residual, gamma, beta, eps, out_dtype,
-                   sum_dtype, return_sum):
+                   sum_dtype, return_sum, tuned=None):
     from deepspeed_tpu_torch.ops import _build
     h = y.shape[-1]
     if residual.shape != y.shape:
@@ -308,9 +311,12 @@ def _ln_fwd_launch(y, bias, residual, gamma, beta, eps, out_dtype,
         if return_sum else None
     n = y.numel() // h if h else 0
     dev = y.device.index or 0
+    if tuned is None:
+        tuned = autotune.row_plan("fused_ln", n, h, "fwd", y.dtype)
     # out and s are fresh allocations, aligned
     plan = ln_fwd_plan(n, h, _sm_count(dev),
-                       _aligned(y, residual, bias, gamma, beta))
+                       _aligned(y, residual, bias, gamma, beta),
+                       _tuned(tuned))
     fn = _build.function("fused_ln_fwd", "ds_fused_ln_fwd", _LN_ARGTYPES)
     err = fn(y.data_ptr(), residual.data_ptr(), bias.data_ptr(),
              gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
@@ -338,8 +344,29 @@ def _bias_groups(bias, n):
     return groups
 
 
+def _tuned(params):
+    """A tuned plan's params as a hashable lru_cache key (None: the
+    default plan)."""
+    return tuple(sorted(params.items())) if params else None
+
+
+def _positive_ints(kernel, tuned, names):
+    """The tuned plan's values, each checked to be a positive int: a
+    plan the kernel cannot take raises, nothing is clipped."""
+    got = dict(tuned)
+    unknown = set(got) - set(names)
+    if unknown:
+        raise ValueError(f"{kernel} plan: unknown keys {sorted(unknown)} "
+                         f"(known: {list(names)})")
+    for k, v in got.items():
+        if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+            raise ValueError(f"{kernel} plan: {k}={v!r} is not a "
+                             "positive int")
+    return got
+
+
 @functools.lru_cache(maxsize=256)
-def gelu_plan(n, w, groups, sms, aligned=True):
+def gelu_plan(n, w, groups, sms, aligned=True, tuned=None):
     """K4's launch plan for n rows of width w in `groups` equal groups on
     a card of `sms` SMs: grid (groups * ctas_per_group, strips), a CTA
     per strip of 256 columns and per group, where CTA j of a group takes
@@ -348,8 +375,10 @@ def gelu_plan(n, w, groups, sms, aligned=True):
     accesses) where W is a multiple of 8 and every pointer is 16-byte
     `aligned`, else 1 (scalar accesses that stop at W). K4-bwd's
     workspace has `work_rows` rows of W fp32 partial sums, one per CTA
-    row, and `counters` int32 counters, one per (group, strip). Cached:
-    the decode path asks for the same plan 48 times a step."""
+    row, and `counters` int32 counters, one per (group, strip). A
+    `tuned` plan (ops/autotune.py, `_tuned` of its params) sets
+    `ctas_per_group`. Cached, the tuned params in the key: the decode
+    path asks for the same plan 48 times a step."""
     rows = n // groups if groups > 0 else 0
     strips = -(-w // _GELU_STRIP)
     vec = 8 if aligned and w % 8 == 0 else 1
@@ -358,12 +387,15 @@ def gelu_plan(n, w, groups, sms, aligned=True):
         # one wave of CTAs over the card; each at least one block
         target = max(1, sms * _GELU_CTAS_PER_SM // (groups * strips))
         cpg = min(target, -(-rows // _GELU_BLOCK_ROWS))
+        if tuned is not None:
+            cpg = _positive_ints("K4", tuned,
+                                 ("ctas_per_group",))["ctas_per_group"]
     return GeluPlan(vec, strips, cpg, _GELU_BLOCK_ROWS,
                     (groups * cpg, strips), groups * cpg, groups * strips)
 
 
 @functools.lru_cache(maxsize=256)
-def ln_fwd_plan(n, h, sms, aligned=True):
+def ln_fwd_plan(n, h, sms, aligned=True, tuned=None):
     """K3-fwd's launch plan for n rows of width h on a card of `sms` SMs.
 
     A row belongs to a row group of `warps_per_row` warps, the fewest
@@ -378,8 +410,11 @@ def ln_fwd_plan(n, h, sms, aligned=True):
     k + grid * groups, ... `vec` is 8 (16-byte accesses) where h is a
     multiple of 8 and every input's pointer (y, the residual and the
     three vectors) is 16-byte `aligned`, else 1 (scalar accesses that
-    stop at h). Raises ValueError past the widest row (h > 5120).
-    Cached: a step asks for the same plan on every layer."""
+    stop at h). Raises ValueError past the widest row (h > 5120). A
+    `tuned` plan (ops/autotune.py) sets `groups` and `grid`; one whose
+    CTA passes 20 warps (or 15 row groups of several warps) raises.
+    Cached, the tuned params in the key: a step asks for the same plan
+    on every layer."""
     vec = 8 if aligned and h % 8 == 0 else 1
     wpr = max(1, -(-h // (8 * 32)))
     if wpr > _LN_FWD_MAX_WARPS:
@@ -389,11 +424,18 @@ def ln_fwd_plan(n, h, sms, aligned=True):
     groups = max(1, min(_LN_FWD_CTA_WARPS // wpr, -(-n // sms)))
     per_sm = max(1, _LN_FWD_SM_WARPS // (groups * wpr))
     grid = min(sms * per_sm, -(-n // groups)) if n > 0 else 0
+    if tuned is not None and n > 0:
+        got = _positive_ints("K3-fwd", tuned, ("groups", "grid"))
+        groups, grid = got.get("groups", groups), got.get("grid", grid)
+        if wpr * groups > _LN_FWD_MAX_WARPS or (wpr > 1 and groups > 15):
+            raise ValueError(
+                f"K3-fwd plan: {groups} row groups of {wpr} warps pass "
+                f"the CTA's {_LN_FWD_MAX_WARPS} warps (or 15 groups)")
     return LnFwdPlan(vec, wpr, groups, 32 * wpr * groups, grid)
 
 
 @functools.lru_cache(maxsize=256)
-def ln_bwd_plan(n, h, sms, aligned=True):
+def ln_bwd_plan(n, h, sms, aligned=True, tuned=None):
     """K3-bwd's launch plan for n rows of width h on a card of `sms` SMs.
 
     A row belongs to a row group of `warps_per_row` warps: lane i of the
@@ -410,7 +452,11 @@ def ln_bwd_plan(n, h, sms, aligned=True):
     rows in order (with one group, straight into the sums): the
     workspace holds `work_rows` rows, the int32 counters `counters` (one
     per fold group and one for the groups). Raises ValueError past the
-    widest row (h > 7168)."""
+    widest row (h > 7168). A `tuned` plan (ops/autotune.py) sets
+    `groups`, `grid` and `fold`, and the workspace and counters follow;
+    one whose CTA passes 14 warps (7 at four vectors a lane) raises.
+    The fold order of dbias/dgamma/dbeta follows the grid and the fold,
+    so another plan gives other bits (deterministic for each plan)."""
     vec = 8 if aligned and h % 8 == 0 else 1
     nvec = -(-h // 8)
     vpt = 1 if nvec <= 32 * _LN_BWD_MAX_WARPS else 4
@@ -423,6 +469,15 @@ def ln_bwd_plan(n, h, sms, aligned=True):
     groups = max(1, min(warps // wpr, n))
     grid = min(sms, -(-n // groups))
     fold = math.isqrt(grid - 1) + 1 if grid > 0 else 1
+    if tuned is not None and n > 0:
+        got = _positive_ints("K3-bwd", tuned, ("groups", "grid", "fold"))
+        groups = got.get("groups", groups)
+        grid = got.get("grid", grid)
+        fold = got.get("fold", fold)
+        if wpr * groups > warps:
+            raise ValueError(
+                f"K3-bwd plan: {groups} row groups of {wpr} warps pass "
+                f"the CTA's {warps} warps")
     fold_groups = -(-grid // fold)
     return LnBwdPlan(vec, vpt, wpr, groups, 32 * wpr * groups, grid, fold,
                      fold_groups,
@@ -439,7 +494,8 @@ def _aligned(*tensors):
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
+def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype,
+                     tuned=None):
     from deepspeed_tpu_torch.ops import _build
     w = x.shape[-1]
     _check_rows("x", x, w)
@@ -459,8 +515,11 @@ def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     s = torch.empty(x.shape, dtype=sum_dtype, device=x.device)
     dev = x.device.index or 0
+    if tuned is None:
+        tuned = autotune.row_plan("fused_gelu", n, w, "fwd", x.dtype)
     # out and s are fresh allocations, aligned
-    plan = gelu_plan(n, w, groups, _sm_count(dev), _aligned(x, bias))
+    plan = gelu_plan(n, w, groups, _sm_count(dev), _aligned(x, bias),
+                     _tuned(tuned))
     fn = _build.function("fused_gelu_fwd", "ds_fused_gelu_fwd",
                          _GELU_ARGTYPES)
     err = fn(x.data_ptr(), bias.data_ptr(), out.data_ptr(), s.data_ptr(),
@@ -474,7 +533,7 @@ def _gelu_fwd_launch(x, bias, approximate, out_dtype, sum_dtype):
     return out, s
 
 
-def _ln_bwd_launch(s2, gamma, dout2, dsum2, eps, dx_dtype):
+def _ln_bwd_launch(s2, gamma, dout2, dsum2, eps, dx_dtype, tuned=None):
     from deepspeed_tpu_torch.ops import _build
     n, h = s2.shape
     _check_rows("s", s2, h)
@@ -507,7 +566,10 @@ def _ln_bwd_launch(s2, gamma, dout2, dsum2, eps, dx_dtype):
     gamma = gamma.contiguous()
     dev = s2.device.index or 0
     rows = [s2, dout2, gamma] + ([dsum2] if dsum2 is not None else [])
-    plan = ln_bwd_plan(n, h, _sm_count(dev), _aligned(*rows))
+    if tuned is None:
+        tuned = autotune.row_plan("fused_ln", n, h, "bwd", s2.dtype)
+    plan = ln_bwd_plan(n, h, _sm_count(dev), _aligned(*rows),
+                       _tuned(tuned))
     if dx_dtype == torch.float16 and plan.vpt != 1:
         raise NotImplementedError(
             f"K3-bwd: fp16 at H {h} (4 vectors a lane, above H 3584) is "
@@ -533,7 +595,8 @@ def _ln_bwd_launch(s2, gamma, dout2, dsum2, eps, dx_dtype):
     return dx, sums[0], sums[1], sums[2]
 
 
-def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype, groups=None):
+def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype, groups=None,
+                     tuned=None):
     from deepspeed_tpu_torch.ops import _build
     n, w = s2.shape
     _check_rows("s", s2, w)
@@ -551,7 +614,10 @@ def _gelu_bwd_launch(s2, dout2, approximate, dx_dtype, groups=None):
     dev = s2.device.index or 0
     dx = torch.empty((n, w), dtype=dx_dtype, device=s2.device)
     dbias = torch.empty((groups, w), dtype=torch.float32, device=s2.device)
-    plan = gelu_plan(n, w, groups, _sm_count(dev), _aligned(s2, dout2))
+    if tuned is None:
+        tuned = autotune.row_plan("fused_gelu", n, w, "bwd", s2.dtype)
+    plan = gelu_plan(n, w, groups, _sm_count(dev), _aligned(s2, dout2),
+                     _tuned(tuned))
     work = torch.empty((max(plan.work_rows, 1), w), dtype=torch.float32,
                        device=s2.device)
     counters = torch.zeros((max(plan.counters, 1),), dtype=torch.int32,
@@ -577,20 +643,72 @@ def _flat_rows(x):
     return x.reshape(-1, x.shape[-1])
 
 
+# ----------------------------------------------------------------------
+# the kernels' costs (flops, bytes, transcendentals) from their shapes,
+# as chip_smoke.py's bounds count them: each input read once, each output
+# written once; fp32 arithmetic per element (K3-fwd 9: 2 adds, square and
+# 2 accumulates, subtract, 2 multiplies and an add; K3-bwd ~22; K4-fwd
+# 10 and the tanh or erf; K4-bwd ~18 and it); one rsqrt a row in K3, one
+# tanh or erf an element in K4. The flops profiler records them.
+# ----------------------------------------------------------------------
+def _size(dtype):
+    return dtype.itemsize
+
+
+def ln_fwd_cost(y, residual, vectors, out_dtype, sum_dtype, want_sum):
+    h = y.shape[-1]
+    n = y.numel() // h if h else 0
+    row = y.element_size() + residual.element_size() + _size(out_dtype) + \
+        (_size(sum_dtype) if want_sum else 0)
+    return (9 * n * h, n * h * row + sum(v.numel() * v.element_size()
+                                         for v in vectors), n)
+
+
+def ln_bwd_cost(s2, gamma, dout2, dsum2, dx_dtype):
+    n, h = s2.shape
+    row = s2.element_size() + dout2.element_size() + _size(dx_dtype) + \
+        (dsum2.element_size() if dsum2 is not None else 0)
+    return (22 * n * h, n * h * row + h * gamma.element_size() + 3 * h * 4,
+            n)
+
+
+def gelu_fwd_cost(x, bias, out_dtype):
+    w = x.shape[-1]
+    n = x.numel() // w if w else 0
+    row = 2 * x.element_size() + _size(out_dtype)
+    return (11 * n * w, n * w * row + bias.numel() * bias.element_size(),
+            n * w)
+
+
+def gelu_bwd_cost(s2, dout2, dx_dtype, groups):
+    n, w = s2.shape
+    row = s2.element_size() + dout2.element_size() + _size(dx_dtype)
+    return 19 * n * w, n * w * row + (groups or 1) * w * 4, n * w
+
+
 def _ln_forward(y, bias, residual, gamma, beta, eps, out_dtype, sum_dtype,
                 want_sum):
-    if y.is_cuda:
-        return _ln_fwd_launch(y, bias, residual, gamma, beta, eps,
-                              out_dtype, sum_dtype, want_sum)
-    out_f, s_f = _ln_fwd_math(y, bias, residual, gamma, beta, float(eps))
-    return out_f.to(out_dtype), (s_f.to(sum_dtype) if want_sum else None)
+    def run():
+        if y.is_cuda:
+            return _ln_fwd_launch(y, bias, residual, gamma, beta, eps,
+                                  out_dtype, sum_dtype, want_sum)
+        out_f, s_f = _ln_fwd_math(y, bias, residual, gamma, beta, float(eps))
+        return out_f.to(out_dtype), (s_f.to(sum_dtype) if want_sum
+                                     else None)
+    return kernel_call(
+        "K3-fwd", "fused_ln_fwd", "fused_bias_residual_layernorm",
+        lambda: ln_fwd_cost(y, residual, (bias, gamma, beta), out_dtype,
+                            sum_dtype, want_sum), run)
 
 
 def _gelu_forward(x, bias, approximate, out_dtype):
-    if x.is_cuda:
-        return _gelu_fwd_launch(x, bias, approximate, out_dtype, x.dtype)
-    out_f, s_f = _gelu_fwd_math(x, bias, approximate)
-    return out_f.to(out_dtype), s_f.to(x.dtype)
+    def run():
+        if x.is_cuda:
+            return _gelu_fwd_launch(x, bias, approximate, out_dtype, x.dtype)
+        out_f, s_f = _gelu_fwd_math(x, bias, approximate)
+        return out_f.to(out_dtype), s_f.to(x.dtype)
+    return kernel_call("K4-fwd", "fused_gelu_fwd", "fused_bias_gelu",
+                       lambda: gelu_fwd_cost(x, bias, out_dtype), run)
 
 
 def fused_bias_residual_layernorm_backward(s, gamma, d_out, d_sum=None, *,
@@ -604,15 +722,18 @@ def fused_bias_residual_layernorm_backward(s, gamma, d_out, d_sum=None, *,
     s2 = _flat_rows(s)
     dout2 = _flat_rows(d_out).contiguous()
     dsum2 = None if d_sum is None else _flat_rows(d_sum).contiguous()
-    if s.is_cuda:
-        dx2, dbias, dgamma, dbeta = _ln_bwd_launch(
-            s2.contiguous(), gamma, dout2, dsum2, eps, dx_dtype)
-    else:
+
+    def run():
+        if s.is_cuda:
+            return _ln_bwd_launch(s2.contiguous(), gamma, dout2, dsum2, eps,
+                                  dx_dtype)
         ds, dg_rows, dbeta_rows = _ln_bwd_math(s2, gamma, dout2, dsum2,
                                                float(eps))
-        dx2 = ds.to(dx_dtype)
-        dbias, dgamma, dbeta = (r.sum(dim=0)
-                                for r in (ds, dg_rows, dbeta_rows))
+        return (ds.to(dx_dtype), *(r.sum(dim=0)
+                                   for r in (ds, dg_rows, dbeta_rows)))
+    dx2, dbias, dgamma, dbeta = kernel_call(
+        "K3-bwd", "fused_ln_bwd", "fused_bias_residual_layernorm_backward",
+        lambda: ln_bwd_cost(s2, gamma, dout2, dsum2, dx_dtype), run)
     return dx2.reshape(s.shape), dbias, dgamma, dbeta
 
 
@@ -630,14 +751,17 @@ def fused_bias_gelu_backward(s, d_out, *, approximate=False, dx_dtype=None,
     dx_dtype = dx_dtype if dx_dtype is not None else s.dtype
     s2 = _flat_rows(s)
     dout2 = _flat_rows(d_out).contiguous()
-    if s.is_cuda:
-        dx2, dbias = _gelu_bwd_launch(s2.contiguous(), dout2,
-                                      bool(approximate), dx_dtype, groups)
-    else:
+
+    def run():
+        if s.is_cuda:
+            return _gelu_bwd_launch(s2.contiguous(), dout2,
+                                    bool(approximate), dx_dtype, groups)
         d = _gelu_bwd_math(s2, dout2, bool(approximate))
-        dx2 = d.to(dx_dtype)
-        dbias = d.sum(dim=0) if groups is None else \
-            _grouped(d, groups).sum(dim=1)
+        return d.to(dx_dtype), (d.sum(dim=0) if groups is None else
+                                _grouped(d, groups).sum(dim=1))
+    dx2, dbias = kernel_call(
+        "K4-bwd", "fused_gelu_bwd", "fused_bias_gelu_backward",
+        lambda: gelu_bwd_cost(s2, dout2, dx_dtype, groups), run)
     return dx2.reshape(s.shape), dbias
 
 

@@ -48,6 +48,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.profiling.flops_profiler.profiler import \
+    kernel_call
 from deepspeed_tpu_torch.utils.rng import stream_generator
 
 # default quantization block along the contraction dim, the JAX
@@ -279,11 +281,26 @@ def _qmm_kernel(xq, wqt, sx, sw, block, out_dtype):
     return out
 
 
+def qmm_cost(xq, wq, sw, out_dtype):
+    """K6's (flops, bytes, transcendentals) over G groups, as
+    chip_smoke.py's bound counts them: 2 operations per int8 product;
+    xq [G, M, Kp], wq [G, Kp, N], the row and column scales read once,
+    the 16-bit output written once."""
+    g, m, kp = xq.shape
+    n, nb = wq.shape[-1], sw.shape[-2]
+    out = out_dtype.itemsize
+    return (2.0 * g * m * kp * n,
+            g * (m * kp + kp * n + m * 4 + nb * n * 4 + m * n * out), 0)
+
+
 def _qmm(xq, wq, sx, sw, block, out_dtype):
     """K6 for CUDA tensors, its twin for CPU tensors (grouped shapes)."""
-    if xq.is_cuda:
-        return _qmm_launch(xq, wq, sx, sw, block, out_dtype)
-    return _qmm_plain(xq, wq, sx, sw, block, out_dtype)
+    def run():
+        if xq.is_cuda:
+            return _qmm_launch(xq, wq, sx, sw, block, out_dtype)
+        return _qmm_plain(xq, wq, sx, sw, block, out_dtype)
+    return kernel_call("K6", "quantized_matmul", "quantized_matmul",
+                       lambda: qmm_cost(xq, wq, sw, out_dtype), run)
 
 
 def quantized_matmul(x, wq, sw, *, block, out_dtype=None, x_gen=None):

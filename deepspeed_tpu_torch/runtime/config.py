@@ -21,19 +21,25 @@ legacy `tensorboard` block (`tensorboard_enabled`, `_output_path`,
 package validates it. `zero_config` holds the
 `zero_optimization` block with its `offload_wire` (runtime/zero/
 config.py); the `overlap` block configures ops/overlap.py through the
-engine. The `autotune` block is validated with the JAX package's errors
-too, though the port does not act on it yet.
+engine, the `autotune` block configures ops/autotune.py through the
+engine, the `flops_profiler` block (`flops_profiler_config`, a
+`profiling.config.DeepSpeedFlopsProfilerConfig`) drives the engine's
+profile step, and an enabled `elasticity` block resolves the batch
+triple as the JAX package's `_apply_elasticity` does.
 
 A block that the JAX engine acts on and the port does not yet raises
 NotImplementedError naming the ROADMAP Queue 1 item that ports it
 (`_check_later_slices`): pipeline, sparse gradients and a `mesh` axis
-above 1 (6); elasticity, the flops profiler and autotune (9). The `mesh` block is
+above 1 (6). The `mesh` block is
 resolved for the port's world size as the JAX package's `build_mesh`
 resolves it for its devices (`resolve_mesh`, `mesh_shape`).
 """
 
 import math
+import os
 
+from deepspeed_tpu_torch.profiling.config import \
+    DeepSpeedFlopsProfilerConfig
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.activation_checkpointing.config import \
     DeepSpeedActivationCheckpointingConfig
@@ -446,10 +452,6 @@ def get_autotune_config(param_dict):
     return {"enabled": enabled, "table_path": path}
 
 
-# the flops_profiler block's switch (deepspeed_tpu/profiling/config.py)
-_FLOPS_PROFILER = "flops_profiler"
-
-
 def get_tensorboard_enabled(param_dict):
     if C.TENSORBOARD in param_dict:
         return get_scalar_param(param_dict[C.TENSORBOARD],
@@ -501,6 +503,11 @@ class DeepSpeedConfig:
     def __init__(self, json_file_or_dict, world_size=1):
         self._param_dict = load_config_dict(json_file_or_dict)
         self.world_size = world_size
+        # elasticity: the elastic config overrides the batch triple
+        self.elasticity_enabled = False
+        ec = self._param_dict.get(C.ELASTICITY, None)
+        if ec is not None and ec.get(C.ELASTICITY_ENABLED, False):
+            self._apply_elasticity(ec)
         self.amp_enabled, self.amp_params = get_amp_config(self._param_dict)
         self._initialize_params(self._param_dict)
         self._check_later_slices(self._param_dict)
@@ -522,12 +529,36 @@ class DeepSpeedConfig:
                          "(runtime/mesh.py)", 6)
         if d.get(C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT):
             raise _later("sparse_gradients (runtime/csr_tensor.py)", 6)
-        if _block_enabled(d, C.ELASTICITY, C.ELASTICITY_ENABLED):
-            raise _later("elasticity (elastic batch resolution)", 9)
-        if _block_enabled(d, _FLOPS_PROFILER):
-            raise _later("the flops_profiler block", 9)
-        if C.AUTOTUNE in d and self.autotune["enabled"]:
-            raise _later("the autotune block (ops/autotune.py)", 9)
+
+    def _apply_elasticity(self, ec):
+        """The JAX config's `_apply_elasticity`: explicit batch keys
+        conflict with elasticity unless `ignore_non_elastic_batch_info`;
+        the batch triple comes from `compute_elastic_config` at this
+        world size (gradient accumulation derived), checked against
+        DEEPSPEED_ELASTICITY_CONFIG where the scheduler set it."""
+        from deepspeed_tpu_torch import elasticity as el
+        from deepspeed_tpu_torch.version import __version__
+        self.elasticity_enabled = True
+        ignore = ec.get(el.IGNORE_NON_ELASTIC_BATCH_INFO,
+                        el.IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT)
+        batch_keys = [C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                      C.GRADIENT_ACCUMULATION_STEPS]
+        if not ignore:
+            present = [k for k in batch_keys if k in self._param_dict]
+            if present:
+                raise el.ElasticityConfigError(
+                    f"Elasticity is enabled but batch parameters {present} "
+                    f"are also set; remove them or set "
+                    f"'{el.IGNORE_NON_ELASTIC_BATCH_INFO}': true")
+        final_batch_size, _, micro_batch_size = el.compute_elastic_config(
+            ds_config=self._param_dict,
+            target_deepspeed_version=__version__,
+            world_size=self.world_size)
+        if os.environ.get(el.DEEPSPEED_ELASTICITY_CONFIG) is not None:
+            el.ensure_immutable_elastic_config(runtime_elastic_config_dict=ec)
+        self._param_dict[C.TRAIN_BATCH_SIZE] = final_batch_size
+        self._param_dict[C.TRAIN_MICRO_BATCH_SIZE_PER_GPU] = micro_batch_size
+        self._param_dict.pop(C.GRADIENT_ACCUMULATION_STEPS, None)
 
     def _initialize_params(self, d):
         self.train_batch_size = get_scalar_param(
@@ -600,6 +631,7 @@ class DeepSpeedConfig:
         self.async_dispatch_prefetch_depth = ad["prefetch_depth"]
         self.autotune = get_autotune_config(d)
         self.overlap = get_overlap_config(d)
+        self.flops_profiler_config = DeepSpeedFlopsProfilerConfig(d)
         self.activation_checkpointing_config = \
             DeepSpeedActivationCheckpointingConfig(d)
         self.wall_clock_breakdown = bool(get_scalar_param(

@@ -90,7 +90,16 @@ fp32 accumulator on the card, every step's micro batches accumulated
 and then `_offload_take_step`; a bf16 `master_weights: false` is
 ignored with the JAX engine's warning, and async dispatch is off (the
 host step is a sync by nature). The `overlap` block configures
-`ops/overlap.py` at init.
+`ops/overlap.py` at init, the `autotune` block `ops/autotune.py`
+(`_init_autotune`). `engine.zero_policy` (runtime/zero/partition.py)
+gives the ZeRO memory plan at world size 1.
+
+The `flops_profiler` block (profiling/flops_profiler/): at
+`profile_step`, `train_batch` runs the real step under the profiler's
+counting (forward, backward and update; with offload the device half,
+forward and backward), which changes no value the step computes, and
+prints the profile after it. A profile that fails is logged and
+training goes on, as in the JAX engine.
 
 Telemetry (`deepspeed_tpu_torch/monitor/`, the `monitor` block): every
 engine carries a `Monitor`; with the block enabled, `train_batch` and
@@ -164,6 +173,7 @@ from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.sgd import SGDState, sgd
 from deepspeed_tpu_torch.runtime.zero.offload import ZeroOffloadMixin
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroShardingPolicy
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.distributed import get_rank, get_world_size
 from deepspeed_tpu_torch.utils.logging import logger
@@ -279,6 +289,8 @@ class DeepSpeedEngine(ZeroOffloadMixin):
                                        world_size=1)
         if self._config.zero_optimization_stage == 3:
             raise _later("ZeRO stage 3", 6)
+        self.zero_policy = ZeroShardingPolicy(
+            self._config.zero_optimization_stage)
 
         # activation checkpointing (the JAX engine wires the JSON block
         # into the checkpointing module through configure)
@@ -364,13 +376,29 @@ class DeepSpeedEngine(ZeroOffloadMixin):
 
         self._configure_optimizer()
         self._configure_lr_scheduler(lr_scheduler)
+        self._init_autotune()
         self._init_overlap()
+        self._flops_prof = None
+        self.last_flops_profile = None   # the profile step's FlopsProfiler
         self._init_state()
         self.optimizer = self   # `engine.optimizer` parity
         self._ckpt_writer = None
         self._abandoned_ckpt_writers = []
         if self._config.dump_state:
             self._config.print("DeepSpeedEngine configuration")
+
+    def _init_autotune(self):
+        """Wire the `autotune` block into ops/autotune.py (the enabled
+        toggle, the table path) and attach the monitor so
+        `autotune_search` / `autotune_hit` events reach its sinks, as
+        the JAX engine does. The kernel wrappers then read the table
+        where their callers fixed nothing: a host dict read, no device
+        sync."""
+        from deepspeed_tpu_torch.ops import autotune
+        at = self._config.autotune
+        autotune.configure(
+            enabled=at["enabled"], table_path=at["table_path"],
+            monitor=self.monitor if self.monitor.enabled else False)
 
     def _init_overlap(self):
         """Wire the `overlap` block into ops/overlap.py (the enabled
@@ -543,6 +571,24 @@ class DeepSpeedEngine(ZeroOffloadMixin):
 
     def wall_clock_breakdown(self):
         return self._config.wall_clock_breakdown
+
+    def flops_profiler_enabled(self):
+        return self._config.flops_profiler_config.enabled
+
+    def flops_profiler_profile_step(self):
+        return self._config.flops_profiler_config.profile_step
+
+    def flops_profiler_module_depth(self):
+        return self._config.flops_profiler_config.module_depth
+
+    def flops_profiler_top_modules(self):
+        return self._config.flops_profiler_config.top_modules
+
+    def flops_profiler_detailed(self):
+        return self._config.flops_profiler_config.detailed
+
+    def elasticity_enabled(self):
+        return self._config.elasticity_enabled
 
     def tensorboard_enabled(self):
         return self._config.tensorboard_enabled
@@ -1068,6 +1114,9 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         flight recorder dumps the last events and heartbeat ages —
         classified `oom` with the memory ledger's hints for
         `torch.OutOfMemoryError` — before it propagates."""
+        if self.flops_profiler_enabled() and \
+                self._host_steps + 1 == self.flops_profiler_profile_step():
+            self._begin_flops_profile()
         try:
             return self._train_batch_impl(data_iter=data_iter, batch=batch)
         except StopIteration:
@@ -1081,6 +1130,43 @@ class DeepSpeedEngine(ZeroOffloadMixin):
                     pass
                 self.monitor.on_crash(e)
             raise
+        finally:
+            self._end_flops_profile()
+
+    def _begin_flops_profile(self):
+        """Start counting this step (the JAX engine's
+        `_profile_fused_step`, which profiles the step's program at
+        `profile_step`): the real step runs under the counting, which
+        perturbs nothing it computes."""
+        from deepspeed_tpu_torch.profiling.flops_profiler import \
+            FlopsProfiler
+        from deepspeed_tpu_torch.profiling.flops_profiler.profiler import \
+            num_params
+        try:
+            prof = FlopsProfiler(self.module)
+            prof.total_params = num_params(self.state.params)
+            prof.start_profile()
+        except Exception as e:  # a report failing, not the step
+            logger.warning(f"flops profile failed: {e!r}", exc_info=True)
+            return
+        self._flops_prof = prof
+
+    def _end_flops_profile(self):
+        """Stop counting (after the update, or before the offload host
+        step: the device half) and print the profile once."""
+        prof, self._flops_prof = self._flops_prof, None
+        if prof is None:
+            return
+        try:
+            prof.stop_profile()
+            prof.print_model_profile(
+                profile_step=self.flops_profiler_profile_step(),
+                module_depth=self.flops_profiler_module_depth(),
+                top_modules=self.flops_profiler_top_modules(),
+                detailed=self.flops_profiler_detailed())
+        except Exception as e:  # a report failing, not the step
+            logger.warning(f"flops profile failed: {e!r}", exc_info=True)
+        self.last_flops_profile = prof
 
     def _train_batch_impl(self, data_iter=None, batch=None):
         gas = self.gradient_accumulation_steps()
@@ -1127,7 +1213,8 @@ class DeepSpeedEngine(ZeroOffloadMixin):
         grad_norm = hgrad = None
         if offload:
             # the grads-only device half, then the host step (which
-            # zeroes the accumulator)
+            # zeroes the accumulator); a profile covers the device half
+            self._end_flops_profile()
             overflow = self._offload_take_step(lr)
         else:
             grad_norm, overflow, hgrad = self._unscale_clip_and_update(

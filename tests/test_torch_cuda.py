@@ -3311,3 +3311,140 @@ def test_provoked_oom_is_classified_and_the_engine_steps_on(dev, tmp_path):
     loss = engine.train_batch(batch=staged)
     assert np.isfinite(float(loss))
     engine.shutdown()
+
+
+# ----------------------------------------------------------------------
+# the autotuner's launch plans and the flops profiler on the card
+# ----------------------------------------------------------------------
+# (n, h): the decode rows, a ragged count, the flagship's width; K4 at
+# w = 4 h
+TUNE_SHAPES = [(4, 1600), (300, 1600), (1000, 1024)]
+
+
+def _tune_space(family, direction, n, h):
+    from deepspeed_tpu_torch.ops import autotune
+    sms = tfo._sm_count(0)
+    default, cands = autotune.row_search_space(family, direction, n, h, sms)
+    return [default] + [c for c in cands if c != default]
+
+
+@pytest.mark.parametrize("n,h", TUNE_SHAPES)
+def test_autotune_candidates_k3_fwd_match_twin(dev, n, h):
+    """Every K3-fwd plan the autotuner searches (row groups per CTA and
+    grids it has never launched at) against the twin, bf16 within one
+    rounding, each launch repeated bit for bit; every plan gives the
+    same bits (each row is one row group's work whatever the plan)."""
+    args = _ln_fwd_case(dev, n, h, BF16, BF16, BF16, seed=60)
+    ref_out, ref_s = tfo._ln_fwd_math(*args, 1e-5)
+    first = None
+    for plan in _tune_space("fused_ln", "fwd", n, h):
+        out, s = tfo._ln_fwd_launch(*args, 1e-5, BF16, BF16, True,
+                                    tuned=plan)
+        again = tfo._ln_fwd_launch(*args, 1e-5, BF16, BF16, True,
+                                   tuned=plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref_out.to(BF16).float(),
+                                   **BF16_TOL)
+        torch.testing.assert_close(s.float(), ref_s.to(BF16).float(),
+                                   **BF16_TOL)
+        assert torch.equal(out, again[0]) and torch.equal(s, again[1])
+        first = first or (out, s)
+        assert torch.equal(out, first[0]) and torch.equal(s, first[1]), plan
+
+
+@pytest.mark.parametrize("n,h", TUNE_SHAPES)
+def test_autotune_candidates_k3_bwd_match_twin(dev, n, h):
+    """Every K3-bwd plan (row groups, grid, fold: the workspace and the
+    counters sized by each) against the twin within the bf16 gradient
+    tolerance; each plan deterministic (a second launch bit for bit);
+    dx the same bits under every plan (its fold order touches only the
+    column sums)."""
+    g = _gen(dev, 61)
+    s = (2.0 * torch.randn((n, h), generator=g, device=dev)).to(BF16)
+    gamma = 1.0 + 0.1 * torch.randn((h,), generator=g, device=dev)
+    dout = torch.randn((n, h), generator=g, device=dev).to(BF16)
+    dsum = torch.randn((n, h), generator=g, device=dev).to(BF16)
+    ds, dg_rows, db_rows = tfo._ln_bwd_math(s, gamma, dout, dsum, 1e-5)
+    ref = (ds.to(BF16), ds.sum(0), dg_rows.sum(0), db_rows.sum(0))
+    dx0 = None
+    for plan in _tune_space("fused_ln", "bwd", n, h):
+        got = tfo._ln_bwd_launch(s, gamma, dout, dsum, 1e-5, BF16,
+                                 tuned=plan)
+        again = tfo._ln_bwd_launch(s, gamma, dout, dsum, 1e-5, BF16,
+                                   tuned=plan)
+        torch.cuda.synchronize()
+        for x, y in zip(got, ref):
+            assert _rel_l2(x, y) <= GRAD_TOL[BF16], plan
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), plan
+        dx0 = got[0] if dx0 is None else dx0
+        assert torch.equal(got[0], dx0), plan
+
+
+@pytest.mark.parametrize("n,h", TUNE_SHAPES)
+@pytest.mark.parametrize("approximate", [True, False])
+def test_autotune_candidates_k4_match_twin(dev, n, h, approximate):
+    """Every K4-fwd and K4-bwd plan (CTAs per group, K4-bwd's dbias
+    workspace sized by it) against the twins at W = 4 H."""
+    w = 4 * h
+    g = _gen(dev, 62)
+    x = torch.randn((n, w), generator=g, device=dev).to(BF16)
+    bias = 0.1 * torch.randn((w,), generator=g, device=dev)
+    dout = torch.randn((n, w), generator=g, device=dev).to(BF16)
+    ref_out, ref_s = tfo._gelu_fwd_math(x, bias, approximate)
+    for plan in _tune_space("fused_gelu", "fwd", n, w):
+        out, s = tfo._gelu_fwd_launch(x, bias, approximate, BF16, BF16,
+                                      tuned=plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref_out.to(BF16).float(),
+                                   **BF16_TOL)
+        torch.testing.assert_close(s.float(), ref_s.to(BF16).float(),
+                                   **BF16_TOL)
+    d = tfo._gelu_bwd_math(x, dout, approximate)
+    for plan in _tune_space("fused_gelu", "bwd", n, w):
+        dx, dbias = tfo._gelu_bwd_launch(x, dout, approximate, BF16,
+                                         tuned=plan)
+        dx2, dbias2 = tfo._gelu_bwd_launch(x, dout, approximate, BF16,
+                                           tuned=plan)
+        torch.cuda.synchronize()
+        assert _rel_l2(dx, d.to(BF16)) <= GRAD_TOL[BF16], plan
+        assert _rel_l2(dbias, d.sum(0)) <= GRAD_TOL[BF16], plan
+        assert torch.equal(dx, dx2) and torch.equal(dbias, dbias2), plan
+
+
+def test_profile_kernel_rows_on_the_card_equal_the_twin_route(dev):
+    """The flops profiler's kernel rows of one fused chain, forward and
+    backward (K1-fwd, K2-fused, K3-fwd, K3-bwd, K4-fwd, K4-bwd), are the
+    same on the card as on the CPU twins at the same shapes: each
+    wrapper records its kernel's cost from the shapes, whichever route
+    runs."""
+    from deepspeed_tpu_torch.profiling.flops_profiler import profiler as fp
+    rows = {}
+    for device in ("cpu", dev):
+        g = torch.Generator().manual_seed(63)
+        b, t, nh, d = 2, 256, 2, 64
+        h = nh * d
+
+        def leaf(*shape, dtype=BF16):
+            return torch.randn(*shape, generator=g).to(dtype).to(
+                device).requires_grad_(True)
+        q, k, v = leaf(b, t, nh, d), leaf(b, t, nh, d), leaf(b, t, nh, d)
+        y, res = leaf(b, t, h), leaf(b, t, h)
+        vec = [leaf(h, dtype=F32) for _ in range(3)]
+        gb = leaf(4 * h, dtype=F32)
+        w = leaf(h, 4 * h)
+
+        def step():
+            att = tfa.flash_attention(q, k, v, causal=True)
+            out, s = tfo.fused_bias_residual_layernorm(
+                y + att.reshape(b, t, h), vec[0], res, vec[1], vec[2])
+            hidden = tfo.fused_bias_gelu(out @ w, gb, approximate=True)
+            (hidden.float().sum() + s.float().sum()).backward()
+        _, ops = fp.record_ops(step)
+        rows[str(device)] = sorted(
+            (r["name"], r["flops"], r["bytes"], r["transcendentals"],
+             r["calls"]) for r in fp.per_fusion_costs_from_ops(ops)
+            if r["kind"] == fp.KIND_KERNEL)
+    names = [r[0] for r in rows["cpu"]]
+    assert names == sorted(["K1-fwd", "K2-fused", "K3-fwd", "K3-bwd",
+                            "K4-fwd", "K4-bwd"])
+    assert rows["cpu"] == rows[str(dev)]

@@ -295,13 +295,13 @@ def test_constants_equal_jax(mine, ref):
 
 # fp16 (with MoE and quantized compute too), 1-bit Adam, progressive
 # layer drop, LAMB, the activation_checkpointing and async_dispatch
-# blocks and dump_state are ported
+# blocks, dump_state and the tools' blocks (elasticity, flops_profiler,
+# autotune: tests/test_torch_{elastic,flops_profiler,autotune}.py) are
+# ported
 @pytest.mark.parametrize("extra,match", [
     ({"zero_optimization": {"stage": 3}}, "stage 3"),
     ({"zero_optimization": {"stage": 3, "cpu_offload": True}}, "stage 3"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
-    ({"elasticity": {"enabled": True, "max_train_batch_size": 48,
-                     "micro_batch_sizes": [4]}}, "elasticity"),
     ({"mesh": {"model": 2, "data": 1}}, "mesh with model above 1"),
 ])
 def test_later_slices_raise(jax_model_and_tree, extra, match):
@@ -314,12 +314,8 @@ def test_later_slices_raise(jax_model_and_tree, extra, match):
     ({"zero_optimization": {"stage": 3, "cpu_offload": True}}, 6),
     ({"zero_optimization": {"stage": 3}}, 6),
     ({"pipeline": {"stages": 2}}, 6),
-    ({"elasticity": {"enabled": True}}, 9),
     # blocks the JAX engine acts on (runtime/engine.py) and the port not yet
-    ({"overlap": {"sites": "auto"}, "autotune": {"enabled": True}}, 9),
     ({"sparse_gradients": True}, 6),
-    ({"flops_profiler": {"enabled": True}}, 9),
-    ({"autotune": {"table_path": "table.json"}}, 9),
     ({"mesh": {"model": 2, "data": 1}}, 6),
 ])
 def test_later_slices_name_their_roadmap_item(jax_model_and_tree, extra,
